@@ -1,0 +1,349 @@
+"""The functional transformer core for both TTS stages, in PyTorch.
+
+Port of the dense path of metavoice_tpu/models/transformer.py. Parameters
+are the JAX package's pytree as plain dicts of tensors:
+
+  * layer weights are stacked along a leading L axis and the block stack is
+    a Python loop over layer views;
+  * every linear weight is stored (in, out), so a projection is ``x @ w``;
+  * the KV cache is a pair of sequence-major (L, S, B, H, Dh) tensors.
+
+Unlike the JAX package, which threads the cache functionally, the cache is
+updated IN PLACE: prefill writes its window of rows, and a T=1 decode step
+writes its row inside the decode-attention kernel
+(ops/attention.py:decode_attention, a hand-written CUDA kernel on the card).
+Norms run in f32 and round to the compute dtype before the weight multiply;
+attention scores and softmax are f32; the output heads accumulate in f32.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from metavoice_tpu_torch.core.config import TransformerConfig
+from metavoice_tpu_torch.core.device import resolve_device
+from metavoice_tpu_torch.ops.attention import decode_attention
+
+Params = dict[str, Any]
+
+
+@dataclass
+class KVCache:
+    """Static-shape per-layer KV cache, layout (L, S, B, H_kv, Dh), float
+    (bf16 on the serving path), updated in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def create(
+        cls,
+        cfg: TransformerConfig,
+        batch_size: int,
+        max_seq_len: int | None = None,
+        dtype: torch.dtype = torch.bfloat16,
+        device="cuda",
+    ) -> "KVCache":
+        if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+            raise ValueError(f"the port's KV cache is a float cache (bf16), got {dtype!r}")
+        s = max_seq_len or cfg.block_size
+        shape = (cfg.n_layer, s, batch_size, cfg.n_local_heads, cfg.head_dim)
+        dev = resolve_device(device)
+        return cls(
+            k=torch.zeros(shape, dtype=dtype, device=dev),
+            v=torch.zeros(shape, dtype=dtype, device=dev),
+        )
+
+    @property
+    def max_seq_len(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def batch_size(self) -> int:
+        return self.k.shape[2]
+
+
+def init_params(
+    cfg: TransformerConfig,
+    *,
+    device="cuda",
+    generator: torch.Generator | None = None,
+    dtype: torch.dtype = torch.float32,
+) -> Params:
+    """Random-normal(0.02) init in the JAX package's layout (reference
+    fam/llm/model.py:170-176); output projections use 0.02/sqrt(2L)."""
+    dev = resolve_device(device)
+
+    def normal(*shape, std=0.02):
+        w = torch.randn(shape, dtype=torch.float32, device=dev, generator=generator)
+        return (w * std).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    d, i_sz, l = cfg.dim, cfg.intermediate_size, cfg.n_layer
+    qkv_out = (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim
+    out_std = 0.02 / (2 * l) ** 0.5
+    layers = {
+        "attn_norm_w": ones(l, d),
+        "wqkv": normal(l, d, qkv_out),
+        "wo": normal(l, d, d, std=out_std),
+        "ffn_norm_w": ones(l, d),
+    }
+    if cfg.nonlinearity_type == "swiglu":
+        layers["w1"] = normal(l, d, i_sz)
+        layers["w3"] = normal(l, d, i_sz)
+        layers["w2"] = normal(l, i_sz, d, std=out_std)
+    elif cfg.nonlinearity_type == "gelu":
+        layers["w_fc"] = normal(l, d, 4 * d)
+        layers["w_proj"] = normal(l, 4 * d, d, std=out_std)
+    else:
+        raise ValueError(f"unknown nonlinearity {cfg.nonlinearity_type}")
+    params: Params = {
+        "wtes": [normal(v, d) for v in cfg.vocab_sizes],
+        "wpe": normal(cfg.block_size, d),
+        "layers": layers,
+        "ln_f_w": ones(d),
+    }
+    if cfg.bias:
+        layers["attn_norm_b"] = zeros(l, d)
+        layers["ffn_norm_b"] = zeros(l, d)
+        layers["wqkv_b"] = zeros(l, qkv_out)
+        layers["wo_b"] = zeros(l, d)
+        if cfg.nonlinearity_type == "gelu":
+            layers["w_fc_b"] = zeros(l, 4 * d)
+            layers["w_proj_b"] = zeros(l, d)
+        params["ln_f_b"] = zeros(d)
+    if cfg.speaker_emb_dim:
+        params["speaker_cond"] = normal(cfg.speaker_emb_dim, d)
+    if cfg.target_vocab_sizes is not None:
+        params["lm_heads"] = [normal(d, v) for v in cfg.target_vocab_sizes]
+    # else: heads are weight-tied to wtes (fam/llm/model.py:139-143)
+    return params
+
+
+# --------------------------------------------------------------------------------------
+# Building blocks
+# --------------------------------------------------------------------------------------
+
+
+def _norm(x, w, b, norm_type: str, eps: float):
+    """RMSNorm / LayerNorm in f32, cast to x.dtype, THEN times the weight.
+    LayerNorm's eps is 1e-5 whatever ``eps`` says, as in the JAX package."""
+    xf = x.float()
+    if norm_type == "rmsnorm":
+        xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    elif norm_type == "layernorm":
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        xf = (xf - mean) * torch.rsqrt(var + 1e-5)
+    else:
+        raise ValueError(norm_type)
+    out = xf.to(x.dtype) * w.to(x.dtype)
+    if b is not None:
+        out = out + b.to(x.dtype)
+    return out
+
+
+def _linear(x, w, b=None):
+    """Dense (in, out) projection in x's dtype."""
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
+def _mlp(x, lp: Params, cfg: TransformerConfig):
+    """SwiGLU or exact-GELU FFN."""
+    if cfg.nonlinearity_type == "swiglu":
+        return _linear(F.silu(_linear(x, lp["w1"])) * _linear(x, lp["w3"]), lp["w2"])
+    y = _linear(F.gelu(_linear(x, lp["w_fc"], lp.get("w_fc_b")), approximate="none"), lp["w_proj"])
+    b = lp.get("w_proj_b")
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def _qkv_proj(x, lp: Params, cfg: TransformerConfig):
+    """x (B, T, D) -> q (B, H, T, Dh), k/v (B, H_kv, T, Dh)."""
+    b, t, _ = x.shape
+    h, h_kv, dh = cfg.n_head, cfg.n_local_heads, cfg.head_dim
+    qkv = _linear(x, lp["wqkv"], lp.get("wqkv_b"))
+    q, k, v = torch.split(qkv, [h * dh, h_kv * dh, h_kv * dh], dim=-1)
+    q = q.reshape(b, t, h, dh).transpose(1, 2)
+    k = k.reshape(b, t, h_kv, dh).transpose(1, 2)
+    v = v.reshape(b, t, h_kv, dh).transpose(1, 2)
+    return q, k, v
+
+
+def _softmax_attend(scores, v_eq: str, v, mask, out_dtype, dh: int):
+    scores = scores * (1.0 / dh**0.5)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(out_dtype)
+    return torch.einsum(v_eq, probs, v.to(out_dtype))
+
+
+def _attend(q, k, v, cfg: TransformerConfig, mask, out_dtype):
+    """q (B, H, T, Dh) x k/v (B, H_kv, S, Dh) -> (B, T, D). f32 softmax."""
+    b, h, t, dh = q.shape
+    if cfg.n_local_heads != cfg.n_head:
+        rep = cfg.n_head // cfg.n_local_heads
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    scores = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float())
+    y = _softmax_attend(scores, "bhts,bhsd->bhtd", v, mask, out_dtype, dh)
+    return y.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def _attend_seq_major(q, k, v, cfg: TransformerConfig, mask, out_dtype):
+    """q (B, H, T, Dh) x a sequence-major cache slice k/v (S, B, H_kv, Dh)
+    -> (B, T, D). f32 softmax."""
+    b, h, t, dh = q.shape
+    if cfg.n_local_heads != cfg.n_head:
+        rep = cfg.n_head // cfg.n_local_heads
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    scores = torch.einsum("bhtd,sbhd->bhts", q.float(), k.float())
+    y = _softmax_attend(scores, "bhts,sbhd->bhtd", v, mask, out_dtype, dh)
+    return y.transpose(1, 2).reshape(b, t, h * dh)
+
+
+# --------------------------------------------------------------------------------------
+# Full forward
+# --------------------------------------------------------------------------------------
+
+
+def embed_inputs(
+    params: Params,
+    cfg: TransformerConfig,
+    idx,
+    positions,
+    spk_emb,
+    spk_cond_mask=None,
+    compute_dtype=torch.bfloat16,
+):
+    """Token + position + speaker-conditioning embeddings.
+
+    idx: (B, T) single-vocab or (B, C, T) multi-hierarchy (summed).
+    spk_emb: (B, spk_dim) or None. spk_cond_mask: (B, 1, 1) 0/1 rows that
+    zero the speaker projection of the CFG-unconditioned rows.
+    """
+    if idx.dim() == 2:
+        idx = idx[:, None, :]
+    tok = torch.zeros((idx.shape[0], idx.shape[2], cfg.dim), dtype=compute_dtype, device=idx.device)
+    for i, wte in enumerate(params["wtes"]):
+        tok = tok + wte.to(compute_dtype)[idx[:, i, :]]
+    x = tok + params["wpe"].to(compute_dtype)[positions]
+    if spk_emb is not None and "speaker_cond" in params:
+        cond = _linear(spk_emb.to(compute_dtype), params["speaker_cond"])
+        if cond.dim() == 2:
+            cond = cond[:, None, :]  # (B, 1, D), broadcast over time
+        if spk_cond_mask is not None:
+            cond = cond * spk_cond_mask.to(compute_dtype)
+        x = x + cond
+    return x
+
+
+def apply_blocks(
+    params: Params,
+    cfg: TransformerConfig,
+    x,
+    mask,
+    kv_cache: KVCache | None = None,
+    cache_pos: int | None = None,
+    attn_starts=None,
+):
+    """Run the L-layer block stack and the final norm -> (x, kv_cache).
+
+    * no cache: full attention under ``mask`` (None = non-causal);
+    * cache, T > 1 (prefill): write rows [cache_pos, cache_pos+T) of every
+      layer in place, attend over the whole cache layer under ``mask``;
+    * cache, T = 1 (decode): ``decode_attention`` writes the row and attends
+      over the window [attn_starts, cache_pos]; ``mask`` is not used.
+    """
+    t = x.shape[1]
+    for li in range(cfg.n_layer):
+        lp = {name: w[li] for name, w in params["layers"].items()}
+        xa = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps)
+        q, k_new, v_new = _qkv_proj(xa, lp, cfg)
+        if kv_cache is None:
+            y = _attend(q, k_new, v_new, cfg, mask, x.dtype)
+        elif t == 1:
+            y3, _, _ = decode_attention(
+                q[:, :, 0].contiguous(),
+                k_new[:, :, 0].contiguous(),
+                v_new[:, :, 0].contiguous(),
+                kv_cache.k,
+                kv_cache.v,
+                li,
+                cache_pos,
+                starts=attn_starts,
+            )
+            y = y3.reshape(x.shape[0], 1, cfg.n_head * cfg.head_dim).to(x.dtype)
+        else:
+            rows = slice(cache_pos, cache_pos + t)
+            kv_cache.k[li, rows] = k_new.permute(2, 0, 1, 3).to(kv_cache.k.dtype)
+            kv_cache.v[li, rows] = v_new.permute(2, 0, 1, 3).to(kv_cache.v.dtype)
+            y = _attend_seq_major(q, kv_cache.k[li], kv_cache.v[li], cfg, mask, x.dtype)
+        proj = _linear(y, lp["wo"], lp.get("wo_b"))
+        h = x + proj
+        x = h + _mlp(_norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), cfg.norm_type, cfg.norm_eps), lp, cfg)
+    x = _norm(x, params["ln_f_w"], params.get("ln_f_b"), cfg.norm_type, cfg.norm_eps)
+    return x, kv_cache
+
+
+def output_logits(params: Params, cfg: TransformerConfig, x) -> list[torch.Tensor]:
+    """Per-hierarchy lm-head logits in f32: ``lm_heads`` when the config has
+    target vocabs (second stage), else tied to ``wtes`` (first stage)."""
+    xf = x.float()
+    if cfg.target_vocab_sizes is not None:
+        return [xf @ h.to(x.dtype).float() for h in params["lm_heads"]]
+    return [xf @ w.to(x.dtype).float().T for w in params["wtes"]]
+
+
+def causal_mask_for(positions, kv_len: int):
+    """(..., T, kv_len) bool mask: query at absolute position p sees slots [0, p]."""
+    kv_pos = torch.arange(kv_len, device=positions.device)
+    return positions[..., :, None] >= kv_pos
+
+
+def forward(
+    params: Params,
+    cfg: TransformerConfig,
+    idx,
+    *,
+    positions=None,
+    spk_emb=None,
+    spk_cond_mask=None,
+    kv_cache: KVCache | None = None,
+    cache_pos: int = 0,
+    compute_dtype=torch.bfloat16,
+):
+    """(B, [C,] T) tokens -> (per-hierarchy (B, T, V) f32 logits, kv_cache).
+
+    Causal without a cache (training-style forward), causal with a cache
+    (prefill for T > 1, decode for T = 1, at ``cache_pos``; the cache is
+    updated in place), or non-causal (second stage).
+    """
+    t = idx.shape[-1]
+    if positions is None:
+        positions = torch.arange(t, device=idx.device) + (cache_pos if kv_cache is not None else 0)
+    x = embed_inputs(params, cfg, idx, positions, spk_emb, spk_cond_mask, compute_dtype)
+    if not cfg.causal:
+        mask = None
+    elif kv_cache is not None:
+        mask = causal_mask_for(positions, kv_cache.max_seq_len)[None, None]
+    else:
+        mask = causal_mask_for(positions, t)[None, None]
+    x, kv_cache = apply_blocks(
+        params, cfg, x, mask, kv_cache, cache_pos if kv_cache is not None else None
+    )
+    return output_logits(params, cfg, x), kv_cache

@@ -1,0 +1,296 @@
+"""End-to-end TTS — the user-facing ``TTS`` class of the PyTorch port.
+
+Port of the default path of metavoice_tpu/runtime/tts.py:
+``TTS(...).synthesise(text, spk_ref_path, top_p, guidance_scale, temperature)
+-> path to a .wav``, bf16 weights and a bf16 KV cache. The stages:
+
+  1. speaker encoder (models/speaker_encoder), cached per reference file;
+  2. first-stage LLM (models/first_stage): prefill + decode loop, whose
+     T=1 attention is the hand-written CUDA kernel on the card;
+  3. token split (core/tokens.split_flattened_interleaved);
+  4. second-stage non-causal completion (models/second_stage);
+  5. EnCodec decoder (models/encodec), then the spectral-gate enhancer and a
+     loudness-normalized wav write.
+
+Everything runs on the ``device`` given (default "cuda"; asking for cuda
+without a card raises). Not ported yet: quantized weights and KV cache,
+tensor parallelism, speculative decoding, streaming, MBD and the DF enhancer.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import hashlib
+import os
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from metavoice_tpu_torch.core import tokens as T
+from metavoice_tpu_torch.core.config import (
+    RuntimeConfig,
+    TransformerConfig,
+    first_stage_config,
+    second_stage_config,
+)
+from metavoice_tpu_torch.core.device import resolve_device
+from metavoice_tpu_torch.core.text import chunk_text, normalize_text
+from metavoice_tpu_torch.models import encodec as ec
+from metavoice_tpu_torch.models import first_stage as fs
+from metavoice_tpu_torch.models import second_stage as ss
+from metavoice_tpu_torch.models import speaker_encoder as se
+from metavoice_tpu_torch.models import transformer as tfm
+from metavoice_tpu_torch.models.enhancer import get_enhancer
+from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser
+from metavoice_tpu_torch.utils import audio_io as aio
+
+MAX_CHARS_PER_CHUNK = 220  # reference truncation point (fam/llm/inference.py:537)
+
+
+@dataclass
+class TTSComponents:
+    first_stage_params: tfm.Params
+    first_stage_cfg: TransformerConfig
+    second_stage_params: tfm.Params
+    second_stage_cfg: TransformerConfig
+    spk_params: se.Params
+    encodec_params: dict
+    encodec_cfg: ec.EncodecConfig
+    tokenizer: TrainedBPETokeniser
+    enhancer: object | None = None
+
+
+class TTS:
+    """Text-to-speech with zero-shot voice cloning (reference
+    fam/llm/fast_inference.py:38, class TTS)."""
+
+    END_OF_AUDIO_TOKEN = T.HIERARCHY_EOA  # 1024, per-hierarchy space
+
+    def __init__(
+        self,
+        components: TTSComponents,
+        *,
+        device="cuda",
+        seed: int = 1337,
+        output_dir: str = "outputs",
+        runtime: RuntimeConfig | None = None,
+        enforce_min_ref_duration: bool = True,
+        quantisation_mode: str | None = None,
+        kv_cache_dtype: str | None = None,
+        tensor_parallel: int = 1,
+        draft_params=None,
+        draft_cfg=None,
+    ):
+        self.runtime = runtime or RuntimeConfig(seed=seed, output_dir=output_dir)
+        unported = {
+            "quantisation_mode": quantisation_mode or self.runtime.quantisation_mode,
+            "kv_cache_dtype": kv_cache_dtype or self.runtime.kv_cache_dtype,
+            "tensor_parallel": tensor_parallel if tensor_parallel != 1 else None,
+            "draft_params": draft_params,
+            "draft_cfg": draft_cfg,
+        }
+        asked = [k for k, v in unported.items() if v is not None]
+        if asked:
+            raise NotImplementedError(
+                f"{asked} not ported: the PyTorch port runs bf16 weights and a bf16 KV cache"
+            )
+        self.c = components
+        self.device = resolve_device(device)
+        self.output_dir = output_dir
+        os.makedirs(output_dir, exist_ok=True)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._emb_cache: "collections.OrderedDict[str, np.ndarray]" = collections.OrderedDict()
+        self._emb_cache_max = 256
+        self._enforce_min_ref = enforce_min_ref_duration
+        self._compute_dtype = (
+            torch.bfloat16 if self.runtime.dtype == "bfloat16" else torch.float32
+        )
+        # persistent KV cache for the CFG pair, reused across calls
+        cfg1 = self.c.first_stage_cfg
+        self._kv_cache = tfm.KVCache.create(
+            cfg1, 2, cfg1.block_size, dtype=self._compute_dtype, device=self.device
+        )
+        # seconds per stage of the last synthesise, and the first stage's
+        # decode step count (each step: one kernel launch per layer on cuda)
+        self.timings: dict[str, float] = {}
+        self.stats: dict[str, int] = {}
+
+    @classmethod
+    def from_random(cls, *, small: bool = False, device="cuda", seed: int = 0, **kwargs) -> "TTS":
+        """Random-weight instance for development and smoke runs.
+
+        ``small=False`` is the full-width model: first stage 24L/16H/2048d,
+        the default second stage and EnCodec, the speaker encoder. Weights
+        are drawn on ``device`` from a generator seeded with ``seed``.
+        """
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        cfg1 = first_stage_config(n_layer=2, n_head=4, dim=128, block_size=512) if small else first_stage_config()
+        cfg2 = second_stage_config(n_layer=2, n_head=2, dim=64, block_size=256) if small else second_stage_config()
+        ecfg = ec.EncodecConfig(n_filters=8, dimension=32) if small else ec.EncodecConfig()
+        comps = TTSComponents(
+            first_stage_params=tfm.init_params(cfg1, device=dev, generator=gen, dtype=torch.bfloat16),
+            first_stage_cfg=cfg1,
+            second_stage_params=tfm.init_params(cfg2, device=dev, generator=gen, dtype=torch.bfloat16),
+            second_stage_cfg=cfg2,
+            spk_params=se.init_params(device=dev, generator=gen),
+            encodec_params=ec.init_params(ecfg, device=dev, generator=gen),
+            encodec_cfg=ecfg,
+            tokenizer=TrainedBPETokeniser(),
+            enhancer=get_enhancer("spectral_gate"),
+        )
+        kwargs.setdefault("enforce_min_ref_duration", False)
+        return cls(comps, device=dev, **kwargs)
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """Add the stage's wall seconds (device work included) to timings."""
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.timings[name] = self.timings.get(name, 0.0) + time.perf_counter() - t0
+
+    # ------------------------------------------------------------------ speaker embedding
+    def _get_speaker_embedding(self, spk_ref_path: str) -> np.ndarray:
+        """md5-cached speaker embedding (reference fam/llm/inference.py:419-435)."""
+        with open(spk_ref_path, "rb") as f:
+            cache_key = hashlib.md5(f.read(1 << 20)).hexdigest() + f":{os.path.getsize(spk_ref_path)}"
+        if cache_key in self._emb_cache:
+            self._emb_cache.move_to_end(cache_key)
+            return self._emb_cache[cache_key]
+        wav, _ = aio.load_audio(spk_ref_path, target_sr=se.SAMPLING_RATE)
+        wav = se.trim_silence(wav, top_db=20.0)
+        emb = se.embed_utterance(self.c.spk_params, wav)
+        self._emb_cache[cache_key] = emb
+        while len(self._emb_cache) > self._emb_cache_max:
+            self._emb_cache.popitem(last=False)
+        return emb
+
+    # ------------------------------------------------------------------ synthesis
+    @torch.inference_mode()
+    def _tokens_to_wav(
+        self,
+        text: str,
+        prompt_tokens: list,
+        token_stream,
+        spk_emb: np.ndarray,
+        noise: torch.Tensor | None = None,
+    ) -> np.ndarray:
+        """First-stage token stream -> 24 kHz waveform: split, second stage,
+        EnCodec decoder, enhancer. ``noise`` replaces the second stage's
+        Gumbel draws (tests)."""
+        _text_ids, coarse = T.split_flattened_interleaved(token_stream, self.END_OF_AUDIO_TOKEN)
+        if len(coarse[0]) == 0:
+            raise RuntimeError(f"first stage produced no audio tokens for: {text!r}")
+        with self._stage("second_stage"):
+            full_codes = ss.complete_hierarchies(
+                self.c.second_stage_params,
+                self.c.second_stage_cfg,
+                prompt_tokens,
+                coarse,
+                spk_emb,
+                generator=self._gen,
+                temperature=1.0,
+                top_k=200,
+                compute_dtype=self._compute_dtype,
+                noise=noise,
+            )  # (8, T_audio)
+        # the vocoder sees the code length padded to a bucket (1/3 s under
+        # 1 s, 1 s above), as in the JAX package, and the wav is trimmed after
+        t_audio = full_codes.shape[1]
+        bucket = max(25, -(-t_audio // 25) * 25) if t_audio <= 75 else -(-t_audio // 75) * 75
+        if bucket != t_audio:
+            full_codes = np.pad(full_codes, ((0, 0), (0, bucket - t_audio)))
+        with self._stage("vocoder"):
+            wav = ec.decode_codes(self.c.encodec_params, self.c.encodec_cfg, full_codes)
+            wav = wav[0].float().cpu().numpy()
+        wav = wav[: t_audio * self.c.encodec_cfg.hop_length]
+        if self.c.enhancer is not None:
+            with self._stage("enhancer"):
+                wav = self.c.enhancer(wav, self.c.encodec_cfg.sample_rate)
+        return wav.astype(np.float32)
+
+    def write_wav_output(self, text: str, wav: np.ndarray) -> str:
+        """Loudness-normalized write to a unique path in output_dir."""
+        digest = hashlib.md5(f"{text}{time.time()}".encode()).hexdigest()[:12]
+        out_path = os.path.join(self.output_dir, f"synth_{digest}.wav")
+        aio.write_wav_loudness_normalized(out_path, wav, self.c.encodec_cfg.sample_rate)
+        return out_path
+
+    def _synthesise_chunk(
+        self,
+        text: str,
+        spk_emb: np.ndarray,
+        top_p: float,
+        guidance_scale: float,
+        temperature: float,
+        max_new_tokens: int | None = None,
+    ) -> np.ndarray:
+        """One <=220-char chunk -> 24 kHz waveform (float32)."""
+        prompt = self.c.tokenizer.encode(text)
+        stats: dict = {}
+        with self._stage("first_stage"):
+            seq = fs.generate(
+                self.c.first_stage_params,
+                self.c.first_stage_cfg,
+                prompt,
+                spk_emb,
+                generator=self._gen,
+                temperature=temperature,
+                top_p=top_p,
+                guidance_scale=guidance_scale,
+                max_new_tokens=max_new_tokens,
+                prompt_pad_multiple=self.runtime.prompt_pad_multiple,
+                kv_cache=self._kv_cache,
+                compute_dtype=self._compute_dtype,
+                stats=stats,
+            )
+        self.stats["decode_steps"] = self.stats.get("decode_steps", 0) + stats["decode_steps"]
+        return self._tokens_to_wav(text, prompt, seq, spk_emb)
+
+    def synthesise(
+        self,
+        text: str,
+        spk_ref_path: str,
+        top_p: float = 0.95,
+        guidance_scale: float = 3.0,
+        temperature: float = 1.0,
+        max_new_tokens: int | None = None,
+    ) -> str:
+        """Synthesise ``text`` in the voice of ``spk_ref_path``; returns the
+        path to a loudness-normalized 24 kHz wav. ``max_new_tokens`` caps the
+        first stage per chunk (None: to end-of-audio or the context limit).
+        ``timings`` and ``stats`` describe this call afterwards."""
+        start = time.time()
+        self.timings, self.stats = {}, {}
+        text = normalize_text(text)
+        spk_ref_path = aio.get_cached_file(spk_ref_path)
+        if self._enforce_min_ref:
+            aio.check_audio_file(spk_ref_path)
+        with self._stage("spk_emb"):
+            spk_emb = self._get_speaker_embedding(spk_ref_path)
+
+        wavs = [
+            self._synthesise_chunk(
+                chunk, spk_emb, top_p, guidance_scale, temperature, max_new_tokens=max_new_tokens
+            )
+            for chunk in chunk_text(text, MAX_CHARS_PER_CHUNK) or [""]
+        ]
+        gap = np.zeros(int(0.1 * self.c.encodec_cfg.sample_rate), np.float32)
+        wav = wavs[0] if len(wavs) == 1 else np.concatenate(
+            [w for pair in zip(wavs, [gap] * len(wavs)) for w in pair][:-1]
+        )
+        digest = hashlib.md5(f"{text}{spk_ref_path}{time.time()}".encode()).hexdigest()[:12]
+        out_path = os.path.join(self.output_dir, f"synth_{digest}.wav")
+        with self._stage("write_wav"):
+            aio.write_wav_loudness_normalized(out_path, wav, self.c.encodec_cfg.sample_rate)
+
+        elapsed = time.time() - start
+        duration = len(wav) / self.c.encodec_cfg.sample_rate
+        print(f"Total time to synth (s): {elapsed:.2f}")
+        print(f"Real-time factor: {elapsed / max(duration, 1e-6):.2f}")
+        return out_path
