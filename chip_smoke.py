@@ -17,12 +17,34 @@ Phases, one line each; any failure exits non-zero and prints no result:
   5. synth   - full-width TTS.synthesise on random weights (first stage
                24L/16H/2048d, default second stage and EnCodec): a finite
                24 kHz wav, and the K1 launch count equal to n_layer x decode
-               steps of that run.
+               steps of that run;
+  6. K2      - the int4 prefill matmul against its plain version at the
+               main-path shapes (M = 256; K x N of 2048 x 6144, 2048 x 2048,
+               6144 x 2048) and at M = 1, 200: max |dy| <= 1e-3 max |ref|;
+               CUDA-event times of one layer's five projections beside the
+               plain version, torch._weight_int4pack_mm and the bound;
+  7. K3      - the int4 decode stack against its plain version at the full
+               main-path shape (24 layers, B = 2, cache 2048 slots, head
+               Vp 3072) at pos 0, 255, 1000, 2047, with starts, with NaN
+               beyond pos and with GQA (2 kv heads): one layer at a time
+               within 1e-2 max |ref|, all layers' x_out and logits within
+               5e-2 max |ref|, pad logits exactly 0, layer 0's new cache
+               row within one bf16 ulp, every other slot unchanged; times;
+  8. small4  - a 2-layer 1024-wide int4 first stage on the card against the
+               CPU path (plain versions) with the same weights: prefill
+               logits and 8 teacher-forced decode steps within 5e-2 max |ref|;
+  9. synth4  - full-width TTS(quantisation_mode="int4").synthesise: a finite
+               wav; K3 launches == decode steps, K2 launches == 5 x n_layer x
+               prefills, K1 launches == 0;
+ 10. profile4 - where a 64-token int4 first-stage generate spends its time:
+               device kernel time by kernel (torch.profiler) against the same
+               generate unprofiled (the device's busy share).
 
-The two lines before the last are the kernels' JSON record and the
-nvidia-smi line; the last line is {"ok": true, "device": {...}}. TF32 is
-off for matmuls and convolutions throughout, so every comparison is f32.
-Imports nothing of JAX.
+Phases 5 and 9 are the main paths: every kernel count is set to 0 just
+before each and read just after. The two lines before the last are the
+kernels' JSON record and the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
+throughout, so every comparison is f32. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +59,35 @@ import time
 MAIN_SHAPE = dict(l=24, s=2048, b=2, h=16, dh=128)
 K1_TOL = 2e-2
 TIMED_POS = (256, 1000, 2047)  # the JSON line carries the last one
+K2_TOL = 1e-3
+# K3 over 24 layers: the two versions round at the same points, but their f32
+# sums run in other orders, so a bf16 rounding can land one ulp apart; a layer
+# spreads such a flip into every later value, and the gap grows with depth
+# like a random walk (measured on the card: 0.4% of max |ref| after 1 layer,
+# 2.2% after 24). So each layer alone, fed the plain version's residual
+# stream, is held to K3_LAYER_TOL, and the whole stack to K3_TOL.
+K3_TOL = 5e-2
+K3_LAYER_TOL = 1e-2
+# The small int4 model on the card against the CPU path: the kernels agree
+# with their plain versions to ~1e-6 of max |ref| (K2) and one bf16 ulp a
+# layer (K3), but the bf16 dense products outside them (speaker projection,
+# prefill attention) run on cuBLAS on the card and on the CPU's own kernels,
+# which round differently, and two layers spread those flips (measured: 2.25%
+# of max |ref| at prefill on the card).
+SMALL4_TOL = 5e-2
+K2_M = 256  # prefill rows: the CFG pair x a 128-token prompt bucket
+K3_TIMED_POS = (0, 255, 1000, 2047)  # the JSON line carries pos 255
+SYNTH_TEXT = "The quick brown fox jumps over the lazy dog, twice."
+# H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s
+HBM_BYTES_S = 3.35e12
+BF16_FLOP_S = 989e12
+F32_FLOP_S = 67e12
+
+
+def bound(n_bytes: float, n_flop: float, peak_flop_s: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_flop / peak_flop_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def fail(msg: str):
@@ -61,7 +112,9 @@ def phase_build():
 
     lib = _build.kernels()
     regs = [ln.split(":", 1)[1].strip() for ln in lib.build_log.splitlines() if "registers" in ln]
-    print(f"[2 build] {lib.build_seconds:.2f} s nvcc -> {lib.path.name}; ptxas: {regs}")
+    n_src = len(list(_build.CSRC_DIR.glob("*.cu")))
+    print(f"[2 build] {lib.build_seconds:.2f} s: {n_src} nvcc compiles at once + link -> "
+          f"{lib.path.name}; ptxas: {regs}")
 
 
 def _k1_inputs(torch, gen, dev, pos=None, garbage=None):
@@ -143,6 +196,14 @@ def phase_k1(torch) -> dict:
     times = {}
     q, k_new, v_new, kc, vc = _k1_inputs(torch, gen, dev)
     n_layer = MAIN_SHAPE["l"]
+    pos = TIMED_POS[-1]
+    # the library yardstick: SDPA on each layer's window, pre-transposed to (B, H, pos+1, Dh)
+    qt = q[:, :, None, :]
+    kt = [kc[li, : pos + 1].permute(1, 2, 0, 3).contiguous() for li in range(n_layer)]
+    vt = [vc[li, : pos + 1].permute(1, 2, 0, 3).contiguous() for li in range(n_layer)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library, _ = _layers_ms(torch, lambda li: sdpa(qt, kt[li], vt[li]), n_layer)
+    del kt, vt
     for pos in TIMED_POS:
         kernel = _layers_ms(torch, lambda li: A.decode_attention(q, k_new, v_new, kc, vc, li, pos), n_layer)
         plain = _layers_ms(
@@ -155,10 +216,25 @@ def phase_k1(torch) -> dict:
         f"plain {pl[0]:.4f} ms on the device; {k[1]:.4f} / {pl[1]:.4f} ms a call from Python"
         for p, (k, pl) in times.items()
     )
+    pos = TIMED_POS[-1]
+    row = q.numel() * q.element_size()  # one (B, H, Dh) bf16 row
+    # read q, k_new, v_new and the window; write the cache row pair and y
+    bound_ms, bound_by = bound(window_bytes(pos) + 3 * row + 2 * row + row,
+                               4.0 * (pos + 1) * q.numel(), F32_FLOP_S)
     print(f"[3 K1] {len(cases)} cases at {MAIN_SHAPE} bf16 agree (max |dy| {max_err:.3g}, "
-          f"caches bit-identical); {shown}")
-    (ms, _), (plain, _) = times[TIMED_POS[-1]]
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain}
+          f"caches bit-identical); {shown}; pos {pos}: SDPA on the pre-transposed window "
+          f"{library:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    (ms, _), (plain, _) = times[pos]
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library}
+
+
+def to_cuda(node):
+    if isinstance(node, dict):
+        return {k: to_cuda(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [to_cuda(v) for v in node]
+    return node.cuda()
 
 
 def phase_small(torch):
@@ -177,14 +253,6 @@ def phase_small(torch):
     noise = S.gumbel_noise((n, 1, cfg.vocab_size), device="cpu", generator=gen)
     kw = dict(max_new_tokens=n, compute_dtype=torch.float32)
     tok_cpu = fs.generate(params, cfg, prompt, spk, noise=noise, **kw)
-
-    def to_cuda(node):
-        if isinstance(node, dict):
-            return {k: to_cuda(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [to_cuda(v) for v in node]
-        return node.cuda()
-
     tok_gpu = fs.generate(to_cuda(params), cfg, prompt, spk, noise=noise.cuda(), **kw)
     if not (tok_cpu.shape == tok_gpu.shape and (tok_cpu == tok_gpu).all()):
         fail(f"first stage on the card differs from the CPU path: {tok_gpu} vs {tok_cpu}")
@@ -192,9 +260,28 @@ def phase_small(torch):
           f"{len(tok_gpu) - len(prompt)} tokens identical")
 
 
-def phase_synth(torch, workdir: str) -> int:
+def counters() -> dict:
+    """Kernel name -> the wrapper whose `launches` counts its launches."""
     from metavoice_tpu_torch.ops import attention as A
-    from metavoice_tpu_torch.runtime.tts import TTS
+    from metavoice_tpu_torch.ops import decode_stack as DS
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    return {"decode_attention": A.decode_attention, "matmul_int4_i32": Q.matmul_int4_i32,
+            "decode_stack_int4": DS.decode_stack_int4}
+
+
+def drive_main_path(tts, ref: str) -> tuple[str, float, dict]:
+    """One synthesise through the user's entry point, every kernel count set
+    to 0 just before and read just after -> (wav path, seconds, counts)."""
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    path = tts.synthesise(SYNTH_TEXT, ref, max_new_tokens=192)
+    seconds = time.perf_counter() - t0
+    return path, seconds, {name: fn.launches for name, fn in counters().items()}
+
+
+def write_ref(workdir: str) -> str:
     from metavoice_tpu_torch.utils import audio_io as aio
     import numpy as np
 
@@ -202,29 +289,400 @@ def phase_synth(torch, workdir: str) -> int:
     t = np.arange(30 * sr) / sr
     ref = os.path.join(workdir, "ref.wav")
     aio.write_wav(ref, 0.3 * np.sin(2 * np.pi * 180 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t)), sr)
+    return ref
+
+
+def check_wav(path: str):
+    from metavoice_tpu_torch.utils import audio_io as aio
+    import numpy as np
+
+    wav, wav_sr = aio.read_wav(path)
+    if wav_sr != 24000 or len(wav) == 0 or not np.isfinite(wav).all():
+        fail(f"bad wav: sr {wav_sr}, {len(wav)} samples, finite {np.isfinite(wav).all()}")
+    return wav
+
+
+def phase_synth(torch, workdir: str, ref: str) -> dict:
+    from metavoice_tpu_torch.runtime.tts import TTS
+
     t0 = time.perf_counter()
     tts = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, "out"))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg1 = tts.c.first_stage_cfg
-    A.decode_attention.launches = 0
-    t0 = time.perf_counter()
-    path = tts.synthesise(
-        "The quick brown fox jumps over the lazy dog, twice.", ref, max_new_tokens=192
-    )
-    total_s = time.perf_counter() - t0
-    launches = A.decode_attention.launches
+    path, total_s, counts = drive_main_path(tts, ref)
+    launches = counts["decode_attention"]
     steps = tts.stats["decode_steps"]
     if launches == 0 or launches != cfg1.n_layer * steps:
         fail(f"K1 launches {launches} != n_layer {cfg1.n_layer} x decode steps {steps}")
-    wav, wav_sr = aio.read_wav(path)
-    if wav_sr != sr or len(wav) == 0 or not np.isfinite(wav).all():
-        fail(f"bad wav: sr {wav_sr}, {len(wav)} samples, finite {np.isfinite(wav).all()}")
+    if counts["matmul_int4_i32"] or counts["decode_stack_int4"]:
+        fail(f"the bf16 path launched int4 kernels: {counts}")
+    wav = check_wav(path)
     stages = ", ".join(f"{k} {v:.3f}" for k, v in tts.timings.items())
+    ms_tok = 1e3 * tts.timings["first_stage"] / max(steps, 1)
     print(f"[5 synth] {cfg1.n_layer}L/{cfg1.n_head}H/{cfg1.dim}d: init {init_s:.2f} s; "
           f"synthesise {total_s:.2f} s ({stages} s); {steps} decode steps, "
-          f"{launches} K1 launches; wav {len(wav)} samples ({len(wav) / sr:.2f} s) finite")
-    return launches
+          f"first stage {ms_tok:.2f} ms/token; {launches} K1 launches; "
+          f"wav {len(wav)} samples ({len(wav) / 24000:.2f} s) finite")
+    return {"counts": counts, "ms_per_token": ms_tok, "seconds": total_s, "timings": dict(tts.timings)}
+
+
+def _int4_bytes(pw, sc) -> int:
+    return pw.numel() * pw.element_size() + sc.numel() * sc.element_size()
+
+
+def phase_k2(torch) -> dict:
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    d, ip = 2048, 6144
+    layer_shapes = [(d, 3 * d), (d, d), (d, ip), (d, ip), (ip, d)]  # qkv, wo, w1, w3, w2
+    max_err = 0.0
+    for m, k, n in [(K2_M, d, 3 * d), (K2_M, d, d), (K2_M, ip, d), (1, d, d), (200, d, 3 * d)]:
+        pw, sc = Q.quantize_int4_i32(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        y = Q.matmul_int4_i32(x, pw, sc)
+        torch.cuda.synchronize()
+        ref = Q.matmul_int4_i32_reference(x, pw, sc)
+        if y.shape != (m, n) or not torch.isfinite(y).all():
+            fail(f"K2 output bad at M {m}, K {k}, N {n}")
+        err = (y - ref).abs().max().item()
+        if err > K2_TOL * ref.abs().max().item():
+            fail(f"K2 disagrees with the plain version at M {m}, K {k}, N {n}: max |dy| {err:.3g}")
+        max_err = max(max_err, err)
+
+    # times of one prefill layer's five projections, each on 8 weight sets
+    # in turn (50 MB and more a shape), so the weights come from HBM
+    n_sets = 8
+    x = {k: torch.randn((K2_M, k), generator=gen, device=dev).to(torch.bfloat16) for k in (d, ip)}
+    kernel = plain = library = 0.0
+    lib_name = "torch._weight_int4pack_mm"
+    n_bytes = n_flop = 0.0
+    per_shape = []
+    for k, n in layer_shapes:
+        packed = [Q.quantize_int4_i32(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+                  for _ in range(n_sets)]
+        xk = x[k]
+        t_k, t_ke = _layers_ms(torch, lambda i: Q.matmul_int4_i32(xk, *packed[i]), n_sets)
+        t_p, _ = _layers_ms(torch, lambda i: Q.matmul_int4_i32_reference(xk, *packed[i]), n_sets)
+        t_l, lib_name = _k2_library_ms(torch, xk, packed, lib_name)
+        kernel, plain, library = kernel + t_k, plain + t_p, library + t_l
+        n_bytes += xk.numel() * 2 + _int4_bytes(*packed[0]) + K2_M * n * 4
+        n_flop += 2.0 * K2_M * k * n
+        per_shape.append(f"{k}x{n} {t_k:.4f} (eager {t_ke:.4f})")
+    bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
+    print(f"[6 K2] 5 cases agree (max |dy| {max_err:.3g}, tol {K2_TOL} max |ref|); one layer's "
+          f"five projections at M {K2_M}, device time from a CUDA graph: kernel {kernel:.4f} ms "
+          f"({'; '.join(per_shape)}), plain {plain:.4f} ms; {lib_name} {library:.4f} ms called "
+          f"eagerly; bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{n_flop / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); kernel at "
+          f"{n_flop / kernel / 1e9:.1f} TFLOP/s")
+    return {"max_abs_err": max_err, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library, "library_call": lib_name}
+
+
+def _rotate_ms(torch, fn, n: int) -> float:
+    """ms per call of fn(i), i = 0..n-1 in turn, called eagerly (CUDA events)."""
+    return _time_ms(torch, lambda: [fn(i) for i in range(n)], 10) / n
+
+
+def _k2_library_ms(torch, x, packed, lib_name: str) -> tuple[float, str]:
+    """One PyTorch call for the same product: torch._weight_int4pack_mm on
+    the same nibbles, scales and zeros (w = (q - 8) * scale + zero, so
+    zero = c + 8 s), or, where this torch lacks it or refuses the shape,
+    torch.matmul on the bf16-dequantized weight. -> (ms, the call timed)."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    k = x.shape[1]
+    if lib_name == "torch._weight_int4pack_mm":
+        try:
+            libs = []
+            for pw, sc in packed:
+                q = (Q.unpack_int4_i32(pw).to(torch.int32) + 8).T.contiguous()  # (N, K) in 0..15
+                w_u8 = (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8)
+                w_lib = torch._convert_weight_to_int4pack(w_u8, 2)
+                g = k // Q.I32_GROUPSIZE
+                s, c = sc[:g].float(), sc[sc.shape[0] // 2 : sc.shape[0] // 2 + g].float()
+                sz = torch.stack([s, c + 8 * s], dim=2).to(torch.bfloat16).contiguous()  # (G, N, 2)
+                libs.append((w_lib, sz))
+            y = torch._weight_int4pack_mm(x, libs[0][0], Q.I32_GROUPSIZE, libs[0][1])
+            ref = Q.matmul_int4_i32_reference(x, *packed[0])
+            if (y.float() - ref).abs().max().item() > 2e-2 * ref.abs().max().item():
+                raise RuntimeError("its result disagrees with the int4 product")
+            return _rotate_ms(torch, lambda i: torch._weight_int4pack_mm(
+                x, libs[i][0], Q.I32_GROUPSIZE, libs[i][1]), len(libs)), lib_name
+        except (AttributeError, RuntimeError, NotImplementedError) as e:
+            print(f"[6 K2] torch._weight_int4pack_mm not usable here ({str(e)[:120]}); "
+                  "timing torch.matmul on the bf16-dequantized weight instead")
+    dense = []
+    for pw, sc in packed:
+        g = k // Q.I32_GROUPSIZE
+        nib = (Q.unpack_int4_i32(pw).float() + 8).reshape(g, Q.I32_GROUPSIZE, -1)
+        s, c = sc[:g].float(), sc[sc.shape[0] // 2 : sc.shape[0] // 2 + g].float()
+        dense.append((nib * s[:, None] + c[:, None]).reshape(k, -1).to(torch.bfloat16))
+    return _rotate_ms(torch, lambda i: torch.matmul(x, dense[i]), len(dense)), \
+        "torch.matmul(bf16 dequantized)"
+
+
+def _random_int4_model(torch, cfg, seed: int, dev):
+    """The first stage's params from a seed, packed to int4 on the device."""
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = tfm.init_params(cfg, device=dev, generator=gen, dtype=torch.bfloat16)
+    lay = params["layers"]
+    for key in ("attn_norm_w", "ffn_norm_w"):
+        lay[key] = (1 + 0.1 * torch.randn(lay[key].shape, generator=gen, device=dev)).to(torch.bfloat16)
+    return Q.quantize_params_int4_i32(params)
+
+
+def _k3_args(qp):
+    lay = qp["layers"]
+    return (lay["attn_norm_w"], lay["ffn_norm_w"],
+            *[t for k in ("wqkv", "wo", "w1", "w3", "w2") for t in (lay[k]["pw"], lay[k]["sc"])])
+
+
+def k3_worst_layer(torch, x, args, kc, vc, pos, n_head, **kw) -> float:
+    """Largest gap, as a share of max |ref|, between K3 and its plain version
+    run one layer at a time, each fed the plain version's residual stream
+    (copies of the caches: the originals stay as they are)."""
+    from metavoice_tpu_torch.ops import decode_stack as DS
+
+    worst = 0.0
+    for li in range(kc.shape[0]):
+        one = [a[li : li + 1] for a in args]
+        got = DS.decode_stack_int4(x, *one, kc[li : li + 1].clone(), vc[li : li + 1].clone(),
+                                   pos, n_head, **kw)[0].float()
+        x = DS.decode_stack_int4_reference(x, *one, kc[li : li + 1].clone(), vc[li : li + 1].clone(),
+                                           pos, n_head, **kw)[0]
+        ref = x.float()
+        worst = max(worst, (got - ref).abs().max().item() / ref.abs().max().item())
+    return worst
+
+
+def phase_k3(torch) -> dict:
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.ops import decode_stack as DS
+
+    dev = torch.device("cuda")
+    b = MAIN_SHAPE["b"]
+    models = {h_kv: (first_stage_config(n_local_heads=h_kv),) for h_kv in (16, 2)}
+    models = {h: (cfg, _random_int4_model(torch, cfg, h, dev)) for h, (cfg,) in models.items()}
+    cases = [(p, None, None, 16) for p in K3_TIMED_POS]
+    cases += [(1000, (300, 700), None, 16), (1000, None, float("nan"), 16), (1000, None, None, 2)]
+    gen = torch.Generator(device=dev).manual_seed(33)
+    max_err = worst_layer = worst_rel = 0.0
+    for pos, starts, garbage, h_kv in cases:
+        cfg, qp = models[h_kv]
+        shape = (cfg.n_layer, cfg.block_size, b, h_kv, cfg.head_dim)
+        kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        if garbage is not None:
+            kc[:, pos + 1 :] = garbage
+            vc[:, pos + 1 :] = garbage
+        x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+        st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+        kw = dict(n_kv_head=h_kv, starts=st, norm_eps=cfg.norm_eps, ln_f_w=qp["ln_f_w"],
+                  head_pw=qp["lm_head_q"]["pw"], head_sc=qp["lm_head_q"]["sc"])
+        kc0, vc0 = kc.clone(), vc.clone()
+        kr, vr = kc.clone(), vc.clone()
+        layer_kw = dict(n_kv_head=h_kv, starts=st, norm_eps=cfg.norm_eps)
+        layer_gap = k3_worst_layer(torch, x, _k3_args(qp), kc, vc, pos, cfg.n_head, **layer_kw)
+        xo, _, _, lg = DS.decode_stack_int4(x, *_k3_args(qp), kc, vc, pos, cfg.n_head, **kw)
+        torch.cuda.synchronize()
+        xr, _, _, lr = DS.decode_stack_int4_reference(x, *_k3_args(qp), kr, vr, pos, cfg.n_head, **kw)
+        what = f"pos {pos} starts {starts} garbage {garbage} n_kv_head {h_kv}"
+        if not layer_gap <= K3_LAYER_TOL:
+            fail(f"K3 disagrees with the plain version one layer at a time at {what}: "
+                 f"{layer_gap:.3g} of max |ref|")
+        worst_layer = max(worst_layer, layer_gap)
+        v = cfg.vocab_size
+        if not (torch.isfinite(xo).all() and torch.isfinite(lg).all()):
+            fail(f"K3 output not finite at {what}")
+        for name, got, ref in (("x_out", xo.float(), xr.float()), ("logits", lg[:, :v], lr[:, :v])):
+            err = (got - ref).abs().max().item()
+            if not err <= K3_TOL * ref.abs().max().item():
+                fail(f"K3 {name} disagrees with the plain version at {what}: max |d| {err:.3g}, "
+                     f"max |ref| {ref.abs().max().item():.3g}")
+            max_err = max(max_err, err)
+            worst_rel = max(worst_rel, err / ref.abs().max().item())
+        if lg[:, v:].any():
+            fail(f"K3 vocab pad logits are not exactly 0 at {what}")
+        others = torch.ones(cfg.block_size, dtype=torch.bool, device=dev)
+        others[pos] = False
+        for got, ref, orig in ((kc, kr, kc0), (vc, vr, vc0)):
+            row, ref_row = got[0, pos].float(), ref[0, pos].float()
+            excess = ((row - ref_row).abs() - ref_row.abs() * 2.0**-7).max().item()
+            if excess > 1e-4 * ref_row.abs().max().item():
+                fail(f"K3 layer 0's new cache row is more than one bf16 ulp off at {what}")
+            if not torch.equal(got[:, others].view(torch.int16), orig[:, others].view(torch.int16)):
+                fail(f"K3 changed cache slots other than pos at {what}")
+        del kc, vc, kc0, vc0, kr, vr
+
+    cfg, qp = models[16]
+    del models[2]
+    shape = (cfg.n_layer, cfg.block_size, b, 16, cfg.head_dim)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(norm_eps=cfg.norm_eps, ln_f_w=qp["ln_f_w"], head_pw=qp["lm_head_q"]["pw"],
+              head_sc=qp["lm_head_q"]["sc"])
+    lay = qp["layers"]
+    weight_bytes = sum(_int4_bytes(lay[k]["pw"], lay[k]["sc"]) for k in ("wqkv", "wo", "w1", "w3", "w2"))
+    head_bytes = _int4_bytes(qp["lm_head_q"]["pw"], qp["lm_head_q"]["sc"])
+    macs = sum(lay[k]["pw"].numel() * 8 for k in ("wqkv", "wo", "w1", "w3", "w2"))
+    macs += qp["lm_head_q"]["pw"].numel() * 8
+    vp = qp["lm_head_q"]["pw"].shape[1]
+    # norm weights, ln_f, x in and out, logits out
+    small = 2 * cfg.n_layer * cfg.dim * 2 + cfg.dim * 2 + 2 * b * cfg.dim * 2 + b * vp * 4
+    times, shown = {}, []
+    for pos in K3_TIMED_POS:
+        def step(_):
+            return DS.decode_stack_int4(x, *_k3_args(qp), kc, vc, pos, cfg.n_head, **kw)
+
+        device_ms, eager_ms = _layers_ms(torch, step, 20)  # 20 steps: 14 GB, far past the L2
+        plain_ms = _time_ms(torch, lambda: DS.decode_stack_int4_reference(
+            x, *_k3_args(qp), kc, vc, pos, cfg.n_head, **kw), 3)
+        kv_bytes = 2 * cfg.n_layer * (pos + 1) * b * 16 * cfg.head_dim * 2  # window + row writes
+        n_bytes = weight_bytes + head_bytes + small + kv_bytes + 2 * cfg.n_layer * b * cfg.dim * 2
+        n_flop = 2.0 * b * macs + 4.0 * cfg.n_layer * b * cfg.n_head * (pos + 1) * cfg.head_dim
+        bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
+        times[pos] = (device_ms, plain_ms, bound_ms, bound_by)
+        shown.append(f"pos {pos}: {device_ms:.4f} ms on the device ({n_bytes / device_ms / 1e6:.0f} GB/s), "
+                     f"{eager_ms:.4f} ms a call from Python, plain {plain_ms:.3f} ms, "
+                     f"bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"[7 K3] {len(cases)} cases at 24L/16H/2048d, B {b}, S 2048, Vp 3072 agree: one layer at "
+          f"a time within {worst_layer:.3g} of max |ref| (tol {K3_LAYER_TOL}); all 24 layers, "
+          f"x_out and logits, within {worst_rel:.3g} (max |d| {max_err:.3g}; tol {K3_TOL}); pad "
+          f"logits 0; layer 0's new row within one ulp; other slots unchanged; "
+          f"{'; '.join(shown)}")
+    device_ms, plain_ms, bound_ms, bound_by = times[255]
+    return {"max_abs_err": max_err, "ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def phase_small4(torch):
+    """int4 first stage on the card vs the CPU path (plain versions), same weights."""
+    from metavoice_tpu_torch.core import sampling as S
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    cfg = first_stage_config(n_layer=2, n_head=8, dim=1024, intermediate_size=2048, block_size=512)
+    gen = torch.Generator().manual_seed(8)
+    cpu = Q.quantize_params_int4_i32(tfm.init_params(cfg, device="cpu", generator=gen, dtype=torch.bfloat16))
+    gpu = to_cuda(cpu)
+    prompt = torch.randint(0, cfg.vocab_size, (40,), generator=gen)
+    idx = torch.zeros((2, 128), dtype=torch.long)
+    idx[:, :40] = prompt
+    spk2 = torch.randn((1, 256), generator=gen).repeat(2, 1)
+    steps = torch.randint(0, 1024, (8,), generator=gen)
+    runs = {}
+    for name, params in (("cpu", cpu), ("cuda", gpu)):
+        dev = torch.device(name)
+        kv = tfm.KVCache.create(cfg, 2, cfg.block_size, device=dev)
+        mask = fs.make_spk_cond_mask(1, device=dev)
+        logits, kv = tfm.forward(params, cfg, idx.to(dev), spk_emb=spk2.to(dev), spk_cond_mask=mask,
+                                 kv_cache=kv, cache_pos=0)
+        out = [logits[0][:, :40].float().cpu()]
+        for i, tok in enumerate(steps.tolist()):
+            x = tfm.embed_inputs(params, cfg, torch.full((2, 1), tok, device=dev),
+                                 torch.tensor([40 + i], device=dev), spk2.to(dev), mask)
+            lg, kv, head_done = tfm.apply_blocks(params, cfg, x, None, kv, 40 + i, fused_head=True)
+            if not head_done:
+                fail("the int4 decode step did not fuse the head")
+            out.append(lg.float().cpu())
+        runs[name] = out
+    gaps = [(got - ref).abs().max().item() / ref.abs().max().item()
+            for ref, got in zip(runs["cpu"], runs["cuda"])]
+    if not max(gaps) <= SMALL4_TOL:
+        fail(f"int4 first stage on the card differs from the CPU path: prefill and steps "
+             f"{[round(g, 4) for g in gaps]} of max |ref| (tol {SMALL4_TOL})")
+    n = 48
+    noise = S.gumbel_noise((n, 1, cfg.vocab_size), device="cpu", generator=gen)
+    toks = [fs.generate(p, cfg, prompt.tolist(), spk2[0].numpy(), noise=nz, max_new_tokens=n)[40:]
+            for p, nz in ((cpu, noise), (gpu, noise.cuda()))]
+    same = next((i for i, (a, c) in enumerate(zip(*toks)) if a != c), min(map(len, toks)))
+    print(f"[8 small4] int4 first stage (2L/8H/1024d, Ip 2048) on the card vs the CPU path: "
+          f"prefill logits and 8 teacher-forced steps within {[round(g, 4) for g in gaps]} of "
+          f"max |ref| (tol {SMALL4_TOL}); free-running under shared Gumbel noise: first {same} of "
+          f"{len(toks[0])}/{len(toks[1])} tokens identical (printed, not required)")
+
+
+def phase_synth4(torch, workdir: str, ref: str, bf16: dict) -> dict:
+    from metavoice_tpu_torch.core.text import chunk_text, normalize_text
+    from metavoice_tpu_torch.runtime.tts import MAX_CHARS_PER_CHUNK, TTS
+
+    t0 = time.perf_counter()
+    tts = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, "out4"),
+                          quantisation_mode="int4")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg1 = tts.c.first_stage_cfg
+    path, total_s, counts = drive_main_path(tts, ref)
+    steps = tts.stats["decode_steps"]
+    prefills = len(chunk_text(normalize_text(SYNTH_TEXT), MAX_CHARS_PER_CHUNK) or [""])
+    want = {"decode_stack_int4": steps, "matmul_int4_i32": 5 * cfg1.n_layer * prefills,
+            "decode_attention": 0}
+    if steps == 0 or counts != want:
+        fail(f"int4 synthesise launched {counts}, expected {want}")
+    if {k: tts.stats[f"k{i}_launches"] for i, k in
+            ((1, "decode_attention"), (2, "matmul_int4_i32"), (3, "decode_stack_int4"))} != counts:
+        fail(f"TTS.stats {tts.stats} disagrees with the kernel counts {counts}")
+    wav = check_wav(path)
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in tts.timings.items())
+    ms_tok = 1e3 * tts.timings["first_stage"] / max(steps, 1)
+    print(f"[9 synth4] int4 {cfg1.n_layer}L/{cfg1.n_head}H/{cfg1.dim}d: init + quantize {init_s:.2f} s; "
+          f"synthesise {total_s:.2f} s ({stages} s); {steps} decode steps, first stage "
+          f"{ms_tok:.2f} ms/token (bf16 phase 5: {bf16['ms_per_token']:.2f}; synthesise "
+          f"{bf16['seconds']:.2f} s); launches {counts}; wav {len(wav)} samples finite")
+    return {"counts": counts, "tts": tts}
+
+
+def phase_profile4(torch, tts):
+    import numpy as np
+    from metavoice_tpu_torch.models import first_stage as fs
+
+    params, cfg = tts.c.first_stage_params, tts.c.first_stage_cfg
+    prompt = tts.c.tokenizer.encode(SYNTH_TEXT)
+    spk = np.random.default_rng(0).normal(size=256).astype(np.float32) * 0.1
+    stats: dict = {}
+
+    def run():
+        fs.generate(params, cfg, prompt, spk, max_new_tokens=64, kv_cache=tts._kv_cache, stats=stats)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("[10 profile4] the profiler saw no device time: busy share not measured")
+        return
+    families = {"K3 gemv_int4_partial": "gemv_int4_partial", "K3 gemv_reduce": "gemv_reduce",
+                "K3 attention split+combine": "decode_attn_", "K3 rmsnorm_rows": "rmsnorm_rows",
+                "K2 matmul_int4_i32": "matmul_int4_i32_kernel"}
+    by = {name: 0.0 for name in families}
+    by["other (PyTorch: embedding, sampling, prefill attention, copies)"] = 0.0
+    for e in kernels:
+        fam = next((k for k, pat in families.items() if pat in e.name), None)
+        by[fam or "other (PyTorch: embedding, sampling, prefill attention, copies)"] += \
+            e.time_range.elapsed_us() / 1e3
+    total = sum(by.values())
+    shown = ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f}%)"
+                      for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+    steps = stats["decode_steps"]
+    print(f"[10 profile4] int4 generate, prefill + {steps} decode steps: {wall_ms:.1f} ms unprofiled "
+          f"({wall_ms / max(steps, 1):.2f} ms a step with the prefill spread over them); "
+          f"{len(kernels)} device records, {total:.2f} ms of device time = "
+          f"{100 * total / wall_ms:.1f}% of the unprofiled wall time; {shown}")
 
 
 def main() -> int:
@@ -239,17 +697,28 @@ def main() -> int:
     k1 = phase_k1(torch)
     phase_small(torch)
     with tempfile.TemporaryDirectory() as workdir:
-        launches = phase_synth(torch, workdir)
-    record = {"kernels": [{
-        "name": "decode_attention",
-        "route": "cuda",
-        "source": "metavoice_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "metavoice_tpu/ops/attention.py:292",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}
+        ref = write_ref(workdir)
+        bf16 = phase_synth(torch, workdir, ref)
+        torch.cuda.empty_cache()
+        k2 = phase_k2(torch)
+        k3 = phase_k3(torch)
+        torch.cuda.empty_cache()
+        phase_small4(torch)
+        int4 = phase_synth4(torch, workdir, ref, bf16)
+        phase_profile4(torch, int4["tts"])
+    main_counts = {"decode_attention": bf16["counts"], "matmul_int4_i32": int4["counts"],
+                   "decode_stack_int4": int4["counts"]}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    record = {"kernels": [
+        {"name": name, "route": "cuda", "source": f"metavoice_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": main_counts[name][name],
+         **{k: stats[k] for k in keys}}
+        for name, src, replaces, stats in (
+            ("decode_attention", "decode_attention.cu", "metavoice_tpu/ops/attention.py:292", k1),
+            ("matmul_int4_i32", "matmul_int4_i32.cu", "metavoice_tpu/ops/quantized.py:927", k2),
+            ("decode_stack_int4", "decode_stack_int4.cu", "metavoice_tpu/ops/decode_stack.py:688", k3),
+        )
+    ]}
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

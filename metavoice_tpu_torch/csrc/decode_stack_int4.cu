@@ -1,0 +1,497 @@
+// One int4 decode step through every transformer layer (K3), written for
+// Hopper (sm_90a).
+//
+// Replaces metavoice_tpu/ops/decode_stack.py:decode_stack_int4 with
+// wfmt="i4" (the Pallas TPU kernel _decode_stack_kernel, grid over layers).
+// Per layer, for B <= 8 rows (the CFG pair on the main path):
+//   RMSNorm -> int4 qkv projection (f32) -> the k/v rows, rounded to bf16,
+//   written into the (L, S, B, H_kv, Dh) cache at (layer, pos) -> attention
+//   over [starts[b], pos] with q * 1/sqrt(Dh) in f32 (GQA: query head h reads
+//   kv head h / (H / H_kv)) -> int4 o-proj, bf16 residual add -> RMSNorm ->
+//   int4 w1/w3, silu(h1) * h3 in f32 rounded to bf16 -> int4 w2, bf16
+//   residual add; after the last layer, optionally, the final RMSNorm and
+//   the int4 tied head -> f32 logits (B, Vp). Norms: f32, rounded to bf16,
+//   then times the bf16 weight. The int4 products follow the TPU kernel's
+//   _int4_group_matmul: per group, f32 sums of x times the raw nibbles,
+//   times s_g, plus bf16(sum x_g) * c_g.
+//
+// What bounds it: weight bytes. At the main-path shape (24 layers, D = 2048,
+// Ip = 6144, B = 2) a step streams 695 MB of packed weights and scale tables,
+// 3.3 MB of packed head and 24 * 16384 * (pos + 1) bytes of KV window, while
+// it does about 2 multiply-adds per weight byte and row: far below the
+// card's ~295 operations per byte, so the floor is bytes / 3.35 TB/s, about
+// 0.21 ms at pos 0.
+//
+// Design (simple and right first):
+//   * One C entry per step launches a fixed sequence of small kernels for
+//     every layer on the caller's stream: it allocates nothing (scratch comes
+//     from the wrapper) and never synchronises. pos is read on the device
+//     from an int32, so the step's launches do not depend on it (the
+//     attention grid is sized for the cache capacity S; splits past pos
+//     write an empty partial and exit).
+//   * The int4 GEMV: a block owns 32 word rows (a quarter of one 128-row
+//     group in each of the 8 nibble slabs) by 32 * CPT columns; neighbouring
+//     lanes read neighbouring columns' words with 16-byte loads; each thread
+//     keeps one partial sum per (row of x, slab, column), so the group scale
+//     is applied once per block. The contraction is split across blocks
+//     (K/8/32 of them) so that even a 2048-wide output fills the SMs, and a
+//     second small kernel sums the partials in a fixed order and applies the
+//     epilogue: f32 out; f32 out plus the bf16 k/v row write; the bf16
+//     residual add; or silu(h1) * h3.
+//   * Nibbles become floats by placing them in the mantissa of 2^23 and
+//     subtracting 2^23 (exact), which avoids the slow int-to-float unit.
+//   * Attention is the split-sequence device code shared with the
+//     decode-attention kernel (decode_attention.cuh).
+//
+// Plain C entry point (no PyTorch headers), loaded with ctypes by
+// metavoice_tpu_torch/ops/_build.py; the wrapper and its plain PyTorch
+// version are in metavoice_tpu_torch/ops/decode_stack.py.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "decode_attention.cuh"
+
+namespace {
+
+constexpr int kQGroup = 128;        // quantization groupsize
+constexpr int kChunkRows = 32;      // word rows per GEMV block
+constexpr int kGemvWarps = 4;
+constexpr int kGemvThreads = kGemvWarps * 32;
+constexpr int kRowsPerGemvWarp = kChunkRows / kGemvWarps;
+constexpr int kNormThreads = 256;
+constexpr int kReduceThreads = 256;
+constexpr int kHeadDim = 128;
+
+enum Epi { kEpiF32 = 0, kEpiQKV = 1, kEpiResid = 2, kEpiSwiglu = 3 };
+
+__device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float round_bf16(float v) { return bf(__float2bfloat16_rn(v)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// Nibble j of a word as a float: 0x4B000000 is 2^23, so the nibble in the
+// low mantissa bits gives exactly 2^23 + nibble.
+__device__ __forceinline__ float nib_f(int32_t w, int j) {
+  return __int_as_float(((w >> (4 * j)) & 0xF) | 0x4B000000) - 8388608.0f;
+}
+
+template <int CPT>
+__device__ __forceinline__ void load_words(const int32_t* p, int32_t (&w)[CPT]) {
+  if constexpr (CPT == 4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (CPT == 2) {
+    const int2 v = __ldg(reinterpret_cast<const int2*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = __ldg(p);
+  }
+}
+
+// RMSNorm of one row per block: bf16(bf16(x * rsqrt(mean(x^2) + eps)) * w).
+__global__ void __launch_bounds__(kNormThreads)
+rmsnorm_rows(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+             __nv_bfloat16* __restrict__ out, int d, float eps) {
+  const __nv_bfloat16* xr = x + (size_t)blockIdx.x * d;
+  __nv_bfloat16* orow = out + (size_t)blockIdx.x * d;
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < d; i += kNormThreads) {
+    const float v = bf(xr[i]);
+    ss += v * v;
+  }
+  __shared__ float s_part[kNormThreads / 32];
+  ss = warp_sum(ss);
+  if ((threadIdx.x & 31) == 0) s_part[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int i = 0; i < kNormThreads / 32; ++i) total += s_part[i];
+  const float inv = 1.f / sqrtf(total / (float)d + eps);
+  for (int i = threadIdx.x; i < d; i += kNormThreads)
+    orow[i] = __float2bfloat16_rn(round_bf16(bf(xr[i]) * inv) * bf(w[i]));
+}
+
+struct GemvMat {
+  const int32_t* pw;        // (K/8, N)
+  const __nv_bfloat16* sc;  // (2*gp, N)
+};
+
+// Partial int4 products of x (b_rows, K) bf16 with the packed matrix of
+// blockIdx.z, over word rows [chunk * 32, +32): part[z][chunk][b][n] in f32.
+// The block holding the first rows of a group also adds that group's
+// c-terms, once per group.
+template <int NB, int CPT>
+__global__ void __launch_bounds__(kGemvThreads)
+gemv_int4_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int k8, int n, int gp,
+                  GemvMat m0, GemvMat m1, float* __restrict__ part) {
+  constexpr int kCols = 32 * CPT;
+  const GemvMat mat = blockIdx.z == 0 ? m0 : m1;
+  const int chunk = blockIdx.y;
+  const int n_chunks = gridDim.y;
+  const int col0 = blockIdx.x * kCols;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int k = 8 * k8;
+  const int n_grp_slab = k8 / kQGroup;
+  const int row0 = chunk * kChunkRows;  // first word row
+  const int mgrp = row0 / kQGroup;      // group index inside each slab
+  const bool first = row0 % kQGroup == 0;
+
+  __shared__ __align__(16) float sx[kChunkRows][NB][8];  // x at (slab j, word row r)
+  __shared__ float sred[kGemvWarps][NB][kCols];
+  __shared__ float sxs[NB][8];  // bf16-rounded group sums
+
+  for (int i = tid; i < kChunkRows * NB * 8; i += kGemvThreads) {
+    const int r = i / (NB * 8);
+    const int b = (i / 8) % NB;
+    const int j = i % 8;
+    sx[r][b][j] = b < b_rows ? bf(x[(size_t)b * k + (size_t)j * k8 + row0 + r]) : 0.f;
+  }
+  if (first) {
+    for (int jb = warp; jb < 8 * NB; jb += kGemvWarps) {
+      const int j = jb % 8;
+      const int b = jb / 8;
+      float s = 0.f;
+      if (b < b_rows) {
+        const __nv_bfloat16* xp = x + (size_t)b * k + (size_t)j * k8 + mgrp * kQGroup;
+        for (int i = lane; i < kQGroup; i += 32) s += bf(xp[i]);
+      }
+      s = warp_sum(s);
+      if (lane == 0) sxs[b][j] = round_bf16(s);
+    }
+  }
+  __syncthreads();
+
+  float acc[NB][8][CPT];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[b][j][c] = 0.f;
+
+  const int col = col0 + lane * CPT;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerGemvWarp; ++rr) {
+    const int r = warp * kRowsPerGemvWarp + rr;
+    int32_t w[CPT];
+    load_words<CPT>(mat.pw + (size_t)(row0 + r) * n + col, w);
+    float xv[NB][8];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const float4 lo = *reinterpret_cast<const float4*>(&sx[r][b][0]);
+      const float4 hi = *reinterpret_cast<const float4*>(&sx[r][b][4]);
+      xv[b][0] = lo.x; xv[b][1] = lo.y; xv[b][2] = lo.z; xv[b][3] = lo.w;
+      xv[b][4] = hi.x; xv[b][5] = hi.y; xv[b][6] = hi.z; xv[b][7] = hi.w;
+    }
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float nf = nib_f(w[c], j);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[b][j][c] = fmaf(xv[b][j], nf, acc[b][j][c]);
+      }
+  }
+
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    float sj[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sj[j] = bf(mat.sc[(size_t)(j * n_grp_slab + mgrp) * n + col + c]);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      float p = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p += acc[b][j][c] * sj[j];
+      sred[warp][b][lane * CPT + c] = p;
+    }
+  }
+  __syncthreads();
+
+  for (int i = tid; i < NB * kCols; i += kGemvThreads) {
+    const int b = i / kCols;
+    const int cc = i % kCols;
+    if (b >= b_rows) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGemvWarps; ++w) v += sred[w][b][cc];
+    if (first) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v += sxs[b][j] * bf(mat.sc[(size_t)(gp + j * n_grp_slab + mgrp) * n + col0 + cc]);
+    }
+    part[((size_t)(blockIdx.z * n_chunks + chunk) * b_rows + b) * n + col0 + cc] = v;
+  }
+}
+
+struct Epilogue {
+  int kind;
+  float* out_f32;            // kEpiF32, kEpiQKV: (b_rows, n)
+  __nv_bfloat16* out_bf16;   // kEpiResid (added to in place), kEpiSwiglu: (b_rows, n)
+  __nv_bfloat16* k_cache;    // kEpiQKV: the row write at (layer, pos)
+  __nv_bfloat16* v_cache;
+  const int* pos;
+  int layer;
+  int seq_len;
+  int d;    // q columns before the k columns
+  int dkv;  // H_kv * Dh
+};
+
+// Sums the partials of every chunk in order and applies the epilogue.
+__global__ void __launch_bounds__(kReduceThreads)
+gemv_reduce(const float* __restrict__ part, int n_chunks, int b_rows, int n, Epilogue e) {
+  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
+  if (i >= b_rows * n) return;
+  const size_t stride = (size_t)b_rows * n;
+  float y = 0.f;
+  for (int c = 0; c < n_chunks; ++c) y += part[c * stride + i];
+  switch (e.kind) {
+    case kEpiF32:
+      e.out_f32[i] = y;
+      break;
+    case kEpiQKV: {
+      e.out_f32[i] = y;
+      const int b = i / n;
+      const int col = i % n - e.d;
+      if (col >= 0) {
+        __nv_bfloat16* cache = col < e.dkv ? e.k_cache : e.v_cache;
+        const int cc = col < e.dkv ? col : col - e.dkv;
+        cache[(((size_t)e.layer * e.seq_len + *e.pos) * b_rows + b) * e.dkv + cc] =
+            __float2bfloat16_rn(y);
+      }
+      break;
+    }
+    case kEpiResid:
+      e.out_bf16[i] = __float2bfloat16_rn(bf(e.out_bf16[i]) + round_bf16(y));
+      break;
+    case kEpiSwiglu: {
+      float y3 = 0.f;
+      for (int c = 0; c < n_chunks; ++c) y3 += part[(n_chunks + c) * stride + i];
+      e.out_bf16[i] = __float2bfloat16_rn(y / (1.f + expf(-y)) * y3);
+      break;
+    }
+  }
+}
+
+struct StepArgs {
+  const __nv_bfloat16* x_in;
+  __nv_bfloat16* x;  // the residual stream, (B, D): the output
+  const __nv_bfloat16* norm1;
+  const __nv_bfloat16* norm2;
+  GemvMat wqkv, wo, w1, w3, w2, head;
+  __nv_bfloat16* k_cache;
+  __nv_bfloat16* v_cache;
+  const int* pos;
+  const int* starts;
+  const __nv_bfloat16* ln_f;  // nullptr: no head
+  float* logits;
+  int n_layer, batch, dim, n_head, n_kv_head, seq_len, ip, vp, gp, gp2;
+  float eps;
+  int n_splits, split_len;
+  __nv_bfloat16* xn;  // (B, D) normed activations
+  float* qkv;         // (B, qout)
+  __nv_bfloat16* ya;  // (B, D) attention output
+  __nv_bfloat16* h;   // (B, Ip) SwiGLU hidden
+  float* part;        // GEMV partials
+  float* part_ml;     // attention partials
+  float* part_acc;
+};
+
+template <int NB, int CPT>
+cudaError_t gemv(const StepArgs& a, const __nv_bfloat16* x, int k, int n, int gp, GemvMat m0,
+                 GemvMat m1, int n_mats, const Epilogue& e, cudaStream_t s) {
+  const int k8 = k / 8;
+  const int n_chunks = k8 / kChunkRows;
+  gemv_int4_partial<NB, CPT><<<dim3(n / (32 * CPT), n_chunks, n_mats), kGemvThreads, 0, s>>>(
+      x, a.batch, k8, n, gp, m0, m1, a.part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int total = a.batch * n;
+  gemv_reduce<<<(total + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(
+      a.part, n_chunks, a.batch, n, e);
+  return cudaGetLastError();
+}
+
+GemvMat layer_mat(const GemvMat& m, int layer, int k, int n, int gp) {
+  return GemvMat{m.pw + (size_t)layer * (k / 8) * n, m.sc + (size_t)layer * 2 * gp * n};
+}
+
+#define MV_CHECK(expr)                          \
+  do {                                          \
+    const cudaError_t err_ = (expr);            \
+    if (err_ != cudaSuccess) return err_;       \
+  } while (0)
+
+template <int NB, int CPT>
+cudaError_t run_step(const StepArgs& a, cudaStream_t s) {
+  const int d = a.dim;
+  const int dkv = a.n_kv_head * kHeadDim;
+  const int qout = d + 2 * dkv;
+  MV_CHECK(cudaMemcpyAsync(a.x, a.x_in, sizeof(__nv_bfloat16) * a.batch * d,
+                           cudaMemcpyDeviceToDevice, s));
+  Epilogue none{};
+  for (int l = 0; l < a.n_layer; ++l) {
+    rmsnorm_rows<<<a.batch, kNormThreads, 0, s>>>(a.x, a.norm1 + (size_t)l * d, a.xn, d, a.eps);
+    MV_CHECK(cudaGetLastError());
+
+    Epilogue eq = none;
+    eq.kind = kEpiQKV;
+    eq.out_f32 = a.qkv;
+    eq.k_cache = a.k_cache;
+    eq.v_cache = a.v_cache;
+    eq.pos = a.pos;
+    eq.layer = l;
+    eq.seq_len = a.seq_len;
+    eq.d = d;
+    eq.dkv = dkv;
+    const GemvMat wqkv = layer_mat(a.wqkv, l, d, qout, a.gp);
+    MV_CHECK((gemv<NB, CPT>(a, a.xn, d, qout, a.gp, wqkv, wqkv, 1, eq, s)));
+
+    SplitArgs<float, __nv_bfloat16> at;
+    at.q = a.qkv;
+    at.q_bstride = qout;
+    at.k_new = nullptr;
+    at.v_new = nullptr;
+    at.k_cache = a.k_cache;
+    at.v_cache = a.v_cache;
+    at.starts = a.starts;
+    at.n_head = a.n_head;
+    at.group = a.n_head / a.n_kv_head;
+    at.bkv = a.batch * a.n_kv_head;
+    at.seq_len = a.seq_len;
+    at.layer = l;
+    at.pos_dev = a.pos;
+    at.pos = 0;
+    at.split_len = a.split_len;
+    at.scale = (float)(1.0 / sqrt((double)kHeadDim));
+    at.part_ml = a.part_ml;
+    at.part_acc = a.part_acc;
+    const int rows = a.batch * a.n_head;
+    decode_attn_split<float, __nv_bfloat16, kHeadDim>
+        <<<dim3(rows, a.n_splits), kThreads, 0, s>>>(at);
+    MV_CHECK(cudaGetLastError());
+    decode_attn_combine<__nv_bfloat16, kHeadDim>
+        <<<rows, kHeadDim, 0, s>>>(a.part_ml, a.part_acc, a.n_splits, a.ya);
+    MV_CHECK(cudaGetLastError());
+
+    Epilogue er = none;
+    er.kind = kEpiResid;
+    er.out_bf16 = a.x;
+    const GemvMat wo = layer_mat(a.wo, l, d, d, a.gp);
+    MV_CHECK((gemv<NB, CPT>(a, a.ya, d, d, a.gp, wo, wo, 1, er, s)));
+
+    rmsnorm_rows<<<a.batch, kNormThreads, 0, s>>>(a.x, a.norm2 + (size_t)l * d, a.xn, d, a.eps);
+    MV_CHECK(cudaGetLastError());
+
+    Epilogue eg = none;
+    eg.kind = kEpiSwiglu;
+    eg.out_bf16 = a.h;
+    MV_CHECK((gemv<NB, CPT>(a, a.xn, d, a.ip, a.gp, layer_mat(a.w1, l, d, a.ip, a.gp),
+                            layer_mat(a.w3, l, d, a.ip, a.gp), 2, eg, s)));
+
+    const GemvMat w2 = layer_mat(a.w2, l, a.ip, d, a.gp2);
+    MV_CHECK((gemv<NB, CPT>(a, a.h, a.ip, d, a.gp2, w2, w2, 1, er, s)));
+  }
+  if (a.ln_f != nullptr) {
+    rmsnorm_rows<<<a.batch, kNormThreads, 0, s>>>(a.x, a.ln_f, a.xn, d, a.eps);
+    MV_CHECK(cudaGetLastError());
+    Epilogue ef = none;
+    ef.kind = kEpiF32;
+    ef.out_f32 = a.logits;
+    MV_CHECK((gemv<NB, CPT>(a, a.xn, d, a.vp, a.gp, a.head, a.head, 1, ef, s)));
+  }
+  return cudaSuccess;
+}
+
+#undef MV_CHECK
+
+}  // namespace
+
+// One decode step of every layer. Shapes (all contiguous on the device):
+//   x_in, x_out (B, D) bf16; norm1, norm2 (L, D) bf16;
+//   wqkv_pw (L, D/8, D + 2*H_kv*128) i32 and wqkv_sc (L, 2*gp, same) bf16; wo (L, D/8, D);
+//   w1, w3 (L, D/8, Ip); w2_pw (L, Ip/8, D) with w2_sc (L, 2*gp2, D);
+//   k_cache, v_cache (L, S, B, H_kv, 128) bf16, updated in place at (layer, *pos);
+//   pos: one int32; starts: NULL or (B,) int32;
+//   ln_f (D,) bf16, head_pw (D/8, Vp), head_sc (2*gp, Vp), logits (B, Vp) f32,
+//   or all four NULL for no head;
+// scratch: xn (B, D) bf16, qkv (B, D + 2*H_kv*128) f32, ya (B, D) bf16, h (B, Ip) bf16,
+//   part f32 holding the largest GEMV's 2 * K/8/32 * B * N partials,
+//   part_ml (B*H*n_splits*2) and part_acc (B*H*n_splits*128) f32.
+// n_splits * split_len must cover S. Returns a cudaError_t.
+extern "C" int mv_decode_stack_int4(
+    const void* x_in, void* x_out, const void* norm1, const void* norm2, const void* wqkv_pw,
+    const void* wqkv_sc, const void* wo_pw, const void* wo_sc, const void* w1_pw,
+    const void* w1_sc, const void* w3_pw, const void* w3_sc, const void* w2_pw,
+    const void* w2_sc, void* k_cache, void* v_cache, const void* pos, const void* starts,
+    const void* ln_f, const void* head_pw, const void* head_sc, void* logits, int n_layer,
+    int batch, int dim, int n_head, int n_kv_head, int head_dim, int seq_len, int ip, int vp,
+    int gp, int gp2, float eps, int n_splits, int split_len, void* xn, void* qkv, void* ya,
+    void* h, void* part, void* part_ml, void* part_acc, void* stream) {
+  const bool with_head = ln_f != nullptr;
+  if (n_layer < 1 || batch < 1 || batch > 8 || head_dim != kHeadDim || n_kv_head < 1 ||
+      n_head % n_kv_head != 0 || n_head * head_dim != dim || dim % (8 * kQGroup) != 0 ||
+      ip % (8 * kQGroup) != 0 || gp < dim / kQGroup || gp2 < ip / kQGroup || n_splits < 1 ||
+      split_len < 1 || (long long)n_splits * split_len < seq_len || pos == nullptr ||
+      (with_head && (head_pw == nullptr || head_sc == nullptr || logits == nullptr ||
+                     vp < 128 || vp % 128 != 0)))
+    return (int)cudaErrorInvalidValue;
+  StepArgs a;
+  a.x_in = static_cast<const __nv_bfloat16*>(x_in);
+  a.x = static_cast<__nv_bfloat16*>(x_out);
+  a.norm1 = static_cast<const __nv_bfloat16*>(norm1);
+  a.norm2 = static_cast<const __nv_bfloat16*>(norm2);
+  auto mat = [](const void* pw, const void* sc) {
+    return GemvMat{static_cast<const int32_t*>(pw), static_cast<const __nv_bfloat16*>(sc)};
+  };
+  a.wqkv = mat(wqkv_pw, wqkv_sc);
+  a.wo = mat(wo_pw, wo_sc);
+  a.w1 = mat(w1_pw, w1_sc);
+  a.w3 = mat(w3_pw, w3_sc);
+  a.w2 = mat(w2_pw, w2_sc);
+  a.head = mat(head_pw, head_sc);
+  a.k_cache = static_cast<__nv_bfloat16*>(k_cache);
+  a.v_cache = static_cast<__nv_bfloat16*>(v_cache);
+  a.pos = static_cast<const int*>(pos);
+  a.starts = static_cast<const int*>(starts);
+  a.ln_f = static_cast<const __nv_bfloat16*>(ln_f);
+  a.logits = static_cast<float*>(logits);
+  a.n_layer = n_layer;
+  a.batch = batch;
+  a.dim = dim;
+  a.n_head = n_head;
+  a.n_kv_head = n_kv_head;
+  a.seq_len = seq_len;
+  a.ip = ip;
+  a.vp = vp;
+  a.gp = gp;
+  a.gp2 = gp2;
+  a.eps = eps;
+  a.n_splits = n_splits;
+  a.split_len = split_len;
+  a.xn = static_cast<__nv_bfloat16*>(xn);
+  a.qkv = static_cast<float*>(qkv);
+  a.ya = static_cast<__nv_bfloat16*>(ya);
+  a.h = static_cast<__nv_bfloat16*>(h);
+  a.part = static_cast<float*>(part);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.part_acc = static_cast<float*>(part_acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch == 1) return (int)run_step<1, 4>(a, s);
+  if (batch == 2) return (int)run_step<2, 4>(a, s);
+  if (batch <= 4) return (int)run_step<4, 2>(a, s);
+  return (int)run_step<8, 1>(a, s);
+}

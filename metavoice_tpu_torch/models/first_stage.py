@@ -14,8 +14,11 @@ Port of the single-utterance path of metavoice_tpu/models/first_stage.py:
     since finished rows only emit EOA and are not counted.
 
 Each decode step runs every layer's attention through
-ops/attention.py:decode_attention (the CUDA kernel on the card). Only the
-2-row (speaker) CFG is ported; the 3-row prompt guidance is a later PR.
+ops/attention.py:decode_attention (the CUDA kernel on the card), or, with
+int4 weights, the whole step through ops/decode_stack.py:decode_stack_int4,
+whose fused int4 tied head gives the logits directly. Prefill keeps the
+bf16 tied head, as in the JAX package. Only the 2-row (speaker) CFG is
+ported; the 3-row prompt guidance is a later PR.
 """
 
 from __future__ import annotations
@@ -126,7 +129,8 @@ def generate(
     ``noise`` (n, 1, V): Gumbel noise for the n-th sampled token (row 0 for
     the prefill's), in place of draws from ``generator``. ``stats``, if
     given, receives ``decode_steps``: the T=1 forwards run (each launches the
-    decode-attention kernel once per layer on the card).
+    decode-attention kernel once per layer on the card, or with int4 weights
+    the decode-stack kernel once).
     """
     spk_g, _, _ = _normalize_guidance(guidance_scale)
     device = params["wpe"].device
@@ -167,8 +171,10 @@ def generate(
             params, cfg, _cfg_rows(cur)[:, None], positions[pos : pos + 1], spk2, mask2,
             compute_dtype,
         )
-        x, _ = tfm.apply_blocks(params, cfg, x, None, kv_cache, pos)
-        logits = tfm.output_logits(params, cfg, x)[0][:, 0, :]
+        out, _, head_done = tfm.apply_blocks(params, cfg, x, None, kv_cache, pos, fused_head=True)
+        # head_done: the int4 stack fused the final norm and the int4 tied
+        # head, and `out` is already the (2, V) f32 logits
+        logits = out if head_done else tfm.output_logits(params, cfg, out)[0][:, 0, :]
         sampled = S.sample_cfg(
             logits, spk_g, temperature, top_p,
             generator=generator, noise=None if noise is None else noise[step + 1],

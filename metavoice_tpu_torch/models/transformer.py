@@ -14,6 +14,15 @@ writes its row inside the decode-attention kernel
 (ops/attention.py:decode_attention, a hand-written CUDA kernel on the card).
 Norms run in f32 and round to the compute dtype before the weight multiply;
 attention scores and softmax are f32; the output heads accumulate in f32.
+
+int4 serving (``ops/quantized.quantize_params_int4_i32``): a linear weight
+may be a packed ``{"pw", "sc"}`` leaf, which ``_linear`` runs through the
+int4 matmul kernel (prefill). A T=1 step whose layer weights are int4 runs
+all layers in one decode-stack kernel (ops/decode_stack.py), with the final
+norm and the int4 tied head fused in when asked. The port follows that
+kernel's semantics on every device, the CPU included (its plain version);
+the JAX package's CPU route instead runs per-layer reference matmuls and
+the bf16 head.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ import torch.nn.functional as F
 from metavoice_tpu_torch.core.config import TransformerConfig
 from metavoice_tpu_torch.core.device import resolve_device
 from metavoice_tpu_torch.ops.attention import decode_attention
+from metavoice_tpu_torch.ops.decode_stack import decode_stack_int4
+from metavoice_tpu_torch.ops.quantized import is_int4, matmul_int4_i32
 
 Params = dict[str, Any]
 
@@ -153,8 +164,19 @@ def _norm(x, w, b, norm_type: str, eps: float):
 
 
 def _linear(x, w, b=None):
-    """Dense (in, out) projection in x's dtype."""
-    y = x @ w.to(x.dtype)
+    """Dense (in, out) projection in x's dtype, or a packed int4 one through
+    the int4 matmul kernel (f32 out, cast to x's dtype). The packer pads K
+    to a multiple of 1024; narrower activations are zero-padded to it (the
+    pad groups carry s = c = 0)."""
+    if is_int4(w):
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        kp = 8 * w["pw"].shape[0]
+        if x2.shape[-1] < kp:
+            x2 = F.pad(x2, (0, kp - x2.shape[-1]))
+        y = matmul_int4_i32(x2, w["pw"], w["sc"]).reshape(*lead, -1).to(x.dtype)
+    else:
+        y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
     return y
@@ -252,6 +274,66 @@ def embed_inputs(
     return x
 
 
+_STACK_KEYS = ("wqkv", "wo", "w1", "w3", "w2")
+
+
+def check_int4_decode(params: Params, cfg: TransformerConfig, cache_dtype=torch.bfloat16):
+    """Raise NotImplementedError when int4 layer weights cannot decode through
+    the stack kernel (the JAX package's conditions for it): the per-layer
+    int4 route (the fused attention-block and FFN kernels, K5/K6) is not
+    ported, and there is no other int4 decode."""
+    layers = params["layers"]
+    problems = [f"{k} is not int4" for k in _STACK_KEYS if not is_int4(layers.get(k))]
+    if cfg.nonlinearity_type != "swiglu":
+        problems.append(f"nonlinearity {cfg.nonlinearity_type!r} is not swiglu")
+    if cfg.norm_type != "rmsnorm":
+        problems.append(f"norm {cfg.norm_type!r} is not rmsnorm")
+    problems += [f"the model has {k}" for k in ("attn_norm_b", "wqkv_b") if k in layers]
+    if cfg.dim % 1024:
+        problems.append(f"dim {cfg.dim} is not a multiple of 1024")
+    if is_int4(layers.get("w1")) and layers["w1"]["pw"].shape[-1] % 1024:
+        problems.append(f"the FFN width {layers['w1']['pw'].shape[-1]} is not a multiple of 1024")
+    if cache_dtype != torch.bfloat16:
+        problems.append(f"the KV cache is {cache_dtype}, not bf16")
+    if problems:
+        raise NotImplementedError(
+            "int4 decode runs only through the decode-stack kernel, whose conditions fail: "
+            + "; ".join(problems)
+            + ". The per-layer int4 route (decode_attention_block_int4 and decode_ffn_int4, "
+            "K5/K6) is not ported."
+        )
+
+
+def _layer(layers: Params, li: int) -> Params:
+    """Layer li's view of the stacked weights (packed int4 leaves included)."""
+    return {
+        name: {k: v[li] for k, v in w.items()} if isinstance(w, dict) else w[li]
+        for name, w in layers.items()
+    }
+
+
+def _decode_stack(params: Params, cfg: TransformerConfig, x, kv_cache: KVCache, cache_pos,
+                  attn_starts, fused_head: bool):
+    """A T=1 step of int4 layers through the decode-stack kernel."""
+    check_int4_decode(params, cfg, kv_cache.k.dtype)
+    layers = params["layers"]
+    head = params.get("lm_head_q") if fused_head and "ln_f_b" not in params else None
+    head_kw = {} if head is None else dict(ln_f_w=params["ln_f_w"], head_pw=head["pw"], head_sc=head["sc"])
+    outs = decode_stack_int4(
+        x[:, 0, :],
+        layers["attn_norm_w"], layers["ffn_norm_w"],
+        *[t for k in _STACK_KEYS for t in (layers[k]["pw"], layers[k]["sc"])],
+        kv_cache.k, kv_cache.v, cache_pos, cfg.n_head,
+        n_kv_head=cfg.n_local_heads, starts=attn_starts, norm_eps=cfg.norm_eps, **head_kw,
+    )
+    if head is not None:
+        # vocab padding columns carry zeroed scales: slice them off
+        return outs[3][:, : cfg.vocab_sizes[0]], kv_cache, True
+    xo = _norm(outs[0][:, None, :].to(x.dtype), params["ln_f_w"], params.get("ln_f_b"),
+               cfg.norm_type, cfg.norm_eps)
+    return (xo, kv_cache, False) if fused_head else (xo, kv_cache)
+
+
 def apply_blocks(
     params: Params,
     cfg: TransformerConfig,
@@ -260,6 +342,7 @@ def apply_blocks(
     kv_cache: KVCache | None = None,
     cache_pos: int | None = None,
     attn_starts=None,
+    fused_head: bool = False,
 ):
     """Run the L-layer block stack and the final norm -> (x, kv_cache).
 
@@ -267,11 +350,21 @@ def apply_blocks(
     * cache, T > 1 (prefill): write rows [cache_pos, cache_pos+T) of every
       layer in place, attend over the whole cache layer under ``mask``;
     * cache, T = 1 (decode): ``decode_attention`` writes the row and attends
-      over the window [attn_starts, cache_pos]; ``mask`` is not used.
+      over the window [attn_starts, cache_pos]; ``mask`` is not used. With
+      int4 layer weights the whole step is the decode-stack kernel instead
+      (raises NotImplementedError when its conditions fail).
+
+    ``fused_head=True`` (decode callers) returns a THREE-tuple
+    ``(x_or_logits, kv_cache, head_done)``: when the int4 stack ran with a
+    packed head (``params["lm_head_q"]``), the final norm and the tied head
+    are fused into it and ``x_or_logits`` is the (B, V) f32 logits
+    (head_done=True); otherwise it is the normed hidden state.
     """
     t = x.shape[1]
+    if kv_cache is not None and t == 1 and any(is_int4(w) for w in params["layers"].values()):
+        return _decode_stack(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head)
     for li in range(cfg.n_layer):
-        lp = {name: w[li] for name, w in params["layers"].items()}
+        lp = _layer(params["layers"], li)
         xa = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps)
         q, k_new, v_new = _qkv_proj(xa, lp, cfg)
         if kv_cache is None:
@@ -297,7 +390,7 @@ def apply_blocks(
         h = x + proj
         x = h + _mlp(_norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), cfg.norm_type, cfg.norm_eps), lp, cfg)
     x = _norm(x, params["ln_f_w"], params.get("ln_f_b"), cfg.norm_type, cfg.norm_eps)
-    return x, kv_cache
+    return (x, kv_cache, False) if fused_head else (x, kv_cache)
 
 
 def output_logits(params: Params, cfg: TransformerConfig, x) -> list[torch.Tensor]:

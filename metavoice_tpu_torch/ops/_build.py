@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (``metavoice_tpu_torch/csrc/*.cu``).
 
-The sources have a plain C interface and no PyTorch headers, so one ``nvcc``
-call builds them in seconds into a shared library that ``ctypes`` loads
-(the same pattern as ``metavoice_tpu/native/__init__.py`` for the BPE
-engine). The library goes to ``metavoice_tpu_torch/_build/`` (git-ignored),
-named by a hash of the sources and flags, so an edited source never loads a
-stale build. A failed build raises: there is no fallback.
+The sources have a plain C interface and no PyTorch headers, so ``nvcc``
+builds them in seconds: one compile per source, all started together, then
+one link into a shared library that ``ctypes`` loads (the same pattern as
+``metavoice_tpu/native/__init__.py`` for the BPE engine). The library goes
+to ``metavoice_tpu_torch/_build/`` (git-ignored), named by a hash of the
+sources, the headers they include (``*.cuh``) and the flags, so an edited
+source never loads a stale build. A failed build raises: there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -24,17 +26,20 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> (restype, argtypes) of every C entry point in csrc/
 _SIGNATURES = {
     "mv_decode_attention": (
         _I,
         [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
+    "mv_matmul_int4_i32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "mv_decode_stack_int4": (_I, [_P] * 22 + [_I] * 11 + [_F, _I, _I] + [_P] * 8),
 }
 
 
@@ -66,6 +71,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): cannot build the CUDA kernels")
 
 
+def _run_together(cmds: list[list[str]]) -> str:
+    """Start every command at once, wait for all; their output, or raise."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, proc, output in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{output}")
+    return "".join(outputs)
+
+
 def kernels() -> KernelLibrary:
     """Build (on first use) and load the kernel library."""
     global _loaded
@@ -75,7 +90,7 @@ def kernels() -> KernelLibrary:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC_DIR.glob("*.cu*")):  # the sources and the headers they include
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"libmvtt_kernels_{digest.hexdigest()[:16]}.so"
@@ -83,16 +98,13 @@ def kernels() -> KernelLibrary:
     log = ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-        log = proc.stdout + proc.stderr
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+            nvcc = _nvcc()
+            objs = [os.path.join(tmp_dir, src.stem + ".o") for src in sources]
+            compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)] for src, o in zip(sources, objs)]
+            log = _run_together(compiles)
+            tmp = os.path.join(tmp_dir, out.name)
+            log += _run_together([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     _loaded = KernelLibrary(out, time.perf_counter() - t0, log)
     return _loaded

@@ -1,0 +1,264 @@
+"""One int4 decode step through every layer (K3): the CUDA kernel's wrapper
+and its plain PyTorch version.
+
+Replaces ``metavoice_tpu/ops/decode_stack.py:decode_stack_int4`` with
+``wfmt="i4"`` (the Pallas TPU kernel ``_decode_stack_kernel``). The kernel is
+``metavoice_tpu_torch/csrc/decode_stack_int4.cu``: one C entry per step
+launches every layer's work on the current stream; its header says what
+bounds it on the card (the packed weight bytes) and how its design follows
+that bound. The int8-in-int32 format (``wfmt="i8"``) is a different kernel,
+not ported yet.
+
+Semantics, per layer, for x (B, D) bf16: RMSNorm (f32, rounded to bf16, then
+times the bf16 weight); the int4 qkv projection in f32
+(:func:`~metavoice_tpu_torch.ops.quantized.matmul_int4_i32_reference`
+arithmetic); q * 1/sqrt(Dh) in f32; the k/v rows rounded to bf16 and written
+into the cache at (layer, pos) BEFORE the window is read; f32 softmax over
+``[starts[b], pos]`` (a start past ``pos`` is taken as ``pos``; query head h
+reads kv head ``h // (H / H_kv)``), rounded to bf16; the int4 o-proj rounded
+to bf16 and a bf16 residual add; RMSNorm; the int4 w1/w3 with
+``silu(h1) * h3`` in f32 rounded to bf16; the int4 w2 rounded to bf16 and a
+bf16 residual add. After the last layer, with ``ln_f_w``/``head_pw``/
+``head_sc``: RMSNorm and the int4 tied head -> (B, Vp) f32 logits.
+
+Both functions update the caches IN PLACE and return them, so callers
+written against the JAX signature keep working. Only slots ``[0, pos]`` are
+read, so garbage (even NaN) beyond ``pos`` never reaches the result.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from metavoice_tpu_torch.ops import _build
+from metavoice_tpu_torch.ops.quantized import I32_GROUPSIZE, matmul_int4_i32_reference
+
+SPLIT_POSITIONS = 64  # cache slots per block of the attention's sequence split
+MAX_SPLITS = 32
+HEAD_DIM = 128  # the kernel's head width
+MAX_BATCH = 8  # rows the kernel's GEMV holds in registers
+GEMV_CHUNK_ROWS = 32  # packed word rows per GEMV block: K/8/32 partial sums per output
+
+_scratch: dict[tuple, dict[str, torch.Tensor]] = {}
+
+
+def _rmsnorm(x, w, eps: float):
+    """f32 RMSNorm, rounded to bf16, THEN times the bf16 weight."""
+    xf = x.float()
+    nrm = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return nrm.to(torch.bfloat16) * w.to(torch.bfloat16)
+
+
+def _attend(q, k_cache, v_cache, layer: int, pos: int, starts, n_kv_head: int):
+    """q (B, H, Dh) f32, already scaled -> (B, H*Dh) bf16 over [starts, pos]."""
+    b, h, dh = q.shape
+    lk = k_cache[layer, : pos + 1].float()  # (pos+1, B, H_kv, Dh)
+    lv = v_cache[layer, : pos + 1].float()
+    if n_kv_head != h:
+        lk = lk.repeat_interleave(h // n_kv_head, dim=2)
+        lv = lv.repeat_interleave(h // n_kv_head, dim=2)
+    s = torch.einsum("bhd,sbhd->bhs", q, lk)
+    if starts is not None:
+        slot = torch.arange(pos + 1, device=q.device)
+        valid = slot[None, None, :] >= starts.clamp(max=pos)[:, None, None]
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,sbhd->bhd", p, lv).reshape(b, h * dh).to(torch.bfloat16)
+
+
+def decode_stack_int4_reference(
+    x, norm1_w, norm2_w, wqkv_pw, wqkv_sc, wo_pw, wo_sc, w1_pw, w1_sc, w3_pw, w3_sc,
+    w2_pw, w2_sc, k_cache, v_cache, pos, n_head: int, *, n_kv_head: int | None = None,
+    starts=None, norm_eps: float = 1e-5, ln_f_w=None, head_pw=None, head_sc=None,
+    groupsize: int = I32_GROUPSIZE,
+):
+    """Plain PyTorch version of the K3 kernel: the CPU path and the card's
+    oracle. Loops over the layers as the kernel does; same arguments and
+    returns as :func:`decode_stack_int4`."""
+    b, d = x.shape
+    dh = d // n_head
+    n_kv_head = n_kv_head or n_head
+    dkv = n_kv_head * dh
+    pos = int(pos)
+
+    def mm(a, pw, sc):
+        return matmul_int4_i32_reference(a, pw, sc, groupsize)
+
+    x = x.to(torch.bfloat16)
+    for li in range(k_cache.shape[0]):
+        qkv = mm(_rmsnorm(x, norm1_w[li], norm_eps), wqkv_pw[li], wqkv_sc[li])
+        q = (qkv[:, :d] * (1.0 / math.sqrt(dh))).reshape(b, n_head, dh)
+        k_cache[li, pos] = qkv[:, d : d + dkv].reshape(b, n_kv_head, dh).to(k_cache.dtype)
+        v_cache[li, pos] = qkv[:, d + dkv : d + 2 * dkv].reshape(b, n_kv_head, dh).to(v_cache.dtype)
+        ya = _attend(q, k_cache, v_cache, li, pos, starts, n_kv_head)
+        x = x + mm(ya, wo_pw[li], wo_sc[li]).to(torch.bfloat16)
+        hn = _rmsnorm(x, norm2_w[li], norm_eps)
+        hh = (F.silu(mm(hn, w1_pw[li], w1_sc[li])) * mm(hn, w3_pw[li], w3_sc[li])).to(torch.bfloat16)
+        x = x + mm(hh, w2_pw[li], w2_sc[li]).to(torch.bfloat16)
+    if head_pw is None:
+        return x, k_cache, v_cache
+    return x, k_cache, v_cache, mm(_rmsnorm(x, ln_f_w, norm_eps), head_pw, head_sc)
+
+
+def _check(x, norm1_w, norm2_w, mats, k_cache, v_cache, n_head, n_kv_head, starts, head):
+    if x.dim() != 2:
+        raise ValueError(f"x must be (B, D), got {tuple(x.shape)}")
+    b, d = x.shape
+    if d % n_head or n_head % n_kv_head:
+        raise ValueError(f"D={d}, n_head={n_head}, n_kv_head={n_kv_head} do not divide")
+    dh = d // n_head
+    (wqkv_pw, _), (wo_pw, _), (w1_pw, _), (w3_pw, _), (w2_pw, _) = mats
+    n_layer = k_cache.shape[0]
+    ip = w1_pw.shape[2]
+    want = {
+        "wqkv": (n_layer, d // 8, d + 2 * n_kv_head * dh), "wo": (n_layer, d // 8, d),
+        "w1": (n_layer, d // 8, ip), "w3": (n_layer, d // 8, ip), "w2": (n_layer, ip // 8, d),
+    }
+    for (name, shape), (pw, sc) in zip(want.items(), mats):
+        if tuple(pw.shape) != shape or sc.dim() != 3 or sc.shape[0] != n_layer or sc.shape[2] != shape[2]:
+            raise ValueError(f"{name}: pw {tuple(pw.shape)} / sc {tuple(sc.shape)} do not fit {shape}")
+    if norm1_w.shape != (n_layer, d) or norm2_w.shape != (n_layer, d):
+        raise ValueError(f"norm weights must be ({n_layer}, {d})")
+    if k_cache.dim() != 5 or k_cache.shape[2:] != (b, n_kv_head, dh) or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"caches must be (L, S, {b}, {n_kv_head}, {dh}), got {tuple(k_cache.shape)}, {tuple(v_cache.shape)}"
+        )
+    if starts is not None and tuple(starts.shape) != (b,):
+        raise ValueError(f"starts must be ({b},), got {tuple(starts.shape)}")
+    ln_f_w, head_pw, head_sc = head
+    if (head_pw is None) != (head_sc is None) or (head_pw is None) != (ln_f_w is None):
+        raise ValueError("ln_f_w, head_pw and head_sc go together")
+    if head_pw is not None and (head_pw.shape[0] * 8 != d or head_sc.shape[1] != head_pw.shape[1]):
+        raise ValueError(f"head pw {tuple(head_pw.shape)} / sc {tuple(head_sc.shape)} do not fit D={d}")
+    tensors = [x, norm1_w, norm2_w, k_cache, v_cache, *[t for m in mats for t in m]]
+    tensors += [t for t in (starts, *head) if t is not None]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"all tensors must share one device, got {sorted({str(t.device) for t in tensors})}")
+
+
+def _scratch_for(dev, b, d, qout, ip, vp, n_rows, n_splits):
+    key = (dev, b, d, qout, ip, vp, n_rows, n_splits)
+    if key not in _scratch:
+        chunks_d = d // 8 // GEMV_CHUNK_ROWS
+        part = b * max(chunks_d * qout, 2 * chunks_d * ip, ip // 8 // GEMV_CHUNK_ROWS * d, chunks_d * vp)
+        f32, bf16 = torch.float32, torch.bfloat16
+        _scratch[key] = {
+            "xn": torch.empty((b, d), dtype=bf16, device=dev),
+            "qkv": torch.empty((b, qout), dtype=f32, device=dev),
+            "ya": torch.empty((b, d), dtype=bf16, device=dev),
+            "h": torch.empty((b, ip), dtype=bf16, device=dev),
+            "part": torch.empty((part,), dtype=f32, device=dev),
+            "part_ml": torch.empty((n_rows * n_splits * 2,), dtype=f32, device=dev),
+            "part_acc": torch.empty((n_rows * n_splits * HEAD_DIM,), dtype=f32, device=dev),
+        }
+    return _scratch[key]
+
+
+def decode_stack_int4(
+    x, norm1_w, norm2_w, wqkv_pw, wqkv_sc, wo_pw, wo_sc, w1_pw, w1_sc, w3_pw, w3_sc,
+    w2_pw, w2_sc, k_cache, v_cache, pos, n_head: int, *, n_kv_head: int | None = None,
+    starts=None, norm_eps: float = 1e-5, ln_f_w=None, head_pw=None, head_sc=None,
+    groupsize: int = I32_GROUPSIZE, wfmt: str = "i4",
+):
+    """All layers of one T=1 decode step (K3).
+
+    x: (B, D) residual stream (not normed); norm weights (L, D); packed
+    weights stacked over layers, ``pw`` (L, K/8, N) int32 and ``sc``
+    (L, 2*Gp, N) bf16; caches (L, S, B, H_kv, Dh), updated in place at
+    (layer, pos); ``pos`` an int or a 0-d int32 tensor on x's device (the
+    kernel reads it on the device); ``starts`` optional (B,) first valid slot.
+
+    Returns ``(x_out (B, D) bf16, k_cache, v_cache)``, and ``logits
+    (B, Vp) f32`` fourth when ``ln_f_w``/``head_pw``/``head_sc`` are given.
+    A CUDA tensor launches the hand-written kernel or raises; a CPU tensor
+    takes :func:`decode_stack_int4_reference`. ``decode_stack_int4.launches``
+    counts kernel launches (one per step).
+    """
+    if wfmt != "i4":
+        raise NotImplementedError(
+            f"wfmt={wfmt!r}: the int8-in-int32 decode stack (K7) is not ported; only 'i4' is"
+        )
+    n_kv_head = n_kv_head or n_head
+    mats = ((wqkv_pw, wqkv_sc), (wo_pw, wo_sc), (w1_pw, w1_sc), (w3_pw, w3_sc), (w2_pw, w2_sc))
+    head = (ln_f_w, head_pw, head_sc)
+    _check(x, norm1_w, norm2_w, mats, k_cache, v_cache, n_head, n_kv_head, starts, head)
+    args = (x, norm1_w, norm2_w, *[t for m in mats for t in m], k_cache, v_cache, pos, n_head)
+    kw = dict(n_kv_head=n_kv_head, starts=starts, norm_eps=norm_eps, ln_f_w=ln_f_w,
+              head_pw=head_pw, head_sc=head_sc, groupsize=groupsize)
+    if x.device.type == "cpu":
+        return decode_stack_int4_reference(*args, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"decode_stack_int4 runs on cuda or cpu, not {x.device}")
+
+    b, d = x.shape
+    n_layer, seq_len = k_cache.shape[:2]
+    dh = d // n_head
+    ip = w1_pw.shape[2]
+    qout = wqkv_pw.shape[2]
+    if dh != HEAD_DIM or not 1 <= b <= MAX_BATCH or groupsize != I32_GROUPSIZE:
+        raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, 1..{MAX_BATCH} rows, groupsize 128; "
+                         f"got {dh}, {b}, {groupsize}")
+    if d % 1024 or ip % 1024:
+        raise ValueError(f"the kernel takes D and Ip multiples of 1024, got {d}, {ip}")
+    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
+        raise ValueError(f"the kernel takes a bf16 cache, got {k_cache.dtype}")
+    for pw, sc in mats + (((head_pw, head_sc),) if head_pw is not None else ()):
+        if pw.dtype != torch.int32 or sc.dtype != torch.bfloat16:
+            raise ValueError(f"packed weights must be int32 pw and bf16 sc, got {pw.dtype}, {sc.dtype}")
+    gp, gp2 = wqkv_sc.shape[-2] // 2, w2_sc.shape[-2] // 2
+    if any(sc.shape[-2] != 2 * gp for sc in (wo_sc, w1_sc, w3_sc)) or (
+        head_sc is not None and head_sc.shape[0] != 2 * gp
+    ):
+        raise ValueError("every D-contraction sc must have the same 2*Gp rows")
+    vp = 0 if head_pw is None else head_pw.shape[1]
+    if vp % 128:
+        raise ValueError(f"the kernel takes a head width that is a multiple of 128, got {vp}")
+    tensors = [x, k_cache, v_cache, *[t for m in mats for t in m]]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("decode_stack_int4 needs contiguous x, caches and packed weights")
+    dev = x.device
+    n_splits = min(-(-seq_len // SPLIT_POSITIONS), MAX_SPLITS)
+    split_len = -(-seq_len // n_splits)
+    s = _scratch_for(dev, b, d, qout, ip, vp, b * n_head, n_splits)
+    if isinstance(pos, torch.Tensor):
+        pos_t = pos.reshape(1).to(device=dev, dtype=torch.int32)
+    else:
+        pos_t = torch.full((1,), int(pos), dtype=torch.int32, device=dev)
+    if starts is not None:
+        starts = starts.to(torch.int32).contiguous()
+    x_out = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
+    x_in = x.to(torch.bfloat16).contiguous()
+    n1 = norm1_w.to(torch.bfloat16).contiguous()
+    n2 = norm2_w.to(torch.bfloat16).contiguous()
+    lnf = logits = None
+    if head_pw is not None:
+        lnf = ln_f_w.to(torch.bfloat16).contiguous()
+        logits = torch.empty((b, vp), dtype=torch.float32, device=dev)
+        head_pw, head_sc = head_pw.contiguous(), head_sc.contiguous()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _build.kernels().lib.mv_decode_stack_int4(
+        x_in.data_ptr(), x_out.data_ptr(), n1.data_ptr(), n2.data_ptr(),
+        *[t.data_ptr() for m in mats for t in m],
+        k_cache.data_ptr(), v_cache.data_ptr(), pos_t.data_ptr(), ptr(starts),
+        ptr(lnf), ptr(head_pw), ptr(head_sc), ptr(logits),
+        n_layer, b, d, n_head, n_kv_head, dh, seq_len, ip, vp, gp, gp2, float(norm_eps),
+        n_splits, split_len,
+        s["xn"].data_ptr(), s["qkv"].data_ptr(), s["ya"].data_ptr(), s["h"].data_ptr(),
+        s["part"].data_ptr(), s["part_ml"].data_ptr(), s["part_acc"].data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"decode_stack_int4 kernel launch failed: cudaError_t {err}")
+    decode_stack_int4.launches += 1
+    if logits is None:
+        return x_out, k_cache, v_cache
+    return x_out, k_cache, v_cache, logits
+
+
+decode_stack_int4.launches = 0

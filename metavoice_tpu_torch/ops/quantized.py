@@ -1,0 +1,215 @@
+"""int4-in-int32 weight-only quantization: the serving format, the prefill
+matmul kernel's wrapper (K2) and its plain PyTorch version.
+
+Port of the int4-in-int32 part of ``metavoice_tpu/ops/quantized.py``. The
+on-disk layout is kept exactly, so a ``cli quantize`` ``.npz`` loads in both
+packages:
+
+  * ``pw`` (K/8, N) int32, "split-eighth" along the contraction dim: bits
+    [4j, 4j+4) of word (k', n) hold q[j*K/8 + k', n] + 8, in [0, 15];
+  * ``sc`` (2*Gp, N) bf16: rows [0, Gp) are the group scales s, rows
+    [Gp, 2*Gp) the constants c = z - 7.5*s (Gp = K/groupsize rounded up to a
+    multiple of 8; pad rows are zero).
+
+Per K-group g of 128 rows, ``x_g @ W_g = s_g * (x_g @ nib_g) + sum(x_g) * c_g``,
+so the raw nibbles (exact in bf16) go straight into the products and the
+affine terms land in a per-group epilogue. Group g's rows are nibble
+``j = g // (K/8/128)`` of word rows ``[(g mod (K/8/128))*128, +128)``: one
+word holds one row of each of 8 groups.
+
+The kernel is ``metavoice_tpu_torch/csrc/matmul_int4_i32.cu``; a CUDA tensor
+launches it or raises, a CPU tensor takes :func:`matmul_int4_i32_reference`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from metavoice_tpu_torch.ops import _build
+
+I32_GROUPSIZE = 128  # serving groupsize (reference default, fast_quantize.py:70)
+_QUANTIZABLE_LAYER_KEYS = ("wqkv", "wo", "w1", "w3", "w2", "w_fc", "w_proj")
+_HIDDEN_OUT_KEYS = ("w1", "w3", "w_fc")  # hidden dim on the out axis
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def quantize_int4_grouped(w: torch.Tensor, groupsize: int = 128):
+    """Asymmetric groupwise int4 (reference fast_quantize.py:70-132).
+
+    w: (in, out) -> (q (in, out) int8 in [-8, 7], scales (n_groups, out),
+    zeros (n_groups, out)) in f32; w ~= (q + 0.5) * scales + zeros per group.
+    """
+    in_dim, out_dim = w.shape
+    if in_dim % groupsize != 0:
+        raise ValueError(f"in_dim {in_dim} not divisible by groupsize {groupsize}")
+    wg = w.float().reshape(in_dim // groupsize, groupsize, out_dim)
+    w_min = torch.clamp(wg.amin(dim=1), max=0.0)  # (n_groups, out)
+    w_max = torch.clamp(wg.amax(dim=1), min=0.0)
+    scales = torch.clamp(w_max - w_min, min=1e-6) / 15.0
+    zeros = w_min + scales * 7.5
+    q = torch.clamp(torch.round((wg - w_min[:, None, :]) / scales[:, None, :] - 8.0), -8, 7)
+    return q.to(torch.int8).reshape(in_dim, out_dim), scales, zeros
+
+
+def pack_int4_i32(q: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 in [-8, 7] -> (K/8, N) int32, split-eighth slab layout."""
+    k, n = q.shape
+    if k % 8:
+        raise ValueError(f"K={k} is not a multiple of 8")
+    nib = (q.to(torch.int32) + 8).reshape(8, k // 8, n)  # slab j = rows [j*K/8, ...)
+    word = nib[0].clone()
+    for j in range(1, 8):
+        word |= nib[j] << (4 * j)  # int32 wraps for j = 7, as in the JAX package
+    return word
+
+
+def unpack_int4_i32(pw: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4_i32`: (K/8, N) int32 -> (K, N) int8 in [-8, 7]."""
+    return torch.cat([(((pw >> (4 * j)) & 0xF) - 8).to(torch.int8) for j in range(8)], dim=0)
+
+
+def quantize_int4_i32(w: torch.Tensor, groupsize: int = I32_GROUPSIZE):
+    """(in, out) weights -> (pw (Kp/8, out) int32, sc (2*Gp, out) bf16).
+
+    Kp is ``in`` padded to a multiple of 8*groupsize; groups made only of
+    pad rows carry s = c = 0 and contribute nothing.
+    """
+    in_dim, out_dim = w.shape
+    kp = _round_up(in_dim, 8 * groupsize)
+    if kp != in_dim:
+        w = torch.cat([w, w.new_zeros((kp - in_dim, out_dim))], dim=0)
+    q, s, z = quantize_int4_grouped(w, groupsize)
+    n_groups = kp // groupsize
+    gp = _round_up(n_groups, 8)
+    c = z - 7.5 * s
+    if kp != in_dim:
+        n_real = in_dim // groupsize + (in_dim % groupsize > 0)
+        keep = (torch.arange(n_groups, device=w.device) < n_real)[:, None]
+        s = torch.where(keep, s, torch.zeros_like(s))
+        c = torch.where(keep, c, torch.zeros_like(c))
+    pad = s.new_zeros((gp - n_groups, out_dim))
+    sc = torch.cat([s, pad, c, pad], dim=0).to(torch.bfloat16)
+    return pack_int4_i32(q), sc
+
+
+def quantize_params_int4_i32(params: dict, groupsize: int = I32_GROUPSIZE) -> dict:
+    """Param-tree quantizer for the int4 serving configuration.
+
+    Stacked (L, in, out) layer weights become {"pw": (L, Kp/8, out) int32,
+    "sc": (L, 2*Gp, out) bf16}; the FFN hidden dim is zero-padded inside the
+    packed tensors (w1/w3 along out, w2 along in) to a multiple of
+    8*groupsize, and the pad columns' ``sc`` is zeroed so they come out
+    exactly 0. A single tied first-stage vocab whose width is a multiple of
+    8*groupsize also gets ``lm_head_q``: wte^T packed with the vocab padded
+    to a multiple of 1024 and zeroed pad columns (the fused head of the
+    decode-stack kernel). The bf16 ``wtes`` stay for the embedding gather
+    and the prefill head. Runs on the params' device.
+    """
+    out = dict(params)
+    layers = dict(params["layers"])
+    for key in _QUANTIZABLE_LAYER_KEYS:
+        if key not in layers:
+            continue
+        w = layers[key]  # (L, in, out)
+        n_real = w.shape[2]
+        if key in _HIDDEN_OUT_KEYS:
+            ip = _round_up(n_real, 8 * groupsize)
+            if ip != n_real:
+                w = torch.cat([w, w.new_zeros((w.shape[0], w.shape[1], ip - n_real))], dim=2)
+        packed = [quantize_int4_i32(w[li], groupsize) for li in range(w.shape[0])]
+        pw = torch.stack([p for p, _ in packed])
+        sc = torch.stack([s for _, s in packed])
+        if key in _HIDDEN_OUT_KEYS:
+            col = torch.arange(sc.shape[2], device=sc.device) < n_real
+            sc = torch.where(col[None, None, :], sc, torch.zeros_like(sc))
+        layers[key] = {"pw": pw, "sc": sc}
+    out["layers"] = layers
+    wtes = params.get("wtes", ())
+    if len(wtes) == 1 and "lm_heads" not in params and wtes[0].shape[1] % (8 * groupsize) == 0:
+        wt = wtes[0].T  # (D, V)
+        vocab = wt.shape[1]
+        vp = _round_up(vocab, 1024)
+        if vp != vocab:
+            wt = torch.cat([wt, wt.new_zeros((wt.shape[0], vp - vocab))], dim=1)
+        hpw, hsc = quantize_int4_i32(wt, groupsize)
+        col = torch.arange(vp, device=hsc.device) < vocab
+        out["lm_head_q"] = {"pw": hpw, "sc": torch.where(col[None, :], hsc, torch.zeros_like(hsc))}
+    return out
+
+
+def is_int4(w) -> bool:
+    """True for a packed ``{"pw", "sc"}`` leaf."""
+    return isinstance(w, dict) and "pw" in w and "sc" in w
+
+
+def matmul_int4_i32_reference(x, pw, sc, groupsize: int = I32_GROUPSIZE):
+    """Plain PyTorch version of the K2 kernel: (M, K) @ packed (K, N) -> (M, N) f32.
+
+    The kernel's arithmetic (``_int4_group_matmul`` in the JAX package): x
+    rounded to bf16; per group g, the f32 product of x_g and the raw nibbles
+    (0..15), times s_g; plus ``bf16(sum x_g) * c_g`` with the group sum taken
+    in f32. K must equal ``8 * pw.shape[0]`` (callers zero-pad x).
+    """
+    m, k = x.shape
+    kp = 8 * pw.shape[0]
+    if k != kp:
+        raise ValueError(f"x has K={k}, the packed weight K={kp}")
+    n = pw.shape[1]
+    n_groups = kp // groupsize
+    gp = sc.shape[0] // 2
+    s = sc[:n_groups].float()
+    c = sc[gp : gp + n_groups].float()
+    xg = x.to(torch.bfloat16).float().reshape(m, n_groups, groupsize).transpose(0, 1)
+    nib = torch.cat([(pw >> (4 * j)) & 0xF for j in range(8)], dim=0).float()
+    d = torch.bmm(xg, nib.reshape(n_groups, groupsize, n))  # (G, M, N) per-group dots
+    y = (d * s[:, None, :]).sum(0)
+    xsum = xg.sum(-1).to(torch.bfloat16).float()  # (G, M)
+    return y + xsum.T @ c
+
+
+def matmul_int4_i32(x, pw, sc, groupsize: int = I32_GROUPSIZE):
+    """(M, K) activations @ packed int4 (K, N) -> (M, N) f32 (K2).
+
+    x: any float dtype (rounded to bf16); pw: (K/8, N) int32; sc: (2*Gp, N)
+    bf16. A CUDA tensor launches the hand-written kernel or raises; a CPU
+    tensor takes :func:`matmul_int4_i32_reference`.
+    ``matmul_int4_i32.launches`` counts kernel launches.
+    """
+    if x.dim() != 2 or pw.dim() != 2 or sc.dim() != 2:
+        raise ValueError(f"x, pw, sc must be 2-D, got {x.shape}, {pw.shape}, {sc.shape}")
+    m, k = x.shape
+    n = pw.shape[1]
+    if k != 8 * pw.shape[0] or k % (8 * groupsize) or sc.shape[1] != n:
+        raise ValueError(f"shapes x {tuple(x.shape)}, pw {tuple(pw.shape)}, sc {tuple(sc.shape)} do not fit")
+    if sc.shape[0] < 2 * (k // groupsize):
+        raise ValueError(f"sc has {sc.shape[0]} rows, K={k} needs 2 * {k // groupsize} at least")
+    if len({x.device, pw.device, sc.device}) != 1:
+        raise ValueError(f"x, pw, sc must share one device, got {x.device}, {pw.device}, {sc.device}")
+    if x.device.type == "cpu":
+        return matmul_int4_i32_reference(x, pw, sc, groupsize)
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul_int4_i32 runs on cuda or cpu, not {x.device}")
+    if pw.dtype != torch.int32 or sc.dtype != torch.bfloat16 or groupsize != I32_GROUPSIZE:
+        raise ValueError(f"the kernel takes int32 pw, bf16 sc, groupsize 128; got {pw.dtype}, {sc.dtype}, {groupsize}")
+    if n % 8:
+        raise ValueError(f"the kernel takes N a multiple of 8, got {n}")
+    xb = x.to(torch.bfloat16).contiguous()
+    pw, sc = pw.contiguous(), sc.contiguous()
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return y
+    err = _build.kernels().lib.mv_matmul_int4_i32(
+        xb.data_ptr(), pw.data_ptr(), sc.data_ptr(), y.data_ptr(),
+        m, k, n, sc.shape[0] // 2,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"matmul_int4_i32 kernel launch failed: cudaError_t {err}")
+    matmul_int4_i32.launches += 1
+    return y
+
+
+matmul_int4_i32.launches = 0

@@ -13,14 +13,20 @@ Port of the default path of metavoice_tpu/runtime/tts.py:
      loudness-normalized wav write.
 
 Everything runs on the ``device`` given (default "cuda"; asking for cuda
-without a card raises). Not ported yet: quantized weights and KV cache,
-tensor parallelism, speculative decoding, streaming, MBD and the DF enhancer.
+without a card raises). ``quantisation_mode="int4"`` packs the first stage's
+layer weights and tied head into the int4-in-int32 serving format on the
+device: prefill projections go through the int4 matmul kernel and each
+decode step through the int4 decode-stack kernel (ops/quantized.py,
+ops/decode_stack.py). Not ported yet: the int8 weight modes, a quantized KV
+cache, tensor parallelism, speculative decoding, streaming, MBD and the DF
+enhancer.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import hashlib
 import os
 import time
@@ -44,10 +50,17 @@ from metavoice_tpu_torch.models import second_stage as ss
 from metavoice_tpu_torch.models import speaker_encoder as se
 from metavoice_tpu_torch.models import transformer as tfm
 from metavoice_tpu_torch.models.enhancer import get_enhancer
+from metavoice_tpu_torch.ops.attention import decode_attention
+from metavoice_tpu_torch.ops.decode_stack import decode_stack_int4
+from metavoice_tpu_torch.ops.quantized import is_int4, matmul_int4_i32, quantize_params_int4_i32
 from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser
 from metavoice_tpu_torch.utils import audio_io as aio
 
 MAX_CHARS_PER_CHUNK = 220  # reference truncation point (fam/llm/inference.py:537)
+_INT8_MODES = ("int8", "int8_packed", "int8_plain")
+# the kernels whose launches TTS.stats counts, by stats key
+_KERNELS = {"k1_launches": decode_attention, "k2_launches": matmul_int4_i32,
+            "k3_launches": decode_stack_int4}
 
 
 @dataclass
@@ -85,8 +98,14 @@ class TTS:
         draft_cfg=None,
     ):
         self.runtime = runtime or RuntimeConfig(seed=seed, output_dir=output_dir)
+        mode = quantisation_mode or self.runtime.quantisation_mode
+        if mode in _INT8_MODES:
+            raise NotImplementedError(
+                f"quantisation_mode={mode!r} is not ported: it needs the int8 weight kernels (K7-K11)"
+            )
+        if mode not in (None, "int4"):
+            raise ValueError(f"Invalid quantisation mode {mode}! Must be None or 'int4'")
         unported = {
-            "quantisation_mode": quantisation_mode or self.runtime.quantisation_mode,
             "kv_cache_dtype": kv_cache_dtype or self.runtime.kv_cache_dtype,
             "tensor_parallel": tensor_parallel if tensor_parallel != 1 else None,
             "draft_params": draft_params,
@@ -94,27 +113,38 @@ class TTS:
         }
         asked = [k for k, v in unported.items() if v is not None]
         if asked:
-            raise NotImplementedError(
-                f"{asked} not ported: the PyTorch port runs bf16 weights and a bf16 KV cache"
-            )
-        self.c = components
+            raise NotImplementedError(f"{asked} not ported to PyTorch yet")
+        self._compute_dtype = (
+            torch.bfloat16 if self.runtime.dtype == "bfloat16" else torch.float32
+        )
         self.device = resolve_device(device)
+        # "int4" arrives as the mode, or as first-stage params that already
+        # hold packed {"pw", "sc"} leaves (a JAX-written .npz, or a tree the
+        # JAX package quantized). Packing runs on the params' device; the
+        # decode-stack kernel's conditions are checked before any synthesis.
+        params1 = components.first_stage_params
+        prequantized = any(is_int4(w) for w in params1["layers"].values())
+        self.quantisation_mode = "int4" if mode == "int4" or prequantized else None
+        if self.quantisation_mode == "int4":
+            if not prequantized:
+                params1 = quantize_params_int4_i32(params1)
+            tfm.check_int4_decode(params1, components.first_stage_cfg, self._compute_dtype)
+            components = dataclasses.replace(components, first_stage_params=params1)
+        self.c = components
         self.output_dir = output_dir
         os.makedirs(output_dir, exist_ok=True)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._emb_cache: "collections.OrderedDict[str, np.ndarray]" = collections.OrderedDict()
         self._emb_cache_max = 256
         self._enforce_min_ref = enforce_min_ref_duration
-        self._compute_dtype = (
-            torch.bfloat16 if self.runtime.dtype == "bfloat16" else torch.float32
-        )
         # persistent KV cache for the CFG pair, reused across calls
         cfg1 = self.c.first_stage_cfg
         self._kv_cache = tfm.KVCache.create(
             cfg1, 2, cfg1.block_size, dtype=self._compute_dtype, device=self.device
         )
-        # seconds per stage of the last synthesise, and the first stage's
-        # decode step count (each step: one kernel launch per layer on cuda)
+        # seconds per stage of the last synthesise; the first stage's decode
+        # step count and the kernel launches (K1 decode attention, K2 int4
+        # matmul, K3 int4 decode stack) of the last synthesise
         self.timings: dict[str, float] = {}
         self.stats: dict[str, int] = {}
 
@@ -233,6 +263,7 @@ class TTS:
         """One <=220-char chunk -> 24 kHz waveform (float32)."""
         prompt = self.c.tokenizer.encode(text)
         stats: dict = {}
+        launches = {k: fn.launches for k, fn in _KERNELS.items()}
         with self._stage("first_stage"):
             seq = fs.generate(
                 self.c.first_stage_params,
@@ -250,6 +281,8 @@ class TTS:
                 stats=stats,
             )
         self.stats["decode_steps"] = self.stats.get("decode_steps", 0) + stats["decode_steps"]
+        for k, fn in _KERNELS.items():
+            self.stats[k] = self.stats.get(k, 0) + fn.launches - launches[k]
         return self._tokens_to_wav(text, prompt, seq, spk_emb)
 
     def synthesise(

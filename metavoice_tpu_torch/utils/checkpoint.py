@@ -68,19 +68,22 @@ def _to_tensor(a) -> torch.Tensor:
 
 def params_from_numpy(tree: Any, device="cuda", dtype: torch.dtype | None = None) -> Any:
     """JAX-package parameter pytree (numpy leaves) -> the port's tree of
-    tensors on ``device``. ``dtype``, if given, casts the float leaves."""
+    tensors on ``device``. ``dtype``, if given, casts the float leaves, but
+    not those of packed int4 ``{"pw", "sc"}`` leaves (layer weights and
+    ``lm_head_q``): their bf16 scale tables are part of the serving format."""
     dev = resolve_device(device)
 
-    def convert(node):
+    def convert(node, cast):
         if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
+            cast = cast and not {"pw", "sc"} <= node.keys()
+            return {k: convert(v, cast) for k, v in node.items()}
         if hasattr(node, "_asdict"):  # NamedTuple (SpeakerEncoderParams)
-            return {k: convert(v) for k, v in node._asdict().items()}
+            return {k: convert(v, cast) for k, v in node._asdict().items()}
         if isinstance(node, (list, tuple)):
-            return [convert(v) for v in node]
+            return [convert(v, cast) for v in node]
         t = _to_tensor(node)
-        if dtype is not None and t.is_floating_point():
+        if cast and dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t.to(dev)
 
-    return convert(tree)
+    return convert(tree, True)

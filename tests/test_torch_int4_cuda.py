@@ -1,0 +1,155 @@
+"""The int4 kernels on the card against their plain PyTorch versions, at the
+main-path shapes: K2 (ops/quantized.matmul_int4_i32) and K3
+(ops/decode_stack.decode_stack_int4). Needs a CUDA card and nvcc; skips
+elsewhere. Imports no JAX, so it runs with ``--noconftest``:
+
+    python -m pytest --noconftest tests/test_torch_int4_cuda.py -q
+
+Tolerances: K2 max |dy| <= 1e-3 * max |ref| (the same bf16 products, summed
+in another order). K3: the two versions round at the same points, but a
+bf16 rounding of an f32 sum taken in another order can land one ulp apart,
+and later layers spread such a flip into every value, so the gap grows with
+depth (measured: 0.4% of max |ref| after one layer, 2.2% after 24). Each
+layer alone, fed the plain version's residual stream, is held within
+1e-2 * max |ref|; all 24 layers' x_out and logits within 5e-2 * max |ref|;
+layer 0's new cache row
+within one bf16 ulp of the plain version's plus 1e-4 of the row's largest
+value (the bf16 rounding of an f32 sum taken in another order can land one
+ulp apart, and entries near 0 come from cancelling sums whose f32 error
+scales with the terms, not the result), every other cache slot
+bit-identical.
+"""
+
+import pytest
+import torch
+
+from metavoice_tpu_torch.core.config import first_stage_config
+from metavoice_tpu_torch.models import transformer as tfm
+from metavoice_tpu_torch.ops import decode_stack as DS
+from metavoice_tpu_torch.ops import quantized as Q
+
+pytestmark = pytest.mark.cuda
+
+K2_TOL = 1e-3
+K3_TOL = 5e-2
+K3_LAYER_TOL = 1e-2
+# (M, K, N): the prefill projections at M = 256 (CFG pair x 128-token bucket), then ragged M
+K2_CASES = [(256, 2048, 6144), (256, 2048, 2048), (256, 6144, 2048), (1, 2048, 2048),
+            (200, 2048, 6144), (300, 6144, 2048)]
+# (pos, starts, garbage past pos, n_kv_head)
+K3_CASES = [(0, None, None, 16), (255, None, None, 16), (1000, None, None, 16),
+            (2047, None, None, 16), (1000, (300, 700), None, 16),
+            (1000, None, float("nan"), 16), (1000, None, None, 2)]
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _packed(k, n, gen, dev):
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+    return Q.quantize_int4_i32(w)
+
+
+@pytest.mark.parametrize("m,k,n", K2_CASES)
+def test_k2_matches_plain(dev, m, k, n):
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    pw, sc = _packed(k, n, gen, dev)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    before = Q.matmul_int4_i32.launches
+    y = Q.matmul_int4_i32(x, pw, sc)
+    torch.cuda.synchronize()
+    assert Q.matmul_int4_i32.launches == before + 1
+    ref = Q.matmul_int4_i32_reference(x, pw, sc)
+    assert y.shape == (m, n) and y.dtype == torch.float32 and torch.isfinite(y).all()
+    err = (y - ref).abs().max().item()
+    assert err <= K2_TOL * ref.abs().max().item(), err
+
+
+@pytest.fixture(scope="module")
+def stacks(dev):
+    """Full-width first-stage int4 weights (24L/16H/2048d, Ip 6144 packed,
+    head Vp 3072), MHA and GQA (n_kv_head 2), from a seed."""
+    out = {}
+    for h_kv in (16, 2):
+        cfg = first_stage_config(n_local_heads=h_kv)
+        gen = torch.Generator(device=dev).manual_seed(h_kv)
+        params = tfm.init_params(cfg, device=dev, generator=gen, dtype=torch.bfloat16)
+        params["layers"]["attn_norm_w"] = 1 + 0.1 * torch.randn(
+            params["layers"]["attn_norm_w"].shape, generator=gen, device=dev
+        ).to(torch.bfloat16)
+        out[h_kv] = (cfg, Q.quantize_params_int4_i32(params))
+    return out
+
+
+def _k3_args(cfg, qp):
+    lay = qp["layers"]
+    return (lay["attn_norm_w"], lay["ffn_norm_w"],
+            *[t for k in ("wqkv", "wo", "w1", "w3", "w2") for t in (lay[k]["pw"], lay[k]["sc"])])
+
+
+@pytest.mark.parametrize("pos,starts,garbage,h_kv", K3_CASES)
+def test_k3_matches_plain(dev, stacks, pos, starts, garbage, h_kv):
+    cfg, qp = stacks[h_kv]
+    gen = torch.Generator(device=dev).manual_seed(pos + h_kv)
+    b = 2
+    shape = (cfg.n_layer, cfg.block_size, b, h_kv, cfg.head_dim)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    if garbage is not None:
+        kc[:, pos + 1 :] = garbage
+        vc[:, pos + 1 :] = garbage
+    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    head = dict(ln_f_w=qp["ln_f_w"], head_pw=qp["lm_head_q"]["pw"], head_sc=qp["lm_head_q"]["sc"])
+    kc0, vc0 = kc.clone(), vc.clone()
+    kr, vr = kc.clone(), vc.clone()
+    args = _k3_args(cfg, qp)
+    kw = dict(n_kv_head=h_kv, starts=st, norm_eps=cfg.norm_eps, **head)
+    xl = x
+    for li in range(cfg.n_layer):  # one layer at a time, fed the plain version's stream
+        one = [a[li : li + 1] for a in args]
+        cl = [c[li : li + 1].clone() for c in (kc, vc, kc, vc)]
+        got = DS.decode_stack_int4(xl, *one, cl[0], cl[1], pos, cfg.n_head, n_kv_head=h_kv, starts=st)[0]
+        xl = DS.decode_stack_int4_reference(xl, *one, cl[2], cl[3], pos, cfg.n_head, n_kv_head=h_kv,
+                                            starts=st)[0]
+        gap = (got.float() - xl.float()).abs().max().item()
+        assert gap <= K3_LAYER_TOL * xl.float().abs().max().item(), (li, gap)
+    before = DS.decode_stack_int4.launches
+    xo, _, _, lg = DS.decode_stack_int4(x, *args, kc, vc, pos, cfg.n_head, **kw)
+    torch.cuda.synchronize()
+    assert DS.decode_stack_int4.launches == before + 1
+    xr, _, _, lr = DS.decode_stack_int4_reference(x, *args, kr, vr, pos, cfg.n_head, **kw)
+    vocab = cfg.vocab_size
+    assert torch.isfinite(xo).all() and torch.isfinite(lg).all()
+    for got, ref in ((xo.float(), xr.float()), (lg[:, :vocab], lr[:, :vocab])):
+        err = (got - ref).abs().max().item()
+        assert err <= K3_TOL * ref.abs().max().item(), err
+    assert torch.equal(lg[:, vocab:], torch.zeros_like(lg[:, vocab:]))
+    for got, ref, orig in ((kc, kr, kc0), (vc, vr, vc0)):
+        row, ref_row = got[0, pos].float(), ref[0, pos].float()
+        excess = (row - ref_row).abs() - ref_row.abs() * 2.0**-7  # beyond one bf16 ulp
+        assert excess.max().item() <= 1e-4 * ref_row.abs().max().item(), excess.max().item()
+        others = torch.ones(cfg.block_size, dtype=torch.bool, device=dev)
+        others[pos] = False
+        assert torch.equal(got[:, others].view(torch.int16), orig[:, others].view(torch.int16))
+
+
+def test_k3_takes_pos_on_the_device(dev, stacks):
+    """pos as a 0-d int32 tensor on the card gives the same step as an int."""
+    cfg, qp = stacks[16]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shape = (cfg.n_layer, cfg.block_size, 2, 16, cfg.head_dim)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((2, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    k2, v2 = kc.clone(), vc.clone()
+    a = DS.decode_stack_int4(x, *_k3_args(cfg, qp), kc, vc, 77, cfg.n_head)[0]
+    pos = torch.tensor(77, dtype=torch.int32, device=dev)
+    b = DS.decode_stack_int4(x, *_k3_args(cfg, qp), k2, v2, pos, cfg.n_head)[0]
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(kc.view(torch.int16), k2.view(torch.int16))

@@ -218,6 +218,9 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import metavoice_tpu_torch.runtime.tts\n"
         "import metavoice_tpu_torch.utils.checkpoint\n"
+        "import metavoice_tpu_torch.ops.quantized\n"
+        "import metavoice_tpu_torch.ops.decode_stack\n"
+        "import metavoice_tpu_torch.ops._build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metavoice_tpu')]\n"
         "assert not bad, bad\n"
     )
