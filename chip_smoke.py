@@ -38,9 +38,29 @@ Phases, one line each; any failure exits non-zero and prints no result:
                prefills, K1 launches == 0;
  10. profile4 - where a 64-token int4 first-stage generate spends its time:
                device kernel time by kernel (torch.profiler) against the same
-               generate unprofiled (the device's busy share).
+               generate unprofiled (the device's busy share);
+ 11. K8      - the int8 prefill matmul against its plain version at the
+               main-path shapes (M = 256; K x N of 2048 x 6144, 2048 x 2048,
+               6144 x 2048) and at M = 1, 2, 200: every row within 1e-3 max
+               |ref|, or so once its bf16(sum x) moves one ulp (the c term's
+               rounding flip); times of one layer's five projections beside
+               the plain version, a library call and the bound;
+ 12. K7      - the int8 decode stack against its plain version at the full
+               main-path shape (24 layers, B = 2, cache 2048 slots, no head)
+               at pos 0, 255, 1000, 2047, with starts, with NaN beyond pos
+               and with GQA (2 kv heads), held as K3 is; times;
+ 13. small8  - int8 first stages on the card against the CPU path (plain
+               versions) with the same weights: a 2-layer 1024-wide one
+               (decode through K7) and a 2-layer 512-wide one (decode per
+               layer through K8 at M = 2 and K1): prefill logits and 8
+               teacher-forced steps within 5e-2 max |ref|, and the launches
+               each route must make;
+ 14. synth8  - full-width TTS(quantisation_mode="int8").synthesise: a finite
+               wav; K7 launches == decode steps, K8 launches == 5 x n_layer x
+               prefills, K1 == K2 == K3 == 0;
+ 15. profile8 - phase 10 for a 64-token int8 generate.
 
-Phases 5 and 9 are the main paths: every kernel count is set to 0 just
+Phases 5, 9 and 14 are the main paths: every kernel count is set to 0 just
 before each and read just after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
@@ -76,6 +96,14 @@ K3_LAYER_TOL = 1e-2
 # of max |ref| at prefill on the card).
 SMALL4_TOL = 5e-2
 K2_M = 256  # prefill rows: the CFG pair x a 128-token prompt bucket
+# K8: the same bf16 products as its plain version, summed in another order,
+# but also sum(x), which both round to bf16 for the c term (c = -128 s takes
+# back about 128 s sum(x)); a row whose f32 sum lies on a bf16 rounding
+# boundary may round one ulp apart in the two and move by |c| ulp, so each
+# row is held at the best of its bf16(sum x) as is or one ulp either way.
+K8_TOL = 1e-3
+# K7 is held as K3 is: one layer at a time within K3_LAYER_TOL, the whole
+# stack within K3_TOL.
 K3_TIMED_POS = (0, 255, 1000, 2047)  # the JSON line carries pos 255
 SYNTH_TEXT = "The quick brown fox jumps over the lazy dog, twice."
 # H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s
@@ -261,24 +289,26 @@ def phase_small(torch):
 
 
 def counters() -> dict:
-    """Kernel name -> the wrapper whose `launches` counts its launches."""
-    from metavoice_tpu_torch.ops import attention as A
-    from metavoice_tpu_torch.ops import decode_stack as DS
-    from metavoice_tpu_torch.ops import quantized as Q
+    """TTS.stats key -> (the kernel's wrapper, the wrapper's attribute that
+    counts its launches): the table TTS.stats is kept from."""
+    from metavoice_tpu_torch.runtime.tts import KERNEL_COUNTERS
 
-    return {"decode_attention": A.decode_attention, "matmul_int4_i32": Q.matmul_int4_i32,
-            "decode_stack_int4": DS.decode_stack_int4}
+    return KERNEL_COUNTERS
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
 def drive_main_path(tts, ref: str) -> tuple[str, float, dict]:
     """One synthesise through the user's entry point, every kernel count set
     to 0 just before and read just after -> (wav path, seconds, counts)."""
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
     t0 = time.perf_counter()
     path = tts.synthesise(SYNTH_TEXT, ref, max_new_tokens=192)
     seconds = time.perf_counter() - t0
-    return path, seconds, {name: fn.launches for name, fn in counters().items()}
+    return path, seconds, read_counts()
 
 
 def write_ref(workdir: str) -> str:
@@ -311,12 +341,12 @@ def phase_synth(torch, workdir: str, ref: str) -> dict:
     init_s = time.perf_counter() - t0
     cfg1 = tts.c.first_stage_cfg
     path, total_s, counts = drive_main_path(tts, ref)
-    launches = counts["decode_attention"]
+    launches = counts["k1_launches"]
     steps = tts.stats["decode_steps"]
     if launches == 0 or launches != cfg1.n_layer * steps:
         fail(f"K1 launches {launches} != n_layer {cfg1.n_layer} x decode steps {steps}")
-    if counts["matmul_int4_i32"] or counts["decode_stack_int4"]:
-        fail(f"the bf16 path launched int4 kernels: {counts}")
+    if any(n for name, n in counts.items() if name != "k1_launches"):
+        fail(f"the bf16 path launched quantized-weight kernels: {counts}")
     wav = check_wav(path)
     stages = ", ".join(f"{k} {v:.3f}" for k, v in tts.timings.items())
     ms_tok = 1e3 * tts.timings["first_stage"] / max(steps, 1)
@@ -329,6 +359,12 @@ def phase_synth(torch, workdir: str, ref: str) -> dict:
 
 def _int4_bytes(pw, sc) -> int:
     return pw.numel() * pw.element_size() + sc.numel() * sc.element_size()
+
+
+def _int8_bytes(p8, sc8) -> int:
+    """p8 and the two rows of sc8 the kernels read (s at row 0, c at row 8);
+    the other 14 rows are zero padding and are never read."""
+    return p8.numel() * p8.element_size() + 2 * (sc8.numel() // sc8.shape[-2]) * sc8.element_size()
 
 
 def phase_k2(torch) -> dict:
@@ -444,9 +480,9 @@ def _k3_args(qp):
             *[t for k in ("wqkv", "wo", "w1", "w3", "w2") for t in (lay[k]["pw"], lay[k]["sc"])])
 
 
-def k3_worst_layer(torch, x, args, kc, vc, pos, n_head, **kw) -> float:
-    """Largest gap, as a share of max |ref|, between K3 and its plain version
-    run one layer at a time, each fed the plain version's residual stream
+def stack_worst_layer(torch, x, args, kc, vc, pos, n_head, **kw) -> float:
+    """Largest gap, as a share of max |ref|, between the decode stack (K3 or
+    K7) and its plain version run one layer at a time, each fed the plain version's residual stream
     (copies of the caches: the originals stay as they are)."""
     from metavoice_tpu_torch.ops import decode_stack as DS
 
@@ -489,7 +525,7 @@ def phase_k3(torch) -> dict:
         kc0, vc0 = kc.clone(), vc.clone()
         kr, vr = kc.clone(), vc.clone()
         layer_kw = dict(n_kv_head=h_kv, starts=st, norm_eps=cfg.norm_eps)
-        layer_gap = k3_worst_layer(torch, x, _k3_args(qp), kc, vc, pos, cfg.n_head, **layer_kw)
+        layer_gap = stack_worst_layer(torch, x, _k3_args(qp), kc, vc, pos, cfg.n_head, **layer_kw)
         xo, _, _, lg = DS.decode_stack_int4(x, *_k3_args(qp), kc, vc, pos, cfg.n_head, **kw)
         torch.cuda.synchronize()
         xr, _, _, lr = DS.decode_stack_int4_reference(x, *_k3_args(qp), kr, vr, pos, cfg.n_head, **kw)
@@ -612,37 +648,321 @@ def phase_small4(torch):
           f"{len(toks[0])}/{len(toks[1])} tokens identical (printed, not required)")
 
 
-def phase_synth4(torch, workdir: str, ref: str, bf16: dict) -> dict:
+def phase_synth_quantized(torch, workdir: str, ref: str, mode: str, label: str, kernels: tuple,
+                          compared: dict) -> dict:
+    """Full-width TTS(quantisation_mode=mode).synthesise: a finite wav, the
+    decode-stack kernel launched once a decode step, the prefill matmul
+    5 x n_layer times a prefill, every other kernel never. -> counts, the
+    TTS and ms per token."""
     from metavoice_tpu_torch.core.text import chunk_text, normalize_text
     from metavoice_tpu_torch.runtime.tts import MAX_CHARS_PER_CHUNK, TTS
 
+    stack, matmul = kernels
     t0 = time.perf_counter()
-    tts = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, "out4"),
-                          quantisation_mode="int4")
+    tts = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, f"out_{mode}"),
+                          quantisation_mode=mode)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg1 = tts.c.first_stage_cfg
     path, total_s, counts = drive_main_path(tts, ref)
     steps = tts.stats["decode_steps"]
     prefills = len(chunk_text(normalize_text(SYNTH_TEXT), MAX_CHARS_PER_CHUNK) or [""])
-    want = {"decode_stack_int4": steps, "matmul_int4_i32": 5 * cfg1.n_layer * prefills,
-            "decode_attention": 0}
+    want = dict.fromkeys(counts, 0)
+    want.update({stack: steps, matmul: 5 * cfg1.n_layer * prefills})
     if steps == 0 or counts != want:
-        fail(f"int4 synthesise launched {counts}, expected {want}")
-    if {k: tts.stats[f"k{i}_launches"] for i, k in
-            ((1, "decode_attention"), (2, "matmul_int4_i32"), (3, "decode_stack_int4"))} != counts:
-        fail(f"TTS.stats {tts.stats} disagrees with the kernel counts {counts}")
+        fail(f"{mode} synthesise launched {counts}, expected {want}")
+    check_stats(tts, counts)
     wav = check_wav(path)
     stages = ", ".join(f"{k} {v:.3f}" for k, v in tts.timings.items())
     ms_tok = 1e3 * tts.timings["first_stage"] / max(steps, 1)
-    print(f"[9 synth4] int4 {cfg1.n_layer}L/{cfg1.n_head}H/{cfg1.dim}d: init + quantize {init_s:.2f} s; "
+    shown = "; ".join(f"{name}: {ms:.2f}" for name, ms in compared.items())
+    print(f"[{label}] {mode} {cfg1.n_layer}L/{cfg1.n_head}H/{cfg1.dim}d: init + quantize {init_s:.2f} s; "
           f"synthesise {total_s:.2f} s ({stages} s); {steps} decode steps, first stage "
-          f"{ms_tok:.2f} ms/token (bf16 phase 5: {bf16['ms_per_token']:.2f}; synthesise "
-          f"{bf16['seconds']:.2f} s); launches {counts}; wav {len(wav)} samples finite")
-    return {"counts": counts, "tts": tts}
+          f"{ms_tok:.2f} ms/token ({shown}); launches {counts}; wav {len(wav)} samples finite")
+    return {"counts": counts, "tts": tts, "ms_per_token": ms_tok}
 
 
-def phase_profile4(torch, tts):
+def k8_row_gap(torch, y, ref, x, sc8) -> float:
+    """Largest row gap between y and ref as a share of max |ref|, each row
+    taken at the best of its bf16(sum x) as is or one ulp either way."""
+    xs = x.to(torch.bfloat16).float().sum(-1).to(torch.bfloat16)
+    c = sc8[sc8.shape[0] // 2].float()
+    flips = [torch.zeros_like(xs.float())] + [
+        (xs.view(torch.int16) + d).view(torch.bfloat16).float() - xs.float() for d in (-1, 1)
+    ]
+    gap = torch.stack([(y - ref - f[:, None] * c[None, :]).abs().amax(-1) for f in flips]).amin(0)
+    return gap.max().item() / ref.abs().max().item()
+
+
+def phase_k8(torch) -> dict:
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(88)
+    d, ip = 2048, 6144
+    layer_shapes = [(d, 3 * d), (d, d), (d, ip), (d, ip), (ip, d)]  # qkv, wo, w1, w3, w2
+    cases = [(K2_M, d, 3 * d), (K2_M, d, d), (K2_M, ip, d), (1, d, d), (2, d, 3 * d), (200, d, 3 * d)]
+    max_err = worst = 0.0
+    rounding = []  # the TPU kernel's bf16(sum x) against an unrounded sum, at K = 2048
+    for m, k, n in cases:
+        p8, sc8 = Q.quantize_int8_i32(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        y = Q.matmul_int8_i32(x, p8, sc8)
+        torch.cuda.synchronize()
+        ref = Q.matmul_int8_i32_reference(x, p8, sc8)
+        if y.shape != (m, n) or not torch.isfinite(y).all():
+            fail(f"K8 output bad at M {m}, K {k}, N {n}")
+        gap = k8_row_gap(torch, y, ref, x, sc8)
+        if not gap <= K8_TOL:
+            fail(f"K8 disagrees with the plain version at M {m}, K {k}, N {n}: {gap:.3g} of max |ref|")
+        max_err = max(max_err, (y - ref).abs().max().item())
+        worst = max(worst, gap)
+        if k == d and m == K2_M:
+            exact = ref + (x.float().sum(-1) - x.float().sum(-1).to(torch.bfloat16).float())[:, None] \
+                * sc8[sc8.shape[0] // 2].float()[None, :]
+            rounding.append((ref - exact).abs().max().item() / exact.abs().max().item())
+
+    # times of one prefill layer's five projections, each on 8 weight sets
+    # in turn (100 MB and more a shape), so the weights come from HBM
+    n_sets = 8
+    x = {k: torch.randn((K2_M, k), generator=gen, device=dev).to(torch.bfloat16) for k in (d, ip)}
+    kernel = plain = library = 0.0
+    lib_name = "torch._weight_int8pack_mm"
+    n_bytes = n_flop = 0.0
+    per_shape = []
+    for k, n in layer_shapes:
+        packed = [Q.quantize_int8_i32(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+                  for _ in range(n_sets)]
+        xk = x[k]
+        t_k, t_ke = _layers_ms(torch, lambda i: Q.matmul_int8_i32(xk, *packed[i]), n_sets)
+        t_p, _ = _layers_ms(torch, lambda i: Q.matmul_int8_i32_reference(xk, *packed[i]), n_sets)
+        t_l, lib_name = _k8_library_ms(torch, xk, packed, lib_name)
+        kernel, plain, library = kernel + t_k, plain + t_p, library + t_l
+        n_bytes += xk.numel() * 2 + _int8_bytes(*packed[0]) + K2_M * n * 4
+        n_flop += 2.0 * K2_M * k * n
+        per_shape.append(f"{k}x{n} {t_k:.4f} (eager {t_ke:.4f})")
+        del packed
+    bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
+    print(f"[11 K8] {len(cases)} cases agree (rows within {worst:.3g} of max |ref| after the sum "
+          f"flip allowance, tol {K8_TOL}; raw max |dy| {max_err:.3g}); one layer's five projections "
+          f"at M {K2_M}, device time from a CUDA graph: kernel {kernel:.4f} ms ({'; '.join(per_shape)}), "
+          f"plain {plain:.4f} ms; {lib_name} {library:.4f} ms called eagerly; bound {bound_ms:.4f} ms "
+          f"({bound_by}, {n_flop / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); kernel at "
+          f"{n_flop / kernel / 1e9:.1f} TFLOP/s; the c term's bf16(sum x) moves the product by up "
+          f"to {max(rounding):.3g} of max |y| against an unrounded sum (K {d}, M {K2_M}, x ~ N(0, 1))")
+    return {"max_abs_err": max_err, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library, "library_call": lib_name}
+
+
+def _k8_library_ms(torch, x, packed, lib_name: str) -> tuple[float, str]:
+    """One PyTorch call for the same product: torch._weight_int8pack_mm on the
+    same int8 values and per-column scales, or, where this torch lacks a CUDA
+    kernel for it, torch.matmul on the bf16-dequantized weight (the
+    dequantization untimed). Its answer is checked against the int8 product
+    first. -> (ms, the call timed)."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    ref = Q.matmul_int8_i32_reference(x, *packed[0])
+    tol = 2e-2 * ref.abs().max().item()  # bf16 output and weights: a few bf16 ulps of the sum
+    if lib_name == "torch._weight_int8pack_mm":
+        try:
+            libs = [(Q.unpack_int8_i32(p8).T.contiguous(), sc8[0].contiguous()) for p8, sc8 in packed]
+            y = torch._weight_int8pack_mm(x, *libs[0])
+            if (y.float() - ref).abs().max().item() > tol:
+                raise RuntimeError("its result disagrees with the int8 product")
+            return _rotate_ms(torch, lambda i: torch._weight_int8pack_mm(x, *libs[i]), len(libs)), lib_name
+        except (AttributeError, RuntimeError, NotImplementedError) as e:
+            print(f"[11 K8] torch._weight_int8pack_mm not usable here ({str(e)[:120]}); "
+                  "timing torch.matmul on the bf16-dequantized weight instead")
+    dense = [(Q.unpack_int8_i32(p8).float() * sc8[0].float()).to(torch.bfloat16) for p8, sc8 in packed]
+    y = torch.matmul(x, dense[0])
+    if (y.float() - ref).abs().max().item() > tol:
+        fail("torch.matmul on the dequantized int8 weight disagrees with the int8 product")
+    return _rotate_ms(torch, lambda i: torch.matmul(x, dense[i]), len(dense)), \
+        "torch.matmul(bf16 dequantized)"
+
+
+def _k7_args(qp):
+    lay = qp["layers"]
+    return (lay["attn_norm_w"], lay["ffn_norm_w"],
+            *[t for k in ("wqkv", "wo", "w1", "w3", "w2") for t in (lay[k]["p8"], lay[k]["sc8"])])
+
+
+def _random_int8_model(torch, cfg, seed: int, dev):
+    """The first stage's params from a seed, packed to int8 on the device."""
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = tfm.init_params(cfg, device=dev, generator=gen, dtype=torch.bfloat16)
+    lay = params["layers"]
+    for key in ("attn_norm_w", "ffn_norm_w"):
+        lay[key] = (1 + 0.1 * torch.randn(lay[key].shape, generator=gen, device=dev)).to(torch.bfloat16)
+    return Q.quantize_params_int8_i32(params)
+
+
+def phase_k7(torch) -> dict:
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.ops import decode_stack as DS
+
+    dev = torch.device("cuda")
+    b = MAIN_SHAPE["b"]
+    models = {}
+    for h_kv in (16, 2):
+        cfg = first_stage_config(n_local_heads=h_kv)
+        models[h_kv] = (cfg, _random_int8_model(torch, cfg, 70 + h_kv, dev))
+    cases = [(p, None, None, 16) for p in K3_TIMED_POS]
+    cases += [(1000, (300, 700), None, 16), (1000, None, float("nan"), 16), (1000, None, None, 2)]
+    gen = torch.Generator(device=dev).manual_seed(77)
+    max_err = worst_layer = worst_rel = 0.0
+    for pos, starts, garbage, h_kv in cases:
+        cfg, qp = models[h_kv]
+        shape = (cfg.n_layer, cfg.block_size, b, h_kv, cfg.head_dim)
+        kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        if garbage is not None:
+            kc[:, pos + 1 :] = garbage
+            vc[:, pos + 1 :] = garbage
+        x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+        st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+        kw = dict(n_kv_head=h_kv, starts=st, norm_eps=cfg.norm_eps, wfmt="i8")
+        kc0, vc0 = kc.clone(), vc.clone()
+        kr, vr = kc.clone(), vc.clone()
+        layer_gap = stack_worst_layer(torch, x, _k7_args(qp), kc, vc, pos, cfg.n_head, **kw)
+        xo, _, _ = DS.decode_stack_int4(x, *_k7_args(qp), kc, vc, pos, cfg.n_head, **kw)
+        torch.cuda.synchronize()
+        xr, _, _ = DS.decode_stack_int4_reference(x, *_k7_args(qp), kr, vr, pos, cfg.n_head, **kw)
+        what = f"pos {pos} starts {starts} garbage {garbage} n_kv_head {h_kv}"
+        if not layer_gap <= K3_LAYER_TOL:
+            fail(f"K7 disagrees with the plain version one layer at a time at {what}: "
+                 f"{layer_gap:.3g} of max |ref|")
+        worst_layer = max(worst_layer, layer_gap)
+        if not torch.isfinite(xo).all():
+            fail(f"K7 output not finite at {what}")
+        err = (xo.float() - xr.float()).abs().max().item()
+        if not err <= K3_TOL * xr.float().abs().max().item():
+            fail(f"K7 x_out disagrees with the plain version at {what}: max |d| {err:.3g}")
+        max_err = max(max_err, err)
+        worst_rel = max(worst_rel, err / xr.float().abs().max().item())
+        others = torch.ones(cfg.block_size, dtype=torch.bool, device=dev)
+        others[pos] = False
+        for got, ref, orig in ((kc, kr, kc0), (vc, vr, vc0)):
+            row, ref_row = got[0, pos].float(), ref[0, pos].float()
+            excess = ((row - ref_row).abs() - ref_row.abs() * 2.0**-7).max().item()
+            if excess > 1e-4 * ref_row.abs().max().item():
+                fail(f"K7 layer 0's new cache row is more than one bf16 ulp off at {what}")
+            if not torch.equal(got[:, others].view(torch.int16), orig[:, others].view(torch.int16)):
+                fail(f"K7 changed cache slots other than pos at {what}")
+        del kc, vc, kc0, vc0, kr, vr
+
+    cfg, qp = models[16]
+    del models[2]
+    shape = (cfg.n_layer, cfg.block_size, b, 16, cfg.head_dim)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(norm_eps=cfg.norm_eps, wfmt="i8")
+    lay = qp["layers"]
+    keys = ("wqkv", "wo", "w1", "w3", "w2")
+    weight_bytes = sum(_int8_bytes(lay[k]["p8"], lay[k]["sc8"]) for k in keys)
+    macs = sum(lay[k]["p8"].numel() * 4 for k in keys)
+    small = 2 * cfg.n_layer * cfg.dim * 2 + 2 * b * cfg.dim * 2  # norm weights, x in and out
+    times, shown = {}, []
+    for pos in K3_TIMED_POS:
+        def step(_):
+            return DS.decode_stack_int4(x, *_k7_args(qp), kc, vc, pos, cfg.n_head, **kw)
+
+        device_ms, eager_ms = _layers_ms(torch, step, 12)  # 12 steps: 16 GB, far past the L2
+        plain_ms = _time_ms(torch, lambda: DS.decode_stack_int4_reference(
+            x, *_k7_args(qp), kc, vc, pos, cfg.n_head, **kw), 3)
+        kv_bytes = 2 * cfg.n_layer * (pos + 1) * b * 16 * cfg.head_dim * 2  # window + row writes
+        n_bytes = weight_bytes + small + kv_bytes + 2 * cfg.n_layer * b * cfg.dim * 2
+        n_flop = 2.0 * b * macs + 4.0 * cfg.n_layer * b * cfg.n_head * (pos + 1) * cfg.head_dim
+        bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
+        times[pos] = (device_ms, plain_ms, bound_ms, bound_by)
+        shown.append(f"pos {pos}: {device_ms:.4f} ms on the device ({n_bytes / device_ms / 1e6:.0f} GB/s), "
+                     f"{eager_ms:.4f} ms a call from Python, plain {plain_ms:.3f} ms, "
+                     f"bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB)")
+    print(f"[12 K7] {len(cases)} cases at 24L/16H/2048d int8, B {b}, S 2048 agree: one layer at a "
+          f"time within {worst_layer:.3g} of max |ref| (tol {K3_LAYER_TOL}); all 24 layers' x_out "
+          f"within {worst_rel:.3g} (max |d| {max_err:.3g}; tol {K3_TOL}); layer 0's new row within "
+          f"one ulp; other slots unchanged; {'; '.join(shown)}")
+    device_ms, plain_ms, bound_ms, bound_by = times[255]
+    return {"max_abs_err": max_err, "ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def phase_small8(torch):
+    """int8 first stages on the card vs the CPU path (plain versions), same
+    weights: one decodes through K7, a narrower one per layer (K8 + K1)."""
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    shown = []
+    for name, cfg in (
+        ("stack", first_stage_config(n_layer=2, n_head=8, dim=1024, intermediate_size=2048, block_size=512)),
+        ("per-layer", first_stage_config(n_layer=2, n_head=4, dim=512, block_size=512)),
+    ):
+        gen = torch.Generator().manual_seed(18)
+        cpu = Q.quantize_params_int8_i32(tfm.init_params(cfg, device="cpu", generator=gen, dtype=torch.bfloat16))
+        gpu = to_cuda(cpu)
+        stack = tfm.int8_stack_ok(cpu, cfg, 2, torch.bfloat16)
+        if stack != (name == "stack"):
+            fail(f"the {name} int8 model takes the {'stack' if stack else 'per-layer'} route")
+        prompt = torch.randint(0, cfg.vocab_size, (40,), generator=gen)
+        idx = torch.zeros((2, 128), dtype=torch.long)
+        idx[:, :40] = prompt
+        spk2 = torch.randn((1, 256), generator=gen).repeat(2, 1)
+        steps = torch.randint(0, 1024, (8,), generator=gen)
+        runs = {}
+        for dev_name, params in (("cpu", cpu), ("cuda", gpu)):
+            dev = torch.device(dev_name)
+            for fn, attr in counters().values():
+                setattr(fn, attr, 0)
+            kv = tfm.KVCache.create(cfg, 2, cfg.block_size, device=dev)
+            mask = fs.make_spk_cond_mask(1, device=dev)
+            logits, kv = tfm.forward(params, cfg, idx.to(dev), spk_emb=spk2.to(dev), spk_cond_mask=mask,
+                                     kv_cache=kv, cache_pos=0)
+            out = [logits[0][:, :40].float().cpu()]
+            for i, tok in enumerate(steps.tolist()):
+                x = tfm.embed_inputs(params, cfg, torch.full((2, 1), tok, device=dev),
+                                     torch.tensor([40 + i], device=dev), spk2.to(dev), mask)
+                h, kv, head_done = tfm.apply_blocks(params, cfg, x, None, kv, 40 + i, fused_head=True)
+                if head_done:
+                    fail("an int8 decode step fused a head")
+                out.append(tfm.output_logits(params, cfg, h)[0][:, 0, :].float().cpu())
+            runs[dev_name] = (out, read_counts())
+        n, n_steps = cfg.n_layer, len(steps)
+        want = dict.fromkeys(counters(), 0)
+        if name == "stack":
+            want.update({"k8_launches": 5 * n, "k7_launches": n_steps})
+        else:
+            want.update({"k8_launches": 5 * n * (1 + n_steps), "k1_launches": n * n_steps})
+        if runs["cpu"][1] != dict.fromkeys(counters(), 0) or runs["cuda"][1] != want:
+            fail(f"the {name} int8 model launched {runs['cuda'][1]} on the card (expected {want}) "
+                 f"and {runs['cpu'][1]} on the CPU")
+        gaps = [(got - ref).abs().max().item() / ref.abs().max().item()
+                for ref, got in zip(runs["cpu"][0], runs["cuda"][0])]
+        if not max(gaps) <= SMALL4_TOL:
+            fail(f"the {name} int8 first stage on the card differs from the CPU path: prefill and "
+                 f"steps {[round(g, 4) for g in gaps]} of max |ref| (tol {SMALL4_TOL})")
+        shown.append(f"{name} route ({cfg.n_layer}L/{cfg.n_head}H/{cfg.dim}d): prefill logits and "
+                     f"{n_steps} teacher-forced steps within {[round(g, 4) for g in gaps]} of max |ref| "
+                     f"(tol {SMALL4_TOL}), launches {({k: v for k, v in want.items() if v})}")
+    print(f"[13 small8] int8 first stages on the card vs the CPU path: {'; '.join(shown)}")
+
+
+def check_stats(tts, counts: dict):
+    """TTS.stats' kNN_launches must agree with the kernel counts."""
+    if {key: tts.stats[key] for key in counts} != counts:
+        fail(f"TTS.stats {tts.stats} disagrees with the kernel counts {counts}")
+
+
+def phase_profile(torch, tts, label: str, families: dict):
+    """Where a 64-token first-stage generate spends its device time, by the
+    kernel families given (name -> a substring of the kernel's name)."""
     import numpy as np
     from metavoice_tpu_torch.models import first_stage as fs
 
@@ -664,11 +984,8 @@ def phase_profile4(torch, tts):
         run()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print("[10 profile4] the profiler saw no device time: busy share not measured")
+        print(f"[{label}] the profiler saw no device time: busy share not measured")
         return
-    families = {"K3 gemv_int4_partial": "gemv_int4_partial", "K3 gemv_reduce": "gemv_reduce",
-                "K3 attention split+combine": "decode_attn_", "K3 rmsnorm_rows": "rmsnorm_rows",
-                "K2 matmul_int4_i32": "matmul_int4_i32_kernel"}
     by = {name: 0.0 for name in families}
     by["other (PyTorch: embedding, sampling, prefill attention, copies)"] = 0.0
     for e in kernels:
@@ -679,7 +996,7 @@ def phase_profile4(torch, tts):
     shown = ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f}%)"
                       for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
     steps = stats["decode_steps"]
-    print(f"[10 profile4] int4 generate, prefill + {steps} decode steps: {wall_ms:.1f} ms unprofiled "
+    print(f"[{label}] generate, prefill + {steps} decode steps: {wall_ms:.1f} ms unprofiled "
           f"({wall_ms / max(steps, 1):.2f} ms a step with the prefill spread over them); "
           f"{len(kernels)} device records, {total:.2f} ms of device time = "
           f"{100 * total / wall_ms:.1f}% of the unprofiled wall time; {shown}")
@@ -704,19 +1021,42 @@ def main() -> int:
         k3 = phase_k3(torch)
         torch.cuda.empty_cache()
         phase_small4(torch)
-        int4 = phase_synth4(torch, workdir, ref, bf16)
-        phase_profile4(torch, int4["tts"])
-    main_counts = {"decode_attention": bf16["counts"], "matmul_int4_i32": int4["counts"],
-                   "decode_stack_int4": int4["counts"]}
+        int4 = phase_synth_quantized(torch, workdir, ref, "int4", "9 synth4",
+                                     ("k3_launches", "k2_launches"),
+                                     {"bf16 phase 5": bf16["ms_per_token"]})
+        phase_profile(torch, int4.pop("tts"), "10 profile4", {
+            "K3 gemv_partial": "gemv_partial", "K3 gemv_reduce": "gemv_reduce",
+            "K3 attention split+combine": "decode_attn_", "K3 rmsnorm_rows": "rmsnorm_rows",
+            "K2 matmul_int4_i32": "matmul_i32_kernel"})
+        torch.cuda.empty_cache()
+        k8 = phase_k8(torch)
+        k7 = phase_k7(torch)
+        torch.cuda.empty_cache()
+        phase_small8(torch)
+        int8 = phase_synth_quantized(torch, workdir, ref, "int8", "14 synth8",
+                                     ("k7_launches", "k8_launches"),
+                                     {"bf16 phase 5": bf16["ms_per_token"],
+                                      "int4 phase 9": int4["ms_per_token"]})
+        phase_profile(torch, int8.pop("tts"), "15 profile8", {
+            "K7 gemv_partial": "gemv_partial", "K7 gemv_reduce": "gemv_reduce",
+            "K7 attention split+combine": "decode_attn_", "K7 rmsnorm_rows": "rmsnorm_rows",
+            "K8 matmul_int8_i32": "matmul_i32_kernel"})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # each kernel's launches are those of the main path that runs it
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"metavoice_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": main_counts[name][name],
-         **{k: stats[k] for k in keys}}
-        for name, src, replaces, stats in (
-            ("decode_attention", "decode_attention.cu", "metavoice_tpu/ops/attention.py:292", k1),
-            ("matmul_int4_i32", "matmul_int4_i32.cu", "metavoice_tpu/ops/quantized.py:927", k2),
-            ("decode_stack_int4", "decode_stack_int4.cu", "metavoice_tpu/ops/decode_stack.py:688", k3),
+         "replaces": replaces, "launches": run["counts"][key], **{k: stats[k] for k in keys}}
+        for name, key, run, src, replaces, stats in (
+            ("decode_attention", "k1_launches", bf16, "decode_attention.cu",
+             "metavoice_tpu/ops/attention.py:292", k1),
+            ("matmul_int4_i32", "k2_launches", int4, "matmul_int4_i32.cu",
+             "metavoice_tpu/ops/quantized.py:927", k2),
+            ("decode_stack_int4", "k3_launches", int4, "decode_stack_int4.cu",
+             "metavoice_tpu/ops/decode_stack.py:688", k3),
+            ("matmul_int8_i32", "k8_launches", int8, "matmul_int4_i32.cu",
+             "metavoice_tpu/ops/quantized.py:1098", k8),
+            ("decode_stack_int4[i8]", "k7_launches", int8, "decode_stack_int4.cu",
+             'metavoice_tpu/ops/decode_stack.py:688 (wfmt="i8")', k7),
         )
     ]}
     print(json.dumps(record))

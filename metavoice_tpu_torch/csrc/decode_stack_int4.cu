@@ -1,26 +1,31 @@
-// One int4 decode step through every transformer layer (K3), written for
-// Hopper (sm_90a).
+// One decode step through every transformer layer with weights in int32
+// words, written for Hopper (sm_90a): int4 (K3, mv_decode_stack_int4) and
+// int8 (K7, mv_decode_stack_int8).
 //
 // Replaces metavoice_tpu/ops/decode_stack.py:decode_stack_int4 with
-// wfmt="i4" (the Pallas TPU kernel _decode_stack_kernel, grid over layers).
-// Per layer, for B <= 8 rows (the CFG pair on the main path):
+// wfmt="i4" and wfmt="i8" (the Pallas TPU kernel _decode_stack_kernel, grid
+// over layers). Per layer, for B <= 8 rows (the CFG pair on the main path):
 //   RMSNorm -> int4 qkv projection (f32) -> the k/v rows, rounded to bf16,
 //   written into the (L, S, B, H_kv, Dh) cache at (layer, pos) -> attention
 //   over [starts[b], pos] with q * 1/sqrt(Dh) in f32 (GQA: query head h reads
 //   kv head h / (H / H_kv)) -> int4 o-proj, bf16 residual add -> RMSNorm ->
 //   int4 w1/w3, silu(h1) * h3 in f32 rounded to bf16 -> int4 w2, bf16
 //   residual add; after the last layer, optionally, the final RMSNorm and
-//   the int4 tied head -> f32 logits (B, Vp). Norms: f32, rounded to bf16,
-//   then times the bf16 weight. The int4 products follow the TPU kernel's
-//   _int4_group_matmul: per group, f32 sums of x times the raw nibbles,
-//   times s_g, plus bf16(sum x_g) * c_g.
+//   the int4 tied head -> f32 logits (B, Vp) (int4 only: the int8 mode keeps
+//   the bf16 head outside). Norms: f32, rounded to bf16, then times the bf16
+//   weight. The int4 products follow the TPU kernel's _int4_group_matmul:
+//   per group, f32 sums of x times the raw nibbles, times s_g, plus
+//   bf16(sum x_g) * c_g. The int8 products follow _int8_word_matmul: one
+//   group spans K (p8 (K/4, N) words of four biased bytes; s at sc8 row 0, c
+//   = -128 * s at row Gp = 8), so x @ W = s * (x @ byte) + bf16(sum x) * c.
 //
 // What bounds it: weight bytes. At the main-path shape (24 layers, D = 2048,
-// Ip = 6144, B = 2) a step streams 695 MB of packed weights and scale tables,
-// 3.3 MB of packed head and 24 * 16384 * (pos + 1) bytes of KV window, while
-// it does about 2 multiply-adds per weight byte and row: far below the
-// card's ~295 operations per byte, so the floor is bytes / 3.35 TB/s, about
-// 0.21 ms at pos 0.
+// Ip = 6144, B = 2) an int4 step streams 695 MB of packed weights and scale
+// tables and 3.3 MB of packed head, an int8 step 1308 MB of packed words and
+// 17 MB of sc8 tables; both read 24 * 16384 * (pos + 1) bytes of KV window
+// and do about 2 (int4) or 1 (int8) multiply-adds per weight byte and row:
+// far below the card's ~295 operations per byte, so the floor is
+// bytes / 3.35 TB/s, about 0.21 ms (int4) and 0.40 ms (int8) at pos 0.
 //
 // Design (simple and right first):
 //   * One C entry per step launches a fixed sequence of small kernels for
@@ -29,17 +34,20 @@
 //     from an int32, so the step's launches do not depend on it (the
 //     attention grid is sized for the cache capacity S; splits past pos
 //     write an empty partial and exit).
-//   * The int4 GEMV: a block owns 32 word rows (a quarter of one 128-row
+//   * The GEMV, templated on the word format (VPW values a word: 8 nibbles
+//     or 4 bytes): a block owns 32 word rows (int4: a quarter of one 128-row
 //     group in each of the 8 nibble slabs) by 32 * CPT columns; neighbouring
 //     lanes read neighbouring columns' words with 16-byte loads; each thread
-//     keeps one partial sum per (row of x, slab, column), so the group scale
-//     is applied once per block. The contraction is split across blocks
-//     (K/8/32 of them) so that even a 2048-wide output fills the SMs, and a
-//     second small kernel sums the partials in a fixed order and applies the
-//     epilogue: f32 out; f32 out plus the bf16 k/v row write; the bf16
+//     keeps one partial sum per (row of x, slab, column), so the scale is
+//     applied once per block. The c term is added once per group: int4 by
+//     the block holding a group's first rows, int8 by the first block, which
+//     sums x over all of K. The contraction is split across blocks
+//     (K/VPW/32 of them) so that even a 2048-wide output fills the SMs, and
+//     a second small kernel sums the partials in a fixed order and applies
+//     the epilogue: f32 out; f32 out plus the bf16 k/v row write; the bf16
 //     residual add; or silu(h1) * h3.
-//   * Nibbles become floats by placing them in the mantissa of 2^23 and
-//     subtracting 2^23 (exact), which avoids the slow int-to-float unit.
+//   * Nibbles and bytes become floats through the mantissa of 2^23
+//     (word_values.cuh, exact), which avoids the slow int-to-float unit.
 //   * Attention is the split-sequence device code shared with the
 //     decode-attention kernel (decode_attention.cuh).
 //
@@ -53,6 +61,7 @@
 #include <stdint.h>
 
 #include "decode_attention.cuh"
+#include "word_values.cuh"
 
 namespace {
 
@@ -76,10 +85,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Nibble j of a word as a float: 0x4B000000 is 2^23, so the nibble in the
-// low mantissa bits gives exactly 2^23 + nibble.
-__device__ __forceinline__ float nib_f(int32_t w, int j) {
-  return __int_as_float(((w >> (4 * j)) & 0xF) | 0x4B000000) - 8388608.0f;
+template <int VPW>
+__device__ __forceinline__ void load_x(const float* p, float (&v)[VPW]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  if constexpr (VPW == 8) {
+    const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+  }
 }
 
 template <int CPT>
@@ -123,18 +136,20 @@ rmsnorm_rows(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
 }
 
 struct GemvMat {
-  const int32_t* pw;        // (K/8, N)
+  const int32_t* pw;        // (K/VPW, N)
   const __nv_bfloat16* sc;  // (2*gp, N)
 };
 
-// Partial int4 products of x (b_rows, K) bf16 with the packed matrix of
-// blockIdx.z, over word rows [chunk * 32, +32): part[z][chunk][b][n] in f32.
-// The block holding the first rows of a group also adds that group's
-// c-terms, once per group.
-template <int NB, int CPT>
+// Partial products of x (b_rows, K) bf16 with the packed matrix of
+// blockIdx.z (VPW values a word), over word rows [chunk * 32, +32):
+// part[z][chunk][b][n] in f32. int4: the block holding the first rows of a
+// group also adds that group's c-terms, once per group. int8: the first
+// block adds the one group's c-term, bf16(sum of x over K) * c.
+template <int NB, int CPT, int VPW>
 __global__ void __launch_bounds__(kGemvThreads)
-gemv_int4_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int k8, int n, int gp,
-                  GemvMat m0, GemvMat m1, float* __restrict__ part) {
+gemv_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int kw, int n, int gp,
+             GemvMat m0, GemvMat m1, float* __restrict__ part) {
+  constexpr bool kInt8 = VPW == 4;
   constexpr int kCols = 32 * CPT;
   const GemvMat mat = blockIdx.z == 0 ? m0 : m1;
   const int chunk = blockIdx.y;
@@ -143,29 +158,41 @@ gemv_int4_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int k8, int n
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int k = 8 * k8;
-  const int n_grp_slab = k8 / kQGroup;
-  const int row0 = chunk * kChunkRows;  // first word row
-  const int mgrp = row0 / kQGroup;      // group index inside each slab
-  const bool first = row0 % kQGroup == 0;
+  const int k = VPW * kw;
+  const int n_grp_slab = kInt8 ? 1 : kw / kQGroup;  // groups per slab
+  const int row0 = chunk * kChunkRows;              // first word row
+  const int mgrp = kInt8 ? 0 : row0 / kQGroup;      // group index inside each slab
+  const bool first = kInt8 ? chunk == 0 : row0 % kQGroup == 0;
 
-  __shared__ __align__(16) float sx[kChunkRows][NB][8];  // x at (slab j, word row r)
+  __shared__ __align__(16) float sx[kChunkRows][NB][VPW];  // x at (slab j, word row r)
   __shared__ float sred[kGemvWarps][NB][kCols];
-  __shared__ float sxs[NB][8];  // bf16-rounded group sums
+  __shared__ float sxs[NB][VPW];  // bf16-rounded group sums (int8: [b][0] only)
 
-  for (int i = tid; i < kChunkRows * NB * 8; i += kGemvThreads) {
-    const int r = i / (NB * 8);
-    const int b = (i / 8) % NB;
-    const int j = i % 8;
-    sx[r][b][j] = b < b_rows ? bf(x[(size_t)b * k + (size_t)j * k8 + row0 + r]) : 0.f;
+  for (int i = tid; i < kChunkRows * NB * VPW; i += kGemvThreads) {
+    const int r = i / (NB * VPW);
+    const int b = (i / VPW) % NB;
+    const int j = i % VPW;
+    sx[r][b][j] = b < b_rows ? bf(x[(size_t)b * k + (size_t)j * kw + row0 + r]) : 0.f;
   }
-  if (first) {
-    for (int jb = warp; jb < 8 * NB; jb += kGemvWarps) {
-      const int j = jb % 8;
-      const int b = jb / 8;
+  if constexpr (kInt8) {
+    if (first) {
+      for (int b = warp; b < NB; b += kGemvWarps) {
+        float s = 0.f;
+        if (b < b_rows) {
+          const __nv_bfloat16* xp = x + (size_t)b * k;
+          for (int i = lane; i < k; i += 32) s += bf(xp[i]);
+        }
+        s = warp_sum(s);
+        if (lane == 0) sxs[b][0] = round_bf16(s);
+      }
+    }
+  } else if (first) {
+    for (int jb = warp; jb < VPW * NB; jb += kGemvWarps) {
+      const int j = jb % VPW;
+      const int b = jb / VPW;
       float s = 0.f;
       if (b < b_rows) {
-        const __nv_bfloat16* xp = x + (size_t)b * k + (size_t)j * k8 + mgrp * kQGroup;
+        const __nv_bfloat16* xp = x + (size_t)b * k + (size_t)j * kw + mgrp * kQGroup;
         for (int i = lane; i < kQGroup; i += 32) s += bf(xp[i]);
       }
       s = warp_sum(s);
@@ -174,11 +201,11 @@ gemv_int4_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int k8, int n
   }
   __syncthreads();
 
-  float acc[NB][8][CPT];
+  float acc[NB][VPW][CPT];
 #pragma unroll
   for (int b = 0; b < NB; ++b)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < VPW; ++j)
 #pragma unroll
       for (int c = 0; c < CPT; ++c) acc[b][j][c] = 0.f;
 
@@ -188,34 +215,30 @@ gemv_int4_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int k8, int n
     const int r = warp * kRowsPerGemvWarp + rr;
     int32_t w[CPT];
     load_words<CPT>(mat.pw + (size_t)(row0 + r) * n + col, w);
-    float xv[NB][8];
+    float xv[NB][VPW];
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const float4 lo = *reinterpret_cast<const float4*>(&sx[r][b][0]);
-      const float4 hi = *reinterpret_cast<const float4*>(&sx[r][b][4]);
-      xv[b][0] = lo.x; xv[b][1] = lo.y; xv[b][2] = lo.z; xv[b][3] = lo.w;
-      xv[b][4] = hi.x; xv[b][5] = hi.y; xv[b][6] = hi.z; xv[b][7] = hi.w;
-    }
+    for (int b = 0; b < NB; ++b) load_x<VPW>(&sx[r][b][0], xv[b]);
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float nf = nib_f(w[c], j);
+      for (int j = 0; j < VPW; ++j) {
+        const float wf = word_val<VPW>(w[c], j);
 #pragma unroll
-        for (int b = 0; b < NB; ++b) acc[b][j][c] = fmaf(xv[b][j], nf, acc[b][j][c]);
+        for (int b = 0; b < NB; ++b) acc[b][j][c] = fmaf(xv[b][j], wf, acc[b][j][c]);
       }
   }
 
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
-    float sj[8];
+    float sj[VPW];  // int8: the one scale s (row 0) for every slab
 #pragma unroll
-    for (int j = 0; j < 8; ++j) sj[j] = bf(mat.sc[(size_t)(j * n_grp_slab + mgrp) * n + col + c]);
+    for (int j = 0; j < VPW; ++j)
+      sj[j] = bf(mat.sc[(kInt8 ? 0 : (size_t)(j * n_grp_slab + mgrp) * n) + col + c]);
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       float p = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) p += acc[b][j][c] * sj[j];
+      for (int j = 0; j < VPW; ++j) p += acc[b][j][c] * sj[j];
       sred[warp][b][lane * CPT + c] = p;
     }
   }
@@ -228,9 +251,11 @@ gemv_int4_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int k8, int n
     float v = 0.f;
 #pragma unroll
     for (int w = 0; w < kGemvWarps; ++w) v += sred[w][b][cc];
-    if (first) {
+    if constexpr (kInt8) {
+      if (first) v += sxs[b][0] * bf(mat.sc[(size_t)gp * n + col0 + cc]);
+    } else if (first) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < VPW; ++j)
         v += sxs[b][j] * bf(mat.sc[(size_t)(gp + j * n_grp_slab + mgrp) * n + col0 + cc]);
     }
     part[((size_t)(blockIdx.z * n_chunks + chunk) * b_rows + b) * n + col0 + cc] = v;
@@ -310,13 +335,13 @@ struct StepArgs {
   float* part_acc;
 };
 
-template <int NB, int CPT>
+template <int NB, int CPT, int VPW>
 cudaError_t gemv(const StepArgs& a, const __nv_bfloat16* x, int k, int n, int gp, GemvMat m0,
                  GemvMat m1, int n_mats, const Epilogue& e, cudaStream_t s) {
-  const int k8 = k / 8;
-  const int n_chunks = k8 / kChunkRows;
-  gemv_int4_partial<NB, CPT><<<dim3(n / (32 * CPT), n_chunks, n_mats), kGemvThreads, 0, s>>>(
-      x, a.batch, k8, n, gp, m0, m1, a.part);
+  const int kw = k / VPW;
+  const int n_chunks = kw / kChunkRows;
+  gemv_partial<NB, CPT, VPW><<<dim3(n / (32 * CPT), n_chunks, n_mats), kGemvThreads, 0, s>>>(
+      x, a.batch, kw, n, gp, m0, m1, a.part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int total = a.batch * n;
@@ -325,8 +350,9 @@ cudaError_t gemv(const StepArgs& a, const __nv_bfloat16* x, int k, int n, int gp
   return cudaGetLastError();
 }
 
+template <int VPW>
 GemvMat layer_mat(const GemvMat& m, int layer, int k, int n, int gp) {
-  return GemvMat{m.pw + (size_t)layer * (k / 8) * n, m.sc + (size_t)layer * 2 * gp * n};
+  return GemvMat{m.pw + (size_t)layer * (k / VPW) * n, m.sc + (size_t)layer * 2 * gp * n};
 }
 
 #define MV_CHECK(expr)                          \
@@ -335,7 +361,7 @@ GemvMat layer_mat(const GemvMat& m, int layer, int k, int n, int gp) {
     if (err_ != cudaSuccess) return err_;       \
   } while (0)
 
-template <int NB, int CPT>
+template <int NB, int CPT, int VPW>
 cudaError_t run_step(const StepArgs& a, cudaStream_t s) {
   const int d = a.dim;
   const int dkv = a.n_kv_head * kHeadDim;
@@ -357,8 +383,8 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t s) {
     eq.seq_len = a.seq_len;
     eq.d = d;
     eq.dkv = dkv;
-    const GemvMat wqkv = layer_mat(a.wqkv, l, d, qout, a.gp);
-    MV_CHECK((gemv<NB, CPT>(a, a.xn, d, qout, a.gp, wqkv, wqkv, 1, eq, s)));
+    const GemvMat wqkv = layer_mat<VPW>(a.wqkv, l, d, qout, a.gp);
+    MV_CHECK((gemv<NB, CPT, VPW>(a, a.xn, d, qout, a.gp, wqkv, wqkv, 1, eq, s)));
 
     SplitArgs<float, __nv_bfloat16> at;
     at.q = a.qkv;
@@ -390,8 +416,8 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t s) {
     Epilogue er = none;
     er.kind = kEpiResid;
     er.out_bf16 = a.x;
-    const GemvMat wo = layer_mat(a.wo, l, d, d, a.gp);
-    MV_CHECK((gemv<NB, CPT>(a, a.ya, d, d, a.gp, wo, wo, 1, er, s)));
+    const GemvMat wo = layer_mat<VPW>(a.wo, l, d, d, a.gp);
+    MV_CHECK((gemv<NB, CPT, VPW>(a, a.ya, d, d, a.gp, wo, wo, 1, er, s)));
 
     rmsnorm_rows<<<a.batch, kNormThreads, 0, s>>>(a.x, a.norm2 + (size_t)l * d, a.xn, d, a.eps);
     MV_CHECK(cudaGetLastError());
@@ -399,11 +425,11 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t s) {
     Epilogue eg = none;
     eg.kind = kEpiSwiglu;
     eg.out_bf16 = a.h;
-    MV_CHECK((gemv<NB, CPT>(a, a.xn, d, a.ip, a.gp, layer_mat(a.w1, l, d, a.ip, a.gp),
-                            layer_mat(a.w3, l, d, a.ip, a.gp), 2, eg, s)));
+    MV_CHECK((gemv<NB, CPT, VPW>(a, a.xn, d, a.ip, a.gp, layer_mat<VPW>(a.w1, l, d, a.ip, a.gp),
+                                 layer_mat<VPW>(a.w3, l, d, a.ip, a.gp), 2, eg, s)));
 
-    const GemvMat w2 = layer_mat(a.w2, l, a.ip, d, a.gp2);
-    MV_CHECK((gemv<NB, CPT>(a, a.h, a.ip, d, a.gp2, w2, w2, 1, er, s)));
+    const GemvMat w2 = layer_mat<VPW>(a.w2, l, a.ip, d, a.gp2);
+    MV_CHECK((gemv<NB, CPT, VPW>(a, a.h, a.ip, d, a.gp2, w2, w2, 1, er, s)));
   }
   if (a.ln_f != nullptr) {
     rmsnorm_rows<<<a.batch, kNormThreads, 0, s>>>(a.x, a.ln_f, a.xn, d, a.eps);
@@ -411,45 +437,30 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t s) {
     Epilogue ef = none;
     ef.kind = kEpiF32;
     ef.out_f32 = a.logits;
-    MV_CHECK((gemv<NB, CPT>(a, a.xn, d, a.vp, a.gp, a.head, a.head, 1, ef, s)));
+    MV_CHECK((gemv<NB, CPT, VPW>(a, a.xn, d, a.vp, a.gp, a.head, a.head, 1, ef, s)));
   }
   return cudaSuccess;
 }
 
 #undef MV_CHECK
 
-}  // namespace
-
-// One decode step of every layer. Shapes (all contiguous on the device):
-//   x_in, x_out (B, D) bf16; norm1, norm2 (L, D) bf16;
-//   wqkv_pw (L, D/8, D + 2*H_kv*128) i32 and wqkv_sc (L, 2*gp, same) bf16; wo (L, D/8, D);
-//   w1, w3 (L, D/8, Ip); w2_pw (L, Ip/8, D) with w2_sc (L, 2*gp2, D);
-//   k_cache, v_cache (L, S, B, H_kv, 128) bf16, updated in place at (layer, *pos);
-//   pos: one int32; starts: NULL or (B,) int32;
-//   ln_f (D,) bf16, head_pw (D/8, Vp), head_sc (2*gp, Vp), logits (B, Vp) f32,
-//   or all four NULL for no head;
-// scratch: xn (B, D) bf16, qkv (B, D + 2*H_kv*128) f32, ya (B, D) bf16, h (B, Ip) bf16,
-//   part f32 holding the largest GEMV's 2 * K/8/32 * B * N partials,
-//   part_ml (B*H*n_splits*2) and part_acc (B*H*n_splits*128) f32.
-// n_splits * split_len must cover S. Returns a cudaError_t.
-extern "C" int mv_decode_stack_int4(
-    const void* x_in, void* x_out, const void* norm1, const void* norm2, const void* wqkv_pw,
-    const void* wqkv_sc, const void* wo_pw, const void* wo_sc, const void* w1_pw,
-    const void* w1_sc, const void* w3_pw, const void* w3_sc, const void* w2_pw,
-    const void* w2_sc, void* k_cache, void* v_cache, const void* pos, const void* starts,
-    const void* ln_f, const void* head_pw, const void* head_sc, void* logits, int n_layer,
-    int batch, int dim, int n_head, int n_kv_head, int head_dim, int seq_len, int ip, int vp,
-    int gp, int gp2, float eps, int n_splits, int split_len, void* xn, void* qkv, void* ya,
-    void* h, void* part, void* part_ml, void* part_acc, void* stream) {
+// The step's arguments, checked, or false. vpw: 8 (int4) or 4 (int8).
+bool make_args(StepArgs& a, int vpw, const void* x_in, void* x_out, const void* norm1,
+               const void* norm2, const void* const (&mats)[10], void* k_cache, void* v_cache,
+               const void* pos, const void* starts, const void* ln_f, const void* head_pw,
+               const void* head_sc, void* logits, int n_layer, int batch, int dim, int n_head,
+               int n_kv_head, int head_dim, int seq_len, int ip, int vp, int gp, int gp2,
+               float eps, int n_splits, int split_len, void* const (&scratch)[7]) {
   const bool with_head = ln_f != nullptr;
+  const bool int4 = vpw == 8;
   if (n_layer < 1 || batch < 1 || batch > 8 || head_dim != kHeadDim || n_kv_head < 1 ||
       n_head % n_kv_head != 0 || n_head * head_dim != dim || dim % (8 * kQGroup) != 0 ||
-      ip % (8 * kQGroup) != 0 || gp < dim / kQGroup || gp2 < ip / kQGroup || n_splits < 1 ||
-      split_len < 1 || (long long)n_splits * split_len < seq_len || pos == nullptr ||
-      (with_head && (head_pw == nullptr || head_sc == nullptr || logits == nullptr ||
+      ip % (8 * kQGroup) != 0 || gp < (int4 ? dim / kQGroup : 1) ||
+      gp2 < (int4 ? ip / kQGroup : 1) || n_splits < 1 || split_len < 1 ||
+      (long long)n_splits * split_len < seq_len || pos == nullptr ||
+      (with_head && (!int4 || head_pw == nullptr || head_sc == nullptr || logits == nullptr ||
                      vp < 128 || vp % 128 != 0)))
-    return (int)cudaErrorInvalidValue;
-  StepArgs a;
+    return false;
   a.x_in = static_cast<const __nv_bfloat16*>(x_in);
   a.x = static_cast<__nv_bfloat16*>(x_out);
   a.norm1 = static_cast<const __nv_bfloat16*>(norm1);
@@ -457,11 +468,11 @@ extern "C" int mv_decode_stack_int4(
   auto mat = [](const void* pw, const void* sc) {
     return GemvMat{static_cast<const int32_t*>(pw), static_cast<const __nv_bfloat16*>(sc)};
   };
-  a.wqkv = mat(wqkv_pw, wqkv_sc);
-  a.wo = mat(wo_pw, wo_sc);
-  a.w1 = mat(w1_pw, w1_sc);
-  a.w3 = mat(w3_pw, w3_sc);
-  a.w2 = mat(w2_pw, w2_sc);
+  a.wqkv = mat(mats[0], mats[1]);
+  a.wo = mat(mats[2], mats[3]);
+  a.w1 = mat(mats[4], mats[5]);
+  a.w3 = mat(mats[6], mats[7]);
+  a.w2 = mat(mats[8], mats[9]);
   a.head = mat(head_pw, head_sc);
   a.k_cache = static_cast<__nv_bfloat16*>(k_cache);
   a.v_cache = static_cast<__nv_bfloat16*>(v_cache);
@@ -482,16 +493,79 @@ extern "C" int mv_decode_stack_int4(
   a.eps = eps;
   a.n_splits = n_splits;
   a.split_len = split_len;
-  a.xn = static_cast<__nv_bfloat16*>(xn);
-  a.qkv = static_cast<float*>(qkv);
-  a.ya = static_cast<__nv_bfloat16*>(ya);
-  a.h = static_cast<__nv_bfloat16*>(h);
-  a.part = static_cast<float*>(part);
-  a.part_ml = static_cast<float*>(part_ml);
-  a.part_acc = static_cast<float*>(part_acc);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch == 1) return (int)run_step<1, 4>(a, s);
-  if (batch == 2) return (int)run_step<2, 4>(a, s);
-  if (batch <= 4) return (int)run_step<4, 2>(a, s);
-  return (int)run_step<8, 1>(a, s);
+  a.xn = static_cast<__nv_bfloat16*>(scratch[0]);
+  a.qkv = static_cast<float*>(scratch[1]);
+  a.ya = static_cast<__nv_bfloat16*>(scratch[2]);
+  a.h = static_cast<__nv_bfloat16*>(scratch[3]);
+  a.part = static_cast<float*>(scratch[4]);
+  a.part_ml = static_cast<float*>(scratch[5]);
+  a.part_acc = static_cast<float*>(scratch[6]);
+  return true;
+}
+
+template <int VPW>
+int run_step_rows(const StepArgs& a, cudaStream_t s) {
+  if (a.batch == 1) return (int)run_step<1, 4, VPW>(a, s);
+  if (a.batch == 2) return (int)run_step<2, 4, VPW>(a, s);
+  if (a.batch <= 4) return (int)run_step<4, 2, VPW>(a, s);
+  return (int)run_step<8, 1, VPW>(a, s);
+}
+
+}  // namespace
+
+// One int4 decode step of every layer (K3). Shapes (all contiguous on the device):
+//   x_in, x_out (B, D) bf16; norm1, norm2 (L, D) bf16;
+//   wqkv_pw (L, D/8, D + 2*H_kv*128) i32 and wqkv_sc (L, 2*gp, same) bf16; wo (L, D/8, D);
+//   w1, w3 (L, D/8, Ip); w2_pw (L, Ip/8, D) with w2_sc (L, 2*gp2, D);
+//   k_cache, v_cache (L, S, B, H_kv, 128) bf16, updated in place at (layer, *pos);
+//   pos: one int32; starts: NULL or (B,) int32;
+//   ln_f (D,) bf16, head_pw (D/8, Vp), head_sc (2*gp, Vp), logits (B, Vp) f32,
+//   or all four NULL for no head;
+// scratch: xn (B, D) bf16, qkv (B, D + 2*H_kv*128) f32, ya (B, D) bf16, h (B, Ip) bf16,
+//   part f32 holding the largest GEMV's 2 * K/8/32 * B * N partials,
+//   part_ml (B*H*n_splits*2) and part_acc (B*H*n_splits*128) f32.
+// n_splits * split_len must cover S. Returns a cudaError_t.
+extern "C" int mv_decode_stack_int4(
+    const void* x_in, void* x_out, const void* norm1, const void* norm2, const void* wqkv_pw,
+    const void* wqkv_sc, const void* wo_pw, const void* wo_sc, const void* w1_pw,
+    const void* w1_sc, const void* w3_pw, const void* w3_sc, const void* w2_pw,
+    const void* w2_sc, void* k_cache, void* v_cache, const void* pos, const void* starts,
+    const void* ln_f, const void* head_pw, const void* head_sc, void* logits, int n_layer,
+    int batch, int dim, int n_head, int n_kv_head, int head_dim, int seq_len, int ip, int vp,
+    int gp, int gp2, float eps, int n_splits, int split_len, void* xn, void* qkv, void* ya,
+    void* h, void* part, void* part_ml, void* part_acc, void* stream) {
+  const void* const mats[10] = {wqkv_pw, wqkv_sc, wo_pw, wo_sc, w1_pw,
+                                w1_sc,   w3_pw,   w3_sc, w2_pw, w2_sc};
+  void* const scratch[7] = {xn, qkv, ya, h, part, part_ml, part_acc};
+  StepArgs a;
+  if (!make_args(a, 8, x_in, x_out, norm1, norm2, mats, k_cache, v_cache, pos, starts, ln_f,
+                 head_pw, head_sc, logits, n_layer, batch, dim, n_head, n_kv_head, head_dim,
+                 seq_len, ip, vp, gp, gp2, eps, n_splits, split_len, scratch))
+    return (int)cudaErrorInvalidValue;
+  return run_step_rows<8>(a, static_cast<cudaStream_t>(stream));
+}
+
+// One int8 decode step of every layer (K7), no head. Shapes as for
+// mv_decode_stack_int4, with the int8 words: wqkv_p8 (L, D/4, D + 2*H_kv*128)
+// i32, wo (L, D/4, D), w1, w3 (L, D/4, Ip), w2_p8 (L, Ip/4, D); every sc8
+// (L, 2*gp, N) bf16 with s at row 0 and c at row gp (gp2 for w2); part f32
+// holding the largest GEMV's 2 * K/4/32 * B * N partials. Returns a
+// cudaError_t.
+extern "C" int mv_decode_stack_int8(
+    const void* x_in, void* x_out, const void* norm1, const void* norm2, const void* wqkv_p8,
+    const void* wqkv_sc8, const void* wo_p8, const void* wo_sc8, const void* w1_p8,
+    const void* w1_sc8, const void* w3_p8, const void* w3_sc8, const void* w2_p8,
+    const void* w2_sc8, void* k_cache, void* v_cache, const void* pos, const void* starts,
+    int n_layer, int batch, int dim, int n_head, int n_kv_head, int head_dim, int seq_len, int ip,
+    int gp, int gp2, float eps, int n_splits, int split_len, void* xn, void* qkv, void* ya,
+    void* h, void* part, void* part_ml, void* part_acc, void* stream) {
+  const void* const mats[10] = {wqkv_p8, wqkv_sc8, wo_p8, wo_sc8, w1_p8,
+                                w1_sc8,  w3_p8,    w3_sc8, w2_p8, w2_sc8};
+  void* const scratch[7] = {xn, qkv, ya, h, part, part_ml, part_acc};
+  StepArgs a;
+  if (!make_args(a, 4, x_in, x_out, norm1, norm2, mats, k_cache, v_cache, pos, starts, nullptr,
+                 nullptr, nullptr, nullptr, n_layer, batch, dim, n_head, n_kv_head, head_dim,
+                 seq_len, ip, 0, gp, gp2, eps, n_splits, split_len, scratch))
+    return (int)cudaErrorInvalidValue;
+  return run_step_rows<4>(a, static_cast<cudaStream_t>(stream));
 }

@@ -16,7 +16,9 @@ Port of the single-utterance path of metavoice_tpu/models/first_stage.py:
 Each decode step runs every layer's attention through
 ops/attention.py:decode_attention (the CUDA kernel on the card), or, with
 int4 weights, the whole step through ops/decode_stack.py:decode_stack_int4,
-whose fused int4 tied head gives the logits directly. Prefill keeps the
+whose fused int4 tied head gives the logits directly; with int8 weights,
+the whole step through its int8 form where its conditions hold, then the
+bf16 tied head (``apply_blocks`` says head_done=False). Prefill keeps the
 bf16 tied head, as in the JAX package. Only the 2-row (speaker) CFG is
 ported; the 3-row prompt guidance is a later PR.
 """
@@ -129,8 +131,9 @@ def generate(
     ``noise`` (n, 1, V): Gumbel noise for the n-th sampled token (row 0 for
     the prefill's), in place of draws from ``generator``. ``stats``, if
     given, receives ``decode_steps``: the T=1 forwards run (each launches the
-    decode-attention kernel once per layer on the card, or with int4 weights
-    the decode-stack kernel once).
+    decode-attention kernel once per layer on the card, or the decode-stack
+    kernel once with int4 weights and with int8 ones that meet its
+    conditions).
     """
     spk_g, _, _ = _normalize_guidance(guidance_scale)
     device = params["wpe"].device

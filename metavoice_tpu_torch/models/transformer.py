@@ -23,6 +23,13 @@ norm and the int4 tied head fused in when asked. The port follows that
 kernel's semantics on every device, the CPU included (its plain version);
 the JAX package's CPU route instead runs per-layer reference matmuls and
 the bf16 head.
+
+int8 serving (``ops/quantized.quantize_params_int8_i32``): ``{"p8", "sc8"}``
+leaves run through the int8 matmul kernel in ``_linear``. A T=1 step whose
+layers meet the decode-stack kernel's conditions (the JAX package's) runs
+all layers in its int8 form, then the final norm and the bf16 tied head;
+otherwise each layer runs ``_linear`` at M = B and the decode-attention
+kernel, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,8 +43,8 @@ import torch.nn.functional as F
 from metavoice_tpu_torch.core.config import TransformerConfig
 from metavoice_tpu_torch.core.device import resolve_device
 from metavoice_tpu_torch.ops.attention import decode_attention
-from metavoice_tpu_torch.ops.decode_stack import decode_stack_int4
-from metavoice_tpu_torch.ops.quantized import is_int4, matmul_int4_i32
+from metavoice_tpu_torch.ops.decode_stack import HEAD_DIM, MAX_BATCH, decode_stack_int4
+from metavoice_tpu_torch.ops.quantized import is_int4, is_int8_i32, matmul_int4_i32, matmul_int8_i32
 
 Params = dict[str, Any]
 
@@ -164,17 +171,24 @@ def _norm(x, w, b, norm_type: str, eps: float):
 
 
 def _linear(x, w, b=None):
-    """Dense (in, out) projection in x's dtype, or a packed int4 one through
-    the int4 matmul kernel (f32 out, cast to x's dtype). The packer pads K
-    to a multiple of 1024; narrower activations are zero-padded to it (the
-    pad groups carry s = c = 0)."""
+    """Dense (in, out) projection in x's dtype, or a packed int4 or int8 one
+    through its matmul kernel (f32 out, cast to x's dtype). The packers pad
+    K (int4 to a multiple of 1024, int8 to one of 4, and the FFN hidden dim
+    to one of 1024); narrower activations are zero-padded to it, which adds
+    nothing (int4 pad groups carry s = c = 0; int8 pad rows meet zero x both
+    in the byte product and in sum(x))."""
+    packed = None
     if is_int4(w):
+        packed = (8 * w["pw"].shape[0], matmul_int4_i32, w["pw"], w["sc"])
+    elif is_int8_i32(w):
+        packed = (4 * w["p8"].shape[0], matmul_int8_i32, w["p8"], w["sc8"])
+    if packed is not None:
+        kp, matmul, words, scales = packed
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
-        kp = 8 * w["pw"].shape[0]
         if x2.shape[-1] < kp:
             x2 = F.pad(x2, (0, kp - x2.shape[-1]))
-        y = matmul_int4_i32(x2, w["pw"], w["sc"]).reshape(*lead, -1).to(x.dtype)
+        y = matmul(x2, words, scales).reshape(*lead, -1).to(x.dtype)
     else:
         y = x @ w.to(x.dtype)
     if b is not None:
@@ -304,8 +318,27 @@ def check_int4_decode(params: Params, cfg: TransformerConfig, cache_dtype=torch.
         )
 
 
+def int8_stack_ok(params: Params, cfg: TransformerConfig, batch: int, cache_dtype) -> bool:
+    """Whether an int8 T=1 step runs through the decode-stack kernel: the JAX
+    package's conditions (every stack weight packed int8, SwiGLU, RMSNorm,
+    no qkv bias, dim a multiple of 1024, a bf16 cache) and the kernel's
+    (head_dim 128, at most 8 rows)."""
+    layers = params["layers"]
+    return (
+        all(is_int8_i32(layers.get(k)) for k in _STACK_KEYS)
+        and cfg.nonlinearity_type == "swiglu"
+        and cfg.norm_type == "rmsnorm"
+        and "wqkv_b" not in layers
+        and cfg.dim % 1024 == 0
+        and layers["w1"]["p8"].shape[-1] % 1024 == 0
+        and cache_dtype == torch.bfloat16
+        and cfg.head_dim == HEAD_DIM
+        and batch <= MAX_BATCH
+    )
+
+
 def _layer(layers: Params, li: int) -> Params:
-    """Layer li's view of the stacked weights (packed int4 leaves included)."""
+    """Layer li's view of the stacked weights (packed leaves included)."""
     return {
         name: {k: v[li] for k, v in w.items()} if isinstance(w, dict) else w[li]
         for name, w in layers.items()
@@ -334,6 +367,23 @@ def _decode_stack(params: Params, cfg: TransformerConfig, x, kv_cache: KVCache, 
     return (xo, kv_cache, False) if fused_head else (xo, kv_cache)
 
 
+def _decode_stack_int8(params: Params, cfg: TransformerConfig, x, kv_cache: KVCache, cache_pos,
+                       attn_starts, fused_head: bool):
+    """A T=1 step of int8 layers through the decode-stack kernel, then the
+    final norm; the bf16 tied head stays with the caller (head_done=False)."""
+    layers = params["layers"]
+    xo, _, _ = decode_stack_int4(
+        x[:, 0, :],
+        layers["attn_norm_w"], layers["ffn_norm_w"],
+        *[t for k in _STACK_KEYS for t in (layers[k]["p8"], layers[k]["sc8"])],
+        kv_cache.k, kv_cache.v, cache_pos, cfg.n_head,
+        n_kv_head=cfg.n_local_heads, starts=attn_starts, norm_eps=cfg.norm_eps, wfmt="i8",
+    )
+    xo = _norm(xo[:, None, :].to(x.dtype), params["ln_f_w"], params.get("ln_f_b"),
+               cfg.norm_type, cfg.norm_eps)
+    return (xo, kv_cache, False) if fused_head else (xo, kv_cache)
+
+
 def apply_blocks(
     params: Params,
     cfg: TransformerConfig,
@@ -352,7 +402,8 @@ def apply_blocks(
     * cache, T = 1 (decode): ``decode_attention`` writes the row and attends
       over the window [attn_starts, cache_pos]; ``mask`` is not used. With
       int4 layer weights the whole step is the decode-stack kernel instead
-      (raises NotImplementedError when its conditions fail).
+      (raises NotImplementedError when its conditions fail); with int8 ones
+      too, where ``int8_stack_ok`` holds.
 
     ``fused_head=True`` (decode callers) returns a THREE-tuple
     ``(x_or_logits, kv_cache, head_done)``: when the int4 stack ran with a
@@ -361,8 +412,11 @@ def apply_blocks(
     (head_done=True); otherwise it is the normed hidden state.
     """
     t = x.shape[1]
-    if kv_cache is not None and t == 1 and any(is_int4(w) for w in params["layers"].values()):
-        return _decode_stack(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head)
+    if kv_cache is not None and t == 1:
+        if any(is_int4(w) for w in params["layers"].values()):
+            return _decode_stack(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head)
+        if int8_stack_ok(params, cfg, x.shape[0], kv_cache.k.dtype):
+            return _decode_stack_int8(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head)
     for li in range(cfg.n_layer):
         lp = _layer(params["layers"], li)
         xa = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps)

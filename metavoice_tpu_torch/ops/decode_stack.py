@@ -1,25 +1,27 @@
-"""One int4 decode step through every layer (K3): the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""One decode step through every layer with weights in int32 words: the
+CUDA kernels' wrapper and its plain PyTorch version. int4 words
+(``wfmt="i4"``) are K3, int8 words (``wfmt="i8"``) K7.
 
-Replaces ``metavoice_tpu/ops/decode_stack.py:decode_stack_int4`` with
-``wfmt="i4"`` (the Pallas TPU kernel ``_decode_stack_kernel``). The kernel is
-``metavoice_tpu_torch/csrc/decode_stack_int4.cu``: one C entry per step
-launches every layer's work on the current stream; its header says what
-bounds it on the card (the packed weight bytes) and how its design follows
-that bound. The int8-in-int32 format (``wfmt="i8"``) is a different kernel,
-not ported yet.
+Replaces ``metavoice_tpu/ops/decode_stack.py:decode_stack_int4`` (the Pallas
+TPU kernel ``_decode_stack_kernel``, both word formats). The kernels are
+``metavoice_tpu_torch/csrc/decode_stack_int4.cu``: one C entry per format
+and step launches every layer's work on the current stream; its header says
+what bounds it on the card (the packed weight bytes) and how its design
+follows that bound.
 
 Semantics, per layer, for x (B, D) bf16: RMSNorm (f32, rounded to bf16, then
-times the bf16 weight); the int4 qkv projection in f32
-(:func:`~metavoice_tpu_torch.ops.quantized.matmul_int4_i32_reference`
-arithmetic); q * 1/sqrt(Dh) in f32; the k/v rows rounded to bf16 and written
+times the bf16 weight); the qkv projection in f32 (the arithmetic of
+:func:`~metavoice_tpu_torch.ops.quantized.matmul_int4_i32_reference`, or of
+:func:`~metavoice_tpu_torch.ops.quantized.matmul_int8_i32_reference` for
+int8); q * 1/sqrt(Dh) in f32; the k/v rows rounded to bf16 and written
 into the cache at (layer, pos) BEFORE the window is read; f32 softmax over
 ``[starts[b], pos]`` (a start past ``pos`` is taken as ``pos``; query head h
 reads kv head ``h // (H / H_kv)``), rounded to bf16; the int4 o-proj rounded
-to bf16 and a bf16 residual add; RMSNorm; the int4 w1/w3 with
-``silu(h1) * h3`` in f32 rounded to bf16; the int4 w2 rounded to bf16 and a
-bf16 residual add. After the last layer, with ``ln_f_w``/``head_pw``/
-``head_sc``: RMSNorm and the int4 tied head -> (B, Vp) f32 logits.
+to bf16 and a bf16 residual add; RMSNorm; w1/w3 with ``silu(h1) * h3`` in
+f32 rounded to bf16; w2 rounded to bf16 and a bf16 residual add. After the
+last layer, int4 only, with ``ln_f_w``/``head_pw``/``head_sc``: RMSNorm and
+the int4 tied head -> (B, Vp) f32 logits (the JAX package passes no head
+with int8 words).
 
 Both functions update the caches IN PLACE and return them, so callers
 written against the JAX signature keep working. Only slots ``[0, pos]`` are
@@ -34,13 +36,18 @@ import torch
 import torch.nn.functional as F
 
 from metavoice_tpu_torch.ops import _build
-from metavoice_tpu_torch.ops.quantized import I32_GROUPSIZE, matmul_int4_i32_reference
+from metavoice_tpu_torch.ops.quantized import (
+    I32_GROUPSIZE,
+    matmul_int4_i32_reference,
+    matmul_int8_i32_reference,
+)
 
 SPLIT_POSITIONS = 64  # cache slots per block of the attention's sequence split
 MAX_SPLITS = 32
 HEAD_DIM = 128  # the kernel's head width
 MAX_BATCH = 8  # rows the kernel's GEMV holds in registers
-GEMV_CHUNK_ROWS = 32  # packed word rows per GEMV block: K/8/32 partial sums per output
+GEMV_CHUNK_ROWS = 32  # packed word rows per GEMV block: K/VPW/32 partial sums per output
+VALUES_PER_WORD = {"i4": 8, "i8": 4}
 
 _scratch: dict[tuple, dict[str, torch.Tensor]] = {}
 
@@ -73,11 +80,11 @@ def decode_stack_int4_reference(
     x, norm1_w, norm2_w, wqkv_pw, wqkv_sc, wo_pw, wo_sc, w1_pw, w1_sc, w3_pw, w3_sc,
     w2_pw, w2_sc, k_cache, v_cache, pos, n_head: int, *, n_kv_head: int | None = None,
     starts=None, norm_eps: float = 1e-5, ln_f_w=None, head_pw=None, head_sc=None,
-    groupsize: int = I32_GROUPSIZE,
+    groupsize: int = I32_GROUPSIZE, wfmt: str = "i4",
 ):
-    """Plain PyTorch version of the K3 kernel: the CPU path and the card's
-    oracle. Loops over the layers as the kernel does; same arguments and
-    returns as :func:`decode_stack_int4`."""
+    """Plain PyTorch version of the K3 and K7 kernels: the CPU path and the
+    card's oracle. Loops over the layers as the kernels do; same arguments
+    and returns as :func:`decode_stack_int4`."""
     b, d = x.shape
     dh = d // n_head
     n_kv_head = n_kv_head or n_head
@@ -85,6 +92,8 @@ def decode_stack_int4_reference(
     pos = int(pos)
 
     def mm(a, pw, sc):
+        if wfmt == "i8":
+            return matmul_int8_i32_reference(a, pw, sc)
         return matmul_int4_i32_reference(a, pw, sc, groupsize)
 
     x = x.to(torch.bfloat16)
@@ -103,7 +112,10 @@ def decode_stack_int4_reference(
     return x, k_cache, v_cache, mm(_rmsnorm(x, ln_f_w, norm_eps), head_pw, head_sc)
 
 
-def _check(x, norm1_w, norm2_w, mats, k_cache, v_cache, n_head, n_kv_head, starts, head):
+def _check(x, norm1_w, norm2_w, mats, k_cache, v_cache, n_head, n_kv_head, starts, head, wfmt):
+    if wfmt not in VALUES_PER_WORD:
+        raise ValueError(f"wfmt must be one of {sorted(VALUES_PER_WORD)}, got {wfmt!r}")
+    vpw = VALUES_PER_WORD[wfmt]
     if x.dim() != 2:
         raise ValueError(f"x must be (B, D), got {tuple(x.shape)}")
     b, d = x.shape
@@ -114,8 +126,8 @@ def _check(x, norm1_w, norm2_w, mats, k_cache, v_cache, n_head, n_kv_head, start
     n_layer = k_cache.shape[0]
     ip = w1_pw.shape[2]
     want = {
-        "wqkv": (n_layer, d // 8, d + 2 * n_kv_head * dh), "wo": (n_layer, d // 8, d),
-        "w1": (n_layer, d // 8, ip), "w3": (n_layer, d // 8, ip), "w2": (n_layer, ip // 8, d),
+        "wqkv": (n_layer, d // vpw, d + 2 * n_kv_head * dh), "wo": (n_layer, d // vpw, d),
+        "w1": (n_layer, d // vpw, ip), "w3": (n_layer, d // vpw, ip), "w2": (n_layer, ip // vpw, d),
     }
     for (name, shape), (pw, sc) in zip(want.items(), mats):
         if tuple(pw.shape) != shape or sc.dim() != 3 or sc.shape[0] != n_layer or sc.shape[2] != shape[2]:
@@ -131,6 +143,8 @@ def _check(x, norm1_w, norm2_w, mats, k_cache, v_cache, n_head, n_kv_head, start
     ln_f_w, head_pw, head_sc = head
     if (head_pw is None) != (head_sc is None) or (head_pw is None) != (ln_f_w is None):
         raise ValueError("ln_f_w, head_pw and head_sc go together")
+    if head_pw is not None and wfmt != "i4":
+        raise ValueError("only int4 words have a fused head; the int8 stack takes none")
     if head_pw is not None and (head_pw.shape[0] * 8 != d or head_sc.shape[1] != head_pw.shape[1]):
         raise ValueError(f"head pw {tuple(head_pw.shape)} / sc {tuple(head_sc.shape)} do not fit D={d}")
     tensors = [x, norm1_w, norm2_w, k_cache, v_cache, *[t for m in mats for t in m]]
@@ -139,11 +153,11 @@ def _check(x, norm1_w, norm2_w, mats, k_cache, v_cache, n_head, n_kv_head, start
         raise ValueError(f"all tensors must share one device, got {sorted({str(t.device) for t in tensors})}")
 
 
-def _scratch_for(dev, b, d, qout, ip, vp, n_rows, n_splits):
-    key = (dev, b, d, qout, ip, vp, n_rows, n_splits)
+def _scratch_for(dev, b, d, qout, ip, vp, n_rows, n_splits, vpw):
+    key = (dev, b, d, qout, ip, vp, n_rows, n_splits, vpw)
     if key not in _scratch:
-        chunks_d = d // 8 // GEMV_CHUNK_ROWS
-        part = b * max(chunks_d * qout, 2 * chunks_d * ip, ip // 8 // GEMV_CHUNK_ROWS * d, chunks_d * vp)
+        chunks_d = d // vpw // GEMV_CHUNK_ROWS
+        part = b * max(chunks_d * qout, 2 * chunks_d * ip, ip // vpw // GEMV_CHUNK_ROWS * d, chunks_d * vp)
         f32, bf16 = torch.float32, torch.bfloat16
         _scratch[key] = {
             "xn": torch.empty((b, d), dtype=bf16, device=dev),
@@ -163,31 +177,30 @@ def decode_stack_int4(
     starts=None, norm_eps: float = 1e-5, ln_f_w=None, head_pw=None, head_sc=None,
     groupsize: int = I32_GROUPSIZE, wfmt: str = "i4",
 ):
-    """All layers of one T=1 decode step (K3).
+    """All layers of one T=1 decode step: K3 (``wfmt="i4"``) or K7 (``"i8"``).
 
     x: (B, D) residual stream (not normed); norm weights (L, D); packed
-    weights stacked over layers, ``pw`` (L, K/8, N) int32 and ``sc``
-    (L, 2*Gp, N) bf16; caches (L, S, B, H_kv, Dh), updated in place at
-    (layer, pos); ``pos`` an int or a 0-d int32 tensor on x's device (the
-    kernel reads it on the device); ``starts`` optional (B,) first valid slot.
+    weights stacked over layers: int4 ``pw`` (L, K/8, N) int32 and ``sc``
+    (L, 2*Gp, N) bf16, or int8 ``p8`` (L, K/4, N) int32 and ``sc8``
+    (L, 16, N) bf16 (s at row 0, c at row 8); caches (L, S, B, H_kv, Dh),
+    updated in place at (layer, pos); ``pos`` an int or a 0-d int32 tensor
+    on x's device (the kernel reads it on the device); ``starts`` optional
+    (B,) first valid slot.
 
     Returns ``(x_out (B, D) bf16, k_cache, v_cache)``, and ``logits
-    (B, Vp) f32`` fourth when ``ln_f_w``/``head_pw``/``head_sc`` are given.
-    A CUDA tensor launches the hand-written kernel or raises; a CPU tensor
-    takes :func:`decode_stack_int4_reference`. ``decode_stack_int4.launches``
-    counts kernel launches (one per step).
+    (B, Vp) f32`` fourth when ``ln_f_w``/``head_pw``/``head_sc`` are given
+    (int4 only). A CUDA tensor launches the hand-written kernel or raises; a
+    CPU tensor takes :func:`decode_stack_int4_reference`.
+    ``decode_stack_int4.launches`` counts K3 launches and
+    ``decode_stack_int4.launches_i8`` K7 launches (one per step).
     """
-    if wfmt != "i4":
-        raise NotImplementedError(
-            f"wfmt={wfmt!r}: the int8-in-int32 decode stack (K7) is not ported; only 'i4' is"
-        )
     n_kv_head = n_kv_head or n_head
     mats = ((wqkv_pw, wqkv_sc), (wo_pw, wo_sc), (w1_pw, w1_sc), (w3_pw, w3_sc), (w2_pw, w2_sc))
     head = (ln_f_w, head_pw, head_sc)
-    _check(x, norm1_w, norm2_w, mats, k_cache, v_cache, n_head, n_kv_head, starts, head)
+    _check(x, norm1_w, norm2_w, mats, k_cache, v_cache, n_head, n_kv_head, starts, head, wfmt)
     args = (x, norm1_w, norm2_w, *[t for m in mats for t in m], k_cache, v_cache, pos, n_head)
     kw = dict(n_kv_head=n_kv_head, starts=starts, norm_eps=norm_eps, ln_f_w=ln_f_w,
-              head_pw=head_pw, head_sc=head_sc, groupsize=groupsize)
+              head_pw=head_pw, head_sc=head_sc, groupsize=groupsize, wfmt=wfmt)
     if x.device.type == "cpu":
         return decode_stack_int4_reference(*args, **kw)
     if x.device.type != "cuda":
@@ -198,7 +211,7 @@ def decode_stack_int4(
     dh = d // n_head
     ip = w1_pw.shape[2]
     qout = wqkv_pw.shape[2]
-    if dh != HEAD_DIM or not 1 <= b <= MAX_BATCH or groupsize != I32_GROUPSIZE:
+    if dh != HEAD_DIM or not 1 <= b <= MAX_BATCH or (wfmt == "i4" and groupsize != I32_GROUPSIZE):
         raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, 1..{MAX_BATCH} rows, groupsize 128; "
                          f"got {dh}, {b}, {groupsize}")
     if d % 1024 or ip % 1024:
@@ -208,7 +221,7 @@ def decode_stack_int4(
     for pw, sc in mats + (((head_pw, head_sc),) if head_pw is not None else ()):
         if pw.dtype != torch.int32 or sc.dtype != torch.bfloat16:
             raise ValueError(f"packed weights must be int32 pw and bf16 sc, got {pw.dtype}, {sc.dtype}")
-    gp, gp2 = wqkv_sc.shape[-2] // 2, w2_sc.shape[-2] // 2
+    gp, gp2 = wqkv_sc.shape[-2] // 2, w2_sc.shape[-2] // 2  # int8: c at row gp, not K/128
     if any(sc.shape[-2] != 2 * gp for sc in (wo_sc, w1_sc, w3_sc)) or (
         head_sc is not None and head_sc.shape[0] != 2 * gp
     ):
@@ -222,7 +235,7 @@ def decode_stack_int4(
     dev = x.device
     n_splits = min(-(-seq_len // SPLIT_POSITIONS), MAX_SPLITS)
     split_len = -(-seq_len // n_splits)
-    s = _scratch_for(dev, b, d, qout, ip, vp, b * n_head, n_splits)
+    s = _scratch_for(dev, b, d, qout, ip, vp, b * n_head, n_splits, VALUES_PER_WORD[wfmt])
     if isinstance(pos, torch.Tensor):
         pos_t = pos.reshape(1).to(device=dev, dtype=torch.int32)
     else:
@@ -242,23 +255,30 @@ def decode_stack_int4(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _build.kernels().lib.mv_decode_stack_int4(
-        x_in.data_ptr(), x_out.data_ptr(), n1.data_ptr(), n2.data_ptr(),
-        *[t.data_ptr() for m in mats for t in m],
-        k_cache.data_ptr(), v_cache.data_ptr(), pos_t.data_ptr(), ptr(starts),
-        ptr(lnf), ptr(head_pw), ptr(head_sc), ptr(logits),
-        n_layer, b, d, n_head, n_kv_head, dh, seq_len, ip, vp, gp, gp2, float(norm_eps),
-        n_splits, split_len,
-        s["xn"].data_ptr(), s["qkv"].data_ptr(), s["ya"].data_ptr(), s["h"].data_ptr(),
-        s["part"].data_ptr(), s["part_ml"].data_ptr(), s["part_acc"].data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    lead = (x_in.data_ptr(), x_out.data_ptr(), n1.data_ptr(), n2.data_ptr(),
+            *[t.data_ptr() for m in mats for t in m],
+            k_cache.data_ptr(), v_cache.data_ptr(), pos_t.data_ptr(), ptr(starts))
+    dims = (n_layer, b, d, n_head, n_kv_head, dh, seq_len, ip)
+    tail = (float(norm_eps), n_splits, split_len,
+            s["xn"].data_ptr(), s["qkv"].data_ptr(), s["ya"].data_ptr(), s["h"].data_ptr(),
+            s["part"].data_ptr(), s["part_ml"].data_ptr(), s["part_acc"].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    lib = _build.kernels().lib
+    if wfmt == "i8":
+        err = lib.mv_decode_stack_int8(*lead, *dims, gp, gp2, *tail)
+    else:
+        err = lib.mv_decode_stack_int4(*lead, ptr(lnf), ptr(head_pw), ptr(head_sc), ptr(logits),
+                                       *dims, vp, gp, gp2, *tail)
     if err != 0:
-        raise RuntimeError(f"decode_stack_int4 kernel launch failed: cudaError_t {err}")
-    decode_stack_int4.launches += 1
+        raise RuntimeError(f"decode_stack_int4 (wfmt={wfmt!r}) kernel launch failed: cudaError_t {err}")
+    if wfmt == "i8":
+        decode_stack_int4.launches_i8 += 1
+    else:
+        decode_stack_int4.launches += 1
     if logits is None:
         return x_out, k_cache, v_cache
     return x_out, k_cache, v_cache, logits
 
 
 decode_stack_int4.launches = 0
+decode_stack_int4.launches_i8 = 0

@@ -1,9 +1,10 @@
-"""int4-in-int32 weight-only quantization: the serving format, the prefill
-matmul kernel's wrapper (K2) and its plain PyTorch version.
+"""Weight-only quantization in int32 words: the int4 and int8 serving
+formats, their prefill matmul kernels' wrappers (K2, K8) and the kernels'
+plain PyTorch versions.
 
-Port of the int4-in-int32 part of ``metavoice_tpu/ops/quantized.py``. The
-on-disk layout is kept exactly, so a ``cli quantize`` ``.npz`` loads in both
-packages:
+Port of the int4-in-int32 and int8-in-int32 parts of
+``metavoice_tpu/ops/quantized.py``. The on-disk layouts are kept exactly, so
+a ``cli quantize`` ``.npz`` loads in both packages. int4:
 
   * ``pw`` (K/8, N) int32, "split-eighth" along the contraction dim: bits
     [4j, 4j+4) of word (k', n) hold q[j*K/8 + k', n] + 8, in [0, 15];
@@ -17,8 +18,19 @@ affine terms land in a per-group epilogue. Group g's rows are nibble
 ``j = g // (K/8/128)`` of word rows ``[(g mod (K/8/128))*128, +128)``: one
 word holds one row of each of 8 groups.
 
-The kernel is ``metavoice_tpu_torch/csrc/matmul_int4_i32.cu``; a CUDA tensor
-launches it or raises, a CPU tensor takes :func:`matmul_int4_i32_reference`.
+int8 (``quantisation_mode="int8"``), one symmetric scale per output column:
+
+  * ``p8`` (K/4, N) int32, "split-quarter": bits [8j, 8j+8) of word (k', n)
+    hold q[j*K/4 + k', n] + 128, in [0, 255];
+  * ``sc8`` (16, N) bf16: row 0 is s, row 8 is c = -128*s, the rest zero.
+
+So ``x @ W = s * (x @ byte) + sum(x) * c``: the int4 identity with ONE group
+spanning K.
+
+Both matmuls are ``metavoice_tpu_torch/csrc/matmul_int4_i32.cu`` (one
+template, two C entries); a CUDA tensor launches the kernel or raises, a CPU
+tensor takes the plain version (:func:`matmul_int4_i32_reference`,
+:func:`matmul_int8_i32_reference`).
 """
 
 from __future__ import annotations
@@ -213,3 +225,160 @@ def matmul_int4_i32(x, pw, sc, groupsize: int = I32_GROUPSIZE):
 
 
 matmul_int4_i32.launches = 0
+
+
+# ------------------------------------------------------------------ int8-in-int32
+
+I8_GP = 8  # sc8 holds s at row 0 and c at row I8_GP (2 * I8_GP rows in all)
+FFN_PAD = 1024  # the int8 packer pads the FFN hidden dim to a multiple of this
+_HIDDEN_IN_KEYS = ("w2", "w_proj")  # hidden dim on the contraction axis
+
+
+def quantize_int8(w: torch.Tensor):
+    """Symmetric per-output-channel int8 (reference fast_quantize.py:38-67).
+
+    w: (in, out) -> (q (in, out) int8, scales (out,) f32); w ~= q * scales.
+    """
+    w = w.float()
+    scales = torch.clamp(w.abs().amax(dim=0), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(w / scales), -128, 127)
+    return q.to(torch.int8), scales
+
+
+def pack_int8_i32(q: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 in [-128, 127] -> (K/4, N) int32, split-quarter layout."""
+    k, n = q.shape
+    if k % 4:
+        raise ValueError(f"K={k} is not a multiple of 4")
+    byte = (q.to(torch.int32) + 128).reshape(4, k // 4, n)  # slab j = rows [j*K/4, ...)
+    word = byte[0].clone()
+    for j in range(1, 4):
+        word |= byte[j] << (8 * j)  # int32 wraps for j = 3, as in the JAX package
+    return word
+
+
+def unpack_int8_i32(p8: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int8_i32`: (K/4, N) int32 -> (K, N) int8."""
+    return torch.cat([(((p8 >> (8 * j)) & 0xFF) - 128).to(torch.int8) for j in range(4)], dim=0)
+
+
+def quantize_int8_i32(w: torch.Tensor):
+    """(in, out) weights -> (p8 (Kp/4, out) int32, sc8 (16, out) bf16).
+
+    Kp is ``in`` padded to a multiple of 4 with zero rows (bias byte 128,
+    which the c term cancels for the zero activations callers pad with).
+    """
+    in_dim, out_dim = w.shape
+    kp = _round_up(in_dim, 4)
+    if kp != in_dim:
+        w = torch.cat([w, w.new_zeros((kp - in_dim, out_dim))], dim=0)
+    q, s = quantize_int8(w)
+    sc = torch.zeros((2 * I8_GP, out_dim), dtype=torch.float32, device=w.device)
+    sc[0] = s
+    sc[I8_GP] = -128.0 * s
+    return pack_int8_i32(q), sc.to(torch.bfloat16)
+
+
+def quantize_params_int8_i32(params: dict) -> dict:
+    """Param-tree quantizer for the packed-int8 serving mode.
+
+    Stacked (L, in, out) layer weights become {"p8": (L, Kp/4, out) int32,
+    "sc8": (L, 16, out) bf16}. The FFN hidden dim is zero-padded to a
+    multiple of 1024 (w1/w3 along out, w2 along in), and the pad columns'
+    ``sc8`` is zeroed so they come out exactly 0. No packed head: this mode
+    keeps the bf16 tied head. Runs on the params' device.
+    """
+    out = dict(params)
+    layers = dict(params["layers"])
+    for key in _QUANTIZABLE_LAYER_KEYS:
+        if key not in layers:
+            continue
+        w = layers[key]  # (L, in, out)
+        n_real = w.shape[2]
+        if key in _HIDDEN_OUT_KEYS and n_real % FFN_PAD:
+            pad = _round_up(n_real, FFN_PAD) - n_real
+            w = torch.cat([w, w.new_zeros((w.shape[0], w.shape[1], pad))], dim=2)
+        if key in _HIDDEN_IN_KEYS and w.shape[1] % FFN_PAD:
+            pad = _round_up(w.shape[1], FFN_PAD) - w.shape[1]
+            w = torch.cat([w, w.new_zeros((w.shape[0], pad, w.shape[2]))], dim=1)
+        packed = [quantize_int8_i32(w[li]) for li in range(w.shape[0])]
+        p8 = torch.stack([p for p, _ in packed])
+        sc8 = torch.stack([s for _, s in packed])
+        if key in _HIDDEN_OUT_KEYS:
+            col = torch.arange(sc8.shape[2], device=sc8.device) < n_real
+            sc8 = torch.where(col[None, None, :], sc8, torch.zeros_like(sc8))
+        layers[key] = {"p8": p8, "sc8": sc8}
+    out["layers"] = layers
+    return out
+
+
+def is_int8_i32(w) -> bool:
+    """True for a packed ``{"p8", "sc8"}`` leaf."""
+    return isinstance(w, dict) and "p8" in w and "sc8" in w
+
+
+def matmul_int8_i32_reference(x, p8, sc8):
+    """Plain PyTorch version of the K8 kernel: (M, K) @ packed (K, N) -> (M, N) f32.
+
+    The TPU kernel's arithmetic (``_int8_word_matmul`` in the JAX package):
+    x rounded to bf16; ``bf16(sum x) * c`` with the sum in f32, then, slab by
+    slab, the f32 product of x's slab and the raw bytes (0..255, exact in
+    bf16) times s. K must equal ``4 * p8.shape[0]`` (callers zero-pad x).
+    """
+    m, k = x.shape
+    kp = 4 * p8.shape[0]
+    if k != kp:
+        raise ValueError(f"x has K={k}, the packed weight K={kp}")
+    gp = sc8.shape[0] // 2
+    s, c = sc8[0].float(), sc8[gp].float()
+    xb = x.to(torch.bfloat16).float()
+    k4 = kp // 4
+    y = xb.sum(-1, keepdim=True).to(torch.bfloat16).float() * c
+    for j in range(4):
+        byte = ((p8 >> (8 * j)) & 0xFF).float()
+        y = y + (xb[:, j * k4 : (j + 1) * k4] @ byte) * s
+    return y
+
+
+def matmul_int8_i32(x, p8, sc8):
+    """(M, K) activations @ packed int8 (K, N) -> (M, N) f32 (K8).
+
+    x: any float dtype (rounded to bf16); p8: (K/4, N) int32; sc8:
+    (2*Gp, N) bf16 with s at row 0 and c at row Gp. A CUDA tensor launches
+    the hand-written kernel or raises; a CPU tensor takes
+    :func:`matmul_int8_i32_reference`. ``matmul_int8_i32.launches`` counts
+    kernel launches.
+    """
+    if x.dim() != 2 or p8.dim() != 2 or sc8.dim() != 2:
+        raise ValueError(f"x, p8, sc8 must be 2-D, got {x.shape}, {p8.shape}, {sc8.shape}")
+    m, k = x.shape
+    n = p8.shape[1]
+    if k != 4 * p8.shape[0] or sc8.shape[1] != n or sc8.shape[0] < 2 or sc8.shape[0] % 2:
+        raise ValueError(f"shapes x {tuple(x.shape)}, p8 {tuple(p8.shape)}, sc8 {tuple(sc8.shape)} do not fit")
+    if len({x.device, p8.device, sc8.device}) != 1:
+        raise ValueError(f"x, p8, sc8 must share one device, got {x.device}, {p8.device}, {sc8.device}")
+    if x.device.type == "cpu":
+        return matmul_int8_i32_reference(x, p8, sc8)
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul_int8_i32 runs on cuda or cpu, not {x.device}")
+    if p8.dtype != torch.int32 or sc8.dtype != torch.bfloat16:
+        raise ValueError(f"the kernel takes int32 p8 and bf16 sc8; got {p8.dtype}, {sc8.dtype}")
+    if k % 32 or n % 8:
+        raise ValueError(f"the kernel takes K a multiple of 32 and N of 8, got {k}, {n}")
+    xb = x.to(torch.bfloat16).contiguous()
+    p8, sc8 = p8.contiguous(), sc8.contiguous()
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return y
+    err = _build.kernels().lib.mv_matmul_int8_i32(
+        xb.data_ptr(), p8.data_ptr(), sc8.data_ptr(), y.data_ptr(),
+        m, k, n, sc8.shape[0] // 2,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"matmul_int8_i32 kernel launch failed: cudaError_t {err}")
+    matmul_int8_i32.launches += 1
+    return y
+
+
+matmul_int8_i32.launches = 0

@@ -17,9 +17,14 @@ without a card raises). ``quantisation_mode="int4"`` packs the first stage's
 layer weights and tied head into the int4-in-int32 serving format on the
 device: prefill projections go through the int4 matmul kernel and each
 decode step through the int4 decode-stack kernel (ops/quantized.py,
-ops/decode_stack.py). Not ported yet: the int8 weight modes, a quantized KV
-cache, tensor parallelism, speculative decoding, streaming, MBD and the DF
-enhancer.
+ops/decode_stack.py). ``quantisation_mode="int8"`` (alias "int8_packed")
+packs the layer weights into the int8-in-int32 format: prefill projections
+go through the int8 matmul kernel, each decode step through the int8
+decode-stack kernel where its conditions hold (else per layer, through the
+int8 matmul and decode-attention kernels), and the tied head stays bf16.
+Not ported yet: ``quantisation_mode="int8_plain"`` (its kernels K9-K11), a
+quantized KV cache, tensor parallelism, speculative decoding, streaming,
+MBD and the DF enhancer.
 """
 
 from __future__ import annotations
@@ -52,15 +57,31 @@ from metavoice_tpu_torch.models import transformer as tfm
 from metavoice_tpu_torch.models.enhancer import get_enhancer
 from metavoice_tpu_torch.ops.attention import decode_attention
 from metavoice_tpu_torch.ops.decode_stack import decode_stack_int4
-from metavoice_tpu_torch.ops.quantized import is_int4, matmul_int4_i32, quantize_params_int4_i32
+from metavoice_tpu_torch.ops.quantized import (
+    is_int4,
+    is_int8_i32,
+    matmul_int4_i32,
+    matmul_int8_i32,
+    quantize_params_int4_i32,
+    quantize_params_int8_i32,
+)
 from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser
 from metavoice_tpu_torch.utils import audio_io as aio
 
 MAX_CHARS_PER_CHUNK = 220  # reference truncation point (fam/llm/inference.py:537)
-_INT8_MODES = ("int8", "int8_packed", "int8_plain")
-# the kernels whose launches TTS.stats counts, by stats key
-_KERNELS = {"k1_launches": decode_attention, "k2_launches": matmul_int4_i32,
-            "k3_launches": decode_stack_int4}
+_INT8_PACKED_MODES = ("int8", "int8_packed")  # "int8_packed" is an alias of "int8"
+# the kernels whose launches TTS.stats counts, by stats key: (wrapper, its counter)
+KERNEL_COUNTERS = {
+    "k1_launches": (decode_attention, "launches"),
+    "k2_launches": (matmul_int4_i32, "launches"),
+    "k3_launches": (decode_stack_int4, "launches"),
+    "k7_launches": (decode_stack_int4, "launches_i8"),
+    "k8_launches": (matmul_int8_i32, "launches"),
+}
+
+
+def _launches() -> dict[str, int]:
+    return {k: getattr(fn, attr) for k, (fn, attr) in KERNEL_COUNTERS.items()}
 
 
 @dataclass
@@ -99,12 +120,15 @@ class TTS:
     ):
         self.runtime = runtime or RuntimeConfig(seed=seed, output_dir=output_dir)
         mode = quantisation_mode or self.runtime.quantisation_mode
-        if mode in _INT8_MODES:
+        if mode == "int8_plain":
             raise NotImplementedError(
-                f"quantisation_mode={mode!r} is not ported: it needs the int8 weight kernels (K7-K11)"
+                "quantisation_mode='int8_plain' is not ported: it needs the plain-int8 kernels "
+                "K9-K11 (decode_attention_block_int8, ffn_int8, matmul_int8)"
             )
-        if mode not in (None, "int4"):
-            raise ValueError(f"Invalid quantisation mode {mode}! Must be None or 'int4'")
+        if mode not in (None, "int4", *_INT8_PACKED_MODES):
+            raise ValueError(
+                f"Invalid quantisation mode {mode}! Must be None, 'int4' or 'int8' ('int8_packed')"
+            )
         unported = {
             "kv_cache_dtype": kv_cache_dtype or self.runtime.kv_cache_dtype,
             "tensor_parallel": tensor_parallel if tensor_parallel != 1 else None,
@@ -118,17 +142,25 @@ class TTS:
             torch.bfloat16 if self.runtime.dtype == "bfloat16" else torch.float32
         )
         self.device = resolve_device(device)
-        # "int4" arrives as the mode, or as first-stage params that already
-        # hold packed {"pw", "sc"} leaves (a JAX-written .npz, or a tree the
-        # JAX package quantized). Packing runs on the params' device; the
-        # decode-stack kernel's conditions are checked before any synthesis.
+        # A quantized mode arrives as the mode, or as first-stage params that
+        # already hold packed leaves, {"pw", "sc"} for int4 or {"p8", "sc8"}
+        # for int8 (a JAX-written .npz, or a tree the JAX package quantized).
+        # Packing runs on the params' device; the int4 decode-stack kernel's
+        # conditions are checked before any synthesis (int8 layers that miss
+        # the int8 stack's run per layer).
         params1 = components.first_stage_params
-        prequantized = any(is_int4(w) for w in params1["layers"].values())
-        self.quantisation_mode = "int4" if mode == "int4" or prequantized else None
-        if self.quantisation_mode == "int4":
-            if not prequantized:
-                params1 = quantize_params_int4_i32(params1)
-            tfm.check_int4_decode(params1, components.first_stage_cfg, self._compute_dtype)
+        found = {("int4" if is_int4(w) else "int8") for w in params1["layers"].values()
+                 if is_int4(w) or is_int8_i32(w)}
+        wanted = "int8" if mode in _INT8_PACKED_MODES else mode
+        if len(found) > 1 or (found and wanted and found != {wanted}):
+            raise ValueError(f"quantisation_mode={mode!r}, but the first stage holds {sorted(found)} leaves")
+        self.quantisation_mode = wanted or next(iter(found), None)
+        if self.quantisation_mode is not None:
+            if not found:
+                quantize = quantize_params_int4_i32 if wanted == "int4" else quantize_params_int8_i32
+                params1 = quantize(params1)
+            if self.quantisation_mode == "int4":
+                tfm.check_int4_decode(params1, components.first_stage_cfg, self._compute_dtype)
             components = dataclasses.replace(components, first_stage_params=params1)
         self.c = components
         self.output_dir = output_dir
@@ -144,7 +176,8 @@ class TTS:
         )
         # seconds per stage of the last synthesise; the first stage's decode
         # step count and the kernel launches (K1 decode attention, K2 int4
-        # matmul, K3 int4 decode stack) of the last synthesise
+        # matmul, K3 int4 decode stack, K7 int8 decode stack, K8 int8 matmul)
+        # of the last synthesise
         self.timings: dict[str, float] = {}
         self.stats: dict[str, int] = {}
 
@@ -263,7 +296,7 @@ class TTS:
         """One <=220-char chunk -> 24 kHz waveform (float32)."""
         prompt = self.c.tokenizer.encode(text)
         stats: dict = {}
-        launches = {k: fn.launches for k, fn in _KERNELS.items()}
+        launches = _launches()
         with self._stage("first_stage"):
             seq = fs.generate(
                 self.c.first_stage_params,
@@ -281,8 +314,8 @@ class TTS:
                 stats=stats,
             )
         self.stats["decode_steps"] = self.stats.get("decode_steps", 0) + stats["decode_steps"]
-        for k, fn in _KERNELS.items():
-            self.stats[k] = self.stats.get(k, 0) + fn.launches - launches[k]
+        for k, n in _launches().items():
+            self.stats[k] = self.stats.get(k, 0) + n - launches[k]
         return self._tokens_to_wav(text, prompt, seq, spk_emb)
 
     def synthesise(

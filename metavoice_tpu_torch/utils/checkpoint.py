@@ -8,7 +8,8 @@ f32 and listed in the reserved ``__bf16_keys__`` entry, narrowed back here
 does, and the stored values were bf16 to begin with).
 
 ``params_from_numpy`` turns the JAX package's parameter pytrees, as numpy
-arrays (ml_dtypes bf16 included), into the port's parameter trees: the
+arrays (ml_dtypes bf16 included) or the tensors of a ``load_npz`` tree,
+into the port's parameter trees on a device: the
 first and second stage transformers, the speaker encoder and EnCodec all use
 the same nesting of dicts and lists, with NamedTuples turned into dicts.
 """
@@ -60,6 +61,8 @@ def load_npz(path: str) -> tuple[Any, dict]:
 
 
 def _to_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a load_npz tree
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16: same bits as torch's
         return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
@@ -70,12 +73,13 @@ def params_from_numpy(tree: Any, device="cuda", dtype: torch.dtype | None = None
     """JAX-package parameter pytree (numpy leaves) -> the port's tree of
     tensors on ``device``. ``dtype``, if given, casts the float leaves, but
     not those of packed int4 ``{"pw", "sc"}`` leaves (layer weights and
-    ``lm_head_q``): their bf16 scale tables are part of the serving format."""
+    ``lm_head_q``) or packed int8 ``{"p8", "sc8"}`` ones: their bf16 scale
+    tables are part of the serving format."""
     dev = resolve_device(device)
 
     def convert(node, cast):
         if isinstance(node, dict):
-            cast = cast and not {"pw", "sc"} <= node.keys()
+            cast = cast and not ({"pw", "sc"} <= node.keys() or {"p8", "sc8"} <= node.keys())
             return {k: convert(v, cast) for k, v in node.items()}
         if hasattr(node, "_asdict"):  # NamedTuple (SpeakerEncoderParams)
             return {k: convert(v, cast) for k, v in node._asdict().items()}

@@ -141,8 +141,10 @@ def test_stack_gqa_matches_jax():
 
 
 def test_stack_refuses_int8_words():
+    """int4 words announced as int8 ones (wfmt="i8", K7) are refused: int8
+    words hold K/4 rows, these K/8 (tests/test_torch_int8.py runs K7)."""
     inp = _setup(0)
     mats = [_t(t) for k in ("wqkv", "wo", "w1", "w3", "w2") for t in inp[k]]
-    with pytest.raises(NotImplementedError, match="K7"):
+    with pytest.raises(ValueError, match="wqkv"):
         DS.decode_stack_int4(_t(inp["x"]), _t(inp["n1"]), _t(inp["n2"]), *mats,
                              _t(inp["k"]), _t(inp["v"]), 0, H, wfmt="i8")

@@ -221,6 +221,9 @@ def test_port_imports_no_jax():
         "import metavoice_tpu_torch.ops.quantized\n"
         "import metavoice_tpu_torch.ops.decode_stack\n"
         "import metavoice_tpu_torch.ops._build\n"
+        "import metavoice_tpu_torch.models.transformer\n"
+        "import metavoice_tpu_torch.models.first_stage\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metavoice_tpu')]\n"
         "assert not bad, bad\n"
     )
