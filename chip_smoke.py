@@ -58,10 +58,34 @@ Phases, one line each; any failure exits non-zero and prints no result:
  14. synth8  - full-width TTS(quantisation_mode="int8").synthesise: a finite
                wav; K7 launches == decode steps, K8 launches == 5 x n_layer x
                prefills, K1 == K2 == K3 == 0;
- 15. profile8 - phase 10 for a 64-token int8 generate.
+ 15. profile8 - phase 10 for a 64-token int8 generate;
+ 16. K4      - the multi-query decode-attention kernel against its plain
+               version at the main-path shape (L=24, S=2048, B=2, Dh=128,
+               bf16): the spec verify (H = H_kv = 16, T 4, 8, 16 at pos 0,
+               255, 1000, 2032), GQA (H 16, H_kv 2, T 1 and 8), 3 rows
+               (B 3, T 4), starts with one past pos, NaN past pos+T-1: y
+               within atol/rtol 2e-2, caches bit-identical (the T rows
+               written, every other slot unchanged); CUDA-event times per
+               layer beside the plain version, SDPA and the bound;
+ 17. small-spec - speculative decoding of a small f32 first stage and draft
+               on the card against the CPU path, same weights and injected
+               draws: same tokens and ledger; with draft == target under
+               greedy sampling every proposal accepted and the tokens those
+               of first_stage.generate;
+ 18. synth-spec - full-width TTS.synthesise with a draft: a bf16 target
+               with a dense 4L/8H/1024d draft (gamma 4), and an int4 target
+               with that draft int4-packed and CFG-free (gamma 8): a finite
+               wav, K4 launches == n_layer x rounds, the target's T=1 kernels
+               never (K1 == 4 x gamma x rounds from the dense draft, K3 ==
+               gamma x rounds from the int4 one), a coherent ledger; ms per
+               emitted token beside the ordinary synthesise of that mode;
+ 19. synth-gqa - full-width bf16 synthesise of a GQA first stage (2 kv
+               heads): K4 launches == n_layer x decode steps, K1 == 0;
+ 20. synth-g3 - full-width bf16 synthesise with guidance (3.0, 1.5) on a
+               3-row cache: K1 launches == n_layer x decode steps.
 
-Phases 5, 9 and 14 are the main paths: every kernel count is set to 0 just
-before each and read just after. The two lines before the last are the
+Phases 5, 9, 14, 18, 19 and 20 are the main paths: every kernel count is
+set to 0 just before each and read just after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
 throughout, so every comparison is f32. Imports nothing of JAX.
@@ -105,6 +129,8 @@ K8_TOL = 1e-3
 # K7 is held as K3 is: one layer at a time within K3_LAYER_TOL, the whole
 # stack within K3_TOL.
 K3_TIMED_POS = (0, 255, 1000, 2047)  # the JSON line carries pos 255
+K4_TOL = 2e-2
+K4_TIMED = ((4, 255), (8, 255), (4, 2032), (8, 2032))  # (T, pos); the JSON line carries T 4, pos 2032
 SYNTH_TEXT = "The quick brown fox jumps over the lazy dog, twice."
 # H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -300,13 +326,13 @@ def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
-def drive_main_path(tts, ref: str) -> tuple[str, float, dict]:
+def drive_main_path(tts, ref: str, **kw) -> tuple[str, float, dict]:
     """One synthesise through the user's entry point, every kernel count set
     to 0 just before and read just after -> (wav path, seconds, counts)."""
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
     t0 = time.perf_counter()
-    path = tts.synthesise(SYNTH_TEXT, ref, max_new_tokens=192)
+    path = tts.synthesise(SYNTH_TEXT, ref, max_new_tokens=192, **kw)
     seconds = time.perf_counter() - t0
     return path, seconds, read_counts()
 
@@ -354,7 +380,8 @@ def phase_synth(torch, workdir: str, ref: str) -> dict:
           f"synthesise {total_s:.2f} s ({stages} s); {steps} decode steps, "
           f"first stage {ms_tok:.2f} ms/token; {launches} K1 launches; "
           f"wav {len(wav)} samples ({len(wav) / 24000:.2f} s) finite")
-    return {"counts": counts, "ms_per_token": ms_tok, "seconds": total_s, "timings": dict(tts.timings)}
+    return {"counts": counts, "ms_per_token": ms_tok, "seconds": total_s, "timings": dict(tts.timings),
+            "tts": tts}
 
 
 def _int4_bytes(pw, sc) -> int:
@@ -1002,6 +1029,213 @@ def phase_profile(torch, tts, label: str, families: dict):
           f"{100 * total / wall_ms:.1f}% of the unprofiled wall time; {shown}")
 
 
+def _k4_inputs(torch, gen, dev, b, h, h_kv, t, pos=None, garbage=None):
+    l, s, dh = MAIN_SHAPE["l"], MAIN_SHAPE["s"], MAIN_SHAPE["dh"]
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    q, k_new, v_new = r(b, h, t, dh), r(b, h_kv, t, dh), r(b, h_kv, t, dh)
+    k_cache, v_cache = r(l, s, b, h_kv, dh), r(l, s, b, h_kv, dh)
+    if garbage is not None:
+        k_cache[:, pos + t :] = garbage
+        v_cache[:, pos + t :] = garbage
+    return q, k_new, v_new, k_cache, v_cache
+
+
+def phase_k4(torch) -> dict:
+    from metavoice_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4444)
+    layer = 7
+    b, h = MAIN_SHAPE["b"], MAIN_SHAPE["h"]
+    # (B, H_kv, T, pos, starts, garbage)
+    cases = [(b, h, t, p, None, None) for t in (4, 8, 16) for p in (0, 255, 1000, 2032)]
+    cases += [(b, 2, t, p, None, None) for t in (1, 8) for p in (255, 2032)]
+    cases += [(3, h, 4, 500, None, None), (b, h, 4, 1000, (300, 1500), None),
+              (b, h, 8, 1000, None, float("nan")), (b, 2, 8, 700, (100, 650), float("nan"))]
+    max_err = 0.0
+    for bb, h_kv, t, pos, starts, garbage in cases:
+        q, k_new, v_new, kc, vc = _k4_inputs(torch, gen, dev, bb, h, h_kv, t, pos, garbage)
+        st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+        kc_ref, vc_ref = kc.clone(), vc.clone()
+        y_ref, _, _ = A.decode_attention_multi_reference(q, k_new, v_new, kc_ref, vc_ref, layer, pos, st)
+        y, _, _ = A.decode_attention_multi(q, k_new, v_new, kc, vc, layer, pos, st)
+        torch.cuda.synchronize()
+        what = f"B {bb}, H_kv {h_kv}, T {t}, pos {pos}, starts {starts}, garbage {garbage}"
+        if not torch.isfinite(y).all():
+            fail(f"K4 output not finite at {what}")
+        if not (torch.equal(kc.view(torch.int16), kc_ref.view(torch.int16))
+                and torch.equal(vc.view(torch.int16), vc_ref.view(torch.int16))):
+            fail(f"K4 caches differ from the plain version at {what}")
+        if not torch.equal(kc[layer, pos : pos + t].view(torch.int16),
+                           k_new.permute(2, 0, 1, 3).contiguous().view(torch.int16)):
+            fail(f"K4 did not write the new rows at {what}")
+        max_err = max(max_err, (y.float() - y_ref.float()).abs().max().item())
+        try:
+            torch.testing.assert_close(y.float(), y_ref.float(), atol=K4_TOL, rtol=K4_TOL)
+        except AssertionError as e:
+            fail(f"K4 disagrees with the plain version at {what}: {e}")
+        del q, k_new, v_new, kc, vc, kc_ref, vc_ref
+
+    n_layer = MAIN_SHAPE["l"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times, shown = {}, []
+    for h_kv, t, pos in [(h, t, p) for t, p in K4_TIMED] + [(2, 1, 2032)]:
+        q, k_new, v_new, kc, vc = _k4_inputs(torch, gen, dev, b, h, h_kv, t)
+        n = pos + t
+        y_ref, _, _ = A.decode_attention_multi_reference(q, k_new, v_new, kc, vc, 0, pos)  # rows into layer 0
+        # the library yardstick: SDPA on each layer's window, pre-transposed
+        # to (B, H_kv, pos+T, Dh), under the causal-offset mask
+        mask = torch.arange(n, device=dev)[None, :] <= pos + torch.arange(t, device=dev)[:, None]
+        kt = [kc[li, :n].permute(1, 2, 0, 3).contiguous() for li in range(n_layer)]
+        vt = [vc[li, :n].permute(1, 2, 0, 3).contiguous() for li in range(n_layer)]
+        gqa = dict(enable_gqa=True) if h_kv != h else {}
+        y_lib = sdpa(q, kt[0], vt[0], attn_mask=mask, **gqa)
+        if (y_lib.float() - y_ref.float()).abs().max().item() > K4_TOL * (1 + y_ref.float().abs().max().item()):
+            fail(f"SDPA disagrees with K4's plain version at H_kv {h_kv}, T {t}, pos {pos}")
+        library, _ = _layers_ms(torch, lambda li: sdpa(q, kt[li], vt[li], attn_mask=mask, **gqa), n_layer)
+        del kt, vt
+        kernel = _layers_ms(torch, lambda li: A.decode_attention_multi(q, k_new, v_new, kc, vc, li, pos), n_layer)
+        plain, _ = _layers_ms(
+            torch, lambda li: A.decode_attention_multi_reference(q, k_new, v_new, kc, vc, li, pos), n_layer)
+        rows = 2 * t * b * h_kv * 128 * 2  # the T new K and V rows, bf16
+        n_bytes = 2 * n * b * h_kv * 128 * 2 + rows + 2 * q.numel() * 2  # window, rows, q and y
+        bound_ms, bound_by = bound(n_bytes, 4.0 * b * h * t * n * 128, BF16_FLOP_S)
+        times[(h_kv, t, pos)] = (kernel[0], plain, library, bound_ms, bound_by)
+        shown.append(f"H_kv {h_kv} T {t} pos {pos}: kernel {kernel[0]:.4f} ms ({n_bytes / kernel[0] / 1e6:.0f} "
+                     f"GB/s; {kernel[1]:.4f} a call from Python), plain {plain:.4f}, SDPA {library:.4f}, "
+                     f"bound {bound_ms:.4f} ({bound_by})")
+        del q, k_new, v_new, kc, vc
+    print(f"[16 K4] {len(cases)} cases at L 24, S 2048, Dh 128 bf16 agree (max |dy| {max_err:.3g}, tol "
+          f"{K4_TOL}; caches bit-identical, new rows written); per layer, device time from a CUDA graph: "
+          f"{'; '.join(shown)}")
+    ms, plain, library, bound_ms, bound_by = times[(h, 4, 2032)]
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library}
+
+
+def phase_small_spec(torch):
+    """Speculative decoding on the card vs the CPU path, same weights and draws."""
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import spec_decode as sd
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    cfg = first_stage_config(n_layer=2, n_head=4, dim=512, block_size=512)
+    dcfg = first_stage_config(n_layer=1, n_head=2, dim=256, block_size=512)
+    gen = torch.Generator().manual_seed(17)
+    params = tfm.init_params(cfg, device="cpu", generator=gen, dtype=torch.float32)
+    draft = tfm.init_params(dcfg, device="cpu", generator=gen, dtype=torch.float32)
+    spk = torch.randn(256, generator=gen).numpy()
+    prompt = list(range(2100, 2140))
+    gamma, n = 4, 48
+    draws = sd.SpecDraws.sample(n, gamma, cfg.vocab_size, generator=gen)
+    kw = dict(gamma=gamma, max_new_tokens=n, compute_dtype=torch.float32, return_stats=True, draws=draws)
+    runs = {}
+    for name, (p, d) in (("cpu", (params, draft)), ("cuda", (to_cuda(params), to_cuda(draft)))):
+        for fn, attr in counters().values():
+            setattr(fn, attr, 0)
+        runs[name] = (*sd.generate_spec(p, cfg, d, dcfg, prompt, spk, **kw), read_counts())
+    (tok_cpu, st_cpu, _), (tok_gpu, st_gpu, counts) = runs["cpu"], runs["cuda"]
+    if not (tok_cpu.shape == tok_gpu.shape and (tok_cpu == tok_gpu).all() and st_cpu == st_gpu):
+        fail(f"speculative decoding on the card differs from the CPU path: {tok_gpu} {st_gpu} vs "
+             f"{tok_cpu} {st_cpu}")
+    want = dict.fromkeys(counts, 0)
+    want.update({"k4_launches": cfg.n_layer * st_gpu["rounds"],
+                 "k1_launches": dcfg.n_layer * gamma * st_gpu["rounds"]})
+    if counts != want:
+        fail(f"the small speculative run launched {counts}, expected {want}")
+    greedy = dict(temperature=1e-6, top_p=1.0, max_new_tokens=n, compute_dtype=torch.float32)
+    gp = to_cuda(params)
+    ref = fs.generate(gp, cfg, prompt, spk, **greedy)
+    tok, st = sd.generate_spec(gp, cfg, gp, cfg, prompt, spk, gamma=gamma, return_stats=True, **greedy)
+    if not (st["accepted"] == st["proposed"] and tok.shape == ref.shape and (tok == ref).all()):
+        fail(f"greedy self-draft speculation on the card: {st}, tokens equal "
+             f"{tok.shape == ref.shape and (tok == ref).all()}")
+    print(f"[17 small-spec] target 2L/4H/512d, draft 1L/2H/256d (f32), gamma {gamma}, injected draws: "
+          f"the card == the CPU path, {len(tok_gpu) - len(prompt)} tokens, ledger {st_gpu}, launches "
+          f"{({k: v for k, v in counts.items() if v})}; greedy self-draft: {st} (all accepted), "
+          f"{len(tok) - len(prompt)} tokens == first_stage.generate's")
+
+
+def _spec_ledger_ok(st: dict, gamma: int) -> bool:
+    return (st["rounds"] >= 1 and st["proposed"] == gamma * st["rounds"] and 0 <= st["accepted"] <= st["proposed"]
+            and st["rounds"] <= st["emitted"] <= gamma * st["rounds"])
+
+
+def phase_synth_spec(torch, workdir: str, ref: str, comps: dict, ordinary: dict) -> dict:
+    """Full-width synthesise with a draft, bf16 and int4 -> {mode: result}."""
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.core.text import chunk_text, normalize_text
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+    from metavoice_tpu_torch.runtime.tts import MAX_CHARS_PER_CHUNK, TTS
+
+    dcfg = first_stage_config(n_layer=4, n_head=8, dim=1024)  # scripts/make_bench_draft.py's default shape
+    dgen = torch.Generator(device="cuda").manual_seed(18)
+    draft = tfm.init_params(dcfg, device="cuda", generator=dgen, dtype=torch.bfloat16)
+    prefills = len(chunk_text(normalize_text(SYNTH_TEXT), MAX_CHARS_PER_CHUNK) or [""])
+    results, shown = {}, []
+    for mode, gamma, use_cfg in ((None, 4, True), ("int4", 8, False)):
+        dparams = draft if mode is None else Q.quantize_params_int4_i32(draft)
+        tts = TTS(comps[mode], device="cuda", output_dir=os.path.join(workdir, f"out_spec_{mode}"),
+                  quantisation_mode=mode, draft_params=dparams, draft_cfg=dcfg,
+                  speculative_gamma=gamma, draft_use_cfg=use_cfg, enforce_min_ref_duration=False)
+        n_layer = tts.c.first_stage_cfg.n_layer
+        path, total_s, counts = drive_main_path(tts, ref)
+        st = tts.spec_stats
+        rounds = st["rounds"]
+        want = dict.fromkeys(counts, 0)
+        want["k4_launches"] = n_layer * rounds
+        if mode is None:
+            want["k1_launches"] = dcfg.n_layer * gamma * rounds
+        else:
+            want["k3_launches"] = gamma * rounds
+            want["k2_launches"] = 5 * n_layer * (prefills + rounds) + 5 * dcfg.n_layer * prefills
+        if rounds == 0 or counts != want or tts.stats["spec_rounds"] != rounds:
+            fail(f"{mode or 'bf16'} speculative synthesise launched {counts} in {rounds} rounds, expected {want}")
+        if not _spec_ledger_ok(st, gamma):
+            fail(f"{mode or 'bf16'} speculative ledger incoherent: {st}")
+        check_stats(tts, counts)
+        wav = check_wav(path)
+        ms_tok = 1e3 * tts.timings["first_stage"] / (st["emitted"] + 1)
+        name = mode or "bf16"
+        results[name] = {"counts": counts, "ms_per_token": ms_tok, "stats": dict(st)}
+        shown.append(f"{name} target + {'int4 CFG-free' if mode else 'dense bf16'} draft, gamma {gamma}: "
+                     f"synthesise {total_s:.2f} s, {st['emitted'] + 1} tokens in {rounds} rounds "
+                     f"({st['emitted'] / rounds:.2f} a round), acceptance {st['accepted'] / st['proposed']:.3f}, "
+                     f"first stage {ms_tok:.2f} ms per emitted token (ordinary {name} "
+                     f"{ordinary[name]:.2f} ms/token in this call); launches "
+                     f"{({k: v for k, v in counts.items() if v})}; wav {len(wav)} samples finite")
+        del tts
+        torch.cuda.empty_cache()
+    print(f"[18 synth-spec] draft 4L/8H/1024d on random weights (acceptance is not a speed claim): "
+          f"{'; '.join(shown)}")
+    return results
+
+
+def phase_synth_route(torch, workdir: str, ref: str, label: str, tts, kernel: str, **kw) -> dict:
+    """A full-width bf16 synthesise whose decode steps each launch ``kernel``
+    once a layer, and no other kernel."""
+    cfg1 = tts.c.first_stage_cfg
+    path, total_s, counts = drive_main_path(tts, ref, **kw)
+    steps = tts.stats["decode_steps"]
+    want = dict.fromkeys(counts, 0)
+    want[kernel] = cfg1.n_layer * steps
+    if steps == 0 or counts != want:
+        fail(f"[{label}] launched {counts} in {steps} decode steps, expected {want}")
+    check_stats(tts, counts)
+    wav = check_wav(path)
+    ms_tok = 1e3 * tts.timings["first_stage"] / max(steps, 1)
+    rows = tts._persistent_kv_cache(kw.get("guidance_scale", 3.0)).batch_size
+    print(f"[{label}] {cfg1.n_layer}L/{cfg1.n_head}H ({cfg1.n_local_heads} kv heads)/{cfg1.dim}d bf16, "
+          f"{kw or 'guidance 3.0'}, {rows} cache rows: synthesise {total_s:.2f} s; {steps} decode steps, "
+          f"first stage {ms_tok:.2f} ms/token; {counts[kernel]} {kernel}; wav {len(wav)} samples finite")
+    return {"counts": counts, "ms_per_token": ms_tok}
+
+
 def main() -> int:
     import torch
 
@@ -1010,12 +1244,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from metavoice_tpu_torch.runtime.tts import TTS
+
     phase_build()
     k1 = phase_k1(torch)
     phase_small(torch)
     with tempfile.TemporaryDirectory() as workdir:
         ref = write_ref(workdir)
         bf16 = phase_synth(torch, workdir, ref)
+        comps = {None: bf16.pop("tts").c}
         torch.cuda.empty_cache()
         k2 = phase_k2(torch)
         k3 = phase_k3(torch)
@@ -1024,6 +1261,7 @@ def main() -> int:
         int4 = phase_synth_quantized(torch, workdir, ref, "int4", "9 synth4",
                                      ("k3_launches", "k2_launches"),
                                      {"bf16 phase 5": bf16["ms_per_token"]})
+        comps["int4"] = int4["tts"].c
         phase_profile(torch, int4.pop("tts"), "10 profile4", {
             "K3 gemv_partial": "gemv_partial", "K3 gemv_reduce": "gemv_reduce",
             "K3 attention split+combine": "decode_attn_", "K3 rmsnorm_rows": "rmsnorm_rows",
@@ -1041,6 +1279,22 @@ def main() -> int:
             "K7 gemv_partial": "gemv_partial", "K7 gemv_reduce": "gemv_reduce",
             "K7 attention split+combine": "decode_attn_", "K7 rmsnorm_rows": "rmsnorm_rows",
             "K8 matmul_int8_i32": "matmul_i32_kernel"})
+        torch.cuda.empty_cache()
+        k4 = phase_k4(torch)
+        torch.cuda.empty_cache()
+        phase_small_spec(torch)
+        spec = phase_synth_spec(torch, workdir, ref, comps, {
+            "bf16": bf16["ms_per_token"], "int4": int4["ms_per_token"]})
+        del comps
+        torch.cuda.empty_cache()
+        gqa = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, "out_gqa"),
+                              first_stage_overrides={"n_local_heads": 2})
+        phase_synth_route(torch, workdir, ref, "19 synth-gqa", gqa, "k4_launches")
+        del gqa
+        torch.cuda.empty_cache()
+        g3 = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, "out_g3"))
+        phase_synth_route(torch, workdir, ref, "20 synth-g3", g3, "k1_launches", guidance_scale=(3.0, 1.5))
+        del g3
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each kernel's launches are those of the main path that runs it
     record = {"kernels": [
@@ -1057,6 +1311,8 @@ def main() -> int:
              "metavoice_tpu/ops/quantized.py:1098", k8),
             ("decode_stack_int4[i8]", "k7_launches", int8, "decode_stack_int4.cu",
              'metavoice_tpu/ops/decode_stack.py:688 (wfmt="i8")', k7),
+            ("decode_attention_multi", "k4_launches", spec["bf16"], "decode_attention_multi.cu",
+             "metavoice_tpu/ops/attention.py:545", k4),
         )
     ]}
     print(json.dumps(record))

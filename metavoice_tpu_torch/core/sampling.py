@@ -3,7 +3,8 @@
 Port of metavoice_tpu/core/sampling.py with the same semantics (reference
 fam/llm/fast_inference_utils.py): temperature floor 1e-5, top-k keeps ties
 with the k-th value, the sort-free top-p with its tie rule, CFG
-``g * cond + (1 - g) * uncond``. Sampling is Gumbel-max, as
+``g * cond + (1 - g) * uncond`` and its 3-row (speaker, prompt) form.
+Sampling is Gumbel-max, as
 ``jax.random.categorical`` is: ``argmax(logits + G)`` with standard Gumbel
 noise G, drawn from an explicit ``torch.Generator``. Tests inject the noise
 (``noise=``) so both packages see the same draws.
@@ -61,6 +62,30 @@ def cfg_merge(logits: torch.Tensor, guidance_scale: float) -> torch.Tensor:
     return g * cond + (1.0 - g) * uncond
 
 
+def cfg_merge3(logits: torch.Tensor, spkemb_guidance_scale: float, prompt_guidance_scale: float) -> torch.Tensor:
+    """(3B, V) [cond; speaker-uncond; prompt-uncond] -> (B, V):
+    ``base * cond + (1 - g_spk) * uncond_spk + (1 - g_prompt) * uncond_prompt``
+    with ``base = g_spk + g_prompt - 1`` (reference fam/llm/mixins/causal.py:89-105)."""
+    cond, uncond_spk, uncond_prompt = torch.chunk(logits, 3, dim=0)
+    g_s = torch.as_tensor(spkemb_guidance_scale, dtype=logits.dtype, device=logits.device)
+    g_p = torch.as_tensor(prompt_guidance_scale, dtype=logits.dtype, device=logits.device)
+    base = g_s + g_p - 1.0
+    return base * cond + (1.0 - g_s) * uncond_spk + (1.0 - g_p) * uncond_prompt
+
+
+def logits_to_probs(
+    logits: torch.Tensor, temperature: float = 1.0, top_p: float | None = None, top_k: int | None = None
+) -> torch.Tensor:
+    """Temperature -> top-k -> top-p -> softmax in f32: the distribution that
+    ``sample_from_logits`` draws from."""
+    logits = apply_temperature(logits, temperature)
+    if top_k is not None:
+        logits = top_k_mask(logits, top_k)
+    if top_p is not None:
+        logits = top_p_mask(logits, top_p)
+    return torch.softmax(logits.float(), dim=-1)
+
+
 def gumbel_noise(shape, *, device, generator: torch.Generator | None = None) -> torch.Tensor:
     """Standard Gumbel noise, -log(E) with E ~ Exp(1), in f32."""
     e = torch.empty(shape, dtype=torch.float32, device=device).exponential_(generator=generator)
@@ -103,6 +128,24 @@ def sample_cfg(
 ) -> torch.Tensor:
     """CFG merge then sample. ``logits``: (2B, V) -> (B,) int64 tokens."""
     merged = cfg_merge(logits, guidance_scale)
+    return sample_from_logits(
+        merged, temperature, top_p, top_k, generator=generator, noise=noise
+    )
+
+
+def sample_cfg3(
+    logits: torch.Tensor,
+    spkemb_guidance_scale: float,
+    prompt_guidance_scale: float,
+    temperature: float = 1.0,
+    top_p: float | None = None,
+    top_k: int | None = None,
+    *,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Double-CFG merge then sample. ``logits``: (3B, V) -> (B,) int64 tokens."""
+    merged = cfg_merge3(logits, spkemb_guidance_scale, prompt_guidance_scale)
     return sample_from_logits(
         merged, temperature, top_p, top_k, generator=generator, noise=noise
     )

@@ -11,7 +11,11 @@ are the JAX package's pytree as plain dicts of tensors:
 Unlike the JAX package, which threads the cache functionally, the cache is
 updated IN PLACE: prefill writes its window of rows, and a T=1 decode step
 writes its row inside the decode-attention kernel
-(ops/attention.py:decode_attention, a hand-written CUDA kernel on the card).
+(ops/attention.py:decode_attention, a hand-written CUDA kernel on the card;
+a GQA model's step goes to the multi-query kernel at T = 1). A cached
+forward of 1 < T <= 16 tokens (the speculative verify) writes its rows and
+attends inside the multi-query kernel (ops/attention.py:
+decode_attention_multi), on every device: its plain version on the CPU.
 Norms run in f32 and round to the compute dtype before the weight multiply;
 attention scores and softmax are f32; the output heads accumulate in f32.
 
@@ -42,7 +46,7 @@ import torch.nn.functional as F
 
 from metavoice_tpu_torch.core.config import TransformerConfig
 from metavoice_tpu_torch.core.device import resolve_device
-from metavoice_tpu_torch.ops.attention import decode_attention
+from metavoice_tpu_torch.ops.attention import MULTI_MAX_T, decode_attention, decode_attention_multi
 from metavoice_tpu_torch.ops.decode_stack import HEAD_DIM, MAX_BATCH, decode_stack_int4
 from metavoice_tpu_torch.ops.quantized import is_int4, is_int8_i32, matmul_int4_i32, matmul_int8_i32
 
@@ -397,10 +401,15 @@ def apply_blocks(
     """Run the L-layer block stack and the final norm -> (x, kv_cache).
 
     * no cache: full attention under ``mask`` (None = non-causal);
-    * cache, T > 1 (prefill): write rows [cache_pos, cache_pos+T) of every
+    * cache, T > 16 (prefill): write rows [cache_pos, cache_pos+T) of every
       layer in place, attend over the whole cache layer under ``mask``;
+    * cache, 1 < T <= 16 (the speculative verify): ``decode_attention_multi``
+      writes the rows and query t attends [attn_starts, cache_pos + t], the
+      causal window every cached caller asks for; ``mask`` is not used.
+      Packed int4/int8 projections run through their matmul kernels;
     * cache, T = 1 (decode): ``decode_attention`` writes the row and attends
-      over the window [attn_starts, cache_pos]; ``mask`` is not used. With
+      over the window [attn_starts, cache_pos] (GQA: through
+      ``decode_attention_multi``); ``mask`` is not used. With
       int4 layer weights the whole step is the decode-stack kernel instead
       (raises NotImplementedError when its conditions fail); with int8 ones
       too, where ``int8_stack_ok`` holds.
@@ -435,6 +444,12 @@ def apply_blocks(
                 starts=attn_starts,
             )
             y = y3.reshape(x.shape[0], 1, cfg.n_head * cfg.head_dim).to(x.dtype)
+        elif t <= MULTI_MAX_T:
+            y4, _, _ = decode_attention_multi(
+                q.contiguous(), k_new.contiguous(), v_new.contiguous(), kv_cache.k, kv_cache.v,
+                li, cache_pos, starts=attn_starts,
+            )
+            y = y4.transpose(1, 2).reshape(x.shape[0], t, cfg.n_head * cfg.head_dim).to(x.dtype)
         else:
             rows = slice(cache_pos, cache_pos + t)
             kv_cache.k[li, rows] = k_new.permute(2, 0, 1, 3).to(kv_cache.k.dtype)

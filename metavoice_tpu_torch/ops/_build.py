@@ -38,6 +38,7 @@ _SIGNATURES = {
         _I,
         [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
+    "mv_decode_attention_multi": (_I, [_I] + [_P] * 6 + [_I] * 10 + [_P] * 4),
     "mv_matmul_int4_i32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "mv_matmul_int8_i32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "mv_decode_stack_int4": (_I, [_P] * 22 + [_I] * 11 + [_F, _I, _I] + [_P] * 8),

@@ -6,7 +6,11 @@ Port of the default path of metavoice_tpu/runtime/tts.py:
 
   1. speaker encoder (models/speaker_encoder), cached per reference file;
   2. first-stage LLM (models/first_stage): prefill + decode loop, whose
-     T=1 attention is the hand-written CUDA kernel on the card;
+     T=1 attention is the hand-written CUDA kernel on the card (a GQA first
+     stage's, ``from_random(first_stage_overrides={"n_local_heads": 2})``,
+     the multi-query kernel's); or, with a draft model, speculative decoding
+     (models/spec_decode), whose T=gamma verify attends through the
+     multi-query kernel;
   3. token split (core/tokens.split_flattened_interleaved);
   4. second-stage non-causal completion (models/second_stage);
   5. EnCodec decoder (models/encodec), then the spectral-gate enhancer and a
@@ -22,9 +26,20 @@ packs the layer weights into the int8-in-int32 format: prefill projections
 go through the int8 matmul kernel, each decode step through the int8
 decode-stack kernel where its conditions hold (else per layer, through the
 int8 matmul and decode-attention kernels), and the tied head stays bf16.
+``guidance_scale=(speaker, prompt)`` with a prompt scale above 1 is the
+reference's double guidance on 3 cache rows.
+
+Speculative decoding: ``TTS(components, draft_params=..., draft_cfg=...,
+speculative_gamma=4, draft_use_cfg=True)``. The draft shares the token
+space, lives on the same device, and is dense or int4-packed
+(``ops/quantized.quantize_params_int4_i32``; its T=1 steps then run
+through the int4 decode-stack kernel). ``spec_stats`` accumulates the
+acceptance ledger. As in the JAX package the speculative path refuses
+tensor parallelism and keeps bf16 caches.
+
 Not ported yet: ``quantisation_mode="int8_plain"`` (its kernels K9-K11), a
-quantized KV cache, tensor parallelism, speculative decoding, streaming,
-MBD and the DF enhancer.
+quantized KV cache, tensor parallelism, a draft checkpoint loader,
+streaming, MBD and the DF enhancer.
 """
 
 from __future__ import annotations
@@ -52,10 +67,11 @@ from metavoice_tpu_torch.core.text import chunk_text, normalize_text
 from metavoice_tpu_torch.models import encodec as ec
 from metavoice_tpu_torch.models import first_stage as fs
 from metavoice_tpu_torch.models import second_stage as ss
+from metavoice_tpu_torch.models import spec_decode as sd
 from metavoice_tpu_torch.models import speaker_encoder as se
 from metavoice_tpu_torch.models import transformer as tfm
 from metavoice_tpu_torch.models.enhancer import get_enhancer
-from metavoice_tpu_torch.ops.attention import decode_attention
+from metavoice_tpu_torch.ops.attention import decode_attention, decode_attention_multi
 from metavoice_tpu_torch.ops.decode_stack import decode_stack_int4
 from metavoice_tpu_torch.ops.quantized import (
     is_int4,
@@ -75,6 +91,7 @@ KERNEL_COUNTERS = {
     "k1_launches": (decode_attention, "launches"),
     "k2_launches": (matmul_int4_i32, "launches"),
     "k3_launches": (decode_stack_int4, "launches"),
+    "k4_launches": (decode_attention_multi, "launches"),
     "k7_launches": (decode_stack_int4, "launches_i8"),
     "k8_launches": (matmul_int8_i32, "launches"),
 }
@@ -117,8 +134,14 @@ class TTS:
         tensor_parallel: int = 1,
         draft_params=None,
         draft_cfg=None,
+        speculative_gamma: int = 4,
+        draft_use_cfg: bool = True,
     ):
         self.runtime = runtime or RuntimeConfig(seed=seed, output_dir=output_dir)
+        if draft_params is not None and draft_cfg is None:
+            raise ValueError("draft_params requires draft_cfg")
+        if draft_params is not None and tensor_parallel > 1:
+            raise ValueError("speculative decoding is not supported with tensor_parallel")
         mode = quantisation_mode or self.runtime.quantisation_mode
         if mode == "int8_plain":
             raise NotImplementedError(
@@ -132,8 +155,6 @@ class TTS:
         unported = {
             "kv_cache_dtype": kv_cache_dtype or self.runtime.kv_cache_dtype,
             "tensor_parallel": tensor_parallel if tensor_parallel != 1 else None,
-            "draft_params": draft_params,
-            "draft_cfg": draft_cfg,
         }
         asked = [k for k, v in unported.items() if v is not None]
         if asked:
@@ -163,35 +184,65 @@ class TTS:
                 tfm.check_int4_decode(params1, components.first_stage_cfg, self._compute_dtype)
             components = dataclasses.replace(components, first_stage_params=params1)
         self.c = components
+        # speculative decoding (models/spec_decode.py): the draft proposes
+        # `speculative_gamma` tokens a round and the first stage verifies
+        # them in one T=gamma forward; B=1, bf16 caches. An int4 draft
+        # decodes through the decode-stack kernel, whose conditions are
+        # checked here.
+        if draft_params is not None and any(is_int4(w) for w in draft_params["layers"].values()):
+            tfm.check_int4_decode(draft_params, draft_cfg, self._compute_dtype)
+        self._draft_params = draft_params
+        self._draft_cfg = draft_cfg
+        self._spec_gamma = int(speculative_gamma)
+        self._draft_use_cfg = bool(draft_use_cfg)
+        # cumulative acceptance ledger: accepted/proposed is the draft
+        # acceptance rate, emitted/rounds the tokens a target forward yields
+        self.spec_stats = {"accepted": 0, "proposed": 0, "rounds": 0, "emitted": 0}
         self.output_dir = output_dir
         os.makedirs(output_dir, exist_ok=True)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._emb_cache: "collections.OrderedDict[str, np.ndarray]" = collections.OrderedDict()
         self._emb_cache_max = 256
         self._enforce_min_ref = enforce_min_ref_duration
-        # persistent KV cache for the CFG pair, reused across calls
-        cfg1 = self.c.first_stage_cfg
-        self._kv_cache = tfm.KVCache.create(
-            cfg1, 2, cfg1.block_size, dtype=self._compute_dtype, device=self.device
-        )
+        # persistent KV caches, reused across calls: the CFG pair's, and a
+        # 3-row one for (speaker, prompt) guidance made at its first use
+        self._kv_cache = self._create_kv_cache(2)
+        self._kv_cache3: tfm.KVCache | None = None
         # seconds per stage of the last synthesise; the first stage's decode
-        # step count and the kernel launches (K1 decode attention, K2 int4
-        # matmul, K3 int4 decode stack, K7 int8 decode stack, K8 int8 matmul)
-        # of the last synthesise
+        # step count (speculative rounds with a draft) and the kernel
+        # launches (K1 decode attention, K2 int4 matmul, K3 int4 decode
+        # stack, K4 multi-query decode attention, K7 int8 decode stack, K8
+        # int8 matmul) of the last synthesise
         self.timings: dict[str, float] = {}
         self.stats: dict[str, int] = {}
 
+    def _create_kv_cache(self, rows: int) -> tfm.KVCache:
+        cfg1 = self.c.first_stage_cfg
+        return tfm.KVCache.create(cfg1, rows, cfg1.block_size, dtype=self._compute_dtype, device=self.device)
+
+    def _persistent_kv_cache(self, guidance_scale) -> tfm.KVCache:
+        """The reusable cache with the guidance rows this request needs."""
+        if fs._normalize_guidance(guidance_scale)[2] == 2:
+            return self._kv_cache
+        if self._kv_cache3 is None:
+            self._kv_cache3 = self._create_kv_cache(3)
+        return self._kv_cache3
+
     @classmethod
-    def from_random(cls, *, small: bool = False, device="cuda", seed: int = 0, **kwargs) -> "TTS":
+    def from_random(cls, *, small: bool = False, device="cuda", seed: int = 0,
+                    first_stage_overrides: dict | None = None, **kwargs) -> "TTS":
         """Random-weight instance for development and smoke runs.
 
         ``small=False`` is the full-width model: first stage 24L/16H/2048d,
         the default second stage and EnCodec, the speaker encoder. Weights
         are drawn on ``device`` from a generator seeded with ``seed``.
+        ``first_stage_overrides``: more first_stage_config keywords (e.g.
+        ``{"n_local_heads": 2}`` for a GQA first stage).
         """
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        cfg1 = first_stage_config(n_layer=2, n_head=4, dim=128, block_size=512) if small else first_stage_config()
+        fs_kw = dict(n_layer=2, n_head=4, dim=128, block_size=512) if small else {}
+        cfg1 = first_stage_config(**(fs_kw | dict(first_stage_overrides or {})))
         cfg2 = second_stage_config(n_layer=2, n_head=2, dim=64, block_size=256) if small else second_stage_config()
         ecfg = ec.EncodecConfig(n_filters=8, dimension=32) if small else ec.EncodecConfig()
         comps = TTSComponents(
@@ -289,31 +340,43 @@ class TTS:
         text: str,
         spk_emb: np.ndarray,
         top_p: float,
-        guidance_scale: float,
+        guidance_scale: float | tuple[float, float],
         temperature: float,
         max_new_tokens: int | None = None,
     ) -> np.ndarray:
         """One <=220-char chunk -> 24 kHz waveform (float32)."""
         prompt = self.c.tokenizer.encode(text)
-        stats: dict = {}
+        stats = {"decode_steps": 0}
         launches = _launches()
+        common = dict(
+            generator=self._gen,
+            temperature=temperature,
+            top_p=top_p,
+            guidance_scale=guidance_scale,
+            max_new_tokens=max_new_tokens,
+            end_of_text_token=self.c.tokenizer.eot_token,
+            prompt_pad_multiple=self.runtime.prompt_pad_multiple,
+            kv_cache=self._persistent_kv_cache(guidance_scale),
+            compute_dtype=self._compute_dtype,
+        )
         with self._stage("first_stage"):
-            seq = fs.generate(
-                self.c.first_stage_params,
-                self.c.first_stage_cfg,
-                prompt,
-                spk_emb,
-                generator=self._gen,
-                temperature=temperature,
-                top_p=top_p,
-                guidance_scale=guidance_scale,
-                max_new_tokens=max_new_tokens,
-                prompt_pad_multiple=self.runtime.prompt_pad_multiple,
-                kv_cache=self._kv_cache,
-                compute_dtype=self._compute_dtype,
-                stats=stats,
-            )
-        self.stats["decode_steps"] = self.stats.get("decode_steps", 0) + stats["decode_steps"]
+            if self._draft_params is not None:
+                seq, spec = sd.generate_spec(
+                    self.c.first_stage_params, self.c.first_stage_cfg,
+                    self._draft_params, self._draft_cfg, prompt, spk_emb,
+                    gamma=self._spec_gamma, draft_use_cfg=self._draft_use_cfg,
+                    return_stats=True, **common,
+                )
+                for k, n in spec.items():
+                    self.spec_stats[k] += n
+                stats["spec_rounds"] = spec["rounds"]
+            else:
+                seq = fs.generate(
+                    self.c.first_stage_params, self.c.first_stage_cfg, prompt, spk_emb,
+                    stats=stats, **common,
+                )
+        for k, n in stats.items():
+            self.stats[k] = self.stats.get(k, 0) + n
         for k, n in _launches().items():
             self.stats[k] = self.stats.get(k, 0) + n - launches[k]
         return self._tokens_to_wav(text, prompt, seq, spk_emb)
@@ -323,14 +386,15 @@ class TTS:
         text: str,
         spk_ref_path: str,
         top_p: float = 0.95,
-        guidance_scale: float = 3.0,
+        guidance_scale: float | tuple[float, float] = 3.0,
         temperature: float = 1.0,
         max_new_tokens: int | None = None,
     ) -> str:
         """Synthesise ``text`` in the voice of ``spk_ref_path``; returns the
-        path to a loudness-normalized 24 kHz wav. ``max_new_tokens`` caps the
-        first stage per chunk (None: to end-of-audio or the context limit).
-        ``timings`` and ``stats`` describe this call afterwards."""
+        path to a loudness-normalized 24 kHz wav. ``guidance_scale`` is the
+        speaker CFG scale or a (speaker, prompt) tuple. ``max_new_tokens``
+        caps the first stage per chunk (None: to end-of-audio or the context
+        limit). ``timings`` and ``stats`` describe this call afterwards."""
         start = time.time()
         self.timings, self.stats = {}, {}
         text = normalize_text(text)

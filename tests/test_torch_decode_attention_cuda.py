@@ -71,9 +71,13 @@ def test_kernel_matches_plain_version(cuda, dtype, dh, pos, starts, garbage):
 
 @pytest.mark.cuda
 def test_kernel_rejects_gqa_and_wrong_dtype(cuda):
+    """GQA whose kv heads do not divide the query heads, or whose caches do
+    not match k_new, is refused (a well-formed GQA call goes to K4)."""
     q, k_new, v_new, k_cache, v_cache = _inputs(cuda, torch.bfloat16, 1, 64, 1, 4, 64)
     with pytest.raises(ValueError):
-        A.decode_attention(q, k_new[:, :2], v_new[:, :2], k_cache[:, :, :, :2].contiguous(),
-                           v_cache[:, :, :, :2].contiguous(), 0, 3)
+        A.decode_attention(q, k_new[:, :3], v_new[:, :3], k_cache[:, :, :, :3].contiguous(),
+                           v_cache[:, :, :, :3].contiguous(), 0, 3)
+    with pytest.raises(ValueError):
+        A.decode_attention(q, k_new[:, :2], v_new[:, :2], k_cache, v_cache, 0, 3)
     with pytest.raises(ValueError):
         A.decode_attention(q.float(), k_new, v_new, k_cache, v_cache, 0, 3)

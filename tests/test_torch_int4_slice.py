@@ -81,7 +81,7 @@ def prefilled(model, inputs):
                                 compute_dtype=jnp.bfloat16)
     kv = tfm.KVCache.create(cfg, 2, cfg.block_size, dtype=torch.bfloat16, device="cpu")
     logits, kv = tfm.forward(params, cfg, torch.from_numpy(idx).long(), spk_emb=torch.from_numpy(spk2),
-                             spk_cond_mask=fs.make_spk_cond_mask(1), kv_cache=kv, cache_pos=0,
+                             spk_cond_mask=fs.make_spk_cond_mask(1, device="cpu"), kv_cache=kv, cache_pos=0,
                              compute_dtype=torch.bfloat16)
     return np.asarray(jlogits[0]), jkv, logits[0].numpy(), kv
 
@@ -113,7 +113,7 @@ def test_decode_steps_match_jax_stack_kernel(model, inputs, prefilled):
             interpret=True,
         )
         x = tfm.embed_inputs(params, cfg, torch.from_numpy(idx), torch.tensor([pos]),
-                             torch.from_numpy(spk2), fs.make_spk_cond_mask(1), torch.bfloat16)
+                             torch.from_numpy(spk2), fs.make_spk_cond_mask(1, device="cpu"), torch.bfloat16)
         logits, kv, head_done = tfm.apply_blocks(params, cfg, x, None, kv, pos, fused_head=True)
         assert head_done and logits.shape == (2, cfg.vocab_size)
         _max_close(logits.numpy(), np.asarray(jlg)[:, : cfg.vocab_size])

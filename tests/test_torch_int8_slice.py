@@ -87,7 +87,7 @@ def _prefill(model, inputs):
                                 compute_dtype=jnp.bfloat16)
     kv = tfm.KVCache.create(cfg, 2, cfg.block_size, dtype=torch.bfloat16, device="cpu")
     logits, kv = tfm.forward(params, cfg, torch.from_numpy(idx).long(), spk_emb=torch.from_numpy(spk2),
-                             spk_cond_mask=fs.make_spk_cond_mask(1), kv_cache=kv, cache_pos=0,
+                             spk_cond_mask=fs.make_spk_cond_mask(1, device="cpu"), kv_cache=kv, cache_pos=0,
                              compute_dtype=torch.bfloat16)
     return np.asarray(jlogits[0]), jkv, logits[0].numpy(), kv
 
@@ -125,7 +125,7 @@ def test_decode_steps_match_jax_stack_kernel(model, prefilled):
         jh = jtfm._norm(jxo[:, None, :], jq["ln_f_w"], None, jcfg.norm_type, jcfg.norm_eps)
         jlg = jtfm.output_logits(jq, jcfg, jh)[0][:, 0, :]
         x = tfm.embed_inputs(params, cfg, torch.from_numpy(idx), torch.tensor([pos]),
-                             torch.from_numpy(spk2), fs.make_spk_cond_mask(1), torch.bfloat16)
+                             torch.from_numpy(spk2), fs.make_spk_cond_mask(1, device="cpu"), torch.bfloat16)
         out, kv, head_done = tfm.apply_blocks(params, cfg, x, None, kv, pos, fused_head=True)
         assert not head_done and out.shape == (2, 1, cfg.dim)  # the int8 mode keeps the bf16 head
         logits = tfm.output_logits(params, cfg, out)[0][:, 0, :]
@@ -191,7 +191,7 @@ def test_narrow_int8_model_runs_per_layer_like_jax():
     _, t_true, spk2, steps = inputs
     jlogits, jkv, logits, kv = _prefill(narrow, inputs)
     _max_close(logits[:, :t_true], jlogits[:, :t_true], NARROW_TOL)
-    mask, jmask = fs.make_spk_cond_mask(1), jfs.make_spk_cond_mask(1)
+    mask, jmask = fs.make_spk_cond_mask(1, device="cpu"), jfs.make_spk_cond_mask(1)
     for i, tok in enumerate(steps):
         pos = t_true + i
         idx = np.full((2, 1), tok, np.int64)

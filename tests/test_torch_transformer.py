@@ -79,7 +79,7 @@ def test_prefill_and_cached_decode_steps_match_jax():
     spk = np.repeat(rng.normal(size=(1, cfg.speaker_emb_dim)).astype(np.float32), 2, axis=0)
     idx = np.repeat(prompt, 2, axis=0)  # the CFG pair
     jmask = jfs.make_spk_cond_mask(1)
-    mask = fs.make_spk_cond_mask(1)
+    mask = fs.make_spk_cond_mask(1, device="cpu")
     jkv = jtfm.KVCache.create(jcfg, 2, jcfg.block_size, dtype=jnp.float32)
     kv = tfm.KVCache.create(cfg, 2, cfg.block_size, dtype=torch.float32, device="cpu")
     ref, jkv = jtfm.forward(jp, jcfg, jnp.asarray(idx), spk_emb=jnp.asarray(spk), spk_cond_mask=jmask,

@@ -84,24 +84,34 @@ def ref_wav(tmp_path_factory):
     return path
 
 
-def _jax_first_stage(params, cfg, prompt, spk, noise, temperature):
-    """Prefill + T=1 cached steps with the JAX package's forward and sampling."""
+def _jax_first_stage(params, cfg, prompt, spk, noise, temperature, guidance=GUIDANCE, eot=0,
+                     n_tokens=N_TOKENS):
+    """Prefill + T=1 cached steps with the JAX package's forward and sampling;
+    a (speaker, prompt) ``guidance`` tuple runs the 3-row batch, whose third
+    group sees its text tokens replaced by ``eot``."""
     padded, t_true = jfs.pad_to_bucket(prompt, 128, max_len=cfg.block_size)
-    kv = jtfm.KVCache.create(cfg, 2, cfg.block_size, dtype=jnp.float32)
-    spk2 = jnp.repeat(jnp.asarray(spk).reshape(1, -1), 2, axis=0)
-    mask = jfs.make_spk_cond_mask(1)
+    spk_g, prompt_g, rows = jfs._normalize_guidance(guidance)
+    kv = jtfm.KVCache.create(cfg, rows, cfg.block_size, dtype=jnp.float32)
+    spk2 = jnp.repeat(jnp.asarray(spk).reshape(1, -1), rows, axis=0)
+    mask = jfs.make_spk_cond_mask(1, rows)
+
+    def batch(tokens):
+        tokens = jnp.asarray(tokens)[None]
+        groups = [tokens, tokens, jfs._uncond_prompt_rows(tokens, eot)]
+        return jnp.concatenate(groups[:rows], axis=0)
 
     def sample(logits, i):
-        merged = JS.top_p_mask(JS.apply_temperature(JS.cfg_merge(logits, GUIDANCE), temperature), TOP_P)
+        merged = JS.cfg_merge3(logits, spk_g, prompt_g) if rows == 3 else JS.cfg_merge(logits, spk_g)
+        merged = JS.top_p_mask(JS.apply_temperature(merged, temperature), TOP_P)
         return int(jnp.argmax(merged + jnp.asarray(noise[i]), axis=-1)[0])
 
-    logits, kv = jtfm.forward(params, cfg, jnp.asarray(np.stack([padded] * 2)), spk_emb=spk2,
+    logits, kv = jtfm.forward(params, cfg, batch(padded), spk_emb=spk2,
                               spk_cond_mask=mask, kv_cache=kv, cache_pos=0, compute_dtype=jnp.float32)
     out = [sample(logits[0][:, t_true - 1], 0)]
-    for i in range(1, N_TOKENS):
+    for i in range(1, n_tokens):
         if out[-1] == JT.END_OF_AUDIO_TOKEN:
             break
-        logits, kv = jtfm.forward(params, cfg, jnp.full((2, 1), out[-1], jnp.int32), spk_emb=spk2,
+        logits, kv = jtfm.forward(params, cfg, batch(np.array([out[-1]], np.int32)), spk_emb=spk2,
                                   spk_cond_mask=mask, kv_cache=kv, cache_pos=t_true + i - 1,
                                   compute_dtype=jnp.float32)
         out.append(sample(logits[0][:, 0], i))
@@ -128,25 +138,27 @@ def _jax_tokens_to_wav(jtts, prompt, tokens, spk, noise):
     return c.enhancer(wav[: n_audio * c.encodec_cfg.hop_length], c.encodec_cfg.sample_rate)
 
 
-def _run_first_stage(pair, ref_wav, temperature=TEMPERATURE, noise_scale=NOISE_SCALE, eoa_at=None):
+def _run_first_stage(pair, ref_wav, temperature=TEMPERATURE, noise_scale=NOISE_SCALE, eoa_at=None,
+                     guidance=GUIDANCE, n_tokens=N_TOKENS):
     """Port and JAX first stage on the same noise; ``eoa_at`` makes the noise
     force the end-of-audio token at that sampled token."""
     jtts, tts = pair
     spk = jtts._get_speaker_embedding(ref_wav)
     prompt = tts.c.tokenizer.encode(TEXT)
     assert prompt == jtts.c.tokenizer.encode(TEXT)
-    noise = np.random.default_rng(1).gumbel(size=(N_TOKENS, 1, 2562)) * noise_scale
+    noise = np.random.default_rng(1).gumbel(size=(n_tokens, 1, 2562)) * noise_scale
     noise = noise.astype(np.float32)
     if eoa_at is not None:
         noise[eoa_at, 0, JT.END_OF_AUDIO_TOKEN] = 1e4
     stats = {}
+    eot = tts.c.tokenizer.eot_token
     ours = fs.generate(
         tts.c.first_stage_params, tts.c.first_stage_cfg, prompt, spk,
-        temperature=temperature, top_p=TOP_P, guidance_scale=GUIDANCE, max_new_tokens=N_TOKENS,
-        compute_dtype=torch.float32, noise=torch.from_numpy(noise), stats=stats,
+        temperature=temperature, top_p=TOP_P, guidance_scale=guidance, max_new_tokens=n_tokens,
+        end_of_text_token=eot, compute_dtype=torch.float32, noise=torch.from_numpy(noise), stats=stats,
     )
     ref = _jax_first_stage(jtts.c.first_stage_params, jtts.c.first_stage_cfg, prompt, spk, noise,
-                           temperature)
+                           temperature, guidance, eot, n_tokens)
     return spk, prompt, ours, ref, stats
 
 
@@ -178,6 +190,14 @@ def test_end_of_audio_latch_matches_jax_loop(pair, ref_wav):
     assert 5 <= stats["decode_steps"] < 5 + fs.DONE_CHECK_EVERY
 
 
+def test_prompt_guidance_tokens_match_jax_loop(pair, ref_wav):
+    """(speaker, prompt) guidance: the 3-row batch, its third group's text
+    replaced by end-of-text, the double-CFG merge, on the same noise."""
+    _, prompt, ours, ref, _ = _run_first_stage(pair, ref_wav, guidance=(2.0, 1.5), n_tokens=12)
+    assert max(prompt) > JT.END_OF_AUDIO_TOKEN  # the third group's text is replaced
+    np.testing.assert_array_equal(ours, ref)
+
+
 def test_second_stage_vocoder_enhancer_match_jax(pair, first_stage_run):
     jtts, tts = pair
     spk, prompt, tokens, _, _ = first_stage_run
@@ -199,15 +219,34 @@ def test_port_synthesise_writes_wav(pair, ref_wav):
     assert 0 < tts.stats["decode_steps"] <= 23
 
 
+def test_port_synthesise_with_draft_and_prompt_guidance(pair, ref_wav, tmp_path):
+    """A draft (speculative decoding) and a (speaker, prompt) guidance tuple
+    through the user's entry point, on the CPU."""
+    _, tts = pair
+    spec = TTS(tts.c, device="cpu", output_dir=str(tmp_path), runtime=RuntimeConfig(dtype="float32"),
+               enforce_min_ref_duration=False, draft_params=tts.c.first_stage_params,
+               draft_cfg=tts.c.first_stage_cfg, speculative_gamma=3, seed=1)
+    wav, sr = aio.read_wav(spec.synthesise(TEXT, ref_wav, max_new_tokens=16, guidance_scale=(2.0, 1.5)))
+    assert sr == 24000 and len(wav) > 0 and np.isfinite(wav).all()
+    st = spec.spec_stats
+    assert st["rounds"] >= 2 and st["proposed"] == 3 * st["rounds"] and st["accepted"] <= st["proposed"]
+    assert spec.stats["spec_rounds"] >= 1 and spec.stats["decode_steps"] == 0
+    assert spec._kv_cache3 is not None and spec._kv_cache3.batch_size == 3
+
+
 def test_unported_options_and_missing_card_raise(pair):
     _, tts = pair
     for kw in ({"quantisation_mode": "int4"}, {"kv_cache_dtype": "int8"},
-               {"tensor_parallel": 2}, {"draft_params": {}}):
+               {"tensor_parallel": 2}, {"quantisation_mode": "int8_plain"}):
         with pytest.raises(NotImplementedError):
             TTS(tts.c, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        fs.generate(tts.c.first_stage_params, tts.c.first_stage_cfg, [2100], np.zeros(256),
-                    guidance_scale=(3.0, 2.0))
+    # a draft is ported: it needs its config, and refuses tensor parallelism as in JAX
+    draft = dict(draft_params=tts.c.first_stage_params, draft_cfg=tts.c.first_stage_cfg)
+    TTS(tts.c, device="cpu", **draft)
+    with pytest.raises(ValueError, match="draft_cfg"):
+        TTS(tts.c, device="cpu", draft_params=tts.c.first_stage_params)
+    with pytest.raises(ValueError, match="tensor_parallel"):
+        TTS(tts.c, device="cpu", tensor_parallel=2, **draft)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             TTS(tts.c)  # the default device is cuda: no silent CPU fallback
@@ -223,6 +262,7 @@ def test_port_imports_no_jax():
         "import metavoice_tpu_torch.ops._build\n"
         "import metavoice_tpu_torch.models.transformer\n"
         "import metavoice_tpu_torch.models.first_stage\n"
+        "import metavoice_tpu_torch.models.spec_decode\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metavoice_tpu')]\n"
         "assert not bad, bad\n"
