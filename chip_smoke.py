@@ -82,9 +82,29 @@ Phases, one line each; any failure exits non-zero and prints no result:
  19. synth-gqa - full-width bf16 synthesise of a GQA first stage (2 kv
                heads): K4 launches == n_layer x decode steps, K1 == 0;
  20. synth-g3 - full-width bf16 synthesise with guidance (3.0, 1.5) on a
-               3-row cache: K1 launches == n_layer x decode steps.
+               3-row cache: K1 launches == n_layer x decode steps;
+ 21. K5      - the int4 attention-block kernel against its plain version at
+               the main-path shape (24 stacked layers, D 2048, 16 heads, B 2,
+               S 2048) for a bf16, an int8 and a packed cache, MHA and GQA (2
+               kv heads), at pos 0, 77, 255, 2047, plus starts and NaN past
+               pos in the bf16 cache: y within 2e-2 of max |y|, every cache
+               byte and scale but the new row's unchanged, the new row within
+               one int8 step (scales 1e-6 relative; bf16: one ulp); CUDA-event
+               times per layer beside the plain version and the bound;
+ 22. K6      - the int4 FFN kernel against its plain version at the main-path
+               shape (FFN packed to 6144): within 1e-2 of max |y|; times;
+ 23. small-kv8 - a 2-layer 1024-wide int4 first stage on an int8 and a packed
+               KV cache, on the card (K5/K6) and on the CPU (plain versions)
+               under the same Gumbel draws: the same tokens, or, at the first
+               step where they part, the CPU's top two scores closer than the
+               largest score gap between the two (a rounding flip, printed);
+ 24. synth-kv8 - full-width TTS(quantisation_mode="int4", kv_cache_dtype=
+               "int8" and "int8_packed").synthesise: a finite wav; K5 and K6
+               launches == n_layer x decode steps, K2 == 5 x n_layer x
+               prefills, K1 == K3 == K4 == K7 == K8 == 0; ms per token beside
+               phase 9's and the cache bytes of each format.
 
-Phases 5, 9, 14, 18, 19 and 20 are the main paths: every kernel count is
+Phases 5, 9, 14, 18, 19, 20 and 24 are the main paths: every kernel count is
 set to 0 just before each and read just after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
@@ -131,6 +151,14 @@ K8_TOL = 1e-3
 K3_TIMED_POS = (0, 255, 1000, 2047)  # the JSON line carries pos 255
 K4_TOL = 2e-2
 K4_TIMED = ((4, 255), (8, 255), (4, 2032), (8, 2032))  # (T, pos); the JSON line carries T 4, pos 2032
+# K5: the plain version takes the same roundings, but its softmax uses the
+# window's maximum where the kernel's runs online per split, so the bf16
+# roundings of the value weights (int8 caches) and the f32 sums land apart
+K5_TOL = 2e-2
+K5_POS = (0, 77, 255, 2047)
+K5_TIMED = (255, 2047)  # the JSON line carries the int8 cache at pos 255
+K6_TOL = 1e-2
+KV_FORMATS = ("bf16", "int8", "int8_packed")
 SYNTH_TEXT = "The quick brown fox jumps over the lazy dog, twice."
 # H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -1236,6 +1264,337 @@ def phase_synth_route(torch, workdir: str, ref: str, label: str, tts, kernel: st
     return {"counts": counts, "ms_per_token": ms_tok}
 
 
+def _kv_cache(torch, cfg, fmt: str, gen, dev, b: int, pos: int = 0, garbage=None):
+    """A filled (L, S, B, H_kv, 128) cache of ``fmt`` at the config's shape:
+    random bf16 values, or random int8 values (words) with scales in
+    [0.005, 0.03) and zero padding columns. ``garbage`` fills a bf16 cache
+    past ``pos``."""
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    kv = tfm.KVCache.create(cfg, b, cfg.block_size, dtype=torch.bfloat16 if fmt == "bf16" else fmt, device=dev)
+    if fmt == "bf16":
+        for t in (kv.k, kv.v):
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+            if garbage is not None:
+                t[:, pos + 1 :] = garbage
+        return kv
+    lo, hi = (-127, 128) if fmt == "int8" else (-(2**31), 2**31)
+    for t in (kv.k, kv.v):
+        t.copy_(torch.randint(lo, hi, t.shape, generator=gen, device=dev, dtype=t.dtype))
+    bkv = b * cfg.n_local_heads
+    for t in (kv.k_scale, kv.v_scale):
+        t[..., :bkv] = 0.005 + 0.025 * torch.rand(t[..., :bkv].shape, generator=gen, device=dev)
+    return kv
+
+
+def _k5_args(qp):
+    lay = qp["layers"]
+    return lay["wqkv"]["pw"], lay["wqkv"]["sc"], lay["wo"]["pw"], lay["wo"]["sc"]
+
+
+def _new_slots(torch, kv, layer: int, pos: int, bkv: int):
+    """Boolean masks of the cache tensors' elements a K5 call at (layer,
+    pos) may change: the new row (its word row, packed), its scales."""
+    masks = []
+    for t in (kv.k, kv.v, kv.k_scale, kv.v_scale):
+        m = torch.zeros(t.shape, dtype=torch.bool, device=t.device) if t is not None else None
+        masks.append(m)
+    row = pos // 4 if kv.packed else pos
+    for m in masks[:2]:
+        m[layer, row] = True
+    if kv.quantized:
+        for m in masks[2:]:
+            if kv.packed:
+                m[layer, pos % 4, pos // 4, 0, :bkv] = True
+            else:
+                m[layer, pos, 0, :bkv] = True
+    return masks
+
+
+def k5_case(torch, qp, cfg, fmt: str, pos: int, gen, *, starts=None, garbage=None, layer: int = 5) -> float:
+    """One K5 call against its plain version on copies of the same cache:
+    y within K5_TOL of max |y|; nothing but the new row and its scales
+    changed; the new row within one int8 step (its scales 1e-6 relative) or,
+    bf16, one ulp plus 1e-4 of its largest value -> max |dy| / max |y|.
+    Raises AssertionError on a disagreement."""
+    from metavoice_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    b, h_kv = MAIN_SHAPE["b"], cfg.n_local_heads
+    kv = _kv_cache(torch, cfg, fmt, gen, dev, b, pos, garbage)
+    ref = type(kv)(*[None if t is None else t.clone() for t in (kv.k, kv.v, kv.k_scale, kv.v_scale)])
+    orig = type(kv)(*[None if t is None else t.clone() for t in (kv.k, kv.v, kv.k_scale, kv.v_scale)])
+    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    kw = dict(n_kv_head=h_kv, starts=st)
+    y_ref = A.decode_attention_block_int4_reference(x, *_k5_args(qp), ref.k, ref.v, layer, pos, cfg.n_head,
+                                                    k_scale=ref.k_scale, v_scale=ref.v_scale, **kw)[0].float()
+    y = A.decode_attention_block_int4(x, *_k5_args(qp), kv.k, kv.v, layer, pos, cfg.n_head,
+                                      k_scale=kv.k_scale, v_scale=kv.v_scale, **kw)[0].float()
+    torch.cuda.synchronize()
+    what = f"{fmt} cache, n_kv_head {h_kv}, pos {pos}, starts {starts}, garbage {garbage}"
+    assert y.shape == (b, cfg.dim) and torch.isfinite(y).all(), f"K5 output bad at {what}"
+    rel = (y - y_ref).abs().max().item() / y_ref.abs().max().item()
+    assert rel <= K5_TOL, f"K5 disagrees with the plain version at {what}: {rel:.3g} of max |y|"
+    bkv = b * h_kv
+    masks = _new_slots(torch, kv, layer, pos, bkv)
+    for got, want, before, m in zip((kv.k, kv.v, kv.k_scale, kv.v_scale), (ref.k, ref.v, ref.k_scale, ref.v_scale),
+                                    (orig.k, orig.v, orig.k_scale, orig.v_scale), masks):
+        if got is None:
+            continue
+        bits = (lambda t: t.view(torch.int16)) if got.dtype == torch.bfloat16 else (lambda t: t)
+        for other in (want, before):
+            assert torch.equal(bits(got)[~m], bits(other)[~m]), f"K5 changed cache elements besides the new row at {what}"
+    if kv.packed:  # the new row's word row: its other three bytes kept
+        keep = A._packed_byte_mask(pos)
+        for got, want, before in ((kv.k, ref.k, orig.k), (kv.v, ref.v, orig.v)):
+            for other in (want, before):
+                assert not ((got[layer, pos // 4] ^ other[layer, pos // 4]) & keep).any(), \
+                    f"K5 changed the neighbours of the new row's byte at {what}"
+    if fmt == "bf16":
+        for got, want in ((kv.k, ref.k), (kv.v, ref.v)):
+            row, ref_row = got[layer, pos].float(), want[layer, pos].float()
+            excess = ((row - ref_row).abs() - ref_row.abs() * 2.0**-7).max().item()
+            assert excess <= 1e-4 * ref_row.abs().max().item(), f"K5's new bf16 row is more than one ulp off at {what}"
+        return rel
+    for got, want in ((kv.k, ref.k), (kv.v, ref.v)):
+        row, ref_row = got[layer, pos // 4 if kv.packed else pos], want[layer, pos // 4 if kv.packed else pos]
+        if kv.packed:
+            sh = 8 * (pos % 4)
+            row, ref_row = (row >> sh).to(torch.int8), (ref_row >> sh).to(torch.int8)
+        step = (row.int() - ref_row.int()).abs().max().item()
+        assert step <= 1, f"K5's new int8 row is {step} steps off at {what}"
+    for got, want in ((kv.k_scale, ref.k_scale), (kv.v_scale, ref.v_scale)):
+        idx = (layer, pos % 4, pos // 4, 0) if kv.packed else (layer, pos, 0)
+        s, s_ref = got[idx][:bkv], want[idx][:bkv]
+        assert (s_ref > 0).all() and ((s - s_ref).abs() <= 1e-6 * s_ref).all(), f"K5's new scales differ at {what}"
+    return rel
+
+
+def _k5_bound(qp, cfg, fmt: str, pos: int, b: int) -> tuple[float, str]:
+    """K5's least time at (fmt, pos): one layer's packed wqkv/wo and scales,
+    the window's values and scales, x, y and the new row; its products."""
+    lay = qp["layers"]
+    h_kv, dh, d = cfg.n_local_heads, cfg.head_dim, cfg.dim
+    w_bytes = sum(_int4_bytes(lay[k]["pw"][0], lay[k]["sc"][0]) for k in ("wqkv", "wo"))
+    elem = 2 if fmt == "bf16" else 1
+    row = b * h_kv * dh * elem + (0 if fmt == "bf16" else b * h_kv * 4)  # one slot of K or V, its scales
+    n_bytes = w_bytes + 2 * (pos + 1) * row + 2 * row + 2 * b * d * 2
+    qout = lay["wqkv"]["pw"].shape[-1]
+    n_flop = 2.0 * b * d * (qout + d) + 4.0 * b * cfg.n_head * (pos + 1) * dh
+    return bound(n_bytes, n_flop, BF16_FLOP_S)
+
+
+def phase_k5(torch) -> dict:
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    b = MAIN_SHAPE["b"]
+    models = {h_kv: (first_stage_config(n_local_heads=h_kv),) for h_kv in (16, 2)}
+    models = {h: (cfg, _random_int4_model(torch, cfg, 50 + h, dev)) for h, (cfg,) in models.items()}
+    gen = torch.Generator(device=dev).manual_seed(55)
+    cases = [(fmt, h, p, None, None) for fmt in KV_FORMATS for h in (16, 2) for p in K5_POS]
+    cases += [("int8", 16, 1000, (300, 700), None), ("bf16", 16, 1000, None, float("nan"))]
+    worst = 0.0
+    for fmt, h_kv, pos, starts, garbage in cases:
+        cfg, qp = models[h_kv]
+        try:
+            worst = max(worst, k5_case(torch, qp, cfg, fmt, pos, gen, starts=starts, garbage=garbage))
+        except AssertionError as e:
+            fail(str(e))
+        torch.cuda.empty_cache()
+    cfg, qp = models[16]
+    del models[2]
+    times, shown = {}, []
+    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    for fmt in KV_FORMATS:
+        kv = _kv_cache(torch, cfg, fmt, gen, dev, b)
+        for pos in K5_TIMED:
+            def run(fn):
+                return lambda li: fn(x, *_k5_args(qp), kv.k, kv.v, li, pos, cfg.n_head,
+                                     k_scale=kv.k_scale, v_scale=kv.v_scale)
+            kernel, eager = _layers_ms(torch, run(A.decode_attention_block_int4), cfg.n_layer)
+            plain, _ = _layers_ms(torch, run(A.decode_attention_block_int4_reference), cfg.n_layer)
+            bound_ms, bound_by = _k5_bound(qp, cfg, fmt, pos, b)
+            times[(fmt, pos)] = (kernel, plain, bound_ms, bound_by)
+            shown.append(f"{fmt} pos {pos}: kernel {kernel:.4f} ms ({eager:.4f} a call from Python), plain "
+                         f"{plain:.4f}, bound {bound_ms:.4f} ({bound_by})")
+        del kv
+        torch.cuda.empty_cache()
+    print(f"[21 K5] {len(cases)} cases at 24L/16H/2048d, B {b}, S 2048 (bf16, int8, packed caches; MHA and "
+          f"GQA 2 kv heads; starts; NaN past pos) agree: y within {worst:.3g} of max |y| (tol {K5_TOL}), only "
+          f"the new row and its scales written, within one int8 step / 1e-6 / one bf16 ulp; per layer, device "
+          f"time from a CUDA graph: {'; '.join(shown)}")
+    kernel, plain, bound_ms, bound_by = times[("int8", 255)]
+    return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "times": times}
+
+
+def _k6_args(qp):
+    lay = qp["layers"]
+    return [t for k in ("w1", "w3", "w2") for t in (lay[k]["pw"], lay[k]["sc"])]
+
+
+def k6_case(torch, qp, layer: int, x) -> float:
+    """K6 against its plain version on one layer -> max |dy| / max |y|;
+    raises AssertionError past K6_TOL."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    y = Q.decode_ffn_int4(x, *_k6_args(qp), layer)
+    torch.cuda.synchronize()
+    ref = Q.decode_ffn_int4_reference(x, *_k6_args(qp), layer)
+    assert y.shape == ref.shape and y.dtype == torch.float32 and torch.isfinite(y).all(), f"K6 output bad at layer {layer}"
+    rel = (y - ref).abs().max().item() / ref.abs().max().item()
+    assert rel <= K6_TOL, f"K6 disagrees with the plain version at layer {layer}: {rel:.3g} of max |y|"
+    return rel
+
+
+def phase_k6(torch) -> dict:
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    b = MAIN_SHAPE["b"]
+    cfg = first_stage_config()
+    qp = _random_int4_model(torch, cfg, 66, dev)
+    gen = torch.Generator(device=dev).manual_seed(66)
+    worst = 0.0
+    for layer in (0, 11, 23):
+        x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+        try:
+            worst = max(worst, k6_case(torch, qp, layer, x))
+        except AssertionError as e:
+            fail(str(e))
+    kernel, eager = _layers_ms(torch, lambda li: Q.decode_ffn_int4(x, *_k6_args(qp), li), cfg.n_layer)
+    plain, _ = _layers_ms(torch, lambda li: Q.decode_ffn_int4_reference(x, *_k6_args(qp), li), cfg.n_layer)
+    lay = qp["layers"]
+    ip = lay["w1"]["pw"].shape[-1]
+    n_bytes = sum(_int4_bytes(lay[k]["pw"][0], lay[k]["sc"][0]) for k in ("w1", "w3", "w2"))
+    n_bytes += b * cfg.dim * 2 + b * cfg.dim * 4  # x in, y out
+    bound_ms, bound_by = bound(n_bytes, 2.0 * b * 3 * cfg.dim * ip, BF16_FLOP_S)
+    print(f"[22 K6] 3 layers at D {cfg.dim}, Ip {ip}, B {b} agree (within {worst:.3g} of max |y|, tol {K6_TOL}); "
+          f"per layer, device time from a CUDA graph: kernel {kernel:.4f} ms ({eager:.4f} a call from Python, "
+          f"{n_bytes / kernel / 1e6:.0f} GB/s), plain {plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{n_bytes / 1e6:.1f} MB)")
+    return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def _guided_scores(torch, params, cfg, prompt, spk, tokens, noise, dev, fmt: str):
+    """The sampler's scores (CFG-merged logits + Gumbel noise, temperature 1,
+    no top-p) for the token after ``tokens``, with ``tokens`` forced."""
+    from metavoice_tpu_torch.core import sampling as S
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    kv = tfm.KVCache.create(cfg, 2, cfg.block_size, dtype=fmt, device=dev)
+    padded, t_true = fs.pad_to_bucket(prompt, 128, max_len=cfg.block_size)
+    spk1 = spk.reshape(1, -1).to(dev)
+    x = fs.fill_cache(params, cfg, torch.as_tensor(padded, dtype=torch.int64, device=dev)[None], spk1, kv)
+    logits = tfm.output_logits(params, cfg, x[:, t_true - 1 : t_true])[0][:, 0, :]
+    mask = fs.make_spk_cond_mask(1, device=dev)
+    for i, tok in enumerate(tokens):
+        x = tfm.embed_inputs(params, cfg, torch.full((2, 1), int(tok), device=dev),
+                             torch.tensor([t_true + i], device=dev), spk1.repeat(2, 1), mask)
+        out, kv, _ = tfm.apply_blocks(params, cfg, x, None, kv, t_true + i, fused_head=True)
+        logits = tfm.output_logits(params, cfg, out)[0][:, 0, :]
+    return (S.cfg_merge(logits.float(), 3.0) + noise[len(tokens)].to(dev)).cpu()[0]
+
+
+def phase_small_kv8(torch):
+    """An int4 first stage on a quantized cache, card (K5/K6) vs CPU (plain)."""
+    from metavoice_tpu_torch.core import sampling as S
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    cfg = first_stage_config(n_layer=2, n_head=8, dim=1024, intermediate_size=2048, block_size=512)
+    gen = torch.Generator().manual_seed(23)
+    cpu = Q.quantize_params_int4_i32(tfm.init_params(cfg, device="cpu", generator=gen, dtype=torch.bfloat16))
+    gpu = to_cuda(cpu)
+    prompt = torch.randint(0, cfg.vocab_size, (40,), generator=gen).tolist()
+    spk = torch.randn(256, generator=gen)
+    n = 48
+    noise = S.gumbel_noise((n, 1, cfg.vocab_size), device="cpu", generator=gen)
+    shown = []
+    for fmt in ("int8", "int8_packed"):
+        toks = {}
+        for name, params in (("cpu", cpu), ("cuda", gpu)):
+            for fn, attr in counters().values():
+                setattr(fn, attr, 0)
+            stats = {}
+            kw = dict(noise=noise.to(name), max_new_tokens=n, top_p=1.0, cache_dtype=fmt, stats=stats)
+            toks[name] = fs.generate(params, cfg, prompt, spk.numpy(), **kw)[len(prompt):]
+            counts = read_counts()
+            want = dict.fromkeys(counts, 0)
+            if name == "cuda":
+                want.update(k2_launches=5 * cfg.n_layer, k5_launches=cfg.n_layer * stats["decode_steps"],
+                            k6_launches=cfg.n_layer * stats["decode_steps"])
+            if counts != want:
+                fail(f"small-kv8 {fmt} on {name} launched {counts}, expected {want}")
+        a, c = toks["cpu"], toks["cuda"]
+        same = next((i for i, (u, v) in enumerate(zip(a, c)) if u != v), None)
+        if same is None and len(a) == len(c):
+            shown.append(f"{fmt}: {len(a)} tokens identical")
+            continue
+        i = same if same is not None else min(len(a), len(c))
+        if i == min(len(a), len(c)):
+            fail(f"small-kv8 {fmt}: one run ended (EOA) before the other: {len(c)} vs {len(a)} tokens")
+        scores = {name: _guided_scores(torch, p, cfg, prompt, spk, a[:i], noise, torch.device(name), fmt)
+                  for name, p in (("cpu", cpu), ("cuda", gpu))}
+        top2 = torch.topk(scores["cpu"], 2)
+        margin = (top2.values[0] - top2.values[1]).item()
+        gap = (scores["cuda"] - scores["cpu"]).abs().max().item()
+        if {int(a[i]), int(c[i])} != set(top2.indices.tolist()) or margin > 2 * gap:
+            fail(f"small-kv8 {fmt}: tokens part at step {i} ({a[i]} on the CPU, {c[i]} on the card), and that is "
+                 f"no rounding flip: the CPU's top two {top2.indices.tolist()} are {margin:.4g} apart, the "
+                 f"largest score gap between the two runs is {gap:.4g}")
+        shown.append(f"{fmt}: the first {i} of {len(a)} tokens identical; step {i} is a rounding flip between "
+                     f"tokens {a[i]} and {c[i]}, the CPU's top two, {margin:.4g} apart against a largest score "
+                     f"gap of {gap:.4g} between the card and the CPU")
+    print(f"[23 small-kv8] int4 first stage (2L/8H/1024d, Ip 2048) on quantized KV caches, the card (K5/K6) vs "
+          f"the CPU (plain versions), same Gumbel draws: {'; '.join(shown)}")
+
+
+def phase_synth_kv8(torch, workdir: str, ref: str, comps4, compared: dict) -> dict:
+    """Full-width int4 synthesise on an int8 and a packed KV cache -> {fmt: result}."""
+    from metavoice_tpu_torch.core.text import chunk_text, normalize_text
+    from metavoice_tpu_torch.runtime.tts import MAX_CHARS_PER_CHUNK, TTS
+
+    prefills = len(chunk_text(normalize_text(SYNTH_TEXT), MAX_CHARS_PER_CHUNK) or [""])
+    cfg1 = comps4.first_stage_cfg
+    bf16_bytes = 2 * cfg1.n_layer * cfg1.block_size * 2 * cfg1.n_local_heads * cfg1.head_dim * 2
+    results, shown = {}, []
+    for fmt in ("int8", "int8_packed"):
+        tts = TTS(comps4, device="cuda", output_dir=os.path.join(workdir, f"out_kv_{fmt}"), kv_cache_dtype=fmt,
+                  enforce_min_ref_duration=False)
+        path, total_s, counts = drive_main_path(tts, ref)
+        steps = tts.stats["decode_steps"]
+        want = dict.fromkeys(counts, 0)
+        want.update(k5_launches=cfg1.n_layer * steps, k6_launches=cfg1.n_layer * steps,
+                    k2_launches=5 * cfg1.n_layer * prefills)
+        if steps == 0 or counts != want:
+            fail(f"int4 synthesise on a {fmt} cache launched {counts}, expected {want}")
+        check_stats(tts, counts)
+        wav = check_wav(path)
+        kv = tts._kv_cache
+        cache_bytes = sum(t.numel() * t.element_size() for t in (kv.k, kv.v, kv.k_scale, kv.v_scale))
+        ms_tok = 1e3 * tts.timings["first_stage"] / max(steps, 1)
+        results[fmt] = {"counts": counts, "ms_per_token": ms_tok, "cache_bytes": cache_bytes}
+        stages = ", ".join(f"{k} {v:.3f}" for k, v in tts.timings.items())
+        shown.append(f"{fmt}: synthesise {total_s:.2f} s ({stages} s), {steps} decode steps, first stage "
+                     f"{ms_tok:.2f} ms/token; cache {cache_bytes} bytes; launches "
+                     f"{({k: v for k, v in counts.items() if v})}; wav {len(wav)} samples finite")
+        del tts, kv
+        torch.cuda.empty_cache()
+    others = "; ".join(f"{name}: {ms:.2f}" for name, ms in compared.items())
+    print(f"[24 synth-kv8] int4 {cfg1.n_layer}L/{cfg1.n_head}H/{cfg1.dim}d on quantized KV caches (the bf16 cache: "
+          f"{bf16_bytes} bytes; ms/token in this call: {others}): {'; '.join(shown)}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1285,6 +1644,7 @@ def main() -> int:
         phase_small_spec(torch)
         spec = phase_synth_spec(torch, workdir, ref, comps, {
             "bf16": bf16["ms_per_token"], "int4": int4["ms_per_token"]})
+        comps4 = comps["int4"]
         del comps
         torch.cuda.empty_cache()
         gqa = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, "out_gqa"),
@@ -1295,6 +1655,13 @@ def main() -> int:
         g3 = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, "out_g3"))
         phase_synth_route(torch, workdir, ref, "20 synth-g3", g3, "k1_launches", guidance_scale=(3.0, 1.5))
         del g3
+        torch.cuda.empty_cache()
+        k5 = phase_k5(torch)
+        k6 = phase_k6(torch)
+        torch.cuda.empty_cache()
+        phase_small_kv8(torch)
+        kv8 = phase_synth_kv8(torch, workdir, ref, comps4, {"int4 phase 9": int4["ms_per_token"]})
+        del comps4
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each kernel's launches are those of the main path that runs it
     record = {"kernels": [
@@ -1313,6 +1680,10 @@ def main() -> int:
              'metavoice_tpu/ops/decode_stack.py:688 (wfmt="i8")', k7),
             ("decode_attention_multi", "k4_launches", spec["bf16"], "decode_attention_multi.cu",
              "metavoice_tpu/ops/attention.py:545", k4),
+            ("decode_attention_block_int4", "k5_launches", kv8["int8"], "decode_block_int4.cu",
+             "metavoice_tpu/ops/attention.py:1644", k5),
+            ("decode_ffn_int4", "k6_launches", kv8["int8"], "decode_block_int4.cu",
+             "metavoice_tpu/ops/quantized.py:866", k6),
         )
     ]}
     print(json.dumps(record))

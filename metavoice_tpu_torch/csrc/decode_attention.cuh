@@ -1,6 +1,7 @@
 // T=1 split-sequence (flash-decoding) attention device code, shared by the
-// decode-attention kernel (decode_attention.cu, K1) and the int4 decode
-// stack (decode_stack_int4.cu, K3).
+// decode-attention kernel (decode_attention.cu, K1), the int4 decode stack
+// (decode_stack_int4.cu, K3) and the int4 attention block
+// (decode_block_int4.cu, K5).
 //
 // For one query token per (batch, head) row: the softmax-weighted sum of the
 // values over the row's window [starts[b], pos] of the sequence-major
@@ -20,6 +21,15 @@
 //     coalesced, and reduces a dot product with three shuffles.
 //   * f32 arithmetic: q * (1/sqrt(Dh)) in f32, f32 scores and accumulators;
 //     the output is rounded once to its type.
+//   * The cache format is a template argument (CacheFmt). A float cache (K1,
+//     K3, K5 on a bf16 cache) is read as above. An int8 cache (kFmtI8:
+//     int8 values, one f32 scale per (slot, kv row) in a (L, S, 1, W)
+//     table) or a packed one (kFmtPacked: int32 words holding slots
+//     4w..4w+3 in bytes 0..3, scales residue-split (L, 4, S/4, 1, W)) is
+//     read as the TPU kernel's kv8_mode="bf16": q rounded to bf16 against the
+//     integer values (exact), the dot in f32 times the k scale, and each
+//     value weight rounded to bf16 as bf16(p * v_scale). A packed warp starts
+//     at a multiple of 4 slots, so its four position groups share each word.
 
 #pragma once
 
@@ -37,6 +47,11 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 32 / kGroup;  // positions one warp reads at once
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegBig = -1e30f;          // the reference's finite -inf
+
+enum CacheFmt { kFmtFloat = 0, kFmtI8 = 1, kFmtPacked = 2 };
+
+__device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float round_bf16(float v) { return bf(__float2bfloat16_rn(v)); }
 
 template <int E>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&out)[E]) {
@@ -64,6 +79,33 @@ __device__ __forceinline__ void load_row(const float* p, float (&out)[E]) {
     out[i + 1] = raw.y;
     out[i + 2] = raw.z;
     out[i + 3] = raw.w;
+  }
+}
+
+// E int8 values (16 bytes) as floats.
+template <int E>
+__device__ __forceinline__ void load_row(const int8_t* p, float (&out)[E]) {
+  static_assert(E == 16, "int8 rows are read 16 values (16 bytes) at a time");
+  const int4 raw = *reinterpret_cast<const int4*>(p);
+  const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[4 * i + j] = (float)(int8_t)(w[i] >> (8 * j));
+}
+
+// Byte `j` of E packed int32 words (4 x 16 bytes) as floats.
+template <int E>
+__device__ __forceinline__ void load_packed_row(const int32_t* p, int j, float (&out)[E]) {
+  static_assert(E % 4 == 0, "packed rows are read 4 words (16 bytes) at a time");
+  const int sh = 8 * j;
+#pragma unroll
+  for (int i = 0; i < E; i += 4) {
+    const int4 raw = *reinterpret_cast<const int4*>(p + i);
+    out[i] = (float)(int8_t)(raw.x >> sh);
+    out[i + 1] = (float)(int8_t)(raw.y >> sh);
+    out[i + 2] = (float)(int8_t)(raw.z >> sh);
+    out[i + 3] = (float)(int8_t)(raw.w >> sh);
   }
 }
 
@@ -95,12 +137,19 @@ struct SplitArgs {
   float scale;
   float* part_ml;   // (rows, splits, 2): max, sum of exp
   float* part_acc;  // (rows, splits, DH): sum of exp-weighted values
+  // int8 formats only: the scale tables, W (scale_width) columns a slot
+  const float* k_scale;
+  const float* v_scale;
+  int scale_width;
 };
 
-// One block per (query row, split).
-template <typename TQ, typename T, int DH>
+// One block per (query row, split). FMT: the cache format (CacheFmt); T is
+// the float type, int8_t or int32_t (words) to match.
+template <typename TQ, typename T, int DH, int FMT = kFmtFloat>
 __global__ void __launch_bounds__(kThreads) decode_attn_split(SplitArgs<TQ, T> a) {
   constexpr int E = DH / kGroup;
+  constexpr bool kQuant = FMT != kFmtFloat;
+  constexpr bool kPacked = FMT == kFmtPacked;
   const int row = blockIdx.x;
   const int split = blockIdx.y;
   const int n_splits = gridDim.y;
@@ -112,8 +161,10 @@ __global__ void __launch_bounds__(kThreads) decode_attn_split(SplitArgs<TQ, T> a
   const int kv_row = row / a.group;
   const size_t part = (size_t)row * n_splits + split;
 
-  const size_t pos_stride = (size_t)a.bkv * DH;  // elements from slot s to s + 1
-  const size_t base = (size_t)a.layer * a.seq_len * pos_stride + (size_t)kv_row * DH;
+  // elements from slot s to s + 1 (packed: from word row w to w + 1)
+  const size_t pos_stride = (size_t)a.bkv * DH;
+  const size_t base = (size_t)a.layer * (kPacked ? a.seq_len / 4 : a.seq_len) * pos_stride +
+                      (size_t)kv_row * DH;
   const T* kn = a.k_new == nullptr ? nullptr : a.k_new + (size_t)kv_row * DH;
   const T* vn = a.v_new == nullptr ? nullptr : a.v_new + (size_t)kv_row * DH;
 
@@ -137,7 +188,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_split(SplitArgs<TQ, T> a
   float qf[E];
   load_row<E>(a.q + (size_t)(row / a.n_head) * a.q_bstride + (size_t)(row % a.n_head) * DH + d0, qf);
 #pragma unroll
-  for (int i = 0; i < E; ++i) qf[i] *= a.scale;
+  for (int i = 0; i < E; ++i) qf[i] = kQuant ? round_bf16(qf[i] * a.scale) : qf[i] * a.scale;
 
   float m = kNegBig;
   float l = 0.f;
@@ -147,19 +198,27 @@ __global__ void __launch_bounds__(kThreads) decode_attn_split(SplitArgs<TQ, T> a
 
   // `base_s` is the same for the whole warp, so every lane takes part in the
   // shuffles; lanes whose position falls past the split only skip the update.
-  for (int base_s = s_begin + warp * kRowsPerWarp; base_s < s_end;
+  const int s_first = kPacked ? s_begin & ~3 : s_begin;
+  for (int base_s = s_first + warp * kRowsPerWarp; base_s < s_end;
        base_s += kWarps * kRowsPerWarp) {
     const int s = base_s + grp;
-    const bool valid = s < s_end;
+    const bool valid = s >= s_begin && s < s_end;
     float kf[E];
     float vf[E];
     float dot = 0.f;
+    float vs = 1.f;
     if (valid) {
-      const bool fresh = kn != nullptr && s == pos;
-      const T* kp = fresh ? kn + d0 : a.k_cache + base + (size_t)s * pos_stride + d0;
-      const T* vp = fresh ? vn + d0 : a.v_cache + base + (size_t)s * pos_stride + d0;
-      load_row<E>(kp, kf);
-      load_row<E>(vp, vf);
+      if constexpr (kPacked) {
+        const size_t off = base + (size_t)(s >> 2) * pos_stride + d0;
+        load_packed_row<E>(reinterpret_cast<const int32_t*>(a.k_cache) + off, s & 3, kf);
+        load_packed_row<E>(reinterpret_cast<const int32_t*>(a.v_cache) + off, s & 3, vf);
+      } else {
+        const bool fresh = kn != nullptr && s == pos;
+        const T* kp = fresh ? kn + d0 : a.k_cache + base + (size_t)s * pos_stride + d0;
+        const T* vp = fresh ? vn + d0 : a.v_cache + base + (size_t)s * pos_stride + d0;
+        load_row<E>(kp, kf);
+        load_row<E>(vp, vf);
+      }
 #pragma unroll
       for (int i = 0; i < E; ++i) dot += qf[i] * kf[i];
     }
@@ -167,12 +226,19 @@ __global__ void __launch_bounds__(kThreads) decode_attn_split(SplitArgs<TQ, T> a
     dot += __shfl_xor_sync(kFull, dot, 2);
     dot += __shfl_xor_sync(kFull, dot, 1);
     if (valid) {
+      if constexpr (kQuant) {
+        const size_t srow = kPacked ? ((size_t)(a.layer * 4 + (s & 3)) * (a.seq_len / 4) + (s >> 2))
+                                    : (size_t)a.layer * a.seq_len + s;
+        dot *= a.k_scale[srow * a.scale_width + kv_row];
+        vs = a.v_scale[srow * a.scale_width + kv_row];
+      }
       const float m_new = fmaxf(m, dot);
       const float alpha = expf(m - m_new);
       const float p = expf(dot - m_new);
       l = l * alpha + p;
+      const float pv = kQuant ? round_bf16(p * vs) : p;
 #pragma unroll
-      for (int i = 0; i < E; ++i) acc[i] = acc[i] * alpha + p * vf[i];
+      for (int i = 0; i < E; ++i) acc[i] = acc[i] * alpha + pv * vf[i];
       m = m_new;
     }
   }

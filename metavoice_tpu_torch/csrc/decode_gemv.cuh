@@ -1,0 +1,281 @@
+// The split-K CUDA-core GEMV over int32 weight words, for a few rows of
+// activations (B <= 8), shared by the int4/int8 decode stack
+// (decode_stack_int4.cu, K3 and K7) and the per-layer int4 attention block
+// and FFN (decode_block_int4.cu, K5 and K6).
+//
+// A block of gemv_partial owns 32 word rows (int4: a quarter of one 128-row
+// group in each of the 8 nibble slabs) by 32 * CPT columns; neighbouring
+// lanes read neighbouring columns' words with 16-byte loads; each thread
+// keeps one partial sum per (row of x, slab, column), so the scale is
+// applied once per block. The c term is added once per group: int4 by the
+// block holding a group's first rows, int8 by the first block, which sums x
+// over all of K. gemv_reduce sums the partials in a fixed order and applies
+// the epilogue. The int4 products follow the TPU kernels'
+// _int4_group_matmul: per group, f32 sums of x times the raw nibbles, times
+// s_g, plus bf16(sum x_g) * c_g; the int8 ones _int8_word_matmul.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "decode_attention.cuh"
+#include "word_values.cuh"
+
+// Return a failed call's cudaError_t from the enclosing launch sequence.
+#define MV_CHECK(expr)                          \
+  do {                                          \
+    const cudaError_t err_ = (expr);            \
+    if (err_ != cudaSuccess) return err_;       \
+  } while (0)
+
+// An unnamed namespace: each including file gets its own copy of the kernels.
+namespace {
+
+constexpr int kQGroup = 128;        // quantization groupsize
+constexpr int kChunkRows = 32;      // word rows per GEMV block
+constexpr int kGemvWarps = 4;
+constexpr int kGemvThreads = kGemvWarps * 32;
+constexpr int kRowsPerGemvWarp = kChunkRows / kGemvWarps;
+constexpr int kReduceThreads = 256;
+
+enum Epi { kEpiF32 = 0, kEpiQKV = 1, kEpiResid = 2, kEpiSwiglu = 3, kEpiBf16 = 4 };
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+template <int VPW>
+__device__ __forceinline__ void load_x(const float* p, float (&v)[VPW]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  if constexpr (VPW == 8) {
+    const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+  }
+}
+
+template <int CPT>
+__device__ __forceinline__ void load_words(const int32_t* p, int32_t (&w)[CPT]) {
+  if constexpr (CPT == 4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (CPT == 2) {
+    const int2 v = __ldg(reinterpret_cast<const int2*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = __ldg(p);
+  }
+}
+
+struct GemvMat {
+  const int32_t* pw;        // (K/VPW, N)
+  const __nv_bfloat16* sc;  // (2*gp, N)
+};
+
+// Partial products of x (b_rows, K) bf16 with the packed matrix of
+// blockIdx.z (VPW values a word), over word rows [chunk * 32, +32):
+// part[z][chunk][b][n] in f32. int4: the block holding the first rows of a
+// group also adds that group's c-terms, once per group. int8: the first
+// block adds the one group's c-term, bf16(sum of x over K) * c.
+template <int NB, int CPT, int VPW>
+__global__ void __launch_bounds__(kGemvThreads)
+gemv_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int kw, int n, int gp,
+             GemvMat m0, GemvMat m1, float* __restrict__ part) {
+  constexpr bool kInt8 = VPW == 4;
+  constexpr int kCols = 32 * CPT;
+  const GemvMat mat = blockIdx.z == 0 ? m0 : m1;
+  const int chunk = blockIdx.y;
+  const int n_chunks = gridDim.y;
+  const int col0 = blockIdx.x * kCols;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int k = VPW * kw;
+  const int n_grp_slab = kInt8 ? 1 : kw / kQGroup;  // groups per slab
+  const int row0 = chunk * kChunkRows;              // first word row
+  const int mgrp = kInt8 ? 0 : row0 / kQGroup;      // group index inside each slab
+  const bool first = kInt8 ? chunk == 0 : row0 % kQGroup == 0;
+
+  __shared__ __align__(16) float sx[kChunkRows][NB][VPW];  // x at (slab j, word row r)
+  __shared__ float sred[kGemvWarps][NB][kCols];
+  __shared__ float sxs[NB][VPW];  // bf16-rounded group sums (int8: [b][0] only)
+
+  for (int i = tid; i < kChunkRows * NB * VPW; i += kGemvThreads) {
+    const int r = i / (NB * VPW);
+    const int b = (i / VPW) % NB;
+    const int j = i % VPW;
+    sx[r][b][j] = b < b_rows ? bf(x[(size_t)b * k + (size_t)j * kw + row0 + r]) : 0.f;
+  }
+  if constexpr (kInt8) {
+    if (first) {
+      for (int b = warp; b < NB; b += kGemvWarps) {
+        float s = 0.f;
+        if (b < b_rows) {
+          const __nv_bfloat16* xp = x + (size_t)b * k;
+          for (int i = lane; i < k; i += 32) s += bf(xp[i]);
+        }
+        s = warp_sum(s);
+        if (lane == 0) sxs[b][0] = round_bf16(s);
+      }
+    }
+  } else if (first) {
+    for (int jb = warp; jb < VPW * NB; jb += kGemvWarps) {
+      const int j = jb % VPW;
+      const int b = jb / VPW;
+      float s = 0.f;
+      if (b < b_rows) {
+        const __nv_bfloat16* xp = x + (size_t)b * k + (size_t)j * kw + mgrp * kQGroup;
+        for (int i = lane; i < kQGroup; i += 32) s += bf(xp[i]);
+      }
+      s = warp_sum(s);
+      if (lane == 0) sxs[b][j] = round_bf16(s);
+    }
+  }
+  __syncthreads();
+
+  float acc[NB][VPW][CPT];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int j = 0; j < VPW; ++j)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[b][j][c] = 0.f;
+
+  const int col = col0 + lane * CPT;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerGemvWarp; ++rr) {
+    const int r = warp * kRowsPerGemvWarp + rr;
+    int32_t w[CPT];
+    load_words<CPT>(mat.pw + (size_t)(row0 + r) * n + col, w);
+    float xv[NB][VPW];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) load_x<VPW>(&sx[r][b][0], xv[b]);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+#pragma unroll
+      for (int j = 0; j < VPW; ++j) {
+        const float wf = word_val<VPW>(w[c], j);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[b][j][c] = fmaf(xv[b][j], wf, acc[b][j][c]);
+      }
+  }
+
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    float sj[VPW];  // int8: the one scale s (row 0) for every slab
+#pragma unroll
+    for (int j = 0; j < VPW; ++j)
+      sj[j] = bf(mat.sc[(kInt8 ? 0 : (size_t)(j * n_grp_slab + mgrp) * n) + col + c]);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      float p = 0.f;
+#pragma unroll
+      for (int j = 0; j < VPW; ++j) p += acc[b][j][c] * sj[j];
+      sred[warp][b][lane * CPT + c] = p;
+    }
+  }
+  __syncthreads();
+
+  for (int i = tid; i < NB * kCols; i += kGemvThreads) {
+    const int b = i / kCols;
+    const int cc = i % kCols;
+    if (b >= b_rows) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGemvWarps; ++w) v += sred[w][b][cc];
+    if constexpr (kInt8) {
+      if (first) v += sxs[b][0] * bf(mat.sc[(size_t)gp * n + col0 + cc]);
+    } else if (first) {
+#pragma unroll
+      for (int j = 0; j < VPW; ++j)
+        v += sxs[b][j] * bf(mat.sc[(size_t)(gp + j * n_grp_slab + mgrp) * n + col0 + cc]);
+    }
+    part[((size_t)(blockIdx.z * n_chunks + chunk) * b_rows + b) * n + col0 + cc] = v;
+  }
+}
+
+struct Epilogue {
+  int kind;
+  float* out_f32;            // kEpiF32, kEpiQKV: (b_rows, n)
+  __nv_bfloat16* out_bf16;   // kEpiResid (added to in place), kEpiSwiglu, kEpiBf16: (b_rows, n)
+  __nv_bfloat16* k_cache;    // kEpiQKV: the row write at (layer, pos)
+  __nv_bfloat16* v_cache;
+  const int* pos;
+  int layer;
+  int seq_len;
+  int d;    // q columns before the k columns
+  int dkv;  // H_kv * Dh
+};
+
+// Sums the partials of every chunk in order and applies the epilogue.
+__global__ void __launch_bounds__(kReduceThreads)
+gemv_reduce(const float* __restrict__ part, int n_chunks, int b_rows, int n, Epilogue e) {
+  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
+  if (i >= b_rows * n) return;
+  const size_t stride = (size_t)b_rows * n;
+  float y = 0.f;
+  for (int c = 0; c < n_chunks; ++c) y += part[c * stride + i];
+  switch (e.kind) {
+    case kEpiF32:
+      e.out_f32[i] = y;
+      break;
+    case kEpiQKV: {
+      e.out_f32[i] = y;
+      const int b = i / n;
+      const int col = i % n - e.d;
+      if (col >= 0) {
+        __nv_bfloat16* cache = col < e.dkv ? e.k_cache : e.v_cache;
+        const int cc = col < e.dkv ? col : col - e.dkv;
+        cache[(((size_t)e.layer * e.seq_len + *e.pos) * b_rows + b) * e.dkv + cc] =
+            __float2bfloat16_rn(y);
+      }
+      break;
+    }
+    case kEpiResid:
+      e.out_bf16[i] = __float2bfloat16_rn(bf(e.out_bf16[i]) + round_bf16(y));
+      break;
+    case kEpiSwiglu: {
+      float y3 = 0.f;
+      for (int c = 0; c < n_chunks; ++c) y3 += part[(n_chunks + c) * stride + i];
+      e.out_bf16[i] = __float2bfloat16_rn(y / (1.f + expf(-y)) * y3);
+      break;
+    }
+    case kEpiBf16:
+      e.out_bf16[i] = __float2bfloat16_rn(y);
+      break;
+  }
+}
+
+// One product x (b_rows, K) bf16 @ packed (K, N), or two of the same shape
+// (n_mats 2: w1 and w3 for the SwiGLU epilogue): the partial kernel over
+// K/VPW/32 chunks, then the fixed-order reduce with epilogue e. part holds
+// n_mats * K/VPW/32 * b_rows * N f32. Returns the launches' cudaError_t.
+template <int NB, int CPT, int VPW>
+cudaError_t launch_gemv(const __nv_bfloat16* x, int b_rows, int k, int n, int gp, GemvMat m0,
+                        GemvMat m1, int n_mats, float* part, const Epilogue& e, cudaStream_t s) {
+  const int kw = k / VPW;
+  const int n_chunks = kw / kChunkRows;
+  gemv_partial<NB, CPT, VPW><<<dim3(n / (32 * CPT), n_chunks, n_mats), kGemvThreads, 0, s>>>(
+      x, b_rows, kw, n, gp, m0, m1, part);
+  MV_CHECK(cudaGetLastError());
+  const int total = b_rows * n;
+  gemv_reduce<<<(total + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(
+      part, n_chunks, b_rows, n, e);
+  return cudaGetLastError();
+}
+
+// Layer `layer` of a matrix stacked over layers: pw (L, K/VPW, N), sc (L, 2*gp, N).
+template <int VPW>
+GemvMat layer_mat(const GemvMat& m, int layer, int k, int n, int gp) {
+  return GemvMat{m.pw + (size_t)layer * (k / VPW) * n, m.sc + (size_t)layer * 2 * gp * n};
+}
+
+}  // namespace

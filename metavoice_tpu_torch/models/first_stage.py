@@ -22,8 +22,11 @@ stage's through the multi-query kernel), or, with int4 weights, the whole
 step through ops/decode_stack.py:decode_stack_int4, whose fused int4 tied
 head gives the logits directly; with int8 weights, the whole step through
 its int8 form where its conditions hold, then the bf16 tied head
-(``apply_blocks`` says head_done=False). Prefill keeps the bf16 tied head,
-as in the JAX package. Speculative decoding is models/spec_decode.py.
+(``apply_blocks`` says head_done=False). A quantized KV cache
+(``cache_dtype``) takes, with int4 weights, the per-layer attention-block
+and FFN kernels and the bf16 tied head; with other weights the dequantizing
+plain path. Prefill keeps the bf16 tied head, as in the JAX package.
+Speculative decoding is models/spec_decode.py.
 """
 
 from __future__ import annotations
@@ -193,6 +196,7 @@ def generate(
     prompt_pad_multiple: int = 128,
     kv_cache: tfm.KVCache | None = None,
     compute_dtype=torch.bfloat16,
+    cache_dtype=None,
     noise: torch.Tensor | None = None,
     stats: dict | None = None,
 ) -> np.ndarray:
@@ -203,6 +207,9 @@ def generate(
     ``guidance_scale`` is a float (speaker CFG, 2 cache rows) or the
     reference's (speaker, prompt) tuple; a prompt scale above 1 takes 3
     cache rows and needs ``end_of_text_token`` (tokenizer.eot_token).
+    ``cache_dtype``: the format of the cache made here when ``kv_cache`` is
+    not given or holds other rows (``torch.int8``, ``"int8"`` or
+    ``"int8_packed"`` for a quantized cache; default ``compute_dtype``).
     ``noise`` (n, 1, V): Gumbel noise for the n-th sampled token (row 0 for
     the prefill's), in place of draws from ``generator``. ``stats``, if
     given, receives ``decode_steps``: the T=1 forwards run (each launches the
@@ -221,7 +228,8 @@ def generate(
     if noise is not None and noise.shape[0] < max_steps:
         raise ValueError(f"noise holds {noise.shape[0]} draws, generation may need {max_steps}")
     if kv_cache is None or kv_cache.batch_size != cfg_rows:
-        kv_cache = tfm.KVCache.create(cfg, cfg_rows, cfg.block_size, dtype=compute_dtype, device=device)
+        kv_cache = tfm.KVCache.create(cfg, cfg_rows, cfg.block_size, dtype=cache_dtype or compute_dtype,
+                                      device=device)
     spk = torch.as_tensor(np.asarray(spk_emb, np.float32)).reshape(1, -1).to(device)
     guided = dict(cfg_rows=cfg_rows, prompt_guidance_scale=prompt_g, end_of_text_token=end_of_text_token)
 

@@ -183,7 +183,9 @@ def generate_spec(
     any proposal distribution). ``draft_temperature``/``draft_top_p``
     (default: the target's) shape the proposal only. ``kv_cache``: the
     target's cache to reuse (it must hold the guidance rows); the draft's is
-    made here. Both caches are bf16 or whatever ``compute_dtype`` is.
+    made here. Both caches are bf16 or whatever ``compute_dtype`` is, as in
+    the JAX package: a quantized ``kv_cache`` is left untouched and a float
+    one made in its place.
     ``draws`` replaces every random draw (tests).
     """
     spk_g, prompt_g, cfg_rows = fs.check_guidance(guidance_scale, end_of_text_token, end_of_audio_token)
@@ -195,7 +197,7 @@ def generate_spec(
     if max_steps <= 0:
         raise ValueError("Prompt is too long to generate more tokens")
     draft_rows = cfg_rows if draft_use_cfg else 1
-    if kv_cache is None or kv_cache.batch_size != cfg_rows:
+    if kv_cache is None or kv_cache.batch_size != cfg_rows or kv_cache.quantized:
         kv_cache = tfm.KVCache.create(cfg_t, cfg_rows, cfg_t.block_size, dtype=compute_dtype, device=device)
     kv_d = tfm.KVCache.create(cfg_d, draft_rows, cfg_d.block_size, dtype=compute_dtype, device=device)
     spk = torch.as_tensor(np.asarray(spk_emb, np.float32)).reshape(1, -1).to(device)

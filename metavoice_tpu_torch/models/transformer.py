@@ -6,7 +6,9 @@ are the JAX package's pytree as plain dicts of tensors:
   * layer weights are stacked along a leading L axis and the block stack is
     a Python loop over layer views;
   * every linear weight is stored (in, out), so a projection is ``x @ w``;
-  * the KV cache is a pair of sequence-major (L, S, B, H, Dh) tensors.
+  * the KV cache is a pair of sequence-major (L, S, B, H, Dh) tensors: float,
+    or int8 with per-(slot, row, kv head) f32 scales, or those int8 values
+    packed four slots to an int32 word (``KVCache``, the JAX layouts).
 
 Unlike the JAX package, which threads the cache functionally, the cache is
 updated IN PLACE: prefill writes its window of rows, and a T=1 decode step
@@ -34,6 +36,15 @@ layers meet the decode-stack kernel's conditions (the JAX package's) runs
 all layers in its int8 form, then the final norm and the bf16 tied head;
 otherwise each layer runs ``_linear`` at M = B and the decode-attention
 kernel, as in the JAX package.
+
+A quantized KV cache: prefill, and any cached forward of T <= 16, quantize
+the window's rows (``quantize_kv_rows``) and attend over the dequantized
+layer, as the JAX package's XLA path does. A T=1 step with int4 weights runs
+per layer (``int4_decode_route``): the attention-block kernel
+(ops/attention.py:decode_attention_block_int4, which quantizes and writes the
+new row and attends over the int8 window) and the FFN kernel
+(ops/quantized.py:decode_ffn_int4), then the bf16 tied head; with bf16 or
+int8 weights it takes the dequantizing path.
 """
 
 from __future__ import annotations
@@ -46,20 +57,43 @@ import torch.nn.functional as F
 
 from metavoice_tpu_torch.core.config import TransformerConfig
 from metavoice_tpu_torch.core.device import resolve_device
-from metavoice_tpu_torch.ops.attention import MULTI_MAX_T, decode_attention, decode_attention_multi
+from metavoice_tpu_torch.ops.attention import (
+    MULTI_MAX_T,
+    decode_attention,
+    decode_attention_block_int4,
+    decode_attention_multi,
+)
 from metavoice_tpu_torch.ops.decode_stack import HEAD_DIM, MAX_BATCH, decode_stack_int4
-from metavoice_tpu_torch.ops.quantized import is_int4, is_int8_i32, matmul_int4_i32, matmul_int8_i32
+from metavoice_tpu_torch.ops.quantized import decode_ffn_int4, is_int4, is_int8_i32, matmul_int4_i32, matmul_int8_i32
 
 Params = dict[str, Any]
 
 
+KV_PACK = 4  # sequence positions per int32 word in the packed int8 cache
+
+
 @dataclass
 class KVCache:
-    """Static-shape per-layer KV cache, layout (L, S, B, H_kv, Dh), float
-    (bf16 on the serving path), updated in place."""
+    """Static-shape per-layer KV cache, layout (L, S, B, H_kv, Dh), updated in
+    place. Three formats, the JAX package's layouts:
+
+      * float (bf16 on the serving path), ``k_scale is None``;
+      * int8 (``dtype=torch.int8`` or ``"int8"``): int8 values with one f32
+        absmax scale per (position, batch row, kv head) in ``k_scale``/
+        ``v_scale`` (L, S, 1, kv_scale_width(B*H_kv)), column ``b*H_kv + h``,
+        the padding columns zero;
+      * packed (``"int8_packed"``): the same int8 values four positions to an
+        int32 word, k/v (L, S/4, B, H_kv, Dh) with byte j of word w holding
+        position 4w+j, and residue-split scales (L, 4, S/4, 1, BHpad): the
+        scale of position p at [:, p % 4, p // 4].
+
+    The int8 formats halve the cache's bytes (a capacity feature, as in the
+    JAX package: on the card it buys no decode speed)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @classmethod
     def create(
@@ -67,14 +101,41 @@ class KVCache:
         cfg: TransformerConfig,
         batch_size: int,
         max_seq_len: int | None = None,
-        dtype: torch.dtype = torch.bfloat16,
+        dtype=torch.bfloat16,
         device="cuda",
     ) -> "KVCache":
-        if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
-            raise ValueError(f"the port's KV cache is a float cache (bf16), got {dtype!r}")
         s = max_seq_len or cfg.block_size
         shape = (cfg.n_layer, s, batch_size, cfg.n_local_heads, cfg.head_dim)
         dev = resolve_device(device)
+        if isinstance(dtype, str):
+            # strings select a format: "int8" is the scale-table cache, never
+            # a scale-less raw int8 one
+            if dtype not in ("int8", "int8_packed"):
+                raise ValueError(
+                    f"unknown KV cache dtype string {dtype!r}; expected 'int8', 'int8_packed', or a torch dtype"
+                )
+            dtype = torch.int8 if dtype == "int8" else dtype
+        width = kv_scale_width(batch_size * cfg.n_local_heads)
+        if dtype == torch.int8:
+            return cls(
+                k=torch.zeros(shape, dtype=torch.int8, device=dev),
+                v=torch.zeros(shape, dtype=torch.int8, device=dev),
+                k_scale=torch.zeros((cfg.n_layer, s, 1, width), dtype=torch.float32, device=dev),
+                v_scale=torch.zeros((cfg.n_layer, s, 1, width), dtype=torch.float32, device=dev),
+            )
+        if dtype == "int8_packed":
+            if s % KV_PACK:
+                raise ValueError(f"packed int8 cache needs seq len % {KV_PACK} == 0, got {s}")
+            wshape = (cfg.n_layer, s // KV_PACK, *shape[2:])
+            sshape = (cfg.n_layer, KV_PACK, s // KV_PACK, 1, width)
+            return cls(
+                k=torch.zeros(wshape, dtype=torch.int32, device=dev),
+                v=torch.zeros(wshape, dtype=torch.int32, device=dev),
+                k_scale=torch.zeros(sshape, dtype=torch.float32, device=dev),
+                v_scale=torch.zeros(sshape, dtype=torch.float32, device=dev),
+            )
+        if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+            raise ValueError(f"a KV cache is float, int8, 'int8' or 'int8_packed', got {dtype!r}")
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=dev),
             v=torch.zeros(shape, dtype=dtype, device=dev),
@@ -82,11 +143,91 @@ class KVCache:
 
     @property
     def max_seq_len(self) -> int:
-        return self.k.shape[1]
+        return self.k.shape[1] * (KV_PACK if self.packed else 1)
 
     @property
     def batch_size(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def packed(self) -> bool:
+        """int8-in-int32 packed cache (4 positions per word along S)."""
+        return self.k_scale is not None and self.k.dtype == torch.int32
+
+
+def kv_scale_width(bh: int) -> int:
+    """Column count of the int8-cache scale tables: B*H_kv rounded up to 128."""
+    return -(-bh // 128) * 128
+
+
+def pack_kv_s(q8: torch.Tensor) -> torch.Tensor:
+    """(T, ...) int8 rows (T % 4 == 0) -> (T/4, ...) int32 words; word w holds
+    positions 4w..4w+3 in bytes 0..3 (little-endian). Inverse of unpack_kv_s."""
+    t = q8.shape[0]
+    if t % KV_PACK:
+        raise ValueError(f"pack_kv_s takes a multiple of {KV_PACK} rows, got {t}")
+    b = (q8.to(torch.int32) & 0xFF).reshape(t // KV_PACK, KV_PACK, *q8.shape[1:])
+    return b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)  # byte 3 wraps, as in JAX
+
+
+def unpack_kv_s(words: torch.Tensor) -> torch.Tensor:
+    """(Sw, ...) int32 words -> (4*Sw, ...) int32 sign-extended int8 values."""
+    parts = [(words << (24 - 8 * j)) >> 24 for j in range(KV_PACK)]
+    return torch.stack(parts, dim=1).reshape(words.shape[0] * KV_PACK, *words.shape[1:])
+
+
+def packed_kv_update(words_full: torch.Tensor, q8_rows: torch.Tensor, li: int, pos: int) -> torch.Tensor:
+    """Write T int8 rows into the packed (L, Sw, B, H, Dh) int32 cache at
+    positions [pos, pos+T) of layer ``li``, IN PLACE: a read-modify-write of
+    the touched words, right at any alignment of ``pos``."""
+    t = q8_rows.shape[0]
+    w0, w1 = pos // KV_PACK, -(-(pos + t) // KV_PACK)
+    vals = unpack_kv_s(words_full[li, w0:w1])
+    vals[pos - KV_PACK * w0 : pos - KV_PACK * w0 + t] = q8_rows.to(torch.int32)
+    words_full[li, w0:w1] = pack_kv_s(vals)
+    return words_full
+
+
+def packed_scale_update(table: torch.Tensor, s_rows: torch.Tensor, li: int, pos: int) -> torch.Tensor:
+    """Residue-split scale table (L, 4, Sw, 1, BHpad): write the (T, BH) f32
+    scales of positions [pos, pos+T) of layer ``li`` IN PLACE (any
+    alignment; the padding columns are written as zeros)."""
+    t, bh = s_rows.shape
+    p = pos + torch.arange(t, device=table.device)
+    rows = torch.zeros((t, table.shape[-1]), dtype=torch.float32, device=table.device)
+    rows[:, :bh] = s_rows.float()
+    table[li, p % KV_PACK, p // KV_PACK, 0] = rows
+    return table
+
+
+def packed_kv_dequant(words_full: torch.Tensor, table: torch.Tensor, li: int, dtype=torch.float32) -> torch.Tensor:
+    """Dequantize layer ``li`` of the packed cache to (S, B, H, Dh)."""
+    _, sw, b, h, _ = words_full.shape
+    vals = unpack_kv_s(words_full[li]).float()  # (S, B, H, Dh)
+    sc = table[li, :, :, 0, : b * h]  # (4, Sw, BH)
+    sc = sc.transpose(0, 1).reshape(sw * KV_PACK, b, h, 1)
+    return (vals * sc).to(dtype)
+
+
+def quantize_kv_rows(w: torch.Tensor):
+    """(..., Dh) f32/bf16 -> (int8 values, (..., 1) f32 absmax scales):
+    ``s = max(absmax, 1e-8) / 127``, ``q = clip(round_half_even(w / s))``."""
+    wf = w.float()
+    s = torch.clamp(wf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _dequant_int8_layer(cache: torch.Tensor, table: torch.Tensor, li: int, dtype) -> torch.Tensor:
+    """Layer ``li`` of the int8 cache (L, S, B, H, Dh) with its (L, S, 1,
+    BHpad) scales -> (S, B, H, Dh)."""
+    s, b, h = cache.shape[1:4]
+    sc = table[li, :, 0, : b * h].reshape(s, b, h, 1)
+    return (cache[li].float() * sc).to(dtype)
 
 
 def init_params(
@@ -295,31 +436,51 @@ def embed_inputs(
 _STACK_KEYS = ("wqkv", "wo", "w1", "w3", "w2")
 
 
-def check_int4_decode(params: Params, cfg: TransformerConfig, cache_dtype=torch.bfloat16):
-    """Raise NotImplementedError when int4 layer weights cannot decode through
-    the stack kernel (the JAX package's conditions for it): the per-layer
-    int4 route (the fused attention-block and FFN kernels, K5/K6) is not
-    ported, and there is no other int4 decode."""
+def int4_decode_route(params: Params, cfg: TransformerConfig, batch: int, cache_dtype=torch.bfloat16) -> str:
+    """How a T=1 step of int4 layer weights runs, by the JAX package's
+    conditions: ``"stack"`` (all layers in the decode-stack kernel, K3) or
+    ``"layers"`` (per layer, the attention-block kernel K5 and the FFN kernel
+    K6). ``cache_dtype``: the cache's ``k.dtype`` (int8 or int32 for the int8
+    formats) or a ``KVCache.create`` format string. Raises
+    NotImplementedError, naming what fails, when neither route takes it.
+
+    K3 needs five int4 matrices, SwiGLU, RMSNorm without biases, dim and the
+    packed FFN width multiples of 1024, and a bf16 cache. K5/K6 need SwiGLU,
+    no qkv bias, the same widths, head_dim 128 and at most 8 rows, and take
+    a bf16 or a quantized cache (the norms run outside them)."""
     layers = params["layers"]
-    problems = [f"{k} is not int4" for k in _STACK_KEYS if not is_int4(layers.get(k))]
+    common = [f"{k} is not int4" for k in _STACK_KEYS if not is_int4(layers.get(k))]
     if cfg.nonlinearity_type != "swiglu":
-        problems.append(f"nonlinearity {cfg.nonlinearity_type!r} is not swiglu")
-    if cfg.norm_type != "rmsnorm":
-        problems.append(f"norm {cfg.norm_type!r} is not rmsnorm")
-    problems += [f"the model has {k}" for k in ("attn_norm_b", "wqkv_b") if k in layers]
+        common.append(f"nonlinearity {cfg.nonlinearity_type!r} is not swiglu")
+    if "wqkv_b" in layers:
+        common.append("the model has wqkv_b")
     if cfg.dim % 1024:
-        problems.append(f"dim {cfg.dim} is not a multiple of 1024")
+        common.append(f"dim {cfg.dim} is not a multiple of 1024")
     if is_int4(layers.get("w1")) and layers["w1"]["pw"].shape[-1] % 1024:
-        problems.append(f"the FFN width {layers['w1']['pw'].shape[-1]} is not a multiple of 1024")
+        common.append(f"the FFN width {layers['w1']['pw'].shape[-1]} is not a multiple of 1024")
+    quantized = cache_dtype in (torch.int8, torch.int32, "int8", "int8_packed")
+    stack = list(common)
+    if cfg.norm_type != "rmsnorm":
+        stack.append(f"norm {cfg.norm_type!r} is not rmsnorm")
+    if "attn_norm_b" in layers:
+        stack.append("the model has attn_norm_b")
     if cache_dtype != torch.bfloat16:
-        problems.append(f"the KV cache is {cache_dtype}, not bf16")
-    if problems:
-        raise NotImplementedError(
-            "int4 decode runs only through the decode-stack kernel, whose conditions fail: "
-            + "; ".join(problems)
-            + ". The per-layer int4 route (decode_attention_block_int4 and decode_ffn_int4, "
-            "K5/K6) is not ported."
-        )
+        stack.append(f"the KV cache is {cache_dtype}, not bf16")
+    if not stack:
+        return "stack"
+    per_layer = list(common)
+    if cfg.head_dim != HEAD_DIM:
+        per_layer.append(f"head_dim {cfg.head_dim} is not {HEAD_DIM}")
+    if batch > MAX_BATCH:
+        per_layer.append(f"{batch} rows are more than {MAX_BATCH}")
+    if not quantized and cache_dtype != torch.bfloat16:
+        per_layer.append(f"the KV cache is {cache_dtype}, neither bf16 nor int8")
+    if not per_layer:
+        return "layers"
+    raise NotImplementedError(
+        "int4 decode runs through the decode-stack kernel (K3) or the per-layer kernels (K5/K6), "
+        f"and the conditions of both fail: K3: {'; '.join(stack)}; K5/K6: {'; '.join(per_layer)}"
+    )
 
 
 def int8_stack_ok(params: Params, cfg: TransformerConfig, batch: int, cache_dtype) -> bool:
@@ -352,7 +513,6 @@ def _layer(layers: Params, li: int) -> Params:
 def _decode_stack(params: Params, cfg: TransformerConfig, x, kv_cache: KVCache, cache_pos,
                   attn_starts, fused_head: bool):
     """A T=1 step of int4 layers through the decode-stack kernel."""
-    check_int4_decode(params, cfg, kv_cache.k.dtype)
     layers = params["layers"]
     head = params.get("lm_head_q") if fused_head and "ln_f_b" not in params else None
     head_kw = {} if head is None else dict(ln_f_w=params["ln_f_w"], head_pw=head["pw"], head_sc=head["sc"])
@@ -371,6 +531,29 @@ def _decode_stack(params: Params, cfg: TransformerConfig, x, kv_cache: KVCache, 
     return (xo, kv_cache, False) if fused_head else (xo, kv_cache)
 
 
+def _decode_layers_int4(params: Params, cfg: TransformerConfig, x, kv_cache: KVCache, cache_pos,
+                        attn_starts, fused_head: bool):
+    """A T=1 step of int4 layers one layer at a time (the JAX package's
+    ``body4``): norm, the attention-block kernel (K5: qkv, the cache row in
+    any format, attention, o-proj; bf16 out), the residual add in x's dtype,
+    norm, the FFN kernel (K6, f32 out), the residual add; then the final
+    norm. The bf16 tied head stays with the caller (head_done=False)."""
+    layers = params["layers"]
+    w = {k: (layers[k]["pw"], layers[k]["sc"]) for k in _STACK_KEYS}
+    for li in range(cfg.n_layer):
+        lp = _layer(layers, li)
+        xa = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps)
+        y2, *_ = decode_attention_block_int4(
+            xa[:, 0, :], *w["wqkv"], *w["wo"], kv_cache.k, kv_cache.v, li, cache_pos, cfg.n_head,
+            n_kv_head=cfg.n_local_heads, starts=attn_starts, k_scale=kv_cache.k_scale, v_scale=kv_cache.v_scale,
+        )
+        h = x + y2[:, None, :].to(x.dtype)
+        hn = _norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), cfg.norm_type, cfg.norm_eps)
+        x = h + decode_ffn_int4(hn[:, 0, :], *w["w1"], *w["w3"], *w["w2"], li)[:, None, :].to(x.dtype)
+    x = _norm(x, params["ln_f_w"], params.get("ln_f_b"), cfg.norm_type, cfg.norm_eps)
+    return (x, kv_cache, False) if fused_head else (x, kv_cache)
+
+
 def _decode_stack_int8(params: Params, cfg: TransformerConfig, x, kv_cache: KVCache, cache_pos,
                        attn_starts, fused_head: bool):
     """A T=1 step of int8 layers through the decode-stack kernel, then the
@@ -386,6 +569,37 @@ def _decode_stack_int8(params: Params, cfg: TransformerConfig, x, kv_cache: KVCa
     xo = _norm(xo[:, None, :].to(x.dtype), params["ln_f_w"], params.get("ln_f_b"),
                cfg.norm_type, cfg.norm_eps)
     return (xo, kv_cache, False) if fused_head else (xo, kv_cache)
+
+
+def _quantized_window(kv_cache: KVCache, li: int, cache_pos: int, k_new, v_new, dtype):
+    """Quantize the window's K/V rows (B, H_kv, T, Dh), from the rows in the
+    compute dtype, write them at [cache_pos, cache_pos+T) of layer ``li`` (a
+    word read-modify-write for the packed cache), and return the layer
+    dequantized -> (k, v), each (S, B, H_kv, Dh) in ``dtype``."""
+    t = k_new.shape[2]
+    bh = k_new.shape[0] * k_new.shape[1]
+    out = []
+    for cache, table, new in ((kv_cache.k, kv_cache.k_scale, k_new), (kv_cache.v, kv_cache.v_scale, v_new)):
+        q8, s = quantize_kv_rows(new.permute(2, 0, 1, 3))
+        if kv_cache.packed:
+            packed_kv_update(cache, q8, li, cache_pos)
+            packed_scale_update(table, s.reshape(t, bh), li, cache_pos)
+            out.append(packed_kv_dequant(cache, table, li, dtype))
+        else:
+            cache[li, cache_pos : cache_pos + t] = q8
+            table[li, cache_pos : cache_pos + t, 0, :bh] = s.reshape(t, bh)
+            out.append(_dequant_int8_layer(cache, table, li, dtype))
+    return out
+
+
+def _window_mask(cache_pos: int, t: int, seq_len: int, starts, device):
+    """(1 or B, 1, T, S) mask of the causal window every cached caller asks
+    for: query t sees slots [starts[b], cache_pos + t] (a start past
+    ``cache_pos`` taken as ``cache_pos``)."""
+    valid = causal_mask_for(cache_pos + torch.arange(t, device=device), seq_len)[None, None]
+    if starts is not None:
+        valid = valid & (torch.arange(seq_len, device=device) >= starts.clamp(max=cache_pos)[:, None, None, None])
+    return valid
 
 
 def apply_blocks(
@@ -409,10 +623,20 @@ def apply_blocks(
       Packed int4/int8 projections run through their matmul kernels;
     * cache, T = 1 (decode): ``decode_attention`` writes the row and attends
       over the window [attn_starts, cache_pos] (GQA: through
-      ``decode_attention_multi``); ``mask`` is not used. With
-      int4 layer weights the whole step is the decode-stack kernel instead
-      (raises NotImplementedError when its conditions fail); with int8 ones
-      too, where ``int8_stack_ok`` holds.
+      ``decode_attention_multi``); ``mask`` is not used. With int4 layer
+      weights the step runs as ``int4_decode_route`` says: all layers in
+      the decode-stack kernel, or per layer through the attention-block and
+      FFN kernels (raises NotImplementedError when neither takes it); with
+      int8 ones through the decode-stack kernel too, where ``int8_stack_ok``
+      holds.
+
+    A quantized cache (``KVCache.quantized``) takes the plain path at
+    prefill, at every cached forward of T <= 16 and at T = 1 with bf16 or
+    int8 weights, as in the JAX package: the window's rows are quantized
+    (``quantize_kv_rows``) and written, the layer is dequantized and attended
+    densely, under ``mask`` at prefill and under the causal window
+    [attn_starts, cache_pos + t] for T <= 16. With int4 weights its T = 1
+    step is the per-layer route.
 
     ``fused_head=True`` (decode callers) returns a THREE-tuple
     ``(x_or_logits, kv_cache, head_done)``: when the int4 stack ran with a
@@ -423,15 +647,23 @@ def apply_blocks(
     t = x.shape[1]
     if kv_cache is not None and t == 1:
         if any(is_int4(w) for w in params["layers"].values()):
-            return _decode_stack(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head)
+            route = int4_decode_route(params, cfg, x.shape[0], kv_cache.k.dtype)
+            decode = _decode_stack if route == "stack" else _decode_layers_int4
+            return decode(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head)
         if int8_stack_ok(params, cfg, x.shape[0], kv_cache.k.dtype):
             return _decode_stack_int8(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head)
+    quantized = kv_cache is not None and kv_cache.quantized
+    if quantized and t <= MULTI_MAX_T:
+        mask = _window_mask(cache_pos, t, kv_cache.max_seq_len, attn_starts, x.device)
     for li in range(cfg.n_layer):
         lp = _layer(params["layers"], li)
         xa = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps)
         q, k_new, v_new = _qkv_proj(xa, lp, cfg)
         if kv_cache is None:
             y = _attend(q, k_new, v_new, cfg, mask, x.dtype)
+        elif quantized:
+            layer_k, layer_v = _quantized_window(kv_cache, li, cache_pos, k_new, v_new, x.dtype)
+            y = _attend_seq_major(q, layer_k, layer_v, cfg, mask, x.dtype)
         elif t == 1:
             y3, _, _ = decode_attention(
                 q[:, :, 0].contiguous(),

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "mv_matmul_int8_i32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "mv_decode_stack_int4": (_I, [_P] * 22 + [_I] * 11 + [_F, _I, _I] + [_P] * 8),
     "mv_decode_stack_int8": (_I, [_P] * 18 + [_I] * 10 + [_F, _I, _I] + [_P] * 8),
+    "mv_decode_block_int4": (_I, [_I] + [_P] * 11 + [_I] * 12 + [_P] * 6),
+    "mv_decode_ffn_int4": (_I, [_P] * 8 + [_I] * 6 + [_P] * 3),
 }
 
 

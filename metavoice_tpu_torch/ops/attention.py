@@ -11,6 +11,12 @@ plain PyTorch versions.
   ``metavoice_tpu/ops/attention.py:decode_attention_multi`` (the Pallas TPU
   kernel ``_decode_attn_multi_kernel``); the kernel is
   ``metavoice_tpu_torch/csrc/decode_attention_multi.cu``.
+* K5, ``decode_attention_block_int4``: one decode layer's int4 attention
+  block (qkv projection, the new K/V row in a bf16, int8 or packed cache,
+  attention over the window, o-proj). Replaces
+  ``metavoice_tpu/ops/attention.py:decode_attention_block_int4`` (the Pallas
+  TPU kernel ``_decode_block_int4_kernel``); the kernel is
+  ``metavoice_tpu_torch/csrc/decode_block_int4.cu``.
 
 Each kernel's source says what bounds it on the card (the bytes of the cache
 window it reads, ``2 * (pos + T - min_start) * B * H_kv * Dh`` elements per
@@ -30,6 +36,7 @@ import math
 import torch
 
 from metavoice_tpu_torch.ops import _build
+from metavoice_tpu_torch.ops.quantized import DECODE_MAX_ROWS, matmul_int4_i32_reference
 
 SPLIT_POSITIONS = 64  # cache slots per block of the sequence split
 MAX_SPLITS = 32
@@ -235,3 +242,227 @@ def decode_attention_multi(q, k_new, v_new, k_cache, v_cache, layer: int, pos: i
 
 
 decode_attention_multi.launches = 0
+
+
+# ------------------------------------------------------------------ K5: one int4 attention block
+
+_CACHE_FORMAT_CODE = {"bf16": 0, "int8": 1, "packed": 2}
+
+
+def _cache_format(k_cache, k_scale) -> str:
+    """"bf16" (a float cache), "int8" or "packed" (int8 values four
+    positions to an int32 word), as ``models/transformer.KVCache`` lays them out."""
+    if k_scale is None:
+        return "bf16"
+    return "packed" if k_cache.dtype == torch.int32 else "int8"
+
+
+def _quant_row(row):
+    """The kernel's quantizer of the new row, per (row, kv head), from the
+    f32 row (the JAX kernel's ``_quant_i32``): ``s = max(absmax, 1e-8) *
+    f32(1/127)``, ``q = clip(round_half_even(row / s), -127, 127)`` ->
+    (int32 values, (..., 1) f32 scales). It multiplies by 1/127 where the
+    prefill path's ``quantize_kv_rows`` divides by 127, as in JAX."""
+    s = torch.clamp(row.abs().amax(dim=-1, keepdim=True), min=1e-8) * (1.0 / 127.0)
+    return torch.clamp(torch.round(row / s), -127, 127).to(torch.int32), s
+
+
+def _packed_byte_mask(pos: int) -> int:
+    """The int32 word mask that keeps every byte but byte pos % 4."""
+    keep = ~(0xFF << (8 * (pos % 4))) & 0xFFFFFFFF
+    return keep - (1 << 32) if keep >= 1 << 31 else keep
+
+
+def decode_attention_block_int4_reference(
+    xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer: int, pos: int, n_head: int, *,
+    n_kv_head: int | None = None, starts=None, k_scale=None, v_scale=None,
+):
+    """Plain PyTorch version of K5: the CPU path and the card's oracle.
+
+    The JAX kernel's arithmetic (``_decode_block_int4_kernel``, with
+    ``kv8_mode="bf16"``): ``qkv = xa @ Wqkv`` in f32 (the int4 group
+    arithmetic of ``matmul_int4_i32_reference``); ``q = qkv[:, :D] *
+    1/sqrt(Dh)``; the new K/V row written at (layer, pos), rounded to bf16
+    for a float cache or quantized by ``_quant_row`` for an int8 one (the
+    packed cache: byte pos % 4 of word pos // 4, the word's other bytes
+    kept); attention of query head h over kv head h // (H / H_kv) on
+    ``[starts[b], pos]`` (a start past ``pos`` taken as ``pos``), read back
+    from the cache. A float cache: q and K/V in f32. An int8 cache: q rounded
+    to bf16 against the integer values, the dot in f32 times the k scale,
+    ``p = exp(s - max)``, ``l = sum p``, ``bf16(p * v_scale)`` against the
+    integer values in f32. Then y rounded to bf16 and ``y @ Wo`` rounded to
+    bf16 -> (y (B, D) bf16, k_cache, v_cache, k_scale, v_scale). Only slots
+    ``[0, pos]`` are read, so garbage (even NaN) past ``pos`` stays out.
+    """
+    b, d = xa.shape
+    dh = d // n_head
+    h_kv = n_kv_head or n_head
+    g, dkv, bkv = n_head // h_kv, h_kv * dh, b * h_kv
+    fmt = _cache_format(k_cache, k_scale)
+    qkv = matmul_int4_i32_reference(xa, wqkv_pw[layer], wqkv_sc[layer])
+    q = (qkv[:, :d] * (1.0 / math.sqrt(dh))).reshape(b, n_head, dh)
+    rows = [qkv[:, d + i * dkv : d + (i + 1) * dkv].reshape(b, h_kv, dh) for i in range(2)]
+    n = pos + 1
+    kv, scales = [], []
+    for cache, table, row in ((k_cache, k_scale, rows[0]), (v_cache, v_scale, rows[1])):
+        if fmt == "bf16":
+            cache[layer, pos] = row.to(cache.dtype)
+            kv.append(cache[layer, :n].float())
+            continue
+        q8, s = _quant_row(row)
+        if fmt == "int8":
+            cache[layer, pos] = q8.to(torch.int8)
+            table[layer, pos, 0, :bkv] = s.reshape(bkv)
+            kv.append(cache[layer, :n].float())
+            scales.append(table[layer, :n, 0, :bkv])
+        else:
+            w = pos // 4
+            cache[layer, w] = (cache[layer, w] & _packed_byte_mask(pos)) | ((q8 & 0xFF) << (8 * (pos % 4)))
+            table[layer, pos % 4, w, 0, :bkv] = s.reshape(bkv)
+            words = cache[layer, : w + 1]
+            vals = torch.stack([(words << (24 - 8 * j)) >> 24 for j in range(4)], dim=1)
+            kv.append(vals.reshape(4 * (w + 1), b, h_kv, dh)[:n].float())
+            scales.append(table[layer, :, : w + 1, 0, :bkv].transpose(0, 1).reshape(4 * (w + 1), bkv)[:n])
+    lk, lv = kv
+    if g > 1:
+        lk, lv = lk.repeat_interleave(g, dim=2), lv.repeat_interleave(g, dim=2)
+        scales = [sc.reshape(n, b, h_kv).repeat_interleave(g, dim=2) for sc in scales]
+    scales = [sc.reshape(n, b, n_head).permute(1, 2, 0) for sc in scales]  # (B, H, n)
+    if fmt != "bf16":
+        q = q.to(torch.bfloat16).float()
+    s = torch.einsum("bhd,sbhd->bhs", q, lk)
+    if fmt != "bf16":
+        s = s * scales[0]
+    if starts is not None:
+        slot = torch.arange(n, device=xa.device)
+        valid = slot[None, None, :] >= starts.clamp(max=pos)[:, None, None]
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    if fmt != "bf16":
+        p = (p * scales[1]).to(torch.bfloat16).float()
+    y = (torch.einsum("bhs,sbhd->bhd", p, lv) / l).reshape(b, d).to(torch.bfloat16)
+    out = matmul_int4_i32_reference(y, wo_pw[layer], wo_sc[layer]).to(torch.bfloat16)
+    return out, k_cache, v_cache, k_scale, v_scale
+
+
+def _check_block(xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer, pos, n_head, h_kv,
+                 starts, k_scale, v_scale):
+    if xa.dim() != 2:
+        raise ValueError(f"xa must be (B, D), got {tuple(xa.shape)}")
+    b, d = xa.shape
+    if d % n_head or n_head % h_kv:
+        raise ValueError(f"D={d}, n_head={n_head}, n_kv_head={h_kv} do not divide")
+    dh = d // n_head
+    n_layer = k_cache.shape[0]
+    qout = d + 2 * h_kv * dh
+    for name, pw, sc, n in (("wqkv", wqkv_pw, wqkv_sc, qout), ("wo", wo_pw, wo_sc, d)):
+        if tuple(pw.shape) != (n_layer, d // 8, n) or sc.dim() != 3 or sc.shape[0] != n_layer or sc.shape[2] != n:
+            raise ValueError(f"{name}: pw {tuple(pw.shape)} / sc {tuple(sc.shape)} do not fit "
+                             f"({n_layer}, {d // 8}, {n})")
+    fmt = _cache_format(k_cache, k_scale)
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale go together")
+    packed = fmt == "packed"
+    seq_len = k_cache.shape[1] * (4 if packed else 1)
+    if k_cache.dim() != 5 or k_cache.shape[2:] != (b, h_kv, dh) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"caches must be (L, S{'/4' if packed else ''}, {b}, {h_kv}, {dh}), got "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    if fmt == "bf16" and not k_cache.dtype.is_floating_point:
+        raise ValueError(f"a cache without scales is a float cache, got {k_cache.dtype}")
+    if fmt != "bf16":
+        want_dtype = torch.int32 if packed else torch.int8
+        width = k_scale.shape[-1]
+        lead = (n_layer, 4, seq_len // 4, 1) if packed else (n_layer, seq_len, 1)
+        if (k_cache.dtype != want_dtype or v_cache.dtype != want_dtype or k_scale.shape != v_scale.shape
+                or tuple(k_scale.shape[:-1]) != lead or width % 128 or width < b * h_kv
+                or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+            raise ValueError(f"an {fmt} cache takes {want_dtype} values and f32 scales {lead + ('BHpad',)}, "
+                             f"got {k_cache.dtype} and {tuple(k_scale.shape)} {k_scale.dtype}")
+    if not (0 <= layer < n_layer and 0 <= pos < seq_len):
+        raise ValueError(f"layer {layer} / pos {pos} outside the cache ({n_layer} layers, {seq_len} slots)")
+    tensors = [xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache]
+    tensors += [t for t in (starts, k_scale, v_scale) if t is not None]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"all tensors must share one device, got {sorted({str(t.device) for t in tensors})}")
+    if starts is not None and tuple(starts.shape) != (b,):
+        raise ValueError(f"starts must be ({b},), got {tuple(starts.shape)}")
+    return fmt, seq_len
+
+
+def decode_attention_block_int4(
+    xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer: int, pos: int, n_head: int, *,
+    n_kv_head: int | None = None, starts=None, k_scale=None, v_scale=None,
+):
+    """One decode layer's int4 attention block (K5): ``(y (B, D) bf16,
+    k_cache, v_cache, k_scale, v_scale)``, the JAX package's return.
+
+    xa: (B, D) normed input; ``wqkv_pw`` (L, D/8, D + 2*H_kv*Dh) and
+    ``wo_pw`` (L, D/8, D) int32 with their ``sc`` (L, 2*Gp, N), stacked over
+    layers; the cache in one of three formats (``models/transformer.KVCache``):
+    float (L, S, B, H_kv, Dh) with no scales, int8 with ``k_scale``/
+    ``v_scale`` (L, S, 1, BHpad), or packed int32 (L, S/4, B, H_kv, Dh) with
+    residue-split scales (L, 4, S/4, 1, BHpad); updated IN PLACE at (layer,
+    pos). ``layer`` and ``pos`` are ints; ``starts`` optional (B,) first
+    valid slot per batch row.
+
+    A CUDA tensor launches the hand-written kernel
+    (``csrc/decode_block_int4.cu``: a float cache in bf16 or either int8
+    format, head_dim 128, 1..8 rows, D a multiple of 1024) or raises; a CPU
+    tensor takes
+    :func:`decode_attention_block_int4_reference`.
+    ``decode_attention_block_int4.launches`` counts kernel launches.
+    """
+    h_kv = n_kv_head or n_head
+    fmt, seq_len = _check_block(xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer, pos, n_head,
+                                h_kv, starts, k_scale, v_scale)
+    args = (xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer, pos, n_head)
+    kw = dict(n_kv_head=h_kv, starts=starts, k_scale=k_scale, v_scale=v_scale)
+    if xa.device.type == "cpu":
+        return decode_attention_block_int4_reference(*args, **kw)
+    if xa.device.type != "cuda":
+        raise ValueError(f"decode_attention_block_int4 runs on cuda or cpu, not {xa.device}")
+    b, d = xa.shape
+    dh = d // n_head
+    if dh != 128 or not 1 <= b <= DECODE_MAX_ROWS or d % 1024:
+        raise ValueError(f"the kernel takes head_dim 128, 1..{DECODE_MAX_ROWS} rows and D a multiple of 1024; "
+                         f"got {dh}, {b}, {d}")
+    if fmt == "bf16" and k_cache.dtype != torch.bfloat16:
+        raise ValueError(f"the kernel takes a bf16 float cache, got {k_cache.dtype}")
+    for pw, sc in ((wqkv_pw, wqkv_sc), (wo_pw, wo_sc)):
+        if pw.dtype != torch.int32 or sc.dtype != torch.bfloat16:
+            raise ValueError(f"packed weights must be int32 pw and bf16 sc, got {pw.dtype}, {sc.dtype}")
+    if wo_sc.shape[1] != wqkv_sc.shape[1] or wqkv_sc.shape[1] < 2 * (d // 128):
+        raise ValueError(f"wqkv_sc and wo_sc must have the same 2*Gp >= {2 * (d // 128)} rows")
+    tensors = [wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache] + [t for t in (k_scale, v_scale) if t is not None]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("decode_attention_block_int4 needs contiguous weights, caches and scales")
+    dev = xa.device
+    x = xa.to(torch.bfloat16).contiguous()
+    if starts is not None:
+        starts = starts.to(torch.int32).contiguous()
+    qout = wqkv_pw.shape[2]
+    split_len, n_splits, part_ml, part_acc = _split_scratch(pos + 1, b * n_head, dh, dev)
+    qkv = torch.empty((b, qout), dtype=torch.float32, device=dev)
+    ya = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((b * (d // 256) * qout,), dtype=torch.float32, device=dev)  # K/8/32 chunks x N
+    y = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _build.kernels().lib.mv_decode_block_int4(
+        _CACHE_FORMAT_CODE[fmt], x.data_ptr(), wqkv_pw.data_ptr(), wqkv_sc.data_ptr(), wo_pw.data_ptr(),
+        wo_sc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale), ptr(starts),
+        y.data_ptr(), layer, pos, b, d, n_head, h_kv, dh, seq_len,
+        0 if k_scale is None else k_scale.shape[-1], wqkv_sc.shape[1] // 2, n_splits, split_len,
+        qkv.data_ptr(), ya.data_ptr(), part.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"decode_attention_block_int4 kernel launch failed: cudaError_t {err}")
+    decode_attention_block_int4.launches += 1
+    return y, k_cache, v_cache, k_scale, v_scale
+
+
+decode_attention_block_int4.launches = 0

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from metavoice_tpu_torch.ops import _build
 from metavoice_tpu_torch.ops.quantized import (
+    DECODE_MAX_ROWS,
     I32_GROUPSIZE,
     matmul_int4_i32_reference,
     matmul_int8_i32_reference,
@@ -45,7 +46,7 @@ from metavoice_tpu_torch.ops.quantized import (
 SPLIT_POSITIONS = 64  # cache slots per block of the attention's sequence split
 MAX_SPLITS = 32
 HEAD_DIM = 128  # the kernel's head width
-MAX_BATCH = 8  # rows the kernel's GEMV holds in registers
+MAX_BATCH = DECODE_MAX_ROWS
 GEMV_CHUNK_ROWS = 32  # packed word rows per GEMV block: K/VPW/32 partial sums per output
 VALUES_PER_WORD = {"i4": 8, "i8": 4}
 

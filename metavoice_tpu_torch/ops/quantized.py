@@ -30,16 +30,21 @@ spanning K.
 Both matmuls are ``metavoice_tpu_torch/csrc/matmul_int4_i32.cu`` (one
 template, two C entries); a CUDA tensor launches the kernel or raises, a CPU
 tensor takes the plain version (:func:`matmul_int4_i32_reference`,
-:func:`matmul_int8_i32_reference`).
+:func:`matmul_int8_i32_reference`). K6, :func:`decode_ffn_int4`, one decode
+layer's int4 SwiGLU FFN, replaces ``metavoice_tpu/ops/quantized.py:
+decode_ffn_int4`` (the Pallas TPU kernel ``_ffn_int4_kernel``); its kernel
+is ``metavoice_tpu_torch/csrc/decode_block_int4.cu``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from metavoice_tpu_torch.ops import _build
 
 I32_GROUPSIZE = 128  # serving groupsize (reference default, fast_quantize.py:70)
+DECODE_MAX_ROWS = 8  # rows the decode kernels' GEMV (csrc/decode_gemv.cuh) holds in registers
 _QUANTIZABLE_LAYER_KEYS = ("wqkv", "wo", "w1", "w3", "w2", "w_fc", "w_proj")
 _HIDDEN_OUT_KEYS = ("w1", "w3", "w_fc")  # hidden dim on the out axis
 
@@ -382,3 +387,75 @@ def matmul_int8_i32(x, p8, sc8):
 
 
 matmul_int8_i32.launches = 0
+
+
+# ------------------------------------------------------------------ K6: one int4 SwiGLU FFN
+
+def decode_ffn_int4_reference(x, pw1, sc1, pw3, sc3, pw2, sc2, layer: int, groupsize: int = I32_GROUPSIZE):
+    """Plain PyTorch version of K6: the CPU path and the card's oracle.
+
+    The JAX kernel's arithmetic (``_ffn_int4_kernel``): ``h1 = x @ w1`` and
+    ``h3 = x @ w3`` in f32 (the arithmetic of
+    :func:`matmul_int4_i32_reference`, x rounded to bf16); ``h =
+    bf16(silu(h1) * h3)`` with silu and the product in f32; ``y = h @ w2``
+    with bf16(sum h_g) in the c term -> (B, D) f32."""
+    h1 = matmul_int4_i32_reference(x, pw1[layer], sc1[layer], groupsize)
+    h3 = matmul_int4_i32_reference(x, pw3[layer], sc3[layer], groupsize)
+    h = (F.silu(h1) * h3).to(torch.bfloat16)
+    return matmul_int4_i32_reference(h, pw2[layer], sc2[layer], groupsize)
+
+
+def decode_ffn_int4(x, pw1, sc1, pw3, sc3, pw2, sc2, layer: int, groupsize: int = I32_GROUPSIZE):
+    """One decode layer's int4 SwiGLU FFN (K6): (B, D) normed input -> (B, D) f32.
+
+    ``pw1``/``pw3`` (L, D/8, Ip) and ``pw2`` (L, Ip/8, D) int32 with their
+    ``sc`` (L, 2*Gp, N), stacked over layers; ``layer`` an int. A CUDA
+    tensor launches the hand-written kernel (``csrc/decode_block_int4.cu``:
+    1..8 rows, D and Ip multiples of 1024, groupsize 128) or raises; a CPU
+    tensor takes :func:`decode_ffn_int4_reference`.
+    ``decode_ffn_int4.launches`` counts kernel launches.
+    """
+    if x.dim() != 2:
+        raise ValueError(f"x must be (B, D), got {tuple(x.shape)}")
+    b, d = x.shape
+    n_layer, ip = pw1.shape[0], pw1.shape[2]
+    for name, pw, sc, shape in (("w1", pw1, sc1, (n_layer, d // 8, ip)), ("w3", pw3, sc3, (n_layer, d // 8, ip)),
+                                ("w2", pw2, sc2, (n_layer, ip // 8, d))):
+        if tuple(pw.shape) != shape or sc.dim() != 3 or sc.shape[0] != n_layer or sc.shape[2] != shape[2]:
+            raise ValueError(f"{name}: pw {tuple(pw.shape)} / sc {tuple(sc.shape)} do not fit {shape}")
+    if not 0 <= layer < n_layer:
+        raise ValueError(f"layer {layer} outside the {n_layer} stacked layers")
+    tensors = (x, pw1, sc1, pw3, sc3, pw2, sc2)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"all tensors must share one device, got {sorted({str(t.device) for t in tensors})}")
+    if x.device.type == "cpu":
+        return decode_ffn_int4_reference(x, pw1, sc1, pw3, sc3, pw2, sc2, layer, groupsize)
+    if x.device.type != "cuda":
+        raise ValueError(f"decode_ffn_int4 runs on cuda or cpu, not {x.device}")
+    if not 1 <= b <= DECODE_MAX_ROWS or d % 1024 or ip % 1024 or groupsize != I32_GROUPSIZE:
+        raise ValueError(f"the kernel takes 1..{DECODE_MAX_ROWS} rows, D and Ip multiples of 1024, groupsize 128; "
+                         f"got {b}, {d}, {ip}, {groupsize}")
+    if any(pw.dtype != torch.int32 for pw in (pw1, pw3, pw2)) or any(
+            sc.dtype != torch.bfloat16 for sc in (sc1, sc3, sc2)):
+        raise ValueError("packed weights must be int32 pw and bf16 sc")
+    if sc3.shape[1] != sc1.shape[1] or sc1.shape[1] < 2 * (d // 128) or sc2.shape[1] < 2 * (ip // 128):
+        raise ValueError(f"sc rows: w1/w3 need the same 2*Gp >= {2 * (d // 128)}, w2 2*Gp >= {2 * (ip // 128)}")
+    if not all(t.is_contiguous() for t in tensors[1:]):
+        raise ValueError("decode_ffn_int4 needs contiguous packed weights")
+    dev = x.device
+    xb = x.to(torch.bfloat16).contiguous()
+    h = torch.empty((b, ip), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((b * max(2 * (d // 256) * ip, (ip // 256) * d),), dtype=torch.float32, device=dev)
+    y = torch.empty((b, d), dtype=torch.float32, device=dev)
+    err = _build.kernels().lib.mv_decode_ffn_int4(
+        xb.data_ptr(), pw1.data_ptr(), sc1.data_ptr(), pw3.data_ptr(), sc3.data_ptr(), pw2.data_ptr(),
+        sc2.data_ptr(), y.data_ptr(), layer, b, d, ip, sc1.shape[1] // 2, sc2.shape[1] // 2,
+        h.data_ptr(), part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"decode_ffn_int4 kernel launch failed: cudaError_t {err}")
+    decode_ffn_int4.launches += 1
+    return y
+
+
+decode_ffn_int4.launches = 0

@@ -29,17 +29,27 @@ int8 matmul and decode-attention kernels), and the tied head stays bf16.
 ``guidance_scale=(speaker, prompt)`` with a prompt scale above 1 is the
 reference's double guidance on 3 cache rows.
 
+``kv_cache_dtype="int8"`` or ``"int8_packed"`` makes the persistent KV
+caches quantized (models/transformer.KVCache: int8 values with per-(slot,
+row, kv head) f32 scales, the packed form four slots to an int32 word),
+half the bf16 cache's bytes. Prefill quantizes its rows on the plain path;
+with int4 weights each decode step runs per layer through the int4
+attention-block kernel (which quantizes the new row and attends over the
+int8 window) and the int4 FFN kernel, then the bf16 tied head. With bf16
+or int8 weights a quantized cache decodes on the plain dequantizing path,
+as in the JAX package, which warns on the card.
+
 Speculative decoding: ``TTS(components, draft_params=..., draft_cfg=...,
 speculative_gamma=4, draft_use_cfg=True)``. The draft shares the token
 space, lives on the same device, and is dense or int4-packed
 (``ops/quantized.quantize_params_int4_i32``; its T=1 steps then run
 through the int4 decode-stack kernel). ``spec_stats`` accumulates the
 acceptance ledger. As in the JAX package the speculative path refuses
-tensor parallelism and keeps bf16 caches.
+tensor parallelism and keeps bf16 caches whatever ``kv_cache_dtype`` is.
 
-Not ported yet: ``quantisation_mode="int8_plain"`` (its kernels K9-K11), a
-quantized KV cache, tensor parallelism, a draft checkpoint loader,
-streaming, MBD and the DF enhancer.
+Not ported yet: ``quantisation_mode="int8_plain"`` (its kernels K9-K11),
+tensor parallelism, a draft checkpoint loader, streaming, MBD and the DF
+enhancer.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ import dataclasses
 import hashlib
 import os
 import time
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -71,9 +82,10 @@ from metavoice_tpu_torch.models import spec_decode as sd
 from metavoice_tpu_torch.models import speaker_encoder as se
 from metavoice_tpu_torch.models import transformer as tfm
 from metavoice_tpu_torch.models.enhancer import get_enhancer
-from metavoice_tpu_torch.ops.attention import decode_attention, decode_attention_multi
+from metavoice_tpu_torch.ops.attention import decode_attention, decode_attention_block_int4, decode_attention_multi
 from metavoice_tpu_torch.ops.decode_stack import decode_stack_int4
 from metavoice_tpu_torch.ops.quantized import (
+    decode_ffn_int4,
     is_int4,
     is_int8_i32,
     matmul_int4_i32,
@@ -92,6 +104,8 @@ KERNEL_COUNTERS = {
     "k2_launches": (matmul_int4_i32, "launches"),
     "k3_launches": (decode_stack_int4, "launches"),
     "k4_launches": (decode_attention_multi, "launches"),
+    "k5_launches": (decode_attention_block_int4, "launches"),
+    "k6_launches": (decode_ffn_int4, "launches"),
     "k7_launches": (decode_stack_int4, "launches_i8"),
     "k8_launches": (matmul_int8_i32, "launches"),
 }
@@ -152,13 +166,12 @@ class TTS:
             raise ValueError(
                 f"Invalid quantisation mode {mode}! Must be None, 'int4' or 'int8' ('int8_packed')"
             )
-        unported = {
-            "kv_cache_dtype": kv_cache_dtype or self.runtime.kv_cache_dtype,
-            "tensor_parallel": tensor_parallel if tensor_parallel != 1 else None,
-        }
-        asked = [k for k, v in unported.items() if v is not None]
-        if asked:
-            raise NotImplementedError(f"{asked} not ported to PyTorch yet")
+        if tensor_parallel != 1:
+            raise NotImplementedError("tensor_parallel is not ported to PyTorch yet")
+        kv_cache_dtype = kv_cache_dtype or self.runtime.kv_cache_dtype
+        if kv_cache_dtype not in (None, "int8", "int8_packed"):
+            raise ValueError(f"Invalid kv_cache_dtype {kv_cache_dtype!r}; expected None, 'int8' or 'int8_packed'")
+        self.kv_cache_dtype = kv_cache_dtype
         self._compute_dtype = (
             torch.bfloat16 if self.runtime.dtype == "bfloat16" else torch.float32
         )
@@ -166,7 +179,7 @@ class TTS:
         # A quantized mode arrives as the mode, or as first-stage params that
         # already hold packed leaves, {"pw", "sc"} for int4 or {"p8", "sc8"}
         # for int8 (a JAX-written .npz, or a tree the JAX package quantized).
-        # Packing runs on the params' device; the int4 decode-stack kernel's
+        # Packing runs on the params' device; the int4 decode routes'
         # conditions are checked before any synthesis (int8 layers that miss
         # the int8 stack's run per layer).
         params1 = components.first_stage_params
@@ -181,16 +194,22 @@ class TTS:
                 quantize = quantize_params_int4_i32 if wanted == "int4" else quantize_params_int8_i32
                 params1 = quantize(params1)
             if self.quantisation_mode == "int4":
-                tfm.check_int4_decode(params1, components.first_stage_cfg, self._compute_dtype)
+                tfm.int4_decode_route(params1, components.first_stage_cfg, 3,
+                                      self._cache_format(draft_params is not None))
             components = dataclasses.replace(components, first_stage_params=params1)
+        if kv_cache_dtype and self.quantisation_mode != "int4" and self.device.type == "cuda":
+            warnings.warn(
+                f"kv_cache_dtype={kv_cache_dtype!r} without quantisation_mode='int4' has no decode kernel: "
+                "every step dequantizes the whole cache on the plain path. Pair it with "
+                "quantisation_mode='int4' for the per-layer kernels."
+            )
         self.c = components
         # speculative decoding (models/spec_decode.py): the draft proposes
         # `speculative_gamma` tokens a round and the first stage verifies
         # them in one T=gamma forward; B=1, bf16 caches. An int4 draft
-        # decodes through the decode-stack kernel, whose conditions are
-        # checked here.
+        # decodes through an int4 route, whose conditions are checked here.
         if draft_params is not None and any(is_int4(w) for w in draft_params["layers"].values()):
-            tfm.check_int4_decode(draft_params, draft_cfg, self._compute_dtype)
+            tfm.int4_decode_route(draft_params, draft_cfg, 3, self._compute_dtype)
         self._draft_params = draft_params
         self._draft_cfg = draft_cfg
         self._spec_gamma = int(speculative_gamma)
@@ -211,14 +230,22 @@ class TTS:
         # seconds per stage of the last synthesise; the first stage's decode
         # step count (speculative rounds with a draft) and the kernel
         # launches (K1 decode attention, K2 int4 matmul, K3 int4 decode
-        # stack, K4 multi-query decode attention, K7 int8 decode stack, K8
-        # int8 matmul) of the last synthesise
+        # stack, K4 multi-query decode attention, K5 int4 attention block,
+        # K6 int4 FFN, K7 int8 decode stack, K8 int8 matmul) of the last
+        # synthesise
         self.timings: dict[str, float] = {}
         self.stats: dict[str, int] = {}
 
+    def _cache_format(self, speculative: bool):
+        """The persistent caches' format: ``kv_cache_dtype``, or the compute
+        dtype when it is None or a draft is set (the speculative path keeps
+        float caches, as in the JAX package)."""
+        return self._compute_dtype if speculative or not self.kv_cache_dtype else self.kv_cache_dtype
+
     def _create_kv_cache(self, rows: int) -> tfm.KVCache:
         cfg1 = self.c.first_stage_cfg
-        return tfm.KVCache.create(cfg1, rows, cfg1.block_size, dtype=self._compute_dtype, device=self.device)
+        return tfm.KVCache.create(cfg1, rows, cfg1.block_size, device=self.device,
+                                  dtype=self._cache_format(self._draft_params is not None))
 
     def _persistent_kv_cache(self, guidance_scale) -> tfm.KVCache:
         """The reusable cache with the guidance rows this request needs."""

@@ -44,6 +44,16 @@ STEPS = 3
 TOL = 3e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These steps are many small CPU ops: beside other test processes, a
+    pool of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def model():
     jcfg = j_first_stage_config(n_layer=2, n_head=8, dim=1024, block_size=512)

@@ -52,6 +52,16 @@ TOL = 3e-2
 NARROW_TOL = 5e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These steps are many small CPU ops: beside other test processes, a
+    pool of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _build(jcfg, seed):
     jp = jtfm.init_params(jax.random.PRNGKey(seed), jcfg, dtype=jnp.bfloat16)
     jq = jqz.quantize_params_int8_i32(jp)

@@ -236,10 +236,14 @@ def test_port_synthesise_with_draft_and_prompt_guidance(pair, ref_wav, tmp_path)
 
 def test_unported_options_and_missing_card_raise(pair):
     _, tts = pair
-    for kw in ({"quantisation_mode": "int4"}, {"kv_cache_dtype": "int8"},
+    for kw in ({"quantisation_mode": "int4"}, {"quantisation_mode": "int4", "kv_cache_dtype": "int8"},
                {"tensor_parallel": 2}, {"quantisation_mode": "int8_plain"}):
         with pytest.raises(NotImplementedError):
             TTS(tts.c, device="cpu", **kw)
+    # the quantized KV cache is ported (tests/test_torch_kv_cache.py); an unknown format is refused
+    assert TTS(tts.c, device="cpu", kv_cache_dtype="int8_packed")._kv_cache.packed
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        TTS(tts.c, device="cpu", kv_cache_dtype="int4")
     # a draft is ported: it needs its config, and refuses tensor parallelism as in JAX
     draft = dict(draft_params=tts.c.first_stage_params, draft_cfg=tts.c.first_stage_cfg)
     TTS(tts.c, device="cpu", **draft)
