@@ -102,9 +102,33 @@ Phases, one line each; any failure exits non-zero and prints no result:
                "int8" and "int8_packed").synthesise: a finite wav; K5 and K6
                launches == n_layer x decode steps, K2 == 5 x n_layer x
                prefills, K1 == K3 == K4 == K7 == K8 == 0; ms per token beside
-               phase 9's and the cache bytes of each format.
+               phase 9's and the cache bytes of each format;
+ 25. K11     - the plain-int8 matmul against its plain version at the
+               main-path shapes (M = 256; K x N of 2048 x 6144, 2048 x 2048,
+               2048 x 5632, 5632 x 2048), at M = 1, 2, 8, 200 and with f32
+               x: every element within 1e-3 max |ref| plus one bf16 ulp of
+               the element; times of one layer's five projections beside
+               the plain version, torch._weight_int8pack_mm and the bound;
+ 26. K9      - the plain-int8 attention-block kernel against its plain
+               version at the main-path shape (24 stacked layers, D 2048,
+               16 heads, B 2, S 2048, bf16 cache) at pos 0, 77, 255, 2047,
+               with one row's start past pos and with NaN past pos: y
+               within 2e-2 of max |y|, the new row within one bf16 ulp,
+               every other slot unchanged; times per layer at pos 255 and
+               2047 beside the plain version and the bound;
+ 27. K10     - the plain-int8 FFN kernel against its plain version at D
+               2048, I 5632, rows 1, 2, 3: within 1e-2 of max |y|; times;
+ 28. small-int8p - 2-layer 512-wide plain-int8 first stages, MHA (T = 1
+               through K9/K10) and GQA with 2 kv heads (K11 at M = 2, K4,
+               K10), on the card and on the CPU under the same Gumbel
+               draws: the same tokens or phase 23's flip rule, and each
+               route's launches;
+ 29. synth-int8p - full-width TTS(quantisation_mode="int8_plain").synthesise:
+               a finite wav; K9 and K10 launches == n_layer x decode steps,
+               K11 == 5 x n_layer x prefills, every other kernel 0; ms per
+               token beside phases 9 and 14.
 
-Phases 5, 9, 14, 18, 19, 20 and 24 are the main paths: every kernel count is
+Phases 5, 9, 14, 18, 19, 20, 24 and 29 are the main paths: every kernel count is
 set to 0 just before each and read just after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
@@ -158,6 +182,16 @@ K5_TOL = 2e-2
 K5_POS = (0, 77, 255, 2047)
 K5_TIMED = (255, 2047)  # the JSON line carries the int8 cache at pos 255
 K6_TOL = 1e-2
+# K11: the same bf16 products as its plain version summed in another order,
+# rounded to x's dtype, so a bf16 output may land one ulp apart
+K11_TOL = 1e-3
+# K9: the same roundings as its plain version, but the softmax runs online
+# per split and the f32 sums in other orders (as K5)
+K9_TOL = 2e-2
+K9_POS = (0, 77, 255, 2047)
+K9_TIMED = (255, 2047)  # the JSON line carries pos 255
+K10_TOL = 1e-2
+K10_CASES = ((1, 0), (2, 11), (3, 23))  # (rows, layer)
 KV_FORMATS = ("bf16", "int8", "int8_packed")
 SYNTH_TEXT = "The quick brown fox jumps over the lazy dog, twice."
 # H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s
@@ -703,16 +737,15 @@ def phase_small4(torch):
           f"{len(toks[0])}/{len(toks[1])} tokens identical (printed, not required)")
 
 
-def phase_synth_quantized(torch, workdir: str, ref: str, mode: str, label: str, kernels: tuple,
-                          compared: dict) -> dict:
-    """Full-width TTS(quantisation_mode=mode).synthesise: a finite wav, the
-    decode-stack kernel launched once a decode step, the prefill matmul
-    5 x n_layer times a prefill, every other kernel never. -> counts, the
-    TTS and ms per token."""
+def phase_synth_quantized(torch, workdir: str, ref: str, mode: str, label: str, per_step: dict,
+                          matmul: str, compared: dict) -> dict:
+    """Full-width TTS(quantisation_mode=mode).synthesise: a finite wav, each
+    kernel of ``per_step`` launched that many times a decode step, the
+    prefill matmul 5 x n_layer times a prefill, every other kernel never.
+    -> counts, the TTS and ms per token."""
     from metavoice_tpu_torch.core.text import chunk_text, normalize_text
     from metavoice_tpu_torch.runtime.tts import MAX_CHARS_PER_CHUNK, TTS
 
-    stack, matmul = kernels
     t0 = time.perf_counter()
     tts = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, f"out_{mode}"),
                           quantisation_mode=mode)
@@ -723,7 +756,8 @@ def phase_synth_quantized(torch, workdir: str, ref: str, mode: str, label: str, 
     steps = tts.stats["decode_steps"]
     prefills = len(chunk_text(normalize_text(SYNTH_TEXT), MAX_CHARS_PER_CHUNK) or [""])
     want = dict.fromkeys(counts, 0)
-    want.update({stack: steps, matmul: 5 * cfg1.n_layer * prefills})
+    want.update({k: steps * n for k, n in per_step.items()})
+    want[matmul] = 5 * cfg1.n_layer * prefills
     if steps == 0 or counts != want:
         fail(f"{mode} synthesise launched {counts}, expected {want}")
     check_stats(tts, counts)
@@ -810,29 +844,35 @@ def phase_k8(torch) -> dict:
 
 
 def _k8_library_ms(torch, x, packed, lib_name: str) -> tuple[float, str]:
-    """One PyTorch call for the same product: torch._weight_int8pack_mm on the
-    same int8 values and per-column scales, or, where this torch lacks a CUDA
-    kernel for it, torch.matmul on the bf16-dequantized weight (the
-    dequantization untimed). Its answer is checked against the int8 product
-    first. -> (ms, the call timed)."""
+    """K8's library call: _int8pack_ms on the packed weights' int8 values
+    and per-column scales, against the int8 product."""
     from metavoice_tpu_torch.ops import quantized as Q
 
-    ref = Q.matmul_int8_i32_reference(x, *packed[0])
-    tol = 2e-2 * ref.abs().max().item()  # bf16 output and weights: a few bf16 ulps of the sum
+    mats = [(Q.unpack_int8_i32(p8), sc8[0]) for p8, sc8 in packed]
+    return _int8pack_ms(torch, x, mats, Q.matmul_int8_i32_reference(x, *packed[0]), lib_name, "11 K8")
+
+
+def _int8pack_ms(torch, x, mats, ref, lib_name: str, label: str) -> tuple[float, str]:
+    """One PyTorch call for the product x @ (q * s) with mats [(q (K, N) int8,
+    s (N,))]: torch._weight_int8pack_mm on the same int8 values and scales,
+    or, where this torch lacks a CUDA kernel for it, torch.matmul on the
+    bf16-dequantized weight (the dequantization untimed). Its answer is
+    checked against ref first. -> (ms, the call timed)."""
+    tol = 2e-2 * ref.float().abs().max().item()  # bf16 output and weights: a few bf16 ulps of the sum
     if lib_name == "torch._weight_int8pack_mm":
         try:
-            libs = [(Q.unpack_int8_i32(p8).T.contiguous(), sc8[0].contiguous()) for p8, sc8 in packed]
+            libs = [(q.T.contiguous(), s.to(x.dtype).contiguous()) for q, s in mats]
             y = torch._weight_int8pack_mm(x, *libs[0])
-            if (y.float() - ref).abs().max().item() > tol:
+            if (y.float() - ref.float()).abs().max().item() > tol:
                 raise RuntimeError("its result disagrees with the int8 product")
             return _rotate_ms(torch, lambda i: torch._weight_int8pack_mm(x, *libs[i]), len(libs)), lib_name
         except (AttributeError, RuntimeError, NotImplementedError) as e:
-            print(f"[11 K8] torch._weight_int8pack_mm not usable here ({str(e)[:120]}); "
+            print(f"[{label}] torch._weight_int8pack_mm not usable here ({str(e)[:120]}); "
                   "timing torch.matmul on the bf16-dequantized weight instead")
-    dense = [(Q.unpack_int8_i32(p8).float() * sc8[0].float()).to(torch.bfloat16) for p8, sc8 in packed]
+    dense = [(q.float() * s.float()).to(torch.bfloat16) for q, s in mats]
     y = torch.matmul(x, dense[0])
-    if (y.float() - ref).abs().max().item() > tol:
-        fail("torch.matmul on the dequantized int8 weight disagrees with the int8 product")
+    if (y.float() - ref.float()).abs().max().item() > tol:
+        fail(f"[{label}] torch.matmul on the dequantized int8 weight disagrees with the int8 product")
     return _rotate_ms(torch, lambda i: torch.matmul(x, dense[i]), len(dense)), \
         "torch.matmul(bf16 dequantized)"
 
@@ -1502,6 +1542,32 @@ def _guided_scores(torch, params, cfg, prompt, spk, tokens, noise, dev, fmt: str
     return (S.cfg_merge(logits.float(), 3.0) + noise[len(tokens)].to(dev)).cpu()[0]
 
 
+def _tokens_agree(torch, label: str, toks: dict, params: tuple, cfg, prompt, spk, noise, fmt) -> str:
+    """The CPU's and the card's tokens under the same Gumbel draws are the
+    same, or, at the first step where they part, the two tokens are the
+    CPU's top two scores, closer than the largest score gap between the two
+    runs (a rounding flip). -> what was seen; fails otherwise."""
+    a, c = toks["cpu"], toks["cuda"]
+    same = next((i for i, (u, v) in enumerate(zip(a, c)) if u != v), None)
+    if same is None and len(a) == len(c):
+        return f"{len(a)} tokens identical"
+    i = same if same is not None else min(len(a), len(c))
+    if i == min(len(a), len(c)):
+        fail(f"{label}: one run ended (EOA) before the other: {len(c)} vs {len(a)} tokens")
+    scores = {name: _guided_scores(torch, p, cfg, prompt, spk, a[:i], noise, torch.device(name), fmt)
+              for name, p in zip(("cpu", "cuda"), params)}
+    top2 = torch.topk(scores["cpu"], 2)
+    margin = (top2.values[0] - top2.values[1]).item()
+    gap = (scores["cuda"] - scores["cpu"]).abs().max().item()
+    if {int(a[i]), int(c[i])} != set(top2.indices.tolist()) or margin > 2 * gap:
+        fail(f"{label}: tokens part at step {i} ({a[i]} on the CPU, {c[i]} on the card), and that is "
+             f"no rounding flip: the CPU's top two {top2.indices.tolist()} are {margin:.4g} apart, the "
+             f"largest score gap between the two runs is {gap:.4g}")
+    return (f"the first {i} of {len(a)} tokens identical; step {i} is a rounding flip between tokens {a[i]} "
+            f"and {c[i]}, the CPU's top two, {margin:.4g} apart against a largest score gap of {gap:.4g} "
+            f"between the card and the CPU")
+
+
 def phase_small_kv8(torch):
     """An int4 first stage on a quantized cache, card (K5/K6) vs CPU (plain)."""
     from metavoice_tpu_torch.core import sampling as S
@@ -1534,26 +1600,8 @@ def phase_small_kv8(torch):
                             k6_launches=cfg.n_layer * stats["decode_steps"])
             if counts != want:
                 fail(f"small-kv8 {fmt} on {name} launched {counts}, expected {want}")
-        a, c = toks["cpu"], toks["cuda"]
-        same = next((i for i, (u, v) in enumerate(zip(a, c)) if u != v), None)
-        if same is None and len(a) == len(c):
-            shown.append(f"{fmt}: {len(a)} tokens identical")
-            continue
-        i = same if same is not None else min(len(a), len(c))
-        if i == min(len(a), len(c)):
-            fail(f"small-kv8 {fmt}: one run ended (EOA) before the other: {len(c)} vs {len(a)} tokens")
-        scores = {name: _guided_scores(torch, p, cfg, prompt, spk, a[:i], noise, torch.device(name), fmt)
-                  for name, p in (("cpu", cpu), ("cuda", gpu))}
-        top2 = torch.topk(scores["cpu"], 2)
-        margin = (top2.values[0] - top2.values[1]).item()
-        gap = (scores["cuda"] - scores["cpu"]).abs().max().item()
-        if {int(a[i]), int(c[i])} != set(top2.indices.tolist()) or margin > 2 * gap:
-            fail(f"small-kv8 {fmt}: tokens part at step {i} ({a[i]} on the CPU, {c[i]} on the card), and that is "
-                 f"no rounding flip: the CPU's top two {top2.indices.tolist()} are {margin:.4g} apart, the "
-                 f"largest score gap between the two runs is {gap:.4g}")
-        shown.append(f"{fmt}: the first {i} of {len(a)} tokens identical; step {i} is a rounding flip between "
-                     f"tokens {a[i]} and {c[i]}, the CPU's top two, {margin:.4g} apart against a largest score "
-                     f"gap of {gap:.4g} between the card and the CPU")
+        shown.append(f"{fmt}: " + _tokens_agree(torch, f"small-kv8 {fmt}", toks, (cpu, gpu), cfg, prompt, spk,
+                                                noise, fmt))
     print(f"[23 small-kv8] int4 first stage (2L/8H/1024d, Ip 2048) on quantized KV caches, the card (K5/K6) vs "
           f"the CPU (plain versions), same Gumbel draws: {'; '.join(shown)}")
 
@@ -1595,6 +1643,276 @@ def phase_synth_kv8(torch, workdir: str, ref: str, comps4, compared: dict) -> di
     return results
 
 
+def _bf16_ulp(torch, t):
+    """One bf16 ulp of each element of t (2^(e - 8) for |t| = m 2^e, m in
+    [0.5, 1)); 2^-133 at 0."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def k11_case(torch, m: int, k: int, n: int, gen, dtype=None) -> float:
+    """K11 against its plain version on seeded inputs: every element within
+    K11_TOL of max |ref| plus one bf16 ulp of the element (both round the
+    same f32 value to x's dtype, summed in other orders) -> the largest gap
+    as a share of max |ref|. Raises AssertionError on a disagreement."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    q, s = Q.quantize_int8(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype or torch.bfloat16)
+    y = Q.matmul_int8(x, q, s)
+    torch.cuda.synchronize()
+    ref = Q.matmul_int8_reference(x, q, s)
+    what = f"M {m}, K {k}, N {n}, x {x.dtype}"
+    assert y.shape == (m, n) and y.dtype == x.dtype and torch.isfinite(y).all(), f"K11 output bad at {what}"
+    top = ref.float().abs().max().item()
+    gap = (y.float() - ref.float()).abs()
+    ulp = _bf16_ulp(torch, ref) if x.dtype == torch.bfloat16 else torch.zeros_like(gap)
+    assert (gap <= K11_TOL * top + ulp).all(), f"K11 disagrees with the plain version at {what}"
+    return gap.max().item() / top
+
+
+def phase_k11(torch) -> dict:
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(111)
+    d, i_sz = 2048, 5632
+    layer_shapes = [(d, 3 * d), (d, d), (d, i_sz), (d, i_sz), (i_sz, d)]  # qkv, wo, w1, w3, w2
+    cases = [(K2_M, k, n, None) for k, n in layer_shapes[:3] + layer_shapes[4:]]
+    cases += [(1, d, 3 * d, None), (2, d, d, None), (8, d, i_sz, None), (200, d, 3 * d, None),
+              (2, d, 3 * d, torch.float32)]
+    worst = 0.0
+    for m, k, n, dtype in cases:
+        try:
+            worst = max(worst, k11_case(torch, m, k, n, gen, dtype))
+        except AssertionError as e:
+            fail(str(e))
+
+    # times of one prefill layer's five projections, each on 8 weight sets
+    # in turn (100 MB and more a shape), so the weights come from HBM
+    n_sets = 8
+    x = {k: torch.randn((K2_M, k), generator=gen, device=dev).to(torch.bfloat16) for k in (d, i_sz)}
+    kernel = plain = library = 0.0
+    lib_name = "torch._weight_int8pack_mm"
+    n_bytes = n_flop = 0.0
+    per_shape = []
+    for k, n in layer_shapes:
+        mats = [Q.quantize_int8(torch.randn((k, n), generator=gen, device=dev) * 0.02) for _ in range(n_sets)]
+        xk = x[k]
+        t_k, t_ke = _layers_ms(torch, lambda i: Q.matmul_int8(xk, *mats[i]), n_sets)
+        t_p, _ = _layers_ms(torch, lambda i: Q.matmul_int8_reference(xk, *mats[i]), n_sets)
+        t_l, lib_name = _int8pack_ms(torch, xk, mats, Q.matmul_int8_reference(xk, *mats[0]), lib_name, "25 K11")
+        kernel, plain, library = kernel + t_k, plain + t_p, library + t_l
+        n_bytes += xk.numel() * 2 + k * n + n * 4 + K2_M * n * 2
+        n_flop += 2.0 * K2_M * k * n
+        per_shape.append(f"{k}x{n} {t_k:.4f} (eager {t_ke:.4f})")
+        del mats
+    bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
+    print(f"[25 K11] {len(cases)} cases agree (within {worst:.3g} of max |ref| at most, tol {K11_TOL} of max "
+          f"|ref| plus one bf16 ulp of each element); one layer's five projections at M {K2_M}, device time "
+          f"from a CUDA graph: kernel {kernel:.4f} ms ({'; '.join(per_shape)}), plain {plain:.4f} ms; "
+          f"{lib_name} {library:.4f} ms called eagerly; bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{n_flop / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); kernel at {n_flop / kernel / 1e9:.1f} TFLOP/s")
+    return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library, "library_call": lib_name}
+
+
+def _random_int8_plain_model(torch, cfg, seed: int, dev):
+    """The first stage's params from a seed, quantized to plain int8 on the device."""
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return Q.quantize_params_int8(tfm.init_params(cfg, device=dev, generator=gen, dtype=torch.bfloat16))
+
+
+def _k9_args(qp, layer: int):
+    lay = qp["layers"]
+    return lay["wqkv"]["q"][layer], lay["wqkv"]["scales"][layer], lay["wo"]["q"][layer], lay["wo"]["scales"][layer]
+
+
+def k9_case(torch, qp, cfg, pos: int, gen, *, starts=None, garbage=None, layer: int = 5) -> float:
+    """One K9 call against its plain version on copies of the same bf16
+    cache: y within K9_TOL of max |y|; the new K/V row within one bf16 ulp
+    (plus 1e-4 of its largest value, where a value near 0 cancels); every
+    other slot bit-identical -> max |dy| / max |y|. Raises AssertionError on
+    a disagreement."""
+    from metavoice_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    b = MAIN_SHAPE["b"]
+    kv = _kv_cache(torch, cfg, "bf16", gen, dev, b, pos, garbage)
+    ref_k, ref_v, orig_k, orig_v = kv.k.clone(), kv.v.clone(), kv.k.clone(), kv.v.clone()
+    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    args = _k9_args(qp, layer)
+    y_ref = A.decode_attention_block_int8_reference(x, *args, ref_k, ref_v, layer, pos, cfg.n_head,
+                                                    starts=st)[0].float()
+    y = A.decode_attention_block_int8(x, *args, kv.k, kv.v, layer, pos, cfg.n_head, starts=st)[0].float()
+    torch.cuda.synchronize()
+    what = f"pos {pos}, starts {starts}, garbage {garbage}"
+    assert y.shape == (b, cfg.dim) and torch.isfinite(y).all(), f"K9 output bad at {what}"
+    rel = (y - y_ref).abs().max().item() / y_ref.abs().max().item()
+    assert rel <= K9_TOL, f"K9 disagrees with the plain version at {what}: {rel:.3g} of max |y|"
+    other = torch.ones(kv.k.shape[:2], dtype=torch.bool, device=dev)
+    other[layer, pos] = False
+    for got, want, before in ((kv.k, ref_k, orig_k), (kv.v, ref_v, orig_v)):
+        for t in (want, before):
+            assert torch.equal(got[other].view(torch.int16), t[other].view(torch.int16)), \
+                f"K9 changed cache slots besides the new row at {what}"
+        row, ref_row = got[layer, pos].float(), want[layer, pos].float()
+        excess = ((row - ref_row).abs() - _bf16_ulp(torch, ref_row)).max().item()
+        assert excess <= 1e-4 * ref_row.abs().max().item(), f"K9's new row is more than one bf16 ulp off at {what}"
+    return rel
+
+
+def _k9_bound(cfg, pos: int, b: int) -> tuple[float, str]:
+    """K9's least time at pos: one layer's int8 wqkv and wo with their f32
+    scales, the window's bf16 K and V, x, y and the new rows; its products."""
+    d, dh = cfg.dim, cfg.head_dim
+    slot = 2 * b * cfg.n_head * dh * 2  # one slot's K and V, bf16
+    n_bytes = 4 * d * d + 4 * 4 * d + (pos + 1) * slot + slot + 2 * b * d * 2
+    n_flop = 2.0 * b * d * 4 * d + 4.0 * b * cfg.n_head * (pos + 1) * dh
+    return bound(n_bytes, n_flop, BF16_FLOP_S)
+
+
+def phase_k9(torch) -> dict:
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    b = MAIN_SHAPE["b"]
+    cfg = first_stage_config()
+    qp = _random_int8_plain_model(torch, cfg, 99, dev)
+    gen = torch.Generator(device=dev).manual_seed(99)
+    cases = [(p, None, None) for p in K9_POS] + [(255, (100, 300), None), (1000, None, float("nan"))]
+    worst = 0.0
+    for pos, starts, garbage in cases:
+        try:
+            worst = max(worst, k9_case(torch, qp, cfg, pos, gen, starts=starts, garbage=garbage))
+        except AssertionError as e:
+            fail(str(e))
+    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    kv = _kv_cache(torch, cfg, "bf16", gen, dev, b)
+    times, shown = {}, []
+    for pos in K9_TIMED:
+        def run(fn):
+            return lambda li: fn(x, *_k9_args(qp, li), kv.k, kv.v, li, pos, cfg.n_head)
+        kernel, eager = _layers_ms(torch, run(A.decode_attention_block_int8), cfg.n_layer)
+        plain, _ = _layers_ms(torch, run(A.decode_attention_block_int8_reference), cfg.n_layer)
+        bound_ms, bound_by = _k9_bound(cfg, pos, b)
+        times[pos] = (kernel, plain, bound_ms, bound_by)
+        shown.append(f"pos {pos}: kernel {kernel:.4f} ms ({eager:.4f} a call from Python), plain {plain:.4f}, "
+                     f"bound {bound_ms:.4f} ({bound_by})")
+    print(f"[26 K9] {len(cases)} cases at 24L/16H/2048d, B {b}, S 2048, bf16 cache (pos {K9_POS}; starts with "
+          f"one past pos; NaN past pos) agree: y within {worst:.3g} of max |y| (tol {K9_TOL}), the new row "
+          f"within one bf16 ulp, every other slot unchanged; per layer, device time from a CUDA graph: "
+          f"{'; '.join(shown)}")
+    kernel, plain, bound_ms, bound_by = times[K9_TIMED[0]]
+    return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "times": times}
+
+
+def _k10_args(qp, layer: int):
+    lay = qp["layers"]
+    return [lay[k][f][layer] for k in ("w1", "w3", "w2") for f in ("q", "scales")]
+
+
+def k10_case(torch, qp, layer: int, x) -> float:
+    """K10 against its plain version on one layer -> max |dy| / max |y|;
+    raises AssertionError past K10_TOL."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    y = Q.ffn_int8(x, *_k10_args(qp, layer))
+    torch.cuda.synchronize()
+    ref = Q.ffn_int8_reference(x, *_k10_args(qp, layer))
+    what = f"{x.shape[0]} rows, layer {layer}"
+    assert y.shape == ref.shape and y.dtype == torch.float32 and torch.isfinite(y).all(), f"K10 output bad at {what}"
+    rel = (y - ref).abs().max().item() / ref.abs().max().item()
+    assert rel <= K10_TOL, f"K10 disagrees with the plain version at {what}: {rel:.3g} of max |y|"
+    return rel
+
+
+def phase_k10(torch) -> dict:
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    cfg = first_stage_config()
+    qp = _random_int8_plain_model(torch, cfg, 100, dev)
+    gen = torch.Generator(device=dev).manual_seed(100)
+    worst = 0.0
+    for rows, layer in K10_CASES:
+        x = torch.randn((rows, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+        try:
+            worst = max(worst, k10_case(torch, qp, layer, x))
+        except AssertionError as e:
+            fail(str(e))
+    b = MAIN_SHAPE["b"]
+    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    kernel, eager = _layers_ms(torch, lambda li: Q.ffn_int8(x, *_k10_args(qp, li)), cfg.n_layer)
+    plain, _ = _layers_ms(torch, lambda li: Q.ffn_int8_reference(x, *_k10_args(qp, li)), cfg.n_layer)
+    i_sz = cfg.intermediate_size
+    n_bytes = 3 * cfg.dim * i_sz + 4 * (2 * i_sz + cfg.dim) + b * cfg.dim * 2 + b * cfg.dim * 4
+    bound_ms, bound_by = bound(n_bytes, 2.0 * b * 3 * cfg.dim * i_sz, BF16_FLOP_S)
+    print(f"[27 K10] rows 1, 2, 3 at D {cfg.dim}, I {i_sz} agree (within {worst:.3g} of max |y|, tol {K10_TOL}); "
+          f"per layer at B {b}, device time from a CUDA graph: kernel {kernel:.4f} ms ({eager:.4f} a call from "
+          f"Python, {n_bytes / kernel / 1e6:.0f} GB/s), plain {plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{n_bytes / 1e6:.1f} MB)")
+    return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def phase_small_int8p(torch):
+    """Plain-int8 first stages on the card vs the CPU path, same weights and
+    Gumbel draws: an MHA one (K9/K10 at T = 1) and a GQA one (K11, K4, K10)."""
+    from metavoice_tpu_torch.core import sampling as S
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    shown = []
+    for h_kv in (4, 2):
+        cfg = first_stage_config(n_layer=2, n_head=4, n_local_heads=h_kv, dim=512, intermediate_size=1536,
+                                 block_size=512)
+        gen = torch.Generator().manual_seed(28 + h_kv)
+        cpu = Q.quantize_params_int8(tfm.init_params(cfg, device="cpu", generator=gen, dtype=torch.bfloat16))
+        gpu = to_cuda(cpu)
+        if tfm.int8_block_ok(cpu, cfg, 2, torch.bfloat16) != (h_kv == 4):
+            fail(f"small-int8p: int8_block_ok is wrong for {h_kv} kv heads")
+        prompt = torch.randint(0, cfg.vocab_size, (40,), generator=gen).tolist()
+        spk = torch.randn(256, generator=gen)
+        n = 48
+        noise = S.gumbel_noise((n, 1, cfg.vocab_size), device="cpu", generator=gen)
+        toks = {}
+        for name, params in (("cpu", cpu), ("cuda", gpu)):
+            for fn, attr in counters().values():
+                setattr(fn, attr, 0)
+            stats = {}
+            kw = dict(noise=noise.to(name), max_new_tokens=n, top_p=1.0, stats=stats)
+            toks[name] = fs.generate(params, cfg, prompt, spk.numpy(), **kw)[len(prompt):]
+            counts = read_counts()
+            want = dict.fromkeys(counts, 0)
+            steps = stats["decode_steps"]
+            if name == "cuda":
+                want.update(k11_launches=5 * cfg.n_layer, k10_launches=cfg.n_layer * steps)
+                if h_kv == 4:
+                    want["k9_launches"] = cfg.n_layer * steps
+                else:
+                    want["k11_launches"] += 2 * cfg.n_layer * steps
+                    want["k4_launches"] = cfg.n_layer * steps
+            if counts != want:
+                fail(f"small-int8p ({h_kv} kv heads) on {name} launched {counts}, expected {want}")
+        route = "K9/K10" if h_kv == 4 else "K11 + K4 + K10"
+        shown.append(f"{h_kv} kv heads ({route}, launches {({k: v for k, v in counts.items() if v})}): "
+                     + _tokens_agree(torch, f"small-int8p ({h_kv} kv heads)", toks, (cpu, gpu), cfg, prompt, spk,
+                                     noise, torch.bfloat16))
+    print(f"[28 small-int8p] plain-int8 first stages (2L/4H/512d, I 1536), the card vs the CPU (plain versions), "
+          f"same Gumbel draws: {'; '.join(shown)}")
+
+
 def main() -> int:
     import torch
 
@@ -1603,6 +1921,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from metavoice_tpu_torch.core.config import first_stage_config
     from metavoice_tpu_torch.runtime.tts import TTS
 
     phase_build()
@@ -1618,7 +1937,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_small4(torch)
         int4 = phase_synth_quantized(torch, workdir, ref, "int4", "9 synth4",
-                                     ("k3_launches", "k2_launches"),
+                                     {"k3_launches": 1}, "k2_launches",
                                      {"bf16 phase 5": bf16["ms_per_token"]})
         comps["int4"] = int4["tts"].c
         phase_profile(torch, int4.pop("tts"), "10 profile4", {
@@ -1631,7 +1950,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_small8(torch)
         int8 = phase_synth_quantized(torch, workdir, ref, "int8", "14 synth8",
-                                     ("k7_launches", "k8_launches"),
+                                     {"k7_launches": 1}, "k8_launches",
                                      {"bf16 phase 5": bf16["ms_per_token"],
                                       "int4 phase 9": int4["ms_per_token"]})
         phase_profile(torch, int8.pop("tts"), "15 profile8", {
@@ -1662,6 +1981,18 @@ def main() -> int:
         phase_small_kv8(torch)
         kv8 = phase_synth_kv8(torch, workdir, ref, comps4, {"int4 phase 9": int4["ms_per_token"]})
         del comps4
+        torch.cuda.empty_cache()
+        k11 = phase_k11(torch)
+        k9 = phase_k9(torch)
+        torch.cuda.empty_cache()
+        k10 = phase_k10(torch)
+        torch.cuda.empty_cache()
+        phase_small_int8p(torch)
+        n_layer = first_stage_config().n_layer
+        int8p = phase_synth_quantized(torch, workdir, ref, "int8_plain", "29 synth-int8p",
+                                      {"k9_launches": n_layer, "k10_launches": n_layer}, "k11_launches",
+                                      {"int4 phase 9": int4["ms_per_token"], "int8 phase 14": int8["ms_per_token"]})
+        del int8p["tts"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each kernel's launches are those of the main path that runs it
     record = {"kernels": [
@@ -1684,6 +2015,12 @@ def main() -> int:
              "metavoice_tpu/ops/attention.py:1644", k5),
             ("decode_ffn_int4", "k6_launches", kv8["int8"], "decode_block_int4.cu",
              "metavoice_tpu/ops/quantized.py:866", k6),
+            ("decode_attention_block_int8", "k9_launches", int8p, "decode_block_int8.cu",
+             "metavoice_tpu/ops/attention.py:1750", k9),
+            ("ffn_int8", "k10_launches", int8p, "decode_block_int8.cu",
+             "metavoice_tpu/ops/quantized.py:407", k10),
+            ("matmul_int8", "k11_launches", int8p, "matmul_int4_i32.cu",
+             "metavoice_tpu/ops/quantized.py:153", k11),
         )
     ]}
     print(json.dumps(record))

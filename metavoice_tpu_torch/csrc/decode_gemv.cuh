@@ -1,7 +1,9 @@
-// The split-K CUDA-core GEMV over int32 weight words, for a few rows of
-// activations (B <= 8), shared by the int4/int8 decode stack
+// The split-K CUDA-core GEMV for a few rows of activations (B <= 8): over
+// int32 weight words, shared by the int4/int8 decode stack
 // (decode_stack_int4.cu, K3 and K7) and the per-layer int4 attention block
-// and FFN (decode_block_int4.cu, K5 and K6).
+// and FFN (decode_block_int4.cu, K5 and K6); and over plain (K, N) int8
+// weights (gemv8_partial), for the plain-int8 attention block and FFN
+// (decode_block_int8.cu, K9 and K10).
 //
 // A block of gemv_partial owns 32 word rows (int4: a quarter of one 128-row
 // group in each of the 8 nibble slabs) by 32 * CPT columns; neighbouring
@@ -13,6 +15,15 @@
 // the epilogue. The int4 products follow the TPU kernels'
 // _int4_group_matmul: per group, f32 sums of x times the raw nibbles, times
 // s_g, plus bf16(sum x_g) * c_g; the int8 ones _int8_word_matmul.
+//
+// gemv8_partial is the same split-K scheme over the plain layout: a block
+// owns 64 rows of K by 32 * CPL columns, a lane's 16-byte (CPL 16) or
+// 8-byte (CPL 8) load holds CPL neighbouring columns at one k, x is
+// broadcast per k from shared memory, and each thread keeps CPL partial sums
+// per row of x (64 registers at most: CPL narrows to 8 for B > 4). The
+// signed bytes are exact floats; the column scale is applied once, in
+// gemv_reduce, after the fixed-order sum over K: the TPU kernels' f32 dot of
+// bf16 x and bf16(q), times s.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -206,9 +217,12 @@ struct Epilogue {
   int kind;
   float* out_f32;            // kEpiF32, kEpiQKV: (b_rows, n)
   __nv_bfloat16* out_bf16;   // kEpiResid (added to in place), kEpiSwiglu, kEpiBf16: (b_rows, n)
+  const float* scale0;       // nullptr, or (n,) f32 column scales of the (first) product
+  const float* scale1;       // kEpiSwiglu: nullptr, or those of the second
   __nv_bfloat16* k_cache;    // kEpiQKV: the row write at (layer, pos)
   __nv_bfloat16* v_cache;
-  const int* pos;
+  const int* pos;            // nullptr: pos_host
+  int pos_host;
   int layer;
   int seq_len;
   int d;    // q columns before the k columns
@@ -223,6 +237,7 @@ gemv_reduce(const float* __restrict__ part, int n_chunks, int b_rows, int n, Epi
   const size_t stride = (size_t)b_rows * n;
   float y = 0.f;
   for (int c = 0; c < n_chunks; ++c) y += part[c * stride + i];
+  if (e.scale0 != nullptr) y *= e.scale0[i % n];
   switch (e.kind) {
     case kEpiF32:
       e.out_f32[i] = y;
@@ -234,7 +249,8 @@ gemv_reduce(const float* __restrict__ part, int n_chunks, int b_rows, int n, Epi
       if (col >= 0) {
         __nv_bfloat16* cache = col < e.dkv ? e.k_cache : e.v_cache;
         const int cc = col < e.dkv ? col : col - e.dkv;
-        cache[(((size_t)e.layer * e.seq_len + *e.pos) * b_rows + b) * e.dkv + cc] =
+        const int pos = e.pos != nullptr ? *e.pos : e.pos_host;
+        cache[(((size_t)e.layer * e.seq_len + pos) * b_rows + b) * e.dkv + cc] =
             __float2bfloat16_rn(y);
       }
       break;
@@ -245,6 +261,7 @@ gemv_reduce(const float* __restrict__ part, int n_chunks, int b_rows, int n, Epi
     case kEpiSwiglu: {
       float y3 = 0.f;
       for (int c = 0; c < n_chunks; ++c) y3 += part[(n_chunks + c) * stride + i];
+      if (e.scale1 != nullptr) y3 *= e.scale1[i % n];
       e.out_bf16[i] = __float2bfloat16_rn(y / (1.f + expf(-y)) * y3);
       break;
     }
@@ -265,6 +282,129 @@ cudaError_t launch_gemv(const __nv_bfloat16* x, int b_rows, int k, int n, int gp
   const int n_chunks = kw / kChunkRows;
   gemv_partial<NB, CPT, VPW><<<dim3(n / (32 * CPT), n_chunks, n_mats), kGemvThreads, 0, s>>>(
       x, b_rows, kw, n, gp, m0, m1, part);
+  MV_CHECK(cudaGetLastError());
+  const int total = b_rows * n;
+  gemv_reduce<<<(total + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(
+      part, n_chunks, b_rows, n, e);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- plain int8
+
+constexpr int kChunk8 = 64;  // K rows per gemv8_partial block
+constexpr int kRowsPerGemvWarp8 = kChunk8 / kGemvWarps;
+
+// Byte j of a word of four int8 weights whose sign bits are flipped
+// (w ^ 0x80808080, so the byte is q + 128), as an exact float: the byte in
+// the low mantissa bits of 2^23 by one byte permute, minus 2^23 + 128.
+__device__ __forceinline__ float s8_val(uint32_t flipped, int j) {
+  return __int_as_float((int)__byte_perm(flipped, 0x4B000000u, 0x7540u + j)) - 8388736.0f;
+}
+
+template <int CPL>
+__device__ __forceinline__ void load_bytes(const int8_t* p, uint32_t (&w)[CPL / 4]) {
+  static_assert(CPL == 16 || CPL == 8, "a lane reads 16 or 8 columns");
+  if constexpr (CPL == 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+  }
+}
+
+// Partial products of x (b_rows, K) bf16 with the plain int8 (K, N) matrix
+// of blockIdx.z (w0 or w1) over rows [chunk * 64, +64), rows past K taken as
+// zero: part[z][chunk][b][n] in f32, unscaled. N % 16 == 0, so a lane's
+// columns are all in or all out.
+template <int NB, int CPL>
+__global__ void __launch_bounds__(kGemvThreads)
+gemv8_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int k, int n,
+              const int8_t* __restrict__ w0, const int8_t* __restrict__ w1, float* __restrict__ part) {
+  constexpr int kCols = 32 * CPL;
+  const int8_t* w = blockIdx.z == 0 ? w0 : w1;
+  const int chunk = blockIdx.y;
+  const int n_chunks = gridDim.y;
+  const int col0 = blockIdx.x * kCols;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = chunk * kChunk8;
+
+  __shared__ float sx[kChunk8][NB];
+  // [warp][b][c][lane], padded so that the reduce below reads a lane's CPL
+  // columns without bank conflicts
+  __shared__ float sred[kGemvWarps][NB][CPL][33];
+
+  for (int i = tid; i < kChunk8 * NB; i += kGemvThreads) {
+    const int r = i / NB;
+    const int b = i % NB;
+    sx[r][b] = b < b_rows && row0 + r < k ? bf(x[(size_t)b * k + row0 + r]) : 0.f;
+  }
+  __syncthreads();
+
+  float acc[NB][CPL];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[b][c] = 0.f;
+
+  const int col = col0 + lane * CPL;
+  if (col < n) {
+#pragma unroll 4
+    for (int rr = 0; rr < kRowsPerGemvWarp8; ++rr) {
+      const int r = warp * kRowsPerGemvWarp8 + rr;
+      if (row0 + r >= k) break;
+      uint32_t wv[CPL / 4];
+      load_bytes<CPL>(w + (size_t)(row0 + r) * n + col, wv);
+      float xv[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) xv[b] = sx[r][b];
+#pragma unroll
+      for (int q = 0; q < CPL / 4; ++q) {
+        const uint32_t flipped = wv[q] ^ 0x80808080u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float wf = s8_val(flipped, j);
+#pragma unroll
+          for (int b = 0; b < NB; ++b) acc[b][4 * q + j] = fmaf(xv[b], wf, acc[b][4 * q + j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) sred[warp][b][c][lane] = acc[b][c];
+  __syncthreads();
+
+  for (int i = tid; i < NB * kCols; i += kGemvThreads) {
+    const int b = i / kCols;
+    const int cc = i % kCols;
+    if (b >= b_rows || col0 + cc >= n) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < kGemvWarps; ++wp) v += sred[wp][b][cc % CPL][cc / CPL];
+    part[((size_t)(blockIdx.z * n_chunks + chunk) * b_rows + b) * n + col0 + cc] = v;
+  }
+}
+
+// One product x (b_rows, K) bf16 @ plain int8 (K, N), or two of the same
+// shape (n_mats 2: w1 and w3 for the SwiGLU epilogue), the column scales in
+// e: gemv8_partial over ceil(K/64) chunks, then the fixed-order reduce.
+// part holds n_mats * ceil(K/64) * b_rows * N f32. Returns the launches'
+// cudaError_t.
+template <int NB, int CPL>
+cudaError_t launch_gemv8(const __nv_bfloat16* x, int b_rows, int k, int n, const int8_t* w0,
+                         const int8_t* w1, int n_mats, float* part, const Epilogue& e,
+                         cudaStream_t s) {
+  const int n_chunks = (k + kChunk8 - 1) / kChunk8;
+  gemv8_partial<NB, CPL><<<dim3((n + 32 * CPL - 1) / (32 * CPL), n_chunks, n_mats), kGemvThreads, 0, s>>>(
+      x, b_rows, k, n, w0, w1, part);
   MV_CHECK(cudaGetLastError());
   const int total = b_rows * n;
   gemv_reduce<<<(total + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(

@@ -37,6 +37,18 @@ all layers in its int8 form, then the final norm and the bf16 tied head;
 otherwise each layer runs ``_linear`` at M = B and the decode-attention
 kernel, as in the JAX package.
 
+Plain int8 (``ops/quantized.quantize_params_int8``, ``quantisation_mode=
+"int8_plain"``): ``{"q", "scales"}`` leaves run through the plain-int8
+matmul kernel (K11) in ``_linear``, on every device (its plain version on
+the CPU). A T=1 step of an MHA model on a bf16 cache runs each layer's
+attention block in one kernel (ops/attention.py:decode_attention_block_int8,
+K9: qkv, the new row, attention, o-proj) where ``int8_block_ok`` holds, and
+its FFN in another (ops/quantized.py:ffn_int8, K10) whenever w1, w3 and w2
+are plain int8; other T=1 layers take K11 and the decode attention. The
+JAX package takes K9/K10 only on the TPU; the port follows the kernels on
+every device. The JAX package's groupwise int4 leaves (``"zeros"``) are
+refused by name: their kernels K12/K13 are not ported.
+
 A quantized KV cache: prefill, and any cached forward of T <= 16, quantize
 the window's rows (``quantize_kv_rows``) and attend over the dequantized
 layer, as the JAX package's XLA path does. A T=1 step with int4 weights runs
@@ -61,10 +73,22 @@ from metavoice_tpu_torch.ops.attention import (
     MULTI_MAX_T,
     decode_attention,
     decode_attention_block_int4,
+    decode_attention_block_int8,
     decode_attention_multi,
 )
 from metavoice_tpu_torch.ops.decode_stack import HEAD_DIM, MAX_BATCH, decode_stack_int4
-from metavoice_tpu_torch.ops.quantized import decode_ffn_int4, is_int4, is_int8_i32, matmul_int4_i32, matmul_int8_i32
+from metavoice_tpu_torch.ops.quantized import (
+    DECODE_MAX_ROWS,
+    decode_ffn_int4,
+    ffn_int8,
+    is_int4,
+    is_int8_i32,
+    is_int8_plain,
+    matmul_int4_i32,
+    matmul_int8,
+    matmul_int8_i32,
+    refuse_unported_int4,
+)
 
 Params = dict[str, Any]
 
@@ -316,19 +340,19 @@ def _norm(x, w, b, norm_type: str, eps: float):
 
 
 def _linear(x, w, b=None):
-    """Dense (in, out) projection in x's dtype, or a packed int4 or int8 one
-    through its matmul kernel (f32 out, cast to x's dtype). The packers pad
-    K (int4 to a multiple of 1024, int8 to one of 4, and the FFN hidden dim
-    to one of 1024); narrower activations are zero-padded to it, which adds
-    nothing (int4 pad groups carry s = c = 0; int8 pad rows meet zero x both
-    in the byte product and in sum(x))."""
-    packed = None
-    if is_int4(w):
-        packed = (8 * w["pw"].shape[0], matmul_int4_i32, w["pw"], w["sc"])
-    elif is_int8_i32(w):
-        packed = (4 * w["p8"].shape[0], matmul_int8_i32, w["p8"], w["sc8"])
-    if packed is not None:
-        kp, matmul, words, scales = packed
+    """Dense (in, out) projection in x's dtype; a plain int8 one through K11
+    (x's dtype out); or a packed int4 or int8 one through its matmul kernel
+    (f32 out, cast to x's dtype). The packers pad K (int4 to a multiple of
+    1024, int8 to one of 4, and the FFN hidden dim to one of 1024); narrower
+    activations are zero-padded to it, which adds nothing (int4 pad groups
+    carry s = c = 0; int8 pad rows meet zero x both in the byte product and
+    in sum(x)). Groupwise int4 leaves raise NotImplementedError."""
+    refuse_unported_int4(w)
+    if is_int8_plain(w):
+        y = matmul_int8(x.reshape(-1, x.shape[-1]), w["q"], w["scales"]).reshape(*x.shape[:-1], -1)
+    elif is_int4(w) or is_int8_i32(w):
+        kp, matmul, words, scales = ((8 * w["pw"].shape[0], matmul_int4_i32, w["pw"], w["sc"]) if is_int4(w)
+                                     else (4 * w["p8"].shape[0], matmul_int8_i32, w["p8"], w["sc8"]))
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         if x2.shape[-1] < kp:
@@ -342,9 +366,16 @@ def _linear(x, w, b=None):
 
 
 def _mlp(x, lp: Params, cfg: TransformerConfig):
-    """SwiGLU or exact-GELU FFN."""
+    """SwiGLU or exact-GELU FFN. At T = 1 with plain int8 w1, w3 and w2 and
+    at most DECODE_MAX_ROWS rows, SwiGLU runs through K10 (f32 out, cast to
+    x's dtype)."""
     if cfg.nonlinearity_type == "swiglu":
-        return _linear(F.silu(_linear(x, lp["w1"])) * _linear(x, lp["w3"]), lp["w2"])
+        w1, w3, w2 = lp["w1"], lp["w3"], lp["w2"]
+        rows = x.numel() // x.shape[-1]
+        if x.shape[-2] == 1 and rows <= DECODE_MAX_ROWS and all(is_int8_plain(w) for w in (w1, w3, w2)):
+            y = ffn_int8(x.reshape(rows, -1), w1["q"], w1["scales"], w3["q"], w3["scales"], w2["q"], w2["scales"])
+            return y.reshape(x.shape).to(x.dtype)
+        return _linear(F.silu(_linear(x, w1)) * _linear(x, w3), w2)
     y = _linear(F.gelu(_linear(x, lp["w_fc"], lp.get("w_fc_b")), approximate="none"), lp["w_proj"])
     b = lp.get("w_proj_b")
     if b is not None:
@@ -502,6 +533,28 @@ def int8_stack_ok(params: Params, cfg: TransformerConfig, batch: int, cache_dtyp
     )
 
 
+def int8_block_ok(params: Params, cfg: TransformerConfig, batch: int, cache_dtype) -> bool:
+    """Whether a T=1 step runs each layer's attention block through K9: the
+    JAX package's conditions (plain int8 wqkv and wo, MHA, no qkv bias,
+    dim a multiple of 512, head_dim a multiple of 128, B*H a multiple of 8,
+    a float cache; bf16 here) and the kernel's (head_dim 128, at most 8
+    rows). A model with an o-proj bias takes the unfused route, since K9
+    has no bias (JAX's drops it)."""
+    layers = params["layers"]
+    return (
+        is_int8_plain(layers.get("wqkv"))
+        and is_int8_plain(layers.get("wo"))
+        and cfg.n_local_heads == cfg.n_head
+        and "wqkv_b" not in layers
+        and "wo_b" not in layers
+        and cfg.dim % 512 == 0
+        and cfg.head_dim == HEAD_DIM
+        and (batch * cfg.n_head) % 8 == 0
+        and batch <= DECODE_MAX_ROWS
+        and cache_dtype == torch.bfloat16
+    )
+
+
 def _layer(layers: Params, li: int) -> Params:
     """Layer li's view of the stacked weights (packed leaves included)."""
     return {
@@ -602,6 +655,50 @@ def _window_mask(cache_pos: int, t: int, seq_len: int, starts, device):
     return valid
 
 
+def _attention_block(xa, lp: Params, cfg: TransformerConfig, li: int, mask, kv_cache: KVCache | None, cache_pos,
+                     attn_starts, int8_block: bool):
+    """One layer's attention and o-proj of the normed input xa (B, T, D) as
+    ``apply_blocks`` routes it -> (B, T, D) in xa's dtype; the cache is
+    updated in place."""
+    t = xa.shape[1]
+    if int8_block:
+        w, wo = lp["wqkv"], lp["wo"]
+        y2, _, _ = decode_attention_block_int8(xa[:, 0, :], w["q"], w["scales"], wo["q"], wo["scales"],
+                                               kv_cache.k, kv_cache.v, li, cache_pos, cfg.n_head, starts=attn_starts)
+        return y2[:, None, :].to(xa.dtype)
+    quantized = kv_cache is not None and kv_cache.quantized
+    q, k_new, v_new = _qkv_proj(xa, lp, cfg)
+    if kv_cache is None:
+        y = _attend(q, k_new, v_new, cfg, mask, xa.dtype)
+    elif quantized:
+        layer_k, layer_v = _quantized_window(kv_cache, li, cache_pos, k_new, v_new, xa.dtype)
+        y = _attend_seq_major(q, layer_k, layer_v, cfg, mask, xa.dtype)
+    elif t == 1:
+        y3, _, _ = decode_attention(
+            q[:, :, 0].contiguous(),
+            k_new[:, :, 0].contiguous(),
+            v_new[:, :, 0].contiguous(),
+            kv_cache.k,
+            kv_cache.v,
+            li,
+            cache_pos,
+            starts=attn_starts,
+        )
+        y = y3.reshape(xa.shape[0], 1, cfg.n_head * cfg.head_dim).to(xa.dtype)
+    elif t <= MULTI_MAX_T:
+        y4, _, _ = decode_attention_multi(
+            q.contiguous(), k_new.contiguous(), v_new.contiguous(), kv_cache.k, kv_cache.v,
+            li, cache_pos, starts=attn_starts,
+        )
+        y = y4.transpose(1, 2).reshape(xa.shape[0], t, cfg.n_head * cfg.head_dim).to(xa.dtype)
+    else:
+        rows = slice(cache_pos, cache_pos + t)
+        kv_cache.k[li, rows] = k_new.permute(2, 0, 1, 3).to(kv_cache.k.dtype)
+        kv_cache.v[li, rows] = v_new.permute(2, 0, 1, 3).to(kv_cache.v.dtype)
+        y = _attend_seq_major(q, kv_cache.k[li], kv_cache.v[li], cfg, mask, xa.dtype)
+    return _linear(y, lp["wo"], lp.get("wo_b"))
+
+
 def apply_blocks(
     params: Params,
     cfg: TransformerConfig,
@@ -623,7 +720,9 @@ def apply_blocks(
       Packed int4/int8 projections run through their matmul kernels;
     * cache, T = 1 (decode): ``decode_attention`` writes the row and attends
       over the window [attn_starts, cache_pos] (GQA: through
-      ``decode_attention_multi``); ``mask`` is not used. With int4 layer
+      ``decode_attention_multi``); ``mask`` is not used. Where
+      ``int8_block_ok`` holds (plain int8), each layer's attention block is
+      one ``decode_attention_block_int8`` call instead. With int4 layer
       weights the step runs as ``int4_decode_route`` says: all layers in
       the decode-stack kernel, or per layer through the attention-block and
       FFN kernels (raises NotImplementedError when neither takes it); with
@@ -655,40 +754,11 @@ def apply_blocks(
     quantized = kv_cache is not None and kv_cache.quantized
     if quantized and t <= MULTI_MAX_T:
         mask = _window_mask(cache_pos, t, kv_cache.max_seq_len, attn_starts, x.device)
+    int8_block = kv_cache is not None and t == 1 and int8_block_ok(params, cfg, x.shape[0], kv_cache.k.dtype)
     for li in range(cfg.n_layer):
         lp = _layer(params["layers"], li)
         xa = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps)
-        q, k_new, v_new = _qkv_proj(xa, lp, cfg)
-        if kv_cache is None:
-            y = _attend(q, k_new, v_new, cfg, mask, x.dtype)
-        elif quantized:
-            layer_k, layer_v = _quantized_window(kv_cache, li, cache_pos, k_new, v_new, x.dtype)
-            y = _attend_seq_major(q, layer_k, layer_v, cfg, mask, x.dtype)
-        elif t == 1:
-            y3, _, _ = decode_attention(
-                q[:, :, 0].contiguous(),
-                k_new[:, :, 0].contiguous(),
-                v_new[:, :, 0].contiguous(),
-                kv_cache.k,
-                kv_cache.v,
-                li,
-                cache_pos,
-                starts=attn_starts,
-            )
-            y = y3.reshape(x.shape[0], 1, cfg.n_head * cfg.head_dim).to(x.dtype)
-        elif t <= MULTI_MAX_T:
-            y4, _, _ = decode_attention_multi(
-                q.contiguous(), k_new.contiguous(), v_new.contiguous(), kv_cache.k, kv_cache.v,
-                li, cache_pos, starts=attn_starts,
-            )
-            y = y4.transpose(1, 2).reshape(x.shape[0], t, cfg.n_head * cfg.head_dim).to(x.dtype)
-        else:
-            rows = slice(cache_pos, cache_pos + t)
-            kv_cache.k[li, rows] = k_new.permute(2, 0, 1, 3).to(kv_cache.k.dtype)
-            kv_cache.v[li, rows] = v_new.permute(2, 0, 1, 3).to(kv_cache.v.dtype)
-            y = _attend_seq_major(q, kv_cache.k[li], kv_cache.v[li], cfg, mask, x.dtype)
-        proj = _linear(y, lp["wo"], lp.get("wo_b"))
-        h = x + proj
+        h = x + _attention_block(xa, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block)
         x = h + _mlp(_norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), cfg.norm_type, cfg.norm_eps), lp, cfg)
     x = _norm(x, params["ln_f_w"], params.get("ln_f_b"), cfg.norm_type, cfg.norm_eps)
     return (x, kv_cache, False) if fused_head else (x, kv_cache)

@@ -17,6 +17,12 @@ plain PyTorch versions.
   ``metavoice_tpu/ops/attention.py:decode_attention_block_int4`` (the Pallas
   TPU kernel ``_decode_block_int4_kernel``); the kernel is
   ``metavoice_tpu_torch/csrc/decode_block_int4.cu``.
+* K9, ``decode_attention_block_int8``: one decode layer's plain-int8
+  attention block (qkv projection, the new K/V row in a bf16 cache,
+  attention over the window, o-proj), MHA. Replaces
+  ``metavoice_tpu/ops/attention.py:decode_attention_block_int8`` (the Pallas
+  TPU kernel ``_decode_block_kernel``); the kernel is
+  ``metavoice_tpu_torch/csrc/decode_block_int8.cu``.
 
 Each kernel's source says what bounds it on the card (the bytes of the cache
 window it reads, ``2 * (pos + T - min_start) * B * H_kv * Dh`` elements per
@@ -36,7 +42,7 @@ import math
 import torch
 
 from metavoice_tpu_torch.ops import _build
-from metavoice_tpu_torch.ops.quantized import DECODE_MAX_ROWS, matmul_int4_i32_reference
+from metavoice_tpu_torch.ops.quantized import DECODE_MAX_ROWS, gemv8_chunks, int8_dot, matmul_int4_i32_reference
 
 SPLIT_POSITIONS = 64  # cache slots per block of the sequence split
 MAX_SPLITS = 32
@@ -466,3 +472,110 @@ def decode_attention_block_int4(
 
 
 decode_attention_block_int4.launches = 0
+
+
+# ------------------------------------------------------------------ K9: one plain-int8 attention block
+
+def decode_attention_block_int8_reference(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache, layer: int, pos: int,
+                                          n_head: int, starts=None):
+    """Plain PyTorch version of K9: the CPU path and the card's oracle.
+
+    The TPU kernel's arithmetic (``_decode_block_kernel``): ``qkv = xa @
+    Wqkv * s`` in f32 (x rounded to bf16, as in K11); ``q = qkv[:, :D] *
+    1/sqrt(Dh)`` in f32; the new K/V row written in the cache's dtype at
+    (layer, pos); f32 attention of every head over ``[starts[b], pos]`` (a
+    start past ``pos`` taken as ``pos``), read back from the cache; y rounded
+    to bf16; ``y @ Wo * s`` rounded to bf16 -> (y (B, D) bf16, k_cache,
+    v_cache). Only slots ``[0, pos]`` are read, so garbage (even NaN) past
+    ``pos`` stays out (the TPU kernel reads whole chunks and lets it through
+    0 * NaN)."""
+    b, d = xa.shape
+    dh = d // n_head
+    qkv = int8_dot(xa, wqkv_q, wqkv_s)
+    q = (qkv[:, :d] * (1.0 / math.sqrt(dh))).reshape(b, n_head, dh)
+    for i, cache in enumerate((k_cache, v_cache)):
+        cache[layer, pos] = qkv[:, (i + 1) * d : (i + 2) * d].reshape(b, n_head, dh).to(cache.dtype)
+    n = pos + 1
+    s = torch.einsum("bhd,sbhd->bhs", q, k_cache[layer, :n].float())
+    if starts is not None:
+        slot = torch.arange(n, device=xa.device)
+        valid = slot[None, None, :] >= starts.clamp(max=pos)[:, None, None]
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    y = torch.einsum("bhs,sbhd->bhd", p, v_cache[layer, :n].float()) / p.sum(dim=-1, keepdim=True)
+    out = int8_dot(y.reshape(b, d).to(torch.bfloat16), wo_q, wo_s).to(torch.bfloat16)
+    return out, k_cache, v_cache
+
+
+def decode_attention_block_int8(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache, layer: int, pos: int,
+                                n_head: int, starts=None):
+    """One decode layer's plain-int8 attention block (K9): ``(y (B, D) bf16,
+    k_cache, v_cache)``, the JAX package's return.
+
+    xa: (B, D) normed input; this layer's ``wqkv_q`` (D, 3D) and ``wo_q``
+    (D, D) int8 with their (N,) f32 scales; the float caches (L, S, B, H,
+    Dh), MHA, updated IN PLACE at (layer, pos). ``layer`` and ``pos`` are
+    ints; ``starts`` optional (B,) first valid slot per batch row.
+
+    A CUDA tensor launches the hand-written kernel
+    (``csrc/decode_block_int8.cu``: a bf16 cache, head_dim 128, 1..8 rows) or
+    raises; a CPU tensor takes :func:`decode_attention_block_int8_reference`.
+    ``decode_attention_block_int8.launches`` counts kernel launches.
+    """
+    if xa.dim() != 2:
+        raise ValueError(f"xa must be (B, D), got {tuple(xa.shape)}")
+    b, d = xa.shape
+    if d % n_head:
+        raise ValueError(f"D={d} is not a multiple of n_head={n_head}")
+    dh = d // n_head
+    for name, q, sc, n in (("wqkv", wqkv_q, wqkv_s, 3 * d), ("wo", wo_q, wo_s, d)):
+        if tuple(q.shape) != (d, n) or tuple(sc.shape) != (n,):
+            raise ValueError(f"{name}: q {tuple(q.shape)} / scales {tuple(sc.shape)} do not fit ({d}, {n})")
+    if (k_cache.dim() != 5 or k_cache.shape[2:] != (b, n_head, dh) or v_cache.shape != k_cache.shape
+            or not k_cache.dtype.is_floating_point or v_cache.dtype != k_cache.dtype):
+        raise ValueError(f"caches must be float (L, S, {b}, {n_head}, {dh}), got {tuple(k_cache.shape)} "
+                         f"{k_cache.dtype}, {tuple(v_cache.shape)} {v_cache.dtype}")
+    n_layer, seq_len = k_cache.shape[:2]
+    if not (0 <= layer < n_layer and 0 <= pos < seq_len):
+        raise ValueError(f"layer {layer} / pos {pos} outside the cache ({n_layer} layers, {seq_len} slots)")
+    tensors = [xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache] + ([] if starts is None else [starts])
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"all tensors must share one device, got {sorted({str(t.device) for t in tensors})}")
+    if starts is not None and tuple(starts.shape) != (b,):
+        raise ValueError(f"starts must be ({b},), got {tuple(starts.shape)}")
+    args = (xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache, layer, pos, n_head)
+    if xa.device.type == "cpu":
+        return decode_attention_block_int8_reference(*args, starts=starts)
+    if xa.device.type != "cuda":
+        raise ValueError(f"decode_attention_block_int8 runs on cuda or cpu, not {xa.device}")
+    if dh != 128 or not 1 <= b <= DECODE_MAX_ROWS or k_cache.dtype != torch.bfloat16:
+        raise ValueError(f"the kernel takes head_dim 128, 1..{DECODE_MAX_ROWS} rows and a bf16 cache; "
+                         f"got {dh}, {b}, {k_cache.dtype}")
+    if wqkv_q.dtype != torch.int8 or wo_q.dtype != torch.int8 or wqkv_s.dtype != torch.float32 \
+            or wo_s.dtype != torch.float32:
+        raise ValueError("plain int8 weights must be int8 q with f32 scales")
+    if not all(t.is_contiguous() for t in tensors[1:7]):
+        raise ValueError("decode_attention_block_int8 needs contiguous weights, scales and caches")
+    dev = xa.device
+    x = xa.to(torch.bfloat16).contiguous()
+    if starts is not None:
+        starts = starts.to(torch.int32).contiguous()
+    split_len, n_splits, part_ml, part_acc = _split_scratch(pos + 1, b * n_head, dh, dev)
+    qkv = torch.empty((b, 3 * d), dtype=torch.float32, device=dev)
+    ya = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((b * gemv8_chunks(d) * 3 * d,), dtype=torch.float32, device=dev)
+    y = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
+    err = _build.kernels().lib.mv_decode_block_int8(
+        x.data_ptr(), wqkv_q.data_ptr(), wqkv_s.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), None if starts is None else starts.data_ptr(), y.data_ptr(),
+        layer, pos, b, d, n_head, seq_len, n_splits, split_len,
+        qkv.data_ptr(), ya.data_ptr(), part.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"decode_attention_block_int8 kernel launch failed: cudaError_t {err}")
+    decode_attention_block_int8.launches += 1
+    return y, k_cache, v_cache
+
+
+decode_attention_block_int8.launches = 0

@@ -1,6 +1,7 @@
-"""Weight-only quantization in int32 words: the int4 and int8 serving
-formats, their prefill matmul kernels' wrappers (K2, K8) and the kernels'
-plain PyTorch versions.
+"""Weight-only quantization: the int4 and int8 serving formats in int32
+words, their prefill matmul kernels' wrappers (K2, K8), the plain int8
+format and its kernels' wrappers (K11, K10), and the kernels' plain PyTorch
+versions.
 
 Port of the int4-in-int32 and int8-in-int32 parts of
 ``metavoice_tpu/ops/quantized.py``. The on-disk layouts are kept exactly, so
@@ -34,6 +35,16 @@ tensor takes the plain version (:func:`matmul_int4_i32_reference`,
 layer's int4 SwiGLU FFN, replaces ``metavoice_tpu/ops/quantized.py:
 decode_ffn_int4`` (the Pallas TPU kernel ``_ffn_int4_kernel``); its kernel
 is ``metavoice_tpu_torch/csrc/decode_block_int4.cu``.
+
+Plain int8 (``quantisation_mode="int8_plain"``, :func:`quantize_params_int8`):
+``{"q": (L, K, N) int8, "scales": (L, N) f32}`` per layer weight, no padding,
+the JAX package's layout. K11, :func:`matmul_int8`, replaces
+``metavoice_tpu/ops/quantized.py:matmul_int8`` (``_int8_matmul_kernel``;
+kernel in ``csrc/matmul_int4_i32.cu``); K10, :func:`ffn_int8`, one T = 1
+SwiGLU FFN, replaces ``ffn_int8`` (``_ffn_int8_kernel``; kernel in
+``csrc/decode_block_int8.cu``). The JAX package's groupwise int4 formats
+(``quantize_params_int4`` and ``_packed``, kernels K12/K13) are not ported:
+:func:`refuse_unported_int4` names them.
 """
 
 from __future__ import annotations
@@ -459,3 +470,172 @@ def decode_ffn_int4(x, pw1, sc1, pw3, sc3, pw2, sc2, layer: int, groupsize: int 
 
 
 decode_ffn_int4.launches = 0
+
+
+# ------------------------------------------------------------------ plain int8: K11, K10
+
+def quantize_params_int8(params: dict) -> dict:
+    """Param-tree quantizer for ``quantisation_mode="int8_plain"`` (the JAX
+    package's ``quantize_params_int8``): each stacked (L, in, out) layer
+    weight becomes {"q": (L, in, out) int8, "scales": (L, out) f32}, with no
+    padding. Embeddings, norms and the tied head stay as they are. Runs on
+    the params' device."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for key in _QUANTIZABLE_LAYER_KEYS:
+        if key not in layers:
+            continue
+        per_layer = [quantize_int8(w) for w in layers[key]]
+        layers[key] = {"q": torch.stack([q for q, _ in per_layer]), "scales": torch.stack([s for _, s in per_layer])}
+    out["layers"] = layers
+    return out
+
+
+def is_int8_plain(w) -> bool:
+    """True for a plain int8 ``{"q", "scales"}`` leaf (not the int4 ones that
+    add ``"zeros"``)."""
+    return isinstance(w, dict) and "q" in w and "scales" in w and "zeros" not in w
+
+
+def refuse_unported_int4(w) -> None:
+    """Raise NotImplementedError for the JAX package's groupwise int4 leaves,
+    whose kernels are not ported: ``{"q", "scales", "zeros"}``
+    (``quantize_params_int4``, K12 ``matmul_int4``) and ``{"p", "scales",
+    "zeros"}`` (``quantize_params_int4_packed``, K13 ``matmul_int4_packed``)."""
+    if isinstance(w, dict) and "zeros" in w:
+        kernel, maker = (("K13 matmul_int4_packed", "quantize_params_int4_packed") if "p" in w
+                         else ("K12 matmul_int4", "quantize_params_int4"))
+        raise NotImplementedError(f"groupwise int4 weights from {maker} are not ported: they need the kernel {kernel}")
+
+
+def int8_dot(x, q, scales):
+    """K11's arithmetic in f32: x rounded to bf16, times the int8 weights
+    (exact in bf16), summed in f32, times the column scale."""
+    return (x.to(torch.bfloat16).float() @ q.float()) * scales.float()
+
+
+def matmul_int8_reference(x, q, scales):
+    """Plain PyTorch version of K11: (M, K) @ int8 (K, N) * scales (N,) ->
+    (M, N) in x's dtype.
+
+    The TPU kernel's arithmetic (``_int8_matmul_kernel``): x rounded to
+    bf16, the products summed in f32, times the column scale, then cast to
+    x's dtype. (The JAX package's ``matmul_int8_reference`` skips the bf16
+    rounding of x; the port follows the kernel on every device.)"""
+    return int8_dot(x, q, scales).to(x.dtype)
+
+
+_OUT_CODE = {torch.bfloat16: 1, torch.float32: 0}
+
+
+def matmul_int8(x, q, scales):
+    """(M, K) activations @ plain int8 (K, N) * scales (N,) -> (M, N) in x's
+    dtype (K11).
+
+    x: bf16 or f32 (rounded to bf16); q: (K, N) int8; scales: (N,) f32. A
+    CUDA tensor launches the hand-written kernel (``csrc/matmul_int4_i32.cu``,
+    ``mv_matmul_int8``: K a multiple of 8, N of 16) or raises; a CPU tensor
+    takes :func:`matmul_int8_reference`. ``matmul_int8.launches`` counts
+    kernel launches.
+    """
+    if x.dim() != 2 or q.dim() != 2 or scales.dim() != 1:
+        raise ValueError(f"x, q must be 2-D and scales 1-D, got {x.shape}, {q.shape}, {scales.shape}")
+    m, k = x.shape
+    n = q.shape[1]
+    if q.shape[0] != k or scales.shape[0] != n:
+        raise ValueError(f"shapes x {tuple(x.shape)}, q {tuple(q.shape)}, scales {tuple(scales.shape)} do not fit")
+    if len({x.device, q.device, scales.device}) != 1:
+        raise ValueError(f"x, q, scales must share one device, got {x.device}, {q.device}, {scales.device}")
+    if x.device.type == "cpu":
+        return matmul_int8_reference(x, q, scales)
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul_int8 runs on cuda or cpu, not {x.device}")
+    if q.dtype != torch.int8 or scales.dtype != torch.float32 or x.dtype not in _OUT_CODE:
+        raise ValueError(f"the kernel takes bf16/f32 x, int8 q and f32 scales; got {x.dtype}, {q.dtype}, "
+                         f"{scales.dtype}")
+    if k % 8 or n % 16:
+        raise ValueError(f"the kernel takes K a multiple of 8 and N of 16, got {k}, {n}")
+    xb = x.to(torch.bfloat16).contiguous()
+    q, scales = q.contiguous(), scales.contiguous()
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    err = _build.kernels().lib.mv_matmul_int8(
+        xb.data_ptr(), q.data_ptr(), scales.data_ptr(), y.data_ptr(), m, k, n, _OUT_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"matmul_int8 kernel launch failed: cudaError_t {err}")
+    matmul_int8.launches += 1
+    return y
+
+
+matmul_int8.launches = 0
+
+
+GEMV8_CHUNK = 64  # contraction rows per block of the plain-int8 GEMV (csrc/decode_gemv.cuh)
+
+
+def gemv8_chunks(k: int) -> int:
+    """Blocks along K of the plain-int8 GEMV, each writing one f32 partial a
+    (row, column)."""
+    return -(-k // GEMV8_CHUNK)
+
+
+def ffn_int8_reference(x, w1, s1, w3, s3, w2, s2):
+    """Plain PyTorch version of K10: the CPU path and the card's oracle.
+
+    The TPU kernel's arithmetic (``_ffn_int8_kernel``): ``h1 = x @ w1 * s1``
+    and ``h3 = x @ w3 * s3`` as in :func:`matmul_int8_reference` but kept in
+    f32; ``h = bf16(silu(h1) * h3)`` with silu and the product in f32; ``y =
+    h @ w2 * s2`` -> (M, D) f32."""
+    h = (F.silu(int8_dot(x, w1, s1)) * int8_dot(x, w3, s3)).to(torch.bfloat16)
+    return int8_dot(h, w2, s2)
+
+
+def ffn_int8(x, w1, s1, w3, s3, w2, s2):
+    """One layer's plain-int8 SwiGLU FFN at T = 1 (K10): (M, D) -> (M, D) f32.
+
+    w1, w3: (D, I) int8 with (I,) f32 scales; w2: (I, D) int8 with (D,) f32
+    scales. A CUDA tensor launches the hand-written kernel
+    (``csrc/decode_block_int8.cu``, ``mv_decode_ffn_int8``: 1..8 rows, D and I
+    multiples of 16) or raises; a CPU tensor takes
+    :func:`ffn_int8_reference`. ``ffn_int8.launches`` counts kernel launches.
+    """
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, D), got {tuple(x.shape)}")
+    m, d = x.shape
+    i_sz = w1.shape[-1]
+    for name, w, s, shape in (("w1", w1, s1, (d, i_sz)), ("w3", w3, s3, (d, i_sz)), ("w2", w2, s2, (i_sz, d))):
+        if tuple(w.shape) != shape or tuple(s.shape) != (shape[1],):
+            raise ValueError(f"{name}: q {tuple(w.shape)} / scales {tuple(s.shape)} do not fit {shape}")
+    tensors = (x, w1, s1, w3, s3, w2, s2)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"all tensors must share one device, got {sorted({str(t.device) for t in tensors})}")
+    if x.device.type == "cpu":
+        return ffn_int8_reference(*tensors)
+    if x.device.type != "cuda":
+        raise ValueError(f"ffn_int8 runs on cuda or cpu, not {x.device}")
+    if not 1 <= m <= DECODE_MAX_ROWS or d % 16 or i_sz % 16:
+        raise ValueError(f"the kernel takes 1..{DECODE_MAX_ROWS} rows and D, I multiples of 16; got {m}, {d}, {i_sz}")
+    if any(w.dtype != torch.int8 for w in (w1, w3, w2)) or any(s.dtype != torch.float32 for s in (s1, s3, s2)):
+        raise ValueError("plain int8 weights must be int8 q with f32 scales")
+    if not all(t.is_contiguous() for t in tensors[1:]):
+        raise ValueError("ffn_int8 needs contiguous weights and scales")
+    dev = x.device
+    xb = x.to(torch.bfloat16).contiguous()
+    h = torch.empty((m, i_sz), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((m * max(2 * gemv8_chunks(d) * i_sz, gemv8_chunks(i_sz) * d),), dtype=torch.float32,
+                       device=dev)
+    y = torch.empty((m, d), dtype=torch.float32, device=dev)
+    err = _build.kernels().lib.mv_decode_ffn_int8(
+        xb.data_ptr(), w1.data_ptr(), s1.data_ptr(), w3.data_ptr(), s3.data_ptr(), w2.data_ptr(), s2.data_ptr(),
+        y.data_ptr(), m, d, i_sz, h.data_ptr(), part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ffn_int8 kernel launch failed: cudaError_t {err}")
+    ffn_int8.launches += 1
+    return y
+
+
+ffn_int8.launches = 0

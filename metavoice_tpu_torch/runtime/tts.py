@@ -26,8 +26,16 @@ packs the layer weights into the int8-in-int32 format: prefill projections
 go through the int8 matmul kernel, each decode step through the int8
 decode-stack kernel where its conditions hold (else per layer, through the
 int8 matmul and decode-attention kernels), and the tied head stays bf16.
-``guidance_scale=(speaker, prompt)`` with a prompt scale above 1 is the
-reference's double guidance on 3 cache rows.
+``quantisation_mode="int8_plain"`` quantizes the layer weights to plain int8
+arrays with one f32 scale per column (the JAX package's
+``quantize_params_int8``; or takes a tree that already holds such ``{"q",
+"scales"}`` leaves): prefill projections go through the plain-int8 matmul
+kernel, and each decode step of an MHA first stage runs every layer through
+the plain-int8 attention-block and FFN kernels (ops/attention.py,
+ops/quantized.py; a GQA one through the matmul kernel, the multi-query
+attention kernel and the FFN kernel). ``guidance_scale=(speaker, prompt)``
+with a prompt scale above 1 is the reference's double guidance on 3 cache
+rows.
 
 ``kv_cache_dtype="int8"`` or ``"int8_packed"`` makes the persistent KV
 caches quantized (models/transformer.KVCache: int8 values with per-(slot,
@@ -35,9 +43,9 @@ row, kv head) f32 scales, the packed form four slots to an int32 word),
 half the bf16 cache's bytes. Prefill quantizes its rows on the plain path;
 with int4 weights each decode step runs per layer through the int4
 attention-block kernel (which quantizes the new row and attends over the
-int8 window) and the int4 FFN kernel, then the bf16 tied head. With bf16
-or int8 weights a quantized cache decodes on the plain dequantizing path,
-as in the JAX package, which warns on the card.
+int8 window) and the int4 FFN kernel, then the bf16 tied head. With bf16,
+int8 or plain-int8 weights a quantized cache decodes on the plain
+dequantizing path, as in the JAX package, which warns on the card.
 
 Speculative decoding: ``TTS(components, draft_params=..., draft_cfg=...,
 speculative_gamma=4, draft_use_cfg=True)``. The draft shares the token
@@ -47,8 +55,9 @@ through the int4 decode-stack kernel). ``spec_stats`` accumulates the
 acceptance ledger. As in the JAX package the speculative path refuses
 tensor parallelism and keeps bf16 caches whatever ``kv_cache_dtype`` is.
 
-Not ported yet: ``quantisation_mode="int8_plain"`` (its kernels K9-K11),
-tensor parallelism, a draft checkpoint loader, streaming, MBD and the DF
+Not ported yet: the JAX package's groupwise int4 trees (``quantize_params_
+int4`` and ``_packed``, refused by name: their kernels K12/K13), tensor
+parallelism, a draft checkpoint loader, streaming, MBD and the DF
 enhancer.
 """
 
@@ -82,16 +91,26 @@ from metavoice_tpu_torch.models import spec_decode as sd
 from metavoice_tpu_torch.models import speaker_encoder as se
 from metavoice_tpu_torch.models import transformer as tfm
 from metavoice_tpu_torch.models.enhancer import get_enhancer
-from metavoice_tpu_torch.ops.attention import decode_attention, decode_attention_block_int4, decode_attention_multi
+from metavoice_tpu_torch.ops.attention import (
+    decode_attention,
+    decode_attention_block_int4,
+    decode_attention_block_int8,
+    decode_attention_multi,
+)
 from metavoice_tpu_torch.ops.decode_stack import decode_stack_int4
 from metavoice_tpu_torch.ops.quantized import (
     decode_ffn_int4,
+    ffn_int8,
     is_int4,
     is_int8_i32,
+    is_int8_plain,
     matmul_int4_i32,
+    matmul_int8,
     matmul_int8_i32,
     quantize_params_int4_i32,
+    quantize_params_int8,
     quantize_params_int8_i32,
+    refuse_unported_int4,
 )
 from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser
 from metavoice_tpu_torch.utils import audio_io as aio
@@ -108,7 +127,12 @@ KERNEL_COUNTERS = {
     "k6_launches": (decode_ffn_int4, "launches"),
     "k7_launches": (decode_stack_int4, "launches_i8"),
     "k8_launches": (matmul_int8_i32, "launches"),
+    "k9_launches": (decode_attention_block_int8, "launches"),
+    "k10_launches": (ffn_int8, "launches"),
+    "k11_launches": (matmul_int8, "launches"),
 }
+_QUANTIZERS = {"int4": quantize_params_int4_i32, "int8": quantize_params_int8_i32,
+               "int8_plain": quantize_params_int8}
 
 
 def _launches() -> dict[str, int]:
@@ -157,14 +181,9 @@ class TTS:
         if draft_params is not None and tensor_parallel > 1:
             raise ValueError("speculative decoding is not supported with tensor_parallel")
         mode = quantisation_mode or self.runtime.quantisation_mode
-        if mode == "int8_plain":
-            raise NotImplementedError(
-                "quantisation_mode='int8_plain' is not ported: it needs the plain-int8 kernels "
-                "K9-K11 (decode_attention_block_int8, ffn_int8, matmul_int8)"
-            )
-        if mode not in (None, "int4", *_INT8_PACKED_MODES):
+        if mode not in (None, "int4", *_INT8_PACKED_MODES, "int8_plain"):
             raise ValueError(
-                f"Invalid quantisation mode {mode}! Must be None, 'int4' or 'int8' ('int8_packed')"
+                f"Invalid quantisation mode {mode}! Must be None, 'int4', 'int8' ('int8_packed') or 'int8_plain'"
             )
         if tensor_parallel != 1:
             raise NotImplementedError("tensor_parallel is not ported to PyTorch yet")
@@ -177,22 +196,25 @@ class TTS:
         )
         self.device = resolve_device(device)
         # A quantized mode arrives as the mode, or as first-stage params that
-        # already hold packed leaves, {"pw", "sc"} for int4 or {"p8", "sc8"}
-        # for int8 (a JAX-written .npz, or a tree the JAX package quantized).
-        # Packing runs on the params' device; the int4 decode routes'
-        # conditions are checked before any synthesis (int8 layers that miss
-        # the int8 stack's run per layer).
+        # already hold quantized leaves, {"pw", "sc"} for int4, {"p8", "sc8"}
+        # for int8 or {"q", "scales"} for int8_plain (a JAX-written .npz, or
+        # a tree the JAX package quantized); the JAX package's groupwise int4
+        # leaves are refused by name. Quantizing runs on the params' device;
+        # the int4 decode routes' conditions are checked before any synthesis
+        # (int8 layers that miss the int8 stack's run per layer).
         params1 = components.first_stage_params
-        found = {("int4" if is_int4(w) else "int8") for w in params1["layers"].values()
-                 if is_int4(w) or is_int8_i32(w)}
+        found = set()
+        for w in params1["layers"].values():
+            refuse_unported_int4(w)
+            if is_int4(w) or is_int8_i32(w) or is_int8_plain(w):
+                found.add("int4" if is_int4(w) else "int8" if is_int8_i32(w) else "int8_plain")
         wanted = "int8" if mode in _INT8_PACKED_MODES else mode
         if len(found) > 1 or (found and wanted and found != {wanted}):
             raise ValueError(f"quantisation_mode={mode!r}, but the first stage holds {sorted(found)} leaves")
         self.quantisation_mode = wanted or next(iter(found), None)
         if self.quantisation_mode is not None:
             if not found:
-                quantize = quantize_params_int4_i32 if wanted == "int4" else quantize_params_int8_i32
-                params1 = quantize(params1)
+                params1 = _QUANTIZERS[wanted](params1)
             if self.quantisation_mode == "int4":
                 tfm.int4_decode_route(params1, components.first_stage_cfg, 3,
                                       self._cache_format(draft_params is not None))
@@ -231,8 +253,9 @@ class TTS:
         # step count (speculative rounds with a draft) and the kernel
         # launches (K1 decode attention, K2 int4 matmul, K3 int4 decode
         # stack, K4 multi-query decode attention, K5 int4 attention block,
-        # K6 int4 FFN, K7 int8 decode stack, K8 int8 matmul) of the last
-        # synthesise
+        # K6 int4 FFN, K7 int8 decode stack, K8 int8 matmul, K9 plain-int8
+        # attention block, K10 plain-int8 FFN, K11 plain-int8 matmul) of the
+        # last synthesise
         self.timings: dict[str, float] = {}
         self.stats: dict[str, int] = {}
 

@@ -69,17 +69,23 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+# the key sets of a quantized weight leaf, whose arrays keep their dtypes
+_QUANTIZED_LEAVES = ({"pw", "sc"}, {"p8", "sc8"}, {"q", "scales"}, {"p", "scales", "zeros"})
+
+
 def params_from_numpy(tree: Any, device="cuda", dtype: torch.dtype | None = None) -> Any:
     """JAX-package parameter pytree (numpy leaves) -> the port's tree of
     tensors on ``device``. ``dtype``, if given, casts the float leaves, but
-    not those of packed int4 ``{"pw", "sc"}`` leaves (layer weights and
-    ``lm_head_q``) or packed int8 ``{"p8", "sc8"}`` ones: their bf16 scale
-    tables are part of the serving format."""
+    not those of quantized weights: packed int4 ``{"pw", "sc"}`` (layer
+    weights and ``lm_head_q``) and packed int8 ``{"p8", "sc8"}``, whose bf16
+    scale tables are part of the serving format, nor plain int8 ``{"q",
+    "scales"}`` and the groupwise int4 ``{"q"|"p", "scales", "zeros"}``,
+    whose scales stay f32 as the JAX package writes them."""
     dev = resolve_device(device)
 
     def convert(node, cast):
         if isinstance(node, dict):
-            cast = cast and not ({"pw", "sc"} <= node.keys() or {"p8", "sc8"} <= node.keys())
+            cast = cast and not any(kind <= node.keys() for kind in _QUANTIZED_LEAVES)
             return {k: convert(v, cast) for k, v in node.items()}
         if hasattr(node, "_asdict"):  # NamedTuple (SpeakerEncoderParams)
             return {k: convert(v, cast) for k, v in node._asdict().items()}

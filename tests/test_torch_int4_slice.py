@@ -176,15 +176,11 @@ def test_int4_decode_at_dim_128_raises():
 
 @pytest.mark.parametrize("mode", ["int8", "int8_packed", "int8_plain"])
 def test_int8_modes_still_raise(model, tmp_path, mode):
-    """"int8_plain" still raises (K9-K11 are not ported). The packed int8
-    modes are ported (tests/test_torch_int8_slice.py) but still raise on a
-    first stage that holds int4 leaves: one tree has one format."""
+    """Every int8 mode is ported (tests/test_torch_int8_slice.py,
+    tests/test_torch_int8_plain_slice.py), and each still raises on a first
+    stage that holds int4 leaves: one tree has one format."""
     _, _, cfg, params = model
     small = TTS.from_random(small=True, device="cpu", output_dir=str(tmp_path))
-    if mode == "int8_plain":
-        with pytest.raises(NotImplementedError, match="int8"):
-            TTS(small.c, device="cpu", output_dir=str(tmp_path), quantisation_mode=mode)
-        return
     comps = dataclasses.replace(small.c, first_stage_params=params, first_stage_cfg=cfg)
     with pytest.raises(ValueError, match="int8"):
         TTS(comps, device="cpu", output_dir=str(tmp_path), quantisation_mode=mode)

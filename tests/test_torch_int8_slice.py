@@ -188,9 +188,24 @@ def test_int8_packed_is_int8(tmp_path):
 
 
 def test_int8_plain_raises_naming_its_kernels(tmp_path):
+    """``int8_plain`` is ported (tests/test_torch_int8_plain_slice.py): the
+    mode builds plain {"q", "scales"} leaves, a tree that mixes them with the
+    packed int8 leaves is refused, and what still raises, naming its kernel,
+    is the JAX package's groupwise int4 leaves (K12, K13)."""
     small = TTS.from_random(small=True, device="cpu", output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="K9-K11"):
-        TTS(small.c, device="cpu", output_dir=str(tmp_path), quantisation_mode="int8_plain")
+    plain = TTS(small.c, device="cpu", output_dir=str(tmp_path), quantisation_mode="int8_plain")
+    lay = plain.c.first_stage_params["layers"]
+    assert plain.quantisation_mode == "int8_plain" and Q.is_int8_plain(lay["wqkv"]) and not Q.is_int8_i32(lay["wqkv"])
+    packed = TTS(small.c, device="cpu", output_dir=str(tmp_path), quantisation_mode="int8")
+    mixed = dict(lay, wo=packed.c.first_stage_params["layers"]["wo"])
+    with pytest.raises(ValueError, match="int8"):
+        TTS(dataclasses.replace(small.c, first_stage_params=dict(plain.c.first_stage_params, layers=mixed)),
+            device="cpu", output_dir=str(tmp_path))
+    for kernel, leaf in (("K12", {"q": lay["wo"]["q"], "scales": lay["wo"]["scales"], "zeros": lay["wo"]["scales"]}),
+                         ("K13", {"p": lay["wo"]["q"], "scales": lay["wo"]["scales"], "zeros": lay["wo"]["scales"]})):
+        legacy = dict(plain.c.first_stage_params, layers=dict(lay, wo=leaf))
+        with pytest.raises(NotImplementedError, match=kernel):
+            TTS(dataclasses.replace(small.c, first_stage_params=legacy), device="cpu", output_dir=str(tmp_path))
 
 
 def test_narrow_int8_model_runs_per_layer_like_jax():
