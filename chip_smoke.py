@@ -126,9 +126,33 @@ Phases, one line each; any failure exits non-zero and prints no result:
  29. synth-int8p - full-width TTS(quantisation_mode="int8_plain").synthesise:
                a finite wav; K9 and K10 launches == n_layer x decode steps,
                K11 == 5 x n_layer x prefills, every other kernel 0; ms per
-               token beside phases 9 and 14.
+               token beside phases 9 and 14;
+ 30. K12     - the groupwise int4 matmul against its plain version at the
+               main-path shapes (K x N of 2048 x 6144, 2048 x 2048, 2048 x
+               5632, 5632 x 2048) at M = 2 (decode) and 256 (prefill), at
+               M = 1, 8, 200, with f32 x and with groupsize 64: every
+               element within 1e-3 max |ref| plus one bf16 ulp of the
+               element; times of one layer's five projections at M = 2 and
+               256 beside the plain version, torch._weight_int4pack_mm and
+               the bound;
+ 31. K13     - phase 30 for the nibble-packed matmul;
+ 32. small-int4g - 2-layer 512-wide groupwise int4 first stages, unpacked
+               (K12) and packed (K13), on the card and on the CPU under the
+               same Gumbel draws: the same tokens or phase 23's flip rule;
+               K1 == n_layer and K12 (K13) == 5 x n_layer a step and a
+               prefill of M <= 256, no launch for a 512-row forward;
+ 33. synth-int4g - full-width TTS.synthesise of a first stage quantized by
+               quantize_params_int4 (quantisation_mode None): a finite wav;
+               K12 == 5 x n_layer x (decode steps + prefills), K1 == n_layer
+               x decode steps, every other kernel 0; ms per token beside
+               phases 9 and 29;
+ 34. synth-int4p - phase 33 with quantize_params_int4_packed and K13, the
+               tree written by save_first_stage_quantized and read back by
+               load_first_stage_npz with every dtype kept; also the
+               int4-in-int32 tree written and read back, its bf16 sc taken
+               by one K2 call.
 
-Phases 5, 9, 14, 18, 19, 20, 24 and 29 are the main paths: every kernel count is
+Phases 5, 9, 14, 18, 19, 20, 24, 29, 33 and 34 are the main paths: every kernel count is
 set to 0 just before each and read just after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
@@ -192,6 +216,10 @@ K9_POS = (0, 77, 255, 2047)
 K9_TIMED = (255, 2047)  # the JSON line carries pos 255
 K10_TOL = 1e-2
 K10_CASES = ((1, 0), (2, 11), (3, 23))  # (rows, layer)
+# K12/K13: the same bf16 weights and products as their plain version, summed
+# in another order, rounded to x's dtype (as K11)
+K12_TOL = 1e-3
+K12_DECODE_M = 2  # decode rows: the CFG pair; the JSON line carries this M
 KV_FORMATS = ("bf16", "int8", "int8_packed")
 SYNTH_TEXT = "The quick brown fox jumps over the lazy dog, twice."
 # H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s
@@ -513,39 +541,50 @@ def _rotate_ms(torch, fn, n: int) -> float:
 
 
 def _k2_library_ms(torch, x, packed, lib_name: str) -> tuple[float, str]:
-    """One PyTorch call for the same product: torch._weight_int4pack_mm on
-    the same nibbles, scales and zeros (w = (q - 8) * scale + zero, so
-    zero = c + 8 s), or, where this torch lacks it or refuses the shape,
-    torch.matmul on the bf16-dequantized weight. -> (ms, the call timed)."""
+    """K2's library call: _int4pack_ms on the packed weights' nibbles,
+    scales and zeros (w = (nib - 8) * s + zero, so zero = c + 8 s), against
+    the int4 product."""
     from metavoice_tpu_torch.ops import quantized as Q
 
+    g = x.shape[1] // Q.I32_GROUPSIZE
+    mats = []
+    for pw, sc in packed:
+        s, c = sc[:g].float(), sc[sc.shape[0] // 2 : sc.shape[0] // 2 + g].float()
+        mats.append((Q.unpack_int4_i32(pw).to(torch.int32) + 8, s, c + 8 * s))
+    return _int4pack_ms(torch, x, mats, Q.matmul_int4_i32_reference(x, *packed[0]), Q.I32_GROUPSIZE, lib_name,
+                        "6 K2")
+
+
+def _int4pack_ms(torch, x, mats, ref, groupsize: int, lib_name: str, label: str) -> tuple[float, str]:
+    """One PyTorch call for the groupwise product x @ w with mats [(nib (K,
+    N) in 0..15, s (G, N), zero (G, N))], w = (nib - 8) * s + zero per group:
+    torch._weight_int4pack_mm on the same nibbles, scales and zeros, or,
+    where this torch lacks it or refuses the shape, torch.matmul on the
+    bf16-dequantized weight (the dequantization untimed). Its answer is
+    checked against ref first. -> (ms, the call timed)."""
     k = x.shape[1]
+    tol = 2e-2 * ref.float().abs().max().item()
     if lib_name == "torch._weight_int4pack_mm":
         try:
             libs = []
-            for pw, sc in packed:
-                q = (Q.unpack_int4_i32(pw).to(torch.int32) + 8).T.contiguous()  # (N, K) in 0..15
-                w_u8 = (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8)
-                w_lib = torch._convert_weight_to_int4pack(w_u8, 2)
-                g = k // Q.I32_GROUPSIZE
-                s, c = sc[:g].float(), sc[sc.shape[0] // 2 : sc.shape[0] // 2 + g].float()
-                sz = torch.stack([s, c + 8 * s], dim=2).to(torch.bfloat16).contiguous()  # (G, N, 2)
+            for nib, s, zero in mats:
+                q = nib.to(torch.int32).T.contiguous()  # (N, K) in 0..15
+                w_lib = torch._convert_weight_to_int4pack((q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8), 2)
+                sz = torch.stack([s.float(), zero.float()], dim=2).to(torch.bfloat16).contiguous()  # (G, N, 2)
                 libs.append((w_lib, sz))
-            y = torch._weight_int4pack_mm(x, libs[0][0], Q.I32_GROUPSIZE, libs[0][1])
-            ref = Q.matmul_int4_i32_reference(x, *packed[0])
-            if (y.float() - ref).abs().max().item() > 2e-2 * ref.abs().max().item():
+            y = torch._weight_int4pack_mm(x, libs[0][0], groupsize, libs[0][1])
+            if (y.float() - ref.float()).abs().max().item() > tol:
                 raise RuntimeError("its result disagrees with the int4 product")
-            return _rotate_ms(torch, lambda i: torch._weight_int4pack_mm(
-                x, libs[i][0], Q.I32_GROUPSIZE, libs[i][1]), len(libs)), lib_name
+            return _rotate_ms(torch, lambda i: torch._weight_int4pack_mm(x, libs[i][0], groupsize, libs[i][1]),
+                              len(libs)), lib_name
         except (AttributeError, RuntimeError, NotImplementedError) as e:
-            print(f"[6 K2] torch._weight_int4pack_mm not usable here ({str(e)[:120]}); "
+            print(f"[{label}] torch._weight_int4pack_mm not usable here ({str(e)[:120]}); "
                   "timing torch.matmul on the bf16-dequantized weight instead")
     dense = []
-    for pw, sc in packed:
-        g = k // Q.I32_GROUPSIZE
-        nib = (Q.unpack_int4_i32(pw).float() + 8).reshape(g, Q.I32_GROUPSIZE, -1)
-        s, c = sc[:g].float(), sc[sc.shape[0] // 2 : sc.shape[0] // 2 + g].float()
-        dense.append((nib * s[:, None] + c[:, None]).reshape(k, -1).to(torch.bfloat16))
+    for nib, s, zero in mats:
+        g = s.shape[0]
+        w = (nib.float() - 8).reshape(g, k // g, -1) * s.float()[:, None] + zero.float()[:, None]
+        dense.append(w.reshape(k, -1).to(torch.bfloat16))
     return _rotate_ms(torch, lambda i: torch.matmul(x, dense[i]), len(dense)), \
         "torch.matmul(bf16 dequantized)"
 
@@ -737,37 +776,40 @@ def phase_small4(torch):
           f"{len(toks[0])}/{len(toks[1])} tokens identical (printed, not required)")
 
 
-def phase_synth_quantized(torch, workdir: str, ref: str, mode: str, label: str, per_step: dict,
-                          matmul: str, compared: dict) -> dict:
-    """Full-width TTS(quantisation_mode=mode).synthesise: a finite wav, each
-    kernel of ``per_step`` launched that many times a decode step, the
-    prefill matmul 5 x n_layer times a prefill, every other kernel never.
-    -> counts, the TTS and ms per token."""
+def phase_synth_quantized(torch, workdir: str, ref: str, mode, label: str, per_step: dict,
+                          matmul: str, compared: dict, tts=None, init_s=None) -> dict:
+    """Full-width TTS(quantisation_mode=mode).synthesise, or that of ``tts``
+    built by the caller in ``init_s`` seconds: a finite wav, each kernel of
+    ``per_step`` launched that many times a decode step, the prefill matmul
+    5 x n_layer more times a prefill, every other kernel never. -> counts,
+    the TTS and ms per token."""
     from metavoice_tpu_torch.core.text import chunk_text, normalize_text
     from metavoice_tpu_torch.runtime.tts import MAX_CHARS_PER_CHUNK, TTS
 
-    t0 = time.perf_counter()
-    tts = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, f"out_{mode}"),
-                          quantisation_mode=mode)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    if tts is None:
+        t0 = time.perf_counter()
+        tts = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, f"out_{mode}"),
+                              quantisation_mode=mode)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
     cfg1 = tts.c.first_stage_cfg
     path, total_s, counts = drive_main_path(tts, ref)
     steps = tts.stats["decode_steps"]
     prefills = len(chunk_text(normalize_text(SYNTH_TEXT), MAX_CHARS_PER_CHUNK) or [""])
     want = dict.fromkeys(counts, 0)
     want.update({k: steps * n for k, n in per_step.items()})
-    want[matmul] = 5 * cfg1.n_layer * prefills
+    want[matmul] += 5 * cfg1.n_layer * prefills
     if steps == 0 or counts != want:
-        fail(f"{mode} synthesise launched {counts}, expected {want}")
+        fail(f"[{label}] synthesise launched {counts}, expected {want}")
     check_stats(tts, counts)
     wav = check_wav(path)
     stages = ", ".join(f"{k} {v:.3f}" for k, v in tts.timings.items())
     ms_tok = 1e3 * tts.timings["first_stage"] / max(steps, 1)
     shown = "; ".join(f"{name}: {ms:.2f}" for name, ms in compared.items())
-    print(f"[{label}] {mode} {cfg1.n_layer}L/{cfg1.n_head}H/{cfg1.dim}d: init + quantize {init_s:.2f} s; "
-          f"synthesise {total_s:.2f} s ({stages} s); {steps} decode steps, first stage "
-          f"{ms_tok:.2f} ms/token ({shown}); launches {counts}; wav {len(wav)} samples finite")
+    print(f"[{label}] {mode or 'groupwise int4 leaves'} {cfg1.n_layer}L/{cfg1.n_head}H/{cfg1.dim}d: init + quantize "
+          f"{init_s:.2f} s; synthesise {total_s:.2f} s ({stages} s); {steps} decode steps, first stage "
+          f"{ms_tok:.2f} ms/token ({shown}); launches {({k: v for k, v in counts.items() if v})}; wav "
+          f"{len(wav)} samples finite")
     return {"counts": counts, "tts": tts, "ms_per_token": ms_tok}
 
 
@@ -1913,6 +1955,219 @@ def phase_small_int8p(torch):
           f"same Gumbel draws: {'; '.join(shown)}")
 
 
+def k12_case(torch, m: int, k: int, n: int, gen, *, packed: bool, dtype=None, groupsize: int = 128) -> float:
+    """K12 (or K13, ``packed``) against its plain version on seeded inputs:
+    every element within K12_TOL of max |ref| plus one bf16 ulp of the
+    element -> the largest gap as a share of max |ref|. Raises
+    AssertionError on a disagreement."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    q, s, z = Q.quantize_int4_grouped(torch.randn((k, n), generator=gen, device=dev) * 0.02, groupsize)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype or torch.bfloat16)
+    name = "K13" if packed else "K12"
+    if packed:
+        p = Q.pack_int4(q)
+        y = Q.matmul_int4_packed(x, p, s, z, groupsize)
+        torch.cuda.synchronize()
+        ref = Q.matmul_int4_packed_reference(x, p, s, z, groupsize)
+    else:
+        y = Q.matmul_int4(x, q, s, z, groupsize)
+        torch.cuda.synchronize()
+        ref = Q.matmul_int4_reference(x, q, s, z, groupsize)
+    what = f"M {m}, K {k}, N {n}, x {x.dtype}, groupsize {groupsize}"
+    assert y.shape == (m, n) and y.dtype == x.dtype and torch.isfinite(y).all(), f"{name} output bad at {what}"
+    top = ref.float().abs().max().item()
+    gap = (y.float() - ref.float()).abs()
+    ulp = _bf16_ulp(torch, ref) if x.dtype == torch.bfloat16 else torch.zeros_like(gap)
+    assert (gap <= K12_TOL * top + ulp).all(), f"{name} disagrees with the plain version at {what}"
+    return gap.max().item() / top
+
+
+def phase_k12(torch, packed: bool) -> dict:
+    """K12 (phase 30) or K13 (phase 31) at the main-path shapes, then one
+    layer's five projections timed at M = 2 and M = 256."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    label = "31 K13" if packed else "30 K12"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31 if packed else 30)
+    d, i_sz = 2048, 5632
+    layer_shapes = [(d, 3 * d), (d, d), (d, i_sz), (d, i_sz), (i_sz, d)]  # qkv, wo, w1, w3, w2
+    distinct = layer_shapes[:3] + layer_shapes[4:]
+    cases = [(m, k, n, None, 128) for m in (K12_DECODE_M, K2_M) for k, n in distinct]
+    cases += [(1, d, 3 * d, None, 128), (8, d, i_sz, None, 128), (200, d, 3 * d, None, 128),
+              (K12_DECODE_M, d, 3 * d, torch.float32, 128), (K2_M, i_sz, d, torch.float32, 128),
+              (K12_DECODE_M, i_sz, d, None, 64), (K2_M, d, i_sz, None, 64)]
+    worst = 0.0
+    for m, k, n, dtype, gs in cases:
+        try:
+            worst = max(worst, k12_case(torch, m, k, n, gen, packed=packed, dtype=dtype, groupsize=gs))
+        except AssertionError as e:
+            fail(str(e))
+
+    # one layer's five projections, each on 8 weight sets in turn (more than
+    # 50 MB a shape), so the weights come from HBM
+    n_sets = 8
+    kernel_fn = Q.matmul_int4_packed if packed else Q.matmul_int4
+    plain_fn = Q.matmul_int4_packed_reference if packed else Q.matmul_int4_reference
+    times, shown = {}, []
+    lib_name = "torch._weight_int4pack_mm"
+    for m in (K12_DECODE_M, K2_M):
+        x = {k: torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16) for k in (d, i_sz)}
+        kernel = plain = library = 0.0
+        n_bytes = n_flop = 0.0
+        per_shape = []
+        for k, n in layer_shapes:
+            mats = []
+            for _ in range(n_sets):
+                q, s, z = Q.quantize_int4_grouped(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+                mats.append((Q.pack_int4(q) if packed else q, s, z, q))
+            xk = x[k]
+            t_k, t_ke = _layers_ms(torch, lambda i: kernel_fn(xk, *mats[i][:3]), n_sets)
+            t_p, _ = _layers_ms(torch, lambda i: plain_fn(xk, *mats[i][:3]), n_sets)
+            lib = [(q.to(torch.int32) + 8, s, z + 0.5 * s) for _, s, z, q in mats]
+            t_l, lib_name = _int4pack_ms(torch, xk, lib, plain_fn(xk, *mats[0][:3]), 128, lib_name, label)
+            kernel, plain, library = kernel + t_k, plain + t_p, library + t_l
+            w, s = mats[0][0], mats[0][1]
+            n_bytes += xk.numel() * 2 + w.numel() * w.element_size() + 2 * s.numel() * 4 + m * n * 2
+            n_flop += 2.0 * m * k * n
+            per_shape.append(f"{k}x{n} {t_k:.4f} (eager {t_ke:.4f})")
+            del mats, lib
+        bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
+        times[m] = (kernel, plain, library, bound_ms, bound_by)
+        shown.append(f"M {m}: kernel {kernel:.4f} ms ({'; '.join(per_shape)}), plain {plain:.4f} ms, {lib_name} "
+                     f"{library:.4f} ms called eagerly, bound {bound_ms:.4f} ms ({bound_by}, "
+                     f"{n_flop / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+    print(f"[{label}] {len(cases)} cases agree (within {worst:.3g} of max |ref| at most, tol {K12_TOL} of max |ref| "
+          f"plus one bf16 ulp of each element); one layer's five projections, device time from a CUDA graph: "
+          f"{'; '.join(shown)}")
+    kernel, plain, library, bound_ms, bound_by = times[K12_DECODE_M]
+    return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library, "library_call": lib_name}
+
+
+def phase_small_int4g(torch):
+    """Groupwise int4 first stages, unpacked (K12) and packed (K13), on the
+    card vs the CPU path, same weights and Gumbel draws."""
+    from metavoice_tpu_torch.core import sampling as S
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    cfg = first_stage_config(n_layer=2, n_head=4, dim=512, intermediate_size=1536, block_size=512)
+    shown = []
+    for packed in (False, True):
+        key = "k13_launches" if packed else "k12_launches"
+        gen = torch.Generator().manual_seed(32 + packed)
+        quantize = Q.quantize_params_int4_packed if packed else Q.quantize_params_int4
+        cpu = quantize(tfm.init_params(cfg, device="cpu", generator=gen, dtype=torch.bfloat16))
+        gpu = to_cuda(cpu)
+        prompt = torch.randint(0, cfg.vocab_size, (40,), generator=gen).tolist()  # a 128 bucket: M = 256
+        spk = torch.randn(256, generator=gen)
+        n = 48
+        noise = S.gumbel_noise((n, 1, cfg.vocab_size), device="cpu", generator=gen)
+        toks = {}
+        for name, params in (("cpu", cpu), ("cuda", gpu)):
+            for fn, attr in counters().values():
+                setattr(fn, attr, 0)
+            stats = {}
+            kw = dict(noise=noise.to(name), max_new_tokens=n, top_p=1.0, stats=stats)
+            toks[name] = fs.generate(params, cfg, prompt, spk.numpy(), **kw)[len(prompt):]
+            counts = read_counts()
+            want = dict.fromkeys(counts, 0)
+            steps = stats["decode_steps"]
+            if name == "cuda":
+                want.update({key: 5 * cfg.n_layer * (steps + 1), "k1_launches": cfg.n_layer * steps})
+            if counts != want:
+                fail(f"small-int4g ({key}) on {name} launched {counts}, expected {want}")
+        for fn, attr in counters().values():
+            setattr(fn, attr, 0)
+        long = torch.randint(0, cfg.vocab_size, (2, 256), device="cuda")  # M = 512: the dense route
+        tfm.forward(gpu, cfg, long, spk_emb=spk.cuda().repeat(2, 1))
+        if any(read_counts().values()):
+            fail(f"small-int4g: a 512-row forward launched {read_counts()}, expected no kernel")
+        shown.append(f"{'packed (K13)' if packed else 'unpacked (K12)'}, launches "
+                     f"{({k: v for k, v in counts.items() if v})}, none for M = 512: "
+                     + _tokens_agree(torch, f"small-int4g ({key})", toks, (cpu, gpu), cfg, prompt, spk, noise,
+                                     torch.bfloat16))
+    print(f"[32 small-int4g] groupwise int4 first stages (2L/4H/512d, I 1536, groupsize 128), the card vs the CPU "
+          f"(plain versions), same Gumbel draws: {'; '.join(shown)}")
+
+
+def _leaf_dtypes(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in _leaf_dtypes(v, f"{prefix}{k}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree) for k2, v2 in _leaf_dtypes(v, f"{prefix}{i}/").items()}
+    return {prefix[:-1]: tree.dtype}
+
+
+def _npz_round_trip(workdir: str, params, cfg, mode):
+    """params through save_first_stage_quantized and load_first_stage_npz
+    -> (the loaded tree on the card, the file's bytes); every leaf's dtype,
+    the config and the mode must come back as written."""
+    from metavoice_tpu_torch.utils import checkpoint as ckpt
+
+    path = os.path.join(workdir, "first_stage_quantized.npz")
+    ckpt.save_first_stage_quantized(path, params, cfg, None, mode)
+    size = os.path.getsize(path)
+    loaded, cfg2, _, mode2 = ckpt.load_first_stage_npz(path)
+    os.remove(path)
+    if _leaf_dtypes(loaded) != _leaf_dtypes(params) or cfg2 != cfg or mode2 != mode:
+        fail(f"a {mode} first stage does not load as it was written: {_leaf_dtypes(loaded)} against "
+             f"{_leaf_dtypes(params)}, {cfg2} against {cfg}, mode {mode2}")
+    return ckpt.params_from_numpy(loaded, device="cuda"), size
+
+
+def phase_synth_int4g(torch, workdir: str, ref: str, packed: bool, compared: dict) -> dict:
+    """Full-width synthesise of a first stage quantized by the port's
+    quantize_params_int4 (phase 33) or _packed (phase 34, through the
+    quantized .npz writer and loader): every projection through K12 (K13),
+    5 x n_layer a decode step and a prefill, K1 n_layer a step. Phase 34
+    also writes and reads the int4-in-int32 tree and runs one K2 call on
+    the loaded sc."""
+    import dataclasses
+
+    from metavoice_tpu_torch.ops import quantized as Q
+    from metavoice_tpu_torch.runtime.tts import TTS
+
+    label = "34 synth-int4p" if packed else "33 synth-int4g"
+    t0 = time.perf_counter()
+    comps = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, "out_int4g")).c
+    cfg1 = comps.first_stage_cfg
+    params = (Q.quantize_params_int4_packed if packed else Q.quantize_params_int4)(comps.first_stage_params)
+    extra = ""
+    if packed:
+        params, size = _npz_round_trip(workdir, params, cfg1, None)
+        i32, size32 = _npz_round_trip(workdir, Q.quantize_params_int4_i32(comps.first_stage_params), cfg1, "int4")
+        leaf = i32["layers"]["wqkv"]
+        if leaf["sc"].dtype != torch.bfloat16:
+            fail(f"a loaded int4-in-int32 sc is {leaf['sc'].dtype}, not bf16")
+        x = torch.randn((K2_M, cfg1.dim), device="cuda").to(torch.bfloat16)
+        y = Q.matmul_int4_i32(x, leaf["pw"][0], leaf["sc"][0])
+        y_ref = Q.matmul_int4_i32_reference(x, leaf["pw"][0], leaf["sc"][0])
+        if (y - y_ref).abs().max().item() > K2_TOL * y_ref.abs().max().item():
+            fail("K2 on a loaded int4-in-int32 layer disagrees with its plain version")
+        extra = (f"; the packed tree through save_first_stage_quantized/load_first_stage_npz ({size} bytes) with "
+                 f"every dtype kept; an int4-in-int32 file ({size32} bytes) loads with bf16 sc, which K2 takes")
+        del i32, leaf
+    tts = TTS(dataclasses.replace(comps, first_stage_params=params), device="cuda",
+              output_dir=os.path.join(workdir, f"out_{label.split()[1]}"), enforce_min_ref_duration=False)
+    del comps, params
+    if tts.quantisation_mode is not None:
+        fail(f"a groupwise int4 first stage was taken as {tts.quantisation_mode!r}")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    key = "k13_launches" if packed else "k12_launches"
+    run = phase_synth_quantized(torch, workdir, ref, None, label, {"k1_launches": cfg1.n_layer,
+                                key: 5 * cfg1.n_layer}, key, compared, tts=tts, init_s=init_s)
+    if extra:
+        print(f"[{label}]{extra}")
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -1993,6 +2248,18 @@ def main() -> int:
                                       {"k9_launches": n_layer, "k10_launches": n_layer}, "k11_launches",
                                       {"int4 phase 9": int4["ms_per_token"], "int8 phase 14": int8["ms_per_token"]})
         del int8p["tts"]
+        torch.cuda.empty_cache()
+        k12 = phase_k12(torch, packed=False)
+        k13 = phase_k12(torch, packed=True)
+        torch.cuda.empty_cache()
+        phase_small_int4g(torch)
+        compared = {"int4 phase 9": int4["ms_per_token"], "int8_plain phase 29": int8p["ms_per_token"]}
+        int4g = phase_synth_int4g(torch, workdir, ref, False, compared)
+        del int4g["tts"]
+        torch.cuda.empty_cache()
+        int4p = phase_synth_int4g(torch, workdir, ref, True,
+                                  compared | {"groupwise int4 phase 33": int4g["ms_per_token"]})
+        del int4p["tts"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each kernel's launches are those of the main path that runs it
     record = {"kernels": [
@@ -2021,6 +2288,10 @@ def main() -> int:
              "metavoice_tpu/ops/quantized.py:407", k10),
             ("matmul_int8", "k11_launches", int8p, "matmul_int4_i32.cu",
              "metavoice_tpu/ops/quantized.py:153", k11),
+            ("matmul_int4", "k12_launches", int4g, "matmul_int4_grouped.cu",
+             "metavoice_tpu/ops/quantized.py:204", k12),
+            ("matmul_int4_packed", "k13_launches", int4p, "matmul_int4_grouped.cu",
+             "metavoice_tpu/ops/quantized.py:328", k13),
         )
     ]}
     print(json.dumps(record))

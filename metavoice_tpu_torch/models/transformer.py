@@ -46,8 +46,16 @@ K9: qkv, the new row, attention, o-proj) where ``int8_block_ok`` holds, and
 its FFN in another (ops/quantized.py:ffn_int8, K10) whenever w1, w3 and w2
 are plain int8; other T=1 layers take K11 and the decode attention. The
 JAX package takes K9/K10 only on the TPU; the port follows the kernels on
-every device. The JAX package's groupwise int4 leaves (``"zeros"``) are
-refused by name: their kernels K12/K13 are not ported.
+every device.
+
+Groupwise int4 (``ops/quantized.quantize_params_int4`` and ``_packed``, the
+JAX package's trees, taken with ``quantisation_mode=None``): ``{"q" | "p",
+"scales", "zeros"}`` leaves run through K12 (``matmul_int4``) or K13
+(``matmul_int4_packed``) in ``_linear`` at up to 256 rows, on every device
+(their plain versions on the CPU), and through a dense f32 dequantization
+above that, as in the JAX package. They have no fused T = 1 route: a step
+runs each layer's five projections through ``_linear`` and the decode
+attention.
 
 A quantized KV cache: prefill, and any cached forward of T <= 16, quantize
 the window's rows (``quantize_kv_rows``) and attend over the dequantized
@@ -79,15 +87,20 @@ from metavoice_tpu_torch.ops.attention import (
 from metavoice_tpu_torch.ops.decode_stack import HEAD_DIM, MAX_BATCH, decode_stack_int4
 from metavoice_tpu_torch.ops.quantized import (
     DECODE_MAX_ROWS,
+    INT4_KERNEL_MAX_ROWS,
     decode_ffn_int4,
+    dequantize_int4_grouped,
     ffn_int8,
     is_int4,
+    is_int4_grouped,
     is_int8_i32,
     is_int8_plain,
+    matmul_int4,
     matmul_int4_i32,
+    matmul_int4_packed,
     matmul_int8,
     matmul_int8_i32,
-    refuse_unported_int4,
+    unpack_int4,
 )
 
 Params = dict[str, Any]
@@ -341,15 +354,33 @@ def _norm(x, w, b, norm_type: str, eps: float):
 
 def _linear(x, w, b=None):
     """Dense (in, out) projection in x's dtype; a plain int8 one through K11
-    (x's dtype out); or a packed int4 or int8 one through its matmul kernel
-    (f32 out, cast to x's dtype). The packers pad K (int4 to a multiple of
-    1024, int8 to one of 4, and the FFN hidden dim to one of 1024); narrower
-    activations are zero-padded to it, which adds nothing (int4 pad groups
-    carry s = c = 0; int8 pad rows meet zero x both in the byte product and
-    in sum(x)). Groupwise int4 leaves raise NotImplementedError."""
-    refuse_unported_int4(w)
+    (x's dtype out); a groupwise int4 one through K12 (``{"q", "scales",
+    "zeros"}``) or K13 (``{"p", "scales", "zeros"}``), x's dtype out, the
+    groupsize K / scales rows; or a packed int4 or int8 one through
+    its matmul kernel (f32 out, cast to x's dtype). The packers pad K (int4
+    to a multiple of 1024, int8 to one of 4, and the FFN hidden dim to one
+    of 1024); narrower activations are zero-padded to it, which adds nothing
+    (int4 pad groups carry s = c = 0; int8 pad rows meet zero x both in the
+    byte product and in sum(x)).
+
+    Groupwise int4 at more than INT4_KERNEL_MAX_ROWS rows takes the JAX
+    package's route on every device (its TPU kernels hold the whole (M, K)
+    block in VMEM): the weights dequantized in f32, an f32 product, cast to
+    x's dtype."""
     if is_int8_plain(w):
         y = matmul_int8(x.reshape(-1, x.shape[-1]), w["q"], w["scales"]).reshape(*x.shape[:-1], -1)
+    elif is_int4_grouped(w):
+        x2 = x.reshape(-1, x.shape[-1])
+        s, z = w["scales"], w["zeros"]
+        gs = x2.shape[1] // s.shape[0]
+        if x2.shape[0] > INT4_KERNEL_MAX_ROWS:
+            q = unpack_int4(w["p"]) if "p" in w else w["q"]
+            y = (x2.float() @ dequantize_int4_grouped(q, s, z, gs)).to(x.dtype)
+        elif "p" in w:
+            y = matmul_int4_packed(x2, w["p"], s, z, gs)
+        else:
+            y = matmul_int4(x2, w["q"], s, z, gs)
+        y = y.reshape(*x.shape[:-1], -1)
     elif is_int4(w) or is_int8_i32(w):
         kp, matmul, words, scales = ((8 * w["pw"].shape[0], matmul_int4_i32, w["pw"], w["sc"]) if is_int4(w)
                                      else (4 * w["p8"].shape[0], matmul_int8_i32, w["p8"], w["sc8"]))

@@ -42,9 +42,20 @@ the JAX package's layout. K11, :func:`matmul_int8`, replaces
 ``metavoice_tpu/ops/quantized.py:matmul_int8`` (``_int8_matmul_kernel``;
 kernel in ``csrc/matmul_int4_i32.cu``); K10, :func:`ffn_int8`, one T = 1
 SwiGLU FFN, replaces ``ffn_int8`` (``_ffn_int8_kernel``; kernel in
-``csrc/decode_block_int8.cu``). The JAX package's groupwise int4 formats
-(``quantize_params_int4`` and ``_packed``, kernels K12/K13) are not ported:
-:func:`refuse_unported_int4` names them.
+``csrc/decode_block_int8.cu``).
+
+Groupwise int4, the JAX package's ``quantize_params_int4`` and ``_packed``
+(the reference's own format, fam/llm/fast_quantize.py:70-148, g = 128 by
+default): ``{"q": (L, K, N) int8 in [-8, 7], "scales", "zeros": (L, K/g, N)
+f32}``, w = (q + 0.5) * s + z per group; or the values nibble-packed
+split-half, ``{"p": (L, K/2, N) uint8, ...}``, the low nibble of byte (k, n)
+holding q[k] + 8 and the high nibble q[k + K/2] + 8. No quantisation mode
+builds them: a first stage holding them reaches ``TTS`` as it is. K12,
+:func:`matmul_int4`, replaces ``metavoice_tpu/ops/quantized.py:matmul_int4``
+(``_int4_matmul_kernel``) and K13, :func:`matmul_int4_packed`, replaces
+``matmul_int4_packed`` (``_int4_packed_matmul_kernel``); both kernels are
+``csrc/matmul_int4_grouped.cu``: y = bf16(x) @ bf16((q + 0.5) * s + z)
+summed in f32, in x's dtype.
 """
 
 from __future__ import annotations
@@ -497,17 +508,6 @@ def is_int8_plain(w) -> bool:
     return isinstance(w, dict) and "q" in w and "scales" in w and "zeros" not in w
 
 
-def refuse_unported_int4(w) -> None:
-    """Raise NotImplementedError for the JAX package's groupwise int4 leaves,
-    whose kernels are not ported: ``{"q", "scales", "zeros"}``
-    (``quantize_params_int4``, K12 ``matmul_int4``) and ``{"p", "scales",
-    "zeros"}`` (``quantize_params_int4_packed``, K13 ``matmul_int4_packed``)."""
-    if isinstance(w, dict) and "zeros" in w:
-        kernel, maker = (("K13 matmul_int4_packed", "quantize_params_int4_packed") if "p" in w
-                         else ("K12 matmul_int4", "quantize_params_int4"))
-        raise NotImplementedError(f"groupwise int4 weights from {maker} are not ported: they need the kernel {kernel}")
-
-
 def int8_dot(x, q, scales):
     """K11's arithmetic in f32: x rounded to bf16, times the int8 weights
     (exact in bf16), summed in f32, times the column scale."""
@@ -639,3 +639,171 @@ def ffn_int8(x, w1, s1, w3, s3, w2, s2):
 
 
 ffn_int8.launches = 0
+
+
+# ------------------------------------------------------------------ groupwise int4: K12, K13
+
+INT4_KERNEL_MAX_ROWS = 256  # above this, _linear takes the dense f32 route, as the JAX package does
+
+
+def dequantize_int4_grouped(q: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, groupsize: int = 128):
+    """(K, N) int8 in [-8, 7] with (K/groupsize, N) scales and zeros -> the
+    f32 weights ``(q + 0.5) * s + z`` of each group."""
+    k, n = q.shape
+    qg = q.float().reshape(k // groupsize, groupsize, n)
+    return ((qg + 0.5) * scales.float()[:, None, :] + zeros.float()[:, None, :]).reshape(k, n)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 in [-8, 7] -> (K/2, N) uint8, split-half: the low nibble
+    of byte (k, n) holds q[k] + 8, the high nibble q[k + K/2] + 8."""
+    k = q.shape[0]
+    if k % 2:
+        raise ValueError(f"K={k} is not even")
+    biased = (q.to(torch.int32) + 8).to(torch.uint8)
+    return biased[: k // 2] | (biased[k // 2 :] << 4)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: (K/2, N) uint8 -> (K, N) int8 in [-8, 7]."""
+    return torch.cat([(p & 0xF).to(torch.int8) - 8, (p >> 4).to(torch.int8) - 8], dim=0)
+
+
+def _quantize_params_grouped(params: dict, groupsize: int, packed: bool) -> dict:
+    out = dict(params)
+    layers = dict(params["layers"])
+    for key in _QUANTIZABLE_LAYER_KEYS:
+        if key not in layers:
+            continue
+        per_layer = [quantize_int4_grouped(w, groupsize) for w in layers[key]]
+        q = torch.stack([q for q, _, _ in per_layer])
+        leaf = {"p": torch.stack([pack_int4(t) for t in q])} if packed else {"q": q}
+        leaf["scales"] = torch.stack([s for _, s, _ in per_layer])
+        leaf["zeros"] = torch.stack([z for _, _, z in per_layer])
+        layers[key] = leaf
+    out["layers"] = layers
+    return out
+
+
+def quantize_params_int4(params: dict, groupsize: int = 128) -> dict:
+    """The JAX package's ``quantize_params_int4``: each stacked (L, in, out)
+    layer weight becomes {"q": (L, in, out) int8, "scales", "zeros": (L,
+    in/groupsize, out) f32}. Embeddings, norms and the tied head stay as
+    they are. Runs on the params' device."""
+    return _quantize_params_grouped(params, groupsize, packed=False)
+
+
+def quantize_params_int4_packed(params: dict, groupsize: int = 128) -> dict:
+    """The JAX package's ``quantize_params_int4_packed``: as
+    :func:`quantize_params_int4`, with the values nibble-packed split-half,
+    {"p": (L, in/2, out) uint8, "scales", "zeros"}."""
+    return _quantize_params_grouped(params, groupsize, packed=True)
+
+
+def is_int4_grouped(w) -> bool:
+    """True for a groupwise int4 leaf, ``{"q" | "p", "scales", "zeros"}``."""
+    return isinstance(w, dict) and "zeros" in w and "scales" in w and ("q" in w or "p" in w)
+
+
+def matmul_int4_reference(x, q, scales, zeros, groupsize: int = 128):
+    """Plain PyTorch version of K12: (M, K) @ groupwise int4 (K, N) -> (M,
+    N) in x's dtype.
+
+    The TPU kernel's arithmetic (``_int4_matmul_kernel``): x rounded to
+    bf16, the weights dequantized in f32 and rounded to bf16, the products
+    summed in f32, then cast to x's dtype. (The JAX package's
+    ``matmul_int4_reference`` keeps x and the weights in f32; the port
+    follows the kernel on every device.)"""
+    w = dequantize_int4_grouped(q, scales, zeros, groupsize).to(torch.bfloat16).float()
+    return (x.to(torch.bfloat16).float() @ w).to(x.dtype)
+
+
+def matmul_int4_packed_reference(x, p, scales, zeros, groupsize: int = 128):
+    """Plain PyTorch version of K13: :func:`matmul_int4_reference` on the
+    unpacked values (the TPU kernel's ``nib - 7.5`` equals ``q + 0.5``)."""
+    return matmul_int4_reference(x, unpack_int4(p), scales, zeros, groupsize)
+
+
+def _int4_grouped_kernel(x, w, scales, zeros, groupsize: int, packed: bool):
+    """Launch ``mv_matmul_int4_grouped`` (csrc/matmul_int4_grouped.cu) on
+    CUDA tensors -> (M, N) in x's dtype, or raise. Rows <= DECODE_MAX_ROWS
+    take its split-K GEMV, more rows its tensor-core tiles."""
+    name = "matmul_int4_packed" if packed else "matmul_int4"
+    m, k = x.shape
+    n = w.shape[1]
+    wtype = torch.uint8 if packed else torch.int8
+    if w.dtype != wtype or scales.dtype != torch.float32 or zeros.dtype != torch.float32 or x.dtype not in _OUT_CODE:
+        raise ValueError(f"{name} takes bf16/f32 x, {wtype} weights and f32 scales and zeros; got {x.dtype}, "
+                         f"{w.dtype}, {scales.dtype}, {zeros.dtype}")
+    if k % 8 or n % 16:
+        raise ValueError(f"{name}'s kernel takes K a multiple of 8 and N of 16, got {k}, {n}")
+    xb = x.to(torch.bfloat16).contiguous()
+    w, scales, zeros = w.contiguous(), scales.contiguous(), zeros.contiguous()
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    part = None
+    if m <= DECODE_MAX_ROWS:
+        part = torch.empty((gemv8_chunks(w.shape[0]) * m * n,), dtype=torch.float32, device=x.device)
+    err = _build.kernels().lib.mv_matmul_int4_grouped(
+        xb.data_ptr(), w.data_ptr(), scales.data_ptr(), zeros.data_ptr(), y.data_ptr(), m, k, n, groupsize,
+        int(packed), _OUT_CODE[x.dtype], None if part is None else part.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    return y
+
+
+def _check_int4_grouped(x, w, scales, zeros, groupsize: int, packed: bool):
+    name = "matmul_int4_packed" if packed else "matmul_int4"
+    if x.dim() != 2 or w.dim() != 2 or scales.dim() != 2 or zeros.dim() != 2:
+        raise ValueError(f"{name}: x, weights, scales, zeros must be 2-D, got {x.shape}, {w.shape}, "
+                         f"{scales.shape}, {zeros.shape}")
+    k, n = x.shape[1], w.shape[1]
+    if k != w.shape[0] * (2 if packed else 1) or groupsize < 1 or (k // (2 if packed else 1)) % groupsize \
+            or tuple(scales.shape) != (k // groupsize, n) or zeros.shape != scales.shape:
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, weights {tuple(w.shape)}, scales "
+                         f"{tuple(scales.shape)}, zeros {tuple(zeros.shape)} do not fit groupsize {groupsize}"
+                         + (" (K/2 must be a multiple of it)" if packed else ""))
+    if len({x.device, w.device, scales.device, zeros.device}) != 1:
+        raise ValueError(f"{name}: all tensors must share one device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+
+
+def matmul_int4(x, q, scales, zeros, groupsize: int = 128):
+    """(M, K) activations @ groupwise int4 (K, N) -> (M, N) in x's dtype (K12).
+
+    x: bf16 or f32 (rounded to bf16); q: (K, N) int8 in [-8, 7]; scales and
+    zeros: (K/groupsize, N) f32. A CUDA tensor launches the hand-written
+    kernel (``csrc/matmul_int4_grouped.cu``: K a multiple of 8, N of 16) or
+    raises; a CPU tensor takes :func:`matmul_int4_reference`.
+    ``matmul_int4.launches`` counts kernel launches."""
+    _check_int4_grouped(x, q, scales, zeros, groupsize, packed=False)
+    if x.device.type == "cpu":
+        return matmul_int4_reference(x, q, scales, zeros, groupsize)
+    y = _int4_grouped_kernel(x, q, scales, zeros, groupsize, packed=False)
+    matmul_int4.launches += 1
+    return y
+
+
+matmul_int4.launches = 0
+
+
+def matmul_int4_packed(x, p, scales, zeros, groupsize: int = 128):
+    """(M, K) activations @ split-half nibble-packed int4 (K/2, N) -> (M, N)
+    in x's dtype (K13). As :func:`matmul_int4`, with p (K/2, N) uint8 from
+    :func:`pack_int4`; K/2 must be a multiple of groupsize, so that each
+    group lies in one half. A CPU tensor takes
+    :func:`matmul_int4_packed_reference`. ``matmul_int4_packed.launches``
+    counts kernel launches."""
+    _check_int4_grouped(x, p, scales, zeros, groupsize, packed=True)
+    if x.device.type == "cpu":
+        return matmul_int4_packed_reference(x, p, scales, zeros, groupsize)
+    y = _int4_grouped_kernel(x, p, scales, zeros, groupsize, packed=True)
+    matmul_int4_packed.launches += 1
+    return y
+
+
+matmul_int4_packed.launches = 0

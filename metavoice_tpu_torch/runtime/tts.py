@@ -35,7 +35,12 @@ the plain-int8 attention-block and FFN kernels (ops/attention.py,
 ops/quantized.py; a GQA one through the matmul kernel, the multi-query
 attention kernel and the FFN kernel). ``guidance_scale=(speaker, prompt)``
 with a prompt scale above 1 is the reference's double guidance on 3 cache
-rows.
+rows. A first stage that holds the JAX package's groupwise int4 leaves
+(``quantize_params_int4`` or ``_packed``, or ``load_first_stage_npz`` of
+such a file) runs as it is with ``quantisation_mode=None``, as in JAX: every
+projection goes through the groupwise int4 matmul kernels (K12, K13; a
+dense f32 route above 256 rows), a decode step through them and the
+decode-attention kernel, layer by layer.
 
 ``kv_cache_dtype="int8"`` or ``"int8_packed"`` makes the persistent KV
 caches quantized (models/transformer.KVCache: int8 values with per-(slot,
@@ -55,10 +60,8 @@ through the int4 decode-stack kernel). ``spec_stats`` accumulates the
 acceptance ledger. As in the JAX package the speculative path refuses
 tensor parallelism and keeps bf16 caches whatever ``kv_cache_dtype`` is.
 
-Not ported yet: the JAX package's groupwise int4 trees (``quantize_params_
-int4`` and ``_packed``, refused by name: their kernels K12/K13), tensor
-parallelism, a draft checkpoint loader, streaming, MBD and the DF
-enhancer.
+Not ported yet: tensor parallelism, a draft checkpoint loader, streaming,
+MBD and the DF enhancer.
 """
 
 from __future__ import annotations
@@ -102,15 +105,17 @@ from metavoice_tpu_torch.ops.quantized import (
     decode_ffn_int4,
     ffn_int8,
     is_int4,
+    is_int4_grouped,
     is_int8_i32,
     is_int8_plain,
+    matmul_int4,
     matmul_int4_i32,
+    matmul_int4_packed,
     matmul_int8,
     matmul_int8_i32,
     quantize_params_int4_i32,
     quantize_params_int8,
     quantize_params_int8_i32,
-    refuse_unported_int4,
 )
 from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser
 from metavoice_tpu_torch.utils import audio_io as aio
@@ -130,6 +135,8 @@ KERNEL_COUNTERS = {
     "k9_launches": (decode_attention_block_int8, "launches"),
     "k10_launches": (ffn_int8, "launches"),
     "k11_launches": (matmul_int8, "launches"),
+    "k12_launches": (matmul_int4, "launches"),
+    "k13_launches": (matmul_int4_packed, "launches"),
 }
 _QUANTIZERS = {"int4": quantize_params_int4_i32, "int8": quantize_params_int8_i32,
                "int8_plain": quantize_params_int8}
@@ -198,20 +205,23 @@ class TTS:
         # A quantized mode arrives as the mode, or as first-stage params that
         # already hold quantized leaves, {"pw", "sc"} for int4, {"p8", "sc8"}
         # for int8 or {"q", "scales"} for int8_plain (a JAX-written .npz, or
-        # a tree the JAX package quantized); the JAX package's groupwise int4
-        # leaves are refused by name. Quantizing runs on the params' device;
-        # the int4 decode routes' conditions are checked before any synthesis
-        # (int8 layers that miss the int8 stack's run per layer).
+        # a tree the JAX package quantized). The JAX package's groupwise int4
+        # leaves, {"q" | "p", "scales", "zeros"}, run as they are with the
+        # mode left None, as in JAX; a tree that mixes kinds is refused.
+        # Quantizing runs on the params' device; the int4 decode routes'
+        # conditions are checked before any synthesis (int8 layers that miss
+        # the int8 stack's run per layer).
         params1 = components.first_stage_params
         found = set()
         for w in params1["layers"].values():
-            refuse_unported_int4(w)
-            if is_int4(w) or is_int8_i32(w) or is_int8_plain(w):
-                found.add("int4" if is_int4(w) else "int8" if is_int8_i32(w) else "int8_plain")
+            kind = ("int4" if is_int4(w) else "int8" if is_int8_i32(w) else "int8_plain" if is_int8_plain(w)
+                    else "groupwise int4" if is_int4_grouped(w) else None)
+            if kind:
+                found.add(kind)
         wanted = "int8" if mode in _INT8_PACKED_MODES else mode
         if len(found) > 1 or (found and wanted and found != {wanted}):
             raise ValueError(f"quantisation_mode={mode!r}, but the first stage holds {sorted(found)} leaves")
-        self.quantisation_mode = wanted or next(iter(found), None)
+        self.quantisation_mode = wanted or next(iter(found - {"groupwise int4"}), None)
         if self.quantisation_mode is not None:
             if not found:
                 params1 = _QUANTIZERS[wanted](params1)
@@ -254,8 +264,8 @@ class TTS:
         # launches (K1 decode attention, K2 int4 matmul, K3 int4 decode
         # stack, K4 multi-query decode attention, K5 int4 attention block,
         # K6 int4 FFN, K7 int8 decode stack, K8 int8 matmul, K9 plain-int8
-        # attention block, K10 plain-int8 FFN, K11 plain-int8 matmul) of the
-        # last synthesise
+        # attention block, K10 plain-int8 FFN, K11 plain-int8 matmul, K12 and
+        # K13 groupwise int4 matmuls) of the last synthesise
         self.timings: dict[str, float] = {}
         self.stats: dict[str, int] = {}
 

@@ -1,6 +1,6 @@
 """The plain-int8 kernels' plain versions against the JAX package's Pallas
-kernels in interpret mode, on the CPU, and the refusal of the groupwise
-int4 trees whose kernels are not ported:
+kernels in interpret mode, on the CPU, and the groupwise int4 trees beside
+them:
 
 * ``quantize_params_int8`` is bit-identical to JAX's (values and f32 scales).
 * K11 ``matmul_int8`` at M = 1, 8, 200 against JAX ``matmul_int8(...,
@@ -16,8 +16,8 @@ int4 trees whose kernels are not ported:
   softmax uses the window's maximum where JAX's runs online over chunks,
   and y and the o-proj round to bf16); the new cache row within one bf16
   ulp (its f32 qkv sums run in another order); every other slot identical.
-* JAX ``quantize_params_int4`` and ``quantize_params_int4_packed`` trees are
-  refused by name (K12, K13) by ``TTS`` and ``_linear``; ``params_from_numpy
+* JAX ``quantize_params_int4`` and ``quantize_params_int4_packed`` trees
+  (K12, K13) run in ``TTS`` and ``_linear``; ``params_from_numpy
   (dtype=bf16)`` keeps the f32 scales of all three JAX leaf kinds.
 """
 
@@ -171,17 +171,24 @@ def legacy_trees():
 
 @pytest.mark.parametrize("kernel", ["K12", "K13"])
 def test_legacy_int4_trees_are_refused_by_name(legacy_trees, kernel, tmp_path):
+    """The JAX package's groupwise int4 trees, once refused by name, now run
+    (tests/test_torch_int4_grouped*.py): ``TTS`` takes them as they are,
+    refuses a requested mode, and ``_linear`` matches the kernel's plain
+    version."""
     jcfg, _ = _jax_params()
     cfg = TransformerConfig(**dataclasses.asdict(jcfg))
     params = params_from_numpy(legacy_trees[kernel], device="cpu", dtype=torch.bfloat16)
     small = TTS.from_random(small=True, device="cpu", output_dir=str(tmp_path))
     comps = dataclasses.replace(small.c, first_stage_params=params, first_stage_cfg=cfg)
-    for mode in (None, "int8_plain"):
-        with pytest.raises(NotImplementedError, match=kernel):
-            TTS(comps, device="cpu", output_dir=str(tmp_path), quantisation_mode=mode)
-    x = torch.zeros((2, 3, cfg.dim), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match=kernel):
-        tfm._linear(x, tfm._layer(params["layers"], 0)["wqkv"])
+    assert TTS(comps, device="cpu", output_dir=str(tmp_path)).quantisation_mode is None
+    with pytest.raises(ValueError, match="groupwise int4"):
+        TTS(comps, device="cpu", output_dir=str(tmp_path), quantisation_mode="int8_plain")
+    x = torch.randn((2, 3, cfg.dim), generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    leaf = tfm._layer(params["layers"], 0)["wqkv"]
+    gs = cfg.dim // leaf["scales"].shape[0]
+    ref = (Q.matmul_int4_packed_reference(x[0], leaf["p"], leaf["scales"], leaf["zeros"], gs) if kernel == "K13"
+           else Q.matmul_int4_reference(x[0], leaf["q"], leaf["scales"], leaf["zeros"], gs))
+    assert torch.equal(tfm._linear(x, leaf)[0], ref)
 
 
 def test_params_from_numpy_keeps_quantized_scales_f32(legacy_trees):

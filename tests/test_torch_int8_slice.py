@@ -189,9 +189,9 @@ def test_int8_packed_is_int8(tmp_path):
 
 def test_int8_plain_raises_naming_its_kernels(tmp_path):
     """``int8_plain`` is ported (tests/test_torch_int8_plain_slice.py): the
-    mode builds plain {"q", "scales"} leaves, a tree that mixes them with the
-    packed int8 leaves is refused, and what still raises, naming its kernel,
-    is the JAX package's groupwise int4 leaves (K12, K13)."""
+    mode builds plain {"q", "scales"} leaves, and a tree that mixes them with
+    the packed int8 leaves, or with the JAX package's groupwise int4 leaves
+    (K12, K13), is refused."""
     small = TTS.from_random(small=True, device="cpu", output_dir=str(tmp_path))
     plain = TTS(small.c, device="cpu", output_dir=str(tmp_path), quantisation_mode="int8_plain")
     lay = plain.c.first_stage_params["layers"]
@@ -201,10 +201,11 @@ def test_int8_plain_raises_naming_its_kernels(tmp_path):
     with pytest.raises(ValueError, match="int8"):
         TTS(dataclasses.replace(small.c, first_stage_params=dict(plain.c.first_stage_params, layers=mixed)),
             device="cpu", output_dir=str(tmp_path))
-    for kernel, leaf in (("K12", {"q": lay["wo"]["q"], "scales": lay["wo"]["scales"], "zeros": lay["wo"]["scales"]}),
-                         ("K13", {"p": lay["wo"]["q"], "scales": lay["wo"]["scales"], "zeros": lay["wo"]["scales"]})):
+    grouped = Q.quantize_params_int4(small.c.first_stage_params, groupsize=64)["layers"]["wo"]
+    for kernel, leaf in (("K12", grouped), ("K13", {"p": Q.pack_int4(grouped["q"][0])[None],
+                                                    "scales": grouped["scales"], "zeros": grouped["zeros"]})):
         legacy = dict(plain.c.first_stage_params, layers=dict(lay, wo=leaf))
-        with pytest.raises(NotImplementedError, match=kernel):
+        with pytest.raises(ValueError, match="groupwise int4"):
             TTS(dataclasses.replace(small.c, first_stage_params=legacy), device="cpu", output_dir=str(tmp_path))
 
 
