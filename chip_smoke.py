@@ -9,9 +9,15 @@ Phases, one line each; any failure exits non-zero and prints no result:
                power limit as nvidia-smi gives them;
   2. build   - builds every kernel from metavoice_tpu_torch/csrc with nvcc;
   3. K1      - the decode-attention kernel against its plain PyTorch version
-               at the main-path shape (L=24, S=2048, B=2, H=16, Dh=128, bf16):
-               y within atol/rtol 2e-2 of the plain version (f32 inside,
-               rounded to bf16), caches bit-identical; CUDA-event times;
+               at the main-path shape (L=24, S=2048, B=2, H=16, Dh=128, bf16),
+               pos 0 to 2047 and the edges of its plan (one split, windows
+               ending on a split boundary, the most splits, starts, NaN past
+               pos): y within atol/rtol 2e-2 of the plain version (f32
+               inside, rounded to bf16), caches bit-identical, the new row
+               written, one launch counted and one device kernel a call
+               (from the graph of one call); each case's plan; per layer from a CUDA
+               graph at pos 256, 1000 and 2047 beside SDPA on the same
+               window, the plain version and the bound;
   4. small   - the first stage on the card (f32) against the CPU path on a
                small model with the same weights and Gumbel noise: same tokens;
   5. synth   - full-width TTS.synthesise on random weights (first stage
@@ -22,7 +28,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
                main-path shapes (M = 256; K x N of 2048 x 6144, 2048 x 2048,
                6144 x 2048) and at M = 1, 200: max |dy| <= 1e-3 max |ref|;
                CUDA-event times of one layer's five projections beside the
-               plain version, torch._weight_int4pack_mm and the bound;
+               plain version, torch._weight_int4pack_mm (replayed from a CUDA
+               graph as the kernels are; eagerly, said so, where it cannot be
+               captured) and the bound;
   7. K3      - the int4 decode stack against its plain version at the full
                main-path shape (24 layers, B = 2, cache 2048 slots, head
                Vp 3072) at pos 0, 255, 1000, 2047, with starts, with NaN
@@ -63,10 +71,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
                version at the main-path shape (L=24, S=2048, B=2, Dh=128,
                bf16): the spec verify (H = H_kv = 16, T 4, 8, 16 at pos 0,
                255, 1000, 2032), GQA (H 16, H_kv 2, T 1 and 8), 3 rows
-               (B 3, T 4), starts with one past pos, NaN past pos+T-1: y
-               within atol/rtol 2e-2, caches bit-identical (the T rows
-               written, every other slot unchanged); CUDA-event times per
-               layer beside the plain version, SDPA and the bound;
+               (B 3, T 4), starts with one past pos, NaN past pos+T-1, and
+               the edges of its plan (one split, windows ending on a split
+               boundary, GQA's most splits, GQA starts with NaN): y within
+               atol/rtol 2e-2, caches bit-identical (the T rows written,
+               every other slot unchanged), one launch counted and one
+               device kernel a call; each case's plan; CUDA-event times per
+               layer beside the plain version, SDPA (at GQA T 1 also
+               without its all-true mask) and the bound;
  17. small-spec - speculative decoding of a small f32 first stage and draft
                on the card against the CPU path, same weights and injected
                draws: same tokens and ledger; with draft == target under
@@ -133,8 +145,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
                M = 1, 8, 200, with f32 x and with groupsize 64: every
                element within 1e-3 max |ref| plus one bf16 ulp of the
                element; times of one layer's five projections at M = 2 and
-               256 beside the plain version, torch._weight_int4pack_mm and
-               the bound;
+               256 beside the plain version, torch._weight_int4pack_mm (as
+               in phase 6) and the bound;
  31. K13     - phase 30 for the nibble-packed matmul;
  32. small-int4g - 2-layer 512-wide groupwise int4 first stages, unpacked
                (K12) and packed (K13), on the card and on the CPU under the
@@ -163,6 +175,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -310,65 +323,113 @@ def _layers_ms(torch, fn, n_layer: int) -> tuple[float, float]:
     return device, host
 
 
+def _graph_nodes(torch, fn) -> list[tuple[str, str]]:
+    """The nodes of one call of fn() captured in a CUDA graph, as (type,
+    name) from the graph's own description (cudaGraphDebugDotPrint)."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # keep the cudaGraph_t for the dump
+    graph.enable_debug_mode()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: the first call of a wrapper may allocate its counters
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "call.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    return re.findall(r'label="\{(\w+)\s*\|\s*\{ID \|[^|]*\|\s*([^\\|}]*)', text)
+
+
+def _one_kernel(torch, fn, what: str) -> str:
+    """Fail unless one call of fn(), captured in a CUDA graph, is one kernel
+    node and nothing else; the kernel's name."""
+    nodes = _graph_nodes(torch, fn)
+    if len(nodes) != 1 or nodes[0][0] != "KERNEL":
+        fail(f"{what}: one call is {len(nodes)} graph nodes, not one kernel: {nodes}")
+    found = re.search(r"attn_\w+?_kernel", nodes[0][1])
+    return found.group(0) if found else nodes[0][1]
+
+
 def phase_k1(torch) -> dict:
     from metavoice_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     layer = 5
+    rows = MAIN_SHAPE["b"] * MAIN_SHAPE["h"]
     cases = [(p, None, None) for p in (0, 1, 255, 256, 1000, 2047)]
     cases += [(1000, (300, 700), None), (1000, None, float("nan"))]
+    # the edges of attention_plan at 32 rows (one split up to 384 slots, then
+    # up to 4 of 128 or more): one split of 101 and of 384 slots, windows
+    # ending on a split boundary (512 and 1024 in 4), starts on a boundary,
+    # NaN past pos in a window of 4 splits
+    cases += [(100, None, None), (383, None, None), (511, None, None), (1023, (256, 767), None),
+              (1500, (1, 1499), float("nan"))]
     max_err = 0.0
+    plans = {}
     for pos, starts, garbage in cases:
         q, k_new, v_new, kc, vc = _k1_inputs(torch, gen, dev, pos, garbage)
         st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
         kc_ref, vc_ref = kc.clone(), vc.clone()
         y_ref, _, _ = A.decode_attention_reference(q, k_new, v_new, kc_ref, vc_ref, layer, pos, st)
+        before = A.decode_attention.launches
         y, _, _ = A.decode_attention(q, k_new, v_new, kc, vc, layer, pos, st)
         torch.cuda.synchronize()
+        what = f"pos {pos} starts {starts} garbage {garbage}"
+        if A.decode_attention.launches != before + 1:
+            fail(f"K1 counted {A.decode_attention.launches - before} launches for one call at {what}")
+        plans[pos + 1] = A.attention_plan(pos + 1, rows, 1)
         if not torch.isfinite(y).all():
-            fail(f"K1 output not finite at pos {pos} starts {starts} garbage {garbage}")
+            fail(f"K1 output not finite at {what}")
         if not (torch.equal(kc.view(torch.int16), kc_ref.view(torch.int16))
                 and torch.equal(vc.view(torch.int16), vc_ref.view(torch.int16))):
-            fail(f"K1 caches differ from the plain version at pos {pos}")
+            fail(f"K1 caches differ from the plain version at {what}")
+        if not torch.equal(kc[layer, pos].view(torch.int16), k_new.view(torch.int16)):
+            fail(f"K1 did not write the new row at {what}")
         err = (y.float() - y_ref.float()).abs().max().item()
         max_err = max(max_err, err)
         try:
             torch.testing.assert_close(y.float(), y_ref.float(), atol=K1_TOL, rtol=K1_TOL)
         except AssertionError as e:
-            fail(f"K1 disagrees with the plain version at pos {pos} starts {starts}: {e}")
+            fail(f"K1 disagrees with the plain version at {what}: {e}")
     times = {}
     q, k_new, v_new, kc, vc = _k1_inputs(torch, gen, dev)
     n_layer = MAIN_SHAPE["l"]
-    pos = TIMED_POS[-1]
-    # the library yardstick: SDPA on each layer's window, pre-transposed to (B, H, pos+1, Dh)
-    qt = q[:, :, None, :]
-    kt = [kc[li, : pos + 1].permute(1, 2, 0, 3).contiguous() for li in range(n_layer)]
-    vt = [vc[li, : pos + 1].permute(1, 2, 0, 3).contiguous() for li in range(n_layer)]
+    kernel_name = _one_kernel(torch, lambda: A.decode_attention(q, k_new, v_new, kc, vc, 0, TIMED_POS[-1]), "K1")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library, _ = _layers_ms(torch, lambda li: sdpa(qt, kt[li], vt[li]), n_layer)
-    del kt, vt
+    qt = q[:, :, None, :]
     for pos in TIMED_POS:
+        # the library yardstick: SDPA on each layer's window, pre-transposed to (B, H, pos+1, Dh)
+        kt = [kc[li, : pos + 1].permute(1, 2, 0, 3).contiguous() for li in range(n_layer)]
+        vt = [vc[li, : pos + 1].permute(1, 2, 0, 3).contiguous() for li in range(n_layer)]
+        library, _ = _layers_ms(torch, lambda li: sdpa(qt, kt[li], vt[li]), n_layer)
+        del kt, vt
         kernel = _layers_ms(torch, lambda li: A.decode_attention(q, k_new, v_new, kc, vc, li, pos), n_layer)
         plain = _layers_ms(
             torch, lambda li: A.decode_attention_reference(q, k_new, v_new, kc, vc, li, pos), n_layer
         )
-        times[pos] = (kernel, plain)
+        times[pos] = (kernel, plain, library)
     window_bytes = lambda p: 2 * (p + 1) * q.numel() * q.element_size()  # noqa: E731
-    shown = "; ".join(
-        f"pos {p}: kernel {k[0]:.4f} ms ({window_bytes(p) / k[0] / 1e6:.0f} GB/s), "
-        f"plain {pl[0]:.4f} ms on the device; {k[1]:.4f} / {pl[1]:.4f} ms a call from Python"
-        for p, (k, pl) in times.items()
-    )
-    pos = TIMED_POS[-1]
     row = q.numel() * q.element_size()  # one (B, H, Dh) bf16 row
     # read q, k_new, v_new and the window; write the cache row pair and y
-    bound_ms, bound_by = bound(window_bytes(pos) + 3 * row + 2 * row + row,
-                               4.0 * (pos + 1) * q.numel(), F32_FLOP_S)
-    print(f"[3 K1] {len(cases)} cases at {MAIN_SHAPE} bf16 agree (max |dy| {max_err:.3g}, "
-          f"caches bit-identical); {shown}; pos {pos}: SDPA on the pre-transposed window "
-          f"{library:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    (ms, _), (plain, _) = times[pos]
+    bounds = {p: bound(window_bytes(p) + 3 * row + 2 * row + row, 4.0 * (p + 1) * q.numel(), F32_FLOP_S)
+              for p in TIMED_POS}
+    shown = "; ".join(
+        f"pos {p} (plan {plans.get(p + 1, A.attention_plan(p + 1, rows, 1))}): kernel {k[0]:.4f} ms "
+        f"({window_bytes(p) / k[0] / 1e6:.0f} GB/s), SDPA {lib:.4f}, plain {pl[0]:.4f}, bound {bounds[p][0]:.4f} "
+        f"on the device; {k[1]:.4f} / {pl[1]:.4f} ms a call from Python"
+        for p, (k, pl, lib) in times.items()
+    )
+    print(f"[3 K1] {len(cases)} cases at {MAIN_SHAPE} bf16 agree (max |dy| {max_err:.3g}, tol {K1_TOL}; caches "
+          f"bit-identical, new rows written); one kernel a call ({kernel_name}); plans (window: split_len, "
+          f"splits): {plans}; per layer, device time from a CUDA graph (SDPA on the pre-transposed window): "
+          f"{shown}")
+    pos = TIMED_POS[-1]
+    (ms, _), (plain, _), library = times[pos]
+    bound_ms, bound_by = bounds[pos]
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library}
 
@@ -527,8 +588,8 @@ def phase_k2(torch) -> dict:
     bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
     print(f"[6 K2] 5 cases agree (max |dy| {max_err:.3g}, tol {K2_TOL} max |ref|); one layer's "
           f"five projections at M {K2_M}, device time from a CUDA graph: kernel {kernel:.4f} ms "
-          f"({'; '.join(per_shape)}), plain {plain:.4f} ms; {lib_name} {library:.4f} ms called "
-          f"eagerly; bound {bound_ms:.4f} ms ({bound_by}, "
+          f"({'; '.join(per_shape)}), plain {plain:.4f} ms; {lib_name} {library:.4f} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by}, "
           f"{n_flop / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); kernel at "
           f"{n_flop / kernel / 1e9:.1f} TFLOP/s")
     return {"max_abs_err": max_err, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms,
@@ -538,6 +599,19 @@ def phase_k2(torch) -> dict:
 def _rotate_ms(torch, fn, n: int) -> float:
     """ms per call of fn(i), i = 0..n-1 in turn, called eagerly (CUDA events)."""
     return _time_ms(torch, lambda: [fn(i) for i in range(n)], 10) / n
+
+
+def _graph_or_eager_ms(torch, fn, n: int, label: str) -> tuple[float, str]:
+    """ms per call of fn(i), i = 0..n-1 in turn: device time replayed from a
+    CUDA graph as _layers_ms takes it, or, where the call cannot be captured,
+    called eagerly (the reason printed) -> (ms, how it was timed)."""
+    try:
+        return _layers_ms(torch, fn, n)[0], "CUDA graph"
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"[{label}] the library call cannot be captured in a CUDA graph ({str(e)[:160]}); "
+              "timing it eagerly")
+        return _rotate_ms(torch, fn, n), "eager"
 
 
 def _k2_library_ms(torch, x, packed, lib_name: str) -> tuple[float, str]:
@@ -561,10 +635,12 @@ def _int4pack_ms(torch, x, mats, ref, groupsize: int, lib_name: str, label: str)
     torch._weight_int4pack_mm on the same nibbles, scales and zeros, or,
     where this torch lacks it or refuses the shape, torch.matmul on the
     bf16-dequantized weight (the dequantization untimed). Its answer is
-    checked against ref first. -> (ms, the call timed)."""
+    checked against ref first; timed as the kernels are, the weights in
+    turn replayed from a CUDA graph (_graph_or_eager_ms). -> (ms, the call
+    timed and how)."""
     k = x.shape[1]
     tol = 2e-2 * ref.float().abs().max().item()
-    if lib_name == "torch._weight_int4pack_mm":
+    if lib_name.startswith("torch._weight_int4pack_mm"):
         try:
             libs = []
             for nib, s, zero in mats:
@@ -575,8 +651,9 @@ def _int4pack_ms(torch, x, mats, ref, groupsize: int, lib_name: str, label: str)
             y = torch._weight_int4pack_mm(x, libs[0][0], groupsize, libs[0][1])
             if (y.float() - ref.float()).abs().max().item() > tol:
                 raise RuntimeError("its result disagrees with the int4 product")
-            return _rotate_ms(torch, lambda i: torch._weight_int4pack_mm(x, libs[i][0], groupsize, libs[i][1]),
-                              len(libs)), lib_name
+            ms, how = _graph_or_eager_ms(
+                torch, lambda i: torch._weight_int4pack_mm(x, libs[i][0], groupsize, libs[i][1]), len(libs), label)
+            return ms, f"torch._weight_int4pack_mm ({how})"
         except (AttributeError, RuntimeError, NotImplementedError) as e:
             print(f"[{label}] torch._weight_int4pack_mm not usable here ({str(e)[:120]}); "
                   "timing torch.matmul on the bf16-dequantized weight instead")
@@ -585,8 +662,8 @@ def _int4pack_ms(torch, x, mats, ref, groupsize: int, lib_name: str, label: str)
         g = s.shape[0]
         w = (nib.float() - 8).reshape(g, k // g, -1) * s.float()[:, None] + zero.float()[:, None]
         dense.append(w.reshape(k, -1).to(torch.bfloat16))
-    return _rotate_ms(torch, lambda i: torch.matmul(x, dense[i]), len(dense)), \
-        "torch.matmul(bf16 dequantized)"
+    ms, how = _graph_or_eager_ms(torch, lambda i: torch.matmul(x, dense[i]), len(dense), label)
+    return ms, f"torch.matmul(bf16 dequantized) ({how})"
 
 
 def _random_int4_model(torch, cfg, seed: int, dev):
@@ -1165,15 +1242,26 @@ def phase_k4(torch) -> dict:
     cases += [(b, 2, t, p, None, None) for t in (1, 8) for p in (255, 2032)]
     cases += [(3, h, 4, 500, None, None), (b, h, 4, 1000, (300, 1500), None),
               (b, h, 8, 1000, None, float("nan")), (b, 2, 8, 700, (100, 650), float("nan"))]
+    # the edges of attention_plan (one split up to 384 slots, then splits of
+    # 128 or more, about one block an SM): one split (104 slots), windows
+    # ending on a split boundary (512 in 4 splits; GQA T 1: 2048 in 16, the
+    # most; GQA T 8, 4 query groups: 1024 in 8), GQA starts with NaN past pos
+    cases += [(b, h, 4, 100, None, None), (b, h, 4, 508, None, None), (b, 2, 1, 2047, None, None),
+              (b, 2, 8, 1016, None, None), (b, 2, 1, 1500, (256, 1000), float("nan"))]
     max_err = 0.0
+    plans = {}
     for bb, h_kv, t, pos, starts, garbage in cases:
         q, k_new, v_new, kc, vc = _k4_inputs(torch, gen, dev, bb, h, h_kv, t, pos, garbage)
         st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
         kc_ref, vc_ref = kc.clone(), vc.clone()
         y_ref, _, _ = A.decode_attention_multi_reference(q, k_new, v_new, kc_ref, vc_ref, layer, pos, st)
+        before = A.decode_attention_multi.launches
         y, _, _ = A.decode_attention_multi(q, k_new, v_new, kc, vc, layer, pos, st)
         torch.cuda.synchronize()
         what = f"B {bb}, H_kv {h_kv}, T {t}, pos {pos}, starts {starts}, garbage {garbage}"
+        if A.decode_attention_multi.launches != before + 1:
+            fail(f"K4 counted {A.decode_attention_multi.launches - before} launches for one call at {what}")
+        plans[(bb, h_kv, t, pos + t)] = A.attention_plan(pos + t, bb * h_kv, t * h // h_kv)
         if not torch.isfinite(y).all():
             fail(f"K4 output not finite at {what}")
         if not (torch.equal(kc.view(torch.int16), kc_ref.view(torch.int16))
@@ -1191,10 +1279,11 @@ def phase_k4(torch) -> dict:
 
     n_layer = MAIN_SHAPE["l"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    times, shown = {}, []
+    times, shown, kernels = {}, [], set()
     for h_kv, t, pos in [(h, t, p) for t, p in K4_TIMED] + [(2, 1, 2032)]:
         q, k_new, v_new, kc, vc = _k4_inputs(torch, gen, dev, b, h, h_kv, t)
         n = pos + t
+        kernels.add(_one_kernel(torch, lambda: A.decode_attention_multi(q, k_new, v_new, kc, vc, 0, pos), "K4"))
         y_ref, _, _ = A.decode_attention_multi_reference(q, k_new, v_new, kc, vc, 0, pos)  # rows into layer 0
         # the library yardstick: SDPA on each layer's window, pre-transposed
         # to (B, H_kv, pos+T, Dh), under the causal-offset mask
@@ -1206,6 +1295,8 @@ def phase_k4(torch) -> dict:
         if (y_lib.float() - y_ref.float()).abs().max().item() > K4_TOL * (1 + y_ref.float().abs().max().item()):
             fail(f"SDPA disagrees with K4's plain version at H_kv {h_kv}, T {t}, pos {pos}")
         library, _ = _layers_ms(torch, lambda li: sdpa(q, kt[li], vt[li], attn_mask=mask, **gqa), n_layer)
+        # at T = 1 the causal-offset mask is all true: SDPA without it too
+        nomask = _layers_ms(torch, lambda li: sdpa(q, kt[li], vt[li], **gqa), n_layer)[0] if t == 1 else None
         del kt, vt
         kernel = _layers_ms(torch, lambda li: A.decode_attention_multi(q, k_new, v_new, kc, vc, li, pos), n_layer)
         plain, _ = _layers_ms(
@@ -1213,17 +1304,23 @@ def phase_k4(torch) -> dict:
         rows = 2 * t * b * h_kv * 128 * 2  # the T new K and V rows, bf16
         n_bytes = 2 * n * b * h_kv * 128 * 2 + rows + 2 * q.numel() * 2  # window, rows, q and y
         bound_ms, bound_by = bound(n_bytes, 4.0 * b * h * t * n * 128, BF16_FLOP_S)
-        times[(h_kv, t, pos)] = (kernel[0], plain, library, bound_ms, bound_by)
-        shown.append(f"H_kv {h_kv} T {t} pos {pos}: kernel {kernel[0]:.4f} ms ({n_bytes / kernel[0] / 1e6:.0f} "
-                     f"GB/s; {kernel[1]:.4f} a call from Python), plain {plain:.4f}, SDPA {library:.4f}, "
-                     f"bound {bound_ms:.4f} ({bound_by})")
+        times[(h_kv, t, pos)] = (kernel[0], plain, library, bound_ms, bound_by, nomask)
+        plan = A.attention_plan(n, b * h_kv, t * h // h_kv)
+        shown.append(f"H_kv {h_kv} T {t} pos {pos} (plan {plan}): kernel {kernel[0]:.4f} ms ({n_bytes / kernel[0] / 1e6:.0f} "
+                     f"GB/s; {kernel[1]:.4f} a call from Python), plain {plain:.4f}, SDPA {library:.4f}"
+                     + ("" if nomask is None else f" (without the mask {nomask:.4f})")
+                     + f", bound {bound_ms:.4f} ({bound_by}, {n_bytes / 1e6:.2f} MB)")
         del q, k_new, v_new, kc, vc
     print(f"[16 K4] {len(cases)} cases at L 24, S 2048, Dh 128 bf16 agree (max |dy| {max_err:.3g}, tol "
-          f"{K4_TOL}; caches bit-identical, new rows written); per layer, device time from a CUDA graph: "
+          f"{K4_TOL}; caches bit-identical, new rows written); one kernel a call ({', '.join(sorted(kernels))}); "
+          f"plans ((B, H_kv, T, window): split_len, splits): {plans}; per layer, device time from a CUDA graph: "
           f"{'; '.join(shown)}")
-    ms, plain, library, bound_ms, bound_by = times[(h, 4, 2032)]
+    ms, plain, library, bound_ms, bound_by, _ = times[(h, 4, 2032)]
+    gqa_ms, _, gqa_library, gqa_bound_ms, _, gqa_nomask = times[(2, 1, 2032)]
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library}
+            "bound_by": bound_by, "library_ms": library,
+            "gqa_t1": {"ms": gqa_ms, "library_ms": gqa_library, "library_no_mask_ms": gqa_nomask,
+                       "bound_ms": gqa_bound_ms}}
 
 
 def phase_small_spec(torch):
@@ -2037,7 +2134,7 @@ def phase_k12(torch, packed: bool) -> dict:
         bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
         times[m] = (kernel, plain, library, bound_ms, bound_by)
         shown.append(f"M {m}: kernel {kernel:.4f} ms ({'; '.join(per_shape)}), plain {plain:.4f} ms, {lib_name} "
-                     f"{library:.4f} ms called eagerly, bound {bound_ms:.4f} ms ({bound_by}, "
+                     f"{library:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
                      f"{n_flop / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
     print(f"[{label}] {len(cases)} cases agree (within {worst:.3g} of max |ref| at most, tol {K12_TOL} of max |ref| "
           f"plus one bf16 ulp of each element); one layer's five projections, device time from a CUDA graph: "

@@ -11,84 +11,32 @@
 // below the card's ~295 operations per byte, so the kernel is bound by how fast
 // it streams the window out of device memory, and at short windows by latency.
 //
-// Design, following that bound: only the valid window is read, split along
-// the sequence across blocks (grid (B*H, splits), so a main-path step with
-// only B*H = 32 rows still spreads over the SMs) with a second kernel that
-// merges the splits; f32 arithmetic throughout. The device code is shared
-// with the int4 decode stack and described in decode_attention.cuh. Ordering
-// of the row write: blocks run in no order, so no block may read slot pos
-// from the cache; the block whose split holds pos writes the new row, and
-// every read of slot pos takes k_new/v_new instead.
+// Design, following that bound: the device code of decode_attention_onepass.cuh
+// with one query a row (T = 1, g = 1), on CUDA cores: one launch a call, the
+// sequence split across blocks and merged by the last block of a row to
+// finish, every warp streaming its own tiles through its own ring of
+// shared-memory stages with cp.async, and the online softmax once a tile, in
+// f32.
 //
 // Plain C entry point (no PyTorch headers), loaded with ctypes by
-// metavoice_tpu_torch/ops/_build.py; the wrapper and its plain PyTorch
-// version are in metavoice_tpu_torch/ops/attention.py.
+// metavoice_tpu_torch/ops/_build.py; the wrapper, its plan of the split and
+// its plain PyTorch version are in metavoice_tpu_torch/ops/attention.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "decode_attention.cuh"
-
-namespace {
-
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k_new, const void* v_new, void* k_cache,
-                   void* v_cache, const int* starts, int batch, int n_head, int seq_len,
-                   int layer, int pos, int split_len, int n_splits, float* part_ml,
-                   float* part_acc, void* y, cudaStream_t stream) {
-  const int bh = batch * n_head;
-  SplitArgs<T, T> a;
-  a.q = static_cast<const T*>(q);
-  a.q_bstride = n_head * DH;
-  a.k_new = static_cast<const T*>(k_new);
-  a.v_new = static_cast<const T*>(v_new);
-  a.k_cache = static_cast<T*>(k_cache);
-  a.v_cache = static_cast<T*>(v_cache);
-  a.starts = starts;
-  a.n_head = n_head;
-  a.group = 1;
-  a.bkv = bh;
-  a.seq_len = seq_len;
-  a.layer = layer;
-  a.pos_dev = nullptr;
-  a.pos = pos;
-  a.split_len = split_len;
-  a.scale = (float)(1.0 / sqrt((double)DH));
-  a.part_ml = part_ml;
-  a.part_acc = part_acc;
-  decode_attn_split<T, T, DH><<<dim3(bh, n_splits), kThreads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_attn_combine<T, DH><<<bh, DH, 0, stream>>>(part_ml, part_acc, n_splits,
-                                                    static_cast<T*>(y));
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "decode_attention_onepass.cuh"
 
 // dtype: 0 = bfloat16, 1 = float32 (q, k_new, v_new, both caches and y share it).
-// starts: NULL or (batch,) int32 on the device. part_ml: (B*H*n_splits*2,) f32 and
-// part_acc: (B*H*n_splits*head_dim,) f32 scratch. Returns a cudaError_t.
+// q, k_new, v_new, y: (batch, n_head, head_dim); caches (L, seq_len, batch,
+// n_head, head_dim); starts: NULL or (batch,) int32 on the device. The window
+// [0, pos] is cut into n_splits <= 32 splits of split_len slots; part,
+// tickets and n_tickets as decode_attention_onepass in the header says.
+// Returns a cudaError_t.
 extern "C" int mv_decode_attention(int dtype, const void* q, const void* k_new,
                                    const void* v_new, void* k_cache, void* v_cache,
                                    const void* starts, int batch, int n_head, int head_dim,
                                    int seq_len, int layer, int pos, int split_len,
-                                   int n_splits, void* part_ml, void* part_acc, void* y,
-                                   void* stream) {
-  const int* st = static_cast<const int*>(starts);
-  float* ml = static_cast<float*>(part_ml);
-  float* acc = static_cast<float*>(part_acc);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (split_len < 1 || n_splits < 1 || (long long)split_len * n_splits < (long long)pos + 1)
-    return (int)cudaErrorInvalidValue;
-#define MV_ARGS q, k_new, v_new, k_cache, v_cache, st, batch, n_head, seq_len, layer, pos, \
-                split_len, n_splits, ml, acc, y, s
-  if (dtype == 0 && head_dim == 128) return (int)launch<__nv_bfloat16, 128>(MV_ARGS);
-  if (dtype == 0 && head_dim == 64) return (int)launch<__nv_bfloat16, 64>(MV_ARGS);
-  if (dtype == 1 && head_dim == 128) return (int)launch<float, 128>(MV_ARGS);
-  if (dtype == 1 && head_dim == 64) return (int)launch<float, 64>(MV_ARGS);
-#undef MV_ARGS
-  return (int)cudaErrorInvalidValue;
+                                   int n_splits, void* part, void* tickets, int n_tickets,
+                                   void* y, void* stream) {
+  return decode_attention_onepass(dtype, q, k_new, v_new, k_cache, v_cache, starts, batch, n_head,
+                                  n_head, 1, head_dim, seq_len, layer, pos, split_len, n_splits, part,
+                                  tickets, n_tickets, y, stream);
 }

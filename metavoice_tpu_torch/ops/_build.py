@@ -34,11 +34,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> (restype, argtypes) of every C entry point in csrc/
 _SIGNATURES = {
-    "mv_decode_attention": (
-        _I,
-        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    ),
-    "mv_decode_attention_multi": (_I, [_I] + [_P] * 6 + [_I] * 10 + [_P] * 4),
+    "mv_decode_attention": (_I, [_I] + [_P] * 6 + [_I] * 8 + [_P, _P, _I, _P, _P]),
+    "mv_decode_attention_multi": (_I, [_I] + [_P] * 6 + [_I] * 10 + [_P, _P, _I, _P, _P]),
     "mv_matmul_int4_i32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "mv_matmul_int8_i32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "mv_decode_stack_int4": (_I, [_P] * 22 + [_I] * 11 + [_F, _I, _I] + [_P] * 8),

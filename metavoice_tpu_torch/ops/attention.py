@@ -26,7 +26,10 @@ plain PyTorch versions.
 
 Each kernel's source says what bounds it on the card (the bytes of the cache
 window it reads, ``2 * (pos + T - min_start) * B * H_kv * Dh`` elements per
-layer) and how its design follows that bound.
+layer) and how its design follows that bound. K1 and K4 share one device
+design (``csrc/decode_attention_onepass.cuh``): one launch a call, the
+window cut into splits by :func:`attention_plan`; K5 and K9 keep the split
+kernel and its combine (``csrc/decode_attention.cuh``, ``_split_scratch``).
 
 Layout: the cache is sequence-major ``(L, S, B, H_kv, Dh)`` as in
 ``models/transformer.py``. Every function updates the caches IN PLACE at
@@ -44,9 +47,18 @@ import torch
 from metavoice_tpu_torch.ops import _build
 from metavoice_tpu_torch.ops.quantized import DECODE_MAX_ROWS, gemv8_chunks, int8_dot, matmul_int4_i32_reference
 
-SPLIT_POSITIONS = 64  # cache slots per block of the sequence split
+SPLIT_POSITIONS = 64  # K5's and K9's sequence split (_split_scratch): cache slots per block
 MAX_SPLITS = 32
 MULTI_MAX_T = 16  # K4's most query tokens a call
+# K1's and K4's plan (csrc/decode_attention_onepass.cuh): one launch a call,
+# the splits of a kv row merged by the last of its blocks to finish
+ATTN_MAX_SPLITS = 32  # splits of a kv row's window (the kernel's kCMaxSplits)
+ATTN_MAX_Q = 16  # queries a block; more of one kv row take further blocks
+ATTN_ONE_SPLIT = 384  # windows of at most this many slots take one split
+ATTN_MIN_SPLIT = 128  # fewest slots a split of a longer window
+CARD_SMS = 132  # the H100's streaming multiprocessors
+ATTN_TICKETS = 4096  # merge counters a device: (kv row, query group) pairs a call
+_tickets: dict = {}  # device index -> (ATTN_TICKETS,) int32, all 0 between calls
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (64, 128)
@@ -115,12 +127,52 @@ def _check_kernel_inputs(name, tensors):
 
 
 def _split_scratch(n: int, rows: int, dh: int, device):
-    """The sequence split of a window of ``n`` slots, and the f32 scratch of
-    its partials -> (split_len, n_splits, part_ml, part_acc)."""
+    """K5's and K9's sequence split of a window of ``n`` slots, and the f32
+    scratch of its partials -> (split_len, n_splits, part_ml, part_acc)."""
     n_splits = min(-(-n // SPLIT_POSITIONS), MAX_SPLITS)
     part_ml = torch.empty((rows * n_splits * 2,), dtype=torch.float32, device=device)
     part_acc = torch.empty((rows * n_splits * dh,), dtype=torch.float32, device=device)
     return -(-n // n_splits), n_splits, part_ml, part_acc
+
+
+def attention_plan(n: int, kv_rows: int, n_q: int) -> tuple[int, int]:
+    """K1's and K4's cut of a window of ``n`` slots into splits -> (split_len,
+    n_splits): split i holds slots ``[i * split_len, (i + 1) * split_len)``,
+    the last one ends at or past ``n`` and none lies wholly past it; a row's
+    start falls anywhere in ``[0, n)`` and the kernel skips what lies below it.
+
+    A split is one block (8 warps) for each kv row and group of up to
+    ``ATTN_MAX_Q`` of its ``n_q`` queries. A window of up to
+    ``ATTN_ONE_SPLIT`` slots takes one split: merging splits costs more than
+    it saves there (on the H100, K1 at a 256-slot window: 0.0056 ms in one
+    split, 0.0072 in two). A longer one takes as many splits as give about
+    one block an SM, no more than pieces of ``ATTN_MIN_SPLIT`` slots would
+    give and at most ``ATTN_MAX_SPLITS``: 4 for K1's 32 rows, 16 for a GQA
+    decode's 4 kv rows at 2033 slots (0.0082 ms in 16 splits, 0.0098 in 7).
+    """
+    if n <= ATTN_ONE_SPLIT:
+        return n, 1
+    blocks = kv_rows * -(-n_q // ATTN_MAX_Q)  # blocks a split
+    n_splits = max(1, min(ATTN_MAX_SPLITS, -(-n // ATTN_MIN_SPLIT), CARD_SMS // blocks))
+    split_len = -(-n // n_splits)
+    return split_len, -(-n // split_len)
+
+
+def _onepass_scratch(n_splits: int, kv_rows: int, n_q: int, dh: int, device):
+    """The partials and merge counters of one K1/K4 call -> (part, tickets):
+    none for one split; else f32 scratch of ``(kv rows x query groups,
+    splits, ATTN_MAX_Q, dh + 2)`` and the device's counters, made zero once
+    and left zero by every launch (the last block of a row resets its own)."""
+    if n_splits == 1:
+        return None, None
+    groups = -(-n_q // ATTN_MAX_Q)
+    if kv_rows * groups > ATTN_TICKETS:
+        raise ValueError(f"{kv_rows * groups} kv rows x query groups exceed the {ATTN_TICKETS} merge counters")
+    part = torch.empty((kv_rows * groups * n_splits * ATTN_MAX_Q * (dh + 2),), dtype=torch.float32, device=device)
+    tickets = _tickets.get(device.index)
+    if tickets is None:
+        tickets = _tickets[device.index] = torch.zeros((ATTN_TICKETS,), dtype=torch.int32, device=device)
+    return part, tickets
 
 
 def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, starts=None):
@@ -153,7 +205,8 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, st
     _check_kernel_inputs("decode_attention", (q, k_new, v_new, k_cache, v_cache))
     if starts is not None:
         starts = starts.to(torch.int32).contiguous()
-    split_len, n_splits, part_ml, part_acc = _split_scratch(pos + 1, b * h, dh, q.device)
+    split_len, n_splits = attention_plan(pos + 1, b * h, 1)
+    part, tickets = _onepass_scratch(n_splits, b * h, 1, dh, q.device)
     y = torch.empty_like(q)
     err = _build.kernels().lib.mv_decode_attention(
         _DTYPE_CODE[q.dtype],
@@ -161,7 +214,8 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, st
         k_cache.data_ptr(), v_cache.data_ptr(),
         None if starts is None else starts.data_ptr(),
         b, h, dh, k_cache.shape[1], layer, pos, split_len, n_splits,
-        part_ml.data_ptr(), part_acc.data_ptr(), y.data_ptr(),
+        None if part is None else part.data_ptr(), None if tickets is None else tickets.data_ptr(),
+        ATTN_TICKETS, y.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -230,15 +284,18 @@ def decode_attention_multi(q, k_new, v_new, k_cache, v_cache, layer: int, pos: i
     _check_kernel_inputs("decode_attention_multi", (q, k_new, v_new, k_cache, v_cache))
     if starts is not None:
         starts = starts.to(torch.int32).contiguous()
-    split_len, n_splits, part_ml, part_acc = _split_scratch(pos + t, b * h * t, dh, q.device)
+    h_kv = k_new.shape[1]
+    split_len, n_splits = attention_plan(pos + t, b * h_kv, t * (h // h_kv))
+    part, tickets = _onepass_scratch(n_splits, b * h_kv, t * (h // h_kv), dh, q.device)
     y = torch.empty_like(q)
     err = _build.kernels().lib.mv_decode_attention_multi(
         _DTYPE_CODE[q.dtype],
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(),
         None if starts is None else starts.data_ptr(),
-        b, h, k_new.shape[1], t, dh, k_cache.shape[1], layer, pos, split_len, n_splits,
-        part_ml.data_ptr(), part_acc.data_ptr(), y.data_ptr(),
+        b, h, h_kv, t, dh, k_cache.shape[1], layer, pos, split_len, n_splits,
+        None if part is None else part.data_ptr(), None if tickets is None else tickets.data_ptr(),
+        ATTN_TICKETS, y.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

@@ -48,7 +48,12 @@ def _same_bits(a, b):
     "pos,starts,garbage",
     [(0, None, None), (5, None, None), (255, None, None), (256, None, None),
      (400, None, None), (400, (270, 390), None), (300, (0, 301), None),
-     (100, None, float("nan"))],
+     (100, None, float("nan")),
+     # the edges of attention_plan at 8 rows: one split (a window of 15), a
+     # window ending on a split boundary (64 = 4 x 16), a full cluster of 16
+     # splits ending on one (256) and past it, starts on and off the
+     # boundaries, NaN past pos in a full cluster
+     (14, None, None), (63, None, None), (511, (16, 47), None), (300, (0, 17), float("nan"))],
 )
 def test_kernel_matches_plain_version(cuda, dtype, dh, pos, starts, garbage):
     q, k_new, v_new, k_cache, v_cache = _inputs(
@@ -81,3 +86,24 @@ def test_kernel_rejects_gqa_and_wrong_dtype(cuda):
         A.decode_attention(q, k_new[:, :2], v_new[:, :2], k_cache, v_cache, 0, 3)
     with pytest.raises(ValueError):
         A.decode_attention(q.float(), k_new, v_new, k_cache, v_cache, 0, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("min_split", [16, 40, 100])
+@pytest.mark.parametrize("pos,starts", [(300, None), (511, (17, 200)), (200, None)])
+def test_kernel_matches_plain_version_under_other_plans(cuda, monkeypatch, dtype, min_split, pos, starts):
+    """Any split the plan may give merges right: odd split counts, splits of
+    any length, starts inside a split (the plan's own cases are above)."""
+    monkeypatch.setattr(A, "ATTN_ONE_SPLIT", 0)
+    monkeypatch.setattr(A, "ATTN_MIN_SPLIT", min_split)
+    q, k_new, v_new, k_cache, v_cache = _inputs(cuda, dtype, 2, 512, 2, 4, 128)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=cuda)
+    kc_ref, vc_ref = k_cache.clone(), v_cache.clone()
+    y_ref, _, _ = A.decode_attention_reference(q, k_new, v_new, kc_ref, vc_ref, 1, pos, st)
+    y, kc, vc = A.decode_attention(q, k_new, v_new, k_cache, v_cache, 1, pos, st)
+    torch.cuda.synchronize()
+    assert A.attention_plan(pos + 1, 8, 1)[1] > 1
+    assert _same_bits(kc, kc_ref) and _same_bits(vc, vc_ref)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)

@@ -49,7 +49,11 @@ def _same_bits(a, b):
 @pytest.mark.parametrize(
     "pos,starts,garbage",
     [(0, None, None), (61, None, None), (255, None, None), (400, (270, 390), None),
-     (300, (0, 500), None), (100, None, float("nan"))],
+     (300, (0, 500), None), (100, None, float("nan")),
+     # the edges of attention_plan: one split (a window of at most 28), a
+     # window of 512 = 16 x 32 at T 16 (a full cluster ending on a split
+     # boundary), starts inside a full cluster with NaN past pos + T - 1
+     (12, None, None), (496, (40, 480), None), (200, (33, 150), float("nan"))],
 )
 def test_kernel_matches_plain_version(cuda, dtype, dh, t, h, h_kv, pos, starts, garbage):
     q, k_new, v_new, k_cache, v_cache = _inputs(cuda, dtype, t, h, h_kv, dh, garbage=garbage, pos=pos)
@@ -92,3 +96,26 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     q96, kn96, vn96, kc96, vc96 = _inputs(cuda, torch.bfloat16, 4, 8, 2, 96, s=64)
     with pytest.raises(ValueError):
         A.decode_attention_multi(q96, kn96, vn96, kc96, vc96, 0, 3)  # head_dim 96
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("min_split", [16, 40, 100])
+@pytest.mark.parametrize("t,h,h_kv", [(1, 8, 2), (8, 8, 8), (16, 8, 1)])
+def test_kernel_matches_plain_version_under_other_plans(cuda, monkeypatch, dtype, min_split, t, h, h_kv):
+    """Any split the plan may give merges right: odd split counts, splits of
+    any length, starts inside a split, NaN past pos + T - 1."""
+    monkeypatch.setattr(A, "ATTN_ONE_SPLIT", 0)
+    monkeypatch.setattr(A, "ATTN_MIN_SPLIT", min_split)
+    pos = 300
+    q, k_new, v_new, k_cache, v_cache = _inputs(cuda, dtype, t, h, h_kv, 128, garbage=float("nan"), pos=pos)
+    st = torch.tensor((17, 150), dtype=torch.int32, device=cuda)
+    kc_ref, vc_ref = k_cache.clone(), v_cache.clone()
+    y_ref, _, _ = A.decode_attention_multi_reference(q, k_new, v_new, kc_ref, vc_ref, 1, pos, st)
+    y, kc, vc = A.decode_attention_multi(q, k_new, v_new, k_cache, v_cache, 1, pos, st)
+    torch.cuda.synchronize()
+    assert A.attention_plan(pos + t, 2 * h_kv, t * h // h_kv)[1] > 1
+    assert _same_bits(kc, kc_ref) and _same_bits(vc, vc_ref)
+    assert torch.isfinite(y).all()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
