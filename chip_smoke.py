@@ -142,11 +142,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
  30. K12     - the groupwise int4 matmul against its plain version at the
                main-path shapes (K x N of 2048 x 6144, 2048 x 2048, 2048 x
                5632, 5632 x 2048) at M = 2 (decode) and 256 (prefill), at
-               M = 1, 8, 200, with f32 x and with groupsize 64: every
-               element within 1e-3 max |ref| plus one bf16 ulp of the
-               element; times of one layer's five projections at M = 2 and
-               256 beside the plain version, torch._weight_int4pack_mm (as
-               in phase 6) and the bound;
+               every M of 1-8, M 200, N 16 and 2064, with f32 x, with
+               groupsize 64, and at M = 2 with groupsizes 8 and 24: every element within 1e-3 max |ref| plus one
+               bf16 ulp of the element; at M = 2 one kernel a call (the
+               graph of one call), two calls the same bits and a graph of
+               one call replayed 3 times, each replay equal to the eager
+               result; times of one layer's five projections at M = 2 and
+               256, each shape beside torch._weight_int4pack_mm (as in
+               phase 6), the plain version and the bound;
  31. K13     - phase 30 for the nibble-packed matmul;
  32. small-int4g - 2-layer 512-wide groupwise int4 first stages, unpacked
                (K12) and packed (K13), on the card and on the CPU under the
@@ -349,7 +352,7 @@ def _one_kernel(torch, fn, what: str) -> str:
     nodes = _graph_nodes(torch, fn)
     if len(nodes) != 1 or nodes[0][0] != "KERNEL":
         fail(f"{what}: one call is {len(nodes)} graph nodes, not one kernel: {nodes}")
-    found = re.search(r"attn_\w+?_kernel", nodes[0][1])
+    found = re.search(r"attn_\w+?_kernel|int4g_\w+?_gemv", nodes[0][1])
     return found.group(0) if found else nodes[0][1]
 
 
@@ -2081,6 +2084,44 @@ def k12_case(torch, m: int, k: int, n: int, gen, *, packed: bool, dtype=None, gr
     return gap.max().item() / top
 
 
+def _int4g_one_launch(torch, fn, packed: bool, gen, label: str) -> str:
+    """K12's (K13's) GEMV at M = 2 on the qkv shape: one kernel a call in
+    the graph of one call, two eager calls the same bits, and that call
+    captured in a CUDA graph and replayed 3 times, each replay the eager
+    result's bits (the merge tickets are left at 0) -> the kernel's name."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    d = 2048
+    q, s, z = Q.quantize_int4_grouped(torch.randn((d, 3 * d), generator=gen, device=dev) * 0.02)
+    w = Q.pack_int4(q) if packed else q
+    x = torch.randn((K12_DECODE_M, d), generator=gen, device=dev).to(torch.bfloat16)
+    if Q.int4g_plan(K12_DECODE_M, d, 3 * d, packed)[1] < 2:
+        fail(f"{label}: the qkv shape at M {K12_DECODE_M} plans one split, so no merge would be checked")
+    name = _one_kernel(torch, lambda: fn(x, w, s, z), label)
+    first, second = fn(x, w, s, z), fn(x, w, s, z)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x, w, s, z)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x, w, s, z)
+    replays = []
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        replays.append(out.clone())
+    torch.cuda.synchronize()
+    bits = first.view(torch.int16)
+    if not torch.equal(second.view(torch.int16), bits):
+        fail(f"{label}: two calls at M {K12_DECODE_M} differ")
+    if not all(torch.equal(r.view(torch.int16), bits) for r in replays):
+        fail(f"{label}: a CUDA-graph replay differs from the eager call")
+    return name
+
+
 def phase_k12(torch, packed: bool) -> dict:
     """K12 (phase 30) or K13 (phase 31) at the main-path shapes, then one
     layer's five projections timed at M = 2 and M = 256."""
@@ -2096,6 +2137,11 @@ def phase_k12(torch, packed: bool) -> dict:
     cases += [(1, d, 3 * d, None, 128), (8, d, i_sz, None, 128), (200, d, 3 * d, None, 128),
               (K12_DECODE_M, d, 3 * d, torch.float32, 128), (K2_M, i_sz, d, torch.float32, 128),
               (K12_DECODE_M, i_sz, d, None, 64), (K2_M, d, i_sz, None, 64)]
+    # every GEMV row count, N off the column tiles, more splits at groupsize 64
+    cases += [(m, d, d, None, 128) for m in range(1, Q.DECODE_MAX_ROWS + 1)]
+    cases += [(K12_DECODE_M, d, 16, None, 128), (K12_DECODE_M, d, 2064, None, 128), (5, d, 2064, None, 64)]
+    # groupsizes that are no multiple of the GEMV's k-step: up to 8 rows take the tiles
+    cases += [(K12_DECODE_M, d, d, None, 8), (K12_DECODE_M, 1152, d, None, 24)]
     worst = 0.0
     for m, k, n, dtype, gs in cases:
         try:
@@ -2103,11 +2149,13 @@ def phase_k12(torch, packed: bool) -> dict:
         except AssertionError as e:
             fail(str(e))
 
+    kernel_fn = Q.matmul_int4_packed if packed else Q.matmul_int4
+    plain_fn = Q.matmul_int4_packed_reference if packed else Q.matmul_int4_reference
+    kernel_name = _int4g_one_launch(torch, kernel_fn, packed, gen, label)
+
     # one layer's five projections, each on 8 weight sets in turn (more than
     # 50 MB a shape), so the weights come from HBM
     n_sets = 8
-    kernel_fn = Q.matmul_int4_packed if packed else Q.matmul_int4
-    plain_fn = Q.matmul_int4_packed_reference if packed else Q.matmul_int4_reference
     times, shown = {}, []
     lib_name = "torch._weight_int4pack_mm"
     for m in (K12_DECODE_M, K2_M):
@@ -2129,7 +2177,7 @@ def phase_k12(torch, packed: bool) -> dict:
             w, s = mats[0][0], mats[0][1]
             n_bytes += xk.numel() * 2 + w.numel() * w.element_size() + 2 * s.numel() * 4 + m * n * 2
             n_flop += 2.0 * m * k * n
-            per_shape.append(f"{k}x{n} {t_k:.4f} (eager {t_ke:.4f})")
+            per_shape.append(f"{k}x{n} {t_k:.4f} (eager {t_ke:.4f}; library {t_l:.4f})")
             del mats, lib
         bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
         times[m] = (kernel, plain, library, bound_ms, bound_by)
@@ -2137,7 +2185,8 @@ def phase_k12(torch, packed: bool) -> dict:
                      f"{library:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
                      f"{n_flop / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
     print(f"[{label}] {len(cases)} cases agree (within {worst:.3g} of max |ref| at most, tol {K12_TOL} of max |ref| "
-          f"plus one bf16 ulp of each element); one layer's five projections, device time from a CUDA graph: "
+          f"plus one bf16 ulp of each element); at M {K12_DECODE_M} one kernel a call ({kernel_name}), the same "
+          f"bits on every call and graph replay; one layer's five projections, device time from a CUDA graph: "
           f"{'; '.join(shown)}")
     kernel, plain, library, bound_ms, bound_by = times[K12_DECODE_M]
     return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,

@@ -1,7 +1,8 @@
 // T=1 split-sequence (flash-decoding) attention device code, shared by the
-// decode-attention kernel (decode_attention.cu, K1), the int4 decode stack
-// (decode_stack_int4.cu, K3) and the int4 attention block
-// (decode_block_int4.cu, K5).
+// int4 decode stack (decode_stack_int4.cu, K3 and K7), the int4 attention
+// block (decode_block_int4.cu, K5) and the plain-int8 attention block
+// (decode_block_int8.cu, K9). K1 and K4 have their own one-launch design
+// (decode_attention_onepass.cuh).
 //
 // For one query token per (batch, head) row: the softmax-weighted sum of the
 // values over the row's window [starts[b], pos] of the sequence-major

@@ -25,7 +25,7 @@
 // 3.35 TB/s. At M = 256 (prefill: the CFG pair x a 128-token bucket) the
 // same layer is 26.3 GFLOP: about 27 us on the bf16 tensor cores.
 //
-// Design (simple and right first; no TMA, no wgmma, no pipelining yet):
+// Design:
 //   * M > 8: tensor-core tiles. A block of 8 warps computes a 64 x 128
 //     output tile with mma.sync m16n8k16 bf16 -> f32, each warp a 32 x 32
 //     sub-tile. For each 64-row block of K, the block dequantizes the 64 x 128
@@ -34,18 +34,42 @@
 //     row k mod K/2 and takes its low nibble below K/2, its high one above)
 //     and stages the 64 x 64 slice of x; B fragments are two 16-bit reads
 //     of neighbouring k. Shared-memory rows are padded so the fragment reads
-//     are free of bank conflicts.
-//   * M <= 8: the split-K CUDA-core GEMV of the plain-int8 kernels
-//     (gemv8_partial in decode_gemv.cuh): a block owns 64 byte rows by
-//     32 * CPL columns, a lane's 16- (or 8-) byte load is CPL neighbouring
-//     columns at one row, x is broadcast from shared memory, and each
-//     weight is dequantized where it is read, with the group's scales and
-//     zeros held in registers and reloaded when the group changes. K13's
-//     block owns packed rows, so each byte is read once and gives both its
-//     weights (row r and row r + K/2, each with its own group). The partials
-//     are summed in a fixed order by gemv_reduce, which writes x's dtype.
-//     The tiles would give N / 128 = 16-48 blocks at M = 2 on 132 SMs.
-//
+//     are free of bank conflicts. No TMA, no wgmma, no pipelining yet.
+//   * M <= 8 (groupsize a multiple of 16; any other takes the tiles): one
+//     launch a call, the products on the tensor cores (int4g_mma_gemv).
+//     mma.sync m16n8k16 with the WEIGHTS as A (16 output columns x 16 k)
+//     and x as B (16 k x 8 rows, rows >= M zero in the fragment, never
+//     read). A lane loads 8 bytes of neighbouring columns at one row, so
+//     the 8 lane groups of a warp cover 64 contiguous bytes of a row and
+//     the 4 lanes of a quad take different rows: the k order inside an mma
+//     and which columns are its 16 rows are free, as long as A and B agree.
+//     K12: a lane takes 4 rows of a 16-row k-step, (rows 0, 1) and (2, 3)
+//     of a column fill its two A registers. K13: a lane takes 2 packed rows
+//     of an 8-row k-step, and the low and high nibble of one byte (k = r
+//     and r + K/2) share an A register, so one 8-byte load feeds 16
+//     weights; B takes x[r] and x[r + K/2]. A lane loads the weights of
+//     several k-steps before it dequantizes any of them. Dequantization
+//     stays off the slow conversion unit: two doubled nibbles a byte (K12:
+//     (q & 15) ^ 8 = q + 8 for q in [-8, 7]) with one shift and one mask a
+//     word, a byte permute under 2^22's exponent (mantissa step 0.5) and
+//     one f32 subtract of 2^22 + 7.5 give q + 0.5 exactly; then
+//     __fmul_rn(v, s), __fadd_rn(., z) and one cvt to a bf16 pair, so every
+//     weight is bf16((q + 0.5) s + z) bit for bit. K12's group scales and
+//     zeros stay in registers, K13's two groups' in shared memory. K is
+//     split across blocks (ops/quantized.int4g_plan picks the splits and
+//     the warps a block; the caller routes a call here by passing its
+//     split_steps) and across a block's warps; the warps sum in shared
+//     memory, and the last block of a column tile to finish sums the
+//     splits' partials from L2 in a fixed order behind a ticket (one
+//     acquire-release atomic, reset to 0 by that block), so the result is
+//     the same bits on every call and a CUDA-graph replay finds the tickets
+//     as the first launch did.
+//     What holds it (globaltimer marks in an experiment build, H100): the
+//     weight stream runs at about 1.7-2 TB/s from the launch's burst of
+//     loads, and after it the partials' write, the ticket and the merge
+//     take 2-3 us a call; the dequantization and the products take about a
+//     fifth (K12) to a quarter (K13) of the time (PERF.md section 6, PR 10).
+
 // Plain C entry point (no PyTorch headers), loaded with ctypes by
 // metavoice_tpu_torch/ops/_build.py; the wrappers and their plain PyTorch
 // versions are ops/quantized.py:matmul_int4 and matmul_int4_packed.
@@ -53,8 +77,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "decode_gemv.cuh"
 
 namespace {
 
@@ -209,134 +231,290 @@ int4g_tile_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
   }
 }
 
-// Partial products of x (b_rows, K) bf16 with the groupwise int4 weights
-// over byte rows [chunk * 64, +64) (K12: rows of K; K13: rows of p, each
-// giving rows r and r + K/2): part[chunk][b][n] in f32.
-template <int NB, int CPL, bool kPacked>
-__global__ void __launch_bounds__(kGemvThreads)
-int4g_gemv_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int k, int n, int gs,
-                   const uint8_t* __restrict__ w, const float* __restrict__ sc, const float* __restrict__ zr,
-                   float* __restrict__ part) {
-  constexpr int kHalves = kPacked ? 2 : 1;
-  constexpr int kCols = 32 * CPL;
-  const int rows = k / kHalves;  // byte rows of w
-  const int chunk = blockIdx.y;
-  const int col0 = blockIdx.x * kCols;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = chunk * kChunk8;
+// ---- M <= 8: the GEMV on the tensor cores, one launch a call -----------------
 
-  __shared__ float sx[kHalves][kChunk8][NB];
-  // [warp][b][c][lane], padded so that the reduce below reads a lane's CPL
-  // columns without bank conflicts
-  __shared__ float sred[kGemvWarps][NB][CPL][33];
+constexpr int kLaneCols = 8;        // neighbouring columns a lane: one 8-byte load a row
+constexpr int kGemvCols = 8 * kLaneCols;  // output columns a warp (and a block): 8 lane groups
+constexpr int kGemvMaxWarps = 8;    // warps a block (the plan's choice)
+constexpr int kGemvRows = 8;        // rows of x: the mma's N
+constexpr int kMergeSplits = 16;    // splits' partials a merged output loads at once
+constexpr int kMergeOut = 2;        // outputs a thread of the merging block takes at once
 
-  for (int i = tid; i < kHalves * kChunk8 * NB; i += kGemvThreads) {
-    const int h = i / (kChunk8 * NB);
-    const int r = (i / NB) % kChunk8;
-    const int b = i % NB;
-    sx[h][r][b] = b < b_rows && row0 + r < rows ? bf(x[(size_t)b * k + (size_t)h * rows + row0 + r]) : 0.f;
-  }
-  __syncthreads();
+// k-steps (16 k each) whose weights a lane loads before it dequantizes any
+// of them: K12 4 rows a step, K13 2 packed rows, each row 8 bytes (on
+// the H100 more steps, or a second batch in flight, were slower: PERF.md)
+constexpr int kAheadQ = 2;
+constexpr int kAheadP = 4;
 
-  float acc[NB][CPL];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) acc[b][c] = 0.f;
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n" : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
 
-  const int col = col0 + lane * CPL;
-  if (col < n) {
-    float sv[kHalves][CPL], zv[kHalves][CPL];
-    int g_cur[kHalves];
-#pragma unroll
-    for (int h = 0; h < kHalves; ++h) g_cur[h] = -1;
-    for (int rr = 0; rr < kRowsPerGemvWarp8; ++rr) {
-      const int r = warp * kRowsPerGemvWarp8 + rr;
-      if (row0 + r >= rows) break;
-#pragma unroll
-      for (int h = 0; h < kHalves; ++h) {
-        const int g = (h * rows + row0 + r) / gs;
-        if (g != g_cur[h]) {  // the same row for the whole warp: no divergence
-          g_cur[h] = g;
-          const float4* sp = reinterpret_cast<const float4*>(sc + (size_t)g * n + col);
-          const float4* zp = reinterpret_cast<const float4*>(zr + (size_t)g * n + col);
-#pragma unroll
-          for (int q = 0; q < CPL / 4; ++q) {
-            const float4 s4 = __ldg(sp + q);
-            const float4 z4 = __ldg(zp + q);
-            sv[h][4 * q] = s4.x;
-            sv[h][4 * q + 1] = s4.y;
-            sv[h][4 * q + 2] = s4.z;
-            sv[h][4 * q + 3] = s4.w;
-            zv[h][4 * q] = z4.x;
-            zv[h][4 * q + 1] = z4.y;
-            zv[h][4 * q + 2] = z4.z;
-            zv[h][4 * q + 3] = z4.w;
-          }
-        }
-      }
-      uint32_t wv[CPL / 4];
-      load_bytes<CPL>(reinterpret_cast<const int8_t*>(w) + (size_t)(row0 + r) * n + col, wv);
-      float xv[kHalves][NB];
-#pragma unroll
-      for (int h = 0; h < kHalves; ++h)
-#pragma unroll
-        for (int b = 0; b < NB; ++b) xv[h][b] = sx[h][r][b];
-#pragma unroll
-      for (int q = 0; q < CPL / 4; ++q)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int h = 0; h < kHalves; ++h) {
-            const int c = 4 * q + j;
-            const float wt = bf(dequant(int4_value<kPacked>(wv[q], j, h), sv[h][c], zv[h][c]));
-#pragma unroll
-            for (int b = 0; b < NB; ++b) acc[b][c] = fmaf(xv[h][b], wt, acc[b][c]);
-          }
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) sred[warp][b][c][lane] = acc[b][c];
-  __syncthreads();
+// Byte j of a word of doubled nibbles (2 n a byte, n in 0..15) as the exact
+// f32 n - 7.5: the byte put under 2^22's exponent (mantissa step 0.5) by one
+// byte permute, then one subtract of 2^22 + 7.5.
+__device__ __forceinline__ float nib_value(uint32_t twice, int j) {
+  return __int_as_float((int)__byte_perm(twice, 0x4A800000u, 0x7640u + j)) - 4194311.5f;
+}
 
-  for (int i = tid; i < NB * kCols; i += kGemvThreads) {
-    const int b = i / kCols;
-    const int cc = i % kCols;
-    if (b >= b_rows || col0 + cc >= n) continue;
-    float v = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < kGemvWarps; ++wp) v += sred[wp][b][cc % CPL][cc / CPL];
-    part[((size_t)chunk * b_rows + b) * n + col0 + cc] = v;
+// Two weights, bf16(v * s + z) each with no contraction, as one bf16 pair
+// (lo in the low half): one cvt.rn.bf16x2.f32.
+__device__ __forceinline__ uint32_t weight_pair(float v_lo, float s_lo, float z_lo, float v_hi, float s_hi,
+                                                float z_hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(__fadd_rn(__fmul_rn(v_lo, s_lo), z_lo),
+                                           __fadd_rn(__fmul_rn(v_hi, s_hi), z_hi));
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+__device__ __forceinline__ void store_y(void* y, int out_bf16, size_t i, float v) {
+  if (out_bf16) {
+    static_cast<__nv_bfloat16*>(y)[i] = __float2bfloat16_rn(v);
+  } else {
+    static_cast<float*>(y)[i] = v;
   }
 }
 
-template <int NB, int CPL, bool kPacked>
-cudaError_t run_gemv(const __nv_bfloat16* x, int m, int k, int n, int gs, const uint8_t* w, const float* sc,
-                     const float* zr, void* y, int out_bf16, float* part, cudaStream_t s) {
-  const int rows = kPacked ? k / 2 : k;
-  const int n_chunks = (rows + kChunk8 - 1) / kChunk8;
-  int4g_gemv_partial<NB, CPL, kPacked><<<dim3((n + 32 * CPL - 1) / (32 * CPL), n_chunks), kGemvThreads, 0, s>>>(
-      x, m, k, n, gs, w, sc, zr, part);
-  MV_CHECK(cudaGetLastError());
-  Epilogue e{};
-  e.kind = out_bf16 ? kEpiBf16 : kEpiF32;
-  e.out_f32 = static_cast<float*>(y);
-  e.out_bf16 = static_cast<__nv_bfloat16*>(y);
-  gemv_reduce<<<(m * n + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(part, n_chunks, m, n, e);
-  return cudaGetLastError();
+// y (m, n) = x (m, k) @ the groupwise int4 weights, m <= 8. A lane owns
+// kLaneCols neighbouring columns (one load of kLaneCols bytes a row), a
+// warp kGemvCols. Grid (column tiles of kGemvCols, splits of K); split i
+// holds k-steps [i * split_steps, + split_steps) of the K / 16, dealt to the
+// block's warps in contiguous runs. A warp loads the weights and x of kAhead steps into
+// registers before it dequantizes any of them. K12 holds its group's scales
+// and zeros in registers; K13, which needs two groups', in shared memory (a
+// quad's columns read by its four lanes). With one split a block writes y;
+// with more it writes its partial to part (splits, m, n) and the last block
+// of its column tile sums them.
+template <bool kPacked, int kAhead>
+__global__ void __launch_bounds__(kGemvMaxWarps * 32)
+int4g_mma_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w, const float* __restrict__ sc,
+               const float* __restrict__ zr, void* __restrict__ y, int m, int k, int n, int gs, int out_bf16,
+               int split_steps, float* __restrict__ part, int* __restrict__ tickets) {
+  constexpr int kHalves = kPacked ? 2 : 1;
+  constexpr int kLoads = kPacked ? 2 : 4;      // rows of w a lane loads a k-step
+  constexpr int kStepRows = kPacked ? 8 : 16;  // rows of w a k-step
+  constexpr int kWords = kLaneCols / 4;        // words a lane loads a row
+  constexpr int kSzStride = kLaneCols + 4;     // floats of a lane group's scales (or zeros): conflict-free reads
+  constexpr int kSzFloats = 2 * 2 * 8 * kSzStride;  // K13: a warp's [half][s, z][lane group][kSzStride]
+  static_assert(kGemvMaxWarps * kSzFloats <= kGemvMaxWarps * kGemvRows * kGemvCols, "the scales fit sred");
+  // the warps' sums [warp][row][column] after the k-loop; K13's scales and zeros during it
+  __shared__ __align__(16) float sred[kGemvMaxWarps * kGemvRows * kGemvCols];
+  __shared__ bool last;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int col0 = blockIdx.x * kGemvCols;
+  const int col = col0 + kLaneCols * gid;  // the lane's kLaneCols columns (n % 16 == 0: all in or all out)
+  const bool col_ok = col < n;
+  const bool x_ok = gid < m;
+  const int half = k / 2;
+  const int group_steps = gs / kStepRows;  // k-steps a group
+  const int half_groups = half / gs;       // K13: the groups of the low half
+  const int split = blockIdx.y;
+  const int s_end = min((split + 1) * split_steps, k / 16);
+  const int warp_steps = (split_steps + n_warps - 1) / n_warps;
+  const int ks_begin = split * split_steps + warp * warp_steps;
+  const int ks_end = min(ks_begin + warp_steps, s_end);
+  const uint8_t* wl = w + (size_t)(tig * kLoads) * n + col;  // the lane's first row of step 0
+  const __nv_bfloat16* xl = x + (size_t)gid * k + tig * kLoads;
+  float* szl = sred + warp * kSzFloats + gid * kSzStride;  // K13: the lane group's [half][s, z] rows
+
+  float acc[kLaneCols / 2][4];
+#pragma unroll
+  for (int j = 0; j < kLaneCols / 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float sv[kPacked ? 1 : kLaneCols], zv[kPacked ? 1 : kLaneCols];  // K12: the group's, for the lane's columns
+  int g_next = ks_begin;  // the first step of the next group
+  auto load_group = [&](int g) {
+    if constexpr (kPacked) {  // 16-byte pieces tig, tig + 4, ... of the quad's kLaneCols: [half][s, z][kLaneCols / 4]
+      __syncwarp();  // every lane is done with the last group's
+      if (col_ok) {
+#pragma unroll
+        for (int t = 0; t < kLaneCols / 4; ++t) {
+          const int c = tig + 4 * t;
+          const int hw = c / (kLaneCols / 4), q = c % (kLaneCols / 4);  // hw: half * 2 + (zeros ? 1 : 0)
+          const float4 v = __ldg(reinterpret_cast<const float4*>(
+              (hw & 1 ? zr : sc) + (size_t)(g + (hw >> 1) * half_groups) * n + col + 4 * q));
+          *reinterpret_cast<float4*>(szl + hw * 8 * kSzStride + 4 * q) = v;
+        }
+      }
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int q = 0; q < kLaneCols / 4; ++q) {
+        float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f), z4 = s4;
+        if (col_ok) {
+          s4 = __ldg(reinterpret_cast<const float4*>(sc + (size_t)g * n + col) + q);
+          z4 = __ldg(reinterpret_cast<const float4*>(zr + (size_t)g * n + col) + q);
+        }
+        sv[4 * q] = s4.x, sv[4 * q + 1] = s4.y, sv[4 * q + 2] = s4.z, sv[4 * q + 3] = s4.w;
+        zv[4 * q] = z4.x, zv[4 * q + 1] = z4.y, zv[4 * q + 2] = z4.z, zv[4 * q + 3] = z4.w;
+      }
+    }
+  };
+
+  for (int ks0 = ks_begin; ks0 < ks_end; ks0 += kAhead) {
+    uint32_t wv[kAhead][kLoads][kWords];
+    uint32_t xv[kAhead][2];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const bool live = ks0 + u < ks_end;
+#pragma unroll
+      for (int r = 0; r < kLoads; ++r) {
+        if (live && col_ok) {
+          const uint2 t = __ldg(reinterpret_cast<const uint2*>(wl + (size_t)((ks0 + u) * kStepRows + r) * n));
+          wv[u][r][0] = t.x, wv[u][r][1] = t.y;
+        } else {
+#pragma unroll
+          for (int q = 0; q < kWords; ++q) wv[u][r][q] = 0u;
+        }
+      }
+      xv[u][0] = xv[u][1] = 0u;
+      if (live && x_ok) {
+        if constexpr (kPacked) {  // x[r], x[r + 1] and x[r + K/2], x[r + 1 + K/2]
+          const uint32_t lo = *reinterpret_cast<const uint32_t*>(xl + (ks0 + u) * kStepRows);
+          const uint32_t hi = *reinterpret_cast<const uint32_t*>(xl + half + (ks0 + u) * kStepRows);
+          xv[u][0] = __byte_perm(lo, hi, 0x5410);
+          xv[u][1] = __byte_perm(lo, hi, 0x7632);
+        } else {  // x[r .. r + 3]
+          const uint2 v = *reinterpret_cast<const uint2*>(xl + (ks0 + u) * kStepRows);
+          xv[u][0] = v.x, xv[u][1] = v.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int ks = ks0 + u;
+      if (ks >= ks_end) break;
+      if (ks == g_next) {  // a new group (the same for the whole warp)
+        const int g = ks / group_steps;
+        g_next = (g + 1) * group_steps;
+        load_group(g);
+      }
+      // doubled nibbles: [r][q] word q of row r (K13: [r][q] low, [kLoads + r][q] high)
+      uint32_t tw[kHalves * kLoads][kWords];
+#pragma unroll
+      for (int r = 0; r < kLoads; ++r)
+#pragma unroll
+        for (int q = 0; q < kWords; ++q) {
+          if constexpr (kPacked) {
+            tw[r][q] = (wv[u][r][q] << 1) & 0x1E1E1E1Eu;
+            tw[kLoads + r][q] = (wv[u][r][q] >> 3) & 0x1E1E1E1Eu;
+          } else {
+            tw[r][q] = ((wv[u][r][q] << 1) & 0x1E1E1E1Eu) ^ 0x10101010u;
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < kLaneCols / 2; ++j) {  // the lane's columns 2j (A row gid) and 2j + 1 (A row gid + 8)
+        uint32_t a[4];
+        if constexpr (kPacked) {  // row e / 2: (low, high) nibble
+          float2 s2[2], z2[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            s2[h] = *reinterpret_cast<const float2*>(szl + (h * 2) * 8 * kSzStride + 2 * j);
+            z2[h] = *reinterpret_cast<const float2*>(szl + (h * 2 + 1) * 8 * kSzStride + 2 * j);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 2 * j + (e & 1), r = e >> 1;
+            const bool odd = e & 1;
+            a[e] = weight_pair(nib_value(tw[r][c / 4], c % 4), odd ? s2[0].y : s2[0].x, odd ? z2[0].y : z2[0].x,
+                               nib_value(tw[kLoads + r][c / 4], c % 4), odd ? s2[1].y : s2[1].x,
+                               odd ? z2[1].y : z2[1].x);
+          }
+        } else {  // rows (0, 1) for e < 2, (2, 3) above
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 2 * j + (e & 1), r = 2 * (e >> 1);
+            a[e] = weight_pair(nib_value(tw[r][c / 4], c % 4), sv[c], zv[c], nib_value(tw[r + 1][c / 4], c % 4),
+                               sv[c], zv[c]);
+          }
+        }
+        mma_bf16(acc[j], a, xv[u]);
+      }
+    }
+  }
+  __syncthreads();  // K13's scales are done with: sred takes the warps' sums
+
+  // D: acc[j][e] is column kLaneCols gid + 2j + (e >> 1), row 2 tig + (e & 1)
+#pragma unroll
+  for (int j = 0; j < kLaneCols / 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int b = 2 * tig + (e & 1);
+      if (b < m) sred[(warp * kGemvRows + b) * kGemvCols + kLaneCols * gid + 2 * j + (e >> 1)] = acc[j][e];
+    }
+  __syncthreads();
+
+  const int n_splits = gridDim.y;
+  for (int i = tid; i < m * kGemvCols; i += blockDim.x) {
+    const int b = i / kGemvCols;
+    const int c = col0 + i % kGemvCols;
+    if (c >= n) continue;
+    float v = 0.f;
+    for (int wp = 0; wp < n_warps; ++wp) v += sred[(wp * kGemvRows + b) * kGemvCols + i % kGemvCols];
+    if (n_splits == 1) {
+      store_y(y, out_bf16, (size_t)b * n + c, v);
+    } else {
+      part[((size_t)split * m + b) * n + c] = v;
+    }
+  }
+  if (n_splits == 1) return;
+  __syncthreads();  // the block's writes happen before thread 0's release
+  if (tid == 0) last = atom_add_acq_rel(&tickets[blockIdx.x], 1) == n_splits - 1;
+  __syncthreads();  // and thread 0's acquire before the last block's reads
+  if (!last) return;
+  // every output the thread merges loads its splits' partials at once (one
+  // L2 round trip for up to kMergeSplits splits), then sums them in order
+  const size_t stride = (size_t)m * n;
+  for (int o0 = tid; o0 < m * kGemvCols; o0 += kMergeOut * blockDim.x) {
+    const float* p[kMergeOut];
+    bool live[kMergeOut];
+    float v[kMergeOut];
+#pragma unroll
+    for (int j = 0; j < kMergeOut; ++j) {
+      const int o = o0 + j * blockDim.x;
+      live[j] = o < m * kGemvCols && col0 + o % kGemvCols < n;
+      p[j] = part + (size_t)(o / kGemvCols) * n + col0 + o % kGemvCols;
+      v[j] = 0.f;
+    }
+    for (int s0 = 0; s0 < n_splits; s0 += kMergeSplits) {
+      float pv[kMergeOut][kMergeSplits];
+#pragma unroll
+      for (int j = 0; j < kMergeOut; ++j)
+#pragma unroll
+        for (int s = 0; s < kMergeSplits; ++s)
+          pv[j][s] = live[j] && s0 + s < n_splits ? __ldcg(p[j] + (s0 + s) * stride) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kMergeOut; ++j)
+#pragma unroll
+        for (int s = 0; s < kMergeSplits; ++s)
+          if (s0 + s < n_splits) v[j] += pv[j][s];
+    }
+#pragma unroll
+    for (int j = 0; j < kMergeOut; ++j) {
+      const int o = o0 + j * blockDim.x;
+      if (live[j]) store_y(y, out_bf16, (size_t)(o / kGemvCols) * n + col0 + o % kGemvCols, v[j]);
+    }
+  }
+  if (tid == 0) tickets[blockIdx.x] = 0;
 }
 
 template <bool kPacked>
 cudaError_t run(const __nv_bfloat16* x, const uint8_t* w, const float* sc, const float* zr, void* y, int m, int k,
-                int n, int gs, int out_bf16, float* part, cudaStream_t s) {
-  if (m == 1) return run_gemv<1, 16, kPacked>(x, m, k, n, gs, w, sc, zr, y, out_bf16, part, s);
-  if (m == 2) return run_gemv<2, 16, kPacked>(x, m, k, n, gs, w, sc, zr, y, out_bf16, part, s);
-  if (m <= 4) return run_gemv<4, 16, kPacked>(x, m, k, n, gs, w, sc, zr, y, out_bf16, part, s);
-  if (m <= 8) return run_gemv<8, 8, kPacked>(x, m, k, n, gs, w, sc, zr, y, out_bf16, part, s);
+                int n, int gs, int out_bf16, int split_steps, int warps, float* part, int* tickets, cudaStream_t s) {
+  if (split_steps > 0) {
+    const dim3 grid((n + kGemvCols - 1) / kGemvCols, (k / 16 + split_steps - 1) / split_steps);
+    int4g_mma_gemv<kPacked, kPacked ? kAheadP : kAheadQ><<<grid, warps * 32, 0, s>>>(
+        x, w, sc, zr, y, m, k, n, gs, out_bf16, split_steps, part, tickets);
+    return cudaGetLastError();
+  }
   const dim3 grid((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
   int4g_tile_kernel<kPacked><<<grid, kTileThreads, 0, s>>>(x, w, sc, zr, y, m, k, n, gs, out_bf16);
   return cudaGetLastError();
@@ -344,24 +522,37 @@ cudaError_t run(const __nv_bfloat16* x, const uint8_t* w, const float* sc, const
 
 }  // namespace
 
-// x: (m, k) bf16; w: q (k, n) int8 (packed 0) or p (k/2, n) uint8 (packed 1); scales, zeros:
-// (k/groupsize, n) f32; y: (m, n) bf16 (out_bf16 1) or f32 (out_bf16 0); all contiguous on
-// the device. k a multiple of 8 and of groupsize (packed: k/2 a multiple of groupsize), n a
-// multiple of 16. m <= 8 takes the GEMV and needs part, ceil(rows of w / 64) * m * n f32;
-// more rows take the tiles (part unused). Returns a cudaError_t.
+// x: (m, k) bf16; w: q (k, n) int8 in [-8, 7] (packed 0) or p (k/2, n) uint8 (packed 1);
+// scales, zeros: (k/groupsize, n) f32; y: (m, n) bf16 (out_bf16 1) or f32 (out_bf16 0); all
+// contiguous on the device. k a multiple of 8 and of groupsize (packed: k/2 a multiple of
+// groupsize), n a multiple of 16. split_steps > 0 takes the GEMV (the caller's route: m <= 8
+// and groupsize a multiple of 16): K in ceil(k / 16 / split_steps) splits of split_steps k-steps
+// of 16, blocks of warps (1..8) warps; with more than one split it needs part, (splits, m, n)
+// f32, and tickets, n_tickets >= ceil(n / 64) int32 all 0 (left 0). split_steps 0 takes the
+// tiles (warps, part and tickets unused). Returns a cudaError_t.
 extern "C" int mv_matmul_int4_grouped(const void* x, const void* w, const void* scales, const void* zeros,
                                       void* y, int m, int k, int n, int groupsize, int packed, int out_bf16,
-                                      void* part, void* stream) {
+                                      int split_steps, int warps, void* part, void* tickets, int n_tickets,
+                                      void* stream) {
   if (m < 1 || k < 8 || k % 8 != 0 || n < 16 || n % 16 != 0 || groupsize < 1 || k % groupsize != 0 ||
       (packed && (k / 2) % groupsize != 0) || x == nullptr || w == nullptr || scales == nullptr ||
-      zeros == nullptr || y == nullptr || (m <= 8 && part == nullptr))
+      zeros == nullptr || y == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (split_steps < 0) return (int)cudaErrorInvalidValue;
+  if (split_steps > 0) {
+    const int n_splits = (k / 16 + split_steps - 1) / split_steps;
+    if (m > kGemvRows || groupsize % 16 != 0 || warps < 1 || warps > kGemvMaxWarps || n_splits > 65535 ||
+        (n_splits > 1 && (part == nullptr || tickets == nullptr || n_tickets < (n + kGemvCols - 1) / kGemvCols)))
+      return (int)cudaErrorInvalidValue;
+  }
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const uint8_t*>(w);
   const auto* sf = static_cast<const float*>(scales);
   const auto* zf = static_cast<const float*>(zeros);
   auto* pf = static_cast<float*>(part);
+  auto* tk = static_cast<int*>(tickets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (packed) return (int)run<true>(xb, wb, sf, zf, y, m, k, n, groupsize, out_bf16, pf, s);
-  return (int)run<false>(xb, wb, sf, zf, y, m, k, n, groupsize, out_bf16, pf, s);
+  if (packed)
+    return (int)run<true>(xb, wb, sf, zf, y, m, k, n, groupsize, out_bf16, split_steps, warps, pf, tk, s);
+  return (int)run<false>(xb, wb, sf, zf, y, m, k, n, groupsize, out_bf16, split_steps, warps, pf, tk, s);
 }

@@ -45,7 +45,14 @@ import math
 import torch
 
 from metavoice_tpu_torch.ops import _build
-from metavoice_tpu_torch.ops.quantized import DECODE_MAX_ROWS, gemv8_chunks, int8_dot, matmul_int4_i32_reference
+from metavoice_tpu_torch.ops.quantized import (
+    CARD_SMS,
+    DECODE_MAX_ROWS,
+    gemv8_chunks,
+    int8_dot,
+    matmul_int4_i32_reference,
+    merge_tickets,
+)
 
 SPLIT_POSITIONS = 64  # K5's and K9's sequence split (_split_scratch): cache slots per block
 MAX_SPLITS = 32
@@ -56,7 +63,6 @@ ATTN_MAX_SPLITS = 32  # splits of a kv row's window (the kernel's kCMaxSplits)
 ATTN_MAX_Q = 16  # queries a block; more of one kv row take further blocks
 ATTN_ONE_SPLIT = 384  # windows of at most this many slots take one split
 ATTN_MIN_SPLIT = 128  # fewest slots a split of a longer window
-CARD_SMS = 132  # the H100's streaming multiprocessors
 ATTN_TICKETS = 4096  # merge counters a device: (kv row, query group) pairs a call
 _tickets: dict = {}  # device index -> (ATTN_TICKETS,) int32, all 0 between calls
 
@@ -161,18 +167,16 @@ def attention_plan(n: int, kv_rows: int, n_q: int) -> tuple[int, int]:
 def _onepass_scratch(n_splits: int, kv_rows: int, n_q: int, dh: int, device):
     """The partials and merge counters of one K1/K4 call -> (part, tickets):
     none for one split; else f32 scratch of ``(kv rows x query groups,
-    splits, ATTN_MAX_Q, dh + 2)`` and the device's counters, made zero once
-    and left zero by every launch (the last block of a row resets its own)."""
+    splits, ATTN_MAX_Q, dh + 2)`` and the device's counters, made zero by
+    the first call and left zero by every launch (the last block of a row
+    resets its own; ``merge_tickets``)."""
     if n_splits == 1:
         return None, None
     groups = -(-n_q // ATTN_MAX_Q)
     if kv_rows * groups > ATTN_TICKETS:
         raise ValueError(f"{kv_rows * groups} kv rows x query groups exceed the {ATTN_TICKETS} merge counters")
     part = torch.empty((kv_rows * groups * n_splits * ATTN_MAX_Q * (dh + 2),), dtype=torch.float32, device=device)
-    tickets = _tickets.get(device.index)
-    if tickets is None:
-        tickets = _tickets[device.index] = torch.zeros((ATTN_TICKETS,), dtype=torch.int32, device=device)
-    return part, tickets
+    return part, merge_tickets(_tickets, ATTN_TICKETS, device, "decode_attention")
 
 
 def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, starts=None):

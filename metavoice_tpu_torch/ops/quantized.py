@@ -67,6 +67,7 @@ from metavoice_tpu_torch.ops import _build
 
 I32_GROUPSIZE = 128  # serving groupsize (reference default, fast_quantize.py:70)
 DECODE_MAX_ROWS = 8  # rows the decode kernels' GEMV (csrc/decode_gemv.cuh) holds in registers
+CARD_SMS = 132  # the H100's streaming multiprocessors
 _QUANTIZABLE_LAYER_KEYS = ("wqkv", "wo", "w1", "w3", "w2", "w_fc", "w_proj")
 _HIDDEN_OUT_KEYS = ("w1", "w3", "w_fc")  # hidden dim on the out axis
 
@@ -644,6 +645,17 @@ ffn_int8.launches = 0
 # ------------------------------------------------------------------ groupwise int4: K12, K13
 
 INT4_KERNEL_MAX_ROWS = 256  # above this, _linear takes the dense f32 route, as the JAX package does
+# the GEMV of up to DECODE_MAX_ROWS rows (int4g_plan): one launch a call, the
+# splits of K merged by the last block of a column tile to finish
+INT4G_STEP_K = 16  # k a k-step (the mma's depth)
+INT4G_TILE_N = 64  # output columns a block (the kernel's kGemvCols: 8 lanes of 8)
+INT4G_WARPS = 4  # warps a block (the kernel takes 1..8)
+INT4G_BLOCKS_PER_SM = 3  # blocks an SM the grid aims for
+INT4G_MIN_WARP_STEPS = 2  # fewest k-steps a warp, where K allows
+INT4G_MAX_SPLITS = 32
+INT4G_PART_SHARE = 0.1  # partials' bytes at most this share of the weights'
+INT4G_TICKETS = 4096  # merge counters a device: column tiles a call
+_int4g_tickets: dict = {}  # device index -> (INT4G_TICKETS,) int32, all 0 between calls
 
 
 def dequantize_int4_grouped(q: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, groupsize: int = 128):
@@ -724,10 +736,69 @@ def matmul_int4_packed_reference(x, p, scales, zeros, groupsize: int = 128):
     return matmul_int4_reference(x, unpack_int4(p), scales, zeros, groupsize)
 
 
+def int4g_plan(m: int, k: int, n: int, packed: bool) -> tuple[int, int, int]:
+    """K12's and K13's GEMV (``csrc/matmul_int4_grouped.cu``, M <= 8): the cut
+    of K's ``k / INT4G_STEP_K`` k-steps -> (split_steps, n_splits, warps).
+    Split i holds steps ``[i * split_steps, (i + 1) * split_steps)``, the
+    last ends at or past the last step and none lies wholly past it; a
+    block of ``warps`` warps takes one split of a tile of ``INT4G_TILE_N``
+    columns, each warp ``ceil(split_steps / warps)`` steps of it in a row.
+
+    It aims for ``INT4G_BLOCKS_PER_SM`` blocks an SM over the grid (column
+    tiles x splits), gives every warp at least ``INT4G_MIN_WARP_STEPS``
+    steps where K allows, and keeps the partials' bytes (f32) within
+    ``INT4G_PART_SHARE`` of the weights'."""
+    steps = k // INT4G_STEP_K
+    tiles = -(-n // INT4G_TILE_N)
+    weight_bytes = k * n // (2 if packed else 1)
+    by_part = int(INT4G_PART_SHARE * weight_bytes) // (4 * m * n)
+    by_steps = steps // (INT4G_WARPS * INT4G_MIN_WARP_STEPS)
+    want = round(CARD_SMS * INT4G_BLOCKS_PER_SM / tiles)
+    n_splits = max(1, min(want, by_part, by_steps, INT4G_MAX_SPLITS))
+    warps = max(1, min(INT4G_WARPS, steps // n_splits))
+    split_steps = -(-steps // (n_splits * warps)) * warps
+    return split_steps, -(-steps // split_steps), warps
+
+
+def _int4g_scratch(n_splits: int, m: int, n: int, device):
+    """The partials and merge counters of one K12/K13 GEMV call -> (part,
+    tickets): none for one split; else f32 partials of (splits, m, n), from
+    the caching allocator on every call (so calls on other streams, and
+    graph captures, each get their own), and the device's counters, made
+    zero by the first call and left zero by every launch (the last block of
+    a column tile resets its own; :func:`merge_tickets`). Calls on one
+    device must not overlap in time (one stream, or streams the caller
+    orders), as for K1/K4's counters."""
+    if n_splits == 1:
+        return None, None
+    tiles = -(-n // INT4G_TILE_N)
+    if tiles > INT4G_TICKETS:
+        raise ValueError(f"{tiles} column tiles exceed the {INT4G_TICKETS} merge counters")
+    part = torch.empty((n_splits * m * n,), dtype=torch.float32, device=device)
+    return part, merge_tickets(_int4g_tickets, INT4G_TICKETS, device, "matmul_int4")
+
+
+def merge_tickets(table: dict, size: int, device, who: str) -> torch.Tensor:
+    """The device's merge counters of a one-launch kernel (K1/K4, K12/K13)
+    from ``table`` (device index -> (size,) int32): made zero by the first
+    call and left zero by every launch. They cannot be made inside a
+    CUDA-graph capture, where the zero fill would only be recorded and
+    eager calls before the first replay would read unset counters: such a
+    capture raises, and one eager call on the device before it makes them."""
+    tickets = table.get(device.index)
+    if tickets is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{who}: the merge counters are made by the first call on {device}, which must be "
+                               "an eager call, not one inside a CUDA-graph capture")
+        tickets = table[device.index] = torch.zeros((size,), dtype=torch.int32, device=device)
+    return tickets
+
+
 def _int4_grouped_kernel(x, w, scales, zeros, groupsize: int, packed: bool):
     """Launch ``mv_matmul_int4_grouped`` (csrc/matmul_int4_grouped.cu) on
     CUDA tensors -> (M, N) in x's dtype, or raise. Rows <= DECODE_MAX_ROWS
-    take its split-K GEMV, more rows its tensor-core tiles."""
+    with a groupsize that is a multiple of 16 take its tensor-core GEMV in
+    one launch (:func:`int4g_plan`), other calls its tensor-core tiles."""
     name = "matmul_int4_packed" if packed else "matmul_int4"
     m, k = x.shape
     n = w.shape[1]
@@ -742,12 +813,14 @@ def _int4_grouped_kernel(x, w, scales, zeros, groupsize: int, packed: bool):
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    part = None
-    if m <= DECODE_MAX_ROWS:
-        part = torch.empty((gemv8_chunks(w.shape[0]) * m * n,), dtype=torch.float32, device=x.device)
+    split_steps, warps, part, tickets = 0, 0, None, None  # split_steps 0: the tiles
+    if m <= DECODE_MAX_ROWS and groupsize % INT4G_STEP_K == 0:
+        split_steps, n_splits, warps = int4g_plan(m, k, n, packed)
+        part, tickets = _int4g_scratch(n_splits, m, n, x.device)
     err = _build.kernels().lib.mv_matmul_int4_grouped(
         xb.data_ptr(), w.data_ptr(), scales.data_ptr(), zeros.data_ptr(), y.data_ptr(), m, k, n, groupsize,
-        int(packed), _OUT_CODE[x.dtype], None if part is None else part.data_ptr(),
+        int(packed), _OUT_CODE[x.dtype], split_steps, warps, None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), INT4G_TICKETS,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

@@ -107,3 +107,27 @@ def test_kernel_matches_plain_version_under_other_plans(cuda, monkeypatch, dtype
     assert _same_bits(kc, kc_ref) and _same_bits(vc, vc_ref)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_graph_captured_before_any_eager_call(cuda, monkeypatch):
+    """A capture that would have to make the device's merge counters raises
+    (their zero fill would only be recorded); after one eager call the same
+    capture replays to the eager bits."""
+    monkeypatch.setattr(A, "_tickets", {})
+    q, k_new, v_new, k_cache, v_cache = _inputs(cuda, torch.bfloat16, 2, 2048, 2, 4, 128)
+    pos = 1500
+    assert A.attention_plan(pos + 1, 8, 1)[1] > 1
+    with pytest.raises(RuntimeError, match="eager call"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            A.decode_attention(q, k_new, v_new, k_cache, v_cache, 1, pos)
+    assert not A._tickets
+    eager, _, _ = A.decode_attention(q, k_new, v_new, k_cache, v_cache, 1, pos)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _, _ = A.decode_attention(q, k_new, v_new, k_cache, v_cache, 1, pos)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(out, eager)

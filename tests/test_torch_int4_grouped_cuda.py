@@ -2,9 +2,14 @@
 versions, at the main-path shapes: K12 (ops/quantized.matmul_int4) and K13
 (ops/quantized.matmul_int4_packed) at M = 2 (decode, the split-K GEMV) and
 M = 256 (prefill, the tensor-core tiles) for one layer's projections, at
-M = 1, 8, 200, with f32 x and with groupsize 64; and ``_linear`` on both
-leaf kinds at M = 300 (the dense f32 route, no launch). Needs a CUDA card
-and nvcc; skips elsewhere. Imports no JAX, so it runs with
+M = 1, 8, 200, with f32 x and with groupsize 64; ``_linear`` on both leaf
+kinds at M = 300 (the dense f32 route, no launch); and the one-launch GEMV
+of up to 8 rows at every row count, at N off its column tile, under other
+plans (odd split counts, other warps), two calls giving the same bits and a
+CUDA-graph replay giving the eager call's bits, also where the graph is
+captured first; at up to 8 rows with a groupsize that is no multiple of 16
+(the tiles). Needs a
+CUDA card and nvcc; skips elsewhere. Imports no JAX, so it runs with
 ``--noconftest``:
 
     python -m pytest --noconftest tests/test_torch_int4_grouped_cuda.py -q
@@ -61,3 +66,106 @@ def test_linear_over_256_rows_takes_the_dense_route(dev, packed):
     ref = x @ Q.dequantize_int4_grouped(q, s, z, 128)
     assert (Q.matmul_int4.launches, Q.matmul_int4_packed.launches) == before
     torch.testing.assert_close(y, ref, atol=1e-5 * ref.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K12", "K13"])
+@pytest.mark.parametrize("m", range(1, Q.DECODE_MAX_ROWS + 1))
+def test_gemv_at_every_row_count(dev, m, packed):
+    fn = Q.matmul_int4_packed if packed else Q.matmul_int4
+    gen = torch.Generator(device="cuda").manual_seed(40 + m)
+    before = fn.launches
+    k12_case(torch, m, D, D, gen, packed=packed)
+    assert fn.launches == before + 1
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K12", "K13"])
+@pytest.mark.parametrize("m,n,gs", [(2, 16, 128), (2, 2064, 128), (2, 2064, 64), (7, 2064, 64), (2, 3 * D, 64)])
+def test_gemv_off_the_column_tile_and_at_groupsize_64(dev, m, n, gs, packed):
+    gen = torch.Generator(device="cuda").manual_seed(n + gs + m)
+    k12_case(torch, m, D, n, gen, packed=packed, groupsize=gs)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K12", "K13"])
+@pytest.mark.parametrize("m", [2, 3])
+@pytest.mark.parametrize("max_splits,warps", [(3, 1), (5, 3), (7, 4), (1, 2), (2, 8)])
+def test_kernel_matches_plain_version_under_other_plans(dev, monkeypatch, packed, m, max_splits, warps):
+    """Any plan the kernel takes merges right: odd split counts, warps that
+    leave a run empty."""
+    monkeypatch.setattr(Q, "INT4G_BLOCKS_PER_SM", 1000)  # as many splits as the caps allow
+    monkeypatch.setattr(Q, "INT4G_MAX_SPLITS", max_splits)
+    monkeypatch.setattr(Q, "INT4G_WARPS", warps)
+    assert Q.int4g_plan(m, D, 3 * D, packed)[1] == max_splits
+    gen = torch.Generator(device="cuda").manual_seed(max_splits * 10 + warps + m)
+    k12_case(torch, m, D, 3 * D, gen, packed=packed)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K12", "K13"])
+@pytest.mark.parametrize("m,k,gs", [(2, D, 8), (2, 1152, 24), (8, 1152, 24)])
+def test_few_rows_at_a_groupsize_off_the_k_step(dev, m, k, gs, packed):
+    """Up to 8 rows with a groupsize that is no multiple of 16 take the
+    tiles, one launch, and agree."""
+    fn = Q.matmul_int4_packed if packed else Q.matmul_int4
+    gen = torch.Generator(device="cuda").manual_seed(k + gs + m)
+    before = fn.launches
+    k12_case(torch, m, k, D, gen, packed=packed, groupsize=gs)
+    assert fn.launches == before + 1
+
+
+def _gemv_call(dev, packed, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, s, z = Q.quantize_int4_grouped(torch.randn((D, 3 * D), generator=gen, device=dev) * 0.02)
+    w = Q.pack_int4(q) if packed else q
+    x = torch.randn((2, D), generator=gen, device=dev).to(torch.bfloat16)
+    fn = Q.matmul_int4_packed if packed else Q.matmul_int4
+    assert Q.int4g_plan(2, D, 3 * D, packed)[1] > 1  # the merge is on the path
+    return lambda: fn(x, w, s, z)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K12", "K13"])
+def test_two_calls_give_the_same_bits(dev, packed):
+    call = _gemv_call(dev, packed, 50)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K12", "K13"])
+def test_graph_replays_give_the_eager_bits(dev, packed):
+    """The merge tickets are left at 0, so each replay merges as the first launch did."""
+    call = _gemv_call(dev, packed, 60)
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K12", "K13"])
+def test_graph_captured_before_any_eager_call(dev, monkeypatch, packed):
+    """A capture that would have to make the device's merge counters raises
+    (their zero fill would only be recorded); after one eager call the same
+    capture replays to the eager bits."""
+    monkeypatch.setattr(Q, "_int4g_tickets", {})
+    call = _gemv_call(dev, packed, 70)
+    with pytest.raises(RuntimeError, match="eager call"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            call()
+    assert not Q._int4g_tickets
+    eager = call()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
