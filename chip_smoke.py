@@ -37,7 +37,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
                beyond pos and with GQA (2 kv heads): one layer at a time
                within 1e-2 max |ref|, all layers' x_out and logits within
                5e-2 max |ref|, pad logits exactly 0, layer 0's new cache
-               row within one bf16 ulp, every other slot unchanged; times;
+               row within one bf16 ulp, every other slot unchanged; one
+               whole step captured in a CUDA graph and replayed 3 times,
+               each replay the eager step's bits (itself the same twice),
+               the merge tickets back at 0, and the step's kernels counted
+               from the graph's nodes (6 a layer and the head's, none named
+               rmsnorm or gemv_reduce); the products' profiled device time
+               a step and their weights' GB/s; times;
   8. small4  - a 2-layer 1024-wide int4 first stage on the card against the
                CPU path (plain versions) with the same weights: prefill
                logits and 8 teacher-forced decode steps within 5e-2 max |ref|;
@@ -46,7 +52,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
                prefills, K1 launches == 0;
  10. profile4 - where a 64-token int4 first-stage generate spends its time:
                device kernel time by kernel (torch.profiler) against the same
-               generate unprofiled (the device's busy share);
+               generate unprofiled (the device's busy share), by family (the
+               products stack_gemv, the attention split and combine, the
+               prefill matmul); a family with no device time fails;
  11. K8      - the int8 prefill matmul against its plain version at the
                main-path shapes (M = 256; K x N of 2048 x 6144, 2048 x 2048,
                6144 x 2048) and at M = 1, 2, 200: every row within 1e-3 max
@@ -56,7 +64,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
  12. K7      - the int8 decode stack against its plain version at the full
                main-path shape (24 layers, B = 2, cache 2048 slots, no head)
                at pos 0, 255, 1000, 2047, with starts, with NaN beyond pos
-               and with GQA (2 kv heads), held as K3 is; times;
+               and with GQA (2 kv heads), held as K3 is, with phase 7's
+               captured step (6 kernels a layer); times;
  13. small8  - int8 first stages on the card against the CPU path (plain
                versions) with the same weights: a 2-layer 1024-wide one
                (decode through K7) and a 2-layer 512-wide one (decode per
@@ -166,6 +175,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
                load_first_stage_npz with every dtype kept; also the
                int4-in-int32 tree written and read back, its bf16 sc taken
                by one K2 call.
+ 35. unfused - run after phase 8: a 2-layer int4 first stage at the full
+               width (2048d/16H, FFN 5632) at 16 rows, more than the fused
+               int4 kernels hold, one T = 1 step through the unfused route
+               on the card (K2 for every projection, K1) against the CPU
+               path on the same weights and cache: logits within 5e-2 max
+               |ref|, K2 == 5 x n_layer and K1 == n_layer launches.
 
 Phases 5, 9, 14, 18, 19, 20, 24, 29, 33 and 34 are the main paths: every kernel count is
 set to 0 just before each and read just after. The two lines before the last are the
@@ -203,6 +218,7 @@ K3_LAYER_TOL = 1e-2
 # which round differently, and two layers spread those flips (measured: 2.25%
 # of max |ref| at prefill on the card).
 SMALL4_TOL = 5e-2
+UNFUSED_ROWS = 16  # the engine's batch 16: more rows than the fused int4 kernels (K3, K5/K6) hold
 K2_M = 256  # prefill rows: the CFG pair x a 128-token prompt bucket
 # K8: the same bf16 products as its plain version, summed in another order,
 # but also sum(x), which both round to bf16 for the c term (c = -128 s takes
@@ -706,6 +722,67 @@ def stack_worst_layer(torch, x, args, kc, vc, pos, n_head, **kw) -> float:
     return worst
 
 
+STACK_KERNELS_A_LAYER = 6  # qkv, attention split and combine, o-proj, w1/w3, w2
+
+
+def stack_graph_check(torch, fn, what: str) -> list[str]:
+    """Capture one whole decode-stack step fn() in a CUDA graph and replay it
+    3 times: every replay's outputs the same bits as an eager call's, which
+    are the same bits twice, and the merge tickets back at 0. -> the
+    kernel nodes of one captured step (their names)."""
+    from metavoice_tpu_torch.ops import decode_stack as DS
+
+    eager = [t.clone() for t in fn() if t.dim() == 2]
+    again = [t for t in fn() if t.dim() == 2]
+    if not all(torch.equal(a, b) for a, b in zip(eager, again)):
+        fail(f"{what}: two eager steps differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [t for t in fn() if t.dim() == 2]
+    for i in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(eager, outs)):
+            fail(f"{what}: graph replay {i} differs from the eager step")
+    tickets = DS._stack_tickets[torch.cuda.current_device()]
+    if tickets.any():
+        fail(f"{what}: the merge tickets are not back at 0 after the replays")
+    del graph
+    return [name for kind, name in _graph_nodes(torch, fn) if kind == "KERNEL"]
+
+
+def stack_gemv_rate(torch, fn, weight_bytes: int) -> tuple[float, float]:
+    """(ms, GB/s): the products' (stack_gemv) device time a step, from the
+    profiler over 3 replays of a captured step, and the weight bytes over it.
+    A product starts before the kernel before it has finished (programmatic
+    dependent launch), so its time counts some waiting: the rate is a floor."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "stack_gemv" in e.name)
+    if us <= 0:
+        return float("nan"), float("nan")
+    ms = us / 3 / 1e3
+    return ms, weight_bytes / ms / 1e6
+
+
 def phase_k3(torch) -> dict:
     from metavoice_tpu_torch.core.config import first_stage_config
     from metavoice_tpu_torch.ops import decode_stack as DS
@@ -776,6 +853,20 @@ def phase_k3(torch) -> dict:
     lay = qp["layers"]
     weight_bytes = sum(_int4_bytes(lay[k]["pw"], lay[k]["sc"]) for k in ("wqkv", "wo", "w1", "w3", "w2"))
     head_bytes = _int4_bytes(qp["lm_head_q"]["pw"], qp["lm_head_q"]["sc"])
+    pos_t = torch.tensor(255, dtype=torch.int32, device=dev)
+
+    def one_step():
+        return DS.decode_stack_int4(x, *_k3_args(qp), kc, vc, pos_t, cfg.n_head, **kw)
+
+    names = stack_graph_check(torch, one_step, "K3")
+    want = STACK_KERNELS_A_LAYER * cfg.n_layer + 1
+    if len(names) != want or any(bad in n for n in names for bad in ("rmsnorm", "gemv_reduce", "gemv_partial")):
+        fail(f"K3: a captured step is {len(names)} kernels, not {want} (6 a layer and the head's): "
+             f"{sorted(set(names))}")
+    gemv_ms, gemv_gbs = stack_gemv_rate(torch, one_step, weight_bytes + head_bytes)
+    graph_note = (f"a captured step: {len(names)} kernels ({STACK_KERNELS_A_LAYER} a layer + the head), "
+                  f"3 replays the eager step's bits, tickets back at 0; products {gemv_ms:.4f} ms a step of "
+                  f"profiled device time, {gemv_gbs:.0f} GB/s of weights (a floor: PDL overlap counts)")
     macs = sum(lay[k]["pw"].numel() * 8 for k in ("wqkv", "wo", "w1", "w3", "w2"))
     macs += qp["lm_head_q"]["pw"].numel() * 8
     vp = qp["lm_head_q"]["pw"].shape[1]
@@ -800,7 +891,7 @@ def phase_k3(torch) -> dict:
     print(f"[7 K3] {len(cases)} cases at 24L/16H/2048d, B {b}, S 2048, Vp 3072 agree: one layer at "
           f"a time within {worst_layer:.3g} of max |ref| (tol {K3_LAYER_TOL}); all 24 layers, "
           f"x_out and logits, within {worst_rel:.3g} (max |d| {max_err:.3g}; tol {K3_TOL}); pad "
-          f"logits 0; layer 0's new row within one ulp; other slots unchanged; "
+          f"logits 0; layer 0's new row within one ulp; other slots unchanged; {graph_note}; "
           f"{'; '.join(shown)}")
     device_ms, plain_ms, bound_ms, bound_by = times[255]
     return {"max_abs_err": max_err, "ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -854,6 +945,56 @@ def phase_small4(torch):
           f"prefill logits and 8 teacher-forced steps within {[round(g, 4) for g in gaps]} of "
           f"max |ref| (tol {SMALL4_TOL}); free-running under shared Gumbel noise: first {same} of "
           f"{len(toks[0])}/{len(toks[1])} tokens identical (printed, not required)")
+
+
+def phase_unfused(torch):
+    """The unfused int4 route on the card: a 2-layer first stage at the full
+    width (2048d/16H, FFN 5632) at UNFUSED_ROWS rows, more than the fused
+    kernels hold, one T = 1 step through K2 (every projection) and K1 on a
+    bf16 cache, against the CPU path (plain versions) on the same weights
+    and cache: logits within SMALL4_TOL of max |ref|, and the launches."""
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    cfg = first_stage_config(n_layer=2, block_size=256)
+    gen = torch.Generator().manual_seed(35)
+    cpu = Q.quantize_params_int4_i32(tfm.init_params(cfg, device="cpu", generator=gen, dtype=torch.bfloat16))
+    gpu = to_cuda(cpu)
+    rows, pos = UNFUSED_ROWS, 100
+    route = tfm.int4_decode_route(cpu, cfg, rows, torch.bfloat16)
+    if route != "unfused":
+        fail(f"a {rows}-row int4 step takes the {route!r} route, not the unfused one")
+    shape = (cfg.n_layer, pos, rows, cfg.n_local_heads, cfg.head_dim)
+    window = [torch.randn(shape, generator=gen).to(torch.bfloat16) for _ in range(2)]
+    tokens = torch.randint(0, cfg.vocab_size, (rows, 1), generator=gen)
+    spk = torch.randn((rows, 256), generator=gen)
+    runs = {}
+    for name, params in (("cpu", cpu), ("cuda", gpu)):
+        dev = torch.device(name)
+        kv = tfm.KVCache.create(cfg, rows, cfg.block_size, device=dev)
+        kv.k[:, :pos], kv.v[:, :pos] = window[0].to(dev), window[1].to(dev)
+        for fn, attr in counters().values():
+            setattr(fn, attr, 0)
+        x = tfm.embed_inputs(params, cfg, tokens.to(dev), torch.tensor([pos], device=dev), spk.to(dev))
+        out, kv, head_done = tfm.apply_blocks(params, cfg, x, None, kv, pos, fused_head=True)
+        if head_done:
+            fail("the unfused int4 step fused a head")
+        logits = tfm.output_logits(params, cfg, out)[0][:, 0].float().cpu()
+        runs[name] = (logits, read_counts())
+    want = dict.fromkeys(counters(), 0)
+    want.update({"k2_launches": 5 * cfg.n_layer, "k1_launches": cfg.n_layer})
+    if runs["cpu"][1] != dict.fromkeys(counters(), 0) or runs["cuda"][1] != want:
+        fail(f"the unfused int4 step launched {runs['cuda'][1]} on the card (expected {want}) and "
+             f"{runs['cpu'][1]} on the CPU")
+    ref, got = runs["cpu"][0], runs["cuda"][0]
+    gap = (got - ref).abs().max().item() / ref.abs().max().item()
+    if not (torch.isfinite(got).all() and gap <= SMALL4_TOL):
+        fail(f"the unfused int4 step on the card differs from the CPU path: {gap:.4g} of max |ref| "
+             f"(tol {SMALL4_TOL})")
+    print(f"[35 unfused] int4 {cfg.n_layer}L/{cfg.n_head}H/{cfg.dim}d at {rows} rows, bf16 cache, pos {pos}: "
+          f"route {route!r}; logits within {gap:.4g} of max |ref| of the CPU path (tol {SMALL4_TOL}); "
+          f"launches {({k: v for k, v in want.items() if v})}")
 
 
 def phase_synth_quantized(torch, workdir: str, ref: str, mode, label: str, per_step: dict,
@@ -1082,6 +1223,19 @@ def phase_k7(torch) -> dict:
     lay = qp["layers"]
     keys = ("wqkv", "wo", "w1", "w3", "w2")
     weight_bytes = sum(_int8_bytes(lay[k]["p8"], lay[k]["sc8"]) for k in keys)
+    pos_t = torch.tensor(255, dtype=torch.int32, device=dev)
+
+    def one_step():
+        return DS.decode_stack_int4(x, *_k7_args(qp), kc, vc, pos_t, cfg.n_head, **kw)
+
+    names = stack_graph_check(torch, one_step, "K7")
+    want = STACK_KERNELS_A_LAYER * cfg.n_layer
+    if len(names) != want or any(bad in n for n in names for bad in ("rmsnorm", "gemv_reduce", "gemv_partial")):
+        fail(f"K7: a captured step is {len(names)} kernels, not {want} (6 a layer): {sorted(set(names))}")
+    gemv_ms, gemv_gbs = stack_gemv_rate(torch, one_step, weight_bytes)
+    graph_note = (f"a captured step: {len(names)} kernels ({STACK_KERNELS_A_LAYER} a layer), 3 replays the "
+                  f"eager step's bits, tickets back at 0; products {gemv_ms:.4f} ms a step of profiled device "
+                  f"time, {gemv_gbs:.0f} GB/s of weights (a floor: PDL overlap counts)")
     macs = sum(lay[k]["p8"].numel() * 4 for k in keys)
     small = 2 * cfg.n_layer * cfg.dim * 2 + 2 * b * cfg.dim * 2  # norm weights, x in and out
     times, shown = {}, []
@@ -1103,7 +1257,7 @@ def phase_k7(torch) -> dict:
     print(f"[12 K7] {len(cases)} cases at 24L/16H/2048d int8, B {b}, S 2048 agree: one layer at a "
           f"time within {worst_layer:.3g} of max |ref| (tol {K3_LAYER_TOL}); all 24 layers' x_out "
           f"within {worst_rel:.3g} (max |d| {max_err:.3g}; tol {K3_TOL}); layer 0's new row within "
-          f"one ulp; other slots unchanged; {'; '.join(shown)}")
+          f"one ulp; other slots unchanged; {graph_note}; {'; '.join(shown)}")
     device_ms, plain_ms, bound_ms, bound_by = times[255]
     return {"max_abs_err": max_err, "ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
@@ -1209,6 +1363,9 @@ def phase_profile(torch, tts, label: str, families: dict):
         fam = next((k for k, pat in families.items() if pat in e.name), None)
         by[fam or "other (PyTorch: embedding, sampling, prefill attention, copies)"] += \
             e.time_range.elapsed_us() / 1e3
+    empty = [name for name, ms in by.items() if name in families and ms <= 0]
+    if empty:
+        fail(f"[{label}] kernel families with no device time (renamed kernels?): {empty}")
     total = sum(by.values())
     shown = ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f}%)"
                       for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
@@ -2337,14 +2494,14 @@ def main() -> int:
         k3 = phase_k3(torch)
         torch.cuda.empty_cache()
         phase_small4(torch)
+        phase_unfused(torch)
         int4 = phase_synth_quantized(torch, workdir, ref, "int4", "9 synth4",
                                      {"k3_launches": 1}, "k2_launches",
                                      {"bf16 phase 5": bf16["ms_per_token"]})
         comps["int4"] = int4["tts"].c
         phase_profile(torch, int4.pop("tts"), "10 profile4", {
-            "K3 gemv_partial": "gemv_partial", "K3 gemv_reduce": "gemv_reduce",
-            "K3 attention split+combine": "decode_attn_", "K3 rmsnorm_rows": "rmsnorm_rows",
-            "K2 matmul_int4_i32": "matmul_i32_kernel"})
+            "K3 stack_gemv (products, norms, merges)": "stack_gemv", "K3 attention split": "decode_attn_split",
+            "K3 attention combine": "decode_attn_combine", "K2 matmul_int4_i32": "matmul_i32_kernel"})
         torch.cuda.empty_cache()
         k8 = phase_k8(torch)
         k7 = phase_k7(torch)
@@ -2355,9 +2512,8 @@ def main() -> int:
                                      {"bf16 phase 5": bf16["ms_per_token"],
                                       "int4 phase 9": int4["ms_per_token"]})
         phase_profile(torch, int8.pop("tts"), "15 profile8", {
-            "K7 gemv_partial": "gemv_partial", "K7 gemv_reduce": "gemv_reduce",
-            "K7 attention split+combine": "decode_attn_", "K7 rmsnorm_rows": "rmsnorm_rows",
-            "K8 matmul_int8_i32": "matmul_i32_kernel"})
+            "K7 stack_gemv (products, norms, merges)": "stack_gemv", "K7 attention split": "decode_attn_split",
+            "K7 attention combine": "decode_attn_combine", "K8 matmul_int8_i32": "matmul_i32_kernel"})
         torch.cuda.empty_cache()
         k4 = phase_k4(torch)
         torch.cuda.empty_cache()

@@ -1,5 +1,6 @@
 // T=1 split-sequence (flash-decoding) attention device code, shared by the
-// int4 decode stack (decode_stack_int4.cu, K3 and K7), the int4 attention
+// int4 decode stack (decode_stack_int4.cu, K3 and K7, whose chain of
+// launches takes the kChained forms), the int4 attention
 // block (decode_block_int4.cu, K5) and the plain-int8 attention block
 // (decode_block_int8.cu, K9). K1 and K4 have their own one-launch design
 // (decode_attention_onepass.cuh).
@@ -50,6 +51,14 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegBig = -1e30f;          // the reference's finite -inf
 
 enum CacheFmt { kFmtFloat = 0, kFmtI8 = 1, kFmtPacked = 2 };
+
+// Programmatic dependent launch (Hopper): a kernel launched with the
+// programmatic-stream-serialization attribute may start while the kernel
+// before it on the stream still runs. pdl_wait() returns once that kernel has
+// finished and its writes are visible (at once without the attribute);
+// pdl_trigger() lets the next such kernel start.
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+__device__ __forceinline__ void pdl_trigger() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
 
 __device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float round_bf16(float v) { return bf(__float2bfloat16_rn(v)); }
@@ -145,9 +154,15 @@ struct SplitArgs {
 };
 
 // One block per (query row, split). FMT: the cache format (CacheFmt); T is
-// the float type, int8_t or int32_t (words) to match.
-template <typename TQ, typename T, int DH, int FMT = kFmtFloat>
+// the float type, int8_t or int32_t (words) to match. kChained: launched as a
+// programmatic dependent of the kernel that writes q (the decode stack's
+// chain), so it waits for that kernel before reading anything.
+template <typename TQ, typename T, int DH, int FMT = kFmtFloat, bool kChained = false>
 __global__ void __launch_bounds__(kThreads) decode_attn_split(SplitArgs<TQ, T> a) {
+  if constexpr (kChained) {
+    pdl_wait();
+    pdl_trigger();
+  }
   constexpr int E = DH / kGroup;
   constexpr bool kQuant = FMT != kFmtFloat;
   constexpr bool kPacked = FMT == kFmtPacked;
@@ -296,10 +311,15 @@ __global__ void __launch_bounds__(kThreads) decode_attn_split(SplitArgs<TQ, T> a
 }
 
 // One block of DH threads per query row: merge the splits, y[row * DH + d].
-template <typename TY, int DH>
+// kChained as for decode_attn_split.
+template <typename TY, int DH, bool kChained = false>
 __global__ void __launch_bounds__(DH)
 decode_attn_combine(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
                     int n_splits, TY* __restrict__ y) {
+  if constexpr (kChained) {
+    pdl_wait();
+    pdl_trigger();
+  }
   const int row = blockIdx.x;
   const int d = threadIdx.x;
   const size_t first = (size_t)row * n_splits;

@@ -27,30 +27,30 @@
 // far below the card's ~295 operations per byte, so the floor is
 // bytes / 3.35 TB/s, about 0.21 ms (int4) and 0.40 ms (int8) at pos 0.
 //
-// Design (simple and right first):
-//   * One C entry per step launches a fixed sequence of small kernels for
-//     every layer on the caller's stream: it allocates nothing (scratch comes
-//     from the wrapper) and never synchronises. pos is read on the device
-//     from an int32, so the step's launches do not depend on it (the
-//     attention grid is sized for the cache capacity S; splits past pos
-//     write an empty partial and exit).
-//   * The GEMV (decode_gemv.cuh, shared with the per-layer int4 kernels),
-//     templated on the word format (VPW values a word: 8 nibbles or 4
-//     bytes): a block owns 32 word rows (int4: a quarter of one 128-row
-//     group in each of the 8 nibble slabs) by 32 * CPT columns; neighbouring
-//     lanes read neighbouring columns' words with 16-byte loads; each thread
-//     keeps one partial sum per (row of x, slab, column), so the scale is
-//     applied once per block. The c term is added once per group: int4 by
-//     the block holding a group's first rows, int8 by the first block, which
-//     sums x over all of K. The contraction is split across blocks
-//     (K/VPW/32 of them) so that even a 2048-wide output fills the SMs, and
-//     a second small kernel sums the partials in a fixed order and applies
-//     the epilogue: f32 out; f32 out plus the bf16 k/v row write; the bf16
-//     residual add; or silu(h1) * h3.
-//   * Nibbles and bytes become floats through the mantissa of 2^23
-//     (word_values.cuh, exact), which avoids the slow int-to-float unit.
-//   * Attention is the split-sequence device code shared with the
-//     decode-attention kernel (decode_attention.cuh).
+// Design:
+//   * One C entry per step launches six kernels a layer on the caller's
+//     stream, and one more for the head: the qkv product (RMSNorm in its
+//     prologue; f32 q, the bf16 k/v row written at (layer, pos)), the
+//     attention split and combine, the o-proj (bf16 residual add), w1 and w3
+//     in one launch (RMSNorm; silu(h1) * h3 rounded to bf16) and w2 (bf16
+//     residual add); the head's product takes ln_f in its prologue. It
+//     allocates nothing (scratch and the plans of K's cut come from the
+//     wrapper) and never synchronises; pos is read on the device from an
+//     int32, so the launches do not depend on it (the attention grid is
+//     sized for the cache capacity S; splits past pos write an empty
+//     partial and exit). Layer 0 reads x_in and writes x_out, so no copy
+//     starts the step.
+//   * The products are decode_stack_gemv.cuh: tensor-core mma.sync over the
+//     raw nibbles or bytes, converted exactly off the int-to-float unit, the
+//     split-K partials merged inside the launch by the last block of a
+//     column tile.
+//   * Every kernel is launched as a programmatic dependent of the one before
+//     (cudaLaunchKernelEx with programmatic stream serialization): a product
+//     loads its first weights before it waits for the kernel before it, and
+//     each kernel lets the next one start once it has read its inputs. The
+//     chain holds under a CUDA-graph capture.
+//   * Attention is the split-sequence device code shared with the per-layer
+//     kernels (decode_attention.cuh), in its chained form.
 //
 // Plain C entry point (no PyTorch headers), loaded with ctypes by
 // metavoice_tpu_torch/ops/_build.py; the wrapper and its plain PyTorch
@@ -62,42 +62,27 @@
 #include <stdint.h>
 
 #include "decode_attention.cuh"
-#include "decode_gemv.cuh"
+#include "decode_stack_gemv.cuh"
+
+// Return a failed call's cudaError_t from the enclosing launch sequence.
+#define MV_CHECK(expr)                          \
+  do {                                          \
+    const cudaError_t err_ = (expr);            \
+    if (err_ != cudaSuccess) return err_;       \
+  } while (0)
 
 namespace {
 
-constexpr int kNormThreads = 256;
 constexpr int kHeadDim = 128;
-
-// RMSNorm of one row per block: bf16(bf16(x * rsqrt(mean(x^2) + eps)) * w).
-__global__ void __launch_bounds__(kNormThreads)
-rmsnorm_rows(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-             __nv_bfloat16* __restrict__ out, int d, float eps) {
-  const __nv_bfloat16* xr = x + (size_t)blockIdx.x * d;
-  __nv_bfloat16* orow = out + (size_t)blockIdx.x * d;
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < d; i += kNormThreads) {
-    const float v = bf(xr[i]);
-    ss += v * v;
-  }
-  __shared__ float s_part[kNormThreads / 32];
-  ss = warp_sum(ss);
-  if ((threadIdx.x & 31) == 0) s_part[threadIdx.x >> 5] = ss;
-  __syncthreads();
-  float total = 0.f;
-#pragma unroll
-  for (int i = 0; i < kNormThreads / 32; ++i) total += s_part[i];
-  const float inv = 1.f / sqrtf(total / (float)d + eps);
-  for (int i = threadIdx.x; i < d; i += kNormThreads)
-    orow[i] = __float2bfloat16_rn(round_bf16(bf(xr[i]) * inv) * bf(w[i]));
-}
+constexpr int kPlans = 5;  // qkv, o-proj, w1/w3, w2, head: {split_steps, n_splits, warps} each
+enum { kPlanQKV = 0, kPlanO = 1, kPlanW13 = 2, kPlanW2 = 3, kPlanHead = 4 };
 
 struct StepArgs {
   const __nv_bfloat16* x_in;
   __nv_bfloat16* x;  // the residual stream, (B, D): the output
   const __nv_bfloat16* norm1;
   const __nv_bfloat16* norm2;
-  GemvMat wqkv, wo, w1, w3, w2, head;
+  SgMat wqkv, wo, w1, w3, w2, head;
   __nv_bfloat16* k_cache;
   __nv_bfloat16* v_cache;
   const int* pos;
@@ -107,47 +92,73 @@ struct StepArgs {
   int n_layer, batch, dim, n_head, n_kv_head, seq_len, ip, vp, gp, gp2;
   float eps;
   int n_splits, split_len;
-  __nv_bfloat16* xn;  // (B, D) normed activations
   float* qkv;         // (B, qout)
   __nv_bfloat16* ya;  // (B, D) attention output
   __nv_bfloat16* h;   // (B, Ip) SwiGLU hidden
-  float* part;        // GEMV partials
+  float* part;        // the products' split partials
+  float* ssq;         // (B, D / 32) sums of squares of the residual stream by tile
   float* part_ml;     // attention partials
   float* part_acc;
+  int* tickets;
+  const int* plans;   // [kPlans][3]
 };
 
-template <int NB, int CPT, int VPW>
-cudaError_t gemv(const StepArgs& a, const __nv_bfloat16* x, int k, int n, int gp, GemvMat m0,
-                 GemvMat m1, int n_mats, const Epilogue& e, cudaStream_t s) {
-  return launch_gemv<NB, CPT, VPW>(x, a.batch, k, n, gp, m0, m1, n_mats, a.part, e, s);
+// Layer `layer` of a matrix stacked over layers: pw (L, K/VPW, N), sc (L, 2*gp, N).
+template <int VPW>
+SgMat layer_mat(const SgMat& m, int layer, int k, int n, int gp) {
+  return SgMat{m.pw + (size_t)layer * (k / VPW) * n, m.sc + (size_t)layer * 2 * gp * n};
 }
 
-template <int NB, int CPT, int VPW>
+// A kernel launched as a programmatic dependent of the one before it on s.
+template <typename... Params, typename... Args>
+cudaError_t launch_chained(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int VPW>
 cudaError_t run_step(const StepArgs& a, cudaStream_t s) {
   const int d = a.dim;
   const int dkv = a.n_kv_head * kHeadDim;
   const int qout = d + 2 * dkv;
-  MV_CHECK(cudaMemcpyAsync(a.x, a.x_in, sizeof(__nv_bfloat16) * a.batch * d,
-                           cudaMemcpyDeviceToDevice, s));
-  Epilogue none{};
+  float* ssq = d / kSgCols <= kSgMaxSsTiles ? a.ssq : nullptr;  // the residual's sums of squares by tile
+  SgArgs base = {};
+  base.eps = a.eps;
+  base.b_rows = a.batch;
+  base.part = a.part;
+  base.tickets = a.tickets;
   for (int l = 0; l < a.n_layer; ++l) {
-    rmsnorm_rows<<<a.batch, kNormThreads, 0, s>>>(a.x, a.norm1 + (size_t)l * d, a.xn, d, a.eps);
-    MV_CHECK(cudaGetLastError());
+    const __nv_bfloat16* xr = l == 0 ? a.x_in : a.x;  // the layer's residual input
 
-    Epilogue eq = none;
-    eq.kind = kEpiQKV;
-    eq.out_f32 = a.qkv;
-    eq.k_cache = a.k_cache;
-    eq.v_cache = a.v_cache;
-    eq.pos = a.pos;
-    eq.layer = l;
-    eq.seq_len = a.seq_len;
-    eq.d = d;
-    eq.dkv = dkv;
-    const GemvMat wqkv = layer_mat<VPW>(a.wqkv, l, d, qout, a.gp);
-    MV_CHECK((gemv<NB, CPT, VPW>(a, a.xn, d, qout, a.gp, wqkv, wqkv, 1, eq, s)));
+    SgArgs q = base;
+    q.x = xr;
+    q.norm_w = a.norm1 + (size_t)l * d;
+    q.ss_in = l == 0 ? nullptr : ssq;  // layer 0: x_in's own
+    q.m0 = q.m1 = layer_mat<VPW>(a.wqkv, l, d, qout, a.gp);
+    q.k = d;
+    q.n = qout;
+    q.gp = a.gp;
+    q.split_steps = a.plans[3 * kPlanQKV];
+    q.epi = kSgQKV;
+    q.out_f32 = a.qkv;
+    q.k_cache = a.k_cache;
+    q.v_cache = a.v_cache;
+    q.pos = a.pos;
+    q.layer = l;
+    q.seq_len = a.seq_len;
+    q.d = d;
+    q.dkv = dkv;
+    MV_CHECK(launch_stack_gemv<VPW>(q, a.plans + 3 * kPlanQKV, 1, s));
 
-    SplitArgs<float, __nv_bfloat16> at;
+    SplitArgs<float, __nv_bfloat16> at = {};
     at.q = a.qkv;
     at.q_bstride = qout;
     at.k_new = nullptr;
@@ -167,38 +178,64 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t s) {
     at.part_ml = a.part_ml;
     at.part_acc = a.part_acc;
     const int rows = a.batch * a.n_head;
-    decode_attn_split<float, __nv_bfloat16, kHeadDim>
-        <<<dim3(rows, a.n_splits), kThreads, 0, s>>>(at);
-    MV_CHECK(cudaGetLastError());
-    decode_attn_combine<__nv_bfloat16, kHeadDim>
-        <<<rows, kHeadDim, 0, s>>>(a.part_ml, a.part_acc, a.n_splits, a.ya);
-    MV_CHECK(cudaGetLastError());
+    MV_CHECK(launch_chained(decode_attn_split<float, __nv_bfloat16, kHeadDim, kFmtFloat, true>,
+                            dim3(rows, a.n_splits), dim3(kThreads), s, at));
+    MV_CHECK(launch_chained(decode_attn_combine<__nv_bfloat16, kHeadDim, true>, dim3(rows), dim3(kHeadDim), s,
+                            (const float*)a.part_ml, (const float*)a.part_acc, a.n_splits, a.ya));
 
-    Epilogue er = none;
-    er.kind = kEpiResid;
-    er.out_bf16 = a.x;
-    const GemvMat wo = layer_mat<VPW>(a.wo, l, d, d, a.gp);
-    MV_CHECK((gemv<NB, CPT, VPW>(a, a.ya, d, d, a.gp, wo, wo, 1, er, s)));
+    SgArgs o = base;
+    o.x = a.ya;
+    o.m0 = o.m1 = layer_mat<VPW>(a.wo, l, d, d, a.gp);
+    o.k = d;
+    o.n = d;
+    o.gp = a.gp;
+    o.split_steps = a.plans[3 * kPlanO];
+    o.epi = kSgResid;
+    o.resid = xr;
+    o.out_bf16 = a.x;
+    o.ss_out = ssq;
+    MV_CHECK(launch_stack_gemv<VPW>(o, a.plans + 3 * kPlanO, 1, s));
 
-    rmsnorm_rows<<<a.batch, kNormThreads, 0, s>>>(a.x, a.norm2 + (size_t)l * d, a.xn, d, a.eps);
-    MV_CHECK(cudaGetLastError());
+    SgArgs f = base;
+    f.x = a.x;
+    f.norm_w = a.norm2 + (size_t)l * d;
+    f.ss_in = ssq;
+    f.m0 = layer_mat<VPW>(a.w1, l, d, a.ip, a.gp);
+    f.m1 = layer_mat<VPW>(a.w3, l, d, a.ip, a.gp);
+    f.k = d;
+    f.n = a.ip;
+    f.gp = a.gp;
+    f.split_steps = a.plans[3 * kPlanW13];
+    f.epi = kSgSwiglu;
+    f.out_bf16 = a.h;
+    MV_CHECK(launch_stack_gemv<VPW>(f, a.plans + 3 * kPlanW13, 2, s));
 
-    Epilogue eg = none;
-    eg.kind = kEpiSwiglu;
-    eg.out_bf16 = a.h;
-    MV_CHECK((gemv<NB, CPT, VPW>(a, a.xn, d, a.ip, a.gp, layer_mat<VPW>(a.w1, l, d, a.ip, a.gp),
-                                 layer_mat<VPW>(a.w3, l, d, a.ip, a.gp), 2, eg, s)));
-
-    const GemvMat w2 = layer_mat<VPW>(a.w2, l, a.ip, d, a.gp2);
-    MV_CHECK((gemv<NB, CPT, VPW>(a, a.h, a.ip, d, a.gp2, w2, w2, 1, er, s)));
+    SgArgs w = base;
+    w.x = a.h;
+    w.m0 = w.m1 = layer_mat<VPW>(a.w2, l, a.ip, d, a.gp2);
+    w.k = a.ip;
+    w.n = d;
+    w.gp = a.gp2;
+    w.split_steps = a.plans[3 * kPlanW2];
+    w.epi = kSgResid;
+    w.resid = a.x;
+    w.out_bf16 = a.x;
+    w.ss_out = ssq;
+    MV_CHECK(launch_stack_gemv<VPW>(w, a.plans + 3 * kPlanW2, 1, s));
   }
   if (a.ln_f != nullptr) {
-    rmsnorm_rows<<<a.batch, kNormThreads, 0, s>>>(a.x, a.ln_f, a.xn, d, a.eps);
-    MV_CHECK(cudaGetLastError());
-    Epilogue ef = none;
-    ef.kind = kEpiF32;
-    ef.out_f32 = a.logits;
-    MV_CHECK((gemv<NB, CPT, VPW>(a, a.xn, d, a.vp, a.gp, a.head, a.head, 1, ef, s)));
+    SgArgs hd = base;
+    hd.x = a.x;
+    hd.norm_w = a.ln_f;
+    hd.ss_in = ssq;
+    hd.m0 = hd.m1 = a.head;
+    hd.k = d;
+    hd.n = a.vp;
+    hd.gp = a.gp;
+    hd.split_steps = a.plans[3 * kPlanHead];
+    hd.epi = kSgF32;
+    hd.out_f32 = a.logits;
+    MV_CHECK(launch_stack_gemv<VPW>(hd, a.plans + 3 * kPlanHead, 1, s));
   }
   return cudaSuccess;
 }
@@ -209,23 +246,31 @@ bool make_args(StepArgs& a, int vpw, const void* x_in, void* x_out, const void* 
                const void* pos, const void* starts, const void* ln_f, const void* head_pw,
                const void* head_sc, void* logits, int n_layer, int batch, int dim, int n_head,
                int n_kv_head, int head_dim, int seq_len, int ip, int vp, int gp, int gp2,
-               float eps, int n_splits, int split_len, void* const (&scratch)[7]) {
+               float eps, int n_splits, int split_len, void* const (&scratch)[7], long long part_elems,
+               void* tickets, int n_tickets, const int* plans) {
   const bool with_head = ln_f != nullptr;
   const bool int4 = vpw == 8;
-  if (n_layer < 1 || batch < 1 || batch > 8 || head_dim != kHeadDim || n_kv_head < 1 ||
-      n_head % n_kv_head != 0 || n_head * head_dim != dim || dim % (8 * kQGroup) != 0 ||
-      ip % (8 * kQGroup) != 0 || gp < (int4 ? dim / kQGroup : 1) ||
-      gp2 < (int4 ? ip / kQGroup : 1) || n_splits < 1 || split_len < 1 ||
-      (long long)n_splits * split_len < seq_len || pos == nullptr ||
+  if (n_layer < 1 || batch < 1 || batch > kSgRows || head_dim != kHeadDim || n_kv_head < 1 ||
+      n_head % n_kv_head != 0 || n_head * head_dim != dim || dim % (8 * kSgQGroup) != 0 ||
+      ip % (8 * kSgQGroup) != 0 || gp < (int4 ? dim / kSgQGroup : 1) ||
+      gp2 < (int4 ? ip / kSgQGroup : 1) || n_splits < 1 || split_len < 1 ||
+      (long long)n_splits * split_len < seq_len || pos == nullptr || plans == nullptr ||
       (with_head && (!int4 || head_pw == nullptr || head_sc == nullptr || logits == nullptr ||
                      vp < 128 || vp % 128 != 0)))
+    return false;
+  const int qout = dim + 2 * n_kv_head * head_dim;
+  if (!sg_plan_ok(vpw, batch, dim, qout, 1, plans + 3 * kPlanQKV, part_elems, n_tickets) ||
+      !sg_plan_ok(vpw, batch, dim, dim, 1, plans + 3 * kPlanO, part_elems, n_tickets) ||
+      !sg_plan_ok(vpw, batch, dim, ip, 2, plans + 3 * kPlanW13, part_elems, n_tickets) ||
+      !sg_plan_ok(vpw, batch, ip, dim, 1, plans + 3 * kPlanW2, part_elems, n_tickets) ||
+      (with_head && !sg_plan_ok(vpw, batch, dim, vp, 1, plans + 3 * kPlanHead, part_elems, n_tickets)))
     return false;
   a.x_in = static_cast<const __nv_bfloat16*>(x_in);
   a.x = static_cast<__nv_bfloat16*>(x_out);
   a.norm1 = static_cast<const __nv_bfloat16*>(norm1);
   a.norm2 = static_cast<const __nv_bfloat16*>(norm2);
   auto mat = [](const void* pw, const void* sc) {
-    return GemvMat{static_cast<const int32_t*>(pw), static_cast<const __nv_bfloat16*>(sc)};
+    return SgMat{static_cast<const int32_t*>(pw), static_cast<const __nv_bfloat16*>(sc)};
   };
   a.wqkv = mat(mats[0], mats[1]);
   a.wo = mat(mats[2], mats[3]);
@@ -252,25 +297,54 @@ bool make_args(StepArgs& a, int vpw, const void* x_in, void* x_out, const void* 
   a.eps = eps;
   a.n_splits = n_splits;
   a.split_len = split_len;
-  a.xn = static_cast<__nv_bfloat16*>(scratch[0]);
-  a.qkv = static_cast<float*>(scratch[1]);
-  a.ya = static_cast<__nv_bfloat16*>(scratch[2]);
-  a.h = static_cast<__nv_bfloat16*>(scratch[3]);
-  a.part = static_cast<float*>(scratch[4]);
+  a.qkv = static_cast<float*>(scratch[0]);
+  a.ya = static_cast<__nv_bfloat16*>(scratch[1]);
+  a.h = static_cast<__nv_bfloat16*>(scratch[2]);
+  a.part = static_cast<float*>(scratch[3]);
+  a.ssq = static_cast<float*>(scratch[4]);
   a.part_ml = static_cast<float*>(scratch[5]);
   a.part_acc = static_cast<float*>(scratch[6]);
+  a.tickets = static_cast<int*>(tickets);
+  a.plans = plans;
   return true;
 }
 
-template <int VPW>
-int run_step_rows(const StepArgs& a, cudaStream_t s) {
-  if (a.batch == 1) return (int)run_step<1, 4, VPW>(a, s);
-  if (a.batch == 2) return (int)run_step<2, 4, VPW>(a, s);
-  if (a.batch <= 4) return (int)run_step<4, 2, VPW>(a, s);
-  return (int)run_step<8, 1, VPW>(a, s);
+// Every nibble and byte value through the products' conversions, for the
+// card tests: thread t takes words whose nibble j is (t + j) mod 16 (w0) and
+// (t / 16 + 3 j) mod 16 (w1), and whose byte j is (t + j) mod 256 (w0) and
+// (7 t + 3 j) mod 256 (w1).
+__global__ void stack_values(uint32_t* nib, uint32_t* byte) {
+  const uint32_t t = threadIdx.x;
+  uint32_t w0 = 0, w1 = 0, b0 = 0, b1 = 0;
+  for (int j = 0; j < 8; ++j) {
+    w0 |= ((t + j) % 16) << (4 * j);
+    w1 |= ((t / 16 + 3 * j) % 16) << (4 * j);
+  }
+  for (int j = 0; j < 4; ++j) {
+    b0 |= ((t + j) % 256) << (8 * j);
+    b1 |= ((7 * t + 3 * j) % 256) << (8 * j);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t lo, hi;
+    sg_nibble_pairs(w0, w1, j, lo, hi);
+    nib[(t * 4 + j) * 2] = lo;
+    nib[(t * 4 + j) * 2 + 1] = hi;
+    byte[t * 4 + j] = sg_byte_pair(b0, b1, j);
+  }
 }
 
 }  // namespace
+
+// The conversions' results for the card tests: nib (256, 4, 2) and byte
+// (256, 4) uint32 bf16 pairs, thread t's words as stack_values says: nib[t, j]
+// holds slabs 2 j and 2 j + 1 (the pair w0's, w1's nibble), byte[t, j] byte
+// lane j. Returns a cudaError_t.
+extern "C" int mv_decode_stack_values(void* nib, void* byte, void* stream) {
+  stack_values<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<uint32_t*>(nib),
+                                                                  static_cast<uint32_t*>(byte));
+  return (int)cudaGetLastError();
+}
 
 // One int4 decode step of every layer (K3). Shapes (all contiguous on the device):
 //   x_in, x_out (B, D) bf16; norm1, norm2 (L, D) bf16;
@@ -280,10 +354,16 @@ int run_step_rows(const StepArgs& a, cudaStream_t s) {
 //   pos: one int32; starts: NULL or (B,) int32;
 //   ln_f (D,) bf16, head_pw (D/8, Vp), head_sc (2*gp, Vp), logits (B, Vp) f32,
 //   or all four NULL for no head;
-// scratch: xn (B, D) bf16, qkv (B, D + 2*H_kv*128) f32, ya (B, D) bf16, h (B, Ip) bf16,
-//   part f32 holding the largest GEMV's 2 * K/8/32 * B * N partials,
-//   part_ml (B*H*n_splits*2) and part_acc (B*H*n_splits*128) f32.
-// n_splits * split_len must cover S. Returns a cudaError_t.
+// scratch: qkv (B, D + 2*H_kv*128) f32, ya (B, D) bf16, h (B, Ip) bf16, part f32
+//   of part_elems, at least every product's mats * splits * B * (N + 1), ssq
+//   (B, D / 32) f32,
+//   part_ml (B*H*n_splits*2) and part_acc (B*H*n_splits*128) f32, tickets
+//   n_tickets int32 all 0 (left 0), at least the widest product's N / 32;
+// plans: host int32 [5][3], {split_steps, n_splits, warps} of the qkv, o-proj,
+//   w1/w3, w2 and head products (ops/decode_stack.stack_gemv_plan; the head's
+//   unread without a head).
+// n_splits * split_len must cover S. Returns a cudaError_t (cudaErrorInvalidValue
+// for arguments or a plan the kernels cannot run).
 extern "C" int mv_decode_stack_int4(
     const void* x_in, void* x_out, const void* norm1, const void* norm2, const void* wqkv_pw,
     const void* wqkv_sc, const void* wo_pw, const void* wo_sc, const void* w1_pw,
@@ -291,40 +371,43 @@ extern "C" int mv_decode_stack_int4(
     const void* w2_sc, void* k_cache, void* v_cache, const void* pos, const void* starts,
     const void* ln_f, const void* head_pw, const void* head_sc, void* logits, int n_layer,
     int batch, int dim, int n_head, int n_kv_head, int head_dim, int seq_len, int ip, int vp,
-    int gp, int gp2, float eps, int n_splits, int split_len, void* xn, void* qkv, void* ya,
-    void* h, void* part, void* part_ml, void* part_acc, void* stream) {
+    int gp, int gp2, float eps, int n_splits, int split_len, void* qkv, void* ya, void* h,
+    void* part, long long part_elems, void* ssq, void* part_ml, void* part_acc, void* tickets,
+    int n_tickets, const void* plans, void* stream) {
   const void* const mats[10] = {wqkv_pw, wqkv_sc, wo_pw, wo_sc, w1_pw,
                                 w1_sc,   w3_pw,   w3_sc, w2_pw, w2_sc};
-  void* const scratch[7] = {xn, qkv, ya, h, part, part_ml, part_acc};
+  void* const scratch[7] = {qkv, ya, h, part, ssq, part_ml, part_acc};
   StepArgs a;
   if (!make_args(a, 8, x_in, x_out, norm1, norm2, mats, k_cache, v_cache, pos, starts, ln_f,
                  head_pw, head_sc, logits, n_layer, batch, dim, n_head, n_kv_head, head_dim,
-                 seq_len, ip, vp, gp, gp2, eps, n_splits, split_len, scratch))
+                 seq_len, ip, vp, gp, gp2, eps, n_splits, split_len, scratch, part_elems, tickets,
+                 n_tickets, static_cast<const int*>(plans)))
     return (int)cudaErrorInvalidValue;
-  return run_step_rows<8>(a, static_cast<cudaStream_t>(stream));
+  return (int)run_step<8>(a, static_cast<cudaStream_t>(stream));
 }
 
 // One int8 decode step of every layer (K7), no head. Shapes as for
 // mv_decode_stack_int4, with the int8 words: wqkv_p8 (L, D/4, D + 2*H_kv*128)
 // i32, wo (L, D/4, D), w1, w3 (L, D/4, Ip), w2_p8 (L, Ip/4, D); every sc8
-// (L, 2*gp, N) bf16 with s at row 0 and c at row gp (gp2 for w2); part f32
-// holding the largest GEMV's 2 * K/4/32 * B * N partials. Returns a
-// cudaError_t.
+// (L, 2*gp, N) bf16 with s at row 0 and c at row gp (gp2 for w2); plans as
+// there, the head's unread. Returns a cudaError_t.
 extern "C" int mv_decode_stack_int8(
     const void* x_in, void* x_out, const void* norm1, const void* norm2, const void* wqkv_p8,
     const void* wqkv_sc8, const void* wo_p8, const void* wo_sc8, const void* w1_p8,
     const void* w1_sc8, const void* w3_p8, const void* w3_sc8, const void* w2_p8,
     const void* w2_sc8, void* k_cache, void* v_cache, const void* pos, const void* starts,
     int n_layer, int batch, int dim, int n_head, int n_kv_head, int head_dim, int seq_len, int ip,
-    int gp, int gp2, float eps, int n_splits, int split_len, void* xn, void* qkv, void* ya,
-    void* h, void* part, void* part_ml, void* part_acc, void* stream) {
+    int gp, int gp2, float eps, int n_splits, int split_len, void* qkv, void* ya, void* h,
+    void* part, long long part_elems, void* ssq, void* part_ml, void* part_acc, void* tickets,
+    int n_tickets, const void* plans, void* stream) {
   const void* const mats[10] = {wqkv_p8, wqkv_sc8, wo_p8, wo_sc8, w1_p8,
                                 w1_sc8,  w3_p8,    w3_sc8, w2_p8, w2_sc8};
-  void* const scratch[7] = {xn, qkv, ya, h, part, part_ml, part_acc};
+  void* const scratch[7] = {qkv, ya, h, part, ssq, part_ml, part_acc};
   StepArgs a;
   if (!make_args(a, 4, x_in, x_out, norm1, norm2, mats, k_cache, v_cache, pos, starts, nullptr,
                  nullptr, nullptr, nullptr, n_layer, batch, dim, n_head, n_kv_head, head_dim,
-                 seq_len, ip, 0, gp, gp2, eps, n_splits, split_len, scratch))
+                 seq_len, ip, 0, gp, gp2, eps, n_splits, split_len, scratch, part_elems, tickets,
+                 n_tickets, static_cast<const int*>(plans)))
     return (int)cudaErrorInvalidValue;
-  return run_step_rows<4>(a, static_cast<cudaStream_t>(stream));
+  return (int)run_step<4>(a, static_cast<cudaStream_t>(stream));
 }

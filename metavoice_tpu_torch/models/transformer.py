@@ -28,7 +28,10 @@ all layers in one decode-stack kernel (ops/decode_stack.py), with the final
 norm and the int4 tied head fused in when asked. The port follows that
 kernel's semantics on every device, the CPU included (its plain version);
 the JAX package's CPU route instead runs per-layer reference matmuls and
-the bf16 head.
+the bf16 head. A step that neither the decode-stack kernel nor the
+per-layer kernels take (``int4_decode_route`` -> ``"unfused"``: a width off
+the 1024 grid, more than 8 rows) runs that per-layer route: ``_linear``
+(K2 on the card) and the decode attention, then the bf16 tied head.
 
 int8 serving (``ops/quantized.quantize_params_int8_i32``): ``{"p8", "sc8"}``
 leaves run through the int8 matmul kernel in ``_linear``. A T=1 step whose
@@ -60,7 +63,7 @@ attention.
 A quantized KV cache: prefill, and any cached forward of T <= 16, quantize
 the window's rows (``quantize_kv_rows``) and attend over the dequantized
 layer, as the JAX package's XLA path does. A T=1 step with int4 weights runs
-per layer (``int4_decode_route``): the attention-block kernel
+per layer (``int4_decode_route``, where the kernels take its shape): the attention-block kernel
 (ops/attention.py:decode_attention_block_int4, which quantizes and writes the
 new row and attends over the int8 window) and the FFN kernel
 (ops/quantized.py:decode_ffn_int4), then the bf16 tied head; with bf16 or
@@ -499,50 +502,37 @@ _STACK_KEYS = ("wqkv", "wo", "w1", "w3", "w2")
 
 
 def int4_decode_route(params: Params, cfg: TransformerConfig, batch: int, cache_dtype=torch.bfloat16) -> str:
-    """How a T=1 step of int4 layer weights runs, by the JAX package's
-    conditions: ``"stack"`` (all layers in the decode-stack kernel, K3) or
-    ``"layers"`` (per layer, the attention-block kernel K5 and the FFN kernel
-    K6). ``cache_dtype``: the cache's ``k.dtype`` (int8 or int32 for the int8
-    formats) or a ``KVCache.create`` format string. Raises
-    NotImplementedError, naming what fails, when neither route takes it.
+    """How a T=1 step of int4 layer weights runs: ``"stack"`` (all layers in
+    the decode-stack kernel, K3), ``"layers"`` (per layer, the
+    attention-block kernel K5 and the FFN kernel K6) or ``"unfused"`` (the
+    ordinary per-layer loop: each projection through ``_linear``, K2 on the
+    card, and the decode attention, K1 or K4 on a bf16 cache and the plain
+    path on a quantized one), the JAX package's route when neither fused
+    kernel takes the step. ``cache_dtype``: the cache's ``k.dtype`` (int8 or
+    int32 for the int8 formats) or a ``KVCache.create`` format string.
 
     K3 needs five int4 matrices, SwiGLU, RMSNorm without biases, dim and the
-    packed FFN width multiples of 1024, and a bf16 cache. K5/K6 need SwiGLU,
-    no qkv bias, the same widths, head_dim 128 and at most 8 rows, and take
-    a bf16 or a quantized cache (the norms run outside them)."""
+    packed FFN width multiples of 1024, head_dim 128, at most 8 rows and a
+    bf16 cache. K5/K6 need SwiGLU, no qkv bias, the same widths, head_dim
+    128 and at most 8 rows, and take a bf16 or a quantized cache (the norms
+    run outside them)."""
     layers = params["layers"]
-    common = [f"{k} is not int4" for k in _STACK_KEYS if not is_int4(layers.get(k))]
-    if cfg.nonlinearity_type != "swiglu":
-        common.append(f"nonlinearity {cfg.nonlinearity_type!r} is not swiglu")
-    if "wqkv_b" in layers:
-        common.append("the model has wqkv_b")
-    if cfg.dim % 1024:
-        common.append(f"dim {cfg.dim} is not a multiple of 1024")
-    if is_int4(layers.get("w1")) and layers["w1"]["pw"].shape[-1] % 1024:
-        common.append(f"the FFN width {layers['w1']['pw'].shape[-1]} is not a multiple of 1024")
-    quantized = cache_dtype in (torch.int8, torch.int32, "int8", "int8_packed")
-    stack = list(common)
-    if cfg.norm_type != "rmsnorm":
-        stack.append(f"norm {cfg.norm_type!r} is not rmsnorm")
-    if "attn_norm_b" in layers:
-        stack.append("the model has attn_norm_b")
-    if cache_dtype != torch.bfloat16:
-        stack.append(f"the KV cache is {cache_dtype}, not bf16")
-    if not stack:
-        return "stack"
-    per_layer = list(common)
-    if cfg.head_dim != HEAD_DIM:
-        per_layer.append(f"head_dim {cfg.head_dim} is not {HEAD_DIM}")
-    if batch > MAX_BATCH:
-        per_layer.append(f"{batch} rows are more than {MAX_BATCH}")
-    if not quantized and cache_dtype != torch.bfloat16:
-        per_layer.append(f"the KV cache is {cache_dtype}, neither bf16 nor int8")
-    if not per_layer:
-        return "layers"
-    raise NotImplementedError(
-        "int4 decode runs through the decode-stack kernel (K3) or the per-layer kernels (K5/K6), "
-        f"and the conditions of both fail: K3: {'; '.join(stack)}; K5/K6: {'; '.join(per_layer)}"
+    fused = (
+        all(is_int4(layers.get(k)) for k in _STACK_KEYS)
+        and cfg.nonlinearity_type == "swiglu"
+        and "wqkv_b" not in layers
+        and cfg.dim % 1024 == 0
+        and layers["w1"]["pw"].shape[-1] % 1024 == 0
+        and cfg.head_dim == HEAD_DIM
+        and batch <= MAX_BATCH
     )
+    if not fused:
+        return "unfused"
+    if cfg.norm_type == "rmsnorm" and "attn_norm_b" not in layers and cache_dtype == torch.bfloat16:
+        return "stack"
+    if cache_dtype in (torch.bfloat16, torch.int8, torch.int32, "int8", "int8_packed"):
+        return "layers"
+    return "unfused"
 
 
 def int8_stack_ok(params: Params, cfg: TransformerConfig, batch: int, cache_dtype) -> bool:
@@ -755,10 +745,10 @@ def apply_blocks(
       ``int8_block_ok`` holds (plain int8), each layer's attention block is
       one ``decode_attention_block_int8`` call instead. With int4 layer
       weights the step runs as ``int4_decode_route`` says: all layers in
-      the decode-stack kernel, or per layer through the attention-block and
-      FFN kernels (raises NotImplementedError when neither takes it); with
-      int8 ones through the decode-stack kernel too, where ``int8_stack_ok``
-      holds.
+      the decode-stack kernel, per layer through the attention-block and
+      FFN kernels, or, when neither takes it, through the loop below (each
+      int4 projection in ``_linear``); with int8 ones through the
+      decode-stack kernel too, where ``int8_stack_ok`` holds.
 
     A quantized cache (``KVCache.quantized``) takes the plain path at
     prefill, at every cached forward of T <= 16 and at T = 1 with bf16 or
@@ -776,8 +766,10 @@ def apply_blocks(
     """
     t = x.shape[1]
     if kv_cache is not None and t == 1:
+        route = None
         if any(is_int4(w) for w in params["layers"].values()):
             route = int4_decode_route(params, cfg, x.shape[0], kv_cache.k.dtype)
+        if route in ("stack", "layers"):
             decode = _decode_stack if route == "stack" else _decode_layers_int4
             return decode(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head)
         if int8_stack_ok(params, cfg, x.shape[0], kv_cache.k.dtype):

@@ -5,9 +5,17 @@ CUDA kernels' wrapper and its plain PyTorch version. int4 words
 Replaces ``metavoice_tpu/ops/decode_stack.py:decode_stack_int4`` (the Pallas
 TPU kernel ``_decode_stack_kernel``, both word formats). The kernels are
 ``metavoice_tpu_torch/csrc/decode_stack_int4.cu``: one C entry per format
-and step launches every layer's work on the current stream; its header says
-what bounds it on the card (the packed weight bytes) and how its design
-follows that bound.
+and step launches six chained kernels a layer (and the head's) on the
+current stream, the products on the tensor cores
+(``csrc/decode_stack_gemv.cuh``); its header says what bounds it on the card
+(the packed weight bytes) and how its design follows that bound. The
+wrapper owns the cut of each product's K (:func:`stack_gemv_plan`), the
+step's scratch and the device's merge counters, which the first eager call
+makes (``ops/quantized.merge_tickets``: a CUDA-graph capture that would make
+them raises, so warm the wrapper eagerly before capturing a step). The
+counters are per device and the scratch per shape, so two steps of one
+device must not run at once (on two streams, or two replays of graphs of
+one shape): they would race on the counters and give wrong output.
 
 Semantics, per layer, for x (B, D) bf16: RMSNorm (f32, rounded to bf16, then
 times the bf16 weight); the qkv projection in f32 (the arithmetic of
@@ -30,6 +38,7 @@ read, so garbage (even NaN) beyond ``pos`` never reaches the result.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -37,20 +46,85 @@ import torch.nn.functional as F
 
 from metavoice_tpu_torch.ops import _build
 from metavoice_tpu_torch.ops.quantized import (
+    CARD_SMS,
     DECODE_MAX_ROWS,
     I32_GROUPSIZE,
     matmul_int4_i32_reference,
     matmul_int8_i32_reference,
+    merge_tickets,
 )
 
 SPLIT_POSITIONS = 64  # cache slots per block of the attention's sequence split
 MAX_SPLITS = 32
 HEAD_DIM = 128  # the kernel's head width
 MAX_BATCH = DECODE_MAX_ROWS
-GEMV_CHUNK_ROWS = 32  # packed word rows per GEMV block: K/VPW/32 partial sums per output
 VALUES_PER_WORD = {"i4": 8, "i8": 4}
+# The products' tensor-core GEMV (csrc/decode_stack_gemv.cuh) and its plan:
+STACK_STEP_ROWS = 16  # word rows a k-step (the mma's depth)
+STACK_TILE_N = 32  # output columns a block (the kernel's kSgCols)
+STACK_CLUSTER = 2  # column tiles a thread-block cluster, which share the x slice's loads (kSgCluster)
+STACK_WARPS = 4  # warps a block (the kernel's kSgWarps)
+# k-steps a warp takes, the fewer first: int4 in one batch (2 were 4% slower on the H100), int8 in one or
+# two rounds of its ring
+STACK_WARP_STEPS = {8: (4,), 4: (4, 8)}
+STACK_RESIDENT_BLOCKS = CARD_SMS * 3  # blocks of the product the card holds at once (the kernel's kSgMinBlocks)
+STACK_X_BYTES = 36 * 1024  # a block's x slice and norm weights' slice in shared memory, at most (kSgXBytes)
+STACK_I4_GROUP_STEPS = 8  # int4: k-steps a 128-row group; a split holds whole groups
+STACK_I4_MAX_SPLIT_STEPS = 32  # int4: at most 4 groups a split (the kernel's kSgMaxCGroups)
+STACK_TICKETS = 1024  # merge counters a device: the widest product's N / 32 at most
+_stack_tickets: dict = {}  # device index -> (STACK_TICKETS,) int32, all 0 between steps
 
-_scratch: dict[tuple, dict[str, torch.Tensor]] = {}
+_scratch: dict[tuple, dict] = {}
+
+
+def stack_x_bytes(vpw: int, b: int, split_steps: int) -> int:
+    """Shared-memory bytes of a block's x slice and norm weights' slice (the
+    kernel's sg_x_bytes): vpw slabs x (b + 1) rows, each padded to a
+    multiple of 64 bf16 plus 16 so that the B-fragment reads fall in
+    distinct banks."""
+    return vpw * (b + 1) * (-(-split_steps * STACK_STEP_ROWS // 64) * 64 + 16) * 2
+
+
+def stack_gemv_plan(k: int, n: int, vpw: int, b: int, n_mats: int = 1) -> tuple[int, int, int]:
+    """The cut of one decode-stack product, (b, k) @ (k, n) words of ``vpw``
+    values (``n_mats`` matrices side by side: w1 and w3), into splits of K's
+    ``k / vpw / STACK_STEP_ROWS`` k-steps -> (split_steps, n_splits, warps).
+    Split i holds steps ``[i * split_steps, (i + 1) * split_steps)``, the
+    last ends at or past the last step and none lies wholly past it; a block
+    of ``warps`` (``STACK_WARPS``) warps takes one split of a
+    ``STACK_TILE_N``-column tile, each warp ``ceil(split_steps / warps)``
+    steps of it in a row.
+
+    A warp takes the fewest steps of ``STACK_WARP_STEPS[vpw]`` whose grid
+    the card holds at once (``STACK_RESIDENT_BLOCKS``), else the most: every
+    word of the product is then requested at once, much of it before the
+    kernel before has finished (the first batch goes out before the
+    programmatic wait), and more, shorter warps spread the stream over more
+    SMs (an SM pulls only so many bytes at a time), at the price of a merge
+    when K takes more than one split. int4 K is cut at whole 128-row groups
+    (8 k-steps), so that a block sums its groups' x for the c terms from
+    its own slice, at most four groups a split; a split shrinks where a
+    block's slices would not fit ``STACK_X_BYTES``."""
+    steps = k // vpw // STACK_STEP_ROWS
+    warps = STACK_WARPS
+    unit = STACK_I4_GROUP_STEPS if vpw == 8 else warps
+    for warp_steps in STACK_WARP_STEPS[vpw]:
+        split_steps = min(-(-steps // unit) * unit, warps * warp_steps)
+        while split_steps > unit and (stack_x_bytes(vpw, b, split_steps) > STACK_X_BYTES
+                                      or vpw == 8 and split_steps > STACK_I4_MAX_SPLIT_STEPS):
+            split_steps -= unit
+        n_splits = -(-steps // split_steps)
+        if n // STACK_TILE_N * n_mats * n_splits <= STACK_RESIDENT_BLOCKS:
+            break
+    return split_steps, n_splits, warps
+
+
+def stack_plans(b: int, d: int, qout: int, ip: int, vp: int, vpw: int) -> list[tuple[int, int, int]]:
+    """The plans of a step's five products: qkv, o-proj, w1/w3, w2 and the
+    head (vp 0: no head, its plan unused)."""
+    head = stack_gemv_plan(d, vp, vpw, b) if vp else (1, 1, 1)
+    return [stack_gemv_plan(d, qout, vpw, b), stack_gemv_plan(d, d, vpw, b),
+            stack_gemv_plan(d, ip, vpw, b, n_mats=2), stack_gemv_plan(ip, d, vpw, b), head]
 
 
 def _rmsnorm(x, w, eps: float):
@@ -155,19 +229,27 @@ def _check(x, norm1_w, norm2_w, mats, k_cache, v_cache, n_head, n_kv_head, start
 
 
 def _scratch_for(dev, b, d, qout, ip, vp, n_rows, n_splits, vpw):
+    """The step's scratch and plans, made once for a shape and device: f32
+    qkv, bf16 attention output and SwiGLU hidden, the products' split
+    partials (as many as the largest plan needs, and beside them int8's
+    per-split sums of x), the residual's sums of squares by 32-column tile,
+    the attention's partials, and the plans as the C entry reads them."""
     key = (dev, b, d, qout, ip, vp, n_rows, n_splits, vpw)
     if key not in _scratch:
-        chunks_d = d // vpw // GEMV_CHUNK_ROWS
-        part = b * max(chunks_d * qout, 2 * chunks_d * ip, ip // vpw // GEMV_CHUNK_ROWS * d, chunks_d * vp)
+        plans = stack_plans(b, d, qout, ip, vp, vpw)
+        widths = (qout, d, ip, d, vp)
+        mats = (1, 1, 2, 1, 1)
+        part = max(m * p[1] * b * (n + 1) for m, p, n in zip(mats, plans, widths))  # + int8's sums of x
         f32, bf16 = torch.float32, torch.bfloat16
         _scratch[key] = {
-            "xn": torch.empty((b, d), dtype=bf16, device=dev),
             "qkv": torch.empty((b, qout), dtype=f32, device=dev),
             "ya": torch.empty((b, d), dtype=bf16, device=dev),
             "h": torch.empty((b, ip), dtype=bf16, device=dev),
             "part": torch.empty((part,), dtype=f32, device=dev),
+            "ssq": torch.empty((d // STACK_TILE_N * b,), dtype=f32, device=dev),
             "part_ml": torch.empty((n_rows * n_splits * 2,), dtype=f32, device=dev),
             "part_acc": torch.empty((n_rows * n_splits * HEAD_DIM,), dtype=f32, device=dev),
+            "plans": (ctypes.c_int * 15)(*[v for p in plans for v in p]),
         }
     return _scratch[key]
 
@@ -256,13 +338,19 @@ def decode_stack_int4(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    if max(qout, ip, d, vp) // STACK_TILE_N > STACK_TICKETS:
+        raise ValueError(f"{max(qout, ip, d, vp) // STACK_TILE_N} column tiles exceed the {STACK_TICKETS} "
+                         "merge counters")
+    tickets = merge_tickets(_stack_tickets, STACK_TICKETS, dev, "decode_stack_int4")
     lead = (x_in.data_ptr(), x_out.data_ptr(), n1.data_ptr(), n2.data_ptr(),
             *[t.data_ptr() for m in mats for t in m],
             k_cache.data_ptr(), v_cache.data_ptr(), pos_t.data_ptr(), ptr(starts))
     dims = (n_layer, b, d, n_head, n_kv_head, dh, seq_len, ip)
     tail = (float(norm_eps), n_splits, split_len,
-            s["xn"].data_ptr(), s["qkv"].data_ptr(), s["ya"].data_ptr(), s["h"].data_ptr(),
-            s["part"].data_ptr(), s["part_ml"].data_ptr(), s["part_acc"].data_ptr(),
+            s["qkv"].data_ptr(), s["ya"].data_ptr(), s["h"].data_ptr(),
+            s["part"].data_ptr(), s["part"].numel(), s["ssq"].data_ptr(), s["part_ml"].data_ptr(),
+            s["part_acc"].data_ptr(),
+            tickets.data_ptr(), STACK_TICKETS, ctypes.addressof(s["plans"]),
             torch.cuda.current_stream(dev).cuda_stream)
     lib = _build.kernels().lib
     if wfmt == "i8":

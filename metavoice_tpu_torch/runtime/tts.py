@@ -208,9 +208,9 @@ class TTS:
         # a tree the JAX package quantized). The JAX package's groupwise int4
         # leaves, {"q" | "p", "scales", "zeros"}, run as they are with the
         # mode left None, as in JAX; a tree that mixes kinds is refused.
-        # Quantizing runs on the params' device; the int4 decode routes'
-        # conditions are checked before any synthesis (int8 layers that miss
-        # the int8 stack's run per layer).
+        # Quantizing runs on the params' device; an int4 first stage's T=1
+        # route is named in decode_route (int8 layers that miss the int8
+        # stack's conditions run per layer).
         params1 = components.first_stage_params
         found = set()
         for w in params1["layers"].values():
@@ -222,12 +222,13 @@ class TTS:
         if len(found) > 1 or (found and wanted and found != {wanted}):
             raise ValueError(f"quantisation_mode={mode!r}, but the first stage holds {sorted(found)} leaves")
         self.quantisation_mode = wanted or next(iter(found - {"groupwise int4"}), None)
+        self.decode_route = None
         if self.quantisation_mode is not None:
             if not found:
                 params1 = _QUANTIZERS[wanted](params1)
             if self.quantisation_mode == "int4":
-                tfm.int4_decode_route(params1, components.first_stage_cfg, 3,
-                                      self._cache_format(draft_params is not None))
+                self.decode_route = tfm.int4_decode_route(params1, components.first_stage_cfg, 3,
+                                                          self._cache_format(draft_params is not None))
             components = dataclasses.replace(components, first_stage_params=params1)
         if kv_cache_dtype and self.quantisation_mode != "int4" and self.device.type == "cuda":
             warnings.warn(
@@ -239,9 +240,10 @@ class TTS:
         # speculative decoding (models/spec_decode.py): the draft proposes
         # `speculative_gamma` tokens a round and the first stage verifies
         # them in one T=gamma forward; B=1, bf16 caches. An int4 draft
-        # decodes through an int4 route, whose conditions are checked here.
+        # decodes through an int4 route (named in draft_route).
+        self.draft_route = None
         if draft_params is not None and any(is_int4(w) for w in draft_params["layers"].values()):
-            tfm.int4_decode_route(draft_params, draft_cfg, 3, self._compute_dtype)
+            self.draft_route = tfm.int4_decode_route(draft_params, draft_cfg, 3, self._compute_dtype)
         self._draft_params = draft_params
         self._draft_cfg = draft_cfg
         self._spec_gamma = int(speculative_gamma)

@@ -17,12 +17,16 @@ within one bf16 ulp of the plain version's plus 1e-4 of the row's largest
 value (the bf16 rounding of an f32 sum taken in another order can land one
 ulp apart, and entries near 0 come from cancelling sums whose f32 error
 scales with the terms, not the result), every other cache slot
-bit-identical.
+bit-identical. The redesigned step (csrc/decode_stack_gemv.cuh) is also
+held to: every nibble converted exactly, 1..8 rows at those tolerances, the
+same bits twice, and a captured step replayed 3 times giving the eager bits
+with the merge tickets back at 0.
 """
 
 import pytest
 import torch
 
+from chip_smoke import STACK_KERNELS_A_LAYER, stack_graph_check, stack_worst_layer
 from metavoice_tpu_torch.core.config import first_stage_config
 from metavoice_tpu_torch.models import transformer as tfm
 from metavoice_tpu_torch.ops import decode_stack as DS
@@ -153,3 +157,71 @@ def test_k3_takes_pos_on_the_device(dev, stacks):
     b = DS.decode_stack_int4(x, *_k3_args(cfg, qp), k2, v2, pos, cfg.n_head)[0]
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
     assert torch.equal(kc.view(torch.int16), k2.view(torch.int16))
+
+
+def _stack_values(dev):
+    """The products' conversions of every nibble and byte (mv_decode_stack_values):
+    (nib (256, 4, 2, 2), byte (256, 4, 2)) as floats, the last axis (w0's, w1's)."""
+    from metavoice_tpu_torch.ops import _build
+
+    nib = torch.zeros((256, 4, 2), dtype=torch.int32, device=dev)
+    byte = torch.zeros((256, 4), dtype=torch.int32, device=dev)
+    err = _build.kernels().lib.mv_decode_stack_values(nib.data_ptr(), byte.data_ptr(),
+                                                      torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    as_bf16 = lambda t: t.cpu().view(torch.int16).view(torch.bfloat16).float()  # noqa: E731
+    return as_bf16(nib).reshape(256, 4, 2, 2), as_bf16(byte).reshape(256, 4, 2)
+
+
+def test_k3_converts_every_nibble_exactly(dev):
+    """Nibble j of w0 is (t + j) mod 16 and of w1 (t / 16 + 3 j) mod 16 in
+    thread t: byte lane j's pairs give slabs 2 j and 2 j + 1, each value exact."""
+    nib, _ = _stack_values(dev)
+    t = torch.arange(256)[:, None]
+    for h in range(2):
+        slab = 2 * torch.arange(4)[None, :] + h
+        assert torch.equal(nib[:, :, h, 0], ((t + slab) % 16).float())
+        assert torch.equal(nib[:, :, h, 1], ((t // 16 + 3 * slab) % 16).float())
+    assert set(nib.flatten().tolist()) == set(range(16))
+
+
+@pytest.mark.parametrize("b", range(1, DS.MAX_BATCH + 1))
+def test_k3_rows_match_plain(dev, stacks, b):
+    """1..8 rows: each layer alone within K3_LAYER_TOL, all 24 layers and the
+    logits within K3_TOL, and the same bits twice."""
+    cfg, qp = stacks[16]
+    gen = torch.Generator(device=dev).manual_seed(100 + b)
+    shape = (cfg.n_layer, cfg.block_size, b, 16, cfg.head_dim)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    args = _k3_args(cfg, qp)
+    kw = dict(ln_f_w=qp["ln_f_w"], head_pw=qp["lm_head_q"]["pw"], head_sc=qp["lm_head_q"]["sc"])
+    assert stack_worst_layer(torch, x, args, kc, vc, 300, cfg.n_head) <= K3_LAYER_TOL
+    kr, vr = kc.clone(), vc.clone()
+    xo, _, _, lg = DS.decode_stack_int4(x, *args, kc.clone(), vc.clone(), 300, cfg.n_head, **kw)
+    xo2, _, _, lg2 = DS.decode_stack_int4(x, *args, kc, vc, 300, cfg.n_head, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(xo, xo2) and torch.equal(lg, lg2)
+    xr, _, _, lr = DS.decode_stack_int4_reference(x, *args, kr, vr, 300, cfg.n_head, **kw)
+    for got, ref in ((xo.float(), xr.float()), (lg[:, : cfg.vocab_size], lr[:, : cfg.vocab_size])):
+        assert (got - ref).abs().max().item() <= K3_TOL * ref.abs().max().item()
+
+
+def test_k3_graph_replays_give_the_eager_bits(dev, stacks):
+    """One whole step captured in a CUDA graph: 6 kernels a layer and the
+    head's (the launches chained by programmatic dependent launch), 3
+    replays the eager step's bits, the merge tickets back at 0."""
+    cfg, qp = stacks[16]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shape = (cfg.n_layer, cfg.block_size, 2, 16, cfg.head_dim)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((2, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor(700, dtype=torch.int32, device=dev)
+    kw = dict(ln_f_w=qp["ln_f_w"], head_pw=qp["lm_head_q"]["pw"], head_sc=qp["lm_head_q"]["sc"])
+    names = stack_graph_check(torch, lambda: DS.decode_stack_int4(x, *_k3_args(cfg, qp), kc, vc, pos,
+                                                                  cfg.n_head, **kw), "K3")
+    assert len(names) == STACK_KERNELS_A_LAYER * cfg.n_layer + 1
+    assert sum("stack_gemv" in n for n in names) == 4 * cfg.n_layer + 1

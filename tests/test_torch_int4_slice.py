@@ -160,18 +160,31 @@ def test_int4_mode_quantizes_a_dense_first_stage(tmp_path):
 
 
 def test_int4_decode_at_dim_128_raises():
-    cfg = first_stage_config(n_layer=2, n_head=4, dim=128, block_size=256)
-    gen = torch.Generator().manual_seed(0)
-    params = Q.quantize_params_int4_i32(tfm.init_params(cfg, device="cpu", generator=gen))
+    """A 128-wide int4 first stage, off the fused kernels' 1024 grid, decodes
+    through the unfused route (``_linear`` per projection, activations
+    padded to the packed K, and the decode attention) and raises nothing: a
+    prefill and one T=1 step against JAX's ``apply_blocks`` (its CPU route)
+    from the same cache, within TOL (its reason as at prefill above)."""
+    jcfg = j_first_stage_config(n_layer=2, n_head=4, dim=128, block_size=256)
+    jq = jqz.quantize_params_int4_i32(jtfm.init_params(jax.random.PRNGKey(1), jcfg, dtype=jnp.bfloat16))
+    cfg = TransformerConfig(**dataclasses.asdict(jcfg))
+    params = params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu")
+    assert tfm.int4_decode_route(params, cfg, 2) == "unfused"
     kv = tfm.KVCache.create(cfg, 2, cfg.block_size, device="cpu")
-    x = tfm.embed_inputs(params, cfg, torch.zeros((2, 1), dtype=torch.long), torch.tensor([3]), None)
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        tfm.apply_blocks(params, cfg, x, None, kv, 3, fused_head=True)
-    # prefill still runs through the int4 matmul (activations padded to K 1024)
+    # prefill runs through the int4 matmul (activations padded to K 1024)
     xp = tfm.embed_inputs(params, cfg, torch.zeros((2, 8), dtype=torch.long), torch.arange(8), None)
     mask = tfm.causal_mask_for(torch.arange(8), cfg.block_size)[None, None]
     out, _ = tfm.apply_blocks(params, cfg, xp, mask, kv, 0)
     assert out.shape == (2, 8, 128) and torch.isfinite(out.float()).all()
+    jkv = jtfm.KVCache(*[jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (kv.k, kv.v)], None, None)
+    idx = np.array([[5], [9]])
+    jx = jtfm.embed_inputs(jq, jcfg, jnp.asarray(idx), jnp.asarray([8]), None, None, jnp.bfloat16)
+    jmask = jtfm.causal_mask_for(jnp.asarray([8]), jcfg.block_size)[None, None]
+    jout, _ = jtfm.apply_blocks(jq, jcfg, jx, jmask, jkv, jnp.asarray(8, jnp.int32))
+    x = tfm.embed_inputs(params, cfg, torch.from_numpy(idx), torch.tensor([8]), None)
+    out, kv, head_done = tfm.apply_blocks(params, cfg, x, None, kv, 8, fused_head=True)
+    assert not head_done and out.shape == (2, 1, 128)
+    _max_close(out.float().numpy(), jout)
 
 
 @pytest.mark.parametrize("mode", ["int8", "int8_packed", "int8_plain"])

@@ -15,13 +15,17 @@ layers' x_out within 5e-2 * max |ref|; layer 0's new cache row within one
 bf16 ulp plus 1e-4 of its largest value; every other cache slot
 bit-identical. The flip allowance, the one-layer-at-a-time check and the
 random full-width model are chip_smoke.py's own, so the two hold the
-kernels alike.
+kernels alike. The redesigned step (csrc/decode_stack_gemv.cuh) is also
+held to: every byte converted exactly, 1..8 rows at those tolerances, the
+same bits twice, and a captured step replayed 3 times giving the eager bits
+with the merge tickets back at 0.
 """
 
 import pytest
 import torch
 
-from chip_smoke import _k7_args, _random_int8_model, k8_row_gap, stack_worst_layer
+from chip_smoke import STACK_KERNELS_A_LAYER, _k7_args, _random_int8_model, k8_row_gap, stack_graph_check, \
+    stack_worst_layer
 from metavoice_tpu_torch.core.config import first_stage_config
 from metavoice_tpu_torch.ops import decode_stack as DS
 from metavoice_tpu_torch.ops import quantized as Q
@@ -125,3 +129,59 @@ def test_k7_takes_pos_on_the_device(dev, stacks):
     b = DS.decode_stack_int4(x, *_k7_args(qp), k2, v2, pos, cfg.n_head, wfmt="i8")[0]
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
     assert torch.equal(kc.view(torch.int16), k2.view(torch.int16))
+
+
+def test_k7_converts_every_byte_exactly(dev):
+    """Byte j of w0 is (t + j) mod 256 and of w1 (7 t + 3 j) mod 256 in thread
+    t: each byte lane's bf16 pair holds both values exactly."""
+    from test_torch_int4_cuda import _stack_values
+
+    _, byte = _stack_values(dev)
+    t = torch.arange(256)[:, None]
+    j = torch.arange(4)[None, :]
+    assert torch.equal(byte[:, :, 0], ((t + j) % 256).float())
+    assert torch.equal(byte[:, :, 1], ((7 * t + 3 * j) % 256).float())
+    assert set(byte.flatten().tolist()) == set(range(256))
+
+
+@pytest.fixture(scope="module")
+def stack8(dev):
+    cfg = first_stage_config()
+    return cfg, _random_int8_model(torch, cfg, 88, dev)
+
+
+@pytest.mark.parametrize("b", range(1, DS.MAX_BATCH + 1))
+def test_k7_rows_match_plain(dev, stack8, b):
+    """1..8 rows: each layer alone within K7_LAYER_TOL, all 24 layers within
+    K7_TOL, and the same bits twice."""
+    cfg, qp = stack8
+    gen = torch.Generator(device=dev).manual_seed(200 + b)
+    shape = (cfg.n_layer, cfg.block_size, b, 16, cfg.head_dim)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    args = _k7_args(qp)
+    assert stack_worst_layer(torch, x, args, kc, vc, 300, cfg.n_head, wfmt="i8") <= K7_LAYER_TOL
+    kr, vr = kc.clone(), vc.clone()
+    xo = DS.decode_stack_int4(x, *args, kc.clone(), vc.clone(), 300, cfg.n_head, wfmt="i8")[0]
+    xo2 = DS.decode_stack_int4(x, *args, kc, vc, 300, cfg.n_head, wfmt="i8")[0]
+    torch.cuda.synchronize()
+    assert torch.equal(xo, xo2)
+    xr = DS.decode_stack_int4_reference(x, *args, kr, vr, 300, cfg.n_head, wfmt="i8")[0]
+    assert (xo.float() - xr.float()).abs().max().item() <= K7_TOL * xr.float().abs().max().item()
+
+
+def test_k7_graph_replays_give_the_eager_bits(dev, stack8):
+    """One whole step captured in a CUDA graph: 6 kernels a layer, 3 replays
+    the eager step's bits, the merge tickets back at 0."""
+    cfg, qp = stack8
+    gen = torch.Generator(device=dev).manual_seed(19)
+    shape = (cfg.n_layer, cfg.block_size, 2, 16, cfg.head_dim)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((2, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor(700, dtype=torch.int32, device=dev)
+    names = stack_graph_check(torch, lambda: DS.decode_stack_int4(x, *_k7_args(qp), kc, vc, pos, cfg.n_head,
+                                                                  wfmt="i8"), "K7")
+    assert len(names) == STACK_KERNELS_A_LAYER * cfg.n_layer
+    assert sum("stack_gemv" in n for n in names) == 4 * cfg.n_layer

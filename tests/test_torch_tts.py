@@ -236,10 +236,12 @@ def test_port_synthesise_with_draft_and_prompt_guidance(pair, ref_wav, tmp_path)
 
 def test_unported_options_and_missing_card_raise(pair):
     _, tts = pair
-    for kw in ({"quantisation_mode": "int4"}, {"quantisation_mode": "int4", "kv_cache_dtype": "int8"},
-               {"tensor_parallel": 2}):
-        with pytest.raises(NotImplementedError):
-            TTS(tts.c, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        TTS(tts.c, device="cpu", tensor_parallel=2)
+    # int4 at the small model's width decodes through the unfused route, on a quantized cache too
+    # (tests/test_torch_int4_unfused.py)
+    for kw in ({"quantisation_mode": "int4"}, {"quantisation_mode": "int4", "kv_cache_dtype": "int8"}):
+        assert TTS(tts.c, device="cpu", **kw).decode_route == "unfused"
     # plain int8 is ported (tests/test_torch_int8_plain_slice.py), on a quantized cache too
     for kw in ({"quantisation_mode": "int8_plain"}, {"quantisation_mode": "int8_plain", "kv_cache_dtype": "int8"}):
         assert TTS(tts.c, device="cpu", **kw).quantisation_mode == "int8_plain"
