@@ -110,8 +110,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
                kv heads), at pos 0, 77, 255, 2047, plus starts and NaN past
                pos in the bf16 cache: y within 2e-2 of max |y|, every cache
                byte and scale but the new row's unchanged, the new row within
-               one int8 step (scales 1e-6 relative; bf16: one ulp); CUDA-event
-               times per layer beside the plain version and the bound;
+               one int8 step (scales 1e-6 relative; bf16: one ulp); in each
+               format at pos 1000 one call captured in a CUDA graph: 3
+               kernels (stack_gemv, attn_row_kernel, stack_gemv; none of the
+               split-K GEMV, split attention or row-write kernels), 3
+               replays the eager call's bits, the merge counters at 0 after
+               every call; per layer from a CUDA graph at pos 0, 255, 1000,
+               2047 beside the plain version and the bound;
  22. K6      - the int4 FFN kernel against its plain version at the main-path
                shape (FFN packed to 6144): within 1e-2 of max |y|; times;
  23. small-kv8 - a 2-layer 1024-wide int4 first stage on an int8 and a packed
@@ -135,8 +140,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
                16 heads, B 2, S 2048, bf16 cache) at pos 0, 77, 255, 2047,
                with one row's start past pos and with NaN past pos: y
                within 2e-2 of max |y|, the new row within one bf16 ulp,
-               every other slot unchanged; times per layer at pos 255 and
-               2047 beside the plain version and the bound;
+               every other slot unchanged; phase 21's graph check at pos
+               1000; per layer from a CUDA graph at pos 0, 255, 1000, 2047
+               beside the plain version and the bound;
  27. K10     - the plain-int8 FFN kernel against its plain version at D
                2048, I 5632, rows 1, 2, 3: within 1e-2 of max |y|; times;
  28. small-int8p - 2-layer 512-wide plain-int8 first stages, MHA (T = 1
@@ -236,7 +242,7 @@ K4_TIMED = ((4, 255), (8, 255), (4, 2032), (8, 2032))  # (T, pos); the JSON line
 # roundings of the value weights (int8 caches) and the f32 sums land apart
 K5_TOL = 2e-2
 K5_POS = (0, 77, 255, 2047)
-K5_TIMED = (255, 2047)  # the JSON line carries the int8 cache at pos 255
+K5_TIMED = (0, 255, 1000, 2047)  # the JSON line carries the int8 cache at pos 255
 K6_TOL = 1e-2
 # K11: the same bf16 products as its plain version summed in another order,
 # rounded to x's dtype, so a bf16 output may land one ulp apart
@@ -245,7 +251,10 @@ K11_TOL = 1e-3
 # per split and the f32 sums in other orders (as K5)
 K9_TOL = 2e-2
 K9_POS = (0, 77, 255, 2047)
-K9_TIMED = (255, 2047)  # the JSON line carries pos 255
+K9_TIMED = (0, 255, 1000, 2047)  # the JSON line carries pos 255
+BLOCK_KERNELS = ("stack_gemv", "attn_row_kernel", "stack_gemv")  # a K5 / K9 call, in order
+BLOCK_RETIRED = ("gemv_partial", "gemv8_partial", "gemv_reduce", "decode_attn_split", "decode_attn_combine",
+                 "kv_row_write")
 K10_TOL = 1e-2
 K10_CASES = ((1, 0), (2, 11), (3, 23))  # (rows, layer)
 # K12/K13: the same bf16 weights and products as their plain version, summed
@@ -1650,11 +1659,31 @@ def _new_slots(torch, kv, layer: int, pos: int, bkv: int):
     return masks
 
 
+def _scales_before(torch, kv, layer: int, starts, h_kv: int):
+    """Boolean masks of the k and v scale tables' entries at ``layer`` of
+    each batch row's slots before its start (its h_kv columns)."""
+    masks = []
+    for t in (kv.k_scale, kv.v_scale):
+        m = torch.zeros(t.shape, dtype=torch.bool, device=t.device)
+        for b, lo in enumerate(starts):
+            cols = slice(b * h_kv, (b + 1) * h_kv)
+            if kv.packed:
+                for r in range(4):  # slot s at [layer, s % 4, s // 4]
+                    m[layer, r, : (lo - r + 3) // 4, 0, cols] = True
+            else:
+                m[layer, :lo, 0, cols] = True
+        masks.append(m)
+    return masks
+
+
 def k5_case(torch, qp, cfg, fmt: str, pos: int, gen, *, starts=None, garbage=None, layer: int = 5) -> float:
     """One K5 call against its plain version on copies of the same cache:
     y within K5_TOL of max |y|; nothing but the new row and its scales
-    changed; the new row within one int8 step (its scales 1e-6 relative) or,
-    bf16, one ulp plus 1e-4 of its largest value -> max |dy| / max |y|.
+    changed (bit for bit); the new row within one int8 step (its scales 1e-6
+    relative) or, bf16, one ulp plus 1e-4 of its largest value -> max |dy| /
+    max |y|. ``garbage`` fills a bf16 cache past pos, or the k and v scales
+    of a quantized cache's slots before each row's start, in the kernel's
+    cache only (the plain version reads them, weighted by 0).
     Raises AssertionError on a disagreement."""
     from metavoice_tpu_torch.ops import attention as A
 
@@ -1662,6 +1691,11 @@ def k5_case(torch, qp, cfg, fmt: str, pos: int, gen, *, starts=None, garbage=Non
     b, h_kv = MAIN_SHAPE["b"], cfg.n_local_heads
     kv = _kv_cache(torch, cfg, fmt, gen, dev, b, pos, garbage)
     ref = type(kv)(*[None if t is None else t.clone() for t in (kv.k, kv.v, kv.k_scale, kv.v_scale)])
+    planted = [None, None, None, None]
+    if garbage is not None and kv.quantized:
+        planted[2:] = _scales_before(torch, kv, layer, starts, h_kv)
+        for t, m in zip((kv.k_scale, kv.v_scale), planted[2:]):
+            t[m] = garbage
     orig = type(kv)(*[None if t is None else t.clone() for t in (kv.k, kv.v, kv.k_scale, kv.v_scale)])
     x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
     st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
@@ -1677,13 +1711,15 @@ def k5_case(torch, qp, cfg, fmt: str, pos: int, gen, *, starts=None, garbage=Non
     assert rel <= K5_TOL, f"K5 disagrees with the plain version at {what}: {rel:.3g} of max |y|"
     bkv = b * h_kv
     masks = _new_slots(torch, kv, layer, pos, bkv)
-    for got, want, before, m in zip((kv.k, kv.v, kv.k_scale, kv.v_scale), (ref.k, ref.v, ref.k_scale, ref.v_scale),
-                                    (orig.k, orig.v, orig.k_scale, orig.v_scale), masks):
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    for got, want, before, m, g in zip((kv.k, kv.v, kv.k_scale, kv.v_scale), (ref.k, ref.v, ref.k_scale, ref.v_scale),
+                                       (orig.k, orig.v, orig.k_scale, orig.v_scale), masks, planted):
         if got is None:
             continue
-        bits = (lambda t: t.view(torch.int16)) if got.dtype == torch.bfloat16 else (lambda t: t)
-        for other in (want, before):
-            assert torch.equal(bits(got)[~m], bits(other)[~m]), f"K5 changed cache elements besides the new row at {what}"
+        got_b, want_b, before_b = (t.view(ints.get(t.dtype, t.dtype)) for t in (got, want, before))  # NaN == NaN
+        keep = ~m if g is None else ~m & ~g
+        assert torch.equal(got_b[keep], want_b[keep]) and torch.equal(got_b[~m], before_b[~m]), \
+            f"K5 changed cache elements besides the new row at {what}"
     if kv.packed:  # the new row's word row: its other three bytes kept
         keep = A._packed_byte_mask(pos)
         for got, want, before in ((kv.k, ref.k, orig.k), (kv.v, ref.v, orig.v)):
@@ -1724,6 +1760,51 @@ def _k5_bound(qp, cfg, fmt: str, pos: int, b: int) -> tuple[float, str]:
     return bound(n_bytes, n_flop, BF16_FLOP_S)
 
 
+def block_graph_check(torch, fn, what: str) -> list[str]:
+    """One K5 or K9 call fn() -> (y, caches, scales...): two eager calls give
+    the same bits; the call captured in a CUDA graph and replayed 3 times
+    gives the eager call's bits each time; the merge counters of the
+    products and of the attention are back at 0 after every call; the
+    captured call is BLOCK_KERNELS and none of BLOCK_RETIRED. -> the kernel
+    names of the captured call. Raises AssertionError on a disagreement."""
+    from metavoice_tpu_torch.ops import attention as A
+    from metavoice_tpu_torch.ops import decode_stack as DS
+
+    dev = torch.cuda.current_device()
+
+    def bits(ts):
+        return [t.reshape(-1).view(torch.uint8) for t in ts if t is not None]
+
+    def tickets_at_0() -> bool:
+        torch.cuda.synchronize()
+        return not DS._stack_tickets[dev].any() and not A._tickets[dev].any()
+
+    eager = [t.clone() for t in bits(fn())]
+    assert tickets_at_0(), f"{what}: the merge counters are not back at 0 after an eager call"
+    again = bits(fn())
+    assert all(torch.equal(a, b) for a, b in zip(eager, again)), f"{what}: two eager calls differ"
+    assert tickets_at_0(), f"{what}: the merge counters are not back at 0 after an eager call"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    for i in range(3):
+        outs[0].zero_()
+        graph.replay()
+        assert tickets_at_0(), f"{what}: the merge counters are not back at 0 after graph replay {i}"
+        assert all(torch.equal(a, b) for a, b in zip(eager, bits(outs))), f"{what}: graph replay {i} differs"
+    del graph
+    names = [name for kind, name in _graph_nodes(torch, fn) if kind == "KERNEL"]
+    found = [next((k for k in BLOCK_KERNELS if k in n), n) for n in names]
+    assert found == list(BLOCK_KERNELS) and not any(old in n for n in names for old in BLOCK_RETIRED), \
+        f"{what}: one call is {len(names)} kernels, not {len(BLOCK_KERNELS)} {BLOCK_KERNELS}: {names}"
+    return found
+
+
 def phase_k5(torch) -> dict:
     from metavoice_tpu_torch.core.config import first_stage_config
     from metavoice_tpu_torch.ops import attention as A
@@ -1735,6 +1816,8 @@ def phase_k5(torch) -> dict:
     gen = torch.Generator(device=dev).manual_seed(55)
     cases = [(fmt, h, p, None, None) for fmt in KV_FORMATS for h in (16, 2) for p in K5_POS]
     cases += [("int8", 16, 1000, (300, 700), None), ("bf16", 16, 1000, None, float("nan"))]
+    # NaN scales before the start; the packed tile starts on a word row, so 301 and 703 leave slots before it
+    cases += [(fmt, 16, 1000, (301, 703), float("nan")) for fmt in ("int8", "int8_packed")]
     worst = 0.0
     for fmt, h_kv, pos, starts, garbage in cases:
         cfg, qp = models[h_kv]
@@ -1747,8 +1830,15 @@ def phase_k5(torch) -> dict:
     del models[2]
     times, shown = {}, []
     x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    kernels = None
     for fmt in KV_FORMATS:
         kv = _kv_cache(torch, cfg, fmt, gen, dev, b)
+        try:
+            kernels = block_graph_check(torch, lambda: A.decode_attention_block_int4(
+                x, *_k5_args(qp), kv.k, kv.v, 5, 1000, cfg.n_head, k_scale=kv.k_scale, v_scale=kv.v_scale),
+                f"K5 {fmt} cache")
+        except AssertionError as e:
+            fail(str(e))
         for pos in K5_TIMED:
             def run(fn):
                 return lambda li: fn(x, *_k5_args(qp), kv.k, kv.v, li, pos, cfg.n_head,
@@ -1762,9 +1852,10 @@ def phase_k5(torch) -> dict:
         del kv
         torch.cuda.empty_cache()
     print(f"[21 K5] {len(cases)} cases at 24L/16H/2048d, B {b}, S 2048 (bf16, int8, packed caches; MHA and "
-          f"GQA 2 kv heads; starts; NaN past pos) agree: y within {worst:.3g} of max |y| (tol {K5_TOL}), only "
-          f"the new row and its scales written, within one int8 step / 1e-6 / one bf16 ulp; per layer, device "
-          f"time from a CUDA graph: {'; '.join(shown)}")
+          f"GQA 2 kv heads; starts; NaN past pos; NaN scales before the starts) agree: y within {worst:.3g} of "
+          f"max |y| (tol {K5_TOL}), only the new row and its scales written, within one int8 step / 1e-6 / one bf16 ulp; a call is "
+          f"{len(kernels)} kernels ({', '.join(kernels)}) in each format, 3 graph replays its bits, merge "
+          f"counters at 0; per layer, device time from a CUDA graph: {'; '.join(shown)}")
     kernel, plain, bound_ms, bound_by = times[("int8", 255)]
     return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "times": times}
@@ -2094,6 +2185,11 @@ def phase_k9(torch) -> dict:
             fail(str(e))
     x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
     kv = _kv_cache(torch, cfg, "bf16", gen, dev, b)
+    try:
+        kernels = block_graph_check(torch, lambda: A.decode_attention_block_int8(
+            x, *_k9_args(qp, 5), kv.k, kv.v, 5, 1000, cfg.n_head), "K9")
+    except AssertionError as e:
+        fail(str(e))
     times, shown = {}, []
     for pos in K9_TIMED:
         def run(fn):
@@ -2106,9 +2202,10 @@ def phase_k9(torch) -> dict:
                      f"bound {bound_ms:.4f} ({bound_by})")
     print(f"[26 K9] {len(cases)} cases at 24L/16H/2048d, B {b}, S 2048, bf16 cache (pos {K9_POS}; starts with "
           f"one past pos; NaN past pos) agree: y within {worst:.3g} of max |y| (tol {K9_TOL}), the new row "
-          f"within one bf16 ulp, every other slot unchanged; per layer, device time from a CUDA graph: "
-          f"{'; '.join(shown)}")
-    kernel, plain, bound_ms, bound_by = times[K9_TIMED[0]]
+          f"within one bf16 ulp, every other slot unchanged; a call is {len(kernels)} kernels "
+          f"({', '.join(kernels)}), 3 graph replays its bits, merge counters at 0; per layer, device time from a "
+          f"CUDA graph: {'; '.join(shown)}")
+    kernel, plain, bound_ms, bound_by = times[255]
     return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "times": times}
 

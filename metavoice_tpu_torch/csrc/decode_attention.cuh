@@ -1,9 +1,10 @@
-// T=1 split-sequence (flash-decoding) attention device code, shared by the
-// int4 decode stack (decode_stack_int4.cu, K3 and K7, whose chain of
-// launches takes the kChained forms), the int4 attention
-// block (decode_block_int4.cu, K5) and the plain-int8 attention block
-// (decode_block_int8.cu, K9). K1 and K4 have their own one-launch design
-// (decode_attention_onepass.cuh).
+// T=1 split-sequence (flash-decoding) attention device code of the int32-word
+// decode stack (decode_stack_int4.cu, K3 and K7, whose chain of launches
+// takes the kChained forms), now its only user: K1, K4 and the attention
+// blocks K5 and K9 take the one-launch design (decode_attention_onepass.cuh),
+// so the int8 and packed cache formats below (K5's until then) have no
+// caller. decode_gemv.cuh and decode_stack_gemv.cuh include it for kFull
+// and, through it, device_common.cuh's helpers (pdl_wait, bf, round_bf16).
 //
 // For one query token per (batch, head) row: the softmax-weighted sum of the
 // values over the row's window [starts[b], pos] of the sequence-major
@@ -40,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_common.cuh"
+
 // An unnamed namespace: each including file gets its own copy of the kernels.
 namespace {
 
@@ -51,17 +54,6 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegBig = -1e30f;          // the reference's finite -inf
 
 enum CacheFmt { kFmtFloat = 0, kFmtI8 = 1, kFmtPacked = 2 };
-
-// Programmatic dependent launch (Hopper): a kernel launched with the
-// programmatic-stream-serialization attribute may start while the kernel
-// before it on the stream still runs. pdl_wait() returns once that kernel has
-// finished and its writes are visible (at once without the attribute);
-// pdl_trigger() lets the next such kernel start.
-__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
-__device__ __forceinline__ void pdl_trigger() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
-
-__device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float round_bf16(float v) { return bf(__float2bfloat16_rn(v)); }
 
 template <int E>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&out)[E]) {

@@ -1,7 +1,9 @@
 // Decode attention over the sequence-major (L, S, B, H_kv, Dh) cache in ONE
-// launch: the device code of K1 (decode_attention.cu, one query a kv row)
-// and K4 (decode_attention_multi.cu, up to 16 queries a kv row: T new
-// tokens times g = H / H_kv query heads). Only those two files include it.
+// launch: the device code of K1 (decode_attention.cu, one query a kv row),
+// K4 (decode_attention_multi.cu, up to 16 queries a kv row: T new tokens
+// times g = H / H_kv query heads) and the attention of the per-layer
+// attention blocks K5 (decode_block_int4.cu: a bf16, int8 or packed cache)
+// and K9 (decode_block_int8.cu: bf16). Only those four files include it.
 //
 // For T new tokens at cache slots [pos, pos + T) it writes their K/V rows
 // into the cache in place, and query t of batch row b attends the window
@@ -52,6 +54,23 @@
 //     query's slots past pos + t get weight exactly 0. A start past pos is
 //     taken as pos. A split with nothing of the window leaves an empty
 //     partial (max -1e30, sum 0) that the merge weighs by 0.
+//   * The attention blocks' variant (attn_row_kernel with NEW != kRowK1,
+//     one query a block: GQA query head h of a block reads kv row h /
+//     kv_group) is the second of three kernels chained by programmatic
+//     dependent launch: its first ring stages of the cache window go out
+//     before griddepcontrol.wait, then q (f32, from the qkv product's
+//     output) and the new K/V row. The split that holds pos makes the new
+//     row in the cache's format from the f32 values itself: bf16(row), or,
+//     for the int8 and packed caches, the row quantized per (batch row, kv
+//     head) (s = max(absmax, 1e-8) * f32(1/127), q = clip(rint(row / s),
+//     -127, 127)); every query block of the kv row makes the same bits and
+//     puts them into its own tile, and the first one writes the row (the
+//     packed word read, merged and written by that one block) and its
+//     scales. The int8 and packed formats follow the TPU kernel's
+//     kv8_mode="bf16": q rounded to bf16 against the integer values (exact
+//     in f32), the dot times the slot's k scale, each value weight rounded
+//     to bf16 as bf16(p * v_scale); the tiles widen in registers by a byte
+//     permute, the slots' scales copied beside them.
 //
 // The launch sets no state that a replay would find stale (the kernels'
 // attributes are set once, before their first launch; the merge tickets are
@@ -65,6 +84,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "device_common.cuh"
 
 // An unnamed namespace: each including file gets its own copy of the kernels.
 namespace {
@@ -83,14 +106,20 @@ constexpr int kCMaxSplits = 32;   // splits of a kv row's window
 constexpr unsigned kCFull = 0xffffffffu;
 constexpr float kCNegBig = -1e30f;  // the reference's finite -inf
 
-template <typename T>
+// The new row's source in attn_row_kernel: K1 takes q, k_new and v_new in
+// the cache's type; the attention blocks take q and the new K/V row in f32
+// from the qkv product's output and make the row in the cache's format.
+enum RowNew { kRowK1 = 0, kRowBf16 = 1, kRowI8 = 2, kRowPacked = 3 };
+
+// T: the cache's element (the packed cache: int32 words); TY: y's.
+template <typename T, typename TY = T>
 struct OnePassArgs {
   const T* q;      // (B, H, T, DH)
   const T* k_new;  // (B, H_kv, T, DH)
   const T* v_new;
-  T* k_cache;  // (L, S, B, H_kv, DH)
+  T* k_cache;  // (L, S, B, H_kv, DH); packed (L, S / 4, B, H_kv, DH)
   T* v_cache;
-  T* y;               // (B, H, T, DH)
+  TY* y;              // (B, H, T, DH)
   const int* starts;  // nullptr or (B,) first valid slot per batch row
   int n_head;
   int n_kv_head;
@@ -105,6 +134,15 @@ struct OnePassArgs {
   float scale;  // log2(e) / sqrt(Dh): scores in the log2 domain, weights exp2(s - max)
   float* part;   // splits > 1: f32 partials of every (kv row, query group) and split (merge_splits)
   int* tickets;  // splits > 1: one zeroed counter per (kv row, query group)
+  // The attention blocks only: one block a query head, so n_head and
+  // n_kv_head hold H, group 1; the kv row of query head h is b * H_kv + h /
+  // kv_group.
+  const float* qkv;  // (B, q_bstride) f32: q (H * DH), the new K row (H_kv * DH), the new V row
+  int q_bstride;
+  int kv_group;
+  float* k_scale;  // the int8 and packed caches' scale tables, scale_width columns a slot
+  float* v_scale;
+  int scale_width;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fill) {
@@ -112,6 +150,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fi
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
                "r"(fill ? 16 : 0)
+               : "memory");
+}
+// 4 bytes from gmem, or 4 zero bytes
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool fill) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem), "r"(fill ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
@@ -173,8 +217,8 @@ __host__ __device__ constexpr size_t simt_smem_bytes() {
 }
 
 // (B, H, T) row of query j of kv row (b, hkv): t = j / g, head hkv * g + j % g.
-template <typename T>
-__device__ __forceinline__ int query_row(const OnePassArgs<T>& a, int b, int hkv, int j) {
+template <typename Args>
+__device__ __forceinline__ int query_row(const Args& a, int b, int hkv, int j) {
   return (b * a.n_head + hkv * a.group + j % a.group) * a.t_q + j / a.group;
 }
 
@@ -223,8 +267,8 @@ __device__ __forceinline__ void write_new_rows(const OnePassArgs<T>& a, size_t b
 // for the next call (so a CUDA-graph replay finds it as the first launch
 // did). The last block loads the splits' (max, sum, acc) eight splits at a
 // time and folds them in with a running max, one round trip a chunk.
-template <typename T, int DH, int QB, int THREADS = kCThreads>
-__device__ __forceinline__ void merge_splits(const OnePassArgs<T>& a, int b, int hkv, int q0,
+template <int DH, int QB, int THREADS = kCThreads, typename Args>
+__device__ __forceinline__ void merge_splits(const Args& a, int b, int hkv, int q0,
                                              const float* part_m, const float* part_l,
                                              const float* part_acc) {
   constexpr int NI = (QB * DH / 4 + THREADS - 1) / THREADS;  // float4 outputs a thread
@@ -235,7 +279,7 @@ __device__ __forceinline__ void merge_splits(const OnePassArgs<T>& a, int b, int
   const int live = min(QB, a.n_q - q0);
   auto write_y = [&](int i4, const float4& v) {  // outputs 4 * i4 .. 4 * i4 + 3
     const int j = 4 * i4 / DH;
-    T* y = a.y + (size_t)query_row(a, b, hkv, q0 + j) * DH + 4 * i4 % DH;
+    auto* y = a.y + (size_t)query_row(a, b, hkv, q0 + j) * DH + 4 * i4 % DH;
     store_out(y, v.x), store_out(y + 1, v.y), store_out(y + 2, v.z), store_out(y + 3, v.w);
   };
   if (n_splits == 1) {
@@ -299,7 +343,7 @@ __device__ __forceinline__ void merge_splits(const OnePassArgs<T>& a, int b, int
   if (tid == 0) a.tickets[ticket] = 0;
 }
 
-// ---- one query a kv row (K1): CUDA cores, every warp on its own ------------
+// ---- one query a kv row (K1) or a block (K5, K9): CUDA cores -------------
 //
 // A warp walks its own tiles of 8 slots (the block's split is dealt out to the
 // block's warps tile by tile) through its own ring of kRStages shared-memory
@@ -310,6 +354,16 @@ __device__ __forceinline__ void merge_splits(const OnePassArgs<T>& a, int b, int
 // has one running max: the softmax rescales once a tile, and each lane sums
 // its Dh/8 value dims over its group's slots. At the end the groups add up
 // by shuffles and the block's warps merge in shared memory.
+//
+// The attention blocks' variants (NEW != kRowK1, Dh 128): the int8 cache's
+// tile is 8 slots of 128 bytes (a lane's 16 values one copy); the packed
+// cache's is the 2 word rows of 8 slots that start on a multiple of 4, and
+// lane group g takes slots 2 g and 2 g + 1, bytes of the same 16 words (one
+// read and one sign flip of a word for both); each stage also holds its
+// slots' k and v scales. The new row never comes from memory: its slot is zero-filled
+// in the copy (the packed word row is copied, its byte at pos stale) and
+// the warp whose tile holds pos writes the block's new row into the stage
+// before reading it.
 constexpr int kRTile = 8;    // slots a warp tile
 constexpr int kRStages = 3;  // warp tiles in a warp's ring
 
@@ -318,15 +372,59 @@ __host__ __device__ constexpr size_t row_smem_bytes() {
   return (size_t)kCWarps * kRStages * 2 * kRTile * DH * sizeof(T);  // each warp's K and V ring
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kCThreads) attn_row_kernel(OnePassArgs<T> a) {
-  constexpr int V = 16 / sizeof(T);  // elements a 16-byte copy
-  constexpr int ROW_CH = DH / V;     // 16-byte chunks a row
+// The attention blocks' dynamic shared memory: each warp's K and V ring (a
+// packed tile is kRTile / 4 word rows), each stage's k and v scales, the new
+// row's two scales (16 bytes) and the new K and V row in the cache's values
+// (packed: int8).
+template <int NEW, int DH>
+__host__ __device__ constexpr size_t block_ring_bytes() {
+  return NEW == kRowBf16 ? (size_t)kCWarps * kRStages * 2 * kRTile * DH * 2 : (size_t)kCWarps * kRStages * 2 * kRTile * DH;
+}
+template <int NEW, int DH>
+__host__ __device__ constexpr size_t block_smem_bytes() {
+  return block_ring_bytes<NEW, DH>() + (size_t)kCWarps * kRStages * 2 * kRTile * sizeof(float) + 16 +
+         2 * DH * (NEW == kRowBf16 ? 2 : 1);
+}
+
+// 16 int8 values (one 16-byte chunk) as exact floats.
+__device__ __forceinline__ void i8_floats(const int8_t* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[4 * i + j] = sbyte_float(w[i], j);
+}
+
+// Bytes j and j + 1 of 4 packed words (one 16-byte chunk) as exact floats.
+__device__ __forceinline__ void packed_floats(const int32_t* p, int j, float* out0, float* out1) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out0[i] = sbyte_float(w[i], j);
+    out1[i] = sbyte_float(w[i], j + 1);
+  }
+}
+
+template <typename T, int DH, int NEW = kRowK1>
+__global__ void __launch_bounds__(kCThreads)
+attn_row_kernel(OnePassArgs<T, std::conditional_t<NEW == kRowK1, T, __nv_bfloat16>> a) {
+  constexpr bool kBlock = NEW != kRowK1;
+  constexpr bool kQuant = NEW == kRowI8 || NEW == kRowPacked;
+  constexpr bool kPacked = NEW == kRowPacked;
+  constexpr int V = 16 / sizeof(T);  // elements a 16-byte copy (packed: words)
+  constexpr int ROW_CH = DH / V;     // 16-byte chunks a row (packed: a word row)
   constexpr int EQ = DH / 8;         // elements a lane scores and sums
   constexpr int NCH = EQ / V;        // chunks a lane reads of a row
-  constexpr int WT = kRTile * DH;    // elements of a warp tile of K (or V)
+  constexpr int TR = kPacked ? kRTile / 4 : kRTile;  // cache rows a warp tile (packed: word rows)
+  constexpr int WT = TR * DH;        // elements of a warp tile of K (or V)
+  using NewT = std::conditional_t<kPacked, int8_t, T>;  // the new row's values
   static_assert(DH == 64 || DH == 128, "head_dim 64 or 128");
-  static_assert(NCH >= 1 && (kRTile * ROW_CH) % 32 == 0, "whole chunks a lane");
+  static_assert(!kBlock || DH == 128, "the attention blocks take head_dim 128");
+  static_assert(NCH >= 1 && (TR * ROW_CH) % 32 == 0, "whole chunks a lane");
+  static_assert(!kBlock || kCThreads == 2 * DH, "a thread a value of the new K and V rows");
 
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ __align__(16) float red[kCWarps][DH];  // each warp's sums, then its (max, sum)
@@ -335,7 +433,7 @@ __global__ void __launch_bounds__(kCThreads) attn_row_kernel(OnePassArgs<T> a) {
   __shared__ float part_m[1];
   __shared__ float part_l[1];
 
-  const int r = blockIdx.x;  // query row = kv row b * H + h
+  const int r = blockIdx.x;  // query row = kv row b * H + h (blocks: n_kv_head holds H)
   const int split = blockIdx.y;
   const int b = r / a.n_kv_head;
   const int hkv = r % a.n_kv_head;
@@ -343,32 +441,63 @@ __global__ void __launch_bounds__(kCThreads) attn_row_kernel(OnePassArgs<T> a) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int pos = a.pos;
-  const size_t pos_stride = (size_t)a.bkv * DH;  // elements from slot s to s + 1
-  const size_t base = (size_t)a.layer * a.seq_len * pos_stride + (size_t)r * DH;
-  const T* kn = a.k_new + (size_t)r * DH;
-  const T* vn = a.v_new + (size_t)r * DH;
+  const size_t pos_stride = (size_t)a.bkv * DH;  // elements from slot s to s + 1 (packed: word row)
+  // blocks: the kv row, b * H_kv + h / kv_group
+  const int kv = kBlock ? b * (a.n_kv_head / a.kv_group) + hkv / a.kv_group : r;
+  const size_t base = (size_t)a.layer * (kPacked ? a.seq_len / 4 : a.seq_len) * pos_stride + (size_t)kv * DH;
+  const T* kn = kBlock ? nullptr : a.k_new + (size_t)r * DH;
+  const T* vn = kBlock ? nullptr : a.v_new + (size_t)r * DH;
   const int sp_lo = split * a.split_len;
   T* kw = reinterpret_cast<T*>(ring) + (size_t)warp * kRStages * 2 * WT;  // [stage][K, V][slot][DH]
+  // blocks: each warp's stages' scales [stage][K, V][slot], the new row's
+  // two scales, the new rows [K, V][DH]
+  float* kw_sc = reinterpret_cast<float*>(ring + block_ring_bytes<NEW, DH>()) + (size_t)warp * kRStages * 2 * kRTile;
+  float* new_sc = reinterpret_cast<float*>(ring + block_ring_bytes<NEW, DH>()) + kCWarps * kRStages * 2 * kRTile;
+  NewT* new_row = reinterpret_cast<NewT*>(new_sc + 4);
 
-  const int lo = a.starts == nullptr ? 0 : min(max(a.starts[b], 0), pos);
+  const int lo = a.starts == nullptr ? 0 : min(max(kBlock ? __ldcg(a.starts + b) : a.starts[b], 0), pos);
   const int s_begin = max(sp_lo, lo);
   const int s_end = min(sp_lo + a.split_len, pos + 1);
-  const int n_wt = s_begin < s_end ? (s_end - s_begin + kRTile - 1) / kRTile : 0;
+  const int s_first = kPacked ? s_begin & ~3 : s_begin;  // packed tiles start on a word row
+  const int n_wt = s_first < s_end ? (s_end - s_first + kRTile - 1) / kRTile : 0;
   const int mine = n_wt > warp ? (n_wt - 1 - warp) / kCWarps + 1 : 0;  // tiles warp, warp + kCWarps, ...
 
   auto load_tile = [&](int i, int stage) {
-    const int t0 = s_begin + (warp + kCWarps * i) * kRTile;
+    const int t0 = s_first + (warp + kCWarps * i) * kRTile;
     T* ks = kw + stage * 2 * WT;
+    if constexpr (!kBlock) {
 #pragma unroll
-    for (int c = lane; c < kRTile * ROW_CH; c += 32) {
-      const int p = c / ROW_CH;
-      const int e = (c % ROW_CH) * V;
-      const int s = t0 + p;
-      const bool in = s < s_end;
-      const bool fresh = s == pos;  // the new row: from k_new/v_new, never the cache
-      const size_t off = in && !fresh ? base + (size_t)s * pos_stride : 0;
-      cp_async16(ks + p * DH + e, (in && !fresh ? a.k_cache : kn) + off + e, in);
-      cp_async16(ks + WT + p * DH + e, (in && !fresh ? a.v_cache : vn) + off + e, in);
+      for (int c = lane; c < kRTile * ROW_CH; c += 32) {
+        const int p = c / ROW_CH;
+        const int e = (c % ROW_CH) * V;
+        const int s = t0 + p;
+        const bool in = s < s_end;
+        const bool fresh = s == pos;  // the new row: from k_new/v_new, never the cache
+        const size_t off = in && !fresh ? base + (size_t)s * pos_stride : 0;
+        cp_async16(ks + p * DH + e, (in && !fresh ? a.k_cache : kn) + off + e, in);
+        cp_async16(ks + WT + p * DH + e, (in && !fresh ? a.v_cache : vn) + off + e, in);
+      }
+    } else {
+#pragma unroll
+      for (int c = lane; c < TR * ROW_CH; c += 32) {
+        const int p = c / ROW_CH;  // tile row (packed: word row)
+        const int e = (c % ROW_CH) * V;
+        const int s = kPacked ? t0 + 4 * p : t0 + p;  // its (first) slot
+        const bool in = s < s_end && (kPacked || s != pos);  // the new row is made in the block
+        const size_t off = in ? base + (size_t)(kPacked ? s / 4 : s) * pos_stride + e : 0;
+        cp_async16(ks + p * DH + e, a.k_cache + off, in);
+        cp_async16(ks + WT + p * DH + e, a.v_cache + off, in);
+      }
+      if constexpr (kQuant) {
+        if (lane < 2 * kRTile) {  // lanes 0-7 the slots' k scales, 8-15 their v scales
+          const int s = t0 + lane % kRTile;
+          const bool in = s >= s_begin && s < s_end && s != pos;  // packed: the tile may start before s_begin
+          const size_t srow = kPacked ? ((size_t)a.layer * 4 + (s & 3)) * (a.seq_len / 4) + (s >> 2)
+                                      : (size_t)a.layer * a.seq_len + s;
+          cp_async4(kw_sc + stage * 2 * kRTile + lane,
+                    (lane < kRTile ? a.k_scale : a.v_scale) + (in ? srow * a.scale_width + kv : 0), in);
+        }
+      }
     }
   };
 #pragma unroll
@@ -377,18 +506,74 @@ __global__ void __launch_bounds__(kCThreads) attn_row_kernel(OnePassArgs<T> a) {
     cp_async_commit();
   }
 
-  const int grp = lane >> 3;  // slots grp and grp + 4 of a tile
+  const int grp = lane >> 3;  // slots grp and grp + 4 of a tile (packed: 2 grp and 2 grp + 1)
   const int lg = lane & 7;
-  uint4 q_raw[NCH];  // the query's loads, in flight with the new row's
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) q_raw[c] = reinterpret_cast<const uint4*>(a.q + (size_t)r * DH)[lg + 8 * c];
-  write_new_rows<T, DH, kCThreads>(a, base, pos_stride, kn, vn, sp_lo, sp_lo + a.split_len);
+  const int slot0 = kPacked ? 2 * grp : grp;
+  const int slot1 = kPacked ? 2 * grp + 1 : grp + 4;
   float qf[EQ];
+  if constexpr (!kBlock) {
+    uint4 q_raw[NCH];  // the query's loads, in flight with the new row's
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    to_floats<V>(reinterpret_cast<const T*>(&q_raw[c]), qf + c * V);
+    for (int c = 0; c < NCH; ++c) q_raw[c] = reinterpret_cast<const uint4*>(a.q + (size_t)r * DH)[lg + 8 * c];
+    write_new_rows<T, DH, kCThreads>(a, base, pos_stride, kn, vn, sp_lo, sp_lo + a.split_len);
 #pragma unroll
-    for (int j = 0; j < V; ++j) qf[c * V + j] *= a.scale;
+    for (int c = 0; c < NCH; ++c) {
+      to_floats<V>(reinterpret_cast<const T*>(&q_raw[c]), qf + c * V);
+#pragma unroll
+      for (int j = 0; j < V; ++j) qf[c * V + j] *= a.scale;
+    }
+  } else {
+    pdl_wait();  // the qkv product's output is written
+    pdl_trigger();
+    const float* qp = a.qkv + (size_t)b * a.q_bstride + (size_t)hkv * DH;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < V; j += 4) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(qp + (lg + 8 * c) * V + j));
+        const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[c * V + j + e] = kQuant ? round_bf16(f[e] * a.scale) : f[e] * a.scale;
+      }
+    // the split that holds pos makes the new K (threads < DH) and V row from
+    // the f32 values, the first query head of the kv row writes it
+    if (pos < sp_lo + a.split_len) {
+      const int t = tid % DH;
+      const bool is_v = tid >= DH;
+      const int h_kv = a.n_kv_head / a.kv_group;
+      const float v = __ldcg(a.qkv + (size_t)b * a.q_bstride + (size_t)(a.n_kv_head + (is_v ? h_kv : 0) + hkv / a.kv_group) * DH + t);
+      const bool writes = hkv % a.kv_group == 0;
+      T* cache = is_v ? a.v_cache : a.k_cache;
+      if constexpr (!kQuant) {
+        new_row[is_v * DH + t] = __float2bfloat16_rn(v);
+        if (writes) cache[base + (size_t)pos * pos_stride + t] = __float2bfloat16_rn(v);
+      } else {
+        float m = cwarp_max(fabsf(v));
+        if (lane == 0) red_ml[warp][0] = m;
+        __syncthreads();
+        m = red_ml[is_v ? 4 : 0][0];
+#pragma unroll
+        for (int w = 1; w < kCWarps / 2; ++w) m = fmaxf(m, red_ml[(is_v ? 4 : 0) + w][0]);
+        const float sc = fmaxf(m, 1e-8f) * (float)(1.0 / 127.0);
+        const int q = (int)fminf(fmaxf(rintf(__fdiv_rn(v, sc)), -127.f), 127.f);
+        new_row[is_v * DH + t] = (int8_t)q;
+        if (t == 0) new_sc[is_v] = sc;
+        if (writes) {
+          size_t srow;
+          if constexpr (kPacked) {
+            const int sh = 8 * (pos & 3);
+            T* word = cache + base + (size_t)(pos >> 2) * pos_stride + t;
+            *word = (int32_t)(((uint32_t)*word & ~(0xFFu << sh)) | (((uint32_t)q & 0xFFu) << sh));
+            srow = ((size_t)a.layer * 4 + (pos & 3)) * (a.seq_len / 4) + (pos >> 2);
+          } else {
+            cache[base + (size_t)pos * pos_stride + t] = (int8_t)q;
+            srow = (size_t)a.layer * a.seq_len + pos;
+          }
+          if (t == 0) (is_v ? a.v_scale : a.k_scale)[srow * a.scale_width + kv] = sc;
+        }
+      }
+      __syncthreads();  // the new row is in shared memory; red_ml is free again
+    }
   }
   float m = kCNegBig;  // the warp's running max (the same in every lane)
   float l = 0.f;       // the sum over the lane group's slots
@@ -399,23 +584,62 @@ __global__ void __launch_bounds__(kCThreads) attn_row_kernel(OnePassArgs<T> a) {
   for (int i = 0; i < mine; ++i) {
     cp_async_wait<kRStages - 2>();
     __syncwarp();  // the warp's copies of tile i are visible to the warp; tile i - 1 is consumed
+    if constexpr (kBlock) {
+      const int tp = s_first + (warp + kCWarps * i) * kRTile;
+      if (pos >= tp && pos < tp + kRTile) {  // the tile holding the new row: put the block's in
+        T* kt = kw + (i % kRStages) * 2 * WT;
+        float* kt_sc = kw_sc + (i % kRStages) * 2 * kRTile;
+        if constexpr (kPacked) {
+          const int p = (pos - tp) >> 2;
+          const uint32_t sh = 8 * (pos & 3);
+          for (int w = lane; w < DH; w += 32)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t* word = reinterpret_cast<uint32_t*>(kt + h * WT + p * DH + w);
+              *word = (*word & ~(0xFFu << sh)) | (((uint32_t)(uint8_t)new_row[h * DH + w]) << sh);
+            }
+        } else {
+          if (lane < 2 * ROW_CH)
+            reinterpret_cast<uint4*>(kt + (lane / ROW_CH) * WT + (pos - tp) * DH)[lane % ROW_CH] =
+                reinterpret_cast<const uint4*>(new_row + (lane / ROW_CH) * DH)[lane % ROW_CH];
+        }
+        if constexpr (kQuant) {
+          if (lane < 2) kt_sc[lane * kRTile + pos - tp] = new_sc[lane];
+        }
+        __syncwarp();
+      }
+    }
     {
       const int next = i + kRStages - 1;
       if (next < mine) load_tile(next, next % kRStages);
       cp_async_commit();
     }
     const T* ks = kw + (i % kRStages) * 2 * WT;
-    const int t0 = s_begin + (warp + kCWarps * i) * kRTile;
+    const float* ssc = kw_sc + (i % kRStages) * 2 * kRTile;
+    const int t0 = s_first + (warp + kCWarps * i) * kRTile;
     float sc[2];
+    float pk[kPacked ? 2 : 1][kPacked ? EQ : 1];  // packed: the lane's K values of both slots
+    if constexpr (kPacked) {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+        packed_floats(ks + (grp >> 1) * DH + (lg + 8 * c) * V, slot0 & 3, pk[0] + c * V, pk[1] + c * V);
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int slot = grp + 4 * h;
+      const int slot = h == 0 ? slot0 : slot1;
       float dot = 0.f;
       float dot2 = 0.f;  // two chains of sums: half the latency
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
         float kf[V];
-        to_floats<V>(ks + slot * DH + (lg + 8 * c) * V, kf);
+        if constexpr (kPacked) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) kf[j] = pk[h][c * V + j];
+        } else if constexpr (NEW == kRowI8) {
+          i8_floats(ks + slot * DH + (lg + 8 * c) * V, kf);
+        } else {
+          to_floats<V>(ks + slot * DH + (lg + 8 * c) * V, kf);
+        }
 #pragma unroll
         for (int j = 0; j < V; j += 2) {
           dot += qf[c * V + j] * kf[j];
@@ -426,7 +650,9 @@ __global__ void __launch_bounds__(kCThreads) attn_row_kernel(OnePassArgs<T> a) {
       dot += __shfl_xor_sync(kCFull, dot, 4);
       dot += __shfl_xor_sync(kCFull, dot, 2);
       dot += __shfl_xor_sync(kCFull, dot, 1);
-      sc[h] = t0 + slot < s_end ? dot : kCNegBig;
+      if constexpr (kQuant) dot *= ssc[slot] * 1.4426950408889634f;  // times the k scale, to the log2 domain
+      const bool in = t0 + slot < s_end && (!kPacked || t0 + slot >= s_begin);
+      sc[h] = in ? dot : kCNegBig;
     }
     float mt = fmaxf(sc[0], sc[1]);
     mt = fmaxf(mt, __shfl_xor_sync(kCFull, mt, 8));
@@ -437,13 +663,23 @@ __global__ void __launch_bounds__(kCThreads) attn_row_kernel(OnePassArgs<T> a) {
     const float p1 = sc[1] == kCNegBig ? 0.f : exp2f(sc[1] - m_new);
     l = l * alpha + p0 + p1;
     m = m_new;
+    // the value weights: p, or bf16(p * v_scale) against the integer values
+    const float w0 = kQuant ? round_bf16(p0 * ssc[kRTile + slot0]) : p0;
+    const float w1 = kQuant ? round_bf16(p1 * ssc[kRTile + slot1]) : p1;
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       float v0[V], v1[V];
-      to_floats<V>(ks + WT + grp * DH + (lg + 8 * c) * V, v0);
-      to_floats<V>(ks + WT + (grp + 4) * DH + (lg + 8 * c) * V, v1);
+      if constexpr (kPacked) {
+        packed_floats(ks + WT + (grp >> 1) * DH + (lg + 8 * c) * V, slot0 & 3, v0, v1);
+      } else if constexpr (NEW == kRowI8) {
+        i8_floats(ks + WT + slot0 * DH + (lg + 8 * c) * V, v0);
+        i8_floats(ks + WT + slot1 * DH + (lg + 8 * c) * V, v1);
+      } else {
+        to_floats<V>(ks + WT + grp * DH + (lg + 8 * c) * V, v0);
+        to_floats<V>(ks + WT + (grp + 4) * DH + (lg + 8 * c) * V, v1);
+      }
 #pragma unroll
-      for (int j = 0; j < V; ++j) acc[c * V + j] = acc[c * V + j] * alpha + p0 * v0[j] + p1 * v1[j];
+      for (int j = 0; j < V; ++j) acc[c * V + j] = acc[c * V + j] * alpha + w0 * v0[j] + w1 * v1[j];
     }
   }
   cp_async_wait<0>();
@@ -485,7 +721,7 @@ __global__ void __launch_bounds__(kCThreads) attn_row_kernel(OnePassArgs<T> a) {
     }
   }
   __syncthreads();
-  merge_splits<T, DH, 1>(a, b, hkv, 0, part_m, part_l, part_acc);
+  merge_splits<DH, 1>(a, b, hkv, 0, part_m, part_l, part_acc);
 }
 
 // ---- f32 with 2..16 queries a kv row (K4): CUDA cores --------------------
@@ -691,7 +927,7 @@ __global__ void __launch_bounds__(kGThreads) attn_simt_kernel(OnePassArgs<T> a) 
     part_acc[i] = s;
   }
   __syncthreads();
-  merge_splits<T, DH, QB, kGThreads>(a, b, hkv, q0, part_m, part_l, part_acc);
+  merge_splits<DH, QB, kGThreads>(a, b, hkv, q0, part_m, part_l, part_acc);
 }
 
 // ---- bf16 with 2..16 queries a kv row (K4): tensor cores -------------------
@@ -978,7 +1214,7 @@ __global__ void __launch_bounds__(kCThreads) attn_mma_kernel(OnePassArgs<__nv_bf
     reinterpret_cast<float4*>(part_acc)[i4] = s;
   }
   __syncthreads();
-  merge_splits<T, DH, kMQ>(a, b, hkv, q0, part_m, part_l, part_acc);
+  merge_splits<DH, kMQ>(a, b, hkv, q0, part_m, part_l, part_acc);
 }
 
 // Launch one of the kernels: grid (kv rows, splits, query groups).
@@ -1046,6 +1282,59 @@ cudaError_t attention_onepass(const void* q, const void* k_new, const void* v_ne
   a.part = part;
   a.tickets = tickets;
   return launch_onepass<T, DH>(a, n_splits, stream);
+}
+
+// The attention of one attention block (K5, K9), launched as a programmatic
+// dependent of the qkv product before it on the stream: one block a query
+// head and split, grid (batch * n_head, n_splits). qkv (batch, q_bstride)
+// f32: q (n_head * 128), the new K row, the new V row (n_kv_head * 128
+// each); y (batch, n_head * 128) bf16; the caches in NEW's format, the new
+// row written at (layer, pos), with its scales in k_scale / v_scale
+// (scale_width columns a slot) for the int8 and packed caches. part and
+// tickets as for decode_attention_onepass with batch * n_head kv rows and
+// one query each. The caller checks the shapes and the plan.
+template <int NEW>
+cudaError_t attention_block(const float* qkv, int q_bstride, void* k_cache, void* v_cache, float* k_scale,
+                            float* v_scale, int scale_width, const int* starts, int batch, int n_head,
+                            int n_kv_head, int seq_len, int layer, int pos, int split_len, int n_splits,
+                            float* part, int* tickets, __nv_bfloat16* y, cudaStream_t stream) {
+  using T = std::conditional_t<NEW == kRowBf16, __nv_bfloat16, std::conditional_t<NEW == kRowI8, int8_t, int32_t>>;
+  constexpr int DH = 128;
+  constexpr size_t smem = block_smem_bytes<NEW, DH>();
+  OnePassArgs<T, __nv_bfloat16> a = {};
+  a.k_cache = static_cast<T*>(k_cache);
+  a.v_cache = static_cast<T*>(v_cache);
+  a.y = y;
+  a.starts = starts;
+  a.n_head = n_head;
+  a.n_kv_head = n_head;  // one block a query head
+  a.group = 1;
+  a.t_q = 1;
+  a.n_q = 1;
+  a.bkv = batch * n_kv_head;
+  a.seq_len = seq_len;
+  a.layer = layer;
+  a.pos = pos;
+  a.split_len = split_len;
+  // bf16: q * log2(e) / sqrt(Dh), as K1; int8: bf16(q / sqrt(Dh)), log2(e) after the k scale
+  a.scale = (float)((NEW == kRowBf16 ? 1.4426950408889634 : 1.0) / sqrt((double)DH));
+  a.part = part;
+  a.tickets = tickets;
+  a.qkv = qkv;
+  a.q_bstride = q_bstride;
+  a.kv_group = n_head / n_kv_head;
+  a.k_scale = k_scale;
+  a.v_scale = v_scale;
+  a.scale_width = scale_width;
+  static bool configured = false;
+  if (!configured) {  // set once, before the first launch (and any capture)
+    cudaError_t err = cudaFuncSetAttribute(attn_row_kernel<T, DH, NEW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  return launch_chained(attn_row_kernel<T, DH, NEW>, dim3(batch * n_head, n_splits), dim3(kCThreads), smem, stream,
+                        a);
 }
 
 // dtype: 0 = bfloat16, 1 = float32 (q, k_new, v_new, both caches and y share

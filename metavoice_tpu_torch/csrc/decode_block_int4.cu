@@ -16,10 +16,9 @@
 //   round_half_even(row / s), -127, 127), with s in the scale table; the
 //   packed cache merges byte pos % 4 into word pos // 4, keeping the word's
 //   other bytes, and writes s to residue row pos % 4, column pos // 4;
-//   attention over [starts[b], pos] read back from the cache (the split
-//   kernel of decode_attention.cuh, templated on the format; q * 1/sqrt(Dh)
-//   in f32, rounded to bf16 for the int8 formats; query head h reads kv head
-//   h / (H / H_kv)), rounded to bf16 in query-head order b * H + h;
+//   attention over [starts[b], pos] (q * 1/sqrt(Dh) in f32, rounded to bf16
+//   for the int8 formats; query head h reads kv head h / (H / H_kv)),
+//   rounded to bf16 in query-head order b * H + h;
 //   y = y_attn @ Wo, rounded to bf16.
 // K6: h = bf16(silu(x @ W1) * (x @ W3)) with silu and the product in f32;
 //   y = h @ W2 in f32.
@@ -30,20 +29,34 @@
 // At the main-path shape (D = 2048, 16 heads, B = 2, FFN packed to 6144) K5
 // reads 9.4 MB of weights and scales and 2 * (pos + 1) * B * H_kv * Dh
 // cache values (1 byte each in the int8 formats, 2 in bf16, plus 8 bytes of
-// scales a slot), K6 21 MB of weights: at 3.35 TB/s about 3.5 us (K5 at pos
-// 255), 8 us (K5 int8 at pos 2047) and 6.3 us (K6). A few multiply-adds per
-// byte are far below the card's ~295 operations a byte.
+// scales a slot), K6 21 MB of weights: at 3.35 TB/s about 3.3 us (K5 int8
+// at pos 255), 7.8 us (K5 int8 at pos 2047) and 6.0 us (K6). A few
+// multiply-adds per byte are far below the card's ~295 operations a byte.
 //
-// Design (simple and right first): each C entry launches a fixed sequence
-// of small kernels on the caller's stream, allocates nothing and never
-// synchronises. The products are the split-K GEMV of the decode stack
-// (decode_gemv.cuh), whose reduce applies the epilogue (f32 out, bf16 out,
-// or silu(h1) * h3 for w1 and w3 in one launch). The new row is written by
-// its own small kernel before the attention launch, so stream order makes
-// it visible; the attention reads it back from the cache as the TPU kernel
-// does. A GQA call runs one attention block per query row, so the g query
-// heads of a kv head read its tiles g times (from L2 after the first).
-// K5 is 7 launches, K6 4.
+// K5's design: three kernels on the caller's stream, each launched as a
+// programmatic dependent of the one before (it loads its weights, or its
+// first cache tiles, before griddepcontrol.wait); it allocates nothing and
+// never synchronises.
+//   1. qkv = x @ Wqkv: the tensor-core GEMV of the decode stack
+//      (decode_stack_gemv.cuh, int4 words, no norm), f32 out, K cut by the
+//      wrapper's plan (ops/decode_stack.stack_gemv_plan), the split merge
+//      inside the launch.
+//   2. Attention: the one-pass kernel of K1 (decode_attention_onepass.cuh,
+//      attn_row_kernel, one block a query head and split, the window cut by
+//      ops/attention.attention_plan, the splits merged behind a ticket). The
+//      split that holds pos makes the new row in the cache's format from the
+//      f32 qkv itself and writes it; the int8 and packed tiles widen in
+//      registers on the CUDA cores.
+//   3. y = ya @ Wo: as 1, the bf16 epilogue.
+// What holds it (NVIDIA H100 80GB HBM3, 700 W; int8 cache at pos 255, mean
+// profiled time of each kernel, which overlap): qkv product 9.5 us,
+// attention 8.4, o-proj 10.5, 16.7 us from a call's first start to its
+// last end against 3.3 us of bytes. The three kernels depend on each other,
+// each product runs a prologue of dependent phases before its first mma,
+// and the attention's 256 slots are one split on 32 SMs (latency).
+// K6 (simple and right first): the split-K CUDA-core GEMV of decode_gemv.cuh
+// (w1 and w3 in one launch with the silu(h1) * h3 reduce, then w2): 4
+// launches.
 //
 // Plain C entry points (no PyTorch headers), loaded with ctypes by
 // metavoice_tpu_torch/ops/_build.py; the wrappers and their plain PyTorch
@@ -55,134 +68,13 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "decode_attention.cuh"
+#include "decode_attention_onepass.cuh"
 #include "decode_gemv.cuh"
+#include "decode_stack_gemv.cuh"
 
 namespace {
 
 constexpr int kDh = 128;  // the kernels' head width
-
-// The step's new K (blockIdx.y 0) or V (1) row of one (batch row, kv head)
-// (blockIdx.x = b * H_kv + h), read from qkv (B, D + 2 * H_kv * Dh) f32 and
-// written into the cache at (layer, pos) in format FMT. One thread a value.
-template <int FMT>
-__global__ void __launch_bounds__(kDh)
-kv_row_write(const float* __restrict__ qkv, int qout, int dim, int n_kv_head, void* k_cache,
-             void* v_cache, float* k_scale, float* v_scale, int scale_width, int seq_len,
-             int layer, int pos) {
-  const int kv_row = blockIdx.x;
-  const int bkv = gridDim.x;
-  const int b = kv_row / n_kv_head;
-  const int h = kv_row % n_kv_head;
-  const int t = threadIdx.x;
-  const bool is_v = blockIdx.y == 1;
-  const float v = qkv[(size_t)b * qout + dim + (is_v ? n_kv_head * kDh : 0) + h * kDh + t];
-  if constexpr (FMT == kFmtFloat) {
-    __nv_bfloat16* cache = static_cast<__nv_bfloat16*>(is_v ? v_cache : k_cache);
-    cache[(((size_t)layer * seq_len + pos) * bkv + kv_row) * kDh + t] = __float2bfloat16_rn(v);
-  } else {
-    __shared__ float s_max[kDh / 32];
-    float a = fabsf(v);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(kFull, a, off));
-    if ((t & 31) == 0) s_max[t >> 5] = a;
-    __syncthreads();
-    a = s_max[0];
-#pragma unroll
-    for (int w = 1; w < kDh / 32; ++w) a = fmaxf(a, s_max[w]);
-    const float s = fmaxf(a, 1e-8f) * (float)(1.0 / 127.0);
-    const int q = (int)fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
-    float* table = is_v ? v_scale : k_scale;
-    size_t srow;
-    if constexpr (FMT == kFmtI8) {
-      int8_t* cache = static_cast<int8_t*>(is_v ? v_cache : k_cache);
-      cache[(((size_t)layer * seq_len + pos) * bkv + kv_row) * kDh + t] = (int8_t)q;
-      srow = (size_t)layer * seq_len + pos;
-    } else {
-      uint32_t* cache = static_cast<uint32_t*>(is_v ? v_cache : k_cache);
-      const int sh = 8 * (pos & 3);
-      uint32_t* word = cache + (((size_t)layer * (seq_len / 4) + (pos >> 2)) * bkv + kv_row) * kDh + t;
-      *word = (*word & ~(0xFFu << sh)) | (((uint32_t)q & 0xFFu) << sh);
-      srow = ((size_t)layer * 4 + (pos & 3)) * (seq_len / 4) + (pos >> 2);
-    }
-    if (t == 0) table[srow * scale_width + kv_row] = s;
-  }
-}
-
-struct BlockArgs {
-  const __nv_bfloat16* x;  // (B, D) normed input
-  GemvMat wqkv, wo;        // this layer's
-  void* k_cache;
-  void* v_cache;
-  float* k_scale;
-  float* v_scale;
-  const int* starts;
-  __nv_bfloat16* y;  // (B, D) out
-  int layer, pos, batch, dim, n_head, n_kv_head, seq_len, scale_width, gp, n_splits, split_len;
-  float* qkv;         // (B, qout) scratch
-  __nv_bfloat16* ya;  // (B, D) attention output
-  float* part;        // GEMV partials
-  float* part_ml;     // attention partials
-  float* part_acc;
-};
-
-template <int NB, int CPT, int FMT, typename T>
-cudaError_t run_block(const BlockArgs& a, cudaStream_t s) {
-  const int d = a.dim;
-  const int qout = d + 2 * a.n_kv_head * kDh;
-  const int bkv = a.batch * a.n_kv_head;
-  Epilogue eq{};
-  eq.kind = kEpiF32;
-  eq.out_f32 = a.qkv;
-  MV_CHECK((launch_gemv<NB, CPT, 8>(a.x, a.batch, d, qout, a.gp, a.wqkv, a.wqkv, 1, a.part, eq, s)));
-
-  kv_row_write<FMT><<<dim3(bkv, 2), kDh, 0, s>>>(a.qkv, qout, d, a.n_kv_head, a.k_cache,
-                                                  a.v_cache, a.k_scale, a.v_scale,
-                                                  a.scale_width, a.seq_len, a.layer, a.pos);
-  MV_CHECK(cudaGetLastError());
-
-  SplitArgs<float, T> at{};
-  at.q = a.qkv;
-  at.q_bstride = qout;
-  at.k_new = nullptr;  // the row is in the cache already
-  at.v_new = nullptr;
-  at.k_cache = static_cast<T*>(a.k_cache);
-  at.v_cache = static_cast<T*>(a.v_cache);
-  at.starts = a.starts;
-  at.n_head = a.n_head;
-  at.group = a.n_head / a.n_kv_head;
-  at.bkv = bkv;
-  at.seq_len = a.seq_len;
-  at.layer = a.layer;
-  at.pos_dev = nullptr;
-  at.pos = a.pos;
-  at.split_len = a.split_len;
-  at.scale = (float)(1.0 / sqrt((double)kDh));
-  at.part_ml = a.part_ml;
-  at.part_acc = a.part_acc;
-  at.k_scale = a.k_scale;
-  at.v_scale = a.v_scale;
-  at.scale_width = a.scale_width;
-  const int rows = a.batch * a.n_head;
-  decode_attn_split<float, T, kDh, FMT><<<dim3(rows, a.n_splits), kThreads, 0, s>>>(at);
-  MV_CHECK(cudaGetLastError());
-  decode_attn_combine<__nv_bfloat16, kDh><<<rows, kDh, 0, s>>>(a.part_ml, a.part_acc, a.n_splits,
-                                                               a.ya);
-  MV_CHECK(cudaGetLastError());
-
-  Epilogue eo{};
-  eo.kind = kEpiBf16;
-  eo.out_bf16 = a.y;
-  return launch_gemv<NB, CPT, 8>(a.ya, a.batch, d, d, a.gp, a.wo, a.wo, 1, a.part, eo, s);
-}
-
-template <int FMT, typename T>
-int run_block_rows(const BlockArgs& a, cudaStream_t s) {
-  if (a.batch == 1) return (int)run_block<1, 4, FMT, T>(a, s);
-  if (a.batch == 2) return (int)run_block<2, 4, FMT, T>(a, s);
-  if (a.batch <= 4) return (int)run_block<4, 2, FMT, T>(a, s);
-  return (int)run_block<8, 1, FMT, T>(a, s);
-}
 
 template <int NB, int CPT>
 cudaError_t run_ffn(const __nv_bfloat16* x, GemvMat w1, GemvMat w3, GemvMat w2, float* y, int batch,
@@ -203,60 +95,82 @@ GemvMat mat(const void* pw, const void* sc) {
 
 }  // namespace
 
-// One layer's int4 attention block (K5). fmt: 0 a bf16 cache (L, S, B, H_kv, 128);
-// 1 an int8 cache of the same shape with k_scale/v_scale (L, S, 1, scale_width) f32;
-// 2 a packed cache (L, S/4, B, H_kv, 128) int32 with residue-split scales
+// One layer's int4 attention block (K5). fmt (CacheFmt, decode_attention.cuh):
+// kFmtFloat (0) a bf16 cache (L, S, B, H_kv, 128); kFmtI8 (1) an int8 cache of the
+// same shape with k_scale/v_scale (L, S, 1, scale_width) f32; kFmtPacked (2) a packed cache (L, S/4, B, H_kv, 128) int32 with residue-split scales
 // (L, 4, S/4, 1, scale_width) f32. x (B, D) bf16; wqkv_pw (L, D/8, D + 2*H_kv*128)
 // i32, wqkv_sc (L, 2*gp, same) bf16; wo (L, D/8, D); starts NULL or (B,) int32;
 // y (B, D) bf16 out. The caches and scales are updated in place at (layer, pos).
-// Scratch: qkv (B, D + 2*H_kv*128) f32, ya (B, D) bf16, part f32 holding
-// D/256 * B * (D + 2*H_kv*128) partials, part_ml (B*H*n_splits*2) and part_acc
-// (B*H*n_splits*128) f32. n_splits * split_len must cover pos + 1. Returns a cudaError_t.
+// plans: host int32 [2][3], {split_steps, n_splits, warps} of the qkv and the
+// o-proj product (ops/decode_stack.stack_gemv_plan). The window [0, pos] in
+// n_splits <= 32 splits of split_len slots (ops/attention.attention_plan with
+// B*H rows). Scratch: qkv (B, D + 2*H_kv*128) f32, ya (B, D) bf16, part f32 of
+// part_elems, at least each product's splits * B * (N + 1) when it has more
+// than one split, tickets n_tickets int32 all 0 (left 0), at least N / 32 of
+// the qkv product; with n_splits > 1, attn_part f32 of B*H*n_splits*(128 + 2)
+// and attn_tickets n_attn_tickets >= B*H int32 all 0 (left 0). Returns a
+// cudaError_t.
 extern "C" int mv_decode_block_int4(
     int fmt, const void* x, const void* wqkv_pw, const void* wqkv_sc, const void* wo_pw,
     const void* wo_sc, void* k_cache, void* v_cache, void* k_scale, void* v_scale,
     const void* starts, void* y, int layer, int pos, int batch, int dim, int n_head, int n_kv_head,
-    int head_dim, int seq_len, int scale_width, int gp, int n_splits, int split_len, void* qkv,
-    void* ya, void* part, void* part_ml, void* part_acc, void* stream) {
+    int head_dim, int seq_len, int scale_width, int gp, const void* plans, int split_len, int n_splits,
+    void* qkv, void* ya, void* part, long long part_elems, void* tickets, int n_tickets, void* attn_part,
+    void* attn_tickets, int n_attn_tickets, void* stream) {
   const bool quant = fmt == kFmtI8 || fmt == kFmtPacked;
-  if (fmt < kFmtFloat || fmt > kFmtPacked || batch < 1 || batch > 8 || head_dim != kDh ||
-      n_kv_head < 1 || n_head % n_kv_head != 0 || n_head * kDh != dim || dim % (8 * kQGroup) != 0 ||
-      gp < dim / kQGroup || layer < 0 || pos < 0 || pos >= seq_len || n_splits < 1 ||
-      (long long)n_splits * split_len < pos + 1 || x == nullptr || y == nullptr ||
-      (quant && (k_scale == nullptr || v_scale == nullptr || scale_width < batch * n_kv_head)) ||
-      (fmt == kFmtPacked && seq_len % 4 != 0))
-    return (int)cudaErrorInvalidValue;
   const int qout = dim + 2 * n_kv_head * kDh;
-  BlockArgs a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.wqkv = layer_mat<8>(mat(wqkv_pw, wqkv_sc), layer, dim, qout, gp);
-  a.wo = layer_mat<8>(mat(wo_pw, wo_sc), layer, dim, dim, gp);
-  a.k_cache = k_cache;
-  a.v_cache = v_cache;
-  a.k_scale = static_cast<float*>(k_scale);
-  a.v_scale = static_cast<float*>(v_scale);
-  a.starts = static_cast<const int*>(starts);
-  a.y = static_cast<__nv_bfloat16*>(y);
-  a.layer = layer;
-  a.pos = pos;
-  a.batch = batch;
-  a.dim = dim;
-  a.n_head = n_head;
-  a.n_kv_head = n_kv_head;
-  a.seq_len = seq_len;
-  a.scale_width = scale_width;
-  a.gp = gp;
-  a.n_splits = n_splits;
-  a.split_len = split_len;
-  a.qkv = static_cast<float*>(qkv);
-  a.ya = static_cast<__nv_bfloat16*>(ya);
-  a.part = static_cast<float*>(part);
-  a.part_ml = static_cast<float*>(part_ml);
-  a.part_acc = static_cast<float*>(part_acc);
+  const int* plan = static_cast<const int*>(plans);
+  if ((fmt != kFmtFloat && !quant) || batch < 1 || batch > kSgRows || head_dim != kDh || n_kv_head < 1 ||
+      n_head % n_kv_head != 0 || n_head * kDh != dim || dim % (8 * kSgQGroup) != 0 || gp < dim / kSgQGroup ||
+      layer < 0 || pos < 0 || pos >= seq_len || n_splits < 1 || n_splits > kCMaxSplits || split_len < 1 ||
+      (long long)n_splits * split_len < pos + 1 || (long long)(n_splits - 1) * split_len >= pos + 1 ||
+      x == nullptr || y == nullptr || plan == nullptr ||
+      (quant && (k_scale == nullptr || v_scale == nullptr || scale_width < batch * n_kv_head)) ||
+      (fmt == kFmtPacked && seq_len % 4 != 0) ||
+      (n_splits > 1 && (attn_part == nullptr || attn_tickets == nullptr || batch * n_head > n_attn_tickets)) ||
+      !sg_plan_ok(8, batch, dim, qout, 1, plan, part_elems, n_tickets) ||
+      !sg_plan_ok(8, batch, dim, dim, 1, plan + 3, part_elems, n_tickets))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fmt == kFmtI8) return run_block_rows<kFmtI8, int8_t>(a, s);
-  if (fmt == kFmtPacked) return run_block_rows<kFmtPacked, int32_t>(a, s);
-  return run_block_rows<kFmtFloat, __nv_bfloat16>(a, s);
+  auto* qkv_f = static_cast<float*>(qkv);
+  auto* ya_b = static_cast<__nv_bfloat16*>(ya);
+  SgArgs q = {};
+  q.x = static_cast<const __nv_bfloat16*>(x);
+  q.b_rows = batch;
+  q.m0 = q.m1 = layer_mat<8>(SgMat{static_cast<const int32_t*>(wqkv_pw), static_cast<const __nv_bfloat16*>(wqkv_sc)},
+                             layer, dim, qout, gp);
+  q.k = dim;
+  q.n = qout;
+  q.gp = gp;
+  q.split_steps = plan[0];
+  q.epi = kSgF32;
+  q.out_f32 = qkv_f;
+  q.part = static_cast<float*>(part);
+  q.tickets = static_cast<int*>(tickets);
+  MV_CHECK(launch_stack_gemv<8>(q, plan, 1, s));
+
+  const int* st = static_cast<const int*>(starts);
+  auto* ap = static_cast<float*>(attn_part);
+  auto* at = static_cast<int*>(attn_tickets);
+  auto* ks = static_cast<float*>(k_scale);
+  auto* vs = static_cast<float*>(v_scale);
+#define MV_ATTN(NEW)                                                                                       \
+  attention_block<NEW>(qkv_f, qout, k_cache, v_cache, ks, vs, scale_width, st, batch, n_head, n_kv_head, \
+                       seq_len, layer, pos, split_len, n_splits, ap, at, ya_b, s)
+  // the cache format as the attention's new-row kind
+  MV_CHECK(fmt == kFmtFloat ? MV_ATTN(kRowBf16) : fmt == kFmtI8 ? MV_ATTN(kRowI8) : MV_ATTN(kRowPacked));
+#undef MV_ATTN
+
+  SgArgs o = q;
+  o.x = ya_b;
+  o.m0 = o.m1 = layer_mat<8>(SgMat{static_cast<const int32_t*>(wo_pw), static_cast<const __nv_bfloat16*>(wo_sc)},
+                             layer, dim, dim, gp);
+  o.n = dim;
+  o.split_steps = plan[3];
+  o.epi = kSgBf16;
+  o.out_f32 = nullptr;
+  o.out_bf16 = static_cast<__nv_bfloat16*>(y);
+  return (int)launch_stack_gemv<8>(o, plan + 3, 1, s);
 }
 
 // One layer's int4 SwiGLU FFN (K6): x (B, D) bf16; w1, w3 pw (L, D/8, Ip) i32 with sc

@@ -10,11 +10,10 @@
 //
 // K9, for B <= 8 rows of the normed input x (B, D) bf16, MHA, Dh = 128:
 //   qkv = (x @ Wqkv) * s_qkv in f32 (bf16 x times the exact int8 values,
-//   f32 sums, times the column scale);
+//   f32 sums over all of K, times the column scale);
 //   the new K and V rows written as bf16(qkv) at (layer, pos) of the bf16
-//   (L, S, B, H, Dh) cache (in the reduce's epilogue);
-//   attention over [starts[b], pos] read back from the cache (the split
-//   kernel of decode_attention.cuh: q * 1/sqrt(Dh) in f32, f32 scores and
+//   (L, S, B, H, Dh) cache;
+//   attention over [starts[b], pos] (q * 1/sqrt(Dh) in f32, f32 scores and
 //   sums), rounded to bf16;
 //   y = bf16((y_attn @ Wo) * s_o).
 // K10: h = bf16(silu(x @ W1 * s1) * (x @ W3 * s3)) with silu and the product
@@ -28,15 +27,29 @@
 // (K10). Two multiply-adds per weight byte and row are far below the card's
 // ~295 operations a byte.
 //
-// Design (simple and right first): each C entry launches a fixed sequence of
-// small kernels on the caller's stream, allocates nothing and never
-// synchronises. The products are the split-K CUDA-core GEMV over the plain
-// layout (gemv8_partial in decode_gemv.cuh): a lane's 16-byte load is 16
-// neighbouring columns at one k; the fixed-order reduce applies the column
-// scale and the epilogue (the qkv row write, bf16 out, or silu(h1) * h3 for
-// w1 and w3 in one launch). The attention is K1's split kernel, reading the
-// new row back from the cache as the TPU kernel does. K9 is 6 launches, K10
-// 4.
+// K9's design: three kernels on the caller's stream, each launched as a
+// programmatic dependent of the one before (it loads its weights, or its
+// first cache tiles, before griddepcontrol.wait); it allocates nothing and
+// never synchronises.
+//   1. qkv = x @ Wqkv * s: the tensor-core GEMV of decode_stack_gemv.cuh in
+//      its plain-int8 form (a lane's 4 columns one 4-byte word a row, the
+//      signed bytes made exact bf16 by a byte permute, f32 sums over K, the
+//      column scale applied once after the split merge inside the launch),
+//      K cut by the wrapper's plan (ops/decode_stack.stack_gemv_plan, vpw 1).
+//   2. Attention: the one-pass kernel of K1 (decode_attention_onepass.cuh,
+//      attn_row_kernel, one block a head and split, the window cut by
+//      ops/attention.attention_plan, the splits merged behind a ticket); the
+//      split that holds pos rounds the new row from the f32 qkv and writes it.
+//   3. y = bf16(ya @ Wo * s_o): as 1, the bf16 epilogue.
+// What holds it (NVIDIA H100 80GB HBM3, 700 W; pos 255, mean profiled time
+// of each kernel, which overlap): qkv product 15.2 us (12.6 MB of words in
+// 384 blocks, 2 splits and their merge), attention 11.4, o-proj 11.7, 20.8
+// us from a call's first start to its last end against 6.3 us of bytes:
+// three dependent kernels, each product a prologue of dependent phases
+// before its first mma, the attention's 256 slots one split on 32 SMs.
+// K10 (simple and right first): the split-K CUDA-core GEMV over the plain
+// layout (gemv8_partial in decode_gemv.cuh; w1 and w3 in one launch, the
+// reduce applying the column scales and silu(h1) * h3, then w2): 4 launches.
 //
 // Plain C entry points (no PyTorch headers), loaded with ctypes by
 // metavoice_tpu_torch/ops/_build.py; the wrappers and their plain PyTorch
@@ -48,80 +61,13 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "decode_attention.cuh"
+#include "decode_attention_onepass.cuh"
 #include "decode_gemv.cuh"
+#include "decode_stack_gemv.cuh"
 
 namespace {
 
 constexpr int kDh = 128;  // the kernel's head width
-
-struct Block8Args {
-  const __nv_bfloat16* x;  // (B, D) normed input
-  const int8_t* wqkv;      // (D, 3D)
-  const float* wqkv_s;     // (3D,)
-  const int8_t* wo;        // (D, D)
-  const float* wo_s;       // (D,)
-  __nv_bfloat16* k_cache;  // (L, S, B, H, Dh)
-  __nv_bfloat16* v_cache;
-  const int* starts;
-  __nv_bfloat16* y;  // (B, D) out
-  int layer, pos, batch, dim, n_head, seq_len, n_splits, split_len;
-  float* qkv;         // (B, 3D) scratch
-  __nv_bfloat16* ya;  // (B, D) attention output
-  float* part;        // GEMV partials
-  float* part_ml;     // attention partials
-  float* part_acc;
-};
-
-template <int NB, int CPL>
-cudaError_t run_block8(const Block8Args& a, cudaStream_t s) {
-  const int d = a.dim;
-  Epilogue eq{};
-  eq.kind = kEpiQKV;
-  eq.out_f32 = a.qkv;
-  eq.scale0 = a.wqkv_s;
-  eq.k_cache = a.k_cache;
-  eq.v_cache = a.v_cache;
-  eq.pos = nullptr;
-  eq.pos_host = a.pos;
-  eq.layer = a.layer;
-  eq.seq_len = a.seq_len;
-  eq.d = d;
-  eq.dkv = d;
-  MV_CHECK((launch_gemv8<NB, CPL>(a.x, a.batch, d, 3 * d, a.wqkv, a.wqkv, 1, a.part, eq, s)));
-
-  SplitArgs<float, __nv_bfloat16> at{};
-  at.q = a.qkv;
-  at.q_bstride = 3 * d;
-  at.k_new = nullptr;  // the row is in the cache already
-  at.v_new = nullptr;
-  at.k_cache = a.k_cache;
-  at.v_cache = a.v_cache;
-  at.starts = a.starts;
-  at.n_head = a.n_head;
-  at.group = 1;
-  at.bkv = a.batch * a.n_head;
-  at.seq_len = a.seq_len;
-  at.layer = a.layer;
-  at.pos_dev = nullptr;
-  at.pos = a.pos;
-  at.split_len = a.split_len;
-  at.scale = (float)(1.0 / sqrt((double)kDh));
-  at.part_ml = a.part_ml;
-  at.part_acc = a.part_acc;
-  const int rows = a.batch * a.n_head;
-  decode_attn_split<float, __nv_bfloat16, kDh, kFmtFloat><<<dim3(rows, a.n_splits), kThreads, 0, s>>>(at);
-  MV_CHECK(cudaGetLastError());
-  decode_attn_combine<__nv_bfloat16, kDh><<<rows, kDh, 0, s>>>(a.part_ml, a.part_acc, a.n_splits,
-                                                               a.ya);
-  MV_CHECK(cudaGetLastError());
-
-  Epilogue eo{};
-  eo.kind = kEpiBf16;
-  eo.out_bf16 = a.y;
-  eo.scale0 = a.wo_s;
-  return launch_gemv8<NB, CPL>(a.ya, a.batch, d, d, a.wo, a.wo, 1, a.part, eo, s);
-}
 
 template <int NB, int CPL>
 cudaError_t run_ffn8(const __nv_bfloat16* x, const int8_t* w1, const float* s1, const int8_t* w3,
@@ -145,47 +91,63 @@ cudaError_t run_ffn8(const __nv_bfloat16* x, const int8_t* w1, const float* s1, 
 // One layer's plain-int8 attention block (K9). x (B, D) bf16; wqkv (D, 3D) int8 with
 // wqkv_s (3D,) f32; wo (D, D) int8 with wo_s (D,) f32; k_cache/v_cache (L, S, B, H, 128)
 // bf16, written at (layer, pos); starts NULL or (B,) int32; y (B, D) bf16 out.
-// Scratch: qkv (B, 3D) f32, ya (B, D) bf16, part f32 holding ceil(D/64) * B * 3D
-// partials, part_ml (B*H*n_splits*2) and part_acc (B*H*n_splits*128) f32.
-// n_splits * split_len must cover pos + 1. Returns a cudaError_t.
+// plans: host int32 [2][3], {split_steps, n_splits, warps} of the qkv and the
+// o-proj product (ops/decode_stack.stack_gemv_plan with vpw 1). The window
+// [0, pos] in n_splits <= 32 splits of split_len slots (ops/attention.
+// attention_plan with B*H rows). Scratch: qkv (B, 3D) f32, ya (B, D) bf16,
+// part f32 of part_elems, at least each product's splits * B * (N + 1) when it
+// has more than one split, tickets n_tickets int32 all 0 (left 0), at least
+// 3D / 32; with n_splits > 1, attn_part f32 of B*H*n_splits*(128 + 2) and
+// attn_tickets n_attn_tickets >= B*H int32 all 0 (left 0). Returns a
+// cudaError_t.
 extern "C" int mv_decode_block_int8(const void* x, const void* wqkv, const void* wqkv_s,
                                     const void* wo, const void* wo_s, void* k_cache, void* v_cache,
                                     const void* starts, void* y, int layer, int pos, int batch,
-                                    int dim, int n_head, int seq_len, int n_splits, int split_len,
-                                    void* qkv, void* ya, void* part, void* part_ml, void* part_acc,
-                                    void* stream) {
-  if (batch < 1 || batch > 8 || n_head < 1 || n_head * kDh != dim || layer < 0 || pos < 0 ||
-      pos >= seq_len || n_splits < 1 || (long long)n_splits * split_len < pos + 1 ||
-      x == nullptr || y == nullptr)
+                                    int dim, int n_head, int seq_len, const void* plans, int split_len,
+                                    int n_splits, void* qkv, void* ya, void* part, long long part_elems,
+                                    void* tickets, int n_tickets, void* attn_part, void* attn_tickets,
+                                    int n_attn_tickets, void* stream) {
+  const int* plan = static_cast<const int*>(plans);
+  if (batch < 1 || batch > kSgRows || n_head < 1 || n_head * kDh != dim || layer < 0 || pos < 0 ||
+      pos >= seq_len || n_splits < 1 || n_splits > kCMaxSplits || split_len < 1 ||
+      (long long)n_splits * split_len < pos + 1 || (long long)(n_splits - 1) * split_len >= pos + 1 ||
+      x == nullptr || y == nullptr || plan == nullptr || wqkv_s == nullptr || wo_s == nullptr ||
+      (n_splits > 1 && (attn_part == nullptr || attn_tickets == nullptr || batch * n_head > n_attn_tickets)) ||
+      !sg_plan_ok(1, batch, dim, 3 * dim, 1, plan, part_elems, n_tickets) ||
+      !sg_plan_ok(1, batch, dim, dim, 1, plan + 3, part_elems, n_tickets))
     return (int)cudaErrorInvalidValue;
-  Block8Args a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.wqkv = static_cast<const int8_t*>(wqkv);
-  a.wqkv_s = static_cast<const float*>(wqkv_s);
-  a.wo = static_cast<const int8_t*>(wo);
-  a.wo_s = static_cast<const float*>(wo_s);
-  a.k_cache = static_cast<__nv_bfloat16*>(k_cache);
-  a.v_cache = static_cast<__nv_bfloat16*>(v_cache);
-  a.starts = static_cast<const int*>(starts);
-  a.y = static_cast<__nv_bfloat16*>(y);
-  a.layer = layer;
-  a.pos = pos;
-  a.batch = batch;
-  a.dim = dim;
-  a.n_head = n_head;
-  a.seq_len = seq_len;
-  a.n_splits = n_splits;
-  a.split_len = split_len;
-  a.qkv = static_cast<float*>(qkv);
-  a.ya = static_cast<__nv_bfloat16*>(ya);
-  a.part = static_cast<float*>(part);
-  a.part_ml = static_cast<float*>(part_ml);
-  a.part_acc = static_cast<float*>(part_acc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch == 1) return (int)run_block8<1, 16>(a, s);
-  if (batch == 2) return (int)run_block8<2, 16>(a, s);
-  if (batch <= 4) return (int)run_block8<4, 16>(a, s);
-  return (int)run_block8<8, 8>(a, s);
+  auto* qkv_f = static_cast<float*>(qkv);
+  auto* ya_b = static_cast<__nv_bfloat16*>(ya);
+  SgArgs q = {};
+  q.x = static_cast<const __nv_bfloat16*>(x);
+  q.b_rows = batch;
+  q.m0 = q.m1 = SgMat{static_cast<const int32_t*>(wqkv), nullptr};
+  q.col_scale = static_cast<const float*>(wqkv_s);
+  q.k = dim;
+  q.n = 3 * dim;
+  q.split_steps = plan[0];
+  q.epi = kSgF32;
+  q.out_f32 = qkv_f;
+  q.part = static_cast<float*>(part);
+  q.tickets = static_cast<int*>(tickets);
+  MV_CHECK(launch_stack_gemv<1>(q, plan, 1, s));
+
+  MV_CHECK(attention_block<kRowBf16>(qkv_f, 3 * dim, k_cache, v_cache, nullptr, nullptr, 0,
+                                     static_cast<const int*>(starts), batch, n_head, n_head, seq_len, layer,
+                                     pos, split_len, n_splits, static_cast<float*>(attn_part),
+                                     static_cast<int*>(attn_tickets), ya_b, s));
+
+  SgArgs o = q;
+  o.x = ya_b;
+  o.m0 = o.m1 = SgMat{static_cast<const int32_t*>(wo), nullptr};
+  o.col_scale = static_cast<const float*>(wo_s);
+  o.n = dim;
+  o.split_steps = plan[3];
+  o.epi = kSgBf16;
+  o.out_f32 = nullptr;
+  o.out_bf16 = static_cast<__nv_bfloat16*>(y);
+  return (int)launch_stack_gemv<1>(o, plan + 3, 1, s);
 }
 
 // One layer's plain-int8 SwiGLU FFN (K10): x (B, D) bf16; w1, w3 (D, I) int8 with s1, s3

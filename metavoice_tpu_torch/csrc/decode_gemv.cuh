@@ -1,9 +1,9 @@
-// The split-K CUDA-core GEMV for a few rows of activations (B <= 8): over
-// int32 weight words, shared by the int4/int8 decode stack
-// (decode_stack_int4.cu, K3 and K7) and the per-layer int4 attention block
-// and FFN (decode_block_int4.cu, K5 and K6); and over plain (K, N) int8
-// weights (gemv8_partial), for the plain-int8 attention block and FFN
-// (decode_block_int8.cu, K9 and K10).
+// The split-K CUDA-core GEMV for a few rows of activations (B <= 8), used
+// now only by the per-layer FFNs: over int32 weight words for the int4 FFN
+// (decode_block_int4.cu, K6), and over plain (K, N) int8 weights
+// (gemv8_partial) for the plain-int8 FFN (decode_block_int8.cu, K10). The
+// decode stack (K3, K7) and the attention blocks (K5, K9) take the
+// tensor-core GEMV of decode_stack_gemv.cuh.
 //
 // A block of gemv_partial owns 32 word rows (int4: a quarter of one 128-row
 // group in each of the 8 nibble slabs) by 32 * CPT columns; neighbouring
@@ -51,7 +51,7 @@ constexpr int kGemvThreads = kGemvWarps * 32;
 constexpr int kRowsPerGemvWarp = kChunkRows / kGemvWarps;
 constexpr int kReduceThreads = 256;
 
-enum Epi { kEpiF32 = 0, kEpiQKV = 1, kEpiResid = 2, kEpiSwiglu = 3, kEpiBf16 = 4 };
+enum Epi { kEpiF32 = 0, kEpiSwiglu = 1 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -215,18 +215,10 @@ gemv_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int kw, int n, int
 
 struct Epilogue {
   int kind;
-  float* out_f32;            // kEpiF32, kEpiQKV: (b_rows, n)
-  __nv_bfloat16* out_bf16;   // kEpiResid (added to in place), kEpiSwiglu, kEpiBf16: (b_rows, n)
+  float* out_f32;            // kEpiF32: (b_rows, n)
+  __nv_bfloat16* out_bf16;   // kEpiSwiglu: (b_rows, n)
   const float* scale0;       // nullptr, or (n,) f32 column scales of the (first) product
   const float* scale1;       // kEpiSwiglu: nullptr, or those of the second
-  __nv_bfloat16* k_cache;    // kEpiQKV: the row write at (layer, pos)
-  __nv_bfloat16* v_cache;
-  const int* pos;            // nullptr: pos_host
-  int pos_host;
-  int layer;
-  int seq_len;
-  int d;    // q columns before the k columns
-  int dkv;  // H_kv * Dh
 };
 
 // Sums the partials of every chunk in order and applies the epilogue.
@@ -242,22 +234,6 @@ gemv_reduce(const float* __restrict__ part, int n_chunks, int b_rows, int n, Epi
     case kEpiF32:
       e.out_f32[i] = y;
       break;
-    case kEpiQKV: {
-      e.out_f32[i] = y;
-      const int b = i / n;
-      const int col = i % n - e.d;
-      if (col >= 0) {
-        __nv_bfloat16* cache = col < e.dkv ? e.k_cache : e.v_cache;
-        const int cc = col < e.dkv ? col : col - e.dkv;
-        const int pos = e.pos != nullptr ? *e.pos : e.pos_host;
-        cache[(((size_t)e.layer * e.seq_len + pos) * b_rows + b) * e.dkv + cc] =
-            __float2bfloat16_rn(y);
-      }
-      break;
-    }
-    case kEpiResid:
-      e.out_bf16[i] = __float2bfloat16_rn(bf(e.out_bf16[i]) + round_bf16(y));
-      break;
     case kEpiSwiglu: {
       float y3 = 0.f;
       for (int c = 0; c < n_chunks; ++c) y3 += part[(n_chunks + c) * stride + i];
@@ -265,9 +241,6 @@ gemv_reduce(const float* __restrict__ part, int n_chunks, int b_rows, int n, Epi
       e.out_bf16[i] = __float2bfloat16_rn(y / (1.f + expf(-y)) * y3);
       break;
     }
-    case kEpiBf16:
-      e.out_bf16[i] = __float2bfloat16_rn(y);
-      break;
   }
 }
 
@@ -293,13 +266,6 @@ cudaError_t launch_gemv(const __nv_bfloat16* x, int b_rows, int k, int n, int gp
 
 constexpr int kChunk8 = 64;  // K rows per gemv8_partial block
 constexpr int kRowsPerGemvWarp8 = kChunk8 / kGemvWarps;
-
-// Byte j of a word of four int8 weights whose sign bits are flipped
-// (w ^ 0x80808080, so the byte is q + 128), as an exact float: the byte in
-// the low mantissa bits of 2^23 by one byte permute, minus 2^23 + 128.
-__device__ __forceinline__ float s8_val(uint32_t flipped, int j) {
-  return __int_as_float((int)__byte_perm(flipped, 0x4B000000u, 0x7540u + j)) - 8388736.0f;
-}
 
 template <int CPL>
 __device__ __forceinline__ void load_bytes(const int8_t* p, uint32_t (&w)[CPL / 4]) {
@@ -369,7 +335,7 @@ gemv8_partial(const __nv_bfloat16* __restrict__ x, int b_rows, int k, int n,
         const uint32_t flipped = wv[q] ^ 0x80808080u;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float wf = s8_val(flipped, j);
+          const float wf = sbyte_float(flipped, j);
 #pragma unroll
           for (int b = 0; b < NB; ++b) acc[b][4 * q + j] = fmaf(xv[b], wf, acc[b][4 * q + j]);
         }

@@ -1,6 +1,8 @@
-// The GEMV of the int32-word decode stack (decode_stack_int4.cu, K3 with
-// int4 words and K7 with int8 words), on the tensor cores, one launch a
-// product. Only decode_stack_int4.cu includes it.
+// The decode GEMV on the tensor cores, one launch a product: the products
+// of the int32-word decode stack (decode_stack_int4.cu, K3 with int4 words
+// and K7 with int8 words) and of the per-layer attention blocks
+// (decode_block_int4.cu, K5's int4 words; decode_block_int8.cu, K9's plain
+// int8). Only those three files include it.
 //
 // y (B, N) = xn (B, K) @ W (K, N) for B <= 8 rows, where xn is x itself or,
 // for the products that follow a norm, RMSNorm(x) * w computed here from the
@@ -8,10 +10,12 @@
 // word (r, n) hold q[j K/8 + r, n] + 8, groups of 128 rows with s and c =
 // z - 7.5 s in sc rows [0, gp) and [gp, 2 gp)) or int8 "split-quarter" (byte
 // j of word (r, n) holds q[j K/4 + r, n] + 128; one group over K, s at sc
-// row 0 and c = -128 s at row gp). The arithmetic is the TPU kernels'
-// (_int4_group_matmul, _int8_word_matmul): per group, f32 sums of x times
-// the raw value (a nibble 0..15 or a byte 0..255, exact in bf16), times s,
-// plus bf16(sum of x over the group) * c.
+// row 0 and c = -128 s at row gp); or plain int8 (K, N) with one f32 scale a
+// column (VPW 1). The arithmetic is the TPU kernels' (_int4_group_matmul,
+// _int8_word_matmul): per group, f32 sums of x times the raw value (a nibble
+// 0..15 or a byte 0..255, exact in bf16), times s, plus bf16(sum of x over
+// the group) * c; plain int8 (_decode_block_kernel): f32 sums of x times the
+// signed byte over all of K, times the column's scale after the merge.
 //
 // Design:
 //   * mma.sync m16n8k16 bf16 -> f32 with the WEIGHTS as A (16 output
@@ -34,7 +38,17 @@
 //     (rows r, r + 1) becomes the bf16 pair (128 + n, 128 + n') with one byte
 //     permute and one lop3 against 0x43004300, and one bf16x2 subtract of 128
 //     gives n, n' exactly; a byte b becomes the f32 2^23 + b by one byte
-//     permute, one f32 subtract gives b, and one cvt.rn.bf16x2.f32 packs two.
+//     permute, one f32 subtract gives b, and one cvt.rn.bf16x2.f32 packs two
+//     (a signed byte: its sign bit flipped first, and 2^23 + 128 taken off).
+//   * Plain int8: a lane's 4 columns are one 4-byte word a row (rows 4 tig
+//     .. + 3 of a k-step), so byte j of two rows' words is the A register of
+//     column 4 gid + j. Each warp stages its k-steps (16 rows x 32 bytes) in
+//     a shared-memory ring of kSgPlainAhead slots, one 16-byte cp.async a
+//     lane a step, and reads the 4-byte words back conflict-free (K9 on an
+//     NVIDIA H100 80GB HBM3 at 700 W, one call: 9% faster at pos 255 and 7%
+//     at 2047 than 4-byte register loads of the words in a ring 8 deep, 5%
+//     and 3% than one 16 deep). No c term and no sums of x: the
+//     norm-and-sum pass is skipped.
 //   * K is cut into splits of split_steps k-steps (the wrapper's plan,
 //     ops/decode_stack.stack_gemv_plan), a split dealt to the block's 4 warps
 //     in runs. The warps sum in shared memory; with one split (and one
@@ -95,6 +109,8 @@ constexpr int kSgThreads = kSgWarps * 32;
 constexpr int kSgMinBlocks = 3;     // blocks an SM the registers must allow (the plan's aim)
 constexpr int kSgRows = 8;          // rows of x: the mma's N
 constexpr int kSgAhead = 4;         // k-steps whose words a warp loads at once (a batch)
+constexpr int kSgPlainAhead = 8;    // plain int8: k-steps of 512 bytes a warp has in flight
+constexpr int kSgPlainStep = kSgStepRows * kSgCols;  // plain int8: bytes a warp's k-step
 constexpr int kSgQGroup = 128;      // int4 group: word rows of a slab
 constexpr int kSgGroupSteps = kSgQGroup / kSgStepRows;  // int4 k-steps a group: splits hold whole groups
 constexpr int kSgMaxCGroups = 4;    // int4 groups a split holds at most (split_steps <= 32)
@@ -108,11 +124,11 @@ constexpr int kSgMergeVec = 8;      // split partials the merging block loads at
 constexpr int kSgCluster = 2;        // column tiles a cluster: each slice is read from L2 once a cluster
 constexpr int kSgXBytes = 36 * 1024;  // the x slice and the norm weights' slice in shared memory, at most
 
-enum SgEpi { kSgF32 = 0, kSgQKV = 1, kSgResid = 2, kSgSwiglu = 3 };
+enum SgEpi { kSgF32 = 0, kSgQKV = 1, kSgResid = 2, kSgSwiglu = 3, kSgBf16 = 4 };
 
 struct SgMat {
-  const int32_t* pw;        // (K / VPW, N) words
-  const __nv_bfloat16* sc;  // (2 gp, N)
+  const int32_t* pw;        // (K / VPW, N) words; plain int8: (K, N) bytes
+  const __nv_bfloat16* sc;  // (2 gp, N); plain int8: unread
 };
 
 // One product: its input, weights, cut of K and epilogue.
@@ -123,8 +139,9 @@ struct SgArgs {
   SgMat m0, m1;                 // m1: w3 beside w1 (kSgSwiglu, grid z 2)
   int b_rows, k, n, gp, split_steps;
   int epi;
+  const float* col_scale;       // plain int8: (N,) f32, times the merged sum
   float* out_f32;               // kSgF32, kSgQKV: (B, N)
-  __nv_bfloat16* out_bf16;      // kSgResid: bf16(resid + bf16(y)), in place when resid is it; kSgSwiglu
+  __nv_bfloat16* out_bf16;      // kSgResid: bf16(resid + bf16(y)), in place when resid is it; kSgSwiglu; kSgBf16
   const __nv_bfloat16* resid;
   __nv_bfloat16* k_cache;       // kSgQKV: columns >= d go to the cache row at (layer, *pos)
   __nv_bfloat16* v_cache;
@@ -201,6 +218,13 @@ __device__ __forceinline__ uint32_t sg_byte_pair(uint32_t w0, uint32_t w1, int j
   const float f0 = __int_as_float((int)__byte_perm(w0, 0x4B000000u, 0x7540u + j)) - 8388608.0f;
   const float f1 = __int_as_float((int)__byte_perm(w1, 0x4B000000u, 0x7540u + j)) - 8388608.0f;
   __nv_bfloat162 p = __floats2bfloat162_rn(f0, f1);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Signed byte j of two words whose sign bits are flipped (w ^ 0x80808080)
+// as the exact bf16 pair.
+__device__ __forceinline__ uint32_t sg_sbyte_pair(uint32_t f0w, uint32_t f1w, int j) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(sbyte_float(f0w, j), sbyte_float(f1w, j));
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
@@ -298,6 +322,9 @@ __device__ __forceinline__ float sg_epilogue(const SgArgs& a, int b, int col, fl
     case kSgSwiglu:
       a.out_bf16[i] = __float2bfloat16_rn(y / (1.f + expf(-y)) * y3);
       break;
+    case kSgBf16:
+      a.out_bf16[i] = __float2bfloat16_rn(y);
+      break;
   }
   return 0.f;
 }
@@ -312,16 +339,18 @@ __device__ __forceinline__ void sg_tile_squares(const SgArgs& a, int b, float sq
 
 // Grid (N / 32 column tiles, splits, matrices), kSgThreads threads, dynamic
 // shared memory sg_x_bytes(VPW, B, split_steps). VPW: 8 (int4) or 4 (int8)
-// values a word.
+// values a word, or 1 (plain int8, one matrix, no norm).
 template <int VPW>
 __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a) {
   constexpr bool kInt8 = VPW == 4;
-  constexpr int kCRows = kInt8 ? 1 : kSgMaxCGroups * VPW;  // scale (and c) rows a block holds
+  constexpr bool kInt4 = VPW == 8;
+  constexpr bool kPlain = VPW == 1;
+  constexpr int kCRows = kInt4 ? kSgMaxCGroups * VPW : 1;  // scale (and c) rows a block holds
   extern __shared__ uint4 sg_dyn[];
   __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(sg_dyn);  // [slab][row][stride]
   __shared__ float s_red[kSgWarps][kSgRows][kSgCols];
   __shared__ float s_inv[kSgRows];
-  __shared__ float s_cs[kInt8 ? 1 : kSgMaxCGroups][kInt8 ? 1 : VPW][kSgRows];  // int4: bf16 group sums
+  __shared__ float s_cs[kInt4 ? kSgMaxCGroups : 1][kInt4 ? VPW : 1][kSgRows];  // int4: bf16 group sums
   __shared__ float s_cx[kSgRows];  // int8: the split's f32 sum of x
   __shared__ float s_rowsum[kInt8 ? VPW : 1][kSgRows];  // int8: each (slab, row)'s sum of x
   __shared__ float s_resid[kSgRows][kSgCols];  // kSgResid: the tile's residual
@@ -379,20 +408,42 @@ __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a)
     }
   };
 
+  // plain int8: lane L copies row L / 2, half L % 2 of k-step ks into slot
+  // u of the warp's ring (after the x slice), laid out [row % 4][row / 4][32
+  // bytes], so that the 4-byte reads of lane (gid, tig) at rows 4 tig + r
+  // fall in 32 distinct banks; one commit group a step
+  unsigned char* pring = reinterpret_cast<unsigned char*>(sg_dyn) + sg_x_bytes(VPW, b_rows, a.split_steps) +
+                         (size_t)warp * kSgPlainAhead * kSgPlainStep;
+  const uint8_t* wsrc = reinterpret_cast<const uint8_t*>(m.pw) + col0 + 16 * (lane & 1);
+  auto load_plain = [&](int u, int ks) {
+    const int row = lane >> 1;
+    sg_cp_async16(pring + u * kSgPlainStep + (row & 3) * 128 + (row >> 2) * 32 + 16 * (lane & 1),
+                  wsrc + (size_t)(ks * kSgStepRows + row) * a.n);
+  };
+  auto commit = [] { asm volatile("cp.async.commit_group;\n" ::: "memory"); };
+
   // before the wait, what depends on no earlier kernel: the first batch's
   // words, and the s and c rows of the split's groups for the tile (int4
   // row j n_grp_slab + g of slab j, group g; int8 rows 0 and gp)
-  for (int i = tid; i < kCRows * 2 * (kSgCols / 8); i += kSgThreads) {
-    const int piece = i % (kSgCols / 8);  // 16 bytes: 8 columns
-    const int row = (i / (kSgCols / 8)) % kCRows;
-    const bool is_c = i >= kCRows * (kSgCols / 8);
-    const int cg = row / VPW, j = row % VPW;
-    if (!kInt8 && cg >= n_cg) continue;
-    const int src_row = kInt8 ? 0 : j * n_grp_slab + cg0 + cg;
-    sg_cp_async16(&(is_c ? s_c : s_sc)[row][8 * piece],
-                  m.sc + (size_t)(src_row + (is_c ? a.gp : 0)) * a.n + col0 + 8 * piece);
+  if constexpr (kPlain) {
+#pragma unroll
+    for (int u = 0; u < kSgPlainAhead; ++u) {
+      if (ks_begin + u < ks_end) load_plain(u, ks_begin + u);
+      commit();
+    }
+  } else {
+    for (int i = tid; i < kCRows * 2 * (kSgCols / 8); i += kSgThreads) {
+      const int piece = i % (kSgCols / 8);  // 16 bytes: 8 columns
+      const int row = (i / (kSgCols / 8)) % kCRows;
+      const bool is_c = i >= kCRows * (kSgCols / 8);
+      const int cg = row / VPW, j = row % VPW;
+      if (!kInt8 && cg >= n_cg) continue;
+      const int src_row = kInt8 ? 0 : j * n_grp_slab + cg0 + cg;
+      sg_cp_async16(&(is_c ? s_c : s_sc)[row][8 * piece],
+                    m.sc + (size_t)(src_row + (is_c ? a.gp : 0)) * a.n + col0 + 8 * piece);
+    }
+    if (ks_begin < ks_end) load_batch(ks_begin);
   }
-  if (ks_begin < ks_end) load_batch(ks_begin);
 
   // the block's K slice of x and of the norm weights: one bulk copy a (slab,
   // row) segment, each CTA of the cluster (kSgCluster neighbouring column
@@ -483,7 +534,7 @@ __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a)
     const int i = tid + q * kSgThreads;
     if (i < b_rows * kSgCols) s_resid[i / kSgCols][i % kSgCols] = rv[q];
   }
-  sg_cp_async_wait_all();
+  if constexpr (!kPlain) sg_cp_async_wait_all();  // plain int8: its ring's copies are waited for one by one
   sg_bar_wait(&s_bar);
   __syncthreads();
   // one pass over the x slice, a warp a (slab, row) row: RMSNorm's roundings
@@ -493,7 +544,7 @@ __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a)
   // is the rows' in slab order (rounded once the splits' sums are added).
   // a warp takes kPassRows rows at a time, for independent work between its shuffles
   constexpr int kPassRows = kInt8 ? kSgPassRowsI8 : kSgPassRowsI4;
-  const int n_rows = VPW * b_rows;
+  const int n_rows = kPlain ? 0 : VPW * b_rows;  // plain int8: neither norm nor c terms
   for (int row0 = warp; row0 < n_rows; row0 += kPassRows * kSgWarps) {
     int j[kPassRows], b[kPassRows];
     bool live[kPassRows];
@@ -530,7 +581,7 @@ __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a)
 #pragma unroll
         for (int q = 0; q < 4; ++q) sum[h] += sg_half(xs[q], 0) + sg_half(xs[q], 1);
       }
-      if constexpr (kInt8) {
+      if constexpr (!kInt4) {
 #pragma unroll
         for (int h = 0; h < kPassRows; ++h) row_sum[h] += sum[h];
       } else {  // pieces 16 g .. 16 g + 15 form group g of the split
@@ -585,7 +636,39 @@ __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a)
 #pragma unroll
       for (int e = 0; e < 4; ++e) out[cp][e] = fmaf(acc[cp][e], sg_half(cp == 0 ? sp.x : sp.y, e >> 1), out[cp][e]);
   };
-  if constexpr (kInt8) {
+  if constexpr (kPlain) {
+    float acc[2][4] = {};  // [column pair][mma D]: f32 sums over the whole run, unscaled
+    for (int ks0 = ks_begin; ks0 < ks_end; ks0 += kSgPlainAhead) {
+#pragma unroll
+      for (int u = 0; u < kSgPlainAhead; ++u) {
+        const int ks = ks0 + u;
+        if (ks >= ks_end) break;
+        uint32_t xb[2];
+        x_frag(0, (ks - s_begin) * kSgStepRows, xb);
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(kSgPlainAhead - 1) : "memory");
+        __syncwarp();  // slot u has landed for the whole warp
+        uint32_t f[4];  // rows 4 tig + r, sign bits flipped
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          f[r] = *reinterpret_cast<const uint32_t*>(pring + u * kSgPlainStep + r * 128 + tig * 32 + 4 * gid) ^
+                 0x80808080u;
+        __syncwarp();  // and is read before it is refilled
+#pragma unroll
+        for (int cp = 0; cp < 2; ++cp) {
+          // A rows gid (column 2 cp) and gid + 8 (column 2 cp + 1); k rows (0, 1) and (2, 3)
+          const uint32_t af[4] = {sg_sbyte_pair(f[0], f[1], 2 * cp), sg_sbyte_pair(f[0], f[1], 2 * cp + 1),
+                                  sg_sbyte_pair(f[2], f[3], 2 * cp), sg_sbyte_pair(f[2], f[3], 2 * cp + 1)};
+          sg_mma(acc[cp], af, xb);
+        }
+        if (ks + kSgPlainAhead < ks_end) load_plain(u, ks + kSgPlainAhead);  // refill the slot
+        commit();
+      }
+    }
+#pragma unroll
+    for (int cp = 0; cp < 2; ++cp)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[cp][e] = acc[cp][e];
+  } else if constexpr (kInt8) {
     float acc[4][2][4];  // [byte lane][column pair][mma D]: one group, so f32 sums over the whole run
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -679,12 +762,13 @@ __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a)
     float v = 0.f;
 #pragma unroll
     for (int wp = 0; wp < kSgWarps; ++wp) v += s_red[wp][b][cc];
-    if (!kInt8)
+    if (kInt4)
       for (int cg = 0; cg < n_cg; ++cg)
 #pragma unroll
         for (int j = 0; j < VPW; ++j) v += s_cs[cg][j][b] * bf(s_c[cg * VPW + j][cc]);
     if (n_parts == 1) {
       if (kInt8) v += round_bf16(s_cx[b]) * bf(s_c[0][cc]);
+      if (kPlain) v *= a.col_scale[col0 + cc];
       sg_tile_squares(a, b, sg_epilogue(a, b, col0 + cc, v, 0.f, s_resid[b][cc], pos));
     } else {
       a.part[((size_t)(mat * gridDim.y + split) * b_rows + b) * a.n + col0 + cc] = v;
@@ -725,6 +809,7 @@ __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a)
         const __nv_bfloat16* c_row = (z == 0 ? a.m0 : a.m1).sc + (size_t)a.gp * a.n;
         y[z] += round_bf16(xs) * bf(z == mat ? s_c[0][cc] : c_row[col0 + cc]);
       }
+      if (kPlain) y[z] *= a.col_scale[col0 + cc];
     }
     sg_tile_squares(a, b, sg_epilogue(a, b, col0 + cc, y[0], y[1], s_resid[b][cc], pos));
   }
@@ -739,6 +824,17 @@ cudaError_t launch_stack_gemv(const SgArgs& a, const int* plan, int n_mats, cuda
   cfg.gridDim = dim3(a.n / kSgCols, plan[1], n_mats);
   cfg.blockDim = dim3(kSgThreads);
   cfg.dynamicSmemBytes = sg_x_bytes(VPW, a.b_rows, plan[0]);
+  if constexpr (VPW == 1) {  // and the warps' rings, past 48 KB with the largest x slices
+    constexpr int kRing = kSgWarps * kSgPlainAhead * kSgPlainStep;
+    static bool configured = false;
+    if (!configured) {  // set once, before the first launch (and any capture)
+      const cudaError_t err =
+          cudaFuncSetAttribute(stack_gemv<VPW>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSgXBytes + kRing);
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
+    cfg.dynamicSmemBytes += kRing;
+  }
   cfg.stream = s;
   cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -750,6 +846,12 @@ cudaError_t launch_stack_gemv(const SgArgs& a, const int* plan, int n_mats, cuda
   cfg.attrs = attr;
   cfg.numAttrs = 2;
   return cudaLaunchKernelEx(&cfg, stack_gemv<VPW>, a);
+}
+
+// Layer `layer` of a matrix stacked over layers: pw (L, K/VPW, N), sc (L, 2*gp, N).
+template <int VPW>
+SgMat layer_mat(const SgMat& m, int layer, int k, int n, int gp) {
+  return SgMat{m.pw + (size_t)layer * (k / VPW) * n, m.sc + (size_t)layer * 2 * gp * n};
 }
 
 // Whether the kernel runs plan {split_steps, n_splits, warps} for x (b_rows,

@@ -49,8 +49,8 @@
 //     loads its first weights before it waits for the kernel before it, and
 //     each kernel lets the next one start once it has read its inputs. The
 //     chain holds under a CUDA-graph capture.
-//   * Attention is the split-sequence device code shared with the per-layer
-//     kernels (decode_attention.cuh), in its chained form.
+//   * Attention is the split-sequence device code of decode_attention.cuh
+//     (K3 and K7 its only users), in its chained form.
 //
 // Plain C entry point (no PyTorch headers), loaded with ctypes by
 // metavoice_tpu_torch/ops/_build.py; the wrapper and its plain PyTorch
@@ -63,6 +63,7 @@
 
 #include "decode_attention.cuh"
 #include "decode_stack_gemv.cuh"
+#include "device_common.cuh"
 
 // Return a failed call's cudaError_t from the enclosing launch sequence.
 #define MV_CHECK(expr)                          \
@@ -102,27 +103,6 @@ struct StepArgs {
   int* tickets;
   const int* plans;   // [kPlans][3]
 };
-
-// Layer `layer` of a matrix stacked over layers: pw (L, K/VPW, N), sc (L, 2*gp, N).
-template <int VPW>
-SgMat layer_mat(const SgMat& m, int layer, int k, int n, int gp) {
-  return SgMat{m.pw + (size_t)layer * (k / VPW) * n, m.sc + (size_t)layer * 2 * gp * n};
-}
-
-// A kernel launched as a programmatic dependent of the one before it on s.
-template <typename... Params, typename... Args>
-cudaError_t launch_chained(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t s, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
 
 template <int VPW>
 cudaError_t run_step(const StepArgs& a, cudaStream_t s) {
@@ -179,8 +159,8 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t s) {
     at.part_acc = a.part_acc;
     const int rows = a.batch * a.n_head;
     MV_CHECK(launch_chained(decode_attn_split<float, __nv_bfloat16, kHeadDim, kFmtFloat, true>,
-                            dim3(rows, a.n_splits), dim3(kThreads), s, at));
-    MV_CHECK(launch_chained(decode_attn_combine<__nv_bfloat16, kHeadDim, true>, dim3(rows), dim3(kHeadDim), s,
+                            dim3(rows, a.n_splits), dim3(kThreads), 0, s, at));
+    MV_CHECK(launch_chained(decode_attn_combine<__nv_bfloat16, kHeadDim, true>, dim3(rows), dim3(kHeadDim), 0, s,
                             (const float*)a.part_ml, (const float*)a.part_acc, a.n_splits, a.ya));
 
     SgArgs o = base;

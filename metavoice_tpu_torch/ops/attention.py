@@ -28,8 +28,14 @@ Each kernel's source says what bounds it on the card (the bytes of the cache
 window it reads, ``2 * (pos + T - min_start) * B * H_kv * Dh`` elements per
 layer) and how its design follows that bound. K1 and K4 share one device
 design (``csrc/decode_attention_onepass.cuh``): one launch a call, the
-window cut into splits by :func:`attention_plan`; K5 and K9 keep the split
-kernel and its combine (``csrc/decode_attention.cuh``, ``_split_scratch``).
+window cut into splits by :func:`attention_plan`. K5 and K9 are three
+kernels a call chained by programmatic dependent launch: the tensor-core
+qkv product (``csrc/decode_stack_gemv.cuh``), K1's one-pass attention with
+the new row made in it, the o-proj; :func:`block_plan` cuts all three. The
+merge counters of the products (``decode_stack._stack_tickets``) and of the
+attention (``_tickets``) are per device and made by the first eager call,
+so calls on one device must not overlap in time (two streams, or two graph
+replays at once), and a CUDA-graph capture needs one eager call before it.
 
 Layout: the cache is sequence-major ``(L, S, B, H_kv, Dh)`` as in
 ``models/transformer.py``. Every function updates the caches IN PLACE at
@@ -40,22 +46,22 @@ is taken as ``pos``.
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from metavoice_tpu_torch.ops import _build
+from metavoice_tpu_torch.ops import decode_stack as DS
 from metavoice_tpu_torch.ops.quantized import (
     CARD_SMS,
     DECODE_MAX_ROWS,
-    gemv8_chunks,
     int8_dot,
     matmul_int4_i32_reference,
     merge_tickets,
 )
 
-SPLIT_POSITIONS = 64  # K5's and K9's sequence split (_split_scratch): cache slots per block
-MAX_SPLITS = 32
 MULTI_MAX_T = 16  # K4's most query tokens a call
 # K1's and K4's plan (csrc/decode_attention_onepass.cuh): one launch a call,
 # the splits of a kv row merged by the last of its blocks to finish
@@ -132,15 +138,6 @@ def _check_kernel_inputs(name, tensors):
         raise ValueError(f"{name} needs contiguous tensors")
 
 
-def _split_scratch(n: int, rows: int, dh: int, device):
-    """K5's and K9's sequence split of a window of ``n`` slots, and the f32
-    scratch of its partials -> (split_len, n_splits, part_ml, part_acc)."""
-    n_splits = min(-(-n // SPLIT_POSITIONS), MAX_SPLITS)
-    part_ml = torch.empty((rows * n_splits * 2,), dtype=torch.float32, device=device)
-    part_acc = torch.empty((rows * n_splits * dh,), dtype=torch.float32, device=device)
-    return -(-n // n_splits), n_splits, part_ml, part_acc
-
-
 def attention_plan(n: int, kv_rows: int, n_q: int) -> tuple[int, int]:
     """K1's and K4's cut of a window of ``n`` slots into splits -> (split_len,
     n_splits): split i holds slots ``[i * split_len, (i + 1) * split_len)``,
@@ -177,6 +174,58 @@ def _onepass_scratch(n_splits: int, kv_rows: int, n_q: int, dh: int, device):
         raise ValueError(f"{kv_rows * groups} kv rows x query groups exceed the {ATTN_TICKETS} merge counters")
     part = torch.empty((kv_rows * groups * n_splits * ATTN_MAX_Q * (dh + 2),), dtype=torch.float32, device=device)
     return part, merge_tickets(_tickets, ATTN_TICKETS, device, "decode_attention")
+
+
+BLOCK_FORMATS = ("bf16", "int8", "packed", "int8_plain")  # K5's three caches, then K9
+BLOCK_HEAD_DIM = 128  # the attention blocks' head width
+
+
+class BlockPlan(NamedTuple):
+    """The cut of one K5 or K9 call: each product's ``(split_steps, n_splits,
+    warps)`` (``decode_stack.stack_gemv_plan``), the attention's ``(split_len,
+    n_splits)`` (:func:`attention_plan`, one block a query head) and the f32
+    scratch of their split partials (0 where everything is one split)."""
+
+    qkv: tuple[int, int, int]
+    o: tuple[int, int, int]
+    attn: tuple[int, int]
+    part: int  # the products': splits x B x (N + 1) of the larger
+    attn_part: int  # the attention's: B x H x splits x (Dh + 2)
+
+
+def block_plan(fmt: str, b: int, d: int, n_head: int, n_kv_head: int, pos: int) -> BlockPlan:
+    """The plan of one attention-block call at (format, B, D, H, H_kv, pos):
+    ``fmt`` one of :data:`BLOCK_FORMATS` ("int8_plain" is K9, plain int8
+    weights; the others K5's int4 words on that cache). The qkv product is
+    (B, D) @ (D, D + 2 * H_kv * 128), the o-proj (B, D) @ (D, D), both in K5's
+    int4 words (vpw 8) or K9's plain bytes (vpw 1); the attention's window is
+    ``[0, pos]`` in blocks of one query head each."""
+    if fmt not in BLOCK_FORMATS:
+        raise ValueError(f"fmt must be one of {BLOCK_FORMATS}, got {fmt!r}")
+    vpw = 1 if fmt == "int8_plain" else 8
+    qout = d + 2 * n_kv_head * BLOCK_HEAD_DIM
+    qkv = DS.stack_gemv_plan(d, qout, vpw, b)
+    o = DS.stack_gemv_plan(d, d, vpw, b)
+    part = max(p[1] * b * (n + 1) if p[1] > 1 else 0 for p, n in ((qkv, qout), (o, d)))
+    rows = b * n_head
+    split_len, n_splits = attention_plan(pos + 1, rows, 1)
+    attn_part = rows * n_splits * (BLOCK_HEAD_DIM + 2) if n_splits > 1 else 0
+    return BlockPlan(qkv, o, (split_len, n_splits), part, attn_part)
+
+
+def _block_scratch(plan: BlockPlan, b: int, d: int, qout: int, rows: int, device, who: str):
+    """One K5/K9 call's scratch and counters -> (qkv (B, qout) f32, ya (B, D)
+    bf16, product partials, attention partials or None, the products'
+    counters, the attention's counters). Both counter tables are taken on
+    every call, so that a CUDA-graph capture before any eager call raises."""
+    if qout // DS.STACK_TILE_N > DS.STACK_TICKETS or rows > ATTN_TICKETS:
+        raise ValueError(f"{who}: {qout // DS.STACK_TILE_N} column tiles / {rows} rows exceed the merge counters")
+    f32 = torch.float32
+    return (torch.empty((b, qout), dtype=f32, device=device), torch.empty((b, d), dtype=torch.bfloat16, device=device),
+            torch.empty((max(plan.part, 1),), dtype=f32, device=device),
+            torch.empty((plan.attn_part,), dtype=f32, device=device) if plan.attn_part else None,
+            merge_tickets(DS._stack_tickets, DS.STACK_TICKETS, device, who),
+            merge_tickets(_tickets, ATTN_TICKETS, device, who))
 
 
 def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, starts=None):
@@ -509,10 +558,10 @@ def decode_attention_block_int4(
     if starts is not None:
         starts = starts.to(torch.int32).contiguous()
     qout = wqkv_pw.shape[2]
-    split_len, n_splits, part_ml, part_acc = _split_scratch(pos + 1, b * n_head, dh, dev)
-    qkv = torch.empty((b, qout), dtype=torch.float32, device=dev)
-    ya = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((b * (d // 256) * qout,), dtype=torch.float32, device=dev)  # K/8/32 chunks x N
+    plan = block_plan(fmt, b, d, n_head, h_kv, pos)
+    qkv, ya, part, attn_part, tickets, attn_tickets = _block_scratch(plan, b, d, qout, b * n_head, dev,
+                                                                     "decode_attention_block_int4")
+    plans = (ctypes.c_int * 6)(*plan.qkv, *plan.o)
     y = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
 
     def ptr(t):
@@ -522,9 +571,9 @@ def decode_attention_block_int4(
         _CACHE_FORMAT_CODE[fmt], x.data_ptr(), wqkv_pw.data_ptr(), wqkv_sc.data_ptr(), wo_pw.data_ptr(),
         wo_sc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale), ptr(starts),
         y.data_ptr(), layer, pos, b, d, n_head, h_kv, dh, seq_len,
-        0 if k_scale is None else k_scale.shape[-1], wqkv_sc.shape[1] // 2, n_splits, split_len,
-        qkv.data_ptr(), ya.data_ptr(), part.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        0 if k_scale is None else k_scale.shape[-1], wqkv_sc.shape[1] // 2, ctypes.addressof(plans), *plan.attn,
+        qkv.data_ptr(), ya.data_ptr(), part.data_ptr(), part.numel(), tickets.data_ptr(), DS.STACK_TICKETS,
+        ptr(attn_part), attn_tickets.data_ptr(), ATTN_TICKETS, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"decode_attention_block_int4 kernel launch failed: cudaError_t {err}")
@@ -621,16 +670,17 @@ def decode_attention_block_int8(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache
     x = xa.to(torch.bfloat16).contiguous()
     if starts is not None:
         starts = starts.to(torch.int32).contiguous()
-    split_len, n_splits, part_ml, part_acc = _split_scratch(pos + 1, b * n_head, dh, dev)
-    qkv = torch.empty((b, 3 * d), dtype=torch.float32, device=dev)
-    ya = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((b * gemv8_chunks(d) * 3 * d,), dtype=torch.float32, device=dev)
+    plan = block_plan("int8_plain", b, d, n_head, n_head, pos)
+    qkv, ya, part, attn_part, tickets, attn_tickets = _block_scratch(plan, b, d, 3 * d, b * n_head, dev,
+                                                                     "decode_attention_block_int8")
+    plans = (ctypes.c_int * 6)(*plan.qkv, *plan.o)
     y = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
     err = _build.kernels().lib.mv_decode_block_int8(
         x.data_ptr(), wqkv_q.data_ptr(), wqkv_s.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), None if starts is None else starts.data_ptr(), y.data_ptr(),
-        layer, pos, b, d, n_head, seq_len, n_splits, split_len,
-        qkv.data_ptr(), ya.data_ptr(), part.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+        layer, pos, b, d, n_head, seq_len, ctypes.addressof(plans), *plan.attn,
+        qkv.data_ptr(), ya.data_ptr(), part.data_ptr(), part.numel(), tickets.data_ptr(), DS.STACK_TICKETS,
+        None if attn_part is None else attn_part.data_ptr(), attn_tickets.data_ptr(), ATTN_TICKETS,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -65,8 +65,10 @@ STACK_TILE_N = 32  # output columns a block (the kernel's kSgCols)
 STACK_CLUSTER = 2  # column tiles a thread-block cluster, which share the x slice's loads (kSgCluster)
 STACK_WARPS = 4  # warps a block (the kernel's kSgWarps)
 # k-steps a warp takes, the fewer first: int4 in one batch (2 were 4% slower on the H100), int8 in one or
-# two rounds of its ring
-STACK_WARP_STEPS = {8: (4,), 4: (4, 8)}
+# two rounds of its ring; plain int8 (vpw 1: K rows of (K, N) bytes, 512 bytes a warp's k-step) in two rounds
+# of its ring of 8 (K9 on an NVIDIA H100 80GB HBM3 at 700 W: 6% / 2% faster at pos 255 / 2047 than 8 steps,
+# 3% / 4% than 32)
+STACK_WARP_STEPS = {8: (4,), 4: (4, 8), 1: (16,)}
 STACK_RESIDENT_BLOCKS = CARD_SMS * 3  # blocks of the product the card holds at once (the kernel's kSgMinBlocks)
 STACK_X_BYTES = 36 * 1024  # a block's x slice and norm weights' slice in shared memory, at most (kSgXBytes)
 STACK_I4_GROUP_STEPS = 8  # int4: k-steps a 128-row group; a split holds whole groups
@@ -86,9 +88,10 @@ def stack_x_bytes(vpw: int, b: int, split_steps: int) -> int:
 
 
 def stack_gemv_plan(k: int, n: int, vpw: int, b: int, n_mats: int = 1) -> tuple[int, int, int]:
-    """The cut of one decode-stack product, (b, k) @ (k, n) words of ``vpw``
-    values (``n_mats`` matrices side by side: w1 and w3), into splits of K's
-    ``k / vpw / STACK_STEP_ROWS`` k-steps -> (split_steps, n_splits, warps).
+    """The cut of one tensor-core GEMV product, (b, k) @ (k, n) words of
+    ``vpw`` values (``n_mats`` matrices side by side: w1 and w3; vpw 1: plain
+    int8 bytes, K9's), into splits of K's ``k / vpw / STACK_STEP_ROWS``
+    k-steps -> (split_steps, n_splits, warps).
     Split i holds steps ``[i * split_steps, (i + 1) * split_steps)``, the
     last ends at or past the last step and none lies wholly past it; a block
     of ``warps`` (``STACK_WARPS``) warps takes one split of a

@@ -1,5 +1,5 @@
-"""The plan of K1's and K4's one-launch kernels (``ops/attention.attention_plan``)
-and K5's and K9's split (``_split_scratch``), on the CPU.
+"""The plan of K1's and K4's one-launch kernels (``ops/attention.attention_plan``),
+on the CPU (K5's and K9's, which take it too: ``test_torch_block_plan.py``).
 
 The kernels cut a window of ``n`` slots into splits ``[i * split_len, (i + 1)
 * split_len)`` and clip each to ``[start, n)``
@@ -63,14 +63,3 @@ def test_onepass_scratch_holds_every_partial(kv_rows, n_q, n):
 def test_onepass_scratch_refuses_more_rows_than_tickets():
     with pytest.raises(ValueError, match="merge counters"):
         A._onepass_scratch(2, A.ATTN_TICKETS + 1, 1, 128, torch.device("cpu"))
-
-
-@pytest.mark.parametrize("rows", [4, 32, 48])
-def test_split_scratch_of_k5_and_k9_is_unchanged(rows):
-    """K5 and K9 keep their 64-slot split (up to 32) and its combine's scratch."""
-    dh = 128
-    for n in WINDOWS:
-        split_len, n_splits, part_ml, part_acc = A._split_scratch(n, rows, dh, torch.device("cpu"))
-        want = min(-(-n // 64), 32)
-        assert (split_len, n_splits) == (-(-n // want), want), n
-        assert part_ml.shape == (rows * want * 2,) and part_acc.shape == (rows * want * dh,)
