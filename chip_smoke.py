@@ -118,7 +118,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
                every call; per layer from a CUDA graph at pos 0, 255, 1000,
                2047 beside the plain version and the bound;
  22. K6      - the int4 FFN kernel against its plain version at the main-path
-               shape (FFN packed to 6144): within 1e-2 of max |y|; times;
+               shape (FFN packed to 6144) at rows 1, 2, 3, 8 and layers 0,
+               11, 23: within 1e-2 of max |y|; a capture before any eager
+               call raises; one call captured in a CUDA graph: 2 kernels
+               (stack_gemv twice, none of BLOCK_RETIRED), 3 replays its
+               bits, the merge counters at 0; per layer from a CUDA graph
+               at B 1, 2, 8 beside the plain version and the bound;
  23. small-kv8 - a 2-layer 1024-wide int4 first stage on an int8 and a packed
                KV cache, on the card (K5/K6) and on the CPU (plain versions)
                under the same Gumbel draws: the same tokens, or, at the first
@@ -144,7 +149,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
                1000; per layer from a CUDA graph at pos 0, 255, 1000, 2047
                beside the plain version and the bound;
  27. K10     - the plain-int8 FFN kernel against its plain version at D
-               2048, I 5632, rows 1, 2, 3: within 1e-2 of max |y|; times;
+               2048, I 5632, as phase 22 (rows 1, 2, 3, 8, layers 0, 11,
+               23, plus w3 = w1 with s3 = 2 s1, which a scale shared by w1
+               and w3 would fail; the capture check and the graph check; B
+               1, 2, 8 timed);
  28. small-int8p - 2-layer 512-wide plain-int8 first stages, MHA (T = 1
                through K9/K10) and GQA with 2 kv heads (K11 at M = 2, K4,
                K10), on the card and on the CPU under the same Gumbel
@@ -244,6 +252,10 @@ K5_TOL = 2e-2
 K5_POS = (0, 77, 255, 2047)
 K5_TIMED = (0, 255, 1000, 2047)  # the JSON line carries the int8 cache at pos 255
 K6_TOL = 1e-2
+FFN_ROWS = (1, 2, 3, 8)  # K6 and K10 are held at each, on layers FFN_LAYERS
+FFN_LAYERS = (0, 11, 23)
+FFN_TIMED_ROWS = (1, 2, 8)  # the JSON line carries B 2
+FFN_KERNELS = ("stack_gemv", "stack_gemv")  # a K6 / K10 call: w1/w3, then w2
 # K11: the same bf16 products as its plain version summed in another order,
 # rounded to x's dtype, so a bf16 output may land one ulp apart
 K11_TOL = 1e-3
@@ -256,7 +268,6 @@ BLOCK_KERNELS = ("stack_gemv", "attn_row_kernel", "stack_gemv")  # a K5 / K9 cal
 BLOCK_RETIRED = ("gemv_partial", "gemv8_partial", "gemv_reduce", "decode_attn_split", "decode_attn_combine",
                  "kv_row_write")
 K10_TOL = 1e-2
-K10_CASES = ((1, 0), (2, 11), (3, 23))  # (rows, layer)
 # K12/K13: the same bf16 weights and products as their plain version, summed
 # in another order, rounded to x's dtype (as K11)
 K12_TOL = 1e-3
@@ -1760,13 +1771,14 @@ def _k5_bound(qp, cfg, fmt: str, pos: int, b: int) -> tuple[float, str]:
     return bound(n_bytes, n_flop, BF16_FLOP_S)
 
 
-def block_graph_check(torch, fn, what: str) -> list[str]:
-    """One K5 or K9 call fn() -> (y, caches, scales...): two eager calls give
-    the same bits; the call captured in a CUDA graph and replayed 3 times
-    gives the eager call's bits each time; the merge counters of the
-    products and of the attention are back at 0 after every call; the
-    captured call is BLOCK_KERNELS and none of BLOCK_RETIRED. -> the kernel
-    names of the captured call. Raises AssertionError on a disagreement."""
+def block_graph_check(torch, fn, what: str, kernels: tuple = BLOCK_KERNELS) -> list[str]:
+    """One K5, K6, K9 or K10 call fn() -> (y, caches, scales...): two eager
+    calls give the same bits; the call captured in a CUDA graph and replayed
+    3 times gives the eager call's bits each time; the merge counters of the
+    products (and of the attention, where the call attends) are back at 0
+    after every call; the captured call is ``kernels`` (BLOCK_KERNELS, or
+    FFN_KERNELS) and none of BLOCK_RETIRED. -> the kernel names of the
+    captured call. Raises AssertionError on a disagreement."""
     from metavoice_tpu_torch.ops import attention as A
     from metavoice_tpu_torch.ops import decode_stack as DS
 
@@ -1777,7 +1789,8 @@ def block_graph_check(torch, fn, what: str) -> list[str]:
 
     def tickets_at_0() -> bool:
         torch.cuda.synchronize()
-        return not DS._stack_tickets[dev].any() and not A._tickets[dev].any()
+        tables = [DS._stack_tickets] + ([A._tickets] if "attn_row_kernel" in kernels else [])
+        return not any(t[dev].any() for t in tables)
 
     eager = [t.clone() for t in bits(fn())]
     assert tickets_at_0(), f"{what}: the merge counters are not back at 0 after an eager call"
@@ -1799,10 +1812,31 @@ def block_graph_check(torch, fn, what: str) -> list[str]:
         assert all(torch.equal(a, b) for a, b in zip(eager, bits(outs))), f"{what}: graph replay {i} differs"
     del graph
     names = [name for kind, name in _graph_nodes(torch, fn) if kind == "KERNEL"]
-    found = [next((k for k in BLOCK_KERNELS if k in n), n) for n in names]
-    assert found == list(BLOCK_KERNELS) and not any(old in n for n in names for old in BLOCK_RETIRED), \
-        f"{what}: one call is {len(names)} kernels, not {len(BLOCK_KERNELS)} {BLOCK_KERNELS}: {names}"
+    found = [next((k for k in kernels if k in n), n) for n in names]
+    assert found == list(kernels) and not any(old in n for n in names for old in BLOCK_RETIRED), \
+        f"{what}: one call is {len(names)} kernels, not {len(kernels)} {kernels}: {names}"
     return found
+
+
+def capture_first_raises(torch, fn, what: str):
+    """With the device's products' merge counters not yet made, a CUDA-graph
+    capture of fn() raises and makes none (ops/quantized.merge_tickets); the
+    counters are put back after. Raises AssertionError otherwise."""
+    from metavoice_tpu_torch.ops import decode_stack as DS
+
+    saved = DS._stack_tickets
+    DS._stack_tickets = {}
+    try:
+        try:
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                fn()
+        except RuntimeError as e:
+            assert "eager call" in str(e), f"{what}: a capture before any eager call raised another error: {e}"
+        else:
+            raise AssertionError(f"{what}: a capture before any eager call did not raise")
+        assert not DS._stack_tickets, f"{what}: a refused capture made merge counters"
+    finally:
+        DS._stack_tickets = saved
 
 
 def phase_k5(torch) -> dict:
@@ -1858,7 +1892,7 @@ def phase_k5(torch) -> dict:
           f"counters at 0; per layer, device time from a CUDA graph: {'; '.join(shown)}")
     kernel, plain, bound_ms, bound_by = times[("int8", 255)]
     return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "times": times}
+            "library_ms": None, "kernels_a_call": len(kernels), "times": times}
 
 
 def _k6_args(qp):
@@ -1874,10 +1908,53 @@ def k6_case(torch, qp, layer: int, x) -> float:
     y = Q.decode_ffn_int4(x, *_k6_args(qp), layer)
     torch.cuda.synchronize()
     ref = Q.decode_ffn_int4_reference(x, *_k6_args(qp), layer)
-    assert y.shape == ref.shape and y.dtype == torch.float32 and torch.isfinite(y).all(), f"K6 output bad at layer {layer}"
+    what = f"{x.shape[0]} rows, layer {layer}"
+    assert y.shape == ref.shape and y.dtype == torch.float32 and torch.isfinite(y).all(), f"K6 output bad at {what}"
     rel = (y - ref).abs().max().item() / ref.abs().max().item()
-    assert rel <= K6_TOL, f"K6 disagrees with the plain version at layer {layer}: {rel:.3g} of max |y|"
+    assert rel <= K6_TOL, f"K6 disagrees with the plain version at {what}: {rel:.3g} of max |y|"
     return rel
+
+
+def ffn_phase(torch, label: str, call, plain, case, bytes_flop, gen, dim: int, n_layer: int,
+              extra: tuple = ()) -> dict:
+    """Phases 22 (K6) and 27 (K10): call(x, layer) and plain(x, layer) of one
+    FFN. case(x, layer) holds the kernel to its plain version at FFN_ROWS x
+    FFN_LAYERS (and ``extra``: (what, fn() -> rel)); a capture before any
+    eager call raises; one call at B 2 is FFN_KERNELS (block_graph_check);
+    each of FFN_TIMED_ROWS is timed per layer from a CUDA graph beside the
+    plain version and the bound from bytes_flop(b) -> (bytes, flop)."""
+    dev = torch.device("cuda")
+    worst = 0.0
+    try:
+        for rows in FFN_ROWS:
+            for layer in FFN_LAYERS:
+                x = torch.randn((rows, dim), generator=gen, device=dev).to(torch.bfloat16)
+                worst = max(worst, case(x, layer))
+        for _, fn in extra:
+            worst = max(worst, fn())
+        b = MAIN_SHAPE["b"]
+        x = torch.randn((b, dim), generator=gen, device=dev).to(torch.bfloat16)
+        capture_first_raises(torch, lambda: call(x, 5), label)
+        kernels = block_graph_check(torch, lambda: (call(x, 5),), label, FFN_KERNELS)
+    except AssertionError as e:
+        fail(str(e))
+    times, shown = {}, []
+    for b in FFN_TIMED_ROWS:
+        x = torch.randn((b, dim), generator=gen, device=dev).to(torch.bfloat16)
+        kernel, eager = _layers_ms(torch, lambda li: call(x, li), n_layer)
+        plain_ms, _ = _layers_ms(torch, lambda li: plain(x, li), n_layer)
+        n_bytes, n_flop = bytes_flop(b)
+        bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
+        times[b] = (kernel, plain_ms, bound_ms, bound_by)
+        shown.append(f"B {b}: kernel {kernel:.4f} ms ({eager:.4f} a call from Python, {n_bytes / kernel / 1e6:.0f} "
+                     f"GB/s), plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}, {n_bytes / 1e6:.1f} MB)")
+    more = "".join(f", {what}" for what, _ in extra)
+    print(f"[{label}] rows {FFN_ROWS} x layers {FFN_LAYERS}{more} agree (within {worst:.3g} of max |y|, tol 1e-2); "
+          f"a capture before any eager call raises; a call is {len(kernels)} kernels ({', '.join(kernels)}), 3 "
+          f"graph replays its bits, merge counters at 0; per layer, device time from a CUDA graph: {'; '.join(shown)}")
+    kernel, plain_ms, bound_ms, bound_by = times[MAIN_SHAPE["b"]]
+    return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "kernels_a_call": len(kernels), "times": times}
 
 
 def phase_k6(torch) -> dict:
@@ -1885,30 +1962,19 @@ def phase_k6(torch) -> dict:
     from metavoice_tpu_torch.ops import quantized as Q
 
     dev = torch.device("cuda")
-    b = MAIN_SHAPE["b"]
     cfg = first_stage_config()
     qp = _random_int4_model(torch, cfg, 66, dev)
     gen = torch.Generator(device=dev).manual_seed(66)
-    worst = 0.0
-    for layer in (0, 11, 23):
-        x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
-        try:
-            worst = max(worst, k6_case(torch, qp, layer, x))
-        except AssertionError as e:
-            fail(str(e))
-    kernel, eager = _layers_ms(torch, lambda li: Q.decode_ffn_int4(x, *_k6_args(qp), li), cfg.n_layer)
-    plain, _ = _layers_ms(torch, lambda li: Q.decode_ffn_int4_reference(x, *_k6_args(qp), li), cfg.n_layer)
     lay = qp["layers"]
     ip = lay["w1"]["pw"].shape[-1]
-    n_bytes = sum(_int4_bytes(lay[k]["pw"][0], lay[k]["sc"][0]) for k in ("w1", "w3", "w2"))
-    n_bytes += b * cfg.dim * 2 + b * cfg.dim * 4  # x in, y out
-    bound_ms, bound_by = bound(n_bytes, 2.0 * b * 3 * cfg.dim * ip, BF16_FLOP_S)
-    print(f"[22 K6] 3 layers at D {cfg.dim}, Ip {ip}, B {b} agree (within {worst:.3g} of max |y|, tol {K6_TOL}); "
-          f"per layer, device time from a CUDA graph: kernel {kernel:.4f} ms ({eager:.4f} a call from Python, "
-          f"{n_bytes / kernel / 1e6:.0f} GB/s), plain {plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-          f"{n_bytes / 1e6:.1f} MB)")
-    return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+    w_bytes = sum(_int4_bytes(lay[k]["pw"][0], lay[k]["sc"][0]) for k in ("w1", "w3", "w2"))
+
+    def bytes_flop(b):  # one layer's words and scales, x in, y out; the products
+        return w_bytes + b * cfg.dim * 2 + b * cfg.dim * 4, 2.0 * b * 3 * cfg.dim * ip
+
+    return ffn_phase(torch, "22 K6", lambda x, li: Q.decode_ffn_int4(x, *_k6_args(qp), li),
+                     lambda x, li: Q.decode_ffn_int4_reference(x, *_k6_args(qp), li),
+                     lambda x, li: k6_case(torch, qp, li, x), bytes_flop, gen, cfg.dim, cfg.n_layer)
 
 
 def _guided_scores(torch, params, cfg, prompt, spk, tokens, noise, dev, fmt: str):
@@ -2207,7 +2273,7 @@ def phase_k9(torch) -> dict:
           f"CUDA graph: {'; '.join(shown)}")
     kernel, plain, bound_ms, bound_by = times[255]
     return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "times": times}
+            "library_ms": None, "kernels_a_call": len(kernels), "times": times}
 
 
 def _k10_args(qp, layer: int):
@@ -2215,19 +2281,28 @@ def _k10_args(qp, layer: int):
     return [lay[k][f][layer] for k in ("w1", "w3", "w2") for f in ("q", "scales")]
 
 
-def k10_case(torch, qp, layer: int, x) -> float:
-    """K10 against its plain version on one layer -> max |dy| / max |y|;
-    raises AssertionError past K10_TOL."""
+def k10_case(torch, x, args, what: str) -> float:
+    """K10 on x and one layer's args (w1, s1, w3, s3, w2, s2) against its
+    plain version -> max |dy| / max |y|; raises AssertionError past K10_TOL."""
     from metavoice_tpu_torch.ops import quantized as Q
 
-    y = Q.ffn_int8(x, *_k10_args(qp, layer))
+    y = Q.ffn_int8(x, *args)
     torch.cuda.synchronize()
-    ref = Q.ffn_int8_reference(x, *_k10_args(qp, layer))
-    what = f"{x.shape[0]} rows, layer {layer}"
+    ref = Q.ffn_int8_reference(x, *args)
+    what = f"{x.shape[0]} rows, {what}"
     assert y.shape == ref.shape and y.dtype == torch.float32 and torch.isfinite(y).all(), f"K10 output bad at {what}"
     rel = (y - ref).abs().max().item() / ref.abs().max().item()
     assert rel <= K10_TOL, f"K10 disagrees with the plain version at {what}: {rel:.3g} of max |y|"
     return rel
+
+
+def k10_own_scales_case(torch, qp, gen) -> float:
+    """K10 with w3 = w1 and s3 = 2 s1, so h3 = 2 h1 exactly: a kernel that
+    scaled both of w1's and w3's sums by one matrix's scales would be off by
+    half of y."""
+    q1, s1, _, _, q2, s2 = _k10_args(qp, 3)
+    x = torch.randn((MAIN_SHAPE["b"], q1.shape[0]), generator=gen, device=q1.device).to(torch.bfloat16)
+    return k10_case(torch, x, (q1, s1, q1, 2 * s1, q2, s2), "layer 3 with w3 = w1, s3 = 2 s1")
 
 
 def phase_k10(torch) -> dict:
@@ -2238,26 +2313,17 @@ def phase_k10(torch) -> dict:
     cfg = first_stage_config()
     qp = _random_int8_plain_model(torch, cfg, 100, dev)
     gen = torch.Generator(device=dev).manual_seed(100)
-    worst = 0.0
-    for rows, layer in K10_CASES:
-        x = torch.randn((rows, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
-        try:
-            worst = max(worst, k10_case(torch, qp, layer, x))
-        except AssertionError as e:
-            fail(str(e))
-    b = MAIN_SHAPE["b"]
-    x = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
-    kernel, eager = _layers_ms(torch, lambda li: Q.ffn_int8(x, *_k10_args(qp, li)), cfg.n_layer)
-    plain, _ = _layers_ms(torch, lambda li: Q.ffn_int8_reference(x, *_k10_args(qp, li)), cfg.n_layer)
     i_sz = cfg.intermediate_size
-    n_bytes = 3 * cfg.dim * i_sz + 4 * (2 * i_sz + cfg.dim) + b * cfg.dim * 2 + b * cfg.dim * 4
-    bound_ms, bound_by = bound(n_bytes, 2.0 * b * 3 * cfg.dim * i_sz, BF16_FLOP_S)
-    print(f"[27 K10] rows 1, 2, 3 at D {cfg.dim}, I {i_sz} agree (within {worst:.3g} of max |y|, tol {K10_TOL}); "
-          f"per layer at B {b}, device time from a CUDA graph: kernel {kernel:.4f} ms ({eager:.4f} a call from "
-          f"Python, {n_bytes / kernel / 1e6:.0f} GB/s), plain {plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-          f"{n_bytes / 1e6:.1f} MB)")
-    return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+
+    def bytes_flop(b):  # one layer's bytes and f32 scales, x in, y out; the products
+        return (3 * cfg.dim * i_sz + 4 * (2 * i_sz + cfg.dim) + b * cfg.dim * 2 + b * cfg.dim * 4,
+                2.0 * b * 3 * cfg.dim * i_sz)
+
+    return ffn_phase(torch, "27 K10", lambda x, li: Q.ffn_int8(x, *_k10_args(qp, li)),
+                     lambda x, li: Q.ffn_int8_reference(x, *_k10_args(qp, li)),
+                     lambda x, li: k10_case(torch, x, _k10_args(qp, li), f"layer {li}"), bytes_flop, gen,
+                     cfg.dim, cfg.n_layer, extra=(("w3 = w1 with s3 = 2 s1", lambda: k10_own_scales_case(
+                         torch, qp, gen)),))
 
 
 def phase_small_int8p(torch):
@@ -2660,10 +2726,13 @@ def main() -> int:
                                   compared | {"groupwise int4 phase 33": int4g["ms_per_token"]})
         del int4p["tts"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # and, where a phase read it from the graph of one call, the kernels a call
+    counted = ("kernels_a_call",)
     # each kernel's launches are those of the main path that runs it
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"metavoice_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": run["counts"][key], **{k: stats[k] for k in keys}}
+         "replaces": replaces, "launches": run["counts"][key], **{k: stats[k] for k in keys},
+         **{k: stats[k] for k in counted if k in stats}}
         for name, key, run, src, replaces, stats in (
             ("decode_attention", "k1_launches", bf16, "decode_attention.cu",
              "metavoice_tpu/ops/attention.py:292", k1),

@@ -3,8 +3,8 @@
 // takes the kChained forms), now its only user: K1, K4 and the attention
 // blocks K5 and K9 take the one-launch design (decode_attention_onepass.cuh),
 // so the int8 and packed cache formats below (K5's until then) have no
-// caller. decode_gemv.cuh and decode_stack_gemv.cuh include it for kFull
-// and, through it, device_common.cuh's helpers (pdl_wait, bf, round_bf16).
+// caller. decode_stack_gemv.cuh includes it for kFull and, through it,
+// device_common.cuh's helpers (pdl_wait, bf, round_bf16, MV_CHECK).
 //
 // For one query token per (batch, head) row: the softmax-weighted sum of the
 // values over the row's window [starts[b], pos] of the sequence-major

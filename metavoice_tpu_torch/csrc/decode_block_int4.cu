@@ -54,9 +54,20 @@
 // last end against 3.3 us of bytes. The three kernels depend on each other,
 // each product runs a prologue of dependent phases before its first mma,
 // and the attention's 256 slots are one split on 32 SMs (latency).
-// K6 (simple and right first): the split-K CUDA-core GEMV of decode_gemv.cuh
-// (w1 and w3 in one launch with the silu(h1) * h3 reduce, then w2): 4
-// launches.
+//
+// K6's design: two kernels on the caller's stream, the second a
+// programmatic dependent of the first; it allocates nothing and never
+// synchronises.
+//   1. h = bf16(silu(x @ W1) * (x @ W3)): one launch of the tensor-core
+//      GEMV (int4 words, no norm, grid z 2: w1 and w3 side by side), the
+//      SwiGLU epilogue applied by the last block of each column tile after
+//      the fixed-order merge of both matrices' partials.
+//   2. y = h @ W2 in f32: as 1, one matrix, the f32 epilogue; it loads its
+//      first weights before its programmatic wait and reads h after it
+//      (the wait returns once launch 1 has finished and its stores are
+//      visible).
+//   Each product's K is cut by the wrapper's plan (ops/decode_stack.
+//   ffn_plan, from stack_gemv_plan), the merge counters those of K3/K5.
 //
 // Plain C entry points (no PyTorch headers), loaded with ctypes by
 // metavoice_tpu_torch/ops/_build.py; the wrappers and their plain PyTorch
@@ -69,28 +80,14 @@
 #include <stdint.h>
 
 #include "decode_attention_onepass.cuh"
-#include "decode_gemv.cuh"
 #include "decode_stack_gemv.cuh"
 
 namespace {
 
 constexpr int kDh = 128;  // the kernels' head width
 
-template <int NB, int CPT>
-cudaError_t run_ffn(const __nv_bfloat16* x, GemvMat w1, GemvMat w3, GemvMat w2, float* y, int batch,
-                    int dim, int ip, int gp, int gp2, __nv_bfloat16* h, float* part, cudaStream_t s) {
-  Epilogue eg{};
-  eg.kind = kEpiSwiglu;
-  eg.out_bf16 = h;
-  MV_CHECK((launch_gemv<NB, CPT, 8>(x, batch, dim, ip, gp, w1, w3, 2, part, eg, s)));
-  Epilogue ef{};
-  ef.kind = kEpiF32;
-  ef.out_f32 = y;
-  return launch_gemv<NB, CPT, 8>(h, batch, ip, dim, gp2, w2, w2, 1, part, ef, s);
-}
-
-GemvMat mat(const void* pw, const void* sc) {
-  return GemvMat{static_cast<const int32_t*>(pw), static_cast<const __nv_bfloat16*>(sc)};
+SgMat mat(const void* pw, const void* sc) {
+  return SgMat{static_cast<const int32_t*>(pw), static_cast<const __nv_bfloat16*>(sc)};
 }
 
 }  // namespace
@@ -137,8 +134,7 @@ extern "C" int mv_decode_block_int4(
   SgArgs q = {};
   q.x = static_cast<const __nv_bfloat16*>(x);
   q.b_rows = batch;
-  q.m0 = q.m1 = layer_mat<8>(SgMat{static_cast<const int32_t*>(wqkv_pw), static_cast<const __nv_bfloat16*>(wqkv_sc)},
-                             layer, dim, qout, gp);
+  q.m0 = q.m1 = layer_mat<8>(mat(wqkv_pw, wqkv_sc), layer, dim, qout, gp);
   q.k = dim;
   q.n = qout;
   q.gp = gp;
@@ -163,8 +159,7 @@ extern "C" int mv_decode_block_int4(
 
   SgArgs o = q;
   o.x = ya_b;
-  o.m0 = o.m1 = layer_mat<8>(SgMat{static_cast<const int32_t*>(wo_pw), static_cast<const __nv_bfloat16*>(wo_sc)},
-                             layer, dim, dim, gp);
+  o.m0 = o.m1 = layer_mat<8>(mat(wo_pw, wo_sc), layer, dim, dim, gp);
   o.n = dim;
   o.split_steps = plan[3];
   o.epi = kSgBf16;
@@ -175,25 +170,47 @@ extern "C" int mv_decode_block_int4(
 
 // One layer's int4 SwiGLU FFN (K6): x (B, D) bf16; w1, w3 pw (L, D/8, Ip) i32 with sc
 // (L, 2*gp, Ip) bf16; w2 pw (L, Ip/8, D) with sc (L, 2*gp2, D); y (B, D) f32 out.
-// Scratch: h (B, Ip) bf16, part f32 holding max(2 * D/256 * B * Ip, Ip/256 * B * D)
-// partials. Returns a cudaError_t.
-extern "C" int mv_decode_ffn_int4(const void* x, const void* w1_pw, const void* w1_sc,
-                                  const void* w3_pw, const void* w3_sc, const void* w2_pw,
-                                  const void* w2_sc, void* y, int layer, int batch, int dim, int ip,
-                                  int gp, int gp2, void* h, void* part, void* stream) {
-  if (batch < 1 || batch > 8 || layer < 0 || dim % (8 * kQGroup) != 0 || ip % (8 * kQGroup) != 0 ||
-      gp < dim / kQGroup || gp2 < ip / kQGroup || x == nullptr || y == nullptr)
+// plans: host int32 [2][3], {split_steps, n_splits, warps} of the w1/w3 and
+// the w2 product (ops/decode_stack.ffn_plan). Scratch: h (B, Ip) bf16, part
+// f32 of part_elems, at least 2 * splits * B * (Ip + 1) of w1/w3 and, when
+// w2 has more than one split, its splits * B * (D + 1); tickets n_tickets
+// int32 all 0 (left 0), at least Ip / 32. Returns a cudaError_t.
+extern "C" int mv_decode_ffn_int4(const void* x, const void* w1_pw, const void* w1_sc, const void* w3_pw,
+                                  const void* w3_sc, const void* w2_pw, const void* w2_sc, void* y, int layer,
+                                  int batch, int dim, int ip, int gp, int gp2, const void* plans, void* h,
+                                  void* part, long long part_elems, void* tickets, int n_tickets, void* stream) {
+  const int* plan = static_cast<const int*>(plans);
+  if (batch < 1 || batch > kSgRows || layer < 0 || dim % (8 * kSgQGroup) != 0 || ip % (8 * kSgQGroup) != 0 ||
+      gp < dim / kSgQGroup || gp2 < ip / kSgQGroup || x == nullptr || y == nullptr || h == nullptr ||
+      plan == nullptr || !sg_plan_ok(8, batch, dim, ip, 2, plan, part_elems, n_tickets) ||
+      !sg_plan_ok(8, batch, ip, dim, 1, plan + 3, part_elems, n_tickets))
     return (int)cudaErrorInvalidValue;
-  const GemvMat w1 = layer_mat<8>(mat(w1_pw, w1_sc), layer, dim, ip, gp);
-  const GemvMat w3 = layer_mat<8>(mat(w3_pw, w3_sc), layer, dim, ip, gp);
-  const GemvMat w2 = layer_mat<8>(mat(w2_pw, w2_sc), layer, ip, dim, gp2);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* yf = static_cast<float*>(y);
-  auto* hb = static_cast<__nv_bfloat16*>(h);
-  auto* pf = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch == 1) return (int)run_ffn<1, 4>(xb, w1, w3, w2, yf, batch, dim, ip, gp, gp2, hb, pf, s);
-  if (batch == 2) return (int)run_ffn<2, 4>(xb, w1, w3, w2, yf, batch, dim, ip, gp, gp2, hb, pf, s);
-  if (batch <= 4) return (int)run_ffn<4, 2>(xb, w1, w3, w2, yf, batch, dim, ip, gp, gp2, hb, pf, s);
-  return (int)run_ffn<8, 1>(xb, w1, w3, w2, yf, batch, dim, ip, gp, gp2, hb, pf, s);
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  SgArgs f = {};
+  f.x = static_cast<const __nv_bfloat16*>(x);
+  f.b_rows = batch;
+  f.m0 = layer_mat<8>(mat(w1_pw, w1_sc), layer, dim, ip, gp);
+  f.m1 = layer_mat<8>(mat(w3_pw, w3_sc), layer, dim, ip, gp);
+  f.k = dim;
+  f.n = ip;
+  f.gp = gp;
+  f.split_steps = plan[0];
+  f.epi = kSgSwiglu;
+  f.out_bf16 = hb;
+  f.part = static_cast<float*>(part);
+  f.tickets = static_cast<int*>(tickets);
+  MV_CHECK(launch_stack_gemv<8>(f, plan, 2, s));
+
+  SgArgs w = f;
+  w.x = hb;
+  w.m0 = w.m1 = layer_mat<8>(mat(w2_pw, w2_sc), layer, ip, dim, gp2);
+  w.k = ip;
+  w.n = dim;
+  w.gp = gp2;
+  w.split_steps = plan[3];
+  w.epi = kSgF32;
+  w.out_bf16 = nullptr;
+  w.out_f32 = static_cast<float*>(y);
+  return (int)launch_stack_gemv<8>(w, plan + 3, 1, s);
 }

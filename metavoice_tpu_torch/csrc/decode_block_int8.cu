@@ -47,9 +47,22 @@
 // us from a call's first start to its last end against 6.3 us of bytes:
 // three dependent kernels, each product a prologue of dependent phases
 // before its first mma, the attention's 256 slots one split on 32 SMs.
-// K10 (simple and right first): the split-K CUDA-core GEMV over the plain
-// layout (gemv8_partial in decode_gemv.cuh; w1 and w3 in one launch, the
-// reduce applying the column scales and silu(h1) * h3, then w2): 4 launches.
+//
+// K10's design: two kernels on the caller's stream, the second a
+// programmatic dependent of the first; it allocates nothing and never
+// synchronises.
+//   1. h = bf16(silu(x @ W1 * s1) * (x @ W3 * s3)): one launch of the
+//      tensor-core GEMV in its plain-int8 form (grid z 2: w1 and w3 side by
+//      side), the last block of each column tile merging both matrices'
+//      partials in a fixed order, each times its own column scale, then the
+//      SwiGLU epilogue.
+//   2. y = (h @ W2) * s2 in f32: as 1, one matrix, the f32 epilogue; its
+//      first k-steps are in flight before its programmatic wait, h is read
+//      after it (once launch 1 has finished and its stores are visible).
+//   Each product's K is cut by the wrapper's plan (ops/decode_stack.
+//   ffn_plan, from stack_gemv_plan with vpw 1), the merge counters those of
+//   K3/K9. The columns come in tiles of 32, two to a cluster, so D and I
+//   must be multiples of 64.
 //
 // Plain C entry points (no PyTorch headers), loaded with ctypes by
 // metavoice_tpu_torch/ops/_build.py; the wrappers and their plain PyTorch
@@ -62,29 +75,13 @@
 #include <stdint.h>
 
 #include "decode_attention_onepass.cuh"
-#include "decode_gemv.cuh"
 #include "decode_stack_gemv.cuh"
 
 namespace {
 
 constexpr int kDh = 128;  // the kernel's head width
 
-template <int NB, int CPL>
-cudaError_t run_ffn8(const __nv_bfloat16* x, const int8_t* w1, const float* s1, const int8_t* w3,
-                     const float* s3, const int8_t* w2, const float* s2, float* y, int batch, int dim,
-                     int inter, __nv_bfloat16* h, float* part, cudaStream_t s) {
-  Epilogue eg{};
-  eg.kind = kEpiSwiglu;
-  eg.out_bf16 = h;
-  eg.scale0 = s1;
-  eg.scale1 = s3;
-  MV_CHECK((launch_gemv8<NB, CPL>(x, batch, dim, inter, w1, w3, 2, part, eg, s)));
-  Epilogue ef{};
-  ef.kind = kEpiF32;
-  ef.out_f32 = y;
-  ef.scale0 = s2;
-  return launch_gemv8<NB, CPL>(h, batch, inter, dim, w2, w2, 1, part, ef, s);
-}
+SgMat plain(const void* q) { return SgMat{static_cast<const int32_t*>(q), nullptr}; }
 
 }  // namespace
 
@@ -122,7 +119,7 @@ extern "C" int mv_decode_block_int8(const void* x, const void* wqkv, const void*
   SgArgs q = {};
   q.x = static_cast<const __nv_bfloat16*>(x);
   q.b_rows = batch;
-  q.m0 = q.m1 = SgMat{static_cast<const int32_t*>(wqkv), nullptr};
+  q.m0 = q.m1 = plain(wqkv);
   q.col_scale = static_cast<const float*>(wqkv_s);
   q.k = dim;
   q.n = 3 * dim;
@@ -140,7 +137,7 @@ extern "C" int mv_decode_block_int8(const void* x, const void* wqkv, const void*
 
   SgArgs o = q;
   o.x = ya_b;
-  o.m0 = o.m1 = SgMat{static_cast<const int32_t*>(wo), nullptr};
+  o.m0 = o.m1 = plain(wo);
   o.col_scale = static_cast<const float*>(wo_s);
   o.n = dim;
   o.split_steps = plan[3];
@@ -151,29 +148,50 @@ extern "C" int mv_decode_block_int8(const void* x, const void* wqkv, const void*
 }
 
 // One layer's plain-int8 SwiGLU FFN (K10): x (B, D) bf16; w1, w3 (D, I) int8 with s1, s3
-// (I,) f32; w2 (I, D) int8 with s2 (D,) f32; y (B, D) f32 out. D and I multiples of 16.
-// Scratch: h (B, I) bf16, part f32 holding max(2 * ceil(D/64) * B * I, ceil(I/64) * B * D)
-// partials. Returns a cudaError_t.
-extern "C" int mv_decode_ffn_int8(const void* x, const void* w1, const void* s1, const void* w3,
-                                  const void* s3, const void* w2, const void* s2, void* y,
-                                  int batch, int dim, int inter, void* h, void* part,
-                                  void* stream) {
-  if (batch < 1 || batch > 8 || dim < 16 || dim % 16 != 0 || inter < 16 || inter % 16 != 0 ||
-      x == nullptr || y == nullptr)
+// (I,) f32; w2 (I, D) int8 with s2 (D,) f32; y (B, D) f32 out. D and I multiples of 64.
+// plans: host int32 [2][3], {split_steps, n_splits, warps} of the w1/w3 and
+// the w2 product (ops/decode_stack.ffn_plan with vpw 1). Scratch: h (B, I)
+// bf16, part f32 of part_elems, at least 2 * splits * B * (I + 1) of w1/w3
+// and, when w2 has more than one split, its splits * B * (D + 1); tickets
+// n_tickets int32 all 0 (left 0), at least I / 32. Returns a cudaError_t.
+extern "C" int mv_decode_ffn_int8(const void* x, const void* w1, const void* s1, const void* w3, const void* s3,
+                                  const void* w2, const void* s2, void* y, int batch, int dim, int inter,
+                                  const void* plans, void* h, void* part, long long part_elems, void* tickets,
+                                  int n_tickets, void* stream) {
+  const int* plan = static_cast<const int*>(plans);
+  if (batch < 1 || batch > kSgRows || x == nullptr || y == nullptr || h == nullptr || plan == nullptr ||
+      s1 == nullptr || s3 == nullptr || s2 == nullptr ||
+      !sg_plan_ok(1, batch, dim, inter, 2, plan, part_elems, n_tickets) ||
+      !sg_plan_ok(1, batch, inter, dim, 1, plan + 3, part_elems, n_tickets))
     return (int)cudaErrorInvalidValue;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* q1 = static_cast<const int8_t*>(w1);
-  const auto* q3 = static_cast<const int8_t*>(w3);
-  const auto* q2 = static_cast<const int8_t*>(w2);
-  const auto* f1 = static_cast<const float*>(s1);
-  const auto* f3 = static_cast<const float*>(s3);
-  const auto* f2 = static_cast<const float*>(s2);
-  auto* yf = static_cast<float*>(y);
-  auto* hb = static_cast<__nv_bfloat16*>(h);
-  auto* pf = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch == 1) return (int)run_ffn8<1, 16>(xb, q1, f1, q3, f3, q2, f2, yf, batch, dim, inter, hb, pf, s);
-  if (batch == 2) return (int)run_ffn8<2, 16>(xb, q1, f1, q3, f3, q2, f2, yf, batch, dim, inter, hb, pf, s);
-  if (batch <= 4) return (int)run_ffn8<4, 16>(xb, q1, f1, q3, f3, q2, f2, yf, batch, dim, inter, hb, pf, s);
-  return (int)run_ffn8<8, 8>(xb, q1, f1, q3, f3, q2, f2, yf, batch, dim, inter, hb, pf, s);
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  SgArgs f = {};
+  f.x = static_cast<const __nv_bfloat16*>(x);
+  f.b_rows = batch;
+  f.m0 = plain(w1);
+  f.m1 = plain(w3);
+  f.col_scale = static_cast<const float*>(s1);
+  f.col_scale1 = static_cast<const float*>(s3);
+  f.k = dim;
+  f.n = inter;
+  f.split_steps = plan[0];
+  f.epi = kSgSwiglu;
+  f.out_bf16 = hb;
+  f.part = static_cast<float*>(part);
+  f.tickets = static_cast<int*>(tickets);
+  MV_CHECK(launch_stack_gemv<1>(f, plan, 2, s));
+
+  SgArgs w = f;
+  w.x = hb;
+  w.m0 = w.m1 = plain(w2);
+  w.col_scale = static_cast<const float*>(s2);
+  w.col_scale1 = nullptr;
+  w.k = inter;
+  w.n = dim;
+  w.split_steps = plan[3];
+  w.epi = kSgF32;
+  w.out_bf16 = nullptr;
+  w.out_f32 = static_cast<float*>(y);
+  return (int)launch_stack_gemv<1>(w, plan + 3, 1, s);
 }

@@ -1,8 +1,8 @@
 // The decode GEMV on the tensor cores, one launch a product: the products
 // of the int32-word decode stack (decode_stack_int4.cu, K3 with int4 words
-// and K7 with int8 words) and of the per-layer attention blocks
-// (decode_block_int4.cu, K5's int4 words; decode_block_int8.cu, K9's plain
-// int8). Only those three files include it.
+// and K7 with int8 words) and of the per-layer attention blocks and FFNs
+// (decode_block_int4.cu, K5's and K6's int4 words; decode_block_int8.cu,
+// K9's and K10's plain int8). Only those three files include it.
 //
 // y (B, N) = xn (B, K) @ W (K, N) for B <= 8 rows, where xn is x itself or,
 // for the products that follow a norm, RMSNorm(x) * w computed here from the
@@ -15,7 +15,8 @@
 // _int8_word_matmul): per group, f32 sums of x times the raw value (a nibble
 // 0..15 or a byte 0..255, exact in bf16), times s, plus bf16(sum of x over
 // the group) * c; plain int8 (_decode_block_kernel): f32 sums of x times the
-// signed byte over all of K, times the column's scale after the merge.
+// signed byte over all of K, times the column's scale after the merge (each
+// matrix its own scales: K10's w1 and w3).
 //
 // Design:
 //   * mma.sync m16n8k16 bf16 -> f32 with the WEIGHTS as A (16 output
@@ -139,7 +140,8 @@ struct SgArgs {
   SgMat m0, m1;                 // m1: w3 beside w1 (kSgSwiglu, grid z 2)
   int b_rows, k, n, gp, split_steps;
   int epi;
-  const float* col_scale;       // plain int8: (N,) f32, times the merged sum
+  const float* col_scale;       // plain int8: m0's (N,) f32, times the merged sum
+  const float* col_scale1;      // plain int8: m1's (grid z 2)
   float* out_f32;               // kSgF32, kSgQKV: (B, N)
   __nv_bfloat16* out_bf16;      // kSgResid: bf16(resid + bf16(y)), in place when resid is it; kSgSwiglu; kSgBf16
   const __nv_bfloat16* resid;
@@ -339,7 +341,8 @@ __device__ __forceinline__ void sg_tile_squares(const SgArgs& a, int b, float sq
 
 // Grid (N / 32 column tiles, splits, matrices), kSgThreads threads, dynamic
 // shared memory sg_x_bytes(VPW, B, split_steps). VPW: 8 (int4) or 4 (int8)
-// values a word, or 1 (plain int8, one matrix, no norm).
+// values a word, or 1 (plain int8, no norm; one matrix, or w1 and w3 with
+// the SwiGLU epilogue, each with its own column scales).
 template <int VPW>
 __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a) {
   constexpr bool kInt8 = VPW == 4;
@@ -768,7 +771,7 @@ __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a)
         for (int j = 0; j < VPW; ++j) v += s_cs[cg][j][b] * bf(s_c[cg * VPW + j][cc]);
     if (n_parts == 1) {
       if (kInt8) v += round_bf16(s_cx[b]) * bf(s_c[0][cc]);
-      if (kPlain) v *= a.col_scale[col0 + cc];
+      if (kPlain) v *= a.col_scale[col0 + cc];  // one part: one matrix
       sg_tile_squares(a, b, sg_epilogue(a, b, col0 + cc, v, 0.f, s_resid[b][cc], pos));
     } else {
       a.part[((size_t)(mat * gridDim.y + split) * b_rows + b) * a.n + col0 + cc] = v;
@@ -787,6 +790,10 @@ __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a)
     const int b = i / kSgCols;
     const int cc = i % kSgCols;
     float y[2] = {0.f, 0.f};  // the matrices' sums (y[1]: w3)
+    // plain int8: each matrix's column scale, loaded before the partials (a
+    // scale picked by z inside the loop waited for them: K9 3% slower on the H100)
+    const float cs0 = kPlain ? a.col_scale[col0 + cc] : 0.f;
+    const float cs1 = kPlain && gridDim.z > 1 ? a.col_scale1[col0 + cc] : 0.f;
     for (int z = 0; z < (int)gridDim.z; ++z) {
       const float* p = a.part + z * mat_stride + (size_t)b * a.n + col0 + cc;
       const float* px = part_x + (size_t)z * n_splits * b_rows + b;
@@ -809,7 +816,7 @@ __global__ void __launch_bounds__(kSgThreads, kSgMinBlocks) stack_gemv(SgArgs a)
         const __nv_bfloat16* c_row = (z == 0 ? a.m0 : a.m1).sc + (size_t)a.gp * a.n;
         y[z] += round_bf16(xs) * bf(z == mat ? s_c[0][cc] : c_row[col0 + cc]);
       }
-      if (kPlain) y[z] *= a.col_scale[col0 + cc];
+      if (kPlain) y[z] *= z == 0 ? cs0 : cs1;
     }
     sg_tile_squares(a, b, sg_epilogue(a, b, col0 + cc, y[0], y[1], s_resid[b][cc], pos));
   }

@@ -65,13 +65,6 @@
 #include "decode_stack_gemv.cuh"
 #include "device_common.cuh"
 
-// Return a failed call's cudaError_t from the enclosing launch sequence.
-#define MV_CHECK(expr)                          \
-  do {                                          \
-    const cudaError_t err_ = (expr);            \
-    if (err_ != cudaSuccess) return err_;       \
-  } while (0)
-
 namespace {
 
 constexpr int kHeadDim = 128;

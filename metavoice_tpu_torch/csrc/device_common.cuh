@@ -1,13 +1,21 @@
 // Small device and launch helpers shared by the decode kernels:
-// decode_attention.cuh (and, through it, decode_gemv.cuh,
-// decode_stack_gemv.cuh and decode_stack_int4.cu) and
-// decode_attention_onepass.cuh.
+// decode_attention.cuh (and, through it, decode_stack_gemv.cuh and
+// decode_stack_int4.cu) and decode_attention_onepass.cuh (and, through it,
+// decode_attention.cu, decode_attention_multi.cu, decode_block_int4.cu and
+// decode_block_int8.cu).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Return a failed call's cudaError_t from the enclosing launch sequence.
+#define MV_CHECK(expr)                    \
+  do {                                    \
+    const cudaError_t err_ = (expr);      \
+    if (err_ != cudaSuccess) return err_; \
+  } while (0)
 
 namespace {
 

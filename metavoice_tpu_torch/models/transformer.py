@@ -47,7 +47,8 @@ the CPU). A T=1 step of an MHA model on a bf16 cache runs each layer's
 attention block in one kernel (ops/attention.py:decode_attention_block_int8,
 K9: qkv, the new row, attention, o-proj) where ``int8_block_ok`` holds, and
 its FFN in another (ops/quantized.py:ffn_int8, K10) whenever w1, w3 and w2
-are plain int8; other T=1 layers take K11 and the decode attention. The
+are plain int8 and ``ffn_int8_kernel_ok`` holds (D and the FFN width
+multiples of 64); other T=1 layers take K11 and the decode attention. The
 JAX package takes K9/K10 only on the TPU; the port follows the kernels on
 every device.
 
@@ -94,6 +95,7 @@ from metavoice_tpu_torch.ops.quantized import (
     decode_ffn_int4,
     dequantize_int4_grouped,
     ffn_int8,
+    ffn_int8_kernel_ok,
     is_int4,
     is_int4_grouped,
     is_int8_i32,
@@ -400,13 +402,15 @@ def _linear(x, w, b=None):
 
 
 def _mlp(x, lp: Params, cfg: TransformerConfig):
-    """SwiGLU or exact-GELU FFN. At T = 1 with plain int8 w1, w3 and w2 and
-    at most DECODE_MAX_ROWS rows, SwiGLU runs through K10 (f32 out, cast to
-    x's dtype)."""
+    """SwiGLU or exact-GELU FFN. At T = 1 with plain int8 w1, w3 and w2 on
+    rows and widths K10's kernel takes (``ffn_int8_kernel_ok``, on every
+    device), SwiGLU runs through K10 (f32 out, cast to x's dtype); else each
+    product takes ``_linear``."""
     if cfg.nonlinearity_type == "swiglu":
         w1, w3, w2 = lp["w1"], lp["w3"], lp["w2"]
         rows = x.numel() // x.shape[-1]
-        if x.shape[-2] == 1 and rows <= DECODE_MAX_ROWS and all(is_int8_plain(w) for w in (w1, w3, w2)):
+        if (x.shape[-2] == 1 and all(is_int8_plain(w) for w in (w1, w3, w2))
+                and ffn_int8_kernel_ok(rows, *w1["q"].shape[-2:])):
             y = ffn_int8(x.reshape(rows, -1), w1["q"], w1["scales"], w3["q"], w3["scales"], w2["q"], w2["scales"])
             return y.reshape(x.shape).to(x.dtype)
         return _linear(F.silu(_linear(x, w1)) * _linear(x, w3), w2)

@@ -122,6 +122,19 @@ def stack_gemv_plan(k: int, n: int, vpw: int, b: int, n_mats: int = 1) -> tuple[
     return split_steps, n_splits, warps
 
 
+def ffn_plan(vpw: int, b: int, d: int, ip: int) -> tuple[tuple[int, int, int], tuple[int, int, int], int]:
+    """The cut of one per-layer FFN call, K6 (int4 words, vpw 8) or K10
+    (plain int8, vpw 1), on rows (b, d): the w1/w3 product (b, d) @ (d, ip)
+    twice side by side and the w2 product (b, ip) @ (ip, d), each as
+    :func:`stack_gemv_plan` cuts it -> (w1/w3 plan, w2 plan, f32 partials
+    the call needs: ``mats x splits x b x (N + 1)`` of the larger, w2's
+    only where it has more than one split)."""
+    w13 = stack_gemv_plan(d, ip, vpw, b, n_mats=2)
+    w2 = stack_gemv_plan(ip, d, vpw, b)
+    part = max(2 * w13[1] * b * (ip + 1), w2[1] * b * (d + 1) if w2[1] > 1 else 0)
+    return w13, w2, part
+
+
 def stack_plans(b: int, d: int, qout: int, ip: int, vp: int, vpw: int) -> list[tuple[int, int, int]]:
     """The plans of a step's five products: qkv, o-proj, w1/w3, w2 and the
     head (vp 0: no head, its plan unused)."""

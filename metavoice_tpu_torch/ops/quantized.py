@@ -60,13 +60,15 @@ summed in f32, in x's dtype.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from metavoice_tpu_torch.ops import _build
 
 I32_GROUPSIZE = 128  # serving groupsize (reference default, fast_quantize.py:70)
-DECODE_MAX_ROWS = 8  # rows the decode kernels' GEMV (csrc/decode_gemv.cuh) holds in registers
+DECODE_MAX_ROWS = 8  # rows of x the decode GEMVs take: their mma's N (csrc/decode_stack_gemv.cuh, matmul_int4_grouped.cu)
 CARD_SMS = 132  # the H100's streaming multiprocessors
 _QUANTIZABLE_LAYER_KEYS = ("wqkv", "wo", "w1", "w3", "w2", "w_fc", "w_proj")
 _HIDDEN_OUT_KEYS = ("w1", "w3", "w_fc")  # hidden dim on the out axis
@@ -414,6 +416,25 @@ matmul_int8_i32.launches = 0
 
 # ------------------------------------------------------------------ K6: one int4 SwiGLU FFN
 
+def _ffn_scratch(vpw: int, b: int, d: int, ip: int, device, who: str):
+    """One K6 (vpw 8) or K10 (vpw 1) call's plans and scratch -> (the plans
+    as the C entry reads them, h (b, ip) bf16, f32 partials, the merge
+    counters). The cut is ``decode_stack.ffn_plan``'s; h and the partials
+    come from the caching allocator on every call; the counters are the
+    decode GEMV's per-device table (``decode_stack._stack_tickets``, shared
+    with K3/K7 and K5/K9), taken on every call, so that a CUDA-graph capture
+    before any eager call raises (:func:`merge_tickets`). Calls on one
+    device must not overlap in time."""
+    from metavoice_tpu_torch.ops import decode_stack as DS  # decode_stack imports this module
+
+    w13, w2, part = DS.ffn_plan(vpw, b, d, ip)
+    if ip // DS.STACK_TILE_N > DS.STACK_TICKETS:
+        raise ValueError(f"{who}: {ip // DS.STACK_TILE_N} column tiles exceed the {DS.STACK_TICKETS} merge counters")
+    return ((ctypes.c_int * 6)(*w13, *w2), torch.empty((b, ip), dtype=torch.bfloat16, device=device),
+            torch.empty((part,), dtype=torch.float32, device=device),
+            merge_tickets(DS._stack_tickets, DS.STACK_TICKETS, device, who))
+
+
 def decode_ffn_int4_reference(x, pw1, sc1, pw3, sc3, pw2, sc2, layer: int, groupsize: int = I32_GROUPSIZE):
     """Plain PyTorch version of K6: the CPU path and the card's oracle.
 
@@ -434,9 +455,10 @@ def decode_ffn_int4(x, pw1, sc1, pw3, sc3, pw2, sc2, layer: int, groupsize: int 
     ``pw1``/``pw3`` (L, D/8, Ip) and ``pw2`` (L, Ip/8, D) int32 with their
     ``sc`` (L, 2*Gp, N), stacked over layers; ``layer`` an int. A CUDA
     tensor launches the hand-written kernel (``csrc/decode_block_int4.cu``:
-    1..8 rows, D and Ip multiples of 1024, groupsize 128) or raises; a CPU
-    tensor takes :func:`decode_ffn_int4_reference`.
-    ``decode_ffn_int4.launches`` counts kernel launches.
+    1..8 rows, D and Ip multiples of 1024, groupsize 128; two chained
+    launches of the tensor-core GEMV, :func:`_ffn_scratch`) or raises; a
+    CPU tensor takes :func:`decode_ffn_int4_reference`.
+    ``decode_ffn_int4.launches`` counts kernel launches (one a call).
     """
     if x.dim() != 2:
         raise ValueError(f"x must be (B, D), got {tuple(x.shape)}")
@@ -467,13 +489,13 @@ def decode_ffn_int4(x, pw1, sc1, pw3, sc3, pw2, sc2, layer: int, groupsize: int 
         raise ValueError("decode_ffn_int4 needs contiguous packed weights")
     dev = x.device
     xb = x.to(torch.bfloat16).contiguous()
-    h = torch.empty((b, ip), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((b * max(2 * (d // 256) * ip, (ip // 256) * d),), dtype=torch.float32, device=dev)
+    plans, h, part, tickets = _ffn_scratch(8, b, d, ip, dev, "decode_ffn_int4")
     y = torch.empty((b, d), dtype=torch.float32, device=dev)
     err = _build.kernels().lib.mv_decode_ffn_int4(
         xb.data_ptr(), pw1.data_ptr(), sc1.data_ptr(), pw3.data_ptr(), sc3.data_ptr(), pw2.data_ptr(),
         sc2.data_ptr(), y.data_ptr(), layer, b, d, ip, sc1.shape[1] // 2, sc2.shape[1] // 2,
-        h.data_ptr(), part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        ctypes.addressof(plans), h.data_ptr(), part.data_ptr(), part.numel(), tickets.data_ptr(),
+        tickets.numel(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"decode_ffn_int4 kernel launch failed: cudaError_t {err}")
@@ -574,13 +596,15 @@ def matmul_int8(x, q, scales):
 matmul_int8.launches = 0
 
 
-GEMV8_CHUNK = 64  # contraction rows per block of the plain-int8 GEMV (csrc/decode_gemv.cuh)
+FFN8_ALIGN = 64  # K10's D and I: the GEMV's column tiles, 32 a block and 2 a cluster, in both products
 
 
-def gemv8_chunks(k: int) -> int:
-    """Blocks along K of the plain-int8 GEMV, each writing one f32 partial a
-    (row, column)."""
-    return -(-k // GEMV8_CHUNK)
+def ffn_int8_kernel_ok(m: int, d: int, i_sz: int) -> bool:
+    """Whether K10's kernel takes m rows of a (D, I) FFN: 1..DECODE_MAX_ROWS
+    rows, D and I multiples of FFN8_ALIGN. ``models/transformer._mlp``
+    routes a T = 1 plain-int8 SwiGLU by it on every device, so the CPU and
+    the card take the same route."""
+    return 1 <= m <= DECODE_MAX_ROWS and d % FFN8_ALIGN == 0 and i_sz % FFN8_ALIGN == 0
 
 
 def ffn_int8_reference(x, w1, s1, w3, s3, w2, s2):
@@ -599,9 +623,11 @@ def ffn_int8(x, w1, s1, w3, s3, w2, s2):
 
     w1, w3: (D, I) int8 with (I,) f32 scales; w2: (I, D) int8 with (D,) f32
     scales. A CUDA tensor launches the hand-written kernel
-    (``csrc/decode_block_int8.cu``, ``mv_decode_ffn_int8``: 1..8 rows, D and I
-    multiples of 16) or raises; a CPU tensor takes
-    :func:`ffn_int8_reference`. ``ffn_int8.launches`` counts kernel launches.
+    (``csrc/decode_block_int8.cu``, ``mv_decode_ffn_int8``: two chained
+    launches of the tensor-core GEMV in its plain-int8 form; the shapes of
+    :func:`ffn_int8_kernel_ok`) or raises; a CPU tensor takes
+    :func:`ffn_int8_reference`. ``ffn_int8.launches`` counts kernel launches
+    (one a call).
     """
     if x.dim() != 2:
         raise ValueError(f"x must be (M, D), got {tuple(x.shape)}")
@@ -617,21 +643,21 @@ def ffn_int8(x, w1, s1, w3, s3, w2, s2):
         return ffn_int8_reference(*tensors)
     if x.device.type != "cuda":
         raise ValueError(f"ffn_int8 runs on cuda or cpu, not {x.device}")
-    if not 1 <= m <= DECODE_MAX_ROWS or d % 16 or i_sz % 16:
-        raise ValueError(f"the kernel takes 1..{DECODE_MAX_ROWS} rows and D, I multiples of 16; got {m}, {d}, {i_sz}")
+    if not ffn_int8_kernel_ok(m, d, i_sz):
+        raise ValueError(f"the kernel takes 1..{DECODE_MAX_ROWS} rows and D, I multiples of {FFN8_ALIGN}; got "
+                         f"{m} rows, D {d}, I {i_sz}")
     if any(w.dtype != torch.int8 for w in (w1, w3, w2)) or any(s.dtype != torch.float32 for s in (s1, s3, s2)):
         raise ValueError("plain int8 weights must be int8 q with f32 scales")
     if not all(t.is_contiguous() for t in tensors[1:]):
         raise ValueError("ffn_int8 needs contiguous weights and scales")
     dev = x.device
     xb = x.to(torch.bfloat16).contiguous()
-    h = torch.empty((m, i_sz), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((m * max(2 * gemv8_chunks(d) * i_sz, gemv8_chunks(i_sz) * d),), dtype=torch.float32,
-                       device=dev)
+    plans, h, part, tickets = _ffn_scratch(1, m, d, i_sz, dev, "ffn_int8")
     y = torch.empty((m, d), dtype=torch.float32, device=dev)
     err = _build.kernels().lib.mv_decode_ffn_int8(
         xb.data_ptr(), w1.data_ptr(), s1.data_ptr(), w3.data_ptr(), s3.data_ptr(), w2.data_ptr(), s2.data_ptr(),
-        y.data_ptr(), m, d, i_sz, h.data_ptr(), part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        y.data_ptr(), m, d, i_sz, ctypes.addressof(plans), h.data_ptr(), part.data_ptr(), part.numel(),
+        tickets.data_ptr(), tickets.numel(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ffn_int8 kernel launch failed: cudaError_t {err}")

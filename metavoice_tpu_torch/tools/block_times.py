@@ -1,20 +1,27 @@
-"""Device times of the attention blocks K5 and K9 alone, on the card.
+"""Device times of the per-layer decode kernels alone, on the card: the
+attention blocks K5 and K9 and the FFNs K6 and K10.
 
-    python3 -m metavoice_tpu_torch.tools.block_times [--trees OLD NEW] [--breakdown]
+    python3 -m metavoice_tpu_torch.tools.block_times [--trees OLD NEW] [--breakdown] [--bits OLD NEW]
 
 Each time is per layer, from a CUDA graph of the 24 layers' calls in turn,
-at the main-path shape (D 2048, 16 heads, B 2, S 2048, random weights and
-caches from seeds), at pos 0, 255, 1000 and 2047: K5 on a bf16, an int8 and
-a packed cache, K9 on a bf16 cache.
+at the main-path shape (D 2048, 16 heads, B 2, S 2048, FFN 5632 (K6's
+packed to 6144), random weights and caches from seeds): K5 on a bf16, an
+int8 and a packed cache and K9 on a bf16 cache at pos 0, 255, 1000 and
+2047; K6 and K10.
 
 * ``--trees OLD NEW``: two checkouts' roots (an older commit unpacked with
   ``git archive`` or ``git checkout-index -a --prefix=DIR/`` into a
   git-ignored directory, and this one), each timed in its own process with
   that tree's own package and kernels, in the order OLD NEW NEW OLD: one
   JSON line a run. The wrappers' signatures are the same in both.
-* ``--breakdown``: each kernel of a K5 / K9 call by profiled device time
-  over 3 replays of the graph (a kernel starts before the one before it
-  ends, programmatic dependent launch, so the times overlap).
+* ``--breakdown``: each kernel of a call (K5 / K9 at pos 255) by profiled
+  device time over 3 replays of the graph (a kernel starts before the one
+  before it ends, programmatic dependent launch, so the times overlap).
+* ``--bits OLD NEW``: the outputs of the kernels that share the tensor-core
+  GEMV header (a K3 and a K7 step with the new rows they write, K5 on each
+  cache format with its cache row and scales, K9 with its cache row; pos
+  255 and 1000) on the same seeded inputs, each tree in its own process,
+  compared bit for bit: one line a case, exit 1 on any difference.
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -26,6 +33,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 POSITIONS = (0, 255, 1000, 2047)
 KV_FORMATS = ("bf16", "int8", "int8_packed")
@@ -60,8 +68,13 @@ def _cache(torch, cfg, fmt: str, gen, dev, b: int):
     return kv
 
 
+BLOCK_KERNELS = ("qkv product", "attention", "o-proj")  # a K5 / K9 call's launches, in order
+FFN_KERNELS = ("w1/w3 product", "w2 product")  # a K6 / K10 call's
+
+
 def _cases(torch):
-    """(n_layer, [(label, fn(layer, pos))]) of K5 per cache format and K9."""
+    """(n_layer, [(label, fn(layer, pos), positions, its launches' names)]) of
+    K5 per cache format, K9, K6 and K10 (the FFNs at one position, None)."""
     from metavoice_tpu_torch.core.config import first_stage_config
     from metavoice_tpu_torch.models import transformer as tfm
     from metavoice_tpu_torch.ops import attention as A
@@ -74,17 +87,22 @@ def _cases(torch):
     params = tfm.init_params(cfg, device=dev, generator=gen, dtype=torch.bfloat16)
     l4 = Q.quantize_params_int4_i32(params)["layers"]
     w4 = (l4["wqkv"]["pw"], l4["wqkv"]["sc"], l4["wo"]["pw"], l4["wo"]["sc"])
+    f4 = [t for k in ("w1", "w3", "w2") for t in (l4[k]["pw"], l4[k]["sc"])]
     l8 = Q.quantize_params_int8(params)["layers"]
     del params
     out = []
     for fmt in KV_FORMATS:
         kv = _cache(torch, cfg, fmt, gen, dev, 2)
         out.append((f"K5 {fmt}", lambda li, pos, kv=kv: A.decode_attention_block_int4(
-            x, *w4, kv.k, kv.v, li, pos, cfg.n_head, k_scale=kv.k_scale, v_scale=kv.v_scale)))
+            x, *w4, kv.k, kv.v, li, pos, cfg.n_head, k_scale=kv.k_scale, v_scale=kv.v_scale),
+            POSITIONS, BLOCK_KERNELS))
     kv = _cache(torch, cfg, "bf16", gen, dev, 2)
     out.append(("K9", lambda li, pos: A.decode_attention_block_int8(
         x, l8["wqkv"]["q"][li], l8["wqkv"]["scales"][li], l8["wo"]["q"][li], l8["wo"]["scales"][li],
-        kv.k, kv.v, li, pos, cfg.n_head)))
+        kv.k, kv.v, li, pos, cfg.n_head), POSITIONS, BLOCK_KERNELS))
+    out.append(("K6", lambda li, pos: Q.decode_ffn_int4(x, *f4, li), (None,), FFN_KERNELS))
+    out.append(("K10", lambda li, pos: Q.ffn_int8(x, *[l8[k][f][li] for k in ("w1", "w3", "w2")
+                                                      for f in ("q", "scales")]), (None,), FFN_KERNELS))
     return cfg.n_layer, out
 
 
@@ -121,20 +139,22 @@ def _layer_ms(torch, fn, n_layer: int, iters: int = 20) -> float:
 
 
 def time_tree(root: str) -> dict:
-    """K5 and K9 of the tree at ``root`` (its package and kernels), ms a layer
-    from a CUDA graph."""
+    """K5, K9, K6 and K10 of the tree at ``root`` (its package and kernels),
+    ms a layer from a CUDA graph."""
     torch = _setup(root)
     n_layer, cases = _cases(torch)
-    return {"tree": root, **{f"{label} {pos}": _layer_ms(torch, lambda li: fn(li, pos), n_layer)
-                             for label, fn in cases for pos in POSITIONS}}
+    return {"tree": root, **{label if pos is None else f"{label} {pos}": _layer_ms(torch, lambda li: fn(li, pos),
+                                                                                  n_layer)
+                             for label, fn, positions, _ in cases for pos in positions}}
 
 
 def breakdown() -> dict:
-    """Each kernel of a call at pos 255: mean profiled device time (us)."""
+    """Each kernel of a call (the attention blocks at pos 255): mean
+    profiled device time (us)."""
     torch = _setup(os.getcwd())
     n_layer, cases = _cases(torch)
     out = {}
-    for label, fn in cases:
+    for label, fn, _, kinds in cases:
         graph = _graph(torch, lambda li: fn(li, 255), n_layer)
         graph.replay()
         torch.cuda.synchronize()
@@ -145,23 +165,101 @@ def breakdown() -> dict:
         evs = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA)
         per: dict = {}
-        for i, (t0, t1, name) in enumerate(evs):
-            kind = "attention" if "attn_row_kernel" in name else ("qkv product" if i % 3 == 0 else "o-proj")
-            per.setdefault(kind, []).append(t1 - t0)
+        for i, (t0, t1, _) in enumerate(evs):  # the calls' launches in order
+            per.setdefault(kinds[i % len(kinds)], []).append(t1 - t0)
         span = (evs[-1][1] - evs[0][0]) / (3 * n_layer)
         out[label] = {**{k: sum(v) / len(v) for k, v in per.items()}, "first start to last end, a call": span,
                       "kernels a call": len(evs) / (3 * n_layer)}
     return out
 
 
+def save_outputs(root: str, path: str):
+    """The --bits cases of the tree at ``root`` -> ``path`` (torch.save of
+    name -> CPU tensors): the inputs themselves, then each call's outputs."""
+    torch = _setup(root)
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import attention as A
+    from metavoice_tpu_torch.ops import decode_stack as DS
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    cfg = first_stage_config()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = tfm.init_params(cfg, device=dev, generator=gen, dtype=torch.bfloat16)
+    lay = params["layers"]
+    for key in ("attn_norm_w", "ffn_norm_w"):
+        lay[key] = (1 + 0.1 * torch.randn(lay[key].shape, generator=gen, device=dev)).to(torch.bfloat16)
+    x = torch.randn((2, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    out = {"inputs": [x, lay["wqkv"][3]]}
+
+    def cache(fmt, seed):
+        return _cache(torch, cfg, fmt, torch.Generator(device=dev).manual_seed(seed), dev, 2)
+
+    for wfmt, quantize, fields in (("i4", Q.quantize_params_int4_i32, ("pw", "sc")),
+                                   ("i8", Q.quantize_params_int8_i32, ("p8", "sc8"))):
+        qp = quantize(params)
+        ql = qp["layers"]
+        weights = [ql[k][f] for k in ("wqkv", "wo", "w1", "w3", "w2") for f in fields]
+        kw = dict(norm_eps=cfg.norm_eps, wfmt=wfmt)
+        if wfmt == "i4":
+            kw.update(ln_f_w=qp["ln_f_w"], head_pw=qp["lm_head_q"]["pw"], head_sc=qp["lm_head_q"]["sc"])
+        for pos in (255, 1000):
+            kv = cache("bf16", pos)
+            step = DS.decode_stack_int4(x, ql["attn_norm_w"], ql["ffn_norm_w"], *weights, kv.k, kv.v,
+                                        torch.tensor(pos, dtype=torch.int32, device=dev), cfg.n_head, **kw)
+            out[f"{'K3' if wfmt == 'i4' else 'K7'} pos {pos}"] = [step[0], *step[3:], kv.k[:, pos], kv.v[:, pos]]
+            if wfmt == "i4":
+                for fmt in KV_FORMATS:
+                    kv = cache(fmt, pos + 7)
+                    y = A.decode_attention_block_int4(x, *weights[:4], kv.k, kv.v, 5, pos, cfg.n_head,
+                                                      k_scale=kv.k_scale, v_scale=kv.v_scale)[0]
+                    layer5 = [t[5] for t in (kv.k, kv.v, kv.k_scale, kv.v_scale) if t is not None]
+                    out[f"K5 {fmt} pos {pos}"] = [y, *layer5]
+    l8 = Q.quantize_params_int8(params)["layers"]
+    for pos in (255, 1000):
+        kv = cache("bf16", pos + 9)
+        y, _, _ = A.decode_attention_block_int8(x, *[l8[k][f][5] for k in ("wqkv", "wo") for f in ("q", "scales")],
+                                                kv.k, kv.v, 5, pos, cfg.n_head)
+        out[f"K9 pos {pos}"] = [y, kv.k[5], kv.v[5]]
+    torch.save({k: [t.cpu() for t in v] for k, v in out.items()}, path)
+
+
+def compare_bits(old: str, new: str, tmp: str) -> bool:
+    """--bits: each tree's outputs saved by its own process, then compared."""
+    paths = []
+    for i, root in enumerate((old, new)):
+        paths.append(os.path.join(tmp, f"bits_{i}.pt"))
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--save", root, paths[-1]],
+                             capture_output=True, text=True)
+        if run.returncode:
+            raise SystemExit(f"running {root} failed:\n{run.stdout}\n{run.stderr}")
+    import torch
+
+    a, b = (torch.load(p) for p in paths)
+    same_all = a.keys() == b.keys()
+    for name in a:
+        same = len(a[name]) == len(b.get(name, ())) and all(
+            torch.equal(s.reshape(-1).view(torch.uint8), t.reshape(-1).view(torch.uint8))
+            for s, t in zip(a[name], b[name]))
+        same_all &= same
+        print(f"{name}: {'bit for bit' if same else 'DIFFERS'} ({len(a[name])} tensors)", flush=True)
+    return same_all
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs=2, metavar=("OLD", "NEW"))
     ap.add_argument("--breakdown", action="store_true")
+    ap.add_argument("--bits", nargs=2, metavar=("OLD", "NEW"))
     ap.add_argument("--one", metavar="ROOT", help=argparse.SUPPRESS)  # a child of --trees
+    ap.add_argument("--save", nargs=2, metavar=("ROOT", "PATH"), help=argparse.SUPPRESS)  # a child of --bits
     args = ap.parse_args()
     if args.one:
         print(json.dumps(time_tree(args.one)), flush=True)
+        return 0
+    if args.save:
+        save_outputs(*args.save)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -176,6 +274,10 @@ def main() -> int:
             print(run.stdout.strip().splitlines()[-1], flush=True)
     if args.breakdown:
         print(json.dumps(breakdown()), flush=True)
+    if args.bits:
+        with tempfile.TemporaryDirectory() as tmp:
+            if not compare_bits(*args.bits, tmp):
+                return 1
     return 0
 
 

@@ -10,6 +10,11 @@ them:
   within 1e-2 of max |ref| (the f32 sums in another order and the SwiGLU
   rounding to bf16 between them; JAX adds its two hidden tiles' products
   one at a time).
+* ``models/transformer._mlp`` at T = 1 takes K10 only where its kernel
+  takes the shape (D and I multiples of 64, ``ffn_int8_kernel_ok``), else
+  ``_linear`` per product, as JAX's ``_mlp`` off the TPU: within 3e-2 of
+  max |ref| of JAX's ``_mlp`` (the tolerance of
+  ``test_torch_int8_plain_slice.py``).
 * K9 ``decode_attention_block_int8`` on JAX's own test shape (b 2, h 4,
   dh 128, s 512, l 2; ``tests/test_decode_block_kernel.py``) at pos 0, 100
   and 300, with and without starts: y within 2e-2 of max |y| (the port's
@@ -120,6 +125,27 @@ def test_ffn_int8_plain_version_matches_jax_interpret():
         got = Q.ffn_int8(_torch({"x": np.asarray(x)})["x"], *tmats)
         assert got.dtype == torch.float32 and got.shape == (m, d)
         _close(got.numpy(), ref, K10_TOL)
+
+
+@pytest.mark.parametrize("i_sz,takes_k10", [(528, False), (512, True)])
+def test_mlp_routes_t1_by_the_k10_predicate(i_sz, takes_k10, monkeypatch):
+    """FFN width 528 (a multiple of 16, not of 64) misses K10 on every device
+    and runs _linear (K11's plain version) three times; 512 takes K10. Both
+    match JAX's _mlp on the CPU (its _linear route)."""
+    rng = np.random.default_rng(i_sz)
+    d = 256
+    ws = {k: rng.normal(size=(1, *shape)).astype(np.float32) * 0.05
+          for k, shape in (("w1", (d, i_sz)), ("w3", (d, i_sz)), ("w2", (i_sz, d)))}
+    jlp = jax.tree.map(lambda a: a[0], jqz.quantize_params_int8({"layers": ws})["layers"])
+    tlp = _torch(jlp)
+    x = jnp.asarray(rng.normal(size=(2, 1, d)).astype(np.float32), jnp.bfloat16)
+    ref = np.asarray(jtfm._mlp(x, jlp, j_first_stage_config(dim=d, intermediate_size=i_sz)), np.float32)
+    calls = []
+    monkeypatch.setattr(tfm, "ffn_int8", lambda *a: calls.append(1) or Q.ffn_int8(*a))
+    got = tfm._mlp(_torch({"x": np.asarray(x)})["x"], tlp, TransformerConfig(dim=d, intermediate_size=i_sz))
+    assert len(calls) == int(takes_k10) and Q.ffn_int8_kernel_ok(2, d, i_sz) is takes_k10
+    assert got.shape == (2, 1, d) and got.dtype == torch.bfloat16
+    _close(got.float().numpy(), ref, 3e-2)
 
 
 @pytest.fixture(scope="module")

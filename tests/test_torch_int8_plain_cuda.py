@@ -6,7 +6,11 @@ heads, B = 2, S 2048, bf16 cache) at pos 0, 77, 255 and 2047, with a start
 past pos and with NaN past pos, and one call captured in a CUDA graph (3
 kernels, 3 replays the eager bits, the merge counters at 0 after every
 call; a capture before any eager call raises); K10 (ops/quantized.ffn_int8; D 2048, I
-5632) at 1, 2 and 3 rows. Needs a CUDA card and nvcc; skips elsewhere.
+5632) at 1..8 rows on layers 0, 11 and 23, with w3 = w1 and s3 = 2 s1 (each
+matrix its own scales), one call captured in a CUDA graph (2 kernels, 3
+replays the eager bits, the merge counters at 0; a capture before any
+eager call raises), and a D or I off the 64 grid refused. Needs a CUDA card
+and nvcc; skips elsewhere.
 Imports no JAX, so it runs with ``--noconftest``:
 
     python -m pytest --noconftest tests/test_torch_int8_plain_cuda.py -q
@@ -22,8 +26,8 @@ within 1e-2 of max |y|.
 import pytest
 import torch
 
-from chip_smoke import (K9_POS, K10_CASES, _k9_args, _kv_cache, _random_int8_plain_model, block_graph_check, k9_case,
-                        k10_case, k11_case)
+from chip_smoke import (FFN_KERNELS, FFN_LAYERS, K9_POS, _k9_args, _k10_args, _kv_cache, _random_int8_plain_model,
+                        block_graph_check, capture_first_raises, k9_case, k10_case, k10_own_scales_case, k11_case)
 from metavoice_tpu_torch.core.config import first_stage_config
 from metavoice_tpu_torch.ops import attention as A
 from metavoice_tpu_torch.ops import decode_stack as DS
@@ -99,13 +103,44 @@ def test_k9_capture_before_any_eager_call_raises(model, monkeypatch):
     block_graph_check(torch, call, "K9, warmed after a refused capture")
 
 
-@pytest.mark.parametrize("rows,layer", K10_CASES)
+@pytest.mark.parametrize("layer", FFN_LAYERS)
+@pytest.mark.parametrize("rows", range(1, 9))
 def test_k10_matches_plain(model, rows, layer):
     cfg, qp = model
     gen = torch.Generator(device="cuda").manual_seed(rows)
     before = Q.ffn_int8.launches
-    k10_case(torch, qp, layer, torch.randn((rows, cfg.dim), generator=gen, device="cuda").to(torch.bfloat16))
+    x = torch.randn((rows, cfg.dim), generator=gen, device="cuda").to(torch.bfloat16)
+    k10_case(torch, x, _k10_args(qp, layer), f"layer {layer}")
     assert Q.ffn_int8.launches == before + 1
+
+
+def test_k10_scales_w1_and_w3_each_by_its_own(model):
+    """w3 = w1 with s3 = 2 s1: h3 = 2 h1, which a scale shared by both
+    matrices would miss by half of y."""
+    k10_own_scales_case(torch, model[1], torch.Generator(device="cuda").manual_seed(103))
+
+
+def _k10_call(model, seed: int):
+    cfg, qp = model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((2, cfg.dim), generator=gen, device="cuda").to(torch.bfloat16)
+    return lambda: (Q.ffn_int8(x, *_k10_args(qp, 5)),)
+
+
+def test_k10_call_is_two_kernels_replayed_bit_for_bit(model):
+    """w1/w3 and w2 on the tensor-core GEMV, chained: a captured call
+    replays to the eager bits, the merge counters left at 0."""
+    assert block_graph_check(torch, _k10_call(model, 104), "K10", FFN_KERNELS) == list(FFN_KERNELS)
+
+
+def test_k10_capture_before_any_eager_call_raises(model, monkeypatch):
+    """A capture that would have to make the device's merge counters raises;
+    after an eager call the same call captures and replays."""
+    monkeypatch.setattr(DS, "_stack_tickets", {})
+    call = _k10_call(model, 105)
+    capture_first_raises(torch, call, "K10")
+    assert not DS._stack_tickets
+    block_graph_check(torch, call, "K10, warmed after a refused capture", FFN_KERNELS)
 
 
 def test_kernels_refuse_what_they_cannot_take(dev):
@@ -118,3 +153,15 @@ def test_kernels_refuse_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="1..8 rows"):
         Q.ffn_int8(torch.zeros((9, 40), dtype=torch.bfloat16, device=dev), q, s, q, s, *Q.quantize_int8(
             torch.randn((32, 40), device=dev)))
+
+
+@pytest.mark.parametrize("d,i_sz", [(2048, 5648), (528, 1536), (2048, 5664)])
+def test_k10_refuses_d_or_i_off_the_64_grid(dev, d, i_sz):
+    """D and I must be multiples of 64 (32-column tiles, two a cluster): a
+    shape off that grid raises with the shape; nothing falls back."""
+    w1, s1 = Q.quantize_int8(torch.randn((d, i_sz), device=dev))
+    w2, s2 = Q.quantize_int8(torch.randn((i_sz, d), device=dev))
+    before = Q.ffn_int8.launches
+    with pytest.raises(ValueError, match=f"multiples of 64; got 2 rows, D {d}, I {i_sz}"):
+        Q.ffn_int8(torch.zeros((2, d), dtype=torch.bfloat16, device=dev), w1, s1, w1, s1, w2, s2)
+    assert Q.ffn_int8.launches == before

@@ -6,8 +6,10 @@ bf16, an int8 and a packed KV cache, MHA and GQA (2 kv heads), at pos 0, 77,
 scales before the starts in the int8 and packed caches, and one
 call in each format captured in a CUDA graph (3 kernels, 3 replays the
 eager bits, the merge counters at 0 after every call; a capture before any
-eager call raises); K6 (ops/quantized.decode_ffn_int4). Needs a CUDA card
-and nvcc; skips elsewhere. Imports no JAX, so it runs with ``--noconftest``:
+eager call raises); K6 (ops/quantized.decode_ffn_int4) at 1..8 rows on
+layers 0, 11 and 23, and one call captured in a CUDA graph (2 kernels, 3
+replays the eager bits, the merge counters at 0; a capture before any
+eager call raises). Needs a CUDA card and nvcc; skips elsewhere. Imports no JAX, so it runs with ``--noconftest``:
 
     python -m pytest --noconftest tests/test_torch_kv8_cuda.py -q
 
@@ -23,7 +25,8 @@ running in another order; K6 within 1e-2 of max |y|.
 import pytest
 import torch
 
-from chip_smoke import K5_POS, KV_FORMATS, _k5_args, _kv_cache, _random_int4_model, block_graph_check, k5_case, k6_case
+from chip_smoke import (FFN_KERNELS, FFN_LAYERS, K5_POS, KV_FORMATS, _k5_args, _k6_args, _kv_cache, _random_int4_model,
+                        block_graph_check, capture_first_raises, k5_case, k6_case)
 from metavoice_tpu_torch.core.config import first_stage_config
 from metavoice_tpu_torch.ops import attention as A
 from metavoice_tpu_torch.ops import decode_stack as DS
@@ -91,10 +94,34 @@ def test_k5_capture_before_any_eager_call_raises(models, monkeypatch):
     block_graph_check(torch, call, "K5 int8 cache, warmed after a refused capture")
 
 
-@pytest.mark.parametrize("layer", [0, 11, 23])
-def test_k6_matches_plain(models, layer):
+@pytest.mark.parametrize("layer", FFN_LAYERS)
+@pytest.mark.parametrize("rows", range(1, 9))
+def test_k6_matches_plain(models, rows, layer):
     cfg, qp = models[16]
-    gen = torch.Generator(device="cuda").manual_seed(layer)
+    gen = torch.Generator(device="cuda").manual_seed(layer + 100 * rows)
     before = Q.decode_ffn_int4.launches
-    k6_case(torch, qp, layer, torch.randn((2, cfg.dim), generator=gen, device="cuda").to(torch.bfloat16))
+    k6_case(torch, qp, layer, torch.randn((rows, cfg.dim), generator=gen, device="cuda").to(torch.bfloat16))
     assert Q.decode_ffn_int4.launches == before + 1
+
+
+def _k6_call(models, seed: int):
+    cfg, qp = models[16]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((2, cfg.dim), generator=gen, device="cuda").to(torch.bfloat16)
+    return lambda: (Q.decode_ffn_int4(x, *_k6_args(qp), 5),)
+
+
+def test_k6_call_is_two_kernels_replayed_bit_for_bit(models):
+    """w1/w3 and w2 on the tensor-core GEMV, chained: a captured call
+    replays to the eager bits, the merge counters left at 0."""
+    assert block_graph_check(torch, _k6_call(models, 82), "K6", FFN_KERNELS) == list(FFN_KERNELS)
+
+
+def test_k6_capture_before_any_eager_call_raises(models, monkeypatch):
+    """A capture that would have to make the device's merge counters raises;
+    after an eager call the same call captures and replays."""
+    monkeypatch.setattr(DS, "_stack_tickets", {})
+    call = _k6_call(models, 83)
+    capture_first_raises(torch, call, "K6")
+    assert not DS._stack_tickets
+    block_graph_check(torch, call, "K6, warmed after a refused capture", FFN_KERNELS)
