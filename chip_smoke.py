@@ -234,6 +234,9 @@ K3_LAYER_TOL = 1e-2
 SMALL4_TOL = 5e-2
 UNFUSED_ROWS = 16  # the engine's batch 16: more rows than the fused int4 kernels (K3, K5/K6) hold
 K2_M = 256  # prefill rows: the CFG pair x a 128-token prompt bucket
+# K2 and K8 are also timed at the rows of the unfused int4 route and the int8
+# per-layer route (the CFG rows of batches 8 and 16); the JSON line carries M 256
+PREFILL_TIMED_M = (K2_M, 16, 32)
 # K8: the same bf16 products as its plain version, summed in another order,
 # but also sum(x), which both round to bf16 for the c term (c = -128 s takes
 # back about 128 s sum(x)); a row whose f32 sum lies on a bf16 rounding
@@ -590,9 +593,9 @@ def phase_k2(torch) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(22)
     d, ip = 2048, 6144
-    layer_shapes = [(d, 3 * d), (d, d), (d, ip), (d, ip), (ip, d)]  # qkv, wo, w1, w3, w2
+    cases = [(K2_M, d, 3 * d), (K2_M, d, d), (K2_M, ip, d), (1, d, d), (200, d, 3 * d), (16, d, 3 * d), (32, ip, d)]
     max_err = 0.0
-    for m, k, n in [(K2_M, d, 3 * d), (K2_M, d, d), (K2_M, ip, d), (1, d, d), (200, d, 3 * d)]:
+    for m, k, n in cases:
         pw, sc = Q.quantize_int4_i32(torch.randn((k, n), generator=gen, device=dev) * 0.02)
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         y = Q.matmul_int4_i32(x, pw, sc)
@@ -605,34 +608,9 @@ def phase_k2(torch) -> dict:
             fail(f"K2 disagrees with the plain version at M {m}, K {k}, N {n}: max |dy| {err:.3g}")
         max_err = max(max_err, err)
 
-    # times of one prefill layer's five projections, each on 8 weight sets
-    # in turn (50 MB and more a shape), so the weights come from HBM
-    n_sets = 8
-    x = {k: torch.randn((K2_M, k), generator=gen, device=dev).to(torch.bfloat16) for k in (d, ip)}
-    kernel = plain = library = 0.0
-    lib_name = "torch._weight_int4pack_mm"
-    n_bytes = n_flop = 0.0
-    per_shape = []
-    for k, n in layer_shapes:
-        packed = [Q.quantize_int4_i32(torch.randn((k, n), generator=gen, device=dev) * 0.02)
-                  for _ in range(n_sets)]
-        xk = x[k]
-        t_k, t_ke = _layers_ms(torch, lambda i: Q.matmul_int4_i32(xk, *packed[i]), n_sets)
-        t_p, _ = _layers_ms(torch, lambda i: Q.matmul_int4_i32_reference(xk, *packed[i]), n_sets)
-        t_l, lib_name = _k2_library_ms(torch, xk, packed, lib_name)
-        kernel, plain, library = kernel + t_k, plain + t_p, library + t_l
-        n_bytes += xk.numel() * 2 + _int4_bytes(*packed[0]) + K2_M * n * 4
-        n_flop += 2.0 * K2_M * k * n
-        per_shape.append(f"{k}x{n} {t_k:.4f} (eager {t_ke:.4f})")
-    bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
-    print(f"[6 K2] 5 cases agree (max |dy| {max_err:.3g}, tol {K2_TOL} max |ref|); one layer's "
-          f"five projections at M {K2_M}, device time from a CUDA graph: kernel {kernel:.4f} ms "
-          f"({'; '.join(per_shape)}), plain {plain:.4f} ms; {lib_name} {library:.4f} ms; "
-          f"bound {bound_ms:.4f} ms ({bound_by}, "
-          f"{n_flop / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); kernel at "
-          f"{n_flop / kernel / 1e9:.1f} TFLOP/s")
-    return {"max_abs_err": max_err, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library, "library_call": lib_name}
+    t = prefill_times(torch, "6 K2", "i4", gen)
+    print(f"[6 K2] {len(cases)} cases agree (max |dy| {max_err:.3g}, tol {K2_TOL} max |ref|); {t['text']}")
+    return {"max_abs_err": max_err, **t["record"]}
 
 
 def _rotate_ms(torch, fn, n: int) -> float:
@@ -651,21 +629,6 @@ def _graph_or_eager_ms(torch, fn, n: int, label: str) -> tuple[float, str]:
         print(f"[{label}] the library call cannot be captured in a CUDA graph ({str(e)[:160]}); "
               "timing it eagerly")
         return _rotate_ms(torch, fn, n), "eager"
-
-
-def _k2_library_ms(torch, x, packed, lib_name: str) -> tuple[float, str]:
-    """K2's library call: _int4pack_ms on the packed weights' nibbles,
-    scales and zeros (w = (nib - 8) * s + zero, so zero = c + 8 s), against
-    the int4 product."""
-    from metavoice_tpu_torch.ops import quantized as Q
-
-    g = x.shape[1] // Q.I32_GROUPSIZE
-    mats = []
-    for pw, sc in packed:
-        s, c = sc[:g].float(), sc[sc.shape[0] // 2 : sc.shape[0] // 2 + g].float()
-        mats.append((Q.unpack_int4_i32(pw).to(torch.int32) + 8, s, c + 8 * s))
-    return _int4pack_ms(torch, x, mats, Q.matmul_int4_i32_reference(x, *packed[0]), Q.I32_GROUPSIZE, lib_name,
-                        "6 K2")
 
 
 def _int4pack_ms(torch, x, mats, ref, groupsize: int, lib_name: str, label: str) -> tuple[float, str]:
@@ -1072,8 +1035,8 @@ def phase_k8(torch) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(88)
     d, ip = 2048, 6144
-    layer_shapes = [(d, 3 * d), (d, d), (d, ip), (d, ip), (ip, d)]  # qkv, wo, w1, w3, w2
-    cases = [(K2_M, d, 3 * d), (K2_M, d, d), (K2_M, ip, d), (1, d, d), (2, d, 3 * d), (200, d, 3 * d)]
+    cases = [(K2_M, d, 3 * d), (K2_M, d, d), (K2_M, ip, d), (1, d, d), (2, d, 3 * d), (200, d, 3 * d),
+             (16, d, 3 * d), (32, ip, d)]
     max_err = worst = 0.0
     rounding = []  # the TPU kernel's bf16(sum x) against an unrounded sum, at K = 2048
     for m, k, n in cases:
@@ -1094,45 +1057,130 @@ def phase_k8(torch) -> dict:
                 * sc8[sc8.shape[0] // 2].float()[None, :]
             rounding.append((ref - exact).abs().max().item() / exact.abs().max().item())
 
-    # times of one prefill layer's five projections, each on 8 weight sets
-    # in turn (100 MB and more a shape), so the weights come from HBM
-    n_sets = 8
-    x = {k: torch.randn((K2_M, k), generator=gen, device=dev).to(torch.bfloat16) for k in (d, ip)}
-    kernel = plain = library = 0.0
-    lib_name = "torch._weight_int8pack_mm"
-    n_bytes = n_flop = 0.0
-    per_shape = []
-    for k, n in layer_shapes:
-        packed = [Q.quantize_int8_i32(torch.randn((k, n), generator=gen, device=dev) * 0.02)
-                  for _ in range(n_sets)]
-        xk = x[k]
-        t_k, t_ke = _layers_ms(torch, lambda i: Q.matmul_int8_i32(xk, *packed[i]), n_sets)
-        t_p, _ = _layers_ms(torch, lambda i: Q.matmul_int8_i32_reference(xk, *packed[i]), n_sets)
-        t_l, lib_name = _k8_library_ms(torch, xk, packed, lib_name)
-        kernel, plain, library = kernel + t_k, plain + t_p, library + t_l
-        n_bytes += xk.numel() * 2 + _int8_bytes(*packed[0]) + K2_M * n * 4
-        n_flop += 2.0 * K2_M * k * n
-        per_shape.append(f"{k}x{n} {t_k:.4f} (eager {t_ke:.4f})")
-        del packed
-    bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
+    t = prefill_times(torch, "11 K8", "i8", gen)
     print(f"[11 K8] {len(cases)} cases agree (rows within {worst:.3g} of max |ref| after the sum "
-          f"flip allowance, tol {K8_TOL}; raw max |dy| {max_err:.3g}); one layer's five projections "
-          f"at M {K2_M}, device time from a CUDA graph: kernel {kernel:.4f} ms ({'; '.join(per_shape)}), "
-          f"plain {plain:.4f} ms; {lib_name} {library:.4f} ms called eagerly; bound {bound_ms:.4f} ms "
-          f"({bound_by}, {n_flop / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); kernel at "
-          f"{n_flop / kernel / 1e9:.1f} TFLOP/s; the c term's bf16(sum x) moves the product by up "
-          f"to {max(rounding):.3g} of max |y| against an unrounded sum (K {d}, M {K2_M}, x ~ N(0, 1))")
-    return {"max_abs_err": max_err, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library, "library_call": lib_name}
+          f"flip allowance, tol {K8_TOL}; raw max |dy| {max_err:.3g}); {t['text']}; the c term's bf16(sum x) "
+          f"moves the product by up to {max(rounding):.3g} of max |y| against an unrounded sum (K {d}, "
+          f"M {K2_M}, x ~ N(0, 1))")
+    return {"max_abs_err": max_err, **t["record"]}
 
 
-def _k8_library_ms(torch, x, packed, lib_name: str) -> tuple[float, str]:
-    """K8's library call: _int8pack_ms on the packed weights' int8 values
-    and per-column scales, against the int8 product."""
+def _prefill_yardsticks(torch, wfmt: str, packed, ref, xk, label: str):
+    """The two yardsticks of a K2 / K8 shape, each weight set made once: the
+    library call (torch._weight_int4pack_mm on the same nibbles, scales and
+    zeros, w = (nib - 8) * s + zero, so zero = c + 8 s; or
+    torch._weight_int8pack_mm on the same int8 values and scales), checked
+    against ref at M 256, or None where this torch lacks it or refuses the
+    shape; and torch.matmul on the bf16-dequantized weight (cuBLAS, the
+    dequantization untimed). -> (library fn(x, i) or None, its name, matmul fn(x, i))."""
     from metavoice_tpu_torch.ops import quantized as Q
 
-    mats = [(Q.unpack_int8_i32(p8), sc8[0]) for p8, sc8 in packed]
-    return _int8pack_ms(torch, x, mats, Q.matmul_int8_i32_reference(x, *packed[0]), lib_name, "11 K8")
+    tol = 2e-2 * ref.float().abs().max().item()  # bf16 weights: a few bf16 ulps of the sum
+    k = xk.shape[1]
+    dense, lib, name = [], None, None
+    if wfmt == "i4":
+        g = k // Q.I32_GROUPSIZE
+        mats = []
+        for pw, sc in packed:
+            s, c = sc[:g].float(), sc[sc.shape[0] // 2 : sc.shape[0] // 2 + g].float()
+            nib = Q.unpack_int4_i32(pw).to(torch.int32) + 8
+            mats.append((nib, s, c + 8 * s))
+            w = (nib.float() - 8).reshape(g, k // g, -1) * s[:, None] + (c + 8 * s)[:, None]
+            dense.append(w.reshape(k, -1).to(torch.bfloat16))
+        name = "torch._weight_int4pack_mm"
+        try:
+            libs = []
+            for nib, s, zero in mats:
+                q = nib.T.contiguous()  # (N, K) in 0..15
+                w_lib = torch._convert_weight_to_int4pack((q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8), 2)
+                libs.append((w_lib, torch.stack([s, zero], dim=2).to(torch.bfloat16).contiguous()))
+            if (torch._weight_int4pack_mm(xk, libs[0][0], Q.I32_GROUPSIZE, libs[0][1]).float()
+                    - ref.float()).abs().max().item() > tol:
+                raise RuntimeError("its result disagrees with the int4 product")
+            lib = lambda x, i: torch._weight_int4pack_mm(x, libs[i][0], Q.I32_GROUPSIZE, libs[i][1])  # noqa: E731
+        except (AttributeError, RuntimeError, NotImplementedError) as e:
+            print(f"[{label}] {name} not usable here ({str(e)[:120]}); the library column is torch.matmul's")
+    else:
+        name = "torch._weight_int8pack_mm"
+        libs = []
+        for p8, sc8 in packed:
+            q = Q.unpack_int8_i32(p8)
+            dense.append((q.float() * sc8[0].float()).to(torch.bfloat16))
+            libs.append((q.T.contiguous(), sc8[0].to(torch.bfloat16).contiguous()))
+        try:
+            if (torch._weight_int8pack_mm(xk, *libs[0]).float() - ref.float()).abs().max().item() > tol:
+                raise RuntimeError("its result disagrees with the int8 product")
+            lib = lambda x, i: torch._weight_int8pack_mm(x, *libs[i])  # noqa: E731
+        except (AttributeError, RuntimeError, NotImplementedError) as e:
+            print(f"[{label}] {name} not usable here ({str(e)[:120]}); the library column is torch.matmul's")
+    if (torch.matmul(xk, dense[0]).float() - ref.float()).abs().max().item() > tol:
+        fail(f"[{label}] torch.matmul on the dequantized weight disagrees with the product")
+    return lib, name, lambda x, i: torch.matmul(x, dense[i])
+
+
+def prefill_times(torch, label: str, wfmt: str, gen) -> dict:
+    """Device times of one prefill layer's five projections (qkv, wo, w1, w3,
+    w2 at D 2048, FFN padded to 6144), each on 8 weight sets in turn (50 MB
+    and more a shape), so the weights come from HBM, at each M of
+    PREFILL_TIMED_M: the kernel (K2 wfmt "i4", K8 "i8"), its plain version
+    (M 256), the library call and torch.matmul on the bf16-dequantized
+    weight, each replayed from a CUDA graph (a library call that cannot be
+    captured is called eagerly, and says so), with the bounds. -> {"record":
+    the JSON line's fields at M 256, "text": the phase's line}."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    d, ip = 2048, 6144
+    layer_shapes = [(d, 3 * d), (d, d), (d, ip), (d, ip), (ip, d)]  # qkv, wo, w1, w3, w2
+    quantize, call, plain, nbytes = (
+        (Q.quantize_int4_i32, Q.matmul_int4_i32, Q.matmul_int4_i32_reference, _int4_bytes) if wfmt == "i4" else
+        (Q.quantize_int8_i32, Q.matmul_int8_i32, Q.matmul_int8_i32_reference, _int8_bytes))
+    xs = {(m, k): torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+          for m in PREFILL_TIMED_M for k in (d, ip)}
+    tot = {m: {"kernel": 0.0, "library": 0.0, "matmul": 0.0, "bytes": 0.0, "flop": 0.0, "per": []}
+           for m in PREFILL_TIMED_M}
+    plain_ms, lib_name, how = 0.0, None, set()
+    for k, n in layer_shapes:
+        packed = [quantize(torch.randn((k, n), generator=gen, device=dev) * 0.02) for _ in range(8)]
+        ref = plain(xs[(K2_M, k)], *packed[0])
+        lib, lib_name, mm = _prefill_yardsticks(torch, wfmt, packed, ref, xs[(K2_M, k)], label)
+        for m in PREFILL_TIMED_M:
+            xk, row = xs[(m, k)], tot[m]
+            t_k, _ = _layers_ms(torch, lambda i: call(xk, *packed[i]), len(packed))
+            t_m, _ = _layers_ms(torch, lambda i: mm(xk, i), len(packed))
+            if lib is None:
+                t_l = t_m
+            else:
+                t_l, h = _graph_or_eager_ms(torch, lambda i: lib(xk, i), len(packed), label)
+                how.add(h)
+            if m == K2_M:
+                plain_ms += _layers_ms(torch, lambda i: plain(xk, *packed[i]), len(packed))[0]
+            row["kernel"] += t_k
+            row["library"] += t_l
+            row["matmul"] += t_m
+            row["bytes"] += xk.numel() * 2 + nbytes(*packed[0]) + m * n * 4
+            row["flop"] += 2.0 * m * k * n
+            row["per"].append(f"{t_k:.4f}")
+        del packed
+    parts, record = [], {}
+    lib_label = f"{lib_name} ({'/'.join(sorted(how))})" if how else "torch.matmul (bf16 dequantized)"
+    for m in PREFILL_TIMED_M:
+        row = tot[m]
+        b_ms, b_by = bound(row["bytes"], row["flop"], BF16_FLOP_S)
+        parts.append(f"M {m}: kernel {row['kernel']:.4f} ms (qkv, wo, w1, w3, w2: {', '.join(row['per'])}), "
+                     f"{lib_label} {row['library']:.4f}, torch.matmul on the bf16-dequantized weight "
+                     f"{row['matmul']:.4f}, bound {b_ms:.4f} ms ({b_by}, {row['flop'] / 1e9:.2f} GFLOP, "
+                     f"{row['bytes'] / 1e6:.1f} MB), kernel at {row['flop'] / row['kernel'] / 1e9:.1f} TFLOP/s, "
+                     f"{row['bytes'] / row['kernel'] / 1e6:.1f} GB/s")
+        if m == K2_M:
+            record = {"ms": row["kernel"], "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": row["library"], "library_call": lib_label, "matmul_ms": row["matmul"]}
+        else:
+            record |= {f"m{m}_ms": row["kernel"], f"m{m}_bound_ms": b_ms, f"m{m}_library_ms": row["library"],
+                       f"m{m}_matmul_ms": row["matmul"]}
+    text = (f"one layer's five projections, device time from CUDA graphs of 8 weight sets in turn: "
+            f"{'; '.join(parts)}; plain version at M {K2_M} {plain_ms:.4f} ms")
+    return {"record": record, "text": text}
 
 
 def _int8pack_ms(torch, x, mats, ref, lib_name: str, label: str) -> tuple[float, str]:
@@ -2664,7 +2712,7 @@ def main() -> int:
         comps["int4"] = int4["tts"].c
         phase_profile(torch, int4.pop("tts"), "10 profile4", {
             "K3 stack_gemv (products, norms, merges)": "stack_gemv", "K3 attention split": "decode_attn_split",
-            "K3 attention combine": "decode_attn_combine", "K2 matmul_int4_i32": "matmul_i32_kernel"})
+            "K3 attention combine": "decode_attn_combine", "K2 matmul_int4_i32": "prefill_kernel"})
         torch.cuda.empty_cache()
         k8 = phase_k8(torch)
         k7 = phase_k7(torch)
@@ -2676,7 +2724,7 @@ def main() -> int:
                                       "int4 phase 9": int4["ms_per_token"]})
         phase_profile(torch, int8.pop("tts"), "15 profile8", {
             "K7 stack_gemv (products, norms, merges)": "stack_gemv", "K7 attention split": "decode_attn_split",
-            "K7 attention combine": "decode_attn_combine", "K8 matmul_int8_i32": "matmul_i32_kernel"})
+            "K7 attention combine": "decode_attn_combine", "K8 matmul_int8_i32": "prefill_kernel"})
         torch.cuda.empty_cache()
         k4 = phase_k4(torch)
         torch.cuda.empty_cache()

@@ -37,8 +37,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "mv_decode_attention": (_I, [_I] + [_P] * 6 + [_I] * 8 + [_P, _P, _I, _P, _P]),
     "mv_decode_attention_multi": (_I, [_I] + [_P] * 6 + [_I] * 10 + [_P, _P, _I, _P, _P]),
-    "mv_matmul_int4_i32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "mv_matmul_int8_i32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "mv_matmul_int4_i32": (_I, [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P]),
+    "mv_matmul_int8_i32": (_I, [_P] * 4 + [_I] * 6 + [_P, _P, _P, _I, _P]),
     "mv_decode_stack_int4": (_I, [_P] * 22 + [_I] * 11 + [_F, _I, _I] + [_P] * 4 + [_L] + [_P] * 4 + [_I, _P, _P]),
     "mv_decode_stack_int8": (_I, [_P] * 18 + [_I] * 10 + [_F, _I, _I] + [_P] * 4 + [_L] + [_P] * 4 + [_I, _P, _P]),
     "mv_decode_block_int4": (_I, [_I] + [_P] * 11 + [_I] * 10 + [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P, _P, _I, _P]),

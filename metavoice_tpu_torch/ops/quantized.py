@@ -29,9 +29,9 @@ So ``x @ W = s * (x @ byte) + sum(x) * c``: the int4 identity with ONE group
 spanning K.
 
 Both matmuls are ``metavoice_tpu_torch/csrc/matmul_int4_i32.cu`` (one
-template, two C entries); a CUDA tensor launches the kernel or raises, a CPU
-tensor takes the plain version (:func:`matmul_int4_i32_reference`,
-:func:`matmul_int8_i32_reference`). K6, :func:`decode_ffn_int4`, one decode
+template, two C entries), cut by :func:`prefill_plan`; a CUDA tensor
+launches the kernel or raises, a CPU tensor takes the plain version
+(:func:`matmul_int4_i32_reference`, :func:`matmul_int8_i32_reference`). K6, :func:`decode_ffn_int4`, one decode
 layer's int4 SwiGLU FFN, replaces ``metavoice_tpu/ops/quantized.py:
 decode_ffn_int4`` (the Pallas TPU kernel ``_ffn_int4_kernel``); its kernel
 is ``metavoice_tpu_torch/csrc/decode_block_int4.cu``.
@@ -243,9 +243,11 @@ def matmul_int4_i32(x, pw, sc, groupsize: int = I32_GROUPSIZE):
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
+    bm, _, split_wb, n_splits = prefill_plan(m, k, n, "i4")
+    part, _, tickets = _prefill_scratch(n_splits, m, n, "i4", x.device, "matmul_int4_i32")
     err = _build.kernels().lib.mv_matmul_int4_i32(
         xb.data_ptr(), pw.data_ptr(), sc.data_ptr(), y.data_ptr(),
-        m, k, n, sc.shape[0] // 2,
+        m, k, n, sc.shape[0] // 2, bm // 16, split_wb, _ptr(part), _ptr(tickets), PREFILL_TICKETS,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
@@ -400,9 +402,11 @@ def matmul_int8_i32(x, p8, sc8):
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
+    bm, _, split_wb, n_splits = prefill_plan(m, k, n, "i8")
+    part, xpart, tickets = _prefill_scratch(n_splits, m, n, "i8", x.device, "matmul_int8_i32")
     err = _build.kernels().lib.mv_matmul_int8_i32(
         xb.data_ptr(), p8.data_ptr(), sc8.data_ptr(), y.data_ptr(),
-        m, k, n, sc8.shape[0] // 2,
+        m, k, n, sc8.shape[0] // 2, bm // 16, split_wb, _ptr(part), _ptr(xpart), _ptr(tickets), PREFILL_TICKETS,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
@@ -412,6 +416,71 @@ def matmul_int8_i32(x, p8, sc8):
 
 
 matmul_int8_i32.launches = 0
+
+
+# ------------------------------------------------------------------ K2 and K8: the plan
+
+PREFILL_BN = 64  # output columns a block: 4 warps of 16 (csrc/matmul_int4_i32.cu kPfCols)
+PREFILL_WORD_BLOCK = 128  # word rows a block stages at once (kPfWordBlock); splits hold whole ones
+PREFILL_BLOCKS_PER_SM = 2  # blocks an SM the grid aims for: two 128-row blocks' shared memory fit an SM
+PREFILL_PART_BYTES = 16 << 20  # a call's f32 partials at most (they stay in the 50 MB L2)
+PREFILL_TICKETS = 4096  # merge counters a device: tiles (row x column) a split call
+_prefill_tickets: dict = {}  # device index -> (PREFILL_TICKETS,) int32, all 0 between calls
+
+
+def prefill_plan(m: int, k: int, n: int, wfmt: str) -> tuple[int, int, int, int]:
+    """K2's (wfmt "i4") and K8's ("i8") cut of a call -> (bm, bn, split_wb,
+    n_splits): a block takes a tile of bm rows (the fewest of 16, 32, 64
+    and 128 that hold M, up to 128) by bn columns, over
+    split_wb blocks of ``PREFILL_WORD_BLOCK`` word rows; split i holds word blocks
+    ``[i * split_wb, (i + 1) * split_wb)``, the last ends at or past the
+    last word block and none lies wholly past it. K2's word block holds one
+    128-row group of each slab, so its groups stay whole in a split.
+
+    The grid (tiles x splits) aims for ``PREFILL_BLOCKS_PER_SM`` blocks an
+    SM: the fewest splits that reach it, or all the word blocks where they
+    cannot; splits of nearly equal word blocks; the partials' f32 bytes
+    within ``PREFILL_PART_BYTES``; and one split where the tiles exceed the
+    merge counters."""
+    if wfmt not in ("i4", "i8"):
+        raise ValueError(f"wfmt must be 'i4' or 'i8', got {wfmt!r}")
+    kw = k // (8 if wfmt == "i4" else 4)
+    n_wb = -(-kw // PREFILL_WORD_BLOCK)
+    bm = 16 if m <= 16 else 32 if m <= 32 else 64 if m <= 64 else 128
+    tiles = -(-m // bm) * -(-n // PREFILL_BN)
+    need = min(-(-CARD_SMS * PREFILL_BLOCKS_PER_SM // tiles), n_wb,
+               max(1, PREFILL_PART_BYTES // (4 * m * n)))
+    split_wb = n_wb
+    if tiles <= PREFILL_TICKETS:
+        for want in range(need, n_wb + 1):
+            wb = -(-n_wb // want)
+            if -(-n_wb // wb) * 4 * m * n > PREFILL_PART_BYTES and wb < n_wb:
+                break
+            split_wb = wb
+            if -(-n_wb // wb) >= need:
+                break
+    return bm, PREFILL_BN, split_wb, -(-n_wb // split_wb)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _prefill_scratch(n_splits: int, m: int, n: int, wfmt: str, device, who: str):
+    """One K2 / K8 call's merge scratch -> (part, xpart, tickets): none for
+    one split; else f32 partials (splits, m, n), K8's f32 sums of x
+    (splits, column tiles, m), both from the caching allocator on every call
+    (so calls on other streams, and graph captures, each get their own), and
+    the device's counters, made zero by the first call and left zero by
+    every launch (:func:`merge_tickets`). Calls on one device must not
+    overlap in time (one stream, or streams the caller orders)."""
+    if n_splits == 1:
+        return None, None, None
+    part = torch.empty((n_splits * m * n,), dtype=torch.float32, device=device)
+    xpart = None
+    if wfmt == "i8":
+        xpart = torch.empty((n_splits * -(-n // PREFILL_BN) * m,), dtype=torch.float32, device=device)
+    return part, xpart, merge_tickets(_prefill_tickets, PREFILL_TICKETS, device, who)
 
 
 # ------------------------------------------------------------------ K6: one int4 SwiGLU FFN

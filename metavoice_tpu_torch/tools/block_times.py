@@ -1,5 +1,6 @@
 """Device times of the per-layer decode kernels alone, on the card: the
-attention blocks K5 and K9 and the FFNs K6 and K10.
+attention blocks K5 and K9 and the FFNs K6 and K10; and of the prefill
+matmuls K2 and K8.
 
     python3 -m metavoice_tpu_torch.tools.block_times [--trees OLD NEW] [--breakdown] [--bits OLD NEW]
 
@@ -7,7 +8,10 @@ Each time is per layer, from a CUDA graph of the 24 layers' calls in turn,
 at the main-path shape (D 2048, 16 heads, B 2, S 2048, FFN 5632 (K6's
 packed to 6144), random weights and caches from seeds): K5 on a bf16, an
 int8 and a packed cache and K9 on a bf16 cache at pos 0, 255, 1000 and
-2047; K6 and K10.
+2047; K6 and K10. K2 and K8 (``matmul_int4_i32``, ``matmul_int8_i32``):
+one layer's five projections (qkv, wo, w1, w3, w2 at D 2048, FFN 6144),
+each on 8 weight sets in turn from a CUDA graph, at M 256 (the prefill),
+16 and 32 (the unfused int4 route, the int8 per-layer route).
 
 * ``--trees OLD NEW``: two checkouts' roots (an older commit unpacked with
   ``git archive`` or ``git checkout-index -a --prefix=DIR/`` into a
@@ -37,6 +41,8 @@ import tempfile
 
 POSITIONS = (0, 255, 1000, 2047)
 KV_FORMATS = ("bf16", "int8", "int8_packed")
+PREFILL_M = (256, 16, 32)
+PREFILL_SHAPES = ((2048, 6144), (2048, 2048), (2048, 6144), (2048, 6144), (6144, 2048))  # qkv, wo, w1, w3, w2
 
 
 def _setup(root: str):
@@ -138,14 +144,39 @@ def _layer_ms(torch, fn, n_layer: int, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters / n_layer
 
 
+def _prefill_ms(torch) -> dict:
+    """K2 and K8: ms of one layer's five projections at each M of PREFILL_M,
+    each projection's time a call from a CUDA graph of its 8 weight sets in
+    turn (50 MB and more a shape, so the weights come from HBM)."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    xs = {(m, k): torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+          for m in PREFILL_M for k in (2048, 6144)}
+    out = {}
+    for label, quantize, call in (("K2", Q.quantize_int4_i32, Q.matmul_int4_i32),
+                                  ("K8", Q.quantize_int8_i32, Q.matmul_int8_i32)):
+        total = dict.fromkeys(PREFILL_M, 0.0)
+        for k, n in PREFILL_SHAPES:
+            packed = [quantize(torch.randn((k, n), generator=gen, device=dev) * 0.02) for _ in range(8)]
+            for m in PREFILL_M:
+                x = xs[(m, k)]
+                total[m] += _layer_ms(torch, lambda i: call(x, *packed[i]), len(packed))
+            del packed
+        out.update({f"{label} M{m}": ms for m, ms in total.items()})
+    return out
+
+
 def time_tree(root: str) -> dict:
-    """K5, K9, K6 and K10 of the tree at ``root`` (its package and kernels),
-    ms a layer from a CUDA graph."""
+    """K2 and K8 (ms of a layer's five projections), K5, K9, K6 and K10 (ms a
+    layer) of the tree at ``root`` (its package and kernels), from CUDA graphs."""
     torch = _setup(root)
+    prefill = _prefill_ms(torch)
     n_layer, cases = _cases(torch)
-    return {"tree": root, **{label if pos is None else f"{label} {pos}": _layer_ms(torch, lambda li: fn(li, pos),
-                                                                                  n_layer)
-                             for label, fn, positions, _ in cases for pos in positions}}
+    return {"tree": root, **prefill,
+            **{label if pos is None else f"{label} {pos}": _layer_ms(torch, lambda li: fn(li, pos), n_layer)
+               for label, fn, positions, _ in cases for pos in positions}}
 
 
 def breakdown() -> dict:

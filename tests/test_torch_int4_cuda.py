@@ -6,7 +6,10 @@ elsewhere. Imports no JAX, so it runs with ``--noconftest``:
     python -m pytest --noconftest tests/test_torch_int4_cuda.py -q
 
 Tolerances: K2 max |dy| <= 1e-3 * max |ref| (the same bf16 products, summed
-in another order). K3: the two versions round at the same points, but a
+in another order), at every row count of the plan's CPU tests; K2 also gives
+the same bits twice and from 3 replays of a captured call (the K split's
+merge in a fixed order), a capture before any eager call raises (its merge
+counters), and every nibble converts exactly. K3: the two versions round at the same points, but a
 bf16 rounding of an f32 sum taken in another order can land one ulp apart,
 and later layers spread such a flip into every value, so the gap grows with
 depth (measured: 0.4% of max |ref| after one layer, 2.2% after 24). Each
@@ -37,9 +40,12 @@ pytestmark = pytest.mark.cuda
 K2_TOL = 1e-3
 K3_TOL = 5e-2
 K3_LAYER_TOL = 1e-2
-# (M, K, N): the prefill projections at M = 256 (CFG pair x 128-token bucket), then ragged M
+# (M, K, N): the prefill projections at M = 256 (CFG pair x 128-token bucket), then ragged M; then every
+# row count of the plan's tests (tests/test_torch_prefill_plan.py) at the main path's shapes
 K2_CASES = [(256, 2048, 6144), (256, 2048, 2048), (256, 6144, 2048), (1, 2048, 2048),
             (200, 2048, 6144), (300, 6144, 2048)]
+K2_CASES += [(m, k, n) for m in (1, 2, 8, 9, 16, 32, 64, 65, 200, 256, 300, 512)
+             for k, n in ((2048, 6144), (2048, 2048), (6144, 2048)) if (m, k, n) not in K2_CASES]
 # (pos, starts, garbage past pos, n_kv_head)
 K3_CASES = [(0, None, None, 16), (255, None, None, 16), (1000, None, None, 16),
             (2047, None, None, 16), (1000, (300, 700), None, 16),
@@ -72,6 +78,76 @@ def test_k2_matches_plain(dev, m, k, n):
     assert y.shape == (m, n) and y.dtype == torch.float32 and torch.isfinite(y).all()
     err = (y - ref).abs().max().item()
     assert err <= K2_TOL * ref.abs().max().item(), err
+
+
+# (M, K, N) with more than one split (the merge behind the counters) and with one
+K2_BITS_CASES = [(256, 2048, 6144), (16, 6144, 2048), (512, 2048, 6144)]
+
+
+@pytest.mark.parametrize("m,k,n", K2_BITS_CASES)
+def test_k2_gives_the_same_bits_twice_and_from_a_graph(dev, m, k, n):
+    """Two calls give the same bits, and so do 3 replays of a captured call
+    (after an eager one: the merge counters are made), with the counters
+    back at 0."""
+    gen = torch.Generator(device=dev).manual_seed(7 * m + k)
+    pw, sc = _packed(k, n, gen, dev)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    y1 = Q.matmul_int4_i32(x, pw, sc)
+    y2 = Q.matmul_int4_i32(x, pw, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        Q.matmul_int4_i32(x, pw, sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        yg = Q.matmul_int4_i32(x, pw, sc)
+    for _ in range(3):
+        yg.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(yg, y1)
+    tickets = Q._prefill_tickets.get(dev.index if dev.index is not None else torch.cuda.current_device())
+    assert tickets is None or not tickets.any()
+
+
+def test_k2_capture_before_any_eager_call_raises(dev):
+    """The merge counters are made by the first eager call that splits K: a
+    CUDA-graph capture before it raises and makes none."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pw, sc = _packed(2048, 6144, gen, dev)
+    x = torch.randn((256, 2048), generator=gen, device=dev).to(torch.bfloat16)
+    assert Q.prefill_plan(256, 2048, 6144, "i4")[3] > 1
+    saved = Q._prefill_tickets.copy()
+    Q._prefill_tickets.clear()
+    try:
+        with pytest.raises(RuntimeError, match="eager call"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                Q.matmul_int4_i32(x, pw, sc)
+        assert not Q._prefill_tickets
+    finally:
+        torch.cuda.synchronize()
+        Q._prefill_tickets.clear()
+        Q._prefill_tickets.update(saved)
+
+
+def test_k2_converts_every_nibble_exactly(dev):
+    """Words holding every nibble 0..15 in every slab, s = 1, c = 0, and x the
+    identity: each output is one nibble times one, the nibble bit for bit."""
+    k, n = 1024, 64
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
+    q[:16, 0] = torch.arange(-8, 8, device=dev, dtype=torch.int8)  # each value at least once in slab 0
+    pw = Q.pack_int4_i32(q)
+    gp = k // Q.I32_GROUPSIZE
+    sc = torch.cat([torch.ones((gp, n)), torch.zeros((gp, n))]).to(torch.bfloat16).to(dev)
+    y = Q.matmul_int4_i32(torch.eye(k, device=dev, dtype=torch.bfloat16), pw, sc)
+    torch.cuda.synchronize()
+    nib = (q.to(torch.int32) + 8).float()
+    assert set(nib.unique().tolist()) == set(range(16))
+    assert torch.equal(y, nib)
 
 
 @pytest.fixture(scope="module")

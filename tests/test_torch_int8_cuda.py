@@ -9,8 +9,11 @@ Tolerances: K8 every row within 1e-3 * max |ref|, or so once its bf16(sum x)
 moves one ulp either way: the c term takes back about 128 * s * sum(x), and
 the kernel sums x in f32 in another order than the plain version before
 rounding to bf16, so a row whose sum lies on a rounding boundary may move by
-|c| * ulp. K7 as K3 (tests/test_torch_int4_cuda.py): each layer alone, fed
-the plain version's residual stream, within 1e-2 * max |ref|; all 24
+|c| * ulp; at every row count of the plan's CPU tests; K8 also gives the
+same bits twice and from 3 replays of a captured call, a capture before any
+eager call raises, and every byte converts exactly. K7 as K3
+(tests/test_torch_int4_cuda.py): each layer alone, fed the plain version's
+residual stream, within 1e-2 * max |ref|; all 24
 layers' x_out within 5e-2 * max |ref|; layer 0's new cache row within one
 bf16 ulp plus 1e-4 of its largest value; every other cache slot
 bit-identical. The flip allowance, the one-layer-at-a-time check and the
@@ -40,6 +43,9 @@ K7_LAYER_TOL = 1e-2
 # K = 512, and K = 160, whose 40 word rows leave most of a 128-row block empty
 K8_CASES = [(256, 2048, 6144), (256, 2048, 2048), (256, 6144, 2048), (1, 2048, 2048),
             (2, 2048, 6144), (200, 2048, 6144), (300, 6144, 2048), (2, 512, 1536), (5, 160, 72)]
+# then every row count of the plan's tests (tests/test_torch_prefill_plan.py) at the main path's shapes
+K8_CASES += [(m, k, n) for m in (1, 2, 8, 9, 16, 32, 64, 65, 200, 256, 300, 512)
+             for k, n in ((2048, 6144), (2048, 2048), (6144, 2048)) if (m, k, n) not in K8_CASES]
 # (pos, starts, garbage past pos, n_kv_head)
 K7_CASES = [(0, None, None, 16), (255, None, None, 16), (1000, None, None, 16),
             (2047, None, None, 16), (1000, (300, 700), None, 16),
@@ -66,6 +72,78 @@ def test_k8_matches_plain(dev, m, k, n):
     ref = Q.matmul_int8_i32_reference(x, p8, sc8)
     assert y.shape == (m, n) and y.dtype == torch.float32 and torch.isfinite(y).all()
     assert k8_row_gap(torch, y, ref, x, sc8) <= K8_TOL
+
+
+# (M, K, N) with more than one split (the merge behind the counters) and with one
+K8_BITS_CASES = [(256, 2048, 6144), (16, 6144, 2048), (512, 2048, 6144)]
+
+
+@pytest.mark.parametrize("m,k,n", K8_BITS_CASES)
+def test_k8_gives_the_same_bits_twice_and_from_a_graph(dev, m, k, n):
+    """Two calls give the same bits, and so do 3 replays of a captured call
+    (after an eager one: the merge counters are made), with the counters
+    back at 0."""
+    gen = torch.Generator(device=dev).manual_seed(7 * m + k)
+    p8, sc8 = Q.quantize_int8_i32(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    y1 = Q.matmul_int8_i32(x, p8, sc8)
+    y2 = Q.matmul_int8_i32(x, p8, sc8)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        Q.matmul_int8_i32(x, p8, sc8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        yg = Q.matmul_int8_i32(x, p8, sc8)
+    for _ in range(3):
+        yg.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(yg, y1)
+    tickets = Q._prefill_tickets.get(dev.index if dev.index is not None else torch.cuda.current_device())
+    assert tickets is None or not tickets.any()
+
+
+def test_k8_capture_before_any_eager_call_raises(dev):
+    """The merge counters are made by the first eager call that splits K: a
+    CUDA-graph capture before it raises and makes none."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p8, sc8 = Q.quantize_int8_i32(torch.randn((2048, 6144), generator=gen, device=dev) * 0.02)
+    x = torch.randn((256, 2048), generator=gen, device=dev).to(torch.bfloat16)
+    assert Q.prefill_plan(256, 2048, 6144, "i8")[3] > 1
+    saved = Q._prefill_tickets.copy()
+    Q._prefill_tickets.clear()
+    try:
+        with pytest.raises(RuntimeError, match="eager call"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                Q.matmul_int8_i32(x, p8, sc8)
+        assert not Q._prefill_tickets
+    finally:
+        torch.cuda.synchronize()
+        Q._prefill_tickets.clear()
+        Q._prefill_tickets.update(saved)
+
+
+def test_k8_converts_every_byte_exactly(dev):
+    """Words holding every byte 0..255 in every slab, s = 1, c = 0, and x the
+    identity (K split across blocks and merged): each output is one byte
+    times one, the byte bit for bit."""
+    k, n = 1024, 64
+    gen = torch.Generator(device=dev).manual_seed(256)
+    q = torch.randint(-128, 128, (k, n), generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
+    q[:256, 0] = torch.arange(-128, 128, device=dev, dtype=torch.int32).to(torch.int8)
+    p8 = Q.pack_int8_i32(q)
+    sc8 = torch.zeros((2 * Q.I8_GP, n), device=dev, dtype=torch.bfloat16)
+    sc8[0] = 1.0
+    assert Q.prefill_plan(k, k, n, "i8")[3] > 1
+    y = Q.matmul_int8_i32(torch.eye(k, device=dev, dtype=torch.bfloat16), p8, sc8)
+    torch.cuda.synchronize()
+    byte = (q.to(torch.int32) + 128).float()
+    assert set(byte.unique().tolist()) == set(range(256))
+    assert torch.equal(y, byte)
 
 
 @pytest.fixture(scope="module")
