@@ -275,6 +275,7 @@ K10_TOL = 1e-2
 # in another order, rounded to x's dtype (as K11)
 K12_TOL = 1e-3
 K12_DECODE_M = 2  # decode rows: the CFG pair; the JSON line carries this M
+K12_TIMED_M = (K12_DECODE_M, 16, 32, K2_M)  # decode, the spec verify and batched CFG rows, prefill
 KV_FORMATS = ("bf16", "int8", "int8_packed")
 SYNTH_TEXT = "The quick brown fox jumps over the lazy dog, twice."
 # H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s
@@ -2492,7 +2493,10 @@ def _int4g_one_launch(torch, fn, packed: bool, gen, label: str) -> str:
 
 def phase_k12(torch, packed: bool) -> dict:
     """K12 (phase 30) or K13 (phase 31) at the main-path shapes, then one
-    layer's five projections timed at M = 2 and M = 256."""
+    layer's five projections timed at each M of K12_TIMED_M: the kernel, its
+    plain version (M 2 and 256), torch._weight_int4pack_mm and, from 16 rows
+    up, torch.matmul on the bf16-dequantized weight (cuBLAS, the
+    dequantization untimed), each with the bound."""
     from metavoice_tpu_torch.ops import quantized as Q
 
     label = "31 K13" if packed else "30 K12"
@@ -2508,8 +2512,12 @@ def phase_k12(torch, packed: bool) -> dict:
     # every GEMV row count, N off the column tiles, more splits at groupsize 64
     cases += [(m, d, d, None, 128) for m in range(1, Q.DECODE_MAX_ROWS + 1)]
     cases += [(K12_DECODE_M, d, 16, None, 128), (K12_DECODE_M, d, 2064, None, 128), (5, d, 2064, None, 64)]
-    # groupsizes that are no multiple of the GEMV's k-step: up to 8 rows take the tiles
+    # groupsizes that are no multiple of the GEMV's k-step: up to 8 rows take the ring
     cases += [(K12_DECODE_M, d, d, None, 8), (K12_DECODE_M, 1152, d, None, 24)]
+    # the ring's row tiles and splits, f32 x, groupsizes 8, 24 and 12 (no multiple of 8: scales read per row)
+    cases += [(m, d, 3 * d, None, 128) for m in (9, 16, 32, 64, 65)]
+    cases += [(16, i_sz, d, torch.float32, 128), (K2_M, d, 3 * d, None, 8), (32, 1152, i_sz, None, 24),
+              (16, 1152, d, None, 12), (300, d, d, None, 128)]
     worst = 0.0
     for m, k, n, dtype, gs in cases:
         try:
@@ -2526,39 +2534,63 @@ def phase_k12(torch, packed: bool) -> dict:
     n_sets = 8
     times, shown = {}, []
     lib_name = "torch._weight_int4pack_mm"
-    for m in (K12_DECODE_M, K2_M):
-        x = {k: torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16) for k in (d, i_sz)}
-        kernel = plain = library = 0.0
-        n_bytes = n_flop = 0.0
-        per_shape = []
-        for k, n in layer_shapes:
-            mats = []
-            for _ in range(n_sets):
-                q, s, z = Q.quantize_int4_grouped(torch.randn((k, n), generator=gen, device=dev) * 0.02)
-                mats.append((Q.pack_int4(q) if packed else q, s, z, q))
-            xk = x[k]
+    xs = {(m, k): torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+          for m in K12_TIMED_M for k in (d, i_sz)}
+    tot = {m: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "matmul": 0.0, "bytes": 0.0, "flop": 0.0, "per": []}
+           for m in K12_TIMED_M}
+    for k, n in layer_shapes:
+        mats = []
+        for _ in range(n_sets):
+            q, s, z = Q.quantize_int4_grouped(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+            mats.append((Q.pack_int4(q) if packed else q, s, z, q))
+        lib = [(q.to(torch.int32) + 8, s, z + 0.5 * s) for _, s, z, q in mats]
+        dense = [Q.dequantize_int4_grouped(q, s, z).to(torch.bfloat16) for _, s, z, q in mats]
+        for m in K12_TIMED_M:
+            xk, row = xs[(m, k)], tot[m]
             t_k, t_ke = _layers_ms(torch, lambda i: kernel_fn(xk, *mats[i][:3]), n_sets)
-            t_p, _ = _layers_ms(torch, lambda i: plain_fn(xk, *mats[i][:3]), n_sets)
-            lib = [(q.to(torch.int32) + 8, s, z + 0.5 * s) for _, s, z, q in mats]
-            t_l, lib_name = _int4pack_ms(torch, xk, lib, plain_fn(xk, *mats[0][:3]), 128, lib_name, label)
-            kernel, plain, library = kernel + t_k, plain + t_p, library + t_l
+            ref = plain_fn(xk, *mats[0][:3])
+            t_l, lib_name = _int4pack_ms(torch, xk, lib, ref, 128, lib_name, label)
+            t_p = t_m = 0.0
+            if m in (K12_DECODE_M, K2_M):
+                t_p = _layers_ms(torch, lambda i: plain_fn(xk, *mats[i][:3]), n_sets)[0]
+            if m >= 16:
+                if (torch.matmul(xk, dense[0]).float() - ref.float()).abs().max().item() > \
+                        2e-2 * ref.float().abs().max().item():
+                    fail(f"[{label}] torch.matmul on the dequantized weight disagrees with the product")
+                t_m = _layers_ms(torch, lambda i: torch.matmul(xk, dense[i]), n_sets)[0]
             w, s = mats[0][0], mats[0][1]
-            n_bytes += xk.numel() * 2 + w.numel() * w.element_size() + 2 * s.numel() * 4 + m * n * 2
-            n_flop += 2.0 * m * k * n
-            per_shape.append(f"{k}x{n} {t_k:.4f} (eager {t_ke:.4f}; library {t_l:.4f})")
-            del mats, lib
-        bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
-        times[m] = (kernel, plain, library, bound_ms, bound_by)
-        shown.append(f"M {m}: kernel {kernel:.4f} ms ({'; '.join(per_shape)}), plain {plain:.4f} ms, {lib_name} "
-                     f"{library:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-                     f"{n_flop / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+            row["kernel"] += t_k
+            row["plain"] += t_p
+            row["library"] += t_l
+            row["matmul"] += t_m
+            row["bytes"] += xk.numel() * 2 + w.numel() * w.element_size() + 2 * s.numel() * 4 + m * n * 2
+            row["flop"] += 2.0 * m * k * n
+            row["per"].append(f"{t_k:.4f} (eager {t_ke:.4f}; library {t_l:.4f})")
+        del mats, lib, dense
+    for m in K12_TIMED_M:
+        row = tot[m]
+        bound_ms, bound_by = bound(row["bytes"], row["flop"], BF16_FLOP_S)
+        times[m] = (row["kernel"], row["plain"], row["library"], bound_ms, bound_by, row["matmul"])
+        shown.append(f"M {m}: kernel {row['kernel']:.4f} ms (qkv, wo, w1, w3, w2: {'; '.join(row['per'])})"
+                     + (f", plain {row['plain']:.4f} ms" if m in (K12_DECODE_M, K2_M) else "")
+                     + f", {lib_name} {row['library']:.4f} ms"
+                     + (f", torch.matmul on the bf16-dequantized weight {row['matmul']:.4f} ms" if m >= 16 else "")
+                     + f", bound {bound_ms:.4f} ms ({bound_by}, {row['flop'] / 1e9:.2f} GFLOP, "
+                       f"{row['bytes'] / 1e6:.1f} MB)")
     print(f"[{label}] {len(cases)} cases agree (within {worst:.3g} of max |ref| at most, tol {K12_TOL} of max |ref| "
           f"plus one bf16 ulp of each element); at M {K12_DECODE_M} one kernel a call ({kernel_name}), the same "
           f"bits on every call and graph replay; one layer's five projections, device time from a CUDA graph: "
           f"{'; '.join(shown)}")
-    kernel, plain, library, bound_ms, bound_by = times[K12_DECODE_M]
-    return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library, "library_call": lib_name}
+    kernel, plain, library, bound_ms, bound_by, _ = times[K12_DECODE_M]
+    record = {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+              "library_ms": library, "library_call": lib_name}
+    for m in K12_TIMED_M[1:]:
+        kernel, plain, library, bound_ms, _, matmul = times[m]
+        record |= {f"m{m}_ms": kernel, f"m{m}_bound_ms": bound_ms, f"m{m}_library_ms": library,
+                   f"m{m}_matmul_ms": matmul}
+        if m == K2_M:
+            record[f"m{m}_plain_ms"] = plain
+    return record
 
 
 def phase_small_int4g(torch):

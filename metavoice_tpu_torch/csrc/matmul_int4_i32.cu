@@ -121,12 +121,11 @@
 // metavoice_tpu_torch/ops/_build.py; the wrappers and their plain PyTorch
 // versions are in metavoice_tpu_torch/ops/quantized.py.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "prefill_ring.cuh"
 #include "word_values.cuh"
 
 namespace {
@@ -217,104 +216,6 @@ __device__ __forceinline__ float pf_round_bf16(float v) { return __bfloat162floa
 // Element h (0 or 1) of a bf16 pair as f32.
 __device__ __forceinline__ float pf_half(uint32_t pair, int h) {
   return __uint_as_float(h ? pair & 0xFFFF0000u : pair << 16);
-}
-
-__device__ __forceinline__ unsigned pf_smem(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
-
-// 16 bytes from global src to shared dst, or 16 zero bytes where !valid.
-__device__ __forceinline__ void pf_cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(pf_smem(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void pf_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int kPending>
-__device__ __forceinline__ void pf_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// A barrier of `count` threads (a multiple of 32) under id (1..15; 0 is __syncthreads).
-__device__ __forceinline__ void pf_named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-// One arrival that also expects `bytes` of bulk copies to complete on the barrier.
-__device__ __forceinline__ void pf_bar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 _, [%0], %1;\n" ::"r"(pf_smem(bar)), "r"(bytes)
-               : "memory");
-}
-
-// The box at (c0, c1, c2) of the 3-D tensor map into shared dst, completing on bar.
-__device__ __forceinline__ void pf_tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
-      "[%5];\n" ::"r"(pf_smem(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(pf_smem(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void pf_bar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(pf_smem(bar)), "r"(count) : "memory");
-}
-
-// One arrival (release: the thread's earlier writes, its completed copies
-// too, are visible to whoever's wait sees the phase complete).
-__device__ __forceinline__ void pf_bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(pf_smem(bar)) : "memory");
-}
-
-// Returns once the barrier's phase of this parity has completed (acquire).
-__device__ __forceinline__ void pf_bar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(pf_smem(bar)), "r"(parity)
-        : "memory");
-}
-
-// wgmma: a shared-memory matrix descriptor, K-major with the 128-byte swizzle
-// (8-row atoms of 128-byte rows, 1024 bytes apart), at p.
-__device__ __forceinline__ uint64_t pf_desc(const void* p) {
-  return (uint64_t)((pf_smem(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void pf_wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void pf_wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void pf_wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// d (64 x 64 f32, the warpgroup's) += A (64 x 16) @ B (16 x 64), both K-major bf16 in shared memory.
-__device__ __forceinline__ void pf_wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d (64 x 8 f32) += A (64 x 16) @ B (16 x 8).
-__device__ __forceinline__ void pf_wgmma_n8(float (&d)[4], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void pf_ldmatrix_x4(uint32_t (&r)[4], const void* src) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(pf_smem(src)));
-}
-
-__device__ __forceinline__ int pf_atom_add_acq_rel(int* p, int v) {
-  int old;
-  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n" : "=r"(old) : "l"(p), "r"(v) : "memory");
-  return old;
 }
 
 // Nibble j of two words w0, w1 (neighbouring columns of one word row) as the
@@ -766,25 +667,13 @@ int pf_run(const PfArgs& a, int mt, int n_tickets, void* stream) {
                       (kVals == 4 && a.xpart == nullptr))))
     return (int)cudaErrorInvalidValue;
   // x as (rows, slabs, word rows) bf16: a box is one chunk of one slab for the tile's rows
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
   const int kw = a.k / kVals;
   const cuuint64_t dims[3] = {(cuuint64_t)kw, (cuuint64_t)kVals, (cuuint64_t)a.m};
   const cuuint64_t strides[2] = {(cuuint64_t)kw * 2, (cuuint64_t)a.k * 2};  // bytes: a slab, a row
   const cuuint32_t box[3] = {(cuuint32_t)kPfChunk, 1, (cuuint32_t)(16 * mt)};
-  const cuuint32_t unit[3] = {1, 1, 1};
   CUtensorMap xmap;
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<__nv_bfloat16*>(a.x), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  const cudaError_t map_err = pf_tensor_map_3d(&xmap, a.x, dims, strides, box);
+  if (map_err != cudaSuccess) return (int)map_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mt) {
     case 1: return (int)pf_launch<kVals, 1>(a, xmap, splits, s);

@@ -61,6 +61,7 @@ summed in f32, in x's dtype.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -749,8 +750,27 @@ INT4G_BLOCKS_PER_SM = 3  # blocks an SM the grid aims for
 INT4G_MIN_WARP_STEPS = 2  # fewest k-steps a warp, where K allows
 INT4G_MAX_SPLITS = 32
 INT4G_PART_SHARE = 0.1  # partials' bytes at most this share of the weights'
-INT4G_TICKETS = 4096  # merge counters a device: column tiles a call
+INT4G_TICKETS = 4096  # merge counters a device: column tiles (GEMV) or row x column tiles (ring) a call
 _int4g_tickets: dict = {}  # device index -> (INT4G_TICKETS,) int32, all 0 between calls
+# the ring of tensor-core tiles (more rows, or a groupsize off the k-step; int4g_tile_plan):
+# one launch a call, K split on whole staged blocks, merged by the last block of a tile to finish
+INT4G_RING_BN = 128  # output columns a block (the kernel's kRgCols)
+INT4G_RING_CHUNK = 64  # rows of w a staged block (kRgChunk): K12 64 k, K13 64 k of each half
+INT4G_RING_ROWS = (16, 32, 64, 128, 256)  # the tiles' rows (16 kMt)
+INT4G_RING_BLOCKS_PER_SM = {16: 2, 32: 2, 64: 1, 128: 1, 256: 1}  # as the blocks' shared memory allows
+INT4G_RING_PART_BYTES = 24 << 20  # a call's f32 partials at most (they stay in the 50 MB L2)
+INT4G_RING_FILL = 0.5  # the grid holds at least this share of the card's block slots where the chunks allow
+# the plan's model of a call on the card, in SM cycles, fitted to the times of every cut of the main shapes
+# at M 16, 32, 64 and 256 (NVIDIA H100 80GB HBM3; PERF.md section 6): a block takes
+# INT4G_STEP_CYCLES + INT4G_STEP_ROW_CYCLES x bm a consumer step (64 k; the producers' conversion sets
+# the pace) and INT4G_START_CYCLES more; blocks run in waves of the card's block slots (whole waves at one
+# block an SM; at two, a part of a wave costs its part); a call of more than one split adds bm x
+# (INT4G_MERGE_ROW_CYCLES + INT4G_MERGE_SPLIT_ROW_CYCLES x splits) for the partials' writes and the merge
+INT4G_STEP_CYCLES = 1150
+INT4G_STEP_ROW_CYCLES = 11
+INT4G_START_CYCLES = 1660
+INT4G_MERGE_ROW_CYCLES = 106
+INT4G_MERGE_SPLIT_ROW_CYCLES = 16
 
 
 def dequantize_int4_grouped(q: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, groupsize: int = 128):
@@ -855,20 +875,70 @@ def int4g_plan(m: int, k: int, n: int, packed: bool) -> tuple[int, int, int]:
     return split_steps, -(-steps // split_steps), warps
 
 
-def _int4g_scratch(n_splits: int, m: int, n: int, device):
-    """The partials and merge counters of one K12/K13 GEMV call -> (part,
+def _int4g_ring_cost(bm: int, split_chunks: int, n_splits: int, m: int, n: int, packed: bool) -> float:
+    """The plan's modelled SM cycles of a call of the ring: waves of blocks,
+    each ``split_chunks`` staged blocks of steps and a start, then the
+    partials' writes and the merge."""
+    tiles = -(-m // bm) * -(-n // INT4G_RING_BN)
+    per_sm = INT4G_RING_BLOCKS_PER_SM[bm]
+    waves = tiles * n_splits / (CARD_SMS * per_sm)
+    waves = max(1.0, waves) if per_sm > 1 else math.ceil(waves)
+    steps = split_chunks * (2 if packed else 1)
+    block = steps * (INT4G_STEP_CYCLES + INT4G_STEP_ROW_CYCLES * bm) + INT4G_START_CYCLES
+    merge = bm * (INT4G_MERGE_ROW_CYCLES + INT4G_MERGE_SPLIT_ROW_CYCLES * n_splits) if n_splits > 1 else 0
+    return waves * block + merge
+
+
+def int4g_tile_plan(m: int, k: int, n: int, packed: bool) -> tuple[int, int, int]:
+    """K12's and K13's ring of tensor-core tiles (``csrc/matmul_int4_grouped.cu``,
+    ``int4g_ring_kernel``): the cut of a call -> (bm, split_chunks, n_splits).
+    A block takes a tile of bm rows by ``INT4G_RING_BN`` columns over
+    ``split_chunks`` staged blocks of ``INT4G_RING_CHUNK`` rows of w (K12's
+    q rows, K13's packed rows: each feeds 64 k of both halves); split i
+    holds staged blocks ``[i * split_chunks, (i + 1) * split_chunks)``, the
+    last ends at or past the last one and none lies wholly past it.
+
+    bm is the fewest rows of ``INT4G_RING_ROWS`` that hold M (at most 256),
+    or half of it from 128 rows up (each weight is then converted twice, for
+    a grid that fills the card with a cheaper merge). Of those tiles and
+    every split count whose grid holds ``INT4G_RING_FILL`` of the card's
+    block slots (``CARD_SMS`` x ``INT4G_RING_BLOCKS_PER_SM``) where the
+    staged blocks allow, it takes the least modelled time
+    (:func:`_int4g_ring_cost`), the fewest splits on a tie, with the
+    partials' f32 bytes within ``INT4G_RING_PART_BYTES`` and one split
+    where the tiles exceed the merge counters."""
+    n_chunks = -(-(k // 2 if packed else k) // INT4G_RING_CHUNK)
+    bm0 = next(b for b in INT4G_RING_ROWS if b >= min(m, INT4G_RING_ROWS[-1]))
+    best = None
+    for bm in (bm0, bm0 // 2) if bm0 >= 128 else (bm0,):
+        tiles = -(-m // bm) * -(-n // INT4G_RING_BN)
+        for split_chunks in range(n_chunks, 0, -1):  # fewer splits first
+            n_splits = -(-n_chunks // split_chunks)
+            if n_splits > 1 and (tiles > INT4G_TICKETS or n_splits * m * n * 4 > INT4G_RING_PART_BYTES):
+                break
+            cost = _int4g_ring_cost(bm, split_chunks, n_splits, m, n, packed)
+            slots = CARD_SMS * INT4G_RING_BLOCKS_PER_SM[bm]
+            full = tiles * n_splits >= INT4G_RING_FILL * min(slots, tiles * n_chunks)
+            if best is None or (full, -cost) > (best[0], -best[1]):
+                best = (full, cost, bm, split_chunks, n_splits)
+    return best[2:]
+
+
+def _int4g_scratch(n_splits: int, m: int, n: int, device, tiles: int | None = None):
+    """The partials and merge counters of one K12/K13 call -> (part,
     tickets): none for one split; else f32 partials of (splits, m, n), from
     the caching allocator on every call (so calls on other streams, and
-    graph captures, each get their own), and the device's counters, made
-    zero by the first call and left zero by every launch (the last block of
-    a column tile resets its own; :func:`merge_tickets`). Calls on one
-    device must not overlap in time (one stream, or streams the caller
-    orders), as for K1/K4's counters."""
+    graph captures, each get their own), and the device's counters, one a
+    tile (the GEMV's column tiles, or ``tiles`` of the ring), made zero by
+    the first call and left zero by every launch (the last block of a tile
+    resets its own; :func:`merge_tickets`). Calls on one device must not
+    overlap in time (one stream, or streams the caller orders), as for
+    K1/K4's counters."""
     if n_splits == 1:
         return None, None
-    tiles = -(-n // INT4G_TILE_N)
+    tiles = -(-n // INT4G_TILE_N) if tiles is None else tiles
     if tiles > INT4G_TICKETS:
-        raise ValueError(f"{tiles} column tiles exceed the {INT4G_TICKETS} merge counters")
+        raise ValueError(f"{tiles} tiles exceed the {INT4G_TICKETS} merge counters")
     part = torch.empty((n_splits * m * n,), dtype=torch.float32, device=device)
     return part, merge_tickets(_int4g_tickets, INT4G_TICKETS, device, "matmul_int4")
 
@@ -892,8 +962,9 @@ def merge_tickets(table: dict, size: int, device, who: str) -> torch.Tensor:
 def _int4_grouped_kernel(x, w, scales, zeros, groupsize: int, packed: bool):
     """Launch ``mv_matmul_int4_grouped`` (csrc/matmul_int4_grouped.cu) on
     CUDA tensors -> (M, N) in x's dtype, or raise. Rows <= DECODE_MAX_ROWS
-    with a groupsize that is a multiple of 16 take its tensor-core GEMV in
-    one launch (:func:`int4g_plan`), other calls its tensor-core tiles."""
+    with a groupsize that is a multiple of 16 take its tensor-core GEMV
+    (:func:`int4g_plan`), other calls its ring of tensor-core tiles
+    (:func:`int4g_tile_plan`); one launch a call either way."""
     name = "matmul_int4_packed" if packed else "matmul_int4"
     m, k = x.shape
     n = w.shape[1]
@@ -908,15 +979,18 @@ def _int4_grouped_kernel(x, w, scales, zeros, groupsize: int, packed: bool):
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    split_steps, warps, part, tickets = 0, 0, None, None  # split_steps 0: the tiles
+    split_steps = warps = mt = split_chunks = 0  # split_steps 0: the ring
     if m <= DECODE_MAX_ROWS and groupsize % INT4G_STEP_K == 0:
         split_steps, n_splits, warps = int4g_plan(m, k, n, packed)
         part, tickets = _int4g_scratch(n_splits, m, n, x.device)
+    else:
+        bm, split_chunks, n_splits = int4g_tile_plan(m, k, n, packed)
+        mt = bm // 16
+        part, tickets = _int4g_scratch(n_splits, m, n, x.device, -(-m // bm) * -(-n // INT4G_RING_BN))
     err = _build.kernels().lib.mv_matmul_int4_grouped(
         xb.data_ptr(), w.data_ptr(), scales.data_ptr(), zeros.data_ptr(), y.data_ptr(), m, k, n, groupsize,
-        int(packed), _OUT_CODE[x.dtype], split_steps, warps, None if part is None else part.data_ptr(),
-        None if tickets is None else tickets.data_ptr(), INT4G_TICKETS,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(packed), _OUT_CODE[x.dtype], split_steps, warps, mt, split_chunks, _ptr(part), _ptr(tickets),
+        INT4G_TICKETS, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

@@ -1,6 +1,6 @@
 """Device times of the per-layer decode kernels alone, on the card: the
 attention blocks K5 and K9 and the FFNs K6 and K10; and of the prefill
-matmuls K2 and K8.
+matmuls K2 and K8 and the groupwise matmuls K12 and K13.
 
     python3 -m metavoice_tpu_torch.tools.block_times [--trees OLD NEW] [--breakdown] [--bits OLD NEW]
 
@@ -11,7 +11,11 @@ int8 and a packed cache and K9 on a bf16 cache at pos 0, 255, 1000 and
 2047; K6 and K10. K2 and K8 (``matmul_int4_i32``, ``matmul_int8_i32``):
 one layer's five projections (qkv, wo, w1, w3, w2 at D 2048, FFN 6144),
 each on 8 weight sets in turn from a CUDA graph, at M 256 (the prefill),
-16 and 32 (the unfused int4 route, the int8 per-layer route).
+16 and 32 (the unfused int4 route, the int8 per-layer route). K12 and K13
+(``matmul_int4``, ``matmul_int4_packed``, groupsize 128): the same at FFN
+5632, and single projections at the other row counts and groupsizes of
+their card tests that take the ring of tiles (M 9, 64, 65, 200; groupsizes
+8 and 24 at M 2 and 8).
 
 * ``--trees OLD NEW``: two checkouts' roots (an older commit unpacked with
   ``git archive`` or ``git checkout-index -a --prefix=DIR/`` into a
@@ -24,8 +28,10 @@ each on 8 weight sets in turn from a CUDA graph, at M 256 (the prefill),
 * ``--bits OLD NEW``: the outputs of the kernels that share the tensor-core
   GEMV header (a K3 and a K7 step with the new rows they write, K5 on each
   cache format with its cache row and scales, K9 with its cache row; pos
-  255 and 1000) on the same seeded inputs, each tree in its own process,
-  compared bit for bit: one line a case, exit 1 on any difference.
+  255 and 1000) and of those that share the prefill ring's primitives (K2
+  and K8 at M 256, 16 and 32 on the qkv and w2 shapes) on the same seeded
+  inputs, each tree in its own process, compared bit for bit: one line a
+  case, exit 1 on any difference.
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -43,6 +49,10 @@ POSITIONS = (0, 255, 1000, 2047)
 KV_FORMATS = ("bf16", "int8", "int8_packed")
 PREFILL_M = (256, 16, 32)
 PREFILL_SHAPES = ((2048, 6144), (2048, 2048), (2048, 6144), (2048, 6144), (6144, 2048))  # qkv, wo, w1, w3, w2
+GROUPED_SHAPES = ((2048, 6144), (2048, 2048), (2048, 5632), (2048, 5632), (5632, 2048))  # K12/K13: FFN 5632
+# K12/K13 single projections (M, K, N, groupsize): the ring's other row counts and groupsizes of the card tests
+GROUPED_CASES = ((9, 2048, 6144, 128), (64, 2048, 6144, 128), (65, 2048, 2048, 128), (200, 2048, 6144, 128),
+                 (2, 2048, 2048, 8), (2, 1152, 2048, 24), (8, 1152, 2048, 24))
 
 
 def _setup(root: str):
@@ -165,12 +175,36 @@ def _prefill_ms(torch) -> dict:
                 total[m] += _layer_ms(torch, lambda i: call(x, *packed[i]), len(packed))
             del packed
         out.update({f"{label} M{m}": ms for m, ms in total.items()})
+    for label, packed in (("K12", False), ("K13", True)):
+        call = Q.matmul_int4_packed if packed else Q.matmul_int4
+        total = dict.fromkeys(PREFILL_M, 0.0)
+        xs = {(m, k): torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+              for m in PREFILL_M for k in (2048, 5632)}
+        for k, n in GROUPED_SHAPES:
+            mats = [_grouped(torch, Q, k, n, 128, packed, gen, dev) for _ in range(8)]
+            for m in PREFILL_M:
+                x = xs[(m, k)]
+                total[m] += _layer_ms(torch, lambda i: call(x, *mats[i]), len(mats))
+            del mats
+        out.update({f"{label} M{m}": ms for m, ms in total.items()})
+        for m, k, n, gs in GROUPED_CASES:
+            mats = [_grouped(torch, Q, k, n, gs, packed, gen, dev) for _ in range(8)]
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            out[f"{label} M{m} {k}x{n} g{gs}"] = _layer_ms(torch, lambda i: call(x, *mats[i], gs), len(mats))
+            del mats
     return out
 
 
+def _grouped(torch, Q, k: int, n: int, gs: int, packed: bool, gen, dev):
+    """One groupwise int4 weight set from the generator: (q or p, scales, zeros)."""
+    q, s, z = Q.quantize_int4_grouped(torch.randn((k, n), generator=gen, device=dev) * 0.02, gs)
+    return (Q.pack_int4(q) if packed else q), s, z
+
+
 def time_tree(root: str) -> dict:
-    """K2 and K8 (ms of a layer's five projections), K5, K9, K6 and K10 (ms a
-    layer) of the tree at ``root`` (its package and kernels), from CUDA graphs."""
+    """K2, K8, K12 and K13 (ms of a layer's five projections; K12 and K13 also
+    single projections), K5, K9, K6 and K10 (ms a layer) of the tree at
+    ``root`` (its package and kernels), from CUDA graphs."""
     torch = _setup(root)
     prefill = _prefill_ms(torch)
     n_layer, cases = _cases(torch)
@@ -247,6 +281,13 @@ def save_outputs(root: str, path: str):
                                                       k_scale=kv.k_scale, v_scale=kv.v_scale)[0]
                     layer5 = [t[5] for t in (kv.k, kv.v, kv.k_scale, kv.v_scale) if t is not None]
                     out[f"K5 {fmt} pos {pos}"] = [y, *layer5]
+    for label, quantize, call in (("K2", Q.quantize_int4_i32, Q.matmul_int4_i32),
+                                  ("K8", Q.quantize_int8_i32, Q.matmul_int8_i32)):
+        for k, n in ((2048, 6144), (6144, 2048)):
+            packed = quantize(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+            for m in PREFILL_M:
+                xm = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+                out[f"{label} M{m} {k}x{n}"] = [xm, call(xm, *packed)]
     l8 = Q.quantize_params_int8(params)["layers"]
     for pos in (255, 1000):
         kv = cache("bf16", pos + 9)
