@@ -135,11 +135,21 @@ Phases, one line each; any failure exits non-zero and prints no result:
                prefills, K1 == K3 == K4 == K7 == K8 == 0; ms per token beside
                phase 9's and the cache bytes of each format;
  25. K11     - the plain-int8 matmul against its plain version at the
-               main-path shapes (M = 256; K x N of 2048 x 6144, 2048 x 2048,
-               2048 x 5632, 5632 x 2048), at M = 1, 2, 8, 200 and with f32
+               main-path shapes (K x N of 2048 x 6144, 2048 x 2048, 2048 x
+               5632, 5632 x 2048) at M = 2 (its tensor-core GEMV) and 256
+               (its ring of tensor-core tiles), at every M of 1-8, M 9, 16,
+               32, 64, 65, 200 and 600, N 16 and 2064, K 5632 and with f32
                x: every element within 1e-3 max |ref| plus one bf16 ulp of
-               the element; times of one layer's five projections beside
-               the plain version, torch._weight_int8pack_mm and the bound;
+               the element; every int8 value bit for bit on both routes
+               (one-hot rows, f32 out); at M 2, 16 and 256 one kernel a
+               call (the graph of one call), two calls the same bits, a
+               graph of one call replayed 3 times each the eager bits, a
+               capture before any eager call raising; times of one layer's
+               five projections at M = 2, 16, 32 and 256 beside the plain
+               version, torch._weight_int8pack_mm and torch.matmul on the
+               bf16-dequantized weight (both replayed from a CUDA graph as
+               the kernel is; eagerly, said so, where one cannot be
+               captured) and the bound, with each shape's route and cut;
  26. K9      - the plain-int8 attention-block kernel against its plain
                version at the main-path shape (24 stacked layers, D 2048,
                16 heads, B 2, S 2048, bf16 cache) at pos 0, 77, 255, 2047,
@@ -154,10 +164,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
                and w3 would fail; the capture check and the graph check; B
                1, 2, 8 timed);
  28. small-int8p - 2-layer 512-wide plain-int8 first stages, MHA (T = 1
-               through K9/K10) and GQA with 2 kv heads (K11 at M = 2, K4,
-               K10), on the card and on the CPU under the same Gumbel
-               draws: the same tokens or phase 23's flip rule, and each
-               route's launches;
+               through K9/K10) and GQA with 2 kv heads (K11 at M = 2, on its
+               GEMV, K4, K10), on the card and on the CPU under the same
+               Gumbel draws: the same tokens or phase 23's flip rule, and
+               each route's launches;
  29. synth-int8p - full-width TTS(quantisation_mode="int8_plain").synthesise:
                a finite wav; K9 and K10 launches == n_layer x decode steps,
                K11 == 5 x n_layer x prefills, every other kernel 0; ms per
@@ -262,6 +272,18 @@ FFN_KERNELS = ("stack_gemv", "stack_gemv")  # a K6 / K10 call: w1/w3, then w2
 # K11: the same bf16 products as its plain version summed in another order,
 # rounded to x's dtype, so a bf16 output may land one ulp apart
 K11_TOL = 1e-3
+# K11 is timed at the rows of a GQA decode step of the CFG pair (the GEMV), the
+# spec verify and batched CFG rows, and the prefill (the ring); the JSON line
+# carries M 256, the main path's
+K11_TIMED_M = (2, 16, 32, K2_M)
+# its card cases beyond the main shapes: every GEMV row count, the ring's row
+# tiles and more than 256 rows, N off the GEMV's 64-column grid (16, 2064), K
+# 5632 and f32 x (M, K, N, x dtype or None for bf16)
+K11_CASES = ([(m, 2048, 2048, None) for m in range(1, 9)]
+             + [(m, 2048, 6144, None) for m in (9, 16, 32, 64, 65, 200, 600)]
+             + [(2, 2048, 16, None), (2, 2048, 2064, None), (32, 2048, 2064, None), (8, 5632, 2048, None),
+                (16, 5632, 2048, None), (600, 5632, 2048, None), (2, 2048, 6144, "f32"), (16, 5632, 2048, "f32"),
+                (256, 5632, 2048, "f32")])
 # K9: the same roundings as its plain version, but the softmax runs online
 # per split and the f32 sums in other orders (as K5)
 K9_TOL = 2e-2
@@ -1184,31 +1206,6 @@ def prefill_times(torch, label: str, wfmt: str, gen) -> dict:
     return {"record": record, "text": text}
 
 
-def _int8pack_ms(torch, x, mats, ref, lib_name: str, label: str) -> tuple[float, str]:
-    """One PyTorch call for the product x @ (q * s) with mats [(q (K, N) int8,
-    s (N,))]: torch._weight_int8pack_mm on the same int8 values and scales,
-    or, where this torch lacks a CUDA kernel for it, torch.matmul on the
-    bf16-dequantized weight (the dequantization untimed). Its answer is
-    checked against ref first. -> (ms, the call timed)."""
-    tol = 2e-2 * ref.float().abs().max().item()  # bf16 output and weights: a few bf16 ulps of the sum
-    if lib_name == "torch._weight_int8pack_mm":
-        try:
-            libs = [(q.T.contiguous(), s.to(x.dtype).contiguous()) for q, s in mats]
-            y = torch._weight_int8pack_mm(x, *libs[0])
-            if (y.float() - ref.float()).abs().max().item() > tol:
-                raise RuntimeError("its result disagrees with the int8 product")
-            return _rotate_ms(torch, lambda i: torch._weight_int8pack_mm(x, *libs[i]), len(libs)), lib_name
-        except (AttributeError, RuntimeError, NotImplementedError) as e:
-            print(f"[{label}] torch._weight_int8pack_mm not usable here ({str(e)[:120]}); "
-                  "timing torch.matmul on the bf16-dequantized weight instead")
-    dense = [(q.float() * s.float()).to(torch.bfloat16) for q, s in mats]
-    y = torch.matmul(x, dense[0])
-    if (y.float() - ref.float()).abs().max().item() > tol:
-        fail(f"[{label}] torch.matmul on the dequantized int8 weight disagrees with the int8 product")
-    return _rotate_ms(torch, lambda i: torch.matmul(x, dense[i]), len(dense)), \
-        "torch.matmul(bf16 dequantized)"
-
-
 def _k7_args(qp):
     lay = qp["layers"]
     return (lay["attn_norm_w"], lay["ffn_norm_w"],
@@ -1867,14 +1864,18 @@ def block_graph_check(torch, fn, what: str, kernels: tuple = BLOCK_KERNELS) -> l
     return found
 
 
-def capture_first_raises(torch, fn, what: str):
-    """With the device's products' merge counters not yet made, a CUDA-graph
-    capture of fn() raises and makes none (ops/quantized.merge_tickets); the
-    counters are put back after. Raises AssertionError otherwise."""
+def capture_first_raises(torch, fn, what: str, tables=None):
+    """With the device's merge counters not yet made (``tables``: (module,
+    name) of each table fn() takes; the decode GEMV's by default), a
+    CUDA-graph capture of fn() raises and makes none
+    (ops/quantized.merge_tickets); the counters are put back after. Raises
+    AssertionError otherwise."""
     from metavoice_tpu_torch.ops import decode_stack as DS
 
-    saved = DS._stack_tickets
-    DS._stack_tickets = {}
+    tables = tables or ((DS, "_stack_tickets"),)
+    saved = [getattr(mod, name) for mod, name in tables]
+    for mod, name in tables:
+        setattr(mod, name, {})
     try:
         try:
             with torch.cuda.graph(torch.cuda.CUDAGraph()):
@@ -1883,9 +1884,10 @@ def capture_first_raises(torch, fn, what: str):
             assert "eager call" in str(e), f"{what}: a capture before any eager call raised another error: {e}"
         else:
             raise AssertionError(f"{what}: a capture before any eager call did not raise")
-        assert not DS._stack_tickets, f"{what}: a refused capture made merge counters"
+        assert not any(getattr(mod, name) for mod, name in tables), f"{what}: a refused capture made merge counters"
     finally:
-        DS._stack_tickets = saved
+        for (mod, name), table in zip(tables, saved):
+            setattr(mod, name, table)
 
 
 def phase_k5(torch) -> dict:
@@ -2168,7 +2170,7 @@ def k11_case(torch, m: int, k: int, n: int, gen, dtype=None) -> float:
     y = Q.matmul_int8(x, q, s)
     torch.cuda.synchronize()
     ref = Q.matmul_int8_reference(x, q, s)
-    what = f"M {m}, K {k}, N {n}, x {x.dtype}"
+    what = f"M {m}, K {k}, N {n}, x {x.dtype} ({Q.int8_route(m, k, n)[0]} route)"
     assert y.shape == (m, n) and y.dtype == x.dtype and torch.isfinite(y).all(), f"K11 output bad at {what}"
     top = ref.float().abs().max().item()
     gap = (y.float() - ref.float()).abs()
@@ -2177,50 +2179,179 @@ def k11_case(torch, m: int, k: int, n: int, gen, dtype=None) -> float:
     return gap.max().item() / top
 
 
-def phase_k11(torch) -> dict:
+def k11_exact_case(torch, rows: int, k: int = 2048, n: int = 256):
+    """Every int8 value through K11 bit for bit: q covers all 256 values
+    (byte (r, c) = (7 r + 11 c) mod 256 - 128), the scales are 1 and x is
+    one-hot rows (``rows`` at a time, f32 out), so each call's y is rows of
+    q exactly, on the route that ``rows`` takes. Raises AssertionError."""
     from metavoice_tpu_torch.ops import quantized as Q
 
+    dev = torch.device("cuda")
+    kk, nn = torch.meshgrid(torch.arange(k, device=dev), torch.arange(n, device=dev), indexing="ij")
+    q = ((kk * 7 + nn * 11) % 256 - 128).to(torch.int8)
+    s = torch.ones(n, device=dev)
+    eye = torch.eye(k, device=dev)
+    for r0 in range(0, k, rows):
+        y = Q.matmul_int8(eye[r0:r0 + rows], q, s)
+        assert torch.equal(y, q[r0:r0 + rows].float()), \
+            f"K11 ({Q.int8_route(rows, k, n)[0]} route) does not give rows {r0}.. of q bit for bit"
+
+
+def k11_call(torch, m: int, k: int, n: int, seed: int):
+    """A K11 call on seeded inputs, as a function of no arguments."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, s = Q.quantize_int8(torch.randn((k, n), generator=gen, device="cuda") * 0.02)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    return lambda: Q.matmul_int8(x, q, s)
+
+
+def k11_graph_check(torch, call, what: str) -> str:
+    """One K11 call(): one kernel node in the graph of one call, two eager
+    calls the same bits, the call captured in a CUDA graph and replayed 3
+    times each the eager call's bits, both merge-counter tables of K11 back
+    at 0 -> the kernel's name. Raises AssertionError."""
+    from metavoice_tpu_torch.ops import decode_stack as DS
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    nodes = _graph_nodes(torch, call)
+    assert len(nodes) == 1 and nodes[0][0] == "KERNEL", f"{what}: one call is {len(nodes)} graph nodes: {nodes}"
+    first, second = call(), call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    bits = first.view(torch.int16)
+    assert torch.equal(second.view(torch.int16), bits), f"{what}: two calls differ"
+    dev = torch.cuda.current_device()
+    for i in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int16), bits), f"{what}: graph replay {i} differs from the eager call"
+        assert not any(t[dev].any() for t in (DS._stack_tickets, Q._int4g_tickets) if dev in t), \
+            f"{what}: the merge counters are not back at 0 after replay {i}"
+    found = re.search(r"int4g_ring_kernel|stack_gemv", nodes[0][1])
+    return found.group(0) if found else nodes[0][1]
+
+
+def _int8pack_ms(torch, x, mats, ref, lib_name: str, label: str) -> tuple[float, str, float]:
+    """The two yardsticks of the product x @ (q * s) with mats [(q (K, N)
+    int8, s (N,))], each timed as the kernels are (the weights in turn,
+    replayed from a CUDA graph, or eagerly where the call cannot be
+    captured, said so: _graph_or_eager_ms): torch._weight_int8pack_mm on the
+    same int8 values and scales, where this torch has a CUDA kernel for it,
+    and torch.matmul on the bf16-dequantized weight (cuBLAS, the
+    dequantization untimed); each answer checked against ref first. ->
+    (library ms, the library call timed and how, torch.matmul ms)."""
+    tol = 2e-2 * ref.float().abs().max().item()  # bf16 output and weights: a few bf16 ulps of the sum
+    dense = [(q.float() * s.float()).to(torch.bfloat16) for q, s in mats]
+    if (torch.matmul(x, dense[0]).float() - ref.float()).abs().max().item() > tol:
+        fail(f"[{label}] torch.matmul on the dequantized int8 weight disagrees with the int8 product")
+    t_m, how_m = _graph_or_eager_ms(torch, lambda i: torch.matmul(x, dense[i]), len(dense), label)
+    if lib_name.startswith("torch._weight_int8pack_mm"):
+        try:
+            libs = [(q.T.contiguous(), s.to(x.dtype).contiguous()) for q, s in mats]
+            y = torch._weight_int8pack_mm(x, *libs[0])
+            if (y.float() - ref.float()).abs().max().item() > tol:
+                raise RuntimeError("its result disagrees with the int8 product")
+            t_l, how = _graph_or_eager_ms(torch, lambda i: torch._weight_int8pack_mm(x, *libs[i]), len(libs), label)
+            return t_l, f"torch._weight_int8pack_mm ({how})", t_m
+        except (AttributeError, RuntimeError, NotImplementedError) as e:
+            print(f"[{label}] torch._weight_int8pack_mm not usable here ({str(e)[:120]}); "
+                  "the library column is torch.matmul's")
+    return t_m, f"torch.matmul(bf16 dequantized) ({how_m})", t_m
+
+
+def phase_k11(torch) -> dict:
+    """K11 at the main-path shapes (M 2 on the GEMV, M 256 on the ring) and
+    at K11_CASES; every int8 value bit for bit on both routes; one kernel a
+    call, the same bits twice and over 3 graph replays, and a capture before
+    any eager call raising, on both routes; then one layer's five
+    projections timed at each M of K11_TIMED_M beside the plain version,
+    both library calls and the bound, with each shape's route and cut."""
+    from metavoice_tpu_torch.ops import decode_stack as DS
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    label = "25 K11"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(111)
     d, i_sz = 2048, 5632
     layer_shapes = [(d, 3 * d), (d, d), (d, i_sz), (d, i_sz), (i_sz, d)]  # qkv, wo, w1, w3, w2
-    cases = [(K2_M, k, n, None) for k, n in layer_shapes[:3] + layer_shapes[4:]]
-    cases += [(1, d, 3 * d, None), (2, d, d, None), (8, d, i_sz, None), (200, d, 3 * d, None),
-              (2, d, 3 * d, torch.float32)]
+    distinct = layer_shapes[:3] + layer_shapes[4:]
+    cases = [(m, k, n, None) for m in (K11_TIMED_M[0], K2_M) for k, n in distinct] + K11_CASES
     worst = 0.0
     for m, k, n, dtype in cases:
         try:
-            worst = max(worst, k11_case(torch, m, k, n, gen, dtype))
+            worst = max(worst, k11_case(torch, m, k, n, gen, torch.float32 if dtype == "f32" else dtype))
         except AssertionError as e:
             fail(str(e))
+    names = {}
+    try:
+        for rows in (8, K2_M):
+            k11_exact_case(torch, rows)
+        for m, (k, n) in ((2, layer_shapes[0]), (16, layer_shapes[1]), (K2_M, layer_shapes[1])):
+            route, cut = Q.int8_route(m, k, n)
+            assert cut[1 if route == "gemv" else 2] > 1, f"M {m} {k}x{n} plans one split: no merge checked"
+            call = k11_call(torch, m, k, n, 250 + m)
+            names[f"M {m} {route}"] = k11_graph_check(torch, call, f"K11 at M {m}, {k}x{n}")
+            capture_first_raises(torch, call, f"K11 at M {m}", tables=((DS, "_stack_tickets"), (Q, "_int4g_tickets")))
+    except AssertionError as e:
+        fail(str(e))
 
-    # times of one prefill layer's five projections, each on 8 weight sets
-    # in turn (100 MB and more a shape), so the weights come from HBM
+    # one layer's five projections at each M, each on 8 weight sets in turn
+    # (50 MB and more a shape), so the weights come from HBM
     n_sets = 8
-    x = {k: torch.randn((K2_M, k), generator=gen, device=dev).to(torch.bfloat16) for k in (d, i_sz)}
-    kernel = plain = library = 0.0
+    xs = {(m, k): torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+          for m in K11_TIMED_M for k in (d, i_sz)}
+    tot = {m: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "matmul": 0.0, "bytes": 0.0, "flop": 0.0, "per": [],
+               "cuts": []} for m in K11_TIMED_M}
     lib_name = "torch._weight_int8pack_mm"
-    n_bytes = n_flop = 0.0
-    per_shape = []
     for k, n in layer_shapes:
         mats = [Q.quantize_int8(torch.randn((k, n), generator=gen, device=dev) * 0.02) for _ in range(n_sets)]
-        xk = x[k]
-        t_k, t_ke = _layers_ms(torch, lambda i: Q.matmul_int8(xk, *mats[i]), n_sets)
-        t_p, _ = _layers_ms(torch, lambda i: Q.matmul_int8_reference(xk, *mats[i]), n_sets)
-        t_l, lib_name = _int8pack_ms(torch, xk, mats, Q.matmul_int8_reference(xk, *mats[0]), lib_name, "25 K11")
-        kernel, plain, library = kernel + t_k, plain + t_p, library + t_l
-        n_bytes += xk.numel() * 2 + k * n + n * 4 + K2_M * n * 2
-        n_flop += 2.0 * K2_M * k * n
-        per_shape.append(f"{k}x{n} {t_k:.4f} (eager {t_ke:.4f})")
+        for m in K11_TIMED_M:
+            xk, row = xs[(m, k)], tot[m]
+            t_k, t_ke = _layers_ms(torch, lambda i: Q.matmul_int8(xk, *mats[i]), n_sets)
+            t_p = _layers_ms(torch, lambda i: Q.matmul_int8_reference(xk, *mats[i]), n_sets)[0]
+            ref = Q.matmul_int8_reference(xk, *mats[0])
+            t_l, lib_name, t_m = _int8pack_ms(torch, xk, mats, ref, lib_name, label)
+            row["kernel"] += t_k
+            row["plain"] += t_p
+            row["library"] += t_l
+            row["matmul"] += t_m
+            row["bytes"] += xk.numel() * 2 + k * n + n * 4 + m * n * 2
+            row["flop"] += 2.0 * m * k * n
+            row["per"].append(f"{t_k:.4f} (eager {t_ke:.4f}; library {t_l:.4f})")
+            route, cut = Q.int8_route(m, k, n)
+            row["cuts"].append(f"{route} {'x'.join(map(str, cut))}")
         del mats
-    bound_ms, bound_by = bound(n_bytes, n_flop, BF16_FLOP_S)
-    print(f"[25 K11] {len(cases)} cases agree (within {worst:.3g} of max |ref| at most, tol {K11_TOL} of max "
-          f"|ref| plus one bf16 ulp of each element); one layer's five projections at M {K2_M}, device time "
-          f"from a CUDA graph: kernel {kernel:.4f} ms ({'; '.join(per_shape)}), plain {plain:.4f} ms; "
-          f"{lib_name} {library:.4f} ms called eagerly; bound {bound_ms:.4f} ms ({bound_by}, "
-          f"{n_flop / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); kernel at {n_flop / kernel / 1e9:.1f} TFLOP/s")
-    return {"max_abs_err": worst, "ms": kernel, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library, "library_call": lib_name}
+    record, shown = {}, []
+    for m in K11_TIMED_M:
+        row = tot[m]
+        bound_ms, bound_by = bound(row["bytes"], row["flop"], BF16_FLOP_S)
+        shown.append(f"M {m}: kernel {row['kernel']:.4f} ms (qkv, wo, w1, w3, w2: {'; '.join(row['per'])}; cuts "
+                     f"{', '.join(row['cuts'])}), plain {row['plain']:.4f} ms, {lib_name} {row['library']:.4f} ms, "
+                     f"torch.matmul on the bf16-dequantized weight {row['matmul']:.4f} ms, bound {bound_ms:.4f} ms "
+                     f"({bound_by}, {row['flop'] / 1e9:.2f} GFLOP, {row['bytes'] / 1e6:.1f} MB)")
+        stats = {"ms": row["kernel"], "plain_ms": row["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": row["library"], "matmul_ms": row["matmul"]}
+        if m == K2_M:
+            record |= stats | {"library_call": lib_name}
+        else:
+            record |= {f"m{m}_{key}": v for key, v in stats.items()}
+    print(f"[{label}] {len(cases)} cases agree (within {worst:.3g} of max |ref| at most, tol {K11_TOL} of max |ref| "
+          f"plus one bf16 ulp of each element; routes and cuts of the main shapes: "
+          + "; ".join(f"M {m} {', '.join(tot[m]['cuts'])}" for m in K11_TIMED_M)
+          + f"); every int8 value bit for bit at 8 rows (GEMV) and 256 (ring); one kernel a call ("
+          f"{', '.join(f'{k}: {v}' for k, v in names.items())}), the same bits twice and over 3 graph replays, a "
+          f"capture before any eager call raising; one layer's five projections, device time from a CUDA graph: "
+          f"{'; '.join(shown)}")
+    return {"max_abs_err": worst, **record}
 
 
 def _random_int8_plain_model(torch, cfg, seed: int, dev):
@@ -2401,12 +2532,14 @@ def phase_small_int8p(torch):
         for name, params in (("cpu", cpu), ("cuda", gpu)):
             for fn, attr in counters().values():
                 setattr(fn, attr, 0)
+            Q.matmul_int8.gemv_launches = 0
             stats = {}
             kw = dict(noise=noise.to(name), max_new_tokens=n, top_p=1.0, stats=stats)
             toks[name] = fs.generate(params, cfg, prompt, spk.numpy(), **kw)[len(prompt):]
             counts = read_counts()
             want = dict.fromkeys(counts, 0)
             steps = stats["decode_steps"]
+            gemv = 0  # K11 calls on its GEMV: the GQA steps' qkv and wo at M 2 (the prefill's M 80 take the ring)
             if name == "cuda":
                 want.update(k11_launches=5 * cfg.n_layer, k10_launches=cfg.n_layer * steps)
                 if h_kv == 4:
@@ -2414,9 +2547,11 @@ def phase_small_int8p(torch):
                 else:
                     want["k11_launches"] += 2 * cfg.n_layer * steps
                     want["k4_launches"] = cfg.n_layer * steps
-            if counts != want:
-                fail(f"small-int8p ({h_kv} kv heads) on {name} launched {counts}, expected {want}")
-        route = "K9/K10" if h_kv == 4 else "K11 + K4 + K10"
+                    gemv = 2 * cfg.n_layer * steps
+            if counts != want or Q.matmul_int8.gemv_launches != gemv:
+                fail(f"small-int8p ({h_kv} kv heads) on {name} launched {counts} ({Q.matmul_int8.gemv_launches} K11 "
+                     f"calls on its GEMV), expected {want} ({gemv} on its GEMV)")
+        route = "K9/K10" if h_kv == 4 else "K11 (GEMV at M 2) + K4 + K10"
         shown.append(f"{h_kv} kv heads ({route}, launches {({k: v for k, v in counts.items() if v})}): "
                      + _tokens_agree(torch, f"small-int8p ({h_kv} kv heads)", toks, (cpu, gpu), cfg, prompt, spk,
                                      noise, torch.bfloat16))
@@ -2834,7 +2969,7 @@ def main() -> int:
              "metavoice_tpu/ops/attention.py:1750", k9),
             ("ffn_int8", "k10_launches", int8p, "decode_block_int8.cu",
              "metavoice_tpu/ops/quantized.py:407", k10),
-            ("matmul_int8", "k11_launches", int8p, "matmul_int4_i32.cu",
+            ("matmul_int8", "k11_launches", int8p, "matmul_int8.cu",
              "metavoice_tpu/ops/quantized.py:153", k11),
             ("matmul_int4", "k12_launches", int4g, "matmul_int4_grouped.cu",
              "metavoice_tpu/ops/quantized.py:204", k12),

@@ -1,6 +1,5 @@
-// Weight-only matmuls for prefill, written for Hopper (sm_90a): in the
-// int32-word serving formats (one kernel template, two C entries, K2 and
-// K8), and on plain int8 arrays (K11).
+// Weight-only matmuls for prefill, written for Hopper (sm_90a), in the
+// int32-word serving formats: one kernel template, two C entries, K2 and K8.
 //
 // K2, int4 (mv_matmul_int4_i32): replaces
 // metavoice_tpu/ops/quantized.py:matmul_int4_i32 (the Pallas TPU kernel
@@ -93,30 +92,6 @@
 //   the group and word-block ends, and the merge after the loop, with one
 //   block an SM and nothing to overlap them.
 //
-// K11, plain int8 (mv_matmul_int8): replaces
-// metavoice_tpu/ops/quantized.py:matmul_int8 (the Pallas TPU kernel
-// _int8_matmul_kernel), the projections of quantisation_mode="int8_plain"
-// outside K9/K10 (prefill, the speculative verify, GQA and quantized-cache
-// decode). q (K, N) int8 row-major with one f32 scale per column:
-//     y = (bf16(x) @ bf16(q)) * s, in x's dtype (bf16 or f32),
-// the int8 values exact in bf16 and the products summed in f32. At the
-// main-path shape (M = 256; one layer's five projections, 2048 x 6144,
-// 2048 x 2048, 2048 x 5632 twice, 5632 x 2048) that is 26 GFLOP against
-// 51 MB of int8 weights: bound by the tensor cores.
-//
-// Design of K11 (simple and right first; no TMA, no wgmma, no pipelining yet):
-//   * One block of 8 warps computes a 64 x 128 output tile with mma.sync
-//     m16n8k16 bf16 -> f32; each warp owns a 32 x 32 sub-tile.
-//   * Each 128-row block of q is staged in shared memory as bytes, and a B
-//     fragment's four values (k and k + 1, k + 8 and k + 9 of one column) are
-//     four byte reads converted exactly to bf16. A 32-bit word of this layout
-//     holds four columns at one k, so the word formats' per-word extraction
-//     does not apply. x is never quantized (an int8 MMA would need that):
-//     the TPU kernel's arithmetic is bf16 products summed in f32. The scale
-//     and the cast to x's dtype are the epilogue.
-//   * Shared-memory rows are padded so that fragment loads are free of bank
-//     conflicts.
-//
 // Plain C entry points (no PyTorch headers), loaded with ctypes by
 // metavoice_tpu_torch/ops/_build.py; the wrappers and their plain PyTorch
 // versions are in metavoice_tpu_torch/ops/quantized.py.
@@ -129,12 +104,6 @@
 #include "word_values.cuh"
 
 namespace {
-
-constexpr int kGroup = 128;           // K11: rows of q staged at once
-constexpr int kBM = 64;               // K11: output rows per block
-constexpr int kBN = 128;              // K11: output columns per block
-constexpr int kThreads = 256;         // K11: 8 warps, 2 along M x 4 along N
-constexpr int kXStride = kGroup + 8;  // K11: bf16 per staged x row (pad: conflict-free A loads)
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low 16 bits
@@ -683,124 +652,7 @@ int pf_run(const PfArgs& a, int mt, int n_tickets, void* stream) {
   }
 }
 
-// ------------------------------------------------------------------ K11
-
-constexpr int kQStride = kBN + 16;  // bytes per staged int8 weight row (pad: conflict-free B reads)
-
-__device__ __forceinline__ float i8f(int8_t v) { return __int2float_rn((int)v); }
-
-__global__ void __launch_bounds__(kThreads)
-matmul_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                   const float* __restrict__ sc, void* __restrict__ y, int m, int k, int n,
-                   int out_bf16) {
-  __shared__ __align__(16) int8_t q_s[kGroup * kQStride];
-  __shared__ __align__(16) __nv_bfloat16 x_s[kBM * kXStride];
-
-  const int n_blocks = (k + kGroup - 1) / kGroup;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp & 1;   // which 32-row half of the tile
-  const int wn = warp >> 1;  // which 32-column quarter
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int tm = 0; tm < 2; ++tm)
-#pragma unroll
-    for (int tn = 0; tn < 4; ++tn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[tm][tn][e] = 0.f;
-
-  for (int kb = 0; kb < n_blocks; ++kb) {
-    const int k0 = kb * kGroup;
-    __syncthreads();  // the previous block's readers are done
-    for (int i = tid; i < kGroup * (kBN / 16); i += kThreads) {
-      const int r = i / (kBN / 16);
-      const int c16 = (i % (kBN / 16)) * 16;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      // n % 16 == 0, so a 16-byte vector is all in or all out
-      if (col0 + c16 < n && k0 + r < k)
-        v = *reinterpret_cast<const uint4*>(q + (size_t)(k0 + r) * n + col0 + c16);
-      *reinterpret_cast<uint4*>(q_s + r * kQStride + c16) = v;
-    }
-    for (int i = tid; i < kBM * (kGroup / 8); i += kThreads) {
-      const int r = i / (kGroup / 8);
-      const int c8 = (i % (kGroup / 8)) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      // k % 8 == 0, so an 8-value vector is all in or all out
-      if (row0 + r < m && k0 + c8 < k)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * k + k0 + c8);
-      *reinterpret_cast<uint4*>(x_s + r * kXStride + c8) = v;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < kGroup; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int tm = 0; tm < 2; ++tm) {
-        const __nv_bfloat16* base = x_s + (wm * 32 + tm * 16 + gid) * kXStride + kk + tig * 2;
-        a[tm][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[tm][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kXStride);
-        a[tm][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-        a[tm][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kXStride + 8);
-      }
-#pragma unroll
-      for (int tn = 0; tn < 4; ++tn) {
-        const int8_t* qb = q_s + (kk + tig * 2) * kQStride + wn * 32 + tn * 8 + gid;
-        uint32_t b[2];
-        b[0] = pack_bf16x2(i8f(qb[0]), i8f(qb[kQStride]));
-        b[1] = pack_bf16x2(i8f(qb[8 * kQStride]), i8f(qb[9 * kQStride]));
-#pragma unroll
-        for (int tm = 0; tm < 2; ++tm) mma_bf16(acc[tm][tn], a[tm], b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int tn = 0; tn < 4; ++tn) {
-    const int col = col0 + wn * 32 + tn * 8 + tig * 2;
-    if (col >= n) continue;
-    const float s0 = sc[col];
-    const float s1 = sc[col + 1];
-#pragma unroll
-    for (int tm = 0; tm < 2; ++tm) {
-      const int r = row0 + wm * 32 + tm * 16 + gid;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows r and r + 8
-        if (r + 8 * h >= m) continue;
-        const float v0 = acc[tm][tn][2 * h] * s0;
-        const float v1 = acc[tm][tn][2 * h + 1] * s1;
-        const size_t off = (size_t)(r + 8 * h) * n + col;
-        if (out_bf16) {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(y) + off) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          *reinterpret_cast<float2*>(static_cast<float*>(y) + off) = make_float2(v0, v1);
-        }
-      }
-    }
-  }
-}
-
 }  // namespace
-
-// x: (m, k) bf16, q: (k, n) int8, sc: (n,) f32, y: (m, n) bf16 (out_bf16 1) or f32
-// (out_bf16 0), all contiguous on the device. k must be a multiple of 8 and n of 16.
-// Returns a cudaError_t.
-extern "C" int mv_matmul_int8(const void* x, const void* q, const void* sc, void* y, int m, int k,
-                              int n, int out_bf16, void* stream) {
-  if (m < 1 || k < 8 || k % 8 != 0 || n < 16 || n % 16 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  matmul_int8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(sc), y, m, k, n, out_bf16);
-  return (int)cudaGetLastError();
-}
 
 // x: (m, k) bf16, pw: (k/8, n) int32, sc: (2*gp, n) bf16, y: (m, n) f32, all
 // contiguous on the device. k must be a multiple of 1024 (8 slabs of whole

@@ -1,6 +1,6 @@
 // The Hopper primitives of the prefill matmuls' copy ring, shared by
-// matmul_int4_i32.cu (K2, K8: prefill_kernel) and matmul_int4_grouped.cu
-// (K12, K13: int4g_ring_kernel): cp.async and its groups, mbarriers,
+// matmul_int4_i32.cu (K2, K8: prefill_kernel) and matmul_ring.cuh (K11,
+// K12, K13: int4g_ring_kernel): cp.async and its groups, mbarriers,
 // bulk tensor copies (TMA) and the host encoding of their tensor maps,
 // wgmma on K-major shared-memory tiles with the 128-byte swizzle, ldmatrix,
 // and the acquire-release atomic of the split merge's tickets.

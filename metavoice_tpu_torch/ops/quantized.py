@@ -40,7 +40,9 @@ Plain int8 (``quantisation_mode="int8_plain"``, :func:`quantize_params_int8`):
 ``{"q": (L, K, N) int8, "scales": (L, N) f32}`` per layer weight, no padding,
 the JAX package's layout. K11, :func:`matmul_int8`, replaces
 ``metavoice_tpu/ops/quantized.py:matmul_int8`` (``_int8_matmul_kernel``;
-kernel in ``csrc/matmul_int4_i32.cu``); K10, :func:`ffn_int8`, one T = 1
+kernel in ``csrc/matmul_int8.cu``: the decode GEMV up to 8 rows
+(:func:`int8_gemv_ok`), else the ring of tensor-core tiles shared with K12
+and K13, cut by :func:`int8_tile_plan`); K10, :func:`ffn_int8`, one T = 1
 SwiGLU FFN, replaces ``ffn_int8`` (``_ffn_int8_kernel``; kernel in
 ``csrc/decode_block_int8.cu``).
 
@@ -621,15 +623,64 @@ def matmul_int8_reference(x, q, scales):
 _OUT_CODE = {torch.bfloat16: 1, torch.float32: 0}
 
 
+def int8_gemv_ok(m: int, k: int, n: int) -> bool:
+    """Whether K11 takes m rows of x @ a (K, N) plain-int8 weight on the
+    tensor-core decode GEMV (``csrc/decode_stack_gemv.cuh`` in its plain-int8
+    form, cut by ``decode_stack.stack_gemv_plan``): 1..DECODE_MAX_ROWS rows,
+    K a multiple of its k-step (16), N of FFN8_ALIGN (32-column tiles, two a
+    cluster) and N's tiles within its merge counters. Any other call takes
+    the ring of tensor-core tiles (:func:`int8_tile_plan`)."""
+    from metavoice_tpu_torch.ops import decode_stack as DS  # decode_stack imports this module
+
+    return (1 <= m <= DECODE_MAX_ROWS and k >= DS.STACK_STEP_ROWS and k % DS.STACK_STEP_ROWS == 0
+            and n % FFN8_ALIGN == 0 and n // DS.STACK_TILE_N <= DS.STACK_TICKETS)
+
+
+def int8_route(m: int, k: int, n: int) -> tuple[str, tuple[int, int, int]]:
+    """K11's route and cut of a call: ``("gemv", (split_steps, n_splits,
+    warps))`` from ``decode_stack.stack_gemv_plan(k, n, 1, m)`` where
+    :func:`int8_gemv_ok`, else ``("ring", (bm, split_chunks, n_splits))``
+    from :func:`int8_tile_plan`."""
+    if int8_gemv_ok(m, k, n):
+        from metavoice_tpu_torch.ops import decode_stack as DS
+
+        return "gemv", DS.stack_gemv_plan(k, n, 1, m)
+    return "ring", int8_tile_plan(m, k, n)
+
+
+def _int8_scratch(route: str, cut: tuple[int, int, int], m: int, n: int, device):
+    """One K11 call's merge scratch -> (f32 partials or None, the merge
+    counters, their count). The partials come from the caching allocator on
+    every call that splits K (the GEMV's ``splits x m x (n + 1)``, the ring's
+    ``splits x m x n``); the counters are the device's table of the route,
+    the decode GEMV's (``decode_stack._stack_tickets``, shared with K3/K7,
+    K5/K9 and K6/K10) or the ring's (``_int4g_tickets``, shared with
+    K12/K13), taken on every call, so that a CUDA-graph capture before any
+    eager call on the device raises (:func:`merge_tickets`). Calls on one
+    device must not overlap in time."""
+    from metavoice_tpu_torch.ops import decode_stack as DS
+
+    splits = cut[1] if route == "gemv" else cut[2]
+    part = None
+    if splits > 1:
+        part = torch.empty((splits * m * (n + 1 if route == "gemv" else n),), dtype=torch.float32, device=device)
+    if route == "gemv":
+        return part, merge_tickets(DS._stack_tickets, DS.STACK_TICKETS, device, "matmul_int8"), DS.STACK_TICKETS
+    return part, merge_tickets(_int4g_tickets, INT4G_TICKETS, device, "matmul_int8"), INT4G_TICKETS
+
+
 def matmul_int8(x, q, scales):
     """(M, K) activations @ plain int8 (K, N) * scales (N,) -> (M, N) in x's
     dtype (K11).
 
-    x: bf16 or f32 (rounded to bf16); q: (K, N) int8; scales: (N,) f32. A
-    CUDA tensor launches the hand-written kernel (``csrc/matmul_int4_i32.cu``,
-    ``mv_matmul_int8``: K a multiple of 8, N of 16) or raises; a CPU tensor
-    takes :func:`matmul_int8_reference`. ``matmul_int8.launches`` counts
-    kernel launches.
+    x: bf16 or f32 (rounded to bf16); q: (K, N) int8; scales: (N,) f32, q
+    and scales contiguous and, like x, at 16-byte boundaries (a stacked
+    weight's per-layer view is). A CUDA tensor launches the hand-written
+    kernel (``csrc/matmul_int8.cu``, ``mv_matmul_int8``: K a multiple of 8,
+    N of 16, any M; one launch a call, on the route and cut of
+    :func:`int8_route`) or raises; a CPU tensor takes
+    :func:`matmul_int8_reference`. ``matmul_int8.launches`` counts kernel
+    launches, ``matmul_int8.gemv_launches`` those on the GEMV route.
     """
     if x.dim() != 2 or q.dim() != 2 or scales.dim() != 1:
         raise ValueError(f"x, q must be 2-D and scales 1-D, got {x.shape}, {q.shape}, {scales.shape}")
@@ -648,22 +699,34 @@ def matmul_int8(x, q, scales):
                          f"{scales.dtype}")
     if k % 8 or n % 16:
         raise ValueError(f"the kernel takes K a multiple of 8 and N of 16, got {k}, {n}")
+    if not (q.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("matmul_int8 needs contiguous q and scales")
     xb = x.to(torch.bfloat16).contiguous()
-    q, scales = q.contiguous(), scales.contiguous()
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
+    for name, t in (("x", xb), ("q", q), ("scales", scales)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"matmul_int8: {name} must start at a 16-byte boundary (the kernel's tensor maps "
+                             f"and 16-byte copies read it there), not at {t.data_ptr():#x}")
+    route, cut = int8_route(m, k, n)
+    part, tickets, n_tickets = _int8_scratch(route, cut, m, n, x.device)
+    gemv = route == "gemv"
     err = _build.kernels().lib.mv_matmul_int8(
         xb.data_ptr(), q.data_ptr(), scales.data_ptr(), y.data_ptr(), m, k, n, _OUT_CODE[x.dtype],
+        cut[0] if gemv else 0, cut[1] if gemv else 0, 0 if gemv else cut[0] // 16, 0 if gemv else cut[1],
+        _ptr(part), 0 if part is None else part.numel(), tickets.data_ptr(), n_tickets,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"matmul_int8 kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"matmul_int8 kernel launch failed ({route} route): cudaError_t {err}")
     matmul_int8.launches += 1
+    matmul_int8.gemv_launches += gemv
     return y
 
 
 matmul_int8.launches = 0
+matmul_int8.gemv_launches = 0
 
 
 FFN8_ALIGN = 64  # K10's D and I: the GEMV's column tiles, 32 a block and 2 a cluster, in both products
@@ -771,6 +834,13 @@ INT4G_STEP_ROW_CYCLES = 11
 INT4G_START_CYCLES = 1660
 INT4G_MERGE_ROW_CYCLES = 106
 INT4G_MERGE_SPLIT_ROW_CYCLES = 16
+# K11's constants of the same model, fitted by `tools/ring_cuts.py --kernels K11 --fit` to the times of every
+# cut of its ring at M 16, 32, 64 and 256 (H100, PERF.md section 6): a cheaper step (no affine), a dearer start
+INT8_STEP_CYCLES = 1013
+INT8_STEP_ROW_CYCLES = 4
+INT8_START_CYCLES = 9209
+INT8_MERGE_ROW_CYCLES = 38
+INT8_MERGE_SPLIT_ROW_CYCLES = 12
 
 
 def dequantize_int4_grouped(q: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, groupsize: int = 128):
@@ -875,39 +945,41 @@ def int4g_plan(m: int, k: int, n: int, packed: bool) -> tuple[int, int, int]:
     return split_steps, -(-steps // split_steps), warps
 
 
-def _int4g_ring_cost(bm: int, split_chunks: int, n_splits: int, m: int, n: int, packed: bool) -> float:
-    """The plan's modelled SM cycles of a call of the ring: waves of blocks,
-    each ``split_chunks`` staged blocks of steps and a start, then the
-    partials' writes and the merge."""
+def _ring_cost(bm: int, steps: int, n_splits: int, m: int, n: int, cycles: tuple) -> float:
+    """The modelled SM cycles of a call of the ring: waves of blocks, each
+    ``steps`` consumer steps and a start, then the partials' writes and the
+    merge; ``cycles`` the format's (step, step a row, start, merge a row,
+    merge a split and row) constants."""
+    step, step_row, start, merge_row, merge_split_row = cycles
     tiles = -(-m // bm) * -(-n // INT4G_RING_BN)
     per_sm = INT4G_RING_BLOCKS_PER_SM[bm]
     waves = tiles * n_splits / (CARD_SMS * per_sm)
     waves = max(1.0, waves) if per_sm > 1 else math.ceil(waves)
-    steps = split_chunks * (2 if packed else 1)
-    block = steps * (INT4G_STEP_CYCLES + INT4G_STEP_ROW_CYCLES * bm) + INT4G_START_CYCLES
-    merge = bm * (INT4G_MERGE_ROW_CYCLES + INT4G_MERGE_SPLIT_ROW_CYCLES * n_splits) if n_splits > 1 else 0
+    block = steps * (step + step_row * bm) + start
+    merge = bm * (merge_row + merge_split_row * n_splits) if n_splits > 1 else 0
     return waves * block + merge
 
 
-def int4g_tile_plan(m: int, k: int, n: int, packed: bool) -> tuple[int, int, int]:
-    """K12's and K13's ring of tensor-core tiles (``csrc/matmul_int4_grouped.cu``,
-    ``int4g_ring_kernel``): the cut of a call -> (bm, split_chunks, n_splits).
-    A block takes a tile of bm rows by ``INT4G_RING_BN`` columns over
-    ``split_chunks`` staged blocks of ``INT4G_RING_CHUNK`` rows of w (K12's
-    q rows, K13's packed rows: each feeds 64 k of both halves); split i
-    holds staged blocks ``[i * split_chunks, (i + 1) * split_chunks)``, the
-    last ends at or past the last one and none lies wholly past it.
+def _int4g_ring_cost(bm: int, split_chunks: int, n_splits: int, m: int, n: int, packed: bool) -> float:
+    """K12's and K13's modelled SM cycles of a call of the ring (K13 walks
+    two consumer steps a staged block)."""
+    return _ring_cost(bm, split_chunks * (2 if packed else 1), n_splits, m, n,
+                      (INT4G_STEP_CYCLES, INT4G_STEP_ROW_CYCLES, INT4G_START_CYCLES, INT4G_MERGE_ROW_CYCLES,
+                       INT4G_MERGE_SPLIT_ROW_CYCLES))
 
-    bm is the fewest rows of ``INT4G_RING_ROWS`` that hold M (at most 256),
-    or half of it from 128 rows up (each weight is then converted twice, for
-    a grid that fills the card with a cheaper merge). Of those tiles and
-    every split count whose grid holds ``INT4G_RING_FILL`` of the card's
-    block slots (``CARD_SMS`` x ``INT4G_RING_BLOCKS_PER_SM``) where the
-    staged blocks allow, it takes the least modelled time
-    (:func:`_int4g_ring_cost`), the fewest splits on a tie, with the
-    partials' f32 bytes within ``INT4G_RING_PART_BYTES`` and one split
-    where the tiles exceed the merge counters."""
-    n_chunks = -(-(k // 2 if packed else k) // INT4G_RING_CHUNK)
+
+def _int8_ring_cost(bm: int, split_chunks: int, n_splits: int, m: int, n: int) -> float:
+    """K11's modelled SM cycles of a call of the ring, on its own constants."""
+    return _ring_cost(bm, split_chunks, n_splits, m, n,
+                      (INT8_STEP_CYCLES, INT8_STEP_ROW_CYCLES, INT8_START_CYCLES, INT8_MERGE_ROW_CYCLES,
+                       INT8_MERGE_SPLIT_ROW_CYCLES))
+
+
+def _ring_tile_plan(m: int, rows_w: int, n: int, cost) -> tuple[int, int, int]:
+    """The ring's cut of a call over ``rows_w`` rows of w, the least
+    ``cost(bm, split_chunks, n_splits)`` among the candidates that
+    :func:`int4g_tile_plan` describes -> (bm, split_chunks, n_splits)."""
+    n_chunks = -(-rows_w // INT4G_RING_CHUNK)
     bm0 = next(b for b in INT4G_RING_ROWS if b >= min(m, INT4G_RING_ROWS[-1]))
     best = None
     for bm in (bm0, bm0 // 2) if bm0 >= 128 else (bm0,):
@@ -916,12 +988,42 @@ def int4g_tile_plan(m: int, k: int, n: int, packed: bool) -> tuple[int, int, int
             n_splits = -(-n_chunks // split_chunks)
             if n_splits > 1 and (tiles > INT4G_TICKETS or n_splits * m * n * 4 > INT4G_RING_PART_BYTES):
                 break
-            cost = _int4g_ring_cost(bm, split_chunks, n_splits, m, n, packed)
+            c = cost(bm, split_chunks, n_splits)
             slots = CARD_SMS * INT4G_RING_BLOCKS_PER_SM[bm]
             full = tiles * n_splits >= INT4G_RING_FILL * min(slots, tiles * n_chunks)
-            if best is None or (full, -cost) > (best[0], -best[1]):
-                best = (full, cost, bm, split_chunks, n_splits)
+            if best is None or (full, -c) > (best[0], -best[1]):
+                best = (full, c, bm, split_chunks, n_splits)
     return best[2:]
+
+
+def int4g_tile_plan(m: int, k: int, n: int, packed: bool) -> tuple[int, int, int]:
+    """K12's and K13's ring of tensor-core tiles (``csrc/matmul_ring.cuh``,
+    ``int4g_ring_kernel``): the cut of a call -> (bm, split_chunks, n_splits).
+    A block takes a tile of bm rows by ``INT4G_RING_BN`` columns over
+    ``split_chunks`` staged blocks of ``INT4G_RING_CHUNK`` rows of w (K12's
+    q rows, K13's packed rows: each feeds 64 k of both halves); split i
+    holds staged blocks ``[i * split_chunks, (i + 1) * split_chunks)``, the
+    last ends at or past the last one and none lies wholly past it.
+
+    bm is the fewest rows of ``INT4G_RING_ROWS`` that hold M (at most 256:
+    more rows take more row tiles), or half of it from 128 rows up (each
+    weight is then converted twice, for a grid that fills the card with a
+    cheaper merge). Of those tiles and every split count whose grid holds
+    ``INT4G_RING_FILL`` of the card's block slots (``CARD_SMS`` x
+    ``INT4G_RING_BLOCKS_PER_SM``) where the staged blocks allow, it takes
+    the least modelled time (:func:`_int4g_ring_cost`), the fewest splits
+    on a tie, with the partials' f32 bytes within ``INT4G_RING_PART_BYTES``
+    and one split where the tiles exceed the merge counters."""
+    return _ring_tile_plan(m, k // 2 if packed else k, n,
+                           lambda bm, sc, ns: _int4g_ring_cost(bm, sc, ns, m, n, packed))
+
+
+def int8_tile_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """K11's cut of a call on the ring (``int4g_ring_kernel`` on plain int8
+    q (K, N), staged blocks of 64 k) -> (bm, split_chunks, n_splits), chosen
+    as :func:`int4g_tile_plan` chooses, by K11's own model
+    (:func:`_int8_ring_cost`)."""
+    return _ring_tile_plan(m, k, n, lambda bm, sc, ns: _int8_ring_cost(bm, sc, ns, m, n))
 
 
 def _int4g_scratch(n_splits: int, m: int, n: int, device, tiles: int | None = None):
@@ -931,9 +1033,9 @@ def _int4g_scratch(n_splits: int, m: int, n: int, device, tiles: int | None = No
     graph captures, each get their own), and the device's counters, one a
     tile (the GEMV's column tiles, or ``tiles`` of the ring), made zero by
     the first call and left zero by every launch (the last block of a tile
-    resets its own; :func:`merge_tickets`). Calls on one device must not
-    overlap in time (one stream, or streams the caller orders), as for
-    K1/K4's counters."""
+    resets its own; :func:`merge_tickets`; K11's ring shares them). Calls on
+    one device must not overlap in time (one stream, or streams the caller
+    orders), as for K1/K4's counters."""
     if n_splits == 1:
         return None, None
     tiles = -(-n // INT4G_TILE_N) if tiles is None else tiles

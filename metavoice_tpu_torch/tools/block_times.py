@@ -1,8 +1,9 @@
 """Device times of the per-layer decode kernels alone, on the card: the
 attention blocks K5 and K9 and the FFNs K6 and K10; and of the prefill
-matmuls K2 and K8 and the groupwise matmuls K12 and K13.
+matmuls K2 and K8, the groupwise matmuls K12 and K13 and the plain-int8
+matmul K11.
 
-    python3 -m metavoice_tpu_torch.tools.block_times [--trees OLD NEW] [--breakdown] [--bits OLD NEW]
+    python3 -m metavoice_tpu_torch.tools.block_times [--trees OLD NEW] [--breakdown] [--bits OLD NEW [--changed K11]]
 
 Each time is per layer, from a CUDA graph of the 24 layers' calls in turn,
 at the main-path shape (D 2048, 16 heads, B 2, S 2048, FFN 5632 (K6's
@@ -15,7 +16,10 @@ each on 8 weight sets in turn from a CUDA graph, at M 256 (the prefill),
 (``matmul_int4``, ``matmul_int4_packed``, groupsize 128): the same at FFN
 5632, and single projections at the other row counts and groupsizes of
 their card tests that take the ring of tiles (M 9, 64, 65, 200; groupsizes
-8 and 24 at M 2 and 8).
+8 and 24 at M 2 and 8). K11 (``matmul_int8``): the five projections at FFN
+5632 at M 2 (a decode step of the CFG pair), 16, 32 and 256, and single
+projections at the other row counts and widths of its card tests (M 1, 8,
+9, 64, 65, 200, 600; N 2064).
 
 * ``--trees OLD NEW``: two checkouts' roots (an older commit unpacked with
   ``git archive`` or ``git checkout-index -a --prefix=DIR/`` into a
@@ -28,10 +32,13 @@ their card tests that take the ring of tiles (M 9, 64, 65, 200; groupsizes
 * ``--bits OLD NEW``: the outputs of the kernels that share the tensor-core
   GEMV header (a K3 and a K7 step with the new rows they write, K5 on each
   cache format with its cache row and scales, K9 with its cache row; pos
-  255 and 1000) and of those that share the prefill ring's primitives (K2
-  and K8 at M 256, 16 and 32 on the qkv and w2 shapes) on the same seeded
-  inputs, each tree in its own process, compared bit for bit: one line a
-  case, exit 1 on any difference.
+  255 and 1000), of those that share the prefill ring's primitives (K2 and
+  K8 at M 256, 16 and 32 on the qkv and w2 shapes), and of those on the
+  ring of tensor-core tiles or K12/K13's GEMV (K12, K13 and K11 at M 2, 16,
+  32 and 256 on the qkv and w2 shapes; K11's M 2 on the decode GEMV) on the
+  same seeded inputs, each tree in its own process, compared bit for bit:
+  one line a case, exit 1 on any difference but in the cases named by
+  ``--changed`` (prefixes, e.g. ``K11``: a kernel the NEW tree redesigns).
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -53,6 +60,10 @@ GROUPED_SHAPES = ((2048, 6144), (2048, 2048), (2048, 5632), (2048, 5632), (5632,
 # K12/K13 single projections (M, K, N, groupsize): the ring's other row counts and groupsizes of the card tests
 GROUPED_CASES = ((9, 2048, 6144, 128), (64, 2048, 6144, 128), (65, 2048, 2048, 128), (200, 2048, 6144, 128),
                  (2, 2048, 2048, 8), (2, 1152, 2048, 24), (8, 1152, 2048, 24))
+PLAIN8_M = (2, 16, 32, 256)  # K11: a decode step of the CFG pair, the spec verify and batched CFG rows, prefill
+# K11 single projections (M, K, N): its card tests' other row counts and an N off the GEMV's 64-column grid
+PLAIN8_CASES = ((1, 2048, 6144), (8, 5632, 2048), (9, 2048, 6144), (64, 2048, 6144), (65, 2048, 2048),
+                (200, 2048, 6144), (600, 2048, 2048), (2, 2048, 2064), (32, 2048, 2064))
 
 
 def _setup(root: str):
@@ -155,9 +166,11 @@ def _layer_ms(torch, fn, n_layer: int, iters: int = 20) -> float:
 
 
 def _prefill_ms(torch) -> dict:
-    """K2 and K8: ms of one layer's five projections at each M of PREFILL_M,
-    each projection's time a call from a CUDA graph of its 8 weight sets in
-    turn (50 MB and more a shape, so the weights come from HBM)."""
+    """K2, K8, K12 and K13: ms of one layer's five projections at each M of
+    PREFILL_M, K11 at each of PLAIN8_M, each projection's time a call from a
+    CUDA graph of its 8 weight sets in turn (50 MB and more a shape, so the
+    weights come from HBM); and the single projections of GROUPED_CASES and
+    PLAIN8_CASES."""
     from metavoice_tpu_torch.ops import quantized as Q
 
     dev = torch.device("cuda")
@@ -192,6 +205,21 @@ def _prefill_ms(torch) -> dict:
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             out[f"{label} M{m} {k}x{n} g{gs}"] = _layer_ms(torch, lambda i: call(x, *mats[i], gs), len(mats))
             del mats
+    total = dict.fromkeys(PLAIN8_M, 0.0)
+    xs = {(m, k): torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+          for m in PLAIN8_M for k in (2048, 5632)}
+    for k, n in GROUPED_SHAPES:
+        mats = [Q.quantize_int8(torch.randn((k, n), generator=gen, device=dev) * 0.02) for _ in range(8)]
+        for m in PLAIN8_M:
+            x = xs[(m, k)]
+            total[m] += _layer_ms(torch, lambda i: Q.matmul_int8(x, *mats[i]), len(mats))
+        del mats
+    out.update({f"K11 M{m}": ms for m, ms in total.items()})
+    for m, k, n in PLAIN8_CASES:
+        mats = [Q.quantize_int8(torch.randn((k, n), generator=gen, device=dev) * 0.02) for _ in range(8)]
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        out[f"K11 M{m} {k}x{n}"] = _layer_ms(torch, lambda i: Q.matmul_int8(x, *mats[i]), len(mats))
+        del mats
     return out
 
 
@@ -202,8 +230,8 @@ def _grouped(torch, Q, k: int, n: int, gs: int, packed: bool, gen, dev):
 
 
 def time_tree(root: str) -> dict:
-    """K2, K8, K12 and K13 (ms of a layer's five projections; K12 and K13 also
-    single projections), K5, K9, K6 and K10 (ms a layer) of the tree at
+    """K2, K8, K11, K12 and K13 (ms of a layer's five projections; K11, K12
+    and K13 also single projections), K5, K9, K6 and K10 (ms a layer) of the tree at
     ``root`` (its package and kernels), from CUDA graphs."""
     torch = _setup(root)
     prefill = _prefill_ms(torch)
@@ -288,6 +316,19 @@ def save_outputs(root: str, path: str):
             for m in PREFILL_M:
                 xm = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
                 out[f"{label} M{m} {k}x{n}"] = [xm, call(xm, *packed)]
+    for label in ("K11", "K12", "K13"):
+        for k, n in ((2048, 6144), (5632, 2048)):
+            w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+            if label == "K11":
+                mats = Q.quantize_int8(w)
+                call = Q.matmul_int8
+            else:
+                q, sc, z = Q.quantize_int4_grouped(w)
+                mats = (Q.pack_int4(q) if label == "K13" else q, sc, z)
+                call = Q.matmul_int4_packed if label == "K13" else Q.matmul_int4
+            for m in (2, *PREFILL_M):
+                xm = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+                out[f"{label} M{m} {k}x{n}"] = [xm, call(xm, *mats)]
     l8 = Q.quantize_params_int8(params)["layers"]
     for pos in (255, 1000):
         kv = cache("bf16", pos + 9)
@@ -297,8 +338,9 @@ def save_outputs(root: str, path: str):
     torch.save({k: [t.cpu() for t in v] for k, v in out.items()}, path)
 
 
-def compare_bits(old: str, new: str, tmp: str) -> bool:
-    """--bits: each tree's outputs saved by its own process, then compared."""
+def compare_bits(old: str, new: str, tmp: str, changed: tuple = ()) -> bool:
+    """--bits: each tree's outputs saved by its own process, then compared;
+    whether every case but those named by a prefix in ``changed`` agrees."""
     paths = []
     for i, root in enumerate((old, new)):
         paths.append(os.path.join(tmp, f"bits_{i}.pt"))
@@ -314,8 +356,10 @@ def compare_bits(old: str, new: str, tmp: str) -> bool:
         same = len(a[name]) == len(b.get(name, ())) and all(
             torch.equal(s.reshape(-1).view(torch.uint8), t.reshape(-1).view(torch.uint8))
             for s, t in zip(a[name], b[name]))
-        same_all &= same
-        print(f"{name}: {'bit for bit' if same else 'DIFFERS'} ({len(a[name])} tensors)", flush=True)
+        expected = name.startswith(changed)
+        same_all &= same or expected
+        print(f"{name}: {'bit for bit' if same else 'DIFFERS'} ({len(a[name])} tensors)"
+              + (" (a redesigned kernel: not counted)" if expected and not same else ""), flush=True)
     return same_all
 
 
@@ -324,6 +368,7 @@ def main() -> int:
     ap.add_argument("--trees", nargs=2, metavar=("OLD", "NEW"))
     ap.add_argument("--breakdown", action="store_true")
     ap.add_argument("--bits", nargs=2, metavar=("OLD", "NEW"))
+    ap.add_argument("--changed", default="", help="--bits: comma-separated case prefixes NEW is meant to change")
     ap.add_argument("--one", metavar="ROOT", help=argparse.SUPPRESS)  # a child of --trees
     ap.add_argument("--save", nargs=2, metavar=("ROOT", "PATH"), help=argparse.SUPPRESS)  # a child of --bits
     args = ap.parse_args()
@@ -348,7 +393,7 @@ def main() -> int:
         print(json.dumps(breakdown()), flush=True)
     if args.bits:
         with tempfile.TemporaryDirectory() as tmp:
-            if not compare_bits(*args.bits, tmp):
+            if not compare_bits(*args.bits, tmp, tuple(c for c in args.changed.split(",") if c)):
                 return 1
     return 0
 

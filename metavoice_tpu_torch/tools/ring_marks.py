@@ -1,6 +1,6 @@
-"""Where a call of K12's and K13's ring of tensor-core tiles
-(``int4g_ring_kernel``) spends its time, from timer marks in an experiment
-build. Needs a CUDA card and nvcc.
+"""Where a call of the ring of tensor-core tiles (``int4g_ring_kernel``,
+``csrc/matmul_ring.cuh``: K11's, K12's and K13's above 8 rows) spends its
+time, from timer marks in an experiment build. Needs a CUDA card and nvcc.
 
     python3 -m metavoice_tpu_torch.tools.ring_marks
 
@@ -11,13 +11,14 @@ the consumers' loop ends, the partial's write and the merge's end; SM
 cycles by ``clock64()`` summed over a block's steps: producer warp 0's
 wait for the step's copies, its conversion up to its arrival, its copy
 issue for a step ahead with the wait for the slot; consumer warp 0's wait
-for a step and its products), builds ``matmul_int4_grouped.cu`` alone,
-loads it in place of the repository's library, and runs one call of each
-main-path projection at M 256 and 16 (and qkv at M 64) after three warm
-ones. One line a call: its plan, the blocks' median loop, epilogue and end
-times (ns from each block's start), the merging blocks' end, and the
-median cycles a step of each phase. The marks change nothing else in the
-kernel; a patch that no longer finds its place in the source raises.
+for a step and its products), builds ``matmul_int4_grouped.cu`` and
+``matmul_int8.cu`` alone, loads them in place of the repository's library,
+and runs one call of each main-path projection at M 256 and 16 (and qkv at
+M 64) after three warm ones. One line a call: its plan, the blocks' median
+loop, epilogue and end times (ns from each block's start), the merging
+blocks' end, and the median cycles a step of each phase. The marks change
+nothing else in the kernel; a patch that no longer finds its place in the
+source raises.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import re
 import shutil
 import subprocess
 import time
+import types
 
 import numpy as np
 import torch
@@ -36,9 +38,11 @@ from metavoice_tpu_torch.ops import quantized as Q
 
 N_BLOCKS = 4096  # blocks a call the marks hold
 N_MARKS = 16
-CALLS = ((False, 256, 2048, 6144), (False, 256, 2048, 2048), (False, 256, 2048, 5632), (False, 256, 5632, 2048),
-         (True, 256, 2048, 6144), (False, 16, 2048, 6144), (False, 16, 5632, 2048), (True, 16, 2048, 6144),
-         (False, 64, 2048, 6144))
+CALLS = (("K12", 256, 2048, 6144), ("K12", 256, 2048, 2048), ("K12", 256, 2048, 5632), ("K12", 256, 5632, 2048),
+         ("K13", 256, 2048, 6144), ("K12", 16, 2048, 6144), ("K12", 16, 5632, 2048), ("K13", 16, 2048, 6144),
+         ("K12", 64, 2048, 6144), ("K11", 256, 2048, 6144), ("K11", 256, 2048, 2048), ("K11", 256, 2048, 5632),
+         ("K11", 256, 5632, 2048), ("K11", 16, 2048, 6144), ("K11", 16, 5632, 2048), ("K11", 64, 2048, 6144))
+SOURCES = {"mv_matmul_int4_grouped": "matmul_int4_grouped.cu", "mv_matmul_int8": "matmul_int8.cu"}
 
 
 def _sub(text: str, old: str, new: str) -> str:
@@ -48,6 +52,7 @@ def _sub(text: str, old: str, new: str) -> str:
 
 
 def _patch(src) -> str:
+    """The ring header's text with the marks."""
     c = src.read_text()
     c = _sub(c, '#include "prefill_ring.cuh"\n', '#include "prefill_ring.cuh"\n'
              f"__device__ unsigned long long rg_marks[{N_BLOCKS}][{N_MARKS}];\n"
@@ -85,36 +90,47 @@ def _patch(src) -> str:
              "    return;\n  }\n  if (tid == 0) mk[12] = 1;\n")
     c = _sub(c, "  if (tid == 0) a.tickets[tile] = 0;\n}\n",
              "  if (tid == 0) a.tickets[tile] = 0, mk[4] = rg_time() - t_start;\n}\n")
-    c += ("\nextern \"C\" int mv_ring_marks(void* host) {\n"
-          "  return (int)cudaMemcpyFromSymbol(host, rg_marks, sizeof(rg_marks));\n}\n"
-          "extern \"C\" int mv_ring_marks_clear() {\n"
-          "  static unsigned long long zero[sizeof(rg_marks) / sizeof(unsigned long long)];\n"
-          "  return (int)cudaMemcpyToSymbol(rg_marks, zero, sizeof(rg_marks));\n}\n")
     return c
 
 
-def _build_marks() -> ctypes.CDLL:
+# the C entries that read and clear the marks, appended to each source built
+MARKS_ENTRIES = ("\nextern \"C\" int mv_ring_marks(void* host) {\n"
+                 "  return (int)cudaMemcpyFromSymbol(host, rg_marks, sizeof(rg_marks));\n}\n"
+                 "extern \"C\" int mv_ring_marks_clear() {\n"
+                 "  static unsigned long long zero[sizeof(rg_marks) / sizeof(unsigned long long)];\n"
+                 "  return (int)cudaMemcpyToSymbol(rg_marks, zero, sizeof(rg_marks));\n}\n")
+
+
+def _build_marks() -> dict:
+    """Both marked sources built, each into its own library (each its own
+    marks), loaded in place of the repository's -> entry name -> library."""
     src_dir = _build.BUILD_DIR / "ring_marks"
     shutil.rmtree(src_dir, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, src_dir)
-    src = src_dir / "matmul_int4_grouped.cu"
-    src.write_text(_patch(src))
-    so = src_dir / "libringmarks.so"
-    t0 = time.perf_counter()
-    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
-                         capture_output=True, text=True)
-    if out.returncode:
-        raise RuntimeError(out.stdout + out.stderr)
-    regs = sorted(set(re.findall(r"Used \d+ registers", out.stdout + out.stderr)))
-    print(f"marks build {time.perf_counter() - t0:.1f} s: {regs}")
-    lib = ctypes.CDLL(str(so))
+    header = src_dir / "matmul_ring.cuh"
+    header.write_text(_patch(header))
+    libs = {}
+    fns = {}
+    for entry, name in SOURCES.items():
+        src = src_dir / name
+        src.write_text(src.read_text() + MARKS_ENTRIES)
+        so = src_dir / f"libringmarks_{src.stem}.so"
+        t0 = time.perf_counter()
+        out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
+                             capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(out.stdout + out.stderr)
+        regs = sorted(set(re.findall(r"Used \d+ registers", out.stdout + out.stderr)))
+        print(f"marks build of {name} {time.perf_counter() - t0:.1f} s: {regs}")
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, entry)
+        fn.restype, fn.argtypes = _build._SIGNATURES[entry]
+        lib.mv_ring_marks.argtypes = [ctypes.c_void_p]
+        libs[entry], fns[entry] = lib, fn
     library = _build.KernelLibrary.__new__(_build.KernelLibrary)
-    library.lib = lib
-    fn = lib.mv_matmul_int4_grouped
-    fn.restype, fn.argtypes = _build._SIGNATURES["mv_matmul_int4_grouped"]
-    lib.mv_ring_marks.argtypes = [ctypes.c_void_p]
-    _build._loaded = library  # the wrapper now launches the marked kernel
-    return lib
+    library.lib = types.SimpleNamespace(**fns)
+    _build._loaded = library  # the wrappers now launch the marked kernels
+    return libs
 
 
 def main() -> int:
@@ -122,21 +138,28 @@ def main() -> int:
         raise SystemExit("ring_marks needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0], flush=True)
-    lib = _build_marks()
+    libs = _build_marks()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    for packed, m, k, n in CALLS:
-        q, s, z = Q.quantize_int4_grouped(torch.randn((k, n), generator=gen, device=dev) * 0.02)
-        w = Q.pack_int4(q) if packed else q
+    for kernel, m, k, n in CALLS:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        fn = Q.matmul_int4_packed if packed else Q.matmul_int4
+        if kernel == "K11":
+            q, s = Q.quantize_int8(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+            call, lib = (lambda: Q.matmul_int8(x, q, s)), libs["mv_matmul_int8"]
+            bm, split_chunks, n_splits = Q.int8_tile_plan(m, k, n)
+        else:
+            packed = kernel == "K13"
+            q, s, z = Q.quantize_int4_grouped(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+            w = Q.pack_int4(q) if packed else q
+            fn = Q.matmul_int4_packed if packed else Q.matmul_int4
+            call, lib = (lambda: fn(x, w, s, z)), libs["mv_matmul_int4_grouped"]
+            bm, split_chunks, n_splits = Q.int4g_tile_plan(m, k, n, packed)
         for _ in range(3):
-            fn(x, w, s, z)
+            call()
         torch.cuda.synchronize()
         lib.mv_ring_marks_clear()
-        fn(x, w, s, z)
+        call()
         torch.cuda.synchronize()
-        bm, split_chunks, n_splits = Q.int4g_tile_plan(m, k, n, packed)
         blocks = -(-m // bm) * -(-n // Q.INT4G_RING_BN) * n_splits
         marks = np.zeros((N_BLOCKS, N_MARKS), np.uint64)
         if lib.mv_ring_marks(ctypes.c_void_p(marks.ctypes.data)):
@@ -148,7 +171,7 @@ def main() -> int:
         def per_step(col):
             return np.median(r[:, col] / steps)
 
-        print(f"{'K13' if packed else 'K12'} M {m} {k}x{n}: plan bm {bm}, {n_splits} splits of {split_chunks} staged "
+        print(f"{kernel} M {m} {k}x{n}: plan bm {bm}, {n_splits} splits of {split_chunks} staged "
               f"blocks, {blocks} blocks, {np.median(r[:, 11]):.0f} steps a block; ns from a block's start (medians): "
               f"producers' loop {np.median(r[:, 1]):.0f}, consumers' loop {np.median(r[:, 2]):.0f}, epilogue "
               f"{np.median(r[:, 3]):.0f}, end {np.median(r[:, 4]):.0f} (merging blocks "

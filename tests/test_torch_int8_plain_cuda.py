@@ -1,6 +1,11 @@
 """The plain-int8 kernels on the card against their plain PyTorch versions,
-at the main-path shapes: K11 (ops/quantized.matmul_int8) at M = 256 for one
-layer's projections and at M = 1, 2, 8, 200 and with f32 x; K9
+at the main-path shapes: K11 (ops/quantized.matmul_int8) at M = 2 (its
+tensor-core GEMV) and 256 (its ring of tensor-core tiles) for one layer's
+projections, at every M of 1-8, M 9, 16, 32, 64, 65, 200 and 600, N 16 and
+2064, K 5632, with bf16 and f32 x, every int8 value bit for bit on both
+routes, two calls the same bits and a graph of one call (one kernel)
+replayed 3 times to the eager bits at M 2, 16 and 256, a capture before any
+eager call raising, and an unaligned or strided weight refused; K9
 (ops/attention.decode_attention_block_int8; 24 stacked layers, D 2048, 16
 heads, B = 2, S 2048, bf16 cache) at pos 0, 77, 255 and 2047, with a start
 past pos and with NaN past pos, and one call captured in a CUDA graph (3
@@ -26,8 +31,10 @@ within 1e-2 of max |y|.
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import (FFN_KERNELS, FFN_LAYERS, K9_POS, _k9_args, _k10_args, _kv_cache, _random_int8_plain_model,
-                        block_graph_check, capture_first_raises, k9_case, k10_case, k10_own_scales_case, k11_case)
+                        block_graph_check, capture_first_raises, k9_case, k10_case, k10_own_scales_case, k11_call,
+                        k11_case, k11_exact_case, k11_graph_check)
 from metavoice_tpu_torch.core.config import first_stage_config
 from metavoice_tpu_torch.ops import attention as A
 from metavoice_tpu_torch.ops import decode_stack as DS
@@ -38,6 +45,10 @@ pytestmark = pytest.mark.cuda
 D, I_SZ = 2048, 5632
 K11_CASES = [(256, D, 3 * D), (256, D, D), (256, D, I_SZ), (256, I_SZ, D), (1, D, 3 * D), (2, D, D),
              (8, D, I_SZ), (200, D, 3 * D)]
+# the GEMV's main shapes at M 2, and chip_smoke's cases of both routes (every GEMV row count, the ring's row
+# tiles, 600 rows, N 16 and 2064, K 5632)
+K11_CASES += [(2, D, 3 * D), (2, D, I_SZ), (2, I_SZ, D)]
+K11_CASES += list(dict.fromkeys((m, k, n) for m, k, n, _ in chip_smoke.K11_CASES if (m, k, n) not in K11_CASES))
 # (pos, starts, garbage past pos)
 K9_CASES = [(p, None, None) for p in K9_POS] + [(255, (100, 300), None), (1000, None, float("nan"))]
 
@@ -63,6 +74,62 @@ def test_k11_matches_plain(dev, m, k, n, dtype):
     before = Q.matmul_int8.launches
     k11_case(torch, m, k, n, gen, dtype)
     assert Q.matmul_int8.launches == before + 1
+
+
+@pytest.mark.parametrize("rows", [8, 256], ids=["gemv", "ring"])
+def test_k11_gives_every_int8_value_exactly(dev, rows):
+    """One-hot rows of x, scales 1, f32 out: y is rows of q bit for bit,
+    across all 256 int8 values, on the route that ``rows`` takes."""
+    k11_exact_case(torch, rows)
+
+
+@pytest.mark.parametrize("m,k,n", [(2, D, 3 * D), (16, D, D), (256, D, D)])
+def test_k11_call_is_one_kernel_replayed_bit_for_bit(dev, m, k, n):
+    """Two calls give the same bits; one call captured in a CUDA graph is one
+    kernel and replays 3 times to the eager bits, the merge counters back at
+    0 (each shape's cut splits K, so the merge is on the path)."""
+    route, cut = Q.int8_route(m, k, n)
+    assert cut[1 if route == "gemv" else 2] > 1
+    name = k11_graph_check(torch, k11_call(torch, m, k, n, 60 + m), f"K11 at M {m}")
+    assert name == ("stack_gemv" if route == "gemv" else "int4g_ring_kernel")
+
+
+@pytest.mark.parametrize("m", [2, 256], ids=["gemv", "ring"])
+def test_k11_capture_before_any_eager_call_raises(dev, monkeypatch, m):
+    """Each route takes its merge counters on every call: a capture that
+    would have to make them raises; after an eager call the same call
+    captures and replays."""
+    monkeypatch.setattr(DS, "_stack_tickets", {})
+    monkeypatch.setattr(Q, "_int4g_tickets", {})
+    call = k11_call(torch, m, D, D, 70 + m)
+    capture_first_raises(torch, call, f"K11 at M {m}", tables=((DS, "_stack_tickets"), (Q, "_int4g_tickets")))
+    assert not DS._stack_tickets and not Q._int4g_tickets
+    k11_graph_check(torch, call, f"K11 at M {m}, warmed after a refused capture")
+
+
+def test_k11_counts_its_gemv_launches(dev):
+    x2, x16 = (torch.zeros((m, D), dtype=torch.bfloat16, device=dev) for m in (2, 16))
+    q, s = Q.quantize_int8(torch.randn((D, D), device=dev))
+    launches, gemv = Q.matmul_int8.launches, Q.matmul_int8.gemv_launches
+    Q.matmul_int8(x2, q, s)
+    Q.matmul_int8(x16, q, s)
+    assert (Q.matmul_int8.launches, Q.matmul_int8.gemv_launches) == (launches + 2, gemv + 1)
+
+
+def test_k11_refuses_an_unaligned_or_strided_weight(dev):
+    """The kernel reads q and the scales where they lie (tensor maps, 16-byte
+    copies): a q one byte off a 16-byte boundary, or a strided one, raises;
+    nothing is copied and nothing launches."""
+    q, s = Q.quantize_int8(torch.randn((D, D), device=dev))
+    x = torch.zeros((16, D), dtype=torch.bfloat16, device=dev)
+    off = torch.empty(D * D + 1, dtype=torch.int8, device=dev)[1:].view(D, D)
+    off.copy_(q)
+    before = Q.matmul_int8.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        Q.matmul_int8(x, off, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.matmul_int8(x, torch.cat([q, q], dim=1)[:, :D], s)
+    assert Q.matmul_int8.launches == before
 
 
 @pytest.mark.parametrize("pos,starts,garbage", K9_CASES)
