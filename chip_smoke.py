@@ -205,8 +205,56 @@ Phases, one line each; any failure exits non-zero and prints no result:
                on the card (K2 for every projection, K1) against the CPU
                path on the same weights and cache: logits within 5e-2 max
                |ref|, K2 == 5 x n_layer and K1 == n_layer launches.
+ 36. batch-bf16 - full-width bf16 first_stage.generate_batch of 4 ragged
+               prompts (17, 53, 90, 128 tokens in one 128 bucket; 8 cache
+               rows, per-row windows), 96 new tokens a row at temperature 1,
+               top-p 1 on injected Gumbel noise, timed twice: K1 == n_layer
+               x decode steps, every other kernel 0; ms a step and tokens/s
+               of both runs. A third run keeps its logits and a copy of
+               every kernel call's arguments at the prefill, the first
+               decode step and the last; each kept call is held against its
+               plain version at the kernel's own tolerance, the attention
+               kernels' also moved to the cache's last slots (the same
+               ragged starts over the longest window); each row's tokens
+               are those of the same call on the plain path on the card
+               (every kernel wrapper swapped for its plain version, no
+               launch), or part at a step where the rounding reorders two
+               close scores (the logits of both runs up to that step within
+               the route's BATCH_LOGIT_TOL of max |ref|); each row those of
+               its prompt generated alone (the same rule);
+ 37. batch-int4 - phase 36 with int4 weights at B 4 (K2 prefill at M 1024,
+               K3 with ragged starts) and B 8 (16 rows: K2 at M 2048, then
+               the unfused route, K2 at M 16 + K1 a step); B 4's rows also
+               alone (B 8's alone take the stack, another head); K3 at 8
+               rows with the ragged starts against its plain version (one
+               layer at a time and the stack) and timed from a CUDA graph;
+               K2 at M 1024 and 2048 against its plain version and timed;
+ 38. batch-routes - one 2-layer full-width first stage a route: int8 (K8,
+               K7), int4 on the int8 and on the packed cache (K2, K5, K6),
+               int8_plain (K11, K9, K10), groupwise int4 and packed (K12 /
+               K13 + K1), GQA (K4), each generate_batch at B 4 and B 8 (32
+               new tokens) as in phase 36; K7 at 8 rows with ragged starts,
+               K8 and K11 at M 1024 and 2048, as in phase 37;
+ 39. streaming - full-width int4 TTS.synthesise_streaming (192 tokens a chunk
+               at most): the seconds to the first yielded chunk and to the
+               end; one finite float32 chunk for each segment that holds
+               audio tokens, of its frames' samples; K3 == decode steps and
+               K2 == 5 x n_layer; generate_segments joined equal to
+               generate under the same noise; the port's one render (the
+               second stage + vocoder on the device) and the two-call
+               render (the codes on the host between them) on the same
+               draws within TWO_CALL_TOL;
+ 40. get_tokens - TTS.get_tokens of a seeded 24 kHz wav on the card: (8,
+               frames) codes in [0, 1024); the latent within
+               ENCODE_LATENT_TOL of the port's on the CPU, the codes equal
+               but where the CPU's two nearest codewords lie within
+               ENCODE_GAP of each other;
+ 41. warmup  - a fresh process: a full-width int4 TTS, TTS.warmup timed with
+               the kernel library's load apart, then two synthesises that
+               build nothing (the same library, no new file in its build
+               directory).
 
-Phases 5, 9, 14, 18, 19, 20, 24, 29, 33 and 34 are the main paths: every kernel count is
+Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34 and 36-39 are the main paths: every kernel count is
 set to 0 just before each and read just after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
@@ -215,6 +263,7 @@ throughout, so every comparison is f32. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -300,6 +349,41 @@ K12_DECODE_M = 2  # decode rows: the CFG pair; the JSON line carries this M
 K12_TIMED_M = (K12_DECODE_M, 16, 32, K2_M)  # decode, the spec verify and batched CFG rows, prefill
 KV_FORMATS = ("bf16", "int8", "int8_packed")
 SYNTH_TEXT = "The quick brown fox jumps over the lazy dog, twice."
+# phases 36-38: ragged prompts in one 128 bucket (B 4 takes the first four),
+# Gumbel draws at temperature 1 and top-p 1, speaker guidance 3
+BATCH_PROMPT_LENS = (17, 53, 90, 128, 5, 33, 64, 111)
+BATCH_NEW = 96  # new tokens a row in phases 36 and 37
+ROUTE_NEW = 32  # and in phase 38
+BATCH_GUIDANCE = 3.0
+# two runs of a row on the same draws (kernels against the plain path, or in
+# a batch against alone) see the same inputs up to the first step where
+# their tokens part; until there their logits differ by the rounding drift
+# of the route's layers, which grows over the steps through the cache rows
+# each run writes. Each route's limit is 1.5 times the largest gap these
+# phases measured on an NVIDIA H100 80GB HBM3 at a 700 W limit, at B 4 and
+# B 8 and, where held, a row alone against in a batch:
+# bf16 24 layers 0.0296, int4 24 layers 0.0968 (a row alone; 0.0776 against
+# the plain path), int8 2 layers 0.0727, int4 on an int8 or packed cache
+# 0.0364, int8_plain 0.0083, groupwise int4 0.0082 and packed 0.0093, GQA
+# 0.0099. The int4-in-int32 and int8-in-int32 routes drift furthest: their
+# c terms take back about 128 s bf16(sum x), so a sum that rounds one ulp
+# apart moves a product by |c| ulp (k8_row_gap). Each kernel is also held
+# alone on the run's own calls (captured_calls, hold_captured) at its own
+# tolerance. A decode that ignores the padding moves a padded row's logits
+# past the largest limit even on a 2-layer, 64-wide model
+# (tests/test_torch_batched_generation.py
+# test_chip_row_check_catches_a_window_fault).
+BATCH_LOGIT_TOL = {"bf16": 0.045, "int4": 0.15, "int8": 0.11, "int4, int8 cache": 0.055,
+                   "int4, packed cache": 0.055, "int8_plain": 0.015, "groupwise int4": 0.015,
+                   "groupwise int4 packed": 0.015, "GQA bf16": 0.015}
+BATCH_PREFILL_M = (1024, 2048)  # the prefill rows of B 4 and B 8: 2B x 128
+STREAM_NEW = 192  # phase 39's first-stage tokens a chunk, as the synthesise phases
+TWO_CALL_TOL = 2e-3  # the fused and the two-call wav (the JAX package's own test's tolerance)
+# phase 40: the full-width encoder in f32 (TF32 off) on the card and the CPU
+# sums in other orders; a frame's codes may part only where the CPU's two
+# nearest codewords score within ENCODE_GAP of each other (relative)
+ENCODE_LATENT_TOL = 1e-4
+ENCODE_GAP = 1e-4
 # H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
@@ -337,6 +421,7 @@ def phase_build():
     n_src = len(list(_build.CSRC_DIR.glob("*.cu")))
     print(f"[2 build] {lib.build_seconds:.2f} s: {n_src} nvcc compiles at once + link -> "
           f"{lib.path.name}; ptxas: {regs}")
+    return lib.build_seconds
 
 
 def _k1_inputs(torch, gen, dev, pos=None, garbage=None):
@@ -505,6 +590,14 @@ def to_cuda(node):
     if isinstance(node, list):
         return [to_cuda(v) for v in node]
     return node.cuda()
+
+
+def to_cpu(node):
+    if isinstance(node, dict):
+        return {k: to_cpu(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [to_cpu(v) for v in node]
+    return node.cpu()
 
 
 def phase_small(torch):
@@ -2848,6 +2941,737 @@ def phase_synth_int4g(torch, workdir: str, ref: str, packed: bool, compared: dic
         print(f"[{label}]{extra}")
     return run
 
+# ---------------------------------------------------------------- phases 36-41: ragged batches and streaming
+
+
+# the kernel wrappers models/transformer calls, each with its kernel (K1 on
+# a GQA model is K4, the decode stack on int8 words K7)
+KERNEL_OF = {"decode_attention": "K1", "matmul_int4_i32": "K2", "decode_stack_int4": "K3",
+             "decode_attention_multi": "K4", "decode_attention_block_int4": "K5", "decode_ffn_int4": "K6",
+             "matmul_int8_i32": "K8", "decode_attention_block_int8": "K9", "ffn_int8": "K10", "matmul_int8": "K11",
+             "matmul_int4": "K12", "matmul_int4_packed": "K13"}
+# each kernel's tolerance as a share of max |ref| (K3/K7 and K8 have rules of their own)
+KERNEL_TOL = {"K1": K1_TOL, "K2": K2_TOL, "K4": K4_TOL, "K5": K5_TOL, "K6": K6_TOL, "K9": K9_TOL,
+              "K10": K10_TOL, "K11": K11_TOL, "K12": K12_TOL, "K13": K12_TOL}
+# the attention wrappers: the index of pos in their arguments (the caches sit 3 before it)
+POS_ARG = {"decode_attention": 6, "decode_attention_multi": 6, "decode_attention_block_int4": 8,
+           "decode_attention_block_int8": 8}
+
+
+def plain_versions() -> dict:
+    """Each wrapper of KERNEL_OF -> its plain version, which takes the
+    card's tensors as it takes the CPU's."""
+    from metavoice_tpu_torch.ops import attention as A
+    from metavoice_tpu_torch.ops import decode_stack as DS
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    def decode_attention(q, k_new, v_new, kc, vc, layer, pos, starts=None):
+        if k_new.shape[1] != q.shape[1]:  # GQA: K4's plain version at T = 1, as the wrapper routes it
+            y, kc, vc = A.decode_attention_multi_reference(q[:, :, None], k_new[:, :, None], v_new[:, :, None],
+                                                           kc, vc, layer, pos, starts)
+            return y[:, :, 0], kc, vc
+        return A.decode_attention_reference(q, k_new, v_new, kc, vc, layer, pos, starts)
+
+    mods = {name: mod for mod, names in ((A, ("decode_attention_multi", "decode_attention_block_int4",
+                                              "decode_attention_block_int8")),
+                                         (DS, ("decode_stack_int4",)),
+                                         (Q, ("decode_ffn_int4", "ffn_int8", "matmul_int4", "matmul_int4_i32",
+                                              "matmul_int4_packed", "matmul_int8", "matmul_int8_i32")))
+            for name in names}
+    return {"decode_attention": decode_attention} | {name: getattr(mod, f"{name}_reference")
+                                                     for name, mod in mods.items()}
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Every kernel wrapper the block stack calls swapped for its plain
+    version: the CPU path's math on the card, no kernel launched."""
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    plain = plain_versions()
+    saved = {name: getattr(tfm, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(tfm, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(tfm, name, fn)
+
+
+@contextlib.contextmanager
+def captured_calls(torch, steps, step):
+    """Every kernel wrapper the block stack calls, wrapped to keep a copy of
+    the arguments of its first call of each shape at the decode steps
+    ``steps`` (``step()`` gives the current one; 0 is the prefill) -> a list
+    of (name, the wrapper, args, kwargs, step). The calls themselves run as
+    they would."""
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    kept, seen = [], set()
+
+    def copy(a):
+        return a.clone() if torch.is_tensor(a) else a
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            s = step()
+            key = (name, s, tuple(tuple(a.shape) for a in args if torch.is_tensor(a)))
+            if s in steps and key not in seen:
+                seen.add(key)
+                kept.append((name, fn, [copy(a) for a in args], {k: copy(v) for k, v in kw.items()}, s))
+            return fn(*args, **kw)
+        return call
+
+    saved = {name: getattr(tfm, name) for name in KERNEL_OF}
+    for name, fn in saved.items():
+        setattr(tfm, name, wrap(name, fn))
+    try:
+        yield kept
+    finally:
+        for name, fn in saved.items():
+            setattr(tfm, name, fn)
+
+
+def held_call(torch, name: str, fn, args: list, kw: dict, what: str) -> tuple[str, float]:
+    """One call of wrapper ``name`` (``fn``) and its plain version on the
+    same arguments -> (the kernel, its gap as a share of max |ref|); fails
+    past the kernel's own rule: K3/K7 one layer at a time within
+    K3_LAYER_TOL (each layer fed the plain version's residual stream; the
+    fused head left out) and the whole stack, head included, within K3_TOL;
+    K8 by k8_row_gap within K8_TOL; K11-K13 every element within their
+    tolerance of max |ref| plus one bf16 ulp of a bf16 element; any other
+    within KERNEL_TOL. Each call writes its new cache row before it reads
+    it, so the kernel and the plain version see the same window."""
+    plain = plain_versions()[name]
+    kernel = KERNEL_OF[name]
+    if name == "decode_attention" and args[1].shape[1] != args[0].shape[1]:
+        kernel = "K4"
+    if name == "decode_stack_int4":
+        kernel = "K7" if kw.get("wfmt") == "i8" else "K3"
+        layer_kw = {k: v for k, v in kw.items() if k not in ("ln_f_w", "head_pw", "head_sc")}
+        kc, vc = args[13], args[14]
+        worst = stack_worst_layer(torch, args[0], args[1:13], kc, vc, *args[15:], **layer_kw)
+        got = fn(*args[:13], kc.clone(), vc.clone(), *args[15:], **kw)
+        ref = plain(*args[:13], kc.clone(), vc.clone(), *args[15:], **kw)
+        outs = [0, 3] if len(got) > 3 else [0]
+        whole = max((got[i].float() - ref[i].float()).abs().max().item() / ref[i].float().abs().max().item()
+                    for i in outs)
+        if not (worst <= K3_LAYER_TOL and whole <= K3_TOL and all(torch.isfinite(got[i]).all() for i in outs)):
+            fail(f"{what}: {kernel} at {args[0].shape[0]} rows: {worst:.3g} one layer at a time (tol "
+                 f"{K3_LAYER_TOL}), {whole:.3g} over the stack (tol {K3_TOL}) of max |ref|")
+        return kernel, worst
+    got, ref = fn(*args, **kw), plain(*args, **kw)
+    y, r = (got[0], ref[0]) if isinstance(got, tuple) else (got, ref)
+    y, top = y.float(), r.float().abs().max().item()
+    if kernel == "K8":
+        gap = k8_row_gap(torch, y, r.float(), args[0], args[2])
+        ok = gap <= K8_TOL
+    elif kernel in ("K11", "K12", "K13"):
+        d = (y - r.float()).abs()
+        ulp = _bf16_ulp(torch, r) if r.dtype == torch.bfloat16 else torch.zeros_like(d)
+        ok, gap = bool((d <= KERNEL_TOL[kernel] * top + ulp).all()), d.max().item() / top
+    else:
+        gap = (y - r.float()).abs().max().item() / top
+        ok = gap <= KERNEL_TOL[kernel]
+    if not (ok and torch.isfinite(y).all()):
+        fail(f"{what}: {kernel} ({name}) at {tuple(y.shape)} disagrees with its plain version: {gap:.3g} of max "
+             f"|ref| (tol {KERNEL_TOL.get(kernel, K8_TOL)})")
+    return kernel, gap
+
+
+def hold_captured(torch, label: str, kept: list, counts: dict) -> str:
+    """Each call captured_calls kept, held by held_call; the attention
+    kernels' calls also moved to the cache's last slots (the same rows,
+    ragged starts and inputs over the longest window, which takes the most
+    splits). Fails unless every kernel the run launched (``counts``) was
+    held. -> what was seen."""
+    worst, moved, calls = {}, {}, {}
+    with torch.inference_mode():
+        for name, fn, args, kw, step in kept:
+            what = f"{label}, step {step}"
+            kernel, gap = held_call(torch, name, fn, args, kw, what)
+            worst[kernel] = max(worst.get(kernel, 0.0), gap)
+            calls[kernel] = calls.get(kernel, 0) + 1
+            i = POS_ARG.get(name)
+            if i is None:
+                continue
+            kc, t = args[i - 3], (args[0].shape[2] if name == "decode_attention_multi" else 1)
+            last = kc.shape[1] * (4 if kc.dtype == torch.int32 else 1) - t  # a packed cache: 4 slots a word
+            if last > args[i]:
+                _, gap = held_call(torch, name, fn, args[:i] + [last] + args[i + 1 :], kw,
+                                   f"{what} moved to pos {last}")
+                moved[kernel] = max(moved.get(kernel, 0.0), gap)
+    launched = {"K" + key[1:].split("_")[0] for key, n in counts.items() if n}
+    if launched - set(worst):
+        fail(f"{label}: no call of {sorted(launched - set(worst))} was held against its plain version")
+    return ", ".join(f"{k} {calls[k]} calls within {worst[k]:.3g}" + (f" (at the last slots {moved[k]:.3g})"
+                                                                        if k in moved else "")
+                     for k in sorted(worst, key=lambda k: int(k[1:])))
+
+
+@contextlib.contextmanager
+def recorded_logits():
+    """first_stage.sample_guided wrapped to keep the f32 logits of each of
+    its calls, in call order (call i draws every row's i-th token)."""
+    from metavoice_tpu_torch.models import first_stage as fs
+
+    seen, sample = [], fs.sample_guided
+
+    def record(logits, *args, **kw):
+        seen.append(logits.float().clone())
+        return sample(logits, *args, **kw)
+
+    fs.sample_guided = record
+    try:
+        yield seen
+    finally:
+        fs.sample_guided = sample
+
+
+def _row_logits(logits, row: int, b: int):
+    """The (2, V) logits of batch row ``row``'s CFG pair (rows row and b + row)."""
+    return logits[[row, b + row]]
+
+
+def rows_agree(torch, label: str, a, c, logits_a, logits_c, tol: float) -> tuple[str, float]:
+    """Two runs' tokens of one row (a: the reference run) under the same
+    Gumbel draws. Up to the first step where the tokens part, both runs saw
+    the same inputs, so their logits may differ only by rounding: at every
+    step up to and including it, the row's two cache rows' logits
+    (logits_x(i), (2, V)) must agree within ``tol`` of max |ref| (the
+    route's BATCH_LOGIT_TOL);
+    the tokens may then part where the rounding reorders two close scores.
+    -> (what was seen, the largest gap); fails otherwise."""
+    n = min(len(a), len(c))
+    part = next((i for i in range(n) if a[i] != c[i]), None)
+    if part is None and len(a) != len(c):
+        fail(f"{label}: one run ended (EOA) before the other: {len(c)} vs {len(a)} tokens")
+    worst = 0.0
+    for i in range(n if part is None else part + 1):
+        ref = logits_a(i)
+        gap = (logits_c(i) - ref).abs().max().item() / ref.abs().max().item()
+        if not gap <= tol:
+            fail(f"{label}: at step {i}, before the tokens part, the logits differ by {gap:.4g} of max |ref| "
+                 f"(tol {tol})")
+        worst = max(worst, gap)
+    return ("same" if part is None else f"parts at step {part} ({a[part]} vs {c[part]})"), worst
+
+
+def _zero_counts():
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+
+
+def batch_case(torch, label: str, route: str, params, cfg, b: int, n_new: int, want, *, cache_dtype=None,
+               isolation: bool = False, seed: int = 0) -> dict:
+    """``generate_batch`` of the first b prompts of BATCH_PROMPT_LENS (one
+    128 bucket) on the card, timed twice; every count set to 0 just before
+    the first and read just after: the counts equal want(decode steps)
+    (every other kernel 0; want None: not checked). A third run on the same
+    Gumbel noise keeps each step's logits and a copy of the arguments of
+    every kernel call at the prefill, the first decode step and the last
+    (captured_calls); the same call on the plain path (no launch) agrees
+    with it row by row within the route's BATCH_LOGIT_TOL (rows_agree);
+    with ``isolation``, so does each row's prompt generated alone
+    (``generate``); each kept call is held against its plain version
+    (hold_captured). -> {"ms_step" (the two timed runs), "tok_s",
+    "prefill_ms", "steps", "counts", "text"}."""
+    from metavoice_tpu_torch.core import sampling as S
+    from metavoice_tpu_torch.models import first_stage as fs
+
+    dev = params["wpe"].device
+    tol = BATCH_LOGIT_TOL[route]
+    gen = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist() for n in BATCH_PROMPT_LENS[:b]]
+    spk = torch.randn((b, 256), generator=gen).numpy()
+    noise = S.gumbel_noise((n_new, b, cfg.vocab_size), device="cpu", generator=gen).to(dev)
+    kw = dict(temperature=1.0, top_p=1.0, guidance_scale=BATCH_GUIDANCE, cache_dtype=cache_dtype)
+    fs.generate_batch(params, cfg, prompts, spk, max_new_tokens=1, noise=noise, **kw)  # the prefill alone
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fs.generate_batch(params, cfg, prompts, spk, max_new_tokens=1, noise=noise, **kw)
+    prefill_s = time.perf_counter() - t0
+    _zero_counts()
+    totals = []
+    for run in range(2):
+        stats = {}
+        t0 = time.perf_counter()
+        timed = fs.generate_batch(params, cfg, prompts, spk, max_new_tokens=n_new, noise=noise, stats=stats, **kw)
+        totals.append(time.perf_counter() - t0)
+        if run == 0:
+            counts = read_counts()
+    steps = stats["decode_steps"]
+    if want is not None:
+        expected = dict.fromkeys(counts, 0) | want(steps)
+        if steps == 0 or counts != expected:
+            fail(f"{label}: B {b} launched {counts}, expected {expected} ({steps} decode steps)")
+    with recorded_logits() as seen_k, captured_calls(torch, {0, 1, n_new - 1}, lambda: len(seen_k)) as kept:
+        toks = fs.generate_batch(params, cfg, prompts, spk, max_new_tokens=n_new, noise=noise, **kw)
+    before = read_counts()
+    with recorded_logits() as seen_p, plain_path():
+        plain = fs.generate_batch(params, cfg, prompts, spk, max_new_tokens=n_new, noise=noise, **kw)
+    if read_counts() != before:
+        fail(f"{label}: the plain path launched a kernel: {read_counts()} after {before}")
+    parted, gaps = [], []
+    for r in range(b):
+        seen, gap = rows_agree(torch, f"{label} B {b} row {r} (plain path vs kernels)", plain[r], toks[r],
+                               lambda i: _row_logits(seen_p[i], r, b), lambda i: _row_logits(seen_k[i], r, b), tol)
+        gaps.append(gap)
+        if seen != "same":
+            parted.append(f"row {r} {seen}")
+    alone, alone_gaps = [], []
+    if isolation:
+        for r in range(b):
+            with recorded_logits() as seen_1:
+                one = fs.generate(params, cfg, prompts[r], spk[r], max_new_tokens=n_new, noise=noise[:, r : r + 1],
+                                  **kw)[len(prompts[r]):]
+            seen, gap = rows_agree(torch, f"{label} B {b} row {r} (alone vs in the batch)", one, toks[r],
+                                   lambda i: seen_1[i], lambda i: _row_logits(seen_k[i], r, b), tol)
+            alone_gaps.append(gap)
+            if seen != "same":
+                alone.append(f"row {r} {seen}")
+    held = hold_captured(torch, f"{label} B {b}", kept, counts)
+    del kept
+    n_tok = sum(len(t) for t in timed)
+    ms_step = [1e3 * (t - prefill_s) / max(steps, 1) for t in totals]
+    tok_s = [n_tok / t for t in totals]
+    text = (f"B {b} ({2 * b} cache rows, prompts {list(BATCH_PROMPT_LENS[:b])}): {n_tok} tokens, {steps} decode "
+            f"steps in {totals[0]:.3f} s and {totals[1]:.3f} s (prefill {1e3 * prefill_s:.1f} ms, "
+            f"{ms_step[0]:.2f} and {ms_step[1]:.2f} ms a step, {tok_s[0]:.0f} and {tok_s[1]:.0f} tokens/s); "
+            f"launches {({k: v for k, v in counts.items() if v})}; held alone at the run's own calls: {held}; "
+            f"against the plain path: logits within {max(gaps):.3g} of max |ref| (tol {tol}) up to any parting, "
+            f"{'every row the same tokens' if not parted else ', '.join(parted)}")
+    if isolation:
+        text += (f"; each row alone: logits within {max(alone_gaps):.3g}, "
+                 f"{'the same tokens' if not alone else ', '.join(alone)}")
+    return {"ms_step": ms_step, "tok_s": tok_s, "prefill_ms": 1e3 * prefill_s, "steps": steps,
+            "counts": counts, "text": text}
+
+
+def phase_batch_bf16(torch) -> dict:
+    """36: full-width bf16 generate_batch of 4 ragged prompts, K1 with starts."""
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    cfg = first_stage_config()
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    params = tfm.init_params(cfg, device="cuda", generator=gen, dtype=torch.bfloat16)
+    run = batch_case(torch, "36 batch-bf16", "bf16", params, cfg, 4, BATCH_NEW,
+                     lambda s: {"k1_launches": cfg.n_layer * s}, isolation=True, seed=36)
+    print(f"[36 batch-bf16] {cfg.n_layer}L/{cfg.n_head}H/{cfg.dim}d, {BATCH_NEW} new tokens a row: {run['text']}")
+    return run
+
+
+def stack_batch_case(torch, label: str, qp, cfg, wfmt: str, args, rows: int = 8, pos: int = 255) -> str:
+    """K3 (wfmt "i4") or K7 ("i8") at the ragged batch's rows: starts = the
+    left pads of BATCH_PROMPT_LENS (both CFG groups), one layer at a time
+    within K3_LAYER_TOL of its plain version and the whole stack within
+    K3_TOL; a step's device time from a CUDA graph of 20 steps beside the
+    plain version's and the bound."""
+    from metavoice_tpu_torch.ops import decode_stack as DS
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    pads = [128 - n for n in BATCH_PROMPT_LENS[: rows // 2]] * 2
+    st = torch.tensor(pads, dtype=torch.int32, device=dev)
+    shape = (cfg.n_layer, cfg.block_size, rows, cfg.n_local_heads, cfg.head_dim)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((rows, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(n_kv_head=cfg.n_local_heads, starts=st, norm_eps=cfg.norm_eps, wfmt=wfmt)
+    worst = stack_worst_layer(torch, x, args, kc, vc, pos, cfg.n_head, **kw)
+    xo = DS.decode_stack_int4(x, *args, kc.clone(), vc.clone(), pos, cfg.n_head, **kw)[0]
+    xr = DS.decode_stack_int4_reference(x, *args, kc.clone(), vc.clone(), pos, cfg.n_head, **kw)[0]
+    whole = (xo.float() - xr.float()).abs().max().item() / xr.float().abs().max().item()
+    if not (worst <= K3_LAYER_TOL and whole <= K3_TOL and torch.isfinite(xo).all()):
+        fail(f"{label}: {rows} rows with starts {pads}: {worst:.3g} one layer at a time (tol {K3_LAYER_TOL}), "
+             f"{whole:.3g} over the stack (tol {K3_TOL}) of max |ref|")
+    device_ms, _ = _layers_ms(torch, lambda _: DS.decode_stack_int4(x, *args, kc, vc, pos, cfg.n_head, **kw), 20)
+    plain_ms = _time_ms(torch, lambda: DS.decode_stack_int4_reference(x, *args, kc, vc, pos, cfg.n_head, **kw), 3)
+    lay = qp["layers"]
+    nbytes = _int4_bytes if wfmt == "i4" else _int8_bytes
+    weight = sum(nbytes(*[lay[k][n] for n in (("pw", "sc") if wfmt == "i4" else ("p8", "sc8"))])
+                 for k in ("wqkv", "wo", "w1", "w3", "w2"))
+    window = sum(pos + 1 - p for p in pads)  # the slots the rows attend
+    n_bytes = weight + 2 * cfg.n_layer * window * cfg.n_local_heads * cfg.head_dim * 2 + 4 * rows * cfg.dim * 2
+    vals = 8 if wfmt == "i4" else 4
+    macs = sum(lay[k]["pw" if wfmt == "i4" else "p8"].numel() * vals for k in ("wqkv", "wo", "w1", "w3", "w2"))
+    n_flop = 2.0 * rows * macs + 4.0 * cfg.n_layer * window * cfg.n_head * cfg.head_dim
+    b_ms, b_by = bound(n_bytes, n_flop, BF16_FLOP_S)
+    return (f"{'K3' if wfmt == 'i4' else 'K7'} at {rows} rows, pos {pos}, starts {pads}: within {worst:.3g} of max "
+            f"|ref| one layer at a time, {whole:.3g} over 24 layers; {device_ms:.4f} ms a step on the device "
+            f"(CUDA graph of 20), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+
+def batch_prefill_times(torch, label: str, kind: str) -> str:
+    """K2 (kind "i4"), K8 ("i8") or K11 ("q8") at the ragged batch's prefill
+    rows, M = 2B x 128 = 1024 and 2048: each of one layer's five projections
+    (D 2048, FFN 6144; K11 5632) against its plain version (K2 within
+    K2_TOL of max |ref|, K8 by k8_row_gap within K8_TOL, K11 within K11_TOL
+    plus one bf16 ulp), and the five's device time from CUDA graphs of 2
+    weight sets in turn beside the plain version's, torch.matmul on the
+    bf16-dequantized weight and the bound."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(len(kind))
+    d, ip = 2048, (5632 if kind == "q8" else 6144)
+    parts = []
+    for m in BATCH_PREFILL_M:
+        tot = dict(kernel=0.0, plain=0.0, matmul=0.0, bytes=0.0, flop=0.0)
+        worst = 0.0
+        for k, n in ((d, 3 * d), (d, d), (d, ip), (d, ip), (ip, d)):
+            w = [torch.randn((k, n), generator=gen, device=dev) * 0.02 for _ in range(2)]
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            if kind == "q8":
+                mats = [Q.quantize_int8(wi) for wi in w]
+                call, plain = Q.matmul_int8, Q.matmul_int8_reference
+                dense = [(q.float() * s.float()).to(torch.bfloat16) for q, s in mats]
+                wbytes = k * n + 4 * n
+            else:
+                quantize, call, plain = ((Q.quantize_int4_i32, Q.matmul_int4_i32, Q.matmul_int4_i32_reference)
+                                         if kind == "i4" else
+                                         (Q.quantize_int8_i32, Q.matmul_int8_i32, Q.matmul_int8_i32_reference))
+                mats = [quantize(wi) for wi in w]
+                dense = [wi.to(torch.bfloat16) for wi in w]  # cuBLAS on a bf16 weight of the shape
+                wbytes = (_int4_bytes if kind == "i4" else _int8_bytes)(*mats[0])
+            y, ref = call(x, *mats[0]), plain(x, *mats[0])
+            top = ref.float().abs().max().item()
+            if kind == "i8":
+                gap = k8_row_gap(torch, y.float(), ref.float(), x, mats[0][1])
+                ok = gap <= K8_TOL
+            elif kind == "q8":
+                gap = (y.float() - ref.float()).abs()
+                ok = bool((gap <= K11_TOL * top + _bf16_ulp(torch, ref)).all())
+                gap = gap.max().item() / top
+            else:
+                gap = (y.float() - ref.float()).abs().max().item() / top
+                ok = gap <= K2_TOL
+            if not (ok and torch.isfinite(y).all()):
+                fail(f"{label}: {kind} at M {m}, K {k}, N {n} disagrees with its plain version: {gap:.3g} of max |ref|")
+            worst = max(worst, gap)
+            tot["kernel"] += _layers_ms(torch, lambda i: call(x, *mats[i]), 2)[0]
+            tot["plain"] += _layers_ms(torch, lambda i: plain(x, *mats[i]), 2)[0]
+            tot["matmul"] += _layers_ms(torch, lambda i: torch.matmul(x, dense[i]), 2)[0]
+            tot["bytes"] += m * k * 2 + wbytes + m * n * (2 if kind == "q8" else 4)
+            tot["flop"] += 2.0 * m * k * n
+        b_ms, b_by = bound(tot["bytes"], tot["flop"], BF16_FLOP_S)
+        parts.append(f"M {m}: within {worst:.3g} of max |ref|, {tot['kernel']:.4f} ms for one layer's five "
+                     f"projections, plain {tot['plain']:.4f}, torch.matmul on a bf16 weight of each shape "
+                     f"{tot['matmul']:.4f}, bound {b_ms:.4f} ({b_by}, {tot['flop'] / 1e9:.1f} GFLOP)")
+    name = {"i4": "K2", "i8": "K8", "q8": "K11"}[kind]
+    return f"{name} at the batch prefill: {'; '.join(parts)}"
+
+
+def phase_batch_int4(torch) -> dict:
+    """37: full-width int4 generate_batch at B 4 (K2 at M 1024, K3 with
+    ragged starts) and B 8 (K2 at M 2048, then the unfused route)."""
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    cfg = first_stage_config()
+    qp = _random_int4_model(torch, cfg, 37, torch.device("cuda"))
+    n_layer, shown, out = cfg.n_layer, [], {}
+    # B 8's rows alone take the stack (2 rows) with its int4 head, the batch
+    # the unfused route with the bf16 head: only B 4 is held to its rows alone
+    for b, route, want in (
+        (4, "stack", lambda s: {"k3_launches": s, "k2_launches": 5 * n_layer}),
+        (8, "unfused", lambda s: {"k2_launches": 5 * n_layer * (1 + s), "k1_launches": n_layer * s}),
+    ):
+        got = tfm.int4_decode_route(qp, cfg, 2 * b, torch.bfloat16)
+        if got != route:
+            fail(f"37 batch-int4: B {b} takes the {got!r} route, not {route!r}")
+        out[b] = batch_case(torch, "37 batch-int4", "int4", qp, cfg, b, BATCH_NEW, want, isolation=b == 4,
+                            seed=37 + b)
+        shown.append(f"route {route!r}, {out[b]['text']}")
+    shown.append(stack_batch_case(torch, "37 batch-int4", qp, cfg, "i4", _k3_args(qp)))
+    shown.append(batch_prefill_times(torch, "37 batch-int4", "i4"))
+    print(f"[37 batch-int4] {cfg.n_layer}L/{cfg.n_head}H/{cfg.dim}d int4, {BATCH_NEW} new tokens a row: "
+          f"{'; '.join(shown)}")
+    return out
+
+
+def phase_batch_routes(torch) -> dict:
+    """38: one 2-layer full-width first stage a decode route, generate_batch
+    at B 4 and B 8 against the plain path, each route's kernels counted."""
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    dev = torch.device("cuda")
+    cfg = first_stage_config(n_layer=2, block_size=512)
+    gqa = first_stage_config(n_layer=2, block_size=512, n_local_heads=2)
+    gen = torch.Generator(device=dev).manual_seed(38)
+    bf16 = tfm.init_params(cfg, device=dev, generator=gen, dtype=torch.bfloat16)
+    L = cfg.n_layer
+    routes = [
+        ("int8", cfg, Q.quantize_params_int8_i32(bf16), None,
+         {4: lambda s: {"k7_launches": s, "k8_launches": 5 * L},
+          8: lambda s: {"k8_launches": 5 * L * (1 + s), "k1_launches": L * s}}),
+        ("int4, int8 cache", cfg, Q.quantize_params_int4_i32(bf16), "int8",
+         {4: lambda s: {"k2_launches": 5 * L, "k5_launches": L * s, "k6_launches": L * s},
+          8: lambda s: {"k2_launches": 5 * L * (1 + s)}}),
+        ("int4, packed cache", cfg, Q.quantize_params_int4_i32(bf16), "int8_packed",
+         {4: lambda s: {"k2_launches": 5 * L, "k5_launches": L * s, "k6_launches": L * s},
+          8: lambda s: {"k2_launches": 5 * L * (1 + s)}}),
+        ("int8_plain", cfg, Q.quantize_params_int8(bf16), None,
+         {4: lambda s: {"k11_launches": 5 * L, "k9_launches": L * s, "k10_launches": L * s},
+          8: lambda s: {"k11_launches": 5 * L * (1 + s), "k1_launches": L * s}}),
+        ("groupwise int4", cfg, Q.quantize_params_int4(bf16), None,
+         {b: lambda s: {"k12_launches": 5 * L * s, "k1_launches": L * s} for b in (4, 8)}),
+        ("groupwise int4 packed", cfg, Q.quantize_params_int4_packed(bf16), None,
+         {b: lambda s: {"k13_launches": 5 * L * s, "k1_launches": L * s} for b in (4, 8)}),
+        ("GQA bf16", gqa, tfm.init_params(gqa, device=dev, generator=gen, dtype=torch.bfloat16), None,
+         {b: lambda s: {"k4_launches": L * s} for b in (4, 8)}),
+    ]
+    shown, out = [], {}
+    for name, c, params, cache, wants in routes:
+        for b, want in wants.items():
+            run = batch_case(torch, f"38 batch-routes {name}", name, params, c, b, ROUTE_NEW, want,
+                             cache_dtype=cache, seed=38 + b)
+            out[(name, b)] = run
+            shown.append(f"{name}: {run['text']}")
+        del params
+    del routes
+    torch.cuda.empty_cache()
+    full = first_stage_config()
+    q8 = _random_int8_model(torch, full, 38, dev)
+    shown.append(stack_batch_case(torch, "38 batch-routes", q8, full, "i8", _k7_args(q8)))
+    del q8
+    torch.cuda.empty_cache()
+    shown.append(batch_prefill_times(torch, "38 batch-routes", "i8"))
+    shown.append(batch_prefill_times(torch, "38 batch-routes", "q8"))
+    print(f"[38 batch-routes] 2-layer {cfg.n_head}H/{cfg.dim}d first stages, {ROUTE_NEW} new tokens a row: "
+          f"{'; '.join(shown)}")
+    return out
+
+
+def two_call_wav(torch, tts, prompt: list, segment, spk):
+    """The JAX package's two-call render of a first-stage stream, kept here
+    as the yardstick of the port's one device-side render: the second stage
+    with its codes to the host, then the vocoder on them padded to the
+    bucket, the wav trimmed, the enhancer; on the TTS's weights and
+    generator."""
+    from metavoice_tpu_torch.core import tokens as T
+    from metavoice_tpu_torch.models import encodec as ec
+    from metavoice_tpu_torch.models import second_stage as ss
+    from metavoice_tpu_torch.runtime.tts import _vocoder_bucket
+    import numpy as np
+
+    c, ctx = tts.c, tts.c.second_stage_cfg.block_size
+    _, coarse = T.split_flattened_interleaved(segment, tts.END_OF_AUDIO_TOKEN)
+    x = T.build_second_stage_input(prompt, coarse, ctx)
+    with torch.inference_mode():
+        sampled = ss.non_causal_sample(c.second_stage_params, c.second_stage_cfg,
+                                       torch.as_tensor(x, dtype=torch.int64, device=tts.device)[None],
+                                       torch.as_tensor(np.asarray(spk, np.float32), device=tts.device)[None],
+                                       1.0, top_k=200, compute_dtype=tts._compute_dtype, generator=tts._gen)
+        full = np.concatenate([x[None], sampled.cpu().numpy()], axis=1)[0]
+        n_text, n_audio = len(prompt), min(len(coarse[0]), ctx - len(prompt))
+        codes = full[:, n_text : n_text + n_audio].copy()
+        codes[0], codes[1] = coarse[0][:n_audio], coarse[1][:n_audio]
+        codes = np.pad(np.clip(codes, 0, 1023), ((0, 0), (0, _vocoder_bucket(n_audio) - n_audio)))
+        wav = ec.decode_codes(c.encodec_params, c.encodec_cfg, codes)[0].float().cpu().numpy()
+    wav = wav[: n_audio * c.encodec_cfg.hop_length]
+    return c.enhancer(wav, c.encodec_cfg.sample_rate) if c.enhancer is not None else wav
+
+
+def phase_streaming(torch, workdir: str, ref: str):
+    """39: full-width int4 synthesise_streaming; returns the TTS for phase 40."""
+    from metavoice_tpu_torch.core import sampling as S
+    from metavoice_tpu_torch.core.text import chunk_text, normalize_text
+    from metavoice_tpu_torch.core import tokens as T
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.runtime.tts import MAX_CHARS_PER_CHUNK, TTS
+    import numpy as np
+
+    tts = TTS.from_random(small=False, device="cuda", output_dir=os.path.join(workdir, "out_stream"),
+                          quantisation_mode="int4")
+    cfg1 = tts.c.first_stage_cfg
+    chunks_of_text = chunk_text(normalize_text(SYNTH_TEXT), MAX_CHARS_PER_CHUNK)
+    if len(chunks_of_text) != 1:
+        fail(f"39 streaming: the text takes {len(chunks_of_text)} chunks, not one")
+    prompt = tts.c.tokenizer.encode(chunks_of_text[0])
+    hop, ctx2 = tts.c.encodec_cfg.hop_length, tts.c.second_stage_cfg.block_size
+
+    def frames(seg) -> int:
+        return min(len(T.split_flattened_interleaved(seg, tts.END_OF_AUDIO_TOKEN)[1][0]), ctx2 - len(prompt))
+
+    list(tts.synthesise_streaming(SYNTH_TEXT, ref, max_new_tokens=8))  # the speaker embedding cached
+    segs_seen, segments = [], fs.generate_segments
+
+    def recorded_segments(*args, **kw):  # the stream's own segments, as synthesise_streaming reads them
+        for seg in segments(*args, **kw):
+            segs_seen.append(seg)
+            yield seg
+
+    fs.generate_segments = recorded_segments
+    _zero_counts()
+    try:
+        t0 = time.perf_counter()
+        first_s, chunks = None, []
+        for wav in tts.synthesise_streaming(SYNTH_TEXT, ref, max_new_tokens=STREAM_NEW):
+            if first_s is None:
+                first_s = time.perf_counter() - t0
+            chunks.append(wav)
+        total_s = time.perf_counter() - t0
+        counts, steps = read_counts(), tts.stats["decode_steps"]
+    finally:
+        fs.generate_segments = segments
+    want = dict.fromkeys(counts, 0) | {"k3_launches": steps, "k2_launches": 5 * cfg1.n_layer}
+    if steps == 0 or counts != want:
+        fail(f"39 streaming launched {counts}, expected {want}")
+    # one chunk for each segment with audio tokens, of its frames' samples
+    want_len = [frames(seg) * hop for seg in segs_seen if frames(seg) > 0]
+    if [len(c) for c in chunks] != want_len:
+        fail(f"39 streaming: chunks of {[len(c) for c in chunks]} samples for segments of "
+             f"{[len(s) for s in segs_seen]} tokens (expected {want_len})")
+    if not all(np.isfinite(c).all() and c.dtype == np.float32 for c in chunks):
+        fail(f"39 streaming: chunks not finite float32: {[c.dtype for c in chunks]}")
+    audio_s = sum(len(c) for c in chunks) / 24000
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in tts.timings.items())
+    # the segments joined against generate on the same Gumbel noise
+    spk = tts._get_speaker_embedding(ref)
+    noise = S.gumbel_noise((STREAM_NEW, 1, cfg1.vocab_size), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(39))
+    kw = dict(max_new_tokens=STREAM_NEW, end_of_text_token=tts.c.tokenizer.eot_token, noise=noise)
+    segs = list(fs.generate_segments(tts.c.first_stage_params, cfg1, prompt, spk, segment_tokens=150,
+                                     first_segment_tokens=40, **kw))
+    whole = fs.generate(tts.c.first_stage_params, cfg1, prompt, spk, **kw)[len(prompt):]
+    joined = np.concatenate(segs)
+    if not np.array_equal(joined, whole):
+        fail(f"39 streaming: the segments joined ({len(joined)} tokens) are not generate's ({len(whole)})")
+    # the one device-side render against the two-call render, on the same draws
+    gaps = []
+    for seg in [s for s in segs_seen if frames(s) > 0][:2]:
+        wavs = []
+        for render in (tts._tokens_to_wav, None):
+            tts._gen.manual_seed(391)
+            wavs.append(render("x", prompt, seg, spk) if render else two_call_wav(torch, tts, prompt, seg, spk))
+        if wavs[0].shape != wavs[1].shape or not np.abs(wavs[0] - wavs[1]).max() <= TWO_CALL_TOL:
+            fail(f"39 streaming: the render and the two-call wav differ: shapes {wavs[0].shape} {wavs[1].shape}")
+        gaps.append(float(np.abs(wavs[0] - wavs[1]).max()))
+    print(f"[39 streaming] int4 {cfg1.n_layer}L/{cfg1.n_head}H/{cfg1.dim}d synthesise_streaming, "
+          f"{STREAM_NEW} tokens a chunk at most: first chunk after {first_s:.3f} s, {len(chunks)} chunks "
+          f"({[len(c) for c in chunks]} samples, one for each of the segments {[len(s) for s in segs_seen]} tokens "
+          f"long that holds audio tokens; {audio_s:.2f} s of audio) in {total_s:.3f} s ({stages} s); "
+          f"{steps} decode steps; launches {({k: v for k, v in counts.items() if v})}; segments "
+          f"{[len(s) for s in segs]} joined == generate's {len(whole)} tokens under the same noise; the render "
+          f"vs the two-call render max |d| {max(gaps):.3g} (tol {TWO_CALL_TOL}) on {len(gaps)} segments")
+    return {"ttfa_s": first_s, "total_s": total_s, "audio_s": audio_s, "timings": dict(tts.timings),
+            "tts": tts}
+
+
+def phase_get_tokens(torch, workdir: str, tts):
+    """40: get_tokens on the card against the port on the CPU for a seeded wav."""
+    from metavoice_tpu_torch.models import encodec as ec
+    from metavoice_tpu_torch.utils import audio_io as aio
+    import numpy as np
+
+    ecfg = tts.c.encodec_cfg
+    rng = np.random.default_rng(40)
+    t = np.arange(2 * ecfg.sample_rate + 123) / ecfg.sample_rate
+    wav = (0.3 * np.sin(2 * np.pi * 180 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
+           + 0.05 * rng.normal(size=len(t))).astype(np.float32)
+    path = os.path.join(workdir, "tokens.wav")
+    aio.write_wav(path, wav, ecfg.sample_rate)
+    t0 = time.perf_counter()
+    codes = tts.get_tokens(path)
+    card_s = time.perf_counter() - t0
+    frames = len(wav) // ecfg.hop_length
+    if np.shape(codes) != (ecfg.n_q, frames) or min(map(min, codes)) < 0 or max(map(max, codes)) >= 1024:
+        fail(f"40 get_tokens: codes of shape {np.shape(codes)}, expected ({ecfg.n_q}, {frames}) in [0, 1024)")
+    cpu = to_cpu(tts.c.encodec_params)
+    x = torch.from_numpy(aio.load_audio(path, target_sr=ecfg.sample_rate)[0][: frames * ecfg.hop_length])[None]
+    lat_c = ec.encode_latent(cpu, ecfg, x)
+    lat_g = ec.encode_latent(tts.c.encodec_params, ecfg, x.cuda()).cpu()
+    lat_gap = (lat_g - lat_c).abs().max().item() / lat_c.abs().max().item()
+    if not lat_gap <= ENCODE_LATENT_TOL:
+        fail(f"40 get_tokens: the card's latent is {lat_gap:.3g} of max |latent| from the CPU's "
+             f"(tol {ENCODE_LATENT_TOL})")
+    codes_c = ec.rvq_encode(cpu["codebooks"], lat_c, ecfg.n_q)[0]  # (n_q, T)
+    codes_g = torch.tensor(codes, dtype=torch.int32)
+    if not torch.equal(codes_g, ec.rvq_encode(cpu["codebooks"], lat_g, ecfg.n_q)[0]):
+        fail("40 get_tokens: the card's codes are not the nearest codewords of the card's latent")
+    flips = []
+    for f in range(frames):
+        diff = (codes_g[:, f] != codes_c[:, f]).nonzero()
+        if len(diff) == 0:
+            continue
+        q = int(diff[0])  # the first stage that parts; later stages follow other residuals
+        residual = lat_c[0, f] - sum(cpu["codebooks"][s][codes_c[s, f]] for s in range(q)) if q else lat_c[0, f]
+        cb = cpu["codebooks"][q]
+        score = 2 * cb @ residual - (cb * cb).sum(-1)
+        top2 = torch.topk(score, 2)
+        rel = (top2.values[0] - top2.values[1]).item() / top2.values[0].abs().item()
+        if set(top2.indices.tolist()) != {int(codes_c[q, f]), int(codes_g[q, f])} or rel > ENCODE_GAP:
+            fail(f"40 get_tokens: frame {f} stage {q}: the card picks {int(codes_g[q, f])}, the CPU "
+                 f"{int(codes_c[q, f])}, and they are not the CPU's two nearest within {ENCODE_GAP} "
+                 f"({top2.indices.tolist()}, {rel:.3g} apart)")
+        flips.append(f"frame {f} stage {q} ({rel:.2g})")
+    print(f"[40 get_tokens] {len(wav)} samples -> ({ecfg.n_q}, {frames}) codes in {card_s:.3f} s on the card; "
+          f"latent within {lat_gap:.3g} of max |latent| of the CPU's (tol {ENCODE_LATENT_TOL}); codes equal"
+          + (f" but at {len(flips)} frames parted by near ties: {', '.join(flips[:5])}" if flips else ""))
+
+
+def batch_launches(runs: list) -> dict:
+    """Every kernel's launches over the batch runs of phases 36-38; fails
+    unless each of K1-K13 launched in some of them."""
+    total = {k: sum(run["counts"][k] for run in runs) for k in counters()}
+    missing = [k for k, n in total.items() if n == 0]
+    if missing:
+        fail(f"phases 36-38 launched no {missing} on a batch route")
+    print(f"[36-38 batch launches] every kernel ran in a ragged batch: {total}")
+    return total
+
+
+WARMUP_SCRIPT = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import torch
+from metavoice_tpu_torch.ops import _build
+from metavoice_tpu_torch.runtime.tts import TTS
+tts = TTS.from_random(small=False, device="cuda", quantisation_mode="int4", output_dir=sys.argv[2])
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+loaded_before = _build._loaded is not None
+tts.warmup()
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+lib = _build.kernels()
+files = sorted(os.listdir(_build.BUILD_DIR))
+synth = []
+for _ in range(2):
+    t = time.perf_counter()
+    tts.synthesise(sys.argv[4], sys.argv[3], max_new_tokens=192)
+    synth.append(time.perf_counter() - t)
+print(json.dumps({"start_s": t1 - t0, "warmup_s": t2 - t1, "build_s": lib.build_seconds,
+                  "compiled": bool(lib.build_log), "loaded_before": loaded_before,
+                  "same_library": _build.kernels() is lib, "same_files": files == sorted(os.listdir(_build.BUILD_DIR)),
+                  "synth_s": synth, "first_stage_s": tts.timings.get("first_stage"),
+                  "decode_steps": tts.stats.get("decode_steps")}))
+"""
+
+
+def phase_warmup(torch, workdir: str, ref: str, build_s: float):
+    """41: TTS.warmup from a fresh process, then synthesises that build nothing."""
+    out = subprocess.run([sys.executable, "-c", WARMUP_SCRIPT, os.path.dirname(os.path.abspath(__file__)),
+                          os.path.join(workdir, "out_warm"), ref, SYNTH_TEXT],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"41 warmup: the fresh process failed ({out.returncode}): {out.stderr[-2000:]}")
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    if r["loaded_before"] or not (r["same_library"] and r["same_files"]) or r["decode_steps"] in (None, 0):
+        fail(f"41 warmup: {r}")
+    print(f"[41 warmup] a fresh process: import and a full-width int4 TTS in {r['start_s']:.2f} s; "
+          f"TTS.warmup {r['warmup_s']:.2f} s, of which the kernel library {r['build_s']:.2f} s "
+          f"({'compiled' if r['compiled'] else 'loaded from its build in phase 2, which took ' + f'{build_s:.2f} s'}); "
+          f"then two synthesises of {r['decode_steps']} decode steps in {r['synth_s'][0]:.2f} s and "
+          f"{r['synth_s'][1]:.2f} s with no new build (the same library, no new file in the build directory)")
+
 
 def main() -> int:
     import torch
@@ -2860,7 +3684,7 @@ def main() -> int:
     from metavoice_tpu_torch.core.config import first_stage_config
     from metavoice_tpu_torch.runtime.tts import TTS
 
-    phase_build()
+    build_s = phase_build()
     k1 = phase_k1(torch)
     phase_small(torch)
     with tempfile.TemporaryDirectory() as workdir:
@@ -2940,6 +3764,19 @@ def main() -> int:
         int4p = phase_synth_int4g(torch, workdir, ref, True,
                                   compared | {"groupwise int4 phase 33": int4g["ms_per_token"]})
         del int4p["tts"]
+        torch.cuda.empty_cache()
+        runs = [phase_batch_bf16(torch)]
+        torch.cuda.empty_cache()
+        runs += phase_batch_int4(torch).values()
+        torch.cuda.empty_cache()
+        runs += phase_batch_routes(torch).values()
+        torch.cuda.empty_cache()
+        batch_launches(runs)
+        stream = phase_streaming(torch, workdir, ref)
+        phase_get_tokens(torch, workdir, stream.pop("tts"))
+        del stream
+        torch.cuda.empty_cache()
+        phase_warmup(torch, workdir, ref, build_s)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # and, where a phase read it from the graph of one call, the kernels a call
     counted = ("kernels_a_call",)

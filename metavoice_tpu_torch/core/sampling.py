@@ -8,6 +8,11 @@ Sampling is Gumbel-max, as
 ``jax.random.categorical`` is: ``argmax(logits + G)`` with standard Gumbel
 noise G, drawn from an explicit ``torch.Generator``. Tests inject the noise
 (``noise=``) so both packages see the same draws.
+
+``temperature``, ``top_p`` and the guidance scales are Python scalars or
+tensors that broadcast against the logits' leading axes, as the JAX
+package's traced operands do: a ragged batch passes (B, 1) tensors, one
+value a row (models/first_stage.generate_batch).
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ NEG_INF = -1e30  # finite "-inf" that keeps softmax numerics exact in bf16/f32
 
 
 def apply_temperature(logits: torch.Tensor, temperature: float) -> torch.Tensor:
-    """logits / max(temperature, 1e-5); reference fast_inference_utils.py:92."""
+    """logits / max(temperature, 1e-5); reference fast_inference_utils.py:92.
+    ``temperature``: a scalar or a (B, 1) tensor for (B, V) logits."""
     t = torch.clamp(torch.as_tensor(temperature, dtype=logits.dtype, device=logits.device), min=1e-5)
     return logits / t
 
@@ -36,8 +42,10 @@ def top_p_mask(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     Keep token i iff the exclusive cumulative probability of all
     strictly-higher-ranked tokens is < top_p; the top token is always kept.
     At a tie on the boundary value the lowest vocabulary ids are kept
-    (metavoice_tpu/core/sampling.py:47-80).
+    (metavoice_tpu/core/sampling.py:47-80). ``top_p``: a scalar or a (B, 1)
+    tensor; the cut and the tie rule hold row by row.
     """
+    top_p = torch.as_tensor(top_p, dtype=torch.float32, device=logits.device)
     lf = logits.float()
     sorted_desc = torch.sort(lf, dim=-1, descending=True).values
     probs = torch.softmax(sorted_desc, dim=-1)
@@ -56,7 +64,8 @@ def top_p_mask(logits: torch.Tensor, top_p: float) -> torch.Tensor:
 
 
 def cfg_merge(logits: torch.Tensor, guidance_scale: float) -> torch.Tensor:
-    """(2B, V) [cond; uncond] -> (B, V): g * cond + (1 - g) * uncond."""
+    """(2B, V) [cond; uncond] -> (B, V): g * cond + (1 - g) * uncond; g a
+    scalar or a (B, 1) tensor."""
     cond, uncond = torch.chunk(logits, 2, dim=0)
     g = torch.as_tensor(guidance_scale, dtype=logits.dtype, device=logits.device)
     return g * cond + (1.0 - g) * uncond

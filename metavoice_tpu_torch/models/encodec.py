@@ -1,11 +1,14 @@
-"""EnCodec 24 kHz decoder: RVQ decode + SEANet decoder (decode side only).
+"""EnCodec 24 kHz codec: RVQ + SEANet decoder and encoder.
 
-Port of the decode side of metavoice_tpu/models/encodec.py (Defossez et al.
-2022): codes (n_q, T) -> latent (T, D) by summing per-stage codebook
-embeddings, then Conv(D->C) -> 2-layer LSTM (residual) -> 4 upsampling
-stages (ConvTranspose, ratios 8,5,4,2, halving channels) each followed by a
+Port of metavoice_tpu/models/encodec.py (Defossez et al. 2022). Decode:
+codes (n_q, T) -> latent (T, D) by summing per-stage codebook embeddings,
+then Conv(D->C) -> 2-layer LSTM (residual) -> 4 upsampling stages
+(ConvTranspose, ratios 8,5,4,2, halving channels) each followed by a
 residual unit -> Conv(C/16 -> 1). All convs causal, ELU activations; 320x
-upsampling from 75 Hz frames to 24 kHz samples.
+upsampling from 75 Hz frames to 24 kHz samples. Encode (``get_tokens``):
+the mirror image, Conv(1 -> C/16) -> 4 stages of a residual unit and a
+strided conv (ratios 2,4,5,8, doubling channels) -> LSTM -> Conv(C -> D),
+then the residual quantizer's nearest-codeword search, stage by stage.
 
 Layouts stay the JAX package's at every function here: activations are
 (B, T, C) and conv kernels (K, C_in, C_out); the functions transpose to
@@ -128,6 +131,21 @@ def rvq_decode(codebooks, codes):
     return latent
 
 
+def rvq_encode(codebooks, latent, n_q: int):
+    """latent (B, T, D) -> codes (B, n_q, T) int32: at each stage the
+    codeword nearest the residual (argmax of 2 r.c - |c|^2, the first on a
+    tie), then the residual less that codeword."""
+    residual = latent
+    codes = []
+    for q in range(n_q):
+        cb = codebooks[q]  # (K, D)
+        dots = torch.einsum("btd,kd->btk", residual, cb)
+        idx = torch.argmax(2 * dots - (cb * cb).sum(dim=-1), dim=-1)  # (B, T)
+        codes.append(idx)
+        residual = residual - cb[idx]
+    return torch.stack(codes, dim=1).to(torch.int32)
+
+
 def decode_latent(params: Params, cfg: EncodecConfig, latent):
     """latent (B, T, D) -> waveform (B, T * hop)."""
     dec = params["decoder"]
@@ -149,14 +167,36 @@ def decode_codes(params: Params, cfg: EncodecConfig, codes) -> torch.Tensor:
     return decode_latent(params, cfg, latent)
 
 
+def encode_latent(params: Params, cfg: EncodecConfig, wav):
+    """waveform (B, T) -> latent (B, T // hop, D)."""
+    enc = params["encoder"]
+    x = _conv1d(wav[..., None], enc["conv_in_w"], enc.get("conv_in_b"), causal=cfg.causal)
+    for blk, ratio in zip(enc["blocks"], cfg.ratios[::-1]):  # downsampling runs fine -> coarse
+        x = _residual_unit(x, blk["res"], cfg)
+        x = _conv1d(F.elu(x), blk["conv_w"], blk.get("conv_b"), stride=ratio, causal=cfg.causal)
+    x = _lstm_stack(x, enc["lstm"])
+    return _conv1d(F.elu(x), enc["conv_out_w"], enc.get("conv_out_b"), causal=cfg.causal)
+
+
+def encode_codes(params: Params, cfg: EncodecConfig, wav) -> torch.Tensor:
+    """waveform (B, T), float array or tensor -> codes (B, n_q, T // hop) int32
+    on the codebooks' device."""
+    codebooks = params["codebooks"]
+    wav = torch.as_tensor(np.asarray(wav, np.float32) if not torch.is_tensor(wav) else wav)
+    latent = encode_latent(params, cfg, wav.to(codebooks.device, torch.float32))
+    return rvq_encode(codebooks, latent, cfg.n_q)
+
+
 def init_params(
     cfg: EncodecConfig = EncodecConfig(),
     *,
     device="cuda",
     generator: torch.Generator | None = None,
 ) -> Params:
-    """Random f32 decoder with the pretrained 24 kHz model's topology: normal
-    kernels scaled by 1/sqrt(fan_in), zero biases, unit-normal codebooks."""
+    """Random f32 codec with the pretrained 24 kHz model's topology: normal
+    kernels scaled by 1/sqrt(fan_in), zero biases, unit-normal codebooks.
+    The encoder is drawn after the decoder and the codebooks, so a seed
+    gives the same decoder and codebooks as before the encoder was ported."""
     dev = resolve_device(device)
 
     def normal(*shape, scale=1.0):
@@ -196,4 +236,31 @@ def init_params(
         "conv_out_b": zeros(cfg.channels),
     }
     codebooks = normal(cfg.n_q, cfg.codebook_size, cfg.dimension)
-    return {"decoder": decoder, "codebooks": codebooks}
+
+    enc_blocks = []  # 32 -> 64 -> 128 -> 256 -> 512 channels, downsampling 2, 4, 5, 8
+    c = cfg.n_filters
+    for r in cfg.ratios[::-1]:
+        enc_blocks.append({
+            "res": {
+                "conv1_w": conv(cfg.residual_kernel_size, c, c // 2),
+                "conv1_b": zeros(c // 2),
+                "conv2_w": conv(1, c // 2, c),
+                "conv2_b": zeros(c),
+            },
+            "conv_w": conv(2 * r, c, 2 * c),
+            "conv_b": zeros(2 * c),
+        })
+        c *= 2
+    encoder = {
+        "conv_in_w": conv(cfg.kernel_size, cfg.channels, cfg.n_filters),
+        "conv_in_b": zeros(cfg.n_filters),
+        "blocks": enc_blocks,
+        "lstm": {
+            "w_ih": normal(cfg.lstm_layers, c_max, 4 * c_max, scale=1.0 / np.sqrt(c_max)),
+            "w_hh": normal(cfg.lstm_layers, c_max, 4 * c_max, scale=1.0 / np.sqrt(c_max)),
+            "b": zeros(cfg.lstm_layers, 4 * c_max),
+        },
+        "conv_out_w": conv(cfg.last_kernel_size, c_max, cfg.dimension),
+        "conv_out_b": zeros(cfg.dimension),
+    }
+    return {"decoder": decoder, "encoder": encoder, "codebooks": codebooks}

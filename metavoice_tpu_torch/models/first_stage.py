@@ -1,6 +1,8 @@
 """First-stage 1.2B causal LLM: prefill + decode loop with speaker CFG.
 
-Port of the single-utterance path of metavoice_tpu/models/first_stage.py:
+Port of metavoice_tpu/models/first_stage.py: single-utterance generation
+(``generate``), the ragged batch (``generate_batch``) and streaming segments
+(``generate_segments``), all three on one resumable loop (``decode``):
 
   * CFG as a leading batch of row groups: row 0 speaker-conditioned, row 1
     unconditioned through a zeroing mask on the speaker projection
@@ -9,12 +11,15 @@ Port of the single-utterance path of metavoice_tpu/models/first_stage.py:
     speaker but sees its text tokens replaced by end-of-text (reference
     fam/llm/mixins/causal.py:89-105,229-262);
   * prompts right-padded to a 128 bucket; prefill masks against the full
-    cache length and samples from the hidden state at ``prompt_len - 1``;
+    cache length and samples from the hidden state at ``prompt_len - 1``
+    (a batch: left-padded to one bucket, per-row positions and windows,
+    the first token from the last column);
   * temperature -> top-p -> Gumbel-max sampling on the device;
   * an end-of-audio latch on the device: rows that are done keep emitting
     EOA. The host reads the latch only every ``DONE_CHECK_EVERY`` steps, not
     every token; the steps it runs past the end cannot change the output,
-    since finished rows only emit EOA and are not counted.
+    since finished rows only emit EOA and are not counted. A batch row has
+    its own latch and may take per-row temperature, top-p and guidance.
 
 Each decode step runs every layer's attention through
 ops/attention.py:decode_attention (the CUDA kernel on the card; a GQA first
@@ -180,6 +185,97 @@ def check_guidance(guidance_scale, end_of_text_token: int, end_of_audio_token: i
 
 
 @torch.inference_mode()
+def decode(
+    params: tfm.Params,
+    cfg: TransformerConfig,
+    cur_token: torch.Tensor,  # (B,) the last sampled token of each row, not yet in the cache
+    pos: int,  # the slot of the next cache write
+    kv_cache: tfm.KVCache,
+    spk_emb: torch.Tensor,  # (B, spk_dim)
+    max_steps: int,
+    *,
+    temperature=1.0,
+    top_p=0.95,
+    guidance_scale=3.0,
+    cfg_rows: int = 2,
+    prompt_guidance_scale: float = 1.0,
+    pad_lens: torch.Tensor | None = None,
+    end_of_audio_token: int = T.END_OF_AUDIO_TOKEN,
+    end_of_text_token: int = 0,
+    compute_dtype=torch.bfloat16,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+    stats: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The resumable decode loop (JAX ``decode`` and ``decode_batch``): from
+    ``(cur_token, pos, kv_cache)`` run at most ``max_steps`` T=1 steps, never
+    past the cache's last slot -> ``(tokens (B, max_steps), lengths (B,))``
+    on the device; ``tokens[b, :lengths[b]]`` are row b's sampled tokens,
+    the end-of-audio token included when it came. Rows that are done emit
+    EOA; the host reads the latch every ``DONE_CHECK_EVERY`` steps and stops
+    when every row is done. The cache is written in place; the last sampled
+    token is not in it yet (it is the next call's ``cur_token``).
+
+    ``pad_lens`` (B,) makes it the ragged batch's loop: row b's left
+    padding, so its logical position is ``pos - pad_lens[b]`` and it
+    attends ``[pad_lens[b], pos]`` (the kernels' ``starts``).
+    ``temperature``, ``top_p`` and ``guidance_scale`` are scalars or (B, 1)
+    tensors (per row). ``noise`` (n >= steps, B, V): the Gumbel noise of
+    each step's draw. ``stats["decode_steps"]`` adds the steps run.
+    """
+    b = cur_token.shape[0]
+    device = cur_token.device
+    spk_rows = _cfg_rows(spk_emb, cfg_rows)
+    mask = make_spk_cond_mask(b, cfg_rows, device=device)
+    starts = None if pad_lens is None else _cfg_rows(pad_lens.to(device=device, dtype=torch.int32), cfg_rows)
+    slots = torch.arange(kv_cache.max_seq_len, device=device)
+    eoa = torch.full_like(cur_token, end_of_audio_token)
+    tokens = torch.full((b, max_steps), end_of_audio_token, dtype=torch.int64, device=device)
+    lengths = torch.zeros_like(cur_token)
+    done = cur_token == end_of_audio_token
+    cur = cur_token
+    steps = 0
+    for step in range(max(0, min(max_steps, kv_cache.max_seq_len - pos))):
+        if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
+            break
+        p = pos + step
+        positions = slots[p : p + 1] if starts is None else (p - starts).long()[:, None]
+        x = tfm.embed_inputs(
+            params, cfg, guidance_rows(cur[:, None], cfg_rows, end_of_text_token),
+            positions, spk_rows, mask, compute_dtype,
+        )
+        out, _, head_done = tfm.apply_blocks(params, cfg, x, None, kv_cache, p, attn_starts=starts, fused_head=True)
+        # head_done: the int4 stack fused the final norm and the int4 tied
+        # head, and `out` is already the (rows, V) f32 logits
+        logits = out if head_done else tfm.output_logits(params, cfg, out)[0][:, 0, :]
+        sampled = sample_guided(
+            logits, guidance_scale, prompt_guidance_scale, cfg_rows, temperature, top_p,
+            generator=generator, noise=None if noise is None else noise[step],
+        )
+        nxt = torch.where(done, eoa, sampled)  # finished rows stay frozen on EOA
+        tokens[:, step] = nxt
+        lengths += (~done).to(lengths.dtype)
+        done = done | (nxt == end_of_audio_token)
+        cur = nxt
+        steps += 1
+    if stats is not None:
+        stats["decode_steps"] = stats.get("decode_steps", 0) + steps
+    return tokens, lengths
+
+
+def _budget(cfg: TransformerConfig, used: int, max_new_tokens: int | None, noise, what: str) -> int:
+    """New tokens a prompt of ``used`` slots may take; checks the noise."""
+    budget = cfg.block_size - used
+    if max_new_tokens is not None:
+        budget = min(budget, max_new_tokens)
+    if budget <= 0:
+        raise ValueError(f"{what} too long to generate more tokens")
+    if noise is not None and noise.shape[0] < budget:
+        raise ValueError(f"noise holds {noise.shape[0]} draws, generation may need {budget}")
+    return budget
+
+
+@torch.inference_mode()
 def generate(
     params: tfm.Params,
     cfg: TransformerConfig,
@@ -200,8 +296,8 @@ def generate(
     noise: torch.Tensor | None = None,
     stats: dict | None = None,
 ) -> np.ndarray:
-    """Single-utterance generation (batch 1): prefill, then decode until
-    end-of-audio, ``max_new_tokens`` or the block size. Returns
+    """Single-utterance generation (batch 1): prefill, then :func:`decode`
+    until end-of-audio, ``max_new_tokens`` or the block size. Returns
     [prompt ++ generated] as a 1-D int32 numpy array (EOA included if emitted).
 
     ``guidance_scale`` is a float (speaker CFG, 2 cache rows) or the
@@ -220,13 +316,7 @@ def generate(
     spk_g, prompt_g, cfg_rows = check_guidance(guidance_scale, end_of_text_token, end_of_audio_token)
     device = params["wpe"].device
     padded, t_true = pad_to_bucket(prompt_tokens, prompt_pad_multiple, max_len=cfg.block_size)
-    max_steps = cfg.block_size - t_true
-    if max_new_tokens is not None:
-        max_steps = min(max_steps, max_new_tokens)
-    if max_steps <= 0:
-        raise ValueError("Prompt is too long to generate more tokens")
-    if noise is not None and noise.shape[0] < max_steps:
-        raise ValueError(f"noise holds {noise.shape[0]} draws, generation may need {max_steps}")
+    max_steps = _budget(cfg, t_true, max_new_tokens, noise, "Prompt is")
     if kv_cache is None or kv_cache.batch_size != cfg_rows:
         kv_cache = tfm.KVCache.create(cfg, cfg_rows, cfg.block_size, dtype=cache_dtype or compute_dtype,
                                       device=device)
@@ -239,44 +329,249 @@ def generate(
         t_true, spk, kv_cache, temperature, top_p, spk_g, compute_dtype,
         generator=generator, noise=None if noise is None else noise[0], **guided,
     )
-
-    spk_rows = _cfg_rows(spk, cfg_rows)
-    mask = make_spk_cond_mask(1, cfg_rows, device=device)
-    positions = torch.arange(cfg.block_size, device=device)
-    eoa = torch.full_like(first, end_of_audio_token)
-    n_loop = max_steps - 1
-    out_buf = torch.full((1, max(n_loop, 1)), end_of_audio_token, dtype=torch.int64, device=device)
-    out_len = torch.zeros_like(first)
-    done = first == end_of_audio_token
-    cur = first
-    steps = 0
-    for step in range(n_loop):
-        if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
-            break
-        pos = t_true + step
-        x = tfm.embed_inputs(
-            params, cfg, guidance_rows(cur[:, None], cfg_rows, end_of_text_token),
-            positions[pos : pos + 1], spk_rows, mask, compute_dtype,
-        )
-        out, _, head_done = tfm.apply_blocks(params, cfg, x, None, kv_cache, pos, fused_head=True)
-        # head_done: the int4 stack fused the final norm and the int4 tied
-        # head, and `out` is already the (cfg_rows, V) f32 logits
-        logits = out if head_done else tfm.output_logits(params, cfg, out)[0][:, 0, :]
-        sampled = sample_guided(
-            logits, spk_g, prompt_g, cfg_rows, temperature, top_p,
-            generator=generator, noise=None if noise is None else noise[step + 1],
-        )
-        nxt = torch.where(done, eoa, sampled)  # finished rows stay frozen on EOA
-        out_buf[:, step] = nxt
-        out_len += (~done).to(out_len.dtype)
-        done = done | (nxt == end_of_audio_token)
-        cur = nxt
-        steps += 1
+    run = {}
+    tokens, lengths = decode(
+        params, cfg, first, t_true, kv_cache, spk, max_steps - 1,
+        temperature=temperature, top_p=top_p, guidance_scale=spk_g, end_of_audio_token=end_of_audio_token,
+        compute_dtype=compute_dtype, generator=generator, noise=None if noise is None else noise[1:],
+        stats=run, **guided,
+    )
     if stats is not None:
-        stats["decode_steps"] = steps
-    n = int(out_len[0])
+        stats["decode_steps"] = run["decode_steps"]
+    n = int(lengths[0])
     return np.concatenate([
         np.asarray(prompt_tokens, np.int32),
         first.cpu().numpy().astype(np.int32),
-        out_buf[0, :n].cpu().numpy().astype(np.int32),
+        tokens[0, :n].cpu().numpy().astype(np.int32),
     ])
+
+
+# --------------------------------------------------------------------------------------
+# Ragged batched generation
+# --------------------------------------------------------------------------------------
+#
+# As in the JAX package: every prompt is LEFT-padded to one bucket T, each
+# row gets its logical positions max(arange(T) - pad_len, 0) and the
+# attention window [pad_len_row, pos] (the decode kernels' ``starts``), so
+# all rows prefill and decode in lockstep at one physical position.
+
+
+def left_pad_prompts(prompts: list, bucket: int, pad_id: int = 0):
+    """list of 1-D int sequences -> ((B, bucket) int32, pad_lens (B,) int32);
+    a prompt longer than the bucket keeps its last ``bucket`` tokens."""
+    b = len(prompts)
+    out = np.full((b, bucket), pad_id, np.int32)
+    pad_lens = np.zeros((b,), np.int32)
+    for i, p in enumerate(prompts):
+        p = np.asarray(p, np.int32)[-bucket:]
+        out[i, bucket - len(p):] = p
+        pad_lens[i] = bucket - len(p)
+    return out, pad_lens
+
+
+def _batch_masks(pad_lens2: torch.Tensor, t: int, s: int) -> torch.Tensor:
+    """(2B, 1, T, S) prefill mask: the query at slot i sees slot j iff j <= i
+    and j >= the row's pad length. A query inside the padding sees no slot;
+    the -1e30 fill spreads its softmax over the whole (finite) cache layer,
+    as in the JAX package, and no real query reads its rows."""
+    q_pos = torch.arange(t, device=pad_lens2.device)
+    kv_pos = torch.arange(s, device=pad_lens2.device)
+    causal = q_pos[:, None] >= kv_pos[None, :]
+    valid = kv_pos[None, :] >= pad_lens2[:, None]
+    return causal[None, None] & valid[:, None, None, :]
+
+
+@torch.inference_mode()
+def prefill_batch(
+    params: tfm.Params,
+    cfg: TransformerConfig,
+    prompts: torch.Tensor,  # (B, T) left-padded
+    pad_lens: torch.Tensor,  # (B,)
+    spk_emb: torch.Tensor,  # (B, spk_dim)
+    kv_cache: tfm.KVCache,  # 2B rows
+    temperature,
+    top_p,
+    guidance_scale,
+    compute_dtype=torch.bfloat16,
+    *,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Ragged prefill of the CFG rows ``[B cond; B uncond]``, the cache
+    written in place; samples each row's first token from the last column
+    -> (B,). Knobs: scalars or (B, 1) tensors. A bucket of at most
+    ``MULTI_MAX_T`` (16) tokens is refused: such a cached forward takes the
+    short-window route, whose window starts at ``min(start, cache_pos)``,
+    so it cannot hide the left padding at slot 0."""
+    b, t = prompts.shape
+    if t <= tfm.MULTI_MAX_T:
+        raise ValueError(f"a batch prompt bucket must exceed {tfm.MULTI_MAX_T} tokens, got {t}")
+    pad2 = _cfg_rows(pad_lens)
+    positions = (torch.arange(t, device=prompts.device)[None, :] - pad_lens[:, None].long()).clamp(min=0)
+    x = tfm.embed_inputs(params, cfg, _cfg_rows(prompts), _cfg_rows(positions), _cfg_rows(spk_emb),
+                         make_spk_cond_mask(b, device=prompts.device), compute_dtype)
+    x, _ = tfm.apply_blocks(params, cfg, x, _batch_masks(pad2, t, kv_cache.max_seq_len), kv_cache, 0)
+    logits = tfm.output_logits(params, cfg, x[:, -1:, :])[0][:, 0, :]
+    return sample_guided(logits, guidance_scale, 1.0, 2, temperature, top_p, generator=generator, noise=noise)
+
+
+def _per_row(v, b: int, device) -> torch.Tensor:
+    """A scalar or a length-B sequence -> a (B, 1) f32 tensor."""
+    return torch.broadcast_to(torch.as_tensor(np.asarray(v, np.float32).reshape(-1)), (b,)).reshape(b, 1).to(device)
+
+
+@torch.inference_mode()
+def generate_batch(
+    params: tfm.Params,
+    cfg: TransformerConfig,
+    prompts: list,  # B ragged int sequences
+    spk_embs,  # (B, spk_dim), numpy or tensor
+    *,
+    generator: torch.Generator | None = None,
+    temperature=1.0,  # scalar or a length-B sequence
+    top_p=0.95,  # scalar or per row
+    guidance_scale=3.0,  # scalar or per row (speaker CFG on 2 cache rows)
+    max_new_tokens: int | None = None,
+    end_of_audio_token: int = T.END_OF_AUDIO_TOKEN,
+    prompt_pad_multiple: int = 128,
+    compute_dtype=torch.bfloat16,
+    cache_dtype=None,
+    noise: torch.Tensor | None = None,
+    stats: dict | None = None,
+) -> list[np.ndarray]:
+    """Decode a ragged batch -> B int32 arrays of generated tokens (prompt
+    not included, EOA included when emitted).
+
+    The prompts are left-padded to one bucket (:func:`left_pad_prompts`),
+    prefilled together (:func:`prefill_batch`) and decoded in lockstep
+    (:func:`decode` with ``pad_lens``) on ``2B`` cache rows; each row has
+    its own EOA latch. The knobs take per-row sequences, as (B, 1) tensors
+    through the temperature, top-p and CFG math. ``noise`` (n, B, V): the
+    Gumbel noise of the n-th sampled token of every row (n = 0: the
+    prefill's). ``stats["decode_steps"]``: the T=1 forwards run.
+    """
+    device = params["wpe"].device
+    b = len(prompts)
+    longest = max(len(p) for p in prompts)
+    bucket = min(-(-longest // prompt_pad_multiple) * prompt_pad_multiple, cfg.block_size)
+    padded, pad_lens = left_pad_prompts(prompts, bucket)
+    max_steps = _budget(cfg, bucket, max_new_tokens, noise, "Prompts are")
+    knobs = dict(temperature=_per_row(temperature, b, device), top_p=_per_row(top_p, b, device),
+                 guidance_scale=_per_row(guidance_scale, b, device))
+    kv = tfm.KVCache.create(cfg, 2 * b, cfg.block_size, dtype=cache_dtype or compute_dtype, device=device)
+    spk = torch.as_tensor(np.asarray(spk_embs, np.float32)).reshape(b, -1).to(device)
+    pads = torch.as_tensor(pad_lens, device=device)
+    first = prefill_batch(params, cfg, torch.as_tensor(padded, dtype=torch.int64, device=device), pads, spk, kv,
+                          compute_dtype=compute_dtype, generator=generator,
+                          noise=None if noise is None else noise[0], **knobs)
+    tokens, lengths = decode(
+        params, cfg, first, bucket, kv, spk, max_steps - 1, pad_lens=pads, end_of_audio_token=end_of_audio_token,
+        compute_dtype=compute_dtype, generator=generator, noise=None if noise is None else noise[1:],
+        stats=stats, **knobs,
+    )
+    # one host transfer for the whole batch
+    fetch = torch.cat([first[:, None], lengths[:, None], tokens], dim=1).cpu().numpy().astype(np.int32)
+    return [np.concatenate([fetch[i, :1], fetch[i, 2 : 2 + fetch[i, 1]]]) for i in range(b)]
+
+
+# --------------------------------------------------------------------------------------
+# Streaming segment generation (time to first audio)
+# --------------------------------------------------------------------------------------
+
+
+@torch.inference_mode()
+def generate_segments(
+    params: tfm.Params,
+    cfg: TransformerConfig,
+    prompt_tokens,
+    spk_emb,
+    *,
+    generator: torch.Generator | None = None,
+    segment_tokens: int = 150,  # 75 frames = 1 s of audio a segment
+    first_segment_tokens: int | None = None,  # a smaller first segment: sooner first audio
+    temperature: float = 1.0,
+    top_p: float = 0.95,
+    guidance_scale: float | tuple[float, float] = 3.0,
+    max_new_tokens: int | None = None,
+    end_of_audio_token: int = T.END_OF_AUDIO_TOKEN,
+    end_of_text_token: int = 0,
+    prompt_pad_multiple: int = 128,
+    compute_dtype=torch.bfloat16,
+    cache_dtype=None,
+    kv_cache: tfm.KVCache | None = None,
+    noise: torch.Tensor | None = None,
+    stats: dict | None = None,
+):
+    """Yield the generated tokens in segments (int32 arrays) instead of one
+    final array; joined they are :func:`generate`'s tokens after the prompt
+    under the same draws.
+
+    Each segment resumes :func:`decode` from the carried ``(cur, pos,
+    cache)`` with one host read; the first ``first_segment_tokens`` (then
+    ``segment_tokens``) tokens make a segment, both even so the h0/h1
+    interleaving splits into whole EnCodec frames. The prefill's token is
+    not read before the first decode runs; if it was EOA, that decode is
+    dropped and the stream is that token alone. The stream ends at EOA
+    (included) or when the budget runs out. ``kv_cache``, ``noise`` and
+    ``stats`` as in :func:`generate`.
+    """
+    if segment_tokens % 2 != 0:
+        raise ValueError("segment_tokens must be even (whole interleaved frames)")
+    if first_segment_tokens is None:
+        first_segment_tokens = segment_tokens
+    if first_segment_tokens % 2 != 0:
+        raise ValueError("first_segment_tokens must be even")
+    spk_g, prompt_g, cfg_rows = check_guidance(guidance_scale, end_of_text_token, end_of_audio_token)
+    device = params["wpe"].device
+    padded, t_true = pad_to_bucket(prompt_tokens, prompt_pad_multiple, max_len=cfg.block_size)
+    budget = _budget(cfg, t_true, max_new_tokens, noise, "Prompt is")
+    kv = kv_cache
+    if kv is None or kv.batch_size != cfg_rows:
+        kv = tfm.KVCache.create(cfg, cfg_rows, cfg.block_size, dtype=cache_dtype or compute_dtype, device=device)
+    spk = torch.as_tensor(np.asarray(spk_emb, np.float32)).reshape(1, -1).to(device)
+    guided = dict(cfg_rows=cfg_rows, prompt_guidance_scale=prompt_g, end_of_text_token=end_of_text_token)
+    cur = prefill(
+        params, cfg, torch.as_tensor(padded, dtype=torch.int64, device=device)[None, :], t_true, spk, kv,
+        temperature, top_p, spk_g, compute_dtype, generator=generator,
+        noise=None if noise is None else noise[0], **guided,
+    )
+    pos = t_true
+    pending: list[int] = []
+    seed_pending = 1  # the unread prefill token heads `pending`
+    emitted = 1
+    target = first_segment_tokens  # then segment_tokens
+    while emitted < budget and pos < cfg.block_size:
+        step_budget = min(target - len(pending) - seed_pending, budget - emitted, cfg.block_size - pos)
+        if step_budget <= 0:
+            break
+        tokens, lengths = decode(
+            params, cfg, cur, pos, kv, spk, step_budget, temperature=temperature, top_p=top_p,
+            guidance_scale=spk_g, end_of_audio_token=end_of_audio_token, compute_dtype=compute_dtype,
+            generator=generator, noise=None if noise is None else noise[emitted : emitted + step_budget],
+            stats=stats, **guided,
+        )
+        next_cur = tokens[:, (lengths[0] - 1).clamp(min=0)]  # stays on the device
+        fetch = torch.cat([cur.reshape(-1), lengths.reshape(-1), tokens[0]]).cpu().numpy().astype(np.int32)
+        seed_tok, n = int(fetch[0]), int(fetch[1])
+        toks = fetch[2 : 2 + n]
+        if seed_pending:
+            if seed_tok == end_of_audio_token:
+                yield np.asarray([seed_tok], np.int32)
+                return
+            pending.append(seed_tok)
+            seed_pending = 0
+        pending.extend(int(t) for t in toks)
+        emitted += n
+        pos += n
+        done = n > 0 and toks[-1] == end_of_audio_token
+        if len(pending) >= target or done or emitted >= budget:
+            yield np.asarray(pending, np.int32)
+            pending = []
+            target = segment_tokens
+        if done or n == 0:
+            return
+        cur = next_cur
+    if seed_pending:  # the loop never ran (a budget of 1): the prefill token alone
+        pending = [int(cur[0])] + pending
+    if pending:
+        yield np.asarray(pending, np.int32)

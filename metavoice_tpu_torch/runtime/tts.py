@@ -12,9 +12,19 @@ Port of the default path of metavoice_tpu/runtime/tts.py:
      (models/spec_decode), whose T=gamma verify attends through the
      multi-query kernel;
   3. token split (core/tokens.split_flattened_interleaved);
-  4. second-stage non-causal completion (models/second_stage);
-  5. EnCodec decoder (models/encodec), then the spectral-gate enhancer and a
+  4. second-stage non-causal completion (models/second_stage) and the
+     EnCodec decoder (models/encodec) as one function on device tensors
+     (``stage2_vocode``, no host copy between the two, the codes padded to
+     a vocoder bucket), then the spectral-gate enhancer and a
      loudness-normalized wav write.
+
+``synthesise_streaming`` yields the wav segment by segment: the first stage
+pauses at even segment boundaries (first_stage.generate_segments) and each
+segment takes the same render as a whole utterance. ``warmup`` loads
+the kernel library and runs every prompt bucket, guidance variant and
+vocoder bucket once, so no request builds or first-runs anything;
+``get_tokens`` EnCodec-encodes a wav and ``render_tokens`` renders a
+first-stage stream to a file.
 
 Everything runs on the ``device`` given (default "cuda"; asking for cuda
 without a card raises). ``quantisation_mode="int4"`` packs the first stage's
@@ -60,8 +70,8 @@ through the int4 decode-stack kernel). ``spec_stats`` accumulates the
 acceptance ledger. As in the JAX package the speculative path refuses
 tensor parallelism and keeps bf16 caches whatever ``kv_cache_dtype`` is.
 
-Not ported yet: tensor parallelism, a draft checkpoint loader, streaming,
-MBD and the DF enhancer.
+Not ported yet: tensor parallelism, a draft checkpoint loader
+(``from_checkpoints``), MBD and the DF enhancer.
 """
 
 from __future__ import annotations
@@ -94,6 +104,7 @@ from metavoice_tpu_torch.models import spec_decode as sd
 from metavoice_tpu_torch.models import speaker_encoder as se
 from metavoice_tpu_torch.models import transformer as tfm
 from metavoice_tpu_torch.models.enhancer import get_enhancer
+from metavoice_tpu_torch.ops import _build
 from metavoice_tpu_torch.ops.attention import (
     decode_attention,
     decode_attention_block_int4,
@@ -144,6 +155,46 @@ _QUANTIZERS = {"int4": quantize_params_int4_i32, "int8": quantize_params_int8_i3
 
 def _launches() -> dict[str, int]:
     return {k: getattr(fn, attr) for k, (fn, attr) in KERNEL_COUNTERS.items()}
+
+
+def _vocoder_bucket(t_audio: int) -> int:
+    """The code length the vocoder sees: 1/3 s granularity up to 1 s, 1 s
+    above, as in the JAX package."""
+    return max(25, -(-t_audio // 25) * 25) if t_audio <= 75 else -(-t_audio // 75) * 75
+
+
+@torch.inference_mode()
+def stage2_vocode(
+    params2: tfm.Params,
+    eparams: dict,
+    cfg2: TransformerConfig,
+    ecfg: ec.EncodecConfig,
+    idx: torch.Tensor,  # (1, 2, ctx) second-stage input (text+h0 / pad+h1)
+    spk: torch.Tensor,  # (1, spk_dim)
+    n_text: int,
+    n_audio: int,
+    coarse_pad: torch.Tensor,  # (2, bucket) the true coarse rows
+    *,
+    bucket: int,
+    top_k: int = 200,
+    compute_dtype=torch.bfloat16,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The second stage and the EnCodec vocoder in one function on device
+    tensors (the JAX package's ``_stage2_vocode_jit``) -> (1, bucket * hop)
+    wav: sample the 6 fine rows, stack [inputs; sampled], slice the audio
+    region at ``n_text``, put back the true coarse rows, zero past
+    ``n_audio``, clip to the codebook, decode. ``noise`` replaces the
+    second stage's Gumbel draws."""
+    sampled = ss.non_causal_sample(params2, cfg2, idx, spk, 1.0, top_k=top_k, compute_dtype=compute_dtype,
+                                   generator=generator, noise=noise)  # (1, 6, ctx)
+    full = torch.cat([idx[0], sampled[0]], dim=0)  # (8, ctx)
+    full = torch.nn.functional.pad(full, (0, bucket))  # keep the slice whole
+    region = full[:, n_text : n_text + bucket].clone()
+    region[0:2] = coarse_pad
+    region[:, n_audio:] = 0
+    return ec.decode_codes(eparams, ecfg, region.clamp(0, T.CODEBOOK_SIZE - 1))
 
 
 @dataclass
@@ -261,8 +312,9 @@ class TTS:
         # 3-row one for (speaker, prompt) guidance made at its first use
         self._kv_cache = self._create_kv_cache(2)
         self._kv_cache3: tfm.KVCache | None = None
-        # seconds per stage of the last synthesise; the first stage's decode
-        # step count (speculative rounds with a draft) and the kernel
+        # seconds per stage of the last synthesise or stream (the second
+        # stage + vocoder under "stage2_vocode_fused"); the first
+        # stage's decode step count (speculative rounds with a draft) and the kernel
         # launches (K1 decode attention, K2 int4 matmul, K3 int4 decode
         # stack, K4 multi-query decode attention, K5 int4 attention block,
         # K6 int4 FFN, K7 int8 decode stack, K8 int8 matmul, K9 plain-int8
@@ -321,6 +373,53 @@ class TTS:
         kwargs.setdefault("enforce_min_ref_duration", False)
         return cls(comps, device=dev, **kwargs)
 
+    # ------------------------------------------------------------------ warmup
+    @torch.inference_mode()
+    def warmup(
+        self,
+        prompt_buckets: tuple[int, ...] = (128, 256),
+        vocoder_frame_buckets: tuple[int, ...] = (25, 50, 75, 150, 225, 300),
+        guidance_variants: tuple = (3.0, (2.0, 1.5)),
+    ) -> None:
+        """Run the serving envelope once, so that no request is the first to
+        build or run anything (the JAX package's warmup, without MBD):
+
+          * on the card, load the kernel library (``ops/_build.kernels()``:
+            the nvcc build, when the sources have no build yet);
+          * per prompt bucket and guidance variant, a prefill and 4 decode
+            steps on the persistent cache (with a draft, a speculative round
+            too): each route's kernels run once eagerly, which also makes
+            their per-device merge counters;
+          * the second stage + vocoder (``stage2_vocode``) at every
+            vocoder bucket up to ``vocoder_frame_buckets[-1]`` frames.
+
+        The draws come from a generator of its own: the TTS's stays as it
+        was.
+        """
+        if self.device.type == "cuda":
+            _build.kernels()
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        cfg1 = self.c.first_stage_cfg
+        spk = np.zeros((cfg1.speaker_emb_dim,), np.float32)
+        eot = self.c.tokenizer.eot_token
+        prompt = []
+        for bucket in prompt_buckets:
+            bucket = min(bucket, cfg1.block_size // 2)
+            prompt = list(range(T.TEXT_OFFSET, T.TEXT_OFFSET + min(bucket, 16)))
+            padded = prompt + [0] * (bucket - len(prompt))
+            for g in guidance_variants:
+                common = dict(generator=gen, guidance_scale=g, end_of_text_token=eot, prompt_pad_multiple=bucket,
+                              kv_cache=self._persistent_kv_cache(g), compute_dtype=self._compute_dtype)
+                fs.generate(self.c.first_stage_params, cfg1, padded, spk, max_new_tokens=4, **common)
+                if self._draft_params is not None:
+                    sd.generate_spec(
+                        self.c.first_stage_params, cfg1, self._draft_params, self._draft_cfg, padded, spk,
+                        gamma=self._spec_gamma, draft_use_cfg=self._draft_use_cfg,
+                        max_new_tokens=self._spec_gamma + 1, **common,
+                    )
+        for n_audio in vocoder_frame_buckets:
+            self._render(prompt, [list(range(n_audio))] * 2, spk, gen)
+
     @contextlib.contextmanager
     def _stage(self, name: str):
         """Add the stage's wall seconds (device work included) to timings."""
@@ -346,6 +445,19 @@ class TTS:
             self._emb_cache.popitem(last=False)
         return emb
 
+    # ------------------------------------------------------------------ token utilities
+    @torch.inference_mode()
+    def get_tokens(self, audio_path: str) -> list[list[int]]:
+        """EnCodec-encode an audio file (reference fam/llm/decoders.py:49-64)
+        -> the (n_q, T) code grid as nested lists, codebook-major. The wav is
+        loaded at the codec's rate and trimmed to whole frames."""
+        ecfg = self.c.encodec_cfg
+        wav, _ = aio.load_audio(audio_path, target_sr=ecfg.sample_rate)
+        if len(wav) >= ecfg.hop_length:
+            wav = wav[: len(wav) // ecfg.hop_length * ecfg.hop_length]
+        codes = ec.encode_codes(self.c.encodec_params, ecfg, wav[None])
+        return codes[0].cpu().numpy().tolist()
+
     # ------------------------------------------------------------------ synthesis
     @torch.inference_mode()
     def _tokens_to_wav(
@@ -356,39 +468,45 @@ class TTS:
         spk_emb: np.ndarray,
         noise: torch.Tensor | None = None,
     ) -> np.ndarray:
-        """First-stage token stream -> 24 kHz waveform: split, second stage,
-        EnCodec decoder, enhancer. ``noise`` replaces the second stage's
-        Gumbel draws (tests)."""
+        """First-stage token stream -> 24 kHz waveform: split, then
+        ``_render``. ``noise`` replaces the second stage's Gumbel draws
+        (tests)."""
         _text_ids, coarse = T.split_flattened_interleaved(token_stream, self.END_OF_AUDIO_TOKEN)
         if len(coarse[0]) == 0:
             raise RuntimeError(f"first stage produced no audio tokens for: {text!r}")
-        with self._stage("second_stage"):
-            full_codes = ss.complete_hierarchies(
-                self.c.second_stage_params,
-                self.c.second_stage_cfg,
-                prompt_tokens,
-                coarse,
-                spk_emb,
-                generator=self._gen,
-                temperature=1.0,
-                top_k=200,
-                compute_dtype=self._compute_dtype,
-                noise=noise,
-            )  # (8, T_audio)
-        # the vocoder sees the code length padded to a bucket (1/3 s under
-        # 1 s, 1 s above), as in the JAX package, and the wav is trimmed after
-        t_audio = full_codes.shape[1]
-        bucket = max(25, -(-t_audio // 25) * 25) if t_audio <= 75 else -(-t_audio // 75) * 75
-        if bucket != t_audio:
-            full_codes = np.pad(full_codes, ((0, 0), (0, bucket - t_audio)))
-        with self._stage("vocoder"):
-            wav = ec.decode_codes(self.c.encodec_params, self.c.encodec_cfg, full_codes)
-            wav = wav[0].float().cpu().numpy()
-        wav = wav[: t_audio * self.c.encodec_cfg.hop_length]
+        return self._render(prompt_tokens, coarse, spk_emb, self._gen, noise)
+
+    def _render(self, prompt_tokens: list, coarse: list, spk_emb, generator,
+                noise: torch.Tensor | None = None) -> np.ndarray:
+        """The two coarse rows -> 24 kHz float32 waveform: ``stage2_vocode``
+        at the vocoder bucket of the frames (timed as
+        ``"stage2_vocode_fused"``), the wav trimmed to the frames, then the
+        enhancer."""
+        ctx = self.c.second_stage_cfg.block_size
+        n_text = len(prompt_tokens)
+        n_audio = min(len(coarse[0]), ctx - n_text)
+        bucket = _vocoder_bucket(n_audio)
+        coarse_pad = np.zeros((2, bucket), np.int64)
+        coarse_pad[0, :n_audio] = np.asarray(coarse[0][:n_audio])
+        coarse_pad[1, :n_audio] = np.asarray(coarse[1][:n_audio])
+        with self._stage("stage2_vocode_fused"):
+            wav = stage2_vocode(
+                self.c.second_stage_params, self.c.encodec_params, self.c.second_stage_cfg, self.c.encodec_cfg,
+                torch.as_tensor(T.build_second_stage_input(prompt_tokens, coarse, ctx), dtype=torch.int64,
+                                device=self.device)[None],
+                torch.as_tensor(np.asarray(spk_emb, np.float32), device=self.device).reshape(1, -1),
+                n_text, n_audio, torch.as_tensor(coarse_pad, device=self.device),
+                bucket=bucket, compute_dtype=self._compute_dtype, generator=generator, noise=noise,
+            )
+            wav = wav[0].float().cpu().numpy()[: n_audio * self.c.encodec_cfg.hop_length]
         if self.c.enhancer is not None:
             with self._stage("enhancer"):
                 wav = self.c.enhancer(wav, self.c.encodec_cfg.sample_rate)
         return wav.astype(np.float32)
+
+    def render_tokens(self, text: str, prompt_tokens: list, generated, spk_emb: np.ndarray) -> str:
+        """Render a generated first-stage stream to a wav file on disk."""
+        return self.write_wav_output(text, self._tokens_to_wav(text, prompt_tokens, generated, spk_emb))
 
     def write_wav_output(self, text: str, wav: np.ndarray) -> str:
         """Loudness-normalized write to a unique path in output_dir."""
@@ -442,6 +560,63 @@ class TTS:
         for k, n in _launches().items():
             self.stats[k] = self.stats.get(k, 0) + n - launches[k]
         return self._tokens_to_wav(text, prompt, seq, spk_emb)
+
+    def synthesise_streaming(
+        self,
+        text: str,
+        spk_ref_path: str,
+        top_p: float = 0.95,
+        guidance_scale: float | tuple[float, float] = 3.0,
+        temperature: float = 1.0,
+        segment_tokens: int = 150,
+        first_segment_tokens: int = 40,
+        max_new_tokens: int | None = None,
+        noise: torch.Tensor | None = None,
+        stage2_noise: torch.Tensor | None = None,
+    ):
+        """Yield 24 kHz float32 wav chunks as they are synthesised: each text
+        chunk's first stage pauses at even segment boundaries
+        (first_stage.generate_segments; the first segment
+        ``first_segment_tokens`` long, about 1/4 s of audio by default, the
+        later ones ``segment_tokens``) and each segment runs through the
+        second stage + vocoder and the enhancer at once. A segment
+        that holds only the end-of-audio token yields nothing. Everything
+        runs in the caller's thread, between its reads of the stream.
+        ``max_new_tokens`` caps the first stage per chunk, as in
+        ``synthesise``. ``timings`` and ``stats`` describe the stream so far. ``noise`` (n,
+        1, V) and ``stage2_noise`` replace each chunk's first-stage and each
+        segment's second-stage Gumbel draws (tests)."""
+        self.timings, self.stats = {}, {}
+        launches = _launches()
+        text = normalize_text(text)
+        spk_ref_path = aio.get_cached_file(spk_ref_path)
+        if self._enforce_min_ref:
+            aio.check_audio_file(spk_ref_path)
+        with self._stage("spk_emb"):
+            spk_emb = self._get_speaker_embedding(spk_ref_path)
+        for chunk in chunk_text(text, MAX_CHARS_PER_CHUNK) or [""]:
+            prompt = self.c.tokenizer.encode(chunk)
+            segments = fs.generate_segments(
+                self.c.first_stage_params, self.c.first_stage_cfg, prompt, spk_emb,
+                generator=self._gen, segment_tokens=segment_tokens,
+                first_segment_tokens=min(first_segment_tokens, segment_tokens),
+                temperature=temperature, top_p=top_p, guidance_scale=guidance_scale,
+                max_new_tokens=max_new_tokens, end_of_text_token=self.c.tokenizer.eot_token,
+                prompt_pad_multiple=self.runtime.prompt_pad_multiple,
+                compute_dtype=self._compute_dtype, cache_dtype=self._cache_format(False),
+                noise=noise, stats=self.stats,
+            )
+            while True:
+                with self._stage("first_stage"):
+                    segment = next(segments, None)
+                for k, n in _launches().items():
+                    self.stats[k] = n - launches[k]
+                if segment is None:
+                    break
+                coarse = T.split_flattened_interleaved(segment, self.END_OF_AUDIO_TOKEN)[1]
+                if len(coarse[0]) == 0:
+                    continue  # the segment held only the end-of-audio token
+                yield self._render(prompt, coarse, spk_emb, self._gen, stage2_noise)
 
     def synthesise(
         self,

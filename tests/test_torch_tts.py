@@ -215,7 +215,7 @@ def test_port_synthesise_writes_wav(pair, ref_wav):
     wav, sr = aio.read_wav(path)
     assert sr == 24000 and len(wav) > 0 and np.isfinite(wav).all()
     assert np.abs(wav).max() <= 1.0
-    assert {"spk_emb", "first_stage", "second_stage", "vocoder"} <= set(tts.timings)
+    assert {"spk_emb", "first_stage", "stage2_vocode_fused"} <= set(tts.timings)
     assert 0 < tts.stats["decode_steps"] <= 23
 
 
