@@ -253,8 +253,40 @@ Phases, one line each; any failure exits non-zero and prints no result:
                the kernel library's load apart, then two synthesises that
                build nothing (the same library, no new file in its build
                directory).
+ 42. engine-small - the serving engine's join and rebase on a 2-layer
+               1024-wide int4 first stage, 2 slots, greedy sampling
+               (temperature and top-p 0.01), 32-token buckets, on a bf16
+               (K3), an int8 and a packed cache (K5, K6; K2 prefills): a
+               request joined at 49 decodes the tokens of generate_batch of
+               it alone, and a group rebased by 128 (after a join at 161)
+               those of the group unmoved, or the two part where the
+               rounding reorders the top two scores (the logits within the
+               route's BATCH_LOGIT_TOL up to there); every landing and shift
+               on the card equal to the CPU's bit for bit;
+ 43. engine-int4 - runtime/engine.ContinuousBatchingEngine on a full-width
+               int4 TTS: 4 slots (8 rows, K3 with starts), segments of 64,
+               rebasing from position 384; engine.warmup timed; seven
+               requests of at most 192 tokens (two at once, the rest
+               submitted after segments 1, 2 and 4 so that they join or
+               wait, one streaming): every wav finite and of its render's
+               samples (its frames' samples), the stream's chunks its
+               renders in order, joins >= 2, rebases >= 1, truncations 0;
+               K3 == decode steps, K2 == 5 x n_layer x (group prefills +
+               joins), every other kernel 0; with the engine idle a speaker
+               embedding and a render launch no kernel; tokens/s, each
+               request's latency, the stream's first chunk and the phase
+               timers (utils/phases) printed; then one join with no render
+               beside it, timed;
+ 44. engine-bf16 - the engine on a full-width bf16 TTS, 8 slots (16 rows,
+               K1 with starts), eight requests of at most 128 tokens (two
+               joining): K1 == n_layer x decode steps, every other kernel 0;
+ 45. server  - runtime/server.make_handler on phase 43's engine at
+               127.0.0.1, port 0: /health; three JSON /tts and one streaming
+               /tts at once (wavs; the stream with live RIFF sizes and no
+               Content-Length); /metrics counting 4 requests, 1 streaming, no
+               error, and the engine's counters; K3 and K2 as in phase 43.
 
-Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34 and 36-39 are the main paths: every kernel count is
+Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39 and 43-45 are the main paths: every kernel count is
 set to 0 just before each and read just after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
@@ -384,6 +416,25 @@ TWO_CALL_TOL = 2e-3  # the fused and the two-call wav (the JAX package's own tes
 # nearest codewords score within ENCODE_GAP of each other (relative)
 ENCODE_LATENT_TOL = 1e-4
 ENCODE_GAP = 1e-4
+# phases 42-45: the serving layer (runtime/engine.py, runtime/server.py)
+ENGINE_SLOTS = 2  # phase 42: 4 cache rows
+ENGINE_BUCKET = 32  # phase 42's prompt buckets (the port refuses 16 tokens or fewer)
+ENGINE_GREEDY = 0.01  # phases 42-44's temperature and top-p: the argmax, whatever the draws
+# phase 42's cache formats -> their route's key in BATCH_LOGIT_TOL
+ENGINE_ROUTES = {"bf16": "int4", "int8": "int4, int8 cache", "int8_packed": "int4, packed cache"}
+ENGINE_INT4_SLOTS = 4  # phase 43: 8 rows, the int4 decode stack (K3) with starts
+ENGINE_BF16_SLOTS = 8  # phase 44: 16 rows, K1 with starts
+ENGINE_SEGMENT = 64  # decode steps a segment
+ENGINE_NEW = 192  # first-stage tokens a request at most, phases 43 and 45
+ENGINE_BF16_NEW = 128  # and phase 44
+ENGINE_REBASE_AT = 384  # phase 43 rebases once the timeline reaches this (rebase_margin = block_size - it)
+# (segments run before the request is submitted, does it stream): phase 43's two at once, two that join,
+# a stream and one more that wait for a slot (deferred, then joined), a late joiner; phase 44's six at
+# once and two that join
+ENGINE_SCHEDULE = ((0, False), (0, False), (1, False), (1, False), (2, True), (2, False), (4, False))
+ENGINE_BF16_SCHEDULE = ((0, False),) * 6 + ((1, False),) * 2
+# phases 43 and 44 submit greedy requests, so each request's tokens can be held against the request alone
+GREEDY_KNOBS = {"temperature": ENGINE_GREEDY, "top_p": ENGINE_GREEDY}
 # H100 SXM data sheet: HBM bytes/s, dense bf16 tensor-core FLOP/s
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
@@ -3673,6 +3724,599 @@ def phase_warmup(torch, workdir: str, ref: str, build_s: float):
           f"{r['synth_s'][1]:.2f} s with no new build (the same library, no new file in the build directory)")
 
 
+# ------------------------------------------------------------------ phases 42-45: the serving layer
+
+
+def _greedy_knobs(torch, b: int, dev):
+    """(B, 1) temperature, top-p and guidance of phase 42's greedy rows."""
+    return [torch.full((b, 1), v, device=dev) for v in (ENGINE_GREEDY, ENGINE_GREEDY, BATCH_GUIDANCE)]
+
+
+def _engine_prefill(torch, params, cfg, prompts: list, spk, kv):
+    """A ragged prefill of ``prompts`` in one ENGINE_BUCKET -> (first tokens, pads)."""
+    from metavoice_tpu_torch.models import first_stage as fs
+
+    dev = params["wpe"].device
+    padded, pads = fs.left_pad_prompts(prompts, ENGINE_BUCKET)
+    first = fs.prefill_batch(params, cfg, torch.as_tensor(padded, dtype=torch.int64, device=dev),
+                             torch.as_tensor(pads, device=dev), torch.as_tensor(spk, device=dev), kv,
+                             *_greedy_knobs(torch, len(prompts), dev))
+    return first.cpu().numpy(), pads
+
+
+def _engine_decode(torch, params, cfg, cur, pos: int, pads, spk, kv, steps: int):
+    """One greedy segment of the group -> (tokens (B, steps), lengths (B,)) on the host."""
+    from metavoice_tpu_torch.models import first_stage as fs
+
+    dev = params["wpe"].device
+    t, p, g = _greedy_knobs(torch, len(cur), dev)
+    buf, lens = fs.decode(params, cfg, torch.as_tensor(cur, dtype=torch.int64, device=dev), pos, kv,
+                          torch.as_tensor(spk, device=dev), steps, pad_lens=torch.as_tensor(pads, device=dev),
+                          temperature=t, top_p=p, guidance_scale=g)
+    return buf.cpu().numpy(), lens.cpu().numpy()
+
+
+def _same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _cache_fields(kv) -> list:
+    return [kv.k, kv.v, kv.k_scale, kv.v_scale]
+
+
+def move_matches_cpu(torch, label: str, move, kv, *more) -> int:
+    """Run a cache move, ``move(kv, *more)`` (caches among ``more`` too), on
+    the card and on CPU copies of the same tensors -> the bytes compared;
+    fails unless every tensor of ``kv`` comes out with the CPU's bits."""
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    def on_cpu(x):
+        return tfm.KVCache(*[None if t is None else t.cpu() for t in _cache_fields(x)]) if isinstance(
+            x, tfm.KVCache) else x
+
+    cpu_kv = on_cpu(kv)
+    move(kv, *more)
+    move(cpu_kv, *[on_cpu(m) for m in more])
+    n = 0
+    for name, a, b in zip(("k", "v", "k_scale", "v_scale"), _cache_fields(kv), _cache_fields(cpu_kv)):
+        if a is None:
+            continue
+        if not _same_bits(torch, a.cpu(), b):
+            fail(f"{label}: the card's {name} after the move is not the CPU's, bit for bit")
+        n += a.numel() * a.element_size()
+    return n
+
+
+def greedy_rows_agree(torch, label: str, a, c, logits_a, logits_c, tol: float) -> str:
+    """Two greedy runs of one row (a: the reference): the logits of both
+    within ``tol`` of max |ref| up to where the tokens part (rows_agree), and
+    at that step the two tokens the reference's top two guided scores,
+    closer than twice the largest score gap between the runs (phase 23's
+    rounding flip). -> what was seen; fails otherwise."""
+    from metavoice_tpu_torch.core import sampling as S
+
+    seen, worst = rows_agree(torch, label, a, c, logits_a, logits_c, tol)
+    if seen == "same":
+        return f"{len(a)} tokens the same (logits within {worst:.3g} of max |ref|)"
+    i = next(i for i in range(min(len(a), len(c))) if a[i] != c[i])
+    ref, other = (S.cfg_merge(f(i).float(), BATCH_GUIDANCE)[0].cpu() for f in (logits_a, logits_c))
+    top2 = torch.topk(ref, 2)
+    margin = (top2.values[0] - top2.values[1]).item()
+    gap = (other - ref).abs().max().item()
+    if {int(a[i]), int(c[i])} != set(top2.indices.tolist()) or margin > 2 * gap:
+        fail(f"{label}: the tokens part at step {i} ({a[i]} vs {c[i]}) and that is no rounding flip: the "
+             f"reference's top two {top2.indices.tolist()} are {margin:.4g} apart, the largest score gap "
+             f"{gap:.4g}")
+    return (f"the first {i} of {len(a)} tokens the same, then a rounding flip ({a[i]} vs {c[i]}, the top two "
+            f"{margin:.3g} apart against a score gap of {gap:.3g}; logits within {worst:.3g} of max |ref| up to it)")
+
+
+def _join_group(torch, params, cfg, cache, prompts, spk_ab, steps_before: int, seen: list):
+    """Phase 42's schedule: A alone in slot 0 of ENGINE_SLOTS, ``steps_before``
+    greedy steps, then B joins slot 1 at that position P (a temp prefill
+    landed at P - ENGINE_BUCKET, held against the CPU's landing bit for bit)
+    -> (kv, pos, pads, spk, cur, B's first token's logits index in ``seen``,
+    the bytes compared)."""
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.runtime.engine import land_rows
+    import numpy as np
+
+    dev = params["wpe"].device
+    kv = tfm.KVCache.create(cfg, 2 * ENGINE_SLOTS, cfg.block_size, dtype=cache, device=dev)
+    spk = np.stack([spk_ab[0], np.zeros_like(spk_ab[0])])
+    first, pads = _engine_prefill(torch, params, cfg, [prompts[0], [0]], spk, kv)
+    buf, _ = _engine_decode(torch, params, cfg, [int(first[0]), 0], ENGINE_BUCKET, pads, spk, kv, steps_before)
+    pos = ENGINE_BUCKET + steps_before
+    temp = tfm.KVCache.create(cfg, 2, ENGINE_BUCKET, dtype=cache, device=dev)
+    k_first = len(seen)
+    first_b, _ = _engine_prefill(torch, params, cfg, [prompts[1]], spk_ab[1:], temp)
+    n = move_matches_cpu(torch, f"42 engine-small landing at {pos - ENGINE_BUCKET}", lambda kv_, t_: land_rows(
+        kv_, t_, pos - ENGINE_BUCKET, 1, ENGINE_SLOTS + 1, cfg.n_local_heads), kv, temp)
+    spk[1] = spk_ab[1]
+    pads = pads.copy()
+    pads[1] = pos - len(prompts[1])
+    return kv, pos, pads, spk, [int(buf[0, -1]), int(first_b[0])], k_first, n
+
+
+def _continue_b(torch, params, cfg, kv, pos: int, pads, spk, cur, steps: int, seen: list) -> tuple[list, list]:
+    """Decode the group ``steps`` more greedy steps in segments of 16 -> (B's
+    tokens, the indices in ``seen`` of their logits)."""
+    toks, idx = [], []
+    for _ in range(steps // 16):
+        k0 = len(seen)
+        buf, lens = _engine_decode(torch, params, cfg, cur, pos, pads, spk, kv, 16)
+        toks += buf[1, : lens[1]].tolist()
+        idx += list(range(k0, k0 + int(lens[1])))
+        cur = [int(buf[0, -1]), int(buf[1, -1])]
+        pos += 16
+    return toks, idx
+
+
+def phase_engine_small(torch, dev: str = "cuda"):
+    """42: the engine's join and rebase on a 2-layer 1024-wide int4 first stage."""
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+    from metavoice_tpu_torch.runtime.engine import shift_rows
+
+    cfg = first_stage_config(n_layer=2, n_head=8, dim=1024, intermediate_size=2048, block_size=512)
+    gen = torch.Generator().manual_seed(42)
+    params = Q.quantize_params_int4_i32(tfm.init_params(cfg, device="cpu", generator=gen, dtype=torch.bfloat16))
+    params = to_cuda(params) if dev == "cuda" else params
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist() for n in (4, 5)]
+    spk_ab = torch.randn((2, 256), generator=gen).numpy()
+    n_new = 48
+    shown, moved = [], 0
+    for fmt, cache in (("bf16", torch.bfloat16), ("int8", "int8"), ("int8_packed", "int8_packed")):
+        route = ENGINE_ROUTES[fmt]
+        tol = BATCH_LOGIT_TOL[route]
+        _zero_counts()
+        with recorded_logits() as seen_f:
+            fresh = fs.generate_batch(params, cfg, [prompts[1]], spk_ab[1:], temperature=ENGINE_GREEDY,
+                                      top_p=ENGINE_GREEDY, guidance_scale=BATCH_GUIDANCE, max_new_tokens=n_new,
+                                      prompt_pad_multiple=ENGINE_BUCKET, cache_dtype=cache)[0].tolist()
+        # a join: at P = 49, the packed landing one byte past a word boundary
+        with recorded_logits() as seen_j:
+            kv, pos, pads, spk, cur, k_first, n = _join_group(torch, params, cfg, cache, prompts, spk_ab, 17, seen_j)
+            toks, idx = _continue_b(torch, params, cfg, kv, pos, pads, spk, cur, n_new, seen_j)
+        moved += n
+        joined = ([cur[1]] + toks)[: len(fresh)]
+        lj = [lambda i: _row_logits(seen_j[k_first], 0, 1)] + [
+            (lambda k: lambda i: _row_logits(seen_j[k], 1, ENGINE_SLOTS))(k) for k in idx]
+        join_seen = greedy_rows_agree(torch, f"42 engine-small {fmt} join", fresh, joined,
+                                      lambda i: _row_logits(seen_f[i], 0, 1), lambda i: lj[i](i), tol)
+        # a rebase: B joins at 161 (its landing at 129, off the word grid), A retires, the group
+        # slides left by 128 (<= B's start) and decodes on; against the same group unmoved
+        with recorded_logits() as seen_r:
+            kv, pos, pads, spk, cur, _, n = _join_group(torch, params, cfg, cache, prompts, spk_ab, 129, seen_r)
+            moved += n
+            pads[0] = pos  # A retires: an empty window
+            snap = tfm.KVCache(*[None if t is None else t.clone() for t in _cache_fields(kv)])
+            plain, idx_p = _continue_b(torch, params, cfg, kv, pos, pads, spk, cur, 32, seen_r)
+            s = fs.REBASE_ALIGN
+            moved += move_matches_cpu(torch, f"42 engine-small {fmt} shift by {s}",
+                                      lambda kv_: shift_rows(kv_, s, pos), snap)
+            moved_toks, idx_m = _continue_b(torch, params, cfg, snap, pos - s, pads - s, spk, cur, 32, seen_r)
+        rebase_seen = greedy_rows_agree(
+            torch, f"42 engine-small {fmt} rebase", plain, moved_toks,
+            lambda i: _row_logits(seen_r[idx_p[i]], 1, ENGINE_SLOTS),
+            lambda i: _row_logits(seen_r[idx_m[i]], 1, ENGINE_SLOTS), tol)
+        counts = read_counts()
+        decode_kernels = ("k3_launches",) if fmt == "bf16" else ("k5_launches", "k6_launches")
+        if dev == "cuda" and not (counts["k2_launches"] > 0 and all(counts[k] > 0 for k in decode_kernels)
+                                  and not any(v for k, v in counts.items()
+                                              if k not in decode_kernels + ("k2_launches",))):
+            fail(f"42 engine-small {fmt}: launched {counts}, expected K2 and {decode_kernels} alone")
+        shown.append(f"{fmt} cache ({route}, tol {tol}): join at 49 == B alone: {join_seen}; rebase by 128 == "
+                     f"unmoved: {rebase_seen}; launches {({k: v for k, v in counts.items() if v})}")
+    print(f"[42 engine-small] int4 first stage (2L/8H/1024d, Ip 2048), {ENGINE_SLOTS} slots, greedy, "
+          f"{ENGINE_BUCKET}-token buckets, on {dev}: {'; '.join(shown)}; every landing and shift equal to the "
+          f"CPU's bit for bit ({moved} bytes)")
+
+
+def _wait_for(pred, what: str, timeout: float = 300.0):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            fail(f"waited {timeout:.0f} s for {what}")
+        time.sleep(0.002)
+
+
+def _recording_renders(tts) -> list:
+    """Wrap the TTS's render to keep (text, frames, samples) of each render
+    that returned a wav, in the order they ran; fails at the end of the
+    phase if a wav is not its frames' samples."""
+    from metavoice_tpu_torch.core import tokens as T
+
+    real, kept = tts._tokens_to_wav, []
+    ctx2, hop = tts.c.second_stage_cfg.block_size, tts.c.encodec_cfg.hop_length
+
+    def recording(text, prompt, toks, spk, noise=None, *, generator=None):
+        wav = real(text, prompt, toks, spk, noise, generator=generator)
+        frames = min(len(T.split_flattened_interleaved(toks, tts.END_OF_AUDIO_TOKEN)[1][0]), ctx2 - len(prompt))
+        kept.append((text, frames, len(wav), frames * hop))
+        return wav
+
+    tts._tokens_to_wav = recording
+    return kept
+
+
+@contextlib.contextmanager
+def tracked_engine(eng):
+    """Follow each request through the engine's slot pool: the first stage's
+    logits recorded (recorded_logits) and the engine's group starts, joins,
+    segments, rebases and completions wrapped. Yields (kept, seen): kept
+    {text: {"req", "tokens" (what the request completed with, no EOA), "at"
+    [(index in seen, row, rows of that call's batch) of each token it drew,
+    in order], "joined", "rebased"}}."""
+    names = ("_start_group", "_join_inner", "_step_segment", "_maybe_rebase", "_complete")
+    real = {n: getattr(eng, n) for n in names}
+    kept = {}
+
+    def rec(req):
+        return kept.setdefault(req.text, {"req": req, "tokens": None, "at": [], "joined": False,
+                                          "rebased": False})
+
+    def active():
+        return {i: s.req for i, s in enumerate(eng._slots) if not s.free}
+
+    with recorded_logits() as seen:
+
+        def start_group(reqs):
+            for i, r in enumerate(reqs[: eng.n_slots]):
+                rec(r)["at"].append((len(seen), i, eng.n_slots))
+            real["_start_group"](reqs)
+
+        def join(slot, req, bucket):
+            rec(req)["at"].append((len(seen), 0, 1))
+            rec(req)["joined"] = True
+            real["_join_inner"](slot, req, bucket)
+
+        def segment():
+            held, k0 = active(), len(seen)
+            real["_step_segment"]()
+            for i, r in held.items():
+                rec(r)["at"].extend((k, i, eng.n_slots) for k in range(k0, len(seen)))
+
+        def rebase():
+            held, n = active(), eng.stats["rebases"]
+            real["_maybe_rebase"]()
+            if eng.stats["rebases"] > n:
+                for r in held.values():
+                    rec(r)["rebased"] = True
+
+        def complete(slot):
+            if not eng._slots[slot].free:
+                rec(eng._slots[slot].req)["tokens"] = list(eng._slots[slot].tokens)
+            real["_complete"](slot)
+
+        for n, f in zip(names, (start_group, join, segment, rebase, complete)):
+            setattr(eng, n, f)
+        try:
+            yield kept, seen
+        finally:
+            for n in names:
+                delattr(eng, n)
+
+
+def engine_tokens_agree(torch, label: str, eng, kept: dict, seen: list, tol: float) -> tuple[str, list]:
+    """Hold every request of a tracked_engine run (greedy knobs) against that
+    request alone: ``prefill_batch`` and then ``decode`` on 2 cache rows, as
+    ``generate_batch`` runs them, fed the engine's own tokens one step at a
+    time, so that every step is compared, also after the two runs would
+    part. At every step the request's two cache rows' logits in the engine
+    must lie within ``tol`` of max |alone| (the route's BATCH_LOGIT_TOL; a
+    join landed at the wrong place, a wrong window start or a rebase that
+    breaks a window moves them by far more), and its token must be the
+    argmax of its own guided scores (the tracking read the right row). Where
+    that token is not the alone run's argmax, rounding reordered two scores
+    closer than the runs' gap: counted as a flip. -> (what was seen, per
+    request {"tokens", "worst", "flips", "joined", "rebased"}); fails
+    otherwise."""
+    from metavoice_tpu_torch.core import sampling as S
+    from metavoice_tpu_torch.core import tokens as T
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    tts, dev, cfg, shown, out = eng.tts, eng.device, eng._cfg, [], []
+    params, cdt = tts.c.first_stage_params, tts._compute_dtype
+    for n, (text, r) in enumerate(kept.items()):
+        req, got, at = r["req"], r["tokens"], r["at"]
+        if got is None or (req.temperature, req.top_p) != (ENGINE_GREEDY, ENGINE_GREEDY):
+            fail(f"{label}: request {n} ({text!r}) did not complete, or not under greedy knobs")
+        # fewer tokens than its budget: it ended at an EOA, drawn at the next step
+        got = got + ([T.END_OF_AUDIO_TOKEN] if len(got) < req.max_new_tokens else [])
+        if len(at) < len(got):
+            fail(f"{label}: request {n} drew {len(got)} tokens, the tracking saw {len(at)}")
+        t, p, g = (torch.full((1, 1), v, device=dev) for v in (req.temperature, req.top_p, req.guidance_scale))
+        spk = torch.as_tensor(req.spk_emb[None], device=dev)
+        bucket = eng._bucket(len(req.prompt_tokens))
+        padded, pads = fs.left_pad_prompts([req.prompt_tokens[-bucket:]], bucket)
+        pads = torch.as_tensor(pads, device=dev)
+        kv = tfm.KVCache.create(cfg, 2, cfg.block_size, dtype=eng._cache_dtype, device=dev)
+        with recorded_logits() as alone:
+            fs.prefill_batch(params, cfg, torch.as_tensor(padded, dtype=torch.int64, device=dev), pads, spk, kv,
+                             t, p, g, cdt)
+            for k, tok in enumerate(got[:-1]):
+                fs.decode(params, cfg, torch.tensor([tok], device=dev), bucket + k, kv, spk, 1, temperature=t,
+                          top_p=p, guidance_scale=g, pad_lens=pads, compute_dtype=cdt)
+        worst, flips = 0.0, []
+        for i, tok in enumerate(got):
+            ref, mine = alone[i], _row_logits(seen[at[i][0]], at[i][1], at[i][2])
+            gap = (mine - ref).abs().max().item() / ref.abs().max().item()
+            if not gap <= tol:
+                fail(f"{label}: request {n} ({text[:24]!r}...), step {i}: the engine's logits differ from the "
+                     f"request alone by {gap:.4g} of max |alone| (tol {tol}; tokens the same up to here: "
+                     f"{i - len(flips)} of {i})")
+            worst = max(worst, gap)
+            own = S.cfg_merge(mine, req.guidance_scale)[0]
+            if own[tok] < own.max() - 1e-6 * own.abs().max():
+                fail(f"{label}: request {n}, step {i}: token {tok} is not the argmax of the logits the tracking "
+                     f"gave it ({int(own.argmax())})")
+            if int(S.cfg_merge(ref, req.guidance_scale)[0].argmax()) != tok:
+                flips.append(i)
+        out.append({"tokens": len(got), "worst": worst, "flips": len(flips), "joined": r["joined"],
+                    "rebased": r["rebased"]})
+        how = "joined" if r["joined"] else "group prefill"
+        shown.append(f"request {n} ({how}{', across a rebase' if r['rebased'] else ''}): {len(got)} tokens, "
+                     f"logits within {worst:.3g} of max |alone|, "
+                     + (f"{len(flips)} rounding flips (first at step {flips[0]})" if flips else "no flip"))
+    return "; ".join(shown), out
+
+
+def _drive_engine(torch, label: str, eng, ref: str, schedule: list, max_new: int, knobs: dict | None = None) -> dict:
+    """Submit the requests of ``schedule`` [(after n segments, stream?)] to the
+    engine at their segment counts, with the sampling ``knobs``, every kernel
+    count set to 0 just before the first and read after the last is done ->
+    {"latency_s", "counts", "wall_s", "ttfc_s", "chunks", "paths", "texts",
+    "stats" (the run's deltas), "report" (the phase timers)}."""
+    import threading
+
+    from metavoice_tpu_torch.utils import phases
+
+    phases.reset()
+    phases.enable()
+    before = dict(eng.stats)
+    _zero_counts()
+    t0 = time.perf_counter()
+    done, outs, texts, chunks, first_chunk, consumers = {}, {}, {}, [], [], []
+    for i, (after, stream) in enumerate(schedule):
+        _wait_for(lambda: eng.stats["segments"] - before["segments"] >= after, f"{label}: segment {after}")
+        text = texts[i] = f"Request {i}. {SYNTH_TEXT}"
+        if stream:
+            handle = eng.submit(text, ref, stream=True, max_new_tokens=max_new, **(knobs or {}))
+
+            def consume(handle=handle, i=i):
+                for c in handle:
+                    if not chunks:
+                        first_chunk.append(time.perf_counter() - t0)
+                    chunks.append(c)
+                done[i] = time.perf_counter() - t0
+
+            consumers.append(threading.Thread(target=consume, daemon=True))
+            consumers[-1].start()
+        else:
+            fut = eng.submit(text, ref, max_new_tokens=max_new, **(knobs or {}))
+            fut.add_done_callback(lambda f, i=i: done.__setitem__(i, time.perf_counter() - t0))
+            outs[i] = fut
+    paths = {i: fut.result(timeout=600) for i, fut in outs.items()}
+    for th in consumers:
+        th.join(timeout=600)
+        if th.is_alive():
+            fail(f"{label}: the stream did not end")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    phases.enable(False)
+    return {"latency_s": done, "counts": counts, "wall_s": wall, "ttfc_s": first_chunk[0] if first_chunk else None,
+            "chunks": chunks, "paths": paths, "texts": texts,
+            "stats": {k: v - before.get(k, 0) for k, v in eng.stats.items()}, "report": phases.format_report(wall)}
+
+
+def phase_engine_int4(torch, workdir: str, ref: str, dev: str = "cuda", small: bool = False) -> dict:
+    """43: the engine on a full-width int4 TTS, 4 slots -> {"eng", "tts", ...}."""
+    from metavoice_tpu_torch.runtime.engine import ContinuousBatchingEngine
+    from metavoice_tpu_torch.runtime.tts import TTS
+    from metavoice_tpu_torch.utils import audio_io as aio
+    from metavoice_tpu_torch.utils import phases
+    import numpy as np
+
+    tts = TTS.from_random(small=small, device=dev, output_dir=os.path.join(workdir, "out_engine"),
+                          quantisation_mode="int4")
+    cfg1 = tts.c.first_stage_cfg
+    eng = ContinuousBatchingEngine(tts, slots=ENGINE_INT4_SLOTS, segment_tokens=ENGINE_SEGMENT,
+                                   rebase_margin=cfg1.block_size - ENGINE_REBASE_AT)
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t0
+    renders = _recording_renders(tts)
+    with tracked_engine(eng) as (kept, seen):
+        run = _drive_engine(torch, "43 engine-int4", eng, ref, ENGINE_SCHEDULE, ENGINE_NEW, GREEDY_KNOBS)
+    st, counts = run["stats"], run["counts"]
+    if not (st["joins"] >= 2 and st["rebases"] >= 1 and st["truncations"] == 0):
+        fail(f"43 engine-int4: scheduling {st}, expected joins >= 2, rebases >= 1, truncations 0")
+    want = dict.fromkeys(counts, 0)
+    if dev == "cuda":
+        want |= {"k3_launches": st["decode_steps"], "k2_launches": 5 * cfg1.n_layer * (st["groups"] + st["joins"])}
+    if st["decode_steps"] == 0 or counts != want:
+        fail(f"43 engine-int4 launched {counts}, expected {want} ({st})")
+    bad = [r for r in renders if r[2] != r[3]]
+    if bad:
+        fail(f"43 engine-int4: renders whose wav is not their frames' samples (text, frames, samples, want): {bad}")
+    for i, path in run["paths"].items():
+        wav = check_wav(path)
+        want_len = [r[2] for r in renders if r[0] == run["texts"][i]]
+        if [len(wav)] != want_len:
+            fail(f"43 engine-int4: request {i}'s wav holds {len(wav)} samples, its render {want_len}")
+    stream_text = next(run["texts"][i] for i, (_, s) in enumerate(ENGINE_SCHEDULE) if s)
+    stream_renders = [r[2] for r in renders if r[0] == stream_text]
+    if not run["chunks"] or [len(c) for c in run["chunks"]] != stream_renders or not all(
+            np.isfinite(c).all() and c.dtype == np.float32 for c in run["chunks"]):
+        fail(f"43 engine-int4: the stream's chunks {[len(c) for c in run['chunks']]} are not its renders "
+             f"{stream_renders} in order, or not finite float32")
+    # each request's tokens, joined or across the rebase, against the request alone
+    if not (any(r["joined"] for r in kept.values()) and any(r["rebased"] for r in kept.values())):
+        fail("43 engine-int4: no request whose tokens are held joined the group or spanned a rebase")
+    agree, _ = engine_tokens_agree(torch, "43 engine-int4", eng, kept, seen, BATCH_LOGIT_TOL["int4"])
+    del seen
+    # with the engine idle, a speaker embedding and a render launch none of the kernels
+    fresh_ref = os.path.join(workdir, "ref_idle.wav")
+    aio.write_wav(fresh_ref, aio.read_wav(ref)[0][::-1].copy(), 24000)
+    _zero_counts()
+    spk = tts._get_speaker_embedding(fresh_ref)
+    tts._tokens_to_wav("idle", tts.c.tokenizer.encode("idle"), np.tile(np.asarray([5, 1031], np.int32), 32), spk)
+    if any(read_counts().values()):
+        fail(f"43 engine-int4: a speaker embedding and a render launched kernels: {read_counts()}")
+    # one join with no render beside it: two requests, the second submitted after the first segment
+    lone = _drive_engine(torch, "43 engine-int4 (a lone join)", eng, ref, ((0, False), (1, False)), ENGINE_NEW)
+    join_s = phases.report().get("eng.join", {}).get("total_s")
+    if lone["stats"]["joins"] != 1 or join_s is None:
+        fail(f"43 engine-int4: the lone join's run scheduled {lone['stats']}")
+    tokens = st["row_tokens"] + len(ENGINE_SCHEDULE)
+    lat = ", ".join(f"{run['latency_s'][i]:.2f}" for i in sorted(run["latency_s"]))
+    print(f"[43 engine-int4] {cfg1.n_layer}L/{cfg1.n_head}H/{cfg1.dim}d int4, {ENGINE_INT4_SLOTS} slots "
+          f"({2 * ENGINE_INT4_SLOTS} rows), segments of {ENGINE_SEGMENT}, rebase from {ENGINE_REBASE_AT}: "
+          f"engine.warmup {warm_s:.2f} s; {len(ENGINE_SCHEDULE)} requests of at most {ENGINE_NEW} tokens "
+          f"(submitted after segments {[a for a, _ in ENGINE_SCHEDULE]}, one streaming) in {run['wall_s']:.2f} s: "
+          f"{tokens} tokens, {tokens / run['wall_s']:.1f} tokens/s; latency per request {lat} s; the stream's first "
+          f"chunk after {run['ttfc_s']:.3f} s, {len(run['chunks'])} chunks in order; scheduling {st}; launches "
+          f"{({k: v for k, v in counts.items() if v})} (K3 == decode steps, K2 == 5 x {cfg1.n_layer} x "
+          f"(groups + joins)); a speaker embedding and a render with the engine idle launch no kernel; a join "
+          f"with no render beside it {1e3 * join_s:.1f} ms")
+    print(f"[43 engine-int4] greedy, each request against itself alone (2 rows, fed its tokens), tol "
+          f"{BATCH_LOGIT_TOL['int4']}: {agree}")
+    print("[43 engine-int4] phases:\n" + run["report"])
+    return {"eng": eng, "tts": tts, "tokens_s": tokens / run["wall_s"], "wall_s": run["wall_s"],
+            "warmup_s": warm_s, "ttfc_s": run["ttfc_s"]}
+
+
+def phase_engine_bf16(torch, workdir: str, ref: str, dev: str = "cuda", small: bool = False) -> dict:
+    """44: the engine on a full-width bf16 TTS, 8 slots (16 rows, K1 with starts)."""
+    from metavoice_tpu_torch.runtime.engine import ContinuousBatchingEngine
+    from metavoice_tpu_torch.runtime.tts import TTS
+
+    tts = TTS.from_random(small=small, device=dev, output_dir=os.path.join(workdir, "out_engine16"))
+    cfg1 = tts.c.first_stage_cfg
+    eng = ContinuousBatchingEngine(tts, slots=ENGINE_BF16_SLOTS, segment_tokens=ENGINE_SEGMENT)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup(warm_tts=False)
+        warm_s = time.perf_counter() - t0
+        with tracked_engine(eng) as (kept, seen):
+            run = _drive_engine(torch, "44 engine-bf16", eng, ref, ENGINE_BF16_SCHEDULE, ENGINE_BF16_NEW,
+                                GREEDY_KNOBS)
+        st, counts = run["stats"], run["counts"]
+        want = dict.fromkeys(counts, 0) | (
+            {"k1_launches": cfg1.n_layer * st["decode_steps"]} if dev == "cuda" else {})
+        if st["decode_steps"] == 0 or counts != want or st["joins"] < 1 or st["truncations"]:
+            fail(f"44 engine-bf16 launched {counts}, expected {want} ({st})")
+        for path in run["paths"].values():
+            check_wav(path)
+        agree, _ = engine_tokens_agree(torch, "44 engine-bf16", eng, kept, seen, BATCH_LOGIT_TOL["bf16"])
+        del seen
+    finally:
+        eng.shutdown()
+    tokens = st["row_tokens"] + len(ENGINE_BF16_SCHEDULE)
+    lat = ", ".join(f"{run['latency_s'][i]:.2f}" for i in sorted(run["latency_s"]))
+    print(f"[44 engine-bf16] {cfg1.n_layer}L/{cfg1.n_head}H/{cfg1.dim}d bf16, {ENGINE_BF16_SLOTS} slots "
+          f"({2 * ENGINE_BF16_SLOTS} rows), segments of {ENGINE_SEGMENT}: engine.warmup (no render buckets) "
+          f"{warm_s:.2f} s; {len(ENGINE_BF16_SCHEDULE)} requests of at most {ENGINE_BF16_NEW} tokens in "
+          f"{run['wall_s']:.2f} s: {tokens} tokens, {tokens / run['wall_s']:.1f} tokens/s; latency per request "
+          f"{lat} s; scheduling {st}; launches {({k: v for k, v in counts.items() if v})} (K1 == {cfg1.n_layer} "
+          f"x decode steps)")
+    print(f"[44 engine-bf16] greedy, each request against itself alone (2 rows, fed its tokens), tol "
+          f"{BATCH_LOGIT_TOL['bf16']}: {agree}")
+    print("[44 engine-bf16] phases:\n" + run["report"])
+    return {"tokens_s": tokens / run["wall_s"], "wall_s": run["wall_s"]}
+
+
+def phase_server(torch, eng, ref: str, dev: str = "cuda"):
+    """45: the port's HTTP server on phase 43's engine, 127.0.0.1 port 0."""
+    from http.server import ThreadingHTTPServer
+    import functools
+    import threading
+    import urllib.request
+    import numpy as np
+    from metavoice_tpu_torch.runtime import server as srv
+    from metavoice_tpu_torch.utils import audio_io as aio
+
+    cfg1 = eng.tts.c.first_stage_cfg
+    eng.submit = functools.partial(eng.submit, max_new_tokens=ENGINE_NEW)  # a bounded first stage a request
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler(eng.tts, srv.ServingConfig(),
+                                                                  batching_engine=eng))
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=30) as r:
+            if json.loads(r.read()) != {"status": "ok"}:
+                fail("45 server: /health is not ok")
+        before = dict(eng.stats)
+        _zero_counts()
+        bodies, errors = {}, []
+
+        def post(i, stream):
+            body = {"text": f"Server request {i}. {SYNTH_TEXT}", "speaker_ref_path": ref}
+            if stream:
+                body["stream"] = "true"
+            req = urllib.request.Request(url + "/tts", data=json.dumps(body).encode(), method="POST",
+                                         headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    first = r.read(44)
+                    ttfb = time.perf_counter() - t
+                    bodies[i] = (r.headers.get("Content-Length"), first + r.read(), ttfb, time.perf_counter() - t)
+            except Exception as e:  # reported below
+                errors.append(f"request {i}: {e!r}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i, i == 3)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if errors or len(bodies) != 4:
+            fail(f"45 server: {errors or 'a request did not finish'}")
+        for i, (length, body, _, _) in bodies.items():
+            if body[:4] != b"RIFF" or body[8:12] != b"WAVE":
+                fail(f"45 server: request {i} is not a wav")
+            stream = i == 3
+            if stream != (length is None) or stream != (body[4:8] == b"\xff\xff\xff\xff"):
+                fail(f"45 server: request {i}: Content-Length {length}, RIFF size {body[4:8]!r}")
+            pcm = np.frombuffer(body[44 : 44 + (len(body) - 44) // 2 * 2], dtype="<i2")
+            if len(pcm) == 0 or (stream and body[:44] != aio.wav_streaming_header(24000)):
+                fail(f"45 server: request {i} holds no audio or a bad stream header")
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            metrics = {line.split()[0]: float(line.split()[1]) for line in r.read().decode().splitlines()
+                       if line and line[0] != "#"}
+        st = {k: v - before.get(k, 0) for k, v in eng.stats.items()}
+        if (metrics["tts_requests_total"] != 4 or metrics["tts_streaming_requests_total"] != 1
+                or metrics["tts_errors_total"] != 0 or metrics["engine_joins_total"] != eng.stats["joins"]):
+            fail(f"45 server: /metrics {metrics}")
+        want = dict.fromkeys(counts, 0)
+        if dev == "cuda":
+            want |= {"k3_launches": st["decode_steps"],
+                     "k2_launches": 5 * cfg1.n_layer * (st["groups"] + st["joins"])}
+        if counts != want:
+            fail(f"45 server: launched {counts}, expected {want} ({st})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        eng.shutdown()
+    times = ", ".join(f"{bodies[i][3]:.2f}" for i in range(3))
+    print(f"[45 server] the port's server on phase 43's engine at 127.0.0.1: /health ok; three JSON /tts and one "
+          f"streaming /tts at once ({ENGINE_NEW} tokens a request at most) in {wall:.2f} s: wavs in {times} s, the "
+          f"stream's first bytes after {bodies[3][2]:.3f} s and its end after {bodies[3][3]:.2f} s "
+          f"({(len(bodies[3][1]) - 44) // 2} samples, live RIFF sizes); /metrics: requests "
+          f"{metrics['tts_requests_total']:.0f} (streaming {metrics['tts_streaming_requests_total']:.0f}), errors "
+          f"{metrics['tts_errors_total']:.0f}, engine counters {({k: metrics['engine_' + k + '_total'] for k in ('joins', 'rebases', 'segments', 'decode_steps')})}; "
+          f"scheduling {st}; launches {({k: v for k, v in counts.items() if v})}")
+
+
 def main() -> int:
     import torch
 
@@ -3777,6 +4421,14 @@ def main() -> int:
         del stream
         torch.cuda.empty_cache()
         phase_warmup(torch, workdir, ref, build_s)
+        phase_engine_small(torch)
+        torch.cuda.empty_cache()
+        served = phase_engine_int4(torch, workdir, ref)
+        phase_engine_bf16(torch, workdir, ref)
+        torch.cuda.empty_cache()
+        phase_server(torch, served.pop("eng"), ref)
+        del served
+        torch.cuda.empty_cache()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # and, where a phase read it from the graph of one call, the kernels a call
     counted = ("kernels_a_call",)

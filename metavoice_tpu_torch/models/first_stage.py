@@ -575,3 +575,188 @@ def generate_segments(
         pending = [int(cur[0])] + pending
     if pending:
         yield np.asarray(pending, np.int32)
+
+
+# --------------------------------------------------------------------------------------
+# Mid-flight batch joining and group rebase (continuous serving)
+# --------------------------------------------------------------------------------------
+#
+# As in the JAX package: the slot-pool engine (runtime/engine.py) decodes one
+# shared cache in lockstep at one PHYSICAL position while each row keeps its
+# own LOGICAL timeline (``decode(pad_lens=...)`` embeds ``pos - pad_len``). A
+# request joins mid-decode by prefilling a 2-row temp cache and landing those
+# rows so that its prompt ENDS at the group's position P (``merge_slot_*``);
+# a group near the block's end slides its valid prefix toward the origin
+# (``shift_*_left``). Both are in-place writes to the cache's tensors, with
+# the JAX functions' names, arguments and bits (their start indices clamped
+# as ``dynamic_slice`` clamps them).
+
+REBASE_ALIGN = 128  # rebase shifts are multiples of this (see _shift_seq_left)
+
+
+def _clamp_start(start: int, size: int, dim: int) -> int:
+    """A dynamic_slice start: clamped so that the ``size`` span fits ``dim``."""
+    return min(max(int(start), 0), dim - size)
+
+
+def _land(big: torch.Tensor, part: torch.Tensor, starts: tuple) -> None:
+    """``big`` = dynamic_update_slice(big, part, starts), in place."""
+    idx = tuple(slice(s0, s0 + n) for s0, n in
+                ((_clamp_start(s, n, d), n) for s, n, d in zip(starts, part.shape, big.shape)))
+    big[idx] = part
+
+
+@torch.inference_mode()
+def merge_slot_cache(k, v, tk, tv, phys_start: int, row_c: int, row_u: int):
+    """Copy a joining request's prefilled KV rows into the shared cache, in
+    place: the temp cache's (L, Tpad, 2, H, Dh) row 0 to row ``row_c`` and
+    row 1 to ``row_u`` of the (L, S, 2B, H, Dh) cache at positions
+    ``[phys_start, phys_start + Tpad)`` -> (k, v)."""
+    for big, tmp in ((k, tk), (v, tv)):
+        _land(big, tmp[:, :, 0:1], (0, phys_start, row_c, 0, 0))
+        _land(big, tmp[:, :, 1:2], (0, phys_start, row_u, 0, 0))
+    return k, v
+
+
+@torch.inference_mode()
+def merge_slot_scales(ks, vs, tks, tvs, phys_start: int, row_c: int, row_u: int, n_head: int):
+    """int8-cache variant: land the temp's (L, Tpad, 1, bhpad) scale columns
+    ``[0, h)`` and ``[h, 2h)`` at columns ``row_c * h`` and ``row_u * h``
+    of the (L, S, 1, BHpad) tables, in place -> (ks, vs)."""
+    h = n_head
+    for big, tmp in ((ks, tks), (vs, tvs)):
+        _land(big, tmp[..., 0:h], (0, phys_start, 0, row_c * h))
+        _land(big, tmp[..., h : 2 * h], (0, phys_start, 0, row_u * h))
+    return ks, vs
+
+
+def _merge_window(sw: int, tw: int, phys_start: int) -> tuple[int, int, int, int]:
+    """The packed merge's word window, as the JAX package cuts it: ``nw``
+    words from ``wbase`` -> (wbase, nw, lo, hi), the absolute positions
+    ``[lo, hi)`` of the window that take a temp position."""
+    nw = min(tw + 1, sw)
+    wbase = min(max(phys_start // tfm.KV_PACK, 0), sw - nw)
+    lo = max(phys_start, tfm.KV_PACK * wbase)
+    hi = min(phys_start + tfm.KV_PACK * tw, tfm.KV_PACK * (wbase + nw))
+    return wbase, nw, lo, hi
+
+
+def _merge_packed_words(big: torch.Tensor, tmp: torch.Tensor, phys_start: int, row: int) -> None:
+    """Byte-granular landing of one temp row, in place: ``big`` (L, Sw, 2B,
+    H, Dh) int32 words, ``tmp`` (L, Tw, H, Dh) the temp row's words holding
+    positions ``[0, 4*Tw)``, landed at ``[phys_start, phys_start + 4*Tw)``
+    of batch row ``row`` at ANY alignment of ``phys_start``: the window's
+    words are unpacked, the span written, and the words packed again, so
+    the other bytes of the edge words and every other row keep their bits."""
+    wbase, nw, lo, hi = _merge_window(big.shape[1], tmp.shape[1], phys_start)
+    if hi <= lo:
+        return
+    old = big[:, wbase : wbase + nw, row]  # (L, NW, H, Dh)
+    vals = tfm.unpack_kv_s(old.transpose(0, 1))  # (4*NW, L, H, Dh)
+    src = tfm.unpack_kv_s(tmp.transpose(0, 1))  # (4*Tw, L, H, Dh)
+    base = tfm.KV_PACK * wbase
+    vals[lo - base : hi - base] = src[lo - phys_start : hi - phys_start]
+    big[:, wbase : wbase + nw, row] = tfm.pack_kv_s(vals).transpose(0, 1)
+
+
+@torch.inference_mode()
+def merge_slot_cache_packed(k, v, tk, tv, phys_start: int, row_c: int, row_u: int):
+    """Packed-cache variant of :func:`merge_slot_cache`: the temp's (L, Tw,
+    2, H, Dh) words land byte by byte at any ``phys_start`` -> (k, v)."""
+    for big, tmp in ((k, tk), (v, tv)):
+        _merge_packed_words(big, tmp[:, :, 0], phys_start, row_c)
+        _merge_packed_words(big, tmp[:, :, 1], phys_start, row_u)
+    return k, v
+
+
+def _merge_packed_scales(big: torch.Tensor, tmp: torch.Tensor, phys_start: int, col: int, h: int) -> None:
+    """Residue-split table merge, in place: ``big`` (L, 4, Sw, 1, BHpad),
+    ``tmp`` (L, 4, Tw, 1, h) one temp row's head columns; temp position t
+    lands at absolute ``phys_start + t`` (residue row ``p % 4``, word
+    ``p // 4``), columns ``[col, col + h)``."""
+    wbase, nw, lo, hi = _merge_window(big.shape[2], tmp.shape[2], phys_start)
+    if hi <= lo:
+        return
+    col = _clamp_start(col, h, big.shape[-1])
+    p = torch.arange(lo, hi, device=big.device)
+    t = p - phys_start
+    cols = big[..., col : col + h]  # a view: the index_put below writes big
+    cols[:, p % tfm.KV_PACK, p // tfm.KV_PACK] = tmp[:, t % tfm.KV_PACK, t // tfm.KV_PACK]
+
+
+@torch.inference_mode()
+def merge_slot_scales_packed(ks, vs, tks, tvs, phys_start: int, row_c: int, row_u: int, n_head: int):
+    """Packed-cache variant of :func:`merge_slot_scales` -> (ks, vs)."""
+    h = n_head
+    for big, tmp in ((ks, tks), (vs, tvs)):
+        _merge_packed_scales(big, tmp[..., 0:h], phys_start, row_c * h, h)
+        _merge_packed_scales(big, tmp[..., h : 2 * h], phys_start, row_u * h, h)
+    return ks, vs
+
+
+def _shift_seq_left(arrs: tuple, s: int, chunk: int, pos: int | None, axis: int = 1) -> tuple:
+    """Shift ``axis`` of every tensor left by ``s``, in place, chunk by chunk.
+
+    Iteration i copies ``[s + i*C, s + (i+1)*C)`` to ``[i*C, (i+1)*C)``, the
+    read start clamped to ``S - C`` as JAX's dynamic_slice clamps it. Going
+    up, no read overlaps an earlier write, and a chunk whose read overlaps
+    its own write (``s < C``, or a clamped read at the end) is copied out
+    first: ``Tensor.copy_`` between overlapping slices of one tensor is not
+    defined. Only one chunk is ever held apart; the prefix is never cloned.
+    ``s`` must be a multiple of ``chunk`` (the engine floors it to
+    ``REBASE_ALIGN``) for the valid prefix to come out exact. ``pos`` (the end
+    of the valid prefix) bounds the copy to ``ceil((pos - s) / C)`` chunks,
+    else the whole axis is swept. A sequence length that is not a multiple
+    of the chunk (toy configurations) takes JAX's roll, exact for any ``s``.
+    """
+    size = arrs[0].shape[axis]
+    if size % chunk:
+        for a in arrs:
+            a.copy_(torch.roll(a, -s, dims=axis))
+        return arrs
+    n = size // chunk
+    if pos is not None:
+        n = min(max(-(-(pos - s) // chunk), 0), n)
+    for a in arrs:
+        for i in range(n):
+            src = _clamp_start(s + i * chunk, chunk, size)
+            dst = i * chunk
+            if src == dst:
+                continue
+            block = a.narrow(axis, src, chunk)
+            if abs(src - dst) < chunk:
+                block = block.clone()
+            a.narrow(axis, dst, chunk).copy_(block)
+    return arrs
+
+
+@torch.inference_mode()
+def shift_cache_left(k, v, s: int, pos: int | None = None):
+    """Slide the valid prefix of the (L, S, B, H, Dh) cache left by ``s``,
+    in place; ``pos`` (the end of the valid prefix) bounds the copy ->
+    (k, v)."""
+    return _shift_seq_left((k, v), int(s), 128, None if pos is None else int(pos))
+
+
+@torch.inference_mode()
+def shift_scales_left(ks, vs, s: int, pos: int | None = None):
+    """int8-cache variant: slide the (L, S, 1, BHpad) scale tables too."""
+    return _shift_seq_left((ks, vs), int(s), 128, None if pos is None else int(pos))
+
+
+@torch.inference_mode()
+def shift_cache_left_packed(k, v, s: int, pos: int | None = None):
+    """Packed-cache variant: the (L, S/4, B, H, Dh) words shift by ``s // 4``.
+    ``s`` must be a multiple of 4 (``REBASE_ALIGN`` is), which keeps every
+    byte lane in place: the shifted prefix is that of the int8 cache
+    shifted and packed again."""
+    return _shift_seq_left((k, v), int(s) // tfm.KV_PACK, 32,
+                           None if pos is None else (int(pos) + 3) // tfm.KV_PACK)
+
+
+@torch.inference_mode()
+def shift_scales_left_packed(ks, vs, s: int, pos: int | None = None):
+    """Packed-cache variant: the residue-split (L, 4, S/4, 1, BHpad) tables
+    shift along their word axis (axis 2) by ``s // 4``."""
+    return _shift_seq_left((ks, vs), int(s) // tfm.KV_PACK, 32,
+                           None if pos is None else (int(pos) + 3) // tfm.KV_PACK, axis=2)

@@ -81,6 +81,7 @@ import contextlib
 import dataclasses
 import hashlib
 import os
+import threading
 import time
 import warnings
 from dataclasses import dataclass
@@ -253,6 +254,10 @@ class TTS:
             torch.bfloat16 if self.runtime.dtype == "bfloat16" else torch.float32
         )
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the card this thread builds on: an engine's threads enter it
+            # (the current device is per thread)
+            self.device = torch.device("cuda", torch.cuda.current_device())
         # A quantized mode arrives as the mode, or as first-stage params that
         # already hold quantized leaves, {"pw", "sc"} for int4, {"p8", "sc8"}
         # for int8 or {"q", "scales"} for int8_plain (a JAX-written .npz, or
@@ -307,6 +312,7 @@ class TTS:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._emb_cache: "collections.OrderedDict[str, np.ndarray]" = collections.OrderedDict()
         self._emb_cache_max = 256
+        self._emb_lock = threading.Lock()
         self._enforce_min_ref = enforce_min_ref_duration
         # persistent KV caches, reused across calls: the CFG pair's, and a
         # 3-row one for (speaker, prompt) guidance made at its first use
@@ -322,6 +328,7 @@ class TTS:
         # K13 groupwise int4 matmuls) of the last synthesise
         self.timings: dict[str, float] = {}
         self.stats: dict[str, int] = {}
+        self._timings_lock = threading.Lock()  # an engine's render threads add to timings at once
 
     def _cache_format(self, speculative: bool):
         """The persistent caches' format: ``kv_cache_dtype``, or the compute
@@ -422,27 +429,33 @@ class TTS:
 
     @contextlib.contextmanager
     def _stage(self, name: str):
-        """Add the stage's wall seconds (device work included) to timings."""
+        """Add the stage's wall seconds (its device work included) to
+        timings. It waits for the calling thread's current stream only: an
+        engine's render, on a stream of its own, does not wait for the
+        decode queued on the device's default stream."""
         t0 = time.perf_counter()
         yield
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timings[name] = self.timings.get(name, 0.0) + time.perf_counter() - t0
+            torch.cuda.current_stream(self.device).synchronize()
+        with self._timings_lock:
+            self.timings[name] = self.timings.get(name, 0.0) + time.perf_counter() - t0
 
     # ------------------------------------------------------------------ speaker embedding
     def _get_speaker_embedding(self, spk_ref_path: str) -> np.ndarray:
         """md5-cached speaker embedding (reference fam/llm/inference.py:419-435)."""
         with open(spk_ref_path, "rb") as f:
             cache_key = hashlib.md5(f.read(1 << 20)).hexdigest() + f":{os.path.getsize(spk_ref_path)}"
-        if cache_key in self._emb_cache:
-            self._emb_cache.move_to_end(cache_key)
-            return self._emb_cache[cache_key]
+        with self._emb_lock:  # an engine's submit runs on every client's thread
+            if cache_key in self._emb_cache:
+                self._emb_cache.move_to_end(cache_key)
+                return self._emb_cache[cache_key]
         wav, _ = aio.load_audio(spk_ref_path, target_sr=se.SAMPLING_RATE)
         wav = se.trim_silence(wav, top_db=20.0)
         emb = se.embed_utterance(self.c.spk_params, wav)
-        self._emb_cache[cache_key] = emb
-        while len(self._emb_cache) > self._emb_cache_max:
-            self._emb_cache.popitem(last=False)
+        with self._emb_lock:
+            self._emb_cache[cache_key] = emb
+            while len(self._emb_cache) > self._emb_cache_max:
+                self._emb_cache.popitem(last=False)
         return emb
 
     # ------------------------------------------------------------------ token utilities
@@ -467,14 +480,17 @@ class TTS:
         token_stream,
         spk_emb: np.ndarray,
         noise: torch.Tensor | None = None,
+        *,
+        generator: torch.Generator | None = None,
     ) -> np.ndarray:
         """First-stage token stream -> 24 kHz waveform: split, then
         ``_render``. ``noise`` replaces the second stage's Gumbel draws
-        (tests)."""
+        (tests); ``generator`` the TTS's own (an engine's render takes one
+        of its own)."""
         _text_ids, coarse = T.split_flattened_interleaved(token_stream, self.END_OF_AUDIO_TOKEN)
         if len(coarse[0]) == 0:
             raise RuntimeError(f"first stage produced no audio tokens for: {text!r}")
-        return self._render(prompt_tokens, coarse, spk_emb, self._gen, noise)
+        return self._render(prompt_tokens, coarse, spk_emb, generator or self._gen, noise)
 
     def _render(self, prompt_tokens: list, coarse: list, spk_emb, generator,
                 noise: torch.Tensor | None = None) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Host-side audio file IO and loudness processing — no external deps.
 
-Port of the file IO and loudness part of metavoice_tpu/utils/audio_io.py
-(numpy/scipy; the streaming and upload helpers of the server are not ported).
+Port of metavoice_tpu/utils/audio_io.py (numpy/scipy): the file IO and
+loudness part, and the server's streaming and upload helpers.
 
 The reference uses librosa/soundfile/audiocraft.audio_write/pydub/ffmpeg for
 these (fam/llm/decoders.py:40-47, fam/llm/enhancers.py:9-24,
@@ -13,13 +13,17 @@ fam/llm/utils.py:55-74). None of those exist here; this module provides:
   * ITU-R BS.1770 loudness measurement (K-weighting + gating) and the
     loudness-normalized write audiocraft's ``audio_write(strategy="loudness")``
     performs, with clipping protection,
-  * duration gate for the >= 30 s speaker-reference rule (utils.py:55-70).
+  * duration gate for the >= 30 s speaker-reference rule (utils.py:55-70),
+  * the live-stream WAV header and PCM16 bytes of a streaming response, and
+    the transcode of an uploaded reference (ffmpeg when present, else WAV
+    only).
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 import wave
@@ -67,6 +71,23 @@ def write_wav(path: str, wav: np.ndarray, sr: int) -> None:
         f.setsampwidth(2)
         f.setframerate(sr)
         f.writeframes(pcm.tobytes())
+
+
+def wav_streaming_header(sr: int) -> bytes:
+    """RIFF/WAVE header of a PCM16 mono stream of unknown length: the RIFF and
+    data chunk sizes are 0xFFFFFFFF, the live-stream convention (players
+    read until EOF). The server's streaming /tts response starts with it."""
+    return b"".join([
+        b"RIFF", struct.pack("<I", 0xFFFFFFFF), b"WAVE",
+        b"fmt ", struct.pack("<IHHIIHH", 16, 1, 1, sr, sr * 2, 2, 16),
+        b"data", struct.pack("<I", 0xFFFFFFFF),
+    ])
+
+
+def float_to_pcm16(wav: np.ndarray) -> bytes:
+    """Float waveform in [-1, 1] -> little-endian PCM16 bytes."""
+    wav = np.clip(np.asarray(wav, np.float32), -1.0, 1.0)
+    return (wav * 32767.0).astype("<i2").tobytes()
 
 
 def load_audio(path: str, target_sr: int | None = None) -> tuple[np.ndarray, int]:
@@ -140,6 +161,35 @@ def duration_s(path: str) -> float:
     except (wave.Error, EOFError):
         wav, sr = load_audio(path)
         return len(wav) / sr
+
+
+def transcode_upload_to_wav(data: bytes, out_path: str, max_duration_s: float = 120.0) -> str:
+    """Uploaded audio bytes of unknown format -> a duration-capped wav at
+    ``out_path`` (returned). The reference (serving.py:112-123) writes the
+    upload to a file and runs ``ffmpeg -t 120 -y -i <in> -f wav <out>``; so
+    does this where ffmpeg is installed. Without it a WAV upload is decoded
+    here and cut to ``max_duration_s``, and any other format raises
+    ValueError (the server's 400)."""
+    if not data:
+        raise ValueError("empty audio upload")
+    with tempfile.NamedTemporaryFile(delete=False) as tmp:
+        tmp.write(data)
+        in_path = tmp.name
+    try:
+        ffmpeg = shutil.which("ffmpeg")
+        if ffmpeg is not None:
+            subprocess.check_output(
+                [ffmpeg, "-t", str(int(max_duration_s)), "-y", "-i", in_path, "-f", "wav", out_path],
+                stderr=subprocess.STDOUT,
+            )
+            return out_path
+        if data[:4] != b"RIFF":
+            raise ValueError("cannot decode non-WAV upload without ffmpeg; upload a .wav file")
+        wav, sr = read_wav(in_path)
+        write_wav(out_path, wav[: int(max_duration_s * sr)], sr)
+        return out_path
+    finally:
+        os.unlink(in_path)
 
 
 def check_audio_file(path: str, threshold_s: float = 30.0) -> None:

@@ -272,6 +272,11 @@ def test_port_imports_no_jax():
         "import metavoice_tpu_torch.models.transformer\n"
         "import metavoice_tpu_torch.models.first_stage\n"
         "import metavoice_tpu_torch.models.spec_decode\n"
+        "import metavoice_tpu_torch.runtime.engine\n"
+        "import metavoice_tpu_torch.runtime.server\n"
+        "import metavoice_tpu_torch.runtime.replicas\n"
+        "import metavoice_tpu_torch.utils.phases\n"
+        "import metavoice_tpu_torch.utils.audio_io\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metavoice_tpu')]\n"
         "assert not bad, bad\n"
