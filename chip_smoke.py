@@ -286,7 +286,39 @@ Phases, one line each; any failure exits non-zero and prints no result:
                Content-Length); /metrics counting 4 requests, 1 streaming, no
                error, and the engine's counters; K3 and K2 as in phase 43.
 
-Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39 and 43-45 are the main paths: every kernel count is
+ 46. checkpoint-files - reference-format .pt files of seeded random f32
+               weights at full width, in a temporary directory removed after
+               phase 49: the first stage (24L/16H/2048d, vocab 2562, about
+               4.9 GB, with the _orig_mod. prefix and the tokenizer in its
+               meta), the default second stage, the speaker encoder, EnCodec
+               24 kHz in the encodec package's names with weight norm; each
+               loaded onto the card by the port's loaders with every leaf
+               bit-equal to the array written (the weight norm folded in
+               float64 apart from the port); sizes, write and load seconds;
+ 47. from-checkpoints - `cli quantize --mode int4` of the .pt in a process of
+               its own (seconds, size); TTS.from_checkpoints on the card from
+               the bf16 .pt (K1), the int4 .npz (K2, K3) and the .npz on the
+               int8 cache (K5, K6): each first stage bit-equal to the tree
+               built in process from the same weights, its first-stage tokens
+               under injected Gumbel draws identical to that TTS's, and a
+               synthesise launching as phases 5, 9 and 24 require; then the
+               int4 .npz with a small int4 draft .npz (2L/8H/1024d, gamma 8,
+               CFG-free): K4 == n_layer x rounds, K3 == gamma x rounds;
+ 48. cli     - python -m metavoice_tpu_torch.cli in processes of their own:
+               synth from the .npz (a wav), capacity on the card (the plan and
+               capacity.max_slots), serve --batching auto (the slot count it
+               prints equal to capacity.max_slots capped at 32; /health, one
+               /tts, one streamed /tts with its first bytes timed and live
+               RIFF sizes; SIGTERM -> "server stopped", exit 0); the
+               checkpoint tokenizer on the native BPE engine;
+ 49. capacity-plan - ContinuousBatchingEngine(slots="auto") from the int4
+               .npz on the bf16 and the int8 cache: every slot given a request
+               in the 256 prompt bucket, two segments each; the plan's bytes,
+               torch.cuda.max_memory_reserved and the card's total printed,
+               and the pool's own peak (over what the process held before its
+               TTS) within the plan's budget.
+
+Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45 and 47 are the main paths: every kernel count is
 set to 0 just before each and read just after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
@@ -1169,7 +1201,8 @@ def phase_synth_quantized(torch, workdir: str, ref: str, mode, label: str, per_s
     prefills = len(chunk_text(normalize_text(SYNTH_TEXT), MAX_CHARS_PER_CHUNK) or [""])
     want = dict.fromkeys(counts, 0)
     want.update({k: steps * n for k, n in per_step.items()})
-    want[matmul] += 5 * cfg1.n_layer * prefills
+    if matmul:
+        want[matmul] += 5 * cfg1.n_layer * prefills
     if steps == 0 or counts != want:
         fail(f"[{label}] synthesise launched {counts}, expected {want}")
     check_stats(tts, counts)
@@ -4317,6 +4350,546 @@ def phase_server(torch, eng, ref: str, dev: str = "cuda"):
           f"scheduling {st}; launches {({k: v for k, v in counts.items() if v})}")
 
 
+# ------------------------------------------------------------------ phases 46-49: checkpoints, the CLI, capacity
+
+# the reference trainer's names of a stacked layer leaf: (name under transformer.h.{i}., stored transposed)
+GPT_LAYER_NAMES = {
+    "attn_norm_w": ("ln_1.weight", False), "attn_norm_b": ("ln_1.bias", False),
+    "ffn_norm_w": ("ln_2.weight", False), "ffn_norm_b": ("ln_2.bias", False),
+    "wqkv": ("attn.c_attn.weight", True), "wqkv_b": ("attn.c_attn.bias", False),
+    "wo": ("attn.c_proj.weight", True), "wo_b": ("attn.c_proj.bias", False),
+    "w1": ("mlp.swiglu.w1.weight", True), "w3": ("mlp.swiglu.w3.weight", True), "w2": ("mlp.c_proj.weight", True),
+    "w_fc": ("mlp.c_fc.weight", True), "w_fc_b": ("mlp.c_fc.bias", False),
+    "w_proj": ("mlp.c_proj.weight", True), "w_proj_b": ("mlp.c_proj.bias", False),
+}
+# a checkpoint's tokenizer: the byte vocabulary and its end-of-text id, in the reference's meta["tokenizer"] keys
+CKPT_TOKENIZER = {"name": "metavoice-bpe", "special_tokens": {"<|endoftext|>": 256},
+                  "mergeable_ranks": {bytes([i]): i for i in range(256)}}
+CKPT_NEW = 64  # phase 47: first-stage tokens held against the in-process trees
+DRAFT_CFG = dict(n_layer=2, n_head=8, dim=1024)  # phase 47's small int4 draft
+PLAN_NEW = 128  # phase 49: first-stage tokens a request (two segments)
+PLAN_PROMPT = ("A long request fills the largest prompt bucket of the engine, so that every slot holds as many "
+               "prompt rows as serving allows, and the peak memory of the card is read against the capacity "
+               "plan while each slot decodes.")  # 250 bytes, 251 tokens: the 256 bucket
+
+
+def gpt_checkpoint(params: dict, cfg, tokenizer: dict | None = None, prefix: str = "") -> dict:
+    """A reference-format first- or second-stage checkpoint of the port's
+    tree: the trainer's names (torch's (out, in) linears; a tied head written
+    as lm_heads.0 = wtes.0), the config as model_args, CPU tensors."""
+    sd = {}
+    for key, stacked in params["layers"].items():
+        name, transposed = GPT_LAYER_NAMES[key]
+        for i in range(stacked.shape[0]):
+            sd[f"transformer.h.{i}.{name}"] = (stacked[i].T if transposed else stacked[i]).contiguous().cpu()
+    for i, w in enumerate(params["wtes"]):
+        sd[f"transformer.wtes.{i}.weight"] = w.cpu()
+    sd["transformer.wpe.weight"] = params["wpe"].cpu()
+    sd["transformer.ln_f.weight"] = params["ln_f_w"].cpu()
+    if "ln_f_b" in params:
+        sd["transformer.ln_f.bias"] = params["ln_f_b"].cpu()
+    if "speaker_cond" in params:
+        sd["speaker_cond_pos.weight"] = params["speaker_cond"].T.contiguous().cpu()
+    for i, w in enumerate(params.get("lm_heads") or [params["wtes"][0].T]):
+        sd[f"lm_heads.{i}.weight"] = w.T.contiguous().cpu()
+    args = {"block_size": cfg.block_size, "n_layer": cfg.n_layer, "n_head": cfg.n_head, "n_embd": cfg.dim,
+            "vocab_sizes": list(cfg.vocab_sizes), "causal": cfg.causal, "norm_type": cfg.norm_type,
+            "nonlinearity_type": cfg.nonlinearity_type, "bias": cfg.bias, "rmsnorm_eps": cfg.norm_eps}
+    if cfg.n_local_heads != cfg.n_head:
+        args["n_local_heads"] = cfg.n_local_heads
+    if cfg.target_vocab_sizes is not None:
+        args["target_vocab_sizes"] = list(cfg.target_vocab_sizes)
+    return {"model": {prefix + k: v for k, v in sd.items()}, "model_args": args, "iter_num": 0,
+            "best_val_loss": 0.0, "config": {}, "optimizer": None,
+            "meta": {"speaker_cond": True, "speaker_emb_size": cfg.speaker_emb_dim, "tokenizer": tokenizer or {}}}
+
+
+def speaker_checkpoint(torch, draw) -> tuple[dict, dict]:
+    """A speaker_encoder.pt of torch.nn.LSTM(40, 256, 3) + Linear(256, 256)
+    names (``draw(*shape)`` -> a CPU f32 tensor), and the tree the loader
+    must make of it (weights transposed, biases summed in f32, layer 0's
+    input rows zero-padded to 256)."""
+    from metavoice_tpu_torch.models import speaker_encoder as se
+
+    h, sd, tree = se.MODEL_HIDDEN_SIZE, {}, {"w_ih": [], "w_hh": [], "b": []}
+    for k in range(se.MODEL_NUM_LAYERS):
+        w_ih, w_hh = draw(4 * h, se.MEL_N_CHANNELS if k == 0 else h), draw(4 * h, h)
+        b_ih, b_hh = draw(4 * h), draw(4 * h)
+        sd |= {f"lstm.weight_ih_l{k}": w_ih, f"lstm.weight_hh_l{k}": w_hh, f"lstm.bias_ih_l{k}": b_ih,
+               f"lstm.bias_hh_l{k}": b_hh}
+        tree["w_ih"].append(torch.nn.functional.pad(w_ih.T, (0, 0, 0, h - w_ih.shape[1])))
+        tree["w_hh"].append(w_hh.T)
+        tree["b"].append(b_ih + b_hh)
+    sd["linear.weight"], sd["linear.bias"] = draw(se.MODEL_EMBEDDING_SIZE, h), draw(se.MODEL_EMBEDDING_SIZE)
+    tree = {k: torch.stack(v) for k, v in tree.items()}
+    tree |= {"linear_w": sd["linear.weight"].T.contiguous(), "linear_b": sd["linear.bias"]}
+    return {"model_state": sd}, tree
+
+
+def fold_weight_norm_f64(torch, g, v):
+    """w = g v / ||v|| over every dim but the first, in float64, rounded to
+    f32: the value a converter must give, written out apart from the port's."""
+    import numpy as np
+
+    g64, v64 = g.double().numpy(), v.double().numpy()
+    norm = np.sqrt((v64 ** 2).sum(axis=tuple(range(1, v64.ndim)), keepdims=True))
+    return torch.from_numpy((g64 * v64 / np.maximum(norm, 1e-12)).astype(np.float32))
+
+
+def encodec_checkpoint(torch, ecfg, draw) -> tuple[dict, dict]:
+    """An encodec-package state dict of the 24 kHz model's topology at
+    ``ecfg``, every conv weight-normed (``draw(*shape)`` -> a CPU f32
+    tensor), and the port's tree the converter must make of it."""
+    from metavoice_tpu_torch.models import encodec as ec
+
+    shapes, sd = ec.init_params(ecfg, device="meta"), {}
+
+    def conv(prefix, w, transposed=False):
+        k, c_in, c_out = w.shape
+        base = f"{prefix}.convtr.convtr" if transposed else f"{prefix}.conv.conv"
+        shape = (c_in, c_out, k) if transposed else (c_out, c_in, k)
+        g, v, b = draw(shape[0], 1, 1).abs() + 0.5, draw(*shape), draw(c_out)
+        sd.update({f"{base}.weight_g": g, f"{base}.weight_v": v, f"{base}.bias": b})
+        folded = fold_weight_norm_f64(torch, g, v)
+        return (folded.flip(2).permute(2, 0, 1) if transposed else folded.permute(2, 1, 0)).contiguous(), b
+
+    def res(prefix, r):
+        w1, b1 = conv(f"{prefix}.block.1", r["conv1_w"])
+        w2, b2 = conv(f"{prefix}.block.3", r["conv2_w"])
+        return {"conv1_w": w1, "conv1_b": b1, "conv2_w": w2, "conv2_b": b2}
+
+    def lstm(prefix, p):
+        out = {"w_ih": [], "w_hh": [], "b": []}
+        for i in range(p["w_ih"].shape[0]):
+            w_ih, w_hh = draw(*p["w_ih"][i].shape[::-1]), draw(*p["w_hh"][i].shape[::-1])
+            b_ih, b_hh = draw(p["b"].shape[1]), draw(p["b"].shape[1])
+            sd.update({f"{prefix}.weight_ih_l{i}": w_ih, f"{prefix}.weight_hh_l{i}": w_hh,
+                       f"{prefix}.bias_ih_l{i}": b_ih, f"{prefix}.bias_hh_l{i}": b_hh})
+            out["w_ih"].append(w_ih.T)
+            out["w_hh"].append(w_hh.T)
+            out["b"].append(b_ih + b_hh)
+        return {k: torch.stack(v) for k, v in out.items()}
+
+    enc, dec, n = shapes["encoder"], shapes["decoder"], len(ecfg.ratios)
+    e, d = {}, {}
+    e["conv_in_w"], e["conv_in_b"] = conv("encoder.model.0", enc["conv_in_w"])
+    e["blocks"] = []
+    for i, blk in enumerate(enc["blocks"]):
+        r = res(f"encoder.model.{1 + 3 * i}", blk["res"])
+        w, b = conv(f"encoder.model.{3 + 3 * i}", blk["conv_w"])
+        e["blocks"].append({"res": r, "conv_w": w, "conv_b": b})
+    e["lstm"] = lstm(f"encoder.model.{1 + 3 * n}.lstm", enc["lstm"])
+    e["conv_out_w"], e["conv_out_b"] = conv(f"encoder.model.{3 + 3 * n}", enc["conv_out_w"])
+    d["conv_in_w"], d["conv_in_b"] = conv("decoder.model.0", dec["conv_in_w"])
+    d["lstm"] = lstm("decoder.model.1.lstm", dec["lstm"])
+    d["blocks"] = []
+    for i, blk in enumerate(dec["blocks"]):
+        w, b = conv(f"decoder.model.{3 + 3 * i}", blk["convtr_w"], transposed=True)
+        d["blocks"].append({"convtr_w": w, "convtr_b": b, "res": res(f"decoder.model.{4 + 3 * i}", blk["res"])})
+    d["conv_out_w"], d["conv_out_b"] = conv(f"decoder.model.{3 + 3 * n}", dec["conv_out_w"])
+    books = [draw(ecfg.codebook_size, ecfg.dimension) for _ in range(ecfg.n_q)]
+    sd.update({f"quantizer.vq.layers.{i}._codebook.embed": cb for i, cb in enumerate(books)})
+    return sd, {"encoder": e, "decoder": d, "codebooks": torch.stack(books)}
+
+
+def leaves(tree, prefix: str = "") -> dict:
+    """Flat ``path -> leaf`` of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix.rstrip("/"): tree}
+    return {k: v for key, sub in items for k, v in leaves(sub, f"{prefix}{key}/").items()}
+
+
+def trees_bit_equal(torch, got, want, what: str) -> int:
+    """Fail unless ``got`` has ``want``'s leaves, each of its dtype and shape
+    with the same bits (compared on ``got``'s device); -> the leaf count."""
+    g, w = leaves(got), leaves(want)
+    if g.keys() != w.keys():
+        fail(f"{what}: leaves {sorted(g.keys() ^ w.keys())} are not in both trees")
+    for k, a in g.items():
+        b = w[k]
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.contiguous().view(-1).view(torch.uint8), b.to(a.device).contiguous().view(-1).view(torch.uint8)):
+            fail(f"{what}: leaf {k} ({a.dtype} {tuple(a.shape)}) is not the array written "
+                 f"({b.dtype} {tuple(b.shape)})")
+    return len(g)
+
+
+def seeded_model(torch, seed: int = 46, dev: str = "cuda", small: bool = False) -> dict:
+    """Seeded random f32 weights of the full-width model on the card (the
+    first stage 24L/16H/2048d, vocab 2562; the default second stage; norms
+    and biases moved off their init so that a misplaced leaf cannot pass) and,
+    on the CPU, the speaker encoder's and EnCodec's state dicts with the trees
+    they must load as."""
+    from metavoice_tpu_torch.core.config import first_stage_config, second_stage_config
+    from metavoice_tpu_torch.models import encodec as ec
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg1, cfg2, ecfg = first_stage_config(), second_stage_config(), ec.EncodecConfig()
+    if small:  # TTS.from_random(small=True)'s shapes, for a CPU rehearsal
+        cfg1 = first_stage_config(n_layer=2, n_head=4, dim=128, block_size=512)
+        cfg2 = second_stage_config(n_layer=2, n_head=2, dim=64, block_size=256)
+        ecfg = ec.EncodecConfig(n_filters=8, dimension=32)
+    p1, p2 = (tfm.init_params(c, device=dev, generator=gen) for c in (cfg1, cfg2))
+    for tree in (p1, p2):
+        for k, v in leaves(tree).items():
+            if k.endswith(("_b", "norm_w", "ln_f_w")):
+                v.add_(0.1 * torch.randn(v.shape, generator=gen, device=dev))
+    cpu_gen = torch.Generator().manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=cpu_gen) * 0.1
+
+    spk_sd, spk = speaker_checkpoint(torch, draw)
+    enc_sd, enc = encodec_checkpoint(torch, ecfg, draw)
+    return {"cfg1": cfg1, "cfg2": cfg2, "ecfg": ecfg, "p1": p1, "p2": p2, "spk_sd": spk_sd, "spk": spk,
+            "encodec_sd": enc_sd, "encodec": enc}
+
+
+def phase_checkpoint_files(torch, workdir: str, dev: str = "cuda", small: bool = False) -> dict:
+    """46: the full-width reference-format files from seeded random weights,
+    read back onto the card by the port's loaders, every leaf bit-equal to
+    the array written."""
+    from metavoice_tpu_torch.utils import checkpoint as ck
+    from metavoice_tpu_torch.utils.convert_external import load_encodec_pt
+
+    m = seeded_model(torch, dev=dev, small=small)
+    paths = {k: os.path.join(workdir, f"{k}.pt") for k in ("first_stage", "second_stage", "speaker_encoder",
+                                                             "encodec")}
+    writes, loads, counts = {}, {}, {}
+    for key, make in (("first_stage", lambda: gpt_checkpoint(m["p1"], m["cfg1"], CKPT_TOKENIZER, "_orig_mod.")),
+                      ("second_stage", lambda: gpt_checkpoint(m["p2"], m["cfg2"])),
+                      ("speaker_encoder", lambda: m["spk_sd"]), ("encodec", lambda: m["encodec_sd"])):
+        obj = make()
+        t0 = time.perf_counter()
+        torch.save(obj, paths[key])
+        writes[key] = time.perf_counter() - t0
+        del obj
+    dev = torch.device(dev)
+    for key, load, want in (
+        ("first_stage", lambda p: ck.load_first_stage_pt(p, device=dev), m["p1"]),
+        ("second_stage", lambda p: ck.load_second_stage_pt(p, device=dev), m["p2"]),
+        ("speaker_encoder", lambda p: (ck.load_speaker_encoder_pt(p, device=dev),), m["spk"]),
+        ("encodec", lambda p: (load_encodec_pt(p, m["ecfg"], device=dev),), m["encodec"]),
+    ):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        got = load(paths[key])
+        sync(torch, dev)
+        loads[key] = time.perf_counter() - t0
+        if any(t.device.type != dev.type for t in leaves(got[0]).values()):
+            fail(f"46 checkpoint files: the {key} loader left leaves off the card")
+        counts[key] = trees_bit_equal(torch, got[0], want, f"46 checkpoint files: {key}")
+        if len(got) > 1 and got[1] != m["cfg1" if key == "first_stage" else "cfg2"]:
+            fail(f"46 checkpoint files: {key}'s config {got[1]} is not the one written")
+        if key == "first_stage" and got[2] != CKPT_TOKENIZER:
+            fail("46 checkpoint files: the first stage's tokenizer info is not the one written")
+        del got
+        empty_cache(torch, dev)
+    sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+    shown = "; ".join(f"{k} {sizes[k] / 1e9:.4f} GB ({counts[k]} leaves) written in {writes[k]:.2f} s, "
+                      f"loaded onto the card in {loads[k]:.2f} s" for k in paths)
+    print(f"[46 checkpoint files] reference-format .pt files of seeded random f32 weights at full width "
+          f"(first stage 24L/16H/2048d, vocab 2562, with the _orig_mod. prefix; the default second stage; the "
+          f"speaker encoder; EnCodec 24 kHz in the encodec package's names, weight-normed), every leaf loaded "
+          f"by the port's loaders bit-equal to the array written, the configs and tokenizer info as written "
+          f"(reads from a warm page cache): {shown}")
+    return {"paths": paths, "model": m, "ecfg": m["ecfg"], "sizes": sizes, "loads": loads}
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def empty_cache(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def start_cli(args: list):
+    """``python -m metavoice_tpu_torch.cli ARGS`` started in a process of its
+    own -> (the process, its start time)."""
+    return subprocess.Popen([sys.executable, "-m", "metavoice_tpu_torch.cli", *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=os.path.dirname(os.path.abspath(__file__))), \
+        time.perf_counter()
+
+
+def finish_cli(started, what: str, timeout: float = 600) -> tuple[str, float]:
+    """Wait for a ``start_cli`` process -> (its standard output, seconds);
+    fails on a non-zero exit (a process past ``timeout`` is killed)."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        fail(f"{what}: cli {proc.args[3]} exited {proc.returncode}: {err[-3000:]}")
+    return out, time.perf_counter() - t0
+
+
+def run_cli(args: list, what: str, timeout: float = 600) -> tuple[str, float]:
+    return finish_cli(start_cli(args), what, timeout)
+
+
+def _first_stage_tokens(torch, tts, noise):
+    """The first stage's tokens of SYNTH_TEXT on tts's trees and a zero
+    speaker embedding, under ``noise`` (the Gumbel draws)."""
+    import numpy as np
+    from metavoice_tpu_torch.core.text import normalize_text
+    from metavoice_tpu_torch.models import first_stage as fs
+
+    cfg1 = tts.c.first_stage_cfg
+    prompt = tts.c.tokenizer.encode(normalize_text(SYNTH_TEXT))
+    spk = np.zeros((cfg1.speaker_emb_dim,), np.float32)
+    with torch.inference_mode():
+        return fs.generate(tts.c.first_stage_params, cfg1, prompt, spk, max_new_tokens=CKPT_NEW, noise=noise,
+                           guidance_scale=3.0, end_of_text_token=tts.c.tokenizer.eot_token,
+                           kv_cache=tts._persistent_kv_cache(3.0), compute_dtype=tts._compute_dtype)
+
+
+def phase_from_checkpoints(torch, workdir: str, ref: str, files: dict, dev: str = "cuda") -> dict:
+    """47: TTS.from_checkpoints on the card from phase 46's files: the bf16
+    .pt (K1), the `cli quantize --mode int4` .npz (K2, K3) and on the int8
+    cache (K5, K6), each one's first-stage tokens those of a TTS built in
+    process from the same trees under the same draws; an int4 draft .npz
+    (K4 == n_layer x rounds)."""
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+    from metavoice_tpu_torch.runtime.tts import TTS, TTSComponents
+    from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser
+    from metavoice_tpu_torch.utils import checkpoint as ck
+
+    paths, m = files["paths"], files["model"]
+    npz = os.path.join(workdir, "first_stage_int4.npz")
+    out, quantize_s = run_cli(["quantize", "--first_stage_path", paths["first_stage"], "--mode", "int4",
+                               "--out", npz, "--device", dev], "47 from-checkpoints")
+    dev = torch.device(dev)
+    p1_bf16 = ck.params_from_numpy(m["p1"], device=dev, dtype=torch.bfloat16)
+    inproc = {"bf16": p1_bf16, "int4": Q.quantize_params_int4_i32(p1_bf16)}
+    comps = dict(first_stage_cfg=m["cfg1"], second_stage_params=ck.params_from_numpy(m["p2"], device=dev,
+                                                                                   dtype=torch.bfloat16),
+                 second_stage_cfg=m["cfg2"], spk_params=ck.params_from_numpy(m["spk"], device=dev),
+                 encodec_params=ck.params_from_numpy(m["encodec"], device=dev), encodec_cfg=m["ecfg"],
+                 tokenizer=TrainedBPETokeniser(**CKPT_TOKENIZER))
+    gen = torch.Generator(device=dev).manual_seed(47)
+    noise = -torch.log(-torch.log(torch.rand((CKPT_NEW, 1, m["cfg1"].vocab_size), generator=gen, device=dev)
+                                  .clamp_min(1e-20)))
+    results, shown = {}, []
+    common = dict(encodec_path=paths["encodec"], encodec_cfg=m["ecfg"], device=dev)
+    for label, path, per_step, kw in (
+        ("bf16 .pt", paths["first_stage"], {"k1_launches": m["cfg1"].n_layer}, {}),
+        ("int4 .npz", npz, {"k3_launches": 1}, {}),
+        ("int4 .npz, int8 cache", npz, {"k5_launches": m["cfg1"].n_layer, "k6_launches": m["cfg1"].n_layer},
+         {"kv_cache_dtype": "int8"}),
+    ):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        tts = TTS.from_checkpoints(path, paths["second_stage"], paths["speaker_encoder"],
+                                   output_dir=os.path.join(workdir, "out_ckpt"), **common, **kw)
+        sync(torch, dev)
+        load_s = time.perf_counter() - t0
+        mode = "bf16" if path.endswith(".pt") else "int4"
+        ref_tts = TTS(TTSComponents(first_stage_params=inproc[mode], **comps), device=dev,
+                      output_dir=os.path.join(workdir, "out_inproc"), **kw)
+        trees_bit_equal(torch, tts.c.first_stage_params, inproc[mode], f"47 {label}: the first stage")
+        got, want = _first_stage_tokens(torch, tts, noise), _first_stage_tokens(torch, ref_tts, noise)
+        if not (got.shape == want.shape and (got == want).all()):
+            fail(f"47 {label}: the first stage's tokens are not those of the in-process trees")
+        del ref_tts
+        r = phase_synth_quantized(torch, workdir, ref, mode, f"47 {label}", per_step,
+                                  None if mode == "bf16" else "k2_launches", {}, tts=tts, init_s=load_s)
+        results[label] = {"counts": r["counts"], "ms_per_token": r["ms_per_token"], "load_s": load_s}
+        shown.append(f"{label}: loaded in {load_s:.2f} s, {got.shape[-1]} tokens equal, {r['ms_per_token']:.2f} "
+                     f"ms/token")
+        del tts, r
+        empty_cache(torch, dev)
+    # a small int4 draft .npz (cli quantize's writer) for speculative decoding
+    dcfg = first_stage_config(**DRAFT_CFG)
+    draft = tfm.init_params(dcfg, device=dev, generator=torch.Generator(device=dev).manual_seed(147),
+                            dtype=torch.bfloat16)
+    dpath = os.path.join(workdir, "draft_int4.npz")
+    ck.save_first_stage_quantized(dpath, Q.quantize_params_int4_i32(draft), dcfg, None, "int4")
+    tts = TTS.from_checkpoints(npz, paths["second_stage"], paths["speaker_encoder"], draft_checkpoint=dpath,
+                               speculative_gamma=8, draft_use_cfg=False,
+                               output_dir=os.path.join(workdir, "out_ckpt_spec"), **common)
+    path_wav, total_s, counts = drive_main_path(tts, ref)
+    rounds, n_layer = tts.spec_stats["rounds"], m["cfg1"].n_layer
+    if rounds == 0 or counts["k4_launches"] != n_layer * rounds or counts["k3_launches"] != 8 * rounds:
+        fail(f"47 draft .npz: launches {counts} in {rounds} rounds; K4 must be n_layer x rounds, K3 8 x rounds")
+    check_wav(path_wav)
+    results["draft"] = {"counts": counts}
+    shown.append(f"int4 .npz + int4 draft .npz ({dcfg.n_layer}L/{dcfg.n_head}H/{dcfg.dim}d, gamma 8, CFG-free): "
+                 f"synthesise {total_s:.2f} s, {rounds} rounds, launches {({k: v for k, v in counts.items() if v})}")
+    del tts
+    empty_cache(torch, dev)
+    print(f"[47 from-checkpoints] cli quantize --mode int4 of the 46 .pt in a process of its own: {quantize_s:.2f} s "
+          f"-> {os.path.getsize(npz) / 1e9:.4f} GB ({out.strip()}); TTS.from_checkpoints on the card, each first "
+          f"stage bit-equal to the in-process tree and its {CKPT_NEW} first-stage tokens under injected Gumbel draws "
+          f"identical to a TTS built in process: {'; '.join(shown)}")
+    return {"npz": npz, "quantize_s": quantize_s, "npz_bytes": os.path.getsize(npz), "runs": results}
+
+
+SERVE_TEXT = "A request to the server started from the command line."
+SERVE_NEW = 128  # phase 48: the server's cap on a request's first-stage tokens
+
+
+def phase_cli(torch, workdir: str, ref: str, files: dict, ckpt: dict, dev: str = "cuda"):
+    """48: the CLI in processes of its own: synth from the int4 .npz (a
+    wav), capacity on the card, serve --batching auto (/health, a /tts, a
+    streamed /tts, SIGTERM: "server stopped", exit 0) with the slot count
+    capacity.max_slots gives for the card; the tokenizer on the native BPE."""
+    import signal
+    import urllib.request
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser
+    from metavoice_tpu_torch.utils import capacity as cap
+
+    paths = files["paths"]
+    model = ["--first_stage_path", ckpt["npz"], "--second_stage_path", paths["second_stage"],
+             "--speaker_encoder_path", paths["speaker_encoder"], "--device", dev]
+    if dev == "cuda":  # the full-width vocoder (a CPU rehearsal's small one does not load as the default config)
+        model += ["--encodec_path", paths["encodec"]]
+    # on a CPU rehearsal: a memory size to plan for, and a slot count (slots="auto" needs a card)
+    hbm = cap.device_memory_bytes() if dev == "cuda" else 80 * 1024**3
+    # the three at once on the card: the server starting while synth and capacity run
+    serving = start_cli(["serve", *model, "--batching", "auto" if dev == "cuda" else "2", "--no_warmup",
+                         "--max_new_tokens", str(SERVE_NEW), "--host", "127.0.0.1", "--port", "0",
+                         "--output_dir", os.path.join(workdir, "out_serve")])
+    proc, t0 = serving
+    lines = []
+    try:
+        synth = start_cli(["synth", *model, "--text", SYNTH_TEXT, "--spk_cond_path", ref, "--max_new_tokens", "192",
+                           "--output_dir", os.path.join(workdir, "out_cli")])
+        planned = start_cli(["capacity", "--quantisation_mode", "int4"] + (["--hbm_gib", "80"] if dev == "cpu" else []))
+        out, synth_s = finish_cli(synth, "48 cli")
+        wav = check_wav(out.strip().splitlines()[-1])
+        plan, cap_s = finish_cli(planned, "48 cli")
+        fits = cap.max_slots(first_stage_config(), quantisation_mode="int4", hbm_bytes=hbm)
+        if f"max slots at this config: {fits}" not in plan:
+            fail(f"48 cli: capacity printed another plan than capacity.max_slots' {fits} slots: {plan}")
+        want_slots = min(fits, cap.MAX_AUTO_SLOTS) if dev == "cuda" else 2
+        port = None
+        while port is None:
+            line = proc.stdout.readline()
+            if not line:
+                fail(f"48 cli serve ended before serving ({proc.wait()}): {proc.stderr.read()[-3000:]}")
+            lines.append(line.strip())
+            found = re.match(r"serving on 127\.0\.0\.1:(\d+)", line)
+            port = int(found.group(1)) if found else None
+        start_s = time.perf_counter() - t0
+        slots = [int(s) for ln in lines for s in re.findall(r"auto-sized batching engine: (\d+) slots", ln)]
+        if slots != [want_slots] and dev == "cuda":
+            fail(f"48 cli serve sized {slots} slots; capacity.max_slots gives {want_slots} on this card: {lines}")
+        url = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            if json.loads(r.read()) != {"status": "ok"}:
+                fail("48 cli serve: /health is not ok")
+        timed = {}
+        for stream in (False, True):
+            body = {"text": SERVE_TEXT, "speaker_ref_path": ref} | ({"stream": "true"} if stream else {})
+            req = urllib.request.Request(url + "/tts", data=json.dumps(body).encode(), method="POST",
+                                         headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=900) as r:
+                first = r.read(44)
+                first_s = time.perf_counter() - t
+                data = first + r.read()
+            if data[:4] != b"RIFF" or data[8:12] != b"WAVE" or len(data) <= 44:
+                fail(f"48 cli serve: the {'streamed ' if stream else ''}/tts is not a wav with audio")
+            if stream and data[4:8] != b"\xff\xff\xff\xff":
+                fail("48 cli serve: the stream has no live RIFF size")
+            timed["stream" if stream else "tts"] = (first_s, time.perf_counter() - t, (len(data) - 44) // 2)
+        proc.send_signal(signal.SIGTERM)
+        rest, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or "server stopped" not in rest:
+        fail(f"48 cli serve: SIGTERM gave exit {proc.returncode}, output {rest[-500:]!r}: {err[-2000:]}")
+    engine = TrainedBPETokeniser(**CKPT_TOKENIZER).engine
+    if engine.path != "native":
+        fail(f"48 cli: the tokenizer took the Python merge, not the native BPE engine: {engine.native_error}")
+    print(f"[48 cli] python -m metavoice_tpu_torch.cli in processes of their own, from the 47 int4 .npz: synth "
+          f"{synth_s:.2f} s (a wav of {len(wav)} samples); capacity {cap_s:.2f} s: "
+          f"{' | '.join(plan.strip().splitlines())}; serve --batching auto --no_warmup (started beside the two): serving "
+          f"after {start_s:.2f} s "
+          f"with {want_slots} slots (capacity.max_slots for the card, at most {cap.MAX_AUTO_SLOTS}), /health ok, /tts "
+          f"{timed['tts'][1]:.2f} s (first bytes {timed['tts'][0]:.3f} s, {timed['tts'][2]} samples), streamed /tts "
+          f"first bytes {timed['stream'][0]:.3f} s, end {timed['stream'][1]:.2f} s ({timed['stream'][2]} samples), "
+          f"SIGTERM -> 'server stopped', exit 0; quantize (phase 47) {ckpt['quantize_s']:.2f} s -> "
+          f"{ckpt['npz_bytes'] / 1e9:.4f} GB; the tokenizer on the native BPE engine")
+
+
+def phase_capacity_plan(torch, workdir: str, ref: str, files: dict, ckpt: dict, dev: str = "cuda"):
+    """49: ContinuousBatchingEngine(slots="auto") at full width from the int4
+    .npz, on the bf16 and the int8 cache: every slot given a request in the
+    largest prompt bucket, two segments each; the plan's bytes, the memory
+    reserved before, with the engine built and at its peak, and the card's
+    total; the peak within the plan's budget."""
+    from metavoice_tpu_torch.runtime.engine import ContinuousBatchingEngine
+    from metavoice_tpu_torch.runtime.tts import TTS
+    from metavoice_tpu_torch.utils import capacity as cap
+
+    paths = files["paths"]
+    total = cap.device_memory_bytes()
+    gib = 1024**3
+    shown = []
+    for kv in (None, "int8"):
+        gc_collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_reserved()
+        tts = TTS.from_checkpoints(ckpt["npz"], paths["second_stage"], paths["speaker_encoder"],
+                                   encodec_path=paths["encodec"], encodec_cfg=files["ecfg"], kv_cache_dtype=kv,
+                                   device=dev, output_dir=os.path.join(workdir, "out_plan"))
+        eng = ContinuousBatchingEngine(tts, slots="auto", segment_tokens=ENGINE_SEGMENT, pad_multiple=128)
+        built = torch.cuda.memory_reserved()
+        try:
+            plan = cap.memory_plan(tts.c.first_stage_cfg, hbm_bytes=total, quantisation_mode="int4",
+                                   kv_cache_dtype=kv, slots=eng.n_slots)
+            t0 = time.perf_counter()
+            futs = [eng.submit(f"{i:02d} {PLAN_PROMPT}", ref, max_new_tokens=PLAN_NEW) for i in range(eng.n_slots)]
+            n_wavs = len([check_wav(f.result(timeout=900)) for f in futs])
+            wall = time.perf_counter() - t0
+            st = dict(eng.stats)
+        finally:
+            eng.shutdown()
+        peak = torch.cuda.max_memory_reserved()
+        # the pool's own peak: what this process held before the TTS (earlier phases' tensors) is not its
+        if peak - base > plan.budget_bytes:
+            fail(f"49 capacity plan: the pool's peak reserved {peak - base} bytes (peak {peak}, {base} before the "
+                 f"TTS) exceeds the plan's budget {plan.budget_bytes}")
+        if st["groups"] < 1 or st["segments"] < 2:
+            fail(f"49 capacity plan: {st}")
+        shown.append(f"int4 weights, {kv or 'bf16'} cache: {eng.n_slots} slots; plan weights "
+                     f"{plan.weights_bytes / gib:.3f} + cache {plan.cache_bytes / gib:.3f} = {plan.total_bytes / gib:.3f} "
+                     f"GiB, budget {plan.budget_bytes / gib:.3f} GiB; reserved {base / gib:.3f} GiB before the TTS, "
+                     f"{built / gib:.3f} GiB with the TTS and engine built, peak {peak / gib:.3f} GiB; the pool's own peak "
+                     f"{(peak - base) / gib:.3f} GiB ({(peak - base) / total:.3f} of the card, "
+                     f"{(peak - base) / max(plan.total_bytes, 1):.2f}x the plan); "
+                     f"{n_wavs} requests of 251 prompt tokens and {PLAN_NEW} new in {wall:.2f} s ({st['segments']} "
+                     f"segments, {st['groups']} groups, {st['joins']} joins)")
+        del tts, eng, futs
+    print(f"[49 capacity plan] slots='auto' against the card's {total / gib:.2f} GiB at utilization "
+          f"{cap.DEFAULT_UTILIZATION}: {'; '.join(shown)}")
+
+
+def gc_collect():
+    import gc
+
+    gc.collect()
+
+
 def main() -> int:
     import torch
 
@@ -4429,6 +5002,14 @@ def main() -> int:
         phase_server(torch, served.pop("eng"), ref)
         del served
         torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as ckdir:  # phase 46's files, removed after phase 49
+            files = phase_checkpoint_files(torch, ckdir)
+            ckpt = phase_from_checkpoints(torch, ckdir, ref, files)
+            files.pop("model")  # the seeded trees: phases 48-49 read the files
+            gc_collect()
+            torch.cuda.empty_cache()
+            phase_cli(torch, ckdir, ref, files, ckpt)
+            phase_capacity_plan(torch, ckdir, ref, files, ckpt)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # and, where a phase read it from the graph of one call, the kernels a call
     counted = ("kernels_a_call",)

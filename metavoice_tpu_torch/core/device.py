@@ -13,6 +13,6 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             f"device {str(device)!r} requested but torch.cuda.is_available() is False; "
             "pass device='cpu' explicitly to run the plain PyTorch path"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):  # meta: shapes and dtypes only (utils/capacity.py)
         raise ValueError(f"unsupported device {dev}")
     return dev

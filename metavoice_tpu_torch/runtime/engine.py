@@ -169,9 +169,9 @@ class ContinuousBatchingEngine:
     running batch at the next segment boundary instead of waiting for the
     group to finish. ``pad_multiple`` is the prompt bucket; it must exceed
     16 tokens (first_stage.prefill_batch refuses a shorter bucket) and be a
-    multiple of 4 with the packed int8 cache. ``slots="auto"`` needs the
-    capacity planner (``utils/capacity.py``), which the port does not have
-    yet, and raises.
+    multiple of 4 with the packed int8 cache. ``slots="auto"`` sizes the
+    pool from the card's memory (``_auto_slots``); on the CPU there is none
+    to plan from, and it raises ``ValueError``.
     """
 
     def __init__(
@@ -184,10 +184,7 @@ class ContinuousBatchingEngine:
         rebase_margin: int | None = None,
     ):
         if slots == "auto":
-            raise NotImplementedError(
-                "slots='auto' sizes the pool with utils/capacity.py, which is not ported yet "
-                "(ROADMAP.md Queue 1 item 9); pass a slot count"
-            )
+            slots = self._auto_slots(tts)
         if segment_tokens % 2 != 0:
             raise ValueError("segment_tokens must be even (whole frames)")
         if pad_multiple <= tfm.MULTI_MAX_T:
@@ -244,6 +241,26 @@ class ContinuousBatchingEngine:
         self._running = True
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
+
+    @staticmethod
+    def _auto_slots(tts) -> int:
+        """The pool from the exact plan of the card's memory
+        (utils/capacity.py): the weight mode from the TTS's first stage and
+        the cache format from its runtime, as the JAX package's
+        ``_auto_slots`` detects them (a groupwise int4 first stage is planned
+        as bf16 there too), the largest slot count that fits, capped at
+        ``MAX_AUTO_SLOTS``; at least 1."""
+        from metavoice_tpu_torch.utils import capacity as cap
+
+        if tts.device.type != "cuda":
+            raise ValueError(f"slots='auto' plans from the card's memory, and {tts.device} has none to plan "
+                             "from: pass a slot count")
+        kvd = tts._cache_format(False)
+        n = cap.max_slots(tts.c.first_stage_cfg, hbm_bytes=cap.device_memory_bytes(tts.device),
+                          quantisation_mode=tts.quantisation_mode,
+                          kv_cache_dtype=kvd if isinstance(kvd, str) else None,
+                          limit=cap.MAX_AUTO_SLOTS)
+        return max(1, n)
 
     def _new_cache(self) -> tfm.KVCache:
         return tfm.KVCache.create(self._cfg, 2 * self.n_slots, self._block, dtype=self._cache_dtype,

@@ -26,8 +26,12 @@ Endpoints:
        content types: multipart/form-data, application/x-www-form-urlencoded,
                or application/json
 
-``python -m metavoice_tpu_torch.runtime.server --random_weights [--small]
-[--device cpu]`` serves random weights; checkpoints are not loadable yet.
+``python -m metavoice_tpu_torch.runtime.server --first_stage_path ...
+--second_stage_path ... --speaker_encoder_path ... [--encodec_path ...]
+[--device cpu]`` serves checkpoints (``TTS.from_checkpoints``), and
+``--random_weights [--small]`` (or no first-stage path) random weights.
+``python -m metavoice_tpu_torch.cli serve`` adds the batching engine and
+replicas.
 """
 
 from __future__ import annotations
@@ -55,6 +59,9 @@ class ServingConfig:
     port: int = 58003
     seed: int = 1337
     output_dir: str = "outputs"
+    # cap on a request's first-stage tokens a chunk; None (the JAX package's
+    # only behaviour) decodes to end-of-audio or the context limit
+    max_new_tokens: int | None = None
 
 
 def _parse_multipart(body: bytes, content_type: str) -> dict[str, bytes | str]:
@@ -311,6 +318,8 @@ def make_handler(tts, config: ServingConfig, batching_engine=None, metrics=None)
     per-request segment_tokens knobs only apply on that direct path (the
     engine's segment cadence is a batch-wide property).
     """
+    # the first-stage cap goes to the engine or TTS only when set, so that their own defaults hold otherwise
+    cap = {} if config.max_new_tokens is None else {"max_new_tokens": config.max_new_tokens}
     lock = threading.Lock()  # serialize synthesis on the single engine
     metrics = metrics or ServingMetrics()
 
@@ -423,6 +432,7 @@ def make_handler(tts, config: ServingConfig, batching_engine=None, metrics=None)
                         top_p=top_p,
                         guidance_scale=guidance,
                         temperature=temperature,
+                        **cap,
                     ).result()
                 else:
                     with lock:
@@ -432,6 +442,7 @@ def make_handler(tts, config: ServingConfig, batching_engine=None, metrics=None)
                             top_p=top_p,
                             guidance_scale=guidance,
                             temperature=temperature,
+                            **cap,
                         )
                 with open(wav_path, "rb") as f:
                     payload = f.read()
@@ -472,6 +483,7 @@ def make_handler(tts, config: ServingConfig, batching_engine=None, metrics=None)
                 gen = batching_engine.submit(
                     text, ref_path, stream=True, top_p=top_p,
                     guidance_scale=guidance, temperature=temperature,
+                    **cap,
                 )
             else:
                 stream_ctx = lock
@@ -483,6 +495,7 @@ def make_handler(tts, config: ServingConfig, batching_engine=None, metrics=None)
                         segment_tokens=segment_tokens,
                         first_segment_tokens=first_segment_tokens,
                         temperature=temperature,
+                        **cap,
                     )
                 try:
                     first = next(gen)
@@ -547,19 +560,20 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="metavoice-tpu PyTorch TTS server")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=58003)
-    ap.add_argument("--first_stage_path", help="not loadable yet: raises NotImplementedError")
-    ap.add_argument("--random_weights", action="store_true", help="serve random weights (required for now)")
+    ap.add_argument("--first_stage_path")
+    ap.add_argument("--second_stage_path")
+    ap.add_argument("--speaker_encoder_path")
+    ap.add_argument("--encodec_path", help="pretrained EnCodec vocoder (.pt/.npz)")
+    ap.add_argument("--random_weights", action="store_true", help="dev mode")
     ap.add_argument("--small", action="store_true", help="small dev models")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.first_stage_path:
-        raise NotImplementedError(
-            "TTS.from_checkpoints is not ported yet (ROADMAP.md Queue 1 item 5); serve --random_weights"
-        )
-    if not args.random_weights:
-        ap.error("checkpoints are not loadable yet (ROADMAP.md Queue 1 item 5): pass --random_weights")
-    tts = TTS.from_random(small=args.small, device=args.device)
+    if args.random_weights or not args.first_stage_path:
+        tts = TTS.from_random(small=args.small, device=args.device)
+    else:
+        tts = TTS.from_checkpoints(args.first_stage_path, args.second_stage_path, args.speaker_encoder_path,
+                                   encodec_path=args.encodec_path, device=args.device)
     cfg = ServingConfig(host=args.host, port=args.port)
     httpd = ThreadingHTTPServer((cfg.host, cfg.port), make_handler(tts, cfg))
     print(f"serving on {cfg.host}:{cfg.port}")

@@ -70,8 +70,16 @@ through the int4 decode-stack kernel). ``spec_stats`` accumulates the
 acceptance ledger. As in the JAX package the speculative path refuses
 tensor parallelism and keeps bf16 caches whatever ``kv_cache_dtype`` is.
 
-Not ported yet: tensor parallelism, a draft checkpoint loader
-(``from_checkpoints``), MBD and the DF enhancer.
+Weights from files: ``TTS.from_checkpoints(first_stage_path,
+second_stage_path, speaker_encoder_path, encodec_path=..., draft_checkpoint=...,
+device=...)`` reads the reference's ``.pt`` checkpoints or the in-repo
+``.npz`` ones (a first stage pre-quantized by ``cli quantize`` keeps its
+packed arrays and their dtypes) through utils/checkpoint.py, and an
+encodec-package ``.pt`` through utils/convert_external.py. Each
+``synthesise`` ends with the ``user_ran_tts`` telemetry event
+(telemetry.py; a local spool, off under pytest).
+
+Not ported yet: tensor parallelism, MBD and the DF enhancer.
 """
 
 from __future__ import annotations
@@ -129,6 +137,7 @@ from metavoice_tpu_torch.ops.quantized import (
     quantize_params_int8,
     quantize_params_int8_i32,
 )
+from metavoice_tpu_torch import telemetry as tele
 from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser
 from metavoice_tpu_torch.utils import audio_io as aio
 
@@ -233,6 +242,8 @@ class TTS:
         draft_cfg=None,
         speculative_gamma: int = 4,
         draft_use_cfg: bool = True,
+        telemetry_client: tele.TelemetryClient | None = None,
+        telemetry_origin: str | None = None,
     ):
         self.runtime = runtime or RuntimeConfig(seed=seed, output_dir=output_dir)
         if draft_params is not None and draft_cfg is None:
@@ -309,6 +320,9 @@ class TTS:
         self.spec_stats = {"accepted": 0, "proposed": 0, "rounds": 0, "emitted": 0}
         self.output_dir = output_dir
         os.makedirs(output_dir, exist_ok=True)
+        # anonymous usage telemetry (a local JSONL spool; ANONYMIZED_TELEMETRY=False opts out)
+        self._telemetry = telemetry_client or tele.default_client
+        self._telemetry_origin = telemetry_origin
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._emb_cache: "collections.OrderedDict[str, np.ndarray]" = collections.OrderedDict()
         self._emb_cache_max = 256
@@ -378,6 +392,104 @@ class TTS:
             enhancer=get_enhancer("spectral_gate"),
         )
         kwargs.setdefault("enforce_min_ref_duration", False)
+        return cls(comps, device=dev, **kwargs)
+
+    @classmethod
+    def from_checkpoints(
+        cls,
+        first_stage_path: str,
+        second_stage_path: str,
+        speaker_encoder_path: str,
+        encodec_path: str | None = None,
+        encodec_cfg: ec.EncodecConfig | None = None,
+        draft_checkpoint: str | None = None,
+        *,
+        device="cuda",
+        **kwargs,
+    ) -> "TTS":
+        """A TTS from checkpoint files, as the JAX package's
+        ``from_checkpoints``, on ``device`` (the weights go there once).
+
+          * the first stage: a reference ``.pt`` (bf16 on the device), or a
+            native ``.npz``: dense (bf16), or pre-quantized by ``cli
+            quantize`` (its mode from ``__meta__``, ``"int8_packed"`` read as
+            ``"int8"``; its packed arrays keep their dtypes and are not
+            quantized again; a conflicting ``quantisation_mode`` raises
+            ``ValueError``);
+          * the second stage: ``.pt`` or an in-repo ``.npz`` (bf16);
+          * the speaker encoder ``.pt`` (f32);
+          * ``encodec_path``: an encodec-package ``.pt`` (converted) or a
+            native ``.npz``; without it a warning and a random-weight vocoder
+            (noise, for smoke runs only);
+          * ``draft_checkpoint``: a first-stage-format ``.pt`` (dense, bf16)
+            or ``.npz`` (dense, bf16; or int4-packed, dtypes kept) enables
+            speculative decoding; any other quantized draft raises
+            ``ValueError``.
+
+        The tokenizer comes from either stage's ``meta["tokenizer"]``."""
+        from metavoice_tpu_torch.utils import checkpoint as ck
+        from metavoice_tpu_torch.utils.convert_external import load_encodec_pt
+
+        dev = resolve_device(device)
+        if draft_checkpoint:
+            if draft_checkpoint.endswith(".npz"):
+                dp, dcfg, _, d_quant = ck.load_first_stage_npz(draft_checkpoint)
+                if d_quant not in (None, "int4"):
+                    raise ValueError(f"draft_checkpoint must be dense or int4-quantized (got quantisation_mode={d_quant!r})")
+                # an int4 draft keeps its packed words and bf16 scales
+                kwargs["draft_params"] = ck.params_from_numpy(dp, device=dev,
+                                                              dtype=None if d_quant else torch.bfloat16)
+            else:
+                kwargs["draft_params"], dcfg, _ = ck.load_first_stage_pt(draft_checkpoint, dtype=torch.bfloat16,
+                                                                         device=dev)
+            kwargs["draft_cfg"] = dcfg
+
+        if first_stage_path.endswith(".npz"):
+            p1, cfg1, tok_info, pre_quantised = ck.load_first_stage_npz(first_stage_path)
+            runtime_arg = kwargs.get("runtime")
+            requested = kwargs.get("quantisation_mode") or (runtime_arg.quantisation_mode if runtime_arg else None)
+            alias = {"int8_packed": "int8"}
+            requested = alias.get(requested, requested)
+            pre_quantised = alias.get(pre_quantised, pre_quantised)
+            if pre_quantised and requested not in (None, pre_quantised):
+                raise ValueError(f"checkpoint is pre-quantized as {pre_quantised!r}; "
+                                 f"conflicting quantisation_mode={requested!r}")
+            if pre_quantised:  # the packed arrays are not quantized again
+                kwargs["quantisation_mode"] = None
+                if runtime_arg and runtime_arg.quantisation_mode:
+                    kwargs["runtime"] = dataclasses.replace(runtime_arg, quantisation_mode=None)
+            p1 = ck.params_from_numpy(p1, device=dev, dtype=None if pre_quantised else torch.bfloat16)
+        else:
+            p1, cfg1, tok_info = ck.load_first_stage_pt(first_stage_path, dtype=torch.bfloat16, device=dev)
+        if second_stage_path.endswith(".npz"):
+            p2, cfg2, tok_info2 = ck.load_second_stage_npz(second_stage_path, device="cpu")
+            p2 = ck.params_from_numpy(p2, device=dev, dtype=torch.bfloat16)
+        else:
+            p2, cfg2, tok_info2 = ck.load_second_stage_pt(second_stage_path, dtype=torch.bfloat16, device=dev)
+        spk = ck.load_speaker_encoder_pt(speaker_encoder_path, device=dev)
+        tok_info = tok_info or tok_info2
+        ecfg = encodec_cfg or ec.EncodecConfig()
+        if encodec_path and encodec_path.endswith(".npz"):
+            eparams = ck.params_from_numpy(ck.load_npz(encodec_path)[0], device=dev)
+        elif encodec_path:
+            eparams = load_encodec_pt(encodec_path, ecfg, device=dev)
+        else:
+            warnings.warn(
+                "No encodec_path given: synthesising through a RANDOM-weight EnCodec decoder (output will be "
+                "noise). Pass a converted 24 kHz EnCodec checkpoint for real audio."
+            )
+            eparams = ec.init_params(ecfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        comps = TTSComponents(
+            first_stage_params=p1,
+            first_stage_cfg=cfg1,
+            second_stage_params=p2,
+            second_stage_cfg=cfg2,
+            spk_params=spk,
+            encodec_params=eparams,
+            encodec_cfg=ecfg,
+            tokenizer=TrainedBPETokeniser(**tok_info) if tok_info else TrainedBPETokeniser(),
+            enhancer=get_enhancer("spectral_gate"),
+        )
         return cls(comps, device=dev, **kwargs)
 
     # ------------------------------------------------------------------ warmup
@@ -674,6 +786,27 @@ class TTS:
 
         elapsed = time.time() - start
         duration = len(wav) / self.c.encodec_cfg.sample_rate
+        rtf = elapsed / max(duration, 1e-6)
         print(f"Total time to synth (s): {elapsed:.2f}")
-        print(f"Real-time factor: {elapsed / max(duration, 1e-6):.2f}")
+        print(f"Real-time factor: {rtf:.2f}")
+        self._telemetry.capture(tele.TelemetryEvent(name="user_ran_tts", properties={
+            "model_name": "metavoice-1B-torch",
+            "text": text,
+            "temperature": temperature,
+            "guidance_scale": guidance_scale,
+            "top_p": top_p,
+            "spk_ref_path": spk_ref_path,
+            "speech_duration_s": duration,
+            "time_to_synth_s": elapsed,
+            "real_time_factor": round(rtf, 2),
+            "quantisation_mode": self.quantisation_mode,
+            "seed": self.runtime.seed,
+            "device": self.device_name,
+            "telemetry_origin": self._telemetry_origin,
+        }))
         return out_path
+
+    @property
+    def device_name(self) -> str:
+        """The torch device's name: the card's (``torch.cuda.get_device_name``), or "cpu"."""
+        return torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else str(self.device)

@@ -6,10 +6,13 @@ API parity with the reference ``TrainedBPETokeniser``
 appends the end-of-text token on encode, and offsets all ids by +2049 into
 the first-stage flat token space.
 
-Port of metavoice_tpu/tokenizer.py on its pure-Python merge path (the JAX
-package's optional C++ merge engine, native/bpe.cpp, is not ported yet).
-Works without the ``regex`` package through the std-lib ``re`` translation
-of the pre-tokenization pattern.
+Port of metavoice_tpu/tokenizer.py. The merge hot loop runs in the port's
+C++ engine (metavoice_tpu_torch/native, built with g++ at first use) where
+it builds, as in the JAX package (``use_native=True``); without a compiler
+the pure-Python merge, which has the same semantics. ``BPEEngine.path``
+names the one taken ("native" or "python"). Works without the ``regex``
+package through the std-lib ``re`` translation of the pre-tokenization
+pattern.
 """
 
 from __future__ import annotations
@@ -47,14 +50,35 @@ def _compile_pattern(pat_str: str) -> "re.Pattern":
 
 
 class BPEEngine:
-    """Greedy lowest-rank-first byte-pair merging over a rank table."""
+    """Greedy lowest-rank-first byte-pair merging over a rank table: in the
+    native engine when ``use_native`` and it builds (``path == "native"``),
+    else in Python (``path == "python"``, with the reason in
+    ``native_error``)."""
 
-    def __init__(self, mergeable_ranks: dict[bytes, int], pat_str: str):
+    def __init__(self, mergeable_ranks: dict[bytes, int], pat_str: str, use_native: bool = True):
         self.ranks = dict(mergeable_ranks)
         self.pattern = _compile_pattern(pat_str)
         self.decoder = {rank: token for token, rank in self.ranks.items()}
+        self.native = None
+        self.native_error = "use_native=False"
+        if use_native:
+            from metavoice_tpu_torch.native import NativeBPE, NativeUnavailable
+
+            try:
+                self.native = NativeBPE(self.ranks)
+                self.native_error = None
+            except NativeUnavailable as e:
+                self.native_error = str(e)
+
+    @property
+    def path(self) -> str:
+        return "python" if self.native is None else "native"
 
     def _encode_piece(self, piece: bytes) -> list[int]:
+        if self.native is not None:
+            ids = self.native.encode_piece(piece)
+            if ids is not None:
+                return ids
         if piece in self.ranks:
             return [self.ranks[piece]]
         parts = [piece[i : i + 1] for i in range(len(piece))]

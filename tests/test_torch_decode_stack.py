@@ -13,6 +13,8 @@ the intermediate's size: hence atol scaled by max |ref| (measured: at most
 about 1% of max |ref| here). Weights are normal(0.02), the reference init.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,9 @@ import jax.numpy as jnp  # noqa: E402
 from metavoice_tpu.ops import quantized as jqz  # noqa: E402
 from metavoice_tpu.ops.decode_stack import decode_stack_int4 as jax_decode_stack  # noqa: E402
 from metavoice_tpu_torch.ops import decode_stack as DS  # noqa: E402
+
+# the JAX kernel in interpret mode, compiled once a shape (pos is traced) and shared by the cases
+_jax_stack = jax.jit(jax_decode_stack, static_argnames=("n_head", "n_kv_head", "norm_eps", "wfmt", "interpret"))
 
 L, H, DH, B, S = 3, 8, 128, 2, 512
 D = H * DH  # 1024
@@ -35,6 +40,7 @@ def _bf16(a):
     return np.asarray(jnp.asarray(a, jnp.bfloat16))
 
 
+@functools.lru_cache(maxsize=None)  # the JAX quantizer runs once a seed
 def _setup(seed, h_kv=H, head=False):
     """numpy inputs in the JAX package's layout, packed by the JAX quantizer."""
     rng = np.random.default_rng(seed)
@@ -81,7 +87,7 @@ def _run_both(inp, pos, h_kv=H, starts=None):
         lnf, hpw, hsc = inp["head"]
         jkw.update(ln_f_w=jnp.asarray(lnf), head_pw=jnp.asarray(hpw), head_sc=jnp.asarray(hsc))
         tkw.update(ln_f_w=_t(lnf), head_pw=_t(hpw), head_sc=_t(hsc))
-    ref = jax_decode_stack(
+    ref = _jax_stack(
         jnp.asarray(inp["x"]), jnp.asarray(inp["n1"]), jnp.asarray(inp["n2"]),
         *[jnp.asarray(m) for m in mats], jnp.asarray(inp["k"]), jnp.asarray(inp["v"]),
         jnp.asarray(pos, jnp.int32), H, **jkw,

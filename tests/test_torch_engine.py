@@ -534,7 +534,7 @@ def test_engine_gqa_on_every_cache_format(tmp_path, ref_wav, kv_dtype):
 def test_construction_refuses_what_the_port_cannot_serve(tts):
     with pytest.raises(ValueError, match="exceed 16"):
         ContinuousBatchingEngine(tts, pad_multiple=16)
-    with pytest.raises(NotImplementedError, match="capacity"):
+    with pytest.raises(ValueError, match="pass a slot count"):  # no device memory to plan from on the CPU
         ContinuousBatchingEngine(tts, slots="auto")
     with pytest.raises(ValueError, match="even"):
         ContinuousBatchingEngine(tts, segment_tokens=7)

@@ -39,6 +39,9 @@ from metavoice_tpu_torch.runtime.tts import TTS  # noqa: E402
 from metavoice_tpu_torch.utils import audio_io as aio  # noqa: E402
 from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
+# the JAX kernel in interpret mode, compiled once a shape (pos is traced) and shared by the cases
+_jax_stack = jax.jit(jax_decode_stack, static_argnames=("n_head", "n_kv_head", "norm_eps", "wfmt", "interpret"))
+
 PROMPT_LEN = 53
 STEPS = 3
 TOL = 3e-2
@@ -116,7 +119,7 @@ def test_decode_steps_match_jax_stack_kernel(model, inputs, prefilled):
         idx = np.full((2, 1), tok, np.int64)
         jx = jtfm.embed_inputs(jq, jcfg, jnp.asarray(idx), jnp.asarray([pos]), jnp.asarray(spk2),
                                jmask, jnp.bfloat16)
-        _, jk, jv, jlg = jax_decode_stack(
+        _, jk, jv, jlg = _jax_stack(
             jx[:, 0], lay["attn_norm_w"], lay["ffn_norm_w"], *mats, jk, jv,
             jnp.asarray(pos, jnp.int32), jcfg.n_head, n_kv_head=jcfg.n_local_heads,
             norm_eps=jcfg.norm_eps, ln_f_w=jq["ln_f_w"], head_pw=head["pw"], head_sc=head["sc"],

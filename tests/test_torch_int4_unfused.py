@@ -49,6 +49,9 @@ from metavoice_tpu_torch.runtime.tts import TTS  # noqa: E402
 from metavoice_tpu_torch.utils import audio_io as aio  # noqa: E402
 from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
+# the JAX forward compiled once a shape and shared by every step (cache_pos is traced)
+_jax_forward = jax.jit(jtfm.forward, static_argnames=("cfg", "compute_dtype"))
+
 STEP_TOL = 3e-2
 TINY = dict(n_layer=2, n_head=4, dim=128, block_size=64, vocab_sizes=(97,), intermediate_size=256)
 WIDE = dict(n_layer=2, block_size=256)  # 2048d/16H, FFN 5632: the first stage's widths
@@ -163,13 +166,13 @@ def _jax_generate(model, prompt, spk, noise):
         merged = JS.top_p_mask(JS.apply_temperature(JS.cfg_merge(logits, GUIDANCE), TEMPERATURE), TOP_P)
         return int(jnp.argmax(merged + jnp.asarray(noise[i]), axis=-1)[0])
 
-    logits, kv = jtfm.forward(jq, jcfg, jnp.asarray(np.stack([padded] * 2)), spk_emb=spk2, spk_cond_mask=mask,
+    logits, kv = _jax_forward(jq, jcfg, jnp.asarray(np.stack([padded] * 2)), spk_emb=spk2, spk_cond_mask=mask,
                               kv_cache=kv, cache_pos=0, compute_dtype=jnp.float32)
     out = [sample(logits[0][:, t_true - 1], 0)]
     for i in range(1, N_TOKENS):
         if out[-1] == EOA:
             break
-        logits, kv = jtfm.forward(jq, jcfg, jnp.full((2, 1), out[-1]), spk_emb=spk2, spk_cond_mask=mask,
+        logits, kv = _jax_forward(jq, jcfg, jnp.full((2, 1), out[-1]), spk_emb=spk2, spk_cond_mask=mask,
                                   kv_cache=kv, cache_pos=t_true + i - 1, compute_dtype=jnp.float32)
         out.append(sample(logits[0][:, 0], i))
     return np.concatenate([np.asarray(prompt, np.int32), np.asarray(out, np.int32)])

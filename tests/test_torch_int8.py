@@ -34,6 +34,8 @@ versions) against the JAX package's ``ops/quantized.py`` and
   other slot bit-identical.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -50,6 +52,9 @@ from metavoice_tpu_torch.models import transformer as tfm  # noqa: E402
 from metavoice_tpu_torch.ops import decode_stack as DS  # noqa: E402
 from metavoice_tpu_torch.ops import quantized as Q  # noqa: E402
 from metavoice_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
+
+# the JAX kernel in interpret mode, compiled once a shape (pos is traced) and shared by the cases
+_jax_stack = jax.jit(jax_decode_stack, static_argnames=("n_head", "n_kv_head", "norm_eps", "wfmt", "interpret"))
 
 K8_TOL = 1e-3
 K7_LAYER_TOL = 1e-2
@@ -228,6 +233,7 @@ def _bf16(a):
     return np.asarray(jnp.asarray(a, jnp.bfloat16))
 
 
+@functools.lru_cache(maxsize=None)  # the JAX quantizer runs once a seed
 def _stack_inputs(seed, h_kv=H):
     """numpy inputs in the JAX package's layout, packed by the JAX quantizer."""
     rng = np.random.default_rng(seed)
@@ -289,7 +295,7 @@ def _run_both(inp, pos, h_kv=H, starts=None):
     for li in range(L):
         one = {k: inp[k][li : li + 1] for k in ("n1", "n2", "k", "v")}
         mats = [m[li : li + 1] for m in _mats(inp)]
-        ref = jax_decode_stack(
+        ref = _jax_stack(
             jnp.asarray(x), jnp.asarray(one["n1"]), jnp.asarray(one["n2"]),
             *[jnp.asarray(m) for m in mats], jnp.asarray(one["k"]), jnp.asarray(one["v"]),
             jnp.asarray(pos, jnp.int32), H, **jkw,

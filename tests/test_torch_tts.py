@@ -36,6 +36,9 @@ from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser  # noqa: E402
 from metavoice_tpu_torch.utils import audio_io as aio  # noqa: E402
 from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
+# the JAX forward compiled once a shape and shared by every step (cache_pos is traced)
+_jax_forward = jax.jit(jtfm.forward, static_argnames=("cfg", "compute_dtype"))
+
 TEXT = "Hello there, this is a parity test."
 N_TOKENS = 32
 # A low temperature and scaled-down noise keep the random small models'
@@ -105,13 +108,13 @@ def _jax_first_stage(params, cfg, prompt, spk, noise, temperature, guidance=GUID
         merged = JS.top_p_mask(JS.apply_temperature(merged, temperature), TOP_P)
         return int(jnp.argmax(merged + jnp.asarray(noise[i]), axis=-1)[0])
 
-    logits, kv = jtfm.forward(params, cfg, batch(padded), spk_emb=spk2,
+    logits, kv = _jax_forward(params, cfg, batch(padded), spk_emb=spk2,
                               spk_cond_mask=mask, kv_cache=kv, cache_pos=0, compute_dtype=jnp.float32)
     out = [sample(logits[0][:, t_true - 1], 0)]
     for i in range(1, n_tokens):
         if out[-1] == JT.END_OF_AUDIO_TOKEN:
             break
-        logits, kv = jtfm.forward(params, cfg, batch(np.array([out[-1]], np.int32)), spk_emb=spk2,
+        logits, kv = _jax_forward(params, cfg, batch(np.array([out[-1]], np.int32)), spk_emb=spk2,
                                   spk_cond_mask=mask, kv_cache=kv, cache_pos=t_true + i - 1,
                                   compute_dtype=jnp.float32)
         out.append(sample(logits[0][:, 0], i))
@@ -277,6 +280,12 @@ def test_port_imports_no_jax():
         "import metavoice_tpu_torch.runtime.replicas\n"
         "import metavoice_tpu_torch.utils.phases\n"
         "import metavoice_tpu_torch.utils.audio_io\n"
+        "import metavoice_tpu_torch.utils.capacity\n"
+        "import metavoice_tpu_torch.utils.convert_external\n"
+        "import metavoice_tpu_torch.utils.profiling\n"
+        "import metavoice_tpu_torch.native\n"
+        "import metavoice_tpu_torch.telemetry\n"
+        "import metavoice_tpu_torch.cli\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metavoice_tpu')]\n"
         "assert not bad, bad\n"
