@@ -318,7 +318,34 @@ Phases, one line each; any failure exits non-zero and prints no result:
                and the pool's own peak (over what the process held before its
                TTS) within the plan's budget.
 
-Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45 and 47 are the main paths: every kernel count is
+ 50. finetune-parity - a small first stage (2L/8H/1024d, vocab 2562) takes
+               3 train steps (dropout 0, f32 params and compute, lr 1e-3,
+               warmup 2, weight decay 0.1) on the card and on the CPU route
+               from the same weights and batches: the losses within 1e-4,
+               the grad-mask path's params as the CPU tests hold the port to
+               JAX (every element within 2 x the rates summed, all but 1e-3
+               of each leaf within 1e-3 lr), its frozen leaves bit for bit,
+               the split path's tail the mask path's;
+ 51. finetune-full-width - first_stage_config() with bf16 params, dropout
+               0.1 and spkemb_dropout 0.1, batches of 2 x 2048 tokens: 6 steps
+               of the split tail (last_n_blocks 1), 3 of the whole tree with
+               accumulation 2; for each the median ms a step after the first,
+               tokens/s, torch.cuda.max_memory_allocated and MFU against 989
+               TFLOP/s with the FLOP count stated (train_flops); losses
+               finite, the frozen layers bit for bit, the tail moved; then
+               final.npz through trainer.save_checkpoint, loaded by
+               TTS.from_checkpoints(quantisation_mode="int4"), and a 64-token
+               synthesise: K3 == decode steps, K2 == 5 x n_layer x prefills;
+ 52. finetune-e2e - `cli finetune --small` in a process of its own on a CSV
+               of generated wavs; the JAX package's trained-system recipe
+               (tests/test_trained_system_e2e.py) on the card, with a 2-head
+               64-dim-head GQA first stage: a first stage (trainer.train, 600
+               steps, every leaf) and a second stage (500 steps) overfit to
+               two utterances below a teacher-forced loss of 0.15, loaded by
+               TTS.from_checkpoints; each synthesis spectrally closer to its
+               own utterance's codec reconstruction than to the other's.
+
+Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45, 47 and 51 are the main paths: every kernel count is
 set to 0 just before each and read just after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
@@ -718,13 +745,13 @@ def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
-def drive_main_path(tts, ref: str, **kw) -> tuple[str, float, dict]:
+def drive_main_path(tts, ref: str, max_new_tokens: int = 192, **kw) -> tuple[str, float, dict]:
     """One synthesise through the user's entry point, every kernel count set
     to 0 just before and read just after -> (wav path, seconds, counts)."""
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
     t0 = time.perf_counter()
-    path = tts.synthesise(SYNTH_TEXT, ref, max_new_tokens=192, **kw)
+    path = tts.synthesise(SYNTH_TEXT, ref, max_new_tokens=max_new_tokens, **kw)
     seconds = time.perf_counter() - t0
     return path, seconds, read_counts()
 
@@ -1180,7 +1207,7 @@ def phase_unfused(torch):
 
 
 def phase_synth_quantized(torch, workdir: str, ref: str, mode, label: str, per_step: dict,
-                          matmul: str, compared: dict, tts=None, init_s=None) -> dict:
+                          matmul: str, compared: dict, tts=None, init_s=None, max_new_tokens: int = 192) -> dict:
     """Full-width TTS(quantisation_mode=mode).synthesise, or that of ``tts``
     built by the caller in ``init_s`` seconds: a finite wav, each kernel of
     ``per_step`` launched that many times a decode step, the prefill matmul
@@ -1196,7 +1223,7 @@ def phase_synth_quantized(torch, workdir: str, ref: str, mode, label: str, per_s
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
     cfg1 = tts.c.first_stage_cfg
-    path, total_s, counts = drive_main_path(tts, ref)
+    path, total_s, counts = drive_main_path(tts, ref, max_new_tokens)
     steps = tts.stats["decode_steps"]
     prefills = len(chunk_text(normalize_text(SYNTH_TEXT), MAX_CHARS_PER_CHUNK) or [""])
     want = dict.fromkeys(counts, 0)
@@ -4884,6 +4911,393 @@ def phase_capacity_plan(torch, workdir: str, ref: str, files: dict, ckpt: dict, 
           f"{cap.DEFAULT_UTILIZATION}: {'; '.join(shown)}")
 
 
+# phases 50-52: training (metavoice_tpu_torch/training)
+FT_PARITY_CFG = dict(n_layer=2, n_head=8, dim=1024, block_size=256)  # phase 50: vocab 2562, head_dim 128
+FT_PARITY_T = 128  # tokens a row, 2 rows a batch
+FT_PARITY = dict(learning_rate=1e-3, min_lr=1e-4, warmup_iters=2, lr_decay_iters=20, weight_decay=0.1)
+FT_ROWS = 2  # phase 51: batch 2 x block_size tokens, as the CLI's default batch
+FT_SPLIT_STEPS, FT_FULL_STEPS = 6, 3
+FT_SAMPLE_NEW = 64  # phase 51: first-stage tokens of the finetuned int4 synthesise
+# phase 52: JAX's tests/test_trained_system_e2e.py recipe, with the first stage's head_dim 64 (the
+# decode kernels take 64 or 128; JAX's 64-wide, 4-head model has 16): GQA, 2 heads on 1 kv head
+E2E_FIRST = dict(n_layer=2, n_head=2, n_local_heads=1, dim=128, block_size=128)
+E2E_SECOND = dict(n_layer=2, n_head=4, dim=64, block_size=64)
+E2E_ECFG = dict(n_filters=4, dimension=16, codebook_size=1024, n_q=8)
+E2E_TEXTS = ("alpha says one.", "bravo says two.")
+E2E_MEMORIZED = 0.15  # the teacher-forced loss each stage must reach (JAX's test's bound)
+
+
+def _ft_modes(torch, params, cfg, ftc, batches, dev, mode: str):
+    """``len(batches)`` steps of the grad-mask path (last block + ln_f) or of
+    the split tail on ``dev``, f32 compute, from a copy of ``params`` ->
+    (the whole tree after, the losses)."""
+    from metavoice_tpu_torch.training import finetune as ft
+
+    p = ft.tree_map(lambda t: t.detach().to(dev, copy=True), params)
+    if mode == "split":
+        frozen, train = ft.split_trainable(p, 1)
+        state, opt = ft.init_train_state(train, ftc)
+        step = ft.make_finetune_step(cfg, ftc, opt, frozen, compute_dtype=torch.float32)
+    else:
+        state, opt = ft.init_train_state(p, ftc)
+        step = ft.make_train_step(cfg, ftc, opt, grad_mask=ft.trainable_mask(p, cfg, 1), compute_dtype=torch.float32)
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    return (ft.merge_trainable(frozen, state.params) if mode == "split" else state.params), losses
+
+
+def params_apart(torch, got, want, lr_sum: float, lr: float, what: str) -> str:
+    """Hold two trees of trained params to one another as the CPU tests hold
+    the port to JAX: Adam moves an element by about +-lr a step, so a grad
+    near zero whose sign the two runs' f32 sums disagree on moves its element
+    by up to 2 lr in all; every element within 2 x (the rates summed), and
+    all but 1e-3 of the elements within 1e-3 lr. -> the largest gap shown."""
+    g, w = leaves(got), leaves(want)
+    worst, worst_share = 0.0, 0.0
+    for k, a in g.items():
+        d = (a.detach().float().cpu() - w[k].detach().float().cpu()).abs()
+        share = float((d > 1e-3 * lr).float().mean())
+        if float(d.max()) > 2 * lr_sum or share > 1e-3:
+            fail(f"{what}: leaf {k} apart by {float(d.max()):.3g} (bound {2 * lr_sum:.3g}), {share:.2e} of it past "
+                 f"1e-3 lr")
+        worst, worst_share = max(worst, float(d.max())), max(worst_share, share)
+    return f"max |dp| {worst:.3g}, at most {worst_share:.1e} of a leaf past 1e-3 lr"
+
+
+def phase_finetune_parity(torch, dev: str = "cuda"):
+    """50: a small first stage (2L/8H/1024d, vocab 2562) takes 3 train steps
+    on the card and on the CPU route from the same weights and batches
+    (dropout 0, f32 params and compute): the grad-mask path's params agree,
+    its frozen leaves stay bit for bit, and the split path's tail is the
+    mask path's."""
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.training import finetune as ft
+
+    cfg = first_stage_config(**FT_PARITY_CFG)
+    gen = torch.Generator().manual_seed(50)
+    params = tfm.init_params(cfg, device="cpu", generator=gen)
+    for k, v in leaves(params).items():  # norms off their init, so a misplaced norm grad shows
+        if k.endswith(("norm_w", "ln_f_w")):
+            v.add_(0.1 * torch.randn(v.shape, generator=gen))
+    batches = [{"x": torch.randint(0, cfg.vocab_size, (2, FT_PARITY_T), generator=gen),
+                "y": torch.randint(0, cfg.vocab_size, (2, FT_PARITY_T), generator=gen),
+                "spk_emb": torch.randn(2, 256, generator=gen)} for _ in range(3)]
+    ftc = ft.FinetuneConfig(**FT_PARITY)
+    sched = ft.lr_schedule(ftc)
+    lr_sum = sum(sched(i) for i in range(len(batches)))
+    t0 = time.perf_counter()
+    cpu, cpu_losses = _ft_modes(torch, params, cfg, ftc, batches, "cpu", "mask")
+    card, card_losses = _ft_modes(torch, params, cfg, ftc, batches, dev, "mask")
+    split, split_losses = _ft_modes(torch, params, cfg, ftc, batches, dev, "split")
+    seconds = time.perf_counter() - t0
+    for what, losses in (("the card's mask path", card_losses), ("the card's split path", split_losses)):
+        if not all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(losses, cpu_losses)):
+            fail(f"50 finetune-parity: {what} losses {losses} are not the CPU route's {cpu_losses}")
+    shown = [params_apart(torch, card, cpu, lr_sum, ftc.learning_rate, "50 the card's mask path against the CPU's")]
+    init, got = leaves(params), {k: v.cpu() for k, v in leaves(card).items()}
+    frozen = [k for k in init if not k.startswith("ln_f")]
+    for k in frozen:  # the head layers, embeddings and speaker projection, bit for bit
+        head = slice(0, -1) if k.startswith("layers/") else slice(None)
+        if not torch.equal(got[k][head].view(torch.int32), init[k][head].view(torch.int32)):
+            fail(f"50 finetune-parity: the frozen leaf {k} moved on the card's mask path")
+    if all(torch.equal(got[k][-1:], init[k][-1:]) for k in init if k.startswith(("layers/", "ln_f"))):
+        fail("50 finetune-parity: the trainable tail did not move")
+    shown.append(params_apart(torch, split, card, lr_sum, ftc.learning_rate,
+                              "50 the card's split path against its mask path"))
+    print(f"[50 finetune-parity] {cfg.n_layer}L/{cfg.n_head}H/{cfg.dim}d vocab {cfg.vocab_size}, {len(batches)} steps "
+          f"of 2 x {FT_PARITY_T} tokens, f32, lr {ftc.learning_rate} (warmup {ftc.warmup_iters}): losses card "
+          f"{['%.6f' % x for x in card_losses]}, CPU {['%.6f' % x for x in cpu_losses]}, split "
+          f"{['%.6f' % x for x in split_losses]}; card vs CPU: {shown[0]}; {len(frozen)} frozen leaves bit for bit; "
+          f"split tail vs mask tail: {shown[1]} ({seconds:.1f} s)")
+
+
+def train_flops(cfg, rows: int, t: int, n_tail: int | None = None) -> float:
+    """Operations of one train step on ``rows`` x ``t`` tokens, the recompute
+    not counted. The whole tree (``n_tail`` None): 6 N tokens, N the layer
+    weights and the tied head (V x D), plus the attention's products as the
+    forward computes them, the whole T x T square (4 B T^2 D a layer forward),
+    three times. The split tail: the forward of every layer and the head
+    (2 N tokens + 4 B T^2 D L), the head's input gradient (2 V D tokens) and
+    the tail layers' backward (4 N_layer tokens + 8 B T^2 D each)."""
+    d, i = cfg.dim, cfg.intermediate_size
+    per_layer = d * (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim + d * d + 3 * d * i
+    head = cfg.vocab_size * d
+    tokens = rows * t
+    attn = 4 * rows * t * t * d
+    if n_tail is None:
+        return 6 * (cfg.n_layer * per_layer + head) * tokens + 3 * attn * cfg.n_layer
+    fwd = 2 * (cfg.n_layer * per_layer + head) * tokens + attn * cfg.n_layer
+    return fwd + 2 * head * tokens + n_tail * (4 * per_layer * tokens + 2 * attn)
+
+
+def _step_times(torch, step, state, batches, dev):
+    """Run ``step`` over ``batches`` -> (state, seconds a step, losses)."""
+    times, losses = [], []
+    for b in batches:
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t0)
+    return state, times, losses
+
+
+def phase_finetune_full_width(torch, workdir: str, ref: str, dev: str = "cuda", small: bool = False) -> dict:
+    """51: the full-width first stage (24L/16H/2048d, block 2048) with bf16
+    params, dropout 0.1 and speaker-embedding dropout 0.1, on batches of 2 x
+    2048 tokens: 6 steps of the split tail (last_n_blocks 1), 3 of the whole
+    tree with accumulation 2; ms a step, tokens/s, peak memory and MFU; the
+    frozen leaves bit for bit, the tail moved; then final.npz through
+    trainer.save_checkpoint, loaded by TTS.from_checkpoints(int4), and a
+    64-token synthesise through K2 and K3."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    from metavoice_tpu_torch.core.config import first_stage_config, second_stage_config
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.runtime.tts import TTS
+    from metavoice_tpu_torch.training import finetune as ft
+    from metavoice_tpu_torch.training import second_stage as ss
+    from metavoice_tpu_torch.training import trainer
+
+    dev = torch.device(dev)
+    cfg = first_stage_config(**(dict(n_layer=2, n_head=4, dim=128, block_size=256) if small else {}))
+    cfg = dataclasses.replace(cfg, dropout=0.1, spkemb_dropout=0.1)
+    gen = torch.Generator(device=dev).manual_seed(51)
+    params = tfm.init_params(cfg, device=dev, generator=gen, dtype=torch.bfloat16)
+    t = cfg.block_size
+
+    def batch(lead=()):
+        shape = (*lead, FT_ROWS, t)
+        return {"x": torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev),
+                "y": torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev),
+                "spk_emb": torch.randn((*lead, FT_ROWS, 256), generator=gen, device=dev)}
+
+    # the CLI's finetune config, with one warmup step so that every step after the first moves
+    split_cfg = ft.FinetuneConfig(warmup_iters=1, last_n_blocks_to_finetune=1)
+    full_cfg = dataclasses.replace(split_cfg, last_n_blocks_to_finetune=-1, gradient_accumulation_steps=2)
+    cuda = dev.type == "cuda"
+    runs, shown = {}, []
+
+    def start_peak() -> int:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated() if cuda else 0
+
+    def peak(start: int) -> tuple[int, int]:
+        """(max_memory_allocated, the run's own: over what it started with)."""
+        top = torch.cuda.max_memory_allocated() if cuda else 0
+        return top, top - start
+
+    head_before = {k: v[:-1].clone() for k, v in params["layers"].items()}
+    tail_before = {k: v[-1:].clone() for k, v in params["layers"].items()}
+    start = start_peak()
+    frozen, train = ft.split_trainable(params, 1)
+    state, opt = ft.init_train_state(train, split_cfg)
+    step = ft.make_finetune_step(cfg, split_cfg, opt, frozen)
+    state, times, losses = _step_times(torch, step, state, [batch() for _ in range(FT_SPLIT_STEPS)], dev)
+    runs["split"] = (times, losses, peak(start), train_flops(cfg, FT_ROWS, t, n_tail=1), FT_ROWS * t)
+    for k, v in head_before.items():
+        if not torch.equal(frozen["layers_head"][k].view(torch.int16), v.view(torch.int16)):
+            fail(f"51 finetune-full-width: the frozen layers of {k} moved on the split path")
+    moved = {k: float((state.params["layers_tail"][k] != v).float().mean()) for k, v in tail_before.items()}
+    if not any(moved.values()):
+        fail("51 finetune-full-width: the split path's tail did not move")
+    del head_before, tail_before
+    final = ft.TrainState(ft.merge_trainable(frozen, state.params), state.opt_state, state.step)
+    del frozen, train, state, opt, step
+    empty_cache(torch, dev)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    ckdir = os.path.join(workdir, "finetune51")
+    final_npz = trainer.save_checkpoint(ckdir, "final", final, cfg, split_cfg, float("inf"))
+    save_s = time.perf_counter() - t0
+    del final
+    empty_cache(torch, dev)
+
+    before = {k: v.clone() for k, v in leaves(params).items()}
+    start = start_peak()
+    state, opt = ft.init_train_state(params, full_cfg)
+    step = ft.make_train_step(cfg, full_cfg, opt)
+    state, times, losses = _step_times(torch, step, state, [batch((2,)) for _ in range(FT_FULL_STEPS)], dev)
+    runs["full"] = (times, losses, peak(start), 2 * train_flops(cfg, FT_ROWS, t), 2 * FT_ROWS * t)
+    if not any(not torch.equal(v, before[k]) for k, v in leaves(params).items()):
+        fail("51 finetune-full-width: the whole-tree path moved no leaf")
+    del before, state, opt, step, params
+    empty_cache(torch, dev)
+
+    for name, (times, losses, (top, own), flops, tokens) in runs.items():
+        if not all(np.isfinite(losses)):
+            fail(f"51 finetune-full-width: {name} losses {losses}")
+        ms = 1e3 * statistics.median(times[1:])
+        mfu = flops / (ms / 1e3) / BF16_FLOP_S
+        shown.append(f"{name}: {ms:.2f} ms a step (median of {len(times) - 1} after the first {1e3 * times[0]:.0f} "
+                     f"ms), {tokens / ms * 1e3:.0f} tokens/s, max_memory_allocated {top / 2**30:.2f} GiB (the run's "
+                     f"own {own / 2**30:.2f} over what it started with), {flops / 1e12:.2f} TFLOP a step, MFU "
+                     f"{100 * mfu:.2f}% of {BF16_FLOP_S / 1e12:.0f} TFLOP/s; losses {['%.4f' % x for x in losses]}")
+    # serve the finetuned checkpoint in int4
+    cfg2 = second_stage_config(**(dict(n_layer=2, n_head=2, dim=64, block_size=256) if small else {}))
+    second = ss.save_second_stage(os.path.join(ckdir, "second_stage.npz"),
+                                  tfm.init_params(cfg2, device=dev, generator=gen, dtype=torch.bfloat16), cfg2)
+    cpu_gen = torch.Generator().manual_seed(51)
+    spk_sd, _ = speaker_checkpoint(torch, lambda *shape: torch.randn(shape, generator=cpu_gen) * 0.1)
+    spk_pt = os.path.join(ckdir, "speaker_encoder.pt")
+    torch.save(spk_sd, spk_pt)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    tts = TTS.from_checkpoints(final_npz, second, spk_pt, device=dev, quantisation_mode="int4",
+                               output_dir=os.path.join(workdir, "out51"))  # warns: a random vocoder
+    sync(torch, dev)
+    load_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        counts = phase_synth_quantized(torch, workdir, ref, "int4", "51 finetune-full-width", {"k3_launches": 1},
+                                       "k2_launches", {}, tts=tts, init_s=load_s,
+                                       max_new_tokens=FT_SAMPLE_NEW)["counts"]
+    else:  # a CPU rehearsal: the plain versions count nothing
+        check_wav(tts.synthesise(SYNTH_TEXT, ref, max_new_tokens=FT_SAMPLE_NEW))
+        counts = {}
+    print(f"[51 finetune-full-width] {cfg.n_layer}L/{cfg.n_head}H/{cfg.dim}d bf16 params, dropout {cfg.dropout}, "
+          f"spkemb_dropout {cfg.spkemb_dropout}, batches of {FT_ROWS} x {t} tokens: {'; '.join(shown)}; the split "
+          f"path's frozen layers bit for bit, its tail's share of elements moved "
+          f"{min(moved.values()):.3f}-{max(moved.values()):.3f} by leaf; final.npz "
+          f"{os.path.getsize(final_npz) / 1e9:.2f} GB written in {save_s:.2f} s; TTS.from_checkpoints(int4) "
+          f"{load_s:.2f} s; launches {({k: v for k, v in counts.items() if v})}")
+    del tts
+    empty_cache(torch, dev)
+    return {"runs": runs, "counts": counts}
+
+
+def _spec_dist(x, y) -> float:
+    """RMS-normalized log-magnitude STFT distance (JAX's
+    tests/test_trained_system_e2e.py)."""
+    import numpy as np
+    from metavoice_tpu_torch.ops.audio import stft_np
+
+    n = max(len(x), len(y))
+    x, y = np.pad(x, (0, n - len(x))), np.pad(y, (0, n - len(y)))
+    x = x / (np.sqrt(np.mean(x**2)) + 1e-8)
+    y = y / (np.sqrt(np.mean(y**2)) + 1e-8)
+    sx, sy = np.log1p(np.abs(stft_np(x, 512, 128))), np.log1p(np.abs(stft_np(y, 512, 128)))
+    return float(np.sqrt(np.mean((sx - sy) ** 2)))
+
+
+def phase_finetune_e2e(torch, workdir: str, dev: str = "cuda"):
+    """52: ``cli finetune --small`` as a process on a CSV of generated wavs;
+    then JAX's trained-system recipe on the card: a first stage (trainer.train,
+    every leaf) and a second stage (train_second_stage) overfit to two
+    utterances, both loaded by TTS.from_checkpoints, each synthesis
+    spectrally closer to its own utterance's codec reconstruction than to
+    the other's."""
+    import numpy as np
+    from metavoice_tpu_torch.core.config import first_stage_config, second_stage_config
+    from metavoice_tpu_torch.core.text import normalize_text
+    from metavoice_tpu_torch.models import encodec as ec
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.runtime.tts import TTS
+    from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser
+    from metavoice_tpu_torch.training import finetune as ft
+    from metavoice_tpu_torch.training import second_stage as ss
+    from metavoice_tpu_torch.training import trainer
+    from metavoice_tpu_torch.training.data import DynamicComputeDataset, training_batches
+    from metavoice_tpu_torch.utils import audio_io as aio
+    from metavoice_tpu_torch.utils import checkpoint as ck
+
+    root = os.path.join(workdir, "finetune52")
+    os.makedirs(root, exist_ok=True)
+    sr, n = 24000, 12000  # 0.5 s: 37 EnCodec frames
+    t = np.arange(n) / sr
+    clips = [(0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32),
+             (0.25 * np.random.default_rng(7).standard_normal(n)).astype(np.float32)]
+    rows, refs = ["audio_files|captions"], []
+    for i, (clip, text) in enumerate(zip(clips, E2E_TEXTS)):
+        refs.append(os.path.join(root, f"utt{i}.wav"))
+        aio.write_wav(refs[-1], clip, sr)
+        rows.append(f"utt{i}.wav|{text}")
+    csv = os.path.join(root, "ds.csv")
+    with open(csv, "w") as f:
+        f.write("\n".join(rows))
+
+    out, cli_s = run_cli(["finetune", "--train", csv, "--val", csv, "--small", "--max_iters", "4", "--out_dir",
+                          os.path.join(root, "cli"), "--device", str(dev)], "52 finetune-e2e")
+    cli_losses = re.findall(r"iter \d+: loss ([0-9.]+)", out)
+    _, cli_cfg, _, _ = ck.load_first_stage_npz(os.path.join(root, "cli", "final.npz"))
+    if not cli_losses or not all(np.isfinite(float(x)) for x in cli_losses) or cli_cfg.dim != 128:
+        fail(f"52 finetune-e2e: cli finetune printed {out[-2000:]!r}")
+
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    first, second = first_stage_config(**E2E_FIRST), second_stage_config(**E2E_SECOND)
+    ecfg = ec.EncodecConfig(**E2E_ECFG)
+    eparams = ec.init_params(ecfg, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    cpu_gen = torch.Generator().manual_seed(52)
+    spk_sd, _ = speaker_checkpoint(torch, lambda *shape: torch.randn(shape, generator=cpu_gen) * 0.1)
+    spk_pt = os.path.join(root, "speaker_encoder.pt")
+    torch.save(spk_sd, spk_pt)
+    spk_params = ck.load_speaker_encoder_pt(spk_pt, device=dev)
+    tokenizer = TrainedBPETokeniser()
+    dataset = DynamicComputeDataset.from_csv(csv, eparams, ecfg, tokenizer, spk_params,
+                                             num_max_audio_tokens_timesteps=first.block_size // 2)
+    items = [dataset[i] for i in range(len(dataset))]  # each epoch's items are the same: encode them once
+    codes = [ec.encode_codes(eparams, ecfg, c[None]).cpu().numpy()[0] for c in clips]
+    if np.array_equal(codes[0], codes[1]):
+        fail("52 finetune-e2e: the two clips tokenize alike")
+
+    cfg1 = ft.FinetuneConfig(learning_rate=2e-3, min_lr=2e-4, warmup_iters=20, lr_decay_iters=600, batch_size=2,
+                             max_iters=600, eval_interval=10_000, eval_iters=1, last_n_blocks_to_finetune=-1,
+                             weight_decay=0.0)
+    p1 = tfm.init_params(first, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # the trainer's log lines
+        state = trainer.train(p1, first, cfg1, training_batches(items, 2, seed=0), None,
+                              out_dir=os.path.join(root, "ft1"), log_every=100, tokenizer_info={})
+    first_s = time.perf_counter() - t1
+    eval_loss = float(ft.make_eval_step(first)(state.params, next(training_batches(items, 2, shuffle=False,
+                                                                                    epochs=1))))
+    if not eval_loss < E2E_MEMORIZED:
+        fail(f"52 finetune-e2e: the first stage did not memorize: loss {eval_loss}")
+
+    xs, ys, ms = zip(*(ss.build_example(tokenizer.encode(normalize_text(text)), codes[i], second)
+                       for i, text in enumerate(E2E_TEXTS)))
+    batch2 = {"x": np.stack(xs), "y": np.stack(ys), "mask": np.stack(ms),
+              "spk_emb": np.stack([it["spkemb"][0] for it in items]).astype(np.float32)}
+    p2 = tfm.init_params(second, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    t1 = time.perf_counter()
+    p2, loss2 = ss.train_second_stage(p2, second, batch2, ss.SecondStageTrainConfig(max_iters=500,
+                                                                                     learning_rate=2e-3))
+    second_s = time.perf_counter() - t1
+    if not loss2 < E2E_MEMORIZED:
+        fail(f"52 finetune-e2e: the second stage did not memorize: loss {loss2}")
+    second_npz = ss.save_second_stage(os.path.join(root, "second_stage.npz"), p2, second, tokenizer_info={})
+    enc_npz = os.path.join(root, "encodec.npz")
+    ck.save_npz(enc_npz, eparams)
+    tts = TTS.from_checkpoints(os.path.join(root, "ft1", "final.npz"), second_npz, spk_pt, encodec_path=enc_npz,
+                               encodec_cfg=ecfg, output_dir=os.path.join(root, "out"), enforce_min_ref_duration=False,
+                               device=dev)
+    targets = [ec.decode_codes(eparams, ecfg, torch.from_numpy(c)).cpu().numpy()[0] for c in codes]
+    dists = np.zeros((2, 2))
+    for i, text in enumerate(E2E_TEXTS):
+        # guidance 1 = the conditional branch alone (the tiny model never trained the uncond one); a low
+        # temperature sharpens the memorized distribution
+        wav, wav_sr = aio.read_wav(tts.synthesise(text, refs[i], guidance_scale=1.0, temperature=0.3))
+        if wav_sr != ecfg.sample_rate or not np.isfinite(wav).all():
+            fail(f"52 finetune-e2e: synthesis {i}: sr {wav_sr}, finite {np.isfinite(wav).all()}")
+        dists[i] = [_spec_dist(wav, targets[j]) for j in range(2)]
+    if not (dists[0, 0] < dists[0, 1] and dists[1, 1] < dists[1, 0]):
+        fail(f"52 finetune-e2e: a synthesis is not closest to its own utterance: distances {dists.tolist()}")
+    del tts
+    empty_cache(torch, dev)
+    print(f"[52 finetune-e2e] cli finetune --small in a process of its own: {cli_s:.2f} s, losses {cli_losses}; "
+          f"the trained-system recipe on the card ({first.n_layer}L/{first.n_head}H/{first.n_local_heads}kv/"
+          f"{first.dim}d first stage, 600 steps in {first_s:.2f} s, teacher-forced loss {eval_loss:.4f}; second "
+          f"stage 500 steps in {second_s:.2f} s, loss {loss2:.4f}): spectral distances to [own, other] "
+          f"{[round(float(d), 4) for d in dists[0]]} and {[round(float(d), 4) for d in dists[1][::-1]]} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def gc_collect():
     import gc
 
@@ -5010,6 +5424,14 @@ def main() -> int:
             torch.cuda.empty_cache()
             phase_cli(torch, ckdir, ref, files, ckpt)
             phase_capacity_plan(torch, ckdir, ref, files, ckpt)
+        del files, ckpt
+        gc_collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_finetune_parity(torch)
+        phase_finetune_full_width(torch, workdir, ref)
+        phase_finetune_e2e(torch, workdir)
+        print(f"[50-52 training] {time.perf_counter() - t0:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # and, where a phase read it from the graph of one call, the kernels a call
     counted = ("kernels_a_call",)

@@ -13,7 +13,8 @@ commands, arguments and defaults (metavoice_tpu/cli.py), plus ``--device``
     key for key and bit for bit the JAX package's;
   * ``capacity``: the device-memory plan of a serving configuration
     (utils/capacity.py), against the card's memory or ``--hbm_gib``;
-  * ``finetune``: training is not ported yet, and it raises.
+  * ``finetune``: the first-stage finetuning loop (training/trainer.py) on a
+    "|"-separated CSV dataset, with ``--device`` too.
 """
 
 from __future__ import annotations
@@ -244,7 +245,9 @@ def cmd_capacity(argv: list[str]) -> int:
 
 
 def cmd_finetune(argv: list[str]) -> int:
-    raise NotImplementedError("finetune: training is not ported to PyTorch yet (ROADMAP.md Queue 1 item 7)")
+    from metavoice_tpu_torch.training import trainer
+
+    return trainer.main(argv)
 
 
 COMMANDS = {"synth": cmd_synth, "serve": cmd_serve, "finetune": cmd_finetune, "quantize": cmd_quantize,

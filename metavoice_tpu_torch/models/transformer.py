@@ -21,6 +21,15 @@ decode_attention_multi), on every device: its plain version on the CPU.
 Norms run in f32 and round to the compute dtype before the weight multiply;
 attention scores and softmax are f32; the output heads accumulate in f32.
 
+Training (training/finetune.py) runs the no-cache forward under autograd: each
+layer is recomputed in the backward pass (``torch.utils.checkpoint``, the JAX
+package's per-layer ``jax.checkpoint``) whenever it has something to
+differentiate, and ``forward(dropout_generator=...)`` turns on ``cfg.dropout``
+on the embedding sum and on the attention and MLP residual branches. The
+no-cache loop takes the stacked layer weights, or a list of per-layer weight
+dicts (the finetune step's frozen head and trainable tail, never
+concatenated).
+
 int4 serving (``ops/quantized.quantize_params_int4_i32``): a linear weight
 may be a packed ``{"pw", "sc"}`` leaf, which ``_linear`` runs through the
 int4 matmul kernel (prefill). A T=1 step whose layer weights are int4 runs
@@ -78,6 +87,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from metavoice_tpu_torch.core.config import TransformerConfig
 from metavoice_tpu_torch.core.device import resolve_device
@@ -724,6 +734,48 @@ def _attention_block(xa, lp: Params, cfg: TransformerConfig, li: int, mask, kv_c
     return _linear(y, lp["wo"], lp.get("wo_b"))
 
 
+def dropout_keep(x, rate: float, generator: torch.Generator):
+    """A keep-mask of x's shape, each element kept with probability 1 - rate,
+    drawn from ``generator`` (on x's device)."""
+    return torch.rand(x.shape, generator=generator, device=x.device) >= rate
+
+
+def _dropout(x, rate: float, keep):
+    """Inverted dropout (torch nn.Dropout's train-time semantics): kept
+    values scaled by 1/(1-rate), in x's dtype."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x)).to(x.dtype)
+
+
+def _block(x, lp: Params, cfg: TransformerConfig, li: int, mask, kv_cache: KVCache | None, cache_pos, attn_starts,
+           int8_block: bool, keep=None):
+    """One layer: x + attention(norm(x)), then + MLP(norm(h)); ``keep`` (the
+    attention and MLP branches' dropout masks) drops each branch."""
+    xa = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps)
+    a = _attention_block(xa, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block)
+    if keep is not None:
+        a = _dropout(a, cfg.dropout, keep[0])
+    h = x + a
+    m = _mlp(_norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), cfg.norm_type, cfg.norm_eps), lp, cfg)
+    if keep is not None:
+        m = _dropout(m, cfg.dropout, keep[1])
+    return h + m
+
+
+def layer_list(layers: Params) -> list[Params]:
+    """The stacked weights -> one weight dict per layer (views)."""
+    cols = {name: ({k: v.unbind(0) for k, v in w.items()} if isinstance(w, dict) else w.unbind(0))
+            for name, w in layers.items()}
+    first = next(iter(cols.values()))
+    n = len(next(iter(first.values())) if isinstance(first, dict) else first)
+    return [{name: ({k: v[li] for k, v in c.items()} if isinstance(c, dict) else c[li]) for name, c in cols.items()}
+            for li in range(n)]
+
+
+def _needs_grad(x, lp: Params) -> bool:
+    return x.requires_grad or any(
+        t.requires_grad for w in lp.values() for t in (w.values() if isinstance(w, dict) else (w,)))
+
+
 def apply_blocks(
     params: Params,
     cfg: TransformerConfig,
@@ -733,6 +785,7 @@ def apply_blocks(
     cache_pos: int | None = None,
     attn_starts=None,
     fused_head: bool = False,
+    dropout_generator: torch.Generator | None = None,
 ):
     """Run the L-layer block stack and the final norm -> (x, kv_cache).
 
@@ -767,6 +820,15 @@ def apply_blocks(
     packed head (``params["lm_head_q"]``), the final norm and the tied head
     are fused into it and ``x_or_logits`` is the (B, V) f32 logits
     (head_done=True); otherwise it is the normed hidden state.
+
+    Without a cache, ``params["layers"]`` may also be a list of per-layer
+    weight dicts, and a layer with something to differentiate (grad mode on,
+    and x or a weight requiring grad) is recomputed in the backward pass.
+    ``dropout_generator`` (training, no cache) drops each layer's attention
+    and MLP branch with probability ``cfg.dropout`` (inverted scaling). As in
+    the JAX package, the attention probabilities get no dropout: the
+    reference's SDPA dropout at the finetune default p = 0.1 is subsumed by
+    the residual dropouts.
     """
     t = x.shape[1]
     if kv_cache is not None and t == 1:
@@ -782,11 +844,24 @@ def apply_blocks(
     if quantized and t <= MULTI_MAX_T:
         mask = _window_mask(cache_pos, t, kv_cache.max_seq_len, attn_starts, x.device)
     int8_block = kv_cache is not None and t == 1 and int8_block_ok(params, cfg, x.shape[0], kv_cache.k.dtype)
+    layers = params["layers"]
+    if kv_cache is None and not isinstance(layers, list):
+        # unbind once: its backward stacks the layers' grads in one go, where
+        # indexing a layer would add a whole-stack grad for every layer
+        layers = layer_list(layers)
     for li in range(cfg.n_layer):
-        lp = _layer(params["layers"], li)
-        xa = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps)
-        h = x + _attention_block(xa, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block)
-        x = h + _mlp(_norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), cfg.norm_type, cfg.norm_eps), lp, cfg)
+        lp = layers[li] if isinstance(layers, list) else _layer(layers, li)
+        keep = None
+        if dropout_generator is not None:
+            # drawn outside the recomputed block: the recompute restores the
+            # global RNG state, not an explicit generator's
+            keep = (dropout_keep(x, cfg.dropout, dropout_generator), dropout_keep(x, cfg.dropout, dropout_generator))
+        if kv_cache is None and torch.is_grad_enabled() and _needs_grad(x, lp):
+            # the block uses no global RNG, so there is no RNG state to stash
+            x = checkpoint(_block, x, lp, cfg, li, mask, None, None, None, False, keep, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _block(x, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block, keep)
     x = _norm(x, params["ln_f_w"], params.get("ln_f_b"), cfg.norm_type, cfg.norm_eps)
     return (x, kv_cache, False) if fused_head else (x, kv_cache)
 
@@ -817,17 +892,27 @@ def forward(
     kv_cache: KVCache | None = None,
     cache_pos: int = 0,
     compute_dtype=torch.bfloat16,
+    dropout_generator: torch.Generator | None = None,
 ):
     """(B, [C,] T) tokens -> (per-hierarchy (B, T, V) f32 logits, kv_cache).
 
     Causal without a cache (training-style forward), causal with a cache
     (prefill for T > 1, decode for T = 1, at ``cache_pos``; the cache is
     updated in place), or non-causal (second stage).
+
+    ``dropout_generator`` with ``cfg.dropout > 0`` and no cache (training)
+    drops the embedding sum (the reference's ``transformer.drop``) and each
+    layer's residual branches, the masks drawn from the generator (on the
+    tokens' device). Inference callers pass none.
     """
     t = idx.shape[-1]
     if positions is None:
         positions = torch.arange(t, device=idx.device) + (cache_pos if kv_cache is not None else 0)
     x = embed_inputs(params, cfg, idx, positions, spk_emb, spk_cond_mask, compute_dtype)
+    if dropout_generator is not None and (cfg.dropout <= 0.0 or kv_cache is not None):
+        dropout_generator = None
+    if dropout_generator is not None:
+        x = _dropout(x, cfg.dropout, dropout_keep(x, cfg.dropout, dropout_generator))
     if not cfg.causal:
         mask = None
     elif kv_cache is not None:
@@ -835,6 +920,7 @@ def forward(
     else:
         mask = causal_mask_for(positions, t)[None, None]
     x, kv_cache = apply_blocks(
-        params, cfg, x, mask, kv_cache, cache_pos if kv_cache is not None else None
+        params, cfg, x, mask, kv_cache, cache_pos if kv_cache is not None else None,
+        dropout_generator=dropout_generator,
     )
     return output_logits(params, cfg, x), kv_cache

@@ -27,7 +27,9 @@ loaders do, tensor to tensor (an f32 read of any stored dtype is exact), so
 every leaf has the JAX loader's bits. ``load_second_stage_npz`` reads an
 in-repo second stage, ``save_npz`` writes the JAX package's generic archive,
 and ``save_``/``load_``/``apply_spec_teacher_delta`` carry the speculative
-demo's teacher delta in the JAX package's format.
+demo's teacher delta in the JAX package's format. ``train_state_from_numpy``
+carries a JAX finetuning state (params, Adam moments, step) across to the
+port's trainer.
 """
 
 from __future__ import annotations
@@ -228,6 +230,36 @@ def params_from_numpy(tree: Any, device="cuda", dtype: torch.dtype | None = None
         return t.to(dev)
 
     return convert(tree, True)
+
+
+def _adam_state(node):
+    """The node of an optax state that holds Adam's ``count``, ``mu`` and ``nu``."""
+    if hasattr(node, "_asdict"):
+        fields = node._asdict()
+        if {"count", "mu", "nu"} <= fields.keys():
+            return node
+        node = tuple(fields.values())
+    if isinstance(node, (list, tuple)):
+        for sub in node:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_numpy(state: Any, device="cuda"):
+    """A JAX ``training.finetune.TrainState`` as numpy arrays (``jax.tree.map(
+    np.asarray, state)``) -> the port's ``TrainState`` on ``device``: the
+    params, optax's Adam moments and count (the port's AdamW state) and the
+    step, so that a run started in the JAX package continues in the port."""
+    from metavoice_tpu_torch.training.finetune import TrainState
+
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam moments (count, mu, nu)")
+    opt_state = {"count": int(adam.count), "mu": params_from_numpy(adam.mu, device=device),
+                 "nu": params_from_numpy(adam.nu, device=device)}
+    return TrainState(params_from_numpy(state.params, device=device), opt_state, int(state.step))
 
 
 # --------------------------------------------------------------------------------------

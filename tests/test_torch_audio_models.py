@@ -21,6 +21,23 @@ from metavoice_tpu_torch.ops import audio  # noqa: E402
 from metavoice_tpu_torch.utils import checkpoint as ck  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def codec():
+    """One small codec for both sides, drawn by the port's init (the JAX
+    package's layout and scales; JAX's eager init takes about 17 s)."""
+    params = ec.init_params(ec.EncodecConfig(n_filters=8, dimension=32), device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    return jax.tree.map(lambda t: jnp.asarray(t.numpy()), params), params
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -33,11 +50,10 @@ def _speech_like(seconds, sr, seed=0):
 
 
 @pytest.mark.parametrize("n_frames", [25, 40])
-def test_encodec_decode_codes_matches_jax(n_frames):
+def test_encodec_decode_codes_matches_jax(codec, n_frames):
     jcfg = jec.EncodecConfig(n_filters=8, dimension=32)
     cfg = ec.EncodecConfig(n_filters=8, dimension=32)
-    jparams = jec.init_params(jax.random.PRNGKey(0), jcfg)
-    params = ck.params_from_numpy(_np_tree(jparams), device="cpu")
+    jparams, params = codec
     codes = np.random.default_rng(n_frames).integers(0, 1024, size=(8, n_frames))
     ref = np.asarray(jec.decode_codes(jparams, jcfg, jnp.asarray(codes)))
     ours = ec.decode_codes(params, cfg, codes).numpy()

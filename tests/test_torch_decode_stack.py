@@ -26,8 +26,9 @@ from metavoice_tpu.ops import quantized as jqz  # noqa: E402
 from metavoice_tpu.ops.decode_stack import decode_stack_int4 as jax_decode_stack  # noqa: E402
 from metavoice_tpu_torch.ops import decode_stack as DS  # noqa: E402
 
-# the JAX kernel in interpret mode, compiled once a shape (pos is traced) and shared by the cases
+# the JAX kernel in interpret mode, compiled once a shape (pos and starts are traced) and shared by the cases
 _jax_stack = jax.jit(jax_decode_stack, static_argnames=("n_head", "n_kv_head", "norm_eps", "wfmt", "interpret"))
+_jax_q4 = jax.jit(jax.vmap(jqz.quantize_int4_i32))  # the JAX quantizer, compiled once a shape
 
 L, H, DH, B, S = 3, 8, 128, 2, 512
 D = H * DH  # 1024
@@ -49,7 +50,7 @@ def _setup(seed, h_kv=H, head=False):
         return rng.normal(size=shape).astype(np.float32) * s
 
     def q4(arr):
-        pw, sc = jax.vmap(jqz.quantize_int4_i32)(jnp.asarray(arr))
+        pw, sc = _jax_q4(jnp.asarray(arr))
         return np.asarray(pw), _bf16(sc)
 
     qout = D + 2 * h_kv * DH
@@ -78,10 +79,10 @@ def _t(a):
 
 def _run_both(inp, pos, h_kv=H, starts=None):
     mats = [t for k in ("wqkv", "wo", "w1", "w3", "w2") for t in inp[k]]
-    jkw = dict(n_kv_head=h_kv, norm_eps=EPS, interpret=True)
+    # JAX's kernel takes no starts as zeros: given them, the cases with and without starts share its compile
+    jkw = dict(n_kv_head=h_kv, norm_eps=EPS, interpret=True, starts=jnp.asarray(starts or (0,) * B, jnp.int32))
     tkw = dict(n_kv_head=h_kv, norm_eps=EPS)
     if starts is not None:
-        jkw["starts"] = jnp.asarray(starts, jnp.int32)
         tkw["starts"] = torch.tensor(starts, dtype=torch.int32)
     if "head" in inp:
         lnf, hpw, hsc = inp["head"]

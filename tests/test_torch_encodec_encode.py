@@ -29,7 +29,8 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def codec():
     jcfg = jec.EncodecConfig(**SMALL)
-    jparams = jec.init_params(jax.random.PRNGKey(0), jcfg)
+    # jitted: one compile, where the eager init compiles op by op (about 3x longer)
+    jparams = jax.jit(jec.init_params, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
     params = ck.params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, jparams, ec.EncodecConfig(**SMALL), params
 

@@ -40,7 +40,6 @@ from metavoice_tpu_torch.models.enhancer import get_enhancer  # noqa: E402
 from metavoice_tpu_torch.runtime.tts import TTS, TTSComponents  # noqa: E402
 from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser  # noqa: E402
 from metavoice_tpu_torch.utils import audio_io as aio  # noqa: E402
-from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
 TINY = dict(n_layer=2, n_head=4, dim=64, block_size=128, vocab_sizes=(97,))
 TINY_EOA = 96
@@ -57,10 +56,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def _np(tree):
-    return jax.tree.map(np.asarray, tree)
 
 
 @partial(jax.jit, static_argnames=("cfg",))
@@ -105,11 +100,16 @@ def _jax_generate(jcfg, jparams, prompt, spk, noise, n_tokens, pad_multiple, eoa
 # ------------------------------------------------------------------ generate_segments (a tiny model)
 
 
+def _jax_tree(tree):
+    """The port's tree of CPU tensors (the JAX package's layout) as JAX arrays."""
+    return jax.tree.map(lambda t: jnp.asarray(t.numpy()), tree)
+
+
 @pytest.fixture(scope="module")
 def tiny():
-    jcfg = jfirst_stage_config(**TINY)
-    jparams = jtfm.init_params(jax.random.PRNGKey(0), jcfg)
-    return jcfg, jparams, first_stage_config(**TINY), params_from_numpy(_np(jparams), device="cpu")
+    # weights drawn by the port's init (the JAX package's layout and scales), not by JAX's eager init
+    params = tfm.init_params(first_stage_config(**TINY), device="cpu", generator=torch.Generator().manual_seed(0))
+    return jfirst_stage_config(**TINY), _jax_tree(params), first_stage_config(**TINY), params
 
 
 def _tiny_noise(n, seed, scale=0.1, eoa_at=None):
@@ -204,20 +204,24 @@ def test_odd_segments_refused(tiny):
 
 @pytest.fixture(scope="module")
 def system(tmp_path_factory):
-    """JAX-initialised first stage, second stage and EnCodec, carried to a
-    port TTS (f32); the port's own speaker encoder (its output feeds both
-    sides)."""
+    """One first stage, second stage and EnCodec for a port TTS (f32) and the
+    JAX oracle, drawn by the port's init (the JAX package's layouts and
+    scales; JAX's eager init of the codec alone takes about 20 s); the port's
+    own speaker encoder (its output feeds both sides)."""
     jcfg1, jcfg2 = jfirst_stage_config(**SMALL1), jsecond_stage_config(**SMALL2)
     jecfg = jec.EncodecConfig(**SMALL_CODEC)
-    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(7), 3)
-    jp = {"fs": jtfm.init_params(k1, jcfg1), "ss": jtfm.init_params(k2, jcfg2), "ec": jec.init_params(k3, jecfg)}
+    gen = torch.Generator().manual_seed(7)
+    ported = {"fs": tfm.init_params(first_stage_config(**SMALL1), device="cpu", generator=gen),
+              "ss": tfm.init_params(second_stage_config(**SMALL2), device="cpu", generator=gen),
+              "ec": ec.init_params(ec.EncodecConfig(**SMALL_CODEC), device="cpu", generator=gen)}
+    jp = {k: _jax_tree(v) for k, v in ported.items()}
     comps = TTSComponents(
-        first_stage_params=params_from_numpy(_np(jp["fs"]), device="cpu"),
+        first_stage_params=ported["fs"],
         first_stage_cfg=first_stage_config(**SMALL1),
-        second_stage_params=params_from_numpy(_np(jp["ss"]), device="cpu"),
+        second_stage_params=ported["ss"],
         second_stage_cfg=second_stage_config(**SMALL2),
         spk_params=se.init_params(device="cpu", generator=torch.Generator().manual_seed(0)),
-        encodec_params=params_from_numpy(_np(jp["ec"]), device="cpu"),
+        encodec_params=ported["ec"],
         encodec_cfg=ec.EncodecConfig(**SMALL_CODEC),
         tokenizer=TrainedBPETokeniser(),
         enhancer=get_enhancer("spectral_gate"),

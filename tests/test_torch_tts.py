@@ -286,8 +286,13 @@ def test_port_imports_no_jax():
         "import metavoice_tpu_torch.native\n"
         "import metavoice_tpu_torch.telemetry\n"
         "import metavoice_tpu_torch.cli\n"
+        "import metavoice_tpu_torch.training.finetune\n"
+        "import metavoice_tpu_torch.training.data\n"
+        "import metavoice_tpu_torch.training.trainer\n"
+        "import metavoice_tpu_torch.training.second_stage\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metavoice_tpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'metavoice_tpu', 'optax', 'orbax', 'pandas')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
