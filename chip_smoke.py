@@ -344,8 +344,24 @@ Phases, one line each; any failure exits non-zero and prints no result:
                two utterances below a teacher-forced loss of 0.15, loaded by
                TTS.from_checkpoints; each synthesis spectrally closer to its
                own utterance's codec reconstruction than to the other's.
+ 53. small-mbd - a small MBD (2 UNets, 8-32 channels, 3 steps) and the
+               default DF-style enhancer network on the card against the same
+               functions on the CPU, same weights and injected draws:
+               unet_forward (zeroed and passthrough bottlenecks, per-example
+               steps), re_eq, generate, tokens_to_wav (a small EnCodec) and
+               df_enhance_spec, each max |err| within its printed bound
+               (MBD_TOL, DF_TOL of max |ref|);
+ 54. synth-mbd - full-width TTS.from_random(vocoder="mbd") (bf16 first
+               stage, the default MBD: 4 UNets of 48-3072 channels, 582 M
+               f32 parameters, 20 steps): one synthesise and one
+               synthesise_streaming, K1 launched on each; MBD ms per second
+               of audio, RTF and peak memory; one 1 s MBD render profiled
+               (device time by kernel name);
+ 55. train-mbd/df - three steps of one full-width MBD band (clip + Adam, 4
+               x 1 s clips) and train_df of the default DF network: ms a
+               step, finite losses, the stamped enhancer on a wav.
 
-Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45, 47 and 51 are the main paths: every kernel count is
+Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45, 47, 51 and 54 are the main paths: every kernel count is
 set to 0 just before each and read just after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
@@ -356,6 +372,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -3993,8 +4010,8 @@ def _recording_renders(tts) -> list:
     real, kept = tts._tokens_to_wav, []
     ctx2, hop = tts.c.second_stage_cfg.block_size, tts.c.encodec_cfg.hop_length
 
-    def recording(text, prompt, toks, spk, noise=None, *, generator=None):
-        wav = real(text, prompt, toks, spk, noise, generator=generator)
+    def recording(text, prompt, toks, spk, noise=None, *, generator=None, streaming_segment=False):
+        wav = real(text, prompt, toks, spk, noise, generator=generator, streaming_segment=streaming_segment)
         frames = min(len(T.split_flattened_interleaved(toks, tts.END_OF_AUDIO_TOKEN)[1][0]), ctx2 - len(prompt))
         kept.append((text, frames, len(wav), frames * hop))
         return wav
@@ -5298,6 +5315,231 @@ def phase_finetune_e2e(torch, workdir: str, dev: str = "cuda"):
           f"({time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------- 53-55: MBD and DF
+
+# The card's cuDNN convolutions and the CPU's sum in other orders; f32
+# throughout (TF32 off), so an output moves by a few f32 ulps of its largest
+# value a product, and the small MBD's 3 steps and 2 bands add them up.
+MBD_TOL = 1e-4
+DF_TOL = 1e-4
+SMALL_MBD_UNET = dict(hidden=8, depth=3, num_steps=16, codec_dim=32)
+SMALL_MBD = dict(n_processes=2, step_list=(15, 7, 0), processor_bands=4, eq_bands=8)
+MBD_NEW = 192  # phase 54: first-stage tokens of the synthesise (a 2 s vocoder bucket at most)
+MBD_TRAIN = dict(rows=4, samples=24_000, steps=3)  # phase 55: one band's batch, 1 s clips
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return None if tree is None else tree.to(dev)
+
+
+def card_vs_cpu(torch, label: str, fn, args: tuple, tol: float, errs: dict, dev: str = "cuda"):
+    """``fn`` on the card's copy of ``args`` against ``fn`` on the CPU's:
+    max |err| within ``tol`` of max |ref|, noted in ``errs``."""
+    want = fn(*args)
+    got = fn(*to_device(list(args), torch.device(dev)))
+    sync(torch, dev)
+    got = got.cpu()
+    if got.shape != want.shape or not torch.isfinite(got.abs()).all():
+        fail(f"53 small-mbd: {label} on the card gave {tuple(got.shape)} (finite {torch.isfinite(got.abs()).all()})")
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    if err > tol * scale:
+        fail(f"53 small-mbd: {label} on the card is {err:.3g} from the CPU's (bound {tol} x {scale:.3g})")
+    errs[label] = (err, tol * scale)
+
+
+def phase_small_mbd(torch, dev: str = "cuda"):
+    """53: the small MBD and the DF network, the card against the CPU
+    (``dev="cpu"``: a rehearsal, the CPU against itself)."""
+    import numpy as np
+
+    from metavoice_tpu_torch.models import encodec as ec
+    from metavoice_tpu_torch.models import enhancer as enh
+    from metavoice_tpu_torch.models import mbd
+    from metavoice_tpu_torch.ops.audio import stft_np
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(53)
+    errs = {}
+    for bottleneck in ("zeroed", "passthrough"):
+        cfg = mbd.MBDConfig(unet=mbd.UNetConfig(bottleneck=bottleneck, **SMALL_MBD_UNET), **SMALL_MBD)
+        params = mbd.init_params(cfg, device="cpu", generator=gen)
+        unet = params["processes"][0]["unet"]
+        x, cond = torch.randn(3, 2000, 1, generator=gen), torch.randn(3, 25, 32, generator=gen)
+        card_vs_cpu(torch, f"unet_forward[{bottleneck}]",
+                    lambda u, x, c, t: mbd.unet_forward(u, cfg.unet, x, t, c),
+                    (unet, x, cond, torch.tensor([0, 7, 15])), MBD_TOL, errs, dev)
+    wav, ref = torch.randn(2, 12_000, generator=gen) * 3, torch.randn(2, 12_000, generator=gen)
+    card_vs_cpu(torch, "re_eq", lambda w, r: mbd.re_eq(w, r, 24_000, 32), (wav, ref), MBD_TOL, errs, dev)
+    for p in params["processes"]:  # a processor off the identity
+        p["processor"] = {"counts": torch.tensor([9.0]), "sum_x": 0.1 * torch.randn(4, generator=gen),
+                          "sum_x2": 9 + torch.rand(4, generator=gen), "sum_target_x2": 2 + torch.rand(4, generator=gen)}
+    n_iter, size = len(cfg.step_list) - 1, 6_400
+    init = torch.randn(cfg.n_processes, 2, size, 1, generator=gen)
+    steps = torch.randn(cfg.n_processes, n_iter, 2, size, 1, generator=gen)
+    card_vs_cpu(torch, "generate", lambda p, e, i, s: mbd.generate(p, cfg, e, size, initial_noise=i, step_noise=s),
+                (params, torch.randn(2, 20, 32, generator=gen), init, steps), MBD_TOL, errs, dev)
+    ecfg = ec.EncodecConfig(n_filters=8, dimension=32, codebook_size=64)
+    eparams = ec.init_params(ecfg, device="cpu", generator=gen)
+    codes = torch.randint(0, 64, (8, 20), generator=gen)
+    init, steps = init[:, :1], steps[:, :, :1]
+    card_vs_cpu(torch, "tokens_to_wav",
+                lambda p, e, c, i, s: mbd.tokens_to_wav(p, cfg, e, c, ecfg, initial_noise=i, step_noise=s),
+                (params, eparams, codes, init, steps), MBD_TOL, errs, dev)
+    dcfg = enh.DFConfig()
+    dparams = enh.init_df_params(dcfg, device="cpu", generator=gen)
+    dparams["df_out"] = dparams["df_out"] * 5  # taps away from the unit impulse
+    spec = torch.from_numpy(stft_np(np.asarray(wav[0]), dcfg.n_fft, dcfg.hop)[None].astype(np.complex64))
+    card_vs_cpu(torch, "df_enhance_spec", lambda p, x: enh.df_enhance_spec(p, dcfg, x), (dparams, spec), DF_TOL, errs, dev)
+    shown = "; ".join(f"{k} {e:.3g} (bound {b:.3g})" for k, (e, b) in errs.items())
+    print(f"[53 small-mbd] {cfg.n_processes} UNets {cfg.unet.channels()} channels, {n_iter} steps, card vs CPU "
+          f"max |err|: {shown} ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_synth_mbd(torch, workdir: str, ref: str, dev: str = "cuda", small: bool = False):
+    """54: full-width TTS with the MBD vocoder: a synthesise and a stream
+    through the user's entry points, K1 launched in each (``dev="cpu",
+    small=True``: a rehearsal, where the launch checks fail)."""
+    import numpy as np
+
+    from metavoice_tpu_torch.runtime.tts import TTS
+
+    t0 = time.perf_counter()
+    tts = TTS.from_random(small=small, device=dev, vocoder="mbd", output_dir=os.path.join(workdir, "out_mbd"))
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    n_mbd = sum(p.numel() for p in leaves(tts.c.mbd_params).values() if p is not None)
+    cfg1, ecfg = tts.c.first_stage_cfg, tts.c.encodec_cfg
+    tts.synthesise(SYNTH_TEXT, ref, max_new_tokens=8)  # the speaker embedding cached, cuDNN's plans picked
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    path, total_s, counts = drive_main_path(tts, ref, max_new_tokens=MBD_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
+    steps = tts.stats["decode_steps"]
+    if counts["k1_launches"] != cfg1.n_layer * steps or steps == 0:
+        fail(f"54 synth-mbd: K1 launches {counts['k1_launches']} != n_layer x {steps} decode steps")
+    wav = check_wav(path)
+    audio_s = len(wav) / ecfg.sample_rate
+    frames = len(wav) // ecfg.hop_length
+    bucket_s = (max(25, -(-frames // 25) * 25) if frames <= 75 else -(-frames // 75) * 75) / ecfg.frame_rate
+    mbd_s = tts.timings["vocoder_mbd"]
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in tts.timings.items())
+    _zero_counts()
+    t1 = time.perf_counter()
+    segs = list(tts.synthesise_streaming(SYNTH_TEXT, ref, max_new_tokens=MBD_NEW))
+    stream_s = time.perf_counter() - t1
+    if not segs or not all(np.isfinite(x).all() for x in segs) or read_counts()["k1_launches"] == 0:
+        fail(f"54 synth-mbd: the stream gave {len(segs)} segments, K1 launches {read_counts()['k1_launches']}")
+    stream_mbd = tts.timings["vocoder_mbd"]
+    where = mbd_profile(torch, tts) if dev == "cuda" else "not profiled on the CPU"
+    del tts
+    empty_cache(torch, dev)
+    print(f"[54 synth-mbd] MBD {n_mbd / 1e6:.1f} M params ({n_mbd * 4 / 1e9:.2f} GB f32), init {init_s:.2f} s; "
+          f"synthesise {total_s:.2f} s ({stages} s): {steps} decode steps, {counts['k1_launches']} K1 launches, "
+          f"wav {audio_s:.2f} s from a {bucket_s:.2f} s bucket; MBD {1e3 * mbd_s / bucket_s:.1f} ms per second of "
+          f"bucket audio ({1e3 * mbd_s / audio_s:.1f} ms per second of output); RTF {total_s / audio_s:.3f}; peak "
+          f"{peak:.2f} GiB; stream {len(segs)} segments in {stream_s:.2f} s (MBD {stream_mbd:.2f} s); one 1 s "
+          f"tokens_to_wav: {where}")
+
+
+def mbd_profile(torch, tts) -> str:
+    """Where one MBD render of a 75-frame (1 s) bucket spends the card's
+    time: device time by kernel name (the 6 largest) against the same call
+    unprofiled."""
+    from metavoice_tpu_torch.models import mbd
+
+    gen = torch.Generator(device="cuda").manual_seed(54)
+    codes = torch.randint(0, 1024, (8, 75), device="cuda", generator=gen)
+
+    def run():
+        mbd.tokens_to_wav(tts.c.mbd_params, tts.c.mbd_cfg, tts.c.encodec_params, codes, tts.c.encodec_cfg,
+                          generator=gen)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not by:
+        return f"{wall_ms:.1f} ms; the profiler saw no device time: not measured"
+    total = sum(by.values())
+    top = "; ".join(f"{k[:60]} {v:.1f} ms ({100 * v / total:.1f}%)"
+                    for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:6])
+    return (f"{wall_ms:.1f} ms unprofiled, {total:.1f} ms of device time in {len(by)} kernel names "
+            f"({100 * total / wall_ms:.1f}% of the wall); {top}")
+
+
+def phase_train_mbd_df(torch, dev: str = "cuda", small: bool = False):
+    """55: one full-width MBD band trained 3 steps, the DF network a few
+    (``dev="cpu", small=True``: a rehearsal on a small MBD)."""
+    import contextlib as cl
+    import io
+
+    import numpy as np
+
+    from metavoice_tpu_torch.models import enhancer as enh
+    from metavoice_tpu_torch.models import mbd
+    from metavoice_tpu_torch.training import df_trainer as dft
+    from metavoice_tpu_torch.training import mbd_trainer as mt
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(55)
+    cfg = mbd.MBDConfig(unet=mbd.UNetConfig(**SMALL_MBD_UNET), schedule=mbd.ScheduleConfig(num_steps=16),
+                        **SMALL_MBD) if small else mbd.MBDConfig()
+    unet = mbd.init_unet_params(cfg.unet, device=dev, generator=gen)
+    rows, n = MBD_TRAIN["rows"], MBD_TRAIN["samples"]
+    wav = 0.3 * torch.randn(rows, n, device=dev, generator=gen)
+    emb = torch.randn(rows, n // 320, cfg.unet.codec_dim, device=dev, generator=gen)
+    proc = mt.fit_processor(cfg, wav, generator=gen)
+    target = mbd.processor_project_sample(proc, mbd.split_bands(wav, cfg.sample_rate, cfg.n_processes)[0],
+                                          cfg.sample_rate, cfg.processor_bands)
+    opt, step = mt.make_mbd_train_step(cfg, mt.MBDTrainConfig())
+    state = opt.init(unet)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(MBD_TRAIN["steps"]):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, unet, loss = step(state, unet, {"band": target, "emb": emb}, gen)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"55 train-mbd: losses {losses}")
+    del unet, state
+    empty_cache(torch, dev)
+
+    tcfg = dft.DFTrainConfig(max_iters=6)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with cl.redirect_stdout(out):
+        dparams = dft.train_df(None, enh.DFConfig(), tcfg, device=dev, log_every=1)
+    df_s = time.perf_counter() - t0
+    df_losses = [float(x) for x in re.findall(r"loss ([-\d.e+naif]+)", out.getvalue())]
+    if len(df_losses) != tcfg.max_iters or not all(math.isfinite(x) for x in df_losses):
+        fail(f"55 train-df: losses {df_losses}")
+    clean, noisy = dft.synth_clean_noisy(np.random.default_rng(55), 1, 24_000, 24_000, 5.0, 5.0)
+    enhanced = enh.get_enhancer("df", params=dparams, device=dev)(noisy[0], 24_000)
+    if enhanced.shape != noisy[0].shape or not np.isfinite(enhanced).all():
+        fail("55 train-df: the trained enhancer's wav is bad")
+    print(f"[55 train-mbd/df] one band of the default MBD ({cfg.unet.channels()} channels), {rows} x {n} samples: "
+          f"{[round(1e3 * t, 1) for t in times]} ms a step (median after the first "
+          f"{1e3 * sorted(times[1:])[len(times[1:]) // 2]:.1f} ms), losses {['%.4f' % x for x in losses]}, peak "
+          f"{peak:.2f} GiB; train_df of the default DF network, {tcfg.max_iters} steps of {tcfg.batch_size} x "
+          f"{tcfg.clip_s} s: {1e3 * df_s / tcfg.max_iters:.1f} ms a step (host STFT and the first step included), "
+          f"losses {['%.4f' % x for x in df_losses]}; the stamped enhancer on 1 s of audio finite")
+
+
 def gc_collect():
     import gc
 
@@ -5432,6 +5674,13 @@ def main() -> int:
         phase_finetune_full_width(torch, workdir, ref)
         phase_finetune_e2e(torch, workdir)
         print(f"[50-52 training] {time.perf_counter() - t0:.1f} s")
+        gc_collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_small_mbd(torch)
+        phase_synth_mbd(torch, workdir, ref)
+        phase_train_mbd_df(torch)
+        print(f"[53-55 mbd/df] {time.perf_counter() - t0:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # and, where a phase read it from the graph of one call, the kernels a call
     counted = ("kernels_a_call",)

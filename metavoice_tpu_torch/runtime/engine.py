@@ -699,7 +699,8 @@ class ContinuousBatchingEngine:
 
     def _render_stream_chunk(self, req: SynthesisRequest, toks: np.ndarray, gen: torch.Generator):
         with phases.phase("eng.stream_render"):
-            wav = self.tts._tokens_to_wav(req.text, req.prompt_tokens, toks, req.spk_emb, generator=gen)
+            wav = self.tts._tokens_to_wav(req.text, req.prompt_tokens, toks, req.spk_emb, generator=gen,
+                                          streaming_segment=True)
         req.handle._push(wav)
 
     def _stream_render(self, slot: int):

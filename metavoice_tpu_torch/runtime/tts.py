@@ -16,7 +16,12 @@ Port of the default path of metavoice_tpu/runtime/tts.py:
      EnCodec decoder (models/encodec) as one function on device tensors
      (``stage2_vocode``, no host copy between the two, the codes padded to
      a vocoder bucket), then the spectral-gate enhancer and a
-     loudness-normalized wav write.
+     loudness-normalized wav write. With ``vocoder="mbd"`` the bucket's
+     codes (``stage2_codes``) go through the multi-band diffusion vocoder
+     (models/mbd.tokens_to_wav, the reference's quality choice) instead;
+     a whole utterance whose padded wav is under 400 ms is refused, as the
+     reference does (``enforce_min_output_duration``; never for a
+     streaming segment).
 
 ``synthesise_streaming`` yields the wav segment by segment: the first stage
 pauses at even segment boundaries (first_stage.generate_segments) and each
@@ -79,7 +84,7 @@ encodec-package ``.pt`` through utils/convert_external.py. Each
 ``synthesise`` ends with the ``user_ran_tts`` telemetry event
 (telemetry.py; a local spool, off under pytest).
 
-Not ported yet: tensor parallelism, MBD and the DF enhancer.
+Not ported yet: tensor parallelism.
 """
 
 from __future__ import annotations
@@ -108,6 +113,7 @@ from metavoice_tpu_torch.core.device import resolve_device
 from metavoice_tpu_torch.core.text import chunk_text, normalize_text
 from metavoice_tpu_torch.models import encodec as ec
 from metavoice_tpu_torch.models import first_stage as fs
+from metavoice_tpu_torch.models import mbd
 from metavoice_tpu_torch.models import second_stage as ss
 from metavoice_tpu_torch.models import spec_decode as sd
 from metavoice_tpu_torch.models import speaker_encoder as se
@@ -174,11 +180,9 @@ def _vocoder_bucket(t_audio: int) -> int:
 
 
 @torch.inference_mode()
-def stage2_vocode(
+def stage2_codes(
     params2: tfm.Params,
-    eparams: dict,
     cfg2: TransformerConfig,
-    ecfg: ec.EncodecConfig,
     idx: torch.Tensor,  # (1, 2, ctx) second-stage input (text+h0 / pad+h1)
     spk: torch.Tensor,  # (1, spk_dim)
     n_text: int,
@@ -191,11 +195,11 @@ def stage2_vocode(
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The second stage and the EnCodec vocoder in one function on device
-    tensors (the JAX package's ``_stage2_vocode_jit``) -> (1, bucket * hop)
-    wav: sample the 6 fine rows, stack [inputs; sampled], slice the audio
-    region at ``n_text``, put back the true coarse rows, zero past
-    ``n_audio``, clip to the codebook, decode. ``noise`` replaces the
+    """The second stage on device tensors -> the (8, bucket) codes the
+    vocoder takes: sample the 6 fine rows, stack [inputs; sampled], slice
+    the audio region at ``n_text``, put back the true coarse rows, zero past
+    ``n_audio``, clip to the codebook (the JAX package's
+    ``complete_hierarchies`` padded to the bucket). ``noise`` replaces the
     second stage's Gumbel draws."""
     sampled = ss.non_causal_sample(params2, cfg2, idx, spk, 1.0, top_k=top_k, compute_dtype=compute_dtype,
                                    generator=generator, noise=noise)  # (1, 6, ctx)
@@ -204,7 +208,33 @@ def stage2_vocode(
     region = full[:, n_text : n_text + bucket].clone()
     region[0:2] = coarse_pad
     region[:, n_audio:] = 0
-    return ec.decode_codes(eparams, ecfg, region.clamp(0, T.CODEBOOK_SIZE - 1))
+    return region.clamp(0, T.CODEBOOK_SIZE - 1)
+
+
+@torch.inference_mode()
+def stage2_vocode(
+    params2: tfm.Params,
+    eparams: dict,
+    cfg2: TransformerConfig,
+    ecfg: ec.EncodecConfig,
+    idx: torch.Tensor,
+    spk: torch.Tensor,
+    n_text: int,
+    n_audio: int,
+    coarse_pad: torch.Tensor,
+    *,
+    bucket: int,
+    top_k: int = 200,
+    compute_dtype=torch.bfloat16,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``stage2_codes`` and the EnCodec vocoder in one function on device
+    tensors (the JAX package's ``_stage2_vocode_jit``) -> (1, bucket * hop)
+    wav."""
+    codes = stage2_codes(params2, cfg2, idx, spk, n_text, n_audio, coarse_pad, bucket=bucket, top_k=top_k,
+                         compute_dtype=compute_dtype, generator=generator, noise=noise)
+    return ec.decode_codes(eparams, ecfg, codes)
 
 
 @dataclass
@@ -218,6 +248,11 @@ class TTSComponents:
     encodec_cfg: ec.EncodecConfig
     tokenizer: TrainedBPETokeniser
     enhancer: object | None = None
+    # "encodec" (the SEANet decoder) or "mbd" (multi-band diffusion, the
+    # reference's quality choice, fam/llm/decoders.py:13)
+    vocoder: str = "encodec"
+    mbd_params: dict | None = None
+    mbd_cfg: mbd.MBDConfig | None = None
 
 
 class TTS:
@@ -235,6 +270,7 @@ class TTS:
         output_dir: str = "outputs",
         runtime: RuntimeConfig | None = None,
         enforce_min_ref_duration: bool = True,
+        enforce_min_output_duration: bool = True,
         quantisation_mode: str | None = None,
         kv_cache_dtype: str | None = None,
         tensor_parallel: int = 1,
@@ -246,6 +282,10 @@ class TTS:
         telemetry_origin: str | None = None,
     ):
         self.runtime = runtime or RuntimeConfig(seed=seed, output_dir=output_dir)
+        if components.vocoder not in ("encodec", "mbd"):
+            raise ValueError(f"Unknown vocoder {components.vocoder!r}; expected 'encodec' or 'mbd'")
+        if components.vocoder == "mbd" and components.mbd_params is None:
+            raise ValueError("vocoder='mbd' requires mbd_params/mbd_cfg")
         if draft_params is not None and draft_cfg is None:
             raise ValueError("draft_params requires draft_cfg")
         if draft_params is not None and tensor_parallel > 1:
@@ -328,12 +368,16 @@ class TTS:
         self._emb_cache_max = 256
         self._emb_lock = threading.Lock()
         self._enforce_min_ref = enforce_min_ref_duration
+        # reference fam/llm/decoders.py:88-91: an MBD wav under 400 ms signals
+        # degenerate token output and is refused
+        self._min_output_s = 0.4 if enforce_min_output_duration else 0.0
         # persistent KV caches, reused across calls: the CFG pair's, and a
         # 3-row one for (speaker, prompt) guidance made at its first use
         self._kv_cache = self._create_kv_cache(2)
         self._kv_cache3: tfm.KVCache | None = None
         # seconds per stage of the last synthesise or stream (the second
-        # stage + vocoder under "stage2_vocode_fused"); the first
+        # stage + vocoder under "stage2_vocode_fused"; with the MBD vocoder
+        # "stage2" and "vocoder_mbd"); the first
         # stage's decode step count (speculative rounds with a draft) and the kernel
         # launches (K1 decode attention, K2 int4 matmul, K3 int4 decode
         # stack, K4 multi-query decode attention, K5 int4 attention block,
@@ -365,14 +409,18 @@ class TTS:
 
     @classmethod
     def from_random(cls, *, small: bool = False, device="cuda", seed: int = 0,
-                    first_stage_overrides: dict | None = None, **kwargs) -> "TTS":
+                    first_stage_overrides: dict | None = None, vocoder: str = "encodec", **kwargs) -> "TTS":
         """Random-weight instance for development and smoke runs.
 
         ``small=False`` is the full-width model: first stage 24L/16H/2048d,
-        the default second stage and EnCodec, the speaker encoder. Weights
-        are drawn on ``device`` from a generator seeded with ``seed``.
+        the default second stage and EnCodec, the speaker encoder, and with
+        ``vocoder="mbd"`` the default MBD (4 UNets of 48-3072 channels);
+        ``small=True`` the JAX package's small widths. Weights are drawn on
+        ``device`` from a generator seeded with ``seed`` (the MBD last, so
+        the other weights of a seed do not depend on the vocoder).
         ``first_stage_overrides``: more first_stage_config keywords (e.g.
-        ``{"n_local_heads": 2}`` for a GQA first stage).
+        ``{"n_local_heads": 2}`` for a GQA first stage). The 400 ms output
+        guard is off by default: random weights make short streams.
         """
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -390,8 +438,16 @@ class TTS:
             encodec_cfg=ecfg,
             tokenizer=TrainedBPETokeniser(),
             enhancer=get_enhancer("spectral_gate"),
+            vocoder=vocoder,
         )
+        if vocoder == "mbd":
+            comps.mbd_cfg = mbd.MBDConfig(
+                n_processes=2, unet=mbd.UNetConfig(hidden=4, depth=2, num_steps=16, codec_dim=ecfg.dimension),
+                step_list=(15, 7, 0), processor_bands=4, eq_bands=8,
+            ) if small else mbd.MBDConfig()
+            comps.mbd_params = mbd.init_params(comps.mbd_cfg, device=dev, generator=gen)
         kwargs.setdefault("enforce_min_ref_duration", False)
+        kwargs.setdefault("enforce_min_output_duration", False)
         return cls(comps, device=dev, **kwargs)
 
     @classmethod
@@ -509,8 +565,9 @@ class TTS:
             steps on the persistent cache (with a draft, a speculative round
             too): each route's kernels run once eagerly, which also makes
             their per-device merge counters;
-          * the second stage + vocoder (``stage2_vocode``) at every
-            vocoder bucket up to ``vocoder_frame_buckets[-1]`` frames.
+          * the second stage + EnCodec vocoder (``stage2_vocode``) at every
+            vocoder bucket up to ``vocoder_frame_buckets[-1]`` frames (with
+            ``vocoder="mbd"`` too: the JAX package's warmup runs no MBD).
 
         The draws come from a generator of its own: the TTS's stays as it
         was.
@@ -537,7 +594,7 @@ class TTS:
                         max_new_tokens=self._spec_gamma + 1, **common,
                     )
         for n_audio in vocoder_frame_buckets:
-            self._render(prompt, [list(range(n_audio))] * 2, spk, gen)
+            self._render(prompt, [list(range(n_audio))] * 2, spk, gen, vocoder="encodec")
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -594,22 +651,27 @@ class TTS:
         noise: torch.Tensor | None = None,
         *,
         generator: torch.Generator | None = None,
+        streaming_segment: bool = False,
     ) -> np.ndarray:
         """First-stage token stream -> 24 kHz waveform: split, then
         ``_render``. ``noise`` replaces the second stage's Gumbel draws
         (tests); ``generator`` the TTS's own (an engine's render takes one
-        of its own)."""
+        of its own); ``streaming_segment`` skips the 400 ms guard."""
         _text_ids, coarse = T.split_flattened_interleaved(token_stream, self.END_OF_AUDIO_TOKEN)
         if len(coarse[0]) == 0:
             raise RuntimeError(f"first stage produced no audio tokens for: {text!r}")
-        return self._render(prompt_tokens, coarse, spk_emb, generator or self._gen, noise)
+        return self._render(prompt_tokens, coarse, spk_emb, generator or self._gen, noise,
+                            streaming_segment=streaming_segment)
 
-    def _render(self, prompt_tokens: list, coarse: list, spk_emb, generator,
-                noise: torch.Tensor | None = None) -> np.ndarray:
-        """The two coarse rows -> 24 kHz float32 waveform: ``stage2_vocode``
-        at the vocoder bucket of the frames (timed as
-        ``"stage2_vocode_fused"``), the wav trimmed to the frames, then the
-        enhancer."""
+    def _render(self, prompt_tokens: list, coarse: list, spk_emb, generator, noise: torch.Tensor | None = None, *,
+                streaming_segment: bool = False, vocoder: str | None = None) -> np.ndarray:
+        """The two coarse rows -> 24 kHz float32 waveform, the wav trimmed
+        to the frames, then the enhancer. With the EnCodec vocoder
+        ``stage2_vocode`` at the vocoder bucket of the frames (timed as
+        ``"stage2_vocode_fused"``); with ``vocoder="mbd"`` ``stage2_codes``
+        (``"stage2"``) and the MBD on the bucket's codes (``"vocoder_mbd"``),
+        whose padded wav must last 400 ms unless ``streaming_segment``.
+        ``vocoder`` overrides the components' choice."""
         ctx = self.c.second_stage_cfg.block_size
         n_text = len(prompt_tokens)
         n_audio = min(len(coarse[0]), ctx - n_text)
@@ -617,16 +679,27 @@ class TTS:
         coarse_pad = np.zeros((2, bucket), np.int64)
         coarse_pad[0, :n_audio] = np.asarray(coarse[0][:n_audio])
         coarse_pad[1, :n_audio] = np.asarray(coarse[1][:n_audio])
-        with self._stage("stage2_vocode_fused"):
-            wav = stage2_vocode(
-                self.c.second_stage_params, self.c.encodec_params, self.c.second_stage_cfg, self.c.encodec_cfg,
-                torch.as_tensor(T.build_second_stage_input(prompt_tokens, coarse, ctx), dtype=torch.int64,
+        args = (torch.as_tensor(T.build_second_stage_input(prompt_tokens, coarse, ctx), dtype=torch.int64,
                                 device=self.device)[None],
                 torch.as_tensor(np.asarray(spk_emb, np.float32), device=self.device).reshape(1, -1),
-                n_text, n_audio, torch.as_tensor(coarse_pad, device=self.device),
-                bucket=bucket, compute_dtype=self._compute_dtype, generator=generator, noise=noise,
-            )
-            wav = wav[0].float().cpu().numpy()[: n_audio * self.c.encodec_cfg.hop_length]
+                n_text, n_audio, torch.as_tensor(coarse_pad, device=self.device))
+        kw = dict(bucket=bucket, compute_dtype=self._compute_dtype, generator=generator, noise=noise)
+        sr, hop = self.c.encodec_cfg.sample_rate, self.c.encodec_cfg.hop_length
+        if (vocoder or self.c.vocoder) == "mbd":
+            with self._stage("stage2"):
+                codes = stage2_codes(self.c.second_stage_params, self.c.second_stage_cfg, *args, **kw)
+            with self._stage("vocoder_mbd"):
+                wav = mbd.tokens_to_wav(self.c.mbd_params, self.c.mbd_cfg, self.c.encodec_params, codes,
+                                        self.c.encodec_cfg, generator=generator)
+                wav = wav[0].float().cpu().numpy()
+            if not streaming_segment and wav.shape[-1] < self._min_output_s * sr:
+                raise RuntimeError("wav predicted is shorter than 400ms!")
+            wav = wav[: n_audio * hop]
+        else:
+            with self._stage("stage2_vocode_fused"):
+                wav = stage2_vocode(self.c.second_stage_params, self.c.encodec_params, self.c.second_stage_cfg,
+                                    self.c.encodec_cfg, *args, **kw)
+                wav = wav[0].float().cpu().numpy()[: n_audio * hop]
         if self.c.enhancer is not None:
             with self._stage("enhancer"):
                 wav = self.c.enhancer(wav, self.c.encodec_cfg.sample_rate)
@@ -744,7 +817,7 @@ class TTS:
                 coarse = T.split_flattened_interleaved(segment, self.END_OF_AUDIO_TOKEN)[1]
                 if len(coarse[0]) == 0:
                     continue  # the segment held only the end-of-audio token
-                yield self._render(prompt, coarse, spk_emb, self._gen, stage2_noise)
+                yield self._render(prompt, coarse, spk_emb, self._gen, stage2_noise, streaming_segment=True)
 
     def synthesise(
         self,

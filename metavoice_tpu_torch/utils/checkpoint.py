@@ -213,7 +213,8 @@ def params_from_numpy(tree: Any, device="cuda", dtype: torch.dtype | None = None
     weights and ``lm_head_q``) and packed int8 ``{"p8", "sc8"}``, whose bf16
     scale tables are part of the serving format, nor plain int8 ``{"q",
     "scales"}`` and the groupwise int4 ``{"q"|"p", "scales", "zeros"}``,
-    whose scales stay f32 as the JAX package writes them."""
+    whose scales stay f32 as the JAX package writes them. A ``None`` leaf
+    stays ``None``."""
     dev = resolve_device(device)
 
     def convert(node, cast):
@@ -224,6 +225,8 @@ def params_from_numpy(tree: Any, device="cuda", dtype: torch.dtype | None = None
             return {k: convert(v, cast) for k, v in node._asdict().items()}
         if isinstance(node, (list, tuple)):
             return [convert(v, cast) for v in node]
+        if node is None:  # an empty subtree (an MBD UNet's "bilstm", "embeddings")
+            return None
         t = _to_tensor(node)
         if cast and dtype is not None and t.is_floating_point():
             t = t.to(dtype)

@@ -72,7 +72,7 @@ def test_mel_spectrogram_matches_jax():
 
 
 def test_speaker_embedding_matches_jax():
-    jparams = jse.init_params(jax.random.PRNGKey(3))
+    jparams = jax.jit(jse.init_params)(jax.random.PRNGKey(3))  # eagerly, op by op: seconds
     params = ck.params_from_numpy(_np_tree(jparams), device="cpu")
     wav = _speech_like(3.0, 16000, seed=1)
     ref = jse.embed_utterance(jparams, wav)

@@ -25,6 +25,9 @@ from metavoice_tpu_torch.core.config import first_stage_config  # noqa: E402
 from metavoice_tpu_torch.models import first_stage as fs  # noqa: E402
 from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
+# the JAX init as one program, compiled once a config (eagerly, op by op, it takes seconds)
+_jax_init = jax.jit(jtfm.init_params, static_argnames=("cfg", "dtype"))
+
 DIMS = dict(n_layer=2, n_head=4, dim=64, block_size=128, vocab_sizes=(97,))
 EOA = 96  # an in-vocabulary end-of-audio token, so the noise can force it
 BUCKET = 32  # prompt_pad_multiple: > 16, the short-window route's most tokens
@@ -43,7 +46,7 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def model():
     jcfg = jfirst_stage_config(**DIMS)
-    jparams = jtfm.init_params(jax.random.PRNGKey(0), jcfg)
+    jparams = _jax_init(jax.random.PRNGKey(0), cfg=jcfg, dtype=jnp.float32)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, jparams, first_stage_config(**DIMS), params
 

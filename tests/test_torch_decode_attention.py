@@ -20,6 +20,16 @@ from metavoice_tpu_torch.ops import attention as A  # noqa: E402
 ATOL, RTOL = 1e-5, 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: beside the suite's other worker processes, a pool
+    of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(dh, l=2, s=512, b=2, h=4, seed=0):
     rng = np.random.default_rng(seed)
     q, k_new, v_new = (rng.normal(size=(b, h, dh)).astype(np.float32) for _ in range(3))

@@ -24,9 +24,22 @@ from metavoice_tpu_torch.models import transformer as tfm  # noqa: E402
 from metavoice_tpu_torch.ops import attention as A  # noqa: E402
 from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
+# the JAX init as one program, compiled once a config (eagerly, op by op, it takes seconds)
+_jax_init = jax.jit(jtfm.init_params, static_argnames=("cfg", "dtype"))
+
 # f32 on both sides: only the summation order differs (online softmax over
 # chunks in the Pallas kernel, one softmax here)
 Y_TOL = 1e-5  # of max |ref|
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: beside the suite's other worker processes, a pool
+    of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _setup(t, h=8, h_kv=8, l=2, s=512, b=2, dh=128, seed=0):
@@ -145,7 +158,7 @@ def test_gqa_first_stage_decode_matches_jax():
     ``apply_blocks`` on the CPU: logits within 1e-4 of max |ref|."""
     kw = dict(n_layer=2, dim=128, n_head=4, n_local_heads=2, block_size=256)
     jcfg, cfg = jconfig.first_stage_config(**kw), config.first_stage_config(**kw)
-    params = jtfm.init_params(jax.random.PRNGKey(4), jcfg, dtype=jnp.float32)
+    params = _jax_init(jax.random.PRNGKey(4), cfg=jcfg, dtype=jnp.float32)
     rng = np.random.default_rng(4)
     np_params = jax.tree.map(
         lambda a: (np.asarray(a) + rng.normal(scale=0.05, size=a.shape)).astype(np.float32), params

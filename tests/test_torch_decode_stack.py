@@ -37,6 +37,16 @@ EPS = 1e-5
 VOCAB, VP = 200, 1024
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: beside the suite's other worker processes, a pool
+    of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16(a):
     return np.asarray(jnp.asarray(a, jnp.bfloat16))
 

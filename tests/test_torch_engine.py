@@ -36,6 +36,9 @@ from metavoice_tpu_torch.utils import audio_io as aio  # noqa: E402
 from metavoice_tpu_torch.utils import phases  # noqa: E402
 from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
+# the JAX init as one program, compiled once a config (eagerly, op by op, it takes seconds)
+_jax_init = jax.jit(jtfm.init_params, static_argnames=("cfg", "dtype"))
+
 DIMS = dict(n_layer=2, n_head=4, dim=128, block_size=256, vocab_sizes=(97,), intermediate_size=256)
 EOA = 10**6  # never sampled: fixed-length decodes
 BUCKET = 32
@@ -58,7 +61,7 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def model():
     jcfg = jfirst_stage_config(**DIMS)
-    jparams = jtfm.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32)
+    jparams = _jax_init(jax.random.PRNGKey(0), cfg=jcfg, dtype=jnp.float32)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     spk = np.random.default_rng(1).normal(size=(2, 256)).astype(np.float32)  # A's and B's speakers
     return jcfg, jparams, first_stage_config(**DIMS), params, spk

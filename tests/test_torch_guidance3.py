@@ -16,6 +16,16 @@ from metavoice_tpu_torch.core import sampling as S  # noqa: E402
 from metavoice_tpu_torch.models import first_stage as fs  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: beside the suite's other worker processes, a pool
+    of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("scales", [(3.0, 1.0), (2.0, 1.5), (1.0, 4.0)])
 def test_cfg_merge3_matches_jax(scales):
     logits = (np.random.default_rng(0).normal(size=(6, 300)) * 2).astype(np.float32)

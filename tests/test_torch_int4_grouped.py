@@ -31,6 +31,9 @@ from metavoice_tpu_torch.models import transformer as tfm  # noqa: E402
 from metavoice_tpu_torch.ops import quantized as Q  # noqa: E402
 from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
+# the JAX init as one program, compiled once a config (eagerly, op by op, it takes seconds)
+_jax_init = jax.jit(jtfm.init_params, static_argnames=("cfg", "dtype"))
+
 KERNEL_TOL = 1e-3
 F32_REF_TOL = 1e-2
 LINEAR_TOL = 1e-2
@@ -81,7 +84,7 @@ def test_format_bit_identical_to_jax(gs):
 
     jcfg = j_first_stage_config(n_layer=2, n_head=2, dim=256, intermediate_size=256, block_size=64,
                                 vocab_sizes=(97,))
-    jp = jtfm.init_params(jax.random.PRNGKey(gs), jcfg, dtype=jnp.bfloat16)
+    jp = _jax_init(jax.random.PRNGKey(gs), cfg=jcfg, dtype=jnp.bfloat16)
     tp = _torch(jp)
     for jquant, quant in ((jqz.quantize_params_int4, Q.quantize_params_int4),
                           (jqz.quantize_params_int4_packed, Q.quantize_params_int4_packed)):

@@ -46,6 +46,9 @@ from metavoice_tpu_torch.runtime.tts import TTS  # noqa: E402
 from metavoice_tpu_torch.utils import audio_io as aio  # noqa: E402
 from metavoice_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 
+# the JAX init as one program, compiled once a config (eagerly, op by op, it takes seconds)
+_jax_init = jax.jit(jtfm.init_params, static_argnames=("cfg", "dtype"))
+
 PROMPT_LEN = 53
 STEPS = 8
 TOL = 1e-2
@@ -65,7 +68,8 @@ def _one_torch_thread():
 def _build(packed: bool):
     jcfg = j_first_stage_config(n_layer=2, n_head=4, dim=256, intermediate_size=512, block_size=384)
     quantize = jqz.quantize_params_int4_packed if packed else jqz.quantize_params_int4
-    jq = quantize(jtfm.init_params(jax.random.PRNGKey(int(packed)), jcfg, dtype=jnp.bfloat16), groupsize=GS)
+    jq = jax.jit(quantize, static_argnames=("groupsize",))(
+        _jax_init(jax.random.PRNGKey(int(packed)), cfg=jcfg, dtype=jnp.bfloat16), groupsize=GS)
     cfg = TransformerConfig(**dataclasses.asdict(jcfg))
     return jcfg, jq, cfg, ckpt.params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu", dtype=torch.bfloat16)
 
@@ -187,12 +191,12 @@ def written(tmp_path_factory):
     """A 1-layer 1024-wide first stage (the int4 decode stack's width) in
     each format, written by the JAX package's quantize-CLI writer."""
     jcfg = j_first_stage_config(n_layer=1, n_head=8, dim=1024, intermediate_size=1024, block_size=256)
-    jp = jtfm.init_params(jax.random.PRNGKey(3), jcfg, dtype=jnp.bfloat16)
+    jp = _jax_init(jax.random.PRNGKey(3), cfg=jcfg, dtype=jnp.bfloat16)
     tmp = tmp_path_factory.mktemp("npz")
     paths = {}
     for mode, quantize in FORMATS.items():
         paths[mode] = str(tmp / f"first_stage_{mode}.npz")
-        jckpt.save_first_stage_quantized(paths[mode], quantize(jp), jcfg, {"name": "bpe"}, mode)
+        jckpt.save_first_stage_quantized(paths[mode], jax.jit(quantize)(jp), jcfg, {"name": "bpe"}, mode)
     return jcfg, paths
 
 

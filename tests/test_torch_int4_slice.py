@@ -41,6 +41,9 @@ from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
 # the JAX kernel in interpret mode, compiled once a shape (pos is traced) and shared by the cases
 _jax_stack = jax.jit(jax_decode_stack, static_argnames=("n_head", "n_kv_head", "norm_eps", "wfmt", "interpret"))
+# the JAX init and quantizer as one program (eagerly, op by op, they take about 20 s on one core)
+_jax_int4_model = jax.jit(lambda key, cfg: jqz.quantize_params_int4_i32(jtfm.init_params(key, cfg, dtype=jnp.bfloat16)),
+                          static_argnames=("cfg",))
 
 PROMPT_LEN = 53
 STEPS = 3
@@ -60,8 +63,7 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def model():
     jcfg = j_first_stage_config(n_layer=2, n_head=8, dim=1024, block_size=512)
-    jp = jtfm.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.bfloat16)
-    jq = jqz.quantize_params_int4_i32(jp)
+    jq = _jax_int4_model(jax.random.PRNGKey(0), jcfg)
     cfg = TransformerConfig(**dataclasses.asdict(jcfg))
     params = params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu")
     return jcfg, jq, cfg, params
@@ -169,7 +171,7 @@ def test_int4_decode_at_dim_128_raises():
     prefill and one T=1 step against JAX's ``apply_blocks`` (its CPU route)
     from the same cache, within TOL (its reason as at prefill above)."""
     jcfg = j_first_stage_config(n_layer=2, n_head=4, dim=128, block_size=256)
-    jq = jqz.quantize_params_int4_i32(jtfm.init_params(jax.random.PRNGKey(1), jcfg, dtype=jnp.bfloat16))
+    jq = _jax_int4_model(jax.random.PRNGKey(1), jcfg)
     cfg = TransformerConfig(**dataclasses.asdict(jcfg))
     params = params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu")
     assert tfm.int4_decode_route(params, cfg, 2) == "unfused"

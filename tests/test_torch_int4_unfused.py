@@ -85,7 +85,7 @@ def _model(seed: int, **overrides):
             w = rng.standard_normal(s.shape, dtype=np.float32) * (0.5 / np.sqrt(s.shape[-2] if len(s.shape) > 1 else 1))
         return jnp.asarray(w, jnp.bfloat16)
 
-    jq = jqz.quantize_params_int4_i32(jax.tree_util.tree_map_with_path(leaf, shapes))
+    jq = jax.jit(jqz.quantize_params_int4_i32)(jax.tree_util.tree_map_with_path(leaf, shapes))  # eagerly: seconds
     cfg = TransformerConfig(**dataclasses.asdict(jcfg))
     return jcfg, jq, cfg, params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu")
 

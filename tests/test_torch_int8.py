@@ -55,10 +55,21 @@ from metavoice_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 
 # the JAX kernel in interpret mode, compiled once a shape (pos is traced) and shared by the cases
 _jax_stack = jax.jit(jax_decode_stack, static_argnames=("n_head", "n_kv_head", "norm_eps", "wfmt", "interpret"))
+_jax_q8 = jax.jit(jax.vmap(jqz.quantize_int8_i32))  # the JAX quantizer of the stack's inputs, compiled once a shape
 
 K8_TOL = 1e-3
 K7_LAYER_TOL = 1e-2
 K7_TOL = 5e-2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: beside the suite's other worker processes, a pool
+    of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(a):
@@ -242,7 +253,7 @@ def _stack_inputs(seed, h_kv=H):
         return rng.normal(size=shape).astype(np.float32) * s
 
     def q8(arr):
-        p8, sc8 = jax.vmap(jqz.quantize_int8_i32)(jnp.asarray(arr))
+        p8, sc8 = _jax_q8(jnp.asarray(arr))
         return np.asarray(p8), _bf16(sc8)
 
     qout = D + 2 * h_kv * DH

@@ -46,6 +46,9 @@ from metavoice_tpu_torch.ops import quantized as Q  # noqa: E402
 from metavoice_tpu_torch.runtime.tts import TTS  # noqa: E402
 from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
+# the JAX init as one program, compiled once a config (eagerly, op by op, it takes seconds)
+_jax_init = jax.jit(jtfm.init_params, static_argnames=("cfg", "dtype"))
+
 K11_TOL = 1e-3
 K10_TOL = 1e-2
 Y_TOL = 2e-2
@@ -76,7 +79,7 @@ def _close(got, ref, tol):
 
 def _jax_params(seed=0, **overrides):
     jcfg = j_first_stage_config(n_layer=2, n_head=4, dim=256, intermediate_size=512, block_size=256, **overrides)
-    return jcfg, jtfm.init_params(jax.random.PRNGKey(seed), jcfg, dtype=jnp.bfloat16)
+    return jcfg, _jax_init(jax.random.PRNGKey(seed), cfg=jcfg, dtype=jnp.bfloat16)
 
 
 def test_quantize_params_int8_bit_identical_to_jax():
@@ -191,7 +194,7 @@ def test_block_plain_version_matches_jax_interpret(block_case, pos, with_starts)
 @pytest.fixture(scope="module")
 def legacy_trees():
     _, jp = _jax_params()
-    return {kernel: jax.tree.map(np.asarray, quantize(jp))
+    return {kernel: jax.tree.map(np.asarray, jax.jit(quantize)(jp))  # data only: eagerly, seconds a tree
             for kernel, quantize in (("K12", jqz.quantize_params_int4), ("K13", jqz.quantize_params_int4_packed))}
 
 
@@ -219,7 +222,7 @@ def test_legacy_int4_trees_are_refused_by_name(legacy_trees, kernel, tmp_path):
 
 def test_params_from_numpy_keeps_quantized_scales_f32(legacy_trees):
     _, jp = _jax_params()
-    trees = dict(legacy_trees, plain=jax.tree.map(np.asarray, jqz.quantize_params_int8(jp)))
+    trees = dict(legacy_trees, plain=jax.tree.map(np.asarray, jax.jit(jqz.quantize_params_int8)(jp)))
     for name, tree in trees.items():
         tree = dict(tree, ln_f_w=np.ones(tree["ln_f_w"].shape, np.float32))
         params = params_from_numpy(tree, device="cpu", dtype=torch.bfloat16)

@@ -43,6 +43,9 @@ from metavoice_tpu_torch.runtime.tts import TTS  # noqa: E402
 from metavoice_tpu_torch.utils import audio_io as aio  # noqa: E402
 from metavoice_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 
+# the JAX init as one program, compiled once a config (eagerly, op by op, it takes seconds)
+_jax_init = jax.jit(jtfm.init_params, static_argnames=("cfg", "dtype"))
+
 PROMPT_LEN = 53
 STEPS = 3
 TOL = 3e-2
@@ -62,7 +65,7 @@ def _one_torch_thread():
 def _build(n_local_heads, seed):
     jcfg = j_first_stage_config(n_layer=2, n_head=4, n_local_heads=n_local_heads, dim=512, intermediate_size=1536,
                                 block_size=256)
-    jq = jqz.quantize_params_int8(jtfm.init_params(jax.random.PRNGKey(seed), jcfg, dtype=jnp.bfloat16))
+    jq = jax.jit(jqz.quantize_params_int8)(_jax_init(jax.random.PRNGKey(seed), cfg=jcfg, dtype=jnp.bfloat16))
     cfg = TransformerConfig(**dataclasses.asdict(jcfg))
     return jcfg, jq, cfg, ckpt.params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu", dtype=torch.bfloat16)
 

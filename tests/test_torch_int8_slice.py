@@ -46,6 +46,9 @@ from metavoice_tpu_torch.runtime.tts import TTS  # noqa: E402
 from metavoice_tpu_torch.utils import audio_io as aio  # noqa: E402
 from metavoice_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 
+# the JAX init as one program, compiled once a config (eagerly, op by op, it takes seconds)
+_jax_init = jax.jit(jtfm.init_params, static_argnames=("cfg", "dtype"))
+
 # the JAX kernel in interpret mode, compiled once a shape (pos is traced) and shared by the cases
 _jax_stack = jax.jit(jax_decode_stack, static_argnames=("n_head", "n_kv_head", "norm_eps", "wfmt", "interpret"))
 
@@ -66,8 +69,8 @@ def _one_torch_thread():
 
 
 def _build(jcfg, seed):
-    jp = jtfm.init_params(jax.random.PRNGKey(seed), jcfg, dtype=jnp.bfloat16)
-    jq = jqz.quantize_params_int8_i32(jp)
+    jp = _jax_init(jax.random.PRNGKey(seed), cfg=jcfg, dtype=jnp.bfloat16)
+    jq = jax.jit(jqz.quantize_params_int8_i32)(jp)
     cfg = TransformerConfig(**dataclasses.asdict(jcfg))
     return jcfg, jq, cfg, ckpt.params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu")
 

@@ -31,6 +31,9 @@ from metavoice_tpu_torch.models import transformer as tfm  # noqa: E402
 from metavoice_tpu_torch.runtime.tts import TTS  # noqa: E402
 from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
+# the JAX init as one program, compiled once a config (eagerly, op by op, it takes seconds)
+_jax_init = jax.jit(jtfm.init_params, static_argnames=("cfg", "dtype"))
+
 JAX_FORMAT = {"int8": jnp.int8, "int8_packed": "int8_packed"}
 # EOA=96, text ids 97..: the scaled-down token space of tests/test_spec_decode.py
 TINY = jfirst_stage_config(n_layer=2, n_head=4, dim=128, block_size=64, vocab_sizes=(121,), intermediate_size=256)
@@ -145,7 +148,7 @@ def test_create_refuses_unknown_formats():
 
 @pytest.fixture(scope="module")
 def tiny():
-    params = jtfm.init_params(jax.random.PRNGKey(0), TINY)
+    params = _jax_init(jax.random.PRNGKey(0), cfg=TINY, dtype=jnp.float32)
     port = params_from_numpy(jax.tree.map(np.asarray, params), device="cpu", dtype=torch.float32)
     return params, port, TransformerConfig(**dataclasses.asdict(TINY))
 

@@ -23,6 +23,16 @@ from metavoice_tpu_torch.ops import quantized as Q  # noqa: E402
 from metavoice_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: beside the suite's other worker processes, a pool
+    of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(a):
     """JAX array -> numpy; bf16 -> its bits as int16, so equality is bitwise."""
     a = np.asarray(a)

@@ -12,6 +12,16 @@ from metavoice_tpu.core import sampling as JS  # noqa: E402
 from metavoice_tpu_torch.core import sampling as S  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: beside the suite's other worker processes, a pool
+    of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kept(x) -> np.ndarray:
     return np.asarray(x) > S.NEG_INF / 2
 

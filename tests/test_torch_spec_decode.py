@@ -26,6 +26,9 @@ from metavoice_tpu_torch.core.config import TransformerConfig  # noqa: E402
 from metavoice_tpu_torch.models import spec_decode as sd  # noqa: E402
 from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
+# the JAX init as one program, compiled once a config (eagerly, op by op, it takes seconds)
+_jax_init = jax.jit(jtfm.init_params, static_argnames=("cfg", "dtype"))
+
 # EOA=96, text ids 97..., eot 120: a scaled-down copy of the real token space
 # (the JAX package's tests/test_spec_decode.py)
 TINY = jfirst_stage_config(n_layer=2, n_head=4, dim=64, block_size=128, vocab_sizes=(121,))
@@ -36,8 +39,18 @@ SPK = np.ones((256,), np.float32)
 GREEDY = dict(temperature=1e-6, top_p=1.0, end_of_audio_token=EOA, prompt_pad_multiple=16)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: beside the suite's other worker processes, a pool
+    of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(key, cfg):
-    params = jtfm.init_params(jax.random.PRNGKey(key), cfg)
+    params = _jax_init(jax.random.PRNGKey(key), cfg=cfg, dtype=jnp.float32)
     port = params_from_numpy(jax.tree.map(np.asarray, params), device="cpu", dtype=torch.float32)
     return params, port, TransformerConfig(**dataclasses.asdict(cfg))
 

@@ -20,6 +20,16 @@ EVENT_KEYS = {"model_name", "text", "temperature", "guidance_scale", "top_p", "s
               "time_to_synth_s", "real_time_factor", "quantisation_mode", "seed", "device", "telemetry_origin"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: beside the suite's other worker processes, a pool
+    of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_spool_has_the_jax_record(tmp_path):
     jtele = pytest.importorskip("metavoice_tpu.telemetry")
     ours, theirs = tele.TelemetryClient(str(tmp_path / "a"), enabled=True), jtele.TelemetryClient(

@@ -21,12 +21,25 @@ from metavoice_tpu_torch.models import first_stage as fs  # noqa: E402
 from metavoice_tpu_torch.models import transformer as tfm  # noqa: E402
 from metavoice_tpu_torch.utils.checkpoint import params_from_numpy  # noqa: E402
 
+# the JAX init as one program, compiled once a config (eagerly, op by op, it takes seconds)
+_jax_init = jax.jit(jtfm.init_params, static_argnames=("cfg", "dtype"))
+
 ATOL = RTOL = 1e-4
 
 CONFIGS = {
     "first": dict(n_layer=2, dim=128, n_head=4, block_size=256),
     "second": dict(n_layer=2, dim=96, n_head=6, block_size=64),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: beside the suite's other worker processes, a pool
+    of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _configs(name):
@@ -36,7 +49,7 @@ def _configs(name):
 
 
 def _weights(jcfg, seed=0):
-    params = jtfm.init_params(jax.random.PRNGKey(seed), jcfg, dtype=jnp.float32)
+    params = _jax_init(jax.random.PRNGKey(seed), cfg=jcfg, dtype=jnp.float32)
     rng = np.random.default_rng(seed)
     np_params = jax.tree.map(
         lambda a: (np.asarray(a) + rng.normal(scale=0.05, size=a.shape)).astype(np.float32), params

@@ -26,11 +26,19 @@ from metavoice_tpu.core.config import RuntimeConfig as JRuntimeConfig  # noqa: E
 from metavoice_tpu.models import encodec as jec  # noqa: E402
 from metavoice_tpu.models import first_stage as jfs  # noqa: E402
 from metavoice_tpu.models import transformer as jtfm  # noqa: E402
+from metavoice_tpu.core.config import first_stage_config as j_first_stage_config  # noqa: E402
+from metavoice_tpu.core.config import second_stage_config as j_second_stage_config  # noqa: E402
+from metavoice_tpu.models import speaker_encoder as jse  # noqa: E402
+from metavoice_tpu.models.enhancer import get_enhancer as jget_enhancer  # noqa: E402
 from metavoice_tpu.runtime.tts import TTS as JTTS  # noqa: E402
+from metavoice_tpu.runtime.tts import TTSComponents as JTTSComponents  # noqa: E402
+from metavoice_tpu.tokenizer import TrainedBPETokeniser as JTrainedBPETokeniser  # noqa: E402
 from metavoice_tpu_torch.core.config import RuntimeConfig, TransformerConfig  # noqa: E402
 from metavoice_tpu_torch.models import encodec as ec  # noqa: E402
 from metavoice_tpu_torch.models import first_stage as fs  # noqa: E402
-from metavoice_tpu_torch.models.enhancer import get_enhancer  # noqa: E402
+from metavoice_tpu_torch.models import transformer as tfm  # noqa: E402
+from metavoice_tpu_torch.models import mbd  # noqa: E402
+from metavoice_tpu_torch.models.enhancer import DFConfig, get_enhancer  # noqa: E402
 from metavoice_tpu_torch.runtime.tts import TTS, TTSComponents  # noqa: E402
 from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser  # noqa: E402
 from metavoice_tpu_torch.utils import audio_io as aio  # noqa: E402
@@ -52,13 +60,46 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many small CPU ops: beside the suite's other worker processes, a pool
+    of torch threads each spends far longer waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
+    """The first stage and speaker encoder of JAX's ``TTS.from_random(
+    PRNGKey(0), small=True)``, their inits run under ``jax.jit`` (the same
+    draws; XLA may round a bf16 weight apart from the eager init; JAX's
+    eager init of the small system takes about 60 s on one core), the second
+    stage and EnCodec drawn by the port's init (the JAX package's layouts and
+    scales), a JAX TTS on them and the port's TTS on the same weights."""
     out = str(tmp_path_factory.mktemp("out"))
-    jtts = JTTS.from_random(
-        jax.random.PRNGKey(0), small=True, output_dir=out,
-        runtime=JRuntimeConfig(dtype="float32", output_dir=out),
+    k1, _, k3, _, _ = jax.random.split(jax.random.PRNGKey(0), 5)  # as JAX's from_random splits its key
+    cfg1 = j_first_stage_config(n_layer=2, n_head=4, dim=128, block_size=512)
+    cfg2 = j_second_stage_config(n_layer=2, n_head=2, dim=64, block_size=256)
+    ecfg = jec.EncodecConfig(n_filters=8, dimension=32, codebook_size=1024)
+    gen = torch.Generator().manual_seed(0)
+    p2 = tfm.init_params(TransformerConfig(**dataclasses.asdict(cfg2)), device="cpu", generator=gen,
+                         dtype=torch.bfloat16)
+    pec = ec.init_params(ec.EncodecConfig(**dataclasses.asdict(ecfg)), device="cpu", generator=gen)
+    jcomps = JTTSComponents(
+        first_stage_params=jax.jit(lambda k: jtfm.init_params(k, cfg1, dtype=jnp.bfloat16))(k1),
+        first_stage_cfg=cfg1,
+        second_stage_params=jax.tree.map(lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16), p2),
+        second_stage_cfg=cfg2,
+        spk_params=jax.jit(jse.init_params)(k3),
+        encodec_params=jax.tree.map(lambda t: jnp.asarray(t.numpy()), pec),
+        encodec_cfg=ecfg,
+        tokenizer=JTrainedBPETokeniser(),
+        enhancer=jget_enhancer("spectral_gate"),
     )
+    jtts = JTTS(jcomps, output_dir=out, runtime=JRuntimeConfig(dtype="float32", output_dir=out),
+                enforce_min_ref_duration=False)
     c = jtts.c
     comps = TTSComponents(
         first_stage_params=params_from_numpy(_np(c.first_stage_params), device="cpu"),
@@ -241,6 +282,27 @@ def test_unported_options_and_missing_card_raise(pair):
     _, tts = pair
     with pytest.raises(NotImplementedError):
         TTS(tts.c, device="cpu", tensor_parallel=2)
+    # the MBD vocoder is ported (tests/test_torch_mbd.py): it needs its params, as in JAX
+    small_mbd = mbd.MBDConfig(n_processes=1, unet=mbd.UNetConfig(hidden=4, depth=2, num_steps=16,
+                                                                  codec_dim=tts.c.encodec_cfg.dimension),
+                              step_list=(15, 7, 0), processor_bands=4, eq_bands=8)
+    with_mbd = dataclasses.replace(tts.c, vocoder="mbd", mbd_cfg=small_mbd,
+                                   mbd_params=mbd.init_params(small_mbd, device="cpu",
+                                                              generator=torch.Generator().manual_seed(0)))
+    assert TTS(with_mbd, device="cpu").c.vocoder == "mbd"
+    with pytest.raises(NotImplementedError):
+        TTS(with_mbd, device="cpu", tensor_parallel=2)
+    with pytest.raises(ValueError, match="mbd_params"):
+        TTS(dataclasses.replace(tts.c, vocoder="mbd"), device="cpu")
+    with pytest.raises(ValueError, match="Unknown vocoder"):
+        TTS(dataclasses.replace(tts.c, vocoder="hifigan"), device="cpu")
+    # every enhancer of the JAX factory is ported (tests/test_torch_df_enhancer.py)
+    with pytest.warns(UserWarning, match="UNTRAINED"):
+        get_enhancer("df", device="cpu", cfg=DFConfig(n_fft=64, hop=32, n_erb=8, df_bins=8, gru_dim=8))
+    x = np.ones(10, np.float32)
+    assert get_enhancer("none")(x, 24000) is x
+    with pytest.raises(ValueError, match="Unknown enhancer"):
+        get_enhancer("bogus")
     # int4 at the small model's width decodes through the unfused route, on a quantized cache too
     # (tests/test_torch_int4_unfused.py)
     for kw in ({"quantisation_mode": "int4"}, {"quantisation_mode": "int4", "kv_cache_dtype": "int8"}):
@@ -262,6 +324,8 @@ def test_unported_options_and_missing_card_raise(pair):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             TTS(tts.c)  # the default device is cuda: no silent CPU fallback
+        with pytest.raises(RuntimeError, match="cuda"):
+            TTS(with_mbd)
 
 
 def test_port_imports_no_jax():
@@ -290,6 +354,10 @@ def test_port_imports_no_jax():
         "import metavoice_tpu_torch.training.data\n"
         "import metavoice_tpu_torch.training.trainer\n"
         "import metavoice_tpu_torch.training.second_stage\n"
+        "import metavoice_tpu_torch.training.mbd_trainer\n"
+        "import metavoice_tpu_torch.training.df_trainer\n"
+        "import metavoice_tpu_torch.models.mbd\n"
+        "import metavoice_tpu_torch.models.enhancer\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'metavoice_tpu', 'optax', 'orbax', 'pandas')]\n"
