@@ -360,8 +360,33 @@ Phases, one line each; any failure exits non-zero and prints no result:
  55. train-mbd/df - three steps of one full-width MBD band (clip + Adam, 4
                x 1 s clips) and train_df of the default DF network: ms a
                step, finite losses, the stamped enhancer on a wav.
+ 56. tp-small - tensor parallelism (metavoice_tpu_torch/parallel) on two
+               ranks, processes of parallel/mesh.spawn sharing cuda:0 over
+               gloo (NCCL takes one card a rank), the kernels built first
+               in this process: a 2L/4H/512d first stage in f32 and bf16
+               with None, int4 and int8 weights and on the int8 cache, a
+               32-token prefill and 8 teacher-forced steps on each rank
+               against a CPU tp = 1 run of the plain path (TP_SMALL_TOL of
+               max |ref|), the two ranks' logits bit-identical, every kernel
+               call of the prefill and of the first and last step held
+               against its plain version at the local shapes (K1, K2, K8),
+               each rank's launches as the route requires and none of
+               K3/K5/K6/K7/K9, and 48 tokens under the same Gumbel draws
+               identical on both ranks;
+ 57. tp-synth - full-width TTS(tensor_parallel=2) on the two ranks for
+               bf16, int4 and int8 weights: a 192-token synthesise through
+               the user's entry point (the leader's wav; each rank's K1 =
+               n_layer x steps and K2 or K8 = 5 x n_layer x (steps + 1) at
+               the local shapes, nothing else launched), 64 tokens under
+               Gumbel draws held to tp = 1's on the same weights up to the
+               first near-tie (the step and the score gap printed; the
+               logits within TP_SYNTH_TOL until then), identical on both
+               ranks, their kernel calls held against the plain versions;
+               one gloo all_reduce of a decode step timed, and each rank's
+               ms a token, which is two ranks sharing one card over gloo,
+               not a TP latency.
 
-Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45, 47, 51 and 54 are the main paths: every kernel count is
+Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45, 47, 51, 54 and 57 are the main paths: every kernel count is
 set to 0 just before each and read just after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
@@ -5540,6 +5565,334 @@ def phase_train_mbd_df(torch, dev: str = "cuda", small: bool = False):
           f"losses {['%.4f' % x for x in df_losses]}; the stamped enhancer on 1 s of audio finite")
 
 
+# ------------------------------------------------------------------ phases 56-57: tensor parallelism
+#
+# Two ranks, one process each, both on cuda:0 over gloo (NCCL holds one rank a
+# card), started by parallel/mesh.spawn once the parent has built the kernels.
+# They run every rank's kernels at the local shapes, through the code a
+# machine with two cards runs; two ranks sharing one card time nothing of TP.
+
+TP_SMALL = dict(n_layer=2, n_head=4, dim=512, block_size=256)  # phase 56; FFN 1536, 768 a rank
+TP_PREFILL = 32  # phase 56's prompt: more than 16 tokens, the plain prefill route (K2 / K8 at 64 rows)
+TP_STEPS = 8  # and its teacher-forced decode steps
+TP_GEN = 48  # phase 56's tokens a rank draws under the same Gumbel draws
+# phase 56's cases: (label, compute dtype, weights, cache format)
+TP_SMALL_CASES = (("f32", "f32", None, None), ("f32 int4", "f32", "int4", None), ("f32 int8", "f32", "int8", None),
+                  ("bf16", "bf16", None, None), ("bf16 int4", "bf16", "int4", None),
+                  ("bf16 int8", "bf16", "int8", None), ("bf16 int8 cache", "bf16", None, "int8"))
+# the ranks' logits against a CPU tp = 1 run of the plain path, as a share of max |ref|. f32 dense: the
+# same math, the reduction and the card's sums in other orders. f32 quantized: the kernels round the
+# activations to bf16, so a sum one f32 ulp apart may round one bf16 ulp apart, and int8 quantizes each
+# shard with its own column scales: 1.5 times the largest gap measured on an NVIDIA H100 80GB HBM3 at a
+# 700 W limit (int8 0.00731, int4 0.00497). bf16: the dense bf16 products round differently on the card
+# and the CPU (SMALL4_TOL), and the reduction adds the two ranks' bf16 partial sums (measured up to 0.00656).
+TP_SMALL_TOL = {"f32": 1e-4, "f32 quantized": 0.011, "bf16": 5e-2}
+TP_NEW = 192  # phase 57: first-stage tokens of each synthesise
+TP_DRAWN = 64  # and of its first stage, teacher-forced to tp = 1's tokens
+TP_MODES = (None, "int4", "int8")  # phase 57's weights
+# phase 57: the ranks' logits against tp = 1's on the same weights and the same tokens, at every one of the
+# TP_DRAWN steps, as a share of max |ref|: the reductions add two bf16 partial sums, tp = 1 runs the fused
+# decode stack (K3 / K7) where TP runs each projection alone (K2 / K8), and int8 quantizes each shard with
+# its own column scales. 1.5 times the largest gap over two runs on an NVIDIA H100 80GB HBM3 at a 700 W
+# limit, which read the same: bf16 0.0378, int4 0.133, int8 0.119
+TP_SYNTH_TOL = {None: 0.057, "int4": 0.2, "int8": 0.18}
+
+
+def _tp_cache_dtype(torch, dt: str, fmt):
+    return fmt or {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+
+
+def _tp_small_rank(rank: int, dev: str, params, idx, spk, prompt, noise) -> dict:
+    """56, one rank: each case's prefill and teacher-forced steps (the
+    kernels' calls held against their plain versions on the card) and each
+    mode's tokens under the Gumbel draws ``noise``."""
+    import torch
+
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.parallel import mesh as pmesh
+    from metavoice_tpu_torch.parallel import tp_decode as tpd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = first_stage_config(**TP_SMALL)
+    mesh = pmesh.make_mesh(2, device=dev)
+    idx, spk = idx.to(mesh.device), spk.to(mesh.device)
+    out = {"cases": {}, "tokens": {}}
+    for label, dt, mode, fmt in TP_SMALL_CASES:
+        p = tpd.prepare_tp_params(params, cfg, mesh, mode)
+        kv = tpd.make_tp_cache(cfg, mesh, 2, data_sharded=False, dtype=_tp_cache_dtype(torch, dt, fmt))
+        cdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+        step = [0]
+        _zero_counts()
+        with captured_calls(torch, {0, 1, TP_STEPS}, lambda: step[0]) as kept:
+            logits, _ = tpd.tp_forward(p, cfg, mesh, idx[:, :TP_PREFILL], spk, None, kv, 0, compute_dtype=cdt)
+            seen = [logits[0][:, -1].float().cpu()]
+            for i in range(TP_STEPS):
+                step[0] = i + 1
+                pos = TP_PREFILL + i
+                logits, _ = tpd.tp_forward(p, cfg, mesh, idx[:, pos : pos + 1], spk, None, kv, pos, compute_dtype=cdt)
+                seen.append(logits[0][:, 0].float().cpu())
+        counts = read_counts()
+        held = hold_captured(torch, f"56 tp-small {label}, rank {rank}", kept, counts) if dev != "cpu" else "-"
+        out["cases"][label] = (torch.stack(seen), counts, held)
+    for mode in (None, "int4", "int8"):
+        p = tpd.prepare_tp_params(params, cfg, mesh, mode)
+        out["tokens"][mode] = tpd.tp_generate(p, cfg, mesh, prompt, spk[0].cpu().numpy(), noise=noise.to(mesh.device),
+                                              max_new_tokens=TP_GEN, top_p=1.0, compute_dtype=torch.bfloat16)
+    return out
+
+
+def phase_tp_small(torch, dev: str = "cuda"):
+    """56: a small first stage on two ranks (``dev="cpu"``: two CPU ranks, a
+    rehearsal): each rank's logits over a prefill and 8 decode steps against
+    a CPU tp = 1 run of the plain path, in f32 and bf16, with None, int4 and
+    int8 weights and on the int8 cache; every kernel call of the first, the
+    second and the last step held against its plain version; the ranks'
+    tokens under the same draws equal; the fused routes never launched."""
+    from metavoice_tpu_torch.core import sampling as S
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+    from metavoice_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    cfg = first_stage_config(**TP_SMALL)
+    gen = torch.Generator().manual_seed(56)
+    params = tfm.init_params(cfg, device="cpu", generator=gen, dtype=torch.float32)
+    idx = torch.randint(0, cfg.vocab_size, (2, TP_PREFILL + TP_STEPS), generator=gen)
+    spk = torch.randn(2, cfg.speaker_emb_dim, generator=gen)
+    prompt = list(range(2100, 2140))
+    noise = S.gumbel_noise((TP_GEN, 1, cfg.vocab_size), device="cpu", generator=gen)
+    ranks = pmesh.spawn(_tp_small_rank, 2, args=(dev, params, idx, spk, prompt, noise), backend="gloo",
+                        devices=[dev, dev], timeout=120, deadline=300)
+    quant = {None: lambda p: p, "int4": Q.quantize_params_int4_i32, "int8": Q.quantize_params_int8_i32}
+    seen = []
+    for label, dt, mode, fmt in TP_SMALL_CASES:
+        got, counts, held = ranks[0]["cases"][label]
+        if not torch.equal(got, ranks[1]["cases"][label][0]):
+            fail(f"56 tp-small {label}: the two ranks' logits differ")
+        p, cdt = quant[mode](params), {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+        kv = tfm.KVCache.create(cfg, 2, cfg.block_size, dtype=_tp_cache_dtype(torch, dt, fmt), device="cpu")
+        with torch.inference_mode():
+            logits, _ = tfm.forward(p, cfg, idx[:, :TP_PREFILL], spk_emb=spk, kv_cache=kv, compute_dtype=cdt)
+            ref = [logits[0][:, -1].float()]
+            for i in range(TP_STEPS):
+                pos = TP_PREFILL + i
+                logits, _ = tfm.forward(p, cfg, idx[:, pos : pos + 1], spk_emb=spk, kv_cache=kv, cache_pos=pos,
+                                        compute_dtype=cdt)
+                ref.append(logits[0][:, 0].float())
+        ref = torch.stack(ref)
+        tol = TP_SMALL_TOL["bf16" if dt == "bf16" else "f32" if mode is None else "f32 quantized"]
+        gap = (got - ref).abs().max().item() / ref.abs().max().item()
+        if not (gap <= tol and torch.isfinite(got).all()):
+            fail(f"56 tp-small {label}: the ranks' logits are {gap:.4g} of max |ref| from tp = 1's (tol {tol})")
+        # a quantized cache decodes on the plain dequantizing path: no K1
+        want = {"k1_launches": 2 * TP_STEPS * (fmt is None), "k2_launches": 5 * 2 * (1 + TP_STEPS) * (mode == "int4"),
+                "k8_launches": 5 * 2 * (1 + TP_STEPS) * (mode == "int8")}
+        off = {k: n for k, n in counts.items() if k not in want and n}
+        if dev != "cpu" and (any(counts[k] != n for k, n in want.items()) or off):
+            fail(f"56 tp-small {label}: rank 0 launched {counts}, expected {want} and nothing else")
+        seen.append(f"{label} {gap:.3g} (tol {tol}; K1 {counts['k1_launches']}, K2 {counts['k2_launches']}, "
+                    f"K8 {counts['k8_launches']}; {held})")
+    for mode, toks in ranks[0]["tokens"].items():
+        if not (len(toks) > len(prompt) and (toks == ranks[1]["tokens"][mode]).all()):
+            fail(f"56 tp-small: under the same draws the ranks' {mode} tokens differ")
+    print(f"[56 tp-small] {cfg.n_layer}L/{cfg.n_head}H/{cfg.dim}d, 2 ranks on {dev} over gloo, prefill "
+          f"{TP_PREFILL} + {TP_STEPS} steps, rank 0 against a CPU tp = 1 run of the plain path, as a share of max "
+          f"|ref|: {'; '.join(seen)}; both ranks' logits bit-identical; {TP_GEN} tokens under the same draws "
+          f"identical on both ranks for None, int4, int8 ({time.perf_counter() - t0:.1f} s)")
+
+
+def _tp_tokens(torch, tts, noise, tp: bool):
+    """The first stage's tokens of SYNTH_TEXT on tts's trees (under TP its
+    shards and its tensor group), a zero speaker embedding and the Gumbel
+    draws ``noise`` at top-p 1 (``forced_noise``'s: given tokens) -> the
+    tokens after the prompt."""
+    import numpy as np
+    from metavoice_tpu_torch.core.text import normalize_text
+    from metavoice_tpu_torch.models import first_stage as fs
+
+    cfg = tts.c.first_stage_cfg
+    prompt = tts.c.tokenizer.encode(normalize_text(SYNTH_TEXT))
+    with torch.inference_mode():
+        seq = fs.generate(tts.c.first_stage_params, cfg, prompt, np.zeros((cfg.speaker_emb_dim,), np.float32),
+                          max_new_tokens=TP_DRAWN, noise=noise.to(tts.device), top_p=1.0, guidance_scale=3.0,
+                          end_of_text_token=tts.c.tokenizer.eot_token, kv_cache=tts._persistent_kv_cache(3.0),
+                          compute_dtype=tts._compute_dtype, tp=tts.mesh.tensor_group if tp else None)
+    return seq[len(prompt):]
+
+
+def forced_noise(torch, tokens, noise):
+    """Draws that make a top-p 1 sampler take ``tokens`` (step i: 0 at
+    tokens[i], -1e30 elsewhere), ``noise``'s past them: a run teacher-forced
+    to another run's tokens."""
+    forced = noise.clone()
+    n = len(tokens)
+    forced[:n] = -1e30
+    forced[torch.arange(n), 0, torch.as_tensor(tokens, dtype=torch.int64)] = 0.0
+    return forced
+
+
+def _tp_synth_rank(rank: int, dev: str, small: bool, workdir: str, ref: str, forced: dict) -> dict:
+    """57, one rank: per weight mode, TTS(tensor_parallel=2) at full width: a
+    synthesise through the user's entry point (counts set to 0 just before
+    and read just after) and the first stage teacher-forced to tp = 1's
+    tokens (``forced[mode]``), each step's logits kept, its kernel calls at
+    the prefill, the first and the last step held against their plain
+    versions on the card."""
+    import torch
+
+    from metavoice_tpu_torch.runtime.tts import TTS
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # one reduction of a decode step's partial sums (the CFG pair's rows), as the block stack makes 48 a step
+    y = torch.ones((2, 1, 2048), dtype=torch.bfloat16, device=dev)
+    for i in range(110):
+        if i == 10:
+            sync(torch, dev)
+            t0 = time.perf_counter()
+        dist.all_reduce(y)
+    sync(torch, dev)
+    out = {"reduce_ms": 1e3 * (time.perf_counter() - t0) / 100}
+    for mode in TP_MODES:
+        t0 = time.perf_counter()
+        tts = TTS.from_random(small=small, device=dev, tensor_parallel=2, quantisation_mode=mode,
+                              output_dir=os.path.join(workdir, f"out_tp_{mode}"))
+        # the speaker embedding cached, the merge tickets made, every bucket run once
+        tts._reference_embedding(ref)
+        tts.warmup(prompt_buckets=(128,), vocoder_frame_buckets=(25,), guidance_variants=(3.0,))
+        sync(torch, dev)
+        init_s = time.perf_counter() - t0
+        path, total_s, counts = drive_main_path(tts, ref, max_new_tokens=TP_NEW)
+        steps = tts.stats["decode_steps"]
+        _zero_counts()
+        with recorded_logits() as seen, captured_calls(torch, {0, 1, TP_DRAWN - 1}, lambda: len(seen)) as kept:
+            toks = _tp_tokens(torch, tts, forced[mode], tp=True)
+        held = hold_captured(torch, f"57 tp-synth {mode}, rank {rank}", kept, read_counts()) if dev != "cpu" else "-"
+        wqkv = tts.c.first_stage_params["layers"]["wqkv"]
+        out[mode] = dict(path=path, counts=counts, steps=steps, total_s=total_s, init_s=init_s,
+                         ms_tok=1e3 * tts.timings["first_stage"] / max(steps, 1), tokens=toks,
+                         logits=[s.cpu() for s in seen], held=held, n_layer=tts.c.first_stage_cfg.n_layer,
+                         wqkv=tuple((wqkv["pw"] if mode == "int4" else wqkv["p8"] if mode else wqkv).shape))
+        del tts, seen, kept
+        empty_cache(torch, dev)
+    return out
+
+
+def _forced_steps(torch, label: str, toks1, la: list, toks: list, lc: list, noise, tol: float) -> str:
+    """tp = 1's tokens ``toks1`` (logits ``la``, draws ``noise``) and the
+    ranks' first stage teacher-forced to them (``toks``, logits ``lc``): the
+    same tokens, and at every step the logits within ``tol`` of max |ref|.
+    The ranks' own draws from their logits under ``noise`` are what a free
+    run of theirs would draw up to the step where it parts from tp = 1
+    (the inputs are the same until then); there the two tokens must be
+    tp = 1's top two scores (CFG-merged logits + the draw), closer than
+    twice the largest score gap between the runs: a near-tie. -> what was
+    seen."""
+    from metavoice_tpu_torch.core import sampling as S
+
+    if not (len(toks) == len(toks1) == len(la) == len(lc) and (toks == toks1).all()):
+        fail(f"{label}: the ranks' first stage, teacher-forced, drew {len(toks)} tokens against tp = 1's "
+             f"{len(toks1)}, or others")
+    worst, at, part = 0.0, 0, None
+    for i in range(len(toks1)):
+        ref = la[i]
+        gap = (lc[i] - ref).abs().max().item() / ref.abs().max().item()
+        if not gap <= tol:
+            fail(f"{label}: at step {i} of {len(toks1)}, on the same tokens, the ranks' logits differ from tp = 1's "
+                 f"by {gap:.4g} of max |ref| (tol {tol})")
+        if gap > worst:
+            worst, at = gap, i
+        if part is None and int(S.sample_cfg(lc[i], 3.0, 1.0, 1.0, noise=noise[i])[0]) != int(toks1[i]):
+            part = i
+    held = f"all {len(toks1)} steps' logits within {worst:.3g} of max |ref| (step {at})"
+    if part is None:
+        return f"{held}; the ranks' own draws equal tp = 1's at every step"
+    i = part
+    s1 = S.cfg_merge(la[i], 3.0)[0] + noise[i].reshape(-1)
+    sc = S.cfg_merge(lc[i], 3.0)[0] + noise[i].reshape(-1)
+    top2 = torch.topk(s1, 2)
+    margin = (top2.values[0] - top2.values[1]).item()
+    gap = (sc - s1).abs().max().item()
+    mine = int(torch.argmax(sc))
+    if {int(toks1[i]), mine} != set(top2.indices.tolist()) or margin > 2 * gap:
+        fail(f"{label}: a free run of the ranks parts from tp = 1 at step {i} ({toks1[i]} at tp = 1, {mine} on the "
+             f"ranks), and that is no near-tie: tp = 1's top two {top2.indices.tolist()} are {margin:.4g} apart, the "
+             f"largest score gap between the runs is {gap:.4g}")
+    return (f"{held}; the ranks' own draws equal tp = 1's for the first {i} of {len(toks1)} tokens and part at step "
+            f"{i} between tp = 1's top two scores ({toks1[i]}, {mine}), {margin:.4g} apart against a largest score "
+            f"gap of {gap:.4g}")
+
+
+def phase_tp_synth(torch, workdir: str, ref: str, dev: str = "cuda", small: bool = False) -> dict:
+    """57: TTS(tensor_parallel=2) at full width on two ranks sharing the card
+    over gloo (``dev="cpu", small=True``: a rehearsal), for bf16, int4 and
+    int8 weights: a synthesise (the leader's wav, each rank's launches: K1
+    and K2 or K8 at the local shapes, none of K3/K5/K6/K7/K9), the first
+    stage teacher-forced to tp = 1's tokens under Gumbel draws, its logits
+    held to tp = 1's at every step and bit-identical on both ranks, where a
+    free run would part from tp = 1 (a near-tie), and each rank's ms a
+    token."""
+    from metavoice_tpu_torch.core import sampling as S
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.parallel import mesh as pmesh
+    from metavoice_tpu_torch.runtime.tts import TTS
+
+    t0 = time.perf_counter()
+    vocab = first_stage_config().vocab_size
+    noise = S.gumbel_noise((TP_DRAWN, 1, vocab), device="cpu", generator=torch.Generator().manual_seed(57))
+    one = {}  # tp = 1's tokens and logits a mode, on the same weights
+    for mode in TP_MODES:
+        tts1 = TTS.from_random(small=small, device=dev, quantisation_mode=mode, output_dir=os.path.join(workdir, "out"))
+        with recorded_logits() as seen1:
+            toks1 = _tp_tokens(torch, tts1, noise, tp=False)
+        one[mode] = (toks1, [s.cpu() for s in seen1])
+        del tts1, seen1
+        empty_cache(torch, dev)
+    forced = {mode: forced_noise(torch, toks1, noise) for mode, (toks1, _) in one.items()}
+    t1 = time.perf_counter()
+    ranks = pmesh.spawn(_tp_synth_rank, 2, args=(dev, small, workdir, ref, forced), backend="gloo",
+                        devices=[dev, dev], timeout=300, deadline=600)
+    ranks_s = time.perf_counter() - t1
+    lines, out = [], {}
+    for mode in TP_MODES:
+        r0, r1 = ranks[0][mode], ranks[1][mode]
+        label = f"57 tp-synth {mode or 'bf16'}"
+        if r1["path"] is not None or r0["path"] is None:
+            fail(f"{label}: the leader returns the wav's path, the other rank None; got {r0['path']}, {r1['path']}")
+        check_wav(r0["path"])
+        if not (len(r0["logits"]) == len(r1["logits"])
+                and all(torch.equal(a, b) for a, b in zip(r0["logits"], r1["logits"]))):
+            fail(f"{label}: on the same tokens the two ranks' logits differ")
+        n_layer, steps = r0["n_layer"], r0["steps"]
+        for r, got in enumerate((r0, r1)):
+            c = got["counts"]
+            want = {"k1_launches": n_layer * got["steps"],
+                    {"int4": "k2_launches", "int8": "k8_launches"}.get(mode, "k2_launches"):
+                        5 * n_layer * (got["steps"] + 1) * (mode is not None)}
+            if dev != "cpu" and (any(c[k] != n for k, n in want.items())
+                                 or any(n for k, n in c.items() if k not in want)):
+                fail(f"{label}: rank {r} launched {c}, expected {want} and nothing else ({got['steps']} steps)")
+        toks1, la = one[mode]
+        agree = _forced_steps(torch, label, toks1, la, r0["tokens"], r0["logits"], noise, TP_SYNTH_TOL[mode])
+        c0, c1 = r0["counts"], r1["counts"]
+        lines.append(
+            f"{mode or 'bf16'}: local wqkv {r0['wqkv']}; synthesise {steps} steps, rank 0 {r0['total_s']:.2f} s, "
+            f"{r0['ms_tok']:.2f} ms a token, rank 1 {r1['ms_tok']:.2f} ms a token (two ranks sharing one card over "
+            f"gloo: not a TP latency); launches rank 0 K1 {c0['k1_launches']} K2 {c0['k2_launches']} K8 "
+            f"{c0['k8_launches']}, rank 1 K1 {c1['k1_launches']} K2 {c1['k2_launches']} K8 {c1['k8_launches']}, "
+            f"K3/K5/K6/K7/K9 0; held: {r0['held']}; teacher-forced to tp = 1's tokens: {agree}")
+        out[mode] = {"counts": c0, "ms_per_token": r0["ms_tok"]}
+    print(f"[57 tp-synth] full width, TTS(tensor_parallel=2), 2 ranks on {dev} over gloo (one all_reduce of a "
+          f"(2, 1, 2048) bf16 step: {ranks[0]['reduce_ms']:.3f} ms on rank 0, {ranks[1]['reduce_ms']:.3f} on rank 1), "
+          f"{TP_NEW}-token synthesise, the leader's wav written: " + " | ".join(lines) +
+          f" ({t1 - t0:.1f} s tp = 1, {ranks_s:.1f} s the ranks, {time.perf_counter() - t0:.1f} s in all)")
+    return out
+
+
 def gc_collect():
     import gc
 
@@ -5681,6 +6034,12 @@ def main() -> int:
         phase_synth_mbd(torch, workdir, ref)
         phase_train_mbd_df(torch)
         print(f"[53-55 mbd/df] {time.perf_counter() - t0:.1f} s")
+        gc_collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_tp_small(torch)
+        phase_tp_synth(torch, workdir, ref)
+        print(f"[56-57 tensor parallel] {time.perf_counter() - t0:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # and, where a phase read it from the graph of one call, the kernels a call
     counted = ("kernels_a_call",)

@@ -9,6 +9,12 @@ commands, arguments and defaults (metavoice_tpu/cli.py), plus ``--device``
   * ``serve``: the HTTP server (runtime/server.py), with ``--batching N|auto``
     on the continuous-batching engine and ``--replicas N`` on
     runtime/replicas.ReplicaPool; SIGTERM or SIGINT stop it cleanly;
+  * ``synth`` and ``serve`` with ``--tensor_parallel N``: N ranks, one
+    process and one card each over NCCL (``--device cpu``: N CPU ranks over
+    gloo), started by ``parallel/mesh.spawn``; the first stage runs
+    Megatron TP over them. ``serve``'s rank 0 runs the HTTP server and
+    sends each request's arguments to the other ranks, which run the same
+    synthesis; it serves without the batching engine, as in the JAX package;
   * ``quantize``: a first-stage ``.pt`` -> a pre-quantized serving ``.npz``,
     key for key and bit for bit the JAX package's;
   * ``capacity``: the device-memory plan of a serving configuration
@@ -20,6 +26,8 @@ commands, arguments and defaults (metavoice_tpu/cli.py), plus ``--device``
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 import sys
 
 QUANT_MODES = ["int4", "int8", "int8_packed", "int8_plain"]
@@ -48,7 +56,8 @@ def _add_model_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--seed", type=int, default=1337)
     ap.add_argument("--output_dir", default="outputs")
     ap.add_argument("--tensor_parallel", type=int, default=1,
-                    help="shard the first stage over this many devices (not ported: only 1)")
+                    help="shard the first stage Megatron-style over this many ranks, one process and one card "
+                         "each (parallel/tp_decode.py); needs a dense .pt first stage, not a pre-quantized .npz")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
 
 
@@ -86,11 +95,94 @@ def cmd_synth(argv: list[str]) -> int:
         ap.error("--guidance_scale takes one or two values")
     guidance = args.guidance_scale[0] if len(args.guidance_scale) == 1 else tuple(args.guidance_scale)
 
+    if args.tensor_parallel > 1:
+        from metavoice_tpu_torch.parallel import mesh as pmesh
+
+        pmesh.spawn(_synth_rank, args.tensor_parallel, args=(args, guidance), devices=_tp_devices(args),
+                    timeout=_TP_TIMEOUT_S)
+    else:
+        _synth_rank(0, args, guidance)
+    return 0
+
+
+def _synth_rank(rank: int, args, guidance) -> None:
+    """One rank of ``synth`` (the whole of it without TP): each text's wav
+    path printed (a TP rank other than the leader writes none)."""
     tts = _build_tts(args)
     for text in args.text:
-        print(tts.synthesise(text, args.spk_cond_path, top_p=args.top_p, guidance_scale=guidance,
-                             temperature=args.temperature, max_new_tokens=args.max_new_tokens))
-    return 0
+        path = tts.synthesise(text, args.spk_cond_path, top_p=args.top_p, guidance_scale=guidance,
+                              temperature=args.temperature, max_new_tokens=args.max_new_tokens)
+        if path is not None:
+            print(path, flush=True)
+
+
+_TP_TIMEOUT_S = 1800.0  # a TP rank's collectives: a long rendering on the leader keeps the others waiting
+_TP_IDLE = datetime.timedelta(days=365)  # a serving follower waits this long for the next request
+
+
+def _tp_devices(args) -> list[str]:
+    """One device a TP rank: the CPU with ``--device cpu``, else one card a
+    rank (NCCL holds one rank a card)."""
+    n = args.tensor_parallel
+    if args.device == "cpu":
+        return ["cpu"] * n
+    import torch
+
+    if n > torch.cuda.device_count():
+        raise ValueError(f"--tensor_parallel {n} needs {n} cards, one a rank; this machine has "
+                         f"{torch.cuda.device_count()}")
+    return [f"cuda:{r}" for r in range(n)]
+
+
+class _TPLeader:
+    """The serving rank's TTS: each synthesis call first sends its name and
+    arguments to the other ranks of the tensor group (``_tp_follow``), which
+    run the same call; every other attribute is the TTS's own."""
+
+    def __init__(self, tts, group, src: int):
+        self._tts, self._group, self._src = tts, group, src
+
+    def __getattr__(self, name):
+        return getattr(self._tts, name)
+
+    def _send(self, msg) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([msg], src=self._src, group=self._group)
+
+    def synthesise(self, *a, **kw):
+        self._send(("synthesise", a, kw))
+        return self._tts.synthesise(*a, **kw)
+
+    def synthesise_streaming(self, *a, **kw):
+        self._send(("synthesise_streaming", a, kw))
+        return self._tts.synthesise_streaming(*a, **kw)
+
+    def stop(self) -> None:
+        self._send(None)
+
+
+def _tp_follow(tts, group, src: int) -> None:
+    """A serving rank other than the leader: run each call the leader sends
+    until it sends None. A call that fails fails on the leader too, which
+    reports it; the loop goes on."""
+    import traceback
+
+    import torch.distributed as dist
+
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=src, group=group)
+        if box[0] is None:
+            return
+        name, a, kw = box[0]
+        try:
+            out = getattr(tts, name)(*a, **kw)
+            if name == "synthesise_streaming":
+                for _ in out:
+                    pass
+        except Exception:
+            traceback.print_exc()
 
 
 def cmd_serve(argv: list[str]) -> int:
@@ -113,13 +205,10 @@ def cmd_serve(argv: list[str]) -> int:
             args.batching = int(args.batching)
         except ValueError:
             ap.error("--batching must be an integer or 'auto'")
-
-    import signal
-    import threading
-    from http.server import ThreadingHTTPServer
+    if args.tensor_parallel > 1:
+        return _serve_tp(args)
 
     from metavoice_tpu_torch.runtime.engine import ContinuousBatchingEngine
-    from metavoice_tpu_torch.runtime.server import ServingConfig, make_handler
 
     if args.replicas > 1:
         from metavoice_tpu_torch.runtime.replicas import ReplicaPool
@@ -144,6 +233,77 @@ def cmd_serve(argv: list[str]) -> int:
             if not args.no_warmup:
                 print("warming up the batching engine...", flush=True)
                 engine.warmup(warm_tts=False)  # tts.warmup() already ran
+    return _serve_http(args, tts, engine)
+
+
+def _serve_tp(args) -> int:
+    """``serve --tensor_parallel N``: N ranks (``_serve_rank``); SIGTERM or
+    SIGINT to this process reach them, and rank 0 stops the server."""
+    import multiprocessing
+    import signal
+
+    from metavoice_tpu_torch.parallel import mesh as pmesh
+
+    if args.replicas > 1 or args.batching != 0:
+        raise ValueError("--tensor_parallel serves through the direct synthesise path: the batching engine and "
+                         "replicas do not support tensor_parallel")
+    devices = _tp_devices(args)
+
+    def forward(signum, frame):
+        for proc in multiprocessing.active_children():
+            os.kill(proc.pid, signal.SIGTERM)
+
+    before = {sig: signal.signal(sig, forward) for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        pmesh.spawn(_serve_rank, args.tensor_parallel, args=(args,), devices=devices, timeout=_TP_TIMEOUT_S)
+    finally:
+        for sig, handler in before.items():
+            signal.signal(sig, handler)
+    return 0
+
+
+def _serve_rank(rank: int, args) -> None:
+    """One rank of ``serve --tensor_parallel``: every rank builds (and warms
+    up) the TTS, then serves it (``serve_tp_rank``)."""
+    tts = _build_tts(args)
+    if not args.no_warmup:
+        print("warming up...", flush=True)
+        tts.warmup()
+    serve_tp_rank(tts, args)
+
+
+def serve_tp_rank(tts, args) -> None:
+    """A rank of a TP TTS in ``serve``: the tensor group's leader serves
+    HTTP (``args.host``, ``args.port``, ``args.output_dir``,
+    ``args.max_new_tokens``) through a ``_TPLeader`` until SIGTERM or
+    SIGINT, the other ranks follow it until it stops."""
+    import signal
+
+    import torch.distributed as dist
+
+    src = tts.mesh.tensor_ranks[0]
+    # the requests' channel: a follower waits on it for as long as the server is idle
+    control = dist.new_group(list(tts.mesh.tensor_ranks), backend="gloo", timeout=_TP_IDLE)
+    if not tts.mesh.leader:
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_IGN)  # the leader stops the followers
+        _tp_follow(tts, control, src)
+        return
+    leader = _TPLeader(tts, control, src)
+    try:
+        _serve_http(args, leader, None)
+    finally:
+        leader.stop()
+
+
+def _serve_http(args, tts, engine) -> int:
+    """The HTTP server over ``tts`` (and ``engine``) until SIGTERM or SIGINT."""
+    import signal
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from metavoice_tpu_torch.runtime.server import ServingConfig, make_handler
+
     cfg = ServingConfig(host=args.host, port=args.port, output_dir=args.output_dir,
                         max_new_tokens=args.max_new_tokens)
     httpd = ThreadingHTTPServer((cfg.host, cfg.port), make_handler(tts, cfg, engine))

@@ -1,5 +1,7 @@
 """Model and runtime configuration dataclasses (port of
-metavoice_tpu/core/config.py; the TP mesh config is not ported).
+metavoice_tpu/core/config.py; its ``MeshConfig``, which nothing there
+reads, has no counterpart: a rank's place in the (data, tensor) grid is
+``parallel/mesh.make_mesh``'s ``Mesh``).
 
 One ``TransformerConfig`` covers both stages (the reference splits this
 across fam/llm/fast_model.py:52-94 ``ModelArgs`` and fam/llm/model.py:26-46

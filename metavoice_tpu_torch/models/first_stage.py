@@ -115,12 +115,15 @@ def fill_cache(
     *,
     cfg_rows: int = 2,
     end_of_text_token: int = 0,
+    tp=None,
 ) -> torch.Tensor:
     """Run the prompt's guidance rows through the blocks, writing the cache
     in place -> the (cfg_rows*B, T_pad, D) normed hidden states. The mask
     covers the whole cache length; pad rows past the true prompt are
     harmless, since a query at position p attends [0, p] and row p is
-    overwritten by that step's own write before it is read."""
+    overwritten by that step's own write before it is read. ``tp``: the
+    tensor group of a tensor-parallel stack (``transformer.apply_blocks``),
+    ``params`` and ``cfg`` this rank's shards and local view."""
     b, t = prompt.shape
     x = tfm.embed_inputs(
         params, cfg, guidance_rows(prompt, cfg_rows, end_of_text_token),
@@ -128,7 +131,7 @@ def fill_cache(
         make_spk_cond_mask(b, cfg_rows, device=prompt.device), compute_dtype,
     )
     attn_mask = tfm.causal_mask_for(torch.arange(t, device=prompt.device), kv_cache.max_seq_len)[None, None]
-    x, _ = tfm.apply_blocks(params, cfg, x, attn_mask, kv_cache, 0)
+    x, _ = tfm.apply_blocks(params, cfg, x, attn_mask, kv_cache, 0, tp=tp)
     return x
 
 
@@ -149,15 +152,17 @@ def prefill(
     end_of_text_token: int = 0,
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
+    tp=None,
 ) -> torch.Tensor:
     """Fill the cache with the prompt and sample the first new token -> (B,).
 
     The logits come from the hidden state at ``prompt_len - 1``. ``cfg_rows=3``
     is double guidance (speaker + prompt): the third group sees the prompt
-    with its text replaced by ``end_of_text_token``.
+    with its text replaced by ``end_of_text_token``. ``tp`` as in
+    :func:`fill_cache`.
     """
     x = fill_cache(params, cfg, prompt, spk_emb, kv_cache, compute_dtype,
-                   cfg_rows=cfg_rows, end_of_text_token=end_of_text_token)
+                   cfg_rows=cfg_rows, end_of_text_token=end_of_text_token, tp=tp)
     logits = tfm.output_logits(params, cfg, x[:, prompt_len - 1 : prompt_len])[0][:, 0, :]
     return sample_guided(logits, guidance_scale, prompt_guidance_scale, cfg_rows, temperature, top_p,
                          generator=generator, noise=noise)
@@ -206,6 +211,7 @@ def decode(
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
     stats: dict | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The resumable decode loop (JAX ``decode`` and ``decode_batch``): from
     ``(cur_token, pos, kv_cache)`` run at most ``max_steps`` T=1 steps, never
@@ -221,7 +227,10 @@ def decode(
     attends ``[pad_lens[b], pos]`` (the kernels' ``starts``).
     ``temperature``, ``top_p`` and ``guidance_scale`` are scalars or (B, 1)
     tensors (per row). ``noise`` (n >= steps, B, V): the Gumbel noise of
-    each step's draw. ``stats["decode_steps"]`` adds the steps run.
+    each step's draw. ``stats["decode_steps"]`` adds the steps run. ``tp``:
+    the tensor group of a tensor-parallel stack (:func:`fill_cache`); every
+    rank runs the same steps and draws the same tokens (the same logits
+    after each reduction, the same seeded generator or noise).
     """
     b = cur_token.shape[0]
     device = cur_token.device
@@ -244,7 +253,8 @@ def decode(
             params, cfg, guidance_rows(cur[:, None], cfg_rows, end_of_text_token),
             positions, spk_rows, mask, compute_dtype,
         )
-        out, _, head_done = tfm.apply_blocks(params, cfg, x, None, kv_cache, p, attn_starts=starts, fused_head=True)
+        out, _, head_done = tfm.apply_blocks(params, cfg, x, None, kv_cache, p, attn_starts=starts, fused_head=True,
+                                             tp=tp)
         # head_done: the int4 stack fused the final norm and the int4 tied
         # head, and `out` is already the (rows, V) f32 logits
         logits = out if head_done else tfm.output_logits(params, cfg, out)[0][:, 0, :]
@@ -295,6 +305,7 @@ def generate(
     cache_dtype=None,
     noise: torch.Tensor | None = None,
     stats: dict | None = None,
+    tp=None,
 ) -> np.ndarray:
     """Single-utterance generation (batch 1): prefill, then :func:`decode`
     until end-of-audio, ``max_new_tokens`` or the block size. Returns
@@ -311,7 +322,9 @@ def generate(
     given, receives ``decode_steps``: the T=1 forwards run (each launches the
     decode-attention kernel once per layer on the card, or the decode-stack
     kernel once with int4 weights and with int8 ones that meet its
-    conditions).
+    conditions). ``tp``: the tensor group of a tensor-parallel run
+    (parallel/tp_decode.tp_generate): ``params``, ``cfg`` and ``kv_cache``
+    are this rank's shards, local view and heads.
     """
     spk_g, prompt_g, cfg_rows = check_guidance(guidance_scale, end_of_text_token, end_of_audio_token)
     device = params["wpe"].device
@@ -327,14 +340,14 @@ def generate(
         params, cfg,
         torch.as_tensor(padded, dtype=torch.int64, device=device)[None, :],
         t_true, spk, kv_cache, temperature, top_p, spk_g, compute_dtype,
-        generator=generator, noise=None if noise is None else noise[0], **guided,
+        generator=generator, noise=None if noise is None else noise[0], tp=tp, **guided,
     )
     run = {}
     tokens, lengths = decode(
         params, cfg, first, t_true, kv_cache, spk, max_steps - 1,
         temperature=temperature, top_p=top_p, guidance_scale=spk_g, end_of_audio_token=end_of_audio_token,
         compute_dtype=compute_dtype, generator=generator, noise=None if noise is None else noise[1:],
-        stats=run, **guided,
+        stats=run, tp=tp, **guided,
     )
     if stats is not None:
         stats["decode_steps"] = run["decode_steps"]
@@ -501,6 +514,7 @@ def generate_segments(
     kv_cache: tfm.KVCache | None = None,
     noise: torch.Tensor | None = None,
     stats: dict | None = None,
+    tp=None,
 ):
     """Yield the generated tokens in segments (int32 arrays) instead of one
     final array; joined they are :func:`generate`'s tokens after the prompt
@@ -512,8 +526,8 @@ def generate_segments(
     interleaving splits into whole EnCodec frames. The prefill's token is
     not read before the first decode runs; if it was EOA, that decode is
     dropped and the stream is that token alone. The stream ends at EOA
-    (included) or when the budget runs out. ``kv_cache``, ``noise`` and
-    ``stats`` as in :func:`generate`.
+    (included) or when the budget runs out. ``kv_cache``, ``noise``,
+    ``stats`` and ``tp`` as in :func:`generate`.
     """
     if segment_tokens % 2 != 0:
         raise ValueError("segment_tokens must be even (whole interleaved frames)")
@@ -533,7 +547,7 @@ def generate_segments(
     cur = prefill(
         params, cfg, torch.as_tensor(padded, dtype=torch.int64, device=device)[None, :], t_true, spk, kv,
         temperature, top_p, spk_g, compute_dtype, generator=generator,
-        noise=None if noise is None else noise[0], **guided,
+        noise=None if noise is None else noise[0], tp=tp, **guided,
     )
     pos = t_true
     pending: list[int] = []
@@ -548,7 +562,7 @@ def generate_segments(
             params, cfg, cur, pos, kv, spk, step_budget, temperature=temperature, top_p=top_p,
             guidance_scale=spk_g, end_of_audio_token=end_of_audio_token, compute_dtype=compute_dtype,
             generator=generator, noise=None if noise is None else noise[emitted : emitted + step_budget],
-            stats=stats, **guided,
+            stats=stats, tp=tp, **guided,
         )
         next_cur = tokens[:, (lengths[0] - 1).clamp(min=0)]  # stays on the device
         fetch = torch.cat([cur.reshape(-1), lengths.reshape(-1), tokens[0]]).cpu().numpy().astype(np.int32)

@@ -86,6 +86,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -411,24 +412,38 @@ def _linear(x, w, b=None):
     return y
 
 
-def _mlp(x, lp: Params, cfg: TransformerConfig):
+def _tp_sum(y, tp):
+    """Megatron's reduction: a row-parallel product's partial sums (each
+    rank's share of the input features) summed over the tensor group ``tp``
+    (a ``torch.distributed`` process group), in place; every rank gets the
+    same bits. ``tp`` None: y as it is."""
+    if tp is None:
+        return y
+    y = y.contiguous()
+    dist.all_reduce(y, group=tp)
+    return y
+
+
+def _add_bias(y, b):
+    return y if b is None else y + b.to(y.dtype)
+
+
+def _mlp(x, lp: Params, cfg: TransformerConfig, tp=None):
     """SwiGLU or exact-GELU FFN. At T = 1 with plain int8 w1, w3 and w2 on
     rows and widths K10's kernel takes (``ffn_int8_kernel_ok``, on every
     device), SwiGLU runs through K10 (f32 out, cast to x's dtype); else each
-    product takes ``_linear``."""
+    product takes ``_linear``. ``tp``: the down projection's partial sums
+    are reduced over the tensor group (``_tp_sum``) before its bias."""
     if cfg.nonlinearity_type == "swiglu":
         w1, w3, w2 = lp["w1"], lp["w3"], lp["w2"]
         rows = x.numel() // x.shape[-1]
         if (x.shape[-2] == 1 and all(is_int8_plain(w) for w in (w1, w3, w2))
                 and ffn_int8_kernel_ok(rows, *w1["q"].shape[-2:])):
             y = ffn_int8(x.reshape(rows, -1), w1["q"], w1["scales"], w3["q"], w3["scales"], w2["q"], w2["scales"])
-            return y.reshape(x.shape).to(x.dtype)
-        return _linear(F.silu(_linear(x, w1)) * _linear(x, w3), w2)
+            return _tp_sum(y.reshape(x.shape).to(x.dtype), tp)
+        return _tp_sum(_linear(F.silu(_linear(x, w1)) * _linear(x, w3), w2), tp)
     y = _linear(F.gelu(_linear(x, lp["w_fc"], lp.get("w_fc_b")), approximate="none"), lp["w_proj"])
-    b = lp.get("w_proj_b")
-    if b is not None:
-        y = y + b.to(y.dtype)
-    return y
+    return _add_bias(_tp_sum(y, tp), lp.get("w_proj_b"))
 
 
 def _qkv_proj(x, lp: Params, cfg: TransformerConfig):
@@ -691,10 +706,11 @@ def _window_mask(cache_pos: int, t: int, seq_len: int, starts, device):
 
 
 def _attention_block(xa, lp: Params, cfg: TransformerConfig, li: int, mask, kv_cache: KVCache | None, cache_pos,
-                     attn_starts, int8_block: bool):
+                     attn_starts, int8_block: bool, tp=None):
     """One layer's attention and o-proj of the normed input xa (B, T, D) as
     ``apply_blocks`` routes it -> (B, T, D) in xa's dtype; the cache is
-    updated in place."""
+    updated in place. ``tp``: the o-proj's partial sums are reduced over
+    the tensor group before its bias."""
     t = xa.shape[1]
     if int8_block:
         w, wo = lp["wqkv"], lp["wo"]
@@ -731,7 +747,7 @@ def _attention_block(xa, lp: Params, cfg: TransformerConfig, li: int, mask, kv_c
         kv_cache.k[li, rows] = k_new.permute(2, 0, 1, 3).to(kv_cache.k.dtype)
         kv_cache.v[li, rows] = v_new.permute(2, 0, 1, 3).to(kv_cache.v.dtype)
         y = _attend_seq_major(q, kv_cache.k[li], kv_cache.v[li], cfg, mask, xa.dtype)
-    return _linear(y, lp["wo"], lp.get("wo_b"))
+    return _add_bias(_tp_sum(_linear(y, lp["wo"]), tp), lp.get("wo_b"))
 
 
 def dropout_keep(x, rate: float, generator: torch.Generator):
@@ -747,15 +763,15 @@ def _dropout(x, rate: float, keep):
 
 
 def _block(x, lp: Params, cfg: TransformerConfig, li: int, mask, kv_cache: KVCache | None, cache_pos, attn_starts,
-           int8_block: bool, keep=None):
+           int8_block: bool, keep=None, tp=None):
     """One layer: x + attention(norm(x)), then + MLP(norm(h)); ``keep`` (the
     attention and MLP branches' dropout masks) drops each branch."""
     xa = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps)
-    a = _attention_block(xa, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block)
+    a = _attention_block(xa, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block, tp)
     if keep is not None:
         a = _dropout(a, cfg.dropout, keep[0])
     h = x + a
-    m = _mlp(_norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), cfg.norm_type, cfg.norm_eps), lp, cfg)
+    m = _mlp(_norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), cfg.norm_type, cfg.norm_eps), lp, cfg, tp)
     if keep is not None:
         m = _dropout(m, cfg.dropout, keep[1])
     return h + m
@@ -786,6 +802,7 @@ def apply_blocks(
     attn_starts=None,
     fused_head: bool = False,
     dropout_generator: torch.Generator | None = None,
+    tp=None,
 ):
     """Run the L-layer block stack and the final norm -> (x, kv_cache).
 
@@ -829,9 +846,20 @@ def apply_blocks(
     the JAX package, the attention probabilities get no dropout: the
     reference's SDPA dropout at the finetune default p = 0.1 is subsumed by
     the residual dropouts.
+
+    ``tp`` (a ``torch.distributed`` process group, or None): Megatron
+    tensor parallelism (parallel/tp_decode.py). ``params`` and ``cfg`` are
+    this rank's shards and local view, and each layer reduces its o-proj
+    and its FFN down projection over the group (``_tp_sum``), adding their
+    biases after. The routes that fuse across those reductions stay off, as
+    the JAX package gates them: the int4 decode stack and attention-block /
+    FFN kernels (``int4_decode_route``), the int8 decode stack
+    (``int8_stack_ok``) and the plain-int8 attention block
+    (``int8_block_ok``); a T = 1 step runs the per-layer loop below. No
+    backward runs under TP.
     """
     t = x.shape[1]
-    if kv_cache is not None and t == 1:
+    if kv_cache is not None and t == 1 and tp is None:
         route = None
         if any(is_int4(w) for w in params["layers"].values()):
             route = int4_decode_route(params, cfg, x.shape[0], kv_cache.k.dtype)
@@ -843,7 +871,8 @@ def apply_blocks(
     quantized = kv_cache is not None and kv_cache.quantized
     if quantized and t <= MULTI_MAX_T:
         mask = _window_mask(cache_pos, t, kv_cache.max_seq_len, attn_starts, x.device)
-    int8_block = kv_cache is not None and t == 1 and int8_block_ok(params, cfg, x.shape[0], kv_cache.k.dtype)
+    int8_block = (kv_cache is not None and t == 1 and tp is None
+                  and int8_block_ok(params, cfg, x.shape[0], kv_cache.k.dtype))
     layers = params["layers"]
     if kv_cache is None and not isinstance(layers, list):
         # unbind once: its backward stacks the layers' grads in one go, where
@@ -857,11 +886,13 @@ def apply_blocks(
             # global RNG state, not an explicit generator's
             keep = (dropout_keep(x, cfg.dropout, dropout_generator), dropout_keep(x, cfg.dropout, dropout_generator))
         if kv_cache is None and torch.is_grad_enabled() and _needs_grad(x, lp):
+            if tp is not None:
+                raise NotImplementedError("a tensor-parallel forward takes no gradient: run it without grad")
             # the block uses no global RNG, so there is no RNG state to stash
             x = checkpoint(_block, x, lp, cfg, li, mask, None, None, None, False, keep, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _block(x, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block, keep)
+            x = _block(x, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block, keep, tp)
     x = _norm(x, params["ln_f_w"], params.get("ln_f_b"), cfg.norm_type, cfg.norm_eps)
     return (x, kv_cache, False) if fused_head else (x, kv_cache)
 
@@ -893,6 +924,7 @@ def forward(
     cache_pos: int = 0,
     compute_dtype=torch.bfloat16,
     dropout_generator: torch.Generator | None = None,
+    tp=None,
 ):
     """(B, [C,] T) tokens -> (per-hierarchy (B, T, V) f32 logits, kv_cache).
 
@@ -903,7 +935,8 @@ def forward(
     ``dropout_generator`` with ``cfg.dropout > 0`` and no cache (training)
     drops the embedding sum (the reference's ``transformer.drop``) and each
     layer's residual branches, the masks drawn from the generator (on the
-    tokens' device). Inference callers pass none.
+    tokens' device). Inference callers pass none. ``tp``: the tensor
+    group of a tensor-parallel forward (``apply_blocks``).
     """
     t = idx.shape[-1]
     if positions is None:
@@ -921,6 +954,6 @@ def forward(
         mask = causal_mask_for(positions, t)[None, None]
     x, kv_cache = apply_blocks(
         params, cfg, x, mask, kv_cache, cache_pos if kv_cache is not None else None,
-        dropout_generator=dropout_generator,
+        dropout_generator=dropout_generator, tp=tp,
     )
     return output_logits(params, cfg, x), kv_cache

@@ -92,6 +92,13 @@ def shift_rows(kv: tfm.KVCache, s: int, pos: int):
             fs.shift_scales_left(kv.k_scale, kv.v_scale, s, pos)
 
 
+def _enter_render_thread(device: torch.device):
+    """Render-pool thread start: the engine's card and a stream of its own."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.cuda.set_stream(torch.cuda.Stream(device))
+
+
 class StreamHandle:
     """Iterator over wav segments of a streaming request.
 
@@ -183,6 +190,15 @@ class ContinuousBatchingEngine:
         min_decode_budget: int = 64,
         rebase_margin: int | None = None,
     ):
+        if tts.tensor_parallel > 1:
+            # the batched ragged decode (generate_batch, joins, rebase) is
+            # single-device, as in the JAX package: scale throughput with
+            # data-parallel replicas and latency with tensor_parallel on the
+            # direct synthesise path
+            raise ValueError(
+                "the batching engine does not support tensor_parallel TTS instances; use tensor_parallel for the "
+                "direct synthesise path and data-parallel replicas for batched serving"
+            )
         if slots == "auto":
             slots = self._auto_slots(tts)
         if segment_tokens % 2 != 0:
@@ -237,7 +253,11 @@ class ContinuousBatchingEngine:
         }
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # the weights and cache are ready for every stream
-        self._render_pool = ThreadPoolExecutor(max_workers=2, initializer=self._enter_render_thread)
+        # the initializer takes the device, not the engine: a pool thread
+        # holds its initializer while it lives, and a bound method would keep
+        # the engine and its cache alive after shutdown
+        self._render_pool = ThreadPoolExecutor(max_workers=2, initializer=_enter_render_thread,
+                                               initargs=(self.device,))
         self._running = True
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
@@ -275,12 +295,6 @@ class ContinuousBatchingEngine:
         if self.device.type != "cuda":
             return contextlib.nullcontext()
         return torch.cuda.stream(torch.cuda.Stream(self.device))
-
-    def _enter_render_thread(self):
-        """Render-pool thread start: the engine's card and a stream of its own."""
-        if self.device.type == "cuda":
-            torch.cuda.set_device(self.device)
-            torch.cuda.set_stream(torch.cuda.Stream(self.device))
 
     # ------------------------------------------------------------------ API
     @property

@@ -75,6 +75,21 @@ through the int4 decode-stack kernel). ``spec_stats`` accumulates the
 acceptance ledger. As in the JAX package the speculative path refuses
 tensor parallelism and keeps bf16 caches whatever ``kv_cache_dtype`` is.
 
+Tensor parallelism: ``TTS(..., tensor_parallel=N)`` inside an initialized
+process group whose tensor groups hold N ranks (one process a rank, started
+with ``parallel/mesh.spawn`` or ``torchrun``), every rank building the same
+TTS. The first stage is dense or ``quantisation_mode`` None, "int4" or
+"int8" (quantized per shard, parallel/tp_decode.prepare_tp_params; plain
+int8, a pre-quantized first stage and a draft are refused, as in the JAX
+package), and runs Megatron TP over the tensor group: each rank holds its
+heads of the persistent caches and reduces twice a layer. ``synthesise``
+and ``synthesise_streaming`` run the first stage on every rank, which must
+all call them with the same arguments; the tensor group's leader (tensor
+index 0) alone reads the reference, embeds it and broadcasts the
+embedding, and alone renders the second stage and vocoder: it returns the
+wav's path and yields the chunks, the other ranks return None and yield
+nothing.
+
 Weights from files: ``TTS.from_checkpoints(first_stage_path,
 second_stage_path, speaker_encoder_path, encodec_path=..., draft_checkpoint=...,
 device=...)`` reads the reference's ``.pt`` checkpoints or the in-repo
@@ -84,7 +99,6 @@ encodec-package ``.pt`` through utils/convert_external.py. Each
 ``synthesise`` ends with the ``user_ran_tts`` telemetry event
 (telemetry.py; a local spool, off under pytest).
 
-Not ported yet: tensor parallelism.
 """
 
 from __future__ import annotations
@@ -101,6 +115,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from metavoice_tpu_torch.core import tokens as T
 from metavoice_tpu_torch.core.config import (
@@ -143,6 +158,8 @@ from metavoice_tpu_torch.ops.quantized import (
     quantize_params_int8,
     quantize_params_int8_i32,
 )
+from metavoice_tpu_torch.parallel import mesh as pmesh
+from metavoice_tpu_torch.parallel import tp_decode as tpd
 from metavoice_tpu_torch import telemetry as tele
 from metavoice_tpu_torch.tokenizer import TrainedBPETokeniser
 from metavoice_tpu_torch.utils import audio_io as aio
@@ -288,15 +305,25 @@ class TTS:
             raise ValueError("vocoder='mbd' requires mbd_params/mbd_cfg")
         if draft_params is not None and draft_cfg is None:
             raise ValueError("draft_params requires draft_cfg")
-        if draft_params is not None and tensor_parallel > 1:
-            raise ValueError("speculative decoding is not supported with tensor_parallel")
         mode = quantisation_mode or self.runtime.quantisation_mode
         if mode not in (None, "int4", *_INT8_PACKED_MODES, "int8_plain"):
             raise ValueError(
                 f"Invalid quantisation mode {mode}! Must be None, 'int4', 'int8' ('int8_packed') or 'int8_plain'"
             )
-        if tensor_parallel != 1:
-            raise NotImplementedError("tensor_parallel is not ported to PyTorch yet")
+        tensor_parallel = int(tensor_parallel or 1)
+        if tensor_parallel > 1:
+            # the JAX package's refusals, in its order
+            if any(isinstance(w, dict) for w in components.first_stage_params["layers"].values()):
+                raise ValueError(
+                    "tensor_parallel requires a DENSE first-stage checkpoint: row-parallel shards are requantized "
+                    "per rank (parallel/tp_decode.py); pass the .pt checkpoint with quantisation_mode instead of a "
+                    "pre-quantized .npz"
+                )
+            if mode not in (None, "int4", *_INT8_PACKED_MODES):
+                raise ValueError(f"quantisation_mode {mode!r} is not supported with tensor_parallel "
+                                 "(use None, 'int4' or 'int8')")
+            if draft_params is not None:
+                raise ValueError("speculative decoding is not supported with tensor_parallel")
         kv_cache_dtype = kv_cache_dtype or self.runtime.kv_cache_dtype
         if kv_cache_dtype not in (None, "int8", "int8_packed"):
             raise ValueError(f"Invalid kv_cache_dtype {kv_cache_dtype!r}; expected None, 'int8' or 'int8_packed'")
@@ -309,6 +336,10 @@ class TTS:
             # the card this thread builds on: an engine's threads enter it
             # (the current device is per thread)
             self.device = torch.device("cuda", torch.cuda.current_device())
+        # tensor parallelism: this rank's place in the (data, tensor) grid
+        # (make_mesh raises without a process group); a one-rank grid without
+        self.mesh = (pmesh.make_mesh(tensor_parallel, device=self.device) if tensor_parallel > 1
+                     else pmesh.local_mesh(self.device))
         # A quantized mode arrives as the mode, or as first-stage params that
         # already hold quantized leaves, {"pw", "sc"} for int4, {"p8", "sc8"}
         # for int8 or {"q", "scales"} for int8_plain (a JAX-written .npz, or
@@ -330,14 +361,29 @@ class TTS:
             raise ValueError(f"quantisation_mode={mode!r}, but the first stage holds {sorted(found)} leaves")
         self.quantisation_mode = wanted or next(iter(found - {"groupwise int4"}), None)
         self.decode_route = None
-        if self.quantisation_mode is not None:
+        if tensor_parallel > 1:
+            # this rank's shards, quantized per shard on its device, and its
+            # view of the model (its heads); a T=1 step runs the per-layer
+            # loop (the fused routes stay off)
+            params1 = tpd.prepare_tp_params(params1, components.first_stage_cfg, self.mesh, wanted)
+            self.decode_route = "unfused" if wanted == "int4" else None
+            components = dataclasses.replace(components, first_stage_params=params1,
+                                             first_stage_cfg=tpd.local_view(components.first_stage_cfg,
+                                                                            tensor_parallel))
+        elif self.quantisation_mode is not None:
             if not found:
                 params1 = _QUANTIZERS[wanted](params1)
             if self.quantisation_mode == "int4":
                 self.decode_route = tfm.int4_decode_route(params1, components.first_stage_cfg, 3,
                                                           self._cache_format(draft_params is not None))
             components = dataclasses.replace(components, first_stage_params=params1)
-        if kv_cache_dtype and self.quantisation_mode != "int4" and self.device.type == "cuda":
+        if kv_cache_dtype and tensor_parallel > 1 and self.device.type == "cuda":
+            warnings.warn(
+                f"kv_cache_dtype={kv_cache_dtype!r} under tensor_parallel decodes on the plain dequantizing path: "
+                "the quantized-cache kernels fuse across the tensor-parallel reductions. Use the bf16 cache for "
+                "TP serving."
+            )
+        elif kv_cache_dtype and self.quantisation_mode != "int4" and self.device.type == "cuda":
             warnings.warn(
                 f"kv_cache_dtype={kv_cache_dtype!r} without quantisation_mode='int4' has no decode kernel: "
                 "every step dequantizes the whole cache on the plain path. Pair it with "
@@ -364,6 +410,11 @@ class TTS:
         self._telemetry = telemetry_client or tele.default_client
         self._telemetry_origin = telemetry_origin
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the second stage's draws: under TP only the leader renders, so it
+        # draws from a generator of its own and every rank's first-stage
+        # generator stays in step
+        self._stage2_gen = (self._gen if tensor_parallel == 1
+                            else torch.Generator(device=self.device).manual_seed(seed + 1))
         self._emb_cache: "collections.OrderedDict[str, np.ndarray]" = collections.OrderedDict()
         self._emb_cache_max = 256
         self._emb_lock = threading.Lock()
@@ -396,8 +447,9 @@ class TTS:
 
     def _create_kv_cache(self, rows: int) -> tfm.KVCache:
         cfg1 = self.c.first_stage_cfg
-        return tfm.KVCache.create(cfg1, rows, cfg1.block_size, device=self.device,
-                                  dtype=self._cache_format(self._draft_params is not None))
+        fmt = self._cache_format(self._draft_params is not None)
+        # under TP this rank's heads of every row (tp_decode.make_tp_cache's, data_sharded=False)
+        return tfm.KVCache.create(cfg1, rows, cfg1.block_size, device=self.device, dtype=fmt)
 
     def _persistent_kv_cache(self, guidance_scale) -> tfm.KVCache:
         """The reusable cache with the guidance rows this request needs."""
@@ -570,7 +622,8 @@ class TTS:
             ``vocoder="mbd"`` too: the JAX package's warmup runs no MBD).
 
         The draws come from a generator of its own: the TTS's stays as it
-        was.
+        was. Under TP every rank of the tensor group warms up together, and
+        the leader alone runs the vocoder buckets.
         """
         if self.device.type == "cuda":
             _build.kernels()
@@ -586,14 +639,14 @@ class TTS:
             for g in guidance_variants:
                 common = dict(generator=gen, guidance_scale=g, end_of_text_token=eot, prompt_pad_multiple=bucket,
                               kv_cache=self._persistent_kv_cache(g), compute_dtype=self._compute_dtype)
-                fs.generate(self.c.first_stage_params, cfg1, padded, spk, max_new_tokens=4, **common)
+                fs.generate(self.c.first_stage_params, cfg1, padded, spk, max_new_tokens=4, tp=self.mesh.tensor_group, **common)
                 if self._draft_params is not None:
                     sd.generate_spec(
                         self.c.first_stage_params, cfg1, self._draft_params, self._draft_cfg, padded, spk,
                         gamma=self._spec_gamma, draft_use_cfg=self._draft_use_cfg,
                         max_new_tokens=self._spec_gamma + 1, **common,
                     )
-        for n_audio in vocoder_frame_buckets:
+        for n_audio in vocoder_frame_buckets if self.mesh.leader else ():
             self._render(prompt, [list(range(n_audio))] * 2, spk, gen, vocoder="encodec")
 
     @contextlib.contextmanager
@@ -626,6 +679,33 @@ class TTS:
             while len(self._emb_cache) > self._emb_cache_max:
                 self._emb_cache.popitem(last=False)
         return emb
+
+    def _reference_embedding(self, spk_ref_path: str) -> tuple[np.ndarray, str]:
+        """The reference file (fetched and checked) and its speaker
+        embedding -> (embedding, local path). Under TP the tensor group's
+        leader alone reads and embeds it and broadcasts the result, or its
+        error, to the group once a request: no other rank needs the file,
+        and none depends on the LSTM giving the same bits twice."""
+
+        def embed():
+            path = aio.get_cached_file(spk_ref_path)
+            if self._enforce_min_ref:
+                aio.check_audio_file(path)
+            with self._stage("spk_emb"):
+                return self._get_speaker_embedding(path), path
+
+        if self.mesh.tensor_group is None:
+            return embed()
+        box = [None]
+        if self.mesh.leader:
+            try:
+                box = [embed()]
+            except Exception as e:  # every rank raises it, so the group stays in step
+                box = [e]
+        dist.broadcast_object_list(box, src=self.mesh.tensor_ranks[0], group=self.mesh.tensor_group)
+        if isinstance(box[0], Exception):
+            raise box[0]
+        return box[0]
 
     # ------------------------------------------------------------------ token utilities
     @torch.inference_mode()
@@ -660,7 +740,7 @@ class TTS:
         _text_ids, coarse = T.split_flattened_interleaved(token_stream, self.END_OF_AUDIO_TOKEN)
         if len(coarse[0]) == 0:
             raise RuntimeError(f"first stage produced no audio tokens for: {text!r}")
-        return self._render(prompt_tokens, coarse, spk_emb, generator or self._gen, noise,
+        return self._render(prompt_tokens, coarse, spk_emb, generator or self._stage2_gen, noise,
                             streaming_segment=streaming_segment)
 
     def _render(self, prompt_tokens: list, coarse: list, spk_emb, generator, noise: torch.Tensor | None = None, *,
@@ -716,7 +796,7 @@ class TTS:
         aio.write_wav_loudness_normalized(out_path, wav, self.c.encodec_cfg.sample_rate)
         return out_path
 
-    def _synthesise_chunk(
+    def _first_stage_chunk(
         self,
         text: str,
         spk_emb: np.ndarray,
@@ -724,8 +804,9 @@ class TTS:
         guidance_scale: float | tuple[float, float],
         temperature: float,
         max_new_tokens: int | None = None,
-    ) -> np.ndarray:
-        """One <=220-char chunk -> 24 kHz waveform (float32)."""
+    ) -> tuple[list, np.ndarray]:
+        """One <=220-char chunk's first stage -> (its prompt, the generated
+        stream); ``stats`` adds its steps and launches. Every TP rank runs it."""
         prompt = self.c.tokenizer.encode(text)
         stats = {"decode_steps": 0}
         launches = _launches()
@@ -752,15 +833,13 @@ class TTS:
                     self.spec_stats[k] += n
                 stats["spec_rounds"] = spec["rounds"]
             else:
-                seq = fs.generate(
-                    self.c.first_stage_params, self.c.first_stage_cfg, prompt, spk_emb,
-                    stats=stats, **common,
-                )
+                seq = fs.generate(self.c.first_stage_params, self.c.first_stage_cfg, prompt, spk_emb, stats=stats, tp=self.mesh.tensor_group,
+                                  **common)
         for k, n in stats.items():
             self.stats[k] = self.stats.get(k, 0) + n
         for k, n in _launches().items():
             self.stats[k] = self.stats.get(k, 0) + n - launches[k]
-        return self._tokens_to_wav(text, prompt, seq, spk_emb)
+        return prompt, seq
 
     def synthesise_streaming(
         self,
@@ -786,15 +865,31 @@ class TTS:
         ``max_new_tokens`` caps the first stage per chunk, as in
         ``synthesise``. ``timings`` and ``stats`` describe the stream so far. ``noise`` (n,
         1, V) and ``stage2_noise`` replace each chunk's first-stage and each
-        segment's second-stage Gumbel draws (tests)."""
+        segment's second-stage Gumbel draws (tests). Under TP every rank
+        reads its stream to the end; the leader's yields the chunks, the
+        others' nothing, and a leader's stream closed early runs the rest of
+        the first stage (without rendering) so that the ranks stay in step."""
         self.timings, self.stats = {}, {}
-        launches = _launches()
         text = normalize_text(text)
-        spk_ref_path = aio.get_cached_file(spk_ref_path)
-        if self._enforce_min_ref:
-            aio.check_audio_file(spk_ref_path)
-        with self._stage("spk_emb"):
-            spk_emb = self._get_speaker_embedding(spk_ref_path)
+        spk_emb, _ = self._reference_embedding(spk_ref_path)
+        stream = self._first_stage_segments(text, spk_emb, top_p, guidance_scale, temperature, segment_tokens,
+                                            first_segment_tokens, max_new_tokens, noise)
+        try:
+            for prompt, segment in stream:
+                coarse = T.split_flattened_interleaved(segment, self.END_OF_AUDIO_TOKEN)[1]
+                if not self.mesh.leader or len(coarse[0]) == 0:
+                    continue  # not the leader, or the segment held only the end-of-audio token
+                yield self._render(prompt, coarse, spk_emb, self._stage2_gen, stage2_noise, streaming_segment=True)
+        finally:
+            if self.mesh.tensor_group is not None:
+                for _ in stream:
+                    pass
+
+    def _first_stage_segments(self, text: str, spk_emb, top_p, guidance_scale, temperature, segment_tokens: int,
+                              first_segment_tokens: int, max_new_tokens, noise):
+        """Each text chunk's first-stage segments, in order -> (the chunk's
+        prompt, a segment's tokens); ``stats`` follows them."""
+        launches = _launches()
         for chunk in chunk_text(text, MAX_CHARS_PER_CHUNK) or [""]:
             prompt = self.c.tokenizer.encode(chunk)
             segments = fs.generate_segments(
@@ -805,7 +900,7 @@ class TTS:
                 max_new_tokens=max_new_tokens, end_of_text_token=self.c.tokenizer.eot_token,
                 prompt_pad_multiple=self.runtime.prompt_pad_multiple,
                 compute_dtype=self._compute_dtype, cache_dtype=self._cache_format(False),
-                noise=noise, stats=self.stats,
+                noise=noise, stats=self.stats, tp=self.mesh.tensor_group,
             )
             while True:
                 with self._stage("first_stage"):
@@ -814,10 +909,7 @@ class TTS:
                     self.stats[k] = n - launches[k]
                 if segment is None:
                     break
-                coarse = T.split_flattened_interleaved(segment, self.END_OF_AUDIO_TOKEN)[1]
-                if len(coarse[0]) == 0:
-                    continue  # the segment held only the end-of-audio token
-                yield self._render(prompt, coarse, spk_emb, self._gen, stage2_noise, streaming_segment=True)
+                yield prompt, segment
 
     def synthesise(
         self,
@@ -827,27 +919,40 @@ class TTS:
         guidance_scale: float | tuple[float, float] = 3.0,
         temperature: float = 1.0,
         max_new_tokens: int | None = None,
-    ) -> str:
+    ) -> str | None:
         """Synthesise ``text`` in the voice of ``spk_ref_path``; returns the
         path to a loudness-normalized 24 kHz wav. ``guidance_scale`` is the
         speaker CFG scale or a (speaker, prompt) tuple. ``max_new_tokens``
         caps the first stage per chunk (None: to end-of-audio or the context
-        limit). ``timings`` and ``stats`` describe this call afterwards."""
+        limit). ``timings`` and ``stats`` describe this call afterwards.
+        Under TP every rank of the tensor group calls it with the same
+        arguments; the leader writes the wav and returns its path, the
+        other ranks run the first stage and return None. A chunk that fails
+        to render on the leader raises there once every chunk's first stage
+        has run, so the ranks stay in step."""
         start = time.time()
         self.timings, self.stats = {}, {}
         text = normalize_text(text)
-        spk_ref_path = aio.get_cached_file(spk_ref_path)
-        if self._enforce_min_ref:
-            aio.check_audio_file(spk_ref_path)
-        with self._stage("spk_emb"):
-            spk_emb = self._get_speaker_embedding(spk_ref_path)
+        spk_emb, spk_ref_path = self._reference_embedding(spk_ref_path)
 
-        wavs = [
-            self._synthesise_chunk(
-                chunk, spk_emb, top_p, guidance_scale, temperature, max_new_tokens=max_new_tokens
-            )
-            for chunk in chunk_text(text, MAX_CHARS_PER_CHUNK) or [""]
-        ]
+        wavs, fault = [], None
+        for chunk in chunk_text(text, MAX_CHARS_PER_CHUNK) or [""]:
+            prompt, seq = self._first_stage_chunk(chunk, spk_emb, top_p, guidance_scale, temperature,
+                                                  max_new_tokens=max_new_tokens)
+            if not self.mesh.leader or fault is not None:
+                continue
+            try:
+                wavs.append(self._tokens_to_wav(chunk, prompt, seq, spk_emb))
+            except Exception as e:
+                if self.mesh.tensor_group is None:
+                    raise
+                # the other ranks are already in the next chunk's first stage:
+                # run the rest of it with them, so the group stays in step
+                fault = e
+        if fault is not None:
+            raise fault
+        if not self.mesh.leader:
+            return None
         gap = np.zeros(int(0.1 * self.c.encodec_cfg.sample_rate), np.float32)
         wav = wavs[0] if len(wavs) == 1 else np.concatenate(
             [w for pair in zip(wavs, [gap] * len(wavs)) for w in pair][:-1]
@@ -878,6 +983,11 @@ class TTS:
             "telemetry_origin": self._telemetry_origin,
         }))
         return out_path
+
+    @property
+    def tensor_parallel(self) -> int:
+        """The ranks of this TTS's tensor group (1: no tensor parallelism)."""
+        return self.mesh.tensor_parallel
 
     @property
     def device_name(self) -> str:

@@ -1,7 +1,7 @@
 """The port's command line (``python -m metavoice_tpu_torch.cli``) on the CPU:
 ``synth`` writes a wav; a ``serve`` process answers /health and stops on
 SIGTERM with "server stopped" and exit 0; ``capacity`` prints the plan;
-``finetune`` without its CSVs, ``--tensor_parallel 2``, ``--batching auto`` on the CPU and
+``finetune`` without its CSVs, ``--tensor_parallel`` with fewer cards than ranks, ``--batching auto`` on the CPU and
 ``capacity`` without a card or a memory size raise."""
 
 import json
@@ -77,8 +77,9 @@ def test_serve_process_answers_and_stops_on_sigterm(tmp_path):
 def test_what_the_port_cannot_do_raises(ref_wav, tmp_path):
     with pytest.raises(SystemExit):  # finetune runs now (test_torch_trainer.py); --train and --val are required
         cli.main(["finetune", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="tensor_parallel"):
-        cli.main(["synth", "--random_weights", "--small", "--device", "cpu", "--tensor_parallel", "2",
+    # --tensor_parallel runs (tests/test_torch_tts_tp.py): one card a rank, or --device cpu
+    with pytest.raises(ValueError, match="tensor_parallel"):
+        cli.main(["synth", "--random_weights", "--small", "--tensor_parallel", str(torch.cuda.device_count() + 2),
                   "--text", "x", "--spk_cond_path", ref_wav, "--output_dir", str(tmp_path)])
     with pytest.raises(ValueError, match="slot count"):  # no device memory to plan slots="auto" from
         cli.main(["serve", "--random_weights", "--small", "--device", "cpu", "--batching", "auto", "--no_warmup",

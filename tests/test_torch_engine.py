@@ -15,6 +15,7 @@ import random
 import sys
 import threading
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -409,6 +410,20 @@ def test_shutdown_fails_what_is_in_flight(make_engine, ref_wav, fake_render, end
     with pytest.raises(RuntimeError, match="shut down"):
         for _ in h:
             pass
+
+
+def test_a_shut_down_engine_and_its_cache_are_freed(tts, ref_wav):
+    """After ``shutdown()`` and ``del`` nothing holds the engine or its cache,
+    without a GC pass: its render pool's threads hold only the device (a
+    bound-method initializer kept the engine alive for as long as they
+    lived, and then in a reference cycle)."""
+    eng = ContinuousBatchingEngine(tts, slots=2, segment_tokens=16)
+    assert os.path.exists(eng.submit("Free me.", ref_wav, max_new_tokens=16).result(timeout=WAIT))
+    assert all(np.isfinite(c).all() for c in eng.submit("Stream me.", ref_wav, max_new_tokens=16, stream=True))
+    engine, cache = weakref.ref(eng), weakref.ref(eng._kv.k)
+    eng.shutdown()
+    del eng
+    assert engine() is None and cache() is None
 
 
 @pytest.mark.parametrize("stop", ["shutdown", "fatal"])

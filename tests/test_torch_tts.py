@@ -280,7 +280,8 @@ def test_port_synthesise_with_draft_and_prompt_guidance(pair, ref_wav, tmp_path)
 
 def test_unported_options_and_missing_card_raise(pair):
     _, tts = pair
-    with pytest.raises(NotImplementedError):
+    # tensor parallelism is ported (tests/test_torch_tts_tp.py): it needs ranks in a process group
+    with pytest.raises(RuntimeError, match="spawn"):
         TTS(tts.c, device="cpu", tensor_parallel=2)
     # the MBD vocoder is ported (tests/test_torch_mbd.py): it needs its params, as in JAX
     small_mbd = mbd.MBDConfig(n_processes=1, unet=mbd.UNetConfig(hidden=4, depth=2, num_steps=16,
@@ -290,7 +291,7 @@ def test_unported_options_and_missing_card_raise(pair):
                                    mbd_params=mbd.init_params(small_mbd, device="cpu",
                                                               generator=torch.Generator().manual_seed(0)))
     assert TTS(with_mbd, device="cpu").c.vocoder == "mbd"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="spawn"):
         TTS(with_mbd, device="cpu", tensor_parallel=2)
     with pytest.raises(ValueError, match="mbd_params"):
         TTS(dataclasses.replace(tts.c, vocoder="mbd"), device="cpu")
@@ -358,6 +359,10 @@ def test_port_imports_no_jax():
         "import metavoice_tpu_torch.training.df_trainer\n"
         "import metavoice_tpu_torch.models.mbd\n"
         "import metavoice_tpu_torch.models.enhancer\n"
+        "import metavoice_tpu_torch.parallel.mesh\n"
+        "import metavoice_tpu_torch.parallel.sharding\n"
+        "import metavoice_tpu_torch.parallel.tp_decode\n"
+        "import metavoice_tpu_torch.parallel.aot\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'metavoice_tpu', 'optax', 'orbax', 'pandas')]\n"
