@@ -385,9 +385,30 @@ Phases, one line each; any failure exits non-zero and prints no result:
                one gloo all_reduce of a decode step timed, and each rank's
                ms a token, which is two ranks sharing one card over gloo,
                not a TP latency.
+ 58. sharded-small - sharded training (training/finetune.py under mesh=,
+               parallel/sharding.py) on four ranks sharing cuda:0 over gloo
+               at DP 2 x TP 2: parallel/dryrun's rank body (JAX's
+               dryrun_multichip: one finetune step of its tiny 2L/4H/64d
+               model and one TP decode step), two whole-tree train steps
+               and one finetune step, f32, against the one-process step on
+               the card (SHARD_SMALL_RTOL; the gathered params as phase 50
+               holds two trees), every leaf bit-identical across a data
+               group and the replicated ones across a tensor group, no
+               kernel launched (sharded training runs none);
+ 59. sharded-full-width - make_train_step on the whole full-width tree in
+               bf16 (a global batch of 4 x 2048, JAX's
+               compile_sharded_train_step shape), two steps and one
+               make_finetune_step, on the four ranks against tp = 1 run
+               first in this process on the same weights: losses, grad
+               norms, per leaf the cosine and norm ratio of the gathered
+               step-1 grads (SHARD_FULL_TOL), the bits across the groups,
+               no kernel launched; ms a step a rank, the reductions' share,
+               peak memory a rank beside aot.abstract_train_state's bytes
+               (four ranks sharing one card: no DP or TP time).
 
 Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45, 47, 51, 54 and 57 are the main paths: every kernel count is
-set to 0 just before each and read just after. The two lines before the last are the
+set to 0 just before each and read just after; in 58-59 each rank sets them to 0 before its steps and
+reads them 0 after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
 throughout, so every comparison is f32. Imports nothing of JAX.
@@ -5893,6 +5914,404 @@ def phase_tp_synth(torch, workdir: str, ref: str, dev: str = "cuda", small: bool
     return out
 
 
+# phases 58-59: sharded training (training/finetune.py under mesh=, parallel/sharding.py), four ranks, one
+# process each, all on cuda:0 over gloo, DP 2 x TP 2: every rank's sharded forward, backward, reductions and
+# optimizer step, through the code a machine with four cards runs. Four ranks sharing one card time nothing
+# of DP or TP scaling: the card runs all four ranks' work and every reduction passes through the host.
+
+SHARD_TP = 2  # phases 58-59: tensor parallel 2, so the four ranks make data parallel 2
+SMALL_FT = dict(learning_rate=1e-3, min_lr=1e-4, warmup_iters=0, lr_decay_iters=20, weight_decay=0.1)
+# phase 58: the ranks' losses and grad norms against the one-process step on the card, f32 throughout: the
+# reductions add the shards' partial sums in another order than one product (measured 1.05e-7 on an NVIDIA
+# H100 80GB HBM3 at a 700 W limit, twice); the CPU tests' rtol
+SHARD_SMALL_RTOL = 1e-5
+SHARD_ROWS = 4  # phase 59's global batch, rows of block_size tokens: JAX's compile_sharded_train_step's 4 x 2048
+SHARD_SEED = 59
+# phase 59, bf16 params and compute at full width, the ranks against tp = 1 on the same weights and batches:
+# the losses and the global grad norms (rtol), and per leaf the cosine of the gathered step-1 grads (the
+# least) and the ratio of their norms (the most it is off 1). 1.5 times the gaps two runs measured on an
+# NVIDIA H100 80GB HBM3 at a 700 W limit, which read the same: loss 1.3e-5, grad norm 2.11e-4, cosine
+# 0.999812 (wpe), norm ratio 2.1e-4 (speaker_cond)
+SHARD_FULL_TOL = {"loss": 2e-5, "grad_norm": 3.2e-4, "cosine": 0.99971, "norm_ratio": 3.2e-4}
+
+
+class FirstGrads:
+    """The optimizer a step is given, handed on; with ``keep``, a host copy
+    of the first grads it updates from (``.grads``)."""
+
+    def __init__(self, opt, keep: bool):
+        self.opt, self.keep, self.grads = opt, keep, None
+
+    def update(self, grads, opt_state, params, norm=None):
+        if self.keep and self.grads is None:
+            from metavoice_tpu_torch.training import finetune as ft
+
+            self.grads = ft.tree_map(lambda g: g.detach().cpu(), grads)
+        return self.opt.update(grads, opt_state, params, norm)
+
+
+def sharded_steps(torch, cfg, params, ftc, batches, mode: str, mesh=None, dtype=None, keep_grads: bool = False):
+    """``len(batches)`` steps of ``mode`` ("train": ``make_train_step`` on
+    the whole tree; "finetune": ``make_finetune_step`` on the last block)
+    on ``params`` (this rank's shards under ``mesh``), updated in place ->
+    (the stacked tree after, [(loss, grad_norm)], [seconds a step], the
+    first step's grads on the host or None)."""
+    from metavoice_tpu_torch.training import finetune as ft
+
+    dtype = dtype or torch.float32
+    if mode == "finetune":
+        frozen, train = ft.split_trainable(params, 1)
+        state, opt = ft.init_train_state(train, ftc)
+        kept = FirstGrads(opt, keep_grads)
+        step = ft.make_finetune_step(cfg, ftc, kept, frozen, compute_dtype=dtype, mesh=mesh)
+    else:
+        state, opt = ft.init_train_state(params, ftc)
+        kept = FirstGrads(opt, keep_grads)
+        step = ft.make_train_step(cfg, ftc, kept, compute_dtype=dtype, mesh=mesh)
+    dev = ft.tree_leaves(params)[0].device
+    metrics, times = [], []
+    for b in batches:
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))  # waits for the step
+        times.append(time.perf_counter() - t0)
+    done = ft.merge_trainable(frozen, state.params) if mode == "finetune" else state.params
+    return done, metrics, times, kept.grads
+
+
+def _tiny_batches(seeds) -> list:
+    """phase 58's global batches (dryrun's 4 x 16 tokens), rows holding 0, 5, 16 and 11 ignored targets."""
+    from metavoice_tpu_torch.parallel import dryrun
+
+    out = []
+    for seed in seeds:
+        b = dryrun.tiny_batch(4, seed)
+        for r, n in enumerate((0, 5, 16, 11)):
+            b["y"][r, :n] = -1
+        out.append(b)
+    return out
+
+
+def _host(tree):
+    """A tree's tensors, detached copies on the host."""
+    from metavoice_tpu_torch.training import finetune as ft
+
+    return ft.tree_map(lambda t: t.detach().cpu().clone(), tree)
+
+
+def _sharded_small_rank(rank: int, dev: str) -> dict:
+    """58, one rank: dryrun's rank body, then two whole-tree train steps and
+    one finetune step of the tiny model on this rank's shards -> each run's
+    metrics, its gathered dense tree and this rank's own shards (on the
+    host), and this rank's kernel counts."""
+    import torch
+
+    from metavoice_tpu_torch.parallel import dryrun
+    from metavoice_tpu_torch.parallel import mesh as pmesh
+    from metavoice_tpu_torch.parallel import sharding as psh
+    from metavoice_tpu_torch.training import finetune as ft
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _zero_counts()
+    out = {"dryrun": dryrun.dryrun_rank(rank, SHARD_TP, [dev] * 4)}
+    mesh = pmesh.make_mesh(SHARD_TP, device=dev)
+    cfg, params = dryrun.tiny_params()
+    ftc = ft.FinetuneConfig(**SMALL_FT)
+    for mode, seeds in (("train", (1, 2)), ("finetune", (3,))):
+        done, metrics, _, _ = sharded_steps(torch, cfg, psh.shard_params(params, cfg, mesh), ftc,
+                                            _tiny_batches(seeds), mode, mesh)
+        out[mode] = (metrics, _host(psh.gather_params(done, cfg, mesh)), _host(done))
+    out["counts"] = read_counts()
+    out["mesh"] = (mesh.data_parallel, mesh.tensor_parallel, mesh.data_rank, mesh.tensor_rank)
+    return out
+
+
+def same_bits_across(torch, label: str, trees: list, tp: int) -> int:
+    """Rank r's ``trees[r]`` (a param tree, or ``path -> digest``) bit for
+    bit its data group's in every leaf, and its tensor group's in every
+    replicated leaf -> the leaves compared."""
+    from metavoice_tpu_torch.parallel import sharding as psh
+
+    flat = [t if all(isinstance(v, str) for v in t.values()) else leaves(t) for t in trees]
+
+    def equal(a, b):
+        return a == b if isinstance(a, str) else torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+    n = 0
+    for r, mine in enumerate(flat):
+        for k, v in mine.items():
+            if not equal(v, flat[r % tp][k]):
+                fail(f"{label}: rank {r}'s {k} differs from its data group's rank {r % tp}")
+            split = k.startswith("layers/") and k.split("/")[1] in psh.LAYER_SPLITS
+            if not split and not equal(v, flat[r - r % tp][k]):
+                fail(f"{label}: rank {r}'s replicated {k} differs from its tensor group's leader {r - r % tp}")
+            n += 1
+    return n
+
+
+def leaf_digests(torch, tree) -> dict:
+    """``path -> digest`` of each leaf's bytes."""
+    import hashlib
+
+    return {k: hashlib.blake2b(v.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().data).hexdigest()
+            for k, v in leaves(tree).items()}
+
+
+def phase_sharded_small(torch, dev: str = "cuda"):
+    """58: dryrun's rank body and two train steps and a finetune step of its
+    tiny first stage (2L/4H/64d, vocab 96, f32) on four ranks sharing the
+    card over gloo at DP 2 x TP 2 (``dev="cpu"``: four CPU ranks, a
+    rehearsal), held to the one-process port step on ``dev``: losses and
+    grad norms within SHARD_SMALL_RTOL, the gathered params as phase 50
+    holds two trees; every leaf bit-identical across a data group, the
+    replicated ones across a tensor group; no kernel launched."""
+    from metavoice_tpu_torch.parallel import dryrun
+    from metavoice_tpu_torch.parallel import mesh as pmesh
+    from metavoice_tpu_torch.training import finetune as ft
+
+    t0 = time.perf_counter()
+    cfg, params = dryrun.tiny_params()
+    one = {}
+    ftc0 = ft.FinetuneConfig()
+    state, opt = ft.init_train_state(ft.tree_map(lambda t: t.to(dev, copy=True), params), ftc0)
+    mask = ft.trainable_mask(state.params, cfg, ftc0.last_n_blocks_to_finetune)
+    _, m = ft.make_train_step(cfg, ftc0, opt, grad_mask=mask, compute_dtype=torch.float32)(state, dryrun.tiny_batch(4))
+    one["dryrun"] = (float(m["loss"]), float(m["grad_norm"]))
+    ftc = ft.FinetuneConfig(**SMALL_FT)
+    for mode, seeds in (("train", (1, 2)), ("finetune", (3,))):
+        done, metrics, _, _ = sharded_steps(torch, cfg, ft.tree_map(lambda t: t.to(dev, copy=True), params), ftc,
+                                            _tiny_batches(seeds), mode)
+        one[mode] = (metrics, _host(done))
+    t1 = time.perf_counter()
+    ranks = pmesh.spawn(_sharded_small_rank, 4, args=(dev,), backend="gloo", devices=[dev] * 4, timeout=120,
+                        deadline=300)
+    ranks_s = time.perf_counter() - t1
+    sched = ft.lr_schedule(ftc)
+    worst, seen = 0.0, []
+    for r, got in enumerate(ranks):
+        if got["mesh"] != (2, SHARD_TP, r // SHARD_TP, r % SHARD_TP):
+            fail(f"58 sharded-small: rank {r} sits at {got['mesh']} of the grid")
+        if any(got["counts"].values()):
+            fail(f"58 sharded-small: rank {r} launched {got['counts']}: sharded training runs no hand-written kernel")
+        d = got["dryrun"]
+        pairs = [((d["loss"], d["grad_norm"]), one["dryrun"])]
+        pairs += [(a, b) for mode in ("train", "finetune") for a, b in zip(got[mode][0], one[mode][0])]
+        for (la, na), (lb, nb) in pairs:
+            gap = max(abs(la - lb) / abs(lb), abs(na - nb) / abs(nb))
+            worst = max(worst, gap)
+            if not gap <= SHARD_SMALL_RTOL:
+                fail(f"58 sharded-small: rank {r}'s (loss, grad norm) {(la, na)} against one process's {(lb, nb)}: "
+                     f"{gap:.3g} apart (rtol {SHARD_SMALL_RTOL})")
+        if d["logits"] is None or not torch.isfinite(torch.as_tensor(d["logits"])).all():
+            fail(f"58 sharded-small: rank {r}'s TP decode step gave no finite logits")
+    for mode, steps in (("train", 2), ("finetune", 1)):
+        lr_sum = sum(sched(i) for i in range(steps))
+        seen.append(f"{mode}: " + params_apart(torch, ranks[0][mode][1], one[mode][1], lr_sum, ftc.learning_rate,
+                                                f"58 sharded-small {mode}, the gathered params against one process's"))
+    n = sum(same_bits_across(torch, f"58 sharded-small {mode}", [g[mode][2] for g in ranks], SHARD_TP)
+            for mode in ("train", "finetune"))
+    print(f"[58 sharded-small] dryrun's rank body and {cfg.n_layer}L/{cfg.n_head}H/{cfg.dim}d vocab "
+          f"{cfg.vocab_size}, f32, 4 ranks on {dev} over gloo at DP 2 x TP 2 against one process on {dev}: "
+          f"{ranks[0]['dryrun']['loss']:.6f} dryrun loss; 2 train steps and 1 finetune step of 4 x 16 tokens, "
+          f"losses and grad norms within {worst:.3g} (rtol {SHARD_SMALL_RTOL}); {'; '.join(seen)}; {n} leaves "
+          f"bit for bit across the data groups (replicated ones across the tensor groups); no kernel launched "
+          f"({t1 - t0:.1f} s one process, {ranks_s:.1f} s the ranks)")
+
+
+def _full_cfg(small: bool):
+    from metavoice_tpu_torch.core.config import first_stage_config
+
+    return first_stage_config(**(dict(n_layer=2, n_head=4, dim=128, block_size=256) if small else {}))
+
+
+def _full_params(torch, cfg, dev):
+    """Phase 59's bf16 weights, drawn on ``dev`` from SHARD_SEED: the same in every process."""
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    return tfm.init_params(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(SHARD_SEED),
+                           dtype=torch.bfloat16)
+
+
+def _full_batches(torch, cfg, n: int) -> list:
+    """Phase 59's global batches of SHARD_ROWS x block_size tokens (on the
+    host); row 1 ignores a quarter of its targets, so the two data ranks
+    hold unequal counts."""
+    gen = torch.Generator().manual_seed(SHARD_SEED)
+    out = []
+    for _ in range(n):
+        shape = (SHARD_ROWS, cfg.block_size)
+        y = torch.randint(0, cfg.vocab_size, shape, generator=gen)
+        y[1, : cfg.block_size // 4] = -1
+        out.append({"x": torch.randint(0, cfg.vocab_size, shape, generator=gen), "y": y,
+                    "spk_emb": torch.randn((SHARD_ROWS, cfg.speaker_emb_dim), generator=gen)})
+    return out
+
+
+def _sharded_full_rank(rank: int, dev: str, small: bool, batches: list) -> dict:
+    """59, one rank: two whole-tree train steps and one finetune step on
+    this rank's shards of the full-width tree -> metrics, seconds a step,
+    the reductions' seconds and count, peak memory, each leaf's digest after
+    the steps, the kernel counts, and (data rank 0) the first step's grads."""
+    import torch
+    import torch.distributed as dist
+
+    from metavoice_tpu_torch.parallel import mesh as pmesh
+    from metavoice_tpu_torch.parallel import sharding as psh
+    from metavoice_tpu_torch.training import finetune as ft
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _full_cfg(small)
+    mesh = pmesh.make_mesh(SHARD_TP, device=dev)
+    ftc = ft.FinetuneConfig(warmup_iters=1)
+    spent = {"s": 0.0, "n": 0}
+    real = dist.all_reduce
+
+    def timed(*a, **kw):  # every reduction of a step: the tensor group's, the data group's, the norm's
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        sync(torch, dev)
+        spent["s"] += time.perf_counter() - t0
+        spent["n"] += 1
+        return out
+
+    out = {"mesh": (mesh.data_parallel, mesh.tensor_parallel, mesh.data_rank, mesh.tensor_rank)}
+    _zero_counts()
+    dist.all_reduce = timed
+    try:
+        for mode, run in (("train", batches), ("finetune", batches[:1])):
+            if dev != "cpu":
+                torch.cuda.reset_peak_memory_stats()
+            params = _full_params(torch, cfg, dev)
+            shards = psh.shard_params(params, cfg, mesh)
+            del params
+            empty_cache(torch, dev)
+            spent.update(s=0.0, n=0)
+            keep = mode == "train" and mesh.data_rank == 0
+            done, metrics, times, grads = sharded_steps(torch, cfg, shards, ftc, run, mode, mesh, torch.bfloat16, keep)
+            out[mode] = dict(metrics=metrics, times=times, reduce_s=spent["s"], reductions=spent["n"],
+                             peak=torch.cuda.max_memory_allocated() if dev != "cpu" else 0,
+                             digests=leaf_digests(torch, done), grads=grads)
+            del done, shards, grads
+            empty_cache(torch, dev)
+    finally:
+        dist.all_reduce = real
+    out["counts"] = read_counts()
+    return out
+
+
+def grads_apart(torch, got, want, dev) -> tuple[float, float, str, str]:
+    """Per leaf, the cosine of two grad trees and the ratio of their norms
+    (on ``dev``, in f32) -> (the least cosine, the largest |ratio - 1|, and
+    the leaves where each was seen)."""
+    worst_cos, worst_ratio, at_cos, at_ratio = 1.0, 0.0, "", ""
+    g = leaves(got)
+    for k, w in leaves(want).items():
+        a, b = g[k].to(dev).float().flatten(), w.to(dev).float().flatten()
+        na, nb = a.norm().item(), b.norm().item()
+        if nb == 0.0:
+            if na != 0.0:
+                fail(f"59 sharded-full-width: the ranks' grad of {k} is not zero, tp = 1's is")
+            continue
+        cos, ratio = (a @ b).item() / (na * nb), abs(na / nb - 1)
+        if cos < worst_cos:
+            worst_cos, at_cos = cos, k
+        if ratio > worst_ratio:
+            worst_ratio, at_ratio = ratio, k
+    return worst_cos, worst_ratio, at_cos, at_ratio
+
+
+def phase_sharded_full_width(torch, smi: str, dev: str = "cuda", small: bool = False) -> dict:
+    """59: ``make_train_step`` on the whole full-width tree (24L/16H/2048d,
+    block 2048) with bf16 params, JAX's compile_sharded_train_step shape (a
+    global batch of 4 x 2048), two steps of ``FinetuneConfig(warmup_iters=1)``
+    and one ``make_finetune_step`` (last block) on four ranks sharing the
+    card over gloo at DP 2 x TP 2 (``dev="cpu", small=True``: a rehearsal),
+    against tp = 1 on the same weights and batches run first in this
+    process: losses and global grad norms, per leaf the cosine and the norm
+    ratio of the gathered step-1 grads (SHARD_FULL_TOL), every leaf
+    bit-identical across a data group and the replicated ones across a
+    tensor group, no kernel launched; ms a step a rank, the reductions'
+    share, peak memory a rank beside ``abstract_train_state``'s bytes."""
+    from metavoice_tpu_torch.parallel import aot
+    from metavoice_tpu_torch.parallel import mesh as pmesh
+    from metavoice_tpu_torch.parallel import sharding as psh
+    from metavoice_tpu_torch.training import finetune as ft
+
+    t0 = time.perf_counter()
+    cfg = _full_cfg(small)
+    batches = _full_batches(torch, cfg, 2)
+    ftc = ft.FinetuneConfig(warmup_iters=1)
+    one = {}
+    for mode, run in (("train", batches), ("finetune", batches[:1])):
+        if dev != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        params = _full_params(torch, cfg, dev)
+        _, metrics, times, grads = sharded_steps(torch, cfg, params, ftc, run, mode, None, torch.bfloat16,
+                                                 mode == "train")
+        one[mode] = dict(metrics=metrics, times=times, grads=grads,
+                         peak=torch.cuda.max_memory_allocated() if dev != "cpu" else 0)
+        del params, grads
+        empty_cache(torch, dev)
+    t1 = time.perf_counter()
+    ranks = pmesh.spawn(_sharded_full_rank, 4, args=(dev, small, batches), backend="gloo", devices=[dev] * 4,
+                        timeout=300, deadline=900)
+    ranks_s = time.perf_counter() - t1
+    tol = SHARD_FULL_TOL
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for r, got in enumerate(ranks):
+        if got["mesh"] != (2, SHARD_TP, r // SHARD_TP, r % SHARD_TP):
+            fail(f"59 sharded-full-width: rank {r} sits at {got['mesh']} of the grid")
+        if any(got["counts"].values()):
+            fail(f"59 sharded-full-width: rank {r} launched {got['counts']}: training runs no hand-written kernel")
+        for mode in ("train", "finetune"):
+            for i, ((la, na), (lb, nb)) in enumerate(zip(got[mode]["metrics"], one[mode]["metrics"])):
+                for what, a, b in (("loss", la, lb), ("grad_norm", na, nb)):
+                    gap = abs(a - b) / abs(b)
+                    worst[what] = max(worst[what], gap)
+                    if not gap <= tol[what]:
+                        fail(f"59 sharded-full-width: rank {r}'s {mode} step {i + 1} {what} {a:.6g} against tp = 1's "
+                             f"{b:.6g}: {gap:.3g} apart (rtol {tol[what]})")
+    n = sum(same_bits_across(torch, f"59 sharded-full-width {mode}", [g[mode]["digests"] for g in ranks], SHARD_TP)
+            for mode in ("train", "finetune"))
+    cos, ratio, at_cos, at_ratio = grads_apart(
+        torch, psh.join_shards([ranks[t]["train"]["grads"] for t in range(SHARD_TP)], cfg), one["train"]["grads"],
+        dev)
+    if not (cos >= tol["cosine"] and ratio <= tol["norm_ratio"]):
+        fail(f"59 sharded-full-width: the gathered step-1 grads against tp = 1's: least cosine {cos:.6f} ({at_cos}; "
+             f"at least {tol['cosine']}), largest norm ratio off 1 by {ratio:.3g} ({at_ratio}; at most "
+             f"{tol['norm_ratio']})")
+    state = aot.abstract_train_state(cfg, tp=SHARD_TP)[0]["bytes"]
+    state1 = aot.abstract_train_state(cfg, tp=1)[0]["bytes"]
+    rank_lines = []
+    for r, got in enumerate(ranks):
+        tr = got["train"]
+        rank_lines.append(f"rank {r}: {1e3 * tr['times'][0]:.0f} / {1e3 * tr['times'][1]:.0f} ms steps 1 / 2, "
+                          f"reductions {100 * tr['reduce_s'] / sum(tr['times']):.1f}% of them ({tr['reductions']} "
+                          f"all_reduce calls), finetune {1e3 * got['finetune']['times'][0]:.0f} ms, peak "
+                          f"{tr['peak'] / 2**30:.2f} GiB")
+    o, r0 = one["train"], ranks[0]["train"]
+    losses = [[round(m[0], 6) for m in run["metrics"]] for run in (r0, o)]
+    norms = [[round(m[1], 6) for m in run["metrics"]] for run in (r0, o)]
+    print(f"[59 sharded-full-width] {smi}: {cfg.n_layer}L/{cfg.n_head}H/{cfg.dim}d bf16, a global batch of "
+          f"{SHARD_ROWS} x {cfg.block_size} tokens, 4 ranks on {dev} over gloo at DP 2 x TP 2 against tp = 1 on the "
+          f"same weights: train losses {losses[0]} (tp = 1 {losses[1]}), grad norms {norms[0]} ({norms[1]}), "
+          f"finetune {ranks[0]['finetune']['metrics']} ({one['finetune']['metrics']}); worst over ranks and steps: "
+          f"loss {worst['loss']:.3g} (rtol {tol['loss']}), grad norm {worst['grad_norm']:.3g} (rtol "
+          f"{tol['grad_norm']}); step-1 grads gathered: least cosine {cos:.6f} ({at_cos}), largest norm ratio off 1 "
+          f"{ratio:.3g} ({at_ratio}); {n} leaves bit for bit across the data groups (replicated ones across the "
+          f"tensor groups); no kernel launched; " + "; ".join(rank_lines) +
+          f" (four ranks sharing one card through the host's gloo: no DP or TP time); tp = 1 "
+          f"{1e3 * o['times'][0]:.0f} / {1e3 * o['times'][1]:.0f} ms a step, peak {o['peak'] / 2**30:.2f} GiB; "
+          f"abstract_train_state a rank: params + mu + nu {sum(state.values()) / 2**30:.2f} GiB, with grads "
+          f"{4 * state['params'] / 2**30:.2f} GiB (tp = 1: {4 * state1['params'] / 2**30:.2f} GiB) "
+          f"({t1 - t0:.1f} s tp = 1, {ranks_s:.1f} s the ranks)")
+    return {"ranks": ranks, "one": one}
+
+
 def gc_collect():
     import gc
 
@@ -6040,6 +6459,12 @@ def main() -> int:
         phase_tp_small(torch)
         phase_tp_synth(torch, workdir, ref)
         print(f"[56-57 tensor parallel] {time.perf_counter() - t0:.1f} s")
+        gc_collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_sharded_small(torch)
+        phase_sharded_full_width(torch, smi)
+        print(f"[58-59 sharded training] {time.perf_counter() - t0:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # and, where a phase read it from the graph of one call, the kernels a call
     counted = ("kernels_a_call",)

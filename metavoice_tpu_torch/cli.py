@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import math
 import os
 import sys
 
@@ -255,7 +256,8 @@ def _serve_tp(args) -> int:
 
     before = {sig: signal.signal(sig, forward) for sig in (signal.SIGTERM, signal.SIGINT)}
     try:
-        pmesh.spawn(_serve_rank, args.tensor_parallel, args=(args,), devices=devices, timeout=_TP_TIMEOUT_S)
+        pmesh.spawn(_serve_rank, args.tensor_parallel, args=(args,), devices=devices, timeout=_TP_TIMEOUT_S,
+                    deadline=math.inf)  # a server runs until it is stopped
     finally:
         for sig, handler in before.items():
             signal.signal(sig, handler)

@@ -412,13 +412,61 @@ def _linear(x, w, b=None):
     return y
 
 
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's f: identity forward; backward, the gradient all-reduced
+    (summed) over the tensor group. On the normed input of the column-
+    parallel products, whose gradient each rank holds only its heads' or
+    FFN slice's share of."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's g: forward, the row-parallel partial sums all-reduced over
+    the tensor group; backward, the identity (every rank holds the whole
+    gradient of the reduced sum). ``torch.distributed.nn.functional.
+    all_reduce`` is not this: its backward reduces again, which would make
+    the row-parallel gradients tp times too large."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = y.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _records(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _tp_copy(x, tp):
+    """Megatron's f on ``x`` when autograd records it under TP, else x."""
+    return _CopyToTP.apply(x, tp) if tp is not None and _records(x) else x
+
+
 def _tp_sum(y, tp):
     """Megatron's reduction: a row-parallel product's partial sums (each
     rank's share of the input features) summed over the tensor group ``tp``
-    (a ``torch.distributed`` process group), in place; every rank gets the
-    same bits. ``tp`` None: y as it is."""
+    (a ``torch.distributed`` process group); every rank gets the same bits.
+    When autograd records y, Megatron's g (``_ReduceFromTP``), else in place
+    (inference: one reduction, no copy). ``tp`` None: y as it is."""
     if tp is None:
         return y
+    if _records(y):
+        return _ReduceFromTP.apply(y, tp)
     y = y.contiguous()
     dist.all_reduce(y, group=tp)
     return y
@@ -750,10 +798,17 @@ def _attention_block(xa, lp: Params, cfg: TransformerConfig, li: int, mask, kv_c
     return _add_bias(_tp_sum(_linear(y, lp["wo"]), tp), lp.get("wo_b"))
 
 
-def dropout_keep(x, rate: float, generator: torch.Generator):
+def dropout_keep(x, rate: float, generator: torch.Generator, rows: tuple[int, int] | None = None):
     """A keep-mask of x's shape, each element kept with probability 1 - rate,
-    drawn from ``generator`` (on x's device)."""
-    return torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    drawn from ``generator`` (on x's device). ``rows`` (global batch,
+    first row): x holds rows [first, first + B) of a global batch, whose
+    mask is drawn whole and cut to them, so a data-parallel rank keeps the
+    mask one process would draw for its rows."""
+    if rows is None:
+        return torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    batch, first = rows
+    keep = torch.rand((batch, *x.shape[1:]), generator=generator, device=x.device) >= rate
+    return keep[first : first + x.shape[0]]
 
 
 def _dropout(x, rate: float, keep):
@@ -765,13 +820,15 @@ def _dropout(x, rate: float, keep):
 def _block(x, lp: Params, cfg: TransformerConfig, li: int, mask, kv_cache: KVCache | None, cache_pos, attn_starts,
            int8_block: bool, keep=None, tp=None):
     """One layer: x + attention(norm(x)), then + MLP(norm(h)); ``keep`` (the
-    attention and MLP branches' dropout masks) drops each branch."""
-    xa = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps)
+    attention and MLP branches' dropout masks) drops each branch. Under TP
+    with autograd, each normed input passes Megatron's f (``_tp_copy``)."""
+    xa = _tp_copy(_norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps), tp)
     a = _attention_block(xa, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block, tp)
     if keep is not None:
         a = _dropout(a, cfg.dropout, keep[0])
     h = x + a
-    m = _mlp(_norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), cfg.norm_type, cfg.norm_eps), lp, cfg, tp)
+    xm = _tp_copy(_norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), cfg.norm_type, cfg.norm_eps), tp)
+    m = _mlp(xm, lp, cfg, tp)
     if keep is not None:
         m = _dropout(m, cfg.dropout, keep[1])
     return h + m
@@ -803,6 +860,7 @@ def apply_blocks(
     fused_head: bool = False,
     dropout_generator: torch.Generator | None = None,
     tp=None,
+    dropout_rows: tuple[int, int] | None = None,
 ):
     """Run the L-layer block stack and the final norm -> (x, kv_cache).
 
@@ -842,8 +900,9 @@ def apply_blocks(
     weight dicts, and a layer with something to differentiate (grad mode on,
     and x or a weight requiring grad) is recomputed in the backward pass.
     ``dropout_generator`` (training, no cache) drops each layer's attention
-    and MLP branch with probability ``cfg.dropout`` (inverted scaling). As in
-    the JAX package, the attention probabilities get no dropout: the
+    and MLP branch with probability ``cfg.dropout`` (inverted scaling), the
+    masks cut from the global batch's by ``dropout_rows`` (``dropout_keep``).
+    As in the JAX package, the attention probabilities get no dropout: the
     reference's SDPA dropout at the finetune default p = 0.1 is subsumed by
     the residual dropouts.
 
@@ -855,8 +914,12 @@ def apply_blocks(
     the JAX package gates them: the int4 decode stack and attention-block /
     FFN kernels (``int4_decode_route``), the int8 decode stack
     (``int8_stack_ok``) and the plain-int8 attention block
-    (``int8_block_ok``); a T = 1 step runs the per-layer loop below. No
-    backward runs under TP.
+    (``int8_block_ok``); a T = 1 step runs the per-layer loop below.
+    Under autograd (training) the pair is Megatron's: f on each normed
+    input of the column-parallel products, g for each reduction
+    (``_tp_copy``, ``_tp_sum``); a recomputed layer issues its forward
+    reductions again inside the backward pass, up to the last tensor the
+    backward saved.
     """
     t = x.shape[1]
     if kv_cache is not None and t == 1 and tp is None:
@@ -884,12 +947,14 @@ def apply_blocks(
         if dropout_generator is not None:
             # drawn outside the recomputed block: the recompute restores the
             # global RNG state, not an explicit generator's
-            keep = (dropout_keep(x, cfg.dropout, dropout_generator), dropout_keep(x, cfg.dropout, dropout_generator))
+            keep = tuple(dropout_keep(x, cfg.dropout, dropout_generator, dropout_rows) for _ in range(2))
         if kv_cache is None and torch.is_grad_enabled() and _needs_grad(x, lp):
-            if tp is not None:
-                raise NotImplementedError("a tensor-parallel forward takes no gradient: run it without grad")
-            # the block uses no global RNG, so there is no RNG state to stash
-            x = checkpoint(_block, x, lp, cfg, li, mask, None, None, None, False, keep, use_reentrant=False,
+            # the block uses no global RNG, so there is no RNG state to stash. Under TP the recompute
+            # issues the layer's forward reductions again inside the backward pass (those before the
+            # last tensor the backward saved: it stops there), where the backward first needs the
+            # layer: every rank of the group runs the same backward graph, so each issues them, and
+            # Megatron's f's, in the same order
+            x = checkpoint(_block, x, lp, cfg, li, mask, None, None, None, False, keep, tp, use_reentrant=False,
                            preserve_rng_state=False)
         else:
             x = _block(x, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block, keep, tp)
@@ -925,6 +990,7 @@ def forward(
     compute_dtype=torch.bfloat16,
     dropout_generator: torch.Generator | None = None,
     tp=None,
+    dropout_rows: tuple[int, int] | None = None,
 ):
     """(B, [C,] T) tokens -> (per-hierarchy (B, T, V) f32 logits, kv_cache).
 
@@ -936,7 +1002,10 @@ def forward(
     drops the embedding sum (the reference's ``transformer.drop``) and each
     layer's residual branches, the masks drawn from the generator (on the
     tokens' device). Inference callers pass none. ``tp``: the tensor
-    group of a tensor-parallel forward (``apply_blocks``).
+    group of a tensor-parallel forward (``apply_blocks``). ``dropout_rows``
+    (global batch, first row): the tokens are those rows of a data-parallel
+    batch, and every mask is cut from the global batch's
+    (``dropout_keep``).
     """
     t = idx.shape[-1]
     if positions is None:
@@ -945,7 +1014,7 @@ def forward(
     if dropout_generator is not None and (cfg.dropout <= 0.0 or kv_cache is not None):
         dropout_generator = None
     if dropout_generator is not None:
-        x = _dropout(x, cfg.dropout, dropout_keep(x, cfg.dropout, dropout_generator))
+        x = _dropout(x, cfg.dropout, dropout_keep(x, cfg.dropout, dropout_generator, dropout_rows))
     if not cfg.causal:
         mask = None
     elif kv_cache is not None:
@@ -954,6 +1023,6 @@ def forward(
         mask = causal_mask_for(positions, t)[None, None]
     x, kv_cache = apply_blocks(
         params, cfg, x, mask, kv_cache, cache_pos if kv_cache is not None else None,
-        dropout_generator=dropout_generator, tp=tp,
+        dropout_generator=dropout_generator, tp=tp, dropout_rows=dropout_rows,
     )
     return output_logits(params, cfg, x), kv_cache

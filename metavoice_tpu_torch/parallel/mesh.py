@@ -13,8 +13,9 @@ Start the ranks with :func:`spawn` (one process a rank, the ``spawn``
 start method, a ``file://`` store in a temporary directory) or with
 ``torchrun``, whose ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``
 :func:`initialize_distributed` reads. A rank's device is ``cuda:LOCAL_RANK``
-by default, or the one its caller gives. NCCL, the default backend on the
-card, takes one card a rank; two ranks on one card (a test of the TP path
+by default, or the one its caller gives; with no card nothing here picks
+the CPU unless the caller asks for it (``device="cpu"``). NCCL, the default
+backend on the card, takes one card a rank; two ranks on one card (a test of the TP path
 on a machine with one card) take ``backend="gloo"``, which is never chosen
 silently.
 
@@ -41,6 +42,10 @@ from metavoice_tpu_torch.core.device import resolve_device
 DATA_AXIS = "data"
 TENSOR_AXIS = "tensor"
 DEFAULT_TIMEOUT_S = 600.0  # a collective that waits this long raises
+DEADLINE_TIMEOUTS = 4  # spawn's default deadline for a whole run, in collective timeouts
+# the collective timeout initialize_distributed gave the world, which make_mesh gives each group it makes:
+# torch's new_group would otherwise take its own default (30 minutes for gloo), whatever the world's
+_world_timeout_s = DEFAULT_TIMEOUT_S
 
 
 @dataclass(frozen=True)
@@ -70,14 +75,19 @@ class Mesh:
         """Tensor index 0: the rank that reads inputs and writes outputs."""
         return self.tensor_rank == 0
 
+    def batch_rows(self, global_batch: int) -> tuple[int, int]:
+        """[start, stop) rows of a global batch that this rank's data index holds."""
+        return process_batch_slice(global_batch, process_index=self.data_rank, process_count=self.data_parallel)
+
 
 def rank_device(device=None) -> torch.device:
-    """``device``, else ``cuda:LOCAL_RANK`` where there is a card, else the CPU."""
+    """``device``, else ``cuda:LOCAL_RANK``; with no card and no ``device``
+    it raises: a rank runs on the CPU only when its caller asks for it."""
     if device is not None:
         return resolve_device(device)
-    if torch.cuda.is_available():
-        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-    return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError('there is no card for this rank: pass device="cpu" to run it on the CPU')
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
 
 
 def initialize_distributed(
@@ -91,10 +101,13 @@ def initialize_distributed(
     once the default group exists. Unset arguments come from ``torchrun``'s
     environment (``WORLD_SIZE``, ``RANK``, ``env://``); the backend defaults
     to NCCL where there is a card, else gloo. Every collective of the group
-    raises after ``timeout`` seconds, so a dead rank cannot hang the others."""
+    raises after ``timeout`` seconds, so a dead rank cannot hang the others;
+    so do those of the groups :func:`make_mesh` makes."""
+    global _world_timeout_s
     world_size = int(os.environ.get("WORLD_SIZE", 1)) if world_size is None else world_size
     if world_size <= 1 or dist.is_initialized():
         return
+    _world_timeout_s = timeout
     rank = int(os.environ["RANK"]) if rank is None else rank
     backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
     dist.init_process_group(backend, init_method=init_method or "env://", world_size=world_size, rank=rank,
@@ -112,7 +125,9 @@ def make_mesh(tensor_parallel: int = 1, *, device=None) -> Mesh:
     ``tensor_parallel`` must divide the world size; the data axis takes the
     rest. Every rank makes every group, in the same order (``new_group`` is
     collective), so every rank must call this, with the same argument.
-    Without a process group only ``tensor_parallel=1`` is possible."""
+    Without a process group only ``tensor_parallel=1`` is possible. The
+    groups' collectives time out as the world's do (the timeout given to
+    :func:`initialize_distributed`, else ``DEFAULT_TIMEOUT_S``)."""
     if not dist.is_initialized():
         if tensor_parallel != 1:
             raise RuntimeError(
@@ -125,15 +140,16 @@ def make_mesh(tensor_parallel: int = 1, *, device=None) -> Mesh:
     if world % tensor_parallel:
         raise ValueError(f"tensor_parallel={tensor_parallel} does not divide {world} ranks")
     tp, dp = tensor_parallel, world // tensor_parallel
+    timeout = datetime.timedelta(seconds=_world_timeout_s)
     tensor_group = data_group = None
     for d in range(dp):
         ranks = [d * tp + t for t in range(tp)]
-        group = dist.new_group(ranks)
+        group = dist.new_group(ranks, timeout=timeout)
         if rank in ranks:
             tensor_group, tensor_ranks = group, tuple(ranks)
     for t in range(tp):
         ranks = [d * tp + t for d in range(dp)]
-        group = dist.new_group(ranks)
+        group = dist.new_group(ranks, timeout=timeout)
         if rank in ranks:
             data_group = group
     return Mesh(tp, dp, rank % tp, rank // tp, tensor_ranks, tensor_group, data_group, rank_device(device))
@@ -212,15 +228,19 @@ def spawn(fn, world_size: int, *, args: tuple = (), backend: str | None = None, 
     in one process group -> each rank's return value, in rank order.
 
     ``fn`` is a module-level function (it is pickled by name). ``devices``:
-    one a rank (default ``cuda:0`` ... ``cuda:N-1`` where there is a card,
-    else the CPU). ``backend``: NCCL for card ranks, gloo for CPU ranks by
-    default; NCCL takes one card a rank, so two ranks on one card raise
-    ``ValueError`` unless ``backend="gloo"`` is asked for. ``timeout``: the
-    group's collective timeout; ``deadline``: seconds the whole run may take
-    (None: no limit). A rank that raises ends the run: the other ranks are
-    stopped, and the first exception any rank raised is raised here
-    (chained to a failed rank's traceback). The processes start with the ``spawn`` method (a parent that
-    has used CUDA cannot fork), and the group meets through a ``file://``
+    one a rank (default ``cuda:0`` ... ``cuda:N-1``; with no card the caller
+    asks for CPU ranks, ``["cpu"] * N``, or this raises). ``backend``: NCCL
+    for card ranks, gloo for CPU ranks by default; NCCL takes one card a
+    rank, so two ranks on one card raise ``ValueError`` unless
+    ``backend="gloo"`` is asked for. ``timeout``: the collective timeout of
+    the world and of the groups ``make_mesh`` makes; ``deadline``: seconds
+    the whole run may take (None: ``DEADLINE_TIMEOUTS`` collective timeouts;
+    ``math.inf``: no limit, for a server), after which the ranks are stopped
+    and ``TimeoutError`` raised. A rank that raises ends the run: the other
+    ranks are stopped, and the first exception any rank raised is raised
+    here (chained to a failed rank's traceback). The processes start with
+    the ``spawn`` method (a parent that has used CUDA cannot fork), and the
+    group meets through a ``file://``
     store in a new temporary directory, so runs side by side never share a
     port. ``fn`` and ``args`` reach the ranks through a plain pickle in that
     directory: the caller's tensors are copied, never moved into shared
@@ -231,13 +251,13 @@ def spawn(fn, world_size: int, *, args: tuple = (), backend: str | None = None, 
     import torch.multiprocessing as mp
 
     if devices is None:
-        if torch.cuda.is_available():
-            if world_size > torch.cuda.device_count():
-                raise ValueError(f"{world_size} ranks need {world_size} cards, this machine has "
-                                 f"{torch.cuda.device_count()}")
-            devices = [f"cuda:{r}" for r in range(world_size)]
-        else:
-            devices = ["cpu"] * world_size
+        if not torch.cuda.is_available():
+            raise RuntimeError(f'there is no card for the {world_size} ranks: pass devices=["cpu"] * {world_size} '
+                               '(device="cpu" a rank) to run them on the CPU')
+        if world_size > torch.cuda.device_count():
+            raise ValueError(f"{world_size} ranks need {world_size} cards, this machine has "
+                             f"{torch.cuda.device_count()}")
+        devices = [f"cuda:{r}" for r in range(world_size)]
     devices = [_device_name(d) for d in devices]
     if len(devices) != world_size:
         raise ValueError(f"{len(devices)} devices for {world_size} ranks")
@@ -254,10 +274,11 @@ def spawn(fn, world_size: int, *, args: tuple = (), backend: str | None = None, 
             pickle.dump((fn, args), f)
         ctx = mp.start_processes(_rank_main, args=(world_size, backend, devices, timeout, out_dir),
                                  nprocs=world_size, join=False, start_method="spawn")
-        end = None if deadline is None else time.monotonic() + deadline
+        deadline = DEADLINE_TIMEOUTS * timeout if deadline is None else deadline
+        end = time.monotonic() + deadline
         try:
             while not ctx.join(timeout=1.0):
-                if end is not None and time.monotonic() > end:
+                if time.monotonic() > end:
                     raise TimeoutError(f"the {world_size} ranks did not finish within {deadline} s")
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:  # an exit, e.g. SystemExit, too
             errors = []

@@ -16,8 +16,9 @@ the sampling are replicated: after each reduction every rank holds the same
 hidden state, so with the same seeded generator every rank draws the same
 tokens.
 
-Layout (what :func:`prepare_tp_params` gives rank r of tp), the JAX
-package's, cut to one rank:
+Layout (what :func:`prepare_tp_params` gives rank r of tp): the cut of
+``sharding.shard_params``, which training takes too, and the JAX
+package's serving layout cut to one rank, then quantized per shard:
 
 * ``wqkv`` (and ``wqkv_b``): rank r's columns ``[q_r | k_r | v_r]``, its
   own heads for all three projections (the JAX package stores the columns
@@ -51,6 +52,7 @@ from metavoice_tpu_torch.models import first_stage as fs
 from metavoice_tpu_torch.models import transformer as tfm
 from metavoice_tpu_torch.ops.quantized import I32_GROUPSIZE, quantize_int4_i32, quantize_int8_i32
 from metavoice_tpu_torch.parallel.mesh import Mesh
+from metavoice_tpu_torch.parallel.sharding import qkv_block, shard_layers, shard_params
 
 _COLUMN = ("wqkv", "w1", "w3", "w_fc")
 _ROW = ("wo", "w2", "w_proj")
@@ -67,21 +69,10 @@ def local_view(cfg: TransformerConfig, tp: int) -> TransformerConfig:
                                head_dim_override=cfg.head_dim)
 
 
-def _qkv_split(w: torch.Tensor, cfg: TransformerConfig):
-    qd = cfg.n_head * cfg.head_dim
-    kvd = cfg.n_local_heads * cfg.head_dim
-    return torch.split(w, [qd, kvd, kvd], dim=-1)
-
-
 def permute_qkv_cols(w: torch.Tensor, cfg: TransformerConfig, tp: int) -> torch.Tensor:
     """(..., D, q+k+v) -> the per-rank column blocks ``[q_i | k_i | v_i]``
     side by side, the JAX package's stored layout."""
     return torch.cat([qkv_block(w, cfg, tp, i) for i in range(tp)], dim=-1)
-
-
-def qkv_block(w: torch.Tensor, cfg: TransformerConfig, tp: int, rank: int) -> torch.Tensor:
-    """Rank ``rank``'s qkv columns ``[q_r | k_r | v_r]`` (weights or bias)."""
-    return torch.cat([p.chunk(tp, dim=-1)[rank] for p in _qkv_split(w, cfg)], dim=-1)
 
 
 def _pad_cols(w: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -116,27 +107,6 @@ def _quantize_int8(chunk: torch.Tensor, pad_out: bool) -> dict:
 _QUANTIZERS = {"int4": _quantize_int4, "int8": _quantize_int8}
 
 
-def _split(w: torch.Tensor, tp: int, dim: int, rank: int, key: str) -> torch.Tensor:
-    if w.shape[dim] % tp:
-        raise ValueError(f"{key}: dim {dim} of {tuple(w.shape)} does not split into {tp} shards")
-    return w.chunk(tp, dim=dim)[rank]
-
-
-def _cut_layers(layers: dict, cfg: TransformerConfig, tp: int, rank: int) -> dict:
-    """Rank ``rank``'s dense shards of the stacked layer weights."""
-    out = dict(layers)
-    out["wqkv"] = qkv_block(layers["wqkv"], cfg, tp, rank)
-    if "wqkv_b" in layers:
-        out["wqkv_b"] = qkv_block(layers["wqkv_b"], cfg, tp, rank)
-    for key in ("w1", "w3", "w_fc", "w_fc_b"):
-        if key in layers:
-            out[key] = _split(layers[key], tp, layers[key].dim() - 1, rank, key)
-    for key in _ROW:
-        if key in layers:
-            out[key] = _split(layers[key], tp, 1, rank, key)
-    return out
-
-
 def _quantize_layers(out: dict, quantisation_mode: str | None) -> dict:
     """One rank's dense shards -> its serving format, each shard quantized alone."""
     if quantisation_mode not in TP_MODES:
@@ -161,7 +131,7 @@ def build_tp_layers(layers: dict, cfg: TransformerConfig, tp: int, quantisation_
     weights in the TP layout (module docstring), each shard quantized alone
     with the port's quantizers when ``quantisation_mode`` is ``"int4"`` or
     ``"int8"``: shard ``rank`` of the JAX package's ``build_tp_layers``."""
-    return _quantize_layers(_cut_layers(layers, cfg, tp, rank), quantisation_mode)
+    return _quantize_layers(shard_layers(layers, cfg, tp, rank), quantisation_mode)
 
 
 def prepare_tp_params(params: dict, cfg: TransformerConfig, mesh: Mesh, quantisation_mode: str | None = None) -> dict:
@@ -169,21 +139,11 @@ def prepare_tp_params(params: dict, cfg: TransformerConfig, mesh: Mesh, quantisa
     through ``utils/checkpoint.params_from_numpy``) -> this rank's tree on
     its device: its layer shards, cut, moved and then quantized on the
     rank's device (:func:`build_tp_layers`), and the other leaves whole."""
-    dev = mesh.device
-
-    def move(node):
-        if isinstance(node, dict):
-            return {k: move(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [move(v) for v in node]
-        return node.to(dev)
-
     quantized = [k for k, w in params["layers"].items() if isinstance(w, dict)]
     if quantized:
         raise ValueError(f"prepare_tp_params takes dense layer weights, {quantized} are quantized")
-    out = {k: move(v) for k, v in params.items() if k != "layers"}
-    shards = _cut_layers(params["layers"], cfg, mesh.tensor_parallel, mesh.tensor_rank)
-    out["layers"] = _quantize_layers({k: v.to(dev).contiguous() for k, v in shards.items()}, quantisation_mode)
+    out = shard_params(params, cfg, mesh)
+    out["layers"] = _quantize_layers(out["layers"], quantisation_mode)
     return out
 
 

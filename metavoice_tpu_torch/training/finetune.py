@@ -24,6 +24,22 @@ advanced. Dropout draws from a torch generator seeded by ``(cfg.seed,
 step)`` (and the micro-batch's index under accumulation), where the JAX
 package folds the step into a PRNG key: so a resumed run draws as a straight
 one, and the streams never match JAX's.
+
+Sharded training (``mesh=``, a ``parallel/mesh.Mesh``; the JAX package
+jit-compiles the same step over its (data, tensor) mesh and GSPMD inserts
+the reductions): each rank holds its shards (``parallel/sharding.
+shard_params``) and takes the global batch, of which it keeps its data
+rank's rows. The forward reduces over the tensor group (Megatron's pair,
+``models/transformer.apply_blocks(tp=...)``); the loss is the local NLL sum
+over the global count of valid targets (the count summed over the data
+group), so the gradients summed over the data group after the backward are
+those of JAX's global mean, whatever share of ``-1`` targets each rank
+holds; the global norm sums the split leaves' squares over the tensor
+group and counts the replicated leaves once; dropout masks are drawn for
+the global batch and cut to the rank's rows. Every rank of a data group
+ends a step with the same bits, and every rank of a tensor group with the
+same replicated leaves. The default mesh is the one-process grid, with
+which every result is the unsharded step's, bit for bit.
 """
 
 from __future__ import annotations
@@ -33,10 +49,14 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from metavoice_tpu_torch.core.config import TransformerConfig
 from metavoice_tpu_torch.core.tokens import END_OF_TEXT_TOKEN
 from metavoice_tpu_torch.models import transformer as tfm
+from metavoice_tpu_torch.parallel import mesh as pmesh
+from metavoice_tpu_torch.parallel.sharding import split_leaves
+from metavoice_tpu_torch.parallel.tp_decode import local_view
 
 
 @dataclass(frozen=True)
@@ -93,9 +113,20 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
-def global_norm(grads: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, accumulated in f32."""
-    return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(grads)))
+def global_norm(grads: Any, mesh: pmesh.Mesh | None = None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, accumulated in f32. Under a
+    tensor group (``mesh``), the squares of the split leaves are summed over
+    the group and the replicated leaves counted once: the norm of the whole
+    tree, the same bits on every rank. A collective then."""
+    leaves = tree_leaves(grads)
+    if mesh is None or mesh.tensor_group is None:
+        return torch.sqrt(sum(g.float().square().sum() for g in leaves))
+    split = tree_leaves(split_leaves(grads))
+    sq = [(g.float().square().sum(), s) for g, s in zip(leaves, split)]
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    shards = sum((x for x, s in sq if s), zero)
+    dist.all_reduce(shards, group=mesh.tensor_group)
+    return torch.sqrt(shards + sum((x for x, s in sq if not s), zero))
 
 
 # --------------------------------------------------------------------------------------
@@ -174,11 +205,14 @@ class AdamW:
         zeros = lambda p: torch.zeros_like(p, requires_grad=False)  # noqa: E731
         return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
-    def update(self, grads: Any, opt_state: dict, params: Any) -> tuple[Any, dict]:
-        """-> (updates to add to the params, opt_state with count + 1)."""
+    def update(self, grads: Any, opt_state: dict, params: Any, norm: torch.Tensor | None = None) -> tuple[Any, dict]:
+        """-> (updates to add to the params, opt_state with count + 1).
+        ``norm``: the grads' global norm, when the caller has it (a sharded
+        tree's is ``global_norm(grads, mesh)``)."""
         count = opt_state["count"]
         lr = self.learning_rate(count) if callable(self.learning_rate) else self.learning_rate
-        norm = global_norm(grads)
+        if norm is None:
+            norm = global_norm(grads)
         grads = tree_map(lambda g: torch.where(norm < self.grad_clip, g,
                                                (g / norm.to(g.dtype)) * _as(self.grad_clip, g.dtype)), grads)
         f32 = np.float32
@@ -241,9 +275,9 @@ def apply_grad_mask(grads: Any, mask: Any) -> Any:
 # --------------------------------------------------------------------------------------
 
 
-def hierarchy_cross_entropy(logits: list, targets: torch.Tensor) -> torch.Tensor:
-    """Mean CE over hierarchies and non-ignored positions; targets (B, [C,]
-    T) with -1 = ignore (fam/llm/model.py:289-301)."""
+def _nll_sum_count(logits: list, targets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (the NLL summed over hierarchies and non-ignored positions, the
+    count of those positions)."""
     if targets.dim() == 2:
         targets = targets[:, None, :]
     total, count = 0.0, 0
@@ -254,6 +288,13 @@ def hierarchy_cross_entropy(logits: list, targets: torch.Tensor) -> torch.Tensor
         nll = -torch.gather(logp, -1, torch.where(valid, tgt, 0)[..., None])[..., 0]
         total = total + (nll * valid).sum()
         count = count + valid.sum()
+    return total, count
+
+
+def hierarchy_cross_entropy(logits: list, targets: torch.Tensor) -> torch.Tensor:
+    """Mean CE over hierarchies and non-ignored positions; targets (B, [C,]
+    T) with -1 = ignore (fam/llm/model.py:289-301)."""
+    total, count = _nll_sum_count(logits, targets)
     return total / torch.clamp(count, min=1)
 
 
@@ -266,33 +307,54 @@ def mask_spk_emb_on_text(idx: torch.Tensor, end_of_text_token: int = END_OF_TEXT
     return keep.float()[:, :, None]
 
 
-def spkemb_dropout_mask(generator: torch.Generator, batch_size: int, spkemb_dropout: float) -> torch.Tensor:
+def spkemb_dropout_mask(generator: torch.Generator, batch_size: int, spkemb_dropout: float,
+                        rows: tuple[int, int] | None = None) -> torch.Tensor:
     """(B, 1, 1) f32 per-row keep-mask on the generator's device, dropping a
     row's speaker conditioning with probability ``spkemb_dropout`` (what
     trains the CFG uncond branch), with no 1/(1-p) rescale
-    (fam/llm/model.py:269-274)."""
-    u = torch.rand((batch_size, 1, 1), generator=generator, device=generator.device)
+    (fam/llm/model.py:269-274). ``rows`` (global batch, first row): drawn
+    for the global batch, rows [first, first + batch_size) kept."""
+    if rows is None:
+        u = torch.rand((batch_size, 1, 1), generator=generator, device=generator.device)
+    else:
+        u = torch.rand((rows[0], 1, 1), generator=generator, device=generator.device)[rows[1] : rows[1] + batch_size]
     return (u >= spkemb_dropout).float()
 
 
 def loss_fn(params: Any, model_cfg: TransformerConfig, batch: dict, compute_dtype=torch.bfloat16,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None, mesh: pmesh.Mesh | None = None) -> torch.Tensor:
     """The first stage's training loss on ``batch`` ({x, y, spk_emb}).
     ``generator`` (training) draws the speaker-embedding dropout rows, then
-    the network dropout (``cfg.dropout``); without it, eval semantics."""
+    the network dropout (``cfg.dropout``); without it, eval semantics.
+
+    ``mesh`` (sharded training): ``params`` are this rank's shards and
+    ``batch`` the global batch, of which the rank keeps its data rank's
+    rows; the result is their NLL sum over the global count of valid
+    targets (a collective over the data group), so the data group's losses
+    sum to the global mean."""
+    rows = None
+    if mesh is not None and mesh.data_parallel > 1:
+        b = batch["x"].shape[0]
+        lo, hi = mesh.batch_rows(b)
+        batch, rows = {k: v[lo:hi] for k, v in batch.items()}, (b, lo)
     spk_emb = batch.get("spk_emb")
     spk_cond_mask = None
     if spk_emb is not None:
         if not model_cfg.spk_emb_on_text:
             spk_cond_mask = mask_spk_emb_on_text(batch["x"])
         if model_cfg.spkemb_dropout > 0.0 and generator is not None:
-            rows = spkemb_dropout_mask(generator, spk_emb.shape[0], model_cfg.spkemb_dropout)
-            spk_cond_mask = rows if spk_cond_mask is None else spk_cond_mask * rows
+            keep = spkemb_dropout_mask(generator, spk_emb.shape[0], model_cfg.spkemb_dropout, rows)
+            spk_cond_mask = keep if spk_cond_mask is None else spk_cond_mask * keep
+    tp = mesh.tensor_group if mesh is not None else None
     logits, _ = tfm.forward(
-        params, model_cfg, batch["x"], spk_emb=spk_emb, spk_cond_mask=spk_cond_mask, compute_dtype=compute_dtype,
-        dropout_generator=generator if model_cfg.dropout > 0.0 else None,
+        params, model_cfg if tp is None else local_view(model_cfg, mesh.tensor_parallel), batch["x"],
+        spk_emb=spk_emb, spk_cond_mask=spk_cond_mask, compute_dtype=compute_dtype,
+        dropout_generator=generator if model_cfg.dropout > 0.0 else None, tp=tp, dropout_rows=rows,
     )
-    return hierarchy_cross_entropy(logits, batch["y"])
+    total, count = _nll_sum_count(logits, batch["y"])
+    if rows is not None:
+        dist.all_reduce(count, group=mesh.data_group)
+    return total / torch.clamp(count, min=1)
 
 
 # --------------------------------------------------------------------------------------
@@ -321,9 +383,12 @@ def init_train_state(params: Any, cfg: FinetuneConfig) -> tuple[TrainState, Adam
     return TrainState(params=params, opt_state=opt.init(params), step=0), opt
 
 
-def mean_grads(params: Any, trained: list[bool], loss_of: Callable, batches: list, seeds: list[int]):
+def mean_grads(params: Any, trained: list[bool], loss_of: Callable, batches: list, seeds: list[int],
+               mesh: pmesh.Mesh | None = None):
     """Mean loss and mean grads over the micro-batches -> (loss, grads tree);
-    leaves not ``trained`` get no autograd and zero grads."""
+    leaves not ``trained`` get no autograd and zero grads. Under a data
+    group (``mesh``) the losses and the trained leaves' grads are summed
+    over it before the mean."""
     leaves = tree_leaves(params)
     for p, t in zip(leaves, trained):
         p.requires_grad_(t)
@@ -335,10 +400,16 @@ def mean_grads(params: Any, trained: list[bool], loss_of: Callable, batches: lis
         loss.backward()
         loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
     k = len(batches)
+    data = mesh.data_group if mesh is not None else None
+    if data is not None:
+        dist.all_reduce(loss_sum, group=data)
     grads = []
-    for p in leaves:
+    for p, t in zip(leaves, trained):
         g = p.grad if p.grad is not None else torch.zeros_like(p, requires_grad=False)
         p.grad = None
+        if data is not None and t:
+            g = g.contiguous()
+            dist.all_reduce(g, group=data)
         grads.append(g / k if k > 1 else g)
     it = iter(grads)
     return loss_sum / k if k > 1 else loss_sum, tree_map(lambda _: next(it), params)
@@ -350,8 +421,13 @@ def apply_updates(params: Any, updates: Any) -> None:
             p.add_(u)
 
 
+def _mesh_of(mesh: pmesh.Mesh | None, tree: Any) -> pmesh.Mesh:
+    """``mesh``, else the one-process grid on the tree's device."""
+    return mesh or pmesh.local_mesh(tree_leaves(tree)[0].device)
+
+
 def make_train_step(model_cfg: TransformerConfig, cfg: FinetuneConfig, opt: AdamW, grad_mask: Any | None = None,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, mesh: pmesh.Mesh | None = None):
     """-> train_step(state, batch) -> (state, {"loss", "grad_norm"}) over the
     whole tree.
 
@@ -362,40 +438,53 @@ def make_train_step(model_cfg: TransformerConfig, cfg: FinetuneConfig, opt: Adam
     stay bit-identical (AdamW's decay would move them otherwise); leaves whose
     mask is a 0 get no autograd. ``grad_norm`` is the global norm of the
     (masked) grads, before clipping. The loss and the norm are 0-d tensors on
-    the params' device (no host sync)."""
+    the params' device (no host sync).
+
+    ``mesh``: sharded training (module docstring). ``state`` holds this
+    rank's shards (``grad_mask`` the masks of them, ``model_cfg`` the whole
+    model's config) and ``batch`` the global batch; every rank of the grid
+    calls the step with the same batch."""
     k = cfg.gradient_accumulation_steps
     trained_by_mask = None if grad_mask is None else [
         bool((m != 0).any()) if torch.is_tensor(m) else m != 0 for m in tree_leaves(grad_mask)]
 
     def train_step(state: TrainState, batch: dict):
         params = state.params
+        m = _mesh_of(mesh, params)
         trained = trained_by_mask or [True] * len(tree_leaves(params))
-        b = to_device(batch, tree_leaves(params)[0].device)
+        b = to_device(batch, m.device)
         if k > 1:
             micro = [{key: v[i] for key, v in b.items()} for i in range(k)]
             seeds = [step_seed(cfg.seed, state.step, i) for i in range(k)]
         else:
             micro, seeds = [b], [step_seed(cfg.seed, state.step)]
         loss, grads = mean_grads(params, trained,
-                                 lambda mb, gen: loss_fn(params, model_cfg, mb, compute_dtype, gen), micro, seeds)
+                                 lambda mb, gen: loss_fn(params, model_cfg, mb, compute_dtype, gen, m), micro, seeds,
+                                 m)
         if grad_mask is not None:
             grads = apply_grad_mask(grads, grad_mask)
-        updates, opt_state = opt.update(grads, state.opt_state, params)
+        norm = global_norm(grads, m)
+        updates, opt_state = opt.update(grads, state.opt_state, params, norm)
         if grad_mask is not None:
             updates = apply_grad_mask(updates, grad_mask)
         apply_updates(params, updates)
-        return TrainState(params, opt_state, state.step + 1), {"loss": loss, "grad_norm": global_norm(grads)}
+        return TrainState(params, opt_state, state.step + 1), {"loss": loss, "grad_norm": norm}
 
     return train_step
 
 
-def make_eval_step(model_cfg: TransformerConfig, compute_dtype=torch.bfloat16):
-    """-> eval_step(params, batch) -> the loss (a 0-d tensor), no dropout."""
+def make_eval_step(model_cfg: TransformerConfig, compute_dtype=torch.bfloat16, mesh: pmesh.Mesh | None = None):
+    """-> eval_step(params, batch) -> the loss (a 0-d tensor), no dropout.
+    ``mesh``: this rank's shards and the global batch, as ``make_train_step``
+    takes them; the loss is the global mean on every rank."""
 
     @torch.no_grad()
     def eval_step(params, batch):
-        dev = tree_leaves(params)[0].device
-        return loss_fn(params, model_cfg, to_device(batch, dev), compute_dtype)
+        m = _mesh_of(mesh, params)
+        loss = loss_fn(params, model_cfg, to_device(batch, m.device), compute_dtype, None, m)
+        if m.data_group is not None:
+            dist.all_reduce(loss, group=m.data_group)
+        return loss
 
     return eval_step
 
@@ -452,22 +541,25 @@ def split_view(frozen: Any, train: Any) -> Any:
 
 
 def make_finetune_step(model_cfg: TransformerConfig, cfg: FinetuneConfig, opt: AdamW, frozen: Any,
-                       compute_dtype=torch.bfloat16):
+                       compute_dtype=torch.bfloat16, mesh: pmesh.Mesh | None = None):
     """-> step(state, batch) -> (state, {"loss", "grad_norm"}) over the
     trainable tail only (``state.params`` is ``split_trainable``'s trainable
     tree). As in the JAX package, the step takes one batch (no accumulation)
-    and draws dropout from the step's seed."""
-    frozen_leaves = tree_leaves(frozen)
+    and draws dropout from the step's seed. ``mesh``: sharded training, the
+    tail and ``frozen`` split from this rank's shards (``make_train_step``)."""
 
     def step(state: TrainState, batch: dict):
         train = state.params
-        b = to_device(batch, frozen_leaves[0].device)
+        m = _mesh_of(mesh, frozen)
+        b = to_device(batch, m.device)
         trained = [True] * len(tree_leaves(train))
         loss, grads = mean_grads(train, trained,
-                                 lambda mb, gen: loss_fn(split_view(frozen, train), model_cfg, mb, compute_dtype, gen),
-                                 [b], [step_seed(cfg.seed, state.step)])
-        updates, opt_state = opt.update(grads, state.opt_state, train)
+                                 lambda mb, gen: loss_fn(split_view(frozen, train), model_cfg, mb, compute_dtype, gen,
+                                                         m),
+                                 [b], [step_seed(cfg.seed, state.step)], m)
+        norm = global_norm(grads, m)
+        updates, opt_state = opt.update(grads, state.opt_state, train, norm)
         apply_updates(train, updates)
-        return TrainState(train, opt_state, state.step + 1), {"loss": loss, "grad_norm": global_norm(grads)}
+        return TrainState(train, opt_state, state.step + 1), {"loss": loss, "grad_norm": norm}
 
     return step

@@ -211,7 +211,7 @@ def world():
     models = _models()
     box = {}
     runner = threading.Thread(target=lambda: box.update(ranks=pmesh.spawn(_world, 4, args=(models,), timeout=120,
-                                                                          deadline=400)))
+                                                                          devices=["cpu"] * 4, deadline=400)))
     runner.start()
     try:
         refs = _jax_references(models)
@@ -415,5 +415,5 @@ def _one_rank_fails(rank):
 def test_a_failed_rank_ends_the_run_quickly():
     t0 = time.monotonic()
     with pytest.raises(ValueError, match="before its first reduction"):
-        pmesh.spawn(_one_rank_fails, 2, timeout=60, deadline=120)
+        pmesh.spawn(_one_rank_fails, 2, devices=["cpu"] * 2, timeout=60, deadline=120)
     assert time.monotonic() - t0 < 30

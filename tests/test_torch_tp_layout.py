@@ -11,7 +11,8 @@ one process (no ranks spawned):
 * ``make_tp_cache``: each rank's cache (bf16, int8, packed; batch over the
   data group or not) equals the matching shard of JAX's ``make_tp_cache``
   on the virtual 8-device CPU mesh, scale tables included;
-* ``shard_params`` against JAX's ``param_specs`` placement;
+* ``shard_params`` against JAX's ``param_specs`` placement of its serving
+  layout (qkv in head blocks), the embeddings whole;
 * the mesh arithmetic (``process_batch_slice``, the multihost topology
   rule) against JAX's, as ``tests/test_sharding.py`` drives it;
 * ``aot.abstract_params`` at full scale (24L/2048d) for tp 2, 4 and 8: each
@@ -196,21 +197,32 @@ def test_make_tp_cache_matches_jax_shards(models, fmt, tp, batch, data_sharded):
     assert kv.k.shape == local.k.shape and (kv.k_scale is None or kv.k_scale.shape == local.k_scale.shape)
 
 
-@pytest.mark.parametrize("name", ["swiglu", "gelu"])
+@pytest.mark.parametrize("name", ["swiglu", "gelu", "gqa"])
 def test_shard_params_follows_jax_param_specs(models, name):
+    """``shard_params``'s layer shards are JAX's ``param_specs`` placement of
+    its serving layout (qkv permuted into head blocks,
+    ``permute_qkv_cols``): rank t's leaf is device t's shard, bit for bit.
+    The embeddings, the speaker projection and the final norm stay whole on
+    every rank, where JAX splits the first two over their feature dim."""
     cfg, jcfg, p, pn = models[name]
     tp = 2
     jm = jmesh.make_mesh(8, tensor_parallel=tp)
-    placed = jsh.shard_params(jax.tree.map(jnp.asarray, pn), jcfg, jm)
-    want = _leaves({k: v for k, v in placed.items() if k not in ("wtes",)})
+    layers = dict(pn["layers"])
+    for k in ("wqkv", "wqkv_b"):
+        if k in layers:
+            layers[k] = jtpd.permute_qkv_cols(jnp.asarray(layers[k]), jcfg, tp)
+    placed = jsh.shard_params(jax.tree.map(jnp.asarray, {**pn, "layers": layers}), jcfg, jm)
+    want = _leaves(placed["layers"])
     for t in range(tp):
         mesh = pmesh.Mesh(tp, 4, t, 0, (0, 1), None, None, torch.device("cpu"))
         got = psh.shard_params(p, cfg, mesh)
-        assert torch.equal(got["wtes"][0], torch.from_numpy(_jax_shard_of(placed["wtes"][0], jm, 0, t)))
-        got = _leaves({k: v for k, v in got.items() if k != "wtes"})
-        assert got.keys() == want.keys()
+        assert _leaves(got["layers"]).keys() == want.keys()
         for k, arr in want.items():
-            _same_bits(got[k], _jax_shard_of(arr, jm, 0, t), f"{k} t{t}")
+            _same_bits(got["layers"][k], _jax_shard_of(arr, jm, 0, t), f"{k} t{t}")
+        for k, w in p.items():
+            if k != "layers":
+                for i, (a, b) in enumerate(zip(*((v if isinstance(v, list) else [v]) for v in (got[k], w)))):
+                    _same_bits(a, b.numpy(), f"{k} {i} t{t}")
 
 
 def test_mesh_arithmetic_matches_jax():

@@ -363,6 +363,7 @@ def test_port_imports_no_jax():
         "import metavoice_tpu_torch.parallel.sharding\n"
         "import metavoice_tpu_torch.parallel.tp_decode\n"
         "import metavoice_tpu_torch.parallel.aot\n"
+        "import metavoice_tpu_torch.parallel.dryrun\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'metavoice_tpu', 'optax', 'orbax', 'pandas')]\n"

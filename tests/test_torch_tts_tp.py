@@ -183,7 +183,7 @@ def ranks(tmp_path_factory, ref_wav):
     torch.save(cs.gpt_checkpoint(comps.second_stage_params, comps.second_stage_cfg), files["second"])
     torch.save(cs.speaker_checkpoint(torch, lambda *shape: torch.from_numpy(
         (rng.standard_normal(shape) * 0.1).astype(np.float32)))[0], files["spk"])
-    return pmesh.spawn(_tts_rank, 2, args=(out, ref_wav, files), timeout=120, deadline=400)
+    return pmesh.spawn(_tts_rank, 2, args=(out, ref_wav, files), devices=["cpu"] * 2, timeout=120, deadline=400)
 
 
 def test_tp_synthesise_writes_wav_on_the_leader(ranks):
