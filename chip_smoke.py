@@ -15,9 +15,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
                pos): y within atol/rtol 2e-2 of the plain version (f32
                inside, rounded to bf16), caches bit-identical, the new row
                written, one launch counted and one device kernel a call
-               (from the graph of one call); each case's plan; per layer from a CUDA
-               graph at pos 256, 1000 and 2047 beside SDPA on the same
-               window, the plain version and the bound;
+               (from the graph of one call); each case's window bucket's
+               plan; the slot read on the device (a 0-d int32 tensor, as a
+               replayed decode step reads it) gives the host-int call's bits
+               in every case; per layer from a CUDA graph at pos 255, 256,
+               1000 and 2047, host int and device pos, beside SDPA on the
+               same window, the plain version and the bound;
   4. small   - the first stage on the card (f32) against the CPU path on a
                small model with the same weights and Gumbel noise: same tokens;
   5. synth   - full-width TTS.synthesise on random weights (first stage
@@ -405,9 +408,20 @@ Phases, one line each; any failure exits non-zero and prints no result:
                no kernel launched; ms a step a rank, the reductions' share,
                peak memory a rank beside aot.abstract_train_state's bytes
                (four ranks sharing one card: no DP or TP time).
+ 60. graph-decode - first_stage.decode's CUDA-graph step (the K1, K3 and
+               K7 routes) against its eager loop, decode_eager, at full
+               width in bf16, int4 and int8: 192 tokens in four segments
+               whose pos crosses every K1 window bucket (384, 512, 1024)
+               and reaches the cache's end, a ragged batch of 4 with
+               per-row starts and knobs, 3-row guidance, two calls at
+               other temperature and top-p, and engine-shaped segments
+               (2 slots, a generator's draws): tokens, lengths and caches
+               bit for bit, the launch counts equal; a capture before any
+               eager call raises; ms a token of both loops over three
+               calls each (192 steps from pos 128, the CFG pair).
 
-Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45, 47, 51, 54 and 57 are the main paths: every kernel count is
-set to 0 just before each and read just after; in 58-59 each rank sets them to 0 before its steps and
+Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45, 47, 51, 54, 57 and 60 are the main paths: every
+kernel count is set to 0 just before each and read just after; in 58-59 each rank sets them to 0 before its steps and
 reads them 0 after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions
@@ -428,7 +442,7 @@ import time
 
 MAIN_SHAPE = dict(l=24, s=2048, b=2, h=16, dh=128)
 K1_TOL = 2e-2
-TIMED_POS = (256, 1000, 2047)  # the JSON line carries the last one
+TIMED_POS = (255, 256, 1000, 2047)  # the JSON line carries the last one
 K2_TOL = 1e-3
 # K3 over 24 layers: the two versions round at the same points, but their f32
 # sums run in other orders, so a bf16 rounding can land one ulp apart; a layer
@@ -691,20 +705,30 @@ def phase_k1(torch) -> dict:
     # NaN past pos in a window of 4 splits
     cases += [(100, None, None), (383, None, None), (511, None, None), (1023, (256, 767), None),
               (1500, (1, 1499), float("nan"))]
+    # the window buckets' edges: the last slot of one bucket and the first of the next
+    cases += [(p, None, None) for p in (384, 512, 1024)]
     max_err = 0.0
     plans = {}
     for pos, starts, garbage in cases:
         q, k_new, v_new, kc, vc = _k1_inputs(torch, gen, dev, pos, garbage)
         st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
         kc_ref, vc_ref = kc.clone(), vc.clone()
+        kc_dev, vc_dev = kc.clone(), vc.clone()
         y_ref, _, _ = A.decode_attention_reference(q, k_new, v_new, kc_ref, vc_ref, layer, pos, st)
         before = A.decode_attention.launches
         y, _, _ = A.decode_attention(q, k_new, v_new, kc, vc, layer, pos, st)
+        # the slot read on the device, as a replayed step reads it, in the same window bucket
+        window = A.attention_window(pos + 1, kc.shape[1])
+        y_dev, _, _ = A.decode_attention(q, k_new, v_new, kc_dev, vc_dev, layer,
+                                         torch.tensor(pos, dtype=torch.int32, device=dev), st, window=window)
         torch.cuda.synchronize()
         what = f"pos {pos} starts {starts} garbage {garbage}"
-        if A.decode_attention.launches != before + 1:
-            fail(f"K1 counted {A.decode_attention.launches - before} launches for one call at {what}")
-        plans[pos + 1] = A.attention_plan(pos + 1, rows, 1)
+        if A.decode_attention.launches != before + 2:
+            fail(f"K1 counted {A.decode_attention.launches - before} launches for two calls at {what}")
+        if not all(torch.equal(a.view(torch.int16), c.view(torch.int16))
+                   for a, c in ((y, y_dev), (kc, kc_dev), (vc, vc_dev))):
+            fail(f"K1 with pos on the device differs from the host-int call at {what}")
+        plans[pos + 1] = A.attention_plan(window, rows, 1)
         if not torch.isfinite(y).all():
             fail(f"K1 output not finite at {what}")
         if not (torch.equal(kc.view(torch.int16), kc_ref.view(torch.int16))
@@ -722,6 +746,9 @@ def phase_k1(torch) -> dict:
     q, k_new, v_new, kc, vc = _k1_inputs(torch, gen, dev)
     n_layer = MAIN_SHAPE["l"]
     kernel_name = _one_kernel(torch, lambda: A.decode_attention(q, k_new, v_new, kc, vc, 0, TIMED_POS[-1]), "K1")
+    pos_t = torch.zeros((), dtype=torch.int32, device=dev)
+    _one_kernel(torch, lambda: A.decode_attention(q, k_new, v_new, kc, vc, 0, pos_t, window=kc.shape[1]),
+                "K1 with pos on the device")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt = q[:, :, None, :]
     for pos in TIMED_POS:
@@ -731,27 +758,32 @@ def phase_k1(torch) -> dict:
         library, _ = _layers_ms(torch, lambda li: sdpa(qt, kt[li], vt[li]), n_layer)
         del kt, vt
         kernel = _layers_ms(torch, lambda li: A.decode_attention(q, k_new, v_new, kc, vc, li, pos), n_layer)
+        pos_t.fill_(pos)
+        window = A.attention_window(pos + 1, kc.shape[1])
+        on_device, _ = _layers_ms(torch, lambda li: A.decode_attention(q, k_new, v_new, kc, vc, li, pos_t,
+                                                                       window=window), n_layer)
         plain = _layers_ms(
             torch, lambda li: A.decode_attention_reference(q, k_new, v_new, kc, vc, li, pos), n_layer
         )
-        times[pos] = (kernel, plain, library)
+        times[pos] = (kernel, plain, library, on_device)
     window_bytes = lambda p: 2 * (p + 1) * q.numel() * q.element_size()  # noqa: E731
     row = q.numel() * q.element_size()  # one (B, H, Dh) bf16 row
     # read q, k_new, v_new and the window; write the cache row pair and y
     bounds = {p: bound(window_bytes(p) + 3 * row + 2 * row + row, 4.0 * (p + 1) * q.numel(), F32_FLOP_S)
               for p in TIMED_POS}
     shown = "; ".join(
-        f"pos {p} (plan {plans.get(p + 1, A.attention_plan(p + 1, rows, 1))}): kernel {k[0]:.4f} ms "
-        f"({window_bytes(p) / k[0] / 1e6:.0f} GB/s), SDPA {lib:.4f}, plain {pl[0]:.4f}, bound {bounds[p][0]:.4f} "
-        f"on the device; {k[1]:.4f} / {pl[1]:.4f} ms a call from Python"
-        for p, (k, pl, lib) in times.items()
+        f"pos {p} (bucket {A.attention_window(p + 1, kc.shape[1])}, plan "
+        f"{A.attention_plan(A.attention_window(p + 1, kc.shape[1]), rows, 1)}): kernel {k[0]:.4f} ms "
+        f"({window_bytes(p) / k[0] / 1e6:.0f} GB/s), pos on the device {dv:.4f}, SDPA {lib:.4f}, plain {pl[0]:.4f}, "
+        f"bound {bounds[p][0]:.4f} on the device; {k[1]:.4f} / {pl[1]:.4f} ms a call from Python"
+        for p, (k, pl, lib, dv) in times.items()
     )
     print(f"[3 K1] {len(cases)} cases at {MAIN_SHAPE} bf16 agree (max |dy| {max_err:.3g}, tol {K1_TOL}; caches "
-          f"bit-identical, new rows written); one kernel a call ({kernel_name}); plans (window: split_len, "
-          f"splits): {plans}; per layer, device time from a CUDA graph (SDPA on the pre-transposed window): "
-          f"{shown}")
+          f"bit-identical, new rows written; pos read on the device in its window bucket: the host-int call's "
+          f"bits); one kernel a call ({kernel_name}); bucket plans (window: split_len, splits): {plans}; per "
+          f"layer, device time from a CUDA graph (SDPA on the pre-transposed window): {shown}")
     pos = TIMED_POS[-1]
-    (ms, _), (plain, _), library = times[pos]
+    (ms, _), (plain, _), library, _ = times[pos]
     bound_ms, bound_by = bounds[pos]
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library}
@@ -799,7 +831,7 @@ def phase_small(torch):
 def counters() -> dict:
     """TTS.stats key -> (the kernel's wrapper, the wrapper's attribute that
     counts its launches): the table TTS.stats is kept from."""
-    from metavoice_tpu_torch.runtime.tts import KERNEL_COUNTERS
+    from metavoice_tpu_torch.ops.counters import KERNEL_COUNTERS
 
     return KERNEL_COUNTERS
 
@@ -855,6 +887,7 @@ def phase_synth(torch, workdir: str, ref: str) -> dict:
         fail(f"K1 launches {launches} != n_layer {cfg1.n_layer} x decode steps {steps}")
     if any(n for name, n in counts.items() if name != "k1_launches"):
         fail(f"the bf16 path launched quantized-weight kernels: {counts}")
+    check_stats(tts, counts, ("k1_launches",))
     wav = check_wav(path)
     stages = ", ".join(f"{k} {v:.3f}" for k, v in tts.timings.items())
     ms_tok = 1e3 * tts.timings["first_stage"] / max(steps, 1)
@@ -1295,7 +1328,7 @@ def phase_synth_quantized(torch, workdir: str, ref: str, mode, label: str, per_s
         want[matmul] += 5 * cfg1.n_layer * prefills
     if steps == 0 or counts != want:
         fail(f"[{label}] synthesise launched {counts}, expected {want}")
-    check_stats(tts, counts)
+    check_stats(tts, counts, per_step)
     wav = check_wav(path)
     stages = ", ".join(f"{k} {v:.3f}" for k, v in tts.timings.items())
     ms_tok = 1e3 * tts.timings["first_stage"] / max(steps, 1)
@@ -1658,10 +1691,22 @@ def phase_small8(torch):
     print(f"[13 small8] int8 first stages on the card vs the CPU path: {'; '.join(shown)}")
 
 
-def check_stats(tts, counts: dict):
-    """TTS.stats' kNN_launches must agree with the kernel counts."""
+# the kernels a decode step launches on the routes whose step is captured in a
+# CUDA graph (first_stage.DECODE_ROUTES): K1 a layer, K3 or K7 a step
+GRAPH_STEP_KERNELS = ({"k1_launches"}, {"k3_launches"}, {"k7_launches"})
+
+
+def check_stats(tts, counts: dict, step_kernels=None):
+    """TTS.stats' kNN_launches must agree with the kernel counts, and with
+    ``step_kernels`` (the kernels a decode step launches) its decode route
+    must be "graph" on a graph route and "eager" on any other."""
     if {key: tts.stats[key] for key in counts} != counts:
         fail(f"TTS.stats {tts.stats} disagrees with the kernel counts {counts}")
+    if step_kernels is not None:
+        want = "graph" if set(step_kernels) in GRAPH_STEP_KERNELS else "eager"
+        if tts.stats.get("decode_route") != want:
+            fail(f"a decode step of {sorted(step_kernels)} ran on the {tts.stats.get('decode_route')!r} route, "
+                 f"not {want!r}")
 
 
 def phase_profile(torch, tts, label: str, families: dict):
@@ -1926,7 +1971,7 @@ def phase_synth_route(torch, workdir: str, ref: str, label: str, tts, kernel: st
     want[kernel] = cfg1.n_layer * steps
     if steps == 0 or counts != want:
         fail(f"[{label}] launched {counts} in {steps} decode steps, expected {want}")
-    check_stats(tts, counts)
+    check_stats(tts, counts, (kernel,))
     wav = check_wav(path)
     ms_tok = 1e3 * tts.timings["first_stage"] / max(steps, 1)
     rows = tts._persistent_kv_cache(kw.get("guidance_scale", 3.0)).batch_size
@@ -2399,7 +2444,7 @@ def phase_synth_kv8(torch, workdir: str, ref: str, comps4, compared: dict) -> di
                     k2_launches=5 * cfg1.n_layer * prefills)
         if steps == 0 or counts != want:
             fail(f"int4 synthesise on a {fmt} cache launched {counts}, expected {want}")
-        check_stats(tts, counts)
+        check_stats(tts, counts, ("k5_launches", "k6_launches"))
         wav = check_wav(path)
         kv = tts._kv_cache
         cache_bytes = sum(t.numel() * t.element_size() for t in (kv.k, kv.v, kv.k_scale, kv.v_scale))
@@ -3139,12 +3184,12 @@ def plain_versions() -> dict:
     from metavoice_tpu_torch.ops import decode_stack as DS
     from metavoice_tpu_torch.ops import quantized as Q
 
-    def decode_attention(q, k_new, v_new, kc, vc, layer, pos, starts=None):
+    def decode_attention(q, k_new, v_new, kc, vc, layer, pos, starts=None, window=None):
         if k_new.shape[1] != q.shape[1]:  # GQA: K4's plain version at T = 1, as the wrapper routes it
             y, kc, vc = A.decode_attention_multi_reference(q[:, :, None], k_new[:, :, None], v_new[:, :, None],
                                                            kc, vc, layer, pos, starts)
             return y[:, :, 0], kc, vc
-        return A.decode_attention_reference(q, k_new, v_new, kc, vc, layer, pos, starts)
+        return A.decode_attention_reference(q, k_new, v_new, kc, vc, layer, pos, starts, window)
 
     mods = {name: mod for mod, names in ((A, ("decode_attention_multi", "decode_attention_block_int4",
                                               "decode_attention_block_int8")),
@@ -3157,9 +3202,26 @@ def plain_versions() -> dict:
 
 
 @contextlib.contextmanager
+def eager_loop():
+    """first_stage.decode swapped for its plain version, decode_eager (the
+    same loop, every step run eagerly from Python), so that what wraps a
+    step's Python calls (the wrappers, the sampler) sees every step; the
+    CUDA graphs of the K1, K3 and K7 routes replay none of them."""
+    from metavoice_tpu_torch.models import first_stage as fs
+
+    saved = fs.decode
+    fs.decode = fs.decode_eager
+    try:
+        yield
+    finally:
+        fs.decode = saved
+
+
+@contextlib.contextmanager
 def plain_path():
     """Every kernel wrapper the block stack calls swapped for its plain
-    version: the CPU path's math on the card, no kernel launched."""
+    version: the CPU path's math on the card, no kernel launched (in the
+    eager loop: a graph captured before would replay its kernels)."""
     from metavoice_tpu_torch.models import transformer as tfm
 
     plain = plain_versions()
@@ -3167,7 +3229,8 @@ def plain_path():
     for name, fn in plain.items():
         setattr(tfm, name, fn)
     try:
-        yield
+        with eager_loop():
+            yield
     finally:
         for name, fn in saved.items():
             setattr(tfm, name, fn)
@@ -3201,7 +3264,8 @@ def captured_calls(torch, steps, step):
     for name, fn in saved.items():
         setattr(tfm, name, wrap(name, fn))
     try:
-        yield kept
+        with eager_loop():  # every step's calls, none replayed from a graph
+            yield kept
     finally:
         for name, fn in saved.items():
             setattr(tfm, name, fn)
@@ -3287,7 +3351,8 @@ def hold_captured(torch, label: str, kept: list, counts: dict) -> str:
 @contextlib.contextmanager
 def recorded_logits():
     """first_stage.sample_guided wrapped to keep the f32 logits of each of
-    its calls, in call order (call i draws every row's i-th token)."""
+    its calls, in call order (call i draws every row's i-th token), in the
+    eager loop (a step replayed from a CUDA graph calls no sampler)."""
     from metavoice_tpu_torch.models import first_stage as fs
 
     seen, sample = [], fs.sample_guided
@@ -3298,7 +3363,8 @@ def recorded_logits():
 
     fs.sample_guided = record
     try:
-        yield seen
+        with eager_loop():
+            yield seen
     finally:
         fs.sample_guided = sample
 
@@ -6312,6 +6378,278 @@ def phase_sharded_full_width(torch, smi: str, dev: str = "cuda", small: bool = F
     return {"ranks": ranks, "one": one}
 
 
+# ---------------------------------------------------------------- phase 60: the CUDA-graph decode step
+
+GRAPH_SEGMENTS = ((360, 48), (488, 48), (1000, 48), (2000, 60))  # (pos, steps): 192 tokens, pos crosses 384,
+# 512 and 1024 (K1's window buckets) and the last reaches the cache's end after 48 of its 60 steps
+GRAPH_TIMED = (128, 192)  # phase 60's timed loops: 192 steps from pos 128, the CFG pair
+GRAPH_RUNS = 3  # calls of each loop timed, in turns eager, graph, graph, eager, ...
+GRAPH_RAGGED = (0, 37, 90, 5)  # phase 60's batch of 4: each row's left padding
+GRAPH_ENGINE = (2, (0, 50), 3, 32)  # engine-shaped: slots, their left padding, segments, steps a segment
+
+
+def _graph_noise(torch, n: int, b: int, vocab: int, gen, dev, eoa_free: bool = False):
+    """(n, B, V) Gumbel noise drawn on the card; eoa_free: end-of-audio never drawn."""
+    from metavoice_tpu_torch.core import tokens as T
+
+    e = torch.empty((n, b, vocab), device=dev).exponential_(generator=gen)
+    noise = -torch.log(e.clamp_min(1e-30))
+    if eoa_free:
+        noise[..., T.END_OF_AUDIO_TOKEN] = -1e4
+    return noise
+
+
+def _filled(torch, cfg, rows: int, gen, dev):
+    """A bf16 cache of ``rows`` rows whose every slot holds N(0, 1) values, as after a prefill."""
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    kv = tfm.KVCache.create(cfg, rows, cfg.block_size, dtype=torch.bfloat16, device=dev)
+    for t in (kv.k, kv.v):
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    return kv
+
+
+def graph_vs_eager(torch, label: str, params, cfg, base, kv, cur, pos: int, n: int, spk, seed=None, **kw):
+    """One decode from (cur, pos) on ``base``'s contents by the graph loop
+    (on ``kv``, a cache kept across calls, so that its graphs serve them
+    all) and by the eager loop (on a copy): tokens, lengths and caches bit
+    for bit, the launch counts equal; ``seed``: each loop draws from a
+    generator of that seed, else ``kw`` holds the noise. -> (tokens,
+    lengths, the launch counts, the graph loop's route)."""
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    dev = cur.device
+    gens = [None if seed is None else torch.Generator(device=dev).manual_seed(seed) for _ in range(2)]
+    eager = tfm.KVCache(base.k.clone(), base.v.clone())
+    kv.k.copy_(base.k)
+    kv.v.copy_(base.v)
+    runs = []
+    for loop, cache, gen in ((fs.decode_eager, eager, gens[0]), (fs.decode, kv, gens[1])):
+        _zero_counts()
+        stats = {}
+        tokens, lengths = loop(params, cfg, cur, pos, cache, spk, n, generator=gen, stats=stats, **kw)
+        sync(torch, dev)
+        runs.append((tokens, lengths, read_counts(), stats))
+    (te, le, ce, se), (tg, lg, cg, sg) = runs
+    if not (_same_bits(torch, tg, te) and _same_bits(torch, lg, le)):
+        part = next((i for i in range(te.shape[1]) if not torch.equal(te[:, i], tg[:, i])), None)
+        fail(f"60 {label}: the graph loop's tokens part from the eager loop's at step {part}")
+    if not (_same_bits(torch, kv.k, eager.k) and _same_bits(torch, kv.v, eager.v)):
+        fail(f"60 {label}: the graph loop's cache differs from the eager loop's")
+    if cg != ce or se["decode_steps"] != sg["decode_steps"]:
+        fail(f"60 {label}: the graph loop credited {cg} in {sg['decode_steps']} steps, the eager loop launched "
+             f"{ce} in {se['decode_steps']}")
+    return tg, lg, cg, sg["decode_route"]
+
+
+def _timed_loops(torch, fs, params, cfg, kv, cur, spk, noise) -> dict:
+    """ms a token of the eager and the graph loop, GRAPH_RUNS calls each in
+    turns (eager, graph, graph, eager, ...), after one untimed call of the
+    graph loop (its first on ``kv``, a cache it has no graph of yet: an
+    eager warm step and the capture of its window bucket; "first_ms" is
+    its wall time, in ms)."""
+    pos, n = GRAPH_TIMED
+    ms = {"eager": [], "graph": []}
+    order = ["graph"] + [("eager", "graph", "graph", "eager")[i % 4] for i in range(2 * GRAPH_RUNS)]
+    for i, loop in enumerate(order):
+        stats = {}
+        sync(torch, cur.device)
+        t0 = time.perf_counter()
+        (fs.decode if loop == "graph" else fs.decode_eager)(params, cfg, cur, pos, kv, spk, n, noise=noise,
+                                                             stats=stats)
+        sync(torch, cur.device)
+        wall = 1e3 * (time.perf_counter() - t0)
+        if i:
+            ms[loop].append(wall / stats["decode_steps"])
+        else:
+            ms["first_ms"] = wall
+    return ms
+
+
+def graph_step_profile(torch, run, steps: int) -> str:
+    """Where a graph loop's device time goes: run() (``steps`` replayed
+    steps, ending in a synchronise) once unprofiled for its wall time, then
+    under torch.profiler -> the device's busy ms a step (the union of the
+    kernels' time ranges: kernels chained by programmatic dependent launch
+    overlap), its share of the wall, the kernels a step, and the kernels
+    that take most of the summed kernel time."""
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = 1e3 * (time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+    by, spans = {}, []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::|at::native::|<.*|\(.*", "", e.name)[:40]
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
+    if not spans:
+        return f"{wall / steps:.4f} ms a step of wall; the profiler saw no device time: busy share not measured"
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy /= 1e3
+    total = sum(by.values())
+    top = ", ".join(f"{k} {100 * v / total:.1f}%" for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:4])
+    return (f"device busy {busy / steps:.4f} ms a step, {100 * busy / wall:.1f}% of the unprofiled wall "
+            f"({wall / steps:.4f} ms a step), {len(spans) / steps:.0f} kernels a step; of the kernels' "
+            f"{total / steps:.4f} ms a step: {top}")
+
+
+def capture_before_eager_raises(torch, label: str, params, cfg, kv, cur, spk):
+    """With the device's merge counters not yet made, capturing the step
+    (a fresh graph set, no eager warm step) raises and makes none."""
+    from metavoice_tpu_torch.core import tokens as T
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.ops import attention as A
+    from metavoice_tpu_torch.ops import decode_stack as DS
+
+    spec = fs.StepSpec(2, T.END_OF_AUDIO_TOKEN, 0, torch.bfloat16)
+    graphs = fs.StepGraphs(spec, fs.init_state(cur, 100, spk, 4, spec), cfg.block_size, [], None)
+    tables = ((A, "_tickets"), (DS, "_stack_tickets"))
+    saved = [getattr(mod, name) for mod, name in tables]
+    for mod, name in tables:
+        setattr(mod, name, {})
+    try:
+        try:
+            graphs.capture(params, cfg, kv, cfg.block_size)
+        except RuntimeError as e:
+            if "eager call" not in str(e):
+                fail(f"60 {label}: a capture before any eager call raised another error: {e}")
+        else:
+            fail(f"60 {label}: a capture before any eager call did not raise")
+        if any(getattr(mod, name) for mod, name in tables):
+            fail(f"60 {label}: a refused capture made merge counters")
+    finally:
+        for (mod, name), table in zip(tables, saved):
+            setattr(mod, name, table)
+
+
+def phase_graph_decode(torch, dev: str = "cuda", small: bool = False) -> dict:
+    """60: the graph loop against the eager loop at full width in bf16
+    (K1), int4 (K3) and int8 (K7) -> {mode: {"eager": [ms a token], "graph": [...]}}."""
+    import numpy as np
+
+    from metavoice_tpu_torch.core import tokens as T
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import transformer as tfm
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    cfg = first_stage_config(**(dict(n_layer=2, n_head=8, dim=1024) if small else {}))
+    gen = torch.Generator(device=dev).manual_seed(60)
+    dense = tfm.init_params(cfg, device=dev, generator=gen, dtype=torch.bfloat16)
+    vocab = cfg.vocab_sizes[0]
+    eot = T.TEXT_OFFSET + 256  # an end-of-text above end-of-audio, for the third guidance group
+    results, shown = {}, []
+    for mode in (None, "int4", "int8"):
+        label = mode or "bf16"
+        params = {None: lambda: dense, "int4": lambda: Q.quantize_params_int4_i32(dense),
+                  "int8": lambda: Q.quantize_params_int8_i32(dense)}[mode]()
+        route = fs.step_route(params, cfg, 2, tfm.KVCache.create(cfg, 2, 16, device=dev))
+        want_route = "graph" if dev.type == "cuda" else "eager"
+        kernel = {"K1": "k1_launches", "K3": "k3_launches", "K7": "k7_launches"}[route]
+        per_step = cfg.n_layer if route == "K1" else 1
+        cur = torch.randint(0, T.END_OF_AUDIO_TOKEN, (1,), generator=gen, device=dev)
+        spk = torch.randn((1, cfg.speaker_emb_dim), generator=gen, device=dev)
+        base = _filled(torch, cfg, 2, gen, dev)
+        kv = tfm.KVCache.create(cfg, 2, cfg.block_size, dtype=torch.bfloat16, device=dev)
+        knobs = dict(temperature=1.0, top_p=0.95, guidance_scale=3.0)
+        # 192 tokens across every window bucket of K1, the last segment to the cache's end
+        total, launches = 0, 0
+        for pos, n in GRAPH_SEGMENTS:
+            noise = _graph_noise(torch, n, 1, vocab, gen, dev, eoa_free=True)  # every token compared
+            tokens, lengths, counts, got_route = graph_vs_eager(torch, f"{label} pos {pos}", params, cfg, base, kv,
+                                                                cur, pos, n, spk, noise=noise, **knobs)
+            steps = min(n, cfg.block_size - pos)
+            if got_route != want_route or int(lengths.max()) > steps:
+                fail(f"60 {label} pos {pos}: route {got_route}, {int(lengths.max())} tokens of {steps} steps")
+            total += int(lengths[0])
+            launches += counts[kernel]
+        # a ragged batch of 4 with starts and per-row knobs
+        b = len(GRAPH_RAGGED)
+        pads = torch.tensor(GRAPH_RAGGED, dtype=torch.int32, device=dev)
+        row = {"temperature": (1.0, 0.7, 1.3, 0.9), "top_p": (0.95, 0.8, 0.9, 1.0),
+               "guidance_scale": (3.0, 2.0, 1.5, 3.0)}
+        ragged = {k: torch.tensor(v, device=dev).reshape(b, 1) for k, v in row.items()}
+        base8 = _filled(torch, cfg, 2 * b, gen, dev)
+        kv8 = tfm.KVCache.create(cfg, 2 * b, cfg.block_size, dtype=torch.bfloat16, device=dev)
+        cur4 = torch.randint(0, T.END_OF_AUDIO_TOKEN, (b,), generator=gen, device=dev)
+        spk4 = torch.randn((b, cfg.speaker_emb_dim), generator=gen, device=dev)
+        graph_vs_eager(torch, f"{label} ragged batch of {b}", params, cfg, base8, kv8, cur4, 200, 32, spk4,
+                       pad_lens=pads, noise=_graph_noise(torch, 32, b, vocab, gen, dev), **ragged)
+        # 3-row guidance (speaker, prompt)
+        base3 = _filled(torch, cfg, 3, gen, dev)
+        kv3 = tfm.KVCache.create(cfg, 3, cfg.block_size, dtype=torch.bfloat16, device=dev)
+        graph_vs_eager(torch, f"{label} 3 rows", params, cfg, base3, kv3, cur, 300, 32, spk, cfg_rows=3,
+                       prompt_guidance_scale=1.5, end_of_text_token=eot,
+                       noise=_graph_noise(torch, 32, 1, vocab, gen, dev), **knobs)
+        # the knobs are refilled before each call: two calls at another temperature and top-p
+        noise = _graph_noise(torch, 24, 1, vocab, gen, dev)
+        outs = [graph_vs_eager(torch, f"{label} temperature {t}, top-p {p}", params, cfg, base, kv, cur, 700, 24,
+                               spk, noise=noise, temperature=t, top_p=p, guidance_scale=3.0)[0]
+                for t, p in ((1.0, 0.95), (0.05, 0.3))]
+        if torch.equal(outs[0], outs[1]):
+            fail(f"60 {label}: two calls at other temperature and top-p drew the same tokens")
+        # engine-shaped segments: slots' cache rows, left padding, per-row knobs, the generator's draws
+        slots, slot_pads, n_seg, seg = GRAPH_ENGINE
+        base_e = _filled(torch, cfg, 2 * slots, gen, dev)
+        kv_e, kv_g = (tfm.KVCache(base_e.k.clone(), base_e.v.clone()) for _ in range(2))
+        eng_knobs = {k: torch.tensor(v[:slots], device=dev).reshape(slots, 1) for k, v in row.items()}
+        gens = [torch.Generator(device=dev).manual_seed(61) for _ in range(2)]
+        curs = [torch.randint(0, T.END_OF_AUDIO_TOKEN, (slots,), generator=gen, device=dev)] * 2
+        spk_e = torch.randn((slots, cfg.speaker_emb_dim), generator=gen, device=dev)
+        pos = 128
+        for k in range(n_seg):
+            outs = []
+            for i, (loop, cache) in enumerate(((fs.decode_eager, kv_e), (fs.decode, kv_g))):
+                toks, lens = loop(params, cfg, curs[i], pos, cache, spk_e, seg, generator=gens[i],
+                                  pad_lens=torch.tensor(slot_pads, dtype=torch.int32, device=dev), **eng_knobs)
+                outs.append((toks, lens))
+            (te, le), (tg, lg) = outs
+            if not (torch.equal(te, tg) and torch.equal(le, lg)):
+                fail(f"60 {label}: engine-shaped segment {k}: the graph loop's tokens differ from the eager loop's")
+            last = (lg - 1).clamp(min=0)
+            curs = [t.gather(1, last[:, None])[:, 0] for t in (te, tg)]
+            pos += int(lg.max())
+        if not (_same_bits(torch, kv_e.k, kv_g.k) and torch.equal(gens[0].get_state(), gens[1].get_state())):
+            fail(f"60 {label}: engine-shaped segments left other caches or generator states")
+        if dev.type == "cuda":
+            capture_before_eager_raises(torch, label, params, cfg, kv, cur, spk)
+        # ms a token of both loops: 192 steps from pos 128, the CFG pair
+        noise = _graph_noise(torch, GRAPH_TIMED[1], 1, vocab, gen, dev, eoa_free=True)
+        ms = _timed_loops(torch, fs, params, cfg, base, cur, spk, noise)
+        results[label] = ms
+        spread = {k: (float(np.mean(ms[k])), min(ms[k]), max(ms[k])) for k in ("eager", "graph")}
+        steps = 64
+        profile = graph_step_profile(torch, lambda: (fs.decode(params, cfg, cur, GRAPH_TIMED[0], base, spk, steps,
+                                                               noise=noise), sync(torch, dev)), steps) \
+            if dev.type == "cuda" else "not profiled off the card"
+        shown.append(
+            f"{label} ({route}): {total} tokens over the {len(GRAPH_SEGMENTS)} segments equal, {launches} {route} "
+            f"launches credited ({per_step} a step), ragged, 3-row, two temperatures and {n_seg} engine-shaped "
+            f"segments equal; ms a token eager {spread['eager'][0]:.4f} (min {spread['eager'][1]:.4f}, max "
+            f"{spread['eager'][2]:.4f}), "
+            f"graph {spread['graph'][0]:.4f} (min {spread['graph'][1]:.4f}, max {spread['graph'][2]:.4f}), the "
+            f"graph loop's first call on a cache (an eager warm step and a capture) {ms['first_ms']:.1f} ms for "
+            f"{GRAPH_TIMED[1]} steps; graph profile: {profile}")
+        del params, base, kv, base8, kv8, base3, kv3, base_e, kv_e, kv_g
+        fs.release_graphs()
+        gc_collect()
+        empty_cache(torch, dev)
+    print(f"[60 graph-decode] {cfg.n_layer}L/{cfg.n_head}H/{cfg.dim}d, graph loop against the eager loop bit for "
+          f"bit (tokens, lengths, caches, launch counts), a capture before any eager call raising; "
+          + "; ".join(shown) + f"; {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 def gc_collect():
     import gc
 
@@ -6465,6 +6803,9 @@ def main() -> int:
         phase_sharded_small(torch)
         phase_sharded_full_width(torch, smi)
         print(f"[58-59 sharded training] {time.perf_counter() - t0:.1f} s")
+        gc_collect()
+        torch.cuda.empty_cache()
+        phase_graph_decode(torch)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # and, where a phase read it from the graph of one call, the kernels a call
     counted = ("kernels_a_call",)

@@ -12,7 +12,10 @@ noise G, drawn from an explicit ``torch.Generator``. Tests inject the noise
 ``temperature``, ``top_p`` and the guidance scales are Python scalars or
 tensors that broadcast against the logits' leading axes, as the JAX
 package's traced operands do: a ragged batch passes (B, 1) tensors, one
-value a row (models/first_stage.generate_batch).
+value a row (models/first_stage.generate_batch). Inside a CUDA-graph
+capture they must be tensors (the decode step's, refilled before each
+replay): a Python scalar would be baked into the graph, and a later call
+at another value would replay the old one, so it raises there.
 """
 
 from __future__ import annotations
@@ -22,10 +25,22 @@ import torch
 NEG_INF = -1e30  # finite "-inf" that keeps softmax numerics exact in bf16/f32
 
 
+def knob(value, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """A sampling knob (a Python scalar or a tensor) as a tensor on
+    ``like``'s device in ``dtype`` (default ``like``'s); a tensor that is
+    already so is returned as it is. A Python scalar during a CUDA-graph
+    capture raises: the graph would keep its value for every replay."""
+    dtype = dtype or like.dtype
+    if not isinstance(value, torch.Tensor) and like.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a sampling knob captured in a CUDA graph must be a device tensor refilled before "
+                           f"each replay, not the Python value {value!r}")
+    return torch.as_tensor(value, dtype=dtype, device=like.device)
+
+
 def apply_temperature(logits: torch.Tensor, temperature: float) -> torch.Tensor:
     """logits / max(temperature, 1e-5); reference fast_inference_utils.py:92.
     ``temperature``: a scalar or a (B, 1) tensor for (B, V) logits."""
-    t = torch.clamp(torch.as_tensor(temperature, dtype=logits.dtype, device=logits.device), min=1e-5)
+    t = torch.clamp(knob(temperature, logits), min=1e-5)
     return logits / t
 
 
@@ -45,7 +60,7 @@ def top_p_mask(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     (metavoice_tpu/core/sampling.py:47-80). ``top_p``: a scalar or a (B, 1)
     tensor; the cut and the tie rule hold row by row.
     """
-    top_p = torch.as_tensor(top_p, dtype=torch.float32, device=logits.device)
+    top_p = knob(top_p, logits, torch.float32)
     lf = logits.float()
     sorted_desc = torch.sort(lf, dim=-1, descending=True).values
     probs = torch.softmax(sorted_desc, dim=-1)
@@ -67,7 +82,7 @@ def cfg_merge(logits: torch.Tensor, guidance_scale: float) -> torch.Tensor:
     """(2B, V) [cond; uncond] -> (B, V): g * cond + (1 - g) * uncond; g a
     scalar or a (B, 1) tensor."""
     cond, uncond = torch.chunk(logits, 2, dim=0)
-    g = torch.as_tensor(guidance_scale, dtype=logits.dtype, device=logits.device)
+    g = knob(guidance_scale, logits)
     return g * cond + (1.0 - g) * uncond
 
 
@@ -76,8 +91,8 @@ def cfg_merge3(logits: torch.Tensor, spkemb_guidance_scale: float, prompt_guidan
     ``base * cond + (1 - g_spk) * uncond_spk + (1 - g_prompt) * uncond_prompt``
     with ``base = g_spk + g_prompt - 1`` (reference fam/llm/mixins/causal.py:89-105)."""
     cond, uncond_spk, uncond_prompt = torch.chunk(logits, 3, dim=0)
-    g_s = torch.as_tensor(spkemb_guidance_scale, dtype=logits.dtype, device=logits.device)
-    g_p = torch.as_tensor(prompt_guidance_scale, dtype=logits.dtype, device=logits.device)
+    g_s = knob(spkemb_guidance_scale, logits)
+    g_p = knob(prompt_guidance_scale, logits)
     base = g_s + g_p - 1.0
     return base * cond + (1.0 - g_s) * uncond_spk + (1.0 - g_p) * uncond_prompt
 

@@ -44,6 +44,6 @@ extern "C" int mv_decode_attention_multi(int dtype, const void* q, const void* k
                                          void* part, void* tickets, int n_tickets, void* y,
                                          void* stream) {
   return decode_attention_onepass(dtype, q, k_new, v_new, k_cache, v_cache, starts, batch, n_head,
-                                  n_kv_head, t_q, head_dim, seq_len, layer, pos, split_len,
+                                  n_kv_head, t_q, head_dim, seq_len, layer, pos, nullptr, split_len,
                                   n_splits, part, tickets, n_tickets, y, stream);
 }

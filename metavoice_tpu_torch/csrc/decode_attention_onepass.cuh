@@ -75,7 +75,10 @@
 // The launch sets no state that a replay would find stale (the kernels'
 // attributes are set once, before their first launch; the merge tickets are
 // left at 0), synchronises nothing, and so is captured in a CUDA graph like
-// any kernel. Calls that share a device's tickets run one after another on
+// any kernel. K1 may read its slot from the device (pos_dev): its plan then
+// covers the window up to a.pos, the bucket's last slot, a split wholly past
+// the slot leaving an empty partial, so one captured launch serves every
+// slot of the bucket. Calls that share a device's tickets run one after another on
 // one stream, as the port's callers do.
 
 #pragma once
@@ -129,7 +132,8 @@ struct OnePassArgs {
   int bkv;    // B * H_kv: kv rows per cache slot
   int seq_len;
   int layer;
-  int pos;
+  int pos;              // the first new row's slot; with pos_dev, the last slot pos_dev may name
+  const int* pos_dev;   // K1 only: nullptr, or the new row's slot, read on the device
   int split_len;
   float scale;  // log2(e) / sqrt(Dh): scores in the log2 domain, weights exp2(s - max)
   float* part;   // splits > 1: f32 partials of every (kv row, query group) and split (merge_splits)
@@ -232,19 +236,19 @@ __device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
 // (called once the block's first copies are in flight). Every 16-byte chunk
 // is loaded before any is stored, so the loads overlap.
 template <typename T, int DH, int THREADS>
-__device__ __forceinline__ void write_new_rows(const OnePassArgs<T>& a, size_t base, size_t pos_stride,
+__device__ __forceinline__ void write_new_rows(const OnePassArgs<T>& a, int pos, size_t base, size_t pos_stride,
                                                const T* kn, const T* vn, int sp_lo, int sp_hi) {
   constexpr int V = 16 / sizeof(T);
   constexpr int PER = (kCMaxT * DH / V + THREADS - 1) / THREADS;  // chunks a thread at most
-  const int w_lo = max(sp_lo, a.pos);
-  const int n = max(min(sp_hi, a.pos + a.t_q) - w_lo, 0) * DH / V;  // chunks to write
+  const int w_lo = max(sp_lo, pos);
+  const int n = max(min(sp_hi, pos + a.t_q) - w_lo, 0) * DH / V;  // chunks to write
   uint4 kv[PER], vv[PER];
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int c = threadIdx.x + k * THREADS;
     if (c < n) {
-      kv[k] = reinterpret_cast<const uint4*>(kn + (size_t)(w_lo - a.pos) * DH)[c];
-      vv[k] = reinterpret_cast<const uint4*>(vn + (size_t)(w_lo - a.pos) * DH)[c];
+      kv[k] = reinterpret_cast<const uint4*>(kn + (size_t)(w_lo - pos) * DH)[c];
+      vv[k] = reinterpret_cast<const uint4*>(vn + (size_t)(w_lo - pos) * DH)[c];
     }
   }
 #pragma unroll
@@ -440,7 +444,9 @@ attn_row_kernel(OnePassArgs<T, std::conditional_t<NEW == kRowK1, T, __nv_bfloat1
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int pos = a.pos;
+  // K1 in a CUDA graph reads the slot on the device; its plan covers the
+  // window up to a.pos, and a split wholly past pos leaves an empty partial
+  const int pos = kBlock || a.pos_dev == nullptr ? a.pos : *a.pos_dev;
   const size_t pos_stride = (size_t)a.bkv * DH;  // elements from slot s to s + 1 (packed: word row)
   // blocks: the kv row, b * H_kv + h / kv_group
   const int kv = kBlock ? b * (a.n_kv_head / a.kv_group) + hkv / a.kv_group : r;
@@ -515,7 +521,7 @@ attn_row_kernel(OnePassArgs<T, std::conditional_t<NEW == kRowK1, T, __nv_bfloat1
     uint4 q_raw[NCH];  // the query's loads, in flight with the new row's
 #pragma unroll
     for (int c = 0; c < NCH; ++c) q_raw[c] = reinterpret_cast<const uint4*>(a.q + (size_t)r * DH)[lg + 8 * c];
-    write_new_rows<T, DH, kCThreads>(a, base, pos_stride, kn, vn, sp_lo, sp_lo + a.split_len);
+    write_new_rows<T, DH, kCThreads>(a, pos, base, pos_stride, kn, vn, sp_lo, sp_lo + a.split_len);
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       to_floats<V>(reinterpret_cast<const T*>(&q_raw[c]), qf + c * V);
@@ -801,7 +807,7 @@ __global__ void __launch_bounds__(kGThreads) attn_simt_kernel(OnePassArgs<T> a) 
     if (i < n_tiles) load_tile(i, i);
     cp_async_commit();
   }
-  if (blockIdx.z == 0) write_new_rows<T, DH, kGThreads>(a, base, pos_stride, kn, vn, sp_lo, sp_hi);
+  if (blockIdx.z == 0) write_new_rows<T, DH, kGThreads>(a, a.pos, base, pos_stride, kn, vn, sp_lo, sp_hi);
 
   // the lane group's query for scoring: 8 lanes, EQ elements each
   const int grp = tid >> 3;
@@ -1052,7 +1058,7 @@ __global__ void __launch_bounds__(kCThreads) attn_mma_kernel(OnePassArgs<__nv_bf
     if (i < mine) load_tile(i, i);
     cp_async_commit();
   }
-  if (blockIdx.z == 0) write_new_rows<T, DH, kCThreads>(a, base, pos_stride, kn, vn, sp_lo, sp_hi);
+  if (blockIdx.z == 0) write_new_rows<T, DH, kCThreads>(a, a.pos, base, pos_stride, kn, vn, sp_lo, sp_hi);
   cp_async_wait<kMStages - 1>();  // the queries' group, the oldest
   __syncthreads();
   uint32_t qa[KS][4];  // Q's A fragments
@@ -1258,8 +1264,8 @@ cudaError_t launch_onepass(const OnePassArgs<T>& a, int n_splits, cudaStream_t s
 template <typename T, int DH>
 cudaError_t attention_onepass(const void* q, const void* k_new, const void* v_new, void* k_cache,
                               void* v_cache, const int* starts, int batch, int n_head, int n_kv_head,
-                              int t_q, int seq_len, int layer, int pos, int split_len, int n_splits,
-                              float* part, int* tickets, void* y, cudaStream_t stream) {
+                              int t_q, int seq_len, int layer, int pos, const int* pos_dev, int split_len,
+                              int n_splits, float* part, int* tickets, void* y, cudaStream_t stream) {
   OnePassArgs<T> a;
   a.q = static_cast<const T*>(q);
   a.k_new = static_cast<const T*>(k_new);
@@ -1277,6 +1283,7 @@ cudaError_t attention_onepass(const void* q, const void* k_new, const void* v_ne
   a.seq_len = seq_len;
   a.layer = layer;
   a.pos = pos;
+  a.pos_dev = pos_dev;
   a.split_len = split_len;
   a.scale = (float)(1.4426950408889634 / sqrt((double)DH));  // log2(e) / sqrt(Dh)
   a.part = part;
@@ -1341,14 +1348,18 @@ cudaError_t attention_block(const float* qkv, int q_bstride, void* k_cache, void
 // it). part: with n_splits > 1, f32 scratch of at least (batch * n_kv_head *
 // query groups * n_splits * 16 * (head_dim + 2)) values, query groups =
 // ceil(t_q * n_head / n_kv_head / 16); tickets: n_tickets int32 counters,
-// all 0, left 0. Checks the shape and the plan, then launches. Returns a
-// cudaError_t.
+// all 0, left 0. pos_dev: nullptr, or (K1: T = 1, MHA) an int32 on the
+// device holding the new row's slot, which the caller keeps in [0, pos]:
+// pos is then the last slot of the window the plan covers, so one launch
+// serves every slot of that window (a CUDA graph replayed step after step).
+// Checks the shape and the plan, then launches. Returns a cudaError_t.
 inline int decode_attention_onepass(int dtype, const void* q, const void* k_new, const void* v_new,
                                     void* k_cache, void* v_cache, const void* starts, int batch,
                                     int n_head, int n_kv_head, int t_q, int head_dim, int seq_len,
-                                    int layer, int pos, int split_len, int n_splits, void* part,
-                                    void* tickets, int n_tickets, void* y, void* stream) {
+                                    int layer, int pos, const void* pos_dev, int split_len, int n_splits,
+                                    void* part, void* tickets, int n_tickets, void* y, void* stream) {
   const long long n = (long long)pos + t_q;
+  if (pos_dev != nullptr && (t_q != 1 || n_kv_head != n_head)) return (int)cudaErrorInvalidValue;
   if (t_q < 1 || t_q > kCMaxT || n_kv_head < 1 || n_head % n_kv_head != 0 || pos < 0 ||
       n > seq_len || split_len < 1 || n_splits < 1 || n_splits > kCMaxSplits ||
       (long long)split_len * n_splits < n)
@@ -1358,8 +1369,9 @@ inline int decode_attention_onepass(int dtype, const void* q, const void* k_new,
     return (int)cudaErrorInvalidValue;
   const int* st = static_cast<const int*>(starts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MV_ARGS q, k_new, v_new, k_cache, v_cache, st, batch, n_head, n_kv_head, t_q, seq_len, \
-                layer, pos, split_len, n_splits, static_cast<float*>(part), static_cast<int*>(tickets), y, s
+#define MV_ARGS q, k_new, v_new, k_cache, v_cache, st, batch, n_head, n_kv_head, t_q, seq_len, layer, pos, \
+                static_cast<const int*>(pos_dev), split_len, n_splits, static_cast<float*>(part),               \
+                static_cast<int*>(tickets), y, s
   if (dtype == 0 && head_dim == 128) return (int)attention_onepass<__nv_bfloat16, 128>(MV_ARGS);
   if (dtype == 0 && head_dim == 64) return (int)attention_onepass<__nv_bfloat16, 64>(MV_ARGS);
   if (dtype == 1 && head_dim == 128) return (int)attention_onepass<float, 128>(MV_ARGS);

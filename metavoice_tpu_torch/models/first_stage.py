@@ -32,9 +32,21 @@ its int8 form where its conditions hold, then the bf16 tied head
 and FFN kernels and the bf16 tied head; with other weights the dequantizing
 plain path. Prefill keeps the bf16 tied head, as in the JAX package.
 Speculative decoding is models/spec_decode.py.
+
+The loop's step is ``decode_step`` on a ``DecodeState`` of device tensors
+(JAX's ``one_step`` on its carry). On the card, the step of the main path's
+routes (K1, K3, K7: ``DECODE_ROUTES``) is captured in a CUDA graph and
+replayed, the device-resident counterpart of JAX's single ``while_loop``
+program; ``decode_eager`` is the same loop run eagerly.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
+import weakref
+from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,6 +55,9 @@ from metavoice_tpu_torch.core import sampling as S
 from metavoice_tpu_torch.core import tokens as T
 from metavoice_tpu_torch.core.config import TransformerConfig
 from metavoice_tpu_torch.models import transformer as tfm
+from metavoice_tpu_torch.ops.attention import attention_window
+from metavoice_tpu_torch.ops.counters import KERNEL_COUNTERS, launch_counts
+from metavoice_tpu_torch.ops.quantized import is_int4, is_int4_grouped, is_int8_i32, is_int8_plain
 
 DONE_CHECK_EVERY = 16  # decode steps between host reads of the EOA latch
 
@@ -189,6 +204,392 @@ def check_guidance(guidance_scale, end_of_text_token: int, end_of_audio_token: i
     return spk_g, prompt_g, cfg_rows
 
 
+# --------------------------------------------------------------------------------------
+# The decode loop: a step on device tensors, captured in a CUDA graph on the card
+# --------------------------------------------------------------------------------------
+#
+# As in the JAX package's ``_decode_fn``: the loop's carry is a ``DecodeState``
+# of device tensors and ``decode_step`` is its ``one_step``; it reads nothing
+# back to the host. On the card the step of a graph route (``DECODE_ROUTES``)
+# is captured in a CUDA graph once a (route, rows, cache, weights, window
+# bucket), after an eager warm step of that bucket, and replayed: one replay
+# is one step, so the host knows ``pos`` without reading it and picks the
+# bucket (K1's plan, ``ops/attention.attention_window``) from it. The host
+# reads the end-of-audio latch every ``DONE_CHECK_EVERY`` steps and stops at
+# ``min(max_steps, S - pos)`` steps, as the eager loop does: no replay writes
+# past the cache. A capture or a replay that fails raises; a route runs
+# eagerly only because the table says so.
+#
+# One decode stream a device: the kernels' merge counters (K1's, K3/K7's)
+# and K3/K7's per-shape scratch are baked into the graphs, so no eager step
+# on another stream and no second replay may overlap a replay (they would
+# race with no error). Every caller decodes on its thread's current stream,
+# one call at a time (runtime/engine.py keeps its renders to PyTorch's own
+# kernels on their streams).
+
+# The T = 1 step's routes (``step_route``) and how each runs on the card:
+# "graph" (``decode_step`` captured and replayed) or "eager" (the loop of
+# ``decode_step`` calls), with the reason.
+DECODE_ROUTES = {
+    "K1": "graph",  # dense weights on a float cache, MHA: K1 a layer, planned at the window bucket
+    "K3": "graph",  # int4 words: the whole-stack kernel and its fused head
+    "K7": "graph",  # int8 words: the whole-stack kernel, then the bf16 head
+    "K5/K6": "eager",  # int4 on a quantized cache: block_plan(..., pos) cuts each call on the host
+    "K9/K10": "eager",  # plain int8: block_plan(..., pos) on the host (K11 + K1/K4 where K9 does not take it)
+    "K12/K13+K1": "eager",  # groupwise int4: five product calls a layer, not captured yet
+    "K8+K1": "eager",  # int8 words the stack kernel does not take: K8 a projection, not captured yet
+    "int4-unfused": "eager",  # int4 neither fused kernel takes: K2 a projection, not captured yet
+    "GQA": "eager",  # dense GQA: K4 at T = 1 takes pos on the host
+    "dequant-cache": "eager",  # dense or int8 weights on a quantized cache: the dequantizing plain path
+    "TP": "eager",  # tensor parallel: the group's reductions run through the host (gloo)
+    "spec": "eager",  # the speculative round (models/spec_decode.py): a host loop, not decode's
+}
+
+
+def step_route(params: tfm.Params, cfg: TransformerConfig, rows: int, kv_cache: tfm.KVCache, tp=None) -> str:
+    """The route of a T = 1 step of ``rows`` cache rows, as
+    ``transformer.apply_blocks`` takes it: a key of :data:`DECODE_ROUTES`."""
+    if tp is not None:
+        return "TP"
+    layers = params["layers"]
+    dtype = kv_cache.k.dtype
+    if any(is_int4(w) for w in layers.values()):
+        return {"stack": "K3", "layers": "K5/K6", "unfused": "int4-unfused"}[
+            tfm.int4_decode_route(params, cfg, rows, dtype)]
+    if tfm.int8_stack_ok(params, cfg, rows, dtype):
+        return "K7"
+    if kv_cache.quantized:
+        return "dequant-cache"
+    for route, test in (("K9/K10", is_int8_plain), ("K12/K13+K1", is_int4_grouped), ("K8+K1", is_int8_i32)):
+        if any(test(w) for w in layers.values()):
+            return route
+    return "GQA" if cfg.n_local_heads != cfg.n_head else "K1"
+
+
+def step_window(route: str, pos: int, seq_len: int) -> int:
+    """The window bucket a step at ``pos`` is planned and captured at: K1's
+    ``attention_window(pos + 1)`` on the K1 route, whose plan depends on it;
+    the whole cache on the others (K3/K7 plan over it, pos-free)."""
+    return attention_window(pos + 1, seq_len) if route == "K1" else seq_len
+
+
+def window_buckets(route: str, seq_len: int) -> list[int]:
+    """Every window bucket of a route's steps on a cache of ``seq_len`` slots."""
+    out = [step_window(route, 0, seq_len)]
+    while out[-1] < seq_len:
+        out.append(step_window(route, out[-1], seq_len))
+    return out
+
+
+class StepSpec(NamedTuple):
+    """What a step bakes in: the guidance rows and the tokens it compares."""
+
+    cfg_rows: int
+    end_of_audio_token: int
+    end_of_text_token: int
+    compute_dtype: torch.dtype
+
+
+@dataclass
+class DecodeState:
+    """The decode loop's carry on the device (JAX's ``DecodeState``). Every
+    field is updated in place by :func:`decode_step`, so a step captured in
+    a CUDA graph on a state replays on it; the knobs are refilled before a
+    call, never baked in."""
+
+    cur: torch.Tensor  # (B,) int64: each row's last sampled token, not yet in the cache
+    pos: torch.Tensor  # () int32: the slot of the next cache write
+    step: torch.Tensor  # () int64: steps run, the column of ``tokens`` the next step writes
+    done: torch.Tensor  # (B,) bool: the end-of-audio latch
+    tokens: torch.Tensor  # (B, n) int64: the sampled tokens, EOA where none was written
+    lengths: torch.Tensor  # (B,) int64: tokens each row emitted, EOA included
+    temperature: torch.Tensor  # (B, 1) f32
+    top_p: torch.Tensor  # (B, 1) f32
+    guidance: torch.Tensor  # (B, 1) f32: the speaker scale
+    prompt_guidance: torch.Tensor  # (B, 1) f32: the prompt scale (3 rows)
+    spk_rows: torch.Tensor  # (cfg_rows*B, spk_dim): the guidance groups' speaker embeddings
+    cond_mask: torch.Tensor  # (cfg_rows*B, 1, 1): 1 on the speaker-conditioned groups
+    starts: torch.Tensor | None  # (cfg_rows*B,) int32: each row's first valid slot (a ragged batch)
+    noise: torch.Tensor | None  # (n, B, V): step i's Gumbel noise, in place of a generator's draw
+
+
+def _row_knob(v, b: int, device) -> torch.Tensor:
+    """A scalar, a length-B sequence or a tensor -> (B, 1) f32 on ``device``."""
+    if isinstance(v, torch.Tensor):
+        t = v.to(device=device, dtype=torch.float32).reshape(-1, 1)
+    else:
+        t = torch.as_tensor(np.asarray(v, np.float32).reshape(-1, 1), device=device)
+    return t.expand(b, 1)
+
+
+def init_state(cur_token, pos: int, spk_emb, n_steps: int, spec: StepSpec, *, temperature=1.0, top_p=0.95,
+               guidance_scale=3.0, prompt_guidance_scale=1.0, pad_lens=None, noise=None) -> DecodeState:
+    """A fresh carry on ``cur_token``'s device: ``n_steps`` token columns."""
+    b = cur_token.shape[0]
+    dev = cur_token.device
+    eoa = spec.end_of_audio_token
+    rows = spec.cfg_rows
+    return DecodeState(
+        cur=cur_token.to(torch.int64).clone(),
+        pos=torch.full((), pos, dtype=torch.int32, device=dev),
+        step=torch.zeros((), dtype=torch.int64, device=dev),
+        done=cur_token == eoa,
+        tokens=torch.full((b, n_steps), eoa, dtype=torch.int64, device=dev),
+        lengths=torch.zeros((b,), dtype=torch.int64, device=dev),
+        temperature=_row_knob(temperature, b, dev),
+        top_p=_row_knob(top_p, b, dev),
+        guidance=_row_knob(guidance_scale, b, dev),
+        prompt_guidance=_row_knob(prompt_guidance_scale, b, dev),
+        spk_rows=_cfg_rows(spk_emb, rows),
+        cond_mask=make_spk_cond_mask(b, rows, device=dev),
+        starts=None if pad_lens is None else _cfg_rows(pad_lens.to(device=dev, dtype=torch.int32), rows),
+        noise=None if noise is None else noise.to(dev),
+    )
+
+
+def decode_step(params: tfm.Params, cfg: TransformerConfig, kv_cache: tfm.KVCache, state: DecodeState,
+                spec: StepSpec, *, cache_pos: int | None = None, window: int | None = None,
+                generator: torch.Generator | None = None, tp=None) -> None:
+    """One T = 1 step of the loop (JAX's ``one_step``), in place on
+    ``state`` and the cache; it reads nothing back to the host. The step
+    embeds each row's token at its position (``pos``, minus its start in a
+    ragged batch), runs the blocks and the head, samples through the
+    guidance merge (temperature, top-p, the Gumbel draw: ``noise[step]`` or
+    ``generator``), latches end-of-audio (a row that is done emits EOA and
+    stops counting), writes ``tokens[:, step]`` and advances ``pos`` and
+    ``step``.
+
+    ``cache_pos`` None: the blocks take ``state.pos`` on the device (a
+    step captured in a CUDA graph on a graph route, planned at the window
+    bucket ``window``); an int: the host's copy of it (the eager loop, and
+    the routes whose kernels plan on the host).
+    """
+    positions = state.pos.long().reshape(1) if state.starts is None else (state.pos - state.starts).long()[:, None]
+    x = tfm.embed_inputs(
+        params, cfg, guidance_rows(state.cur[:, None], spec.cfg_rows, spec.end_of_text_token),
+        positions, state.spk_rows, state.cond_mask, spec.compute_dtype,
+    )
+    out, _, head_done = tfm.apply_blocks(
+        params, cfg, x, None, kv_cache, state.pos if cache_pos is None else cache_pos, attn_starts=state.starts,
+        fused_head=True, tp=tp, attn_window=window,
+    )
+    # head_done: the int4 stack fused the final norm and the int4 tied
+    # head, and `out` is already the (rows, V) f32 logits
+    logits = out if head_done else tfm.output_logits(params, cfg, out)[0][:, 0, :]
+    noise = None if state.noise is None else state.noise.index_select(0, state.step.reshape(1))[0]
+    sampled = sample_guided(logits, state.guidance, state.prompt_guidance, spec.cfg_rows, state.temperature,
+                            state.top_p, generator=generator, noise=noise)
+    nxt = torch.where(state.done, torch.full_like(sampled, spec.end_of_audio_token), sampled)  # done rows stay on EOA
+    state.tokens.index_copy_(1, state.step.reshape(1), nxt[:, None])
+    state.lengths.add_((~state.done).to(state.lengths.dtype))
+    state.done.logical_or_(nxt == spec.end_of_audio_token)
+    state.cur.copy_(nxt)
+    state.pos.add_(1)
+    state.step.add_(1)
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree if isinstance(tree, (list, tuple)) else ()
+    return [t for item in items for t in _leaves(item)]
+
+
+_graph_lock = threading.Lock()
+_graph_sets: dict[tuple, "StepGraphs"] = {}
+_capture_streams: dict = {}  # device -> the side stream captures run on
+
+
+class StepGraphs:
+    """The CUDA graphs of one decode step shape: a route, a cache, a weight
+    tree, the rows, the guidance and the source of the draws; one graph a
+    window bucket, all on one static :class:`DecodeState` that a call loads
+    and reads back. It holds weak references to the cache and the weights
+    (their addresses are baked into the graphs): once either is gone the
+    set is dropped. Replays run on the caller's current stream; a set's
+    graphs share one private memory pool, which is safe because their steps
+    never overlap and keep nothing in it from one step to the next.
+
+    Draws from a generator run on a generator of the set's own, registered
+    with every graph: a call copies the caller's generator's state in and
+    back out, so the caller's generator advances as the eager loop's would
+    and graphs captured under one generator serve every call."""
+
+    def __init__(self, spec: StepSpec, template: DecodeState, seq_len: int, tensors: list,
+                 generator: torch.Generator | None):
+        self.spec = spec
+        self._refs = [weakref.ref(t) for t in tensors]
+        dev = template.cur.device
+        b = template.cur.shape[0]
+        self.state = DecodeState(
+            cur=torch.zeros_like(template.cur), pos=torch.zeros_like(template.pos),
+            step=torch.zeros_like(template.step), done=torch.zeros_like(template.done),
+            tokens=torch.full((b, seq_len), spec.end_of_audio_token, dtype=torch.int64, device=dev),
+            lengths=torch.zeros_like(template.lengths),
+            temperature=torch.zeros((b, 1), device=dev), top_p=torch.zeros((b, 1), device=dev),
+            guidance=torch.zeros((b, 1), device=dev), prompt_guidance=torch.zeros((b, 1), device=dev),
+            spk_rows=torch.zeros_like(template.spk_rows), cond_mask=torch.zeros_like(template.cond_mask),
+            starts=None if template.starts is None else torch.zeros_like(template.starts),
+            noise=None if template.noise is None else torch.zeros(
+                (seq_len, *template.noise.shape[1:]), dtype=template.noise.dtype, device=dev),
+        )
+        self.generator = None if generator is None else torch.Generator(device=dev)
+        self.graphs: dict[int, tuple] = {}  # window -> (CUDAGraph, [(wrapper, counter, launches a replay)])
+
+    def alive(self) -> bool:
+        return all(r() is not None for r in self._refs)
+
+    def load(self, state: DecodeState, generator: torch.Generator | None) -> None:
+        """Copy a fresh carry (and the caller's generator's state) in."""
+        s = self.state
+        for name in ("cur", "pos", "step", "done", "lengths", "temperature", "top_p", "guidance",
+                     "prompt_guidance", "spk_rows", "cond_mask", "starts"):
+            dst = getattr(s, name)
+            if dst is not None:
+                dst.copy_(getattr(state, name))
+        s.tokens.fill_(self.spec.end_of_audio_token)
+        if s.noise is not None:
+            n = min(state.noise.shape[0], s.noise.shape[0])
+            s.noise[:n].copy_(state.noise[:n])
+        if self.generator is not None:
+            self.generator.set_state(generator.get_state())
+
+    def unload(self, generator: torch.Generator | None, n_steps: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (tokens (B, n_steps), lengths (B,)), copies of the static
+        carry's; the caller's generator takes the set's state back."""
+        if self.generator is not None:
+            generator.set_state(self.generator.get_state())
+        s = self.state
+        keep = min(n_steps, s.tokens.shape[1])
+        tokens = torch.full((s.tokens.shape[0], n_steps), self.spec.end_of_audio_token, dtype=torch.int64,
+                            device=s.tokens.device)
+        tokens[:, :keep] = s.tokens[:, :keep]
+        return tokens, s.lengths.clone()
+
+    def step(self, params, cfg, kv_cache, window: int) -> None:
+        """One step at the window bucket ``window``: a replay (crediting the
+        captured step's kernel launches), or, the first time, an eager warm
+        step, then the capture of the next."""
+        entry = self.graphs.get(window)
+        if entry is None:
+            decode_step(params, cfg, kv_cache, self.state, self.spec, window=window, generator=self.generator)
+            self.graphs[window] = self.capture(params, cfg, kv_cache, window)
+            return
+        graph, credits = entry
+        graph.replay()
+        for fn, attr, n in credits:
+            setattr(fn, attr, getattr(fn, attr) + n)
+
+    def capture(self, params, cfg, kv_cache, window: int) -> tuple:
+        """Capture one step at ``window`` on a side stream -> (graph, its
+        launches a replay). A capture launches nothing: the wrappers'
+        counters are put back, and each replay credits what they counted.
+        Raises when the step cannot be captured (a merge counter table that
+        no eager call has made yet: ``ops/quantized.merge_tickets``)."""
+        dev = self.state.cur.device
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        if dev not in _capture_streams:
+            _capture_streams[dev] = torch.cuda.Stream(dev)
+        # the set's graphs share the first one's memory pool (a pool lives while a graph of it does)
+        pool = next(iter(self.graphs.values()))[0].pool() if self.graphs else torch.cuda.graph_pool_handle()
+        side, current = _capture_streams[dev], torch.cuda.current_stream(dev)
+        side.wait_stream(current)
+        credits: list = []
+        try:
+            with uncounted(credits), torch.cuda.stream(side):
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    decode_step(params, cfg, kv_cache, self.state, self.spec, window=window,
+                                generator=self.generator)
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+        finally:
+            current.wait_stream(side)
+        return graph, credits
+
+
+@contextlib.contextmanager
+def uncounted(credits: list):
+    """Count no launch inside: every wrapper's counter is put back after,
+    and ``credits`` receives what they counted, as (wrapper, counter
+    attribute, launches)."""
+    before = launch_counts()
+    try:
+        yield
+    finally:
+        after = launch_counts()
+        for key, (fn, attr) in KERNEL_COUNTERS.items():
+            setattr(fn, attr, before[key])
+            if after[key] != before[key]:
+                credits.append((fn, attr, after[key] - before[key]))
+
+
+def step_graphs(params: tfm.Params, cfg: TransformerConfig, kv_cache: tfm.KVCache, route: str, spec: StepSpec,
+                state: DecodeState, generator: torch.Generator | None) -> StepGraphs:
+    """The graph set of this step shape, made on first use. Sets whose
+    cache or weights are gone are dropped first."""
+    tensors = _leaves(params) + [t for t in (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale)
+                                 if t is not None]
+    noise = None if state.noise is None else (tuple(state.noise.shape[1:]), state.noise.dtype)
+    key = (route, cfg, spec, tuple(state.cur.shape), state.starts is not None, noise, generator is not None,
+           str(state.cur.device), tuple(t.data_ptr() for t in tensors))
+    with _graph_lock:
+        for k in [k for k, g in _graph_sets.items() if not g.alive()]:
+            del _graph_sets[k]
+        graphs = _graph_sets.get(key)
+        if graphs is None:
+            graphs = _graph_sets[key] = StepGraphs(spec, state, kv_cache.max_seq_len, tensors, generator)
+    return graphs
+
+
+def release_graphs() -> None:
+    """Drop every captured decode step (their graphs and static carries)."""
+    with _graph_lock:
+        _graph_sets.clear()
+
+
+def _decode(params, cfg, cur_token, pos: int, kv_cache, spk_emb, max_steps: int, graphed: bool, *,
+            temperature=1.0, top_p=0.95, guidance_scale=3.0, cfg_rows: int = 2, prompt_guidance_scale: float = 1.0,
+            pad_lens=None, end_of_audio_token: int = T.END_OF_AUDIO_TOKEN, end_of_text_token: int = 0,
+            compute_dtype=torch.bfloat16, generator=None, noise=None, stats=None, tp=None):
+    """:func:`decode` (``graphed``: a graph route's steps replayed from its
+    CUDA graphs) or :func:`decode_eager`."""
+    seq_len = kv_cache.max_seq_len
+    n = max(0, min(max_steps, seq_len - pos))
+    if noise is not None and noise.shape[0] < n:
+        raise ValueError(f"noise holds {noise.shape[0]} draws, the loop may take {n} steps")
+    spec = StepSpec(cfg_rows, end_of_audio_token, end_of_text_token, compute_dtype)
+    route = step_route(params, cfg, cfg_rows * cur_token.shape[0], kv_cache, tp)
+    state = init_state(cur_token, pos, spk_emb, max_steps, spec, temperature=temperature, top_p=top_p,
+                       guidance_scale=guidance_scale, prompt_guidance_scale=prompt_guidance_scale,
+                       pad_lens=pad_lens, noise=noise)
+    graphs = None
+    if graphed and DECODE_ROUTES[route] == "graph":
+        graphs = step_graphs(params, cfg, kv_cache, route, spec, state, generator)
+        graphs.load(state, generator)
+        state = graphs.state
+    steps = 0
+    for step in range(n):
+        if step % DONE_CHECK_EVERY == 0 and bool(state.done.all()):
+            break
+        p = pos + step
+        if graphs is not None:
+            graphs.step(params, cfg, kv_cache, step_window(route, p, seq_len))
+        else:
+            decode_step(params, cfg, kv_cache, state, spec, cache_pos=p, generator=generator, tp=tp)
+        steps += 1
+    tokens, lengths = (state.tokens, state.lengths) if graphs is None else graphs.unload(generator, max_steps)
+    if stats is not None:
+        stats["decode_steps"] = stats.get("decode_steps", 0) + steps
+        stats["decode_route"] = "eager" if graphs is None else "graph"
+    return tokens, lengths
+
+
 @torch.inference_mode()
 def decode(
     params: tfm.Params,
@@ -222,55 +623,70 @@ def decode(
     when every row is done. The cache is written in place; the last sampled
     token is not in it yet (it is the next call's ``cur_token``).
 
+    Each step is :func:`decode_step`. On the card, a step of a graph route
+    (:data:`DECODE_ROUTES`, :func:`step_route`: K1, K3, K7) is a replay of
+    its CUDA graph (:class:`StepGraphs`), any other runs eagerly;
+    :func:`decode_eager` is the eager loop on every route, the plain
+    version the graphs are held to.
+
     ``pad_lens`` (B,) makes it the ragged batch's loop: row b's left
     padding, so its logical position is ``pos - pad_lens[b]`` and it
     attends ``[pad_lens[b], pos]`` (the kernels' ``starts``).
     ``temperature``, ``top_p`` and ``guidance_scale`` are scalars or (B, 1)
     tensors (per row). ``noise`` (n >= steps, B, V): the Gumbel noise of
-    each step's draw. ``stats["decode_steps"]`` adds the steps run. ``tp``:
-    the tensor group of a tensor-parallel stack (:func:`fill_cache`); every
-    rank runs the same steps and draws the same tokens (the same logits
-    after each reduction, the same seeded generator or noise).
+    each step's draw. ``stats["decode_steps"]`` adds the steps run and
+    ``stats["decode_route"]`` says "graph" or "eager". ``tp``: the tensor
+    group of a tensor-parallel stack (:func:`fill_cache`); every rank runs
+    the same steps and draws the same tokens (the same logits after each
+    reduction, the same seeded generator or noise).
     """
-    b = cur_token.shape[0]
-    device = cur_token.device
-    spk_rows = _cfg_rows(spk_emb, cfg_rows)
-    mask = make_spk_cond_mask(b, cfg_rows, device=device)
-    starts = None if pad_lens is None else _cfg_rows(pad_lens.to(device=device, dtype=torch.int32), cfg_rows)
-    slots = torch.arange(kv_cache.max_seq_len, device=device)
-    eoa = torch.full_like(cur_token, end_of_audio_token)
-    tokens = torch.full((b, max_steps), end_of_audio_token, dtype=torch.int64, device=device)
-    lengths = torch.zeros_like(cur_token)
-    done = cur_token == end_of_audio_token
-    cur = cur_token
-    steps = 0
-    for step in range(max(0, min(max_steps, kv_cache.max_seq_len - pos))):
-        if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
-            break
-        p = pos + step
-        positions = slots[p : p + 1] if starts is None else (p - starts).long()[:, None]
-        x = tfm.embed_inputs(
-            params, cfg, guidance_rows(cur[:, None], cfg_rows, end_of_text_token),
-            positions, spk_rows, mask, compute_dtype,
-        )
-        out, _, head_done = tfm.apply_blocks(params, cfg, x, None, kv_cache, p, attn_starts=starts, fused_head=True,
-                                             tp=tp)
-        # head_done: the int4 stack fused the final norm and the int4 tied
-        # head, and `out` is already the (rows, V) f32 logits
-        logits = out if head_done else tfm.output_logits(params, cfg, out)[0][:, 0, :]
-        sampled = sample_guided(
-            logits, guidance_scale, prompt_guidance_scale, cfg_rows, temperature, top_p,
-            generator=generator, noise=None if noise is None else noise[step],
-        )
-        nxt = torch.where(done, eoa, sampled)  # finished rows stay frozen on EOA
-        tokens[:, step] = nxt
-        lengths += (~done).to(lengths.dtype)
-        done = done | (nxt == end_of_audio_token)
-        cur = nxt
-        steps += 1
-    if stats is not None:
-        stats["decode_steps"] = stats.get("decode_steps", 0) + steps
-    return tokens, lengths
+    return _decode(params, cfg, cur_token, pos, kv_cache, spk_emb, max_steps, cur_token.device.type == "cuda",
+                   temperature=temperature,
+                   top_p=top_p, guidance_scale=guidance_scale, cfg_rows=cfg_rows,
+                   prompt_guidance_scale=prompt_guidance_scale, pad_lens=pad_lens,
+                   end_of_audio_token=end_of_audio_token, end_of_text_token=end_of_text_token,
+                   compute_dtype=compute_dtype, generator=generator, noise=noise, stats=stats, tp=tp)
+
+
+@torch.inference_mode()
+def decode_eager(params: tfm.Params, cfg: TransformerConfig, cur_token: torch.Tensor, pos: int,
+                 kv_cache: tfm.KVCache, spk_emb: torch.Tensor, max_steps: int, **kw):
+    """:func:`decode`'s plain version: the same loop and arguments, every
+    step an eager :func:`decode_step` given the host's ``pos`` (the kernels
+    still launch on the card). K1 plans an int ``pos`` at the bucket a
+    replay of its window was captured at, and K3/K7 read either on the
+    device, so on the card its steps give the replays' bits."""
+    return _decode(params, cfg, cur_token, pos, kv_cache, spk_emb, max_steps, False, **kw)
+
+
+@torch.inference_mode()
+def capture_decode_graphs(params: tfm.Params, cfg: TransformerConfig, kv_cache: tfm.KVCache, spk_emb, *,
+                          cfg_rows: int = 2, pad_lens: torch.Tensor | None = None,
+                          end_of_audio_token: int = T.END_OF_AUDIO_TOKEN, end_of_text_token: int = 0,
+                          compute_dtype=torch.bfloat16, generator: torch.Generator | None = None) -> int:
+    """Capture the decode step of this cache (its rows over ``cfg_rows``
+    guidance groups) at every window bucket, each after its eager warm
+    step: two steps from each bucket's first slot, the second a replay.
+    Those slots of the cache are overwritten (a prefill and the decode
+    rewrite every slot before any window reads it). ``spk_emb`` (B,
+    spk_dim). Returns the steps run; nothing runs on an eager route or off
+    the card."""
+    b = kv_cache.batch_size // cfg_rows
+    dev = kv_cache.k.device
+    route = step_route(params, cfg, kv_cache.batch_size, kv_cache)
+    if dev.type != "cuda" or DECODE_ROUTES[route] != "graph":
+        return 0
+    spk = (spk_emb if isinstance(spk_emb, torch.Tensor) else torch.as_tensor(np.asarray(spk_emb, np.float32)))
+    spk = spk.to(device=dev, dtype=torch.float32).reshape(b, -1)
+    cur = torch.zeros((b,), dtype=torch.int64, device=dev)  # not end-of-audio: the loop runs
+    stats: dict = {}
+    lo = 0
+    for window in window_buckets(route, kv_cache.max_seq_len):
+        decode(params, cfg, cur, lo, kv_cache, spk, min(2, window - lo), cfg_rows=cfg_rows, pad_lens=pad_lens,
+               end_of_audio_token=end_of_audio_token, end_of_text_token=end_of_text_token,
+               compute_dtype=compute_dtype, generator=generator, stats=stats)
+        lo = window
+    return stats.get("decode_steps", 0)
 
 
 def _budget(cfg: TransformerConfig, used: int, max_new_tokens: int | None, noise, what: str) -> int:
@@ -322,7 +738,7 @@ def generate(
     given, receives ``decode_steps``: the T=1 forwards run (each launches the
     decode-attention kernel once per layer on the card, or the decode-stack
     kernel once with int4 weights and with int8 ones that meet its
-    conditions). ``tp``: the tensor group of a tensor-parallel run
+    conditions), and ``decode_route`` (:func:`decode`). ``tp``: the tensor group of a tensor-parallel run
     (parallel/tp_decode.tp_generate): ``params``, ``cfg`` and ``kv_cache``
     are this rank's shards, local view and heads.
     """
@@ -350,7 +766,7 @@ def generate(
         stats=run, tp=tp, **guided,
     )
     if stats is not None:
-        stats["decode_steps"] = run["decode_steps"]
+        stats.update(run)
     n = int(lengths[0])
     return np.concatenate([
         np.asarray(prompt_tokens, np.int32),

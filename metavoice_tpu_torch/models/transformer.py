@@ -754,11 +754,12 @@ def _window_mask(cache_pos: int, t: int, seq_len: int, starts, device):
 
 
 def _attention_block(xa, lp: Params, cfg: TransformerConfig, li: int, mask, kv_cache: KVCache | None, cache_pos,
-                     attn_starts, int8_block: bool, tp=None):
+                     attn_starts, int8_block: bool, tp=None, attn_window=None):
     """One layer's attention and o-proj of the normed input xa (B, T, D) as
     ``apply_blocks`` routes it -> (B, T, D) in xa's dtype; the cache is
     updated in place. ``tp``: the o-proj's partial sums are reduced over
-    the tensor group before its bias."""
+    the tensor group before its bias. ``attn_window``: the decode
+    attention's window bucket (``apply_blocks``)."""
     t = xa.shape[1]
     if int8_block:
         w, wo = lp["wqkv"], lp["wo"]
@@ -782,6 +783,7 @@ def _attention_block(xa, lp: Params, cfg: TransformerConfig, li: int, mask, kv_c
             li,
             cache_pos,
             starts=attn_starts,
+            **({} if attn_window is None else {"window": attn_window}),
         )
         y = y3.reshape(xa.shape[0], 1, cfg.n_head * cfg.head_dim).to(xa.dtype)
     elif t <= MULTI_MAX_T:
@@ -818,12 +820,12 @@ def _dropout(x, rate: float, keep):
 
 
 def _block(x, lp: Params, cfg: TransformerConfig, li: int, mask, kv_cache: KVCache | None, cache_pos, attn_starts,
-           int8_block: bool, keep=None, tp=None):
+           int8_block: bool, keep=None, tp=None, attn_window=None):
     """One layer: x + attention(norm(x)), then + MLP(norm(h)); ``keep`` (the
     attention and MLP branches' dropout masks) drops each branch. Under TP
     with autograd, each normed input passes Megatron's f (``_tp_copy``)."""
     xa = _tp_copy(_norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg.norm_type, cfg.norm_eps), tp)
-    a = _attention_block(xa, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block, tp)
+    a = _attention_block(xa, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block, tp, attn_window)
     if keep is not None:
         a = _dropout(a, cfg.dropout, keep[0])
     h = x + a
@@ -861,6 +863,7 @@ def apply_blocks(
     dropout_generator: torch.Generator | None = None,
     tp=None,
     dropout_rows: tuple[int, int] | None = None,
+    attn_window: int | None = None,
 ):
     """Run the L-layer block stack and the final norm -> (x, kv_cache).
 
@@ -873,7 +876,11 @@ def apply_blocks(
       Packed int4/int8 projections run through their matmul kernels;
     * cache, T = 1 (decode): ``decode_attention`` writes the row and attends
       over the window [attn_starts, cache_pos] (GQA: through
-      ``decode_attention_multi``); ``mask`` is not used. Where
+      ``decode_attention_multi``); ``mask`` is not used. ``cache_pos`` may
+      be a one-element int32 tensor on the device there (the CUDA-graph
+      step of ``first_stage.decode``) on the routes that read it on the
+      device: ``decode_attention`` (MHA on a float cache, planned at the
+      bucket ``attn_window``) and the int4 / int8 decode-stack kernels. Where
       ``int8_block_ok`` holds (plain int8), each layer's attention block is
       one ``decode_attention_block_int8`` call instead. With int4 layer
       weights the step runs as ``int4_decode_route`` says: all layers in
@@ -957,7 +964,7 @@ def apply_blocks(
             x = checkpoint(_block, x, lp, cfg, li, mask, None, None, None, False, keep, tp, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _block(x, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block, keep, tp)
+            x = _block(x, lp, cfg, li, mask, kv_cache, cache_pos, attn_starts, int8_block, keep, tp, attn_window)
     x = _norm(x, params["ln_f_w"], params.get("ln_f_b"), cfg.norm_type, cfg.norm_eps)
     return (x, kv_cache, False) if fused_head else (x, kv_cache)
 

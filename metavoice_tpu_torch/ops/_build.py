@@ -35,7 +35,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # name -> (restype, argtypes) of every C entry point in csrc/
 _SIGNATURES = {
-    "mv_decode_attention": (_I, [_I] + [_P] * 6 + [_I] * 8 + [_P, _P, _I, _P, _P]),
+    "mv_decode_attention": (_I, [_I] + [_P] * 6 + [_I] * 6 + [_P] + [_I] * 2 + [_P, _P, _I, _P, _P]),
     "mv_decode_attention_multi": (_I, [_I] + [_P] * 6 + [_I] * 10 + [_P, _P, _I, _P, _P]),
     "mv_matmul_int4_i32": (_I, [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P]),
     "mv_matmul_int8_i32": (_I, [_P] * 4 + [_I] * 6 + [_P, _P, _P, _I, _P]),

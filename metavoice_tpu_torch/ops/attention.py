@@ -36,6 +36,11 @@ merge counters of the products (``decode_stack._stack_tickets``) and of the
 attention (``_tickets``) are per device and made by the first eager call,
 so calls on one device must not overlap in time (two streams, or two graph
 replays at once), and a CUDA-graph capture needs one eager call before it.
+K1 also takes ``pos`` as a one-element int32 tensor that the kernel reads on
+the device, planned at a window bucket (:func:`attention_window`): one
+launch captured in a CUDA graph then serves every slot of the bucket (the
+decode step of ``models/first_stage.py``), and an int ``pos`` in the same
+bucket gives the same bits.
 
 Layout: the cache is sequence-major ``(L, S, B, H_kv, Dh)`` as in
 ``models/transformer.py``. Every function updates the caches IN PLACE at
@@ -76,33 +81,61 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (64, 128)
 
 
-def decode_attention_reference(q, k_new, v_new, k_cache, v_cache, layer, pos, starts=None):
+def attention_window(n: int, seq_len: int) -> int:
+    """The window bucket K1 plans a call of ``n`` slots at (slots ``[0, n)``,
+    ``n = pos + 1``): ``ATTN_ONE_SPLIT`` up to that many slots, else the
+    power of two at or above ``n``; at most ``seq_len``. Every slot of a
+    bucket takes the bucket's plan (:func:`attention_plan` of its upper end,
+    a split wholly past ``pos`` left empty), so a step captured in a CUDA
+    graph serves the whole bucket, and an eager call gives its bits."""
+    w = ATTN_ONE_SPLIT if n <= ATTN_ONE_SPLIT else 1 << (n - 1).bit_length()
+    return min(w, seq_len)
+
+
+def _slot_tensor(pos, device) -> torch.Tensor:
+    """``pos`` (an int or a one-element tensor) as a (1,) int64 tensor on
+    ``device``, without reading a device tensor back to the host."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.full((1,), int(pos), dtype=torch.int64, device=device)
+
+
+def decode_attention_reference(q, k_new, v_new, k_cache, v_cache, layer, pos, starts=None, window=None):
     """Plain PyTorch version of the kernel: the CPU path and the card's oracle.
 
     Semantics of ``metavoice_tpu/ops/attention.py:decode_attention_reference``:
     write the new row, f32 scores scaled by 1/sqrt(Dh), -1e30 outside
     ``[starts[b], pos]``, softmax, f32 weighted sum, output in q's dtype.
-    Only slots ``[0, pos]`` enter the sums: the rest carry weight exactly 0
-    in the reference, and leaving them out keeps garbage (even NaN) beyond
-    ``pos`` out of the result. A start past ``pos`` is taken as ``pos``, as
-    in the kernel.
+    ``pos`` is an int or a one-element int tensor on q's device, read on
+    the device; the sums run over the kernel's window ``[0, window)``
+    (default: :func:`attention_window` of an int ``pos``, the whole cache
+    for a tensor), so an int and a tensor ``pos`` give the same bits. Slots
+    past ``pos`` carry weight exactly 0 and their values are zeroed first,
+    which keeps garbage (even NaN) beyond ``pos`` out of the result. A
+    start past ``pos`` is taken as ``pos``, as in the kernel.
     """
     dh = q.shape[-1]
-    k_cache[layer, pos] = k_new.to(k_cache.dtype)
-    v_cache[layer, pos] = v_new.to(v_cache.dtype)
-    lk = k_cache[layer, : pos + 1].float()  # (pos+1, B, H, Dh)
-    lv = v_cache[layer, : pos + 1].float()
+    seq_len = k_cache.shape[1]
+    if window is None:
+        window = seq_len if isinstance(pos, torch.Tensor) else attention_window(int(pos) + 1, seq_len)
+    p = _slot_tensor(pos, q.device)
+    k_cache[layer].index_copy_(0, p, k_new[None].to(k_cache.dtype))
+    v_cache[layer].index_copy_(0, p, v_new[None].to(v_cache.dtype))
+    slot = torch.arange(window, device=q.device)
+    live = slot <= p  # (window,)
+    lk = k_cache[layer, :window].float()  # (window, B, H, Dh)
+    lv = torch.where(live[:, None, None, None], v_cache[layer, :window].float(), 0.0)
     s = torch.einsum("bhd,sbhd->bhs", q.float(), lk) / math.sqrt(dh)
+    valid = live[None, None, :]
     if starts is not None:
-        slot = torch.arange(pos + 1, device=q.device)
-        valid = slot[None, None, :] >= starts.clamp(max=pos)[:, None, None]
-        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        valid = valid & (slot[None, None, :] >= torch.minimum(starts, p)[:, None, None])
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     y = torch.einsum("bhs,sbhd->bhd", p, lv)
     return y.to(q.dtype), k_cache, v_cache
 
 
-def _check(q, k_new, v_new, k_cache, v_cache, layer, pos, starts):
+def _check(q, k_new, v_new, k_cache, v_cache, layer, pos, starts, window=None):
     """Shapes of one call, T = 1 (3-D q) or T (4-D q): raise on a mismatch."""
     b, h, *t, dh = q.shape
     h_kv = k_new.shape[1] if k_new.dim() == q.dim() else -1
@@ -117,8 +150,16 @@ def _check(q, k_new, v_new, k_cache, v_cache, layer, pos, starts):
             f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}"
         )
     n_new = t[0] if t else 1
-    if not (0 <= layer < k_cache.shape[0] and 0 <= pos and pos + n_new <= k_cache.shape[1]):
+    if isinstance(pos, torch.Tensor):  # read on the device: the window bounds it
+        if pos.numel() != 1 or pos.dtype != torch.int32 or pos.device != q.device or n_new != 1:
+            raise ValueError(f"a device pos is one int32 on {q.device} for one new row, got "
+                             f"{tuple(pos.shape)} {pos.dtype} on {pos.device}")
+        if not (0 <= layer < k_cache.shape[0] and (window is None or 0 < window <= k_cache.shape[1])):
+            raise ValueError(f"layer {layer} / window {window} outside cache {tuple(k_cache.shape)}")
+    elif not (0 <= layer < k_cache.shape[0] and 0 <= pos and pos + n_new <= k_cache.shape[1]):
         raise ValueError(f"layer {layer} / rows [{pos}, {pos + n_new}) outside cache {tuple(k_cache.shape)}")
+    elif window is not None and not pos < window <= k_cache.shape[1]:
+        raise ValueError(f"window {window} must hold pos {pos} and fit the cache {tuple(k_cache.shape)}")
     tensors = (q, k_new, v_new, k_cache, v_cache)
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"all tensors must share one device, got {[t.device for t in tensors]}")
@@ -228,13 +269,19 @@ def _block_scratch(plan: BlockPlan, b: int, d: int, qout: int, rows: int, device
             merge_tickets(_tickets, ATTN_TICKETS, device, who))
 
 
-def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, starts=None):
+def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos, starts=None, *, window: int | None = None):
     """One decode-attention step for one layer: ``(y (B, H, Dh), k_cache, v_cache)``.
 
     q, k_new, v_new: (B, H, Dh); caches: (L, S, B, H, Dh), updated in place
     at (layer, pos); starts: optional (B,) int per-row first valid slot, on
-    q's device (a start past ``pos`` is taken as ``pos``). ``layer`` and
-    ``pos`` are ints.
+    q's device (a start past ``pos`` is taken as ``pos``). ``layer`` is an
+    int; ``pos`` an int, or a one-element int32 tensor on q's device that
+    the kernel reads on the device (MHA only), so that one launch captured
+    in a CUDA graph serves every slot of its window. ``window``: the window
+    bucket ``[0, window)`` the call is planned at (:func:`attention_plan`
+    of it); it must hold ``pos``. Default: :func:`attention_window` of an
+    int ``pos``; a tensor ``pos`` without it takes the whole cache. An int
+    and a tensor ``pos`` in one window give the same bits.
 
     A CUDA tensor launches the hand-written kernel or raises; a CPU tensor
     takes :func:`decode_attention_reference`. ``decode_attention.launches``
@@ -243,22 +290,28 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, st
     the card, counted in ``decode_attention_multi.launches``.
     """
     if q.dim() == 3 and k_new.dim() == 3 and k_new.shape[1] != q.shape[1]:
+        if isinstance(pos, torch.Tensor):
+            raise ValueError("GQA decode attention (K4) takes pos as an int")
         y4, k_cache, v_cache = decode_attention_multi(
             q[:, :, None], k_new[:, :, None], v_new[:, :, None], k_cache, v_cache, layer, pos, starts
         )
         return y4[:, :, 0], k_cache, v_cache
     if q.dim() != 3:
         raise ValueError(f"q must be (B, H, Dh), got {tuple(q.shape)}")
-    _check(q, k_new, v_new, k_cache, v_cache, layer, pos, starts)
+    _check(q, k_new, v_new, k_cache, v_cache, layer, pos, starts, window)
+    seq_len = k_cache.shape[1]
+    device_pos = isinstance(pos, torch.Tensor)
+    if window is None:
+        window = seq_len if device_pos else attention_window(pos + 1, seq_len)
     if q.device.type == "cpu":
-        return decode_attention_reference(q, k_new, v_new, k_cache, v_cache, layer, pos, starts)
+        return decode_attention_reference(q, k_new, v_new, k_cache, v_cache, layer, pos, starts, window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
     b, h, dh = q.shape
     _check_kernel_inputs("decode_attention", (q, k_new, v_new, k_cache, v_cache))
     if starts is not None:
         starts = starts.to(torch.int32).contiguous()
-    split_len, n_splits = attention_plan(pos + 1, b * h, 1)
+    split_len, n_splits = attention_plan(window, b * h, 1)
     part, tickets = _onepass_scratch(n_splits, b * h, 1, dh, q.device)
     y = torch.empty_like(q)
     err = _build.kernels().lib.mv_decode_attention(
@@ -266,7 +319,8 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, st
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(),
         None if starts is None else starts.data_ptr(),
-        b, h, dh, k_cache.shape[1], layer, pos, split_len, n_splits,
+        b, h, dh, seq_len, layer, window - 1 if device_pos else pos, pos.data_ptr() if device_pos else None,
+        split_len, n_splits,
         None if part is None else part.data_ptr(), None if tickets is None else tickets.data_ptr(),
         ATTN_TICKETS, y.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,

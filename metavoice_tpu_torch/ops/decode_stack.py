@@ -32,8 +32,8 @@ the int4 tied head -> (B, Vp) f32 logits (the JAX package passes no head
 with int8 words).
 
 Both functions update the caches IN PLACE and return them, so callers
-written against the JAX signature keep working. Only slots ``[0, pos]`` are
-read, so garbage (even NaN) beyond ``pos`` never reaches the result.
+written against the JAX signature keep working. Only slots ``[0, pos]`` enter
+the result, so garbage (even NaN) beyond ``pos`` never reaches it.
 """
 
 from __future__ import annotations
@@ -150,19 +150,23 @@ def _rmsnorm(x, w, eps: float):
     return nrm.to(torch.bfloat16) * w.to(torch.bfloat16)
 
 
-def _attend(q, k_cache, v_cache, layer: int, pos: int, starts, n_kv_head: int):
-    """q (B, H, Dh) f32, already scaled -> (B, H*Dh) bf16 over [starts, pos]."""
+def _attend(q, k_cache, v_cache, layer: int, pos, starts, n_kv_head: int):
+    """q (B, H, Dh) f32, already scaled -> (B, H*Dh) bf16 over [starts, pos].
+    ``pos`` (1,) int64 on q's device: the sums run over the whole cache, as
+    the kernel's plan does, and the values past ``pos`` are zeroed first."""
     b, h, dh = q.shape
-    lk = k_cache[layer, : pos + 1].float()  # (pos+1, B, H_kv, Dh)
-    lv = v_cache[layer, : pos + 1].float()
+    slot = torch.arange(k_cache.shape[1], device=q.device)
+    live = slot <= pos
+    lk = k_cache[layer].float()  # (S, B, H_kv, Dh)
+    lv = torch.where(live[:, None, None, None], v_cache[layer].float(), 0.0)
     if n_kv_head != h:
         lk = lk.repeat_interleave(h // n_kv_head, dim=2)
         lv = lv.repeat_interleave(h // n_kv_head, dim=2)
     s = torch.einsum("bhd,sbhd->bhs", q, lk)
+    valid = live[None, None, :]
     if starts is not None:
-        slot = torch.arange(pos + 1, device=q.device)
-        valid = slot[None, None, :] >= starts.clamp(max=pos)[:, None, None]
-        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        valid = valid & (slot[None, None, :] >= torch.minimum(starts, pos)[:, None, None])
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,sbhd->bhd", p, lv).reshape(b, h * dh).to(torch.bfloat16)
 
@@ -175,12 +179,16 @@ def decode_stack_int4_reference(
 ):
     """Plain PyTorch version of the K3 and K7 kernels: the CPU path and the
     card's oracle. Loops over the layers as the kernels do; same arguments
-    and returns as :func:`decode_stack_int4`."""
+    and returns as :func:`decode_stack_int4`. ``pos`` is read on the
+    device as the kernels read it: an int and a tensor give the same bits."""
     b, d = x.shape
     dh = d // n_head
     n_kv_head = n_kv_head or n_head
     dkv = n_kv_head * dh
-    pos = int(pos)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.reshape(1).to(device=x.device, dtype=torch.int64)
+    else:
+        pos = torch.full((1,), int(pos), dtype=torch.int64, device=x.device)
 
     def mm(a, pw, sc):
         if wfmt == "i8":
@@ -191,8 +199,9 @@ def decode_stack_int4_reference(
     for li in range(k_cache.shape[0]):
         qkv = mm(_rmsnorm(x, norm1_w[li], norm_eps), wqkv_pw[li], wqkv_sc[li])
         q = (qkv[:, :d] * (1.0 / math.sqrt(dh))).reshape(b, n_head, dh)
-        k_cache[li, pos] = qkv[:, d : d + dkv].reshape(b, n_kv_head, dh).to(k_cache.dtype)
-        v_cache[li, pos] = qkv[:, d + dkv : d + 2 * dkv].reshape(b, n_kv_head, dh).to(v_cache.dtype)
+        for i, cache in enumerate((k_cache, v_cache)):
+            row = qkv[:, d + i * dkv : d + (i + 1) * dkv].reshape(1, b, n_kv_head, dh)
+            cache[li].index_copy_(0, pos, row.to(cache.dtype))
         ya = _attend(q, k_cache, v_cache, li, pos, starts, n_kv_head)
         x = x + mm(ya, wo_pw[li], wo_sc[li]).to(torch.bfloat16)
         hn = _rmsnorm(x, norm2_w[li], norm_eps)

@@ -24,8 +24,12 @@ Threads and the card. One thread, the worker, launches every hand-written
 kernel: the group prefill, the joins (temp prefill and merges), the segment
 decodes and the rebases. The kernels' merge counters are per device and
 the decode stack's scratch per shape, so two of their launches must not
-overlap. The renders and the speaker embedding (in ``submit``, on the
-caller's thread) launch only PyTorch's own kernels. On a card each render
+overlap: one decode stream a device. A segment's steps on the K1, K3 and K7
+routes are replays of CUDA graphs (first_stage.decode) with those counters
+and that scratch baked in, so no eager step on another stream and no second
+replay may overlap them either; they would race with no error. The renders
+and the speaker embedding (in ``submit``, on the caller's thread) launch
+only PyTorch's own kernels. On a card each render
 task runs on a CUDA stream of its own (and the speaker embedding on one of
 its own), so it does not queue behind the decode on the device's default
 stream; every thread of an engine first enters the TTS's device, since the
@@ -93,7 +97,9 @@ def shift_rows(kv: tfm.KVCache, s: int, pos: int):
 
 
 def _enter_render_thread(device: torch.device):
-    """Render-pool thread start: the engine's card and a stream of its own."""
+    """Render-pool thread start: the engine's card and a stream of its own.
+    A render launches PyTorch's kernels only, never a decode kernel or a
+    decode graph: the worker's stream is the device's one decode stream."""
     if device.type == "cuda":
         torch.cuda.set_device(device)
         torch.cuda.set_stream(torch.cuda.Stream(device))
@@ -344,8 +350,10 @@ class ContinuousBatchingEngine:
         prefill at each prompt bucket, a join (temp prefill and the cache
         landing), a segment decode and the rebase shifts, on the engine's own
         cache, so each route's kernels and merge counters exist before the
-        first request. ``warm_tts`` also runs ``TTS.warmup()`` (the kernel
-        library and the render buckets). The draws come from a generator of
+        first request, and each window bucket's decode step captured in its
+        CUDA graph (``first_stage.capture_decode_graphs``). ``warm_tts``
+        also runs ``TTS.warmup()`` (the kernel library and the render
+        buckets). The draws come from a generator of
         its own; the group state is reset afterwards. Must run before
         serving traffic."""
         if self._actives():
@@ -377,6 +385,8 @@ class ContinuousBatchingEngine:
                                   pad_lens=torch.as_tensor(self._pad, device=dev),
                                   end_of_audio_token=T.END_OF_AUDIO_TOKEN, compute_dtype=cdt, generator=gen)
             torch.cat([cur[:, None], lens[:, None], buf], dim=1).cpu()
+            fs.capture_decode_graphs(c.first_stage_params, cfg, self._kv, spk, compute_dtype=cdt, generator=gen,
+                                     pad_lens=torch.zeros((self.n_slots,), dtype=torch.int32, device=dev))
             shift_rows(self._kv, fs.REBASE_ALIGN, self._pos)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -620,12 +630,13 @@ class ContinuousBatchingEngine:
         for slot, fd in self._pending_first.items():
             cur[slot] = fd[0]
         t, p, g, spk = self._knobs()
+        run = {}
         with phases.phase("eng.decode"):
             buf, lens = fs.decode(
                 c.first_stage_params, self._cfg, cur, self._pos, self._kv, spk, seg,
                 temperature=t, top_p=p, guidance_scale=g, pad_lens=torch.as_tensor(self._pad, device=dev),
                 end_of_audio_token=T.END_OF_AUDIO_TOKEN, compute_dtype=self.tts._compute_dtype,
-                generator=self._gen, stats=self.stats,
+                generator=self._gen, stats=run,
             )
             fetch = torch.cat([cur[:, None], lens[:, None].to(cur.dtype), buf.to(cur.dtype)], dim=1)
             fetch = fetch.cpu().numpy()
@@ -641,6 +652,7 @@ class ContinuousBatchingEngine:
         # row's end; those steps write slots past the new pos, which the next
         # segment rewrites before any window reads them
         steps = int(lens_h.max()) if len(lens_h) else 0
+        self.stats["decode_steps"] += run["decode_steps"]
         self.stats["segments"] += 1
         self.stats["row_tokens"] += int(lens_h.sum())
         if steps == 0:

@@ -135,25 +135,12 @@ from metavoice_tpu_torch.models import speaker_encoder as se
 from metavoice_tpu_torch.models import transformer as tfm
 from metavoice_tpu_torch.models.enhancer import get_enhancer
 from metavoice_tpu_torch.ops import _build
-from metavoice_tpu_torch.ops.attention import (
-    decode_attention,
-    decode_attention_block_int4,
-    decode_attention_block_int8,
-    decode_attention_multi,
-)
-from metavoice_tpu_torch.ops.decode_stack import decode_stack_int4
+from metavoice_tpu_torch.ops.counters import launch_counts
 from metavoice_tpu_torch.ops.quantized import (
-    decode_ffn_int4,
-    ffn_int8,
     is_int4,
     is_int4_grouped,
     is_int8_i32,
     is_int8_plain,
-    matmul_int4,
-    matmul_int4_i32,
-    matmul_int4_packed,
-    matmul_int8,
-    matmul_int8_i32,
     quantize_params_int4_i32,
     quantize_params_int8,
     quantize_params_int8_i32,
@@ -166,28 +153,8 @@ from metavoice_tpu_torch.utils import audio_io as aio
 
 MAX_CHARS_PER_CHUNK = 220  # reference truncation point (fam/llm/inference.py:537)
 _INT8_PACKED_MODES = ("int8", "int8_packed")  # "int8_packed" is an alias of "int8"
-# the kernels whose launches TTS.stats counts, by stats key: (wrapper, its counter)
-KERNEL_COUNTERS = {
-    "k1_launches": (decode_attention, "launches"),
-    "k2_launches": (matmul_int4_i32, "launches"),
-    "k3_launches": (decode_stack_int4, "launches"),
-    "k4_launches": (decode_attention_multi, "launches"),
-    "k5_launches": (decode_attention_block_int4, "launches"),
-    "k6_launches": (decode_ffn_int4, "launches"),
-    "k7_launches": (decode_stack_int4, "launches_i8"),
-    "k8_launches": (matmul_int8_i32, "launches"),
-    "k9_launches": (decode_attention_block_int8, "launches"),
-    "k10_launches": (ffn_int8, "launches"),
-    "k11_launches": (matmul_int8, "launches"),
-    "k12_launches": (matmul_int4, "launches"),
-    "k13_launches": (matmul_int4_packed, "launches"),
-}
 _QUANTIZERS = {"int4": quantize_params_int4_i32, "int8": quantize_params_int8_i32,
                "int8_plain": quantize_params_int8}
-
-
-def _launches() -> dict[str, int]:
-    return {k: getattr(fn, attr) for k, (fn, attr) in KERNEL_COUNTERS.items()}
 
 
 def _vocoder_bucket(t_audio: int) -> int:
@@ -617,14 +584,20 @@ class TTS:
             steps on the persistent cache (with a draft, a speculative round
             too): each route's kernels run once eagerly, which also makes
             their per-device merge counters;
+          * per guidance variant, on the card, the decode step of the
+            persistent cache captured in a CUDA graph at every window bucket
+            (``first_stage.capture_decode_graphs``; the K1, K3 and K7
+            routes), so that no request is the first to capture one;
           * the second stage + EnCodec vocoder (``stage2_vocode``) at every
             vocoder bucket up to ``vocoder_frame_buckets[-1]`` frames (with
             ``vocoder="mbd"`` too: the JAX package's warmup runs no MBD).
 
         The draws come from a generator of its own: the TTS's stays as it
         was. Under TP every rank of the tensor group warms up together, and
-        the leader alone runs the vocoder buckets.
+        the leader alone runs the vocoder buckets. Prints its seconds (the
+        cold start) and those of the graph captures.
         """
+        t0 = time.perf_counter()
         if self.device.type == "cuda":
             _build.kernels()
         gen = torch.Generator(device=self.device).manual_seed(0)
@@ -646,8 +619,21 @@ class TTS:
                         gamma=self._spec_gamma, draft_use_cfg=self._draft_use_cfg,
                         max_new_tokens=self._spec_gamma + 1, **common,
                     )
+        t_graphs = time.perf_counter()
+        graph_steps = 0
+        if self._draft_params is None and self.mesh.tensor_group is None:
+            for g in guidance_variants:
+                rows = fs._normalize_guidance(g)[2]
+                graph_steps += fs.capture_decode_graphs(
+                    self.c.first_stage_params, cfg1, self._persistent_kv_cache(g), spk[None], cfg_rows=rows,
+                    end_of_text_token=eot, compute_dtype=self._compute_dtype, generator=gen)
+        t_graphs = time.perf_counter() - t_graphs
         for n_audio in vocoder_frame_buckets if self.mesh.leader else ():
             self._render(prompt, [list(range(n_audio))] * 2, spk, gen, vocoder="encodec")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        print(f"TTS.warmup: {time.perf_counter() - t0:.2f} s ({t_graphs:.2f} s for {graph_steps} steps capturing "
+              "decode graphs)")
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -809,7 +795,7 @@ class TTS:
         stream); ``stats`` adds its steps and launches. Every TP rank runs it."""
         prompt = self.c.tokenizer.encode(text)
         stats = {"decode_steps": 0}
-        launches = _launches()
+        launches = launch_counts()
         common = dict(
             generator=self._gen,
             temperature=temperature,
@@ -835,9 +821,11 @@ class TTS:
             else:
                 seq = fs.generate(self.c.first_stage_params, self.c.first_stage_cfg, prompt, spk_emb, stats=stats, tp=self.mesh.tensor_group,
                                   **common)
+        if "decode_route" in stats:
+            self.stats["decode_route"] = stats.pop("decode_route")
         for k, n in stats.items():
             self.stats[k] = self.stats.get(k, 0) + n
-        for k, n in _launches().items():
+        for k, n in launch_counts().items():
             self.stats[k] = self.stats.get(k, 0) + n - launches[k]
         return prompt, seq
 
@@ -889,7 +877,7 @@ class TTS:
                               first_segment_tokens: int, max_new_tokens, noise):
         """Each text chunk's first-stage segments, in order -> (the chunk's
         prompt, a segment's tokens); ``stats`` follows them."""
-        launches = _launches()
+        launches = launch_counts()
         for chunk in chunk_text(text, MAX_CHARS_PER_CHUNK) or [""]:
             prompt = self.c.tokenizer.encode(chunk)
             segments = fs.generate_segments(
@@ -905,7 +893,7 @@ class TTS:
             while True:
                 with self._stage("first_stage"):
                     segment = next(segments, None)
-                for k, n in _launches().items():
+                for k, n in launch_counts().items():
                     self.stats[k] = n - launches[k]
                 if segment is None:
                     break
