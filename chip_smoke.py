@@ -255,7 +255,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
  41. warmup  - a fresh process: a full-width int4 TTS, TTS.warmup timed with
                the kernel library's load apart, then two synthesises that
                build nothing (the same library, no new file in its build
-               directory).
+               directory); then a TTS of the same weights on the int8 cache
+               (K5/K6), its TTS.warmup timed and the decode graphs it
+               captured counted (every window bucket of both variants).
  42. engine-small - the serving engine's join and rebase on a 2-layer
                1024-wide int4 first stage, 2 slots, greedy sampling
                (temperature and top-p 0.01), 32-token buckets, on a bf16
@@ -410,7 +412,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
                (four ranks sharing one card: no DP or TP time).
  60. graph-decode - first_stage.decode's CUDA-graph step (the K1, K3 and
                K7 routes) against its eager loop, decode_eager, at full
-               width in bf16, int4 and int8: 192 tokens in four segments
+               width in bf16, int4 and int8: 64 tokens in four segments
                whose pos crosses every K1 window bucket (384, 512, 1024)
                and reaches the cache's end, a ragged batch of 4 with
                per-row starts and knobs, 3-row guidance, two calls at
@@ -418,9 +420,31 @@ Phases, one line each; any failure exits non-zero and prints no result:
                (2 slots, a generator's draws): tokens, lengths and caches
                bit for bit, the launch counts equal; a capture before any
                eager call raises; ms a token of both loops over three
-               calls each (192 steps from pos 128, the CFG pair).
+               calls each (96 steps from pos 128, the CFG pair).
+ 61. graph-decode-routes - the graph step of every other single-card
+               route against decode_eager at full width on seeded random
+               weights (ROUTES_61): int4 on the int8 and on the packed
+               cache (K5/K6), int8_plain (K9/K10), GQA with 2 kv heads in
+               bf16 (K4) and in int8_plain (K11 + K4 + K10), groupwise int4
+               g 128 unpacked and packed (K12/K13 + K1), int8 and int4 words
+               at 16 rows (K8 + K1, K2 + K1), bf16 weights on the int8 cache
+               (the dequantizing path): 192 tokens over every window bucket
+               to the cache's end, a ragged batch of 4 with per-row knobs
+               (the 16-row routes: ragged at 8), 3-row guidance (9 rows on
+               the 16-row routes): tokens, lengths, every cache field and
+               the launch counts bit for bit, each route's launches a step
+               (on the K5 and K9 routes the ragged batch runs 160 steps
+               from pos 370 with a row starting at 300, across pos 512);
+               a capture before any eager call raises; ms a token of both
+               loops (24 steps from pos 128) and one profiled graph step;
+               then K4 (GQA, T 1), K5 (MHA; bf16, int8, packed) and K9 with pos
+               on the device at pos 0, 255, 512, 1000, 2047 with starts and
+               NaN past pos (the host-int bits, the plain version), each
+               timed per layer from a CUDA graph host int and device pos;
+               and K11 at a GQA int8_plain step's qkv and wo shapes, M 2,
+               beside torch._weight_int8pack_mm and torch.matmul.
 
-Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45, 47, 51, 54, 57 and 60 are the main paths: every
+Phases 5, 9, 14, 18, 19, 20, 24, 29, 33, 34, 36-39, 43-45, 47, 51, 54, 57, 60 and 61 are the main paths: every
 kernel count is set to 0 just before each and read just after; in 58-59 each rank sets them to 0 before its steps and
 reads them 0 after. The two lines before the last are the
 kernels' JSON record and the nvidia-smi line; the last line is
@@ -1691,22 +1715,17 @@ def phase_small8(torch):
     print(f"[13 small8] int8 first stages on the card vs the CPU path: {'; '.join(shown)}")
 
 
-# the kernels a decode step launches on the routes whose step is captured in a
-# CUDA graph (first_stage.DECODE_ROUTES): K1 a layer, K3 or K7 a step
-GRAPH_STEP_KERNELS = ({"k1_launches"}, {"k3_launches"}, {"k7_launches"})
-
-
 def check_stats(tts, counts: dict, step_kernels=None):
     """TTS.stats' kNN_launches must agree with the kernel counts, and with
     ``step_kernels`` (the kernels a decode step launches) its decode route
-    must be "graph" on a graph route and "eager" on any other."""
+    must be "graph": every single-card route's step is captured in a CUDA
+    graph (first_stage.DECODE_ROUTES; TP and the speculative round stay
+    eager)."""
     if {key: tts.stats[key] for key in counts} != counts:
         fail(f"TTS.stats {tts.stats} disagrees with the kernel counts {counts}")
-    if step_kernels is not None:
-        want = "graph" if set(step_kernels) in GRAPH_STEP_KERNELS else "eager"
-        if tts.stats.get("decode_route") != want:
-            fail(f"a decode step of {sorted(step_kernels)} ran on the {tts.stats.get('decode_route')!r} route, "
-                 f"not {want!r}")
+    if step_kernels is not None and tts.stats.get("decode_route") != "graph":
+        fail(f"a decode step of {sorted(step_kernels)} ran on the {tts.stats.get('decode_route')!r} route, not "
+             "'graph'")
 
 
 def phase_profile(torch, tts, label: str, families: dict):
@@ -3888,7 +3907,17 @@ for _ in range(2):
     t = time.perf_counter()
     tts.synthesise(sys.argv[4], sys.argv[3], max_new_tokens=192)
     synth.append(time.perf_counter() - t)
+# the same weights on the int8 cache (K5/K6): its warmup captures every window bucket of its route
+from metavoice_tpu_torch.models import first_stage as fs
+graphs_before = sum(len(g.graphs) for g in fs._graph_sets.values())
+kv8 = TTS(tts.c, device="cuda", kv_cache_dtype="int8", output_dir=sys.argv[2])
+t = time.perf_counter()
+kv8.warmup()
+torch.cuda.synchronize()
+kv8_s = time.perf_counter() - t
+kv8_graphs = sum(len(g.graphs) for g in fs._graph_sets.values()) - graphs_before
 print(json.dumps({"start_s": t1 - t0, "warmup_s": t2 - t1, "build_s": lib.build_seconds,
+                  "kv8_warmup_s": kv8_s, "kv8_graphs": kv8_graphs, "kv8_route": kv8.decode_route,
                   "compiled": bool(lib.build_log), "loaded_before": loaded_before,
                   "same_library": _build.kernels() is lib, "same_files": files == sorted(os.listdir(_build.BUILD_DIR)),
                   "synth_s": synth, "first_stage_s": tts.timings.get("first_stage"),
@@ -3906,11 +3935,15 @@ def phase_warmup(torch, workdir: str, ref: str, build_s: float):
     r = json.loads(out.stdout.strip().splitlines()[-1])
     if r["loaded_before"] or not (r["same_library"] and r["same_files"]) or r["decode_steps"] in (None, 0):
         fail(f"41 warmup: {r}")
+    if r["kv8_route"] != "layers" or r["kv8_graphs"] < 2:
+        fail(f"41 warmup: the int8-cache TTS's warmup captured {r['kv8_graphs']} graphs on route {r['kv8_route']}")
     print(f"[41 warmup] a fresh process: import and a full-width int4 TTS in {r['start_s']:.2f} s; "
           f"TTS.warmup {r['warmup_s']:.2f} s, of which the kernel library {r['build_s']:.2f} s "
           f"({'compiled' if r['compiled'] else 'loaded from its build in phase 2, which took ' + f'{build_s:.2f} s'}); "
           f"then two synthesises of {r['decode_steps']} decode steps in {r['synth_s'][0]:.2f} s and "
-          f"{r['synth_s'][1]:.2f} s with no new build (the same library, no new file in the build directory)")
+          f"{r['synth_s'][1]:.2f} s with no new build (the same library, no new file in the build directory); "
+          f"the same weights on the int8 cache (K5/K6): TTS.warmup {r['kv8_warmup_s']:.2f} s, capturing "
+          f"{r['kv8_graphs']} decode graphs (every window bucket of both guidance variants)")
 
 
 # ------------------------------------------------------------------ phases 42-45: the serving layer
@@ -6380,12 +6413,12 @@ def phase_sharded_full_width(torch, smi: str, dev: str = "cuda", small: bool = F
 
 # ---------------------------------------------------------------- phase 60: the CUDA-graph decode step
 
-GRAPH_SEGMENTS = ((360, 48), (488, 48), (1000, 48), (2000, 60))  # (pos, steps): 192 tokens, pos crosses 384,
-# 512 and 1024 (K1's window buckets) and the last reaches the cache's end after 48 of its 60 steps
-GRAPH_TIMED = (128, 192)  # phase 60's timed loops: 192 steps from pos 128, the CFG pair
+GRAPH_SEGMENTS = ((376, 16), (504, 16), (1016, 16), (2032, 24))  # (pos, steps): 64 tokens, pos crosses 384,
+# 512 and 1024 (K1's window buckets) and the last reaches the cache's end after 16 of its 24 steps
+GRAPH_TIMED = (128, 96)  # phase 60's timed loops: 96 steps from pos 128, the CFG pair
 GRAPH_RUNS = 3  # calls of each loop timed, in turns eager, graph, graph, eager, ...
 GRAPH_RAGGED = (0, 37, 90, 5)  # phase 60's batch of 4: each row's left padding
-GRAPH_ENGINE = (2, (0, 50), 3, 32)  # engine-shaped: slots, their left padding, segments, steps a segment
+GRAPH_ENGINE = (2, (0, 50), 2, 24)  # engine-shaped: slots, their left padding, segments, steps a segment
 
 
 def _graph_noise(torch, n: int, b: int, vocab: int, gen, dev, eoa_free: bool = False):
@@ -6399,31 +6432,51 @@ def _graph_noise(torch, n: int, b: int, vocab: int, gen, dev, eoa_free: bool = F
     return noise
 
 
-def _filled(torch, cfg, rows: int, gen, dev):
-    """A bf16 cache of ``rows`` rows whose every slot holds N(0, 1) values, as after a prefill."""
+def _filled(torch, cfg, rows: int, gen, dev, fmt=None):
+    """A cache of ``rows`` rows (bf16, or the KVCache format ``fmt``) whose
+    every slot holds values, as after a prefill: N(0, 1), or random int8
+    values (words) with scales in [1e-3, 2.1e-2)."""
     from metavoice_tpu_torch.models import transformer as tfm
 
-    kv = tfm.KVCache.create(cfg, rows, cfg.block_size, dtype=torch.bfloat16, device=dev)
+    kv = tfm.KVCache.create(cfg, rows, cfg.block_size, dtype=fmt or torch.bfloat16, device=dev)
     for t in (kv.k, kv.v):
-        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+        if t.dtype.is_floating_point:
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+        else:
+            info = torch.iinfo(t.dtype)
+            t.copy_(torch.randint(info.min + 1, info.max, t.shape, generator=gen, device=dev, dtype=t.dtype))
+    for t in (kv.k_scale, kv.v_scale):
+        if t is not None:
+            t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02 + 1e-3)
     return kv
 
 
-def graph_vs_eager(torch, label: str, params, cfg, base, kv, cur, pos: int, n: int, spk, seed=None, **kw):
+def _kv_fields(kv) -> list:
+    return [t for t in (kv.k, kv.v, kv.k_scale, kv.v_scale) if t is not None]
+
+
+def _kv_clone(kv):
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    return tfm.KVCache(*(None if t is None else t.clone() for t in (kv.k, kv.v, kv.k_scale, kv.v_scale)))
+
+
+def graph_vs_eager(torch, label: str, params, cfg, base, kv, cur, pos: int, n: int, spk, seed=None, phase="60",
+                   **kw):
     """One decode from (cur, pos) on ``base``'s contents by the graph loop
     (on ``kv``, a cache kept across calls, so that its graphs serve them
-    all) and by the eager loop (on a copy): tokens, lengths and caches bit
-    for bit, the launch counts equal; ``seed``: each loop draws from a
-    generator of that seed, else ``kw`` holds the noise. -> (tokens,
-    lengths, the launch counts, the graph loop's route)."""
+    all) and by the eager loop (on a copy): tokens, lengths and caches (every
+    field: values and scales) bit for bit, the launch counts equal;
+    ``seed``: each loop draws from a generator of that seed, else ``kw``
+    holds the noise. -> (tokens, lengths, the launch counts, the graph
+    loop's route)."""
     from metavoice_tpu_torch.models import first_stage as fs
-    from metavoice_tpu_torch.models import transformer as tfm
 
     dev = cur.device
     gens = [None if seed is None else torch.Generator(device=dev).manual_seed(seed) for _ in range(2)]
-    eager = tfm.KVCache(base.k.clone(), base.v.clone())
-    kv.k.copy_(base.k)
-    kv.v.copy_(base.v)
+    eager = _kv_clone(base)
+    for dst, src in zip(_kv_fields(kv), _kv_fields(base)):
+        dst.copy_(src)
     runs = []
     for loop, cache, gen in ((fs.decode_eager, eager, gens[0]), (fs.decode, kv, gens[1])):
         _zero_counts()
@@ -6434,22 +6487,22 @@ def graph_vs_eager(torch, label: str, params, cfg, base, kv, cur, pos: int, n: i
     (te, le, ce, se), (tg, lg, cg, sg) = runs
     if not (_same_bits(torch, tg, te) and _same_bits(torch, lg, le)):
         part = next((i for i in range(te.shape[1]) if not torch.equal(te[:, i], tg[:, i])), None)
-        fail(f"60 {label}: the graph loop's tokens part from the eager loop's at step {part}")
-    if not (_same_bits(torch, kv.k, eager.k) and _same_bits(torch, kv.v, eager.v)):
-        fail(f"60 {label}: the graph loop's cache differs from the eager loop's")
+        fail(f"{phase} {label}: the graph loop's tokens part from the eager loop's at step {part}")
+    if not all(_same_bits(torch, a, c) for a, c in zip(_kv_fields(kv), _kv_fields(eager))):
+        fail(f"{phase} {label}: the graph loop's cache differs from the eager loop's")
     if cg != ce or se["decode_steps"] != sg["decode_steps"]:
-        fail(f"60 {label}: the graph loop credited {cg} in {sg['decode_steps']} steps, the eager loop launched "
+        fail(f"{phase} {label}: the graph loop credited {cg} in {sg['decode_steps']} steps, the eager loop launched "
              f"{ce} in {se['decode_steps']}")
     return tg, lg, cg, sg["decode_route"]
 
 
-def _timed_loops(torch, fs, params, cfg, kv, cur, spk, noise) -> dict:
+def _timed_loops(torch, fs, params, cfg, kv, cur, spk, noise, timed=GRAPH_TIMED) -> dict:
     """ms a token of the eager and the graph loop, GRAPH_RUNS calls each in
-    turns (eager, graph, graph, eager, ...), after one untimed call of the
-    graph loop (its first on ``kv``, a cache it has no graph of yet: an
-    eager warm step and the capture of its window bucket; "first_ms" is
-    its wall time, in ms)."""
-    pos, n = GRAPH_TIMED
+    turns (eager, graph, graph, eager, ...), of ``timed`` (pos, steps),
+    after one untimed call of the graph loop (its first on ``kv``, a cache
+    it has no graph of yet: an eager warm step and the capture of its window
+    bucket; "first_ms" is its wall time, in ms)."""
+    pos, n = timed
     ms = {"eager": [], "graph": []}
     order = ["graph"] + [("eager", "graph", "graph", "eager")[i % 4] for i in range(2 * GRAPH_RUNS)]
     for i, loop in enumerate(order):
@@ -6501,30 +6554,34 @@ def graph_step_profile(torch, run, steps: int) -> str:
             f"{total / steps:.4f} ms a step: {top}")
 
 
-def capture_before_eager_raises(torch, label: str, params, cfg, kv, cur, spk):
-    """With the device's merge counters not yet made, capturing the step
-    (a fresh graph set, no eager warm step) raises and makes none."""
+def capture_before_eager_raises(torch, label: str, params, cfg, kv, cur, spk, phase="60", route=None):
+    """With the device's merge counters not yet made (every table: K1/K4's,
+    the decode GEMV's, the ring's, K2/K8's), capturing the step (a fresh
+    graph set, no eager warm step, at ``route``'s window bucket of pos 100)
+    raises and makes none."""
     from metavoice_tpu_torch.core import tokens as T
     from metavoice_tpu_torch.models import first_stage as fs
     from metavoice_tpu_torch.ops import attention as A
     from metavoice_tpu_torch.ops import decode_stack as DS
+    from metavoice_tpu_torch.ops import quantized as Q
 
     spec = fs.StepSpec(2, T.END_OF_AUDIO_TOKEN, 0, torch.bfloat16)
     graphs = fs.StepGraphs(spec, fs.init_state(cur, 100, spk, 4, spec), cfg.block_size, [], None)
-    tables = ((A, "_tickets"), (DS, "_stack_tickets"))
+    tables = ((A, "_tickets"), (DS, "_stack_tickets"), (Q, "_int4g_tickets"), (Q, "_prefill_tickets"))
     saved = [getattr(mod, name) for mod, name in tables]
     for mod, name in tables:
         setattr(mod, name, {})
+    window = cfg.block_size if route is None else fs.step_window(route, 100, cfg.block_size)
     try:
         try:
-            graphs.capture(params, cfg, kv, cfg.block_size)
+            graphs.capture(params, cfg, kv, window)
         except RuntimeError as e:
             if "eager call" not in str(e):
-                fail(f"60 {label}: a capture before any eager call raised another error: {e}")
+                fail(f"{phase} {label}: a capture before any eager call raised another error: {e}")
         else:
-            fail(f"60 {label}: a capture before any eager call did not raise")
+            fail(f"{phase} {label}: a capture before any eager call did not raise")
         if any(getattr(mod, name) for mod, name in tables):
-            fail(f"60 {label}: a refused capture made merge counters")
+            fail(f"{phase} {label}: a refused capture made merge counters")
     finally:
         for (mod, name), table in zip(tables, saved):
             setattr(mod, name, table)
@@ -6562,7 +6619,7 @@ def phase_graph_decode(torch, dev: str = "cuda", small: bool = False) -> dict:
         base = _filled(torch, cfg, 2, gen, dev)
         kv = tfm.KVCache.create(cfg, 2, cfg.block_size, dtype=torch.bfloat16, device=dev)
         knobs = dict(temperature=1.0, top_p=0.95, guidance_scale=3.0)
-        # 192 tokens across every window bucket of K1, the last segment to the cache's end
+        # GRAPH_SEGMENTS: across every window bucket of K1, the last segment to the cache's end
         total, launches = 0, 0
         for pos, n in GRAPH_SEGMENTS:
             noise = _graph_noise(torch, n, 1, vocab, gen, dev, eoa_free=True)  # every token compared
@@ -6623,7 +6680,7 @@ def phase_graph_decode(torch, dev: str = "cuda", small: bool = False) -> dict:
             fail(f"60 {label}: engine-shaped segments left other caches or generator states")
         if dev.type == "cuda":
             capture_before_eager_raises(torch, label, params, cfg, kv, cur, spk)
-        # ms a token of both loops: 192 steps from pos 128, the CFG pair
+        # ms a token of both loops: GRAPH_TIMED's steps from pos 128, the CFG pair
         noise = _graph_noise(torch, GRAPH_TIMED[1], 1, vocab, gen, dev, eoa_free=True)
         ms = _timed_loops(torch, fs, params, cfg, base, cur, spk, noise)
         results[label] = ms
@@ -6648,6 +6705,281 @@ def phase_graph_decode(torch, dev: str = "cuda", small: bool = False) -> dict:
           f"bit (tokens, lengths, caches, launch counts), a capture before any eager call raising; "
           + "; ".join(shown) + f"; {time.perf_counter() - t_phase:.1f} s")
     return results
+
+
+# ---------------------------------------------------------------- phase 61: the graph step of every other route
+
+# (label, weights, cache format, first-stage overrides, the route, its kernels' launches a layer a step, the
+# batch of the 192-token segments); a batch of 8 (16 cache rows) is ragged, and the route's 3-row case takes a
+# batch of 3 (9 rows): at 8 rows or fewer those two routes would take K7 or K3
+ROUTES_61 = (
+    ("int4 int8-cache", "int4", "int8", {}, "K5/K6", {"k5_launches": 1, "k6_launches": 1}, 1),
+    ("int4 packed-cache", "int4", "int8_packed", {}, "K5/K6", {"k5_launches": 1, "k6_launches": 1}, 1),
+    ("int8_plain", "int8_plain", None, {}, "K9/K10", {"k9_launches": 1, "k10_launches": 1}, 1),
+    ("gqa bf16", None, None, {"n_local_heads": 2}, "GQA", {"k4_launches": 1}, 1),
+    ("gqa int8_plain", "int8_plain", None, {"n_local_heads": 2}, "K9/K10",
+     {"k11_launches": 2, "k4_launches": 1, "k10_launches": 1}, 1),
+    ("int4g g128", "int4g", None, {}, "K12/K13+K1", {"k12_launches": 5, "k1_launches": 1}, 1),
+    ("int4g-packed g128", "int4g_packed", None, {}, "K12/K13+K1", {"k13_launches": 5, "k1_launches": 1}, 1),
+    ("int8 16 rows", "int8", None, {}, "K8+K1", {"k8_launches": 5, "k1_launches": 1}, 8),
+    ("int4 16 rows", "int4", None, {}, "int4-unfused", {"k2_launches": 5, "k1_launches": 1}, 8),
+    ("bf16 int8-cache", None, "int8", {}, "dequant-cache", {}, 1),
+)
+GRAPH_SEGMENTS_61 = ((360, 48), (488, 48), (1000, 48), (2000, 60))  # phase 61's: 192 tokens, as phase 60's were
+GRAPH_SIDE_61 = 16  # steps of phase 61's 3-row case, and of its ragged case on routes without block attention
+# (pos, steps, each row's left padding) of the ragged case on the routes through attn_row_kernel's block variant
+# (K5, K9): a row that starts at 300 crosses pos 512, where a split of the bucket's plan ends at pos and only the
+# split that holds pos may make the new row
+GRAPH_CROSS_61 = (370, 160, (0, 17, 300, 5))
+GRAPH_TIMED_61 = (128, 24)  # phase 61's timed loops: 24 steps from pos 128
+GRAPH_PROFILED_61 = 16  # steps of phase 61's profiled graph loop
+# (pos, starts, NaN past pos): at 512 a split of the bucket's plan ends at pos, and the row starting at 300 has a
+# tile over pos in that split, which must take no new row
+DEVICE_POS_61 = ((0, None, False), (255, None, False), (512, (300, 2047), True), (1000, (300, 2047), True),
+                 (2047, (1, 2047), True))
+K11_GQA_SETS = 8  # weight sets the GQA K11 timing turns over
+
+
+def _quantize_61(torch, dense, mode):
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    return {None: lambda p: p, "int4": Q.quantize_params_int4_i32, "int8": Q.quantize_params_int8_i32,
+            "int8_plain": Q.quantize_params_int8, "int4g": Q.quantize_params_int4,
+            "int4g_packed": Q.quantize_params_int4_packed}[mode](dense)
+
+
+def route_graph_case(torch, label: str, route: str, params, cfg, fmt, per_layer: dict, b: int, gen, dev) -> str:
+    """Phase 61 for one route: the graph loop against decode_eager on
+    GRAPH_SEGMENTS_61 (192 tokens over every window bucket to the cache's end;
+    ``b`` rows, ragged when 8), a ragged batch of 4 with per-row knobs
+    (routes of 1), 3-row guidance, a capture before any eager call, then ms
+    a token of both loops and a profiled graph step -> its line."""
+    from metavoice_tpu_torch.core import tokens as T
+    from metavoice_tpu_torch.models import first_stage as fs
+
+    vocab = cfg.vocab_sizes[0]
+    eot = T.TEXT_OFFSET + 256
+    want_route = "graph" if dev.type == "cuda" else "eager"
+    row = {"temperature": (1.0, 0.7, 1.3, 0.9), "top_p": (0.95, 0.8, 0.9, 1.0), "guidance_scale": (3.0, 2.0, 1.5, 3.0)}
+
+    def knobs_of(n_rows):
+        return {k: torch.tensor((v * 2)[:n_rows], device=dev).reshape(n_rows, 1) for k, v in row.items()}
+
+    def pads_of(n_rows):
+        return None if n_rows == 1 else torch.tensor((GRAPH_RAGGED * 2)[:n_rows], dtype=torch.int32, device=dev)
+
+    cur = torch.randint(0, T.END_OF_AUDIO_TOKEN, (b,), generator=gen, device=dev)
+    spk = torch.randn((b, cfg.speaker_emb_dim), generator=gen, device=dev)
+    base = _filled(torch, cfg, 2 * b, gen, dev, fmt)
+    kv = _filled(torch, cfg, 2 * b, gen, dev, fmt)
+    if fs.step_route(params, cfg, 2 * b, kv) != route:
+        fail(f"61 {label}: a step of {2 * b} rows takes {fs.step_route(params, cfg, 2 * b, kv)}, not {route}")
+    total, launches = 0, {}
+    for pos, n in GRAPH_SEGMENTS_61:
+        noise = _graph_noise(torch, n, b, vocab, gen, dev, eoa_free=True)
+        tokens, lengths, counts, got = graph_vs_eager(torch, f"{label} pos {pos}", params, cfg, base, kv, cur, pos, n,
+                                                      spk, noise=noise, pad_lens=pads_of(b), phase="61",
+                                                      **knobs_of(b))
+        steps = min(n, cfg.block_size - pos)
+        want = {k: v * cfg.n_layer * steps for k, v in per_layer.items()} if dev.type == "cuda" else {}
+        if got != want_route or int(lengths.min()) != steps or {k: c for k, c in counts.items() if c} != want:
+            fail(f"61 {label} pos {pos}: route {got}, {int(lengths.min())} tokens of {steps} steps, launches "
+                 f"{ {k: c for k, c in counts.items() if c} } where the route makes {want}")
+        total += int(lengths.sum())
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+    shown = [f"{total} tokens over the {len(GRAPH_SEGMENTS_61)} segments at {2 * b} rows"]
+    if b == 1:  # a ragged batch of 4 with starts and per-row knobs
+        block = "k5_launches" in per_layer or "k9_launches" in per_layer
+        pos4, n4, pads4 = GRAPH_CROSS_61 if block else (200, GRAPH_SIDE_61, GRAPH_RAGGED)
+        base4 = _filled(torch, cfg, 8, gen, dev, fmt)
+        kv4 = _filled(torch, cfg, 8, gen, dev, fmt)
+        _, lengths, _, _ = graph_vs_eager(
+            torch, f"{label} ragged batch of 4", params, cfg, base4, kv4,
+            torch.randint(0, T.END_OF_AUDIO_TOKEN, (4,), generator=gen, device=dev), pos4, n4,
+            torch.randn((4, cfg.speaker_emb_dim), generator=gen, device=dev), phase="61",
+            pad_lens=torch.tensor(pads4, dtype=torch.int32, device=dev),
+            noise=_graph_noise(torch, n4, 4, vocab, gen, dev, eoa_free=block), **knobs_of(4))
+        if block and int(lengths.min()) != n4:
+            fail(f"61 {label} ragged batch of 4: {int(lengths.min())} tokens of {n4} steps")
+        shown.append(f"a ragged batch of 4 ({n4} steps from pos {pos4}, rows starting at {', '.join(map(str, pads4))})")
+        del base4, kv4
+    b3 = 3 if b > 1 else 1  # 3-row guidance: 9 rows on the 16-row routes
+    base3 = _filled(torch, cfg, 3 * b3, gen, dev, fmt)
+    kv3 = _filled(torch, cfg, 3 * b3, gen, dev, fmt)
+    graph_vs_eager(torch, f"{label} 3 rows of {b3}", params, cfg, base3, kv3, cur[:b3], 300, GRAPH_SIDE_61, spk[:b3],
+                   phase="61", cfg_rows=3, prompt_guidance_scale=1.5, end_of_text_token=eot, pad_lens=pads_of(b3),
+                   noise=_graph_noise(torch, GRAPH_SIDE_61, b3, vocab, gen, dev), **knobs_of(b3))
+    shown.append(f"3-row guidance ({3 * b3} rows)")
+    del base3, kv3
+    if route == "dequant-cache":
+        shown.append("no merge counter to make (plain PyTorch)")
+    elif dev.type == "cuda":
+        capture_before_eager_raises(torch, label, params, cfg, kv, cur, spk, phase="61", route=route)
+        shown.append("a capture before any eager call raising")
+    noise = _graph_noise(torch, GRAPH_TIMED_61[1], b, vocab, gen, dev, eoa_free=True)
+    knobs = knobs_of(b)
+    ms = _timed_loops(torch, fs, params, cfg, base, cur, spk, noise, timed=GRAPH_TIMED_61)
+    spread = {k: (sum(ms[k]) / len(ms[k]), min(ms[k]), max(ms[k])) for k in ("eager", "graph")}
+    steps = GRAPH_PROFILED_61
+    profile = graph_step_profile(torch, lambda: (fs.decode(params, cfg, cur, GRAPH_TIMED_61[0], base, spk, steps,
+                                                           noise=noise, pad_lens=pads_of(b), **knobs),
+                                                 sync(torch, dev)), steps) \
+        if dev.type == "cuda" else "not profiled off the card"
+    del base, kv
+    fs.release_graphs()
+    return (f"{label} ({route}, {', '.join(f'{k[:-9]} {v}' for k, v in per_layer.items()) or 'no kernel'} a layer "
+            f"a step; {sum(launches.values())} launches credited): {', '.join(shown)} equal bit for bit; ms a token "
+            f"eager {spread['eager'][0]:.4f} (min {spread['eager'][1]:.4f}, max {spread['eager'][2]:.4f}), graph "
+            f"{spread['graph'][0]:.4f} (min {spread['graph'][1]:.4f}, max {spread['graph'][2]:.4f}) at {2 * b} rows, "
+            f"first graph call {ms['first_ms']:.1f} ms for {GRAPH_TIMED_61[1]} steps; graph profile: {profile}")
+
+
+def _garbage_past(torch, kv, pos: int):
+    """NaN past pos: in the values of a float cache, in the scales of a quantized one."""
+    if kv.k_scale is None:
+        kv.k[:, pos + 1 :] = float("nan")
+        kv.v[:, pos + 1 :] = float("nan")
+    elif kv.packed:
+        p = torch.arange(pos + 1, kv.max_seq_len, device=kv.k.device)
+        for t in (kv.k_scale, kv.v_scale):
+            t[:, p % 4, p // 4] = float("nan")
+    else:
+        kv.k_scale[:, pos + 1 :] = float("nan")
+        kv.v_scale[:, pos + 1 :] = float("nan")
+
+
+def device_pos_kernels(torch, dense, gqa_dense, cfg, gqa_cfg, gen, dev) -> str:
+    """K4 (GQA, T = 1), K5 (bf16, int8 and packed caches) and K9 with pos
+    on the device, planned at the window bucket: at each DEVICE_POS_61 case
+    (starts, NaN past pos) the host-int call's bits (y and every cache
+    field) and the plain version within the kernel's tolerance; each timed
+    per layer from a CUDA graph at K5_TIMED, host int and device pos -> its
+    line."""
+    from metavoice_tpu_torch.ops import attention as A
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    b, s, n_layer = MAIN_SHAPE["b"], cfg.block_size, cfg.n_layer
+    q4 = Q.quantize_params_int4_i32(dense)["layers"]
+    w5 = (q4["wqkv"]["pw"], q4["wqkv"]["sc"], q4["wo"]["pw"], q4["wo"]["sc"])
+    del q4
+    q8 = Q.quantize_params_int8(dense)["layers"]
+    w9 = [(q8["wqkv"]["q"][li], q8["wqkv"]["scales"][li], q8["wo"]["q"][li], q8["wo"]["scales"][li])
+          for li in range(n_layer)]
+    xa = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    qk = torch.randn((b, cfg.n_head, 1, cfg.head_dim), generator=gen, device=dev).to(torch.bfloat16)
+    kn, vn = (torch.randn((b, 2, 1, cfg.head_dim), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    kernels = {
+        "K4": (gqa_cfg, None, lambda kv, li, p, st, fn=A.decode_attention_multi, **kw:
+               fn(qk, kn, vn, kv.k, kv.v, li, p, st, **kw)[0], A.decode_attention_multi_reference, K4_TOL),
+        "K9": (cfg, None, lambda kv, li, p, st, fn=A.decode_attention_block_int8, **kw:
+               fn(xa, *w9[li], kv.k, kv.v, li, p, cfg.n_head, st, **kw)[0], A.decode_attention_block_int8_reference,
+               K9_TOL),
+    }
+    for fmt in ("int8", "int8_packed", None):
+        kernels[f"K5 {fmt or 'bf16'}"] = (
+            cfg, fmt, lambda kv, li, p, st, fn=A.decode_attention_block_int4, **kw:
+            fn(xa, *w5, kv.k, kv.v, li, p, cfg.n_head, n_kv_head=cfg.n_local_heads, starts=st, k_scale=kv.k_scale,
+               v_scale=kv.v_scale, **kw)[0], A.decode_attention_block_int4_reference, K5_TOL)
+    layer = 5
+    shown, worst = [], {}
+    for name, (kcfg, fmt, call, plain, tol) in kernels.items():
+        base = _filled(torch, kcfg, b, gen, dev, fmt)
+        for pos, starts, nan in DEVICE_POS_61:
+            st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+            kvs = [_kv_clone(base) for _ in range(3)]
+            if nan:
+                for kv in kvs:
+                    _garbage_past(torch, kv, pos)
+            window = A.attention_window(pos + 1, s)
+            y = call(kvs[0], layer, pos, st)
+            yd = call(kvs[1], layer, torch.tensor(pos, dtype=torch.int32, device=dev), st, window=window)
+            ref = call(kvs[2], layer, pos, st, fn=plain)
+            what = f"61 {name} pos {pos} starts {starts} NaN {nan}"
+            if not (_same_bits(torch, y, yd) and all(_same_bits(torch, a, c) for a, c in
+                                                     zip(_kv_fields(kvs[0]), _kv_fields(kvs[1])))):
+                fail(f"{what}: pos on the device differs from the host-int call")
+            if not torch.isfinite(yd.float()).all():
+                fail(f"{what}: not finite")
+            err = (yd.float() - ref.float()).abs().max().item() / max(ref.float().abs().max().item(), 1e-30)
+            worst[name] = max(worst.get(name, 0.0), err)
+            if err > tol:
+                fail(f"{what}: {err:.3g} of max |ref| from the plain version, tol {tol}")
+        times = []
+        pos_t = torch.zeros((), dtype=torch.int32, device=dev)
+        for pos in K5_TIMED:
+            pos_t.fill_(pos)
+            window = A.attention_window(pos + 1, s)
+            host = _layers_ms(torch, lambda li: call(base, li, pos, None), n_layer)[0]
+            on_dev = _layers_ms(torch, lambda li: call(base, li, pos_t, None, window=window), n_layer)[0]
+            times.append(f"pos {pos} {host:.4f} / {on_dev:.4f}")
+        shown.append(f"{name}: within {worst[name]:.3g} of max |ref| (tol {tol}); ms a layer host int / device pos "
+                     f"{', '.join(times)}")
+        del base
+    return "; ".join(shown)
+
+
+def k11_gqa_times(torch, cfg, gen, dev) -> str:
+    """K11 at a GQA int8_plain decode step's shapes (M 2: qkv 2048 x 2560,
+    wo 2048 x 2048), each on K11_GQA_SETS weight sets in turn, from a CUDA
+    graph, beside torch._weight_int8pack_mm, torch.matmul on the
+    bf16-dequantized weight and the bound -> its line."""
+    from metavoice_tpu_torch.ops import quantized as Q
+
+    m, d = 2, cfg.dim
+    shown, lib_name = [], "torch._weight_int8pack_mm"
+    for name, n in (("qkv", d + 2 * cfg.n_local_heads * cfg.head_dim), ("wo", d)):
+        mats = [Q.quantize_int8(torch.randn((d, n), generator=gen, device=dev) * 0.02) for _ in range(K11_GQA_SETS)]
+        x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+        ref = Q.matmul_int8_reference(x, *mats[0])
+        got = Q.matmul_int8(x, *mats[0])
+        if (got.float() - ref.float()).abs().max().item() > K11_TOL * ref.float().abs().max().item() + \
+                _bf16_ulp(torch, ref).max().item():
+            fail(f"61 K11 GQA {name}: disagrees with its plain version")
+        t_k = _layers_ms(torch, lambda i: Q.matmul_int8(x, *mats[i]), K11_GQA_SETS)[0]
+        t_l, lib_name, t_m = _int8pack_ms(torch, x, mats, ref, lib_name, "61 K11 GQA")
+        bound_ms, bound_by = bound(m * d * 2 + d * n + n * 4 + m * n * 2, 2.0 * m * d * n, BF16_FLOP_S)
+        route, cut = Q.int8_route(m, d, n)
+        shown.append(f"{name} {d}x{n} ({route} {'x'.join(map(str, cut))}): kernel {t_k:.4f} ms, {lib_name} "
+                     f"{t_l:.4f}, torch.matmul (bf16 dequantized) {t_m:.4f}, bound {bound_ms:.4f} ({bound_by})")
+        del mats
+    return "; ".join(shown)
+
+
+def phase_graph_decode_routes(torch, dev: str = "cuda", small: bool = False) -> None:
+    """61: the graph loop against the eager loop at full width on every
+    route of ROUTES_61, K4/K5/K9 with pos on the device, and K11 at GQA's
+    shapes."""
+    from metavoice_tpu_torch.core.config import first_stage_config
+    from metavoice_tpu_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    widths = dict(n_layer=2, n_head=8, dim=1024) if small else {}
+    cfg = first_stage_config(**widths)
+    gqa_cfg = first_stage_config(**widths, n_local_heads=2)
+    gen = torch.Generator(device=dev).manual_seed(61)
+    dense = tfm.init_params(cfg, device=dev, generator=gen, dtype=torch.bfloat16)
+    gqa_dense = tfm.init_params(gqa_cfg, device=dev, generator=gen, dtype=torch.bfloat16)
+    shown = []
+    for label, mode, fmt, over, route, per_layer, b in ROUTES_61:
+        t0 = time.perf_counter()
+        rcfg, rdense = (gqa_cfg, gqa_dense) if over else (cfg, dense)
+        params = _quantize_61(torch, rdense, mode)
+        line = route_graph_case(torch, label, route, params, rcfg, fmt, per_layer, b, gen, dev)
+        shown.append(f"{line}; {time.perf_counter() - t0:.1f} s")
+        del params
+        gc_collect()
+        empty_cache(torch, dev)
+    kernels = k11 = "not run off the card"
+    if dev.type == "cuda":
+        kernels = device_pos_kernels(torch, dense, gqa_dense, cfg, gqa_cfg, gen, dev)
+        k11 = k11_gqa_times(torch, gqa_cfg, gen, dev)
+    print(f"[61 graph-decode-routes] {cfg.n_layer}L/{cfg.n_head}H/{cfg.dim}d, vocab {cfg.vocab_sizes[0]}, the graph "
+          f"loop against decode_eager bit for bit (tokens, lengths, every cache field, launch counts): "
+          + "; ".join(shown) + f". Pos on the device (the host-int call's bits, the plain version): {kernels}. "
+          f"K11 on a GQA int8_plain step's shapes at M 2, device time from a CUDA graph: {k11}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def gc_collect():
@@ -6806,6 +7138,9 @@ def main() -> int:
         gc_collect()
         torch.cuda.empty_cache()
         phase_graph_decode(torch)
+        gc_collect()
+        torch.cuda.empty_cache()
+        phase_graph_decode_routes(torch)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # and, where a phase read it from the graph of one call, the kernels a call
     counted = ("kernels_a_call",)

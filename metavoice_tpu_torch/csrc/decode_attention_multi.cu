@@ -35,15 +35,18 @@
 // head_dim); caches (L, seq_len, batch, n_kv_head, head_dim); starts: NULL or
 // (batch,) int32 on the device. The window [0, pos + t_q) is cut into
 // n_splits <= 32 splits of split_len slots; part, tickets and n_tickets as
-// decode_attention_onepass in the header says. Returns a cudaError_t.
+// decode_attention_onepass in the header says. pos_dev: NULL, or (t_q 1: a
+// GQA decode step) an int32 on the device holding the new row's slot, at
+// most pos (a captured step reads it at each replay; pos is then the last
+// slot of the plan's window). Returns a cudaError_t.
 extern "C" int mv_decode_attention_multi(int dtype, const void* q, const void* k_new,
                                          const void* v_new, void* k_cache, void* v_cache,
                                          const void* starts, int batch, int n_head,
                                          int n_kv_head, int t_q, int head_dim, int seq_len,
-                                         int layer, int pos, int split_len, int n_splits,
-                                         void* part, void* tickets, int n_tickets, void* y,
-                                         void* stream) {
+                                         int layer, int pos, const void* pos_dev, int split_len,
+                                         int n_splits, void* part, void* tickets, int n_tickets,
+                                         void* y, void* stream) {
   return decode_attention_onepass(dtype, q, k_new, v_new, k_cache, v_cache, starts, batch, n_head,
-                                  n_kv_head, t_q, head_dim, seq_len, layer, pos, nullptr, split_len,
+                                  n_kv_head, t_q, head_dim, seq_len, layer, pos, pos_dev, split_len,
                                   n_splits, part, tickets, n_tickets, y, stream);
 }

@@ -66,8 +66,10 @@
 //     -127, 127)); every query block of the kv row makes the same bits and
 //     puts them into its own tile, and the first one writes the row (the
 //     packed word read, merged and written by that one block) and its
-//     scales. The int8 and packed formats follow the TPU kernel's
-//     kv8_mode="bf16": q rounded to bf16 against the integer values (exact
+//     scales. A split that ends at pos (the next one starts there) has a
+//     last tile over pos too: its slot stays zero-filled, weight 0. The
+//     int8 and packed formats follow the TPU kernel's kv8_mode="bf16": q
+//     rounded to bf16 against the integer values (exact
 //     in f32), the dot times the slot's k scale, each value weight rounded
 //     to bf16 as bf16(p * v_scale); the tiles widen in registers by a byte
 //     permute, the slots' scales copied beside them.
@@ -75,10 +77,11 @@
 // The launch sets no state that a replay would find stale (the kernels'
 // attributes are set once, before their first launch; the merge tickets are
 // left at 0), synchronises nothing, and so is captured in a CUDA graph like
-// any kernel. K1 may read its slot from the device (pos_dev): its plan then
-// covers the window up to a.pos, the bucket's last slot, a split wholly past
-// the slot leaving an empty partial, so one captured launch serves every
-// slot of the bucket. Calls that share a device's tickets run one after another on
+// any kernel. At T = 1 (K1, K4's GQA decode, the attention blocks) a call
+// may read its slot from the device (pos_dev): its plan then covers the
+// window up to a.pos, the bucket's last slot, a split wholly past the slot
+// leaving an empty partial and writing nothing, so one captured launch
+// serves every slot of the bucket. Calls that share a device's tickets run one after another on
 // one stream, as the port's callers do.
 
 #pragma once
@@ -133,7 +136,7 @@ struct OnePassArgs {
   int seq_len;
   int layer;
   int pos;              // the first new row's slot; with pos_dev, the last slot pos_dev may name
-  const int* pos_dev;   // K1 only: nullptr, or the new row's slot, read on the device
+  const int* pos_dev;   // T = 1: nullptr, or the new row's slot, read on the device
   int split_len;
   float scale;  // log2(e) / sqrt(Dh): scores in the log2 domain, weights exp2(s - max)
   float* part;   // splits > 1: f32 partials of every (kv row, query group) and split (merge_splits)
@@ -444,9 +447,12 @@ attn_row_kernel(OnePassArgs<T, std::conditional_t<NEW == kRowK1, T, __nv_bfloat1
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // K1 in a CUDA graph reads the slot on the device; its plan covers the
-  // window up to a.pos, and a split wholly past pos leaves an empty partial
-  const int pos = kBlock || a.pos_dev == nullptr ? a.pos : *a.pos_dev;
+  // a step captured in a CUDA graph reads the slot on the device; its plan
+  // covers the window up to a.pos, and a split wholly past pos leaves an
+  // empty partial. The attention blocks read it (and the starts) before
+  // their programmatic wait, where the SM's L1 may still hold an earlier
+  // step's line: from L2 (pos was written kernels before the step's first)
+  const int pos = a.pos_dev == nullptr ? a.pos : __ldcg(a.pos_dev);
   const size_t pos_stride = (size_t)a.bkv * DH;  // elements from slot s to s + 1 (packed: word row)
   // blocks: the kv row, b * H_kv + h / kv_group
   const int kv = kBlock ? b * (a.n_kv_head / a.kv_group) + hkv / a.kv_group : r;
@@ -454,6 +460,9 @@ attn_row_kernel(OnePassArgs<T, std::conditional_t<NEW == kRowK1, T, __nv_bfloat1
   const T* kn = kBlock ? nullptr : a.k_new + (size_t)r * DH;
   const T* vn = kBlock ? nullptr : a.v_new + (size_t)r * DH;
   const int sp_lo = split * a.split_len;
+  // blocks: whether this split holds pos, and so makes the new row; a split
+  // wholly past pos (a window bucket's plan) makes and writes nothing
+  [[maybe_unused]] const bool holds = pos >= sp_lo && pos < sp_lo + a.split_len;
   T* kw = reinterpret_cast<T*>(ring) + (size_t)warp * kRStages * 2 * WT;  // [stage][K, V][slot][DH]
   // blocks: each warp's stages' scales [stage][K, V][slot], the new row's
   // two scales, the new rows [K, V][DH]
@@ -543,7 +552,7 @@ attn_row_kernel(OnePassArgs<T, std::conditional_t<NEW == kRowK1, T, __nv_bfloat1
       }
     // the split that holds pos makes the new K (threads < DH) and V row from
     // the f32 values, the first query head of the kv row writes it
-    if (pos < sp_lo + a.split_len) {
+    if (holds) {
       const int t = tid % DH;
       const bool is_v = tid >= DH;
       const int h_kv = a.n_kv_head / a.kv_group;
@@ -592,7 +601,9 @@ attn_row_kernel(OnePassArgs<T, std::conditional_t<NEW == kRowK1, T, __nv_bfloat1
     __syncwarp();  // the warp's copies of tile i are visible to the warp; tile i - 1 is consumed
     if constexpr (kBlock) {
       const int tp = s_first + (warp + kCWarps * i) * kRTile;
-      if (pos >= tp && pos < tp + kRTile) {  // the tile holding the new row: put the block's in
+      // the tile holding the new row: put the block's in. A split that ends at
+      // pos has a last tile over it too, but no new row (its slot is zero-filled)
+      if (holds && pos >= tp && pos < tp + kRTile) {
         T* kt = kw + (i % kRStages) * 2 * WT;
         float* kt_sc = kw_sc + (i % kRStages) * 2 * kRTile;
         if constexpr (kPacked) {
@@ -772,7 +783,7 @@ __global__ void __launch_bounds__(kGThreads) attn_simt_kernel(OnePassArgs<T> a) 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int pos = a.pos;
+  const int pos = a.pos_dev == nullptr ? a.pos : __ldcg(a.pos_dev);  // T = 1 in a CUDA graph: on the device
   const size_t pos_stride = (size_t)a.bkv * DH;  // elements from slot s to s + 1
   const size_t base = (size_t)a.layer * a.seq_len * pos_stride + (size_t)r * DH;
   const T* kn = a.k_new + (size_t)r * a.t_q * DH;
@@ -807,7 +818,7 @@ __global__ void __launch_bounds__(kGThreads) attn_simt_kernel(OnePassArgs<T> a) 
     if (i < n_tiles) load_tile(i, i);
     cp_async_commit();
   }
-  if (blockIdx.z == 0) write_new_rows<T, DH, kGThreads>(a, a.pos, base, pos_stride, kn, vn, sp_lo, sp_hi);
+  if (blockIdx.z == 0) write_new_rows<T, DH, kGThreads>(a, pos, base, pos_stride, kn, vn, sp_lo, sp_hi);
 
   // the lane group's query for scoring: 8 lanes, EQ elements each
   const int grp = tid >> 3;
@@ -1016,7 +1027,7 @@ __global__ void __launch_bounds__(kCThreads) attn_mma_kernel(OnePassArgs<__nv_bf
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int pos = a.pos;
+  const int pos = a.pos_dev == nullptr ? a.pos : __ldcg(a.pos_dev);  // T = 1 in a CUDA graph: on the device
   const size_t pos_stride = (size_t)a.bkv * DH;
   const size_t base = (size_t)a.layer * a.seq_len * pos_stride + (size_t)r * DH;
   const T* kn = a.k_new + (size_t)r * a.t_q * DH;
@@ -1058,7 +1069,7 @@ __global__ void __launch_bounds__(kCThreads) attn_mma_kernel(OnePassArgs<__nv_bf
     if (i < mine) load_tile(i, i);
     cp_async_commit();
   }
-  if (blockIdx.z == 0) write_new_rows<T, DH, kCThreads>(a, a.pos, base, pos_stride, kn, vn, sp_lo, sp_hi);
+  if (blockIdx.z == 0) write_new_rows<T, DH, kCThreads>(a, pos, base, pos_stride, kn, vn, sp_lo, sp_hi);
   cp_async_wait<kMStages - 1>();  // the queries' group, the oldest
   __syncthreads();
   uint32_t qa[KS][4];  // Q's A fragments
@@ -1297,13 +1308,16 @@ cudaError_t attention_onepass(const void* q, const void* k_new, const void* v_ne
 // f32: q (n_head * 128), the new K row, the new V row (n_kv_head * 128
 // each); y (batch, n_head * 128) bf16; the caches in NEW's format, the new
 // row written at (layer, pos), with its scales in k_scale / v_scale
-// (scale_width columns a slot) for the int8 and packed caches. part and
-// tickets as for decode_attention_onepass with batch * n_head kv rows and
-// one query each. The caller checks the shapes and the plan.
+// (scale_width columns a slot) for the int8 and packed caches. pos_dev as
+// for decode_attention_onepass (pos is then the last slot of the plan's
+// window). part and tickets as for decode_attention_onepass with batch *
+// n_head kv rows and one query each. The caller checks the shapes and the
+// plan.
 template <int NEW>
 cudaError_t attention_block(const float* qkv, int q_bstride, void* k_cache, void* v_cache, float* k_scale,
                             float* v_scale, int scale_width, const int* starts, int batch, int n_head,
-                            int n_kv_head, int seq_len, int layer, int pos, int split_len, int n_splits,
+                            int n_kv_head, int seq_len, int layer, int pos, const int* pos_dev, int split_len,
+                            int n_splits,
                             float* part, int* tickets, __nv_bfloat16* y, cudaStream_t stream) {
   using T = std::conditional_t<NEW == kRowBf16, __nv_bfloat16, std::conditional_t<NEW == kRowI8, int8_t, int32_t>>;
   constexpr int DH = 128;
@@ -1322,6 +1336,7 @@ cudaError_t attention_block(const float* qkv, int q_bstride, void* k_cache, void
   a.seq_len = seq_len;
   a.layer = layer;
   a.pos = pos;
+  a.pos_dev = pos_dev;
   a.split_len = split_len;
   // bf16: q * log2(e) / sqrt(Dh), as K1; int8: bf16(q / sqrt(Dh)), log2(e) after the k scale
   a.scale = (float)((NEW == kRowBf16 ? 1.4426950408889634 : 1.0) / sqrt((double)DH));
@@ -1348,8 +1363,8 @@ cudaError_t attention_block(const float* qkv, int q_bstride, void* k_cache, void
 // it). part: with n_splits > 1, f32 scratch of at least (batch * n_kv_head *
 // query groups * n_splits * 16 * (head_dim + 2)) values, query groups =
 // ceil(t_q * n_head / n_kv_head / 16); tickets: n_tickets int32 counters,
-// all 0, left 0. pos_dev: nullptr, or (K1: T = 1, MHA) an int32 on the
-// device holding the new row's slot, which the caller keeps in [0, pos]:
+// all 0, left 0. pos_dev: nullptr, or (T = 1) an int32 on the device
+// holding the new row's slot, which the caller keeps in [0, pos]:
 // pos is then the last slot of the window the plan covers, so one launch
 // serves every slot of that window (a CUDA graph replayed step after step).
 // Checks the shape and the plan, then launches. Returns a cudaError_t.
@@ -1359,7 +1374,7 @@ inline int decode_attention_onepass(int dtype, const void* q, const void* k_new,
                                     int layer, int pos, const void* pos_dev, int split_len, int n_splits,
                                     void* part, void* tickets, int n_tickets, void* y, void* stream) {
   const long long n = (long long)pos + t_q;
-  if (pos_dev != nullptr && (t_q != 1 || n_kv_head != n_head)) return (int)cudaErrorInvalidValue;
+  if (pos_dev != nullptr && t_q != 1) return (int)cudaErrorInvalidValue;
   if (t_q < 1 || t_q > kCMaxT || n_kv_head < 1 || n_head % n_kv_head != 0 || pos < 0 ||
       n > seq_len || split_len < 1 || n_splits < 1 || n_splits > kCMaxSplits ||
       (long long)split_len * n_splits < n)

@@ -99,9 +99,11 @@ SgMat mat(const void* pw, const void* sc) {
 // i32, wqkv_sc (L, 2*gp, same) bf16; wo (L, D/8, D); starts NULL or (B,) int32;
 // y (B, D) bf16 out. The caches and scales are updated in place at (layer, pos).
 // plans: host int32 [2][3], {split_steps, n_splits, warps} of the qkv and the
-// o-proj product (ops/decode_stack.stack_gemv_plan). The window [0, pos] in
-// n_splits <= 32 splits of split_len slots (ops/attention.attention_plan with
-// B*H rows). Scratch: qkv (B, D + 2*H_kv*128) f32, ya (B, D) bf16, part f32 of
+// o-proj product (ops/decode_stack.stack_gemv_plan). The plan's window
+// [0, window) in n_splits <= 32 splits of split_len slots (ops/attention.
+// attention_plan with B*H rows), the last holding slot window - 1; pos in
+// [0, window), or, with pos_dev (an int32 on the device, which the caller
+// keeps in [0, window): a captured step reads it at each replay), ignored. Scratch: qkv (B, D + 2*H_kv*128) f32, ya (B, D) bf16, part f32 of
 // part_elems, at least each product's splits * B * (N + 1) when it has more
 // than one split, tickets n_tickets int32 all 0 (left 0), at least N / 32 of
 // the qkv product; with n_splits > 1, attn_part f32 of B*H*n_splits*(128 + 2)
@@ -110,8 +112,9 @@ SgMat mat(const void* pw, const void* sc) {
 extern "C" int mv_decode_block_int4(
     int fmt, const void* x, const void* wqkv_pw, const void* wqkv_sc, const void* wo_pw,
     const void* wo_sc, void* k_cache, void* v_cache, void* k_scale, void* v_scale,
-    const void* starts, void* y, int layer, int pos, int batch, int dim, int n_head, int n_kv_head,
-    int head_dim, int seq_len, int scale_width, int gp, const void* plans, int split_len, int n_splits,
+    const void* starts, void* y, int layer, int pos, const void* pos_dev, int window, int batch, int dim,
+    int n_head, int n_kv_head, int head_dim, int seq_len, int scale_width, int gp, const void* plans,
+    int split_len, int n_splits,
     void* qkv, void* ya, void* part, long long part_elems, void* tickets, int n_tickets, void* attn_part,
     void* attn_tickets, int n_attn_tickets, void* stream) {
   const bool quant = fmt == kFmtI8 || fmt == kFmtPacked;
@@ -119,8 +122,9 @@ extern "C" int mv_decode_block_int4(
   const int* plan = static_cast<const int*>(plans);
   if ((fmt != kFmtFloat && !quant) || batch < 1 || batch > kSgRows || head_dim != kDh || n_kv_head < 1 ||
       n_head % n_kv_head != 0 || n_head * kDh != dim || dim % (8 * kSgQGroup) != 0 || gp < dim / kSgQGroup ||
-      layer < 0 || pos < 0 || pos >= seq_len || n_splits < 1 || n_splits > kCMaxSplits || split_len < 1 ||
-      (long long)n_splits * split_len < pos + 1 || (long long)(n_splits - 1) * split_len >= pos + 1 ||
+      layer < 0 || window < 1 || window > seq_len || (pos_dev == nullptr && (pos < 0 || pos >= window)) ||
+      n_splits < 1 || n_splits > kCMaxSplits || split_len < 1 || (long long)n_splits * split_len < window ||
+      (long long)(n_splits - 1) * split_len >= window ||
       x == nullptr || y == nullptr || plan == nullptr ||
       (quant && (k_scale == nullptr || v_scale == nullptr || scale_width < batch * n_kv_head)) ||
       (fmt == kFmtPacked && seq_len % 4 != 0) ||
@@ -150,9 +154,11 @@ extern "C" int mv_decode_block_int4(
   auto* at = static_cast<int*>(attn_tickets);
   auto* ks = static_cast<float*>(k_scale);
   auto* vs = static_cast<float*>(v_scale);
+  const int* pd = static_cast<const int*>(pos_dev);
+  const int slot = pd == nullptr ? pos : window - 1;  // with pos_dev: the window's last slot
 #define MV_ATTN(NEW)                                                                                       \
   attention_block<NEW>(qkv_f, qout, k_cache, v_cache, ks, vs, scale_width, st, batch, n_head, n_kv_head, \
-                       seq_len, layer, pos, split_len, n_splits, ap, at, ya_b, s)
+                       seq_len, layer, slot, pd, split_len, n_splits, ap, at, ya_b, s)
   // the cache format as the attention's new-row kind
   MV_CHECK(fmt == kFmtFloat ? MV_ATTN(kRowBf16) : fmt == kFmtI8 ? MV_ATTN(kRowI8) : MV_ATTN(kRowPacked));
 #undef MV_ATTN

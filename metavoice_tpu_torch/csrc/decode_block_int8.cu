@@ -89,9 +89,12 @@ SgMat plain(const void* q) { return SgMat{static_cast<const int32_t*>(q), nullpt
 // wqkv_s (3D,) f32; wo (D, D) int8 with wo_s (D,) f32; k_cache/v_cache (L, S, B, H, 128)
 // bf16, written at (layer, pos); starts NULL or (B,) int32; y (B, D) bf16 out.
 // plans: host int32 [2][3], {split_steps, n_splits, warps} of the qkv and the
-// o-proj product (ops/decode_stack.stack_gemv_plan with vpw 1). The window
-// [0, pos] in n_splits <= 32 splits of split_len slots (ops/attention.
-// attention_plan with B*H rows). Scratch: qkv (B, 3D) f32, ya (B, D) bf16,
+// o-proj product (ops/decode_stack.stack_gemv_plan with vpw 1). The plan's
+// window [0, window) in n_splits <= 32 splits of split_len slots
+// (ops/attention.attention_plan with B*H rows), the last holding slot
+// window - 1; pos in [0, window), or, with pos_dev (an int32 on the device,
+// which the caller keeps in [0, window): a captured step reads it at each
+// replay), ignored. Scratch: qkv (B, 3D) f32, ya (B, D) bf16,
 // part f32 of part_elems, at least each product's splits * B * (N + 1) when it
 // has more than one split, tickets n_tickets int32 all 0 (left 0), at least
 // 3D / 32; with n_splits > 1, attn_part f32 of B*H*n_splits*(128 + 2) and
@@ -99,15 +102,17 @@ SgMat plain(const void* q) { return SgMat{static_cast<const int32_t*>(q), nullpt
 // cudaError_t.
 extern "C" int mv_decode_block_int8(const void* x, const void* wqkv, const void* wqkv_s,
                                     const void* wo, const void* wo_s, void* k_cache, void* v_cache,
-                                    const void* starts, void* y, int layer, int pos, int batch,
-                                    int dim, int n_head, int seq_len, const void* plans, int split_len,
+                                    const void* starts, void* y, int layer, int pos, const void* pos_dev,
+                                    int window, int batch, int dim, int n_head, int seq_len,
+                                    const void* plans, int split_len,
                                     int n_splits, void* qkv, void* ya, void* part, long long part_elems,
                                     void* tickets, int n_tickets, void* attn_part, void* attn_tickets,
                                     int n_attn_tickets, void* stream) {
   const int* plan = static_cast<const int*>(plans);
-  if (batch < 1 || batch > kSgRows || n_head < 1 || n_head * kDh != dim || layer < 0 || pos < 0 ||
-      pos >= seq_len || n_splits < 1 || n_splits > kCMaxSplits || split_len < 1 ||
-      (long long)n_splits * split_len < pos + 1 || (long long)(n_splits - 1) * split_len >= pos + 1 ||
+  if (batch < 1 || batch > kSgRows || n_head < 1 || n_head * kDh != dim || layer < 0 || window < 1 ||
+      window > seq_len || (pos_dev == nullptr && (pos < 0 || pos >= window)) || n_splits < 1 ||
+      n_splits > kCMaxSplits || split_len < 1 || (long long)n_splits * split_len < window ||
+      (long long)(n_splits - 1) * split_len >= window ||
       x == nullptr || y == nullptr || plan == nullptr || wqkv_s == nullptr || wo_s == nullptr ||
       (n_splits > 1 && (attn_part == nullptr || attn_tickets == nullptr || batch * n_head > n_attn_tickets)) ||
       !sg_plan_ok(1, batch, dim, 3 * dim, 1, plan, part_elems, n_tickets) ||
@@ -132,7 +137,8 @@ extern "C" int mv_decode_block_int8(const void* x, const void* wqkv, const void*
 
   MV_CHECK(attention_block<kRowBf16>(qkv_f, 3 * dim, k_cache, v_cache, nullptr, nullptr, 0,
                                      static_cast<const int*>(starts), batch, n_head, n_head, seq_len, layer,
-                                     pos, split_len, n_splits, static_cast<float*>(attn_part),
+                                     pos_dev == nullptr ? pos : window - 1, static_cast<const int*>(pos_dev),
+                                     split_len, n_splits, static_cast<float*>(attn_part),
                                      static_cast<int*>(attn_tickets), ya_b, s));
 
   SgArgs o = q;

@@ -34,8 +34,8 @@ plain path. Prefill keeps the bf16 tied head, as in the JAX package.
 Speculative decoding is models/spec_decode.py.
 
 The loop's step is ``decode_step`` on a ``DecodeState`` of device tensors
-(JAX's ``one_step`` on its carry). On the card, the step of the main path's
-routes (K1, K3, K7: ``DECODE_ROUTES``) is captured in a CUDA graph and
+(JAX's ``one_step`` on its carry). On the card, the step of every route but
+tensor parallelism's (``DECODE_ROUTES``) is captured in a CUDA graph and
 replayed, the device-resident counterpart of JAX's single ``while_loop``
 program; ``decode_eager`` is the same loop run eagerly.
 """
@@ -56,7 +56,7 @@ from metavoice_tpu_torch.core import tokens as T
 from metavoice_tpu_torch.core.config import TransformerConfig
 from metavoice_tpu_torch.models import transformer as tfm
 from metavoice_tpu_torch.ops.attention import attention_window
-from metavoice_tpu_torch.ops.counters import KERNEL_COUNTERS, launch_counts
+from metavoice_tpu_torch.ops.counters import KERNEL_COUNTERS, SUB_COUNTERS
 from metavoice_tpu_torch.ops.quantized import is_int4, is_int4_grouped, is_int8_i32, is_int8_plain
 
 DONE_CHECK_EVERY = 16  # decode steps between host reads of the EOA latch
@@ -214,18 +214,20 @@ def check_guidance(guidance_scale, end_of_text_token: int, end_of_audio_token: i
 # is captured in a CUDA graph once a (route, rows, cache, weights, window
 # bucket), after an eager warm step of that bucket, and replayed: one replay
 # is one step, so the host knows ``pos`` without reading it and picks the
-# bucket (K1's plan, ``ops/attention.attention_window``) from it. The host
+# bucket (the attention kernels' plan, ``ops/attention.attention_window``)
+# from it. The host
 # reads the end-of-audio latch every ``DONE_CHECK_EVERY`` steps and stops at
 # ``min(max_steps, S - pos)`` steps, as the eager loop does: no replay writes
 # past the cache. A capture or a replay that fails raises; a route runs
 # eagerly only because the table says so.
 #
-# One decode stream a device: the kernels' merge counters (K1's, K3/K7's)
-# and K3/K7's per-shape scratch are baked into the graphs, so no eager step
-# on another stream and no second replay may overlap a replay (they would
-# race with no error). Every caller decodes on its thread's current stream,
-# one call at a time (runtime/engine.py keeps its renders to PyTorch's own
-# kernels on their streams).
+# One decode stream a device: the kernels' merge counters (K1/K4/K5/K9's,
+# K3/K7/K5/K6/K9/K10/K11's decode GEMV's, K12/K13/K11's ring's, K2/K8's) and
+# the per-shape scratch of K3/K7 are baked into the graphs, so no eager step
+# or prefill on another stream and no second replay may overlap a replay
+# (they would race with no error). Every caller decodes on its thread's
+# current stream, one call at a time (runtime/engine.py keeps its renders to
+# PyTorch's own kernels on their streams).
 
 # The T = 1 step's routes (``step_route``) and how each runs on the card:
 # "graph" (``decode_step`` captured and replayed) or "eager" (the loop of
@@ -234,16 +236,20 @@ DECODE_ROUTES = {
     "K1": "graph",  # dense weights on a float cache, MHA: K1 a layer, planned at the window bucket
     "K3": "graph",  # int4 words: the whole-stack kernel and its fused head
     "K7": "graph",  # int8 words: the whole-stack kernel, then the bf16 head
-    "K5/K6": "eager",  # int4 on a quantized cache: block_plan(..., pos) cuts each call on the host
-    "K9/K10": "eager",  # plain int8: block_plan(..., pos) on the host (K11 + K1/K4 where K9 does not take it)
-    "K12/K13+K1": "eager",  # groupwise int4: five product calls a layer, not captured yet
-    "K8+K1": "eager",  # int8 words the stack kernel does not take: K8 a projection, not captured yet
-    "int4-unfused": "eager",  # int4 neither fused kernel takes: K2 a projection, not captured yet
-    "GQA": "eager",  # dense GQA: K4 at T = 1 takes pos on the host
-    "dequant-cache": "eager",  # dense or int8 weights on a quantized cache: the dequantizing plain path
+    "K5/K6": "graph",  # int4 on a quantized cache (or bf16 norms K3 lacks): K5 at the window bucket, K6
+    "K9/K10": "graph",  # plain int8: K9 at the window bucket and K10 (K11 + K1/K4 where K9 does not take it)
+    "K12/K13+K1": "graph",  # groupwise int4: five product calls a layer, K1 at the window bucket
+    "K8+K1": "graph",  # int8 words the stack kernel does not take: K8 a projection, K1
+    "int4-unfused": "graph",  # int4 neither fused kernel takes: K2 a projection, K1 (or the dequantizing path)
+    "GQA": "graph",  # dense GQA: K4 at T = 1, planned at the window bucket
+    "dequant-cache": "graph",  # dense or int8 weights on a quantized cache: plain PyTorch, pos on the device
     "TP": "eager",  # tensor parallel: the group's reductions run through the host (gloo)
     "spec": "eager",  # the speculative round (models/spec_decode.py): a host loop, not decode's
 }
+
+# the routes whose step plans no attention at a window bucket: the stack kernels plan over the whole cache,
+# and the dequantizing path attends the whole dequantized layer under a mask
+WHOLE_CACHE_ROUTES = ("K3", "K7", "dequant-cache")
 
 
 def step_route(params: tfm.Params, cfg: TransformerConfig, rows: int, kv_cache: tfm.KVCache, tp=None) -> str:
@@ -267,10 +273,11 @@ def step_route(params: tfm.Params, cfg: TransformerConfig, rows: int, kv_cache: 
 
 
 def step_window(route: str, pos: int, seq_len: int) -> int:
-    """The window bucket a step at ``pos`` is planned and captured at: K1's
-    ``attention_window(pos + 1)`` on the K1 route, whose plan depends on it;
-    the whole cache on the others (K3/K7 plan over it, pos-free)."""
-    return attention_window(pos + 1, seq_len) if route == "K1" else seq_len
+    """The window bucket a step at ``pos`` is planned and captured at:
+    ``attention_window(pos + 1)`` on the routes whose attention kernel
+    plans at it (K1, K4, K5 and K9, and the K1 or K4 of the product
+    routes); the whole cache on the others (:data:`WHOLE_CACHE_ROUTES`)."""
+    return seq_len if route in WHOLE_CACHE_ROUTES else attention_window(pos + 1, seq_len)
 
 
 def window_buckets(route: str, seq_len: int) -> list[int]:
@@ -386,6 +393,11 @@ def decode_step(params: tfm.Params, cfg: TransformerConfig, kv_cache: tfm.KVCach
     state.cur.copy_(nxt)
     state.pos.add_(1)
     state.step.add_(1)
+
+
+def graphs_on(device) -> bool:
+    """Whether :func:`decode` replays CUDA graphs on ``device``: on the card."""
+    return torch.device(device).type == "cuda"
 
 
 def _leaves(tree) -> list[torch.Tensor]:
@@ -517,16 +529,17 @@ class StepGraphs:
 def uncounted(credits: list):
     """Count no launch inside: every wrapper's counter is put back after,
     and ``credits`` receives what they counted, as (wrapper, counter
-    attribute, launches)."""
-    before = launch_counts()
+    attribute, launches); ``ops/counters.SUB_COUNTERS`` too."""
+    counters = [*KERNEL_COUNTERS.values(), *SUB_COUNTERS]
+    before = [getattr(fn, attr) for fn, attr in counters]
     try:
         yield
     finally:
-        after = launch_counts()
-        for key, (fn, attr) in KERNEL_COUNTERS.items():
-            setattr(fn, attr, before[key])
-            if after[key] != before[key]:
-                credits.append((fn, attr, after[key] - before[key]))
+        for (fn, attr), was in zip(counters, before):
+            n = getattr(fn, attr) - was
+            setattr(fn, attr, was)
+            if n:
+                credits.append((fn, attr, n))
 
 
 def step_graphs(params: tfm.Params, cfg: TransformerConfig, kv_cache: tfm.KVCache, route: str, spec: StepSpec,
@@ -624,8 +637,9 @@ def decode(
     token is not in it yet (it is the next call's ``cur_token``).
 
     Each step is :func:`decode_step`. On the card, a step of a graph route
-    (:data:`DECODE_ROUTES`, :func:`step_route`: K1, K3, K7) is a replay of
-    its CUDA graph (:class:`StepGraphs`), any other runs eagerly;
+    (:data:`DECODE_ROUTES`, :func:`step_route`: all but tensor
+    parallelism's) is a replay of its CUDA graph (:class:`StepGraphs`), any
+    other runs eagerly;
     :func:`decode_eager` is the eager loop on every route, the plain
     version the graphs are held to.
 
@@ -640,7 +654,7 @@ def decode(
     the same steps and draws the same tokens (the same logits after each
     reduction, the same seeded generator or noise).
     """
-    return _decode(params, cfg, cur_token, pos, kv_cache, spk_emb, max_steps, cur_token.device.type == "cuda",
+    return _decode(params, cfg, cur_token, pos, kv_cache, spk_emb, max_steps, graphs_on(cur_token.device),
                    temperature=temperature,
                    top_p=top_p, guidance_scale=guidance_scale, cfg_rows=cfg_rows,
                    prompt_guidance_scale=prompt_guidance_scale, pad_lens=pad_lens,
@@ -653,9 +667,10 @@ def decode_eager(params: tfm.Params, cfg: TransformerConfig, cur_token: torch.Te
                  kv_cache: tfm.KVCache, spk_emb: torch.Tensor, max_steps: int, **kw):
     """:func:`decode`'s plain version: the same loop and arguments, every
     step an eager :func:`decode_step` given the host's ``pos`` (the kernels
-    still launch on the card). K1 plans an int ``pos`` at the bucket a
-    replay of its window was captured at, and K3/K7 read either on the
-    device, so on the card its steps give the replays' bits."""
+    still launch on the card). K1, K4, K5 and K9 plan an int ``pos`` at the
+    bucket a replay of its window was captured at, K3/K7 read either on the
+    device, and the dequantizing path writes and masks the same slots, so
+    on the card its steps give the replays' bits."""
     return _decode(params, cfg, cur_token, pos, kv_cache, spk_emb, max_steps, False, **kw)
 
 
@@ -674,7 +689,7 @@ def capture_decode_graphs(params: tfm.Params, cfg: TransformerConfig, kv_cache: 
     b = kv_cache.batch_size // cfg_rows
     dev = kv_cache.k.device
     route = step_route(params, cfg, kv_cache.batch_size, kv_cache)
-    if dev.type != "cuda" or DECODE_ROUTES[route] != "graph":
+    if not graphs_on(dev) or DECODE_ROUTES[route] != "graph":
         return 0
     spk = (spk_emb if isinstance(spk_emb, torch.Tensor) else torch.as_tensor(np.asarray(spk_emb, np.float32)))
     spk = spk.to(device=dev, dtype=torch.float32).reshape(b, -1)

@@ -233,11 +233,21 @@ def unpack_kv_s(words: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts, dim=1).reshape(words.shape[0] * KV_PACK, *words.shape[1:])
 
 
-def packed_kv_update(words_full: torch.Tensor, q8_rows: torch.Tensor, li: int, pos: int) -> torch.Tensor:
+def packed_kv_update(words_full: torch.Tensor, q8_rows: torch.Tensor, li: int, pos) -> torch.Tensor:
     """Write T int8 rows into the packed (L, Sw, B, H, Dh) int32 cache at
     positions [pos, pos+T) of layer ``li``, IN PLACE: a read-modify-write of
-    the touched words, right at any alignment of ``pos``."""
+    the touched words, right at any alignment of ``pos``. ``pos`` may be a
+    one-element int tensor on the cache's device for one row (T = 1), read
+    on the device: the same read-modify-write of word pos // 4."""
     t = q8_rows.shape[0]
+    if isinstance(pos, torch.Tensor):
+        if t != 1:
+            raise ValueError(f"a device pos writes one row, got {t}")
+        p = pos.reshape(1).long()
+        vals = unpack_kv_s(words_full[li].index_select(0, p // KV_PACK))  # (4, B, H, Dh)
+        vals.index_copy_(0, p % KV_PACK, q8_rows.to(torch.int32))
+        words_full[li].index_copy_(0, p // KV_PACK, pack_kv_s(vals))
+        return words_full
     w0, w1 = pos // KV_PACK, -(-(pos + t) // KV_PACK)
     vals = unpack_kv_s(words_full[li, w0:w1])
     vals[pos - KV_PACK * w0 : pos - KV_PACK * w0 + t] = q8_rows.to(torch.int32)
@@ -248,7 +258,8 @@ def packed_kv_update(words_full: torch.Tensor, q8_rows: torch.Tensor, li: int, p
 def packed_scale_update(table: torch.Tensor, s_rows: torch.Tensor, li: int, pos: int) -> torch.Tensor:
     """Residue-split scale table (L, 4, Sw, 1, BHpad): write the (T, BH) f32
     scales of positions [pos, pos+T) of layer ``li`` IN PLACE (any
-    alignment; the padding columns are written as zeros)."""
+    alignment; the padding columns are written as zeros). ``pos`` may be a
+    one-element int tensor on the table's device, read on the device."""
     t, bh = s_rows.shape
     p = pos + torch.arange(t, device=table.device)
     rows = torch.zeros((t, table.shape[-1]), dtype=torch.float32, device=table.device)
@@ -683,12 +694,13 @@ def _decode_stack(params: Params, cfg: TransformerConfig, x, kv_cache: KVCache, 
 
 
 def _decode_layers_int4(params: Params, cfg: TransformerConfig, x, kv_cache: KVCache, cache_pos,
-                        attn_starts, fused_head: bool):
+                        attn_starts, fused_head: bool, attn_window=None):
     """A T=1 step of int4 layers one layer at a time (the JAX package's
     ``body4``): norm, the attention-block kernel (K5: qkv, the cache row in
     any format, attention, o-proj; bf16 out), the residual add in x's dtype,
     norm, the FFN kernel (K6, f32 out), the residual add; then the final
-    norm. The bf16 tied head stays with the caller (head_done=False)."""
+    norm. The bf16 tied head stays with the caller (head_done=False).
+    ``attn_window``: K5's window bucket (``apply_blocks``)."""
     layers = params["layers"]
     w = {k: (layers[k]["pw"], layers[k]["sc"]) for k in _STACK_KEYS}
     for li in range(cfg.n_layer):
@@ -697,6 +709,7 @@ def _decode_layers_int4(params: Params, cfg: TransformerConfig, x, kv_cache: KVC
         y2, *_ = decode_attention_block_int4(
             xa[:, 0, :], *w["wqkv"], *w["wo"], kv_cache.k, kv_cache.v, li, cache_pos, cfg.n_head,
             n_kv_head=cfg.n_local_heads, starts=attn_starts, k_scale=kv_cache.k_scale, v_scale=kv_cache.v_scale,
+            window=attn_window,
         )
         h = x + y2[:, None, :].to(x.dtype)
         hn = _norm(h, lp["ffn_norm_w"], lp.get("ffn_norm_b"), cfg.norm_type, cfg.norm_eps)
@@ -722,11 +735,14 @@ def _decode_stack_int8(params: Params, cfg: TransformerConfig, x, kv_cache: KVCa
     return (xo, kv_cache, False) if fused_head else (xo, kv_cache)
 
 
-def _quantized_window(kv_cache: KVCache, li: int, cache_pos: int, k_new, v_new, dtype):
+def _quantized_window(kv_cache: KVCache, li: int, cache_pos, k_new, v_new, dtype):
     """Quantize the window's K/V rows (B, H_kv, T, Dh), from the rows in the
     compute dtype, write them at [cache_pos, cache_pos+T) of layer ``li`` (a
     word read-modify-write for the packed cache), and return the layer
-    dequantized -> (k, v), each (S, B, H_kv, Dh) in ``dtype``."""
+    dequantized -> (k, v), each (S, B, H_kv, Dh) in ``dtype``. ``cache_pos``
+    may be a one-element int tensor on the cache's device (a T = 1 step
+    captured in a CUDA graph), read on the device: the rows go in by
+    ``index_copy_`` at either kind of ``cache_pos``."""
     t = k_new.shape[2]
     bh = k_new.shape[0] * k_new.shape[1]
     out = []
@@ -737,16 +753,18 @@ def _quantized_window(kv_cache: KVCache, li: int, cache_pos: int, k_new, v_new, 
             packed_scale_update(table, s.reshape(t, bh), li, cache_pos)
             out.append(packed_kv_dequant(cache, table, li, dtype))
         else:
-            cache[li, cache_pos : cache_pos + t] = q8
-            table[li, cache_pos : cache_pos + t, 0, :bh] = s.reshape(t, bh)
+            p = cache_pos + torch.arange(t, device=cache.device)
+            cache[li].index_copy_(0, p, q8)
+            table[li, :, 0, :bh].index_copy_(0, p, s.reshape(t, bh))
             out.append(_dequant_int8_layer(cache, table, li, dtype))
     return out
 
 
-def _window_mask(cache_pos: int, t: int, seq_len: int, starts, device):
+def _window_mask(cache_pos, t: int, seq_len: int, starts, device):
     """(1 or B, 1, T, S) mask of the causal window every cached caller asks
     for: query t sees slots [starts[b], cache_pos + t] (a start past
-    ``cache_pos`` taken as ``cache_pos``)."""
+    ``cache_pos`` taken as ``cache_pos``). ``cache_pos``: an int or a 0-d
+    int tensor on ``device``, compared on the device."""
     valid = causal_mask_for(cache_pos + torch.arange(t, device=device), seq_len)[None, None]
     if starts is not None:
         valid = valid & (torch.arange(seq_len, device=device) >= starts.clamp(max=cache_pos)[:, None, None, None])
@@ -764,7 +782,8 @@ def _attention_block(xa, lp: Params, cfg: TransformerConfig, li: int, mask, kv_c
     if int8_block:
         w, wo = lp["wqkv"], lp["wo"]
         y2, _, _ = decode_attention_block_int8(xa[:, 0, :], w["q"], w["scales"], wo["q"], wo["scales"],
-                                               kv_cache.k, kv_cache.v, li, cache_pos, cfg.n_head, starts=attn_starts)
+                                               kv_cache.k, kv_cache.v, li, cache_pos, cfg.n_head, starts=attn_starts,
+                                               window=attn_window)
         return y2[:, None, :].to(xa.dtype)
     quantized = kv_cache is not None and kv_cache.quantized
     q, k_new, v_new = _qkv_proj(xa, lp, cfg)
@@ -789,7 +808,7 @@ def _attention_block(xa, lp: Params, cfg: TransformerConfig, li: int, mask, kv_c
     elif t <= MULTI_MAX_T:
         y4, _, _ = decode_attention_multi(
             q.contiguous(), k_new.contiguous(), v_new.contiguous(), kv_cache.k, kv_cache.v,
-            li, cache_pos, starts=attn_starts,
+            li, cache_pos, starts=attn_starts, window=None if t > 1 else attn_window,
         )
         y = y4.transpose(1, 2).reshape(xa.shape[0], t, cfg.n_head * cfg.head_dim).to(xa.dtype)
     else:
@@ -877,10 +896,14 @@ def apply_blocks(
     * cache, T = 1 (decode): ``decode_attention`` writes the row and attends
       over the window [attn_starts, cache_pos] (GQA: through
       ``decode_attention_multi``); ``mask`` is not used. ``cache_pos`` may
-      be a one-element int32 tensor on the device there (the CUDA-graph
-      step of ``first_stage.decode``) on the routes that read it on the
-      device: ``decode_attention`` (MHA on a float cache, planned at the
-      bucket ``attn_window``) and the int4 / int8 decode-stack kernels. Where
+      be a 0-d int32 tensor on the device there (the CUDA-graph step of
+      ``first_stage.decode``), read on the device by every T = 1 route
+      without tensor parallelism: the decode attention (K1, and K4 for
+      GQA), K5 and K9, each planned at the window bucket ``attn_window``
+      (default: the bucket of an int ``cache_pos``, so both give the same
+      bits), the int4 / int8 decode-stack kernels, and the quantized
+      cache's plain path (its row written by ``index_copy_``, its window
+      mask compared on the device). Where
       ``int8_block_ok`` holds (plain int8), each layer's attention block is
       one ``decode_attention_block_int8`` call instead. With int4 layer
       weights the step runs as ``int4_decode_route`` says: all layers in
@@ -933,9 +956,10 @@ def apply_blocks(
         route = None
         if any(is_int4(w) for w in params["layers"].values()):
             route = int4_decode_route(params, cfg, x.shape[0], kv_cache.k.dtype)
-        if route in ("stack", "layers"):
-            decode = _decode_stack if route == "stack" else _decode_layers_int4
-            return decode(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head)
+        if route == "stack":
+            return _decode_stack(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head)
+        if route == "layers":
+            return _decode_layers_int4(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head, attn_window)
         if int8_stack_ok(params, cfg, x.shape[0], kv_cache.k.dtype):
             return _decode_stack_int8(params, cfg, x, kv_cache, cache_pos, attn_starts, fused_head)
     quantized = kv_cache is not None and kv_cache.quantized

@@ -36,15 +36,15 @@ _L = ctypes.c_longlong
 # name -> (restype, argtypes) of every C entry point in csrc/
 _SIGNATURES = {
     "mv_decode_attention": (_I, [_I] + [_P] * 6 + [_I] * 6 + [_P] + [_I] * 2 + [_P, _P, _I, _P, _P]),
-    "mv_decode_attention_multi": (_I, [_I] + [_P] * 6 + [_I] * 10 + [_P, _P, _I, _P, _P]),
+    "mv_decode_attention_multi": (_I, [_I] + [_P] * 6 + [_I] * 8 + [_P, _I, _I, _P, _P, _I, _P, _P]),
     "mv_matmul_int4_i32": (_I, [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P]),
     "mv_matmul_int8_i32": (_I, [_P] * 4 + [_I] * 6 + [_P, _P, _P, _I, _P]),
     "mv_decode_stack_int4": (_I, [_P] * 22 + [_I] * 11 + [_F, _I, _I] + [_P] * 4 + [_L] + [_P] * 4 + [_I, _P, _P]),
     "mv_decode_stack_int8": (_I, [_P] * 18 + [_I] * 10 + [_F, _I, _I] + [_P] * 4 + [_L] + [_P] * 4 + [_I, _P, _P]),
-    "mv_decode_block_int4": (_I, [_I] + [_P] * 11 + [_I] * 10 + [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P, _P, _I, _P]),
+    "mv_decode_block_int4": (_I, [_I] + [_P] * 11 + [_I] * 2 + [_P] + [_I] * 9 + [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P, _P, _I, _P]),
     "mv_decode_ffn_int4": (_I, [_P] * 8 + [_I] * 6 + [_P] * 3 + [_L, _P, _I, _P]),
     "mv_matmul_int8": (_I, [_P] * 4 + [_I] * 8 + [_P, _L, _P, _I, _P]),
-    "mv_decode_block_int8": (_I, [_P] * 9 + [_I] * 6 + [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P, _P, _I, _P]),
+    "mv_decode_block_int8": (_I, [_P] * 9 + [_I] * 2 + [_P] + [_I] * 5 + [_P, _I, _I] + [_P] * 3 + [_L, _P, _I, _P, _P, _I, _P]),
     "mv_decode_ffn_int8": (_I, [_P] * 8 + [_I] * 3 + [_P] * 3 + [_L, _P, _I, _P]),
     "mv_matmul_int4_grouped": (_I, [_P] * 5 + [_I] * 10 + [_P, _P, _I, _P]),
     "mv_decode_stack_values": (_I, [_P, _P, _P]),

@@ -36,11 +36,13 @@ merge counters of the products (``decode_stack._stack_tickets``) and of the
 attention (``_tickets``) are per device and made by the first eager call,
 so calls on one device must not overlap in time (two streams, or two graph
 replays at once), and a CUDA-graph capture needs one eager call before it.
-K1 also takes ``pos`` as a one-element int32 tensor that the kernel reads on
-the device, planned at a window bucket (:func:`attention_window`): one
-launch captured in a CUDA graph then serves every slot of the bucket (the
-decode step of ``models/first_stage.py``), and an int ``pos`` in the same
-bucket gives the same bits.
+At T = 1 (K1, K4's GQA decode step, K5 and K9) a call also takes ``pos`` as
+a one-element int32 tensor that the kernel reads on the device, planned at
+a window bucket (:func:`attention_window`): one launch captured in a CUDA
+graph then serves every slot of the bucket (the decode step of
+``models/first_stage.py``), and an int ``pos`` is planned at the same
+bucket, so both give the same bits. The plain versions take either, read
+over the bucket with the slots past ``pos`` zeroed.
 
 Layout: the cache is sequence-major ``(L, S, B, H_kv, Dh)`` as in
 ``models/transformer.py``. Every function updates the caches IN PLACE at
@@ -92,6 +94,31 @@ def attention_window(n: int, seq_len: int) -> int:
     return min(w, seq_len)
 
 
+def _window_of(pos, window, seq_len: int) -> int:
+    """The window bucket a T = 1 call is planned at: ``window``, or by
+    default :func:`attention_window` of an int ``pos`` and the whole cache
+    for a tensor."""
+    if window is not None:
+        return window
+    return seq_len if isinstance(pos, torch.Tensor) else attention_window(int(pos) + 1, seq_len)
+
+
+def _check_slot(pos, window, seq_len: int, device, who: str) -> int:
+    """A T = 1 call's ``pos`` (an int, or one int32 on ``device``) and its
+    window bucket -> the window; raises where they do not fit a cache of
+    ``seq_len`` slots. A tensor is not read: its window bounds it."""
+    w = _window_of(pos, window, seq_len)
+    if isinstance(pos, torch.Tensor):
+        if pos.numel() != 1 or pos.dtype != torch.int32 or pos.device != device:
+            raise ValueError(f"{who}: a device pos is one int32 on {device}, got {tuple(pos.shape)} {pos.dtype} "
+                             f"on {pos.device}")
+        if not 0 < w <= seq_len:
+            raise ValueError(f"{who}: window {w} outside the cache's {seq_len} slots")
+    elif not 0 <= pos < w <= seq_len:
+        raise ValueError(f"{who}: pos {pos} / window {w} outside the cache's {seq_len} slots")
+    return w
+
+
 def _slot_tensor(pos, device) -> torch.Tensor:
     """``pos`` (an int or a one-element tensor) as a (1,) int64 tensor on
     ``device``, without reading a device tensor back to the host."""
@@ -115,9 +142,7 @@ def decode_attention_reference(q, k_new, v_new, k_cache, v_cache, layer, pos, st
     start past ``pos`` is taken as ``pos``, as in the kernel.
     """
     dh = q.shape[-1]
-    seq_len = k_cache.shape[1]
-    if window is None:
-        window = seq_len if isinstance(pos, torch.Tensor) else attention_window(int(pos) + 1, seq_len)
+    window = _window_of(pos, window, k_cache.shape[1])
     p = _slot_tensor(pos, q.device)
     k_cache[layer].index_copy_(0, p, k_new[None].to(k_cache.dtype))
     v_cache[layer].index_copy_(0, p, v_new[None].to(v_cache.dtype))
@@ -207,14 +232,16 @@ def _onepass_scratch(n_splits: int, kv_rows: int, n_q: int, dh: int, device):
     none for one split; else f32 scratch of ``(kv rows x query groups,
     splits, ATTN_MAX_Q, dh + 2)`` and the device's counters, made zero by
     the first call and left zero by every launch (the last block of a row
-    resets its own; ``merge_tickets``)."""
+    resets its own; ``merge_tickets``). The counters are taken on every
+    call, so that a CUDA-graph capture before any eager call raises."""
+    tickets = merge_tickets(_tickets, ATTN_TICKETS, device, "decode_attention")
     if n_splits == 1:
         return None, None
     groups = -(-n_q // ATTN_MAX_Q)
     if kv_rows * groups > ATTN_TICKETS:
         raise ValueError(f"{kv_rows * groups} kv rows x query groups exceed the {ATTN_TICKETS} merge counters")
     part = torch.empty((kv_rows * groups * n_splits * ATTN_MAX_Q * (dh + 2),), dtype=torch.float32, device=device)
-    return part, merge_tickets(_tickets, ATTN_TICKETS, device, "decode_attention")
+    return part, tickets
 
 
 BLOCK_FORMATS = ("bf16", "int8", "packed", "int8_plain")  # K5's three caches, then K9
@@ -240,7 +267,9 @@ def block_plan(fmt: str, b: int, d: int, n_head: int, n_kv_head: int, pos: int) 
     weights; the others K5's int4 words on that cache). The qkv product is
     (B, D) @ (D, D + 2 * H_kv * 128), the o-proj (B, D) @ (D, D), both in K5's
     int4 words (vpw 8) or K9's plain bytes (vpw 1); the attention's window is
-    ``[0, pos]`` in blocks of one query head each."""
+    ``[0, pos]`` in blocks of one query head each. The wrappers plan a call
+    at its window bucket's last slot (:func:`attention_window`), whatever
+    slot of the bucket it writes."""
     if fmt not in BLOCK_FORMATS:
         raise ValueError(f"fmt must be one of {BLOCK_FORMATS}, got {fmt!r}")
     vpw = 1 if fmt == "int8_plain" else 8
@@ -276,8 +305,8 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos, starts=
     at (layer, pos); starts: optional (B,) int per-row first valid slot, on
     q's device (a start past ``pos`` is taken as ``pos``). ``layer`` is an
     int; ``pos`` an int, or a one-element int32 tensor on q's device that
-    the kernel reads on the device (MHA only), so that one launch captured
-    in a CUDA graph serves every slot of its window. ``window``: the window
+    the kernel reads on the device, so that one launch captured in a CUDA
+    graph serves every slot of its window. ``window``: the window
     bucket ``[0, window)`` the call is planned at (:func:`attention_plan`
     of it); it must hold ``pos``. Default: :func:`attention_window` of an
     int ``pos``; a tensor ``pos`` without it takes the whole cache. An int
@@ -290,10 +319,8 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos, starts=
     the card, counted in ``decode_attention_multi.launches``.
     """
     if q.dim() == 3 and k_new.dim() == 3 and k_new.shape[1] != q.shape[1]:
-        if isinstance(pos, torch.Tensor):
-            raise ValueError("GQA decode attention (K4) takes pos as an int")
         y4, k_cache, v_cache = decode_attention_multi(
-            q[:, :, None], k_new[:, :, None], v_new[:, :, None], k_cache, v_cache, layer, pos, starts
+            q[:, :, None], k_new[:, :, None], v_new[:, :, None], k_cache, v_cache, layer, pos, starts, window=window
         )
         return y4[:, :, 0], k_cache, v_cache
     if q.dim() != 3:
@@ -301,8 +328,7 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos, starts=
     _check(q, k_new, v_new, k_cache, v_cache, layer, pos, starts, window)
     seq_len = k_cache.shape[1]
     device_pos = isinstance(pos, torch.Tensor)
-    if window is None:
-        window = seq_len if device_pos else attention_window(pos + 1, seq_len)
+    window = _window_of(pos, window, seq_len)
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_new, v_new, k_cache, v_cache, layer, pos, starts, window)
     if q.device.type != "cuda":
@@ -334,7 +360,7 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int, pos, starts=
 decode_attention.launches = 0
 
 
-def decode_attention_multi_reference(q, k_new, v_new, k_cache, v_cache, layer, pos, starts=None):
+def decode_attention_multi_reference(q, k_new, v_new, k_cache, v_cache, layer, pos, starts=None, window=None):
     """Plain PyTorch version of K4: the CPU path and the card's oracle.
 
     Semantics of ``metavoice_tpu/ops/attention.py:decode_attention_multi_reference``:
@@ -344,34 +370,52 @@ def decode_attention_multi_reference(q, k_new, v_new, k_cache, v_cache, layer, p
     query head h (g = H / H_kv). Only slots ``[0, pos+T)`` enter the sums,
     which keeps garbage (even NaN) past the window out of the result; a
     start past ``pos`` is taken as ``pos``.
+
+    At T = 1 ``pos`` may also be a one-element int tensor on q's device,
+    read on the device, and the sums run over the window ``[0, window)``
+    (:func:`_window_of`) with the values past ``pos`` zeroed first, as in
+    :func:`decode_attention_reference`: an int and a tensor ``pos`` in one
+    window give the same bits.
     """
     b, h, t, dh = q.shape
     h_kv = k_new.shape[1]
-    n = pos + t
-    k_cache[layer, pos:n] = k_new.permute(2, 0, 1, 3).to(k_cache.dtype)
-    v_cache[layer, pos:n] = v_new.permute(2, 0, 1, 3).to(v_cache.dtype)
+    rows = _slot_tensor(pos, q.device) + torch.arange(t, device=q.device)
+    k_cache[layer].index_copy_(0, rows, k_new.permute(2, 0, 1, 3).to(k_cache.dtype))
+    v_cache[layer].index_copy_(0, rows, v_new.permute(2, 0, 1, 3).to(v_cache.dtype))
+    n = _window_of(pos, window, k_cache.shape[1]) if t == 1 else pos + t
+    last = rows[:1]  # query 0's last slot
+    slot = torch.arange(n, device=q.device)
     lk = k_cache[layer, :n].float()  # (n, B, H_kv, Dh)
-    lv = v_cache[layer, :n].float()
+    lv = torch.where((slot < last + t)[:, None, None, None], v_cache[layer, :n].float(), 0.0)
     if h_kv != h:
         lk = torch.repeat_interleave(lk, h // h_kv, dim=2)
         lv = torch.repeat_interleave(lv, h // h_kv, dim=2)
     s = torch.einsum("bhtd,sbhd->bhts", q.float(), lk) / math.sqrt(dh)
-    slot = torch.arange(n, device=q.device)
-    valid = slot[None, None, None, :] <= (pos + torch.arange(t, device=q.device))[None, None, :, None]
+    valid = slot[None, None, None, :] <= (last + torch.arange(t, device=q.device))[None, None, :, None]
     if starts is not None:
-        valid = valid & (slot[None, None, None, :] >= starts.clamp(max=pos)[:, None, None, None])
+        valid = valid & (slot[None, None, None, :] >= torch.minimum(starts, last)[:, None, None, None])
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     y = torch.einsum("bhts,sbhd->bhtd", p, lv)
     return y.to(q.dtype), k_cache, v_cache
 
 
-def decode_attention_multi(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, starts=None):
+def decode_attention_multi(q, k_new, v_new, k_cache, v_cache, layer: int, pos, starts=None, *,
+                           window: int | None = None):
     """T-query decode attention for one layer: ``(y (B, H, T, Dh), k_cache, v_cache)``.
 
     q: (B, H, T, Dh); k_new, v_new: (B, H_kv, T, Dh) with H_kv dividing H;
     caches: (L, S, B, H_kv, Dh), updated in place at rows ``[pos, pos+T)``
     of ``layer``; query t attends ``[starts[b], pos + t]``. T <= 16.
+
+    At T = 1 (a GQA decode step) ``pos`` may be a one-element int32 tensor
+    on q's device, read by the kernel on the device, and the call is
+    planned at the window bucket ``window`` (``[0, window)``, holding
+    ``pos``; default :func:`attention_window` of an int ``pos``, the whole
+    cache for a tensor), as :func:`decode_attention` plans K1: an int and a
+    tensor ``pos`` in one window give the same bits. At T > 1 (the
+    speculative verify) ``pos`` is an int and the plan covers ``[0, pos +
+    T)``.
 
     A CUDA tensor launches the hand-written kernel (one dtype of bf16/f32,
     head_dim 64 or 128, contiguous tensors) or raises; a CPU tensor takes
@@ -383,16 +427,21 @@ def decode_attention_multi(q, k_new, v_new, k_cache, v_cache, layer: int, pos: i
     b, h, t, dh = q.shape
     if not 1 <= t <= MULTI_MAX_T:
         raise ValueError(f"decode_attention_multi takes 1..{MULTI_MAX_T} query tokens, got {t}")
-    _check(q, k_new, v_new, k_cache, v_cache, layer, pos, starts)
+    if t > 1 and window is not None:
+        raise ValueError("a window bucket is a T = 1 call's plan; T > 1 plans over [0, pos + T)")
+    _check(q, k_new, v_new, k_cache, v_cache, layer, pos, starts, window)
+    device_pos = isinstance(pos, torch.Tensor)
+    if t == 1:
+        window = _window_of(pos, window, k_cache.shape[1])
     if q.device.type == "cpu":
-        return decode_attention_multi_reference(q, k_new, v_new, k_cache, v_cache, layer, pos, starts)
+        return decode_attention_multi_reference(q, k_new, v_new, k_cache, v_cache, layer, pos, starts, window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_multi runs on cuda or cpu, not {q.device}")
     _check_kernel_inputs("decode_attention_multi", (q, k_new, v_new, k_cache, v_cache))
     if starts is not None:
         starts = starts.to(torch.int32).contiguous()
     h_kv = k_new.shape[1]
-    split_len, n_splits = attention_plan(pos + t, b * h_kv, t * (h // h_kv))
+    split_len, n_splits = attention_plan(window if t == 1 else pos + t, b * h_kv, t * (h // h_kv))
     part, tickets = _onepass_scratch(n_splits, b * h_kv, t * (h // h_kv), dh, q.device)
     y = torch.empty_like(q)
     err = _build.kernels().lib.mv_decode_attention_multi(
@@ -400,7 +449,8 @@ def decode_attention_multi(q, k_new, v_new, k_cache, v_cache, layer: int, pos: i
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(),
         None if starts is None else starts.data_ptr(),
-        b, h, h_kv, t, dh, k_cache.shape[1], layer, pos, split_len, n_splits,
+        b, h, h_kv, t, dh, k_cache.shape[1], layer, window - 1 if device_pos else pos,
+        pos.data_ptr() if device_pos else None, split_len, n_splits,
         None if part is None else part.data_ptr(), None if tickets is None else tickets.data_ptr(),
         ATTN_TICKETS, y.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -444,8 +494,8 @@ def _packed_byte_mask(pos: int) -> int:
 
 
 def decode_attention_block_int4_reference(
-    xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer: int, pos: int, n_head: int, *,
-    n_kv_head: int | None = None, starts=None, k_scale=None, v_scale=None,
+    xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer: int, pos, n_head: int, *,
+    n_kv_head: int | None = None, starts=None, k_scale=None, v_scale=None, window: int | None = None,
 ):
     """Plain PyTorch version of K5: the CPU path and the card's oracle.
 
@@ -461,38 +511,53 @@ def decode_attention_block_int4_reference(
     to bf16 against the integer values, the dot in f32 times the k scale,
     ``p = exp(s - max)``, ``l = sum p``, ``bf16(p * v_scale)`` against the
     integer values in f32. Then y rounded to bf16 and ``y @ Wo`` rounded to
-    bf16 -> (y (B, D) bf16, k_cache, v_cache, k_scale, v_scale). Only slots
-    ``[0, pos]`` are read, so garbage (even NaN) past ``pos`` stays out.
+    bf16 -> (y (B, D) bf16, k_cache, v_cache, k_scale, v_scale).
+
+    ``pos`` is an int or a one-element int tensor on xa's device, read on
+    the device; the sums run over the window ``[0, window)`` (default:
+    :func:`attention_window` of an int ``pos``, the whole cache for a
+    tensor) with the values and scales past ``pos`` zeroed first, so
+    garbage (even NaN) there stays out and an int and a tensor ``pos`` in
+    one window give the same bits.
     """
     b, d = xa.shape
     dh = d // n_head
     h_kv = n_kv_head or n_head
     g, dkv, bkv = n_head // h_kv, h_kv * dh, b * h_kv
     fmt = _cache_format(k_cache, k_scale)
+    n = _window_of(pos, window, k_cache.shape[1] * (4 if fmt == "packed" else 1))
+    p = _slot_tensor(pos, xa.device)
+    slot = torch.arange(n, device=xa.device)
+    live = slot <= p  # (n,)
     qkv = matmul_int4_i32_reference(xa, wqkv_pw[layer], wqkv_sc[layer])
     q = (qkv[:, :d] * (1.0 / math.sqrt(dh))).reshape(b, n_head, dh)
     rows = [qkv[:, d + i * dkv : d + (i + 1) * dkv].reshape(b, h_kv, dh) for i in range(2)]
-    n = pos + 1
     kv, scales = [], []
     for cache, table, row in ((k_cache, k_scale, rows[0]), (v_cache, v_scale, rows[1])):
         if fmt == "bf16":
-            cache[layer, pos] = row.to(cache.dtype)
-            kv.append(cache[layer, :n].float())
+            cache[layer].index_copy_(0, p, row[None].to(cache.dtype))
+            kv.append(torch.where(live[:, None, None, None], cache[layer, :n].float(), 0.0))
             continue
-        q8, s = _quant_row(row)
+        q8, sc = _quant_row(row)
         if fmt == "int8":
-            cache[layer, pos] = q8.to(torch.int8)
-            table[layer, pos, 0, :bkv] = s.reshape(bkv)
-            kv.append(cache[layer, :n].float())
-            scales.append(table[layer, :n, 0, :bkv])
+            cache[layer].index_copy_(0, p, q8[None].to(torch.int8))
+            table[layer, :, 0, :bkv].index_copy_(0, p, sc.reshape(1, bkv))
+            vals = cache[layer, :n].float()
+            col = table[layer, :n, 0, :bkv]
         else:
-            w = pos // 4
-            cache[layer, w] = (cache[layer, w] & _packed_byte_mask(pos)) | ((q8 & 0xFF) << (8 * (pos % 4)))
-            table[layer, pos % 4, w, 0, :bkv] = s.reshape(bkv)
-            words = cache[layer, : w + 1]
+            w, sh = p // 4, (8 * (p % 4)).to(torch.int32)
+            word = cache[layer].index_select(0, w)
+            keep = ~(torch.full_like(sh, 0xFF) << sh)
+            cache[layer].index_copy_(0, w, (word & keep) | ((q8[None] & 0xFF) << sh))
+            flat = table[layer].view(-1, *table.shape[3:])  # (4 * S/4, 1, BHpad): residue-major
+            flat[:, 0, :bkv].index_copy_(0, (p % 4) * table.shape[2] + w, sc.reshape(1, bkv))
+            nw = -(-n // 4)
+            words = cache[layer, :nw]
             vals = torch.stack([(words << (24 - 8 * j)) >> 24 for j in range(4)], dim=1)
-            kv.append(vals.reshape(4 * (w + 1), b, h_kv, dh)[:n].float())
-            scales.append(table[layer, :, : w + 1, 0, :bkv].transpose(0, 1).reshape(4 * (w + 1), bkv)[:n])
+            vals = vals.reshape(4 * nw, b, h_kv, dh)[:n].float()
+            col = table[layer, :, :nw, 0, :bkv].transpose(0, 1).reshape(4 * nw, bkv)[:n]
+        kv.append(vals)
+        scales.append(torch.where(live[:, None], col, 0.0))
     lk, lv = kv
     if g > 1:
         lk, lv = lk.repeat_interleave(g, dim=2), lv.repeat_interleave(g, dim=2)
@@ -503,21 +568,21 @@ def decode_attention_block_int4_reference(
     s = torch.einsum("bhd,sbhd->bhs", q, lk)
     if fmt != "bf16":
         s = s * scales[0]
+    valid = live[None, None, :]
     if starts is not None:
-        slot = torch.arange(n, device=xa.device)
-        valid = slot[None, None, :] >= starts.clamp(max=pos)[:, None, None]
-        s = torch.where(valid, s, torch.full_like(s, -1e30))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
+        valid = valid & (slot[None, None, :] >= torch.minimum(starts, p)[:, None, None])
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = pr.sum(dim=-1, keepdim=True)
     if fmt != "bf16":
-        p = (p * scales[1]).to(torch.bfloat16).float()
-    y = (torch.einsum("bhs,sbhd->bhd", p, lv) / l).reshape(b, d).to(torch.bfloat16)
+        pr = (pr * scales[1]).to(torch.bfloat16).float()
+    y = (torch.einsum("bhs,sbhd->bhd", pr, lv) / l).reshape(b, d).to(torch.bfloat16)
     out = matmul_int4_i32_reference(y, wo_pw[layer], wo_sc[layer]).to(torch.bfloat16)
     return out, k_cache, v_cache, k_scale, v_scale
 
 
 def _check_block(xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer, pos, n_head, h_kv,
-                 starts, k_scale, v_scale):
+                 starts, k_scale, v_scale, window):
     if xa.dim() != 2:
         raise ValueError(f"xa must be (B, D), got {tuple(xa.shape)}")
     b, d = xa.shape
@@ -549,20 +614,21 @@ def _check_block(xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer, po
                 or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
             raise ValueError(f"an {fmt} cache takes {want_dtype} values and f32 scales {lead + ('BHpad',)}, "
                              f"got {k_cache.dtype} and {tuple(k_scale.shape)} {k_scale.dtype}")
-    if not (0 <= layer < n_layer and 0 <= pos < seq_len):
-        raise ValueError(f"layer {layer} / pos {pos} outside the cache ({n_layer} layers, {seq_len} slots)")
+    if not 0 <= layer < n_layer:
+        raise ValueError(f"layer {layer} outside the cache's {n_layer} layers")
+    window = _check_slot(pos, window, seq_len, xa.device, "decode_attention_block_int4")
     tensors = [xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache]
     tensors += [t for t in (starts, k_scale, v_scale) if t is not None]
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"all tensors must share one device, got {sorted({str(t.device) for t in tensors})}")
     if starts is not None and tuple(starts.shape) != (b,):
         raise ValueError(f"starts must be ({b},), got {tuple(starts.shape)}")
-    return fmt, seq_len
+    return fmt, seq_len, window
 
 
 def decode_attention_block_int4(
-    xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer: int, pos: int, n_head: int, *,
-    n_kv_head: int | None = None, starts=None, k_scale=None, v_scale=None,
+    xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer: int, pos, n_head: int, *,
+    n_kv_head: int | None = None, starts=None, k_scale=None, v_scale=None, window: int | None = None,
 ):
     """One decode layer's int4 attention block (K5): ``(y (B, D) bf16,
     k_cache, v_cache, k_scale, v_scale)``, the JAX package's return.
@@ -573,8 +639,14 @@ def decode_attention_block_int4(
     float (L, S, B, H_kv, Dh) with no scales, int8 with ``k_scale``/
     ``v_scale`` (L, S, 1, BHpad), or packed int32 (L, S/4, B, H_kv, Dh) with
     residue-split scales (L, 4, S/4, 1, BHpad); updated IN PLACE at (layer,
-    pos). ``layer`` and ``pos`` are ints; ``starts`` optional (B,) first
-    valid slot per batch row.
+    pos). ``layer`` is an int; ``pos`` an int, or a one-element int32
+    tensor on xa's device that the kernel reads on the device; ``starts``
+    optional (B,) first valid slot per batch row. The attention is planned
+    at the window bucket ``window`` (``[0, window)``, holding ``pos``;
+    default :func:`attention_window` of an int ``pos``, the whole cache for
+    a tensor): a split wholly past ``pos`` reads and writes nothing, so one
+    call captured in a CUDA graph serves every slot of the bucket, and an
+    int and a tensor ``pos`` in one window give the same bits.
 
     A CUDA tensor launches the hand-written kernel
     (``csrc/decode_block_int4.cu``: a float cache in bf16 or either int8
@@ -584,10 +656,10 @@ def decode_attention_block_int4(
     ``decode_attention_block_int4.launches`` counts kernel launches.
     """
     h_kv = n_kv_head or n_head
-    fmt, seq_len = _check_block(xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer, pos, n_head,
-                                h_kv, starts, k_scale, v_scale)
+    fmt, seq_len, window = _check_block(xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer, pos, n_head,
+                                        h_kv, starts, k_scale, v_scale, window)
     args = (xa, wqkv_pw, wqkv_sc, wo_pw, wo_sc, k_cache, v_cache, layer, pos, n_head)
-    kw = dict(n_kv_head=h_kv, starts=starts, k_scale=k_scale, v_scale=v_scale)
+    kw = dict(n_kv_head=h_kv, starts=starts, k_scale=k_scale, v_scale=v_scale, window=window)
     if xa.device.type == "cpu":
         return decode_attention_block_int4_reference(*args, **kw)
     if xa.device.type != "cuda":
@@ -612,7 +684,8 @@ def decode_attention_block_int4(
     if starts is not None:
         starts = starts.to(torch.int32).contiguous()
     qout = wqkv_pw.shape[2]
-    plan = block_plan(fmt, b, d, n_head, h_kv, pos)
+    device_pos = isinstance(pos, torch.Tensor)
+    plan = block_plan(fmt, b, d, n_head, h_kv, window - 1)
     qkv, ya, part, attn_part, tickets, attn_tickets = _block_scratch(plan, b, d, qout, b * n_head, dev,
                                                                      "decode_attention_block_int4")
     plans = (ctypes.c_int * 6)(*plan.qkv, *plan.o)
@@ -624,7 +697,8 @@ def decode_attention_block_int4(
     err = _build.kernels().lib.mv_decode_block_int4(
         _CACHE_FORMAT_CODE[fmt], x.data_ptr(), wqkv_pw.data_ptr(), wqkv_sc.data_ptr(), wo_pw.data_ptr(),
         wo_sc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale), ptr(starts),
-        y.data_ptr(), layer, pos, b, d, n_head, h_kv, dh, seq_len,
+        y.data_ptr(), layer, 0 if device_pos else pos, ptr(pos) if device_pos else None, window, b, d, n_head, h_kv,
+        dh, seq_len,
         0 if k_scale is None else k_scale.shape[-1], wqkv_sc.shape[1] // 2, ctypes.addressof(plans), *plan.attn,
         qkv.data_ptr(), ya.data_ptr(), part.data_ptr(), part.numel(), tickets.data_ptr(), DS.STACK_TICKETS,
         ptr(attn_part), attn_tickets.data_ptr(), ATTN_TICKETS, torch.cuda.current_stream(dev).cuda_stream,
@@ -640,8 +714,8 @@ decode_attention_block_int4.launches = 0
 
 # ------------------------------------------------------------------ K9: one plain-int8 attention block
 
-def decode_attention_block_int8_reference(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache, layer: int, pos: int,
-                                          n_head: int, starts=None):
+def decode_attention_block_int8_reference(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache, layer: int, pos,
+                                          n_head: int, starts=None, window: int | None = None):
     """Plain PyTorch version of K9: the CPU path and the card's oracle.
 
     The TPU kernel's arithmetic (``_decode_block_kernel``): ``qkv = xa @
@@ -650,36 +724,47 @@ def decode_attention_block_int8_reference(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cach
     (layer, pos); f32 attention of every head over ``[starts[b], pos]`` (a
     start past ``pos`` taken as ``pos``), read back from the cache; y rounded
     to bf16; ``y @ Wo * s`` rounded to bf16 -> (y (B, D) bf16, k_cache,
-    v_cache). Only slots ``[0, pos]`` are read, so garbage (even NaN) past
-    ``pos`` stays out (the TPU kernel reads whole chunks and lets it through
-    0 * NaN)."""
+    v_cache). ``pos`` is an int or a one-element int tensor on xa's device,
+    read on the device; the sums run over the window ``[0, window)``
+    (default: :func:`attention_window` of an int ``pos``, the whole cache
+    for a tensor) with the values past ``pos`` zeroed first, so garbage
+    (even NaN) there stays out (the TPU kernel reads whole chunks and lets
+    it through 0 * NaN) and an int and a tensor ``pos`` in one window give
+    the same bits."""
     b, d = xa.shape
     dh = d // n_head
+    n = _window_of(pos, window, k_cache.shape[1])
+    p = _slot_tensor(pos, xa.device)
+    slot = torch.arange(n, device=xa.device)
+    live = slot <= p
     qkv = int8_dot(xa, wqkv_q, wqkv_s)
     q = (qkv[:, :d] * (1.0 / math.sqrt(dh))).reshape(b, n_head, dh)
     for i, cache in enumerate((k_cache, v_cache)):
-        cache[layer, pos] = qkv[:, (i + 1) * d : (i + 2) * d].reshape(b, n_head, dh).to(cache.dtype)
-    n = pos + 1
+        row = qkv[None, :, (i + 1) * d : (i + 2) * d].reshape(1, b, n_head, dh)
+        cache[layer].index_copy_(0, p, row.to(cache.dtype))
     s = torch.einsum("bhd,sbhd->bhs", q, k_cache[layer, :n].float())
+    valid = live[None, None, :]
     if starts is not None:
-        slot = torch.arange(n, device=xa.device)
-        valid = slot[None, None, :] >= starts.clamp(max=pos)[:, None, None]
-        s = torch.where(valid, s, torch.full_like(s, -1e30))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    y = torch.einsum("bhs,sbhd->bhd", p, v_cache[layer, :n].float()) / p.sum(dim=-1, keepdim=True)
+        valid = valid & (slot[None, None, :] >= torch.minimum(starts, p)[:, None, None])
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    lv = torch.where(live[:, None, None, None], v_cache[layer, :n].float(), 0.0)
+    y = torch.einsum("bhs,sbhd->bhd", pr, lv) / pr.sum(dim=-1, keepdim=True)
     out = int8_dot(y.reshape(b, d).to(torch.bfloat16), wo_q, wo_s).to(torch.bfloat16)
     return out, k_cache, v_cache
 
 
-def decode_attention_block_int8(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache, layer: int, pos: int,
-                                n_head: int, starts=None):
+def decode_attention_block_int8(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache, layer: int, pos,
+                                n_head: int, starts=None, *, window: int | None = None):
     """One decode layer's plain-int8 attention block (K9): ``(y (B, D) bf16,
     k_cache, v_cache)``, the JAX package's return.
 
     xa: (B, D) normed input; this layer's ``wqkv_q`` (D, 3D) and ``wo_q``
     (D, D) int8 with their (N,) f32 scales; the float caches (L, S, B, H,
-    Dh), MHA, updated IN PLACE at (layer, pos). ``layer`` and ``pos`` are
-    ints; ``starts`` optional (B,) first valid slot per batch row.
+    Dh), MHA, updated IN PLACE at (layer, pos). ``layer`` is an int;
+    ``pos`` and ``window`` as for :func:`decode_attention_block_int4` (an
+    int or a one-element int32 tensor read on the device, planned at the
+    window bucket); ``starts`` optional (B,) first valid slot per batch row.
 
     A CUDA tensor launches the hand-written kernel
     (``csrc/decode_block_int8.cu``: a bf16 cache, head_dim 128, 1..8 rows) or
@@ -700,8 +785,9 @@ def decode_attention_block_int8(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache
         raise ValueError(f"caches must be float (L, S, {b}, {n_head}, {dh}), got {tuple(k_cache.shape)} "
                          f"{k_cache.dtype}, {tuple(v_cache.shape)} {v_cache.dtype}")
     n_layer, seq_len = k_cache.shape[:2]
-    if not (0 <= layer < n_layer and 0 <= pos < seq_len):
-        raise ValueError(f"layer {layer} / pos {pos} outside the cache ({n_layer} layers, {seq_len} slots)")
+    if not 0 <= layer < n_layer:
+        raise ValueError(f"layer {layer} outside the cache's {n_layer} layers")
+    window = _check_slot(pos, window, seq_len, xa.device, "decode_attention_block_int8")
     tensors = [xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache] + ([] if starts is None else [starts])
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"all tensors must share one device, got {sorted({str(t.device) for t in tensors})}")
@@ -709,7 +795,7 @@ def decode_attention_block_int8(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache
         raise ValueError(f"starts must be ({b},), got {tuple(starts.shape)}")
     args = (xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache, layer, pos, n_head)
     if xa.device.type == "cpu":
-        return decode_attention_block_int8_reference(*args, starts=starts)
+        return decode_attention_block_int8_reference(*args, starts=starts, window=window)
     if xa.device.type != "cuda":
         raise ValueError(f"decode_attention_block_int8 runs on cuda or cpu, not {xa.device}")
     if dh != 128 or not 1 <= b <= DECODE_MAX_ROWS or k_cache.dtype != torch.bfloat16:
@@ -724,7 +810,8 @@ def decode_attention_block_int8(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache
     x = xa.to(torch.bfloat16).contiguous()
     if starts is not None:
         starts = starts.to(torch.int32).contiguous()
-    plan = block_plan("int8_plain", b, d, n_head, n_head, pos)
+    device_pos = isinstance(pos, torch.Tensor)
+    plan = block_plan("int8_plain", b, d, n_head, n_head, window - 1)
     qkv, ya, part, attn_part, tickets, attn_tickets = _block_scratch(plan, b, d, 3 * d, b * n_head, dev,
                                                                      "decode_attention_block_int8")
     plans = (ctypes.c_int * 6)(*plan.qkv, *plan.o)
@@ -732,7 +819,8 @@ def decode_attention_block_int8(xa, wqkv_q, wqkv_s, wo_q, wo_s, k_cache, v_cache
     err = _build.kernels().lib.mv_decode_block_int8(
         x.data_ptr(), wqkv_q.data_ptr(), wqkv_s.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), None if starts is None else starts.data_ptr(), y.data_ptr(),
-        layer, pos, b, d, n_head, seq_len, ctypes.addressof(plans), *plan.attn,
+        layer, 0 if device_pos else pos, pos.data_ptr() if device_pos else None, window, b, d, n_head, seq_len,
+        ctypes.addressof(plans), *plan.attn,
         qkv.data_ptr(), ya.data_ptr(), part.data_ptr(), part.numel(), tickets.data_ptr(), DS.STACK_TICKETS,
         None if attn_part is None else attn_part.data_ptr(), attn_tickets.data_ptr(), ATTN_TICKETS,
         torch.cuda.current_stream(dev).cuda_stream,

@@ -43,6 +43,11 @@ KERNEL_COUNTERS = {
 }
 
 
+# counters no TTS.stats key reads, which a replay credits all the same: K11's
+# launches on its GEMV route (a share of k11_launches)
+SUB_COUNTERS = ((matmul_int8, "gemv_launches"),)
+
+
 def launch_counts() -> dict[str, int]:
     """Every counter's value now, by TTS.stats key."""
     return {k: getattr(fn, attr) for k, (fn, attr) in KERNEL_COUNTERS.items()}

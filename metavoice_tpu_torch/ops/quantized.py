@@ -475,15 +475,17 @@ def _prefill_scratch(n_splits: int, m: int, n: int, wfmt: str, device, who: str)
     (splits, column tiles, m), both from the caching allocator on every call
     (so calls on other streams, and graph captures, each get their own), and
     the device's counters, made zero by the first call and left zero by
-    every launch (:func:`merge_tickets`). Calls on one device must not
-    overlap in time (one stream, or streams the caller orders)."""
+    every launch (:func:`merge_tickets`), taken on every call, so that a
+    CUDA-graph capture before any eager call raises. Calls on one device
+    must not overlap in time (one stream, or streams the caller orders)."""
+    tickets = merge_tickets(_prefill_tickets, PREFILL_TICKETS, device, who)
     if n_splits == 1:
         return None, None, None
     part = torch.empty((n_splits * m * n,), dtype=torch.float32, device=device)
     xpart = None
     if wfmt == "i8":
         xpart = torch.empty((n_splits * -(-n // PREFILL_BN) * m,), dtype=torch.float32, device=device)
-    return part, xpart, merge_tickets(_prefill_tickets, PREFILL_TICKETS, device, who)
+    return part, xpart, tickets
 
 
 # ------------------------------------------------------------------ K6: one int4 SwiGLU FFN
@@ -1033,16 +1035,18 @@ def _int4g_scratch(n_splits: int, m: int, n: int, device, tiles: int | None = No
     graph captures, each get their own), and the device's counters, one a
     tile (the GEMV's column tiles, or ``tiles`` of the ring), made zero by
     the first call and left zero by every launch (the last block of a tile
-    resets its own; :func:`merge_tickets`; K11's ring shares them). Calls on
-    one device must not overlap in time (one stream, or streams the caller
-    orders), as for K1/K4's counters."""
+    resets its own; :func:`merge_tickets`; K11's ring shares them), taken on
+    every call, so that a CUDA-graph capture before any eager call raises.
+    Calls on one device must not overlap in time (one stream, or streams the
+    caller orders), as for K1/K4's counters."""
+    tickets = merge_tickets(_int4g_tickets, INT4G_TICKETS, device, "matmul_int4")
     if n_splits == 1:
         return None, None
     tiles = -(-n // INT4G_TILE_N) if tiles is None else tiles
     if tiles > INT4G_TICKETS:
         raise ValueError(f"{tiles} tiles exceed the {INT4G_TICKETS} merge counters")
     part = torch.empty((n_splits * m * n,), dtype=torch.float32, device=device)
-    return part, merge_tickets(_int4g_tickets, INT4G_TICKETS, device, "matmul_int4")
+    return part, tickets
 
 
 def merge_tickets(table: dict, size: int, device, who: str) -> torch.Tensor:

@@ -24,8 +24,8 @@ Threads and the card. One thread, the worker, launches every hand-written
 kernel: the group prefill, the joins (temp prefill and merges), the segment
 decodes and the rebases. The kernels' merge counters are per device and
 the decode stack's scratch per shape, so two of their launches must not
-overlap: one decode stream a device. A segment's steps on the K1, K3 and K7
-routes are replays of CUDA graphs (first_stage.decode) with those counters
+overlap: one decode stream a device. A segment's steps (every route but
+tensor parallelism's) are replays of CUDA graphs (first_stage.decode) with those counters
 and that scratch baked in, so no eager step on another stream and no second
 replay may overlap them either; they would race with no error. The renders
 and the speaker embedding (in ``submit``, on the caller's thread) launch

@@ -586,8 +586,9 @@ class TTS:
             their per-device merge counters;
           * per guidance variant, on the card, the decode step of the
             persistent cache captured in a CUDA graph at every window bucket
-            (``first_stage.capture_decode_graphs``; the K1, K3 and K7
-            routes), so that no request is the first to capture one;
+            (``first_stage.capture_decode_graphs``; every route but tensor
+            parallelism's and the speculative round's), so that no request
+            is the first to capture one;
           * the second stage + EnCodec vocoder (``stage2_vocode``) at every
             vocoder bucket up to ``vocoder_frame_buckets[-1]`` frames (with
             ``vocoder="mbd"`` too: the JAX package's warmup runs no MBD).
