@@ -499,6 +499,10 @@ K8_TOL = 1e-3
 K3_TIMED_POS = (0, 255, 1000, 2047)  # the JSON line carries pos 255
 K4_TOL = 2e-2
 K4_TIMED = ((4, 255), (8, 255), (4, 2032), (8, 2032))  # (T, pos); the JSON line carries T 4, pos 2032
+# K4 at T = gamma with pos on the device, planned at the window bucket (the speculative round's verify in a CUDA
+# graph): (T, pos), each timed against the host int in the same bucket; at 380 and 1020 a split boundary of the
+# bucket's plan (512 in 4 splits of 128, 2048 in 4 of 512) falls inside [pos, pos + T)
+K4_DEVICE_POS = tuple((t, p) for t in (4, 8, 16) for p in (255, 1000, 2032)) + ((8, 380), (8, 1020))
 # K5: the plain version takes the same roundings, but its softmax uses the
 # window's maximum where the kernel's runs online per split, so the bf16
 # roundings of the value weights (int8 caches) and the f32 sums land apart
@@ -1719,8 +1723,8 @@ def check_stats(tts, counts: dict, step_kernels=None):
     """TTS.stats' kNN_launches must agree with the kernel counts, and with
     ``step_kernels`` (the kernels a decode step launches) its decode route
     must be "graph": every single-card route's step is captured in a CUDA
-    graph (first_stage.DECODE_ROUTES; TP and the speculative round stay
-    eager)."""
+    graph (first_stage.DECODE_ROUTES; TP stays eager; the speculative
+    round's route, "spec", is checked by phase 18)."""
     if {key: tts.stats[key] for key in counts} != counts:
         fail(f"TTS.stats {tts.stats} disagrees with the kernel counts {counts}")
     if step_kernels is not None and tts.stats.get("decode_route") != "graph":
@@ -1872,6 +1876,7 @@ def phase_k4(torch) -> dict:
           f"{K4_TOL}; caches bit-identical, new rows written); one kernel a call ({', '.join(sorted(kernels))}); "
           f"plans ((B, H_kv, T, window): split_len, splits): {plans}; per layer, device time from a CUDA graph: "
           f"{'; '.join(shown)}")
+    k4_device_pos(torch, A, gen, dev, {k[1:]: v for k, v in times.items() if k[0] == h})
     ms, plain, library, bound_ms, bound_by, _ = times[(h, 4, 2032)]
     gqa_ms, _, gqa_library, gqa_bound_ms, _, gqa_nomask = times[(2, 1, 2032)]
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
@@ -1880,8 +1885,120 @@ def phase_k4(torch) -> dict:
                        "bound_ms": gqa_bound_ms}}
 
 
+def k4_device_pos(torch, A, gen, dev, exact: dict) -> None:
+    """Phase 16, K4 at T = gamma with ``pos`` read on the device
+    (K4_DEVICE_POS): against the host int in the same window bucket bit for
+    bit (y and both caches, NaN past pos + T never read), against the plain
+    version within K4_TOL, both timed per layer from a CUDA graph; ``exact``
+    (T, pos) -> phase 16's times of the host int over [0, pos + T)."""
+    b, h, s, n_layer, layer = MAIN_SHAPE["b"], MAIN_SHAPE["h"], MAIN_SHAPE["s"], MAIN_SHAPE["l"], 7
+    max_err, shown = 0.0, []
+    for t, pos in K4_DEVICE_POS:
+        window = A.attention_window(pos + t, s)
+        dpos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q, k_new, v_new, kc, vc = _k4_inputs(torch, gen, dev, b, h, h, t, pos, float("nan"))
+        kd, vd, kr, vr = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        before = A.decode_attention_multi.launches
+        y, _, _ = A.decode_attention_multi(q, k_new, v_new, kc, vc, layer, pos, window=window)
+        yd, _, _ = A.decode_attention_multi(q, k_new, v_new, kd, vd, layer, dpos, window=window)
+        ref, _, _ = A.decode_attention_multi_reference(q, k_new, v_new, kr, vr, layer, dpos, window=window)
+        torch.cuda.synchronize()
+        what = f"T {t}, pos {pos}, window {window}, plan {A.attention_plan(window, b * h, t)}"
+        if A.decode_attention_multi.launches != before + 2:
+            fail(f"16 K4 device pos: {A.decode_attention_multi.launches - before} launches for two calls at {what}")
+        if not (_same_bits(torch, y, yd) and _same_bits(torch, kc, kd) and _same_bits(torch, vc, vd)):
+            fail(f"16 K4 with pos on the device differs from the host int at {what}")
+        if not (torch.isfinite(yd.float()).all() and _same_bits(torch, kd, kr) and _same_bits(torch, vd, vr)):
+            fail(f"16 K4 with pos on the device: NaN in y, or caches other than the plain version's, at {what}")
+        max_err = max(max_err, (yd.float() - ref.float()).abs().max().item())
+        try:
+            torch.testing.assert_close(yd.float(), ref.float(), atol=K4_TOL, rtol=K4_TOL)
+        except AssertionError as e:
+            fail(f"16 K4 with pos on the device disagrees with the plain version at {what}: {e}")
+        del kd, vd, kr, vr
+        q, k_new, v_new, kc, vc = _k4_inputs(torch, gen, dev, b, h, h, t)
+        host = _layers_ms(torch, lambda li: A.decode_attention_multi(q, k_new, v_new, kc, vc, li, pos, window=window),
+                          n_layer)[0]
+        device = _layers_ms(torch, lambda li: A.decode_attention_multi(q, k_new, v_new, kc, vc, li, dpos,
+                                                                       window=window), n_layer)[0]
+        n_bytes = 2 * (pos + t) * b * h * 128 * 2 + 2 * t * b * h * 128 * 2 + 2 * q.numel() * 2
+        bound_ms, bound_by = bound(n_bytes, 4.0 * b * h * t * (pos + t) * 128, BF16_FLOP_S)
+        old = exact.get((t, pos))
+        shown.append(f"T {t} pos {pos} (window {window}): host int {host:.4f} / device {device:.4f} ms"
+                     + ("" if old is None else f" (exact window {old[0]:.4f}, SDPA {old[2]:.4f})")
+                     + f", bound {bound_ms:.4f} ({bound_by})")
+        del q, k_new, v_new, kc, vc
+    print(f"[16 K4 device pos] T = gamma at B {b}, H {h}, bf16, planned at the window bucket: {len(K4_DEVICE_POS)} "
+          f"cases bit for bit against the host int (y, caches; NaN past pos + T unread), the plain version within "
+          f"{K4_TOL} (max |dy| {max_err:.3g}); per layer from a CUDA graph: {'; '.join(shown)}")
+
+
+def spec_draws(torch, sd, rounds: int, gamma: int, vocab: int, seed: int, dev, forced=()):
+    """SpecDraws (made on the CPU from ``seed``, moved to ``dev``) that never
+    draw end-of-audio, but in ``forced``'s (round, k) rounds: accept the
+    first k proposals (uniform 0), reject the next (uniform 1) and replace
+    it by end-of-audio (its residual noise), so the generation ends there."""
+    from metavoice_tpu_torch.core import tokens as T
+
+    d = sd.SpecDraws.sample(rounds, gamma, vocab, generator=torch.Generator().manual_seed(seed))
+    for t in (d.prefill, d.draft, d.residual):
+        t[..., T.END_OF_AUDIO_TOKEN] = -1e4
+    for r, k in forced:
+        d.uniform[r, :k] = 0.0
+        d.uniform[r, k:] = 1.0
+        d.residual[r, T.END_OF_AUDIO_TOKEN] = 1e4
+    return d.to(dev)
+
+
+def spec_loops_agree(torch, sd, label: str, models: tuple, prompt, spk, *, caches=None, **kw) -> dict:
+    """One generation by the host loop (generate_spec_eager) and the device
+    loop (generate_spec: each round a CUDA-graph replay on the card), the
+    kernel counts set to 0 before each: tokens, ledger and (with ``caches``,
+    a function making a fresh (target, draft) pair) both caches below pos
+    bit for bit; the launches, a round's times the rounds each loop ran ->
+    {"tokens", "stats", "loop" (generate_spec's stats dict), "counts" (the
+    device loop's), "eager_counts"}."""
+    from metavoice_tpu_torch.core import tokens as T
+
+    runs = []
+    for fn in (sd.generate_spec_eager, sd.generate_spec):
+        kv = caches() if caches else None
+        for f, attr in counters().values():
+            setattr(f, attr, 0)
+        loop = {}
+        extra = dict(stats=loop) if fn is sd.generate_spec else {}
+        extra.update({} if kv is None else dict(kv_cache=kv[0], draft_kv_cache=kv[1]))
+        tokens, stats = fn(*models, prompt, spk, return_stats=True, **kw, **extra)
+        torch.cuda.synchronize()
+        runs.append((tokens, stats, read_counts(), loop, kv))
+    (te, se, ce, _, kve), (tg, sg, cg, loop, kvg) = runs
+    if not (te.shape == tg.shape and (te == tg).all() and se == sg):
+        part = next((i for i in range(min(len(te), len(tg))) if te[i] != tg[i]), min(len(te), len(tg)))
+        fail(f"17-18 {label}: the device loop's tokens part from the host loop's at {part} ({len(tg)} / {len(te)} "
+             f"tokens), ledger {sg} / {se}")
+    if loop.get("spec_loop") != "graph":
+        fail(f"17-18 {label}: the device loop ran {loop.get('spec_loop')!r}, not 'graph'")
+    if kve is not None:
+        pos = len(te) - 1
+        for a, b in zip((kvg[0], kvg[1]), (kve[0], kve[1])):
+            if not (_same_bits(torch, a.k[:, :pos], b.k[:, :pos]) and _same_bits(torch, a.v[:, :pos], b.v[:, :pos])):
+                fail(f"17-18 {label}: the device loop's caches below pos {pos} differ from the host loop's")
+    # a round runs idle only after end-of-audio inside an interval between host reads; K4 runs once a target
+    # layer a round (the prefills take no K4), so the device loop's K4 count is the host loop's a round times
+    # the rounds it ran, idle ones too; with none idle every count is the host loop's
+    run, rounds = loop["spec_rounds_run"], se["rounds"]
+    if run < rounds or (te[-1] != T.END_OF_AUDIO_TOKEN and run != rounds):
+        fail(f"17-18 {label}: {run} rounds run for {rounds} that emitted, the generation not ended by end-of-audio")
+    if (run == rounds and cg != ce) or cg["k4_launches"] * max(rounds, 1) != ce["k4_launches"] * run:
+        fail(f"17-18 {label}: the device loop credited {cg} in {run} rounds, the host loop launched {ce} in {rounds}")
+    return {"tokens": tg, "stats": sg, "loop": loop, "counts": cg, "eager_counts": ce}
+
+
 def phase_small_spec(torch):
-    """Speculative decoding on the card vs the CPU path, same weights and draws."""
+    """17: speculative decoding on the card vs the CPU path, same weights and
+    draws; the device loop against the host loop on the card bit for bit
+    where a generation ends (end-of-audio inside a round, max_new_tokens,
+    the block limit); a greedy self-draft."""
     from metavoice_tpu_torch.core.config import first_stage_config
     from metavoice_tpu_torch.models import first_stage as fs
     from metavoice_tpu_torch.models import spec_decode as sd
@@ -1901,16 +2018,33 @@ def phase_small_spec(torch):
     for name, (p, d) in (("cpu", (params, draft)), ("cuda", (to_cuda(params), to_cuda(draft)))):
         for fn, attr in counters().values():
             setattr(fn, attr, 0)
-        runs[name] = (*sd.generate_spec(p, cfg, d, dcfg, prompt, spk, **kw), read_counts())
-    (tok_cpu, st_cpu, _), (tok_gpu, st_gpu, counts) = runs["cpu"], runs["cuda"]
+        loop = {}
+        runs[name] = (*sd.generate_spec(p, cfg, d, dcfg, prompt, spk, stats=loop, **kw), read_counts(), loop)
+    (tok_cpu, st_cpu, _, _), (tok_gpu, st_gpu, counts, loop) = runs["cpu"], runs["cuda"]
     if not (tok_cpu.shape == tok_gpu.shape and (tok_cpu == tok_gpu).all() and st_cpu == st_gpu):
         fail(f"speculative decoding on the card differs from the CPU path: {tok_gpu} {st_gpu} vs "
              f"{tok_cpu} {st_cpu}")
     want = dict.fromkeys(counts, 0)
-    want.update({"k4_launches": cfg.n_layer * st_gpu["rounds"],
-                 "k1_launches": dcfg.n_layer * gamma * st_gpu["rounds"]})
-    if counts != want:
-        fail(f"the small speculative run launched {counts}, expected {want}")
+    want.update({"k4_launches": cfg.n_layer * loop["spec_rounds_run"],
+                 "k1_launches": dcfg.n_layer * gamma * loop["spec_rounds_run"]})
+    if counts != want or loop["spec_loop"] != "graph":
+        fail(f"the small speculative run launched {counts} on the {loop['spec_loop']} loop, expected {want}")
+    # the device loop against the host loop where a generation ends
+    cuda_models = (to_cuda(params), cfg, to_cuda(draft), dcfg)
+
+    def caches():
+        return tuple(tfm.KVCache.create(c, 2, c.block_size, dtype=torch.float32, device="cuda") for c in (cfg, dcfg))
+
+    ends = []
+    for label, n_prompt, max_new, forced in (("end-of-audio in round 5", 40, None, ((5, 2),)),
+                                             ("max_new_tokens 23", 40, 23, ()),
+                                             ("the block limit", 400, None, ())):
+        d = spec_draws(torch, sd, 512, gamma, cfg.vocab_size, 170 + len(ends), "cuda", forced)
+        got = spec_loops_agree(torch, sd, f"small {label}", cuda_models, list(range(2100, 2100 + n_prompt)), spk,
+                               caches=caches, gamma=gamma, max_new_tokens=max_new, compute_dtype=torch.float32,
+                               prompt_pad_multiple=8, draws=d)
+        ends.append(f"{label}: {len(got['tokens']) - n_prompt} tokens in {got['stats']['rounds']} rounds "
+                    f"({got['loop']['spec_rounds_run']} run, {got['loop']['spec_reads']} host reads)")
     greedy = dict(temperature=1e-6, top_p=1.0, max_new_tokens=n, compute_dtype=torch.float32)
     gp = to_cuda(params)
     ref = fs.generate(gp, cfg, prompt, spk, **greedy)
@@ -1919,9 +2053,10 @@ def phase_small_spec(torch):
         fail(f"greedy self-draft speculation on the card: {st}, tokens equal "
              f"{tok.shape == ref.shape and (tok == ref).all()}")
     print(f"[17 small-spec] target 2L/4H/512d, draft 1L/2H/256d (f32), gamma {gamma}, injected draws: "
-          f"the card == the CPU path, {len(tok_gpu) - len(prompt)} tokens, ledger {st_gpu}, launches "
-          f"{({k: v for k, v in counts.items() if v})}; greedy self-draft: {st} (all accepted), "
-          f"{len(tok) - len(prompt)} tokens == first_stage.generate's")
+          f"the card's device loop == the CPU path, {len(tok_gpu) - len(prompt)} tokens, ledger {st_gpu}, launches "
+          f"{({k: v for k, v in counts.items() if v})} in {loop['spec_rounds_run']} rounds run; device loop == host "
+          f"loop bit for bit (tokens, ledger, caches below pos, launches a round) at {'; '.join(ends)}; greedy "
+          f"self-draft: {st} (all accepted), {len(tok) - len(prompt)} tokens == first_stage.generate's")
 
 
 def _spec_ledger_ok(st: dict, gamma: int) -> bool:
@@ -1929,20 +2064,93 @@ def _spec_ledger_ok(st: dict, gamma: int) -> bool:
             and st["rounds"] <= st["emitted"] <= gamma * st["rounds"])
 
 
+SPEC_FORCED_NEW = 96  # phase 18: tokens of the forced generations (end-of-audio never drawn)
+SPEC_TIMED_RUNS = 3  # calls of each loop timed, in turns host, device, device, host, ...
+SPEC_PROFILED = 16  # rounds of phase 18's profiled graph loop, from pos 128
+SPEC_GREEDY_NEW = 32  # tokens of phase 18's greedy self-draft
+# a greedy self-draft may part from first_stage.generate only where the two tokens' guidance-merged target logits
+# lie within this of each other (of max |logit|): the verify's T = gamma products round apart from the T = 1 step's
+SPEC_FLIP_TOL = {"bf16": 2e-2, "int4": 5e-2}
+
+
+def spec_greedy_self_draft(torch, fs, sd, label: str, params, cfg, prompt, spk, gamma: int, eot: int) -> str:
+    """Phase 18's greedy self-draft at full width: the target as its own
+    draft against first_stage.generate: acceptance 100% and the same tokens,
+    or a parting shown to be a rounding flip (the two tokens' guidance-merged
+    logits of a fresh prefill of the common prefix within SPEC_FLIP_TOL)."""
+    greedy = dict(temperature=1e-6, top_p=1.0, max_new_tokens=SPEC_GREEDY_NEW, end_of_text_token=eot,
+                  prompt_pad_multiple=128)
+    ref = fs.generate(params, cfg, prompt, spk, **greedy)
+    tok, st = sd.generate_spec(params, cfg, params, cfg, prompt, spk, gamma=gamma, return_stats=True, **greedy)
+    if tok.shape == ref.shape and (tok == ref).all() and st["accepted"] == st["proposed"]:
+        return f"greedy self-draft: {st}, all accepted, {len(tok) - len(prompt)} tokens == first_stage.generate's"
+    part = next((i for i in range(min(len(tok), len(ref))) if tok[i] != ref[i]), None)
+    if part is None:
+        fail(f"18 {label}: greedy self-draft {st} not all accepted, yet its tokens are generate's")
+    head = [int(t) for t in ref[:part]]
+    kv = fs.tfm.KVCache.create(cfg, 2, cfg.block_size, device="cuda")
+    x = fs.fill_cache(params, cfg, torch.tensor([head], device="cuda"), torch.as_tensor(spk).reshape(1, -1).cuda(),
+                      kv)
+    logits = fs.S.cfg_merge(fs.tfm.output_logits(params, cfg, x[:, -1:])[0][:, 0, :], 3.0)[0]
+    gap = abs(float(logits[int(tok[part])] - logits[int(ref[part])])) / float(logits.abs().max())
+    if gap > SPEC_FLIP_TOL[label]:
+        fail(f"18 {label}: greedy self-draft parts from generate at token {part - len(prompt)} by {gap:.3g} of max "
+             f"|logit|, past SPEC_FLIP_TOL {SPEC_FLIP_TOL[label]}")
+    return (f"greedy self-draft: {st}, the same {part - len(prompt)} tokens as first_stage.generate, then a rounding "
+            f"flip ({gap:.3g} of max |logit| between the two choices, tol {SPEC_FLIP_TOL[label]})")
+
+
+def spec_round_profile(torch, sd, tts, gamma: int, use_cfg: bool, draws) -> str:
+    """Phase 18: SPEC_PROFILED rounds replayed from the round's graphs on the
+    TTS's caches from pos 128 (window 384), under graph_step_profile: the
+    device's busy ms a round, its share of the wall, the kernels a round."""
+    from metavoice_tpu_torch.core import tokens as T
+
+    p, cfg, dp, dcfg = tts.c.first_stage_params, tts.c.first_stage_cfg, tts._draft_params, tts._draft_cfg
+    kv_t, kv_d = tts._persistent_kv_cache(3.0), tts._draft_kv_cache(3.0)
+    spec = sd.RoundSpec(gamma, 2, 2 if use_cfg else 1, min(cfg.block_size, dcfg.block_size), T.END_OF_AUDIO_TOKEN,
+                        tts.c.tokenizer.eot_token, torch.bfloat16)
+    with torch.inference_mode():
+        st = sd.init_spec_state(torch.zeros((1,), dtype=torch.int64, device="cuda"), 128,
+                                torch.ones((1, cfg.speaker_emb_dim), device="cuda"), cfg.block_size, spec,
+                                temperature=1.0, top_p=0.95, draft_temperature=1.0, draft_top_p=0.95, guidance=3.0,
+                                prompt_guidance=1.0, draws=draws)
+    graphs = sd.round_graphs(p, cfg, dp, dcfg, kv_t, kv_d, spec, st, None)
+
+    def run():
+        with torch.inference_mode():  # the TTS's caches are inference tensors
+            graphs.load(st, None)
+            for _ in range(SPEC_PROFILED):
+                graphs.round(p, cfg, dp, dcfg, kv_t, kv_d, 384)
+        torch.cuda.synchronize()
+
+    return graph_step_profile(torch, run, SPEC_PROFILED).replace("a step", "a round")
+
+
 def phase_synth_spec(torch, workdir: str, ref: str, comps: dict, ordinary: dict) -> dict:
-    """Full-width synthesise with a draft, bf16 and int4 -> {mode: result}."""
+    """18: full-width synthesise with a draft through the device loop, bf16
+    and int4 -> {mode: result}; in each mode the device loop against the
+    host loop over the same forced rounds, both loops timed, the graph
+    round profiled, and a greedy self-draft."""
+    import numpy as np
+
     from metavoice_tpu_torch.core.config import first_stage_config
     from metavoice_tpu_torch.core.text import chunk_text, normalize_text
+    from metavoice_tpu_torch.models import first_stage as fs
+    from metavoice_tpu_torch.models import spec_decode as sd
     from metavoice_tpu_torch.models import transformer as tfm
     from metavoice_tpu_torch.ops import quantized as Q
     from metavoice_tpu_torch.runtime.tts import MAX_CHARS_PER_CHUNK, TTS
 
+    t_phase = time.perf_counter()
     dcfg = first_stage_config(n_layer=4, n_head=8, dim=1024)  # scripts/make_bench_draft.py's default shape
     dgen = torch.Generator(device="cuda").manual_seed(18)
     draft = tfm.init_params(dcfg, device="cuda", generator=dgen, dtype=torch.bfloat16)
-    prefills = len(chunk_text(normalize_text(SYNTH_TEXT), MAX_CHARS_PER_CHUNK) or [""])
+    chunks = chunk_text(normalize_text(SYNTH_TEXT), MAX_CHARS_PER_CHUNK) or [""]
+    prefills = len(chunks)
     results, shown = {}, []
     for mode, gamma, use_cfg in ((None, 4, True), ("int4", 8, False)):
+        name = mode or "bf16"
         dparams = draft if mode is None else Q.quantize_params_int4_i32(draft)
         tts = TTS(comps[mode], device="cuda", output_dir=os.path.join(workdir, f"out_spec_{mode}"),
                   quantisation_mode=mode, draft_params=dparams, draft_cfg=dcfg,
@@ -1950,33 +2158,69 @@ def phase_synth_spec(torch, workdir: str, ref: str, comps: dict, ordinary: dict)
         n_layer = tts.c.first_stage_cfg.n_layer
         path, total_s, counts = drive_main_path(tts, ref)
         st = tts.spec_stats
-        rounds = st["rounds"]
+        rounds, run = st["rounds"], tts.stats.get("spec_rounds_run", 0)
         want = dict.fromkeys(counts, 0)
-        want["k4_launches"] = n_layer * rounds
+        want["k4_launches"] = n_layer * run
         if mode is None:
-            want["k1_launches"] = dcfg.n_layer * gamma * rounds
+            want["k1_launches"] = dcfg.n_layer * gamma * run
         else:
-            want["k3_launches"] = gamma * rounds
-            want["k2_launches"] = 5 * n_layer * (prefills + rounds) + 5 * dcfg.n_layer * prefills
+            want["k3_launches"] = gamma * run
+            want["k2_launches"] = 5 * n_layer * (prefills + run) + 5 * dcfg.n_layer * prefills
         if rounds == 0 or counts != want or tts.stats["spec_rounds"] != rounds:
-            fail(f"{mode or 'bf16'} speculative synthesise launched {counts} in {rounds} rounds, expected {want}")
+            fail(f"{name} speculative synthesise launched {counts} in {rounds} rounds ({run} run), expected {want}")
+        if (tts.stats.get("decode_route"), tts.stats.get("spec_loop")) != ("spec", "graph"):
+            fail(f"18 {name}: synthesise ran the {tts.stats.get('spec_loop')!r} loop, not the graph round")
         if not _spec_ledger_ok(st, gamma):
-            fail(f"{mode or 'bf16'} speculative ledger incoherent: {st}")
+            fail(f"{name} speculative ledger incoherent: {st}")
         check_stats(tts, counts)
         wav = check_wav(path)
         ms_tok = 1e3 * tts.timings["first_stage"] / (st["emitted"] + 1)
-        name = mode or "bf16"
         results[name] = {"counts": counts, "ms_per_token": ms_tok, "stats": dict(st)}
-        shown.append(f"{name} target + {'int4 CFG-free' if mode else 'dense bf16'} draft, gamma {gamma}: "
-                     f"synthesise {total_s:.2f} s, {st['emitted'] + 1} tokens in {rounds} rounds "
-                     f"({st['emitted'] / rounds:.2f} a round), acceptance {st['accepted'] / st['proposed']:.3f}, "
-                     f"first stage {ms_tok:.2f} ms per emitted token (ordinary {name} "
-                     f"{ordinary[name]:.2f} ms/token in this call); launches "
-                     f"{({k: v for k, v in counts.items() if v})}; wav {len(wav)} samples finite")
+        synth = (f"synthesise {total_s:.2f} s, {st['emitted'] + 1} tokens in {rounds} rounds ({run} run, "
+                 f"{tts.stats['spec_reads']} host reads; {st['emitted'] / rounds:.2f} a round), acceptance "
+                 f"{st['accepted'] / st['proposed']:.3f}, first stage {ms_tok:.2f} ms per emitted token (ordinary "
+                 f"{name} {ordinary[name]:.2f} ms/token in this call); launches "
+                 f"{({k: v for k, v in counts.items() if v})}; wav {len(wav)} samples finite")
+        # the host loop and the device loop over the same forced rounds, on the TTS's weights and caches
+        p, cfg = tts.c.first_stage_params, tts.c.first_stage_cfg
+        models = (p, cfg, dparams, dcfg)
+        prompt = tts.c.tokenizer.encode(chunks[0])
+        spk = torch.randn(cfg.speaker_emb_dim, generator=torch.Generator().manual_seed(180)).numpy()
+        eot = tts.c.tokenizer.eot_token
+        draws = spec_draws(torch, sd, SPEC_FORCED_NEW, gamma, cfg.vocab_sizes[0], 181, "cuda")
+        kw = dict(gamma=gamma, draft_use_cfg=use_cfg, end_of_text_token=eot, max_new_tokens=SPEC_FORCED_NEW,
+                  kv_cache=tts._persistent_kv_cache(3.0), draft_kv_cache=tts._draft_kv_cache(3.0), draws=draws)
+        forced = spec_loops_agree(torch, sd, f"{name} forced", models, prompt, spk, **kw)
+        fst = forced["stats"]
+        # ms a round and per emitted token of both loops, SPEC_TIMED_RUNS calls each in turns
+        ms = {"host": [], "device": []}
+        for i in range(2 * SPEC_TIMED_RUNS):
+            loop = ("host", "device", "device", "host")[i % 4]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (sd.generate_spec_eager if loop == "host" else sd.generate_spec)(*models, prompt, spk, **kw)
+            torch.cuda.synchronize()
+            ms[loop].append(1e3 * (time.perf_counter() - t0))
+        timed = "; ".join(
+            f"{loop} loop {np.mean(v) / fst['rounds']:.3f} ms a round (min {min(v) / fst['rounds']:.3f}, max "
+            f"{max(v) / fst['rounds']:.3f}), {np.mean(v) / fst['emitted']:.3f} ms per emitted token"
+            for loop, v in ms.items())
+        profile = spec_round_profile(torch, sd, tts, gamma, use_cfg, draws)
+        # the self-draft keeps to the bf16 tied head the verify takes: int4's fused head left off generate too
+        greedy = spec_greedy_self_draft(torch, fs, sd, name, {k: v for k, v in p.items() if k != "lm_head_q"}, cfg,
+                                        prompt, spk, gamma, eot)
+        results[name].update(forced_ms=ms, forced=fst)
+        shown.append(f"{name} target + {'int4 CFG-free' if mode else 'dense bf16'} draft, gamma {gamma}: {synth}; "
+                     f"forced rounds ({SPEC_FORCED_NEW} tokens, end-of-audio never drawn): device loop == host loop "
+                     f"bit for bit, {fst['emitted'] + 1} tokens in {fst['rounds']} rounds, "
+                     f"{forced['loop']['spec_reads']} host reads, launches {forced['counts']} both; "
+                     f"a call's wall (the two prefills included) over {SPEC_TIMED_RUNS} calls each in turns: {timed}; "
+                     f"graph round profile ({SPEC_PROFILED} rounds from pos 128): {profile}; {greedy}")
         del tts
+        fs.release_graphs()
         torch.cuda.empty_cache()
     print(f"[18 synth-spec] draft 4L/8H/1024d on random weights (acceptance is not a speed claim): "
-          f"{'; '.join(shown)}")
+          f"{' || '.join(shown)}; {time.perf_counter() - t_phase:.1f} s")
     return results
 
 
@@ -6415,7 +6659,7 @@ def phase_sharded_full_width(torch, smi: str, dev: str = "cuda", small: bool = F
 
 GRAPH_SEGMENTS = ((376, 16), (504, 16), (1016, 16), (2032, 24))  # (pos, steps): 64 tokens, pos crosses 384,
 # 512 and 1024 (K1's window buckets) and the last reaches the cache's end after 16 of its 24 steps
-GRAPH_TIMED = (128, 96)  # phase 60's timed loops: 96 steps from pos 128, the CFG pair
+GRAPH_TIMED = (128, 64)  # phase 60's timed loops: 64 steps from pos 128, the CFG pair
 GRAPH_RUNS = 3  # calls of each loop timed, in turns eager, graph, graph, eager, ...
 GRAPH_RAGGED = (0, 37, 90, 5)  # phase 60's batch of 4: each row's left padding
 GRAPH_ENGINE = (2, (0, 50), 2, 24)  # engine-shaped: slots, their left padding, segments, steps a segment
@@ -6725,13 +6969,15 @@ ROUTES_61 = (
     ("int4 16 rows", "int4", None, {}, "int4-unfused", {"k2_launches": 5, "k1_launches": 1}, 8),
     ("bf16 int8-cache", None, "int8", {}, "dequant-cache", {}, 1),
 )
-GRAPH_SEGMENTS_61 = ((360, 48), (488, 48), (1000, 48), (2000, 60))  # phase 61's: 192 tokens, as phase 60's were
+# phase 61's: 128 tokens across every window bucket to the cache's end (its eager steps cost about 17 ms each,
+# so it stays short: the whole script has a 1200 s limit)
+GRAPH_SEGMENTS_61 = ((360, 24), (488, 24), (1000, 24), (2000, 56))
 GRAPH_SIDE_61 = 16  # steps of phase 61's 3-row case, and of its ragged case on routes without block attention
 # (pos, steps, each row's left padding) of the ragged case on the routes through attn_row_kernel's block variant
 # (K5, K9): a row that starts at 300 crosses pos 512, where a split of the bucket's plan ends at pos and only the
 # split that holds pos may make the new row
 GRAPH_CROSS_61 = (370, 160, (0, 17, 300, 5))
-GRAPH_TIMED_61 = (128, 24)  # phase 61's timed loops: 24 steps from pos 128
+GRAPH_TIMED_61 = (128, 16)  # phase 61's timed loops: 16 steps from pos 128
 GRAPH_PROFILED_61 = 16  # steps of phase 61's profiled graph loop
 # (pos, starts, NaN past pos): at 512 a split of the bucket's plan ends at pos, and the row starting at 300 has a
 # tile over pos in that split, which must take no new row
@@ -6750,7 +6996,7 @@ def _quantize_61(torch, dense, mode):
 
 def route_graph_case(torch, label: str, route: str, params, cfg, fmt, per_layer: dict, b: int, gen, dev) -> str:
     """Phase 61 for one route: the graph loop against decode_eager on
-    GRAPH_SEGMENTS_61 (192 tokens over every window bucket to the cache's end;
+    GRAPH_SEGMENTS_61 (128 tokens over every window bucket to the cache's end;
     ``b`` rows, ragged when 8), a ragged batch of 4 with per-row knobs
     (routes of 1), 3-row guidance, a capture before any eager call, then ms
     a token of both loops and a profiled graph step -> its line."""

@@ -66,7 +66,7 @@ def top_p_mask(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     probs = torch.softmax(sorted_desc, dim=-1)
     cum_excl = torch.cumsum(probs, dim=-1) - probs
     keep_sorted = cum_excl < top_p
-    keep_sorted[..., 0] = True
+    keep_sorted[..., :1] = True  # a slice, not a 0-d element: a 1-D row fills in place under a CUDA-graph capture
     k = keep_sorted.sum(dim=-1, keepdim=True)  # >= 1
     c = torch.gather(sorted_desc, -1, k - 1)  # smallest kept value
     gt = lf > c

@@ -35,10 +35,11 @@
 // head_dim); caches (L, seq_len, batch, n_kv_head, head_dim); starts: NULL or
 // (batch,) int32 on the device. The window [0, pos + t_q) is cut into
 // n_splits <= 32 splits of split_len slots; part, tickets and n_tickets as
-// decode_attention_onepass in the header says. pos_dev: NULL, or (t_q 1: a
-// GQA decode step) an int32 on the device holding the new row's slot, at
-// most pos (a captured step reads it at each replay; pos is then the last
-// slot of the plan's window). Returns a cudaError_t.
+// decode_attention_onepass in the header says. pos_dev: NULL, or an int32 on
+// the device holding the first new row's slot, at most pos (a GQA decode
+// step at t_q 1, or the speculative verify at t_q gamma, captured in a CUDA
+// graph, reads it at each replay; pos is then window - t_q, the last first
+// slot the plan's window holds). Returns a cudaError_t.
 extern "C" int mv_decode_attention_multi(int dtype, const void* q, const void* k_new,
                                          const void* v_new, void* k_cache, void* v_cache,
                                          const void* starts, int batch, int n_head,

@@ -77,12 +77,16 @@
 // The launch sets no state that a replay would find stale (the kernels'
 // attributes are set once, before their first launch; the merge tickets are
 // left at 0), synchronises nothing, and so is captured in a CUDA graph like
-// any kernel. At T = 1 (K1, K4's GQA decode, the attention blocks) a call
-// may read its slot from the device (pos_dev): its plan then covers the
-// window up to a.pos, the bucket's last slot, a split wholly past the slot
-// leaving an empty partial and writing nothing, so one captured launch
-// serves every slot of the bucket. Calls that share a device's tickets run one after another on
-// one stream, as the port's callers do.
+// any kernel. A call may read its first new slot from the device (pos_dev:
+// K1, the attention blocks and K4's GQA decode at T = 1, K4's speculative
+// verify at T = gamma): its plan then covers the window up to a.pos + T - 1,
+// the bucket's last slot, a split wholly past pos + T - 1 leaving an empty
+// partial and writing nothing, so one captured launch serves every slot of
+// the bucket. The new rows [pos, pos + T) are found on the device too: each
+// tile copy takes a slot at or past pos from k_new/v_new, and the splits
+// that hold a part of the range write that part, wherever its boundaries
+// fall. Calls that share a device's tickets run one after another on one
+// stream, as the port's callers do.
 
 #pragma once
 
@@ -136,7 +140,7 @@ struct OnePassArgs {
   int seq_len;
   int layer;
   int pos;              // the first new row's slot; with pos_dev, the last slot pos_dev may name
-  const int* pos_dev;   // T = 1: nullptr, or the new row's slot, read on the device
+  const int* pos_dev;   // nullptr, or the first new row's slot, read on the device
   int split_len;
   float scale;  // log2(e) / sqrt(Dh): scores in the log2 domain, weights exp2(s - max)
   float* part;   // splits > 1: f32 partials of every (kv row, query group) and split (merge_splits)
@@ -783,7 +787,7 @@ __global__ void __launch_bounds__(kGThreads) attn_simt_kernel(OnePassArgs<T> a) 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int pos = a.pos_dev == nullptr ? a.pos : __ldcg(a.pos_dev);  // T = 1 in a CUDA graph: on the device
+  const int pos = a.pos_dev == nullptr ? a.pos : __ldcg(a.pos_dev);  // in a CUDA graph: on the device
   const size_t pos_stride = (size_t)a.bkv * DH;  // elements from slot s to s + 1
   const size_t base = (size_t)a.layer * a.seq_len * pos_stride + (size_t)r * DH;
   const T* kn = a.k_new + (size_t)r * a.t_q * DH;
@@ -1027,7 +1031,7 @@ __global__ void __launch_bounds__(kCThreads) attn_mma_kernel(OnePassArgs<__nv_bf
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int pos = a.pos_dev == nullptr ? a.pos : __ldcg(a.pos_dev);  // T = 1 in a CUDA graph: on the device
+  const int pos = a.pos_dev == nullptr ? a.pos : __ldcg(a.pos_dev);  // in a CUDA graph: on the device
   const size_t pos_stride = (size_t)a.bkv * DH;
   const size_t base = (size_t)a.layer * a.seq_len * pos_stride + (size_t)r * DH;
   const T* kn = a.k_new + (size_t)r * a.t_q * DH;
@@ -1363,10 +1367,11 @@ cudaError_t attention_block(const float* qkv, int q_bstride, void* k_cache, void
 // it). part: with n_splits > 1, f32 scratch of at least (batch * n_kv_head *
 // query groups * n_splits * 16 * (head_dim + 2)) values, query groups =
 // ceil(t_q * n_head / n_kv_head / 16); tickets: n_tickets int32 counters,
-// all 0, left 0. pos_dev: nullptr, or (T = 1) an int32 on the device
-// holding the new row's slot, which the caller keeps in [0, pos]:
-// pos is then the last slot of the window the plan covers, so one launch
-// serves every slot of that window (a CUDA graph replayed step after step).
+// all 0, left 0. pos_dev: nullptr, or an int32 on the device holding the
+// first new row's slot, which the caller keeps in [0, pos]: pos + t_q is
+// then the window the plan covers, so one launch serves every slot of that
+// window (a CUDA graph replayed step after step, or round after round of
+// the speculative verify at t_q = gamma).
 // Checks the shape and the plan, then launches. Returns a cudaError_t.
 inline int decode_attention_onepass(int dtype, const void* q, const void* k_new, const void* v_new,
                                     void* k_cache, void* v_cache, const void* starts, int batch,
@@ -1374,7 +1379,6 @@ inline int decode_attention_onepass(int dtype, const void* q, const void* k_new,
                                     int layer, int pos, const void* pos_dev, int split_len, int n_splits,
                                     void* part, void* tickets, int n_tickets, void* y, void* stream) {
   const long long n = (long long)pos + t_q;
-  if (pos_dev != nullptr && t_q != 1) return (int)cudaErrorInvalidValue;
   if (t_q < 1 || t_q > kCMaxT || n_kv_head < 1 || n_head % n_kv_head != 0 || pos < 0 ||
       n > seq_len || split_len < 1 || n_splits < 1 || n_splits > kCMaxSplits ||
       (long long)split_len * n_splits < n)

@@ -244,7 +244,8 @@ DECODE_ROUTES = {
     "GQA": "graph",  # dense GQA: K4 at T = 1, planned at the window bucket
     "dequant-cache": "graph",  # dense or int8 weights on a quantized cache: plain PyTorch, pos on the device
     "TP": "eager",  # tensor parallel: the group's reductions run through the host (gloo)
-    "spec": "eager",  # the speculative round (models/spec_decode.py): a host loop, not decode's
+    "spec": "graph",  # the speculative round (models/spec_decode.py): gamma draft steps on the draft's route
+    # above, the T = gamma verify (K4 at the window bucket, pos on the device) and the accept test in one graph
 }
 
 # the routes whose step plans no attention at a window bucket: the stack kernels plan over the whole cache,
@@ -487,42 +488,57 @@ class StepGraphs:
             decode_step(params, cfg, kv_cache, self.state, self.spec, window=window, generator=self.generator)
             self.graphs[window] = self.capture(params, cfg, kv_cache, window)
             return
-        graph, credits = entry
-        graph.replay()
-        for fn, attr, n in credits:
-            setattr(fn, attr, getattr(fn, attr) + n)
+        replay_graph(entry)
 
     def capture(self, params, cfg, kv_cache, window: int) -> tuple:
-        """Capture one step at ``window`` on a side stream -> (graph, its
-        launches a replay). A capture launches nothing: the wrappers'
-        counters are put back, and each replay credits what they counted.
-        Raises when the step cannot be captured (a merge counter table that
-        no eager call has made yet: ``ops/quantized.merge_tickets``)."""
-        dev = self.state.cur.device
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
-        if dev not in _capture_streams:
-            _capture_streams[dev] = torch.cuda.Stream(dev)
-        # the set's graphs share the first one's memory pool (a pool lives while a graph of it does)
-        pool = next(iter(self.graphs.values()))[0].pool() if self.graphs else torch.cuda.graph_pool_handle()
-        side, current = _capture_streams[dev], torch.cuda.current_stream(dev)
-        side.wait_stream(current)
-        credits: list = []
-        try:
-            with uncounted(credits), torch.cuda.stream(side):
-                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    decode_step(params, cfg, kv_cache, self.state, self.spec, window=window,
-                                generator=self.generator)
-                except BaseException:
-                    with contextlib.suppress(Exception):
-                        graph.capture_end()
-                    raise
-                graph.capture_end()
-        finally:
-            current.wait_stream(side)
-        return graph, credits
+        """Capture one step at ``window`` (:func:`capture_graph`) -> (graph,
+        its launches a replay)."""
+        return capture_graph(
+            lambda: decode_step(params, cfg, kv_cache, self.state, self.spec, window=window, generator=self.generator),
+            self.state.cur.device, self.graphs, self.generator)
+
+
+def capture_graph(run, device, graphs: dict, generator: torch.Generator | None) -> tuple:
+    """Capture ``run()`` in a CUDA graph on ``device``'s side stream ->
+    (graph, [(wrapper, counter attribute, launches a replay)]). The graph
+    shares the memory pool of the first graph in ``graphs`` (the set's
+    window -> (graph, credits); a pool lives while a graph of it does) and
+    draws from ``generator``, registered with it. A capture launches
+    nothing: the wrappers' counters are put back, and each replay credits
+    what they counted (:func:`replay_graph`). Raises when ``run`` cannot be
+    captured (a merge counter table that no eager call has made yet:
+    ``ops/quantized.merge_tickets``)."""
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    if device not in _capture_streams:
+        _capture_streams[device] = torch.cuda.Stream(device)
+    pool = next(iter(graphs.values()))[0].pool() if graphs else torch.cuda.graph_pool_handle()
+    side, current = _capture_streams[device], torch.cuda.current_stream(device)
+    side.wait_stream(current)
+    credits: list = []
+    try:
+        with uncounted(credits), torch.cuda.stream(side):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                run()
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+    finally:
+        current.wait_stream(side)
+    return graph, credits
+
+
+def replay_graph(entry: tuple) -> None:
+    """Replay a (graph, credits) of :func:`capture_graph`, crediting each
+    wrapper the launches its capture counted."""
+    graph, credits = entry
+    graph.replay()
+    for fn, attr, n in credits:
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 @contextlib.contextmanager
@@ -542,26 +558,37 @@ def uncounted(credits: list):
                 credits.append((fn, attr, n))
 
 
-def step_graphs(params: tfm.Params, cfg: TransformerConfig, kv_cache: tfm.KVCache, route: str, spec: StepSpec,
-                state: DecodeState, generator: torch.Generator | None) -> StepGraphs:
-    """The graph set of this step shape, made on first use. Sets whose
-    cache or weights are gone are dropped first."""
-    tensors = _leaves(params) + [t for t in (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale)
-                                 if t is not None]
-    noise = None if state.noise is None else (tuple(state.noise.shape[1:]), state.noise.dtype)
-    key = (route, cfg, spec, tuple(state.cur.shape), state.starts is not None, noise, generator is not None,
-           str(state.cur.device), tuple(t.data_ptr() for t in tensors))
+def cache_leaves(kv_cache: tfm.KVCache) -> list[torch.Tensor]:
+    return [t for t in (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale) if t is not None]
+
+
+def graph_set(key: tuple, tensors: list, make):
+    """The graph set of ``key`` (with the addresses of ``tensors``, the
+    weights and caches its graphs bake in), ``make()`` on first use. Sets
+    whose cache or weights are gone are dropped first."""
+    key = key + (tuple(t.data_ptr() for t in tensors),)
     with _graph_lock:
         for k in [k for k, g in _graph_sets.items() if not g.alive()]:
             del _graph_sets[k]
         graphs = _graph_sets.get(key)
         if graphs is None:
-            graphs = _graph_sets[key] = StepGraphs(spec, state, kv_cache.max_seq_len, tensors, generator)
+            graphs = _graph_sets[key] = make()
     return graphs
 
 
+def step_graphs(params: tfm.Params, cfg: TransformerConfig, kv_cache: tfm.KVCache, route: str, spec: StepSpec,
+                state: DecodeState, generator: torch.Generator | None) -> StepGraphs:
+    """The graph set of this step shape, made on first use."""
+    tensors = _leaves(params) + cache_leaves(kv_cache)
+    noise = None if state.noise is None else (tuple(state.noise.shape[1:]), state.noise.dtype)
+    key = (route, cfg, spec, tuple(state.cur.shape), state.starts is not None, noise, generator is not None,
+           str(state.cur.device))
+    return graph_set(key, tensors, lambda: StepGraphs(spec, state, kv_cache.max_seq_len, tensors, generator))
+
+
 def release_graphs() -> None:
-    """Drop every captured decode step (their graphs and static carries)."""
+    """Drop every captured decode step and speculative round (their graphs
+    and static carries)."""
     with _graph_lock:
         _graph_sets.clear()
 

@@ -808,7 +808,7 @@ def _attention_block(xa, lp: Params, cfg: TransformerConfig, li: int, mask, kv_c
     elif t <= MULTI_MAX_T:
         y4, _, _ = decode_attention_multi(
             q.contiguous(), k_new.contiguous(), v_new.contiguous(), kv_cache.k, kv_cache.v,
-            li, cache_pos, starts=attn_starts, window=None if t > 1 else attn_window,
+            li, cache_pos, starts=attn_starts, window=attn_window,
         )
         y = y4.transpose(1, 2).reshape(xa.shape[0], t, cfg.n_head * cfg.head_dim).to(xa.dtype)
     else:
@@ -892,7 +892,11 @@ def apply_blocks(
     * cache, 1 < T <= 16 (the speculative verify): ``decode_attention_multi``
       writes the rows and query t attends [attn_starts, cache_pos + t], the
       causal window every cached caller asks for; ``mask`` is not used.
-      Packed int4/int8 projections run through their matmul kernels;
+      ``cache_pos`` may be a 0-d int32 tensor on the device there too (the
+      verify of ``models/spec_decode``'s round captured in a CUDA graph),
+      read on the device by K4, which plans at the window bucket
+      ``attn_window`` (default: ``[0, cache_pos + T)`` of an int). Packed
+      int4/int8 projections run through their matmul kernels;
     * cache, T = 1 (decode): ``decode_attention`` writes the row and attends
       over the window [attn_starts, cache_pos] (GQA: through
       ``decode_attention_multi``); ``mask`` is not used. ``cache_pos`` may

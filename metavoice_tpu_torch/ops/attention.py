@@ -36,13 +36,15 @@ merge counters of the products (``decode_stack._stack_tickets``) and of the
 attention (``_tickets``) are per device and made by the first eager call,
 so calls on one device must not overlap in time (two streams, or two graph
 replays at once), and a CUDA-graph capture needs one eager call before it.
-At T = 1 (K1, K4's GQA decode step, K5 and K9) a call also takes ``pos`` as
-a one-element int32 tensor that the kernel reads on the device, planned at
-a window bucket (:func:`attention_window`): one launch captured in a CUDA
-graph then serves every slot of the bucket (the decode step of
-``models/first_stage.py``), and an int ``pos`` is planned at the same
+A call of K1, K5 or K9, or of K4 at any T (its GQA decode step at T = 1,
+the speculative verify at T = gamma), also takes ``pos`` as a one-element
+int32 tensor that the kernel reads on the device, planned at a window
+bucket (:func:`attention_window`) that holds ``pos + T``: one launch
+captured in a CUDA graph then serves every slot of the bucket (the decode
+step of ``models/first_stage.py``, the speculative round of
+``models/spec_decode.py``), and an int ``pos`` is planned at the same
 bucket, so both give the same bits. The plain versions take either, read
-over the bucket with the slots past ``pos`` zeroed.
+over the bucket with the slots past ``pos + T - 1`` zeroed.
 
 Layout: the cache is sequence-major ``(L, S, B, H_kv, Dh)`` as in
 ``models/transformer.py``. Every function updates the caches IN PLACE at
@@ -94,13 +96,16 @@ def attention_window(n: int, seq_len: int) -> int:
     return min(w, seq_len)
 
 
-def _window_of(pos, window, seq_len: int) -> int:
-    """The window bucket a T = 1 call is planned at: ``window``, or by
-    default :func:`attention_window` of an int ``pos`` and the whole cache
-    for a tensor."""
+def _window_of(pos, window, seq_len: int, t: int = 1) -> int:
+    """The window a call of ``t`` new rows at ``pos`` is planned at:
+    ``window``, or by default the whole cache for a tensor ``pos``, and for
+    an int :func:`attention_window` of ``pos + 1`` at T = 1 and ``pos + t``
+    itself at T > 1 (the speculative verify's exact window)."""
     if window is not None:
         return window
-    return seq_len if isinstance(pos, torch.Tensor) else attention_window(int(pos) + 1, seq_len)
+    if isinstance(pos, torch.Tensor):
+        return seq_len
+    return attention_window(int(pos) + 1, seq_len) if t == 1 else int(pos) + t
 
 
 def _check_slot(pos, window, seq_len: int, device, who: str) -> int:
@@ -176,15 +181,17 @@ def _check(q, k_new, v_new, k_cache, v_cache, layer, pos, starts, window=None):
         )
     n_new = t[0] if t else 1
     if isinstance(pos, torch.Tensor):  # read on the device: the window bounds it
-        if pos.numel() != 1 or pos.dtype != torch.int32 or pos.device != q.device or n_new != 1:
-            raise ValueError(f"a device pos is one int32 on {q.device} for one new row, got "
-                             f"{tuple(pos.shape)} {pos.dtype} on {pos.device}")
-        if not (0 <= layer < k_cache.shape[0] and (window is None or 0 < window <= k_cache.shape[1])):
-            raise ValueError(f"layer {layer} / window {window} outside cache {tuple(k_cache.shape)}")
+        if pos.numel() != 1 or pos.dtype != torch.int32 or pos.device != q.device:
+            raise ValueError(f"a device pos is one int32 on {q.device}, got {tuple(pos.shape)} {pos.dtype} "
+                             f"on {pos.device}")
+        if not (0 <= layer < k_cache.shape[0] and (window is None or n_new <= window <= k_cache.shape[1])):
+            raise ValueError(f"layer {layer} / window {window} of {n_new} new rows outside cache "
+                             f"{tuple(k_cache.shape)}")
     elif not (0 <= layer < k_cache.shape[0] and 0 <= pos and pos + n_new <= k_cache.shape[1]):
         raise ValueError(f"layer {layer} / rows [{pos}, {pos + n_new}) outside cache {tuple(k_cache.shape)}")
-    elif window is not None and not pos < window <= k_cache.shape[1]:
-        raise ValueError(f"window {window} must hold pos {pos} and fit the cache {tuple(k_cache.shape)}")
+    elif window is not None and not pos + n_new <= window <= k_cache.shape[1]:
+        raise ValueError(f"window {window} must hold rows [{pos}, {pos + n_new}) and fit the cache "
+                         f"{tuple(k_cache.shape)}")
     tensors = (q, k_new, v_new, k_cache, v_cache)
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"all tensors must share one device, got {[t.device for t in tensors]}")
@@ -367,22 +374,23 @@ def decode_attention_multi_reference(q, k_new, v_new, k_cache, v_cache, layer, p
     write the T new rows at ``[pos, pos+T)``, f32 scores scaled by
     1/sqrt(Dh), query t masked to ``[starts[b], pos + t]`` (-1e30 outside),
     softmax, f32 weighted sum, output in q's dtype; kv head h // g serves
-    query head h (g = H / H_kv). Only slots ``[0, pos+T)`` enter the sums,
-    which keeps garbage (even NaN) past the window out of the result; a
-    start past ``pos`` is taken as ``pos``.
+    query head h (g = H / H_kv). The sums run over the window ``[0,
+    window)`` (:func:`_window_of`: by default ``[0, pos+T)`` for an int
+    ``pos`` at T > 1) with the values past ``pos + T - 1`` zeroed first,
+    which keeps garbage (even NaN) there out of the result; a start past
+    ``pos`` is taken as ``pos``.
 
-    At T = 1 ``pos`` may also be a one-element int tensor on q's device,
-    read on the device, and the sums run over the window ``[0, window)``
-    (:func:`_window_of`) with the values past ``pos`` zeroed first, as in
-    :func:`decode_attention_reference`: an int and a tensor ``pos`` in one
-    window give the same bits.
+    ``pos`` may also be a one-element int tensor on q's device, read on the
+    device (a T = 1 GQA step, or the speculative verify at T = gamma, in a
+    CUDA graph), as in :func:`decode_attention_reference`: an int and a
+    tensor ``pos`` in one window give the same bits.
     """
     b, h, t, dh = q.shape
     h_kv = k_new.shape[1]
     rows = _slot_tensor(pos, q.device) + torch.arange(t, device=q.device)
     k_cache[layer].index_copy_(0, rows, k_new.permute(2, 0, 1, 3).to(k_cache.dtype))
     v_cache[layer].index_copy_(0, rows, v_new.permute(2, 0, 1, 3).to(v_cache.dtype))
-    n = _window_of(pos, window, k_cache.shape[1]) if t == 1 else pos + t
+    n = _window_of(pos, window, k_cache.shape[1], t)
     last = rows[:1]  # query 0's last slot
     slot = torch.arange(n, device=q.device)
     lk = k_cache[layer, :n].float()  # (n, B, H_kv, Dh)
@@ -408,14 +416,16 @@ def decode_attention_multi(q, k_new, v_new, k_cache, v_cache, layer: int, pos, s
     caches: (L, S, B, H_kv, Dh), updated in place at rows ``[pos, pos+T)``
     of ``layer``; query t attends ``[starts[b], pos + t]``. T <= 16.
 
-    At T = 1 (a GQA decode step) ``pos`` may be a one-element int32 tensor
-    on q's device, read by the kernel on the device, and the call is
+    ``pos`` may be a one-element int32 tensor on q's device, read by the
+    kernel on the device, at T = 1 (a GQA decode step) and at T > 1 (the
+    speculative verify of a round captured in a CUDA graph); the call is
     planned at the window bucket ``window`` (``[0, window)``, holding
-    ``pos``; default :func:`attention_window` of an int ``pos``, the whole
-    cache for a tensor), as :func:`decode_attention` plans K1: an int and a
-    tensor ``pos`` in one window give the same bits. At T > 1 (the
-    speculative verify) ``pos`` is an int and the plan covers ``[0, pos +
-    T)``.
+    ``pos + T``; default: for an int ``pos`` :func:`attention_window` of
+    ``pos + 1`` at T = 1 and ``[0, pos + T)`` at T > 1, the whole cache for
+    a tensor), as :func:`decode_attention` plans K1: an int and a tensor
+    ``pos`` in one window give the same bits. The caller keeps a tensor
+    ``pos`` at or below ``window - T``; a split wholly past ``pos + T - 1``
+    leaves an empty partial.
 
     A CUDA tensor launches the hand-written kernel (one dtype of bf16/f32,
     head_dim 64 or 128, contiguous tensors) or raises; a CPU tensor takes
@@ -427,12 +437,9 @@ def decode_attention_multi(q, k_new, v_new, k_cache, v_cache, layer: int, pos, s
     b, h, t, dh = q.shape
     if not 1 <= t <= MULTI_MAX_T:
         raise ValueError(f"decode_attention_multi takes 1..{MULTI_MAX_T} query tokens, got {t}")
-    if t > 1 and window is not None:
-        raise ValueError("a window bucket is a T = 1 call's plan; T > 1 plans over [0, pos + T)")
     _check(q, k_new, v_new, k_cache, v_cache, layer, pos, starts, window)
     device_pos = isinstance(pos, torch.Tensor)
-    if t == 1:
-        window = _window_of(pos, window, k_cache.shape[1])
+    window = _window_of(pos, window, k_cache.shape[1], t)
     if q.device.type == "cpu":
         return decode_attention_multi_reference(q, k_new, v_new, k_cache, v_cache, layer, pos, starts, window)
     if q.device.type != "cuda":
@@ -441,7 +448,7 @@ def decode_attention_multi(q, k_new, v_new, k_cache, v_cache, layer: int, pos, s
     if starts is not None:
         starts = starts.to(torch.int32).contiguous()
     h_kv = k_new.shape[1]
-    split_len, n_splits = attention_plan(window if t == 1 else pos + t, b * h_kv, t * (h // h_kv))
+    split_len, n_splits = attention_plan(window, b * h_kv, t * (h // h_kv))
     part, tickets = _onepass_scratch(n_splits, b * h_kv, t * (h // h_kv), dh, q.device)
     y = torch.empty_like(q)
     err = _build.kernels().lib.mv_decode_attention_multi(
@@ -449,7 +456,7 @@ def decode_attention_multi(q, k_new, v_new, k_cache, v_cache, layer: int, pos, s
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(),
         None if starts is None else starts.data_ptr(),
-        b, h, h_kv, t, dh, k_cache.shape[1], layer, window - 1 if device_pos else pos,
+        b, h, h_kv, t, dh, k_cache.shape[1], layer, window - t if device_pos else pos,
         pos.data_ptr() if device_pos else None, split_len, n_splits,
         None if part is None else part.data_ptr(), None if tickets is None else tickets.data_ptr(),
         ATTN_TICKETS, y.data_ptr(),

@@ -216,6 +216,40 @@ def _rank_main(rank: int, world: int, backend: str, devices: list, timeout: floa
     dist.destroy_process_group()
 
 
+ERROR_GRACE_S = 5.0  # how long spawn waits for the other ranks' errors once one rank has failed
+# what a rank raises when a peer's process has gone: never the first failure when a rank raised its own
+PEER_LOST = ("closed by peer", "reset by peer", "Broken pipe")
+
+
+def _rank_errors(ctx, out_dir: str, world_size: int) -> list:
+    """The (timestamp, exception) of every rank that wrote one. The parent
+    learns of the first rank to exit, which need not be the first to fail:
+    it waits up to ``ERROR_GRACE_S`` for the ranks still alive to end (a
+    rank writes its error before it exits), then reads every error file."""
+    end = time.monotonic() + ERROR_GRACE_S
+    while any(p.is_alive() for p in ctx.processes) and time.monotonic() < end:
+        time.sleep(0.05)
+    errors = []
+    for r in range(world_size):
+        path = os.path.join(out_dir, f"error_{r}.pkl")
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                errors.append(pickle.load(f))
+    return errors
+
+
+def first_failure(errors: list) -> BaseException:
+    """The failure that ended a world, from each failed rank's (timestamp,
+    exception): the earliest a rank raised of its own. A rank that lost its
+    connection to a peer (``PEER_LOST``) failed because that peer had
+    already failed, whatever the order of their timestamps (a rank stamps
+    its error only once it has unwound, so the peer whose connection it
+    closed can stamp first); such an error is chosen only when there is no
+    other."""
+    own = [te for te in errors if not any(m in str(te[1]) for m in PEER_LOST)]
+    return min(own or errors, key=lambda te: te[0])[1]
+
+
 def _device_name(device) -> str:
     """A rank's device by name; "cuda" alone is the first card."""
     dev = torch.device(device)
@@ -237,8 +271,9 @@ def spawn(fn, world_size: int, *, args: tuple = (), backend: str | None = None, 
     the whole run may take (None: ``DEADLINE_TIMEOUTS`` collective timeouts;
     ``math.inf``: no limit, for a server), after which the ranks are stopped
     and ``TimeoutError`` raised. A rank that raises ends the run: the other
-    ranks are stopped, and the first exception any rank raised is raised
-    here (chained to a failed rank's traceback). The processes start with
+    ranks are stopped, and the first exception any rank raised of its own is
+    raised here (:func:`first_failure`, chained to a failed rank's
+    traceback). The processes start with
     the ``spawn`` method (a parent that has used CUDA cannot fork), and the
     group meets through a ``file://``
     store in a new temporary directory, so runs side by side never share a
@@ -281,14 +316,9 @@ def spawn(fn, world_size: int, *, args: tuple = (), backend: str | None = None, 
                 if time.monotonic() > end:
                     raise TimeoutError(f"the {world_size} ranks did not finish within {deadline} s")
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:  # an exit, e.g. SystemExit, too
-            errors = []
-            for r in range(world_size):
-                path = os.path.join(out_dir, f"error_{r}.pkl")
-                if os.path.exists(path):
-                    with open(path, "rb") as f:
-                        errors.append(pickle.load(f))
+            errors = _rank_errors(ctx, out_dir, world_size)
             if errors:  # the first failure, not a peer's failed collective after it
-                raise min(errors, key=lambda te: te[0])[1] from e
+                raise first_failure(errors) from e
             raise
         finally:
             for p in ctx.processes:

@@ -74,6 +74,9 @@ space, lives on the same device, and is dense or int4-packed
 through the int4 decode-stack kernel). ``spec_stats`` accumulates the
 acceptance ledger. As in the JAX package the speculative path refuses
 tensor parallelism and keeps bf16 caches whatever ``kv_cache_dtype`` is.
+The draft's caches persist across calls as the target's do, so that on the
+card every round replays the CUDA graphs of the round captured on them
+(``spec_decode.RoundGraphs``, ``warmup`` captures every window bucket).
 
 Tensor parallelism: ``TTS(..., tensor_parallel=N)`` inside an initialized
 process group whose tensor groups hold N ranks (one process a rank, started
@@ -393,6 +396,8 @@ class TTS:
         # 3-row one for (speaker, prompt) guidance made at its first use
         self._kv_cache = self._create_kv_cache(2)
         self._kv_cache3: tfm.KVCache | None = None
+        # with a draft, its caches, one a row count (the guidance rows, or 1 for a CFG-free draft), made at first use
+        self._draft_kv_caches: dict[int, tfm.KVCache] = {}
         # seconds per stage of the last synthesise or stream (the second
         # stage + vocoder under "stage2_vocode_fused"; with the MBD vocoder
         # "stage2" and "vocoder_mbd"); the first
@@ -425,6 +430,15 @@ class TTS:
         if self._kv_cache3 is None:
             self._kv_cache3 = self._create_kv_cache(3)
         return self._kv_cache3
+
+    def _draft_kv_cache(self, guidance_scale) -> tfm.KVCache:
+        """The draft's reusable cache for this request's guidance rows."""
+        rows = fs._normalize_guidance(guidance_scale)[2] if self._draft_use_cfg else 1
+        if rows not in self._draft_kv_caches:
+            dcfg = self._draft_cfg
+            self._draft_kv_caches[rows] = tfm.KVCache.create(dcfg, rows, dcfg.block_size, device=self.device,
+                                                             dtype=self._compute_dtype)
+        return self._draft_kv_caches[rows]
 
     @classmethod
     def from_random(cls, *, small: bool = False, device="cuda", seed: int = 0,
@@ -587,8 +601,9 @@ class TTS:
           * per guidance variant, on the card, the decode step of the
             persistent cache captured in a CUDA graph at every window bucket
             (``first_stage.capture_decode_graphs``; every route but tensor
-            parallelism's and the speculative round's), so that no request
-            is the first to capture one;
+            parallelism's), or with a draft the speculative round on the
+            persistent caches (``spec_decode.capture_spec_graphs``), so that
+            no request is the first to capture one;
           * the second stage + EnCodec vocoder (``stage2_vocode``) at every
             vocoder bucket up to ``vocoder_frame_buckets[-1]`` frames (with
             ``vocoder="mbd"`` too: the JAX package's warmup runs no MBD).
@@ -618,23 +633,30 @@ class TTS:
                     sd.generate_spec(
                         self.c.first_stage_params, cfg1, self._draft_params, self._draft_cfg, padded, spk,
                         gamma=self._spec_gamma, draft_use_cfg=self._draft_use_cfg,
-                        max_new_tokens=self._spec_gamma + 1, **common,
+                        max_new_tokens=self._spec_gamma + 1, draft_kv_cache=self._draft_kv_cache(g), **common,
                     )
         t_graphs = time.perf_counter()
         graph_steps = 0
-        if self._draft_params is None and self.mesh.tensor_group is None:
-            for g in guidance_variants:
-                rows = fs._normalize_guidance(g)[2]
+        for g in guidance_variants if self.mesh.tensor_group is None else ():
+            rows = fs._normalize_guidance(g)[2]
+            if self._draft_params is None:
                 graph_steps += fs.capture_decode_graphs(
                     self.c.first_stage_params, cfg1, self._persistent_kv_cache(g), spk[None], cfg_rows=rows,
                     end_of_text_token=eot, compute_dtype=self._compute_dtype, generator=gen)
+            else:
+                graph_steps += sd.capture_spec_graphs(
+                    self.c.first_stage_params, cfg1, self._draft_params, self._draft_cfg,
+                    self._persistent_kv_cache(g), self._draft_kv_cache(g), spk, gamma=self._spec_gamma,
+                    cfg_rows=rows, draft_use_cfg=self._draft_use_cfg, end_of_text_token=eot,
+                    compute_dtype=self._compute_dtype, generator=gen)
         t_graphs = time.perf_counter() - t_graphs
         for n_audio in vocoder_frame_buckets if self.mesh.leader else ():
             self._render(prompt, [list(range(n_audio))] * 2, spk, gen, vocoder="encodec")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        print(f"TTS.warmup: {time.perf_counter() - t0:.2f} s ({t_graphs:.2f} s for {graph_steps} steps capturing "
-              "decode graphs)")
+        print(f"TTS.warmup: {time.perf_counter() - t0:.2f} s ({t_graphs:.2f} s for {graph_steps} "
+              f"{'rounds capturing speculative' if self._draft_params is not None else 'steps capturing decode'} "
+              "graphs)")
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -814,7 +836,7 @@ class TTS:
                     self.c.first_stage_params, self.c.first_stage_cfg,
                     self._draft_params, self._draft_cfg, prompt, spk_emb,
                     gamma=self._spec_gamma, draft_use_cfg=self._draft_use_cfg,
-                    return_stats=True, **common,
+                    draft_kv_cache=self._draft_kv_cache(guidance_scale), return_stats=True, stats=stats, **common,
                 )
                 for k, n in spec.items():
                     self.spec_stats[k] += n
@@ -822,8 +844,9 @@ class TTS:
             else:
                 seq = fs.generate(self.c.first_stage_params, self.c.first_stage_cfg, prompt, spk_emb, stats=stats, tp=self.mesh.tensor_group,
                                   **common)
-        if "decode_route" in stats:
-            self.stats["decode_route"] = stats.pop("decode_route")
+        for name in ("decode_route", "spec_loop"):  # words, not counts
+            if name in stats:
+                self.stats[name] = stats.pop(name)
         for k, n in stats.items():
             self.stats[k] = self.stats.get(k, 0) + n
         for k, n in launch_counts().items():

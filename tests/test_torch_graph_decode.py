@@ -347,7 +347,7 @@ def test_route_table_names_every_route(model):
     assert fs.step_route(Q.quantize_params_int8_i32(wide), wide_cfg, 2, wkv) == "K7"
     wq8 = tfm.KVCache.create(wide_cfg, 2, dtype="int8", device="cpu")
     assert fs.step_route(Q.quantize_params_int4_i32(wide), wide_cfg, 2, wq8) == "K5/K6"
-    assert {r for r, how in fs.DECODE_ROUTES.items() if how == "eager"} == {"TP", "spec"}
+    assert {r for r, how in fs.DECODE_ROUTES.items() if how == "eager"} == {"TP"}
 
 
 class _StubGraph:

@@ -351,10 +351,10 @@ def test_device_pos_is_checked():
     host, st = _k4_args(10, None, False)
     with pytest.raises(ValueError, match="device pos is one int32"):
         A.decode_attention_multi(*host, torch.tensor(10), st)
-    with pytest.raises(ValueError, match="window bucket is a T = 1"):
+    with pytest.raises(ValueError, match=r"window 384 must hold rows \[383, 385\)"):  # T = 2 past the bucket
         q, kn, vn, kc, vc, layer = host
         A.decode_attention_multi(q.repeat(1, 1, 2, 1), kn.repeat(1, 1, 2, 1), vn.repeat(1, 1, 2, 1), kc, vc, layer,
-                                 10, window=384)
+                                 383, window=384)
     w = _w4()
     _, kv = _block_cache("int8", 10, False, 2, 2)
     xa = torch.zeros(2, 1024, dtype=torch.bfloat16)

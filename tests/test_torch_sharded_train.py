@@ -425,3 +425,18 @@ def test_a_world_out_of_step_ends_in_an_error():
     with pytest.raises(RuntimeError, match="Timed out"):
         pmesh.spawn(_falls_out_of_step, 2, devices=["cpu"] * 2, timeout=timeout)
     assert time.monotonic() - t0 < pmesh.DEADLINE_TIMEOUTS * timeout
+
+
+@pytest.mark.parametrize("peer_first", [True, False])
+def test_a_peer_lost_connection_stamped_first_is_not_the_failure(peer_first):
+    """The rank whose connection the failing rank closed can stamp its error
+    first: ``spawn`` raises the failing rank's own error all the same, and
+    a lost connection only when no rank raised one of its own."""
+    timed_out = RuntimeError("[../third_party/gloo/gloo/transport/tcp/unbound_buffer.cc:81] Timed out waiting 10000ms")
+    lost = RuntimeError("[../third_party/gloo/gloo/transport/tcp/pair.cc:534] Connection closed by peer [::1]:43127")
+    stamps = (1.0, 2.0) if peer_first else (2.0, 1.0)
+    errors = [(stamps[0], lost), (stamps[1], timed_out)]
+    assert pmesh.first_failure(errors) is timed_out
+    assert pmesh.first_failure(errors[:1]) is lost
+    later = ValueError("a later failure of its own")
+    assert pmesh.first_failure(errors + [(3.0, later)]) is timed_out
